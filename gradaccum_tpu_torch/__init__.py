@@ -1,0 +1,9 @@
+"""gradaccum_tpu_torch: the PyTorch/CUDA port of gradaccum_tpu for NVIDIA Hopper.
+
+A second package beside the JAX one, module for module: the same gradient-
+accumulation train step (K micro-batches, average, clip, AdamW with warmup
+and polynomial decay), the BERT classifier, and the flash-attention kernels
+rewritten by hand in CUDA C++ for sm_90a (``csrc/``). It imports torch and
+never jax or gradaccum_tpu. Entry points run on the card unless the caller
+asks for the CPU, where every kernel's plain PyTorch version runs instead.
+"""

@@ -1,0 +1,81 @@
+"""Carry weights between the JAX package's flax trees and the port's modules.
+
+``params_from_jax`` turns a flax parameter tree (nested dicts of numpy
+arrays, e.g. ``jax.device_get(params)``) into a torch ``state_dict`` for
+the port's mirrored module tree; ``params_to_jax`` is the inverse, from a
+``{jax_name: tensor}`` dictionary (:func:`..utils.tree.named_parameters`,
+or gradients keyed the same way) or from a module. The mapping:
+
+- Dense ``kernel`` [in, out]  <->  ``Linear.weight`` [out, in]
+- ``bias``                    <->  ``bias``
+- LayerNorm ``scale``         <->  ``LayerNorm.weight``
+- Embed ``embedding``         <->  ``Embedding.weight``
+
+Names stay the JAX package's, since the optimizer's weight-decay exclusion
+regex-searches them: a renamed leaf would silently change which weights
+decay.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from gradaccum_tpu_torch.utils.tree import named_parameters
+
+_TO_TORCH_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+                  "bias": "bias"}
+
+
+def _flatten(tree, prefix=()):
+    if isinstance(tree, Mapping):
+        for key in sorted(tree):
+            yield from _flatten(tree[key], prefix + (str(key),))
+    else:
+        yield prefix, tree
+
+
+def state_dict_key(jax_name: str) -> str:
+    """``params/bert/pooler/kernel`` -> ``bert.pooler.weight``."""
+    parts = jax_name.split("/")
+    if parts[0] == "params":
+        parts = parts[1:]
+    leaf = _TO_TORCH_LEAF.get(parts[-1])
+    if leaf is None:
+        raise KeyError(f"no torch counterpart for leaf {parts[-1]!r} of {jax_name}")
+    return ".".join(parts[:-1] + [leaf])
+
+
+def params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """A flax parameter tree -> a torch ``state_dict`` (float tensors on the
+    CPU; ``module.load_state_dict`` moves them to the module's device)."""
+    out = {}
+    for path, leaf in _flatten(tree):
+        arr = np.asarray(leaf)
+        if path[-1] == "kernel":
+            if arr.ndim != 2:
+                raise ValueError(f"{'/'.join(path)}: only 2-D Dense kernels map to Linear")
+            arr = arr.T
+        out[state_dict_key("/".join(path))] = torch.tensor(arr)  # a copy: jax arrays are read-only
+    return out
+
+
+def params_to_jax(named: Union[nn.Module, Dict[str, torch.Tensor]]):
+    """``{jax_name: tensor}`` (or a module) -> a nested flax-shaped dict of
+    float32 numpy arrays, kernels transposed back to [in, out]."""
+    if isinstance(named, nn.Module):
+        named = named_parameters(named)
+    tree: dict = {}
+    for name, t in named.items():
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        if name.endswith("/kernel"):
+            arr = arr.T
+        node = tree
+        *parents, leaf = name.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree

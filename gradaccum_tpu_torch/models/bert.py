@@ -1,0 +1,299 @@
+"""BERT encoder + classification head for the port.
+
+The port of ``gradaccum_tpu/models/bert.py``: post-LayerNorm transformer
+encoder, exact-erf GELU FFN at 4x hidden, learned position embeddings, tanh
+pooler over [CLS] and a float32 classifier head. The module tree and its
+submodule names mirror the flax one, so every parameter keeps its JAX path
+name (``utils/tree.py``) and the weights carry across
+(``interop.py``).
+
+``BertConfig.dtype`` is the compute dtype: parameters stay float32, each
+Dense casts its input and weights to it (bfloat16 on the card's main path),
+LayerNorm computes in float32 and returns the compute dtype, and the head
+and loss stay float32 — as flax's ``dtype=`` does.
+
+Dropout draws from the explicit ``torch.Generator`` a batch carries under
+``"rng"``; attention dropout goes into the flash kernels as a rate and a
+seed drawn from that generator (``attention_fn.inkernel_dropout``).
+Not ported yet (ROADMAP.md): MoE layers, ``seq_axis`` (sequence
+parallelism), remat, the sparse-embedding hooks and ``compute_dtype``
+parameter storage; asking for them raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from gradaccum_tpu_torch.estimator.estimator import ModelBundle
+from gradaccum_tpu_torch.estimator.metrics import accuracy
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 30522
+    hidden_size: int = 512  # H
+    num_layers: int = 4  # L
+    num_heads: int = 8  # A
+    intermediate_size: int = 2048  # 4H
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    layer_norm_eps: float = 1e-12
+    dtype: Any = torch.float32
+    num_experts: int = 0  # MoE FFN: not ported, must stay 0
+
+    @staticmethod
+    def small(**kw) -> "BertConfig":
+        return BertConfig(**kw)
+
+    @staticmethod
+    def tiny_for_tests(**kw) -> "BertConfig":
+        return BertConfig(vocab_size=128, hidden_size=32, num_layers=2, num_heads=2,
+                          intermediate_size=64, max_position_embeddings=64, **kw)
+
+
+def dense_attention(q, k, v, mask, dropout_fn=None):
+    """Plain attention core: full [B, heads, S, S] scores.
+
+    ``q, k, v``: [B, heads, S, head_dim]; ``mask``: [B, 1, 1, S] additive.
+    """
+    depth = torch.tensor(q.shape[-1], dtype=q.dtype, device=q.device)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / torch.sqrt(depth)
+    if mask is not None:
+        scores = scores + mask
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    if dropout_fn is not None:
+        probs = dropout_fn(probs)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+def dropout(x, rate: float, generator: torch.Generator):
+    """flax ``nn.Dropout``: keep with probability 1 - rate, scale the kept
+    values by 1/(1 - rate). The mask comes from ``generator``."""
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense(dtype=...)``: float32 parameters, the product in the
+    compute dtype."""
+
+    def __init__(self, in_features: int, out_features: int, dtype):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm(dtype=...)``: statistics and affine in float32,
+    the result in the compute dtype."""
+
+    def __init__(self, features: int, eps: float, dtype):
+        super().__init__(features, eps=eps)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        return y.to(self.compute_dtype)
+
+
+class Embed(nn.Embedding):
+    """flax ``nn.Embed(dtype=...)``: a float32 table, rows in the compute dtype."""
+
+    def __init__(self, num: int, features: int, dtype):
+        super().__init__(num, features)
+        self.compute_dtype = dtype
+
+    def forward(self, ids):
+        return super().forward(ids.long()).to(self.compute_dtype)
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, config: BertConfig, attention_fn: Callable = dense_attention):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        self.attention_fn = attention_fn
+        for name in ("query", "key", "value", "output"):
+            self.add_module(name, Dense(cfg.hidden_size, cfg.hidden_size, cfg.dtype))
+
+    def forward(self, x, mask, deterministic: bool, generator=None):
+        cfg = self.config
+        b, s, _ = x.shape
+        head_dim = cfg.hidden_size // cfg.num_heads
+
+        def split_heads(t):
+            return t.reshape(b, s, cfg.num_heads, head_dim).transpose(1, 2).contiguous()
+
+        q, k, v = (split_heads(layer(x)) for layer in (self.query, self.key, self.value))
+        dropout_fn, extra = None, {}
+        if cfg.attention_dropout > 0 and not deterministic:
+            if getattr(self.attention_fn, "inkernel_dropout", False):
+                # the flash kernels never materialize the probabilities a
+                # dropout_fn would act on: they take a rate and a seed
+                extra = dict(dropout_rate=cfg.attention_dropout, generator=generator)
+            else:
+                dropout_fn = lambda p: dropout(p, cfg.attention_dropout, generator)  # noqa: E731
+        ctx = self.attention_fn(q, k, v, mask, dropout_fn, **extra)
+        ctx = ctx.transpose(1, 2).reshape(b, s, cfg.hidden_size)
+        return self.output(ctx)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, config: BertConfig, attention_fn: Callable = dense_attention):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        self.attention = SelfAttention(cfg, attention_fn)
+        self.attention_LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.dtype)
+        self.intermediate = Dense(cfg.hidden_size, cfg.intermediate_size, cfg.dtype)
+        self.ffn_output = Dense(cfg.intermediate_size, cfg.hidden_size, cfg.dtype)
+        self.output_LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.dtype)
+
+    def _drop(self, x, deterministic, generator):
+        rate = self.config.hidden_dropout
+        return x if deterministic or rate == 0 else dropout(x, rate, generator)
+
+    def forward(self, x, mask, deterministic: bool, generator=None):
+        attn_out = self.attention(x, mask, deterministic, generator)
+        attn_out = self._drop(attn_out, deterministic, generator)
+        # post-LN (original BERT): LN(x + sublayer(x))
+        x = self.attention_LayerNorm(x + attn_out)
+        ffn = self.ffn_output(F.gelu(self.intermediate(x)))  # exact erf GELU
+        ffn = self._drop(ffn, deterministic, generator)
+        return self.output_LayerNorm(x + ffn)
+
+
+class BertEncoder(nn.Module):
+    def __init__(self, config: BertConfig, attention_fn: Callable = dense_attention):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        self.word_embeddings = Embed(cfg.vocab_size, cfg.hidden_size, cfg.dtype)
+        self.position_embeddings = Embed(cfg.max_position_embeddings, cfg.hidden_size,
+                                         cfg.dtype)
+        self.token_type_embeddings = Embed(cfg.type_vocab_size, cfg.hidden_size, cfg.dtype)
+        self.embeddings_LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.dtype)
+        # layer_<i>, not a ModuleList: the names are the flax module names
+        for i in range(cfg.num_layers):
+            self.add_module(f"layer_{i}", EncoderLayer(cfg, attention_fn))
+
+    def forward(self, input_ids, input_mask=None, segment_ids=None,
+                deterministic: bool = True, generator=None):
+        cfg = self.config
+        b, s = input_ids.shape
+        dev = input_ids.device
+        if input_mask is None:
+            input_mask = torch.ones((b, s), dtype=torch.int32, device=dev)
+        if segment_ids is None:
+            segment_ids = torch.zeros((b, s), dtype=torch.int32, device=dev)
+        positions = torch.arange(s, device=dev)[None, :]
+        x = (self.word_embeddings(input_ids) + self.position_embeddings(positions)
+             + self.token_type_embeddings(segment_ids))
+        x = self.embeddings_LayerNorm(x)
+        if not deterministic and cfg.hidden_dropout > 0:
+            x = dropout(x, cfg.hidden_dropout, generator)
+        # additive mask: 0 where attended, -1e9 where padded
+        mask = (1.0 - input_mask[:, None, None, :].float()) * -1e9
+        mask = mask.to(cfg.dtype)
+        for i in range(cfg.num_layers):
+            x = getattr(self, f"layer_{i}")(x, mask, deterministic, generator)
+        return x
+
+
+class BertClassifier(nn.Module):
+    """Encoder + tanh pooler + dropout classifier (run_classifier.py's head)."""
+
+    def __init__(self, config: BertConfig, num_classes: int = 2,
+                 attention_fn: Callable = dense_attention):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        self.bert = BertEncoder(cfg, attention_fn)
+        self.pooler = Dense(cfg.hidden_size, cfg.hidden_size, cfg.dtype)
+        self.classifier = Dense(cfg.hidden_size, num_classes, torch.float32)
+
+    def forward(self, input_ids, input_mask=None, segment_ids=None,
+                deterministic: bool = True, generator=None):
+        cfg = self.config
+        seq = self.bert(input_ids, input_mask, segment_ids, deterministic, generator)
+        pooled = torch.tanh(self.pooler(seq[:, 0]))
+        if not deterministic and cfg.hidden_dropout > 0:
+            pooled = dropout(pooled, cfg.hidden_dropout, generator)
+        return self.classifier(pooled.float())
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Random weights from ``generator`` (on the CPU, so a seed gives the
+    same weights on every device): lecun-normal Dense kernels, unit-variance
+    rows scaled by 1/sqrt(width) for embeddings, zero biases, unit
+    LayerNorm scales."""
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear):
+            std = 1.0 / math.sqrt(mod.in_features)
+            mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator) * std)
+            mod.bias.zero_()
+        elif isinstance(mod, nn.Embedding):
+            std = 1.0 / math.sqrt(mod.embedding_dim)
+            mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator) * std)
+        elif isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+
+
+def bert_classifier_bundle(config: BertConfig, num_classes: int = 2,
+                           attention_fn: Callable = dense_attention,
+                           seq_axis: Optional[str] = None,
+                           compute_dtype: Any = None) -> ModelBundle:
+    """ModelBundle for CoLA/Yelp-style sequence classification.
+
+    Batches: ``{"input_ids": [B,S], "input_mask": [B,S], "segment_ids":
+    [B,S], "label": [B]}`` integer tensors, plus the harness's ``"rng"``
+    generator for dropout (``needs_rng=True``). ``init(seed, device)``
+    builds the model with random weights from ``seed``.
+    """
+    if seq_axis is not None:
+        raise NotImplementedError("sequence-parallel BERT (seq_axis) is not ported yet")
+    if config.num_experts:
+        raise NotImplementedError("MoE BERT (num_experts > 0) is not ported yet")
+    if compute_dtype is not None:
+        raise NotImplementedError(
+            "compute_dtype parameter storage needs master weights, not ported yet; "
+            "set BertConfig.dtype for the compute dtype instead")
+
+    def init(seed: int, device) -> BertClassifier:
+        model = BertClassifier(config, num_classes, attention_fn)
+        init_weights(model, torch.Generator().manual_seed(seed))
+        return model.to(device)
+
+    def _logits(model, batch, deterministic):
+        return model(batch["input_ids"], batch.get("input_mask"), batch.get("segment_ids"),
+                     deterministic, batch.get("rng"))
+
+    def loss(model, batch):
+        logits = _logits(model, batch, deterministic=False)
+        # scatter, not F.one_hot: one_hot range-checks its input on the host,
+        # a device sync per micro-batch
+        onehot = torch.zeros_like(logits).scatter_(-1, batch["label"].long()[:, None], 1.0)
+        return -torch.mean(torch.sum(onehot * F.log_softmax(logits, dim=-1), dim=-1))
+
+    @torch.no_grad()
+    def predict(model, batch):
+        logits = _logits(model, batch, deterministic=True)
+        return {"logits": logits, "classes": torch.argmax(logits, dim=-1),
+                "probabilities": torch.softmax(logits, dim=-1)}
+
+    return ModelBundle(init=init, loss=loss, predict=predict,
+                       eval_metrics={"accuracy": accuracy()}, needs_rng=True)

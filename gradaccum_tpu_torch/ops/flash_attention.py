@@ -1,0 +1,432 @@
+"""Fused flash attention on Hopper: forward, dq and dk/dv kernels.
+
+The port of ``gradaccum_tpu/ops/flash_attention.py``. The three Pallas
+kernels of the TPU package become three hand-written CUDA kernels in
+``csrc/flash_attention.cu`` (forward ``_fwd_kernel``, ``_dq_kernel`` and
+``_dkv_kernel``); the design and what bounds each one are noted there.
+The forward saves only ``o`` and the per-row logsumexp; the backward
+recomputes each score from q, k and the logsumexp, never materializing the
+[S, S] matrix on the card.
+
+Beside each kernel is its plain PyTorch version
+(:func:`flash_forward_reference`, :func:`flash_backward_reference`): dense
+math with the same formulas. :func:`flash_attention` sends CUDA tensors to
+the kernels and CPU tensors to the plain versions; there is no fallback
+from one to the other.
+
+Attention dropout is the JAX package's stateless hash (murmur3 finalizer
+over seed, (batch, head) slice, query and key position). It gives the same
+keep/drop bits as the TPU kernels for the same uint32 seed, so a test can
+hold the port against JAX exactly; :func:`dropout_keep_mask` rebuilds the
+mask outside the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+_NEG_INF = -1e30
+_MASK32 = 0xFFFFFFFF
+_M1 = 0x85EBCA6B
+_M2 = 0xC2B2AE35
+_GOLDEN = 0x9E3779B9
+_SUPPORTED_D = (16, 32, 64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# --------------------------------------------------------------------------
+# Hash dropout (the kernels' device function, as plain int64 tensor math)
+# --------------------------------------------------------------------------
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for int64 ``x`` in [0, 2**32) and a 32-bit
+    constant ``c``: the full product would overflow int64, so multiply the
+    16-bit halves of ``x`` separately (each product stays below 2**48)."""
+    lo = (x & 0xFFFF) * c
+    hi = (((x >> 16) * c) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def _hash_u32(x: torch.Tensor) -> torch.Tensor:
+    x = x ^ (x >> 16)
+    x = _mul32(x, _M1)
+    x = x ^ (x >> 13)
+    x = _mul32(x, _M2)
+    return x ^ (x >> 16)
+
+
+def _dropout_config(dropout_rate: float):
+    keep_prob = 1.0 - dropout_rate
+    # clamp: a rate tiny enough that round() hits 2**32 would wrap the
+    # uint32 threshold to 0 and drop everything instead of nearly nothing
+    threshold = min(round(keep_prob * float(2**32)), 2**32 - 1)
+    return threshold, 1.0 / keep_prob
+
+
+def dropout_keep_mask(seed, batch: int, num_heads: int, seq: int, rate: float,
+                      device=None) -> torch.Tensor:
+    """The [B, H, S, S] bool keep mask the kernels derive from ``seed`` (an
+    int or a one-element integer tensor holding a uint32): slice seed from
+    ``seed + (b*H + h)·GOLDEN``, row seed from the query position, then the
+    key position. Equal, bit for bit, to the JAX package's mask."""
+    threshold, _ = _dropout_config(rate)
+    if device is None:
+        device = seed.device if isinstance(seed, torch.Tensor) else "cpu"
+    seed = torch.as_tensor(seed, dtype=torch.int64, device=device).reshape(()) & _MASK32
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
+    bh = (ar(batch)[:, None] * num_heads + ar(num_heads)[None, :])[..., None, None]
+    slice_seed = _hash_u32((seed + _mul32(bh, _GOLDEN)) & _MASK32)
+    row_seed = _hash_u32((ar(seq)[:, None] + _mul32(slice_seed, _GOLDEN)) & _MASK32)
+    return _hash_u32((ar(seq) + _mul32(row_seed, _GOLDEN)) & _MASK32) < threshold
+
+
+# --------------------------------------------------------------------------
+# Plain versions (dense PyTorch, float32 math)
+# --------------------------------------------------------------------------
+
+
+def _scores(q, k, mask, causal):
+    """float32 S = q·kᵀ/√D + mask, with the causal triangle at -1e30."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / q.shape[-1] ** 0.5)
+    if mask is not None:
+        s = s + mask.float()
+    if causal:
+        n = q.shape[-2]
+        above = torch.ones(n, n, dtype=torch.bool, device=q.device).triu(1)
+        s = s.masked_fill(above, _NEG_INF)
+    return s
+
+
+def flash_forward_reference(q, k, v, mask, seed, causal: bool, rate: float):
+    """Plain version of the forward kernel: ``(o, lse)`` with ``o`` in the
+    input dtype and ``lse`` [B, H, S, 1] float32. The normalizer sums the
+    undropped probabilities; the keep mask scales P by 1/keep before P·V."""
+    s = _scores(q, k, mask, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)  # noqa: E741
+    if rate > 0.0:
+        b, h, n, _ = q.shape
+        _, inv_keep = _dropout_config(rate)
+        keep = dropout_keep_mask(seed, b, h, n, rate, device=q.device)
+        p = torch.where(keep, p * inv_keep, 0.0)
+    o = torch.matmul(p, v.float()) / l
+    return o.to(q.dtype), m + torch.log(l)
+
+
+def flash_backward_reference(q, k, v, mask, seed, o, lse, g, causal: bool,
+                             rate: float):
+    """Plain version of the dq and dk/dv kernels:
+    ``(dq, dk, dv, dmask_per_head)``, the last [B, H, 1, S] float32 (None
+    without a mask). P = exp(S − lse); dP = dO·Vᵀ dropped like the forward;
+    Δ = rowsum(dO ⊙ O); dS = P ⊙ (dP − Δ)."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    p = torch.exp(_scores(q, k, mask, causal) - lse)
+    gf = g.float()
+    dp = torch.matmul(gf, v.float().transpose(-1, -2))
+    p_dropped = p
+    if rate > 0.0:
+        b, h, n, _ = q.shape
+        _, inv_keep = _dropout_config(rate)
+        keep = dropout_keep_mask(seed, b, h, n, rate, device=q.device)
+        dp = torch.where(keep, dp * inv_keep, 0.0)
+        p_dropped = torch.where(keep, p * inv_keep, 0.0)
+    delta = _delta(g, o)
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    dv = torch.matmul(p_dropped.transpose(-1, -2), gf)
+    dmask = ds.sum(dim=-2, keepdim=True) if mask is not None else None
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dmask
+
+
+def _delta(g, o):
+    """Δ_i = Σ_d dO_id·O_id in float32 — equal to rowsum(drop(P) ⊙ dP), the
+    softmax-backward row correction, with or without dropout."""
+    return torch.sum(g.float() * o.float(), dim=-1, keepdim=True)
+
+
+# --------------------------------------------------------------------------
+# CUDA kernels
+# --------------------------------------------------------------------------
+
+_lib: Optional[ctypes.CDLL] = None
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_U = ctypes.c_uint32
+_COMMON_TAIL = [_I, _I, _I, _F, _I, _U, _F, _I, _P]  # B H S scale causal thr inv drop stream
+
+
+def build_kernels() -> ctypes.CDLL:
+    """Build (at first call) and load ``csrc/flash_attention.cu``."""
+    global _lib
+    if _lib is None:
+        from gradaccum_tpu_torch.utils import cuda_build
+
+        lib = cuda_build.load("flash_attention")
+        lib.flash_fwd.argtypes = [_I, _I, _P, _P, _P, _P, _P, _P, _P] + _COMMON_TAIL
+        lib.flash_bwd_dq.argtypes = (
+            [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P] + _COMMON_TAIL
+        )
+        lib.flash_bwd_dkv.argtypes = (
+            [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P] + _COMMON_TAIL
+        )
+        for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
+            fn.restype = _I
+        _lib = lib
+    return _lib
+
+
+def _check_inputs(q, k, v, mask, *rest):
+    if q.device.type != "cuda":
+        raise ValueError(f"the flash kernels take CUDA tensors, got {q.device}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the flash kernels take float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B, H, S, D], got shape {tuple(q.shape)}")
+    b, h, s, d = q.shape
+    if d not in _SUPPORTED_D:
+        raise ValueError(f"head dim {d} not in {_SUPPORTED_D}")
+    if s < 1:
+        raise ValueError("sequence length must be >= 1")
+    for name, t in (("k", k), ("v", v)) + tuple(rest):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(
+                f"{name} must match q ({tuple(q.shape)}, {q.dtype}, {q.device}); "
+                f"got {tuple(t.shape)}, {t.dtype}, {t.device}"
+            )
+    if mask is not None and (
+        mask.shape != (b, 1, 1, s) or mask.dtype != q.dtype or mask.device != q.device
+    ):
+        raise ValueError(
+            f"mask must be [{b}, 1, 1, {s}] {q.dtype} on {q.device}; got "
+            f"{tuple(mask.shape)} {mask.dtype} on {mask.device}"
+        )
+    for t in (q, k, v, mask) + tuple(x for _, x in rest):
+        if t is not None and not t.is_contiguous():
+            raise ValueError("the flash kernels take contiguous tensors")
+
+
+def _check_rows(q, *rows):
+    b, h, s, _ = q.shape
+    for t in rows:
+        if t.shape != (b, h, s, 1) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                f"lse/delta must be contiguous float32 [{b}, {h}, {s}, 1]; got "
+                f"{tuple(t.shape)} {t.dtype}"
+            )
+
+
+def _seed_tensor(seed, rate, device):
+    """The dropout seed as a one-element int64 tensor on the card (the
+    kernels read it there, so a seed drawn on the card never syncs)."""
+    if rate <= 0.0:
+        return None
+    if seed is None:
+        raise ValueError("dropout_rate > 0 requires a seed")
+    t = torch.as_tensor(seed, dtype=torch.int64).reshape(1)
+    return t.to(device) if t.device != device else t.contiguous()
+
+
+def _scalar_args(q, causal, rate):
+    b, h, s, d = q.shape
+    threshold, inv_keep = _dropout_config(rate) if rate > 0.0 else (0, 1.0)
+    return [b, h, s, 1.0 / d ** 0.5, int(causal), threshold, inv_keep,
+            int(rate > 0.0), torch.cuda.current_stream(q.device).cuda_stream]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with cudaError {err}")
+
+
+def flash_fwd_cuda(q, k, v, mask, seed, causal: bool, rate: float):
+    """K1 on the card: ``(o, lse)`` as :func:`flash_forward_reference`."""
+    _check_inputs(q, k, v, mask)
+    lib = build_kernels()
+    seed_t = _seed_tensor(seed, rate, q.device)
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:-1] + (1,), dtype=torch.float32, device=q.device)
+    err = lib.flash_fwd(
+        _DTYPE_CODES[q.dtype], q.shape[-1], _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
+        _ptr(seed_t), _ptr(o), _ptr(lse), *_scalar_args(q, causal, rate),
+    )
+    _raise_on(err, "flash_fwd")
+    flash_fwd_cuda.launches += 1
+    return o, lse
+
+
+def flash_bwd_dq_cuda(q, k, v, mask, seed, g, lse, delta, causal: bool,
+                      rate: float):
+    """K2 on the card: dq as :func:`flash_backward_reference`, given Δ."""
+    _check_inputs(q, k, v, mask, ("dO", g))
+    _check_rows(q, lse, delta)
+    lib = build_kernels()
+    seed_t = _seed_tensor(seed, rate, q.device)
+    dq = torch.empty_like(q)
+    err = lib.flash_bwd_dq(
+        _DTYPE_CODES[q.dtype], q.shape[-1], _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
+        _ptr(seed_t), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dq),
+        *_scalar_args(q, causal, rate),
+    )
+    _raise_on(err, "flash_bwd_dq")
+    flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, mask, seed, g, lse, delta, causal: bool,
+                       rate: float):
+    """K3 on the card: ``(dk, dv, dmask_per_head)`` as
+    :func:`flash_backward_reference`, given Δ (dmask None without a mask)."""
+    _check_inputs(q, k, v, mask, ("dO", g))
+    _check_rows(q, lse, delta)
+    lib = build_kernels()
+    seed_t = _seed_tensor(seed, rate, q.device)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dmask = None
+    if mask is not None:
+        b, h, s, _ = q.shape
+        dmask = torch.empty((b, h, 1, s), dtype=torch.float32, device=q.device)
+    err = lib.flash_bwd_dkv(
+        _DTYPE_CODES[q.dtype], q.shape[-1], _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
+        _ptr(seed_t), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv),
+        _ptr(dmask), *_scalar_args(q, causal, rate),
+    )
+    _raise_on(err, "flash_bwd_dkv")
+    flash_bwd_dkv_cuda.launches += 1
+    return dk, dv, dmask
+
+
+KERNELS = {
+    "flash_fwd": flash_fwd_cuda,
+    "flash_bwd_dq": flash_bwd_dq_cuda,
+    "flash_bwd_dkv": flash_bwd_dkv_cuda,
+}
+for _fn in KERNELS.values():
+    _fn.launches = 0
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+# --------------------------------------------------------------------------
+# autograd wiring
+# --------------------------------------------------------------------------
+
+
+def _forward(q, k, v, mask, seed, causal, rate):
+    if q.device.type == "cuda":
+        return flash_fwd_cuda(q, k, v, mask, seed, causal, rate)
+    if q.device.type == "cpu":
+        return flash_forward_reference(q, k, v, mask, seed, causal, rate)
+    raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
+
+
+def _backward(q, k, v, mask, seed, o, lse, g, causal, rate):
+    if q.device.type == "cuda":
+        delta = _delta(g, o)
+        dq = flash_bwd_dq_cuda(q, k, v, mask, seed, g, lse, delta, causal, rate)
+        dk, dv, dmask = flash_bwd_dkv_cuda(q, k, v, mask, seed, g, lse, delta,
+                                           causal, rate)
+        return dq, dk, dv, dmask
+    return flash_backward_reference(q, k, v, mask, seed, o, lse, g, causal, rate)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, mask, seed, causal, rate):
+        o, lse = _forward(q, k, v, mask, seed, causal, rate)
+        seed_t = seed if isinstance(seed, torch.Tensor) else None
+        ctx.save_for_backward(q, k, v, mask, seed_t, o, lse)
+        ctx.seed_int = None if seed_t is not None else seed
+        ctx.causal, ctx.rate = causal, rate
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask, seed_t, o, lse = ctx.saved_tensors
+        seed = seed_t if seed_t is not None else ctx.seed_int
+        dq, dk, dv, dmask = _backward(q, k, v, mask, seed, o, lse, g.contiguous(),
+                                      ctx.causal, ctx.rate)
+        if dmask is not None:
+            # the mask broadcasts [B,1,1,S] over heads and queries: its
+            # cotangent sums the per-head rows over heads
+            dmask = dmask.sum(dim=1, keepdim=True).to(mask.dtype)
+        return dq, dk, dv, dmask, None, None, None
+
+
+# --------------------------------------------------------------------------
+# Public API
+# --------------------------------------------------------------------------
+
+
+def draw_seed(generator: torch.Generator) -> torch.Tensor:
+    """A uint32 dropout seed (held in int64) drawn from ``generator``, on
+    the generator's device, so a seed drawn on the card stays there."""
+    return torch.randint(0, 2**32, (1,), generator=generator,
+                         device=generator.device, dtype=torch.int64)
+
+
+def flash_attention(q, k, v, mask=None, dropout_fn=None, *,
+                    dropout_rate: float = 0.0, dropout_seed=None,
+                    generator: Optional[torch.Generator] = None,
+                    causal: bool = False):
+    """Fused attention: drop-in for ``models.bert.dense_attention``.
+
+    ``q, k, v``: [B, heads, S, head_dim]; ``mask``: additive key mask
+    [B, 1, 1, S] or None. ``causal=True`` applies the autoregressive
+    triangle inside the kernels. Differentiable: the backward is the dq and
+    dk/dv kernels, and the mask receives its gradient.
+
+    Attention dropout runs inside the kernels: pass ``dropout_rate`` with
+    either ``dropout_seed`` (a uint32 as int or tensor; tests hand the JAX
+    package's seed in here) or ``generator``, from which the seed is drawn.
+    A ``dropout_fn`` closure cannot apply, since the kernels never
+    materialize the probabilities, and is refused.
+    """
+    if dropout_fn is not None:
+        raise NotImplementedError(
+            "flash_attention never materializes attention probabilities; "
+            "pass dropout_rate= with dropout_seed= or generator= for "
+            "in-kernel dropout instead of a dropout_fn closure"
+        )
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
+    seed = None
+    if dropout_rate > 0.0:
+        if dropout_seed is None and generator is None:
+            raise ValueError("dropout_rate > 0 requires dropout_seed or generator")
+        seed = dropout_seed if dropout_seed is not None else draw_seed(generator)
+    return _FlashAttention.apply(q, k, v, mask, seed, bool(causal),
+                                 float(dropout_rate))
+
+
+# models pass dropout_rate/generator instead of a dropout_fn closure
+flash_attention.inkernel_dropout = True
+
+
+def causal_flash_attention(q, k, v, mask=None, dropout_fn=None, **kw):
+    """``attention_fn`` slot for decoder models: causality lives inside the
+    kernels, so the model must not also pass a dense [S, S] causal mask. A
+    key padding mask [B, 1, 1, S] still composes."""
+    return flash_attention(q, k, v, mask, dropout_fn, causal=True, **kw)
+
+
+causal_flash_attention.handles_causality = True
+causal_flash_attention.inkernel_dropout = True
