@@ -1,26 +1,33 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one NVIDIA H100.
 
-    python3 chip_smoke.py     # one card, about three minutes (two of them nvcc)
+    python3 chip_smoke.py     # one card, about three minutes (most of it nvcc)
 
 Phases, each of which fails the run if it fails:
 
 1. build: compile every CUDA source of ``gradaccum_tpu_torch/csrc`` with
-   nvcc (one process per source, all started together) and print the time.
+   nvcc (one process per source, all started together); print the time and
+   each kernel's registers and spills as ptxas reports them.
 2. kernels: hold each kernel against its plain PyTorch version on the card
-   at the BERT-Small main-path shape q/k/v [8, 8, 128, 64], in float32 and
-   bfloat16, with a padded mask and without, causal, and with attention
-   dropout 0.1 under a fixed seed; read the keep mask back out of the
-   forward and dk/dv kernels and require it equal to the plain mask bit for
-   bit. Then time each kernel, its plain version and, where one PyTorch call
-   computes the same function, that call (never used by the port).
+   at the BERT-Small main-path shape q/k/v [8, 8, 128, 64], in float32
+   (scalar kernels) and bfloat16 (tensor-core forward and dk/dv, scalar
+   dq), with a padded mask and without, causal, and with attention dropout
+   0.1 under a fixed seed; in bfloat16 also at ragged lengths S = 100 and
+   200 and at head dim 128. Read the keep mask back out of the forward and
+   dk/dv kernels (float32 and bfloat16, and bfloat16 at S = 200) and
+   require it equal to the plain mask bit for bit. Then time each kernel,
+   its plain version and the PyTorch call that computes the same function
+   (scaled_dot_product_attention's forward, and its backward, which
+   computes dq, dk and dv together, for both backward kernels; never used
+   by the port).
 3. agree: the tiny BERT classifier's loss and gradients on the card (through
    the kernels) against the same model on the CPU (plain versions).
 4. main: the entry point ``gradaccum_tpu_torch/examples/bert_finetune.py``
    at BERT-Small width (L-4 H-512 A-8, vocab 30522, seq 128), micro-batch
    8 x K=4, bfloat16 compute, random weights from a seed, for a few
    optimizer updates and one evaluation. The kernels' launch counts are
-   zeroed just before and read just after, and must match the path exactly.
+   zeroed just before and read just after, and must match the path exactly,
+   with every forward and dk/dv launch on the tensor-core route.
 5. profile: a torch.profiler window over three more updates of the same
    run: wall and card-busy time per update, idle share, top kernels.
 
@@ -65,7 +72,15 @@ REPLACES = {
     "flash_bwd_dq": "gradaccum_tpu/ops/flash_attention.py:348",
     "flash_bwd_dkv": "gradaccum_tpu/ops/flash_attention.py:399",
 }
-SOURCES = {name: f"{PACKAGE}/csrc/flash_attention.cu" for name in REPLACES}
+# the source of each kernel's bfloat16 route, the one the main path runs
+SOURCES = {
+    "flash_fwd": f"{PACKAGE}/csrc/flash_attention_tc.cu",
+    "flash_bwd_dq": f"{PACKAGE}/csrc/flash_attention.cu",
+    "flash_bwd_dkv": f"{PACKAGE}/csrc/flash_attention_tc.cu",
+}
+# bfloat16 only: the ragged lengths (one key tile with a ragged edge, and
+# more than one) and the widest head dim, beside the main shape
+EXTRA_SHAPES = [(B, H, 100, D), (B, H, 200, D), (B, H, S, 128)]
 
 
 class SmokeError(RuntimeError):
@@ -98,6 +113,35 @@ def phase_build():
     fa.build_kernels()
     print(f"[build] {len(sources)} source(s) in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{s} {cuda_build.build_seconds.get(s, 0.0):.1f} s" for s in sources))
+    for s in sources:
+        log = cuda_build.library_path(s).with_suffix(".log")
+        for line in _ptxas_summary(log.read_text()):
+            print(f"[build] ptxas {s}: {line}")
+
+
+def _ptxas_summary(text):
+    """One line per kernel instance from nvcc's ``-Xptxas -v`` report:
+    registers and spill bytes."""
+    import re
+
+    out, name, spills = [], None, ""
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            # e.g. ..16flash_dq_kernelI13__nv_bfloat16Li64EEEv.. -> flash_dq_kernel<bf16, 64>
+            name = entry.group(1)
+            m = re.search(r"(flash_[a-z_]+?_kernel)I(\w*?Li(\d+)E)EEv", name)
+            if m:
+                dtype = "f32" if m.group(2).startswith("f") else "bf16"
+                name = f"{m.group(1)}<{dtype}, {m.group(3)}>"
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            spills = f"spill stores {spill.group(1)} B, loads {spill.group(2)} B"
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            out.append(f"{name} {regs.group(1)} registers, {spills}")
+            name = None
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -105,18 +149,19 @@ def phase_build():
 # --------------------------------------------------------------------------
 
 
-def _inputs(dtype, masked, seed=0):
+def _inputs(dtype, masked, seed=0, shape=(B, H, S, D)):
     import torch
 
+    b, _, s, _ = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, do = (torch.randn(B, H, S, D, generator=g, device="cuda").to(dtype)
+    q, k, v, do = (torch.randn(*shape, generator=g, device="cuda").to(dtype)
                    for _ in range(4))
     mask = None
     if masked:
         # padded keys as BERT builds them: (1 - input_mask) * -1e9
-        lengths = torch.randint(S // 4, S + 1, (B,), generator=g, device="cuda")
-        pad = torch.arange(S, device="cuda")[None, :] >= lengths[:, None]
-        mask = (pad.float() * -1e9).to(dtype).reshape(B, 1, 1, S).contiguous()
+        lengths = torch.randint(s // 4, s + 1, (b,), generator=g, device="cuda")
+        pad = torch.arange(s, device="cuda")[None, :] >= lengths[:, None]
+        mask = (pad.float() * -1e9).to(dtype).reshape(b, 1, 1, s).contiguous()
     return q, k, v, mask, do
 
 
@@ -140,9 +185,11 @@ def phase_kernels():
     # (padded mask, causal, dropout rate)
     cases = [(True, False, 0.0), (False, False, 0.0), (False, True, 0.0),
              (True, False, RATE), (True, True, RATE)]
-    for dtype in (torch.float32, torch.bfloat16):
+    runs = [(torch.float32, (B, H, S, D)), (torch.bfloat16, (B, H, S, D))]
+    runs += [(torch.bfloat16, shape) for shape in EXTRA_SHAPES]
+    for dtype, shape in runs:
         for masked, causal, rate in cases:
-            q, k, v, mask, do = _inputs(dtype, masked)
+            q, k, v, mask, do = _inputs(dtype, masked, shape=shape)
             seed = SEED if rate else None
             o, lse = fa.flash_fwd_cuda(q, k, v, mask, seed, causal, rate)
             o_r, lse_r = fa.flash_forward_reference(q, k, v, mask, seed, causal, rate)
@@ -166,44 +213,57 @@ def phase_kernels():
                 key = (kernel, str(dtype))
                 worst[key] = max(worst.get(key, 0.0), err)
                 line.append(f"{name}={err:.2e}")
-                check(ok, f"{name} disagrees ({dtype}, mask={masked}, causal={causal}, "
-                          f"rate={rate}): max |err| {err:.3e} > {atol} + {rtol}|ref|")
-            print(f"[kernels] {str(dtype)[6:]:8s} mask={int(masked)} causal={int(causal)} "
-                  f"rate={rate}: " + " ".join(line))
-    _check_keep_masks(fa)
+                check(ok, f"{name} disagrees ({dtype}, {shape}, mask={masked}, "
+                          f"causal={causal}, rate={rate}): max |err| {err:.3e} > "
+                          f"{atol} + {rtol}|ref|")
+            print(f"[kernels] {str(dtype)[6:]:8s} {shape} mask={int(masked)} "
+                  f"causal={int(causal)} rate={rate}: " + " ".join(line))
+    for dtype, s in ((torch.float32, S), (torch.bfloat16, S), (torch.bfloat16, 200)):
+        _check_keep_masks(fa, dtype, s)
     return worst
 
 
-def _check_keep_masks(fa):
+def _check_keep_masks(fa, dtype, s):
     """Read the keep decisions back out of the forward and dk/dv kernels and
     require them equal to the plain mask. With q = k = 0 every probability
-    is 1/S, so o[i, d] = keep[i, c*D + d]/(keep_prob*S) when v is the
-    one-hot block c; dv[j, d] = keep[c*D + d, j]/(keep_prob*S) likewise
-    when dO is the one-hot block c of query rows."""
+    is 1/s, so o[i, d] = keep[i, c*D + d]/(keep_prob*s) when v is the
+    one-hot block c; dv[j, d] = keep[c*D + d, j]/(keep_prob*s) likewise
+    when dO is the one-hot block c of query rows. Both are positive
+    (bfloat16 too) exactly where the element is kept. The last block of a
+    ragged length is narrower than D."""
     import torch
 
-    want = fa.dropout_keep_mask(SEED, B, H, S, RATE, device="cuda")
-    zeros = torch.zeros(B, H, S, D, device="cuda")
-    lse = torch.full((B, H, S, 1), math.log(S), device="cuda")
-    delta = torch.zeros(B, H, S, 1, device="cuda")
-    got_fwd = torch.empty(B, H, S, S, dtype=torch.bool, device="cuda")
+    shape = (B, H, s, D)
+    want = fa.dropout_keep_mask(SEED, B, H, s, RATE, device="cuda")
+    zeros = torch.zeros(shape, dtype=dtype, device="cuda")
+    lse = torch.full((B, H, s, 1), math.log(s), device="cuda")
+    delta = torch.zeros(B, H, s, 1, device="cuda")
+    got_fwd = torch.empty(B, H, s, s, dtype=torch.bool, device="cuda")
     got_bwd = torch.empty_like(got_fwd)
-    for c in range(S // D):
-        onehot = torch.zeros(B, H, S, D, device="cuda")
-        onehot[:, :, c * D:(c + 1) * D, :] = torch.eye(D, device="cuda")
+    for c0 in range(0, s, D):
+        w = min(D, s - c0)
+        onehot = torch.zeros(shape, dtype=dtype, device="cuda")
+        onehot[:, :, c0:c0 + w, :w] = torch.eye(w, dtype=dtype, device="cuda")
         o, _ = fa.flash_fwd_cuda(zeros, zeros, onehot, None, SEED, False, RATE)
-        got_fwd[..., c * D:(c + 1) * D] = o > 0
+        got_fwd[..., c0:c0 + w] = o[..., :w] > 0
         _, dv, _ = fa.flash_bwd_dkv_cuda(zeros, zeros, zeros, None, SEED, onehot, lse,
                                          delta, False, RATE)
-        got_bwd[:, :, c * D:(c + 1) * D, :] = (dv > 0).transpose(-1, -2)
+        got_bwd[:, :, c0:c0 + w, :] = (dv[..., :w] > 0).transpose(-1, -2)
     torch.cuda.synchronize()
-    check(torch.equal(got_fwd, want), "forward kernel keep mask differs from the plain mask")
-    check(torch.equal(got_bwd, want), "dk/dv kernel keep mask differs from the plain mask")
-    print(f"[kernels] keep mask exact in flash_fwd and flash_bwd_dkv "
-          f"(rate {RATE}, seed {SEED:#x}, kept {want.float().mean().item():.4f})")
+    kind = f"{str(dtype)[6:]} S={s}"
+    check(torch.equal(got_fwd, want), f"forward kernel keep mask ({kind}) differs "
+                                      f"from the plain mask")
+    check(torch.equal(got_bwd, want), f"dk/dv kernel keep mask ({kind}) differs "
+                                      f"from the plain mask")
+    print(f"[kernels] keep mask exact in flash_fwd and flash_bwd_dkv, {kind} "
+          f"(routes {fa.route('flash_fwd', dtype)}/{fa.route('flash_bwd_dkv', dtype)}; "
+          f"rate {RATE}, seed {SEED:#x}, kept {want.float().mean().item():.4f})")
 
 
 def _time_ms(fn, iters=50, warmup=5):
+    """Wall time per call (ms) of back-to-back calls, between two CUDA
+    events: the card's time when a call's kernels outlast its host
+    dispatch, the dispatch's when they do not."""
     import torch
 
     for _ in range(warmup):
@@ -215,6 +275,27 @@ def _time_ms(fn, iters=50, warmup=5):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def _device_ms(fn, iters=50, warmup=5):
+    """Card time per call (ms): the device time of every kernel, copy and
+    memset the calls launched, summed from torch.profiler's device events,
+    over the number of calls. Host dispatch is not in it. Returns the time
+    and the device events' names, the longest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    device = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    check(device, "the profiler saw no device time: card times cannot be read")
+    return sum(t for t, _ in device) / iters / 1e3, [key for _, key in device]
 
 
 def _bounds(dtype, masked):
@@ -248,9 +329,13 @@ def _bounds(dtype, masked):
 
 def phase_timing():
     """Each kernel, its plain version and the library yardstick at the
-    main-path conditions: bf16, padded mask, dropout 0.1, not causal."""
+    main-path conditions: bf16, padded mask, dropout 0.1, not causal. Every
+    number is card time per call (torch.profiler device events); the wall
+    time per call of back-to-back calls, dispatch included, is printed
+    beside each kernel's."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from gradaccum_tpu_torch.ops import flash_attention as fa
 
@@ -259,36 +344,51 @@ def phase_timing():
     seed = torch.tensor([SEED], dtype=torch.int64, device="cuda")
     o, lse = fa.flash_fwd_cuda(q, k, v, mask, seed, False, RATE)
     delta = fa._delta(do, o)
-    ms = {
-        "flash_fwd": _time_ms(lambda: fa.flash_fwd_cuda(q, k, v, mask, seed, False, RATE)),
-        "flash_bwd_dq": _time_ms(lambda: fa.flash_bwd_dq_cuda(
-            q, k, v, mask, seed, do, lse, delta, False, RATE)),
-        "flash_bwd_dkv": _time_ms(lambda: fa.flash_bwd_dkv_cuda(
-            q, k, v, mask, seed, do, lse, delta, False, RATE)),
+    calls = {
+        "flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, mask, seed, False, RATE),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq_cuda(
+            q, k, v, mask, seed, do, lse, delta, False, RATE),
+        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_cuda(
+            q, k, v, mask, seed, do, lse, delta, False, RATE),
     }
+    ms = {name: _device_ms(fn)[0] for name, fn in calls.items()}
+    wall = {name: _time_ms(fn) for name, fn in calls.items()}
     # the plain backward computes dq, dk, dv and dmask in one pass: its time
     # stands beside both backward kernels
-    plain_bwd = _time_ms(lambda: fa.flash_backward_reference(
-        q, k, v, mask, seed, o, lse, do, False, RATE), iters=20)
+    plain_bwd = _device_ms(lambda: fa.flash_backward_reference(
+        q, k, v, mask, seed, o, lse, do, False, RATE), iters=20)[0]
     plain = {
-        "flash_fwd": _time_ms(lambda: fa.flash_forward_reference(
-            q, k, v, mask, seed, False, RATE), iters=20),
+        "flash_fwd": _device_ms(lambda: fa.flash_forward_reference(
+            q, k, v, mask, seed, False, RATE), iters=20)[0],
         "flash_bwd_dq": plain_bwd,
         "flash_bwd_dkv": plain_bwd,
     }
-    library = {
-        "flash_fwd": _time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, dropout_p=RATE)),
-        "flash_bwd_dq": None,
-        "flash_bwd_dkv": None,
-    }
+    # SDPA's backward computes dq, dk and dv in one call: its time stands
+    # beside both backward kernels, so K2 + K3 is the fair comparison. The
+    # window holds the backward alone (the forward ran once, before it).
+    # The backend is pinned, so every run times the same kernels: the
+    # memory-efficient one takes an additive mask and dropout in bfloat16.
+    backend = SDPBackend.EFFICIENT_ATTENTION
+    with sdpa_kernel(backend):
+        sdpa_fwd, fwd_kernels = _device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, dropout_p=RATE))
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        o_sdpa = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, dropout_p=RATE)
+    sdpa_bwd, bwd_kernels = _device_ms(lambda: torch.autograd.grad(
+        o_sdpa, (qg, kg, vg), do, retain_graph=True))
+    library = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd, "flash_bwd_dkv": sdpa_bwd}
+    print(f"[timing] sdpa backend {backend.name}: forward {sdpa_fwd:.4f} ms "
+          f"({', '.join(n[:60] for n in fwd_kernels[:3])}), backward (dq + dk + dv) "
+          f"{sdpa_bwd:.4f} ms ({', '.join(n[:60] for n in bwd_kernels[:3])}); "
+          f"flash dq + dk/dv {ms['flash_bwd_dq']:.4f} + {ms['flash_bwd_dkv']:.4f} = "
+          f"{ms['flash_bwd_dq'] + ms['flash_bwd_dkv']:.4f} ms")
     bounds = _bounds(dtype, True)
     for name in ms:
-        lib_ms = library[name]
-        print(f"[timing] {name}: {ms[name]:.4f} ms (plain {plain[name]:.4f} ms"
-              + (f", sdpa {lib_ms:.4f} ms" if lib_ms is not None else "")
-              + f"; bound {bounds[name][0] * 1e3:.2f} us by {bounds[name][1]}: "
-              f"{bounds[name][2] / 1e6:.2f} MB, {bounds[name][3] / 1e9:.3f} GFLOP)")
+        print(f"[timing] {name} ({fa.route(name, dtype)}): {ms[name]:.4f} ms on the card, "
+              f"{wall[name]:.4f} ms a call with dispatch (plain {plain[name]:.4f} ms, "
+              f"sdpa {library[name]:.4f} ms; bound {bounds[name][0] * 1e3:.2f} us by "
+              f"{bounds[name][1]}: {bounds[name][2] / 1e6:.2f} MB, "
+              f"{bounds[name][3] / 1e9:.3f} GFLOP)")
     return ms, plain, library, bounds
 
 
@@ -351,6 +451,7 @@ def phase_main(updates: int):
     fa.reset_launch_counts()
     result = bert_finetune.main(argv)
     counts = fa.launch_counts()
+    routes = fa.route_counts()
     check(math.isfinite(result["loss"]), f"main path loss is not finite: {result['loss']}")
     check(result["updates"] == updates, f"ran {result['updates']} updates, wanted {updates}")
     train = layers * k * updates
@@ -359,10 +460,15 @@ def phase_main(updates: int):
     check(counts == want, f"launch counts {counts} != {want} "
                           f"({layers} layers x K={k} x {updates} updates per kernel, "
                           f"+ {layers} forward per eval batch)")
+    # bf16: every forward and dk/dv launch on the tensor cores, dq scalar
+    want_routes = {"flash_fwd": {"tc": want["flash_fwd"], "scalar": 0},
+                   "flash_bwd_dq": {"scalar": train},
+                   "flash_bwd_dkv": {"tc": train, "scalar": 0}}
+    check(routes == want_routes, f"route counts {routes} != {want_routes}")
     print(f"[main] BERT-Small bf16 micro 8 x K={k}, seq {S}: {updates} updates, "
           f"loss {result['loss']:.4f}, {result['seq/s']:.1f} seq/s, "
           f"mfu {result['mfu']:.4f}, eval accuracy {result['accuracy']:.4f}; "
-          f"launches {counts}")
+          f"launches {counts}, routes {routes}")
     return counts
 
 

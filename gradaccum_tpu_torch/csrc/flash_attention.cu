@@ -1,4 +1,5 @@
-// Flash attention for Hopper (sm_90a): forward, dq and dk/dv(+dmask).
+// Flash attention for Hopper (sm_90a), scalar route: forward, dq and
+// dk/dv(+dmask) for float32, and dq for bfloat16.
 //
 // Built by gradaccum_tpu_torch/utils/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -7,13 +8,17 @@
 // device, dtype, shape and contiguity, allocates every output, and raises
 // when a function below returns a non-zero cudaGetLastError().
 //
+// Which dtype runs where (fixed, by dtype, in the wrapper): the bfloat16
+// forward (K1) and dk/dv (K3) run on the tensor cores in
+// flash_attention_tc.cu; this file serves every float32 kernel and the
+// bfloat16 dq (K2). float32 stays here because only plain float32 FMA (no
+// TF32) holds the float32 tolerances against the plain PyTorch version.
+//
 // Layout (the JAX package's): q, k, v, dO, o, dq, dk, dv are [B, H, S, D]
 // contiguous; the optional additive key mask is [B, 1, 1, S] in the input
 // dtype; lse and delta are [B, H, S] float32; dmask is [B, H, S] float32
-// (one row per head, summed over heads by the caller). Inputs are float32
-// or bfloat16; every sum is float32. float32 inputs run as plain float32
-// FMA (no TF32), so the card's result can be held tightly against the
-// plain PyTorch version.
+// (one row per head, summed over heads by the caller). Every sum is
+// float32.
 //
 // Design, shared by the three kernels. The TPU kernels walk a sequential
 // grid axis over k-blocks (or q-blocks) and carry their sums in VMEM
@@ -28,54 +33,29 @@
 //
 // What bounds it. At the BERT-Small shape [8, 8, 128, 64] each kernel
 // moves 4-7 MB, a bound of 1-2 us at 3.35 TB/s, and does 0.27-0.54 GFLOP.
-// This first version does the products as scalar float32 FMA with one
-// thread per row, so the rate of FMA and shared-memory load instructions bounds
-// it, and B*H*S = 8192 threads leave most of the card's warp slots empty.
-// Tensor cores (mma.sync / wgmma), TMA and more rows per SM are the next
-// step; this version is the correct baseline they are held against.
+// These kernels do the products as scalar float32 FMA with one thread per
+// row, so the rate of FMA and shared-memory load instructions bounds them,
+// and B*H*S = 8192 threads leave most of the card's warp slots empty.
 //
-// Attention dropout is the JAX package's counter-based hash: the decision
-// for element (b, h, i, j) is a murmur3-finalizer chain keyed by the seed,
-// the (b, h) slice, the query position and the key position, kept when the
-// hash is below round(keep * 2^32). It reproduces the TPU kernels' bits.
+// Attention dropout is the JAX package's counter-based hash
+// (flash_common.cuh): the decision for element (b, h, i, j) is a
+// murmur3-finalizer chain keyed by the seed, the (b, h) slice, the query
+// position and the key position, kept when the hash is below
+// round(keep * 2^32). It reproduces the TPU kernels' bits.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "flash_common.cuh"
 
 namespace {
 
+using flash::kNegInf;
+using flash::keep;
+using flash::Params;
+using flash::row_seed;
+
 constexpr int kRows = 64;  // output rows per block, one thread each
 constexpr int kTile = 32;  // streamed rows per shared-memory tile
-constexpr float kNegInf = -1e30f;
-constexpr uint32_t kM1 = 0x85EBCA6Bu;
-constexpr uint32_t kM2 = 0xC2B2AE35u;
-constexpr uint32_t kGolden = 0x9E3779B9u;
-
-// ---------------------------------------------------------------------------
-// Hash dropout: replaces _hash_u32 / _keep_from_positions / _tile_keep of
-// gradaccum_tpu/ops/flash_attention.py:67-96, bit for bit.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
-  x ^= x >> 16;
-  x *= kM1;
-  x ^= x >> 13;
-  x *= kM2;
-  return x ^ (x >> 16);
-}
-
-// slice seed from (seed, b*H + h), then the row seed from the query position
-__device__ __forceinline__ uint32_t row_seed(uint32_t seed, uint32_t bh,
-                                             uint32_t q_pos) {
-  const uint32_t slice_seed = hash_u32(seed + bh * kGolden);
-  return hash_u32(q_pos + slice_seed * kGolden);
-}
-
-__device__ __forceinline__ bool keep(uint32_t rseed, uint32_t k_pos,
-                                     uint32_t threshold) {
-  return hash_u32(k_pos + rseed * kGolden) < threshold;
-}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -91,27 +71,6 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* mask;  // nullptr: no mask
-  const int64_t* seed;  // device scalar; read only when dropout is on
-  const void* dout;
-  const float* lse;
-  const float* delta;
-  void* out0;  // o (fwd), dq (dq), dk (dkv)
-  void* out1;  // dv (dkv)
-  float* out_f32;  // lse (fwd), dmask per head (dkv, nullptr without mask)
-  int H;
-  int S;
-  float scale;
-  int causal;
-  uint32_t threshold;
-  float inv_keep;
-  int dropout;
-};
 
 // rows [r0, r0 + n) of a [S, D] slice into a [kRows][D+1] (or [kTile][D])
 // float tile; rows past S read as zero
@@ -147,17 +106,18 @@ __device__ __forceinline__ float dot_row(const float* a, const float* b) {
 }
 
 // ---------------------------------------------------------------------------
-// K1, forward. Replaces _fwd_kernel (gradaccum_tpu/ops/flash_attention.py:127,
-// launched by _flash_forward :266). One block per (b, h, kRows query rows);
+// K1, forward, float32. Replaces _fwd_kernel
+// (gradaccum_tpu/ops/flash_attention.py:127, launched by _flash_forward
+// :266) for float32; bfloat16 runs flash_attention_tc.cu. One block per (b, h, kRows query rows);
 // the k-block grid axis becomes the loop over key tiles, with the online
 // softmax (m, l, acc) of each row in its thread's registers. l sums the
 // undropped p; the dropout keep mask then scales p by 1/keep before p.V.
 // Causal: the loop stops after the block's last query row, and each row
 // stops at its own diagonal.
-// Bound at [8,8,128,64] bf16: 4.2 MB to move (1.3 us at 3.35 TB/s) against
-// 0.27 GFLOP (0.3 us on the tensor cores). This version does the FLOPs as
-// scalar FMA, two shared-memory loads each, on 8192 threads: FMA throughput, not
-// memory, bounds it.
+// Bound at [8,8,128,64] float32: 8.5 MB to move (2.5 us at 3.35 TB/s)
+// against 0.27 GFLOP (4 us at the 67 TFLOP/s of float32 FMA). This kernel
+// does the FLOPs as scalar FMA, two shared-memory loads each, on 8192
+// threads: FMA issue, not memory, bounds it.
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -325,15 +285,16 @@ __global__ void __launch_bounds__(kRows)
 }
 
 // ---------------------------------------------------------------------------
-// K3, dk/dv (+ per-head dmask). Replaces _dkv_kernel
-// (gradaccum_tpu/ops/flash_attention.py:399, from _flash_backward :466).
+// K3, dk/dv (+ per-head dmask), float32. Replaces _dkv_kernel
+// (gradaccum_tpu/ops/flash_attention.py:399, from _flash_backward :466) for
+// float32; bfloat16 runs flash_attention_tc.cu.
 // One block per (b, h, kRows key rows); the loop over query tiles recomputes
 // P and dS for the block's keys and sums dv += drop(P)^T.dO,
 // dk += dS^T.Q and, with a mask, dmask += sum_i dS in registers. Causal:
 // the loop starts at the tile holding the block's first key, and each key
 // skips the queries before it.
-// Bound at [8,8,128,64] bf16: 6.4 MB (1.9 us) against 0.54 GFLOP, the most
-// FMA work of the three; scalar FMA throughput bounds this version.
+// Bound at [8,8,128,64] float32: 13.0 MB (3.9 us) against 0.54 GFLOP (8 us
+// of float32 FMA), the most work of the three; scalar FMA issue bounds it.
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -444,28 +405,25 @@ constexpr size_t dkv_smem() {
   return sizeof(float) * (2 * kRows * (D + 1) + 2 * kTile * D + 3 * kTile);
 }
 
+enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+
 template <typename Kernel>
 int launch(Kernel kernel, size_t smem, const Params& p, int B,
            cudaStream_t stream) {
-  // above 48 KB a block's dynamic shared memory needs an explicit opt-in
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.S + kRows - 1) / kRows, p.H, B);
-  kernel<<<grid, kRows, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+  return flash::launch(kernel, smem, p, B, kRows, kRows, stream);
 }
 
-enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
-
+// bfloat16 reaches this file only for dq: its forward and dk/dv are
+// flash_attention_tc.cu's, so those instances are not built here
 template <typename T, int D>
 int launch_typed(Which which, const Params& p, int B, cudaStream_t stream) {
-  switch (which) {
-    case kFwd:
+  constexpr bool kAll = std::is_same<T, float>::value;
+  if (which == kDq)
+    return launch(flash_dq_kernel<T, D>, dq_smem<D>(), p, B, stream);
+  if constexpr (kAll) {
+    if (which == kFwd)
       return launch(flash_fwd_kernel<T, D>, fwd_smem<D>(), p, B, stream);
-    case kDq:
-      return launch(flash_dq_kernel<T, D>, dq_smem<D>(), p, B, stream);
-    case kDkv:
+    if (which == kDkv)
       return launch(flash_dkv_kernel<T, D>, dkv_smem<D>(), p, B, stream);
   }
   return (int)cudaErrorInvalidValue;
@@ -490,36 +448,17 @@ int dispatch(Which which, int dtype, int D, const Params& p, int B,
   return (int)cudaErrorInvalidValue;
 }
 
-Params make_params(const void* q, const void* k, const void* v,
-                   const void* mask, const int64_t* seed, int H, int S,
-                   float scale, int causal, uint32_t threshold,
-                   float inv_keep, int dropout) {
-  Params p = {};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.mask = mask;
-  p.seed = seed;
-  p.H = H;
-  p.S = S;
-  p.scale = scale;
-  p.causal = causal;
-  p.threshold = threshold;
-  p.inv_keep = inv_keep;
-  p.dropout = dropout;
-  return p;
-}
-
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each returns the cudaError_t of its launch.
+// dtype: 0 = float32, 1 = bfloat16 (flash_bwd_dq only; the others return
+// cudaErrorInvalidValue for it). Each returns the cudaError_t of its launch.
 extern "C" int flash_fwd(int dtype, int D, const void* q, const void* k,
                          const void* v, const void* mask, const int64_t* seed,
                          void* o, float* lse, int B, int H, int S,
                          float scale, int causal, uint32_t threshold,
                          float inv_keep, int dropout, void* stream) {
-  Params p = make_params(q, k, v, mask, seed, H, S, scale, causal, threshold,
-                         inv_keep, dropout);
+  Params p = flash::make_params(q, k, v, mask, seed, H, S, scale, causal,
+                                threshold, inv_keep, dropout);
   p.out0 = o;
   p.out_f32 = lse;
   return dispatch(kFwd, dtype, D, p, B, stream);
@@ -532,8 +471,8 @@ extern "C" int flash_bwd_dq(int dtype, int D, const void* q, const void* k,
                             int B, int H, int S, float scale, int causal,
                             uint32_t threshold, float inv_keep, int dropout,
                             void* stream) {
-  Params p = make_params(q, k, v, mask, seed, H, S, scale, causal, threshold,
-                         inv_keep, dropout);
+  Params p = flash::make_params(q, k, v, mask, seed, H, S, scale, causal,
+                                threshold, inv_keep, dropout);
   p.dout = dout;
   p.lse = lse;
   p.delta = delta;
@@ -548,8 +487,8 @@ extern "C" int flash_bwd_dkv(int dtype, int D, const void* q, const void* k,
                              void* dv, float* dmask, int B, int H, int S,
                              float scale, int causal, uint32_t threshold,
                              float inv_keep, int dropout, void* stream) {
-  Params p = make_params(q, k, v, mask, seed, H, S, scale, causal, threshold,
-                         inv_keep, dropout);
+  Params p = flash::make_params(q, k, v, mask, seed, H, S, scale, causal,
+                                threshold, inv_keep, dropout);
   p.dout = dout;
   p.lse = lse;
   p.delta = delta;

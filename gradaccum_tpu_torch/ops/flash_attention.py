@@ -1,9 +1,17 @@
 """Fused flash attention on Hopper: forward, dq and dk/dv kernels.
 
 The port of ``gradaccum_tpu/ops/flash_attention.py``. The three Pallas
-kernels of the TPU package become three hand-written CUDA kernels in
-``csrc/flash_attention.cu`` (forward ``_fwd_kernel``, ``_dq_kernel`` and
-``_dkv_kernel``); the design and what bounds each one are noted there.
+kernels of the TPU package (forward ``_fwd_kernel``, ``_dq_kernel`` and
+``_dkv_kernel``) become hand-written CUDA kernels on two routes, chosen by
+dtype and nothing else:
+
+- ``tc`` (``csrc/flash_attention_tc.cu``): the bfloat16 forward and dk/dv on
+  the tensor cores (``mma.sync``, ``ldmatrix``, ``cp.async``).
+- ``scalar`` (``csrc/flash_attention.cu``): every float32 kernel, in plain
+  float32 FMA (the only route that holds float32's tolerances), and dq in
+  both dtypes.
+
+The design and what bounds each kernel are noted in the sources.
 The forward saves only ``o`` and the per-row logsumexp; the backward
 recomputes each score from q, k and the logsumexp, never materializing the
 [S, S] matrix on the card.
@@ -154,32 +162,58 @@ def _delta(g, o):
 # CUDA kernels
 # --------------------------------------------------------------------------
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint32
 _COMMON_TAIL = [_I, _I, _I, _F, _I, _U, _F, _I, _P]  # B H S scale causal thr inv drop stream
+_ARGTYPES = {
+    "flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P] + _COMMON_TAIL,
+    "flash_bwd_dq": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P] + _COMMON_TAIL,
+    "flash_bwd_dkv": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P] + _COMMON_TAIL,
+}
+# route -> (source under csrc/, {kernel: C function}); a tc function takes
+# the same arguments as its scalar twin
+_SOURCES = {
+    "scalar": ("flash_attention", {name: name for name in _ARGTYPES}),
+    "tc": ("flash_attention_tc", {"flash_fwd": "flash_fwd_tc",
+                                  "flash_bwd_dkv": "flash_bwd_dkv_tc"}),
+}
 
 
-def build_kernels() -> ctypes.CDLL:
-    """Build (at first call) and load ``csrc/flash_attention.cu``."""
-    global _lib
-    if _lib is None:
+def build_kernels() -> dict:
+    """Build (at first call) and load both CUDA sources; ``{route: CDLL}``."""
+    if not _libs:
         from gradaccum_tpu_torch.utils import cuda_build
 
-        lib = cuda_build.load("flash_attention")
-        lib.flash_fwd.argtypes = [_I, _I, _P, _P, _P, _P, _P, _P, _P] + _COMMON_TAIL
-        lib.flash_bwd_dq.argtypes = (
-            [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P] + _COMMON_TAIL
-        )
-        lib.flash_bwd_dkv.argtypes = (
-            [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P] + _COMMON_TAIL
-        )
-        for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
-            fn.restype = _I
-        _lib = lib
-    return _lib
+        for r, (source, functions) in _SOURCES.items():
+            lib = cuda_build.load(source)
+            for name, symbol in functions.items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = _ARGTYPES[name]
+                fn.restype = _I
+            _libs[r] = lib
+    return _libs
+
+
+def route(name: str, dtype: torch.dtype) -> str:
+    """The route a CUDA tensor of ``dtype`` takes through kernel ``name``:
+    the bfloat16 forward and dk/dv run on the tensor cores, everything else
+    (float32, and dq) on the scalar kernels."""
+    return "tc" if dtype == torch.bfloat16 and name in _SOURCES["tc"][1] else "scalar"
+
+
+def _launch(name: str, dtype: torch.dtype, *args):
+    """Call kernel ``name`` on its route, raise on a launch error, count it."""
+    r = route(name, dtype)
+    fn = getattr(build_kernels()[r], _SOURCES[r][1][name])
+    err = fn(_DTYPE_CODES[dtype], *args)
+    if err != 0:
+        raise RuntimeError(f"{name} ({r}) launch failed with cudaError {err}")
+    wrapper = KERNELS[name]
+    wrapper.launches += 1
+    wrapper.route_launches[r] += 1
 
 
 def _check_inputs(q, k, v, mask, *rest):
@@ -210,6 +244,10 @@ def _check_inputs(q, k, v, mask, *rest):
     for t in (q, k, v, mask) + tuple(x for _, x in rest):
         if t is not None and not t.is_contiguous():
             raise ValueError("the flash kernels take contiguous tensors")
+    # the tensor-core kernels copy rows in 16-byte chunks (cp.async)
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (q, k, v) + tuple(x for _, x in rest)):
+        raise ValueError("bfloat16 q, k, v and dO must start on a 16-byte boundary")
 
 
 def _check_rows(q, *rows):
@@ -244,24 +282,14 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _raise_on(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with cudaError {err}")
-
-
 def flash_fwd_cuda(q, k, v, mask, seed, causal: bool, rate: float):
     """K1 on the card: ``(o, lse)`` as :func:`flash_forward_reference`."""
     _check_inputs(q, k, v, mask)
-    lib = build_kernels()
     seed_t = _seed_tensor(seed, rate, q.device)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:-1] + (1,), dtype=torch.float32, device=q.device)
-    err = lib.flash_fwd(
-        _DTYPE_CODES[q.dtype], q.shape[-1], _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
-        _ptr(seed_t), _ptr(o), _ptr(lse), *_scalar_args(q, causal, rate),
-    )
-    _raise_on(err, "flash_fwd")
-    flash_fwd_cuda.launches += 1
+    _launch("flash_fwd", q.dtype, q.shape[-1], _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
+            _ptr(seed_t), _ptr(o), _ptr(lse), *_scalar_args(q, causal, rate))
     return o, lse
 
 
@@ -270,40 +298,31 @@ def flash_bwd_dq_cuda(q, k, v, mask, seed, g, lse, delta, causal: bool,
     """K2 on the card: dq as :func:`flash_backward_reference`, given Δ."""
     _check_inputs(q, k, v, mask, ("dO", g))
     _check_rows(q, lse, delta)
-    lib = build_kernels()
     seed_t = _seed_tensor(seed, rate, q.device)
     dq = torch.empty_like(q)
-    err = lib.flash_bwd_dq(
-        _DTYPE_CODES[q.dtype], q.shape[-1], _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
-        _ptr(seed_t), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dq),
-        *_scalar_args(q, causal, rate),
-    )
-    _raise_on(err, "flash_bwd_dq")
-    flash_bwd_dq_cuda.launches += 1
+    _launch("flash_bwd_dq", q.dtype, q.shape[-1], _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
+            _ptr(seed_t), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dq),
+            *_scalar_args(q, causal, rate))
     return dq
 
 
 def flash_bwd_dkv_cuda(q, k, v, mask, seed, g, lse, delta, causal: bool,
-                       rate: float):
+                       rate: float, with_dmask: bool = True):
     """K3 on the card: ``(dk, dv, dmask_per_head)`` as
-    :func:`flash_backward_reference`, given Δ (dmask None without a mask)."""
+    :func:`flash_backward_reference`, given Δ. dmask is None without a mask
+    or with ``with_dmask=False``; the kernel then skips writing it."""
     _check_inputs(q, k, v, mask, ("dO", g))
     _check_rows(q, lse, delta)
-    lib = build_kernels()
     seed_t = _seed_tensor(seed, rate, q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     dmask = None
-    if mask is not None:
+    if mask is not None and with_dmask:
         b, h, s, _ = q.shape
         dmask = torch.empty((b, h, 1, s), dtype=torch.float32, device=q.device)
-    err = lib.flash_bwd_dkv(
-        _DTYPE_CODES[q.dtype], q.shape[-1], _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
-        _ptr(seed_t), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv),
-        _ptr(dmask), *_scalar_args(q, causal, rate),
-    )
-    _raise_on(err, "flash_bwd_dkv")
-    flash_bwd_dkv_cuda.launches += 1
+    _launch("flash_bwd_dkv", q.dtype, q.shape[-1], _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
+            _ptr(seed_t), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv),
+            _ptr(dmask), *_scalar_args(q, causal, rate))
     return dk, dv, dmask
 
 
@@ -312,17 +331,25 @@ KERNELS = {
     "flash_bwd_dq": flash_bwd_dq_cuda,
     "flash_bwd_dkv": flash_bwd_dkv_cuda,
 }
-for _fn in KERNELS.values():
-    _fn.launches = 0
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
+    """Zero every wrapper's count of launches, in total and per route."""
+    for name, fn in KERNELS.items():
         fn.launches = 0
+        fn.route_launches = {r: 0 for r, (_, fns) in _SOURCES.items() if name in fns}
 
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def route_counts() -> dict:
+    """``{kernel: {route: launches}}`` since the last reset."""
+    return {name: dict(fn.route_launches) for name, fn in KERNELS.items()}
+
+
+reset_launch_counts()
 
 
 # --------------------------------------------------------------------------
@@ -338,14 +365,16 @@ def _forward(q, k, v, mask, seed, causal, rate):
     raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
 
 
-def _backward(q, k, v, mask, seed, o, lse, g, causal, rate):
+def _backward(q, k, v, mask, seed, o, lse, g, causal, rate, with_dmask):
     if q.device.type == "cuda":
         delta = _delta(g, o)
         dq = flash_bwd_dq_cuda(q, k, v, mask, seed, g, lse, delta, causal, rate)
         dk, dv, dmask = flash_bwd_dkv_cuda(q, k, v, mask, seed, g, lse, delta,
-                                           causal, rate)
+                                           causal, rate, with_dmask)
         return dq, dk, dv, dmask
-    return flash_backward_reference(q, k, v, mask, seed, o, lse, g, causal, rate)
+    dq, dk, dv, dmask = flash_backward_reference(q, k, v, mask, seed, o, lse, g,
+                                                 causal, rate)
+    return dq, dk, dv, dmask if with_dmask else None
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -362,8 +391,10 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, mask, seed_t, o, lse = ctx.saved_tensors
         seed = seed_t if seed_t is not None else ctx.seed_int
+        # a mask built from the input (BERT's) needs no gradient: then the
+        # dk/dv kernel is not asked for its per-head dmask rows
         dq, dk, dv, dmask = _backward(q, k, v, mask, seed, o, lse, g.contiguous(),
-                                      ctx.causal, ctx.rate)
+                                      ctx.causal, ctx.rate, ctx.needs_input_grad[3])
         if dmask is not None:
             # the mask broadcasts [B,1,1,S] over heads and queries: its
             # cotangent sums the per-head rows over heads

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on its own
 by ``nvcc`` for Hopper (``sm_90a``), then loaded with :mod:`ctypes`. The
 library is cached under ``build/kernels/`` at the root of the checkout,
-keyed by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one loads at once. The compiler's report (``-Xptxas -v``:
+keyed by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged one loads
+at once. The compiler's report (``-Xptxas -v``:
 registers, shared memory, spills per kernel) lands beside the library as
 ``<name>-<hash>.log``.
 
@@ -62,7 +63,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the library for ``csrc/<name>.cu`` lives once built."""
     source = (CSRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    key = hashlib.sha256(source + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 

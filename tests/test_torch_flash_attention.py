@@ -175,3 +175,69 @@ def test_attention_fn_flags():
     tq, tk, tv = (torch.tensor(x) for x in (q, k, v))
     assert torch.equal(tfa.causal_flash_attention(tq, tk, tv),
                        tfa.flash_attention(tq, tk, tv, causal=True))
+
+
+def test_mask_without_grad_gets_no_gradient_and_same_qkv_grads(monkeypatch):
+    """BERT's mask is built from input_mask and needs no gradient: the
+    backward then asks the dk/dv kernel for no dmask rows, and dq/dk/dv are
+    those of the run whose mask does take a gradient (and JAX's)."""
+    q, k, v, g, mask = _inputs(7, "padded")
+    _, grads_with = _torch(q, k, v, g, mask, False)
+    _, grads_j = _jax(q, k, v, g, mask, False)
+
+    asked = []
+    backward = tfa._backward
+    monkeypatch.setattr(tfa, "_backward",
+                        lambda *a: asked.append(a[-1]) or backward(*a))
+    tensors = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    tm = torch.tensor(mask)
+    o = tfa.flash_attention(*tensors, tm)
+    (o * torch.tensor(g)).sum().backward()
+    assert asked == [False]
+    assert tm.grad is None
+    for name, t, a, b in zip(("dq", "dk", "dv"), tensors, grads_with, grads_j):
+        np.testing.assert_array_equal(t.grad.numpy(), a, err_msg=name)
+        np.testing.assert_allclose(t.grad.numpy(), b, err_msg=name, **GRAD_TOL)
+
+
+def test_routes_are_fixed_by_dtype():
+    """bfloat16 forward and dk/dv go to the tensor-core kernels; float32 and
+    dq stay on the scalar ones. No other input picks the route."""
+    want = {("flash_fwd", torch.bfloat16): "tc", ("flash_bwd_dkv", torch.bfloat16): "tc",
+            ("flash_bwd_dq", torch.bfloat16): "scalar"}
+    for name in tfa.KERNELS:
+        for dtype in (torch.float32, torch.bfloat16):
+            assert tfa.route(name, dtype) == want.get((name, dtype), "scalar")
+    tfa.reset_launch_counts()
+    assert tfa.route_counts() == {"flash_fwd": {"scalar": 0, "tc": 0},
+                                  "flash_bwd_dq": {"scalar": 0},
+                                  "flash_bwd_dkv": {"scalar": 0, "tc": 0}}
+
+
+@pytest.mark.parametrize("route", sorted(tfa._SOURCES))
+def test_wrapper_symbols_match_the_sources(route):
+    """No compiler runs here, so hold the ctypes table against the C
+    sources: every function the wrapper binds is exported by its source
+    with as many parameters as the wrapper declares."""
+    import re
+    from pathlib import Path
+
+    source, functions = tfa._SOURCES[route]
+    text = (Path(tfa.__file__).parents[1] / "csrc" / f"{source}.cu").read_text()
+    exported = {m.group(1): m.group(2) for m in re.finditer(
+        r'extern "C" int (\w+)\(([^)]*)\)', text)}
+    assert set(exported) == set(functions.values())
+    for name, symbol in functions.items():
+        assert exported[symbol].count(",") + 1 == len(tfa._ARGTYPES[name]), symbol
+
+
+def test_library_key_covers_the_shared_headers(tmp_path, monkeypatch):
+    from gradaccum_tpu_torch.utils import cuda_build
+
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    before = cuda_build.library_path("k")
+    assert cuda_build.library_path("k") == before
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert cuda_build.library_path("k") != before
