@@ -10,12 +10,13 @@ Phases, each of which fails the run if it fails:
    each kernel's registers and spills as ptxas reports them.
 2. kernels: hold each kernel against its plain PyTorch version on the card
    at the BERT-Small main-path shape q/k/v [8, 8, 128, 64], in float32
-   (scalar kernels) and bfloat16 (tensor-core forward and dk/dv, scalar
-   dq), with a padded mask and without, causal, and with attention dropout
-   0.1 under a fixed seed; in bfloat16 also at ragged lengths S = 100 and
-   200 and at head dim 128. Read the keep mask back out of the forward and
-   dk/dv kernels (float32 and bfloat16, and bfloat16 at S = 200) and
-   require it equal to the plain mask bit for bit. Then time each kernel,
+   (scalar kernels) and bfloat16 (tensor-core kernels), with a padded mask
+   and without, causal, and with attention dropout 0.1 under a fixed seed;
+   in bfloat16 also at ragged lengths S = 100 and 200 and at head dim 128.
+   The dq kernel's delta = rowsum(dO * O) is held against the plain one.
+   Read the keep mask back out of the forward, dq and dk/dv kernels
+   (float32 and bfloat16, and bfloat16 at S = 200) and require it equal to
+   the plain mask bit for bit. Then time each kernel,
    its plain version and the PyTorch call that computes the same function
    (scaled_dot_product_attention's forward, and its backward, which
    computes dq, dk and dv together, for both backward kernels; never used
@@ -27,7 +28,7 @@ Phases, each of which fails the run if it fails:
    8 x K=4, bfloat16 compute, random weights from a seed, for a few
    optimizer updates and one evaluation. The kernels' launch counts are
    zeroed just before and read just after, and must match the path exactly,
-   with every forward and dk/dv launch on the tensor-core route.
+   with every launch on the tensor-core route.
 5. profile: a torch.profiler window over three more updates of the same
    run: wall and card-busy time per update, idle share, top kernels.
 
@@ -60,12 +61,16 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 # |kernel - plain| <= ATOL + RTOL*|plain|, per output. float32: both sides
 # run float32 math in another summation order. bfloat16: both compute in
 # float32 from the same bf16 inputs; o/dq/dk/dv round once to bf16 (2^-8
-# relative), lse and dmask stay float32.
+# relative), lse and dmask stay float32. delta (the dq kernel's row
+# correction) sums the same float32 products in another order, in both
+# dtypes (a product of two bf16 values is exact in float32).
 TOL = {
     "torch.float32": {"o": (1e-5, 1e-5), "lse": (1e-5, 1e-5), "dq": (1e-4, 1e-4),
-                      "dk": (1e-4, 1e-4), "dv": (1e-4, 1e-4), "dmask": (1e-4, 1e-4)},
+                      "delta": (1e-5, 1e-5), "dk": (1e-4, 1e-4), "dv": (1e-4, 1e-4),
+                      "dmask": (1e-4, 1e-4)},
     "torch.bfloat16": {"o": (1e-2, 1e-2), "lse": (1e-4, 1e-4), "dq": (1e-2, 1e-2),
-                       "dk": (1e-2, 1e-2), "dv": (1e-2, 1e-2), "dmask": (1e-3, 1e-3)},
+                       "delta": (1e-5, 1e-5), "dk": (1e-2, 1e-2), "dv": (1e-2, 1e-2),
+                       "dmask": (1e-3, 1e-3)},
 }
 REPLACES = {
     "flash_fwd": "gradaccum_tpu/ops/flash_attention.py:127",
@@ -73,11 +78,7 @@ REPLACES = {
     "flash_bwd_dkv": "gradaccum_tpu/ops/flash_attention.py:399",
 }
 # the source of each kernel's bfloat16 route, the one the main path runs
-SOURCES = {
-    "flash_fwd": f"{PACKAGE}/csrc/flash_attention_tc.cu",
-    "flash_bwd_dq": f"{PACKAGE}/csrc/flash_attention.cu",
-    "flash_bwd_dkv": f"{PACKAGE}/csrc/flash_attention_tc.cu",
-}
+SOURCES = {name: f"{PACKAGE}/csrc/flash_attention_tc.cu" for name in REPLACES}
 # bfloat16 only: the ragged lengths (one key tile with a ragged edge, and
 # more than one) and the widest head dim, beside the main shape
 EXTRA_SHAPES = [(B, H, 100, D), (B, H, 200, D), (B, H, S, 128)]
@@ -128,12 +129,11 @@ def _ptxas_summary(text):
     for line in text.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            # e.g. ..16flash_dq_kernelI13__nv_bfloat16Li64EEEv.. -> flash_dq_kernel<bf16, 64>
+            # e.g. ..18flash_dq_tc_kernelILi64EEEv.. -> flash_dq_tc_kernel<64>
             name = entry.group(1)
-            m = re.search(r"(flash_[a-z_]+?_kernel)I(\w*?Li(\d+)E)EEv", name)
+            m = re.search(r"(flash_[a-z_]+?_kernel)ILi(\d+)EEEv", name)
             if m:
-                dtype = "f32" if m.group(2).startswith("f") else "bf16"
-                name = f"{m.group(1)}<{dtype}, {m.group(3)}>"
+                name = f"{m.group(1)}<{m.group(2)}>"
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill:
             spills = f"spill stores {spill.group(1)} B, loads {spill.group(2)} B"
@@ -193,23 +193,25 @@ def phase_kernels():
             seed = SEED if rate else None
             o, lse = fa.flash_fwd_cuda(q, k, v, mask, seed, causal, rate)
             o_r, lse_r = fa.flash_forward_reference(q, k, v, mask, seed, causal, rate)
-            # each backward kernel gets exactly its plain twin's inputs
+            # each backward kernel gets exactly its plain twin's inputs: dk/dv
+            # the plain delta, which the dq kernel's own is held against
             delta = fa._delta(do, o_r)
-            dq = fa.flash_bwd_dq_cuda(q, k, v, mask, seed, do, lse_r, delta, causal, rate)
+            dq, delta_k = fa.flash_bwd_dq_cuda(q, k, v, mask, seed, do, o_r, lse_r, causal,
+                                               rate)
             dk, dv, dm = fa.flash_bwd_dkv_cuda(q, k, v, mask, seed, do, lse_r, delta,
                                                causal, rate)
             dq_r, dk_r, dv_r, dm_r = fa.flash_backward_reference(
                 q, k, v, mask, seed, o_r, lse_r, do, causal, rate)
             torch.cuda.synchronize()
             outs = {"o": (o, o_r), "lse": (lse, lse_r), "dq": (dq, dq_r),
-                    "dk": (dk, dk_r), "dv": (dv, dv_r)}
+                    "delta": (delta_k, delta), "dk": (dk, dk_r), "dv": (dv, dv_r)}
             if masked:
                 outs["dmask"] = (dm, dm_r)
             line = []
             for name, (got, want) in outs.items():
                 err, ok, atol, rtol = _err(name, got, want, dtype)
-                kernel = {"o": "flash_fwd", "lse": "flash_fwd", "dq": "flash_bwd_dq"}.get(
-                    name, "flash_bwd_dkv")
+                kernel = {"o": "flash_fwd", "lse": "flash_fwd", "dq": "flash_bwd_dq",
+                          "delta": "flash_bwd_dq"}.get(name, "flash_bwd_dkv")
                 key = (kernel, str(dtype))
                 worst[key] = max(worst.get(key, 0.0), err)
                 line.append(f"{name}={err:.2e}")
@@ -224,40 +226,46 @@ def phase_kernels():
 
 
 def _check_keep_masks(fa, dtype, s):
-    """Read the keep decisions back out of the forward and dk/dv kernels and
-    require them equal to the plain mask. With q = k = 0 every probability
-    is 1/s, so o[i, d] = keep[i, c*D + d]/(keep_prob*s) when v is the
-    one-hot block c; dv[j, d] = keep[c*D + d, j]/(keep_prob*s) likewise
-    when dO is the one-hot block c of query rows. Both are positive
-    (bfloat16 too) exactly where the element is kept. The last block of a
-    ragged length is narrower than D."""
+    """Read the keep decisions back out of the forward, dq and dk/dv kernels
+    and require them equal to the plain mask. With q = k = 0 every
+    probability is 1/s, so o[i, d] = keep[i, c*D + d]/(keep_prob*s) when v
+    is the one-hot block c; dv[j, d] = keep[c*D + d, j]/(keep_prob*s)
+    likewise when dO is the one-hot block c of query rows. For dq, q = 0,
+    o = 0 (so delta = 0) and every row of v and dO is e_0 (so dP = 1); with
+    k the one-hot block c, dq[i, d] = scale*keep[i, c*D + d]/(keep_prob*s).
+    All three are positive (bfloat16 too) exactly where the element is
+    kept. The last block of a ragged length is narrower than D."""
     import torch
 
     shape = (B, H, s, D)
     want = fa.dropout_keep_mask(SEED, B, H, s, RATE, device="cuda")
     zeros = torch.zeros(shape, dtype=dtype, device="cuda")
+    e0 = torch.zeros(shape, dtype=dtype, device="cuda")
+    e0[..., 0] = 1
     lse = torch.full((B, H, s, 1), math.log(s), device="cuda")
     delta = torch.zeros(B, H, s, 1, device="cuda")
-    got_fwd = torch.empty(B, H, s, s, dtype=torch.bool, device="cuda")
-    got_bwd = torch.empty_like(got_fwd)
+    got = {name: torch.empty(B, H, s, s, dtype=torch.bool, device="cuda")
+           for name in ("forward", "dq", "dk/dv")}
     for c0 in range(0, s, D):
         w = min(D, s - c0)
         onehot = torch.zeros(shape, dtype=dtype, device="cuda")
         onehot[:, :, c0:c0 + w, :w] = torch.eye(w, dtype=dtype, device="cuda")
         o, _ = fa.flash_fwd_cuda(zeros, zeros, onehot, None, SEED, False, RATE)
-        got_fwd[..., c0:c0 + w] = o[..., :w] > 0
+        got["forward"][..., c0:c0 + w] = o[..., :w] > 0
+        dq, _ = fa.flash_bwd_dq_cuda(zeros, onehot, e0, None, SEED, e0, zeros, lse,
+                                     False, RATE)
+        got["dq"][..., c0:c0 + w] = dq[..., :w] > 0
         _, dv, _ = fa.flash_bwd_dkv_cuda(zeros, zeros, zeros, None, SEED, onehot, lse,
                                          delta, False, RATE)
-        got_bwd[:, :, c0:c0 + w, :] = (dv[..., :w] > 0).transpose(-1, -2)
+        got["dk/dv"][:, :, c0:c0 + w, :] = (dv[..., :w] > 0).transpose(-1, -2)
     torch.cuda.synchronize()
     kind = f"{str(dtype)[6:]} S={s}"
-    check(torch.equal(got_fwd, want), f"forward kernel keep mask ({kind}) differs "
-                                      f"from the plain mask")
-    check(torch.equal(got_bwd, want), f"dk/dv kernel keep mask ({kind}) differs "
-                                      f"from the plain mask")
-    print(f"[kernels] keep mask exact in flash_fwd and flash_bwd_dkv, {kind} "
-          f"(routes {fa.route('flash_fwd', dtype)}/{fa.route('flash_bwd_dkv', dtype)}; "
-          f"rate {RATE}, seed {SEED:#x}, kept {want.float().mean().item():.4f})")
+    for name, mask in got.items():
+        check(torch.equal(mask, want), f"{name} kernel keep mask ({kind}) differs "
+                                       f"from the plain mask")
+    print(f"[kernels] keep mask exact in flash_fwd, flash_bwd_dq and flash_bwd_dkv, "
+          f"{kind} (route {fa.route(dtype)}; rate {RATE}, seed {SEED:#x}, "
+          f"kept {want.float().mean().item():.4f})")
 
 
 def _time_ms(fn, iters=50, warmup=5):
@@ -312,8 +320,8 @@ def _bounds(dtype, masked):
     work = {
         # q k v mask seed -> o lse; QK^T and PV
         "flash_fwd": (3 * act + mask + seed + act + row, 4 * B * H * S * S * D),
-        # q k v dO lse delta mask seed -> dq; QK^T, dO V^T, dS K
-        "flash_bwd_dq": (4 * act + 2 * row + mask + seed + act, 6 * B * H * S * S * D),
+        # q k v dO o lse mask seed -> dq delta; QK^T, dO V^T, dS K
+        "flash_bwd_dq": (5 * act + row + mask + seed + act + row, 6 * B * H * S * S * D),
         # q k v dO lse delta mask seed -> dk dv dmask; QK^T, dO V^T, P^T dO, dS^T Q
         "flash_bwd_dkv": (4 * act + 2 * row + mask + seed + 2 * act + (row if masked else 0),
                           8 * B * H * S * S * D),
@@ -343,11 +351,11 @@ def phase_timing():
     q, k, v, mask, do = _inputs(dtype, True, seed=1)
     seed = torch.tensor([SEED], dtype=torch.int64, device="cuda")
     o, lse = fa.flash_fwd_cuda(q, k, v, mask, seed, False, RATE)
-    delta = fa._delta(do, o)
+    _, delta = fa.flash_bwd_dq_cuda(q, k, v, mask, seed, do, o, lse, False, RATE)
     calls = {
         "flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, mask, seed, False, RATE),
         "flash_bwd_dq": lambda: fa.flash_bwd_dq_cuda(
-            q, k, v, mask, seed, do, lse, delta, False, RATE),
+            q, k, v, mask, seed, do, o, lse, False, RATE),
         "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_cuda(
             q, k, v, mask, seed, do, lse, delta, False, RATE),
     }
@@ -384,7 +392,7 @@ def phase_timing():
           f"{ms['flash_bwd_dq'] + ms['flash_bwd_dkv']:.4f} ms")
     bounds = _bounds(dtype, True)
     for name in ms:
-        print(f"[timing] {name} ({fa.route(name, dtype)}): {ms[name]:.4f} ms on the card, "
+        print(f"[timing] {name} ({fa.route(dtype)}): {ms[name]:.4f} ms on the card, "
               f"{wall[name]:.4f} ms a call with dispatch (plain {plain[name]:.4f} ms, "
               f"sdpa {library[name]:.4f} ms; bound {bounds[name][0] * 1e3:.2f} us by "
               f"{bounds[name][1]}: {bounds[name][2] / 1e6:.2f} MB, "
@@ -460,10 +468,8 @@ def phase_main(updates: int):
     check(counts == want, f"launch counts {counts} != {want} "
                           f"({layers} layers x K={k} x {updates} updates per kernel, "
                           f"+ {layers} forward per eval batch)")
-    # bf16: every forward and dk/dv launch on the tensor cores, dq scalar
-    want_routes = {"flash_fwd": {"tc": want["flash_fwd"], "scalar": 0},
-                   "flash_bwd_dq": {"scalar": train},
-                   "flash_bwd_dkv": {"tc": train, "scalar": 0}}
+    # bf16: every launch on the tensor cores
+    want_routes = {name: {"tc": n, "scalar": 0} for name, n in want.items()}
     check(routes == want_routes, f"route counts {routes} != {want_routes}")
     print(f"[main] BERT-Small bf16 micro 8 x K={k}, seq {S}: {updates} updates, "
           f"loss {result['loss']:.4f}, {result['seq/s']:.1f} seq/s, "

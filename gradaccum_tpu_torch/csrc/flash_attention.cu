@@ -1,5 +1,5 @@
-// Flash attention for Hopper (sm_90a), scalar route: forward, dq and
-// dk/dv(+dmask) for float32, and dq for bfloat16.
+// Flash attention for Hopper (sm_90a), scalar route: forward, dq (+ delta)
+// and dk/dv (+ dmask), float32 only.
 //
 // Built by gradaccum_tpu_torch/utils/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -8,17 +8,17 @@
 // device, dtype, shape and contiguity, allocates every output, and raises
 // when a function below returns a non-zero cudaGetLastError().
 //
-// Which dtype runs where (fixed, by dtype, in the wrapper): the bfloat16
-// forward (K1) and dk/dv (K3) run on the tensor cores in
-// flash_attention_tc.cu; this file serves every float32 kernel and the
-// bfloat16 dq (K2). float32 stays here because only plain float32 FMA (no
-// TF32) holds the float32 tolerances against the plain PyTorch version.
+// Which dtype runs where (fixed, by dtype, in the wrapper): every bfloat16
+// kernel (K1, K2, K3) runs on the tensor cores in flash_attention_tc.cu, and
+// bfloat16 never reaches this file; this file serves float32, because only
+// plain float32 FMA (no TF32) holds the float32 tolerances against the
+// plain PyTorch version.
 //
 // Layout (the JAX package's): q, k, v, dO, o, dq, dk, dv are [B, H, S, D]
 // contiguous; the optional additive key mask is [B, 1, 1, S] in the input
-// dtype; lse and delta are [B, H, S] float32; dmask is [B, H, S] float32
-// (one row per head, summed over heads by the caller). Every sum is
-// float32.
+// dtype; lse and delta are [B, H, S] float32 (the dq kernel writes delta,
+// the dk/dv kernel reads it); dmask is [B, H, S] float32 (one row per head,
+// summed over heads by the caller). Every sum is float32.
 //
 // Design, shared by the three kernels. The TPU kernels walk a sequential
 // grid axis over k-blocks (or q-blocks) and carry their sums in VMEM
@@ -31,8 +31,9 @@
 // every thread at the same address (a broadcast). No sum crosses blocks,
 // so no atomics and no second pass.
 //
-// What bounds it. At the BERT-Small shape [8, 8, 128, 64] each kernel
-// moves 4-7 MB, a bound of 1-2 us at 3.35 TB/s, and does 0.27-0.54 GFLOP.
+// What bounds it. At the BERT-Small shape [8, 8, 128, 64] in float32 each
+// kernel moves 8.5-13 MB, a bound of 2.5-3.9 us at 3.35 TB/s, and does
+// 0.27-0.54 GFLOP, 4-8 us at the 67 TFLOP/s of float32 FMA.
 // These kernels do the products as scalar float32 FMA with one thread per
 // row, so the rate of FMA and shared-memory load instructions bounds them,
 // and B*H*S = 8192 threads leave most of the card's warp slots empty.
@@ -42,8 +43,6 @@
 // murmur3-finalizer chain keyed by the seed, the (b, h) slice, the query
 // position and the key position, kept when the hash is below
 // round(keep * 2^32). It reproduces the TPU kernels' bits.
-
-#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -57,43 +56,27 @@ using flash::row_seed;
 constexpr int kRows = 64;  // output rows per block, one thread each
 constexpr int kTile = 32;  // streamed rows per shared-memory tile
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // rows [r0, r0 + n) of a [S, D] slice into a [kRows][D+1] (or [kTile][D])
-// float tile; rows past S read as zero
-template <typename T, int D, int NROWS, int STRIDE>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
+// tile; rows past S read as zero
+template <int D, int NROWS, int STRIDE>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int r0,
                                           int S) {
   for (int idx = threadIdx.x; idx < NROWS * D; idx += kRows) {
     const int r = idx / D;
     const int d = idx - r * D;
-    dst[r * STRIDE + d] =
-        (r0 + r < S) ? to_float(src[(size_t)(r0 + r) * D + d]) : 0.f;
+    dst[r * STRIDE + d] = (r0 + r < S) ? src[(size_t)(r0 + r) * D + d] : 0.f;
   }
 }
 
-// kRows rows of a [kRows][D+1] float tile to rows [r0, ...) of a [S, D]
-// slice, coalesced
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* dst, const float* src, int r0,
+// kRows rows of a [kRows][D+1] tile to rows [r0, ...) of a [S, D] slice,
+// coalesced
+template <int D>
+__device__ __forceinline__ void store_rows(float* dst, const float* src, int r0,
                                            int S) {
   for (int idx = threadIdx.x; idx < kRows * D; idx += kRows) {
     const int r = idx / D;
     const int d = idx - r * D;
-    if (r0 + r < S) dst[(size_t)(r0 + r) * D + d] = from_float<T>(src[r * (D + 1) + d]);
+    if (r0 + r < S) dst[(size_t)(r0 + r) * D + d] = src[r * (D + 1) + d];
   }
 }
 
@@ -108,10 +91,11 @@ __device__ __forceinline__ float dot_row(const float* a, const float* b) {
 // ---------------------------------------------------------------------------
 // K1, forward, float32. Replaces _fwd_kernel
 // (gradaccum_tpu/ops/flash_attention.py:127, launched by _flash_forward
-// :266) for float32; bfloat16 runs flash_attention_tc.cu. One block per (b, h, kRows query rows);
-// the k-block grid axis becomes the loop over key tiles, with the online
-// softmax (m, l, acc) of each row in its thread's registers. l sums the
-// undropped p; the dropout keep mask then scales p by 1/keep before p.V.
+// :266) for float32; bfloat16 runs flash_attention_tc.cu. One block per
+// (b, h, kRows query rows); the k-block grid axis becomes the loop over key
+// tiles, with the online softmax (m, l, acc) of each row in its thread's
+// registers. l sums the undropped p; the dropout keep mask then scales p by
+// 1/keep before p.V.
 // Causal: the loop stops after the block's last query row, and each row
 // stops at its own diagonal.
 // Bound at [8,8,128,64] float32: 8.5 MB to move (2.5 us at 3.35 TB/s)
@@ -120,7 +104,7 @@ __device__ __forceinline__ float dot_row(const float* a, const float* b) {
 // threads: FMA issue, not memory, bounds it.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kRows)
     flash_fwd_kernel(const Params p) {
   extern __shared__ float smem[];
@@ -135,12 +119,12 @@ __global__ void __launch_bounds__(kRows)
   const int row = q0 + threadIdx.x;
   const bool active = row < S;
   const size_t slice = (size_t)bh * S * D;
-  const T* q = static_cast<const T*>(p.q) + slice;
-  const T* k = static_cast<const T*>(p.k) + slice;
-  const T* v = static_cast<const T*>(p.v) + slice;
-  const T* mask = static_cast<const T*>(p.mask);
+  const float* q = static_cast<const float*>(p.q) + slice;
+  const float* k = static_cast<const float*>(p.k) + slice;
+  const float* v = static_cast<const float*>(p.v) + slice;
+  const float* mask = static_cast<const float*>(p.mask);
 
-  load_rows<T, D, kRows, D + 1>(q_s, q, q0, S);
+  load_rows<D, kRows, D + 1>(q_s, q, q0, S);
   const uint32_t rseed =
       p.dropout ? row_seed((uint32_t)(*p.seed), (uint32_t)bh, (uint32_t)row) : 0u;
   const float* qr = q_s + threadIdx.x * (D + 1);
@@ -154,11 +138,11 @@ __global__ void __launch_bounds__(kRows)
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     const int kn = min(kTile, S - k0);
     __syncthreads();
-    load_rows<T, D, kTile, D>(k_s, k, k0, S);
-    load_rows<T, D, kTile, D>(v_s, v, k0, S);
+    load_rows<D, kTile, D>(k_s, k, k0, S);
+    load_rows<D, kTile, D>(v_s, v, k0, S);
     if (threadIdx.x < kTile)
       mask_s[threadIdx.x] = (mask != nullptr && threadIdx.x < kn)
-                                ? to_float(mask[(size_t)b * S + k0 + threadIdx.x])
+                                ? mask[(size_t)b * S + k0 + threadIdx.x]
                                 : 0.f;
     __syncthreads();
     if (!active) continue;
@@ -203,20 +187,25 @@ __global__ void __launch_bounds__(kRows)
     p.out_f32[(size_t)bh * S + row] = m + logf(l);
   }
   __syncthreads();
-  store_rows<T, D>(static_cast<T*>(p.out0) + slice, q_s, q0, S);
+  store_rows<D>(static_cast<float*>(p.out0) + slice, q_s, q0, S);
 }
 
 // ---------------------------------------------------------------------------
-// K2, dq. Replaces _dq_kernel (gradaccum_tpu/ops/flash_attention.py:348,
-// from _flash_backward :466). One block per (b, h, kRows query rows); the
-// loop over key tiles recomputes P = exp(S - lse), dP = dO.V^T (dropped and
-// scaled like the forward), dS = P (dP - delta), and sums dq += dS.K in
-// registers; the softmax scale is applied once at the end.
-// Bound at [8,8,128,64] bf16: 5.3 MB (1.6 us) against 0.40 GFLOP; as for the
-// forward, scalar FMA throughput bounds this version.
+// K2, dq (+ delta), float32. Replaces _dq_kernel
+// (gradaccum_tpu/ops/flash_attention.py:348, from _flash_backward :466) for
+// float32, and the row correction delta = rowsum(dO * O) that
+// _flash_backward computes before it (:476); bfloat16 runs
+// flash_attention_tc.cu. One block per (b, h, kRows query rows); each
+// thread first takes the dot of its dO row with its O row (delta, written
+// for the dk/dv kernel), then the loop over key tiles recomputes
+// P = exp(S - lse), dP = dO.V^T (dropped and scaled like the forward),
+// dS = P (dP - delta), and sums dq += dS.K in registers; the softmax scale
+// is applied once at the end.
+// Bound at [8,8,128,64] float32: 12.7 MB (3.8 us) against 0.40 GFLOP (6 us
+// of float32 FMA); as for the forward, the rate of scalar FMA bounds it.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kRows)
     flash_dq_kernel(const Params p) {
   extern __shared__ float smem[];
@@ -232,18 +221,28 @@ __global__ void __launch_bounds__(kRows)
   const int row = q0 + threadIdx.x;
   const bool active = row < S;
   const size_t slice = (size_t)bh * S * D;
-  const T* k = static_cast<const T*>(p.k) + slice;
-  const T* v = static_cast<const T*>(p.v) + slice;
-  const T* mask = static_cast<const T*>(p.mask);
+  const float* k = static_cast<const float*>(p.k) + slice;
+  const float* v = static_cast<const float*>(p.v) + slice;
+  const float* mask = static_cast<const float*>(p.mask);
 
-  load_rows<T, D, kRows, D + 1>(q_s, static_cast<const T*>(p.q) + slice, q0, S);
-  load_rows<T, D, kRows, D + 1>(do_s, static_cast<const T*>(p.dout) + slice, q0, S);
+  load_rows<D, kRows, D + 1>(q_s, static_cast<const float*>(p.q) + slice, q0, S);
+  load_rows<D, kRows, D + 1>(do_s, static_cast<const float*>(p.dout) + slice, q0, S);
   const float lse_r = active ? p.lse[(size_t)bh * S + row] : 0.f;
-  const float delta_r = active ? p.delta[(size_t)bh * S + row] : 0.f;
   const uint32_t rseed =
       p.dropout ? row_seed((uint32_t)(*p.seed), (uint32_t)bh, (uint32_t)row) : 0u;
   const float* qr = q_s + threadIdx.x * (D + 1);
   const float* dor = do_s + threadIdx.x * (D + 1);
+
+  // delta = dO . O of this thread's row: its O row straight from device
+  // memory (read once, so not staged), its dO row from the tile
+  __syncthreads();  // do_s is filled by every thread
+  float delta_r = 0.f;
+  if (active) {
+    const float* orow = static_cast<const float*>(p.o) + slice + (size_t)row * D;
+#pragma unroll 16
+    for (int d = 0; d < D; ++d) delta_r = fmaf(dor[d], orow[d], delta_r);
+    p.out_f32[(size_t)bh * S + row] = delta_r;
+  }
 
   float dq[D];
 #pragma unroll
@@ -253,11 +252,11 @@ __global__ void __launch_bounds__(kRows)
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     const int kn = min(kTile, S - k0);
     __syncthreads();
-    load_rows<T, D, kTile, D>(k_s, k, k0, S);
-    load_rows<T, D, kTile, D>(v_s, v, k0, S);
+    load_rows<D, kTile, D>(k_s, k, k0, S);
+    load_rows<D, kTile, D>(v_s, v, k0, S);
     if (threadIdx.x < kTile)
       mask_s[threadIdx.x] = (mask != nullptr && threadIdx.x < kn)
-                                ? to_float(mask[(size_t)b * S + k0 + threadIdx.x])
+                                ? mask[(size_t)b * S + k0 + threadIdx.x]
                                 : 0.f;
     __syncthreads();
     if (!active) continue;
@@ -281,7 +280,7 @@ __global__ void __launch_bounds__(kRows)
     for (int d = 0; d < D; ++d) out[d] = dq[d] * p.scale;
   }
   __syncthreads();
-  store_rows<T, D>(static_cast<T*>(p.out0) + slice, q_s, q0, S);
+  store_rows<D>(static_cast<float*>(p.out0) + slice, q_s, q0, S);
 }
 
 // ---------------------------------------------------------------------------
@@ -297,7 +296,7 @@ __global__ void __launch_bounds__(kRows)
 // of float32 FMA), the most work of the three; scalar FMA issue bounds it.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kRows)
     flash_dkv_kernel(const Params p) {
   extern __shared__ float smem[];
@@ -315,15 +314,14 @@ __global__ void __launch_bounds__(kRows)
   const int key = k0 + threadIdx.x;
   const bool active = key < S;
   const size_t slice = (size_t)bh * S * D;
-  const T* q = static_cast<const T*>(p.q) + slice;
-  const T* dout = static_cast<const T*>(p.dout) + slice;
-  const T* mask = static_cast<const T*>(p.mask);
+  const float* q = static_cast<const float*>(p.q) + slice;
+  const float* dout = static_cast<const float*>(p.dout) + slice;
+  const float* mask = static_cast<const float*>(p.mask);
   const uint32_t seed = p.dropout ? (uint32_t)(*p.seed) : 0u;
 
-  load_rows<T, D, kRows, D + 1>(k_s, static_cast<const T*>(p.k) + slice, k0, S);
-  load_rows<T, D, kRows, D + 1>(v_s, static_cast<const T*>(p.v) + slice, k0, S);
-  const float mask_j =
-      (mask != nullptr && active) ? to_float(mask[(size_t)b * S + key]) : 0.f;
+  load_rows<D, kRows, D + 1>(k_s, static_cast<const float*>(p.k) + slice, k0, S);
+  load_rows<D, kRows, D + 1>(v_s, static_cast<const float*>(p.v) + slice, k0, S);
+  const float mask_j = (mask != nullptr && active) ? mask[(size_t)b * S + key] : 0.f;
   const float* kr = k_s + threadIdx.x * (D + 1);
   const float* vr = v_s + threadIdx.x * (D + 1);
 
@@ -339,8 +337,8 @@ __global__ void __launch_bounds__(kRows)
   for (int i0 = i_begin; i0 < S; i0 += kTile) {
     const int qn = min(kTile, S - i0);
     __syncthreads();
-    load_rows<T, D, kTile, D>(q_s, q, i0, S);
-    load_rows<T, D, kTile, D>(do_s, dout, i0, S);
+    load_rows<D, kTile, D>(q_s, q, i0, S);
+    load_rows<D, kTile, D>(do_s, dout, i0, S);
     if (threadIdx.x < kTile) {
       const int i = i0 + threadIdx.x;
       const bool in = threadIdx.x < qn;
@@ -384,8 +382,8 @@ __global__ void __launch_bounds__(kRows)
     if (p.out_f32 != nullptr) p.out_f32[(size_t)bh * S + key] = dmask;
   }
   __syncthreads();
-  store_rows<T, D>(static_cast<T*>(p.out0) + slice, k_s, k0, S);
-  store_rows<T, D>(static_cast<T*>(p.out1) + slice, v_s, k0, S);
+  store_rows<D>(static_cast<float*>(p.out0) + slice, k_s, k0, S);
+  store_rows<D>(static_cast<float*>(p.out1) + slice, v_s, k0, S);
 }
 
 // ---------------------------------------------------------------------------
@@ -405,53 +403,34 @@ constexpr size_t dkv_smem() {
   return sizeof(float) * (2 * kRows * (D + 1) + 2 * kTile * D + 3 * kTile);
 }
 
-enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+enum Which { kFwd, kDq, kDkv };
 
-template <typename Kernel>
-int launch(Kernel kernel, size_t smem, const Params& p, int B,
-           cudaStream_t stream) {
-  return flash::launch(kernel, smem, p, B, kRows, kRows, stream);
-}
-
-// bfloat16 reaches this file only for dq: its forward and dk/dv are
-// flash_attention_tc.cu's, so those instances are not built here
-template <typename T, int D>
-int launch_typed(Which which, const Params& p, int B, cudaStream_t stream) {
-  constexpr bool kAll = std::is_same<T, float>::value;
+template <int D>
+int launch_d(Which which, const Params& p, int B, cudaStream_t stream) {
+  if (which == kFwd)
+    return flash::launch<flash_fwd_kernel<D>>(fwd_smem<D>(), p, B, kRows, kRows, stream);
   if (which == kDq)
-    return launch(flash_dq_kernel<T, D>, dq_smem<D>(), p, B, stream);
-  if constexpr (kAll) {
-    if (which == kFwd)
-      return launch(flash_fwd_kernel<T, D>, fwd_smem<D>(), p, B, stream);
-    if (which == kDkv)
-      return launch(flash_dkv_kernel<T, D>, dkv_smem<D>(), p, B, stream);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-template <typename T>
-int dispatch_d(Which which, int D, const Params& p, int B, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch_typed<T, 16>(which, p, B, stream);
-    case 32: return launch_typed<T, 32>(which, p, B, stream);
-    case 64: return launch_typed<T, 64>(which, p, B, stream);
-    case 128: return launch_typed<T, 128>(which, p, B, stream);
-  }
-  return (int)cudaErrorInvalidValue;
+    return flash::launch<flash_dq_kernel<D>>(dq_smem<D>(), p, B, kRows, kRows, stream);
+  return flash::launch<flash_dkv_kernel<D>>(dkv_smem<D>(), p, B, kRows, kRows, stream);
 }
 
 int dispatch(Which which, int dtype, int D, const Params& p, int B,
              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(which, D, p, B, s);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(which, D, p, B, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;  // float32 only
+  switch (D) {
+    case 16: return launch_d<16>(which, p, B, s);
+    case 32: return launch_d<32>(which, p, B, s);
+    case 64: return launch_d<64>(which, p, B, s);
+    case 128: return launch_d<128>(which, p, B, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (flash_bwd_dq only; the others return
-// cudaErrorInvalidValue for it). Each returns the cudaError_t of its launch.
+// dtype must be 0 (float32); bfloat16 runs the same-named *_tc functions of
+// flash_attention_tc.cu. Each returns the cudaError_t of its launch.
 extern "C" int flash_fwd(int dtype, int D, const void* q, const void* k,
                          const void* v, const void* mask, const int64_t* seed,
                          void* o, float* lse, int B, int H, int S,
@@ -464,19 +443,21 @@ extern "C" int flash_fwd(int dtype, int D, const void* q, const void* k,
   return dispatch(kFwd, dtype, D, p, B, stream);
 }
 
+// delta (written) is rowsum(dout * o), [B, H, S] float32, for flash_bwd_dkv
 extern "C" int flash_bwd_dq(int dtype, int D, const void* q, const void* k,
                             const void* v, const void* mask,
                             const int64_t* seed, const void* dout,
-                            const float* lse, const float* delta, void* dq,
-                            int B, int H, int S, float scale, int causal,
-                            uint32_t threshold, float inv_keep, int dropout,
-                            void* stream) {
+                            const void* o, const float* lse, void* dq,
+                            float* delta, int B, int H, int S, float scale,
+                            int causal, uint32_t threshold, float inv_keep,
+                            int dropout, void* stream) {
   Params p = flash::make_params(q, k, v, mask, seed, H, S, scale, causal,
                                 threshold, inv_keep, dropout);
   p.dout = dout;
+  p.o = o;
   p.lse = lse;
-  p.delta = delta;
   p.out0 = dq;
+  p.out_f32 = delta;
   return dispatch(kDq, dtype, D, p, B, stream);
 }
 

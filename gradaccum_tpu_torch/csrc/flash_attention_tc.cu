@@ -1,12 +1,14 @@
 // Flash attention for Hopper (sm_90a) on the tensor cores, bfloat16:
-// forward (K1) and dk/dv + per-head dmask (K3).
+// forward (K1), dq + delta (K2) and dk/dv + per-head dmask (K3).
 //
 // Replaces, for bfloat16 inputs, the TPU kernels
 //   _fwd_kernel  gradaccum_tpu/ops/flash_attention.py:127 (K1)
+//   _dq_kernel   gradaccum_tpu/ops/flash_attention.py:348 (K2), with the
+//                delta = rowsum(dO * O) that _flash_backward computes
+//                before it (:476)
 //   _dkv_kernel  gradaccum_tpu/ops/flash_attention.py:399 (K3)
-// float32 inputs, and dq (K2, _dq_kernel :348) in both types, run the scalar
-// kernels of flash_attention.cu: the wrapper in
-// gradaccum_tpu_torch/ops/flash_attention.py routes by dtype, with no
+// float32 inputs run the scalar kernels of flash_attention.cu: the wrapper
+// in gradaccum_tpu_torch/ops/flash_attention.py routes by dtype, with no
 // fallback. Built by gradaccum_tpu_torch/utils/cuda_build.py (nvcc, plain C
 // interface, ctypes), like flash_attention.cu; layouts, dropout bits and
 // outputs are that file's (see its header).
@@ -14,6 +16,7 @@
 // Bound at the BERT-Small shape [8, 8, 128, 64] bf16, mask, dropout 0.1:
 //   K1 moves 4.2 MB (1.3 us at 3.35 TB/s) and does 0.27 GFLOP (0.3 us at
 //      989 TFLOP/s): bytes bound it.
+//   K2 moves 6.4 MB (1.9 us) and does 0.40 GFLOP (0.4 us): bytes.
 //   K3 moves 6.4 MB (1.9 us) and does 0.54 GFLOP (0.5 us): bytes again.
 // So the tensor-core rate is not the limit; what is left after moving the
 // products onto them is latency: the loads, the dropout hash and exp2.
@@ -22,8 +25,8 @@
 // row, scalar FMA with two shared-memory loads each, element-wise tile
 // loads with a __syncthreads per 32-row tile, 133/168 registers):
 // - Every product is mma.sync.m16n8k16 bf16 -> f32. A block is 4 warps
-//   owning 64 output rows, 16 per warp (query rows for K1, key rows for
-//   K3); grid (S/64, H, B) is 128 blocks at the main shape, one wave on
+//   owning 64 output rows, 16 per warp (query rows for K1 and K2, key rows
+//   for K3); grid (S/64, H, B) is 128 blocks at the main shape, one wave on
 //   132 SMs. No sum crosses blocks, so no atomics.
 // - Tiles of 64 streamed rows arrive by 16-byte cp.async copies (zero-filled
 //   past S), double-buffered: the next tile's copy is in flight while the
@@ -31,19 +34,21 @@
 // - Rows in shared memory are padded by 16 bytes (D + 8 bf16), so the 8
 //   rows an ldmatrix reads fall on 8 different 16-byte bank groups: no
 //   bank conflicts for ldmatrix or ldmatrix.trans.
-// - The softmax probabilities stay in registers: the f32 accumulator of one
-//   product is rounded to bf16 and used as the A operand of the next (the
-//   m16n8 C layout of two n-tiles is the m16k16 A layout), so P never
-//   touches shared memory.
+// - The softmax probabilities and dS stay in registers: the f32
+//   accumulator of one product is rounded to bf16 and used as the A operand
+//   of the next (the m16n8 C layout of two n-tiles is the m16k16 A layout),
+//   so P and dS never touch shared memory.
 // - The dropout decision is made on each accumulator element at the
 //   (query, key) position its fragment slot holds, from a row seed computed
 //   once per query row: the same bits as the scalar kernels and the TPU.
 //
-// Numerics: scores, the online softmax, lse, the normalizer l, dS and dmask
-// are float32. P (K1), drop(P)^T and dS^T (K3) are rounded to bf16 before
-// their second product, as in every tensor-core flash kernel: about 2^-9
-// relative per term. l sums the undropped, unrounded p, as the scalar
-// kernel does. exp is exp2f on scores pre-scaled by log2(e).
+// Numerics: scores, the online softmax, lse, the normalizer l, delta, dS
+// and dmask are float32. P (K1), dS (K2, as _dq_kernel rounds it at :385),
+// drop(P)^T and dS^T (K3) are rounded to bf16 before their second product,
+// as in every tensor-core flash kernel: about 2^-9 relative per term. l sums
+// the undropped, unrounded p, as the scalar kernel does. delta sums the
+// products of bf16 pairs, each exact in f32. exp is exp2f on scores
+// pre-scaled by log2(e).
 
 #include "flash_common.cuh"
 
@@ -215,6 +220,26 @@ __device__ __forceinline__ void store_warp_rows(bf16* tile, int row0,
   }
 }
 
+// Key/value tile `tile` of a [S, D] slice into stage `st` of kv_s
+// ([2 stages][K, V][kTile][D + kPad]), with the tile's row of the batch's
+// key mask, times log2 e, into mask_s[st] (0 past S or without a mask)
+template <int D>
+__device__ __forceinline__ void load_kv_tile(bf16* kv_s, float* mask_s,
+                                             const bf16* k, const bf16* v,
+                                             const bf16* mask_b, int S,
+                                             int tile, int st) {
+  constexpr int kTileElems = kTile * (D + kPad);
+  const int k0 = tile * kTile;
+  bf16* ks = kv_s + st * 2 * kTileElems;
+  load_tile<D, kTile>(ks, k, k0, S);
+  load_tile<D, kTile>(ks + kTileElems, v, k0, S);
+  if (threadIdx.x < kTile) {
+    const int j = k0 + threadIdx.x;
+    mask_s[st * kTile + threadIdx.x] =
+        (mask_b != nullptr && j < S) ? __bfloat162float(mask_b[j]) * kLog2e : 0.f;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // K1, forward. One block per (b, h, 64 query rows); warp w owns rows
 // 16 w .. 16 w + 15 of the block. The key/value tiles stream through two
@@ -245,27 +270,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(const Params p) 
   const size_t slice = (size_t)bh * S * D;
   const bf16* k = static_cast<const bf16*>(p.k) + slice;
   const bf16* v = static_cast<const bf16*>(p.v) + slice;
-  const bf16* mask = static_cast<const bf16*>(p.mask);
+  const bf16* mask =
+      p.mask != nullptr ? static_cast<const bf16*>(p.mask) + (size_t)b * S : nullptr;
 
   const int k_end = p.causal ? min(S, q0 + kBlockRows) : S;
   const int n_tiles = (k_end + kTile - 1) / kTile;
 
-  // key/value tile `tile` (and its mask, times log2 e) into stage `st`
-  auto load_kv = [&](int tile, int st) {
-    const int k0 = tile * kTile;
-    bf16* ks = kv_s + st * 2 * kTileElems;
-    load_tile<D, kTile>(ks, k, k0, S);
-    load_tile<D, kTile>(ks + kTileElems, v, k0, S);
-    if (threadIdx.x < kTile) {
-      const int j = k0 + threadIdx.x;
-      mask_s[st * kTile + threadIdx.x] =
-          (mask != nullptr && j < S) ? __bfloat162float(mask[(size_t)b * S + j]) * kLog2e
-                                     : 0.f;
-    }
-  };
-
   load_tile<D, kBlockRows>(q_s, static_cast<const bf16*>(p.q) + slice, q0, S);
-  load_kv(0, 0);
+  load_kv_tile<D>(kv_s, mask_s, k, v, mask, S, 0, 0);
   cp_async_commit();
 
   // this lane's two query rows: a (g) and b (g + 8) of the warp's 16
@@ -290,7 +302,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(const Params p) 
 
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int st = tile & 1;
-    if (tile + 1 < n_tiles) load_kv(tile + 1, st ^ 1);
+    if (tile + 1 < n_tiles) load_kv_tile<D>(kv_s, mask_s, k, v, mask, S, tile + 1, st ^ 1);
     cp_async_commit();
     cp_async_wait<1>();  // this tile (and Q) landed; the next may be in flight
     __syncthreads();
@@ -395,6 +407,195 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(const Params p) 
   }
   // q_s is free (Q lives in registers since tile 0): stage o there
   store_warp_rows<D>(q_s, warp * 16, acc, 1.f / l_a, 1.f / l_b,
+                     static_cast<bf16*>(p.out0) + slice, q0 + warp * 16, S, lane);
+}
+
+// ---------------------------------------------------------------------------
+// K2, dq (+ delta). One block per (b, h, 64 query rows); warp w owns rows
+// 16 w .. 16 w + 15, whose Q and dO rows sit in registers as A operands for
+// the whole key loop. The key/value tiles (and the mask row, times log2 e)
+// stream through two shared-memory stages, as in K1. Per 16 keys of a tile,
+// each warp computes S = Q K^T and dP = dO V^T (16 queries x 16 keys, f32),
+// then P = exp(S scale + mask_j - lse_i), the keep bits keep(rseed_i, j),
+// dS = P (drop(dP) - delta_i), and adds dq += bf16(dS) K, the B operand read
+// transposed (ldmatrix.trans) from the same K tile. dq is scaled by the
+// softmax scale once at the end. Causal: the key loop stops after the
+// block's last query row, and each element past its row's diagonal is
+// masked.
+// delta_i = sum_d dO_id O_id is computed here, not by a pass before: each
+// lane reads its rows' O elements straight from device memory in the
+// A-operand layout of its dO fragments (O is read once, so it is not
+// staged), multiplies the bf16 pairs in f32 and sums across the 4 lanes
+// that share a row. delta is used in place and written out for K3.
+// Live registers: the Q and dO fragments (D/4 each) and the dq accumulator
+// (D/2), against K3's K, V fragments and dK, dV accumulators (D/4 + D/4 +
+// D/2 + D/2); 16 scores and 16 dP values per chunk beside them.
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_dq_tc_kernel(const Params p) {
+  constexpr int kStride = D + kPad;
+  constexpr int kTileElems = kTile * kStride;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kBlockRows][kStride]
+  bf16* do_s = q_s + kBlockRows * kStride;        // [kBlockRows][kStride]
+  bf16* kv_s = do_s + kBlockRows * kStride;       // [2 stages][K, V][kTile][kStride]
+  float* mask_s = reinterpret_cast<float*>(kv_s + 4 * kTileElems);  // [2][kTile]
+
+  const int S = p.S;
+  const int b = blockIdx.z, h = blockIdx.y, bh = b * p.H + h;
+  const int q0 = blockIdx.x * kBlockRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const size_t slice = (size_t)bh * S * D;
+  const bf16* k = static_cast<const bf16*>(p.k) + slice;
+  const bf16* v = static_cast<const bf16*>(p.v) + slice;
+  const bf16* mask =
+      p.mask != nullptr ? static_cast<const bf16*>(p.mask) + (size_t)b * S : nullptr;
+
+  const int k_end = p.causal ? min(S, q0 + kBlockRows) : S;
+  const int n_tiles = (k_end + kTile - 1) / kTile;
+
+  // two copy groups: Q and dO first, then the first key/value tile
+  load_tile<D, kBlockRows>(q_s, static_cast<const bf16*>(p.q) + slice, q0, S);
+  load_tile<D, kBlockRows>(do_s, static_cast<const bf16*>(p.dout) + slice, q0, S);
+  cp_async_commit();
+  load_kv_tile<D>(kv_s, mask_s, k, v, mask, S, 0, 0);
+  cp_async_commit();
+
+  // this lane's two query rows: a (g) and b (g + 8) of the warp's 16
+  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
+  const bool in_a = row_a < S, in_b = row_b < S;
+
+  // O of rows a and b in the A-operand layout (as dof below): of[kk][0..3]
+  // are rows a, b, a, b at columns 16 kk + 2 t (+1), plus 8 for [2] and [3];
+  // zero past S. Loaded now, so the loads fly while Q and dO land.
+  uint32_t of[D / 16][4];
+  {
+    const bf16* o = static_cast<const bf16*>(p.o) + slice;
+    const uint32_t* oa = reinterpret_cast<const uint32_t*>(o + (size_t)(in_a ? row_a : 0) * D);
+    const uint32_t* ob = reinterpret_cast<const uint32_t*>(o + (size_t)(in_b ? row_b : 0) * D);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = (kk * 16 + 2 * t) / 2;  // in bf16 pairs
+      of[kk][0] = in_a ? oa[c] : 0u;
+      of[kk][1] = in_b ? ob[c] : 0u;
+      of[kk][2] = in_a ? oa[c + 4] : 0u;
+      of[kk][3] = in_b ? ob[c + 4] : 0u;
+    }
+  }
+  const float lse_a = in_a ? p.lse[(size_t)bh * S + row_a] * kLog2e : 0.f;
+  const float lse_b = in_b ? p.lse[(size_t)bh * S + row_b] * kLog2e : 0.f;
+  uint32_t rseed_a = 0u, rseed_b = 0u;
+  if (p.dropout) {
+    const uint32_t seed = (uint32_t)(*p.seed);
+    rseed_a = row_seed(seed, (uint32_t)bh, (uint32_t)row_a);
+    rseed_b = row_seed(seed, (uint32_t)bh, (uint32_t)row_b);
+  }
+  const float scale_log2 = p.scale * kLog2e;
+
+  // Q and dO into registers, and delta, before the key loop, so that the O
+  // fragments are dead before it starts
+  cp_async_wait<1>();  // Q and dO landed; the first key/value tile may be in flight
+  __syncthreads();
+  uint32_t qf[D / 16][4], dof[D / 16][4];
+  float delta_a = 0.f, delta_b = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    load_a<D>(qf[kk], q_s, warp * 16, kk * 16, lane);
+    load_a<D>(dof[kk], do_s, warp * 16, kk * 16, lane);
+    // the products of bf16 pairs are exact in f32
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dof[kk][r]));
+      const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&of[kk][r]));
+      if (r % 2 == 0) delta_a += x.x * y.x + x.y * y.y;
+      else delta_b += x.x * y.x + x.y * y.y;
+    }
+  }
+  delta_a = quad_sum(delta_a);
+  delta_b = quad_sum(delta_b);
+  if (t == 0) {
+    float* delta = p.out_f32 + (size_t)bh * S;
+    if (in_a) delta[row_a] = delta_a;
+    if (in_b) delta[row_b] = delta_b;
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int st = tile & 1;
+    if (tile + 1 < n_tiles) load_kv_tile<D>(kv_s, mask_s, k, v, mask, S, tile + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile landed; the next may be in flight
+    __syncthreads();
+    const bf16* ks = kv_s + st * 2 * kTileElems;
+    const bf16* vs = ks + kTileElems;
+    const float* ms = mask_s + st * kTile;
+    const int k0 = tile * kTile;
+
+#pragma unroll
+    for (int c = 0; c < kTile / 16; ++c) {  // 16 keys at a time
+      // S = Q K^T and dP = dO V^T: 16 queries x 16 keys, 2 n-tiles each
+      float sc[2][4], dp[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[n][e] = 0.f;
+          dp[n][e] = 0.f;
+        }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t bk[4], bv[4];
+        load_b_rows<D>(bk, ks, c * 16, kk * 16, lane);
+        load_b_rows<D>(bv, vs, c * 16, kk * 16, lane);
+        mma(sc[0], qf[kk], bk[0], bk[1]);
+        mma(sc[1], qf[kk], bk[2], bk[3]);
+        mma(dp[0], dof[kk], bv[0], bv[1]);
+        mma(dp[1], dof[kk], bv[2], bv[3]);
+      }
+
+      // element-wise, in f32; dS in bf16 is the A operand of dS K
+      uint32_t sa[4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int jl = c * 16 + n * 8 + 2 * t + (e & 1);
+          const int j = k0 + jl;
+          const int row = e < 2 ? row_a : row_b;
+          float pt = exp2f(sc[n][e] * scale_log2 + ms[jl] - (e < 2 ? lse_a : lse_b));
+          if (j >= S || (p.causal && j > row)) pt = 0.f;
+          float d = dp[n][e];
+          if (p.dropout)
+            d = keep(e < 2 ? rseed_a : rseed_b, (uint32_t)j, p.threshold) ? d * p.inv_keep
+                                                                          : 0.f;
+          ds[e] = pt * (d - (e < 2 ? delta_a : delta_b));
+        }
+        sa[n * 2] = pack_bf16(ds[0], ds[1]);
+        sa[n * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+
+      // dq += dS K: k = these 16 keys, n = D
+#pragma unroll
+      for (int dc = 0; dc < D / 16; ++dc) {
+        uint32_t bk[4];
+        load_b_cols<D>(bk, ks, c * 16, dc * 16, lane);
+        mma(acc[2 * dc], sa, bk[0], bk[1]);
+        mma(acc[2 * dc + 1], sa, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // the stage is refilled by the next iteration's copy
+  }
+
+  // q_s is free (Q lives in registers since tile 0): stage dq there
+  store_warp_rows<D>(q_s, warp * 16, acc, p.scale, p.scale,
                      static_cast<bf16*>(p.out0) + slice, q0 + warp * 16, S, lane);
 }
 
@@ -591,20 +792,27 @@ constexpr size_t fwd_smem() {
   return sizeof(bf16) * (kBlockRows + 4 * kTile) * (D + kPad) + sizeof(float) * 2 * kTile;
 }
 template <int D>
+constexpr size_t dq_smem() {
+  return sizeof(bf16) * (2 * kBlockRows + 4 * kTile) * (D + kPad) + sizeof(float) * 2 * kTile;
+}
+template <int D>
 constexpr size_t dkv_smem() {
   return sizeof(bf16) * (2 * kBlockRows + 4 * kTile) * (D + kPad) +
          sizeof(float) * 6 * kTile;
 }
 
-enum Which { kFwd, kDkv };
+enum Which { kFwd, kDq, kDkv };
 
 template <int D>
 int launch_d(Which which, const Params& p, int B, cudaStream_t stream) {
   if (which == kFwd)
-    return flash::launch(flash_fwd_tc_kernel<D>, fwd_smem<D>(), p, B, kBlockRows,
-                         kThreads, stream);
-  return flash::launch(flash_dkv_tc_kernel<D>, dkv_smem<D>(), p, B, kBlockRows,
-                       kThreads, stream);
+    return flash::launch<flash_fwd_tc_kernel<D>>(fwd_smem<D>(), p, B, kBlockRows,
+                                                 kThreads, stream);
+  if (which == kDq)
+    return flash::launch<flash_dq_tc_kernel<D>>(dq_smem<D>(), p, B, kBlockRows,
+                                                kThreads, stream);
+  return flash::launch<flash_dkv_tc_kernel<D>>(dkv_smem<D>(), p, B, kBlockRows,
+                                               kThreads, stream);
 }
 
 int dispatch(Which which, int dtype, int D, const Params& p, int B,
@@ -622,8 +830,9 @@ int dispatch(Which which, int dtype, int D, const Params& p, int B,
 
 }  // namespace
 
-// The signatures of flash_fwd / flash_bwd_dkv in flash_attention.cu; dtype
-// must be 1 (bfloat16). Each returns the cudaError_t of its launch.
+// The signatures of flash_fwd / flash_bwd_dq / flash_bwd_dkv in
+// flash_attention.cu; dtype must be 1 (bfloat16). Each returns the
+// cudaError_t of its launch.
 extern "C" int flash_fwd_tc(int dtype, int D, const void* q, const void* k,
                             const void* v, const void* mask,
                             const int64_t* seed, void* o, float* lse, int B,
@@ -635,6 +844,23 @@ extern "C" int flash_fwd_tc(int dtype, int D, const void* q, const void* k,
   p.out0 = o;
   p.out_f32 = lse;
   return dispatch(kFwd, dtype, D, p, B, stream);
+}
+
+extern "C" int flash_bwd_dq_tc(int dtype, int D, const void* q, const void* k,
+                               const void* v, const void* mask,
+                               const int64_t* seed, const void* dout,
+                               const void* o, const float* lse, void* dq,
+                               float* delta, int B, int H, int S, float scale,
+                               int causal, uint32_t threshold, float inv_keep,
+                               int dropout, void* stream) {
+  Params p = flash::make_params(q, k, v, mask, seed, H, S, scale, causal,
+                                threshold, inv_keep, dropout);
+  p.dout = dout;
+  p.o = o;
+  p.lse = lse;
+  p.out0 = dq;
+  p.out_f32 = delta;
+  return dispatch(kDq, dtype, D, p, B, stream);
 }
 
 extern "C" int flash_bwd_dkv_tc(int dtype, int D, const void* q, const void* k,

@@ -49,11 +49,13 @@ struct Params {
   const void* mask;  // nullptr: no mask
   const int64_t* seed;  // device scalar; read only when dropout is on
   const void* dout;
+  const void* o;  // the forward's output (dq, for delta)
   const float* lse;
   const float* delta;
   void* out0;  // o (fwd), dq (dq), dk (dkv)
   void* out1;  // dv (dkv)
-  float* out_f32;  // lse (fwd); dmask per head (dkv), nullptr when not wanted
+  // lse (fwd); delta (dq); dmask per head (dkv), nullptr when not wanted
+  float* out_f32;
   int H;
   int S;
   float scale;
@@ -84,15 +86,19 @@ inline Params make_params(const void* q, const void* k, const void* v,
 }
 
 // One block per (rows output rows, head, batch). Returns cudaGetLastError().
-template <typename Kernel>
-int launch(Kernel kernel, size_t smem, const Params& p, int B, int rows,
-           int threads, cudaStream_t stream) {
-  // above 48 KB a block's dynamic shared memory needs an explicit opt-in
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+// The kernel is a template argument so that each kernel instance has its
+// own opt-in: above 48 KB a block's dynamic shared memory needs
+// cudaFuncSetAttribute, which is set once per instance (a function-local
+// static), not on every launch. The attribute belongs to the device that is
+// current at the first launch: one card per process.
+template <void (*Kernel)(Params)>
+int launch(size_t smem, const Params& p, int B, int rows, int threads,
+           cudaStream_t stream) {
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (opt_in != cudaSuccess) return (int)opt_in;
   const dim3 grid((p.S + rows - 1) / rows, p.H, B);
-  kernel<<<grid, threads, smem, stream>>>(p);
+  Kernel<<<grid, threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 

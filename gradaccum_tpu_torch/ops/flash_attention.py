@@ -5,16 +5,17 @@ kernels of the TPU package (forward ``_fwd_kernel``, ``_dq_kernel`` and
 ``_dkv_kernel``) become hand-written CUDA kernels on two routes, chosen by
 dtype and nothing else:
 
-- ``tc`` (``csrc/flash_attention_tc.cu``): the bfloat16 forward and dk/dv on
-  the tensor cores (``mma.sync``, ``ldmatrix``, ``cp.async``).
+- ``tc`` (``csrc/flash_attention_tc.cu``): every bfloat16 kernel on the
+  tensor cores (``mma.sync``, ``ldmatrix``, ``cp.async``).
 - ``scalar`` (``csrc/flash_attention.cu``): every float32 kernel, in plain
-  float32 FMA (the only route that holds float32's tolerances), and dq in
-  both dtypes.
+  float32 FMA (the only route that holds float32's tolerances).
 
 The design and what bounds each kernel are noted in the sources.
 The forward saves only ``o`` and the per-row logsumexp; the backward
 recomputes each score from q, k and the logsumexp, never materializing the
-[S, S] matrix on the card.
+[S, S] matrix on the card. The dq kernel also computes the row correction
+Δ = rowsum(dO ⊙ O) and hands it to the dk/dv kernel, so no pass runs
+before the two.
 
 Beside each kernel is its plain PyTorch version
 (:func:`flash_forward_reference`, :func:`flash_backward_reference`): dense
@@ -170,15 +171,14 @@ _U = ctypes.c_uint32
 _COMMON_TAIL = [_I, _I, _I, _F, _I, _U, _F, _I, _P]  # B H S scale causal thr inv drop stream
 _ARGTYPES = {
     "flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P] + _COMMON_TAIL,
-    "flash_bwd_dq": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P] + _COMMON_TAIL,
+    "flash_bwd_dq": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P] + _COMMON_TAIL,
     "flash_bwd_dkv": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P] + _COMMON_TAIL,
 }
 # route -> (source under csrc/, {kernel: C function}); a tc function takes
 # the same arguments as its scalar twin
 _SOURCES = {
     "scalar": ("flash_attention", {name: name for name in _ARGTYPES}),
-    "tc": ("flash_attention_tc", {"flash_fwd": "flash_fwd_tc",
-                                  "flash_bwd_dkv": "flash_bwd_dkv_tc"}),
+    "tc": ("flash_attention_tc", {name: f"{name}_tc" for name in _ARGTYPES}),
 }
 
 
@@ -197,16 +197,16 @@ def build_kernels() -> dict:
     return _libs
 
 
-def route(name: str, dtype: torch.dtype) -> str:
-    """The route a CUDA tensor of ``dtype`` takes through kernel ``name``:
-    the bfloat16 forward and dk/dv run on the tensor cores, everything else
-    (float32, and dq) on the scalar kernels."""
-    return "tc" if dtype == torch.bfloat16 and name in _SOURCES["tc"][1] else "scalar"
+def route(dtype: torch.dtype) -> str:
+    """The route a CUDA tensor of ``dtype`` takes through every kernel:
+    bfloat16 runs on the tensor cores, float32 on the scalar kernels. The
+    dtype alone decides."""
+    return "tc" if dtype == torch.bfloat16 else "scalar"
 
 
 def _launch(name: str, dtype: torch.dtype, *args):
     """Call kernel ``name`` on its route, raise on a launch error, count it."""
-    r = route(name, dtype)
+    r = route(dtype)
     fn = getattr(build_kernels()[r], _SOURCES[r][1][name])
     err = fn(_DTYPE_CODES[dtype], *args)
     if err != 0:
@@ -247,7 +247,7 @@ def _check_inputs(q, k, v, mask, *rest):
     # the tensor-core kernels copy rows in 16-byte chunks (cp.async)
     if q.dtype == torch.bfloat16 and any(
             t.data_ptr() % 16 for t in (q, k, v) + tuple(x for _, x in rest)):
-        raise ValueError("bfloat16 q, k, v and dO must start on a 16-byte boundary")
+        raise ValueError("bfloat16 q, k, v, dO and o must start on a 16-byte boundary")
 
 
 def _check_rows(q, *rows):
@@ -293,17 +293,20 @@ def flash_fwd_cuda(q, k, v, mask, seed, causal: bool, rate: float):
     return o, lse
 
 
-def flash_bwd_dq_cuda(q, k, v, mask, seed, g, lse, delta, causal: bool,
+def flash_bwd_dq_cuda(q, k, v, mask, seed, g, o, lse, causal: bool,
                       rate: float):
-    """K2 on the card: dq as :func:`flash_backward_reference`, given Δ."""
-    _check_inputs(q, k, v, mask, ("dO", g))
-    _check_rows(q, lse, delta)
+    """K2 on the card: ``(dq, delta)``, dq as :func:`flash_backward_reference`
+    and delta [B, H, S, 1] float32 as :func:`_delta` (the dk/dv kernel's
+    input), both computed by the one kernel from the forward's ``o``."""
+    _check_inputs(q, k, v, mask, ("dO", g), ("o", o))
+    _check_rows(q, lse)
     seed_t = _seed_tensor(seed, rate, q.device)
     dq = torch.empty_like(q)
+    delta = torch.empty_like(lse)
     _launch("flash_bwd_dq", q.dtype, q.shape[-1], _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
-            _ptr(seed_t), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dq),
+            _ptr(seed_t), _ptr(g), _ptr(o), _ptr(lse), _ptr(dq), _ptr(delta),
             *_scalar_args(q, causal, rate))
-    return dq
+    return dq, delta
 
 
 def flash_bwd_dkv_cuda(q, k, v, mask, seed, g, lse, delta, causal: bool,
@@ -335,9 +338,9 @@ KERNELS = {
 
 def reset_launch_counts() -> None:
     """Zero every wrapper's count of launches, in total and per route."""
-    for name, fn in KERNELS.items():
+    for fn in KERNELS.values():
         fn.launches = 0
-        fn.route_launches = {r: 0 for r, (_, fns) in _SOURCES.items() if name in fns}
+        fn.route_launches = {r: 0 for r in _SOURCES}
 
 
 def launch_counts() -> dict:
@@ -367,8 +370,7 @@ def _forward(q, k, v, mask, seed, causal, rate):
 
 def _backward(q, k, v, mask, seed, o, lse, g, causal, rate, with_dmask):
     if q.device.type == "cuda":
-        delta = _delta(g, o)
-        dq = flash_bwd_dq_cuda(q, k, v, mask, seed, g, lse, delta, causal, rate)
+        dq, delta = flash_bwd_dq_cuda(q, k, v, mask, seed, g, o, lse, causal, rate)
         dk, dv, dmask = flash_bwd_dkv_cuda(q, k, v, mask, seed, g, lse, delta,
                                            causal, rate, with_dmask)
         return dq, dk, dv, dmask

@@ -201,16 +201,14 @@ def test_mask_without_grad_gets_no_gradient_and_same_qkv_grads(monkeypatch):
 
 
 def test_routes_are_fixed_by_dtype():
-    """bfloat16 forward and dk/dv go to the tensor-core kernels; float32 and
-    dq stay on the scalar ones. No other input picks the route."""
-    want = {("flash_fwd", torch.bfloat16): "tc", ("flash_bwd_dkv", torch.bfloat16): "tc",
-            ("flash_bwd_dq", torch.bfloat16): "scalar"}
-    for name in tfa.KERNELS:
-        for dtype in (torch.float32, torch.bfloat16):
-            assert tfa.route(name, dtype) == want.get((name, dtype), "scalar")
+    """Every bfloat16 kernel (forward, dq, dk/dv) goes to the tensor-core
+    kernels; every float32 one stays on the scalar ones. No other input
+    picks the route."""
+    assert tfa.route(torch.bfloat16) == "tc"
+    assert tfa.route(torch.float32) == "scalar"
     tfa.reset_launch_counts()
     assert tfa.route_counts() == {"flash_fwd": {"scalar": 0, "tc": 0},
-                                  "flash_bwd_dq": {"scalar": 0},
+                                  "flash_bwd_dq": {"scalar": 0, "tc": 0},
                                   "flash_bwd_dkv": {"scalar": 0, "tc": 0}}
 
 
@@ -229,6 +227,39 @@ def test_wrapper_symbols_match_the_sources(route):
     assert set(exported) == set(functions.values())
     for name, symbol in functions.items():
         assert exported[symbol].count(",") + 1 == len(tfa._ARGTYPES[name]), symbol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_delta_matches_jax_formula(dtype):
+    """Δ = rowsum(dO ⊙ O), which the dq kernels now compute, held against
+    _flash_backward's own formula run through jnp, on the same numpy g and
+    o cast to the same dtype. Each product of two bfloat16 values is exact
+    in float32, so only the summation order can differ."""
+    rng = np.random.default_rng(8)
+    g, o = (rng.normal(size=(B, H, S, D)).astype(np.float32) for _ in range(2))
+    jg, jo = (jnp.asarray(x, dtype=getattr(jnp, dtype)) for x in (g, o))
+    want = np.asarray(jnp.sum(jg.astype(jnp.float32) * jo.astype(jnp.float32),
+                              axis=-1, keepdims=True))
+    tg, to = (torch.tensor(x).to(getattr(torch, dtype)) for x in (g, o))
+    got = tfa._delta(tg, to)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, H, S, 1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_cpu_backward_never_calls_a_cuda_wrapper(monkeypatch):
+    """A CPU tensor takes the plain versions, forward and backward: every
+    CUDA wrapper is made to raise, and the backward still runs and matches
+    JAX."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA wrapper was called on CPU tensors")
+
+    for name in ("flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda"):
+        monkeypatch.setattr(tfa, name, refuse)
+    q, k, v, g, mask = _inputs(9, "padded")
+    _, grads_t = _torch(q, k, v, g, mask, False)
+    _, grads_j = _jax(q, k, v, g, mask, False)
+    for name, a, b in zip(("dq", "dk", "dv", "dmask"), grads_t, grads_j):
+        np.testing.assert_allclose(a, b, err_msg=name, **GRAD_TOL)
 
 
 def test_library_key_covers_the_shared_headers(tmp_path, monkeypatch):

@@ -121,8 +121,9 @@ def test_flash_on_cpu_tensors_launches_no_kernel():
 def test_kernel_wrappers_refuse_cpu_tensors(name):
     x = torch.zeros(1, 1, 16, 16)
     rows = torch.zeros(1, 1, 16, 1)
-    args = (x, x, x, None, None, False, 0.0) if name == "flash_fwd" else \
-        (x, x, x, None, None, x, rows, rows, False, 0.0)
+    args = {"flash_fwd": (x, x, x, None, None, False, 0.0),
+            "flash_bwd_dq": (x, x, x, None, None, x, x, rows, False, 0.0),
+            "flash_bwd_dkv": (x, x, x, None, None, x, rows, rows, False, 0.0)}[name]
     with pytest.raises(ValueError, match="CUDA tensors"):
         tfa.KERNELS[name](*args)
     assert tfa.KERNELS[name].launches == 0
