@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one NVIDIA H100.
 
-    python3 chip_smoke.py     # one card, about three minutes (most of it nvcc)
+    python3 chip_smoke.py     # one card, about two minutes (most of it nvcc)
 
 Phases, each of which fails the run if it fails:
 
@@ -25,12 +25,30 @@ Phases, each of which fails the run if it fails:
    the kernels) against the same model on the CPU (plain versions).
 4. main: the entry point ``gradaccum_tpu_torch/examples/bert_finetune.py``
    at BERT-Small width (L-4 H-512 A-8, vocab 30522, seq 128), micro-batch
-   8 x K=4, bfloat16 compute, random weights from a seed, for a few
-   optimizer updates and one evaluation. The kernels' launch counts are
-   zeroed just before and read just after, and must match the path exactly,
-   with every launch on the tensor-core route.
+   8 x K=4, bfloat16 compute, random weights from a seed, scan mode, for a
+   few optimizer updates and its evaluations (after the first chunk and at
+   the end). The kernels' launch counts are zeroed just before and read
+   just after, and must match the path exactly, with every launch on the
+   tensor-core route.
 5. profile: a torch.profiler window over three more updates of the same
    run: wall and card-busy time per update, idle share, top kernels.
+6. streaming: the same entry point in streaming mode (the reference's
+   tf.cond train op, first-step quirk on), 8 windows of K=4 = 32 micro-batch
+   calls and its evaluations; launch counts exact and all on the tensor
+   cores, applies at micro-batch steps 0, 4, ..., 28; then a profile window
+   over three of its updates (12 host steps), as in phase 5.
+7. stream=scan: BERT-Small bf16 with dropout 0, the same weights and
+   batches, 2 windows of quirk-free streaming against 2 scan updates: every
+   float32 parameter within 1e-6 (the accumulation order is the same).
+8. guard: streaming and scan BERT-Small bf16 with skip_nonfinite and a
+   dynamic loss scale; one micro-batch of the first window and all of the
+   second have a NaN loss. The skip counts must be exact, the all-bad
+   window must leave parameters and moments bitwise unchanged, the scale
+   must halve at each dirty window, and every parameter stay finite.
+9. mnist / housing: the MNIST entry point, variants 01 (batch 200, K=1) and
+   02 (batch 100, K=2), and the housing entry point (batch 59, K=3), in
+   streaming mode on synthetic data: finite loss that falls below its first
+   value, accuracy or MAE/RMSE and 5 predictions.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON line describing every kernel, and the result line
@@ -55,6 +73,7 @@ PACKAGE = "gradaccum_tpu_torch"
 B, H, S, D = 8, 8, 128, 64
 RATE, SEED = 0.1, 0x5EED1234
 UPDATES = 8  # optimizer updates on the main path
+LAYERS, K = 4, 4  # BERT-Small depth, and K on the main path
 # H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s and FLOP/s by type
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
@@ -285,25 +304,30 @@ def _time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(stop) / iters
 
 
-def _device_ms(fn, iters=50, warmup=5):
+def _device_ms(fn, iters=50, warmup=5, attempts=3):
     """Card time per call (ms): the device time of every kernel, copy and
     memset the calls launched, summed from torch.profiler's device events,
     over the number of calls. Host dispatch is not in it. Returns the time
-    and the device events' names, the longest first."""
+    and the device events' names, the longest first. A window that records
+    no device event at all is profiled again (seen once, in the first
+    window of a process); a window never discards events it did record."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for attempt in range(attempts):
         torch.cuda.synchronize()
-    device = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
-    check(device, "the profiler saw no device time: card times cannot be read")
-    return sum(t for t, _ in device) / iters / 1e3, [key for _, key in device]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        device = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+        if device:
+            return sum(t for t, _ in device) / iters / 1e3, [key for _, key in device]
+        print(f"[timing] profiler window {attempt + 1} of {attempts} saw no device event")
+    raise SmokeError("the profiler saw no device time: card times cannot be read")
 
 
 def _bounds(dtype, masked):
@@ -450,7 +474,7 @@ def phase_main(updates: int):
     from gradaccum_tpu_torch.examples import bert_finetune
     from gradaccum_tpu_torch.ops import flash_attention as fa
 
-    k, layers = 4, 4
+    k, layers = K, LAYERS
     model_dir = os.path.join(ROOT, "build", "chip_smoke_run")
     shutil.rmtree(model_dir, ignore_errors=True)  # a fresh run, not a resume
     argv = ["--device", "cuda", "--bf16", "--vocab-size", "30522", "--seq-len", str(S),
@@ -462,27 +486,35 @@ def phase_main(updates: int):
     routes = fa.route_counts()
     check(math.isfinite(result["loss"]), f"main path loss is not finite: {result['loss']}")
     check(result["updates"] == updates, f"ran {result['updates']} updates, wanted {updates}")
-    train = layers * k * updates
-    want = {"flash_fwd": train + layers * result["eval_batches"],
-            "flash_bwd_dq": train, "flash_bwd_dkv": train}
-    check(counts == want, f"launch counts {counts} != {want} "
-                          f"({layers} layers x K={k} x {updates} updates per kernel, "
-                          f"+ {layers} forward per eval batch)")
-    # bf16: every launch on the tensor cores
-    want_routes = {name: {"tc": n, "scalar": 0} for name, n in want.items()}
-    check(routes == want_routes, f"route counts {routes} != {want_routes}")
+    _check_launches("main", counts, routes, layers * k * updates, result)
     print(f"[main] BERT-Small bf16 micro 8 x K={k}, seq {S}: {updates} updates, "
           f"loss {result['loss']:.4f}, {result['seq/s']:.1f} seq/s, "
-          f"mfu {result['mfu']:.4f}, eval accuracy {result['accuracy']:.4f}; "
-          f"launches {counts}, routes {routes}")
-    return counts
+          f"mfu {result['mfu']:.4f}, eval accuracy {result['accuracy']:.4f} "
+          f"({result['evaluations']} evaluations); launches {counts}, routes {routes}")
+    return counts, result
 
 
-def phase_profile(updates: int = 3):
-    """Where the main path's time goes: a torch.profiler window over a few
-    updates of the same run (after two warm-up updates). Reports wall time
-    per update, the card's busy time per update (sum of kernel and copy
-    time, one stream), its idle share, and the top kernels."""
+def _check_launches(phase, counts, routes, train_calls, result):
+    """Each training forward/backward launches every kernel once per layer;
+    each eval batch launches the forward once per layer. bf16: every launch
+    on the tensor cores."""
+    evals = LAYERS * result["eval_batches"] * result["evaluations"]
+    want = {"flash_fwd": train_calls + evals,
+            "flash_bwd_dq": train_calls, "flash_bwd_dkv": train_calls}
+    check(counts == want, f"{phase}: launch counts {counts} != {want} ({train_calls} "
+                          f"per kernel in training, + {LAYERS} forward per eval batch x "
+                          f"{result['eval_batches']} batches x {result['evaluations']} "
+                          f"evaluations)")
+    want_routes = {name: {"tc": n, "scalar": 0} for name, n in want.items()}
+    check(routes == want_routes, f"{phase}: route counts {routes} != {want_routes}")
+
+
+def phase_profile(updates: int = 3, mode: str = "scan"):
+    """Where the time of the main path (or of its streaming twin) goes: a
+    torch.profiler window over a few updates of the same run (after two
+    warm-up updates). Reports wall time per update, the card's busy time
+    per update (sum of kernel and copy time, one stream), its idle share,
+    and the top kernels."""
     import itertools
 
     import torch
@@ -492,14 +524,15 @@ def phase_profile(updates: int = 3):
 
     args = bert_finetune.build_parser().parse_args(
         ["--device", "cuda", "--bf16", "--vocab-size", "30522", "--seq-len", str(S),
-         "--accum-k", "4", "--max-steps", "400"])
+         "--accum-k", str(K), "--max-steps", "400", "--mode", mode])
     est, train_fn, _, _ = bert_finetune.setup(args)
+    host_steps = K if mode == "streaming" else 1  # per update
     it = iter(train_fn())
-    est.train(itertools.islice(it, 2), final_save=False)
+    est.train(itertools.islice(it, 2 * host_steps), final_save=False)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        est.train(itertools.islice(it, updates), final_save=False)
+        est.train(itertools.islice(it, updates * host_steps), final_save=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # only device-side events (kernels, copies, memsets): the host ops
@@ -515,12 +548,204 @@ def phase_profile(updates: int = 3):
         return
     flash = sum(t for key, t, _ in kernels if "flash_" in key) / 1e6
     launches = sum(c for _, _, c in kernels) / updates
-    print(f"[profile] {updates} updates: {per_update * 1e3:.2f} ms/update wall, "
+    print(f"[profile] {mode}, {updates} updates: {per_update * 1e3:.2f} ms/update wall, "
           f"card busy {busy / updates * 1e3:.2f} ms/update "
           f"(idle share {1 - busy / wall:.3f}), {launches:.0f} kernels/update, "
           f"flash kernels {flash / updates * 1e3:.2f} ms/update")
     for key, t, count in sorted(kernels, key=lambda x: -x[1])[:8]:
         print(f"[profile]   {t / updates / 1e3:8.3f} ms/update  {count // updates:5d}x  {key[:90]}")
+
+
+# --------------------------------------------------------------------------
+# phases 6-9: streaming mode, the guard, the MNIST and housing trainers
+# --------------------------------------------------------------------------
+
+
+def phase_streaming(windows: int = 8):
+    """The entry point in streaming mode: one micro-batch per host step."""
+    from gradaccum_tpu_torch.examples import bert_finetune
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+
+    steps = windows * K
+    argv = ["--device", "cuda", "--bf16", "--vocab-size", "30522", "--seq-len", str(S),
+            "--accum-k", str(K), "--max-steps", str(steps), "--mode", "streaming"]
+    fa.reset_launch_counts()
+    result = bert_finetune.main(argv)
+    counts, routes = fa.launch_counts(), fa.route_counts()
+    check(math.isfinite(result["loss"]), f"streaming loss is not finite: {result['loss']}")
+    check(result["updates"] == windows, f"ran {result['updates']} windows, wanted {windows}")
+    _check_launches("streaming", counts, routes, LAYERS * steps, result)
+    want_applies = list(range(0, steps, K))  # the first-step quirk: phase 0
+    check(result["apply_steps"] == want_applies,
+          f"streaming applied at {result['apply_steps']}, wanted {want_applies}")
+    print(f"[streaming] BERT-Small bf16 micro 8, K={K}, quirk on: {steps} micro-batch "
+          f"calls, applies at {result['apply_steps']}; launches {counts}, all tc")
+    print(f"[streaming] loss {result['loss']:.4f}, {result['seq/s']:.1f} seq/s, "
+          f"mfu {result['mfu']:.4f}, eval accuracy {result['accuracy']:.4f}")
+    return result
+
+
+def _bert_small_batches(n, seed, vocab=30522):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(S // 4, S + 1, size=n)
+    mask = (np.arange(S)[None, :] < lengths[:, None]).astype(np.int32)
+    return {"input_ids": (rng.integers(5, vocab, size=(n, S)) * mask).astype(np.int32),
+            "input_mask": mask, "segment_ids": np.zeros((n, S), np.int32),
+            "label": rng.integers(0, 2, size=n).astype(np.int32)}
+
+
+def phase_stream_scan(windows: int = 2, micro: int = 8):
+    """Quirk-free streaming against scan on the card, from the same weights
+    on the same batches: the same accumulation order, so the same floats."""
+    import torch
+
+    from gradaccum_tpu_torch.models.bert import BertConfig, bert_classifier_bundle
+    from gradaccum_tpu_torch.ops import accumulation as acc
+    from gradaccum_tpu_torch.ops.adamw import adamw
+    from gradaccum_tpu_torch.ops.flash_attention import flash_attention
+    from gradaccum_tpu_torch.ops.schedule import warmup_polynomial_decay
+    from gradaccum_tpu_torch.utils.tree import named_parameters
+
+    cfg = BertConfig.small(dtype=torch.bfloat16, hidden_dropout=0.0, attention_dropout=0.0)
+    bundle = bert_classifier_bundle(cfg, attention_fn=flash_attention)
+    config = acc.GradAccumConfig(K, clip_norm=1.0, first_step_quirk=False)
+    data = _bert_small_batches(windows * K * micro, seed=3)
+    batches = [{key: torch.as_tensor(v[i * micro:(i + 1) * micro], device="cuda")
+                for key, v in data.items()} for i in range(windows * K)]
+    gen = torch.Generator(device="cuda").manual_seed(0)  # dropout 0: never drawn
+    finals = {}
+    for mode in ("scan", "streaming"):
+        model = bundle.init(19830610, "cuda")
+        opt = adamw(warmup_polynomial_decay(2e-5, 16, 2), weight_decay_rate=0.01)
+        loss_fn = lambda params, batch, m=model: bundle.loss(m, batch)  # noqa: E731
+        if mode == "scan":
+            step = acc.accumulate_scan(loss_fn, opt, config, needs_rng=True)
+            state = acc.scan_init(named_parameters(model), opt)
+            for w in range(windows):
+                window = batches[w * K:(w + 1) * K]
+                stacked = {key: torch.stack([b[key] for b in window]) for key in data}
+                state, _ = step(state, stacked, gen)
+        else:
+            step = acc.streaming_step(loss_fn, opt, config, needs_rng=True)
+            state = acc.streaming_init(named_parameters(model), opt)
+            applied = []
+            for batch in batches:
+                state, aux = step(state, batch, gen)
+                applied.append(int(aux["applied"]))
+            check(applied == ([0] * (K - 1) + [1]) * windows,
+                  f"quirk-free streaming applied {applied}")
+        finals[mode] = state
+    torch.cuda.synchronize()
+    check(finals["scan"].step == finals["streaming"].step == windows * K, "step counts differ")
+    a, b = finals["scan"].params, finals["streaming"].params
+    with torch.no_grad():
+        diff = max(float((a[n] - b[n]).abs().max()) for n in a)
+        bitwise = all(torch.equal(a[n], b[n]) for n in a)
+        moved = max(float((a[n] - w).abs().max()) for n, w in
+                    named_parameters(bundle.init(19830610, "cuda")).items())
+    check(all(bool(t.isfinite().all()) for t in a.values()), "stream=scan: non-finite weights")
+    check(diff <= 1e-6, f"stream=scan: max |diff| {diff:.3e} > 1e-6")
+    check(moved > 1e-6, f"stream=scan: the weights did not move ({moved:.3e})")
+    print(f"[stream=scan] BERT-Small bf16, dropout 0, {windows} windows of K={K}: "
+          f"{len(a)} float32 parameters, max |streaming - scan| {diff:.3e} "
+          f"({'bitwise equal' if bitwise else 'not bitwise'}; weights moved {moved:.3e})")
+    return diff
+
+
+def phase_guard(micro: int = 8):
+    """The non-finite guard and dynamic loss scaling on the card, in both
+    modes: window 0 has one NaN micro-batch, window 1 only NaN ones, window 2
+    none. A batch column ``poison`` multiplies the loss (1.0 or NaN)."""
+    import numpy as np
+    import torch
+
+    from gradaccum_tpu_torch.estimator.config import RunConfig
+    from gradaccum_tpu_torch.estimator.estimator import Estimator
+    from gradaccum_tpu_torch.models.bert import BertConfig, bert_classifier_bundle
+    from gradaccum_tpu_torch.ops.accumulation import GradAccumConfig
+    from gradaccum_tpu_torch.ops.adamw import adamw
+    from gradaccum_tpu_torch.ops.flash_attention import flash_attention
+    from gradaccum_tpu_torch.ops.loss_scale import LossScaleConfig
+
+    base = bert_classifier_bundle(BertConfig.small(dtype=torch.bfloat16),
+                                  attention_fn=flash_attention)
+    bundle = base._replace(loss=lambda m, b: base.loss(m, b) * b["poison"].mean())
+    init_scale = 2.0 ** 15
+    accum = GradAccumConfig(K, clip_norm=1.0, first_step_quirk=False, skip_nonfinite=True,
+                            loss_scale=LossScaleConfig(init_scale=init_scale))
+    bad = {(0, 1)} | {(1, i) for i in range(K)}  # (window, micro-batch)
+    data = _bert_small_batches(3 * K * micro, seed=4)
+    data["poison"] = np.ones(3 * K * micro, np.float32)
+    for w, i in bad:
+        j = (w * K + i) * micro
+        data["poison"][j:j + micro] = np.nan
+    want_skips = [sum(1 for w, _ in bad if w == win) for win in range(3)]
+    want_scales = [init_scale / 2, init_scale / 4, init_scale / 4]  # dirty, dirty, clean
+    for mode in ("streaming", "scan"):
+        est = Estimator(bundle, adamw(2e-5), accum,
+                        RunConfig(log_step_count_steps=1000, save_checkpoints_steps=None),
+                        mode=mode, device="cuda")
+        host = micro * (K if mode == "scan" else 1)
+        rows = K * micro
+        skips, snaps = [], []
+        for w in range(3):
+            window = {key: v[w * rows:(w + 1) * rows] for key, v in data.items()}
+            est.train([{key: v[j:j + host] for key, v in window.items()}
+                       for j in range(0, rows, host)])
+            skips.append(est.nonfinite_skips)
+            state = est._state
+            snaps.append([t.clone() for t in (*state.params.values(),
+                                              *state.opt_state.m.values(),
+                                              *state.opt_state.v.values())])
+        check(skips == want_skips, f"guard ({mode}): skipped {skips}, wanted {want_skips}")
+        unchanged = all(torch.equal(x, y) for x, y in zip(snaps[0], snaps[1]))
+        check(unchanged, f"guard ({mode}): the all-bad window changed params or moments")
+        check(not all(torch.equal(x, y) for x, y in zip(snaps[1], snaps[2])),
+              f"guard ({mode}): the clean window after it did not apply")
+        series = dict(est.loss_scale_series)
+        scales = [series[(w + 1) * K] for w in range(3)]
+        check(scales == want_scales, f"guard ({mode}): scale at window ends {scales}, "
+                                     f"wanted {want_scales}")
+        check(all(bool(t.isfinite().all()) for t in snaps[2]),
+              f"guard ({mode}): a parameter or moment is not finite")
+        print(f"[guard] {mode}: skipped {skips} micro-batches per window (NaN loss "
+              f"injected), all-bad window bitwise no-op, loss scale at window ends "
+              f"{scales}, every parameter finite")
+
+
+def phase_small_models():
+    """The MNIST (variants 01, 02) and housing entry points, streaming."""
+    from gradaccum_tpu_torch.examples import housing, mnist
+
+    out = {}
+    for variant in ("01", "02"):
+        r = mnist.main(["--device", "cuda", "--variant", variant, "--mode", "streaming",
+                        "--max-steps", "200"])
+        _check_falls(f"mnist {variant}", r)
+        print(f"[mnist] variant {variant} (batch {r['micro_batch']}, K={r['accum_k']}, "
+              f"streaming): {r['steps']} steps, {r['updates']} updates, loss "
+              f"{r['first_loss']:.4f} -> {r['loss']:.4f}, accuracy {r['accuracy']:.4f}, "
+              f"{r['ms_per_host_step']:.3f} ms per host step, {r['examples/s']:.0f} examples/s")
+        out[f"mnist_{variant}"] = r
+    r = housing.main(["--device", "cuda", "--mode", "streaming", "--max-steps", "300"])
+    _check_falls("housing", r)
+    print(f"[housing] batch {r['micro_batch']}, K={r['accum_k']}, streaming: {r['steps']} "
+          f"steps, loss {r['first_loss']:.2f} -> {r['loss']:.2f}, train MAE "
+          f"{r['train_mae']:.3f} RMSE {r['train_rmse']:.3f}, test MAE {r['test_mae']:.3f} "
+          f"RMSE {r['test_rmse']:.3f}, {r['ms_per_host_step']:.3f} ms per host step")
+    print("[housing] predictions " + ", ".join(
+        f"{p:.3f} (label {y:.3f})" for p, y in zip(r["predictions"], r["labels"])))
+    out["housing"] = r
+    return out
+
+
+def _check_falls(name, r):
+    check(math.isfinite(r["loss"]) and math.isfinite(r["first_loss"]),
+          f"{name}: non-finite loss {r['first_loss']} -> {r['loss']}")
+    check(r["loss"] < r["first_loss"], f"{name}: loss did not fall "
+                                       f"({r['first_loss']} -> {r['loss']})")
 
 
 def _smi():
@@ -555,8 +780,16 @@ def main() -> int:
         worst = phase_kernels()
         timing = phase_timing()
         phase_agree()
-        counts = phase_main(UPDATES)
+        counts, scan_result = phase_main(UPDATES)
         phase_profile()
+        streaming = phase_streaming()
+        print(f"[streaming] seq/s streaming {streaming['seq/s']:.1f} (mfu "
+              f"{streaming['mfu']:.4f}) against scan {scan_result['seq/s']:.1f} (mfu "
+              f"{scan_result['mfu']:.4f}) in this run")
+        phase_profile(mode="streaming")
+        phase_stream_scan()
+        phase_guard()
+        phase_small_models()
     except SmokeError as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1

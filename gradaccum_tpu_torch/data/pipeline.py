@@ -1,12 +1,17 @@
 """Array-backed input pipeline with tf.data semantics (numpy only).
 
-The port's copy of ``gradaccum_tpu/data/pipeline.py`` for the operators the
-training path uses, composing in call order as tf.data does:
+The port's copy of ``gradaccum_tpu/data/pipeline.py``. Operators compose
+in call order, as tf.data does:
 
+- ``shard(num, index)``: every ``num``-th element by POSITION (so it also
+  holds after a shuffle or a map), as ``tf.data.Dataset.shard``;
 - ``shuffle(buffer_size, seed)``: buffered (reservoir) shuffle, reseeded
   per epoch;
-- ``repeat(count)``: re-runs the upstream chain, advancing shuffle seeds;
 - ``batch(n, drop_remainder)``: gather-based, vectorized;
+- ``map(fn)``: applied wherever it sits in the chain (the CSV pipeline
+  batches before it maps);
+- ``repeat(count)``: re-runs the upstream chain, advancing shuffle seeds;
+- ``take(n)``: the first ``n`` elements;
 - ``prefetch(n)``: a background thread keeps ``n`` elements ready.
 
 Elements are dicts (or tuples) of numpy arrays sharing the leading
@@ -15,9 +20,10 @@ dimension; iterating yields the same structure, batched.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
-from typing import Any, Iterator, Optional
+from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
 
@@ -63,11 +69,19 @@ class Dataset:
     def _with(self, op) -> "Dataset":
         return Dataset(self._data, self._ops + [op])
 
+    def shard(self, num_shards: int, index: int) -> "Dataset":
+        if not 0 <= index < num_shards:
+            raise ValueError(f"shard index {index} not in [0, {num_shards})")
+        return self._with(("shard", num_shards, index))
+
     def shuffle(self, buffer_size: int, seed: Optional[int] = None) -> "Dataset":
         return self._with(("shuffle", buffer_size, seed))
 
     def batch(self, batch_size: int, drop_remainder: bool = False) -> "Dataset":
         return self._with(("batch", batch_size, drop_remainder))
+
+    def map(self, fn: Callable[[Any], Any]) -> "Dataset":
+        return self._with(("map", fn))
 
     def repeat(self, count: Optional[int] = None) -> "Dataset":
         return self._with(("repeat", count))
@@ -75,20 +89,36 @@ class Dataset:
     def prefetch(self, n: int = 2) -> "Dataset":
         return self._with(("prefetch", n))
 
+    def take(self, n: int) -> "Dataset":
+        return self._with(("take", n))
+
     def _build(self, ops, epoch: int) -> Iterator[Any]:
         """The iterator for ``ops``; ``epoch`` advances shuffle seeds. The
-        stream starts as example indices; ``batch`` gathers rows."""
+        stream starts as example indices; the first ``map`` or ``batch``
+        materializes elements, and later ops work on them."""
         stream: Iterator[Any] = iter(range(self._n))
         is_index_stream = True
         for i, op in enumerate(ops):
             kind = op[0]
-            if kind == "shuffle":
+            if kind == "shard":
+                num, index = op[1], op[2]
+                stream = (x for pos, x in enumerate(stream) if pos % num == index)
+            elif kind == "shuffle":
                 stream = _buffered_shuffle(stream, op[1], op[2], epoch)
             elif kind == "batch":
                 stream = self._batch_stream(stream, op[1], op[2], is_index_stream)
                 is_index_stream = False
+            elif kind == "map":
+                fn = op[1]
+                if is_index_stream:
+                    stream = (fn(_gather(self._data, j)) for j in stream)
+                    is_index_stream = False
+                else:
+                    stream = (fn(x) for x in stream)
             elif kind == "repeat":
                 return self._repeat_stream(ops[:i], ops[i + 1:], op[1], epoch)
+            elif kind == "take":
+                stream = itertools.islice(stream, op[1])
             elif kind == "prefetch":
                 stream = _prefetch(stream, op[1])
             else:  # pragma: no cover
@@ -122,9 +152,15 @@ class Dataset:
                 yield from self._build(upstream_ops, e)
                 e += 1
 
+        # downstream ops apply to the concatenated epochs of materialized
+        # elements or batches
         stream = epochs()
         for op in downstream:
-            if op[0] == "prefetch":
+            if op[0] == "map":
+                stream = map(op[1], stream)
+            elif op[0] == "take":
+                stream = itertools.islice(stream, op[1])
+            elif op[0] == "prefetch":
                 stream = _prefetch(stream, op[1])
             elif op[0] == "batch":
                 stream = self._batch_stream(stream, op[1], op[2], is_index_stream=False)

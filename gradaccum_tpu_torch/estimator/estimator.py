@@ -1,21 +1,40 @@
 """The training harness: ``Estimator(model, optimizer, accum, config)``.
 
-The port of ``gradaccum_tpu/estimator/estimator.py``, single device, scan
-mode: every host step stacks a ``[K*micro, ...]`` batch into K micro-batches
-and runs one ``accumulate_scan`` update. ``train`` resumes from the newest
-checkpoint in ``model_dir``, logs loss, examples/sec and MFU, and saves on
-the ``save_checkpoints_steps`` cadence; ``evaluate`` runs streaming metrics;
-``train_and_evaluate`` alternates the two (``tf.estimator`` semantics).
+The port of ``gradaccum_tpu/estimator/estimator.py``, single device, in
+both of its modes:
+
+- ``mode="streaming"`` (the default, as in JAX): the reference's
+  ``tf.cond`` semantics, one micro-batch per host step through
+  ``streaming_step``;
+- ``mode="scan"``: every host step stacks a ``[K*micro, ...]`` batch into K
+  micro-batches and runs one ``accumulate_scan`` update.
+
+``train`` resumes from the newest checkpoint in ``model_dir`` (in the
+middle of an accumulation window too: the accumulators checkpoint with the
+weights), logs loss, examples/sec and MFU, saves on the
+``save_checkpoints_steps`` cadence and appends every step's loss to
+``model_dir/loss_vs_step.csv``; ``evaluate`` runs streaming metrics and
+``predict`` yields one output dict per example, both over the weights of
+an explicit ``state``, else of ``checkpoint_path`` or the newest checkpoint
+in ``model_dir``, else the in-memory state, else a fresh init (the
+reference re-reads ``model_dir`` before every evaluation);
+``train_and_evaluate`` alternates the two (``tf.estimator`` semantics:
+the first evaluation after the first chunk, then at most every
+``throttle_secs``, and once at the end).
+
+Under ``skip_nonfinite`` the micro-batches skipped since ``train`` began
+are counted in ``nonfinite_skips`` (read from the card at log flushes, not
+per step); with loss scaling, ``loss_scale_series`` holds ``(step, scale)``
+per host step.
 
 Randomness: weights come from ``RunConfig.seed``; the dropout generator of
-each update is seeded from ``RunConfig.seed + 1`` and the micro-batch step,
-so a resumed run draws exactly what the uninterrupted one would.
+each host step is seeded from ``RunConfig.seed + 1`` and the micro-batch
+step, so a resumed run draws exactly what the uninterrupted one would.
 
 The Estimator runs on the card unless the caller passes ``device="cpu"``;
-asking for CUDA without a card raises. Not ported yet (ROADMAP.md):
-streaming mode, meshes and every parallel mode, warm start, export,
-predict, events and the resilience and observability hooks; asking for a
-mode or a mesh raises ``NotImplementedError``.
+asking for CUDA without a card raises. Not ported yet (ROADMAP.md): meshes
+and every parallel mode, warm start, export, events and the resilience and
+observability hooks; asking for a mesh raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,7 +42,7 @@ from __future__ import annotations
 import itertools
 import os
 import time
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -36,6 +55,8 @@ from gradaccum_tpu_torch.ops.adamw import Optimizer
 from gradaccum_tpu_torch.utils.flops import peak_flops_for
 from gradaccum_tpu_torch.utils.platform import device_name, resolve_device, synchronize
 from gradaccum_tpu_torch.utils.tree import named_parameters
+
+_ROW_CAP = 4096  # device scalars held between flushes, at most
 
 
 class ModelBundle(NamedTuple):
@@ -56,9 +77,9 @@ def step_seed(seed: int, step: int) -> int:
 class Estimator:
     def __init__(self, model: ModelBundle, optimizer: Optimizer,
                  accum: acc.GradAccumConfig, config: Optional[RunConfig] = None,
-                 mode: str = "scan", device="cuda", mesh=None):
-        if mode != "scan":
-            raise NotImplementedError(f"mode={mode!r}: only 'scan' is ported yet")
+                 mode: str = "streaming", device="cuda", mesh=None):
+        if mode not in ("streaming", "scan"):
+            raise ValueError(f"mode must be 'streaming' or 'scan', got {mode!r}")
         if mesh is not None:
             raise NotImplementedError("meshes and parallel modes are not ported yet")
         acc.validate_config(accum)
@@ -67,20 +88,32 @@ class Estimator:
         self.optimizer = optimizer
         self.accum = accum
         self.config = config or RunConfig()
+        self.mode = mode
         self.module: Optional[torch.nn.Module] = None
-        self._state: Optional[acc.ScanState] = None
+        self._state = None  # the newest ScanState / StreamingState
         self._train_step = None
-        # throughput over every update after the process's first (which
+        self._infer_module: Optional[torch.nn.Module] = None  # holds restored weights
+        # throughput over every host step after the process's first (which
         # pays for kernel builds and allocator warm-up), card-synchronized
-        self.train_stats = {"updates": 0, "examples": 0, "seconds": 0.0}
+        self.train_stats = {"host_steps": 0, "examples": 0, "seconds": 0.0}
         self._warm = False
-        self.last_loss: Optional[torch.Tensor] = None  # the newest update's aux["loss"]
+        self.first_loss: Optional[torch.Tensor] = None  # aux["loss"] of the first host step
+        self.last_loss: Optional[torch.Tensor] = None  # and of the newest
+        self.apply_steps = []  # streaming: the micro-batch steps whose call applied
+        self.nonfinite_skips = 0  # micro-batches skipped in the last train() call
+        self.loss_scale_series = []  # [(step, scale)] from aux["loss_scale"]
 
     # -- state ----------------------------------------------------------
 
-    def _init_state(self) -> acc.ScanState:
+    def _k(self) -> int:
+        """Micro-batches per host step."""
+        return self.accum.num_micro_batches if self.mode == "scan" else 1
+
+    def _init_state(self):
         self.module = self.model.init(self.config.seed, self.device)
-        state = acc.scan_init(named_parameters(self.module), self.optimizer)
+        params = named_parameters(self.module)
+        init = acc.scan_init if self.mode == "scan" else acc.streaming_init
+        state = init(params, self.optimizer, loss_scale=self.accum.loss_scale)
         d = self.config.model_dir
         if d and ckpt_lib.latest_checkpoint(d):
             state = ckpt_lib.restore(d, state)
@@ -89,9 +122,10 @@ class Estimator:
     def _step_fn(self):
         if self._train_step is None:
             module, loss = self.module, self.model.loss
-            self._train_step = acc.accumulate_scan(
-                lambda params, batch: loss(module, batch), self.optimizer, self.accum,
-                needs_rng=self.model.needs_rng)
+            build = acc.accumulate_scan if self.mode == "scan" else acc.streaming_step
+            self._train_step = build(lambda params, batch: loss(module, batch),
+                                     self.optimizer, self.accum,
+                                     needs_rng=self.model.needs_rng)
         return self._train_step
 
     def _to_device(self, batch):
@@ -99,7 +133,9 @@ class Estimator:
 
     def _prep_batch(self, batch, step_no: int):
         """The positional arguments after ``state`` for the train step."""
-        batch = acc.stack_micro_batches(self._to_device(batch), self.accum.num_micro_batches)
+        batch = self._to_device(batch)
+        if self.mode == "scan":
+            batch = acc.stack_micro_batches(batch, self.accum.num_micro_batches)
         if self.model.needs_rng:
             g = torch.Generator(device=self.device)
             g.manual_seed(step_seed(self.config.seed + 1, step_no))
@@ -113,17 +149,35 @@ class Estimator:
     # -- public API -------------------------------------------------------
 
     def train(self, input_fn, max_steps: Optional[int] = None, final_save: bool = True):
-        """Train until ``max_steps`` micro-batches (or the input runs out),
-        stopping at the last whole K-cycle that fits."""
+        """Train until ``max_steps`` micro-batches (or the input runs out);
+        in scan mode, stop at the last whole K-cycle that fits."""
         cfg = self.config
         it = iter(input_fn() if callable(input_fn) else input_fn)
         state = self._state if self._state is not None else self._init_state()
         step_fn = self._step_fn()
-        k = self.accum.num_micro_batches
+        k = self._k()
         log_every = max(cfg.log_step_count_steps, 1)
         step_no = state.step
         last_bucket = step_no // log_every
         t_log, steps_at_log = time.perf_counter(), step_no
+        loss_rows, skip_rows, scale_rows = [], [], []  # device scalars until a flush
+        self.nonfinite_skips = 0
+        last_saved = None
+
+        def flush_rows():
+            # one read of the card per kind of row, at log and save cadence only
+            if loss_rows:
+                values = torch.stack([v for _, v in loss_rows]).tolist()
+                self._append_loss_csv(zip((s for s, _ in loss_rows), values))
+                loss_rows.clear()
+            if skip_rows:
+                self.nonfinite_skips += int(torch.stack(skip_rows).sum())
+                skip_rows.clear()
+            if scale_rows:
+                values = torch.stack([v for _, v in scale_rows]).tolist()
+                self.loss_scale_series.extend(zip((s for s, _ in scale_rows), values))
+                scale_rows.clear()
+
         synchronize(self.device)
         t_window, counted, examples = time.perf_counter(), 0, 0
         while max_steps is None or step_no + k <= max_steps:
@@ -140,7 +194,19 @@ class Estimator:
             else:
                 synchronize(self.device)
                 t_window, self._warm = time.perf_counter(), True
+            if self.first_loss is None:
+                self.first_loss = aux["loss"]
             self.last_loss = aux["loss"]
+            if aux.get("applied"):
+                self.apply_steps.append(step_no - 1)
+            if "skipped" in aux:
+                skip_rows.append(aux["skipped"])
+            if "loss_scale" in aux:
+                scale_rows.append((step_no, aux["loss_scale"]))
+            if cfg.model_dir:
+                loss_rows.append((step_no, aux["loss"]))
+            if max(len(loss_rows), len(skip_rows), len(scale_rows)) >= _ROW_CAP:
+                flush_rows()
             if step_no // log_every != last_bucket:
                 last_bucket = step_no // log_every
                 rate = (step_no - steps_at_log) / max(time.perf_counter() - t_log, 1e-9)
@@ -150,22 +216,26 @@ class Estimator:
                 if mfu is not None:
                     line += f" mfu={mfu:.4f}"
                 print(line)
+                flush_rows()
                 t_log, steps_at_log = time.perf_counter(), step_no
             if cfg.model_dir and cfg.save_checkpoints_steps and \
                     step_no % cfg.save_checkpoints_steps < k:
                 self._save(state)
+                last_saved = step_no
+                flush_rows()
         synchronize(self.device)
         self.train_stats["seconds"] += time.perf_counter() - t_window
-        self.train_stats["updates"] += counted
+        self.train_stats["host_steps"] += counted
         self.train_stats["examples"] += examples
-        if final_save and cfg.model_dir:
+        if final_save and cfg.model_dir and last_saved != step_no:
             self._save(state)
+        flush_rows()
         self._state = state
         return state
 
     def examples_per_sec(self) -> Optional[float]:
         s = self.train_stats
-        return s["examples"] / s["seconds"] if s["updates"] and s["seconds"] > 0 else None
+        return s["examples"] / s["seconds"] if s["host_steps"] and s["seconds"] > 0 else None
 
     def _mfu(self, examples_per_sec):
         if self.config.flops_per_example is None or examples_per_sec is None:
@@ -180,19 +250,53 @@ class Estimator:
         card's bf16 peak; None on the CPU or an unknown card."""
         return self._mfu(self.examples_per_sec())
 
-    @torch.no_grad()
-    def evaluate(self, input_fn, steps: Optional[int] = None, name: str = "eval"):
-        """Streaming metrics over the eval input with the current weights
-        (restored from ``model_dir`` when the Estimator has not trained)."""
+    def _module_with(self, params):
+        """A module holding ``params``: the training module when they are its
+        own tensors, else the inference module with them copied in."""
+        if self.module is not None:
+            own = named_parameters(self.module)
+            if own.keys() == params.keys() and all(
+                    own[name] is params[name] for name in own):
+                return self.module
+        module = self._inference_module()
+        with torch.no_grad():
+            for name, t in named_parameters(module).items():
+                t.copy_(params[name])
+        return module
+
+    def _inference_module(self):
+        if self._infer_module is None:
+            self._infer_module = self.model.init(self.config.seed, self.device)
+        return self._infer_module
+
+    def _module_for_inference(self, state, checkpoint_path):
+        """``(module, step)`` for evaluate and predict, as JAX picks the
+        weights: an explicit ``state``, then ``checkpoint_path`` or the newest
+        checkpoint in ``model_dir``, then the in-memory state, then a fresh
+        init."""
+        if state is not None:
+            return self._module_with(state.params), state.step
+        d = self.config.model_dir
+        if checkpoint_path or (d and ckpt_lib.latest_checkpoint(d)):
+            module = self._inference_module()
+            step = ckpt_lib.restore_params(checkpoint_path or d, named_parameters(module))
+            return module, step
         if self._state is None:
             self._state = self._init_state()
+        return self.module, self._state.step
+
+    @torch.no_grad()
+    def evaluate(self, input_fn, steps: Optional[int] = None, state=None,
+                 checkpoint_path: Optional[str] = None, name: str = "eval"):
+        """Streaming metrics over the eval input (``Estimator.evaluate``)."""
+        module, _ = self._module_for_inference(state, checkpoint_path)
         totals: Dict[str, list] = {}
         n_batches = 0
         for batch in (input_fn() if callable(input_fn) else input_fn):
             if steps is not None and n_batches >= steps:
                 break
             tb = self._to_device(batch)
-            outputs = self.model.predict(self.module, tb)
+            outputs = self.model.predict(module, tb)
             for key, metric in self.model.eval_metrics.items():
                 total, count = metric.update(outputs, tb)
                 t = totals.setdefault(key, [0.0, 0.0])
@@ -207,19 +311,35 @@ class Estimator:
         results["_num_batches"] = n_batches
         return results
 
+    def predict(self, input_fn, state=None,
+                checkpoint_path: Optional[str] = None) -> Iterator[Dict[str, Any]]:
+        """Yield one dict of numpy outputs per example (``Estimator.predict``)."""
+        it = iter(input_fn() if callable(input_fn) else input_fn)
+        first = next(it, None)
+        if first is None:
+            return
+        module, _ = self._module_for_inference(state, checkpoint_path)
+        for batch in itertools.chain([first], it):
+            with torch.no_grad():
+                outputs = self.model.predict(module, self._to_device(batch))
+            host = {key: v.cpu().numpy() for key, v in outputs.items()}
+            for i in range(len(next(iter(host.values())))):
+                yield {key: v[i] for key, v in host.items()}
+
     def train_and_evaluate(self, train_spec: TrainSpec, eval_spec: EvalSpec):
-        """Train in chunks of ``log_step_count_steps``, evaluating at most
-        every ``throttle_secs`` and once at the end."""
-        k = self.accum.num_micro_batches
-        chunk = max(self.config.log_step_count_steps // k, 1)
+        """Train in chunks of ``log_step_count_steps`` micro-batches,
+        evaluating after the first chunk, then at most every
+        ``throttle_secs``, and once at the end."""
+        k = self._k()
+        chunk = max(self.config.log_step_count_steps, k)
         reachable = None
         if train_spec.max_steps is not None:
             reachable = (train_spec.max_steps // k) * k
         it = iter(train_spec.input_fn())
-        last_eval = time.time()
+        last_eval = 0.0
         while True:
-            state = self.train(itertools.islice(it, chunk), max_steps=train_spec.max_steps,
-                               final_save=False)
+            state = self.train(itertools.islice(it, max(chunk // k, 1)),
+                               max_steps=train_spec.max_steps, final_save=False)
             peeked = next(it, None)
             if peeked is not None:
                 it = itertools.chain([peeked], it)
@@ -227,7 +347,20 @@ class Estimator:
                 if self.config.model_dir:
                     self._save(state)
                 return state, self.evaluate(eval_spec.input_fn, eval_spec.steps,
-                                            eval_spec.name)
+                                            state=state, name=eval_spec.name)
             if time.time() - last_eval >= eval_spec.throttle_secs:
-                self.evaluate(eval_spec.input_fn, eval_spec.steps, eval_spec.name)
+                self.evaluate(eval_spec.input_fn, eval_spec.steps, state=state,
+                              name=eval_spec.name)
                 last_eval = time.time()
+
+    def _append_loss_csv(self, rows):
+        """``model_dir/loss_vs_step.csv``: the data behind the reference's
+        loss-vs-step curves."""
+        path = os.path.join(self.config.model_dir, "loss_vs_step.csv")
+        new = not os.path.exists(path)
+        os.makedirs(self.config.model_dir, exist_ok=True)
+        with open(path, "a") as f:
+            if new:
+                f.write("step,loss\n")
+            for step, loss in rows:
+                f.write(f"{step},{loss}\n")

@@ -10,9 +10,12 @@ biases, and the hand-written flash-attention kernels as the attention core
 
     python -m gradaccum_tpu_torch.examples.bert_finetune --bf16 --max-steps 400
 
-It runs on the card unless ``--device cpu`` is given, and prints one JSON
-line with throughput (``seq/s``, over every update after the first) and
-``mfu`` against the card's bf16 peak.
+``--mode scan`` (the default, as in JAX's example) runs K micro-batches per
+host step; ``--mode streaming`` runs the reference's ``tf.cond`` train op,
+one micro-batch per host step, with the first-step quirk. It runs on the
+card unless ``--device cpu`` is given, and prints one JSON line with
+throughput (``seq/s``, over every host step after the first) and ``mfu``
+against the card's bf16 peak.
 """
 
 from __future__ import annotations
@@ -63,6 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="embedding rows (default: the corpus vocab, at least 128; "
                         "30522 is BERT's uncased vocab)")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
+    p.add_argument("--mode", choices=["scan", "streaming"], default="scan",
+                   help="K micro-batches per host step (scan) or one (streaming, "
+                        "the reference's tf.cond train op with its first-step quirk)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     p.add_argument("--model-dir", default=None,
@@ -110,21 +116,25 @@ def setup(args):
     est = Estimator(
         bert_classifier_bundle(cfg, num_classes=2, attention_fn=flash_attention),
         adamw(schedule, weight_decay_rate=0.01),
-        GradAccumConfig(num_micro_batches=k, clip_norm=1.0),
+        # the first-step quirk is a streaming-mode semantic; say False on the
+        # scan path so the config states what runs
+        GradAccumConfig(num_micro_batches=k, clip_norm=1.0,
+                        first_step_quirk=(args.mode == "streaming")),
         RunConfig(model_dir=args.model_dir,
                   log_step_count_steps=max(args.max_steps // 20, 1),
                   flops_per_example=bert_train_flops_per_seq(
                       cfg.hidden_size, cfg.num_layers, cfg.intermediate_size,
                       args.seq_len, 2)),
-        mode="scan",
+        mode=args.mode,
         device=device,
     )
+    host_batch = micro * (k if args.mode == "scan" else 1)
 
     def train_fn():
         return (Dataset.from_arrays(train)
                 .shuffle(2 * micro + 1, seed=19830610)
                 .repeat()
-                .batch(micro * k, drop_remainder=True)
+                .batch(host_batch, drop_remainder=True)
                 .prefetch(2))
 
     def eval_fn():
@@ -140,21 +150,29 @@ def main(argv=None) -> dict:
 
     est, train_fn, eval_fn, cfg = setup(args)
     k = est.accum.num_micro_batches
+    evaluations = []  # one entry per evaluation: each opens the eval input once
+
+    def counted_eval_fn():
+        evaluations.append(1)
+        return eval_fn()
+
     state, results = est.train_and_evaluate(
         TrainSpec(train_fn, max_steps=args.max_steps),
-        EvalSpec(eval_fn, throttle_secs=60),
+        EvalSpec(counted_eval_fn, throttle_secs=60),
     )
     seq_per_sec = est.examples_per_sec()
     out = {
-        "task": args.task, "device": device_name(est.device),
+        "task": args.task, "mode": args.mode, "device": device_name(est.device),
         "dtype": str(cfg.dtype).replace("torch.", ""),
         "micro_batch": TASKS[args.task]["batch"],
         "accum_k": k, "seq_len": args.seq_len, "vocab_size": cfg.vocab_size,
-        "updates": state.step // k, "timed_updates": est.train_stats["updates"],
+        "updates": state.step // k, "timed_host_steps": est.train_stats["host_steps"],
         "loss": float(est.last_loss), "accuracy": results["accuracy"],
-        "eval_batches": results["_num_batches"],
+        "eval_batches": results["_num_batches"], "evaluations": len(evaluations),
         "seq/s": seq_per_sec, "mfu": est.mfu(),
     }
+    if args.mode == "streaming":
+        out["apply_steps"] = est.apply_steps
     print(json.dumps(out))
     return out
 

@@ -7,6 +7,8 @@ the port's mirrored module tree; ``params_to_jax`` is the inverse, from a
 or gradients keyed the same way) or from a module. The mapping:
 
 - Dense ``kernel`` [in, out]  <->  ``Linear.weight`` [out, in]
+- Conv ``kernel`` HWIO [kh, kw, in, out]  <->  ``Conv2d.weight`` OIHW
+  [out, in, kh, kw]
 - ``bias``                    <->  ``bias``
 - LayerNorm ``scale``         <->  ``LayerNorm.weight``
 - Embed ``embedding``         <->  ``Embedding.weight``
@@ -49,6 +51,18 @@ def state_dict_key(jax_name: str) -> str:
     return ".".join(parts[:-1] + [leaf])
 
 
+def _kernel_to_torch(arr, name):
+    if arr.ndim == 2:  # Dense [in, out] -> Linear [out, in]
+        return arr.T
+    if arr.ndim == 4:  # Conv HWIO -> Conv2d OIHW
+        return arr.transpose(3, 2, 0, 1)
+    raise ValueError(f"{name}: only 2-D Dense and 4-D Conv kernels map to torch")
+
+
+def _kernel_to_jax(arr):
+    return arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+
+
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     """A flax parameter tree -> a torch ``state_dict`` (float tensors on the
     CPU; ``module.load_state_dict`` moves them to the module's device)."""
@@ -56,23 +70,21 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     for path, leaf in _flatten(tree):
         arr = np.asarray(leaf)
         if path[-1] == "kernel":
-            if arr.ndim != 2:
-                raise ValueError(f"{'/'.join(path)}: only 2-D Dense kernels map to Linear")
-            arr = arr.T
+            arr = _kernel_to_torch(arr, "/".join(path))
         out[state_dict_key("/".join(path))] = torch.tensor(arr)  # a copy: jax arrays are read-only
     return out
 
 
 def params_to_jax(named: Union[nn.Module, Dict[str, torch.Tensor]]):
     """``{jax_name: tensor}`` (or a module) -> a nested flax-shaped dict of
-    float32 numpy arrays, kernels transposed back to [in, out]."""
+    float32 numpy arrays, kernels back in flax's layouts."""
     if isinstance(named, nn.Module):
         named = named_parameters(named)
     tree: dict = {}
     for name, t in named.items():
         arr = t.detach().to("cpu", torch.float32).numpy()
         if name.endswith("/kernel"):
-            arr = arr.T
+            arr = _kernel_to_jax(arr)
         node = tree
         *parents, leaf = name.split("/")
         for part in parents:

@@ -23,7 +23,6 @@ parameter storage; asking for them raises ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Callable, Optional
 
 import torch
@@ -32,6 +31,7 @@ from torch import nn
 
 from gradaccum_tpu_torch.estimator.estimator import ModelBundle
 from gradaccum_tpu_torch.estimator.metrics import accuracy
+from gradaccum_tpu_torch.models.init import init_weights
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,25 +232,6 @@ class BertClassifier(nn.Module):
         if not deterministic and cfg.hidden_dropout > 0:
             pooled = dropout(pooled, cfg.hidden_dropout, generator)
         return self.classifier(pooled.float())
-
-
-@torch.no_grad()
-def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Random weights from ``generator`` (on the CPU, so a seed gives the
-    same weights on every device): lecun-normal Dense kernels, unit-variance
-    rows scaled by 1/sqrt(width) for embeddings, zero biases, unit
-    LayerNorm scales."""
-    for mod in model.modules():
-        if isinstance(mod, nn.Linear):
-            std = 1.0 / math.sqrt(mod.in_features)
-            mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator) * std)
-            mod.bias.zero_()
-        elif isinstance(mod, nn.Embedding):
-            std = 1.0 / math.sqrt(mod.embedding_dim)
-            mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator) * std)
-        elif isinstance(mod, nn.LayerNorm):
-            mod.weight.fill_(1.0)
-            mod.bias.zero_()
 
 
 def bert_classifier_bundle(config: BertConfig, num_classes: int = 2,

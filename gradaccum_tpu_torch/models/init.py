@@ -1,0 +1,27 @@
+"""Random initial weights for the port's models, from an explicit generator."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Random weights from ``generator`` (on the CPU, so a seed gives the
+    same weights on every device): lecun-normal Dense and Conv kernels
+    (standard deviation 1/sqrt(fan_in)), unit-variance rows scaled by
+    1/sqrt(width) for embeddings, zero biases, unit LayerNorm scales."""
+    for mod in model.modules():
+        if isinstance(mod, (nn.Linear, nn.Conv2d)):
+            std = 1.0 / math.sqrt(mod.weight[0].numel())  # fan_in
+            mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator) * std)
+            mod.bias.zero_()
+        elif isinstance(mod, nn.Embedding):
+            std = 1.0 / math.sqrt(mod.embedding_dim)
+            mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator) * std)
+        elif isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()

@@ -1,17 +1,48 @@
-"""Gradient accumulation, scan mode: K micro-batches per optimizer update.
+"""Gradient accumulation: K micro-batches per optimizer update, two modes.
 
-The port of ``accumulate_scan`` in ``gradaccum_tpu/ops/accumulation.py``.
-One ``train_step(state, super_batch)`` takes a ``[K, micro_batch, ...]``
-stacked super-batch, runs forward and backward on each micro-batch in turn
-(a Python loop in place of ``lax.scan``), sums the gradients in float32-or-
-wider accumulators, divides by K, clips by global norm after averaging, and
-applies one optimizer update. ``state.step`` counts micro-batches and the
-schedule sees it at the end of the cycle (``step + K``), as in the
-reference's steady-state apply branch.
+The port of ``gradaccum_tpu/ops/accumulation.py``.
 
-Not ported yet (ROADMAP.md): streaming mode, ``skip_nonfinite``,
-``normalize_by_good_count``, ``loss_scale``, ``fused_adam``, ``axis_name``
-and ``example_axes``; setting one raises ``NotImplementedError``.
+**Scan mode** (:func:`accumulate_scan`): one ``train_step(state,
+super_batch)`` takes a ``[K, micro_batch, ...]`` stacked super-batch, runs
+forward and backward on each micro-batch in turn (a Python loop in place of
+``lax.scan``), sums the gradients in float32-or-wider accumulators, divides
+by K, clips by global norm after averaging, and applies one optimizer
+update. ``state.step`` counts micro-batches and the schedule sees it at the
+end of the cycle (``step + K``).
+
+**Streaming mode** (:func:`streaming_step`): the reference's ``tf.cond``
+accumulate/apply ``train_op``. The accumulators are persistent state, each
+call consumes ONE micro-batch, and the apply branch runs when
+``step % K == phase``:
+
+- ``step`` counts micro-batches and is bumped unconditionally;
+- the apply branch first re-accumulates the current gradient, then
+  normalizes by K, clips, applies, and zeroes the accumulators;
+- with ``first_step_quirk=True`` (the reference) the phase is 0, so step 0
+  applies one micro-batch still normalized by 1/K: a K×-under-scaled first
+  update; ``False`` moves the phase to K-1, so every update sees K
+  micro-batches, and the schedule then reads ``step + 1``, exactly scan
+  mode's ``step + K`` values.
+
+``step`` is a Python int in the port, so the branch is chosen on the host
+without reading the card. The accumulators are added to in place, as the
+optimizers write parameters and moments in place.
+
+**The non-finite guard** (``skip_nonfinite``, both modes): a micro-batch
+whose loss or any gradient is not finite contributes zeros to the
+accumulators, chosen on the card with ``torch.where``; the denominator
+stays K unless ``normalize_by_good_count`` divides by the window's good
+count instead. A window with no good micro-batch must not apply at all
+(AdamW would still decay and advance its moments on a zero gradient). The
+optimizers update in place, so apply-or-skip is decided on the host from
+ONE read of the window's good count per window, never per micro-batch.
+With ``loss_scale`` the loss is scaled before differentiation, the guard
+inspects the scaled values, the unscale folds into the apply-time
+denominator before the clip, and the scale updates at every window
+boundary (``ops/loss_scale.py``).
+
+Not ported yet (ROADMAP.md): ``fused_adam``, ``axis_name`` and
+``example_axes``; setting one raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,32 +53,68 @@ import torch
 
 from gradaccum_tpu_torch.ops.adamw import Optimizer
 from gradaccum_tpu_torch.ops.clipping import clip_by_global_norm
+from gradaccum_tpu_torch.ops.loss_scale import (
+    LossScaleConfig,
+    init_loss_scale,
+    update_loss_scale,
+)
 from gradaccum_tpu_torch.utils.tree import global_norm
 
 
 class GradAccumConfig(NamedTuple):
     """``num_micro_batches`` is the reference's
     ``gradient_accumulation_multiplier``; ``clip_norm`` is 1.0 on the BERT
-    path. The other fields name knobs of the JAX package that the port does
-    not run yet."""
+    path, None on MNIST and housing. ``fused_adam``, ``axis_name`` and
+    ``example_axes`` name knobs of the JAX package that the port does not run
+    yet."""
 
     num_micro_batches: int
     clip_norm: Optional[float] = None
     axis_name: Optional[str] = None
+    first_step_quirk: bool = True  # streaming mode only
     skip_nonfinite: bool = False
-    normalize_by_good_count: bool = False
-    loss_scale: Any = None
+    normalize_by_good_count: bool = False  # requires skip_nonfinite
+    loss_scale: Optional[LossScaleConfig] = None  # requires skip_nonfinite
     fused_adam: bool = False
     example_axes: Tuple[str, ...] = ()
 
 
 def validate_config(config: GradAccumConfig) -> None:
+    """The JAX package's refusals (same errors, same order), then
+    ``NotImplementedError`` for the knobs the port does not run yet."""
     if config.num_micro_batches < 1:
         raise ValueError(f"num_micro_batches must be >= 1, got {config.num_micro_batches}")
+    if config.normalize_by_good_count and not config.skip_nonfinite:
+        raise ValueError(
+            "normalize_by_good_count divides by the guard's good count; it "
+            "requires skip_nonfinite=True"
+        )
+    if config.loss_scale is not None and not config.skip_nonfinite:
+        raise ValueError(
+            "dynamic loss scaling detects overflow through the non-finite "
+            "guard; it requires skip_nonfinite=True"
+        )
+    if config.fused_adam:
+        if config.clip_norm is not None:
+            raise ValueError(
+                "fused_adam never materializes the accumulated gradient, so "
+                "there is nothing for clip_norm to clip; disable one of them"
+            )
+        if config.normalize_by_good_count:
+            raise ValueError(
+                "fused_adam folds the 1/K normalization into each "
+                "micro-batch before the window's good count is known; "
+                "normalize_by_good_count cannot compose with it"
+            )
+        if config.axis_name is not None:
+            raise ValueError(
+                "fused_adam folds micro-batch gradients straight into the "
+                "replicated optimizer moments; under the explicit shard_map "
+                "DP path (axis_name) that would need a collective per "
+                "micro-batch. Run fused accumulation on the GSPMD path "
+                "(sharding_rules / zero1) instead"
+            )
     refused = {
-        "skip_nonfinite": config.skip_nonfinite,
-        "normalize_by_good_count": config.normalize_by_good_count,
-        "loss_scale": config.loss_scale is not None,
         "fused_adam": config.fused_adam,
         "axis_name": config.axis_name is not None,
         "example_axes": bool(config.example_axes),
@@ -64,14 +131,8 @@ def validate_config(config: GradAccumConfig) -> None:
 LossFn = Callable[[Dict[str, torch.Tensor], Dict[str, Any]], torch.Tensor]
 
 
-class ScanState(NamedTuple):
-    params: Dict[str, torch.Tensor]
-    opt_state: Any
-    step: int  # micro-batches consumed so far (the reference's global_step)
-
-
-def scan_init(params: Dict[str, torch.Tensor], optimizer: Optimizer) -> ScanState:
-    return ScanState(params=params, opt_state=optimizer.init(params), step=0)
+def _device(params) -> torch.device:
+    return next(iter(params.values())).device if params else torch.device("cpu")
 
 
 def _accum_zeros(params):
@@ -82,12 +143,74 @@ def _accum_zeros(params):
             for name, p in params.items()}
 
 
-def _finalize(accum, config: GradAccumConfig, denom: int):
-    """Normalize the accumulated sum by ``denom``, then clip (if set)."""
+def _accum_add_(accum, grads) -> None:
+    for acc, g in zip(accum.values(), grads):
+        acc.add_(g.to(acc.dtype))
+
+
+def _grad_call(loss_fn: LossFn, params, micro_batch, scale):
+    """One micro-batch's ``(loss, check_loss, grads)``. ``check_loss`` is
+    what the guard inspects: the SCALED loss when scaling is on, so an
+    overflow at the current scale is caught even when the raw loss is
+    representable; ``grads`` are then scaled too (the unscale folds into
+    the apply-time denominator)."""
+    loss = loss_fn(params, micro_batch)
+    check_loss = loss if scale is None else loss * scale
+    grads = torch.autograd.grad(check_loss, list(params.values()))
+    return loss.detach(), check_loss.detach(), grads
+
+
+def _all_finite(check_loss, grads) -> torch.Tensor:
+    """0-d bool on the card: the loss and every gradient are finite."""
+    return torch.stack([torch.isfinite(check_loss)]
+                       + [torch.isfinite(g).all() for g in grads]).all()
+
+
+def _zero_if_bad(grads, good):
+    """Every gradient replaced by zeros when ``good`` is False: a NaN or an
+    Inf never reaches the accumulators."""
+    return [torch.where(good, g, torch.zeros((), dtype=g.dtype, device=g.device))
+            for g in grads]
+
+
+def _finalize(accum, config: GradAccumConfig, denom):
+    """Normalize the accumulated sum by ``denom`` (an int, or a 0-d tensor
+    when it holds the good count or the loss scale), then clip (if set)."""
     grads = {name: g / denom for name, g in accum.items()}
     if config.clip_norm is not None:
         return clip_by_global_norm(grads, config.clip_norm)
     return grads, global_norm(grads.values())
+
+
+def _scale_of(state, config: GradAccumConfig, init_fn: str):
+    if config.loss_scale is None:
+        return None
+    if state.loss_scale is None:
+        raise ValueError(
+            "GradAccumConfig.loss_scale is set but the state carries no "
+            f"DynamicLossScale: build it with {init_fn}(params, opt, "
+            "loss_scale=config.loss_scale)"
+        )
+    return state.loss_scale.scale
+
+
+# --------------------------------------------------------------------------
+# Scan mode
+# --------------------------------------------------------------------------
+
+
+class ScanState(NamedTuple):
+    params: Dict[str, torch.Tensor]
+    opt_state: Any
+    step: int  # micro-batches consumed so far (the reference's global_step)
+    loss_scale: Any = None  # DynamicLossScale when GradAccumConfig.loss_scale is set
+
+
+def scan_init(params: Dict[str, torch.Tensor], optimizer: Optimizer,
+              loss_scale: Optional[LossScaleConfig] = None) -> ScanState:
+    return ScanState(params=params, opt_state=optimizer.init(params), step=0,
+                     loss_scale=None if loss_scale is None
+                     else init_loss_scale(loss_scale, _device(params)))
 
 
 def accumulate_scan(loss_fn: LossFn, optimizer: Optimizer, config: GradAccumConfig,
@@ -97,13 +220,16 @@ def accumulate_scan(loss_fn: LossFn, optimizer: Optimizer, config: GradAccumConf
     ``train_step(state, super_batch)`` expects every value of the dict
     ``super_batch`` stacked to ``[K, micro_batch, ...]`` and returns
     ``(new_state, aux)`` with ``aux = {"loss": mean over K, "grad_norm":
-    norm of the averaged gradient before clipping, "lr_step": step + K}``.
-    With ``needs_rng=True`` the call is ``train_step(state, super_batch,
-    generator)`` and each micro-batch reaches ``loss_fn`` with the generator
-    under ``"rng"``; its draws advance from one micro-batch to the next.
+    norm of the averaged gradient before clipping, "lr_step": step + K}``,
+    plus ``"skipped"`` and ``"good_count"`` under the guard and
+    ``"loss_scale"`` with scaling. With ``needs_rng=True`` the call is
+    ``train_step(state, super_batch, generator)`` and each micro-batch
+    reaches ``loss_fn`` with the generator under ``"rng"``; its draws
+    advance from one micro-batch to the next.
     """
     validate_config(config)
     k = config.num_micro_batches
+    skip = config.skip_nonfinite
 
     def train_step(state: ScanState, super_batch: Dict[str, Any],
                    generator: Optional[torch.Generator] = None):
@@ -115,27 +241,57 @@ def accumulate_scan(loss_fn: LossFn, optimizer: Optimizer, config: GradAccumConf
             )
         if needs_rng and generator is None:
             raise ValueError("needs_rng=True: pass train_step(state, batch, generator)")
+        scale = _scale_of(state, config, "scan_init")
         params = state.params
-        tensors = list(params.values())
         accum = _accum_zeros(params)
+        n_good = torch.zeros((), dtype=torch.int32, device=_device(params)) if skip else None
         losses = []
         for i in range(k):
             micro = {key: x[i] for key, x in super_batch.items()}
             if needs_rng:
                 micro["rng"] = generator
-            loss = loss_fn(params, micro)
-            grads = torch.autograd.grad(loss, tensors)
+            loss, check_loss, grads = _grad_call(loss_fn, params, micro, scale)
             with torch.no_grad():
-                for acc, g in zip(accum.values(), grads):
-                    acc.add_(g.to(acc.dtype))
-            losses.append(loss.detach())
+                if skip:
+                    good = _all_finite(check_loss, grads)
+                    grads = _zero_if_bad(grads, good)
+                    loss = torch.where(good, loss, torch.zeros_like(loss))  # out of the mean
+                    n_good = n_good + good.to(torch.int32)
+                _accum_add_(accum, grads)
+            losses.append(loss)
         apply_step = state.step + k
         with torch.no_grad():
-            grads, norm = _finalize(accum, config, k)
-        new_params, new_opt_state = optimizer.update(grads, state.opt_state, params,
-                                                     apply_step)
-        aux = {"loss": torch.stack(losses).mean(), "grad_norm": norm, "lr_step": apply_step}
-        return ScanState(new_params, new_opt_state, apply_step), aux
+            if skip and config.normalize_by_good_count:
+                # rescale over the survivors instead of shrinking the update
+                denom = torch.clamp(n_good, min=1).to(torch.float32)
+            else:
+                denom = k  # a skipped micro-batch contributes zero: the update shrinks
+            if scale is not None:
+                denom = denom * scale  # unscale BEFORE clip and apply
+            grads, norm = _finalize(accum, config, denom)
+        if skip and int(n_good) == 0:  # the window's one host read
+            new_params, new_opt_state = params, state.opt_state
+        else:
+            new_params, new_opt_state = optimizer.update(grads, state.opt_state, params,
+                                                         apply_step)
+        new_ls = state.loss_scale
+        if config.loss_scale is not None:
+            new_ls = update_loss_scale(state.loss_scale, config.loss_scale, n_good >= k)
+        stacked = torch.stack(losses)
+        if skip:
+            # mean over the usable micro-batches; NaN when the whole window was bad
+            loss = torch.where(n_good > 0,
+                               stacked.sum() / torch.clamp(n_good.to(stacked.dtype), min=1.0),
+                               torch.full_like(stacked[0], float("nan")))
+        else:
+            loss = stacked.mean()
+        aux = {"loss": loss, "grad_norm": norm, "lr_step": apply_step}
+        if skip:
+            aux["skipped"] = k - n_good
+            aux["good_count"] = n_good
+        if config.loss_scale is not None:
+            aux["loss_scale"] = new_ls.scale
+        return ScanState(new_params, new_opt_state, apply_step, new_ls), aux
 
     return train_step
 
@@ -144,3 +300,107 @@ def stack_micro_batches(batch: Dict[str, Any], num_micro_batches: int) -> Dict[s
     """Reshape a ``[K*B, ...]`` host batch into the ``[K, B, ...]`` super-batch."""
     return {key: x.reshape((num_micro_batches, -1) + tuple(x.shape[1:]))
             for key, x in batch.items()}
+
+
+# --------------------------------------------------------------------------
+# Streaming mode (the reference's tf.cond semantics)
+# --------------------------------------------------------------------------
+
+
+class StreamingState(NamedTuple):
+    params: Dict[str, torch.Tensor]
+    opt_state: Any
+    accum_grads: Dict[str, torch.Tensor]  # the reference's accum_grads variables
+    step: int  # micro-batch counter == the reference's global_step
+    # good micro-batches in the current window (int32, 0-d, on the card):
+    # persistent like the accumulators, since a window spans host steps
+    good_count: torch.Tensor
+    loss_scale: Any = None  # DynamicLossScale when GradAccumConfig.loss_scale is set
+
+
+def streaming_init(params: Dict[str, torch.Tensor], optimizer: Optimizer,
+                   loss_scale: Optional[LossScaleConfig] = None) -> StreamingState:
+    device = _device(params)
+    return StreamingState(params=params, opt_state=optimizer.init(params),
+                          accum_grads=_accum_zeros(params), step=0,
+                          good_count=torch.zeros((), dtype=torch.int32, device=device),
+                          loss_scale=None if loss_scale is None
+                          else init_loss_scale(loss_scale, device))
+
+
+def streaming_step(loss_fn: LossFn, optimizer: Optimizer, config: GradAccumConfig,
+                   needs_rng: bool = False) -> Callable[..., tuple]:
+    """Build the streaming-mode train step (one micro-batch per call).
+
+    ``train_step(state, micro_batch)`` returns ``(new_state, aux)`` with
+    ``aux = {"loss": this micro-batch's raw loss, "applied": 1.0 on apply
+    steps, else 0.0}``, plus ``"skipped"`` and ``"good_count"`` (this
+    micro-batch's) under the guard and ``"loss_scale"`` with scaling. With
+    ``needs_rng=True`` the call is ``train_step(state, micro_batch,
+    generator)``.
+    """
+    validate_config(config)
+    k = config.num_micro_batches
+    skip = config.skip_nonfinite
+    # the reference applies when step % K == 0 (quirk included); quirk-free
+    # applies once K gradients have accumulated
+    phase = 0 if config.first_step_quirk else k - 1
+    # the schedule's step at an apply: the pre-increment count with the
+    # quirk (the reference's global_step), the post-increment count without
+    # it (= micro-batches consumed, scan mode's step + K)
+    step_offset = 0 if config.first_step_quirk else 1
+
+    def train_step(state: StreamingState, micro_batch: Dict[str, Any],
+                   generator: Optional[torch.Generator] = None):
+        if needs_rng:
+            if generator is None:
+                raise ValueError("needs_rng=True: pass train_step(state, batch, generator)")
+            micro_batch = dict(micro_batch, rng=generator)
+        scale = _scale_of(state, config, "streaming_init")
+        params = state.params
+        loss, check_loss, grads = _grad_call(loss_fn, params, micro_batch, scale)
+        applied = state.step % k == phase
+        new_params, new_opt_state = params, state.opt_state
+        new_good, new_ls = state.good_count, state.loss_scale
+        with torch.no_grad():
+            if skip:
+                good = _all_finite(check_loss, grads)
+                grads = _zero_if_bad(grads, good)
+                good_inc = good.to(torch.int32)
+                window_good = state.good_count + good_inc
+            # both branches accumulate: the apply branch re-accumulates the
+            # current gradient first (optimization.py:81)
+            accum = state.accum_grads
+            _accum_add_(accum, grads)
+            if applied:
+                if skip and config.normalize_by_good_count:
+                    denom = torch.clamp(window_good, min=1).to(torch.float32)
+                else:
+                    denom = k
+                if scale is not None:
+                    denom = denom * scale  # unscale BEFORE clip and apply
+                avg, _ = _finalize(accum, config, denom)
+                # an all-bad window must not apply: the window's one host read
+                if not skip or int(window_good) > 0:
+                    new_params, new_opt_state = optimizer.update(
+                        avg, state.opt_state, params, state.step + step_offset)
+                if config.loss_scale is not None:
+                    # window boundary: the scale adjusts, applied or not
+                    new_ls = update_loss_scale(state.loss_scale, config.loss_scale,
+                                               window_good >= k)
+                for acc in accum.values():
+                    acc.zero_()
+                new_good = torch.zeros_like(state.good_count)
+            elif skip:
+                new_good = window_good
+        aux = {"loss": loss, "applied": 1.0 if applied else 0.0}
+        if skip:
+            aux["skipped"] = 1 - good_inc
+            aux["good_count"] = good_inc
+        if config.loss_scale is not None:
+            aux["loss_scale"] = new_ls.scale
+        new_state = StreamingState(new_params, new_opt_state, accum, state.step + 1,
+                                   new_good, new_ls)
+        return new_state, aux
+
+    return train_step

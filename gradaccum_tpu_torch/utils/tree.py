@@ -6,8 +6,8 @@ weight-decay exclusion regex-searches those names. The port keeps them: a
 model's trainables are handed around as an ordered ``{jax_name: Parameter}``
 dictionary, built from the ``nn.Module`` tree by :func:`named_parameters`.
 The module tree mirrors the flax one (same submodule names), so only the
-leaf name changes: ``Linear.weight`` is ``kernel``, ``LayerNorm.weight`` is
-``scale``, ``Embedding.weight`` is ``embedding``.
+leaf name changes: ``Linear.weight`` and ``Conv2d.weight`` are ``kernel``,
+``LayerNorm.weight`` is ``scale``, ``Embedding.weight`` is ``embedding``.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from torch import nn
 # leaf renames by module type; a type not listed keeps torch's leaf names
 _LEAF_NAMES = (
     (nn.Linear, {"weight": "kernel", "bias": "bias"}),
+    (nn.Conv2d, {"weight": "kernel", "bias": "bias"}),
     (nn.LayerNorm, {"weight": "scale", "bias": "bias"}),
     (nn.Embedding, {"weight": "embedding"}),
 )

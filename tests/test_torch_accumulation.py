@@ -33,6 +33,7 @@ from gradaccum_tpu_torch.ops import accumulation as tacc
 from gradaccum_tpu_torch.ops import adamw as tadamw
 from gradaccum_tpu_torch.ops import clipping as tclip
 from gradaccum_tpu_torch.ops import flash_attention as tfa
+from gradaccum_tpu_torch.ops.loss_scale import LossScaleConfig
 from gradaccum_tpu_torch.ops import schedule as tsched
 from gradaccum_tpu_torch.utils.tree import named_parameters
 
@@ -182,10 +183,13 @@ def test_stack_micro_batches_matches_jax():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(skip_nonfinite=True), dict(loss_scale=object()), dict(fused_adam=True),
-    dict(axis_name="data"), dict(example_axes=("seq",)),
+    dict(skip_nonfinite=True, fused_adam=True),
+    dict(skip_nonfinite=True, loss_scale=LossScaleConfig(), axis_name="data"),
+    dict(fused_adam=True), dict(axis_name="data"), dict(example_axes=("seq",)),
 ])
 def test_unported_knobs_raise(knob):
+    # the guard and loss scaling are ported (tests/test_torch_guard.py); these
+    # knobs, alone or beside them, are not
     with pytest.raises(NotImplementedError):
         tacc.accumulate_scan(lambda p, b: 0.0, tadamw.adamw(1e-3),
                              tacc.GradAccumConfig(2, **knob))
@@ -203,7 +207,7 @@ def _estimator(model_dir):
     return Estimator(bundle, tadamw.adamw(sched), tacc.GradAccumConfig(K, clip_norm=1.0),
                      RunConfig(model_dir=str(model_dir), save_checkpoints_steps=None,
                                log_step_count_steps=1000),
-                     device="cpu")
+                     mode="scan", device="cpu")
 
 
 def test_estimator_checkpoint_resume_is_bitwise(tmp_path):

@@ -2,9 +2,10 @@
 
 - Importing every module of ``gradaccum_tpu_torch`` (and ``chip_smoke.py``)
   loads neither ``jax`` nor ``gradaccum_tpu``.
-- Without a card, the Estimator and the entry point at their default device
-  raise instead of running on the CPU, and ``chip_smoke.py`` exits non-zero
-  without printing a result.
+- Without a card, the Estimator and the entry points (BERT, MNIST, housing)
+  at their default device raise instead of running on the CPU, and
+  ``chip_smoke.py`` exits non-zero without printing a result; each entry
+  point runs on the CPU when asked.
 - The kernel wrappers refuse CPU tensors, and ``flash_attention`` on CPU
   tensors reaches the plain versions: the launch counts stay 0.
 """
@@ -93,6 +94,50 @@ def test_entry_point_script_runs_on_the_cpu_when_asked():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["device"] == "cpu" and result["updates"] == 2
     assert np.isfinite(result["loss"]) and result["mfu"] is None
+
+
+SMALL_ENTRY_POINTS = {
+    "mnist": ["--variant", "02", "--max-steps", "4", "--train-size", "256",
+              "--eval-batch", "256"],
+    "housing": ["--max-steps", "6"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(SMALL_ENTRY_POINTS))
+def test_small_entry_points_default_to_the_card_and_raise_without_one(name):
+    _no_card()
+    import importlib
+
+    module = importlib.import_module(f"gradaccum_tpu_torch.examples.{name}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main(SMALL_ENTRY_POINTS[name])
+
+
+@pytest.mark.parametrize("name", sorted(SMALL_ENTRY_POINTS))
+def test_small_entry_point_scripts_run_on_the_cpu_when_asked(name):
+    out = _run([os.path.join("gradaccum_tpu_torch", "examples", f"{name}.py"),
+                "--device", "cpu", "--mode", "streaming", *SMALL_ENTRY_POINTS[name]])
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["device"] == "cpu" and result["mode"] == "streaming"
+    assert np.isfinite(result["loss"]) and np.isfinite(result["first_loss"])
+    if name == "housing":
+        assert len(result["predictions"]) == 5 and np.isfinite(result["test_rmse"])
+    else:
+        assert result["updates"] == 2 and 0.0 <= result["accuracy"] <= 1.0
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("mnist", ["--variant", "03", "--device", "cpu"]),
+    ("mnist", ["--variant", "04", "--device", "cpu"]),
+    ("housing", ["--export-dir", "unused", "--device", "cpu"]),
+])
+def test_unported_entry_point_options_raise(name, argv):
+    import importlib
+
+    module = importlib.import_module(f"gradaccum_tpu_torch.examples.{name}")
+    with pytest.raises(NotImplementedError):
+        module.main(argv)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
