@@ -49,6 +49,32 @@ Phases, each of which fails the run if it fails:
    02 (batch 100, K=2), and the housing entry point (batch 59, K=3), in
    streaming mode on synthetic data: finite loss that falls below its first
    value, accuracy or MAE/RMSE and 5 predictions.
+10. xla-bwd: ``flash_attention(bwd_impl="xla")`` (the forward kernel, then
+    autograd through the blockwise core) against the kernels' backward
+    (``"pallas"``) at [8, 8, 128, 64], float32 and bfloat16, with a padded
+    mask and without, causal and not: dq, dk, dv and dmask within the TOL
+    table (float32) or XLA_BWD_TOL (bfloat16). Per call the forward kernel
+    launches once and the dq and dk/dv kernels never.
+11. warm start: a BERT-Small HuggingFace directory (config.json,
+    model.safetensors from a seeded generator, a 30522-line vocab.txt)
+    and train/dev TSVs written here, then the entry point with
+    ``--hf-checkpoint DIR --data-dir DIR --bf16``: before the first update
+    every parameter equals the file's tensor bit for bit and the classifier
+    is zero; then a few updates and the evaluations, launch counts exact
+    and on the tensor cores.
+12. remat: BERT-Small bf16, dropout 0.1, one scan update with remat and
+    one without from the same weights, batch and generator seed: every
+    parameter bitwise equal, the forward kernel launched twice as often in
+    training (the recompute), the backward kernels as often; peak memory
+    of both.
+13. sparse embed: BERT-Small bf16, dropout 0, 2 scan updates with the
+    word-embedding gradient accumulated as rows against the dense path,
+    every parameter within SPARSE_ATOL; then a profile window of the entry
+    point with ``--sparse-embed-grad``.
+14. MoE: the entry point at BERT-Small width with 8 experts, top-2, bf16,
+    scan: finite loss, exact launch counts; the loss is the cross entropy
+    plus 0.01 x the mean load-balance loss; the dropped fraction, seq/s and
+    MFU (against the MoE FLOPs).
 
 The last three lines of standard output are the card's name and power
 limit, a JSON line describing every kernel, and the result line
@@ -101,6 +127,18 @@ SOURCES = {name: f"{PACKAGE}/csrc/flash_attention_tc.cu" for name in REPLACES}
 # bfloat16 only: the ragged lengths (one key tile with a ragged edge, and
 # more than one) and the widest head dim, beside the main shape
 EXTRA_SHAPES = [(B, H, 100, D), (B, H, 200, D), (B, H, S, 128)]
+# bwd_impl="xla" in bfloat16 against the kernels' backward: the blockwise
+# core computes as JAX's does, its scores, P and the autograd cotangents
+# rounded to bf16 (2^-8 relative) before each product, where the kernels
+# keep them float32: 1-3 % relative on dq/dk/dv. dmask comes back in the
+# mask's bf16 on both paths, whose spacing is 0.25 for |dmask| in [32, 64).
+XLA_BWD_TOL = {"dq": (3e-2, 3e-2), "dk": (3e-2, 3e-2), "dv": (3e-2, 3e-2),
+               "dmask": (0.5, 3e-2)}
+# sparse against dense embedding gradients after 2 AdamW updates at lr
+# 2e-5: the table's gradient sums the same float32 row cotangents in another
+# order (index_add_ on the card adds with atomics), and AdamW without bias
+# correction moves a weight by up to 2x a gradient difference (lr/eps·0.1)
+SPARSE_ATOL = 1e-6
 
 
 class SmokeError(RuntimeError):
@@ -509,12 +547,12 @@ def _check_launches(phase, counts, routes, train_calls, result):
     check(routes == want_routes, f"{phase}: route counts {routes} != {want_routes}")
 
 
-def phase_profile(updates: int = 3, mode: str = "scan"):
-    """Where the time of the main path (or of its streaming twin) goes: a
-    torch.profiler window over a few updates of the same run (after two
-    warm-up updates). Reports wall time per update, the card's busy time
-    per update (sum of kernel and copy time, one stream), its idle share,
-    and the top kernels."""
+def phase_profile(updates: int = 3, mode: str = "scan", extra=()):
+    """Where the time of the main path (or of its streaming or sparse
+    embedding twin, ``extra`` flags) goes: a torch.profiler window over a
+    few updates of the same run (after two warm-up updates). Reports wall
+    time per update, the card's busy time per update (sum of kernel and copy
+    time, one stream), its idle share, and the top kernels."""
     import itertools
 
     import torch
@@ -522,10 +560,10 @@ def phase_profile(updates: int = 3, mode: str = "scan"):
 
     from gradaccum_tpu_torch.examples import bert_finetune
 
-    args = bert_finetune.build_parser().parse_args(
+    args = bert_finetune.parse_args(
         ["--device", "cuda", "--bf16", "--vocab-size", "30522", "--seq-len", str(S),
-         "--accum-k", str(K), "--max-steps", "400", "--mode", mode])
-    est, train_fn, _, _ = bert_finetune.setup(args)
+         "--accum-k", str(K), "--max-steps", "400", "--mode", mode, *extra])
+    est, train_fn, _, _, _ = bert_finetune.setup(args)
     host_steps = K if mode == "streaming" else 1  # per update
     it = iter(train_fn())
     est.train(itertools.islice(it, 2 * host_steps), final_save=False)
@@ -548,7 +586,8 @@ def phase_profile(updates: int = 3, mode: str = "scan"):
         return
     flash = sum(t for key, t, _ in kernels if "flash_" in key) / 1e6
     launches = sum(c for _, _, c in kernels) / updates
-    print(f"[profile] {mode}, {updates} updates: {per_update * 1e3:.2f} ms/update wall, "
+    print(f"[profile] {' '.join([mode, *extra])}, {updates} updates: "
+          f"{per_update * 1e3:.2f} ms/update wall, "
           f"card busy {busy / updates * 1e3:.2f} ms/update "
           f"(idle share {1 - busy / wall:.3f}), {launches:.0f} kernels/update, "
           f"flash kernels {flash / updates * 1e3:.2f} ms/update")
@@ -748,6 +787,337 @@ def _check_falls(name, r):
                                        f"({r['first_loss']} -> {r['loss']})")
 
 
+# --------------------------------------------------------------------------
+# phases 10-14: the blockwise backward, warm start, remat, sparse embed, MoE
+# --------------------------------------------------------------------------
+
+
+def _attention_grads(fa, q, k, v, mask, do, causal, **kw):
+    """dq, dk, dv (and dmask with a mask) of ``flash_attention`` through
+    autograd, and the launch counts of that one call."""
+    import torch
+
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    m = None if mask is None else mask.clone().requires_grad_()
+    fa.reset_launch_counts()
+    out = fa.flash_attention(*ins, m, causal=causal, **kw)
+    grads = torch.autograd.grad(out, ins + ([m] if m is not None else []), do)
+    torch.cuda.synchronize()
+    return grads, fa.launch_counts()
+
+
+def phase_xla_bwd():
+    import torch
+
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype)] if dtype == torch.float32 else XLA_BWD_TOL
+        for masked in (True, False):
+            for causal in (False, True):
+                q, k, v, mask, do = _inputs(dtype, masked, seed=2)
+                want, _ = _attention_grads(fa, q, k, v, mask, do, causal)
+                got, counts = _attention_grads(fa, q, k, v, mask, do, causal, bwd_impl="xla")
+                check(counts == {"flash_fwd": 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+                      f"xla-bwd launched {counts}: one forward and no backward kernel wanted")
+                line = []
+                for name, g, w in zip(("dq", "dk", "dv", "dmask"), got, want):
+                    g, w = g.float(), w.float()
+                    atol, rtol = tol[name]
+                    err = (g - w).abs()
+                    check(bool(g.isfinite().all()), f"xla-bwd {name}: non-finite")
+                    check(bool((err <= atol + rtol * w.abs()).all()),
+                          f"xla-bwd {name} ({dtype}, mask={masked}, causal={causal}): max "
+                          f"|xla - pallas| {float(err.max()):.3e} > {atol} + {rtol}|pallas|")
+                    line.append(f"{name}={float(err.max()):.2e}")
+                print(f"[xla-bwd] {str(dtype)[6:]:8s} mask={int(masked)} causal={int(causal)}: "
+                      f"launches {counts}; |xla - pallas| " + " ".join(line))
+
+
+# chip_smoke's own HF naming (independent of models/bert_checkpoint.py):
+# port path segments -> HF module path, and leaf -> HF leaf
+_HF_SEGMENTS = {
+    "word_embeddings": "embeddings.word_embeddings",
+    "position_embeddings": "embeddings.position_embeddings",
+    "token_type_embeddings": "embeddings.token_type_embeddings",
+    "embeddings_LayerNorm": "embeddings.LayerNorm",
+    "attention/query": "attention.self.query", "attention/key": "attention.self.key",
+    "attention/value": "attention.self.value", "attention/output": "attention.output.dense",
+    "attention_LayerNorm": "attention.output.LayerNorm",
+    "intermediate": "intermediate.dense", "ffn_output": "output.dense",
+    "output_LayerNorm": "output.LayerNorm", "pooler": "pooler.dense",
+}
+_HF_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
+
+
+def _hf_name(port_name):
+    """``params/bert/layer_1/attention/query/kernel`` ->
+    ``encoder.layer.1.attention.self.query.weight``."""
+    parts = port_name.split("/")[1:]
+    if parts[0] == "bert":
+        parts = parts[1:]
+    prefix = []
+    if parts[0].startswith("layer_"):
+        prefix, parts = [f"encoder.layer.{parts[0][6:]}"], parts[1:]
+    return ".".join(prefix + [_HF_SEGMENTS["/".join(parts[:-1])], _HF_LEAVES[parts[-1]]])
+
+
+def _write_hf_dir(path, names_shapes, seed=1234):
+    """A BertModel directory in HF's format at BERT-Small width: config.json,
+    model.safetensors (float32 from a seeded generator, written by a small
+    writer: the card has no safetensors package) and vocab.txt (the special
+    tokens, the synthetic corpus's words, then [unused{i}] to 30522 lines),
+    plus train.tsv and dev.tsv. Returns ``{HF name: array}``."""
+    import numpy as np
+
+    from gradaccum_tpu_torch.examples.bert_finetune import synthetic_text_task
+
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    tensors = {}
+    for port_name, shape in names_shapes.items():
+        if port_name.startswith("params/classifier/"):
+            continue  # a base model: no head
+        tensors[_hf_name(port_name)] = (rng.standard_normal(shape) * 0.02).astype(np.float32)
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, arr in tensors.items():
+        header[name] = {"dtype": "F32", "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + arr.nbytes]}
+        offset += arr.nbytes
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(os.path.join(path, "model.safetensors"), "wb") as f:
+        f.write(len(blob).to_bytes(8, "little") + blob)
+        for arr in tensors.values():
+            f.write(arr.tobytes())
+    config = {"architectures": ["BertModel"], "model_type": "bert", "hidden_act": "gelu",
+              "vocab_size": 30522, "hidden_size": 512, "num_hidden_layers": LAYERS,
+              "num_attention_heads": 8, "intermediate_size": 2048,
+              "max_position_embeddings": 512, "type_vocab_size": 2,
+              "hidden_dropout_prob": 0.1, "attention_probs_dropout_prob": 0.1,
+              "layer_norm_eps": 1e-12}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    train = synthetic_text_task(512, seed=1)
+    dev = synthetic_text_task(256, seed=2)
+    words = sorted({w for text in train[0] + dev[0] for w in text.split()})
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words
+    vocab += [f"[unused{i}]" for i in range(30522 - len(vocab))]
+    with open(os.path.join(path, "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab) + "\n")
+    for split, (texts, labels) in (("train", train), ("dev", dev)):
+        with open(os.path.join(path, f"{split}.tsv"), "w") as f:
+            for i, (text, label) in enumerate(zip(texts, labels)):
+                f.write(f"{label}\tid{i}\t{text}\n")
+    return tensors
+
+
+def phase_warm_start(updates: int = 4):
+    import torch
+
+    from gradaccum_tpu_torch.examples import bert_finetune
+    from gradaccum_tpu_torch.models.bert import BertConfig, BertClassifier
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+    from gradaccum_tpu_torch.utils.tree import named_parameters
+
+    hf_dir = os.path.join(ROOT, "build", "chip_smoke_hf")
+    shutil.rmtree(hf_dir, ignore_errors=True)
+    shapes = {name: tuple(p.shape) for name, p in
+              named_parameters(BertClassifier(BertConfig.small(num_layers=LAYERS))).items()}
+    t0 = time.perf_counter()
+    tensors = _write_hf_dir(hf_dir, shapes)
+    mb = os.path.getsize(os.path.join(hf_dir, "model.safetensors")) / 1e6
+    argv = ["--device", "cuda", "--hf-checkpoint", hf_dir, "--data-dir", hf_dir, "--bf16",
+            "--mode", "scan", "--seq-len", str(S), "--accum-k", str(K),
+            "--max-steps", str(updates * K),
+            "--model-dir", os.path.join(ROOT, "build", "chip_smoke_warm")]
+    # the weights before the first update, through the entry point's own setup
+    est, _, _, cfg, _ = bert_finetune.setup(bert_finetune.parse_args(argv))
+    params = est.train([], final_save=False).params
+    check(set(params) == {n for n in shapes}, "warm start: parameter names differ")
+    for name, p in params.items():
+        if name.startswith("params/classifier/"):
+            check(not bool(p.any()), f"warm start: {name} is not zero")
+            continue
+        want = torch.from_numpy(tensors[_hf_name(name)]).to(p.device)
+        check(torch.equal(p.detach(), want), f"warm start: {name} differs from the file's "
+                                             f"{_hf_name(name)}")
+    print(f"[warm-start] wrote a BERT-Small HF directory ({mb:.1f} MB model.safetensors, "
+          f"30522-line vocab.txt) in {time.perf_counter() - t0:.1f} s; before the first "
+          f"update all {len(params) - 2} encoder and pooler tensors equal the file's bit for "
+          f"bit and the classifier is zero")
+    del est, params
+    fa.reset_launch_counts()
+    result = bert_finetune.main(argv)
+    counts, routes = fa.launch_counts(), fa.route_counts()
+    check(math.isfinite(result["loss"]), f"warm start: loss is not finite: {result['loss']}")
+    check(result["updates"] == updates, f"warm start: ran {result['updates']} updates")
+    check(0.0 <= result["accuracy"] <= 1.0, f"warm start: accuracy {result['accuracy']}")
+    _check_launches("warm-start", counts, routes, LAYERS * K * updates, result)
+    print(f"[warm-start] --hf-checkpoint --data-dir --bf16, micro 8 x K={K}: {updates} "
+          f"updates, loss {result['first_loss']:.4f} -> {result['loss']:.4f}, eval accuracy "
+          f"{result['accuracy']:.4f} ({result['evaluations']} evaluations of "
+          f"{result['eval_batches']} batches), {result['seq/s']:.1f} seq/s; launches "
+          f"{counts}, all tc")
+
+
+def _bert_small_step(cfg, micro=8, sparse=False):
+    """A fresh BERT-Small model from seed 19830610 and its scan step (flash
+    core, clip 1.0, AdamW over the main path's schedule)."""
+    from gradaccum_tpu_torch.models.bert import bert_classifier_bundle
+    from gradaccum_tpu_torch.ops import accumulation as acc
+    from gradaccum_tpu_torch.ops.adamw import adamw
+    from gradaccum_tpu_torch.ops.flash_attention import flash_attention
+    from gradaccum_tpu_torch.ops.schedule import warmup_polynomial_decay
+    from gradaccum_tpu_torch.ops.sparse_embed import accumulate_scan_sparse_embed
+    from gradaccum_tpu_torch.utils.tree import named_parameters
+
+    bundle = bert_classifier_bundle(cfg, attention_fn=flash_attention)
+    model = bundle.init(19830610, "cuda")
+    opt = adamw(warmup_polynomial_decay(2e-5, 16, 2), weight_decay_rate=0.01)
+    config = acc.GradAccumConfig(K, clip_norm=1.0, first_step_quirk=False)
+    if sparse:
+        hooks = bundle.sparse_embed._replace(
+            loss_with_rows=lambda p, rows, b: bundle.sparse_embed.loss_with_rows(model, rows, b))
+        step = accumulate_scan_sparse_embed(hooks, opt, config)
+    else:
+        step = acc.accumulate_scan(lambda p, b: bundle.loss(model, b), opt, config,
+                                   needs_rng=True)
+    return step, acc.scan_init(named_parameters(model), opt)
+
+
+def _stacked(updates, micro, seed):
+    import torch
+
+    data = _bert_small_batches(updates * K * micro, seed=seed)
+    return [{key: torch.as_tensor(v[u * K * micro:(u + 1) * K * micro], device="cuda")
+             .reshape(K, micro, *v.shape[1:]) for key, v in data.items()}
+            for u in range(updates)]
+
+
+def phase_remat():
+    import dataclasses
+
+    import torch
+
+    from gradaccum_tpu_torch.models.bert import BertConfig
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+
+    (batch,) = _stacked(1, 8, seed=5)
+    finals, counts, peak = {}, {}, {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(BertConfig.small(dtype=torch.bfloat16), remat=remat)
+        step, state = _bert_small_step(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(0)  # dropout 0.1 draws here
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()  # both runs' states: measure above it
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        state, aux = step(state, batch, gen)
+        torch.cuda.synchronize()
+        counts[remat] = fa.launch_counts()
+        peak[remat] = torch.cuda.max_memory_allocated() - held
+        finals[remat] = (state, float(aux["loss"]), gen.get_state())
+        check(math.isfinite(finals[remat][1]), f"remat={remat}: loss is not finite")
+    per_layer = LAYERS * K
+    check(counts[False] == {"flash_fwd": per_layer, "flash_bwd_dq": per_layer,
+                            "flash_bwd_dkv": per_layer}, f"remat off: launches {counts[False]}")
+    check(counts[True] == {"flash_fwd": 2 * per_layer, "flash_bwd_dq": per_layer,
+                           "flash_bwd_dkv": per_layer}, f"remat on: launches {counts[True]}")
+    a, b = finals[False][0].params, finals[True][0].params
+    with torch.no_grad():
+        diff = max(float((a[n] - b[n]).abs().max()) for n in a)
+    check(all(torch.equal(a[n], b[n]) for n in a),
+          f"remat: parameters after one update differ from no remat (max |diff| {diff:.3e})")
+    check(finals[False][1] == finals[True][1], "remat: the losses differ")
+    check(torch.equal(finals[False][2], finals[True][2]),
+          "remat: the generator ended in another state")
+    print(f"[remat] BERT-Small bf16, dropout 0.1, micro 8 x K={K}, one update: all {len(a)} "
+          f"float32 parameters and the loss ({finals[True][1]:.6f}) bitwise equal with and "
+          f"without remat, the generator in the same state; launches {counts[False]} without, "
+          f"{counts[True]} with; the update's peak memory above the state it started "
+          f"from (torch.cuda.max_memory_allocated) {peak[False] / 2**20:.1f} MiB without, "
+          f"{peak[True] / 2**20:.1f} MiB with")
+    return peak
+
+
+def phase_sparse_embed(updates: int = 2):
+    import torch
+
+    from gradaccum_tpu_torch.models.bert import BertConfig
+
+    cfg = BertConfig.small(dtype=torch.bfloat16, hidden_dropout=0.0, attention_dropout=0.0)
+    batches = _stacked(updates, 8, seed=6)
+    finals = {}
+    for sparse in (False, True):
+        step, state = _bert_small_step(cfg, sparse=sparse)
+        gen = torch.Generator(device="cuda").manual_seed(0)  # dropout 0: never drawn
+        for batch in batches:
+            state, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+        finals[sparse] = state
+    a, b = finals[False].params, finals[True].params
+    with torch.no_grad():
+        diffs = {n: float((a[n] - b[n]).abs().max()) for n in a}
+        moved = float((a["params/bert/word_embeddings/embedding"]
+                       - _bert_small_step(cfg)[1].params[
+                           "params/bert/word_embeddings/embedding"]).abs().max())
+    worst = max(diffs, key=diffs.get)
+    check(all(bool(t.isfinite().all()) for t in b.values()), "sparse embed: non-finite weights")
+    check(diffs[worst] <= SPARSE_ATOL, f"sparse embed: {worst} differs from the dense path by "
+                                       f"{diffs[worst]:.3e} > {SPARSE_ATOL}")
+    check(moved > 1e-6, f"sparse embed: the table did not move ({moved:.3e})")
+    print(f"[sparse-embed] BERT-Small bf16, dropout 0, {updates} updates of micro 8 x K={K}: "
+          f"{len(a)} float32 parameters within {SPARSE_ATOL} of the dense path (max |diff| "
+          f"{diffs[worst]:.3e} in {worst}; table {diffs['params/bert/word_embeddings/embedding']:.3e}"
+          f", moved {moved:.3e})")
+
+
+def phase_moe(updates: int = 4, experts: int = 8, top_k: int = 2):
+    import numpy as np
+    import torch
+
+    from gradaccum_tpu_torch.examples import bert_finetune
+    from gradaccum_tpu_torch.models.bert import BertConfig, bert_classifier_bundle
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+    from gradaccum_tpu_torch.ops.flash_attention import flash_attention
+
+    # the loss is the cross entropy plus 0.01 x the mean load-balance loss
+    cfg = BertConfig.small(dtype=torch.bfloat16, num_experts=experts, moe_top_k=top_k)
+    bundle = bert_classifier_bundle(cfg, attention_fn=flash_attention)
+    model = bundle.init(7, "cuda")
+    batch = {key: torch.as_tensor(v, device="cuda")
+             for key, v in _bert_small_batches(8, seed=8).items()}
+    with torch.no_grad():
+        batch["rng"] = torch.Generator(device="cuda").manual_seed(3)
+        loss = float(bundle.loss(model, batch))
+        batch["rng"] = torch.Generator(device="cuda").manual_seed(3)
+        logits, aux = model.logits_and_aux(batch["input_ids"], batch["input_mask"],
+                                           batch["segment_ids"], False, batch["rng"])
+        ce = float(torch.nn.functional.cross_entropy(logits, batch["label"].long()))
+    check(math.isfinite(float(aux)) and float(aux) > 0, f"MoE: load balance {float(aux)}")
+    check(abs(loss - (ce + 0.01 * float(aux))) <= 1e-5,
+          f"MoE: loss {loss} != ce {ce} + 0.01 x load balance {float(aux)}")
+    del model
+
+    argv = ["--device", "cuda", "--bf16", "--vocab-size", "30522", "--seq-len", str(S),
+            "--accum-k", str(K), "--max-steps", str(updates * K), "--mode", "scan",
+            "--num-experts", str(experts), "--moe-top-k", str(top_k)]
+    fa.reset_launch_counts()
+    result = bert_finetune.main(argv)
+    counts, routes = fa.launch_counts(), fa.route_counts()
+    check(math.isfinite(result["loss"]), f"MoE: loss is not finite: {result['loss']}")
+    check(result["updates"] == updates, f"MoE: ran {result['updates']} updates")
+    _check_launches("moe", counts, routes, LAYERS * K * updates, result)
+    check(np.isfinite(result["moe_dropped_fraction"]), "MoE: dropped fraction not finite")
+    print(f"[moe] BERT-Small bf16, {experts} experts, top-{top_k}, micro 8 x K={K}: loss = ce "
+          f"{ce:.6f} + 0.01 x load balance {float(aux):.6f} on one batch; {updates} updates, "
+          f"loss {result['loss']:.4f}, eval accuracy {result['accuracy']:.4f}, dropped "
+          f"fraction {result['moe_dropped_fraction']:.4f} (router entropy "
+          f"{result['moe_router_entropy']:.4f}), {result['seq/s']:.1f} seq/s, mfu "
+          f"{result['mfu']:.4f} (MoE FLOPs); launches {counts}, all tc")
+
+
 def _smi():
     try:
         out = subprocess.run(
@@ -790,6 +1160,12 @@ def main() -> int:
         phase_stream_scan()
         phase_guard()
         phase_small_models()
+        phase_xla_bwd()
+        phase_warm_start()
+        phase_remat()
+        phase_sparse_embed()
+        phase_profile(extra=["--sparse-embed-grad"])
+        phase_moe()
     except SmokeError as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1

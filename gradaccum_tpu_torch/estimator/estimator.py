@@ -31,9 +31,16 @@ Randomness: weights come from ``RunConfig.seed``; the dropout generator of
 each host step is seeded from ``RunConfig.seed + 1`` and the micro-batch
 step, so a resumed run draws exactly what the uninterrupted one would.
 
+``warm_start`` (``{name: tensor}`` in the port's parameter names, e.g.
+``models/bert_checkpoint.py :: load_hf_checkpoint``) replaces the random
+init of a fresh run; a checkpoint in ``model_dir`` still wins, as in JAX
+and ``tf.estimator``. ``sparse_embed=True`` (scan mode only) accumulates
+the model's embedding-table gradient as token-level rows
+(``ops/sparse_embed.py``).
+
 The Estimator runs on the card unless the caller passes ``device="cpu"``;
 asking for CUDA without a card raises. Not ported yet (ROADMAP.md): meshes
-and every parallel mode, warm start, export, events and the resilience and
+and every parallel mode, export, events and the resilience and
 observability hooks; asking for a mesh raises ``NotImplementedError``.
 """
 
@@ -52,6 +59,7 @@ from gradaccum_tpu_torch.estimator.config import EvalSpec, RunConfig, TrainSpec
 from gradaccum_tpu_torch.estimator.metrics import Metric
 from gradaccum_tpu_torch.ops import accumulation as acc
 from gradaccum_tpu_torch.ops.adamw import Optimizer
+from gradaccum_tpu_torch.ops.sparse_embed import accumulate_scan_sparse_embed
 from gradaccum_tpu_torch.utils.flops import peak_flops_for
 from gradaccum_tpu_torch.utils.platform import device_name, resolve_device, synchronize
 from gradaccum_tpu_torch.utils.tree import named_parameters
@@ -67,6 +75,27 @@ class ModelBundle(NamedTuple):
     predict: Callable[[torch.nn.Module, Dict[str, Any]], Dict[str, torch.Tensor]]
     eval_metrics: Dict[str, Metric]
     needs_rng: bool = False  # if True, micro-batches get an "rng" generator
+    # optional ops.sparse_embed.SparseEmbedHooks: lets the scan step carry
+    # token-level embedding cotangents instead of a dense [vocab, hidden]
+    # gradient per micro-batch
+    sparse_embed: Any = None
+
+
+def _copy_strict(params: Dict[str, torch.nn.Parameter], tensors) -> None:
+    """Copy ``tensors`` into ``params`` by name; a missing or unexpected
+    name, or a shape that differs, raises before anything is copied."""
+    missing = sorted(params.keys() - tensors.keys())
+    unexpected = sorted(tensors.keys() - params.keys())
+    if missing or unexpected:
+        raise ValueError(f"warm_start does not match the model: missing {missing}, "
+                         f"unexpected {unexpected}")
+    wrong = [f"{name}: {tuple(tensors[name].shape)} for {tuple(p.shape)}"
+             for name, p in params.items() if tuple(tensors[name].shape) != tuple(p.shape)]
+    if wrong:
+        raise ValueError(f"warm_start shapes differ from the model's: {wrong}")
+    with torch.no_grad():
+        for name, p in params.items():
+            p.copy_(torch.as_tensor(tensors[name]))
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -77,11 +106,19 @@ def step_seed(seed: int, step: int) -> int:
 class Estimator:
     def __init__(self, model: ModelBundle, optimizer: Optimizer,
                  accum: acc.GradAccumConfig, config: Optional[RunConfig] = None,
-                 mode: str = "streaming", device="cuda", mesh=None):
+                 mode: str = "streaming", device="cuda", mesh=None,
+                 warm_start: Optional[Dict[str, torch.Tensor]] = None,
+                 sparse_embed: bool = False):
         if mode not in ("streaming", "scan"):
             raise ValueError(f"mode must be 'streaming' or 'scan', got {mode!r}")
         if mesh is not None:
             raise NotImplementedError("meshes and parallel modes are not ported yet")
+        if sparse_embed:
+            if mode != "scan":
+                raise ValueError("sparse_embed requires mode='scan'")
+            if model.sparse_embed is None:
+                raise ValueError("sparse_embed requires a model with ModelBundle."
+                                 "sparse_embed hooks (see models/bert.py)")
         acc.validate_config(accum)
         self.device = resolve_device(device)
         self.model = model
@@ -89,6 +126,8 @@ class Estimator:
         self.accum = accum
         self.config = config or RunConfig()
         self.mode = mode
+        self.warm_start = warm_start
+        self.sparse_embed = sparse_embed
         self.module: Optional[torch.nn.Module] = None
         self._state = None  # the newest ScanState / StreamingState
         self._train_step = None
@@ -112,6 +151,8 @@ class Estimator:
     def _init_state(self):
         self.module = self.model.init(self.config.seed, self.device)
         params = named_parameters(self.module)
+        if self.warm_start is not None:
+            _copy_strict(params, self.warm_start)
         init = acc.scan_init if self.mode == "scan" else acc.streaming_init
         state = init(params, self.optimizer, loss_scale=self.accum.loss_scale)
         d = self.config.model_dir
@@ -122,10 +163,17 @@ class Estimator:
     def _step_fn(self):
         if self._train_step is None:
             module, loss = self.module, self.model.loss
-            build = acc.accumulate_scan if self.mode == "scan" else acc.streaming_step
-            self._train_step = build(lambda params, batch: loss(module, batch),
-                                     self.optimizer, self.accum,
-                                     needs_rng=self.model.needs_rng)
+            if self.sparse_embed:
+                hooks = self.model.sparse_embed
+                bound = hooks._replace(loss_with_rows=lambda params, rows, batch:
+                                       hooks.loss_with_rows(module, rows, batch))
+                self._train_step = accumulate_scan_sparse_embed(bound, self.optimizer,
+                                                                self.accum)
+            else:
+                build = acc.accumulate_scan if self.mode == "scan" else acc.streaming_step
+                self._train_step = build(lambda params, batch: loss(module, batch),
+                                         self.optimizer, self.accum,
+                                         needs_rng=self.model.needs_rng)
         return self._train_step
 
     def _to_device(self, batch):

@@ -1,21 +1,33 @@
 """BERT-Small fine-tuning on the card: the port's flagship entry point.
 
 The port of the single-device ``--flash`` path of
-``examples/bert_finetune.py``: BERT-Small (L-4 H-512 A-8) on the synthetic
-CoLA-shaped sentence task, micro-batch 8 x K=4 gradient accumulation, lr
-2e-5 with linear warmup and polynomial decay keyed to the micro-batch count,
-clip 1.0 after averaging, AdamW with decay excluded from LayerNorm and
-biases, and the hand-written flash-attention kernels as the attention core
-(attention dropout 0.1 inside the kernels).
+``examples/bert_finetune.py``: BERT-Small (L-4 H-512 A-8) on a
+CoLA/Yelp-shaped sentence task, micro-batch 8 x K=4 gradient accumulation,
+lr 2e-5 with linear warmup and polynomial decay keyed to the micro-batch
+count, clip 1.0 after averaging, AdamW with decay excluded from LayerNorm
+and biases, and the hand-written flash-attention kernels as the attention
+core (attention dropout 0.1 inside the kernels).
 
     python -m gradaccum_tpu_torch.examples.bert_finetune --bf16 --max-steps 400
+    python -m gradaccum_tpu_torch.examples.bert_finetune \\
+        --hf-checkpoint DIR --data-dir DIR --bf16      # the reference's chain
+
+``--hf-checkpoint`` warm-starts from a saved HuggingFace BERT directory
+(``models/bert_checkpoint.py``; its ``vocab.txt`` unless ``--vocab``);
+``--data-dir`` reads ``train.tsv``/``dev.tsv`` (``label<TAB>...<TAB>text``),
+else a synthetic corpus with the task's shapes is generated; ``--full``
+sizes the run to the reference's 3 epochs (``--quick`` then trains only 40
+micro-steps of that schedule). ``--remat``, ``--sparse-embed-grad`` and
+``--num-experts``/``--moe-top-k`` are the JAX example's model and
+accumulator options. ``--model-dir`` is emptied first unless ``--resume``.
 
 ``--mode scan`` (the default, as in JAX's example) runs K micro-batches per
 host step; ``--mode streaming`` runs the reference's ``tf.cond`` train op,
 one micro-batch per host step, with the first-step quirk. It runs on the
 card unless ``--device cpu`` is given, and prints one JSON line with
 throughput (``seq/s``, over every host step after the first) and ``mfu``
-against the card's bf16 peak.
+against the card's bf16 peak. Not ported: the mesh flags
+(``--dp/--tp/--ep/--sp/--pp/--zero1``) and export (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -28,10 +40,18 @@ from pathlib import Path
 if __package__ in (None, ""):  # run as a script: make the package importable
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
+from gradaccum_tpu_torch.examples.common import prepare_model_dir  # noqa: E402
+
 TASKS = {
-    # per-device micro-batch, K, synthetic corpus sizes
+    # per-device micro-batch, K, synthetic corpus sizes; full_train/full_eval
+    # = the reference's Yelp-polarity corpus after its 0.99/0.01 split, so
+    # --task yelp --full gives the published 554,400 x 3 / 8 = 207,900 steps
     "cola": dict(batch=8, k=4, num_train=2048, num_eval=512),
+    "yelp": dict(batch=8, k=4, num_train=8192, num_eval=1024,
+                 full_train=554_400, full_eval=5_600),
 }
+QUICK_STEPS = 40  # --full --quick: micro-steps actually trained
+FLIP_SEED = 19830610  # --label-noise flips
 
 
 def synthetic_text_task(num_examples: int, seed: int):
@@ -52,8 +72,37 @@ def synthetic_text_task(num_examples: int, seed: int):
     return texts, np.asarray(labels, np.int32)
 
 
+def load_tsv(path):
+    """``label<TAB>...<TAB>text`` rows. A row that does not parse (too few
+    columns, a label that is not an integer) is skipped, and a warning
+    counts them; a file with no valid row raises."""
+    import numpy as np
+
+    texts, labels = [], []
+    skipped = 0
+    with open(path) as f:
+        for line in f:
+            parts = line.rstrip("\n").split("\t")
+            if len(parts) < 2:
+                skipped += 1
+                continue
+            try:
+                label = int(parts[0])
+            except ValueError:
+                skipped += 1
+                continue
+            labels.append(label)
+            texts.append(parts[-1])
+    if skipped:
+        print(f"[warn] {path}: skipped {skipped} malformed row(s) ({len(texts)} kept)",
+              file=sys.stderr)
+    if not texts:
+        raise ValueError(f"{path}: no parseable 'label<TAB>text' rows")
+    return texts, np.asarray(labels, np.int32)
+
+
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="BERT-Small fine-tune on the card (CoLA shapes)")
+    p = argparse.ArgumentParser(description="BERT-Small fine-tune on the card (CoLA/Yelp shapes)")
     p.add_argument("--task", choices=sorted(TASKS), default="cola")
     p.add_argument("--max-steps", type=int, default=400,
                    help="training length in micro-batches (the reference's global_step)")
@@ -63,26 +112,99 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=2e-5)
     p.add_argument("--warmup-frac", type=float, default=0.1)
     p.add_argument("--vocab-size", type=int, default=None,
-                   help="embedding rows (default: the corpus vocab, at least 128; "
+                   help="embedding rows (default: the vocab's size, at least 128; "
                         "30522 is BERT's uncased vocab)")
+    p.add_argument("--vocab", default=None, help="vocab.txt (else built from the corpus)")
+    p.add_argument("--hf-checkpoint", default=None,
+                   help="saved HuggingFace BERT model directory: fine-tune from its "
+                        "weights (vocab from its vocab.txt unless --vocab)")
+    p.add_argument("--data-dir", default=None,
+                   help="directory with train.tsv and dev.tsv (else synthetic data)")
+    p.add_argument("--full", action="store_true",
+                   help="reference scale: 3 epochs over the corpus (synthetic data is "
+                        "sized to the task's full corpus)")
+    p.add_argument("--quick", action="store_true",
+                   help=f"with --full: train only {QUICK_STEPS} micro-steps of the full "
+                        "run's schedule")
+    p.add_argument("--train-size", type=int, default=None,
+                   help="override the synthetic training corpus size")
+    p.add_argument("--label-noise", type=float, default=0.0,
+                   help="flip this fraction of the training labels (fixed seed)")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each encoder layer's activations in the backward")
+    p.add_argument("--sparse-embed-grad", action="store_true",
+                   help="accumulate the word-embedding gradient as token rows, one "
+                        "scatter-add per update (ops/sparse_embed.py); --mode scan only")
+    p.add_argument("--num-experts", type=int, default=0,
+                   help="replace each FFN with a routed expert bank (0 = dense)")
+    p.add_argument("--moe-top-k", type=int, default=1,
+                   help="experts per token: 1 = Switch routing, 2 = GShard top-2")
     p.add_argument("--mode", choices=["scan", "streaming"], default="scan",
                    help="K micro-batches per host step (scan) or one (streaming, "
                         "the reference's tf.cond train op with its first-step quirk)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     p.add_argument("--model-dir", default=None,
-                   help="checkpoint directory (resumes from its newest checkpoint)")
+                   help="checkpoint directory with loss_vs_step.csv, emptied first "
+                        "unless --resume")
+    p.add_argument("--resume", action="store_true",
+                   help="keep --model-dir and resume from its newest checkpoint")
     return p
 
 
+def parse_args(argv=None):
+    """Parse ``argv`` and refuse the combinations JAX's example refuses."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.quick and not args.full:
+        parser.error("--quick is a modifier of --full (it smoke-tests the full-preset "
+                     "wiring); without --full just lower --max-steps")
+    if args.hf_checkpoint and args.num_experts:
+        parser.error("--num-experts cannot combine with --hf-checkpoint (pretrained "
+                     "dense FFN weights have no expert bank)")
+    if args.hf_checkpoint and args.vocab_size:
+        parser.error("--vocab-size cannot combine with --hf-checkpoint (the checkpoint "
+                     "fixes the vocab size)")
+    if args.moe_top_k < 1 or (args.num_experts and args.moe_top_k > args.num_experts):
+        parser.error("--moe-top-k must be in [1, --num-experts]")
+    if args.moe_top_k > 1 and args.num_experts == 0:
+        parser.error("--moe-top-k needs --num-experts")
+    if args.sparse_embed_grad and args.mode != "scan":
+        parser.error("--sparse-embed-grad requires --mode scan")
+    return args
+
+
+def _load_data(args, t):
+    """``(train_texts, train_labels, eval_texts, eval_labels)``."""
+    import numpy as np
+
+    if args.data_dir:
+        train_texts, train_labels = load_tsv(str(Path(args.data_dir) / "train.tsv"))
+        eval_texts, eval_labels = load_tsv(str(Path(args.data_dir) / "dev.tsv"))
+    else:
+        n_train = args.train_size or (
+            t.get("full_train", t["num_train"]) if args.full else t["num_train"])
+        n_eval = t.get("full_eval", t["num_eval"]) if args.full else t["num_eval"]
+        train_texts, train_labels = synthetic_text_task(n_train, seed=1)
+        eval_texts, eval_labels = synthetic_text_task(n_eval, seed=2)
+    if args.label_noise > 0:
+        flip = np.random.default_rng(FLIP_SEED).random(len(train_labels)) < args.label_noise
+        train_labels = np.where(flip, 1 - train_labels, train_labels).astype(np.int32)
+    return train_texts, train_labels, eval_texts, eval_labels
+
+
 def setup(args):
-    """The run ``args`` describe, ready to train: ``(estimator, train_fn,
-    eval_fn, config)``. Raises without a card unless ``--device cpu``."""
+    """The run ``args`` (from :func:`parse_args`) describe, ready to train:
+    ``(estimator, train_fn, eval_fn, config, run)``, ``run`` holding the
+    step counts, the corpus size and the model directory. Raises without a
+    card unless ``--device cpu``."""
+    import dataclasses
+
     import torch
 
     from gradaccum_tpu_torch.data.pipeline import Dataset
-    from gradaccum_tpu_torch.data.tokenization import build_vocab
+    from gradaccum_tpu_torch.data.tokenization import build_vocab, load_vocab
     from gradaccum_tpu_torch.estimator.config import RunConfig
     from gradaccum_tpu_torch.estimator.estimator import Estimator
     from gradaccum_tpu_torch.models.bert import BertConfig, bert_classifier_bundle
@@ -93,11 +215,22 @@ def setup(args):
     from gradaccum_tpu_torch.utils.flops import bert_train_flops_per_seq
     from gradaccum_tpu_torch.utils.platform import resolve_device
 
+    error = build_parser().error
     device = resolve_device(args.device)  # no card and no --device cpu: raise
     t = TASKS[args.task]
-    train_texts, train_labels = synthetic_text_task(t["num_train"], seed=1)
-    eval_texts, eval_labels = synthetic_text_task(t["num_eval"], seed=2)
-    tok = build_vocab(train_texts)
+    model_dir = prepare_model_dir(args)
+    train_texts, train_labels, eval_texts, eval_labels = _load_data(args, t)
+
+    vocab_path = args.vocab
+    if args.hf_checkpoint and not vocab_path:
+        # pretrained embeddings are indexed by the checkpoint's vocabulary;
+        # a corpus-built vocab would scramble them silently
+        candidate = Path(args.hf_checkpoint) / "vocab.txt"
+        if not candidate.exists():
+            error(f"--hf-checkpoint has no vocab.txt ({candidate}); pass --vocab with "
+                  "the checkpoint's vocabulary file")
+        vocab_path = str(candidate)
+    tok = load_vocab(vocab_path) if vocab_path else build_vocab(train_texts)
     train = dict(tok.encode_batch(train_texts, max_seq_length=args.seq_len),
                  label=train_labels)
     evald = dict(tok.encode_batch(eval_texts, max_seq_length=args.seq_len),
@@ -105,14 +238,46 @@ def setup(args):
 
     micro = t["batch"]
     k = args.accum_k if args.accum_k is not None else t["k"]
-    cfg = BertConfig.small(
-        vocab_size=args.vocab_size or max(len(tok.vocab), 128),
-        dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        max_position_embeddings=max(512, args.seq_len),
-    )
+    if args.full:
+        max_steps = len(train_labels) * 3 // micro  # 3 epochs in micro-batch steps
+        print(f"[preset] {args.task} --full: corpus={len(train_labels)}, 3 epochs -> "
+              f"{max_steps} micro-steps (micro {micro}, K={k})")
+    else:
+        max_steps = args.max_steps
+    full_max_steps = max_steps
+    if args.quick:
+        max_steps = min(QUICK_STEPS, max_steps)
+        print(f"[preset] --quick smoke: running {max_steps} of {full_max_steps} "
+              "micro-steps (the schedule still spans the full run)")
+
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    pretrained = None
+    if args.hf_checkpoint:
+        from gradaccum_tpu_torch.models.bert_checkpoint import load_hf_checkpoint
+
+        cfg, pretrained = load_hf_checkpoint(args.hf_checkpoint, num_classes=2, dtype=dtype)
+        if len(tok.vocab) != cfg.vocab_size:
+            error(f"tokenizer vocab ({len(tok.vocab)} entries) does not match the "
+                  f"checkpoint vocab_size ({cfg.vocab_size}); pass the checkpoint's own "
+                  "vocab.txt via --vocab")
+        if args.seq_len > cfg.max_position_embeddings:
+            # the checkpoint's position table keeps its row count: positions
+            # past it would train on rows it does not have
+            error(f"--seq-len {args.seq_len} exceeds the checkpoint's position table "
+                  f"({cfg.max_position_embeddings} rows); long sequences need a model "
+                  "trained with a larger position embedding")
+    else:
+        cfg = BertConfig.small(
+            vocab_size=args.vocab_size or max(len(tok.vocab), 128), dtype=dtype,
+            max_position_embeddings=max(512, args.seq_len),
+            num_experts=args.num_experts, moe_top_k=args.moe_top_k)
+    if args.remat:
+        cfg = dataclasses.replace(cfg, remat=True)
+    # full_max_steps, not the --quick cap: the smoke runs the full run's
+    # warmup and decay
     schedule = warmup_polynomial_decay(
-        args.lr, num_train_steps=args.max_steps,
-        num_warmup_steps=int(args.max_steps * args.warmup_frac))
+        args.lr, num_train_steps=full_max_steps,
+        num_warmup_steps=int(full_max_steps * args.warmup_frac))
     est = Estimator(
         bert_classifier_bundle(cfg, num_classes=2, attention_fn=flash_attention),
         adamw(schedule, weight_decay_rate=0.01),
@@ -120,13 +285,16 @@ def setup(args):
         # scan path so the config states what runs
         GradAccumConfig(num_micro_batches=k, clip_norm=1.0,
                         first_step_quirk=(args.mode == "streaming")),
-        RunConfig(model_dir=args.model_dir,
-                  log_step_count_steps=max(args.max_steps // 20, 1),
+        RunConfig(model_dir=model_dir,
+                  log_step_count_steps=max(max_steps // 20, 1),
                   flops_per_example=bert_train_flops_per_seq(
                       cfg.hidden_size, cfg.num_layers, cfg.intermediate_size,
-                      args.seq_len, 2)),
+                      args.seq_len, 2, num_experts=cfg.num_experts,
+                      moe_top_k=cfg.moe_top_k)),
         mode=args.mode,
         device=device,
+        warm_start=pretrained,
+        sparse_embed=args.sparse_embed_grad,
     )
     host_batch = micro * (k if args.mode == "scan" else 1)
 
@@ -140,16 +308,19 @@ def setup(args):
     def eval_fn():
         return Dataset.from_arrays(evald).batch(64)
 
-    return est, train_fn, eval_fn, cfg
+    run = {"max_steps": max_steps, "full_max_steps": full_max_steps,
+           "corpus": len(train_labels), "model_dir": model_dir}
+    return est, train_fn, eval_fn, cfg, run
 
 
 def main(argv=None) -> dict:
-    args = build_parser().parse_args(argv)
+    args = parse_args(argv)
     from gradaccum_tpu_torch.estimator.config import EvalSpec, TrainSpec
     from gradaccum_tpu_torch.utils.platform import device_name
 
-    est, train_fn, eval_fn, cfg = setup(args)
+    est, train_fn, eval_fn, cfg, run = setup(args)
     k = est.accum.num_micro_batches
+    micro = TASKS[args.task]["batch"]
     evaluations = []  # one entry per evaluation: each opens the eval input once
 
     def counted_eval_fn():
@@ -157,22 +328,42 @@ def main(argv=None) -> dict:
         return eval_fn()
 
     state, results = est.train_and_evaluate(
-        TrainSpec(train_fn, max_steps=args.max_steps),
+        TrainSpec(train_fn, max_steps=run["max_steps"]),
         EvalSpec(counted_eval_fn, throttle_secs=60),
     )
-    seq_per_sec = est.examples_per_sec()
     out = {
         "task": args.task, "mode": args.mode, "device": device_name(est.device),
         "dtype": str(cfg.dtype).replace("torch.", ""),
-        "micro_batch": TASKS[args.task]["batch"],
-        "accum_k": k, "seq_len": args.seq_len, "vocab_size": cfg.vocab_size,
-        "updates": state.step // k, "timed_host_steps": est.train_stats["host_steps"],
-        "loss": float(est.last_loss), "accuracy": results["accuracy"],
+        "micro_batch": micro, "accum_k": k, "seq_len": args.seq_len,
+        "vocab_size": cfg.vocab_size, "warm_start": args.hf_checkpoint,
+        "remat": cfg.remat, "sparse_embed_grad": args.sparse_embed_grad,
+        "num_experts": cfg.num_experts, "moe_top_k": cfg.moe_top_k,
+        "steps": state.step, "updates": state.step // k,
+        "timed_host_steps": est.train_stats["host_steps"],
+        "first_loss": float(est.first_loss), "loss": float(est.last_loss),
+        "accuracy": results["accuracy"],
         "eval_batches": results["_num_batches"], "evaluations": len(evaluations),
-        "seq/s": seq_per_sec, "mfu": est.mfu(),
+        "seq/s": est.examples_per_sec(), "mfu": est.mfu(),
     }
+    if cfg.num_experts:
+        # the routing of the final evaluation's last batch (it ran on the
+        # training module), averaged over layers
+        stats = [getattr(est.module.bert, f"layer_{i}").moe.last_aux
+                 for i in range(cfg.num_layers)]
+        for key in ("dropped_fraction", "router_entropy"):
+            out[f"moe_{key}"] = sum(float(st[key]) for st in stats) / len(stats)
     if args.mode == "streaming":
         out["apply_steps"] = est.apply_steps
+    if args.full:
+        out["preset"] = {
+            "task": args.task, "corpus": run["corpus"], "micro_batch": micro,
+            "accum_k": k, "epochs": 3, "full_max_steps": run["full_max_steps"],
+            "ran_steps": run["max_steps"], "quick": args.quick, "lr": args.lr,
+            "seq_len": args.seq_len, "final_eval_accuracy": round(float(results["accuracy"]), 4),
+        }
+        if run["model_dir"]:
+            with open(Path(run["model_dir"]) / "preset.json", "w") as f:
+                json.dump(out["preset"], f, indent=2)
     print(json.dumps(out))
     return out
 

@@ -1,6 +1,7 @@
-"""Shared plumbing for the port's MNIST and housing entry points (the port
-of ``examples/common.py``): their common flags, the model directory, and
-the numbers every run reports."""
+"""Shared plumbing for the port's entry points (the port of
+``examples/common.py``): the MNIST and housing trainers' common flags, the
+model directory every entry point prepares, and the numbers the small
+trainers report."""
 
 from __future__ import annotations
 

@@ -12,6 +12,8 @@ or gradients keyed the same way) or from a module. The mapping:
 - ``bias``                    <->  ``bias``
 - LayerNorm ``scale``         <->  ``LayerNorm.weight``
 - Embed ``embedding``         <->  ``Embedding.weight``
+- MoE ``router``, ``w_in``, ``b_in``, ``w_out``, ``b_out`` (raw arrays, not
+  Dense kernels) keep their names and layouts
 
 Names stay the JAX package's, since the optimizer's weight-decay exclusion
 regex-searches them: a renamed leaf would silently change which weights
@@ -30,6 +32,7 @@ from gradaccum_tpu_torch.utils.tree import named_parameters
 
 _TO_TORCH_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                   "bias": "bias"}
+_TO_TORCH_LEAF.update({name: name for name in ("router", "w_in", "b_in", "w_out", "b_out")})
 
 
 def _flatten(tree, prefix=()):

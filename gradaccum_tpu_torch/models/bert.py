@@ -15,9 +15,15 @@ and loss stay float32 — as flax's ``dtype=`` does.
 Dropout draws from the explicit ``torch.Generator`` a batch carries under
 ``"rng"``; attention dropout goes into the flash kernels as a rate and a
 seed drawn from that generator (``attention_fn.inkernel_dropout``).
-Not ported yet (ROADMAP.md): MoE layers, ``seq_axis`` (sequence
-parallelism), remat, the sparse-embedding hooks and ``compute_dtype``
-parameter storage; asking for them raises ``NotImplementedError``.
+
+Options ported from JAX: ``remat`` (activation checkpointing per encoder
+layer, with the layer's draws replayed in the recompute), the MoE FFN
+(``num_experts > 0``: ``models/moe.py`` in every layer, the mean per-layer
+load-balance loss added to the loss at ``moe_aux_weight``), and the
+sparse-embedding hooks (``word_rows``: the loss with the gathered word rows
+as an argument, for ``ops/sparse_embed.py``). Not ported yet (ROADMAP.md):
+``seq_axis`` (sequence parallelism) and ``compute_dtype`` parameter
+storage; asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,10 +34,13 @@ from typing import Any, Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gradaccum_tpu_torch.estimator.estimator import ModelBundle
 from gradaccum_tpu_torch.estimator.metrics import accuracy
 from gradaccum_tpu_torch.models.init import init_weights
+from gradaccum_tpu_torch.models.moe import moe_apply, moe_init
+from gradaccum_tpu_torch.ops.sparse_embed import SparseEmbedHooks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +56,14 @@ class BertConfig:
     attention_dropout: float = 0.1
     layer_norm_eps: float = 1e-12
     dtype: Any = torch.float32
-    num_experts: int = 0  # MoE FFN: not ported, must stay 0
+    remat: bool = False  # checkpoint each encoder layer (recompute in the backward)
+    # Mixture-of-Experts FFN: 0 = dense. When > 0, every layer's FFN is an
+    # expert bank (models/moe.py) and the loss adds moe_aux_weight times
+    # the mean per-layer load-balance loss.
+    num_experts: int = 0
+    moe_capacity_factor: float = 1.25
+    moe_top_k: int = 1  # 1 = Switch routing; 2 = GShard-style top-2
+    moe_aux_weight: float = 0.01
 
     @staticmethod
     def small(**kw) -> "BertConfig":
@@ -150,15 +166,55 @@ class SelfAttention(nn.Module):
         return self.output(ctx)
 
 
+class MoEFFN(nn.Module):
+    """Expert-bank FFN slot of :class:`EncoderLayer` (submodule ``moe``).
+    Its parameters are raw arrays in JAX, not Dense kernels, and keep
+    JAX's names and layouts (``router`` [D, E], ``w_in`` [E, D, H], ``b_in``
+    [E, H], ``w_out`` [E, H, D], ``b_out`` [E, D]). They are cast to the
+    compute dtype before routing. ``last_aux`` holds the routing statistics
+    of the newest call, detached, for reports."""
+
+    def __init__(self, config: BertConfig):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        d, h, e = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+        shapes = {"router": (d, e), "w_in": (e, d, h), "b_in": (e, h),
+                  "w_out": (e, h, d), "b_out": (e, d)}
+        for name, shape in shapes.items():  # drawn by init_from
+            self.register_parameter(name, nn.Parameter(torch.empty(shape)))
+        self.last_aux = None
+
+    @torch.no_grad()
+    def init_from(self, generator: torch.Generator) -> None:
+        cfg = self.config
+        drawn = moe_init(generator, cfg.hidden_size, cfg.intermediate_size, cfg.num_experts)
+        for name, t in drawn.items():
+            getattr(self, name).copy_(t)
+
+    def forward(self, x):
+        cfg = self.config
+        params = {name: p.to(cfg.dtype) for name, p in self.named_parameters()}
+        y, aux = moe_apply(params, x, cfg.moe_capacity_factor, cfg.moe_top_k)
+        self.last_aux = {key: v.detach() for key, v in aux.items()}
+        return y, aux["load_balance_loss"]
+
+
 class EncoderLayer(nn.Module):
+    """One post-LN encoder layer. ``forward`` returns ``(x, load_balance)``,
+    the second None for the dense FFN."""
+
     def __init__(self, config: BertConfig, attention_fn: Callable = dense_attention):
         super().__init__()
         cfg = config
         self.config = cfg
         self.attention = SelfAttention(cfg, attention_fn)
         self.attention_LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.dtype)
-        self.intermediate = Dense(cfg.hidden_size, cfg.intermediate_size, cfg.dtype)
-        self.ffn_output = Dense(cfg.intermediate_size, cfg.hidden_size, cfg.dtype)
+        if cfg.num_experts > 0:
+            self.moe = MoEFFN(cfg)
+        else:
+            self.intermediate = Dense(cfg.hidden_size, cfg.intermediate_size, cfg.dtype)
+            self.ffn_output = Dense(cfg.intermediate_size, cfg.hidden_size, cfg.dtype)
         self.output_LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.dtype)
 
     def _drop(self, x, deterministic, generator):
@@ -170,9 +226,37 @@ class EncoderLayer(nn.Module):
         attn_out = self._drop(attn_out, deterministic, generator)
         # post-LN (original BERT): LN(x + sublayer(x))
         x = self.attention_LayerNorm(x + attn_out)
-        ffn = self.ffn_output(F.gelu(self.intermediate(x)))  # exact erf GELU
+        load_balance = None
+        if self.config.num_experts > 0:
+            ffn, load_balance = self.moe(x)
+        else:
+            ffn = self.ffn_output(F.gelu(self.intermediate(x)))  # exact erf GELU
         ffn = self._drop(ffn, deterministic, generator)
-        return self.output_LayerNorm(x + ffn)
+        return self.output_LayerNorm(x + ffn), load_balance
+
+
+def _remat(layer, x, mask, deterministic, generator):
+    """``layer`` under ``torch.utils.checkpoint`` (JAX's ``nn.remat``): its
+    activations are recomputed in the backward. The layer draws its dropout
+    masks and flash seed from ``generator``, which ``checkpoint``'s
+    ``preserve_rng_state`` does not cover (it saves the default generators
+    only), so the layer draws from its own generator set to the caller's
+    state at entry, and set to it again for the recompute: the recompute
+    replays the same draws, and the caller's generator moves on exactly as
+    far as the layer drew, as without remat."""
+    if generator is None:
+        return checkpoint(layer, x, mask, deterministic, None,
+                          use_reentrant=False, preserve_rng_state=False)
+    entry = generator.get_state()
+    own = torch.Generator(device=generator.device)
+
+    def run(x_, mask_):
+        own.set_state(entry)
+        return layer(x_, mask_, deterministic, own)
+
+    out = checkpoint(run, x, mask, use_reentrant=False, preserve_rng_state=False)
+    generator.set_state(own.get_state())
+    return out
 
 
 class BertEncoder(nn.Module):
@@ -190,7 +274,10 @@ class BertEncoder(nn.Module):
             self.add_module(f"layer_{i}", EncoderLayer(cfg, attention_fn))
 
     def forward(self, input_ids, input_mask=None, segment_ids=None,
-                deterministic: bool = True, generator=None):
+                deterministic: bool = True, generator=None, word_rows=None):
+        """``(sequence output, MoE aux loss or None)``. ``word_rows``: the
+        pre-gathered [B, S, hidden] word-embedding rows, read in place of
+        the table (the sparse embedding-gradient path)."""
         cfg = self.config
         b, s = input_ids.shape
         dev = input_ids.device
@@ -199,17 +286,24 @@ class BertEncoder(nn.Module):
         if segment_ids is None:
             segment_ids = torch.zeros((b, s), dtype=torch.int32, device=dev)
         positions = torch.arange(s, device=dev)[None, :]
-        x = (self.word_embeddings(input_ids) + self.position_embeddings(positions)
-             + self.token_type_embeddings(segment_ids))
+        word = self.word_embeddings(input_ids) if word_rows is None else word_rows.to(cfg.dtype)
+        x = word + self.position_embeddings(positions) + self.token_type_embeddings(segment_ids)
         x = self.embeddings_LayerNorm(x)
         if not deterministic and cfg.hidden_dropout > 0:
             x = dropout(x, cfg.hidden_dropout, generator)
         # additive mask: 0 where attended, -1e9 where padded
         mask = (1.0 - input_mask[:, None, None, :].float()) * -1e9
         mask = mask.to(cfg.dtype)
+        terms = []
         for i in range(cfg.num_layers):
-            x = getattr(self, f"layer_{i}")(x, mask, deterministic, generator)
-        return x
+            layer = getattr(self, f"layer_{i}")
+            if cfg.remat:
+                x, load_balance = _remat(layer, x, mask, deterministic, generator)
+            else:
+                x, load_balance = layer(x, mask, deterministic, generator)
+            if load_balance is not None:
+                terms.append(load_balance)
+        return x, (sum(terms) / len(terms) if terms else None)
 
 
 class BertClassifier(nn.Module):
@@ -226,12 +320,20 @@ class BertClassifier(nn.Module):
 
     def forward(self, input_ids, input_mask=None, segment_ids=None,
                 deterministic: bool = True, generator=None):
+        return self.logits_and_aux(input_ids, input_mask, segment_ids, deterministic,
+                                   generator)[0]
+
+    def logits_and_aux(self, input_ids, input_mask=None, segment_ids=None,
+                       deterministic: bool = True, generator=None, word_rows=None):
+        """``(logits, MoE aux loss or None)``; ``word_rows`` as in
+        :meth:`BertEncoder.forward`."""
         cfg = self.config
-        seq = self.bert(input_ids, input_mask, segment_ids, deterministic, generator)
+        seq, moe_aux = self.bert(input_ids, input_mask, segment_ids, deterministic,
+                                 generator, word_rows)
         pooled = torch.tanh(self.pooler(seq[:, 0]))
         if not deterministic and cfg.hidden_dropout > 0:
             pooled = dropout(pooled, cfg.hidden_dropout, generator)
-        return self.classifier(pooled.float())
+        return self.classifier(pooled.float()), moe_aux
 
 
 def bert_classifier_bundle(config: BertConfig, num_classes: int = 2,
@@ -243,12 +345,12 @@ def bert_classifier_bundle(config: BertConfig, num_classes: int = 2,
     Batches: ``{"input_ids": [B,S], "input_mask": [B,S], "segment_ids":
     [B,S], "label": [B]}`` integer tensors, plus the harness's ``"rng"``
     generator for dropout (``needs_rng=True``). ``init(seed, device)``
-    builds the model with random weights from ``seed``.
+    builds the model with random weights from ``seed``. The bundle's
+    ``sparse_embed`` hooks name the word-embedding table and give the loss
+    with the gathered rows as an argument (``ops/sparse_embed.py``).
     """
     if seq_axis is not None:
         raise NotImplementedError("sequence-parallel BERT (seq_axis) is not ported yet")
-    if config.num_experts:
-        raise NotImplementedError("MoE BERT (num_experts > 0) is not ported yet")
     if compute_dtype is not None:
         raise NotImplementedError(
             "compute_dtype parameter storage needs master weights, not ported yet; "
@@ -259,22 +361,33 @@ def bert_classifier_bundle(config: BertConfig, num_classes: int = 2,
         init_weights(model, torch.Generator().manual_seed(seed))
         return model.to(device)
 
-    def _logits(model, batch, deterministic):
-        return model(batch["input_ids"], batch.get("input_mask"), batch.get("segment_ids"),
-                     deterministic, batch.get("rng"))
+    def _logits(model, batch, deterministic, word_rows=None):
+        return model.logits_and_aux(batch["input_ids"], batch.get("input_mask"),
+                                    batch.get("segment_ids"), deterministic,
+                                    batch.get("rng"), word_rows)
 
-    def loss(model, batch):
-        logits = _logits(model, batch, deterministic=False)
+    def loss_with_rows(model, word_rows, batch):
+        """The loss with the word-embedding rows as an argument (None: the
+        table's own lookup). With rows given the table goes unused, so the
+        caller builds its gradient from d(loss)/d(rows) by scatter-add."""
+        logits, moe_aux = _logits(model, batch, False, word_rows)
         # scatter, not F.one_hot: one_hot range-checks its input on the host,
         # a device sync per micro-batch
         onehot = torch.zeros_like(logits).scatter_(-1, batch["label"].long()[:, None], 1.0)
-        return -torch.mean(torch.sum(onehot * F.log_softmax(logits, dim=-1), dim=-1))
+        ce = -torch.mean(torch.sum(onehot * F.log_softmax(logits, dim=-1), dim=-1))
+        return ce if moe_aux is None else ce + config.moe_aux_weight * moe_aux
+
+    def loss(model, batch):
+        return loss_with_rows(model, None, batch)
 
     @torch.no_grad()
     def predict(model, batch):
-        logits = _logits(model, batch, deterministic=True)
+        logits, _ = _logits(model, batch, deterministic=True)
         return {"logits": logits, "classes": torch.argmax(logits, dim=-1),
                 "probabilities": torch.softmax(logits, dim=-1)}
 
+    hooks = SparseEmbedHooks(table_path="params/bert/word_embeddings/embedding",
+                             ids_key="input_ids", loss_with_rows=loss_with_rows)
     return ModelBundle(init=init, loss=loss, predict=predict,
-                       eval_metrics={"accuracy": accuracy()}, needs_rng=True)
+                       eval_metrics={"accuracy": accuracy()}, needs_rng=True,
+                       sparse_embed=hooks)

@@ -13,9 +13,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights from ``generator`` (on the CPU, so a seed gives the
     same weights on every device): lecun-normal Dense and Conv kernels
     (standard deviation 1/sqrt(fan_in)), unit-variance rows scaled by
-    1/sqrt(width) for embeddings, zero biases, unit LayerNorm scales."""
+    1/sqrt(width) for embeddings, zero biases, unit LayerNorm scales. A
+    module with an ``init_from(generator)`` method (the MoE expert bank)
+    draws its own parameters."""
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d)):
+        if hasattr(mod, "init_from"):
+            mod.init_from(generator)
+        elif isinstance(mod, (nn.Linear, nn.Conv2d)):
             std = 1.0 / math.sqrt(mod.weight[0].numel())  # fan_in
             mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator) * std)
             mod.bias.zero_()

@@ -50,6 +50,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from gradaccum_tpu_torch.ops.adamw import Optimizer
 from gradaccum_tpu_torch.ops.clipping import clip_by_global_norm
@@ -148,15 +149,16 @@ def _accum_add_(accum, grads) -> None:
         acc.add_(g.to(acc.dtype))
 
 
-def _grad_call(loss_fn: LossFn, params, micro_batch, scale):
-    """One micro-batch's ``(loss, check_loss, grads)``. ``check_loss`` is
-    what the guard inspects: the SCALED loss when scaling is on, so an
-    overflow at the current scale is caught even when the raw loss is
-    representable; ``grads`` are then scaled too (the unscale folds into
-    the apply-time denominator)."""
+def _grad_call(loss_fn: LossFn, params, micro_batch, scale, wrt=None):
+    """One micro-batch's ``(loss, check_loss, grads)``, the gradients with
+    respect to ``wrt`` (default: every parameter). ``check_loss`` is what
+    the guard inspects: the SCALED loss when scaling is on, so an overflow
+    at the current scale is caught even when the raw loss is representable;
+    ``grads`` are then scaled too (the unscale folds into the apply-time
+    denominator)."""
     loss = loss_fn(params, micro_batch)
     check_loss = loss if scale is None else loss * scale
-    grads = torch.autograd.grad(check_loss, list(params.values()))
+    grads = torch.autograd.grad(check_loss, list(params.values()) if wrt is None else wrt)
     return loss.detach(), check_loss.detach(), grads
 
 
@@ -228,6 +230,16 @@ def accumulate_scan(loss_fn: LossFn, optimizer: Optimizer, config: GradAccumConf
     advance from one micro-batch to the next.
     """
     validate_config(config)
+    return _scan_train_step(loss_fn, optimizer, config, needs_rng)
+
+
+def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
+                     needs_rng: bool, sparse=None):
+    """The scan-mode train step. With ``sparse`` (``SparseEmbedHooks``,
+    ``ops/sparse_embed.py``) ``loss_fn`` is ``(params, rows, batch)``: each
+    micro-batch differentiates with respect to its gathered [micro, S, H]
+    table rows instead of the table, and one ``index_add_`` builds the
+    table's dense gradient after the loop."""
     k = config.num_micro_batches
     skip = config.skip_nonfinite
 
@@ -243,22 +255,47 @@ def accumulate_scan(loss_fn: LossFn, optimizer: Optimizer, config: GradAccumConf
             raise ValueError("needs_rng=True: pass train_step(state, batch, generator)")
         scale = _scale_of(state, config, "scan_init")
         params = state.params
-        accum = _accum_zeros(params)
+        dense = params
+        if sparse is not None:
+            table = params[sparse.table_path]
+            dense = {name: p for name, p in params.items() if name != sparse.table_path}
+        accum = _accum_zeros(dense)
         n_good = torch.zeros((), dtype=torch.int32, device=_device(params)) if skip else None
-        losses = []
+        losses, rows_ct = [], []
         for i in range(k):
             micro = {key: x[i] for key, x in super_batch.items()}
             if needs_rng:
                 micro["rng"] = generator
-            loss, check_loss, grads = _grad_call(loss_fn, params, micro, scale)
+            if sparse is None:
+                loss, check_loss, grads = _grad_call(loss_fn, params, micro, scale)
+            else:
+                # the gather stays outside autograd: the table takes no
+                # cotangent, the rows do
+                rows = F.embedding(micro[sparse.ids_key].long(), table.detach()).requires_grad_()
+                loss, check_loss, grads = _grad_call(
+                    lambda p, b, r=rows: loss_fn(p, r, b), params, micro, scale,
+                    wrt=list(dense.values()) + [rows])
             with torch.no_grad():
                 if skip:
+                    # the verdict covers the row cotangents too
                     good = _all_finite(check_loss, grads)
                     grads = _zero_if_bad(grads, good)
                     loss = torch.where(good, loss, torch.zeros_like(loss))  # out of the mean
                     n_good = n_good + good.to(torch.int32)
+                if sparse is not None:
+                    rows_ct.append(grads[-1])
+                    grads = grads[:-1]
                 _accum_add_(accum, grads)
             losses.append(loss)
+        if sparse is not None:
+            with torch.no_grad():
+                # ONE scatter-add for the window; a skipped micro-batch's
+                # rows were zeroed above, so it deposits nothing
+                ids = super_batch[sparse.ids_key].reshape(-1).long()
+                ct = torch.cat([g.reshape(-1, g.shape[-1]) for g in rows_ct]).to(table.dtype)
+                table_grad = torch.zeros_like(table).index_add_(0, ids, ct)
+            accum = {name: table_grad if name == sparse.table_path else accum[name]
+                     for name in params}
         apply_step = state.step + k
         with torch.no_grad():
             if skip and config.normalize_by_good_count:

@@ -21,7 +21,10 @@ Beside each kernel is its plain PyTorch version
 (:func:`flash_forward_reference`, :func:`flash_backward_reference`): dense
 math with the same formulas. :func:`flash_attention` sends CUDA tensors to
 the kernels and CPU tensors to the plain versions; there is no fallback
-from one to the other.
+from one to the other. ``bwd_impl="xla"`` (JAX's cross-check backward)
+keeps the forward kernel and differentiates the blockwise core instead of
+launching the dq and dk/dv kernels; it is chosen by the caller, never as a
+fallback.
 
 Attention dropout is the JAX package's stateless hash (murmur3 finalizer
 over seed, (batch, head) slice, query and key position). It gives the same
@@ -36,6 +39,8 @@ import ctypes
 from typing import Optional
 
 import torch
+
+from gradaccum_tpu_torch.parallel.ring_attention import blockwise_attention
 
 _NEG_INF = -1e30
 _MASK32 = 0xFFFFFFFF
@@ -379,14 +384,27 @@ def _backward(q, k, v, mask, seed, o, lse, g, causal, rate, with_dmask):
     return dq, dk, dv, dmask if with_dmask else None
 
 
+def _blockwise_backward(q, k, v, mask, g, causal, block_k, with_dmask):
+    """``bwd_impl="xla"``: recompute the attention with the blockwise core
+    and differentiate it with autograd (plain torch ops, no kernel)."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+        m = None if mask is None else mask.detach().requires_grad_(with_dmask)
+        if with_dmask:
+            inputs.append(m)
+        o = blockwise_attention(*inputs[:3], m, block_size=block_k, causal=causal)
+        grads = torch.autograd.grad(o, inputs, g)
+    return tuple(grads) + (None,) * (4 - len(grads))
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, mask, seed, causal, rate):
+    def forward(ctx, q, k, v, mask, seed, causal, rate, bwd_impl, block_k):
         o, lse = _forward(q, k, v, mask, seed, causal, rate)
         seed_t = seed if isinstance(seed, torch.Tensor) else None
         ctx.save_for_backward(q, k, v, mask, seed_t, o, lse)
         ctx.seed_int = None if seed_t is not None else seed
-        ctx.causal, ctx.rate = causal, rate
+        ctx.causal, ctx.rate, ctx.bwd_impl, ctx.block_k = causal, rate, bwd_impl, block_k
         return o
 
     @staticmethod
@@ -395,13 +413,18 @@ class _FlashAttention(torch.autograd.Function):
         seed = seed_t if seed_t is not None else ctx.seed_int
         # a mask built from the input (BERT's) needs no gradient: then the
         # dk/dv kernel is not asked for its per-head dmask rows
+        with_dmask = ctx.needs_input_grad[3]
+        if ctx.bwd_impl == "xla":
+            dq, dk, dv, dmask = _blockwise_backward(q, k, v, mask, g, ctx.causal,
+                                                    ctx.block_k, with_dmask)
+            return dq, dk, dv, dmask, None, None, None, None, None
         dq, dk, dv, dmask = _backward(q, k, v, mask, seed, o, lse, g.contiguous(),
-                                      ctx.causal, ctx.rate, ctx.needs_input_grad[3])
+                                      ctx.causal, ctx.rate, with_dmask)
         if dmask is not None:
             # the mask broadcasts [B,1,1,S] over heads and queries: its
             # cotangent sums the per-head rows over heads
             dmask = dmask.sum(dim=1, keepdim=True).to(mask.dtype)
-        return dq, dk, dv, dmask, None, None, None
+        return dq, dk, dv, dmask, None, None, None, None, None
 
 
 # --------------------------------------------------------------------------
@@ -419,13 +442,19 @@ def draw_seed(generator: torch.Generator) -> torch.Tensor:
 def flash_attention(q, k, v, mask=None, dropout_fn=None, *,
                     dropout_rate: float = 0.0, dropout_seed=None,
                     generator: Optional[torch.Generator] = None,
-                    causal: bool = False):
+                    causal: bool = False, bwd_impl: str = "pallas",
+                    block_k: int = 128):
     """Fused attention: drop-in for ``models.bert.dense_attention``.
 
     ``q, k, v``: [B, heads, S, head_dim]; ``mask``: additive key mask
     [B, 1, 1, S] or None. ``causal=True`` applies the autoregressive
-    triangle inside the kernels. Differentiable: the backward is the dq and
-    dk/dv kernels, and the mask receives its gradient.
+    triangle inside the kernels. Differentiable, and the mask receives its
+    gradient. The backward is chosen by ``bwd_impl``, whose strings are the
+    JAX package's: ``"pallas"`` runs the dq and dk/dv kernels (CUDA here);
+    ``"xla"`` keeps the forward kernel and recomputes the backward by
+    autograd through ``parallel.ring_attention.blockwise_attention`` with
+    ``block_size=block_k`` (plain torch ops, no dropout). ``block_k`` is
+    read by that backward only: the kernels choose their own tiles.
 
     Attention dropout runs inside the kernels: pass ``dropout_rate`` with
     either ``dropout_seed`` (a uint32 as int or tensor; tests hand the JAX
@@ -445,9 +474,16 @@ def flash_attention(q, k, v, mask=None, dropout_fn=None, *,
     if dropout_rate > 0.0:
         if dropout_seed is None and generator is None:
             raise ValueError("dropout_rate > 0 requires dropout_seed or generator")
+        if bwd_impl == "xla":
+            raise NotImplementedError(
+                "the blockwise (xla) backward has no in-kernel dropout; use "
+                "bwd_impl='pallas' with dropout_rate > 0"
+            )
         seed = dropout_seed if dropout_seed is not None else draw_seed(generator)
+    if bwd_impl not in ("pallas", "xla"):
+        raise ValueError(f"bwd_impl must be 'pallas' or 'xla', got {bwd_impl!r}")
     return _FlashAttention.apply(q, k, v, mask, seed, bool(causal),
-                                 float(dropout_rate))
+                                 float(dropout_rate), bwd_impl, int(block_k))
 
 
 # models pass dropout_rate/generator instead of a dropout_fn closure

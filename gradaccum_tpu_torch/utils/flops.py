@@ -23,13 +23,19 @@ def peak_flops_for(device_name: str) -> Optional[float]:
 
 
 def bert_train_flops_per_seq(hidden: int, layers: int, intermediate: int, seq: int,
-                             num_classes: int) -> float:
+                             num_classes: int, num_experts: int = 0,
+                             moe_top_k: int = 1) -> float:
     """Analytic fwd+bwd matmul FLOPs for one sequence of BERT fine-tuning.
 
     Per token per layer: QKVO projections ``4*(2*H*H)`` + FFN ``2*(2*H*I)``;
     attention scores and context ``2*(2*S*H)``. Pooler + classifier once per
-    sequence. Backward ~= 2x forward, so train = 3x forward.
+    sequence. Backward ~= 2x forward, so train = 3x forward. With
+    ``num_experts`` (MoE FFN) each token runs ``moe_top_k`` experts of the
+    same ``intermediate`` size plus the router, ``2*H*E``.
     """
-    per_tok = layers * (8 * hidden * hidden + 4 * hidden * intermediate + 4 * seq * hidden)
+    ffn = 4 * hidden * intermediate
+    if num_experts > 0:
+        ffn = ffn * moe_top_k + 2 * hidden * num_experts
+    per_tok = layers * (8 * hidden * hidden + ffn + 4 * seq * hidden)
     fwd = seq * per_tok + 2 * hidden * hidden + 2 * hidden * num_classes
     return 3.0 * fwd

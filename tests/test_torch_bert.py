@@ -153,5 +153,11 @@ def test_unported_options_raise(kw):
 
 
 def test_moe_raises():
-    with pytest.raises(NotImplementedError):
-        tbert.bert_classifier_bundle(tbert.BertConfig.tiny_for_tests(num_experts=2))
+    # the MoE FFN is ported (tests/test_torch_moe.py holds it against JAX);
+    # what still raises is a top-k outside [1, num_experts], as in JAX
+    cfg = tbert.BertConfig.tiny_for_tests(num_experts=2, moe_top_k=3)
+    bundle = tbert.bert_classifier_bundle(cfg)
+    model = bundle.init(0, "cpu")
+    assert hasattr(model.bert.layer_0, "moe") and not hasattr(model.bert.layer_0, "intermediate")
+    with pytest.raises(ValueError, match="top_k=3"):
+        bundle.loss(model, torch_batch(make_batch(seed=6)))

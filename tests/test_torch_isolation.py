@@ -1,7 +1,10 @@
 """The port stands alone and runs on the card unless told otherwise.
 
 - Importing every module of ``gradaccum_tpu_torch`` (and ``chip_smoke.py``)
-  loads neither ``jax`` nor ``gradaccum_tpu``.
+  loads neither ``jax`` nor ``gradaccum_tpu``; with ``jax``,
+  ``gradaccum_tpu``, ``triton``, ``transformers`` and ``safetensors`` all
+  blocked, every module still imports and a HuggingFace checkpoint
+  directory still loads (the card's machine has neither of the last two).
 - Without a card, the Estimator and the entry points (BERT, MNIST, housing)
   at their default device raise instead of running on the CPU, and
   ``chip_smoke.py`` exits non-zero without printing a result; each entry
@@ -40,6 +43,24 @@ print(json.dumps({"modules": names, "loaded": sorted(
 """
 
 
+# every top-level name in BLOCKED imports as if it were not installed
+_BLOCKED_PROBE = """
+import importlib, pkgutil, sys
+BLOCKED = ("jax", "jaxlib", "flax", "gradaccum_tpu", "triton", "transformers", "safetensors")
+for name in BLOCKED:
+    sys.modules[name] = None
+import gradaccum_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(gradaccum_tpu_torch.__path__,
+                                               "gradaccum_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+from gradaccum_tpu_torch.models.bert_checkpoint import load_hf_checkpoint
+cfg, params = load_hf_checkpoint(sys.argv[1])
+print(len(names), len(params), cfg.vocab_size)
+"""
+
+
 def _run(args, cwd=ROOT, timeout=120):
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True,
@@ -59,6 +80,14 @@ def test_importing_the_port_loads_no_jax():
     assert "gradaccum_tpu_torch.examples.bert_finetune" in report["modules"]
     assert len(report["modules"]) >= 20
     assert report["loaded"] == []
+
+
+def test_the_port_imports_with_jax_triton_transformers_and_safetensors_blocked():
+    fixture = os.path.join(ROOT, "tests", "fixtures", "bert_hf_tiny")
+    out = _run(["-c", _BLOCKED_PROBE, fixture])
+    assert out.returncode == 0, out.stderr
+    n_modules, n_params, vocab = map(int, out.stdout.split())
+    assert n_modules >= 20 and n_params > 0 and vocab == 24
 
 
 def _tiny_estimator(**kw):
