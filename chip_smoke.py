@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one NVIDIA H100.
 
-    python3 chip_smoke.py     # one card, about two minutes (most of it nvcc)
+    python3 chip_smoke.py     # one card, about four minutes (one of them nvcc)
 
 Phases, each of which fails the run if it fails:
 
@@ -12,15 +12,18 @@ Phases, each of which fails the run if it fails:
    at the BERT-Small main-path shape q/k/v [8, 8, 128, 64], in float32
    (scalar kernels) and bfloat16 (tensor-core kernels), with a padded mask
    and without, causal, and with attention dropout 0.1 under a fixed seed;
-   in bfloat16 also at ragged lengths S = 100 and 200 and at head dim 128.
-   The dq kernel's delta = rowsum(dO * O) is held against the plain one.
-   Read the keep mask back out of the forward, dq and dk/dv kernels
-   (float32 and bfloat16, and bfloat16 at S = 200) and require it equal to
-   the plain mask bit for bit. Then time each kernel,
-   its plain version and the PyTorch call that computes the same function
-   (scaled_dot_product_attention's forward, and its backward, which
-   computes dq, dk and dv together, for both backward kernels; never used
-   by the port).
+   in bfloat16 also at ragged lengths S = 100 and 200 and at head dim 128;
+   and at GPT's shapes, causal, no mask, dropout 0.1: [8, 8, 512, 64] in
+   bfloat16 and float32 (GPT-Small) and [16, 4, 64, 32] in float32
+   (``gpt_lm``). The dq kernel's delta = rowsum(dO * O) is held against the
+   plain one. Read the keep mask back out of the forward, dq and dk/dv
+   kernels (float32 and bfloat16, bfloat16 at S = 200, and at both GPT
+   shapes) and require it equal to the plain mask bit for bit. Then time
+   each kernel, its plain version and the PyTorch call that computes the
+   same function (scaled_dot_product_attention's forward, and its backward,
+   which computes dq, dk and dv together, for both backward kernels; never
+   used by the port), at the main path's conditions and at GPT-Small's
+   (bf16 [8, 8, 512, 64], causal: SDPA with is_causal=True).
 3. agree: the tiny BERT classifier's loss and gradients on the card (through
    the kernels) against the same model on the CPU (plain versions).
 4. main: the entry point ``gradaccum_tpu_torch/examples/bert_finetune.py``
@@ -76,6 +79,28 @@ Phases, each of which fails the run if it fails:
     plus 0.01 x the mean load-balance loss; the dropped fraction, seq/s and
     MFU (against the MoE FLOPs).
 
+15. GPT-Small ladder: GPT-Small (vocab 50257, L-4 H-512 A-8, FFN 2048),
+    seq 512, micro 8 x K=4, dropout 0.1, on the causal flash kernels,
+    seeded token ids, scan mode through the Estimator, four updates a leg:
+    (a) float32 AdamW, (b) bfloat16 parameters with float32 masters, (c) (b)
+    with fused Adam-accumulation, (d) (b) with q8 moments, (e) Adam-mini
+    with masters and q8 moments; clip 1.0 except (c). Per leg: optimizer +
+    accumulator and parameter bytes per parameter, peak memory above the
+    starting state, seq/s and tokens/s, finite losses, launches exactly 16
+    per kernel per update (on the scalar kernels in (a), the tensor cores
+    otherwise). Then fused against two-pass bitwise at K=1 after one
+    update, and 6 updates on one repeated batch with dropout 0: the bf16 +
+    master loss within 8 % of the float32 loss at each, both below 0.8x
+    their first. Then a profile window over two bf16 + master updates.
+16. GPT guard: GPT-Small bf16 + master at depth 2, fused, skip_nonfinite and
+    a dynamic loss scale, streaming and scan; NaN loss in one micro-batch of
+    the first window and in all of the second: skip counts exact, the
+    all-bad window a bitwise no-op over parameters, masters and moments,
+    the scale halving at each dirty window.
+17. gpt_lm: the entry point with ``--flash`` (float32, the scalar kernels),
+    scan and streaming, 32 micro-steps and ``--sample 40``: the loss falls,
+    token accuracy in [0, 1], launch counts exact from its JSON line.
+
 The last three lines of standard output are the card's name and power
 limit, a JSON line describing every kernel, and the result line
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -127,6 +152,11 @@ SOURCES = {name: f"{PACKAGE}/csrc/flash_attention_tc.cu" for name in REPLACES}
 # bfloat16 only: the ragged lengths (one key tile with a ragged edge, and
 # more than one) and the widest head dim, beside the main shape
 EXTRA_SHAPES = [(B, H, 100, D), (B, H, 200, D), (B, H, S, 128)]
+# GPT-Small's attention (micro 8, 8 heads, seq 512, head dim 64: bf16 on the
+# tensor cores, and float32 in ladder leg (a)) and gpt_lm's (micro 16,
+# 4 heads, seq 64, head dim 32, float32): causal, no mask, dropout 0.1
+GPT_SHAPE = (8, 8, 512, 64)
+GPT_LM_SHAPE = (16, 4, 64, 32)
 # bwd_impl="xla" in bfloat16 against the kernels' backward: the blockwise
 # core computes as JAX's does, its scores, P and the autograd cotangents
 # rounded to bf16 (2^-8 relative) before each product, where the kernels
@@ -242,10 +272,13 @@ def phase_kernels():
     # (padded mask, causal, dropout rate)
     cases = [(True, False, 0.0), (False, False, 0.0), (False, True, 0.0),
              (True, False, RATE), (True, True, RATE)]
-    runs = [(torch.float32, (B, H, S, D)), (torch.bfloat16, (B, H, S, D))]
-    runs += [(torch.bfloat16, shape) for shape in EXTRA_SHAPES]
-    for dtype, shape in runs:
-        for masked, causal, rate in cases:
+    gpt = [(False, True, RATE)]
+    runs = [(torch.float32, (B, H, S, D), cases), (torch.bfloat16, (B, H, S, D), cases)]
+    runs += [(torch.bfloat16, shape, cases) for shape in EXTRA_SHAPES]
+    runs += [(torch.bfloat16, GPT_SHAPE, gpt), (torch.float32, GPT_SHAPE, gpt),
+             (torch.float32, GPT_LM_SHAPE, gpt)]
+    for dtype, shape, shape_cases in runs:
+        for masked, causal, rate in shape_cases:
             q, k, v, mask, do = _inputs(dtype, masked, shape=shape)
             seed = SEED if rate else None
             o, lse = fa.flash_fwd_cuda(q, k, v, mask, seed, causal, rate)
@@ -277,12 +310,14 @@ def phase_kernels():
                           f"{atol} + {rtol}|ref|")
             print(f"[kernels] {str(dtype)[6:]:8s} {shape} mask={int(masked)} "
                   f"causal={int(causal)} rate={rate}: " + " ".join(line))
-    for dtype, s in ((torch.float32, S), (torch.bfloat16, S), (torch.bfloat16, 200)):
-        _check_keep_masks(fa, dtype, s)
+    for dtype, shape in ((torch.float32, (B, H, S, D)), (torch.bfloat16, (B, H, S, D)),
+                         (torch.bfloat16, (B, H, 200, D)), (torch.bfloat16, GPT_SHAPE),
+                         (torch.float32, GPT_SHAPE), (torch.float32, GPT_LM_SHAPE)):
+        _check_keep_masks(fa, dtype, shape)
     return worst
 
 
-def _check_keep_masks(fa, dtype, s):
+def _check_keep_masks(fa, dtype, shape):
     """Read the keep decisions back out of the forward, dq and dk/dv kernels
     and require them equal to the plain mask. With q = k = 0 every
     probability is 1/s, so o[i, d] = keep[i, c*D + d]/(keep_prob*s) when v
@@ -294,17 +329,17 @@ def _check_keep_masks(fa, dtype, s):
     kept. The last block of a ragged length is narrower than D."""
     import torch
 
-    shape = (B, H, s, D)
-    want = fa.dropout_keep_mask(SEED, B, H, s, RATE, device="cuda")
+    b, h, s, d = shape
+    want = fa.dropout_keep_mask(SEED, b, h, s, RATE, device="cuda")
     zeros = torch.zeros(shape, dtype=dtype, device="cuda")
     e0 = torch.zeros(shape, dtype=dtype, device="cuda")
     e0[..., 0] = 1
-    lse = torch.full((B, H, s, 1), math.log(s), device="cuda")
-    delta = torch.zeros(B, H, s, 1, device="cuda")
-    got = {name: torch.empty(B, H, s, s, dtype=torch.bool, device="cuda")
+    lse = torch.full((b, h, s, 1), math.log(s), device="cuda")
+    delta = torch.zeros(b, h, s, 1, device="cuda")
+    got = {name: torch.empty(b, h, s, s, dtype=torch.bool, device="cuda")
            for name in ("forward", "dq", "dk/dv")}
-    for c0 in range(0, s, D):
-        w = min(D, s - c0)
+    for c0 in range(0, s, d):
+        w = min(d, s - c0)
         onehot = torch.zeros(shape, dtype=dtype, device="cuda")
         onehot[:, :, c0:c0 + w, :w] = torch.eye(w, dtype=dtype, device="cuda")
         o, _ = fa.flash_fwd_cuda(zeros, zeros, onehot, None, SEED, False, RATE)
@@ -316,7 +351,7 @@ def _check_keep_masks(fa, dtype, s):
                                          delta, False, RATE)
         got["dk/dv"][:, :, c0:c0 + w, :] = (dv[..., :w] > 0).transpose(-1, -2)
     torch.cuda.synchronize()
-    kind = f"{str(dtype)[6:]} S={s}"
+    kind = f"{str(dtype)[6:]} {list(shape)}"
     for name, mask in got.items():
         check(torch.equal(mask, want), f"{name} kernel keep mask ({kind}) differs "
                                        f"from the plain mask")
@@ -368,25 +403,28 @@ def _device_ms(fn, iters=50, warmup=5, attempts=3):
     raise SmokeError("the profiler saw no device time: card times cannot be read")
 
 
-def _bounds(dtype, masked):
-    """Least time (ms) for each kernel's work at the main-path shape: bytes
-    it must move (inputs read once, outputs written once) over the memory
-    rate, against its matrix-product FLOPs over the peak for its type."""
+def _bounds(dtype, masked, shape=(B, H, S, D), causal=False):
+    """Least time (ms) for each kernel's work at ``shape``: bytes it must
+    move (inputs read once, outputs written once) over the memory rate,
+    against its matrix-product FLOPs over the peak for its type. Causal
+    attention computes the lower triangle only: half the FLOPs."""
     import torch
 
+    b, h, s, d = shape
     e = torch.finfo(dtype).bits // 8
-    act = B * H * S * D * e  # one [B,H,S,D] tensor
-    row = B * H * S * 4  # one f32 [B,H,S] row tensor (lse, delta, dmask)
-    mask = B * S * e if masked else 0
+    act = b * h * s * d * e  # one [B,H,S,D] tensor
+    row = b * h * s * 4  # one f32 [B,H,S] row tensor (lse, delta, dmask)
+    mask = b * s * e if masked else 0
     seed = 8
+    pairs = b * h * s * s * d // (2 if causal else 1)  # (query, key) pairs x D
     work = {
         # q k v mask seed -> o lse; QK^T and PV
-        "flash_fwd": (3 * act + mask + seed + act + row, 4 * B * H * S * S * D),
+        "flash_fwd": (3 * act + mask + seed + act + row, 4 * pairs),
         # q k v dO o lse mask seed -> dq delta; QK^T, dO V^T, dS K
-        "flash_bwd_dq": (5 * act + row + mask + seed + act + row, 6 * B * H * S * S * D),
+        "flash_bwd_dq": (5 * act + row + mask + seed + act + row, 6 * pairs),
         # q k v dO lse delta mask seed -> dk dv dmask; QK^T, dO V^T, P^T dO, dS^T Q
         "flash_bwd_dkv": (4 * act + 2 * row + mask + seed + 2 * act + (row if masked else 0),
-                          8 * B * H * S * S * D),
+                          8 * pairs),
     }
     out = {}
     for name, (nbytes, flops) in work.items():
@@ -397,39 +435,41 @@ def _bounds(dtype, masked):
     return out
 
 
-def phase_timing():
-    """Each kernel, its plain version and the library yardstick at the
-    main-path conditions: bf16, padded mask, dropout 0.1, not causal. Every
-    number is card time per call (torch.profiler device events); the wall
-    time per call of back-to-back calls, dispatch included, is printed
-    beside each kernel's."""
+def phase_timing(shape=(B, H, S, D), masked=True, causal=False, label="bert", dtype=None):
+    """Each kernel, its plain version and the library yardstick with dropout
+    0.1: at the main path's conditions (BERT-Small bf16, padded mask, not
+    causal), or at GPT's (no mask, causal: GPT-Small's seq 512 in bf16 and
+    float32, gpt_lm's [16, 4, 64, 32] in float32). Every number is card time
+    per call (torch.profiler device events); the wall time per call of
+    back-to-back calls, dispatch included, is printed beside each
+    kernel's."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from gradaccum_tpu_torch.ops import flash_attention as fa
 
-    dtype = torch.bfloat16
-    q, k, v, mask, do = _inputs(dtype, True, seed=1)
+    dtype = dtype or torch.bfloat16
+    q, k, v, mask, do = _inputs(dtype, masked, seed=1, shape=shape)
     seed = torch.tensor([SEED], dtype=torch.int64, device="cuda")
-    o, lse = fa.flash_fwd_cuda(q, k, v, mask, seed, False, RATE)
-    _, delta = fa.flash_bwd_dq_cuda(q, k, v, mask, seed, do, o, lse, False, RATE)
+    o, lse = fa.flash_fwd_cuda(q, k, v, mask, seed, causal, RATE)
+    _, delta = fa.flash_bwd_dq_cuda(q, k, v, mask, seed, do, o, lse, causal, RATE)
     calls = {
-        "flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, mask, seed, False, RATE),
+        "flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, mask, seed, causal, RATE),
         "flash_bwd_dq": lambda: fa.flash_bwd_dq_cuda(
-            q, k, v, mask, seed, do, o, lse, False, RATE),
+            q, k, v, mask, seed, do, o, lse, causal, RATE),
         "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_cuda(
-            q, k, v, mask, seed, do, lse, delta, False, RATE),
+            q, k, v, mask, seed, do, lse, delta, causal, RATE),
     }
     ms = {name: _device_ms(fn)[0] for name, fn in calls.items()}
     wall = {name: _time_ms(fn) for name, fn in calls.items()}
     # the plain backward computes dq, dk, dv and dmask in one pass: its time
     # stands beside both backward kernels
     plain_bwd = _device_ms(lambda: fa.flash_backward_reference(
-        q, k, v, mask, seed, o, lse, do, False, RATE), iters=20)[0]
+        q, k, v, mask, seed, o, lse, do, causal, RATE), iters=20)[0]
     plain = {
         "flash_fwd": _device_ms(lambda: fa.flash_forward_reference(
-            q, k, v, mask, seed, False, RATE), iters=20)[0],
+            q, k, v, mask, seed, causal, RATE), iters=20)[0],
         "flash_bwd_dq": plain_bwd,
         "flash_bwd_dkv": plain_bwd,
     }
@@ -441,18 +481,21 @@ def phase_timing():
     backend = SDPBackend.EFFICIENT_ATTENTION
     with sdpa_kernel(backend):
         sdpa_fwd, fwd_kernels = _device_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, dropout_p=RATE))
+            q, k, v, attn_mask=mask, dropout_p=RATE, is_causal=causal))
         qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-        o_sdpa = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, dropout_p=RATE)
+        o_sdpa = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, dropout_p=RATE,
+                                                is_causal=causal)
     sdpa_bwd, bwd_kernels = _device_ms(lambda: torch.autograd.grad(
         o_sdpa, (qg, kg, vg), do, retain_graph=True))
     library = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd, "flash_bwd_dkv": sdpa_bwd}
+    print(f"[timing] {label} {str(dtype)[6:]} {list(shape)} mask={int(masked)} "
+          f"causal={int(causal)}")
     print(f"[timing] sdpa backend {backend.name}: forward {sdpa_fwd:.4f} ms "
           f"({', '.join(n[:60] for n in fwd_kernels[:3])}), backward (dq + dk + dv) "
           f"{sdpa_bwd:.4f} ms ({', '.join(n[:60] for n in bwd_kernels[:3])}); "
           f"flash dq + dk/dv {ms['flash_bwd_dq']:.4f} + {ms['flash_bwd_dkv']:.4f} = "
           f"{ms['flash_bwd_dq'] + ms['flash_bwd_dkv']:.4f} ms")
-    bounds = _bounds(dtype, True)
+    bounds = _bounds(dtype, masked, shape, causal)
     for name in ms:
         print(f"[timing] {name} ({fa.route(dtype)}): {ms[name]:.4f} ms on the card, "
               f"{wall[name]:.4f} ms a call with dispatch (plain {plain[name]:.4f} ms, "
@@ -1118,6 +1161,322 @@ def phase_moe(updates: int = 4, experts: int = 8, top_k: int = 2):
           f"{result['mfu']:.4f} (MoE FLOPs); launches {counts}, all tc")
 
 
+# --------------------------------------------------------------------------
+# phases 15-17: GPT-Small mixed precision, the fused guard, gpt_lm
+# --------------------------------------------------------------------------
+
+GPT_SEQ, GPT_MICRO, GPT_K, GPT_LAYERS = 512, 8, 4, 4
+GPT_VOCAB = 50257
+LADDER_UPDATES = 4
+TRACK_LR, TRACK_IDS = 2e-3, 512  # the loss-tracking check: rate, token id range
+
+
+def _gpt_batches(n, seed, vocab=None):
+    """``n`` host batches of K x micro seeded token-id rows (seq 512), ids
+    below ``vocab`` (default: the whole vocabulary)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = GPT_K * GPT_MICRO
+    return [{"input_ids": rng.integers(0, vocab or GPT_VOCAB, size=(rows, GPT_SEQ))
+             .astype(np.int32)} for _ in range(n)]
+
+
+def _gpt_estimator(compute_dtype, opt, fused=False, clip=1.0, dropout=0.1, layers=GPT_LAYERS,
+                   k=GPT_K, mode="scan", guard=None, loss=None):
+    """GPT-Small (vocab 50257, H 512, A 8, FFN 2048, 512 positions) on the
+    causal flash kernels, through the Estimator; ``guard``: a loss scale
+    config (skip_nonfinite on); ``loss``: a wrapper of the bundle's loss."""
+    from gradaccum_tpu_torch.estimator.config import RunConfig
+    from gradaccum_tpu_torch.estimator.estimator import Estimator
+    from gradaccum_tpu_torch.models.gpt import GPTConfig, gpt_lm_bundle
+    from gradaccum_tpu_torch.ops.accumulation import GradAccumConfig
+    from gradaccum_tpu_torch.ops.flash_attention import causal_flash_attention
+
+    bundle = gpt_lm_bundle(GPTConfig.small(dropout=dropout, num_layers=layers),
+                           attention_fn=causal_flash_attention, compute_dtype=compute_dtype)
+    if loss is not None:
+        bundle = bundle._replace(loss=loss(bundle.loss))
+    accum = GradAccumConfig(k, clip_norm=clip, fused_adam=fused, first_step_quirk=False,
+                            skip_nonfinite=guard is not None, loss_scale=guard)
+    return Estimator(bundle, opt, accum,
+                     RunConfig(log_step_count_steps=1000, save_checkpoints_steps=None),
+                     mode=mode, device="cuda")
+
+
+def _state_tensors(state):
+    """Every tensor of a train state: parameters, then the optimizer state
+    (q8 moments as their codes and scales), in a fixed order."""
+    from gradaccum_tpu_torch.memory.quant import QuantTensor
+
+    out = list(state.params.values())
+    for value in state.opt_state:
+        for t in (value.values() if isinstance(value, dict) else [value]):
+            out.extend([t.q, t.scale] if isinstance(t, QuantTensor) else [t])
+    return out
+
+
+def _nbytes(t):
+    return t.nbytes if hasattr(t, "q") else t.numel() * t.element_size()
+
+
+def _release():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _gpt_leg(name, compute_dtype, opt, fused=False, clip=1.0):
+    """One rung of the ladder: LADDER_UPDATES scan updates at micro 8 x K=4,
+    dropout 0.1. Returns the row printed for it."""
+    import torch
+
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+
+    est = _gpt_estimator(compute_dtype, opt, fused=fused, clip=clip)
+    state = est.train([], final_save=False)  # weights and optimizer state
+    n = sum(p.numel() for p in state.params.values())
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    state = est.train(_gpt_batches(LADDER_UPDATES, seed=15), final_save=False)
+    torch.cuda.synchronize()
+    counts, routes = fa.launch_counts(), fa.route_counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    opt_bytes = sum(_nbytes(t) for field in state.opt_state
+                    for t in (field.values() if isinstance(field, dict) else [field]))
+    # two-pass: the float32 accumulator the scan step allocates; fused: none
+    accum_bytes = 0 if fused else 4 * n
+    param_bytes = sum(_nbytes(p) for p in state.params.values())
+    first, last = float(est.first_loss), float(est.last_loss)
+    check(math.isfinite(first) and math.isfinite(last), f"ladder {name}: loss {first} -> {last}")
+    per_update = GPT_LAYERS * GPT_K
+    want = {kname: per_update * LADDER_UPDATES for kname in counts}
+    route = "scalar" if compute_dtype is None else "tc"
+    check(counts == want, f"ladder {name}: launches {counts} != {want}")
+    check(all(routes[kname][route] == want[kname] for kname in want),
+          f"ladder {name}: routes {routes}, all on {route} wanted")
+    seq_s = est.examples_per_sec()
+    row = {"leg": name, "params": n, "opt_plus_accum_B_per_param": (opt_bytes + accum_bytes) / n,
+           "opt_B_per_param": opt_bytes / n, "accum_B_per_param": accum_bytes / n,
+           "param_B_per_param": param_bytes / n, "peak_above_state_MiB": peak / 2**20,
+           "seq/s": seq_s, "tokens/s": seq_s * GPT_SEQ, "first_loss": first, "loss": last,
+           "launches_per_update": per_update, "route": route}
+    print(f"[ladder] {name:24s} opt+accum {row['opt_plus_accum_B_per_param']:6.3f} B/param "
+          f"(optimizer {row['opt_B_per_param']:.3f}, accumulator {row['accum_B_per_param']:.0f})"
+          f", params {row['param_B_per_param']:.0f} B/param, peak above state "
+          f"{row['peak_above_state_MiB']:.1f} MiB, {seq_s:.1f} seq/s = "
+          f"{row['tokens/s']:.0f} tokens/s, loss {first:.4f} -> {last:.4f}; "
+          f"{per_update} launches per kernel per update, all {route}")
+    del est, state
+    _release()
+    return row
+
+
+def phase_gpt_ladder():
+    """GPT-Small seq 512, micro 8 x K=4, dropout 0.1, scan mode, through the
+    Estimator: the mixed-precision ladder, then fused against two-pass
+    bitwise at K=1, then the bf16 + master loss against the f32 loss."""
+    import torch
+
+    from gradaccum_tpu_torch.ops.adamw import adam_mini, adamw
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    legs = [
+        ("(a) f32", None, adamw(1e-4, weight_decay_rate=0.01), False, 1.0),
+        ("(b) bf16+master", bf16, adamw(1e-4, weight_decay_rate=0.01, master_dtype=f32),
+         False, 1.0),
+        ("(c) bf16+master+fused", bf16,
+         adamw(1e-4, weight_decay_rate=0.01, master_dtype=f32), True, None),
+        ("(d) bf16+master+q8", bf16,
+         adamw(1e-4, weight_decay_rate=0.01, master_dtype=f32, moment_dtype="q8"), False, 1.0),
+        ("(e) adam_mini+master+q8", bf16, adam_mini(1e-4, master_dtype=f32, moment_dtype="q8"),
+         False, 1.0),
+    ]
+    rows = [_gpt_leg(*leg) for leg in legs]
+    print("[ladder] " + json.dumps(rows))
+
+    # fused against two-pass at K=1 over one update: bitwise
+    batch = _gpt_batches(1, seed=16)[0]
+    finals = []
+    for fused in (False, True):
+        est = _gpt_estimator(bf16, adamw(1e-4, weight_decay_rate=0.01, master_dtype=f32),
+                             fused=fused, clip=None, k=1)
+        state = est.train([{"input_ids": batch["input_ids"][:GPT_MICRO]}], final_save=False)
+        torch.cuda.synchronize()
+        finals.append([t.clone() for t in _state_tensors(state)])
+        del est, state
+        _release()
+    same = all(torch.equal(a, b) for a, b in zip(*finals))
+    check(len(finals[0]) == len(finals[1]) and same,
+          "ladder: fused differs from two-pass at K=1 after one update")
+    print(f"[ladder] fused equals two-pass bit for bit at K=1 after one update "
+          f"({len(finals[0])} tensors: bf16 params, f32 masters, m, v)")
+    del finals
+
+    # one repeated batch, dropout 0: the bf16 + master loss tracks f32
+    track = _gpt_batches(1, seed=17, vocab=TRACK_IDS)[0]
+    curves = {}
+    for name, dtype, opt in (("f32", None, adamw(TRACK_LR, weight_decay_rate=0.01)),
+                             ("bf16+master", bf16, adamw(TRACK_LR, weight_decay_rate=0.01,
+                                                         master_dtype=f32))):
+        est = _gpt_estimator(dtype, opt, clip=None, dropout=0.0)
+        curves[name] = []
+        for _ in range(6):
+            est.train([track], final_save=False)
+            curves[name].append(float(est.last_loss))
+        del est
+        _release()
+    a, b = curves["f32"], curves["bf16+master"]
+    rel = [abs(x - y) / max(abs(x), 1e-6) for x, y in zip(a, b)]
+    check(a[-1] < 0.8 * a[0] and b[-1] < 0.8 * b[0],
+          f"loss tracking: a loss did not fall below 0.8x its first: f32 {a}, bf16 {b}")
+    check(max(rel) < 0.08, f"loss tracking: bf16 + master off f32 by {max(rel):.4f} (f32 {a}, "
+                           f"bf16 {b})")
+    print(f"[ladder] one repeated batch (ids < {TRACK_IDS}), dropout 0, AdamW lr {TRACK_LR}: "
+          f"f32 {[round(x, 4) for x in a]}, bf16+master {[round(x, 4) for x in b]}; "
+          f"largest relative gap {max(rel):.4f} (gate 0.08)")
+    return rows
+
+
+def phase_gpt_profile(updates=2):
+    """Where the time of a GPT-Small bf16 + master update goes: a
+    torch.profiler window over ``updates`` scan updates after one warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gradaccum_tpu_torch.ops.adamw import adamw
+
+    est = _gpt_estimator(torch.bfloat16, adamw(1e-4, weight_decay_rate=0.01,
+                                               master_dtype=torch.float32))
+    batches = _gpt_batches(1 + updates, seed=18)
+    est.train(batches[:1], final_save=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        est.train(batches[1:], final_save=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(t for _, t, _ in kernels) / 1e6
+    if busy == 0:
+        print("[gpt-profile] the profiler saw no device time on this machine")
+        return
+    flash = sum(t for key, t, _ in kernels if "flash_" in key) / 1e6
+    # the only float32 matrix products of a bf16 update are the tied head's
+    head = sum(t for key, t, _ in kernels if "gemm" in key.lower()
+               and "bf16" not in key.lower() and "16816" not in key) / 1e6
+    print(f"[gpt-profile] GPT-Small bf16+master, micro 8 x K=4, seq 512, {updates} updates: "
+          f"{wall / updates * 1e3:.2f} ms/update wall, card busy {busy / updates * 1e3:.2f} "
+          f"ms/update (idle share {1 - busy / wall:.3f}), "
+          f"{sum(c for _, _, c in kernels) / updates:.0f} kernels/update, flash kernels "
+          f"{flash / updates * 1e3:.2f} ms/update, float32 GEMMs (the tied head) "
+          f"{head / updates * 1e3:.2f} ms/update ({head / busy:.3f} of busy)")
+    for key, t, count in sorted(kernels, key=lambda x: -x[1])[:10]:
+        print(f"[gpt-profile]   {t / updates / 1e3:8.3f} ms/update  {count // updates:5d}x  "
+              f"{key[:90]}")
+    del est
+    _release()
+
+
+def phase_gpt_guard(micro: int = GPT_MICRO):
+    """The fused guard: GPT-Small bf16 + master at depth 2, fused_adam,
+    skip_nonfinite and a dynamic loss scale, streaming and scan; window 0
+    has one NaN micro-batch, window 1 only NaN ones, window 2 none. A batch
+    column ``poison`` multiplies the loss (1.0 or NaN)."""
+    import numpy as np
+    import torch
+
+    from gradaccum_tpu_torch.ops.adamw import adamw
+    from gradaccum_tpu_torch.ops.loss_scale import LossScaleConfig
+
+    init_scale = 2.0 ** 15
+    bad = {(0, 1)} | {(1, i) for i in range(GPT_K)}
+    rows = 3 * GPT_K * micro
+    data = {"input_ids": np.random.default_rng(19).integers(
+        0, GPT_VOCAB, size=(rows, GPT_SEQ)).astype(np.int32),
+        "poison": np.ones(rows, np.float32)}
+    for w, i in bad:
+        j = (w * GPT_K + i) * micro
+        data["poison"][j:j + micro] = np.nan
+    want_skips = [sum(1 for w, _ in bad if w == win) for win in range(3)]
+    want_scales = [init_scale / 2, init_scale / 4, init_scale / 4]
+    for mode in ("streaming", "scan"):
+        est = _gpt_estimator(torch.bfloat16, adamw(1e-4, master_dtype=torch.float32),
+                             fused=True, clip=None, layers=2, mode=mode,
+                             guard=LossScaleConfig(init_scale=init_scale),
+                             loss=lambda base: lambda m, b: base(m, b) * b["poison"].mean())
+        host = micro * (GPT_K if mode == "scan" else 1)
+        per_window = GPT_K * micro
+        skips, snaps = [], []
+        for w in range(3):
+            window = {key: v[w * per_window:(w + 1) * per_window] for key, v in data.items()}
+            est.train([{key: v[j:j + host] for key, v in window.items()}
+                       for j in range(0, per_window, host)])
+            skips.append(est.nonfinite_skips)
+            state = est._state
+            if mode == "streaming":
+                check(state.accum_grads == (), "fused guard: the streaming state carries "
+                                               "an accumulator")
+            snaps.append([t.clone() for t in _state_tensors(state)])
+        check(skips == want_skips, f"fused guard ({mode}): skipped {skips}, wanted {want_skips}")
+        check(all(torch.equal(x, y) for x, y in zip(snaps[0], snaps[1])),
+              f"fused guard ({mode}): the all-bad window changed params, masters or moments")
+        check(not all(torch.equal(x, y) for x, y in zip(snaps[1], snaps[2])),
+              f"fused guard ({mode}): the clean window after it did not apply")
+        series = dict(est.loss_scale_series)
+        scales = [series[(w + 1) * GPT_K] for w in range(3)]
+        check(scales == want_scales, f"fused guard ({mode}): scale at window ends {scales}, "
+                                     f"wanted {want_scales}")
+        check(all(bool(t.isfinite().all()) for t in snaps[2] if t.is_floating_point()),
+              f"fused guard ({mode}): a parameter, master or moment is not finite")
+        print(f"[gpt-guard] {mode}, GPT-Small bf16+master depth 2, fused: skipped {skips} "
+              f"micro-batches per window (NaN loss injected), all-bad window bitwise no-op over "
+              f"{len(snaps[0])} tensors (params, masters, m, v), loss scale at window ends "
+              f"{scales}")
+        del est, snaps
+        _release()
+
+
+def phase_gpt_lm(steps: int = 32):
+    """The gpt_lm entry point with --flash (float32: every launch on the
+    scalar kernels) in scan and streaming mode, with --sample 40."""
+    from gradaccum_tpu_torch.examples import gpt_lm
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+
+    layers = 4  # gpt_lm's model
+    out = {}
+    for mode in ("scan", "streaming"):
+        fa.reset_launch_counts()
+        r = gpt_lm.main(["--device", "cuda", "--flash", "--mode", mode, "--max-steps",
+                         str(steps), "--sample", "40"])
+        counts, routes = fa.launch_counts(), fa.route_counts()
+        check(math.isfinite(r["loss"]) and math.isfinite(r["first_loss"]),
+              f"gpt_lm {mode}: loss {r['first_loss']} -> {r['loss']}")
+        check(r["loss"] < r["first_loss"], f"gpt_lm {mode}: the loss did not fall "
+                                           f"({r['first_loss']} -> {r['loss']})")
+        check(0.0 <= r["token_accuracy"] <= 1.0, f"gpt_lm {mode}: accuracy {r['token_accuracy']}")
+        train = layers * r["steps"]
+        forward = train + layers * (r["eval_batches"] * r["evaluations"] + r["sample_steps"])
+        want = {"flash_fwd": forward, "flash_bwd_dq": train, "flash_bwd_dkv": train}
+        check(counts == want, f"gpt_lm {mode}: launches {counts} != {want}")
+        check(all(routes[k]["scalar"] == n and routes[k]["tc"] == 0 for k, n in want.items()),
+              f"gpt_lm {mode}: routes {routes}, all scalar wanted")
+        print(f"[gpt_lm] --flash --mode {mode}: {r['steps']} micro-steps, {r['updates']} "
+              f"updates, loss {r['first_loss']:.4f} -> {r['loss']:.4f}, token accuracy "
+              f"{r['token_accuracy']:.4f} ({r['evaluations']} evaluations of "
+              f"{r['eval_batches']} batches), {r['examples/s']:.1f} seq/s, decode "
+              f"{r['decode_tokens_per_sec']:.1f} tokens/s (recompute); launches {counts}, all "
+              f"scalar; sample {r['sample']!r}")
+        out[mode] = r
+    return out
+
+
 def _smi():
     try:
         out = subprocess.run(
@@ -1149,6 +1508,11 @@ def main() -> int:
         phase_build()  # every other phase needs the kernels
         worst = phase_kernels()
         timing = phase_timing()
+        timing_gpt = phase_timing(GPT_SHAPE, masked=False, causal=True, label="gpt")
+        phase_timing(GPT_SHAPE, masked=False, causal=True, label="gpt",
+                     dtype=torch.float32)
+        timing_gpt_lm = phase_timing(GPT_LM_SHAPE, masked=False, causal=True,
+                                     label="gpt_lm", dtype=torch.float32)
         phase_agree()
         counts, scan_result = phase_main(UPDATES)
         phase_profile()
@@ -1166,12 +1530,24 @@ def main() -> int:
         phase_sparse_embed()
         phase_profile(extra=["--sparse-embed-grad"])
         phase_moe()
+        ladder = phase_gpt_ladder()
+        phase_gpt_profile()
+        phase_gpt_guard()
+        gpt_lm_runs = phase_gpt_lm()
     except SmokeError as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     ms, plain, library, bounds = timing
+    lm_per_update = 4 * gpt_lm_runs["scan"]["accum_k"]  # gpt_lm's layers x K
+
+    def at(timed, name, per_update):
+        t_ms, t_plain, t_library, t_bounds = timed
+        return {"ms": t_ms[name], "plain_ms": t_plain[name], "bound_ms": t_bounds[name][0],
+                "bound_by": t_bounds[name][1], "library_ms": t_library[name],
+                "launches_per_update": per_update}
+
     kernels = []
     for name in REPLACES:
         kernels.append({
@@ -1179,7 +1555,11 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": counts[name],
             "max_abs_err": worst[(name, "torch.bfloat16")], "ms": ms[name],
             "plain_ms": plain[name], "bound_ms": bounds[name][0],
-            "bound_by": bounds[name][1], "library_ms": library[name]})
+            "bound_by": bounds[name][1], "library_ms": library[name],
+            # GPT-Small's causal attention, bf16 [8, 8, 512, 64] (tc), and
+            # gpt_lm's, float32 [16, 4, 64, 32] (scalar)
+            "gpt_causal": at(timing_gpt, name, ladder[1]["launches_per_update"]),
+            "gpt_lm_causal": at(timing_gpt_lm, name, lm_per_update)})
     print(_smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

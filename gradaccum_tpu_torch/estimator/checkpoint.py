@@ -3,7 +3,8 @@
 The port of ``gradaccum_tpu/estimator/checkpoint.py``: one file per step,
 ``<dir>/ckpt-<step>.pt``, holding every leaf of the state (a ``ScanState``
 or ``StreamingState``: the parameters, the optimizer state — AdamW's moments,
-Adam's ``t`` and moments, or SGD's momentum buffers — the step, and in
+Adam's ``t`` and moments, the float32 masters under bfloat16 parameters, or
+SGD's momentum buffers — the step, and in
 streaming mode the gradient accumulators and the window's good count, plus
 the ``DynamicLossScale`` when scaling is on). The accumulators and the
 moments checkpoint with the weights, so a resume in the middle of an
@@ -11,7 +12,9 @@ accumulation window continues the same trajectory bit for bit.
 
 Leaves are keyed by their "/"-joined path through the state's named tuples
 and dictionaries (``params/params/bert/pooler/kernel``, ``opt_state/t``,
-``step``). Each file is written to ``.tmp``, flushed to disk and renamed
+``step``); a blockwise-int8 moment (``QuantTensor``) saves its codes, its
+scales and its shape, and restores only into the same shape. Each file is
+written to ``.tmp``, flushed to disk and renamed
 into place, so a crash never leaves a torn checkpoint under the final name;
 only the newest ``keep`` files are kept.
 
@@ -27,6 +30,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from gradaccum_tpu_torch.memory.quant import QuantTensor
+
 _CKPT_RE = re.compile(r"ckpt-(\d+)\.pt$")
 
 
@@ -41,9 +46,14 @@ def _children(node) -> List[Tuple[str, Any]]:
 
 
 def flatten(state, prefix: str = "") -> Dict[str, Any]:
-    """``{path: leaf}`` for every tensor and int leaf of ``state``, in order."""
+    """``{path: leaf}`` for every tensor and int leaf of ``state``, in order.
+    A ``QuantTensor`` gives its ``q``, its ``scale`` and its ``shape`` (a
+    tuple of ints)."""
     if isinstance(state, (torch.Tensor, int)) or state is None:
         return {prefix: state}
+    if isinstance(state, QuantTensor):
+        return {f"{prefix}/q": state.q, f"{prefix}/scale": state.scale,
+                f"{prefix}/shape": state.shape}
     out = {}
     for key, child in _children(state):
         out.update(flatten(child, f"{prefix}/{key}" if prefix else str(key)))
@@ -67,6 +77,14 @@ def _rebuild(template, saved: Dict[str, Any], path: str, where: str):
         return template
     if isinstance(template, int) or template is None:
         return saved[path]
+    if isinstance(template, QuantTensor):
+        shape = tuple(saved[f"{path}/shape"])
+        if shape != template.shape:
+            raise ValueError(f"{where}: {path} is a QuantTensor of shape {shape}, "
+                             f"template {template.shape}")
+        _rebuild(template.q, saved, f"{path}/q", where)
+        _rebuild(template.scale, saved, f"{path}/scale", where)
+        return template
     children = [(key, _rebuild(child, saved, f"{path}/{key}" if path else str(key), where))
                 for key, child in _children(template)]
     if hasattr(template, "_fields"):

@@ -31,6 +31,10 @@ Randomness: weights come from ``RunConfig.seed``; the dropout generator of
 each host step is seeded from ``RunConfig.seed + 1`` and the micro-batch
 step, so a resumed run draws exactly what the uninterrupted one would.
 
+``GradAccumConfig(fused_adam=True)`` needs an optimizer with fused hooks
+(``adamw``, ``adam``) and refuses ``sparse_embed``, as JAX's Estimator
+does; its streaming state carries no accumulator.
+
 ``warm_start`` (``{name: tensor}`` in the port's parameter names, e.g.
 ``models/bert_checkpoint.py :: load_hf_checkpoint``) replaces the random
 init of a fresh run; a checkpoint in ``model_dir`` still wins, as in JAX
@@ -120,6 +124,13 @@ class Estimator:
                 raise ValueError("sparse_embed requires a model with ModelBundle."
                                  "sparse_embed hooks (see models/bert.py)")
         acc.validate_config(accum)
+        if accum.fused_adam:
+            if sparse_embed:
+                raise ValueError("fused_adam and sparse_embed both replace the "
+                                 "accumulator; pick one")
+            if getattr(optimizer, "fused", None) is None:
+                raise ValueError("fused_adam requires an optimizer exposing FusedAccum "
+                                 "hooks (ops.adamw.adamw / ops.adamw.adam)")
         self.device = resolve_device(device)
         self.model = model
         self.optimizer = optimizer
@@ -153,8 +164,11 @@ class Estimator:
         params = named_parameters(self.module)
         if self.warm_start is not None:
             _copy_strict(params, self.warm_start)
-        init = acc.scan_init if self.mode == "scan" else acc.streaming_init
-        state = init(params, self.optimizer, loss_scale=self.accum.loss_scale)
+        if self.mode == "scan":
+            state = acc.scan_init(params, self.optimizer, loss_scale=self.accum.loss_scale)
+        else:
+            state = acc.streaming_init(params, self.optimizer, loss_scale=self.accum.loss_scale,
+                                       fused=self.accum.fused_adam)
         d = self.config.model_dir
         if d and ckpt_lib.latest_checkpoint(d):
             state = ckpt_lib.restore(d, state)

@@ -15,9 +15,12 @@ or gradients keyed the same way) or from a module. The mapping:
 - MoE ``router``, ``w_in``, ``b_in``, ``w_out``, ``b_out`` (raw arrays, not
   Dense kernels) keep their names and layouts
 
-Names stay the JAX package's, since the optimizer's weight-decay exclusion
-regex-searches them: a renamed leaf would silently change which weights
-decay.
+The mapping goes by leaf name, so every model whose module tree mirrors the
+flax one carries across: BERT, the MNIST CNN, the housing MLP and GPT
+(BERT's names plus ``attention_LayerNorm``, ``mlp_LayerNorm``,
+``final_LayerNorm`` and ``position_embeddings``). Names stay the JAX
+package's, since the optimizer's weight-decay exclusion regex-searches them:
+a renamed leaf would silently change which weights decay.
 """
 
 from __future__ import annotations

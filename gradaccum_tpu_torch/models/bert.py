@@ -7,10 +7,12 @@ submodule names mirror the flax one, so every parameter keeps its JAX path
 name (``utils/tree.py``) and the weights carry across
 (``interop.py``).
 
-``BertConfig.dtype`` is the compute dtype: parameters stay float32, each
-Dense casts its input and weights to it (bfloat16 on the card's main path),
-LayerNorm computes in float32 and returns the compute dtype, and the head
-and loss stay float32 — as flax's ``dtype=`` does.
+``BertConfig.dtype`` is the compute dtype: each Dense casts its input and
+weights to it (bfloat16 on the card's main path), LayerNorm computes in
+float32 and returns the compute dtype, and the head and loss stay float32,
+as flax's ``dtype=`` does. The parameters stay float32, unless the bundle's
+``compute_dtype`` stores them in that dtype too (the float32 masters then
+live in the optimizer, ``adamw(master_dtype=torch.float32)``).
 
 Dropout draws from the explicit ``torch.Generator`` a batch carries under
 ``"rng"``; attention dropout goes into the flash kernels as a rate and a
@@ -22,8 +24,8 @@ layer, with the layer's draws replayed in the recompute), the MoE FFN
 load-balance loss added to the loss at ``moe_aux_weight``), and the
 sparse-embedding hooks (``word_rows``: the loss with the gathered word rows
 as an argument, for ``ops/sparse_embed.py``). Not ported yet (ROADMAP.md):
-``seq_axis`` (sequence parallelism) and ``compute_dtype`` parameter
-storage; asking for them raises ``NotImplementedError``.
+``seq_axis`` (sequence parallelism); asking for it raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from gradaccum_tpu_torch.estimator.estimator import ModelBundle
 from gradaccum_tpu_torch.estimator.metrics import accuracy
-from gradaccum_tpu_torch.models.init import init_weights
+from gradaccum_tpu_torch.models.init import init_weights, store_in
 from gradaccum_tpu_torch.models.moe import moe_apply, moe_init
 from gradaccum_tpu_torch.ops.sparse_embed import SparseEmbedHooks
 
@@ -120,7 +122,8 @@ class LayerNorm(nn.LayerNorm):
         self.compute_dtype = dtype
 
     def forward(self, x):
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                         self.bias.float(), self.eps)
         return y.to(self.compute_dtype)
 
 
@@ -348,18 +351,20 @@ def bert_classifier_bundle(config: BertConfig, num_classes: int = 2,
     builds the model with random weights from ``seed``. The bundle's
     ``sparse_embed`` hooks name the word-embedding table and give the loss
     with the gathered rows as an argument (``ops/sparse_embed.py``).
+
+    ``compute_dtype`` (``torch.bfloat16``): store the parameters in that
+    dtype and run the encoder in it (the classifier head and the loss stay
+    float32); pair it with ``adamw(..., master_dtype=torch.float32)``.
     """
     if seq_axis is not None:
         raise NotImplementedError("sequence-parallel BERT (seq_axis) is not ported yet")
     if compute_dtype is not None:
-        raise NotImplementedError(
-            "compute_dtype parameter storage needs master weights, not ported yet; "
-            "set BertConfig.dtype for the compute dtype instead")
+        config = dataclasses.replace(config, dtype=compute_dtype)
 
     def init(seed: int, device) -> BertClassifier:
         model = BertClassifier(config, num_classes, attention_fn)
         init_weights(model, torch.Generator().manual_seed(seed))
-        return model.to(device)
+        return store_in(model, compute_dtype).to(device)
 
     def _logits(model, batch, deterministic, word_rows=None):
         return model.logits_and_aux(batch["input_ids"], batch.get("input_mask"),

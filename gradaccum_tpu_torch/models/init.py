@@ -7,6 +7,8 @@ import math
 import torch
 from torch import nn
 
+from gradaccum_tpu_torch.utils.tree import tree_cast_floating
+
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
@@ -29,3 +31,15 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(mod, nn.LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
+
+
+@torch.no_grad()
+def store_in(model: nn.Module, dtype) -> nn.Module:
+    """Store the module's floating parameters in ``dtype`` (a bundle's
+    ``compute_dtype``; None leaves them), in place: ``tree_cast_floating``
+    over its parameters."""
+    named = dict(model.named_parameters())
+    cast = tree_cast_floating({name: p.data for name, p in named.items()}, dtype)
+    for name, p in named.items():
+        p.data = cast[name]
+    return model

@@ -13,9 +13,16 @@ Loss: sparse softmax cross-entropy summed, times 1/B (01:43-45). Predict:
 logits, argmax classes and softmax probabilities (02:31-33). The layers are
 torch ops (``F.conv2d``, ``F.max_pool2d``, ``F.linear``): in JAX they were
 XLA code, not a Pallas kernel.
+
+``compute_dtype`` stores the parameters in that dtype and runs the model in
+it (pair it with ``adam(..., master_dtype=torch.float32)``); the logits and
+the loss stay float32. JAX's compute-only ``dtype`` knob is not carried: no
+caller of the port sets it.
 """
 
 from __future__ import annotations
+
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -23,21 +30,26 @@ from torch import nn
 
 from gradaccum_tpu_torch.estimator.estimator import ModelBundle
 from gradaccum_tpu_torch.estimator.metrics import accuracy
-from gradaccum_tpu_torch.models.init import init_weights
+from gradaccum_tpu_torch.models.init import init_weights, store_in
 
 
 class MnistCNN(nn.Module):
-    def __init__(self, num_classes: int = 10):
+    def __init__(self, num_classes: int = 10, dtype: Any = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv = nn.Conv2d(1, 32, 3)  # no padding: VALID, 28 -> 26
         self.dense = nn.Linear(13 * 13 * 32, 64)
         self.logits = nn.Linear(64, num_classes)
 
+    def _w(self, layer):
+        return layer.weight.to(self.dtype), layer.bias.to(self.dtype)
+
     def forward(self, images):
-        x = images.float().permute(0, 3, 1, 2)  # NHWC -> NCHW
-        x = F.max_pool2d(F.relu(self.conv(x)), 2, 2)
+        x = images.to(self.dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW
+        x = F.max_pool2d(F.relu(F.conv2d(x, *self._w(self.conv))), 2, 2)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flatten (h, w, c)
-        return self.logits(F.relu(self.dense(x)))
+        x = F.relu(F.linear(x, *self._w(self.dense)))
+        return F.linear(x, *self._w(self.logits)).float()
 
 
 def sparse_softmax_loss(logits, labels):
@@ -48,13 +60,13 @@ def sparse_softmax_loss(logits, labels):
     return torch.sum(per_example) * (1.0 / labels.shape[0])
 
 
-def mnist_cnn_bundle() -> ModelBundle:
+def mnist_cnn_bundle(compute_dtype: Any = None) -> ModelBundle:
     """Batches: ``{"image": [B, 28, 28, 1] float32, "label": [B] int}``."""
 
     def init(seed: int, device) -> MnistCNN:
-        model = MnistCNN()
+        model = MnistCNN(dtype=torch.float32 if compute_dtype is None else compute_dtype)
         init_weights(model, torch.Generator().manual_seed(seed))
-        return model.to(device)
+        return store_in(model, compute_dtype).to(device)
 
     def loss(model, batch):
         return sparse_softmax_loss(model(batch["image"]), batch["label"])

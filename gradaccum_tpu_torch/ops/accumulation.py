@@ -41,8 +41,20 @@ inspects the scaled values, the unscale folds into the apply-time
 denominator before the clip, and the scale updates at every window
 boundary (``ops/loss_scale.py``).
 
-Not ported yet (ROADMAP.md): ``fused_adam``, ``axis_name`` and
-``example_axes``; setting one raises ``NotImplementedError``.
+**Fused Adam-accumulation** (``fused_adam``, AdamA, both modes): each
+micro-batch's gradient folds straight into the optimizer's m and v through
+its ``FusedAccum`` hooks (``ops/adamw.py``), so no gradient accumulator
+exists (``streaming_init(fused=True)`` carries none). The window's first
+usable micro-batch applies the moments' β decay, so an all-bad window leaves
+them untouched; ``first`` is a bool on the card (scan: no good micro-batch
+yet; streaming: the window's ``good_count`` is 0), chosen with
+``torch.where``, never read on the host. ``1/K`` and the loss unscale fold
+into each micro-batch. It refuses ``clip_norm`` (no summed gradient to
+clip), ``normalize_by_good_count`` (the denominator is folded before the
+count is known) and ``axis_name``, and reports no ``grad_norm``.
+
+Not ported yet (ROADMAP.md): ``axis_name`` and ``example_axes``; setting
+one raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -65,9 +77,8 @@ from gradaccum_tpu_torch.utils.tree import global_norm
 class GradAccumConfig(NamedTuple):
     """``num_micro_batches`` is the reference's
     ``gradient_accumulation_multiplier``; ``clip_norm`` is 1.0 on the BERT
-    path, None on MNIST and housing. ``fused_adam``, ``axis_name`` and
-    ``example_axes`` name knobs of the JAX package that the port does not run
-    yet."""
+    path, None on MNIST and housing. ``axis_name`` and ``example_axes`` name
+    knobs of the JAX package that the port does not run yet."""
 
     num_micro_batches: int
     clip_norm: Optional[float] = None
@@ -116,7 +127,6 @@ def validate_config(config: GradAccumConfig) -> None:
                 "(sharding_rules / zero1) instead"
             )
     refused = {
-        "fused_adam": config.fused_adam,
         "axis_name": config.axis_name is not None,
         "example_axes": bool(config.example_axes),
     }
@@ -173,6 +183,27 @@ def _zero_if_bad(grads, good):
     Inf never reaches the accumulators."""
     return [torch.where(good, g, torch.zeros((), dtype=g.dtype, device=g.device))
             for g in grads]
+
+
+def _fused_inv_factors(k: int, scale, device):
+    """The fold factors of one micro-batch under ``fused_adam``: ``inv_m =
+    1/(K·scale)`` folds the window's normalization and the loss unscale into
+    the first moment, ``inv_v = 1/(K·scale²)`` into the second (0-d float32
+    tensors; the division is tensor by tensor, as JAX's)."""
+    if scale is None:
+        inv = torch.tensor(1.0 / k, dtype=torch.float32, device=device)
+        return inv, inv
+    one = torch.ones((), dtype=torch.float32, device=device)
+    return torch.div(one, k * scale), torch.div(one, k * scale * scale)
+
+
+def _require_fused_hooks(optimizer: Optimizer) -> None:
+    if optimizer.fused is None:
+        raise ValueError(
+            "GradAccumConfig.fused_adam requires an optimizer exposing FusedAccum "
+            "hooks (ops.adamw.adamw / ops.adamw.adam); "
+            f"{optimizer} has none"
+        )
 
 
 def _finalize(accum, config: GradAccumConfig, denom):
@@ -242,6 +273,12 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
     table's dense gradient after the loop."""
     k = config.num_micro_batches
     skip = config.skip_nonfinite
+    fused = config.fused_adam
+    if fused:
+        if sparse is not None:
+            raise ValueError("fused_adam and sparse_embed both replace the "
+                             "accumulator; pick one")
+        _require_fused_hooks(optimizer)
 
     def train_step(state: ScanState, super_batch: Dict[str, Any],
                    generator: Optional[torch.Generator] = None):
@@ -259,8 +296,16 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
         if sparse is not None:
             table = params[sparse.table_path]
             dense = {name: p for name, p in params.items() if name != sparse.table_path}
-        accum = _accum_zeros(dense)
-        n_good = torch.zeros((), dtype=torch.int32, device=_device(params)) if skip else None
+        device = _device(params)
+        if fused:
+            # the moments carry the window: no accumulator
+            mv = optimizer.fused.moments(state.opt_state)
+            inv_m, inv_v = _fused_inv_factors(k, scale, device)
+        else:
+            accum = _accum_zeros(dense)
+        # fused mode counts the window position even unguarded: `first`
+        n_good = torch.zeros((), dtype=torch.int32, device=device) \
+            if skip or fused else None
         losses, rows_ct = [], []
         for i in range(k):
             micro = {key: x[i] for key, x in super_batch.items()}
@@ -276,16 +321,26 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
                     lambda p, b, r=rows: loss_fn(p, r, b), params, micro, scale,
                     wrt=list(dense.values()) + [rows])
             with torch.no_grad():
+                good = None
                 if skip:
                     # the verdict covers the row cotangents too
                     good = _all_finite(check_loss, grads)
                     grads = _zero_if_bad(grads, good)
                     loss = torch.where(good, loss, torch.zeros_like(loss))  # out of the mean
-                    n_good = n_good + good.to(torch.int32)
                 if sparse is not None:
                     rows_ct.append(grads[-1])
                     grads = grads[:-1]
-                _accum_add_(accum, grads)
+                if fused:
+                    # the first usable micro-batch carries the moments' decay
+                    first = n_good == 0 if good is None else (n_good == 0) & good
+                    optimizer.fused.accumulate(mv, dict(zip(params, grads)), good, first,
+                                               inv_m, inv_v)
+                else:
+                    _accum_add_(accum, grads)
+                if skip:
+                    n_good = n_good + good.to(torch.int32)
+                elif fused:
+                    n_good = n_good + 1
             losses.append(loss)
         if sparse is not None:
             with torch.no_grad():
@@ -297,20 +352,19 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
             accum = {name: table_grad if name == sparse.table_path else accum[name]
                      for name in params}
         apply_step = state.step + k
-        with torch.no_grad():
-            if skip and config.normalize_by_good_count:
-                # rescale over the survivors instead of shrinking the update
-                denom = torch.clamp(n_good, min=1).to(torch.float32)
+        norm = None
+        if fused:
+            # the moments hold the normalized, unscaled window; the all-bad
+            # window's moments are the old ones bit for bit
+            if skip and int(n_good) == 0:  # the window's one host read
+                new_params = params
+                new_opt_state = optimizer.fused.carry_into(state.opt_state, mv)
             else:
-                denom = k  # a skipped micro-batch contributes zero: the update shrinks
-            if scale is not None:
-                denom = denom * scale  # unscale BEFORE clip and apply
-            grads, norm = _finalize(accum, config, denom)
-        if skip and int(n_good) == 0:  # the window's one host read
-            new_params, new_opt_state = params, state.opt_state
+                new_params, new_opt_state = optimizer.fused.apply(state.opt_state, mv, params,
+                                                                  apply_step)
         else:
-            new_params, new_opt_state = optimizer.update(grads, state.opt_state, params,
-                                                         apply_step)
+            new_params, new_opt_state, norm = _scan_apply(
+                optimizer, config, state, accum, n_good, scale, apply_step)
         new_ls = state.loss_scale
         if config.loss_scale is not None:
             new_ls = update_loss_scale(state.loss_scale, config.loss_scale, n_good >= k)
@@ -322,7 +376,9 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
                                torch.full_like(stacked[0], float("nan")))
         else:
             loss = stacked.mean()
-        aux = {"loss": loss, "grad_norm": norm, "lr_step": apply_step}
+        aux = {"loss": loss, "lr_step": apply_step}
+        if norm is not None:  # fused mode never sums the window's gradient
+            aux["grad_norm"] = norm
         if skip:
             aux["skipped"] = k - n_good
             aux["good_count"] = n_good
@@ -331,6 +387,25 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
         return ScanState(new_params, new_opt_state, apply_step, new_ls), aux
 
     return train_step
+
+
+def _scan_apply(optimizer, config, state, accum, n_good, scale, apply_step):
+    """The two-pass apply: normalize, unscale, clip, update (none for an
+    all-bad window). Returns ``(params, opt_state, grad_norm)``."""
+    with torch.no_grad():
+        if config.skip_nonfinite and config.normalize_by_good_count:
+            # rescale over the survivors instead of shrinking the update
+            denom = torch.clamp(n_good, min=1).to(torch.float32)
+        else:
+            denom = config.num_micro_batches  # a skipped micro-batch adds zero: the update shrinks
+        if scale is not None:
+            denom = denom * scale  # unscale BEFORE clip and apply
+        grads, norm = _finalize(accum, config, denom)
+    if config.skip_nonfinite and int(n_good) == 0:  # the window's one host read
+        return state.params, state.opt_state, norm
+    new_params, new_opt_state = optimizer.update(grads, state.opt_state, state.params,
+                                                 apply_step)
+    return new_params, new_opt_state, norm
 
 
 def stack_micro_batches(batch: Dict[str, Any], num_micro_batches: int) -> Dict[str, Any]:
@@ -347,19 +422,24 @@ def stack_micro_batches(batch: Dict[str, Any], num_micro_batches: int) -> Dict[s
 class StreamingState(NamedTuple):
     params: Dict[str, torch.Tensor]
     opt_state: Any
-    accum_grads: Dict[str, torch.Tensor]  # the reference's accum_grads variables
+    # the reference's accum_grads variables; () under fused_adam
+    accum_grads: Any
     step: int  # micro-batch counter == the reference's global_step
     # good micro-batches in the current window (int32, 0-d, on the card):
-    # persistent like the accumulators, since a window spans host steps
+    # persistent like the accumulators, since a window spans host steps.
+    # Under fused_adam it counts the window's position even unguarded.
     good_count: torch.Tensor
     loss_scale: Any = None  # DynamicLossScale when GradAccumConfig.loss_scale is set
 
 
 def streaming_init(params: Dict[str, torch.Tensor], optimizer: Optimizer,
-                   loss_scale: Optional[LossScaleConfig] = None) -> StreamingState:
+                   loss_scale: Optional[LossScaleConfig] = None,
+                   fused: bool = False) -> StreamingState:
+    """``fused=True`` (``GradAccumConfig.fused_adam``): no gradient
+    accumulators, ``accum_grads`` is ``()``; the moments carry the window."""
     device = _device(params)
     return StreamingState(params=params, opt_state=optimizer.init(params),
-                          accum_grads=_accum_zeros(params), step=0,
+                          accum_grads=() if fused else _accum_zeros(params), step=0,
                           good_count=torch.zeros((), dtype=torch.int32, device=device),
                           loss_scale=None if loss_scale is None
                           else init_loss_scale(loss_scale, device))
@@ -379,6 +459,9 @@ def streaming_step(loss_fn: LossFn, optimizer: Optimizer, config: GradAccumConfi
     validate_config(config)
     k = config.num_micro_batches
     skip = config.skip_nonfinite
+    fused = config.fused_adam
+    if fused:
+        _require_fused_hooks(optimizer)
     # the reference applies when step % K == 0 (quirk included); quirk-free
     # applies once K gradients have accumulated
     phase = 0 if config.first_step_quirk else k - 1
@@ -399,36 +482,59 @@ def streaming_step(loss_fn: LossFn, optimizer: Optimizer, config: GradAccumConfi
         applied = state.step % k == phase
         new_params, new_opt_state = params, state.opt_state
         new_good, new_ls = state.good_count, state.loss_scale
+        accum = state.accum_grads
         with torch.no_grad():
+            good = None
             if skip:
                 good = _all_finite(check_loss, grads)
                 grads = _zero_if_bad(grads, good)
                 good_inc = good.to(torch.int32)
-                window_good = state.good_count + good_inc
-            # both branches accumulate: the apply branch re-accumulates the
-            # current gradient first (optimization.py:81)
-            accum = state.accum_grads
-            _accum_add_(accum, grads)
+            else:
+                good_inc = 1  # fused mode's window position
+            window_good = state.good_count + good_inc if skip or fused else None
+            if fused:
+                # fold this micro-batch before the branch: the apply branch
+                # re-accumulates the current gradient first, as the reference
+                inv_m, inv_v = _fused_inv_factors(k, scale, _device(params))
+                first = state.good_count == 0
+                if skip:
+                    first = first & good
+                mv = optimizer.fused.moments(state.opt_state)
+                optimizer.fused.accumulate(mv, dict(zip(params, grads)), good, first,
+                                           inv_m, inv_v)
+            else:
+                # both branches accumulate: the apply branch re-accumulates the
+                # current gradient first (optimization.py:81)
+                _accum_add_(accum, grads)
             if applied:
-                if skip and config.normalize_by_good_count:
-                    denom = torch.clamp(window_good, min=1).to(torch.float32)
-                else:
-                    denom = k
-                if scale is not None:
-                    denom = denom * scale  # unscale BEFORE clip and apply
-                avg, _ = _finalize(accum, config, denom)
+                sched_step = state.step + step_offset
                 # an all-bad window must not apply: the window's one host read
-                if not skip or int(window_good) > 0:
-                    new_params, new_opt_state = optimizer.update(
-                        avg, state.opt_state, params, state.step + step_offset)
+                run = not skip or int(window_good) > 0
+                if fused:
+                    if run:
+                        new_params, new_opt_state = optimizer.fused.apply(
+                            state.opt_state, mv, params, sched_step)
+                    else:
+                        new_opt_state = optimizer.fused.carry_into(state.opt_state, mv)
+                else:
+                    if skip and config.normalize_by_good_count:
+                        denom = torch.clamp(window_good, min=1).to(torch.float32)
+                    else:
+                        denom = k
+                    if scale is not None:
+                        denom = denom * scale  # unscale BEFORE clip and apply
+                    avg, _ = _finalize(accum, config, denom)
+                    if run:
+                        new_params, new_opt_state = optimizer.update(
+                            avg, state.opt_state, params, sched_step)
+                    for acc in accum.values():
+                        acc.zero_()
                 if config.loss_scale is not None:
                     # window boundary: the scale adjusts, applied or not
                     new_ls = update_loss_scale(state.loss_scale, config.loss_scale,
                                                window_good >= k)
-                for acc in accum.values():
-                    acc.zero_()
                 new_good = torch.zeros_like(state.good_count)
-            elif skip:
+            elif skip or fused:
                 new_good = window_good
         aux = {"loss": loss, "applied": 1.0 if applied else 0.0}
         if skip:

@@ -53,6 +53,17 @@ def tree_map_with_names(fn: Callable, named: Dict[str, torch.Tensor], *rest):
     return {name: fn(name, leaf, *(r[name] for r in rest)) for name, leaf in named.items()}
 
 
+def tree_cast_floating(named: Dict[str, torch.Tensor], dtype) -> Dict[str, torch.Tensor]:
+    """Every floating tensor cast to ``dtype``, integer and bool tensors
+    untouched: how a bundle's ``compute_dtype`` turns float32-initialized
+    parameters into low-precision storage (the float32 masters then live in
+    the optimizer state, ``ops/adamw.py :: adamw(master_dtype=...)``).
+    ``dtype=None`` is the identity."""
+    if dtype is None:
+        return named
+    return {name: t.to(dtype) if t.is_floating_point() else t for name, t in named.items()}
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """L2 norm over all tensors in float32, matching ``tf.linalg.global_norm``
     (the sum of squares of each tensor, summed in order, then the root)."""

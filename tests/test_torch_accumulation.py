@@ -183,13 +183,14 @@ def test_stack_micro_batches_matches_jax():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(skip_nonfinite=True, fused_adam=True),
+    dict(skip_nonfinite=True, fused_adam=True, example_axes=("seq",)),
     dict(skip_nonfinite=True, loss_scale=LossScaleConfig(), axis_name="data"),
-    dict(fused_adam=True), dict(axis_name="data"), dict(example_axes=("seq",)),
+    dict(skip_nonfinite=True, example_axes=("seq",)), dict(axis_name="data"),
+    dict(example_axes=("seq",)),
 ])
 def test_unported_knobs_raise(knob):
-    # the guard and loss scaling are ported (tests/test_torch_guard.py); these
-    # knobs, alone or beside them, are not
+    # the guard, loss scaling and fused_adam are ported (tests/test_torch_guard.py,
+    # tests/test_torch_mixed.py); these knobs, alone or beside them, are not
     with pytest.raises(NotImplementedError):
         tacc.accumulate_scan(lambda p, b: 0.0, tadamw.adamw(1e-3),
                              tacc.GradAccumConfig(2, **knob))
@@ -197,8 +198,14 @@ def test_unported_knobs_raise(knob):
 
 @pytest.mark.parametrize("knob", [dict(master_dtype=torch.float32), dict(moment_dtype="q8")])
 def test_unported_adamw_knobs_raise(knob):
-    with pytest.raises(NotImplementedError):
-        tadamw.adamw(1e-3, **knob)
+    # these knobs were refused before the mixed-precision slice; they build
+    # now, and tests/test_torch_mixed.py holds them against JAX
+    opt = tadamw.adamw(1e-3, **knob)
+    state = opt.init({"w": torch.zeros(3)})
+    if "master_dtype" in knob:
+        assert isinstance(state, tadamw.MasterAdamState) and opt.fused is not None
+    else:
+        assert type(state.m["w"]).__name__ == "QuantTensor" and opt.fused is None
 
 
 def _estimator(model_dir):

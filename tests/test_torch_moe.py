@@ -221,3 +221,44 @@ def test_moe_flops_match_jax(experts, top_k):
     args = (512, 4, 2048, 128, 2)
     assert tflops.bert_train_flops_per_seq(*args, num_experts=experts, moe_top_k=top_k) == \
         jflops.bert_train_flops_per_seq(*args, num_experts=experts, moe_top_k=top_k)
+
+
+def test_padded_batch_drops_the_same_fraction_as_jax(monkeypatch):
+    """The MoE drop rate seen on the card (0.40 at BERT-Small width on the
+    synthetic sentences) is a property of the padded batch, not of the
+    port: at reduced width (H 128, 8 experts, top-2, capacity 1.25, dense
+    attention, dropout 0) with JAX's weights carried across and a batch
+    that is >= 85 % padding, every layer drops exactly the fraction JAX's
+    drops. Padding tokens differ only by position and crowd the same
+    experts."""
+    cfg_kw = dict(vocab_size=200, hidden_size=128, num_layers=2, num_heads=2,
+                  intermediate_size=256, max_position_embeddings=64, num_experts=8,
+                  moe_top_k=2, hidden_dropout=0.0, attention_dropout=0.0)
+    rng = np.random.default_rng(11)
+    n, s = 8, 64
+    lengths = rng.integers(3, 9, size=n)
+    mask = (np.arange(s)[None, :] < lengths[:, None]).astype(np.int32)
+    assert 1 - mask.mean() >= 0.85
+    batch = {"input_ids": (rng.integers(5, 200, size=(n, s)) * mask).astype(np.int32),
+             "input_mask": mask, "segment_ids": np.zeros((n, s), np.int32),
+             "label": np.zeros(n, np.int32)}
+    jb = jbert.bert_classifier_bundle(jbert.BertConfig(**cfg_kw))
+    params = jb.init(jax.random.PRNGKey(0), {k: v[:1] for k, v in batch.items()})
+    dropped_j = []
+    apply = jmoe.moe_apply
+
+    def recording(*args, **kw):
+        y, aux = apply(*args, **kw)
+        dropped_j.append(float(aux["dropped_fraction"]))
+        return y, aux
+
+    monkeypatch.setattr(jmoe, "moe_apply", recording)
+    jb.predict(params, batch)
+    tb = tbert.bert_classifier_bundle(tbert.BertConfig(**cfg_kw))
+    model = tb.init(0, "cpu")
+    model.load_state_dict(params_from_jax(jax.device_get(params)))
+    tb.predict(model, {k: torch.as_tensor(v) for k, v in batch.items()})
+    dropped_t = [float(getattr(model.bert, f"layer_{i}").moe.last_aux["dropped_fraction"])
+                 for i in range(2)]
+    assert len(dropped_j) == 2 and dropped_t == dropped_j
+    assert max(dropped_t) > 0.1  # the padded batch really overflows the experts

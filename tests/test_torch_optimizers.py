@@ -98,5 +98,11 @@ def test_sgd_step():
 
 @pytest.mark.parametrize("knob", [dict(master_dtype=torch.float32), dict(moment_dtype="q8")])
 def test_unported_adam_knobs_raise(knob):
-    with pytest.raises(NotImplementedError):
-        topt.adam(1e-3, **knob)
+    # these knobs were refused before the mixed-precision slice; they build
+    # now, and tests/test_torch_mixed.py holds them against JAX
+    opt = topt.adam(1e-3, **knob)
+    state = opt.init({"w": torch.zeros(3)})
+    if "master_dtype" in knob:
+        assert isinstance(state, topt.MasterAdamBCState) and opt.fused is not None
+    else:
+        assert type(state.m["w"]).__name__ == "QuantTensor" and opt.fused is None
