@@ -7,23 +7,28 @@ Phases, each of which fails the run if it fails:
 
 1. build: compile every CUDA source of ``gradaccum_tpu_torch/csrc`` with
    nvcc (one process per source, all started together); print the time and
-   each kernel's registers and spills as ptxas reports them.
+   each kernel's registers and spills as ptxas reports them, and fail if
+   the float32 dq or dk/dv kernel spills at any head dim.
 2. kernels: hold each kernel against its plain PyTorch version on the card
    at the BERT-Small main-path shape q/k/v [8, 8, 128, 64], in float32
-   (scalar kernels) and bfloat16 (tensor-core kernels), with a padded mask
+   (``flash_attention.cu``: scalar forward, 3xTF32 tensor-core dq and
+   dk/dv) and bfloat16 (``flash_attention_tc.cu``), with a padded mask
    and without, causal, and with attention dropout 0.1 under a fixed seed;
-   in bfloat16 also at ragged lengths S = 100 and 200 and at head dim 128;
-   and at GPT's shapes, causal, no mask, dropout 0.1: [8, 8, 512, 64] in
-   bfloat16 and float32 (GPT-Small) and [16, 4, 64, 32] in float32
-   (``gpt_lm``). The dq kernel's delta = rowsum(dO * O) is held against the
-   plain one. Read the keep mask back out of the forward, dq and dk/dv
-   kernels (float32 and bfloat16, bfloat16 at S = 200, and at both GPT
-   shapes) and require it equal to the plain mask bit for bit. Then time
-   each kernel, its plain version and the PyTorch call that computes the
-   same function (scaled_dot_product_attention's forward, and its backward,
-   which computes dq, dk and dv together, for both backward kernels; never
-   used by the port), at the main path's conditions and at GPT-Small's
-   (bf16 [8, 8, 512, 64], causal: SDPA with is_causal=True).
+   in both dtypes also at ragged lengths S = 100 and 200 and at head dim
+   128, in float32 also at head dims 16 and 32; and at GPT's shapes,
+   causal, no mask, dropout 0.1: [8, 8, 512, 64] in bfloat16 and float32
+   (GPT-Small) and [16, 4, 64, 32] in float32 (``gpt_lm``). The dq
+   kernel's delta = rowsum(dO * O) is held against the plain one. Read the
+   keep mask back out of the forward, dq and dk/dv kernels (float32 and
+   bfloat16, both at S = 200, and at both GPT shapes) and require it equal
+   to the plain mask bit for bit. Then time each kernel, its plain version
+   and the PyTorch call that computes the same function
+   (scaled_dot_product_attention's forward, and its backward, which
+   computes dq, dk and dv together, for both backward kernels; never used
+   by the port), at the main path's conditions in bfloat16 and in float32
+   (``bert_finetune``'s default dtype), and at GPT-Small's (bf16 and
+   float32 [8, 8, 512, 64], causal: SDPA with is_causal=True) and
+   ``gpt_lm``'s (float32 [16, 4, 64, 32], causal).
 3. agree: the tiny BERT classifier's loss and gradients on the card (through
    the kernels) against the same model on the CPU (plain versions).
 4. main: the entry point ``gradaccum_tpu_torch/examples/bert_finetune.py``
@@ -87,23 +92,25 @@ Phases, each of which fails the run if it fails:
     with masters and q8 moments; clip 1.0 except (c). Per leg: optimizer +
     accumulator and parameter bytes per parameter, peak memory above the
     starting state, seq/s and tokens/s, finite losses, launches exactly 16
-    per kernel per update (on the scalar kernels in (a), the tensor cores
+    per kernel per update (on the float32 route `scalar` in (a), the tensor cores
     otherwise). Then fused against two-pass bitwise at K=1 after one
     update, and 6 updates on one repeated batch with dropout 0: the bf16 +
     master loss within 8 % of the float32 loss at each, both below 0.8x
-    their first. Then a profile window over two bf16 + master updates.
+    their first. Then a profile window over two bf16 + master updates, and
+    one over two float32 updates (leg (a)).
 16. GPT guard: GPT-Small bf16 + master at depth 2, fused, skip_nonfinite and
     a dynamic loss scale, streaming and scan; NaN loss in one micro-batch of
     the first window and in all of the second: skip counts exact, the
     all-bad window a bitwise no-op over parameters, masters and moments,
     the scale halving at each dirty window.
-17. gpt_lm: the entry point with ``--flash`` (float32, the scalar kernels),
+17. gpt_lm: the entry point with ``--flash`` (float32, route ``scalar``),
     scan and streaming, 32 micro-steps and ``--sample 40``: the loss falls,
     token accuracy in [0, 1], launch counts exact from its JSON line.
 
 The last three lines of standard output are the card's name and power
-limit, a JSON line describing every kernel, and the result line
-``{"ok": true, "device": {...}}``. Without a card, or without the package
+limit, a JSON line describing every kernel in each dtype (bfloat16: launches
+from the main path; float32: from ``gpt_lm --flash`` in scan mode), and the
+result line ``{"ok": true, "device": {...}}``. Without a card, or without the package
 beside this script, it exits non-zero and prints no result.
 """
 
@@ -125,9 +132,14 @@ B, H, S, D = 8, 8, 128, 64
 RATE, SEED = 0.1, 0x5EED1234
 UPDATES = 8  # optimizer updates on the main path
 LAYERS, K = 4, 4  # BERT-Small depth, and K on the main path
-# H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s and FLOP/s by type
+# H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s and FLOP/s by type.
+# float32: the fastest float32-accurate product rate of the card, 3xTF32 on the
+# tensor cores (495 TFLOP/s of TF32, three products for each), so that a bound
+# is the least time for the work whatever the kernel runs; the 67 TFLOP/s of
+# float32 FMA outside the tensor cores is printed beside it.
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 495e12 / 3}
+F32_FMA_FLOPS = 67e12
 # |kernel - plain| <= ATOL + RTOL*|plain|, per output. float32: both sides
 # run float32 math in another summation order. bfloat16: both compute in
 # float32 from the same bf16 inputs; o/dq/dk/dv round once to bf16 (2^-8
@@ -147,11 +159,16 @@ REPLACES = {
     "flash_bwd_dq": "gradaccum_tpu/ops/flash_attention.py:348",
     "flash_bwd_dkv": "gradaccum_tpu/ops/flash_attention.py:399",
 }
-# the source of each kernel's bfloat16 route, the one the main path runs
-SOURCES = {name: f"{PACKAGE}/csrc/flash_attention_tc.cu" for name in REPLACES}
-# bfloat16 only: the ragged lengths (one key tile with a ragged edge, and
-# more than one) and the widest head dim, beside the main shape
+# the source of each kernel by dtype: bfloat16 (the main path) and float32
+SOURCES = {"torch.bfloat16": f"{PACKAGE}/csrc/flash_attention_tc.cu",
+           "torch.float32": f"{PACKAGE}/csrc/flash_attention.cu"}
+# beside the main shape: the ragged lengths (one key tile with a ragged edge,
+# and more than one) and the widest head dim; float32 also the narrow head
+# dims, so that it runs every head dim the wrapper accepts
 EXTRA_SHAPES = [(B, H, 100, D), (B, H, 200, D), (B, H, S, 128)]
+F32_EXTRA_SHAPES = EXTRA_SHAPES + [(B, H, S, 16), (B, H, S, 32)]
+# the float32 kernels ptxas must report without spills, at every head dim
+NO_SPILL = ("flash_dq_kernel", "flash_dkv_kernel")
 # GPT-Small's attention (micro 8, 8 heads, seq 512, head dim 64: bf16 on the
 # tensor cores, and float32 in ladder leg (a)) and gpt_lm's (micro 16,
 # 4 heads, seq 64, head dim 32, float32): causal, no mask, dropout 0.1
@@ -201,32 +218,41 @@ def phase_build():
     fa.build_kernels()
     print(f"[build] {len(sources)} source(s) in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{s} {cuda_build.build_seconds.get(s, 0.0):.1f} s" for s in sources))
+    spilled, seen = [], set()
     for s in sources:
         log = cuda_build.library_path(s).with_suffix(".log")
-        for line in _ptxas_summary(log.read_text()):
-            print(f"[build] ptxas {s}: {line}")
+        for name, regs, stores, loads in _ptxas_summary(log.read_text()):
+            print(f"[build] ptxas {s}: {name} {regs} registers, spill stores {stores} B, "
+                  f"loads {loads} B")
+            seen.add(name)
+            if name.split("<")[0] in NO_SPILL and (stores or loads):
+                spilled.append(name)
+    missing = [f"{k}<{d}>" for k in NO_SPILL for d in (16, 32, 64, 128)
+               if f"{k}<{d}>" not in seen]
+    check(not missing, f"no ptxas report for {missing}")
+    check(not spilled, f"ptxas reports spills in {spilled}")
 
 
 def _ptxas_summary(text):
-    """One line per kernel instance from nvcc's ``-Xptxas -v`` report:
-    registers and spill bytes."""
+    """``(kernel, registers, spill store bytes, spill load bytes)`` for each
+    kernel instance in nvcc's ``-Xptxas -v`` report."""
     import re
 
-    out, name, spills = [], None, ""
+    out, name, spills = [], None, (0, 0)
     for line in text.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             # e.g. ..18flash_dq_tc_kernelILi64EEEv.. -> flash_dq_tc_kernel<64>
-            name = entry.group(1)
+            name, spills = entry.group(1), (0, 0)
             m = re.search(r"(flash_[a-z_]+?_kernel)ILi(\d+)EEEv", name)
             if m:
                 name = f"{m.group(1)}<{m.group(2)}>"
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill:
-            spills = f"spill stores {spill.group(1)} B, loads {spill.group(2)} B"
+            spills = (int(spill.group(1)), int(spill.group(2)))
         regs = re.search(r"Used (\d+) registers", line)
         if regs and name:
-            out.append(f"{name} {regs.group(1)} registers, {spills}")
+            out.append((name, int(regs.group(1))) + spills)
             name = None
     return out
 
@@ -275,6 +301,7 @@ def phase_kernels():
     gpt = [(False, True, RATE)]
     runs = [(torch.float32, (B, H, S, D), cases), (torch.bfloat16, (B, H, S, D), cases)]
     runs += [(torch.bfloat16, shape, cases) for shape in EXTRA_SHAPES]
+    runs += [(torch.float32, shape, cases) for shape in F32_EXTRA_SHAPES]
     runs += [(torch.bfloat16, GPT_SHAPE, gpt), (torch.float32, GPT_SHAPE, gpt),
              (torch.float32, GPT_LM_SHAPE, gpt)]
     for dtype, shape, shape_cases in runs:
@@ -311,7 +338,8 @@ def phase_kernels():
             print(f"[kernels] {str(dtype)[6:]:8s} {shape} mask={int(masked)} "
                   f"causal={int(causal)} rate={rate}: " + " ".join(line))
     for dtype, shape in ((torch.float32, (B, H, S, D)), (torch.bfloat16, (B, H, S, D)),
-                         (torch.bfloat16, (B, H, 200, D)), (torch.bfloat16, GPT_SHAPE),
+                         (torch.bfloat16, (B, H, 200, D)), (torch.float32, (B, H, 200, D)),
+                         (torch.bfloat16, GPT_SHAPE),
                          (torch.float32, GPT_SHAPE), (torch.float32, GPT_LM_SHAPE)):
         _check_keep_masks(fa, dtype, shape)
     return worst
@@ -497,11 +525,15 @@ def phase_timing(shape=(B, H, S, D), masked=True, causal=False, label="bert", dt
           f"{ms['flash_bwd_dq'] + ms['flash_bwd_dkv']:.4f} ms")
     bounds = _bounds(dtype, masked, shape, causal)
     for name in ms:
+        nbytes, flops = bounds[name][2], bounds[name][3]
+        fma = ""
+        if dtype == torch.float32:
+            fma = (f"; {max(nbytes / PEAK_BYTES, flops / F32_FMA_FLOPS) * 1e6:.2f} us at "
+                   f"the {F32_FMA_FLOPS / 1e12:.0f} TFLOP/s of float32 FMA")
         print(f"[timing] {name} ({fa.route(dtype)}): {ms[name]:.4f} ms on the card, "
               f"{wall[name]:.4f} ms a call with dispatch (plain {plain[name]:.4f} ms, "
               f"sdpa {library[name]:.4f} ms; bound {bounds[name][0] * 1e3:.2f} us by "
-              f"{bounds[name][1]}: {bounds[name][2] / 1e6:.2f} MB, "
-              f"{bounds[name][3] / 1e9:.3f} GFLOP)")
+              f"{bounds[name][1]}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP{fma})")
     return ms, plain, library, bounds
 
 
@@ -1343,16 +1375,22 @@ def phase_gpt_ladder():
     return rows
 
 
-def phase_gpt_profile(updates=2):
-    """Where the time of a GPT-Small bf16 + master update goes: a
-    torch.profiler window over ``updates`` scan updates after one warm-up."""
+def phase_gpt_profile(updates=2, f32=False):
+    """Where the time of a GPT-Small bf16 + master update (or, with
+    ``f32``, a float32 update: ladder leg (a)) goes: a torch.profiler window
+    over ``updates`` scan updates after one warm-up."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from gradaccum_tpu_torch.ops.adamw import adamw
 
-    est = _gpt_estimator(torch.bfloat16, adamw(1e-4, weight_decay_rate=0.01,
-                                               master_dtype=torch.float32))
+    if f32:
+        name = "f32 (ladder leg (a))"
+        est = _gpt_estimator(None, adamw(1e-4, weight_decay_rate=0.01))
+    else:
+        name = "bf16+master"
+        est = _gpt_estimator(torch.bfloat16, adamw(1e-4, weight_decay_rate=0.01,
+                                                   master_dtype=torch.float32))
     batches = _gpt_batches(1 + updates, seed=18)
     est.train(batches[:1], final_save=False)
     torch.cuda.synchronize()
@@ -1368,15 +1406,18 @@ def phase_gpt_profile(updates=2):
         print("[gpt-profile] the profiler saw no device time on this machine")
         return
     flash = sum(t for key, t, _ in kernels if "flash_" in key) / 1e6
+    bwd = sum(t for key, t, _ in kernels if "flash_dq" in key or "flash_dkv" in key) / 1e6
     # the only float32 matrix products of a bf16 update are the tied head's
     head = sum(t for key, t, _ in kernels if "gemm" in key.lower()
                and "bf16" not in key.lower() and "16816" not in key) / 1e6
-    print(f"[gpt-profile] GPT-Small bf16+master, micro 8 x K=4, seq 512, {updates} updates: "
+    gemms = "float32 GEMMs" if f32 else "float32 GEMMs (the tied head)"
+    print(f"[gpt-profile] GPT-Small {name}, micro 8 x K=4, seq 512, {updates} updates: "
           f"{wall / updates * 1e3:.2f} ms/update wall, card busy {busy / updates * 1e3:.2f} "
           f"ms/update (idle share {1 - busy / wall:.3f}), "
           f"{sum(c for _, _, c in kernels) / updates:.0f} kernels/update, flash kernels "
-          f"{flash / updates * 1e3:.2f} ms/update, float32 GEMMs (the tied head) "
-          f"{head / updates * 1e3:.2f} ms/update ({head / busy:.3f} of busy)")
+          f"{flash / updates * 1e3:.2f} ms/update ({flash / busy:.3f} of busy; dq + dk/dv "
+          f"{bwd / updates * 1e3:.2f}), {gemms} {head / updates * 1e3:.2f} ms/update "
+          f"({head / busy:.3f} of busy)")
     for key, t, count in sorted(kernels, key=lambda x: -x[1])[:10]:
         print(f"[gpt-profile]   {t / updates / 1e3:8.3f} ms/update  {count // updates:5d}x  "
               f"{key[:90]}")
@@ -1445,7 +1486,7 @@ def phase_gpt_guard(micro: int = GPT_MICRO):
 
 def phase_gpt_lm(steps: int = 32):
     """The gpt_lm entry point with --flash (float32: every launch on the
-    scalar kernels) in scan and streaming mode, with --sample 40."""
+    float32 route ``scalar``) in scan and streaming mode, with --sample 40."""
     from gradaccum_tpu_torch.examples import gpt_lm
     from gradaccum_tpu_torch.ops import flash_attention as fa
 
@@ -1473,7 +1514,7 @@ def phase_gpt_lm(steps: int = 32):
               f"{r['eval_batches']} batches), {r['examples/s']:.1f} seq/s, decode "
               f"{r['decode_tokens_per_sec']:.1f} tokens/s (recompute); launches {counts}, all "
               f"scalar; sample {r['sample']!r}")
-        out[mode] = r
+        out[mode] = dict(r, launches=counts)
     return out
 
 
@@ -1486,6 +1527,47 @@ def _smi():
         return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "not read"
     except (OSError, subprocess.TimeoutExpired, IndexError):
         return "not read"
+
+
+def kernels_line(counts, worst, timing, timing_f32, timing_gpt, timing_gpt_f32,
+                 timing_gpt_lm, ladder, gpt_lm_runs):
+    """The ``{"kernels": [...]}`` entries: each kernel in bfloat16 and in
+    float32, with its launches, largest error against the plain version,
+    and its card, plain, bound and library times (phase_timing's tuples)."""
+    lm_per_update = 4 * gpt_lm_runs["scan"]["accum_k"]  # gpt_lm's layers x K
+    lm_counts = gpt_lm_runs["scan"]["launches"]
+
+    def at(timed, name, per_update=None):
+        t_ms, t_plain, t_library, t_bounds = timed
+        out = {"ms": t_ms[name], "plain_ms": t_plain[name], "bound_ms": t_bounds[name][0],
+               "bound_by": t_bounds[name][1], "library_ms": t_library[name]}
+        if per_update is not None:
+            out["launches_per_update"] = per_update
+        return out
+
+    kernels = []
+    for name in REPLACES:
+        # bfloat16 (tc): launches from the main path, times at its shape
+        # (BERT-Small, padded mask) and at GPT-Small's causal [8, 8, 512, 64]
+        kernels.append({
+            "name": name, "dtype": "bfloat16", "route": "cuda",
+            "source": SOURCES["torch.bfloat16"], "replaces": REPLACES[name],
+            "launches": counts[name], "max_abs_err": worst[(name, "torch.bfloat16")],
+            **at(timing, name),
+            "gpt_causal": at(timing_gpt, name, ladder[1]["launches_per_update"])})
+    for name in REPLACES:
+        # float32 (the scalar route): launches from gpt_lm --flash in scan
+        # mode, the float32 path whose counts were zeroed before it; times
+        # at the BERT shape in float32, GPT-Small's and gpt_lm's
+        kernels.append({
+            "name": f"{name}_f32", "dtype": "float32", "route": "cuda",
+            "source": SOURCES["torch.float32"], "replaces": REPLACES[name],
+            "launches": lm_counts[name], "launches_from": "gpt_lm --flash --mode scan",
+            "max_abs_err": worst[(name, "torch.float32")],
+            **at(timing_f32, name),
+            "gpt_causal": at(timing_gpt_f32, name, ladder[0]["launches_per_update"]),
+            "gpt_lm_causal": at(timing_gpt_lm, name, lm_per_update)})
+    return kernels
 
 
 def main() -> int:
@@ -1508,9 +1590,10 @@ def main() -> int:
         phase_build()  # every other phase needs the kernels
         worst = phase_kernels()
         timing = phase_timing()
+        timing_f32 = phase_timing(dtype=torch.float32)  # bert_finetune's default dtype
         timing_gpt = phase_timing(GPT_SHAPE, masked=False, causal=True, label="gpt")
-        phase_timing(GPT_SHAPE, masked=False, causal=True, label="gpt",
-                     dtype=torch.float32)
+        timing_gpt_f32 = phase_timing(GPT_SHAPE, masked=False, causal=True, label="gpt",
+                                      dtype=torch.float32)
         timing_gpt_lm = phase_timing(GPT_LM_SHAPE, masked=False, causal=True,
                                      label="gpt_lm", dtype=torch.float32)
         phase_agree()
@@ -1532,6 +1615,7 @@ def main() -> int:
         phase_moe()
         ladder = phase_gpt_ladder()
         phase_gpt_profile()
+        phase_gpt_profile(f32=True)
         phase_gpt_guard()
         gpt_lm_runs = phase_gpt_lm()
     except SmokeError as e:
@@ -1539,27 +1623,8 @@ def main() -> int:
         return 1
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
-    ms, plain, library, bounds = timing
-    lm_per_update = 4 * gpt_lm_runs["scan"]["accum_k"]  # gpt_lm's layers x K
-
-    def at(timed, name, per_update):
-        t_ms, t_plain, t_library, t_bounds = timed
-        return {"ms": t_ms[name], "plain_ms": t_plain[name], "bound_ms": t_bounds[name][0],
-                "bound_by": t_bounds[name][1], "library_ms": t_library[name],
-                "launches_per_update": per_update}
-
-    kernels = []
-    for name in REPLACES:
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": counts[name],
-            "max_abs_err": worst[(name, "torch.bfloat16")], "ms": ms[name],
-            "plain_ms": plain[name], "bound_ms": bounds[name][0],
-            "bound_by": bounds[name][1], "library_ms": library[name],
-            # GPT-Small's causal attention, bf16 [8, 8, 512, 64] (tc), and
-            # gpt_lm's, float32 [16, 4, 64, 32] (scalar)
-            "gpt_causal": at(timing_gpt, name, ladder[1]["launches_per_update"]),
-            "gpt_lm_causal": at(timing_gpt_lm, name, lm_per_update)})
+    kernels = kernels_line(counts, worst, timing, timing_f32, timing_gpt, timing_gpt_f32,
+                           timing_gpt_lm, ladder, gpt_lm_runs)
     print(_smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

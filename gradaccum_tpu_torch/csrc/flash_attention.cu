@@ -1,18 +1,28 @@
-// Flash attention for Hopper (sm_90a), scalar route: forward, dq (+ delta)
-// and dk/dv (+ dmask), float32 only.
+// Flash attention for Hopper (sm_90a), float32: forward (K1), dq + delta
+// (K2) and dk/dv + per-head dmask (K3).
+//
+// Replaces, for float32 inputs, the TPU kernels
+//   _fwd_kernel  gradaccum_tpu/ops/flash_attention.py:127 (K1)
+//   _dq_kernel   gradaccum_tpu/ops/flash_attention.py:348 (K2), with the
+//                delta = rowsum(dO * O) that _flash_backward computes
+//                before it (:476)
+//   _dkv_kernel  gradaccum_tpu/ops/flash_attention.py:399 (K3)
+// K1 is scalar float32 FMA, one thread per query row. K2 and K3 run every
+// matrix product on the tensor cores as 3xTF32 mma.sync (below).
 //
 // Built by gradaccum_tpu_torch/utils/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // into a shared library with a plain C interface, loaded with ctypes by
 // gradaccum_tpu_torch/ops/flash_attention.py. The wrapper there checks
-// device, dtype, shape and contiguity, allocates every output, and raises
-// when a function below returns a non-zero cudaGetLastError().
+// device, dtype, shape, contiguity and 16-byte alignment, allocates every
+// output, and raises when a function below returns a non-zero
+// cudaGetLastError().
 //
 // Which dtype runs where (fixed, by dtype, in the wrapper): every bfloat16
-// kernel (K1, K2, K3) runs on the tensor cores in flash_attention_tc.cu, and
-// bfloat16 never reaches this file; this file serves float32, because only
-// plain float32 FMA (no TF32) holds the float32 tolerances against the
-// plain PyTorch version.
+// kernel runs in flash_attention_tc.cu, and bfloat16 never reaches this
+// file. The wrapper's route key for this file is still "scalar": it now
+// names the float32 route, K2 and K3 included, and is renamed when K1
+// moves to the tensor cores too, so that the route checks change once.
 //
 // Layout (the JAX package's): q, k, v, dO, o, dq, dk, dv are [B, H, S, D]
 // contiguous; the optional additive key mask is [B, 1, 1, S] in the input
@@ -20,29 +30,86 @@
 // the dk/dv kernel reads it); dmask is [B, H, S] float32 (one row per head,
 // summed over heads by the caller). Every sum is float32.
 //
-// Design, shared by the three kernels. The TPU kernels walk a sequential
-// grid axis over k-blocks (or q-blocks) and carry their sums in VMEM
-// scratch. Here that axis is a loop inside one CUDA block: a block owns
-// kRows rows of the output (query rows for the forward and dq, key rows
-// for dk/dv), one thread per row, and streams the other operand through
-// shared memory kTile rows at a time. Each thread keeps its running sums
-// in registers and its own input rows in shared memory padded to D+1
-// floats (conflict-free per-thread reads); the streamed tile is read by
-// every thread at the same address (a broadcast). No sum crosses blocks,
-// so no atomics and no second pass.
+// What bounds them. At the BERT-Small shape [8, 8, 128, 64] float32 (mask,
+// dropout), K1 / K2 / K3 move 8.5 / 12.7 / 12.7 MB (2.5 / 3.8 / 3.8 us at
+// 3.35 TB/s) and do 0.27 / 0.40 / 0.54 GFLOP: 1.6 / 2.4 / 3.3 us at the
+// 165 TFLOP/s of float32-accurate products this card has (495 TFLOP/s of
+// TF32, three products each), 4.0 / 6.0 / 8.0 us at the 67 TFLOP/s of
+// float32 FMA. At GPT-Small's [8, 8, 512, 64], causal, K2 and K3 each move
+// 50.6 MB (15.1 us) and do 3.22 and 4.29 GFLOP (19.5 and 26.0 us at 165
+// TFLOP/s; 48 and 64 us at 67).
 //
-// What bounds it. At the BERT-Small shape [8, 8, 128, 64] in float32 each
-// kernel moves 8.5-13 MB, a bound of 2.5-3.9 us at 3.35 TB/s, and does
-// 0.27-0.54 GFLOP, 4-8 us at the 67 TFLOP/s of float32 FMA.
-// These kernels do the products as scalar float32 FMA with one thread per
-// row, so the rate of FMA and shared-memory load instructions bounds them,
-// and B*H*S = 8192 threads leave most of the card's warp slots empty.
+// K1 (scalar). A block owns kRows query rows, one thread per row, and
+// streams the keys through shared memory kTile rows at a time; each thread
+// keeps its online softmax and output row in registers, its own query row
+// in shared memory padded to D+1 floats, and reads the streamed tile at the
+// address every thread reads (a broadcast). The rate of FMA and
+// shared-memory load instructions bounds it.
+//
+// K2 and K3 (3xTF32 on the tensor cores). What the design does about the
+// limits of the scalar kernels they replace (one thread per row, two
+// shared-memory loads per FMA, element-wise tile loads with a __syncthreads
+// per 32-row tile, and dk[D], dv[D] per thread, which spilled at D = 128):
+// - Every product is mma.sync.m16n8k8 tf32 -> f32: S = Q K^T, dP = dO V^T,
+//   dq += dS K in K2; S^T = K Q^T, dP^T = V dO^T, dv += drop(P^T) dO,
+//   dk += dS^T Q in K3. Each float32 operand x is split into
+//   big = cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big), and a product
+//   is three mma into one float32 accumulator: small_a big_b, then
+//   big_a small_b, then big_a big_b. The dropped small_a small_b term and
+//   the rounding of small are about 2^-22 of each product, near float32's
+//   own rounding, where one TF32 product errs by about 2^-11.
+// - A block is 4 warps owning 64 output rows, 16 per warp (query rows for
+//   K2, key rows for K3). The other operand streams through shared memory
+//   in 32-row stages fetched by 16-byte cp.async copies, zero-filled past
+//   S and double-buffered, one __syncthreads per stage. A warp works 16
+//   streamed rows at a time. No sum crosses blocks, so no atomics.
+// - Each stage is split once, when it lands: every thread splits the
+//   16-byte chunks it copied itself (it sees its own copies after
+//   cp.async.wait_group, so no barrier is needed first), the big parts in
+//   place and the small parts into a twin tile. The four warps then read
+//   their B fragments already split, with no arithmetic; splitting at each
+//   use made every warp split every streamed value again.
+// - The own rows (Q and dO in K2, K and V in K3) stay raw in shared memory
+//   and are read and split at use. The k loop of S and dP is unrolled, so
+//   the compiler keeps those fragments in registers across a stage's steps
+//   where registers allow. __launch_bounds__(128, 1) lets it use up to 255
+//   registers a thread: without the bound it held dk/dv at D = 32 to 96
+//   registers and spilled. Shared memory (two own tiles, eight stage tiles
+//   of D + 4 floats a row) is 104 KB a block at D = 64 (two blocks an SM)
+//   and 203 KB at D = 128 (one).
+// - The accumulators live in m16n8 C fragments spread over the warp: 16 x D
+//   floats per warp for dq, twice that for dk and dv, D/2 and D registers a
+//   thread.
+// - Shared-memory rows are D + 4 floats. The fragment loads are 32-bit
+//   ld.shared: A fragments and the B fragments of S and dP read rows g and
+//   columns t (+4), banks 4 g + t; the B fragments of dq, dv and dk read
+//   rows 2 t and 2 t + 1 at column g, banks 8 t + g (+4). Both are free of
+//   bank conflicts at every D.
+// - Blocks are taken row block by row block, each for every (b, h), the
+//   longest first (block_coords): under causal masking the last query rows
+//   (K2) and the first key rows (K3) meet the most pairs, and ending on the
+//   short ones keeps the last wave from running on a few SMs.
+// - P and dS go from one product to the next in registers, with no shuffle
+//   and no trip through shared memory. The m16n8 C fragment holds rows g,
+//   g + 8 at columns 2 t, 2 t + 1; the m16k8 A fragment holds rows g, g + 8
+//   at columns t, t + 4. A sum over k may visit k in any order, so each
+//   8-wide k step of dq += dS K, dv += drop(P^T) dO and dk += dS^T Q feeds
+//   the tensor core its k index l as streamed row 2 (l % 4) + l / 4: the C
+//   registers (c0, c2, c1, c3) are then the A fragment, and the B fragment
+//   is read from streamed rows 2 t and 2 t + 1.
+// - Causal: K2 stops after the block's last query row and a warp after its
+//   own; K3 starts at the block's first key and a warp skips the query
+//   steps before its own. Elements past the diagonal are masked one by one.
+// - delta (K2) is plain float32 FMA over dO and O read from device memory,
+//   summed across the 4 lanes that share a row; it is not a matrix
+//   product. dmask (K3) sums dS per key in float32 across the quad.
 //
 // Attention dropout is the JAX package's counter-based hash
 // (flash_common.cuh): the decision for element (b, h, i, j) is a
 // murmur3-finalizer chain keyed by the seed, the (b, h) slice, the query
 // position and the key position, kept when the hash is below
-// round(keep * 2^32). It reproduces the TPU kernels' bits.
+// round(keep * 2^32). K2 and K3 draw it for each C fragment slot at its
+// (query, key) position. It reproduces the TPU kernels' bits.
 
 #include "flash_common.cuh"
 
@@ -191,199 +258,581 @@ __global__ void __launch_bounds__(kRows)
 }
 
 // ---------------------------------------------------------------------------
+// K2 and K3: tensor cores, 3xTF32. Shared-memory tiles are
+// [rows][D + kPad] float32.
+//
+// Fragment layout of mma.m16n8k8 tf32 (lane = 4 g + t): A (16 x 8) a0..a3
+// are rows g, g + 8, g, g + 8 at columns t, t, t + 4, t + 4; B (8 x 8) b0,
+// b1 are rows t, t + 4 at column g; C (16 x 8) c0..c3 are rows g, g, g + 8,
+// g + 8 at columns 2 t, 2 t + 1, 2 t, 2 t + 1.
+// ---------------------------------------------------------------------------
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBlockRows = 16 * kWarps;  // output rows per block, 16 per warp
+constexpr int kStage = 32;               // streamed rows per pipeline stage
+constexpr int kStep = 16;                // streamed rows per step of a warp
+constexpr int kPad = 4;                  // float padding per shared-memory row
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid (the
+// source is then not read, but must still be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x rounded to TF32 (10 mantissa bits, nearest, ties away from zero), with
+// the 13 bits below it cleared so the register also reads as that float
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
+
+// the 3xTF32 split: big = tf32(x), small = tf32(x - big); the tensor core
+// reads only the upper 19 bits of small, so they need no clearing
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(x - __uint_as_float(big)));
+}
+
+// an operand's fragment registers, split
+template <int N>
+struct Split {
+  uint32_t big[N];
+  uint32_t small[N];
+};
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32: the two small terms first, then big x big
+__device__ __forceinline__ void mma3(float (&d)[4], const Split<4>& a,
+                                     const Split<2>& b) {
+  mma_tf32(d, a.small, b.big[0], b.big[1]);
+  mma_tf32(d, a.big, b.small[0], b.small[1]);
+  mma_tf32(d, a.big, b.big[0], b.big[1]);
+}
+
+// A fragment of rows row0.. (16) and columns col0.. (8) of a tile
+template <int D>
+__device__ __forceinline__ void load_a(Split<4>& a, const float* tile, int row0,
+                                       int col0, int g, int t) {
+  const float* r = tile + (row0 + g) * (D + kPad) + col0 + t;
+  split(r[0], a.big[0], a.small[0]);
+  split(r[8 * (D + kPad)], a.big[1], a.small[1]);
+  split(r[4], a.big[2], a.small[2]);
+  split(r[8 * (D + kPad) + 4], a.big[3], a.small[3]);
+}
+
+// The B operands come from streamed tiles that split_tile has split: the
+// big parts in the tile, the small parts `small` floats after it.
+
+// B fragment when the tile holds B^T as rows: n = rows row0..row0+7,
+// k = columns col0..col0+7
+template <int D>
+__device__ __forceinline__ void load_b_rows(Split<2>& b, const float* tile, int small,
+                                            int row0, int col0, int g, int t) {
+  const float* r = tile + (row0 + g) * (D + kPad) + col0 + t;
+  b.big[0] = __float_as_uint(r[0]);
+  b.small[0] = __float_as_uint(r[small]);
+  b.big[1] = __float_as_uint(r[4]);
+  b.small[1] = __float_as_uint(r[small + 4]);
+}
+
+// B fragment when the tile holds B itself: k = rows row0..row0+7 in the
+// order of a_from_c (k index l at row 2 (l % 4) + l / 4), n = columns
+// col0..col0+7
+template <int D>
+__device__ __forceinline__ void load_b_cols(Split<2>& b, const float* tile, int small,
+                                            int row0, int col0, int g, int t) {
+  const float* r = tile + (row0 + 2 * t) * (D + kPad) + col0 + g;
+  b.big[0] = __float_as_uint(r[0]);
+  b.small[0] = __float_as_uint(r[small]);
+  b.big[1] = __float_as_uint(r[D + kPad]);
+  b.small[1] = __float_as_uint(r[small + D + kPad]);
+}
+
+// the A fragment (16 x 8, k in load_b_cols's order) of a C fragment's
+// values: c0, c2, c1, c3 are A rows g, g + 8, g, g + 8 at k = t, t, t + 4,
+// t + 4, which are C columns 2 t, 2 t, 2 t + 1, 2 t + 1
+__device__ __forceinline__ void a_from_c(Split<4>& a, const float (&c)[4]) {
+  split(c[0], a.big[0], a.small[0]);
+  split(c[2], a.big[1], a.small[1]);
+  split(c[1], a.big[2], a.small[2]);
+  split(c[3], a.big[3], a.small[3]);
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// rows [r0, r0 + NR) of a [S, D] slice into a tile; rows past S are zero
+template <int D, int NR>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0,
+                                          int S) {
+  constexpr int kChunks = D / 4;  // 16-byte chunks per row
+  for (int idx = threadIdx.x; idx < NR * kChunks; idx += kThreads) {
+    const int r = idx / kChunks;
+    const int c = idx - r * kChunks;
+    const bool valid = r0 + r < S;
+    cp_async16(dst + r * (D + kPad) + c * 4,
+               src + (size_t)(valid ? r0 + r : 0) * D + c * 4, valid);
+  }
+}
+
+// Split, in place, the 16-byte chunks of a tile that this thread copied
+// with load_tile<D, NR>: big parts stay, small parts go `small` floats on.
+// After cp.async.wait_group a thread sees its own copies, so this needs no
+// barrier before it, only the one after.
+template <int D, int NR>
+__device__ __forceinline__ void split_tile(float* tile, int small) {
+  constexpr int kChunks = D / 4;
+  for (int idx = threadIdx.x; idx < NR * kChunks; idx += kThreads) {
+    const int r = idx / kChunks;
+    const int c = idx - r * kChunks;
+    float4* x = reinterpret_cast<float4*>(tile + r * (D + kPad) + c * 4);
+    float4 big = *x, sm;
+    float* b = &big.x;
+    float* s = &sm.x;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t hi, lo;
+      split(b[i], hi, lo);
+      b[i] = __uint_as_float(hi);
+      s[i] = __uint_as_float(lo);
+    }
+    *x = big;
+    *reinterpret_cast<float4*>(tile + small + r * (D + kPad) + c * 4) = sm;
+  }
+}
+
+// The block's (b, h) and first output row, with the blocks taken in
+// launch order slice by slice: every (b, h) of one row block before the
+// next. Causal attention gives the row blocks unequal work (the last query
+// rows meet the most keys, the first key rows the most queries), so the
+// longest go first (`last_first`: the dq kernel) and the short ones fill
+// the tail.
+__device__ __forceinline__ void block_coords(const Params& p, bool last_first, int& b,
+                                             int& h, int& bh, int& row0) {
+  const int slices = gridDim.y * gridDim.z;
+  const int linear = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int rb = linear / slices;
+  bh = linear - rb * slices;
+  b = bh / p.H;
+  h = bh - b * p.H;
+  row0 = (last_first ? gridDim.x - 1 - rb : rb) * kBlockRows;
+}
+
+// a warp's 16 x D accumulators, times `mul`, to rows row_a (C rows g) and
+// row_a + 8 of a [S, D] slice: each quad writes 32 contiguous bytes
+template <int D>
+__device__ __forceinline__ void store_rows_c(float* out, const float (&acc)[D / 8][4],
+                                             float mul, int row_a, int S, int t) {
+  const int row_b = row_a + 8;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (row_a < S)
+      *reinterpret_cast<float2*>(out + (size_t)row_a * D + col) =
+          make_float2(acc[n][0] * mul, acc[n][1] * mul);
+    if (row_b < S)
+      *reinterpret_cast<float2*>(out + (size_t)row_b * D + col) =
+          make_float2(acc[n][2] * mul, acc[n][3] * mul);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K2, dq (+ delta), float32. Replaces _dq_kernel
-// (gradaccum_tpu/ops/flash_attention.py:348, from _flash_backward :466) for
-// float32, and the row correction delta = rowsum(dO * O) that
-// _flash_backward computes before it (:476); bfloat16 runs
-// flash_attention_tc.cu. One block per (b, h, kRows query rows); each
-// thread first takes the dot of its dO row with its O row (delta, written
-// for the dk/dv kernel), then the loop over key tiles recomputes
-// P = exp(S - lse), dP = dO.V^T (dropped and scaled like the forward),
-// dS = P (dP - delta), and sums dq += dS.K in registers; the softmax scale
-// is applied once at the end.
-// Bound at [8,8,128,64] float32: 12.7 MB (3.8 us) against 0.40 GFLOP (6 us
-// of float32 FMA); as for the forward, the rate of scalar FMA bounds it.
+// (gradaccum_tpu/ops/flash_attention.py:348, from _flash_backward :466) and
+// the delta = rowsum(dO * O) that _flash_backward computes before it
+// (:476). One block per (b, h, 64 query rows); warp w owns rows
+// 16 w .. 16 w + 15, whose Q and dO rows stay in shared memory. The keys
+// and values (and the mask row) stream through two 32-row stages, each
+// split into its TF32 parts once it lands.
+// Per 16 keys, each warp computes S = Q K^T and dP = dO V^T (16 queries x
+// 16 keys), then P = exp(S scale + mask_j - lse_i), the keep bits
+// keep(rseed_i, j), dS = P (drop(dP) - delta_i), all float32, and adds
+// dq += dS K, the B operand read from the same K stage by rows. dq is
+// scaled by the softmax scale once, at the end.
+// Bound: see the header (bytes at BERT-Small, operations at GPT-Small at
+// 165 TFLOP/s).
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(kRows)
-    flash_dq_kernel(const Params p) {
-  extern __shared__ float smem[];
-  float* q_s = smem;                     // [kRows][D+1] own query rows
-  float* do_s = q_s + kRows * (D + 1);   // [kRows][D+1] own dO rows
-  float* k_s = do_s + kRows * (D + 1);   // [kTile][D]
-  float* v_s = k_s + kTile * D;          // [kTile][D]
-  float* mask_s = v_s + kTile * D;       // [kTile]
+__global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel(const Params p) {
+  constexpr int kStride = D + kPad;
+  constexpr int kStageElems = kStage * kStride;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);  // [kBlockRows][kStride]
+  float* do_s = q_s + kBlockRows * kStride;         // [kBlockRows][kStride]
+  // [2 stages][K, K small, V, V small][kStage][kStride]: split_tile splits
+  // each stage into big (in place) and small parts once it lands
+  float* kv_s = do_s + kBlockRows * kStride;
+  float* mask_s = kv_s + 8 * kStageElems;  // [2][kStage]
 
   const int S = p.S;
-  const int b = blockIdx.z, h = blockIdx.y, bh = b * p.H + h;
-  const int q0 = blockIdx.x * kRows;
-  const int row = q0 + threadIdx.x;
-  const bool active = row < S;
+  int b, h, bh, q0;
+  block_coords(p, true, b, h, bh, q0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
   const size_t slice = (size_t)bh * S * D;
+  const float* dout = static_cast<const float*>(p.dout) + slice;
   const float* k = static_cast<const float*>(p.k) + slice;
   const float* v = static_cast<const float*>(p.v) + slice;
-  const float* mask = static_cast<const float*>(p.mask);
+  const float* mask =
+      p.mask != nullptr ? static_cast<const float*>(p.mask) + (size_t)b * S : nullptr;
 
-  load_rows<D, kRows, D + 1>(q_s, static_cast<const float*>(p.q) + slice, q0, S);
-  load_rows<D, kRows, D + 1>(do_s, static_cast<const float*>(p.dout) + slice, q0, S);
-  const float lse_r = active ? p.lse[(size_t)bh * S + row] : 0.f;
-  const uint32_t rseed =
-      p.dropout ? row_seed((uint32_t)(*p.seed), (uint32_t)bh, (uint32_t)row) : 0u;
-  const float* qr = q_s + threadIdx.x * (D + 1);
-  const float* dor = do_s + threadIdx.x * (D + 1);
+  const int k_end = p.causal ? min(S, q0 + kBlockRows) : S;
+  const int n_stages = (k_end + kStage - 1) / kStage;
 
-  // delta = dO . O of this thread's row: its O row straight from device
-  // memory (read once, so not staged), its dO row from the tile
-  __syncthreads();  // do_s is filled by every thread
-  float delta_r = 0.f;
-  if (active) {
-    const float* orow = static_cast<const float*>(p.o) + slice + (size_t)row * D;
-#pragma unroll 16
-    for (int d = 0; d < D; ++d) delta_r = fmaf(dor[d], orow[d], delta_r);
-    p.out_f32[(size_t)bh * S + row] = delta_r;
-  }
+  // key/value stage `stage` (and its mask row, 0 past S or without a mask)
+  // into buffer `st`
+  auto load_kv = [&](int stage, int st) {
+    const int j0 = stage * kStage;
+    float* ks = kv_s + st * 4 * kStageElems;
+    load_tile<D, kStage>(ks, k, j0, S);
+    load_tile<D, kStage>(ks + 2 * kStageElems, v, j0, S);
+    if (threadIdx.x < kStage) {
+      const int j = j0 + threadIdx.x;
+      mask_s[st * kStage + threadIdx.x] = (mask != nullptr && j < S) ? mask[j] : 0.f;
+    }
+  };
 
-  float dq[D];
+  load_tile<D, kBlockRows>(q_s, static_cast<const float*>(p.q) + slice, q0, S);
+  load_tile<D, kBlockRows>(do_s, dout, q0, S);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // this lane's two query rows: a (g) and b (g + 8) of the warp's 16
+  const int row_w = q0 + warp * 16;  // the warp's first row
+  const int row_a = row_w + g, row_b = row_a + 8;
+  const bool in_a = row_a < S, in_b = row_b < S;
+
+  // delta of rows a and b, while the copies fly: lane t of the quad takes
+  // the 16-byte chunks t, t + 4, ... of each row, from device memory (O is
+  // read once; dO's copy in shared memory may not have landed)
+  float delta_a = 0.f, delta_b = 0.f;
+  {
+    const float* o = static_cast<const float*>(p.o) + slice;
 #pragma unroll
-  for (int d = 0; d < D; ++d) dq[d] = 0.f;
-
-  const int k_end = p.causal ? min(S, q0 + kRows) : S;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    const int kn = min(kTile, S - k0);
-    __syncthreads();
-    load_rows<D, kTile, D>(k_s, k, k0, S);
-    load_rows<D, kTile, D>(v_s, v, k0, S);
-    if (threadIdx.x < kTile)
-      mask_s[threadIdx.x] = (mask != nullptr && threadIdx.x < kn)
-                                ? mask[(size_t)b * S + k0 + threadIdx.x]
-                                : 0.f;
-    __syncthreads();
-    if (!active) continue;
-    const int jn = p.causal ? min(kn, row - k0 + 1) : kn;
-    for (int j = 0; j < jn; ++j) {
-      const float* kj = k_s + j * D;
-      const float pj = expf(dot_row<D>(qr, kj) * p.scale + mask_s[j] - lse_r);
-      float dp = dot_row<D>(dor, v_s + j * D);
-      if (p.dropout)
-        dp = keep(rseed, (uint32_t)(k0 + j), p.threshold) ? dp * p.inv_keep : 0.f;
-      const float ds = pj * (dp - delta_r);
-#pragma unroll
-      for (int d = 0; d < D; ++d) dq[d] = fmaf(ds, kj[d], dq[d]);
+    for (int c = t; c < D / 4; c += 4) {
+      if (in_a) {
+        const float4 x = *reinterpret_cast<const float4*>(dout + (size_t)row_a * D + 4 * c);
+        const float4 y = *reinterpret_cast<const float4*>(o + (size_t)row_a * D + 4 * c);
+        delta_a = fmaf(x.x, y.x, delta_a);
+        delta_a = fmaf(x.y, y.y, delta_a);
+        delta_a = fmaf(x.z, y.z, delta_a);
+        delta_a = fmaf(x.w, y.w, delta_a);
+      }
+      if (in_b) {
+        const float4 x = *reinterpret_cast<const float4*>(dout + (size_t)row_b * D + 4 * c);
+        const float4 y = *reinterpret_cast<const float4*>(o + (size_t)row_b * D + 4 * c);
+        delta_b = fmaf(x.x, y.x, delta_b);
+        delta_b = fmaf(x.y, y.y, delta_b);
+        delta_b = fmaf(x.z, y.z, delta_b);
+        delta_b = fmaf(x.w, y.w, delta_b);
+      }
     }
   }
-
-  __syncthreads();  // q_s is reused to stage the output rows
-  if (active) {
-    float* out = q_s + threadIdx.x * (D + 1);
-#pragma unroll
-    for (int d = 0; d < D; ++d) out[d] = dq[d] * p.scale;
+  delta_a = quad_sum(delta_a);
+  delta_b = quad_sum(delta_b);
+  if (t == 0) {
+    float* delta = p.out_f32 + (size_t)bh * S;
+    if (in_a) delta[row_a] = delta_a;
+    if (in_b) delta[row_b] = delta_b;
   }
-  __syncthreads();
-  store_rows<D>(static_cast<float*>(p.out0) + slice, q_s, q0, S);
+  const float lse_a = in_a ? p.lse[(size_t)bh * S + row_a] : 0.f;
+  const float lse_b = in_b ? p.lse[(size_t)bh * S + row_b] : 0.f;
+  uint32_t rseed_a = 0u, rseed_b = 0u;
+  if (p.dropout) {
+    const uint32_t seed = (uint32_t)(*p.seed);
+    rseed_a = row_seed(seed, (uint32_t)bh, (uint32_t)row_a);
+    rseed_b = row_seed(seed, (uint32_t)bh, (uint32_t)row_b);
+  }
+  // keys past this bound meet none of the warp's rows
+  const int warp_end = p.causal ? min(k_end, row_w + 16) : k_end;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int stage = 0; stage < n_stages; ++stage) {
+    const int st = stage & 1;
+    if (stage + 1 < n_stages) load_kv(stage + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this stage (and Q, dO) landed; the next may be in flight
+    float* ks = kv_s + st * 4 * kStageElems;
+    float* vs = ks + 2 * kStageElems;
+    split_tile<D, kStage>(ks, kStageElems);
+    split_tile<D, kStage>(vs, kStageElems);
+    __syncthreads();
+    const float* ms = mask_s + st * kStage;
+    const int j0 = stage * kStage;
+
+    for (int c = 0; c < kStage / kStep && j0 + c * kStep < warp_end; ++c) {
+      // S = Q K^T and dP = dO V^T: 16 queries x 16 keys, 2 n-tiles each
+      float sc[2][4], dp[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[n][e] = 0.f;
+          dp[n][e] = 0.f;
+        }
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        Split<4> qa, da;
+        load_a<D>(qa, q_s, warp * 16, kk * 8, g, t);
+        load_a<D>(da, do_s, warp * 16, kk * 8, g, t);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          Split<2> kb, vb;
+          load_b_rows<D>(kb, ks, kStageElems, c * kStep + n * 8, kk * 8, g, t);
+          load_b_rows<D>(vb, vs, kStageElems, c * kStep + n * 8, kk * 8, g, t);
+          mma3(sc[n], qa, kb);
+          mma3(dp[n], da, vb);
+        }
+      }
+
+      // element-wise, in float32: sc becomes dS
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int jl = c * kStep + n * 8 + 2 * t + (e & 1);
+          const int j = j0 + jl;
+          const int row = e < 2 ? row_a : row_b;
+          float pt = expf(sc[n][e] * p.scale + ms[jl] - (e < 2 ? lse_a : lse_b));
+          if (j >= S || (p.causal && j > row)) pt = 0.f;
+          float d = dp[n][e];
+          if (p.dropout)
+            d = keep(e < 2 ? rseed_a : rseed_b, (uint32_t)j, p.threshold) ? d * p.inv_keep
+                                                                          : 0.f;
+          sc[n][e] = pt * (d - (e < 2 ? delta_a : delta_b));
+        }
+      }
+
+      // dq += dS K: k = these 16 keys (two steps of 8), n = D
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        Split<4> sa;
+        a_from_c(sa, sc[n]);
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          Split<2> kb;
+          load_b_cols<D>(kb, ks, kStageElems, c * kStep + n * 8, dn * 8, g, t);
+          mma3(acc[dn], sa, kb);
+        }
+      }
+    }
+    __syncthreads();  // the stage is refilled by the next iteration's copy
+  }
+
+  store_rows_c<D>(static_cast<float*>(p.out0) + slice, acc, p.scale, row_a, S, t);
 }
 
 // ---------------------------------------------------------------------------
 // K3, dk/dv (+ per-head dmask), float32. Replaces _dkv_kernel
-// (gradaccum_tpu/ops/flash_attention.py:399, from _flash_backward :466) for
-// float32; bfloat16 runs flash_attention_tc.cu.
-// One block per (b, h, kRows key rows); the loop over query tiles recomputes
-// P and dS for the block's keys and sums dv += drop(P)^T.dO,
-// dk += dS^T.Q and, with a mask, dmask += sum_i dS in registers. Causal:
-// the loop starts at the tile holding the block's first key, and each key
-// skips the queries before it.
-// Bound at [8,8,128,64] float32: 13.0 MB (3.9 us) against 0.54 GFLOP (8 us
-// of float32 FMA), the most work of the three; scalar FMA issue bounds it.
+// (gradaccum_tpu/ops/flash_attention.py:399, from _flash_backward :466).
+// One block per (b, h, 64 key rows); warp w owns keys 16 w .. 16 w + 15,
+// whose K and V rows stay in shared memory. The queries (Q, dO, lse, delta
+// and the query rows' dropout seeds) stream through two 32-row stages, Q
+// and dO split into their TF32 parts once they land. Per 16 queries, each warp computes S^T = K Q^T and
+// dP^T = V dO^T (16 keys x 16 queries), then P^T = exp(S^T scale + mask_j
+// - lse_i), the keep bits keep(rseed_i, j), dS^T = P^T (drop(dP^T) -
+// delta_i), all float32, and adds dv += drop(P^T) dO, dk += dS^T Q and
+// dmask_j += sum_i dS^T. dk is scaled by the softmax scale once, at the
+// end.
+// Bound: see the header.
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(kRows)
-    flash_dkv_kernel(const Params p) {
-  extern __shared__ float smem[];
-  float* k_s = smem;                     // [kRows][D+1] own key rows
-  float* v_s = k_s + kRows * (D + 1);    // [kRows][D+1] own value rows
-  float* q_s = v_s + kRows * (D + 1);    // [kTile][D]
-  float* do_s = q_s + kTile * D;         // [kTile][D]
-  float* lse_s = do_s + kTile * D;       // [kTile]
-  float* delta_s = lse_s + kTile;        // [kTile]
-  uint32_t* rseed_s = reinterpret_cast<uint32_t*>(delta_s + kTile);  // [kTile]
+__global__ void __launch_bounds__(kThreads, 1) flash_dkv_kernel(const Params p) {
+  constexpr int kStride = D + kPad;
+  constexpr int kStageElems = kStage * kStride;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* k_s = reinterpret_cast<float*>(smem_raw);  // [kBlockRows][kStride]
+  float* v_s = k_s + kBlockRows * kStride;          // [kBlockRows][kStride]
+  // [2 stages][Q, Q small, dO, dO small][kStage][kStride], split as in K2
+  float* qdo_s = v_s + kBlockRows * kStride;
+  float* lse_s = qdo_s + 8 * kStageElems;  // [2][kStage]
+  float* delta_s = lse_s + 2 * kStage;              // [2][kStage]
+  uint32_t* rseed_s = reinterpret_cast<uint32_t*>(delta_s + 2 * kStage);  // [2][kStage]
 
   const int S = p.S;
-  const int b = blockIdx.z, h = blockIdx.y, bh = b * p.H + h;
-  const int k0 = blockIdx.x * kRows;
-  const int key = k0 + threadIdx.x;
-  const bool active = key < S;
+  int b, h, bh, k0;
+  block_coords(p, false, b, h, bh, k0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
   const size_t slice = (size_t)bh * S * D;
   const float* q = static_cast<const float*>(p.q) + slice;
   const float* dout = static_cast<const float*>(p.dout) + slice;
   const float* mask = static_cast<const float*>(p.mask);
   const uint32_t seed = p.dropout ? (uint32_t)(*p.seed) : 0u;
 
-  load_rows<D, kRows, D + 1>(k_s, static_cast<const float*>(p.k) + slice, k0, S);
-  load_rows<D, kRows, D + 1>(v_s, static_cast<const float*>(p.v) + slice, k0, S);
-  const float mask_j = (mask != nullptr && active) ? mask[(size_t)b * S + key] : 0.f;
-  const float* kr = k_s + threadIdx.x * (D + 1);
-  const float* vr = v_s + threadIdx.x * (D + 1);
+  const int i_begin = p.causal ? k0 : 0;
+  const int n_stages = (S - i_begin + kStage - 1) / kStage;
 
-  float dk[D], dv[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    dk[d] = 0.f;
-    dv[d] = 0.f;
-  }
-  float dmask = 0.f;
-
-  const int i_begin = p.causal ? (k0 / kTile) * kTile : 0;
-  for (int i0 = i_begin; i0 < S; i0 += kTile) {
-    const int qn = min(kTile, S - i0);
-    __syncthreads();
-    load_rows<D, kTile, D>(q_s, q, i0, S);
-    load_rows<D, kTile, D>(do_s, dout, i0, S);
-    if (threadIdx.x < kTile) {
+  // query stage `stage` into buffer `st`: Q, dO, lse, delta and the row
+  // seeds; rows past S are zero
+  auto load_q = [&](int stage, int st) {
+    const int i0 = i_begin + stage * kStage;
+    float* qs = qdo_s + st * 4 * kStageElems;
+    load_tile<D, kStage>(qs, q, i0, S);
+    load_tile<D, kStage>(qs + 2 * kStageElems, dout, i0, S);
+    if (threadIdx.x < kStage) {
       const int i = i0 + threadIdx.x;
-      const bool in = threadIdx.x < qn;
-      lse_s[threadIdx.x] = in ? p.lse[(size_t)bh * S + i] : 0.f;
-      delta_s[threadIdx.x] = in ? p.delta[(size_t)bh * S + i] : 0.f;
-      rseed_s[threadIdx.x] = p.dropout ? row_seed(seed, (uint32_t)bh, (uint32_t)i) : 0u;
+      const bool in = i < S;
+      lse_s[st * kStage + threadIdx.x] = in ? p.lse[(size_t)bh * S + i] : 0.f;
+      delta_s[st * kStage + threadIdx.x] = in ? p.delta[(size_t)bh * S + i] : 0.f;
+      rseed_s[st * kStage + threadIdx.x] =
+          p.dropout ? row_seed(seed, (uint32_t)bh, (uint32_t)i) : 0u;
     }
-    __syncthreads();
-    if (!active) continue;
-    const int i_first = p.causal ? max(0, key - i0) : 0;
-    for (int i = i_first; i < qn; ++i) {
-      const float* qi = q_s + i * D;
-      const float* doi = do_s + i * D;
-      const float pij = expf(dot_row<D>(qi, kr) * p.scale + mask_j - lse_s[i]);
-      float dp = dot_row<D>(doi, vr);
-      float pd = pij;
-      if (p.dropout) {
-        const bool kept = keep(rseed_s[i], (uint32_t)key, p.threshold);
-        dp = kept ? dp * p.inv_keep : 0.f;
-        pd = kept ? pij * p.inv_keep : 0.f;
-      }
-      const float ds = pij * (dp - delta_s[i]);
+  };
+
+  load_tile<D, kBlockRows>(k_s, static_cast<const float*>(p.k) + slice, k0, S);
+  load_tile<D, kBlockRows>(v_s, static_cast<const float*>(p.v) + slice, k0, S);
+  load_q(0, 0);
+  cp_async_commit();
+
+  // this lane's two key rows: a (g) and b (g + 8) of the warp's 16
+  const int key_w = k0 + warp * 16;  // the warp's first key
+  const int key_a = key_w + g, key_b = key_a + 8;
+  const float mask_a = (mask != nullptr && key_a < S) ? mask[(size_t)b * S + key_a] : 0.f;
+  const float mask_b = (mask != nullptr && key_b < S) ? mask[(size_t)b * S + key_b] : 0.f;
+
+  float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        dv[d] = fmaf(pd, doi[d], dv[d]);
-        dk[d] = fmaf(ds, qi[d], dk[d]);
-      }
-      dmask += ds;
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk[n][e] = 0.f;
+      dv[n][e] = 0.f;
     }
+  float dmask_a = 0.f, dmask_b = 0.f;
+
+  for (int stage = 0; stage < n_stages; ++stage) {
+    const int st = stage & 1;
+    if (stage + 1 < n_stages) load_q(stage + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this stage (and K, V) landed
+    float* qs = qdo_s + st * 4 * kStageElems;
+    float* dos = qs + 2 * kStageElems;
+    split_tile<D, kStage>(qs, kStageElems);
+    split_tile<D, kStage>(dos, kStageElems);
+    __syncthreads();
+    const float* ls = lse_s + st * kStage;
+    const float* dls = delta_s + st * kStage;
+    const uint32_t* rs = rseed_s + st * kStage;
+    const int i0 = i_begin + stage * kStage;
+
+    for (int c = 0; c < kStage / kStep && i0 + c * kStep < S; ++c) {
+      // causal: queries before the warp's first key meet none of its keys
+      if (p.causal && i0 + c * kStep + kStep <= key_w) continue;
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 16 queries, 2 n-tiles each
+      float sT[2][4], dpT[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sT[n][e] = 0.f;
+          dpT[n][e] = 0.f;
+        }
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        Split<4> ka, va;
+        load_a<D>(ka, k_s, warp * 16, kk * 8, g, t);
+        load_a<D>(va, v_s, warp * 16, kk * 8, g, t);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          Split<2> qb, db;
+          load_b_rows<D>(qb, qs, kStageElems, c * kStep + n * 8, kk * 8, g, t);
+          load_b_rows<D>(db, dos, kStageElems, c * kStep + n * 8, kk * 8, g, t);
+          mma3(sT[n], ka, qb);
+          mma3(dpT[n], va, db);
+        }
+      }
+
+      // element-wise, in float32: sT becomes dS^T, dpT drop(P^T)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int il = c * kStep + n * 8 + 2 * t + (e & 1);
+          const int i = i0 + il;
+          const int j = e < 2 ? key_a : key_b;
+          float pt = expf(sT[n][e] * p.scale + (e < 2 ? mask_a : mask_b) - ls[il]);
+          if (i >= S || (p.causal && j > i)) pt = 0.f;
+          float dp = dpT[n][e];
+          float pdrop = pt;
+          if (p.dropout) {
+            const bool kept = keep(rs[il], (uint32_t)j, p.threshold);
+            dp = kept ? dp * p.inv_keep : 0.f;
+            pdrop = kept ? pt * p.inv_keep : 0.f;
+          }
+          const float ds = pt * (dp - dls[il]);
+          if (e < 2) dmask_a += ds;
+          else dmask_b += ds;
+          sT[n][e] = ds;
+          dpT[n][e] = pdrop;
+        }
+      }
+
+      // dV += drop(P^T) dO, dK += dS^T Q: k = these 16 queries, n = D
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        Split<4> pa, sa;
+        a_from_c(pa, dpT[n]);
+        a_from_c(sa, sT[n]);
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          Split<2> db, qb;
+          load_b_cols<D>(db, dos, kStageElems, c * kStep + n * 8, dn * 8, g, t);
+          load_b_cols<D>(qb, qs, kStageElems, c * kStep + n * 8, dn * 8, g, t);
+          mma3(dv[dn], pa, db);
+          mma3(dk[dn], sa, qb);
+        }
+      }
+    }
+    __syncthreads();  // the stage is refilled by the next iteration's copy
   }
 
-  __syncthreads();  // k_s / v_s are reused to stage the output rows
-  if (active) {
-    float* dkr = k_s + threadIdx.x * (D + 1);
-    float* dvr = v_s + threadIdx.x * (D + 1);
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      dkr[d] = dk[d] * p.scale;
-      dvr[d] = dv[d];
-    }
-    if (p.out_f32 != nullptr) p.out_f32[(size_t)bh * S + key] = dmask;
+  dmask_a = quad_sum(dmask_a);
+  dmask_b = quad_sum(dmask_b);
+  if (p.out_f32 != nullptr && t == 0) {
+    float* dm = p.out_f32 + (size_t)bh * S;
+    if (key_a < S) dm[key_a] = dmask_a;
+    if (key_b < S) dm[key_b] = dmask_b;
   }
-  __syncthreads();
-  store_rows<D>(static_cast<float*>(p.out0) + slice, k_s, k0, S);
-  store_rows<D>(static_cast<float*>(p.out1) + slice, v_s, k0, S);
+  store_rows_c<D>(static_cast<float*>(p.out0) + slice, dk, p.scale, key_a, S, t);
+  store_rows_c<D>(static_cast<float*>(p.out1) + slice, dv, 1.f, key_a, S, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -396,11 +845,11 @@ constexpr size_t fwd_smem() {
 }
 template <int D>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (2 * kRows * (D + 1) + 2 * kTile * D + kTile);
+  return sizeof(float) * ((2 * kBlockRows + 8 * kStage) * (D + kPad) + 2 * kStage);
 }
 template <int D>
 constexpr size_t dkv_smem() {
-  return sizeof(float) * (2 * kRows * (D + 1) + 2 * kTile * D + 3 * kTile);
+  return sizeof(float) * ((2 * kBlockRows + 8 * kStage) * (D + kPad) + 6 * kStage);
 }
 
 enum Which { kFwd, kDq, kDkv };
@@ -410,8 +859,10 @@ int launch_d(Which which, const Params& p, int B, cudaStream_t stream) {
   if (which == kFwd)
     return flash::launch<flash_fwd_kernel<D>>(fwd_smem<D>(), p, B, kRows, kRows, stream);
   if (which == kDq)
-    return flash::launch<flash_dq_kernel<D>>(dq_smem<D>(), p, B, kRows, kRows, stream);
-  return flash::launch<flash_dkv_kernel<D>>(dkv_smem<D>(), p, B, kRows, kRows, stream);
+    return flash::launch<flash_dq_kernel<D>>(dq_smem<D>(), p, B, kBlockRows, kThreads,
+                                             stream);
+  return flash::launch<flash_dkv_kernel<D>>(dkv_smem<D>(), p, B, kBlockRows, kThreads,
+                                            stream);
 }
 
 int dispatch(Which which, int dtype, int D, const Params& p, int B,

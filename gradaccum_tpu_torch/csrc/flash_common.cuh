@@ -1,6 +1,6 @@
 // What the two flash-attention sources share: the hash dropout, the
 // argument block of every kernel and the launch. Included by
-// flash_attention.cu (scalar kernels) and flash_attention_tc.cu (tensor-core
+// flash_attention.cu (float32 kernels) and flash_attention_tc.cu (bfloat16
 // kernels); each is compiled on its own into a library of its own, so
 // nothing here needs external linkage.
 

@@ -7,8 +7,11 @@ dtype and nothing else:
 
 - ``tc`` (``csrc/flash_attention_tc.cu``): every bfloat16 kernel on the
   tensor cores (``mma.sync``, ``ldmatrix``, ``cp.async``).
-- ``scalar`` (``csrc/flash_attention.cu``): every float32 kernel, in plain
-  float32 FMA (the only route that holds float32's tolerances).
+- ``scalar`` (``csrc/flash_attention.cu``): every float32 kernel. The key
+  names the float32 route: its forward is scalar float32 FMA, and its dq
+  and dk/dv kernels run on the tensor cores in 3xTF32 (each operand split
+  into two TF32 parts, three products per product), which holds float32's
+  tolerances where a single TF32 product would not.
 
 The design and what bounds each kernel are noted in the sources.
 The forward saves only ``o`` and the per-row logsumexp; the backward
@@ -204,8 +207,9 @@ def build_kernels() -> dict:
 
 def route(dtype: torch.dtype) -> str:
     """The route a CUDA tensor of ``dtype`` takes through every kernel:
-    bfloat16 runs on the tensor cores, float32 on the scalar kernels. The
-    dtype alone decides."""
+    bfloat16 runs ``tc``, float32 ``scalar`` (the float32 route, whose dq
+    and dk/dv kernels use the tensor cores in 3xTF32). The dtype alone
+    decides."""
     return "tc" if dtype == torch.bfloat16 else "scalar"
 
 
@@ -249,10 +253,10 @@ def _check_inputs(q, k, v, mask, *rest):
     for t in (q, k, v, mask) + tuple(x for _, x in rest):
         if t is not None and not t.is_contiguous():
             raise ValueError("the flash kernels take contiguous tensors")
-    # the tensor-core kernels copy rows in 16-byte chunks (cp.async)
-    if q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 for t in (q, k, v) + tuple(x for _, x in rest)):
-        raise ValueError("bfloat16 q, k, v, dO and o must start on a 16-byte boundary")
+    # the tensor-core kernels (bfloat16, and the float32 dq and dk/dv) copy
+    # rows in 16-byte chunks (cp.async)
+    if any(t.data_ptr() % 16 for t in (q, k, v) + tuple(x for _, x in rest)):
+        raise ValueError("q, k, v, dO and o must start on a 16-byte boundary")
 
 
 def _check_rows(q, *rows):
