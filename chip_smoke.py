@@ -1,18 +1,18 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one NVIDIA H100.
 
-    python3 chip_smoke.py     # one card, about four minutes (one of them nvcc)
+    python3 chip_smoke.py     # one card, about two minutes
 
 Phases, each of which fails the run if it fails:
 
 1. build: compile every CUDA source of ``gradaccum_tpu_torch/csrc`` with
    nvcc (one process per source, all started together); print the time and
    each kernel's registers and spills as ptxas reports them, and fail if
-   the float32 dq or dk/dv kernel spills at any head dim.
+   any float32 kernel (forward, dq, dk/dv) spills at any head dim.
 2. kernels: hold each kernel against its plain PyTorch version on the card
    at the BERT-Small main-path shape q/k/v [8, 8, 128, 64], in float32
-   (``flash_attention.cu``: scalar forward, 3xTF32 tensor-core dq and
-   dk/dv) and bfloat16 (``flash_attention_tc.cu``), with a padded mask
+   (``flash_attention.cu``: forward, dq and dk/dv on the tensor cores in
+   3xTF32) and bfloat16 (``flash_attention_tc.cu``), with a padded mask
    and without, causal, and with attention dropout 0.1 under a fixed seed;
    in both dtypes also at ragged lengths S = 100 and 200 and at head dim
    128, in float32 also at head dims 16 and 32; and at GPT's shapes,
@@ -92,7 +92,7 @@ Phases, each of which fails the run if it fails:
     with masters and q8 moments; clip 1.0 except (c). Per leg: optimizer +
     accumulator and parameter bytes per parameter, peak memory above the
     starting state, seq/s and tokens/s, finite losses, launches exactly 16
-    per kernel per update (on the float32 route `scalar` in (a), the tensor cores
+    per kernel per update (on the float32 route ``tf32x3`` in (a), ``tc``
     otherwise). Then fused against two-pass bitwise at K=1 after one
     update, and 6 updates on one repeated batch with dropout 0: the bf16 +
     master loss within 8 % of the float32 loss at each, both below 0.8x
@@ -103,13 +103,19 @@ Phases, each of which fails the run if it fails:
     the first window and in all of the second: skip counts exact, the
     all-bad window a bitwise no-op over parameters, masters and moments,
     the scale halving at each dirty window.
-17. gpt_lm: the entry point with ``--flash`` (float32, route ``scalar``),
+17. gpt_lm: the entry point with ``--flash`` (float32, route ``tf32x3``),
     scan and streaming, 32 micro-steps and ``--sample 40``: the loss falls,
     token accuracy in [0, 1], launch counts exact from its JSON line.
+18. bert f32: the entry point ``bert_finetune`` at its default dtype
+    (float32, no ``--bf16``), BERT-Small width, seq 128, micro-batch 8 x
+    K=4, scan, 2 updates and its evaluations: the only entry-point run of
+    the float32 forward with a padded mask. Launch counts exact, every
+    launch on the float32 route ``tf32x3``.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON line describing every kernel in each dtype (bfloat16: launches
-from the main path; float32: from ``gpt_lm --flash`` in scan mode), and the
+from the main path; float32: from ``gpt_lm --flash`` in scan mode, and from
+phase 18 under ``launches_bert_f32``), and the
 result line ``{"ok": true, "device": {...}}``. Without a card, or without the package
 beside this script, it exits non-zero and prints no result.
 """
@@ -168,7 +174,7 @@ SOURCES = {"torch.bfloat16": f"{PACKAGE}/csrc/flash_attention_tc.cu",
 EXTRA_SHAPES = [(B, H, 100, D), (B, H, 200, D), (B, H, S, 128)]
 F32_EXTRA_SHAPES = EXTRA_SHAPES + [(B, H, S, 16), (B, H, S, 32)]
 # the float32 kernels ptxas must report without spills, at every head dim
-NO_SPILL = ("flash_dq_kernel", "flash_dkv_kernel")
+NO_SPILL = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
 # GPT-Small's attention (micro 8, 8 heads, seq 512, head dim 64: bf16 on the
 # tensor cores, and float32 in ladder leg (a)) and gpt_lm's (micro 16,
 # 4 heads, seq 64, head dim 32, float32): causal, no mask, dropout 0.1
@@ -410,8 +416,10 @@ def _device_ms(fn, iters=50, warmup=5, attempts=3):
     memset the calls launched, summed from torch.profiler's device events,
     over the number of calls. Host dispatch is not in it. Returns the time
     and the device events' names, the longest first. A window that records
-    no device event at all is profiled again (seen once, in the first
-    window of a process); a window never discards events it did record."""
+    no device event at all (seen once, in the first window of a process),
+    or an event a number of times that is not a multiple of the calls (a
+    window that lost some of its events would read low), is profiled again;
+    the last attempt's reading stands, with a note."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -423,11 +431,17 @@ def _device_ms(fn, iters=50, warmup=5, attempts=3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        device = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
-                         if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
-        if device:
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        device = sorted(((e.self_device_time_total, e.key) for e in events), reverse=True)
+        ragged = [f"{e.key[:40]} x{e.count}" for e in events if e.count % iters]
+        if device and (not ragged or attempt + 1 == attempts):
+            if ragged:
+                print(f"[timing] device events not a multiple of {iters} calls: {ragged}")
             return sum(t for t, _ in device) / iters / 1e3, [key for _, key in device]
-        print(f"[timing] profiler window {attempt + 1} of {attempts} saw no device event")
+        print(f"[timing] profiler window {attempt + 1} of {attempts} saw "
+              + (f"device events not a multiple of {iters} calls: {ragged}" if device
+                 else "no device event"))
     raise SmokeError("the profiler saw no device time: card times cannot be read")
 
 
@@ -599,7 +613,7 @@ def phase_main(updates: int):
     routes = fa.route_counts()
     check(math.isfinite(result["loss"]), f"main path loss is not finite: {result['loss']}")
     check(result["updates"] == updates, f"ran {result['updates']} updates, wanted {updates}")
-    _check_launches("main", counts, routes, layers * k * updates, result)
+    _check_launches("main", counts, routes, layers * k * updates, result, "tc")
     print(f"[main] BERT-Small bf16 micro 8 x K={k}, seq {S}: {updates} updates, "
           f"loss {result['loss']:.4f}, {result['seq/s']:.1f} seq/s, "
           f"mfu {result['mfu']:.4f}, eval accuracy {result['accuracy']:.4f} "
@@ -607,10 +621,10 @@ def phase_main(updates: int):
     return counts, result
 
 
-def _check_launches(phase, counts, routes, train_calls, result):
+def _check_launches(phase, counts, routes, train_calls, result, route):
     """Each training forward/backward launches every kernel once per layer;
-    each eval batch launches the forward once per layer. bf16: every launch
-    on the tensor cores."""
+    each eval batch launches the forward once per layer. Every launch on
+    ``route``: ``tc`` for bf16, ``tf32x3`` for float32."""
     evals = LAYERS * result["eval_batches"] * result["evaluations"]
     want = {"flash_fwd": train_calls + evals,
             "flash_bwd_dq": train_calls, "flash_bwd_dkv": train_calls}
@@ -618,7 +632,8 @@ def _check_launches(phase, counts, routes, train_calls, result):
                           f"per kernel in training, + {LAYERS} forward per eval batch x "
                           f"{result['eval_batches']} batches x {result['evaluations']} "
                           f"evaluations)")
-    want_routes = {name: {"tc": n, "scalar": 0} for name, n in want.items()}
+    want_routes = {name: {r: n if r == route else 0 for r in ("tc", "tf32x3")}
+                   for name, n in want.items()}
     check(routes == want_routes, f"{phase}: route counts {routes} != {want_routes}")
 
 
@@ -688,7 +703,7 @@ def phase_streaming(windows: int = 8):
     counts, routes = fa.launch_counts(), fa.route_counts()
     check(math.isfinite(result["loss"]), f"streaming loss is not finite: {result['loss']}")
     check(result["updates"] == windows, f"ran {result['updates']} windows, wanted {windows}")
-    _check_launches("streaming", counts, routes, LAYERS * steps, result)
+    _check_launches("streaming", counts, routes, LAYERS * steps, result, "tc")
     want_applies = list(range(0, steps, K))  # the first-step quirk: phase 0
     check(result["apply_steps"] == want_applies,
           f"streaming applied at {result['apply_steps']}, wanted {want_applies}")
@@ -1028,7 +1043,7 @@ def phase_warm_start(updates: int = 4):
     check(math.isfinite(result["loss"]), f"warm start: loss is not finite: {result['loss']}")
     check(result["updates"] == updates, f"warm start: ran {result['updates']} updates")
     check(0.0 <= result["accuracy"] <= 1.0, f"warm start: accuracy {result['accuracy']}")
-    _check_launches("warm-start", counts, routes, LAYERS * K * updates, result)
+    _check_launches("warm-start", counts, routes, LAYERS * K * updates, result, "tc")
     print(f"[warm-start] --hf-checkpoint --data-dir --bf16, micro 8 x K={K}: {updates} "
           f"updates, loss {result['first_loss']:.4f} -> {result['loss']:.4f}, eval accuracy "
           f"{result['accuracy']:.4f} ({result['evaluations']} evaluations of "
@@ -1183,7 +1198,7 @@ def phase_moe(updates: int = 4, experts: int = 8, top_k: int = 2):
     counts, routes = fa.launch_counts(), fa.route_counts()
     check(math.isfinite(result["loss"]), f"MoE: loss is not finite: {result['loss']}")
     check(result["updates"] == updates, f"MoE: ran {result['updates']} updates")
-    _check_launches("moe", counts, routes, LAYERS * K * updates, result)
+    _check_launches("moe", counts, routes, LAYERS * K * updates, result, "tc")
     check(np.isfinite(result["moe_dropped_fraction"]), "MoE: dropped fraction not finite")
     print(f"[moe] BERT-Small bf16, {experts} experts, top-{top_k}, micro 8 x K={K}: loss = ce "
           f"{ce:.6f} + 0.01 x load balance {float(aux):.6f} on one batch; {updates} updates, "
@@ -1288,7 +1303,7 @@ def _gpt_leg(name, compute_dtype, opt, fused=False, clip=1.0):
     check(math.isfinite(first) and math.isfinite(last), f"ladder {name}: loss {first} -> {last}")
     per_update = GPT_LAYERS * GPT_K
     want = {kname: per_update * LADDER_UPDATES for kname in counts}
-    route = "scalar" if compute_dtype is None else "tc"
+    route = "tf32x3" if compute_dtype is None else "tc"
     check(counts == want, f"ladder {name}: launches {counts} != {want}")
     check(all(routes[kname][route] == want[kname] for kname in want),
           f"ladder {name}: routes {routes}, all on {route} wanted")
@@ -1486,7 +1501,7 @@ def phase_gpt_guard(micro: int = GPT_MICRO):
 
 def phase_gpt_lm(steps: int = 32):
     """The gpt_lm entry point with --flash (float32: every launch on the
-    float32 route ``scalar``) in scan and streaming mode, with --sample 40."""
+    float32 route ``tf32x3``) in scan and streaming mode, with --sample 40."""
     from gradaccum_tpu_torch.examples import gpt_lm
     from gradaccum_tpu_torch.ops import flash_attention as fa
 
@@ -1506,16 +1521,41 @@ def phase_gpt_lm(steps: int = 32):
         forward = train + layers * (r["eval_batches"] * r["evaluations"] + r["sample_steps"])
         want = {"flash_fwd": forward, "flash_bwd_dq": train, "flash_bwd_dkv": train}
         check(counts == want, f"gpt_lm {mode}: launches {counts} != {want}")
-        check(all(routes[k]["scalar"] == n and routes[k]["tc"] == 0 for k, n in want.items()),
-              f"gpt_lm {mode}: routes {routes}, all scalar wanted")
+        check(all(routes[k]["tf32x3"] == n and routes[k]["tc"] == 0 for k, n in want.items()),
+              f"gpt_lm {mode}: routes {routes}, all tf32x3 wanted")
         print(f"[gpt_lm] --flash --mode {mode}: {r['steps']} micro-steps, {r['updates']} "
               f"updates, loss {r['first_loss']:.4f} -> {r['loss']:.4f}, token accuracy "
               f"{r['token_accuracy']:.4f} ({r['evaluations']} evaluations of "
               f"{r['eval_batches']} batches), {r['examples/s']:.1f} seq/s, decode "
               f"{r['decode_tokens_per_sec']:.1f} tokens/s (recompute); launches {counts}, all "
-              f"scalar; sample {r['sample']!r}")
+              f"tf32x3; sample {r['sample']!r}")
         out[mode] = dict(r, launches=counts)
     return out
+
+
+def phase_bert_f32(updates: int = 2):
+    """The entry point at its default dtype, float32 (no --bf16): BERT-Small,
+    seq 128, micro 8 x K=4, scan, ``updates`` updates and its evaluations.
+    The only entry-point run of the float32 forward with a padded mask;
+    every launch on the float32 route ``tf32x3``."""
+    from gradaccum_tpu_torch.examples import bert_finetune
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+
+    argv = ["--device", "cuda", "--vocab-size", "30522", "--seq-len", str(S),
+            "--accum-k", str(K), "--max-steps", str(updates * K)]
+    fa.reset_launch_counts()
+    result = bert_finetune.main(argv)
+    counts, routes = fa.launch_counts(), fa.route_counts()
+    check(result["dtype"] == "float32", f"bert f32: ran in {result['dtype']}")
+    check(math.isfinite(result["loss"]), f"bert f32: loss is not finite: {result['loss']}")
+    check(result["updates"] == updates, f"bert f32: ran {result['updates']} updates, "
+                                        f"wanted {updates}")
+    _check_launches("bert f32", counts, routes, LAYERS * K * updates, result, "tf32x3")
+    print(f"[bert-f32] BERT-Small float32 micro 8 x K={K}, seq {S}: {updates} updates, "
+          f"loss {result['first_loss']:.4f} -> {result['loss']:.4f}, {result['seq/s']:.1f} "
+          f"seq/s, eval accuracy {result['accuracy']:.4f} ({result['evaluations']} "
+          f"evaluations of {result['eval_batches']} batches); launches {counts}, all tf32x3")
+    return counts
 
 
 def _smi():
@@ -1530,7 +1570,7 @@ def _smi():
 
 
 def kernels_line(counts, worst, timing, timing_f32, timing_gpt, timing_gpt_f32,
-                 timing_gpt_lm, ladder, gpt_lm_runs):
+                 timing_gpt_lm, ladder, gpt_lm_runs, bert_f32_counts):
     """The ``{"kernels": [...]}`` entries: each kernel in bfloat16 and in
     float32, with its launches, largest error against the plain version,
     and its card, plain, bound and library times (phase_timing's tuples)."""
@@ -1556,13 +1596,15 @@ def kernels_line(counts, worst, timing, timing_f32, timing_gpt, timing_gpt_f32,
             **at(timing, name),
             "gpt_causal": at(timing_gpt, name, ladder[1]["launches_per_update"])})
     for name in REPLACES:
-        # float32 (the scalar route): launches from gpt_lm --flash in scan
-        # mode, the float32 path whose counts were zeroed before it; times
-        # at the BERT shape in float32, GPT-Small's and gpt_lm's
+        # float32 (route tf32x3): launches from gpt_lm --flash in scan mode,
+        # the float32 path whose counts were zeroed before it, and from
+        # bert_finetune at its float32 default; times at the BERT shape in
+        # float32, GPT-Small's and gpt_lm's
         kernels.append({
             "name": f"{name}_f32", "dtype": "float32", "route": "cuda",
             "source": SOURCES["torch.float32"], "replaces": REPLACES[name],
             "launches": lm_counts[name], "launches_from": "gpt_lm --flash --mode scan",
+            "launches_bert_f32": bert_f32_counts[name],
             "max_abs_err": worst[(name, "torch.float32")],
             **at(timing_f32, name),
             "gpt_causal": at(timing_gpt_f32, name, ladder[0]["launches_per_update"]),
@@ -1618,13 +1660,14 @@ def main() -> int:
         phase_gpt_profile(f32=True)
         phase_gpt_guard()
         gpt_lm_runs = phase_gpt_lm()
+        bert_f32_counts = phase_bert_f32()
     except SmokeError as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     kernels = kernels_line(counts, worst, timing, timing_f32, timing_gpt, timing_gpt_f32,
-                           timing_gpt_lm, ladder, gpt_lm_runs)
+                           timing_gpt_lm, ladder, gpt_lm_runs, bert_f32_counts)
     print(_smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,8 @@
 //                delta = rowsum(dO * O) that _flash_backward computes
 //                before it (:476)
 //   _dkv_kernel  gradaccum_tpu/ops/flash_attention.py:399 (K3)
-// K1 is scalar float32 FMA, one thread per query row. K2 and K3 run every
-// matrix product on the tensor cores as 3xTF32 mma.sync (below).
+// Every matrix product of the three runs on the tensor cores as 3xTF32
+// mma.sync (below).
 //
 // Built by gradaccum_tpu_torch/utils/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -20,9 +20,7 @@
 //
 // Which dtype runs where (fixed, by dtype, in the wrapper): every bfloat16
 // kernel runs in flash_attention_tc.cu, and bfloat16 never reaches this
-// file. The wrapper's route key for this file is still "scalar": it now
-// names the float32 route, K2 and K3 included, and is renamed when K1
-// moves to the tensor cores too, so that the route checks change once.
+// file. The wrapper's route key for this file is "tf32x3".
 //
 // Layout (the JAX package's): q, k, v, dO, o, dq, dk, dv are [B, H, S, D]
 // contiguous; the optional additive key mask is [B, 1, 1, S] in the input
@@ -30,76 +28,86 @@
 // the dk/dv kernel reads it); dmask is [B, H, S] float32 (one row per head,
 // summed over heads by the caller). Every sum is float32.
 //
-// What bounds them. At the BERT-Small shape [8, 8, 128, 64] float32 (mask,
-// dropout), K1 / K2 / K3 move 8.5 / 12.7 / 12.7 MB (2.5 / 3.8 / 3.8 us at
-// 3.35 TB/s) and do 0.27 / 0.40 / 0.54 GFLOP: 1.6 / 2.4 / 3.3 us at the
-// 165 TFLOP/s of float32-accurate products this card has (495 TFLOP/s of
-// TF32, three products each), 4.0 / 6.0 / 8.0 us at the 67 TFLOP/s of
-// float32 FMA. At GPT-Small's [8, 8, 512, 64], causal, K2 and K3 each move
-// 50.6 MB (15.1 us) and do 3.22 and 4.29 GFLOP (19.5 and 26.0 us at 165
-// TFLOP/s; 48 and 64 us at 67).
+// What bounds them, against the data-sheet peaks of an H100 SXM at its
+// 700 W power limit (the card measured: NVIDIA H100 80GB HBM3, 700.00 W).
+// At the BERT-Small shape [8, 8, 128, 64] float32 (mask, dropout), K1 / K2
+// / K3 move 8.5 / 12.7 / 12.7 MB (2.5 / 3.8 / 3.8 us at 3.35 TB/s) and do
+// 0.27 / 0.40 / 0.54 GFLOP: 1.6 / 2.4 / 3.3 us at the 165 TFLOP/s of
+// float32-accurate products this card has (495 TFLOP/s of TF32, three
+// products each), 4.0 / 6.0 / 8.0 us at the 67 TFLOP/s of float32 FMA:
+// bytes bound all three. At GPT-Small's [8, 8, 512, 64], causal, K1 / K2 /
+// K3 move 33.6 / 50.6 / 50.6 MB (10.0 / 15.1 / 15.1 us) and do 2.15 / 3.22
+// / 4.29 GFLOP (13.0 / 19.5 / 26.0 us at 165 TFLOP/s; 32 / 48 / 64 us at
+// 67): operations bound them. At gpt_lm's [16, 4, 64, 32], causal, K1
+// moves 2.1 MB (0.63 us) and does 0.017 GFLOP (0.10 us): bytes.
 //
-// K1 (scalar). A block owns kRows query rows, one thread per row, and
-// streams the keys through shared memory kTile rows at a time; each thread
-// keeps its online softmax and output row in registers, its own query row
-// in shared memory padded to D+1 floats, and reads the streamed tile at the
-// address every thread reads (a broadcast). The rate of FMA and
-// shared-memory load instructions bounds it.
-//
-// K2 and K3 (3xTF32 on the tensor cores). What the design does about the
-// limits of the scalar kernels they replace (one thread per row, two
-// shared-memory loads per FMA, element-wise tile loads with a __syncthreads
-// per 32-row tile, and dk[D], dv[D] per thread, which spilled at D = 128):
-// - Every product is mma.sync.m16n8k8 tf32 -> f32: S = Q K^T, dP = dO V^T,
-//   dq += dS K in K2; S^T = K Q^T, dP^T = V dO^T, dv += drop(P^T) dO,
-//   dk += dS^T Q in K3. Each float32 operand x is split into
-//   big = cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big), and a product
-//   is three mma into one float32 accumulator: small_a big_b, then
-//   big_a small_b, then big_a big_b. The dropped small_a small_b term and
-//   the rounding of small are about 2^-22 of each product, near float32's
-//   own rounding, where one TF32 product errs by about 2^-11.
+// The design (one for all three kernels), and what it does about the limits
+// of the scalar kernels it replaced (one thread per row, two shared-memory
+// loads per FMA, element-wise tile loads with a __syncthreads per 32-row
+// tile, and dk[D], dv[D] per thread, which spilled at D = 128):
+// - Every product is mma.sync.m16n8k8 tf32 -> f32: S = Q K^T and
+//   O += drop(P) V in K1; S = Q K^T, dP = dO V^T, dq += dS K in K2;
+//   S^T = K Q^T, dP^T = V dO^T, dv += drop(P^T) dO, dk += dS^T Q in K3. Each
+//   float32 operand x is split into big = cvt.rna.tf32(x) and
+//   small = cvt.rna.tf32(x - big), and a product is three mma into one
+//   float32 accumulator: small_a big_b, then big_a small_b, then big_a big_b.
+//   The dropped small_a small_b term and the rounding of small are about
+//   2^-22 of each product, near float32's own rounding, where one TF32
+//   product errs by about 2^-11.
 // - A block is 4 warps owning 64 output rows, 16 per warp (query rows for
-//   K2, key rows for K3). The other operand streams through shared memory
-//   in 32-row stages fetched by 16-byte cp.async copies, zero-filled past
-//   S and double-buffered, one __syncthreads per stage. A warp works 16
-//   streamed rows at a time. No sum crosses blocks, so no atomics.
+//   K1 and K2, key rows for K3). The other operand streams through shared
+//   memory in 32-row stages fetched by 16-byte cp.async copies, zero-filled
+//   past S and double-buffered, one __syncthreads per stage. A warp works
+//   16 streamed rows at a time. No sum crosses blocks, so no atomics.
 // - Each stage is split once, when it lands: every thread splits the
 //   16-byte chunks it copied itself (it sees its own copies after
 //   cp.async.wait_group, so no barrier is needed first), the big parts in
 //   place and the small parts into a twin tile. The four warps then read
 //   their B fragments already split, with no arithmetic; splitting at each
 //   use made every warp split every streamed value again.
-// - The own rows (Q and dO in K2, K and V in K3) stay raw in shared memory
-//   and are read and split at use. The k loop of S and dP is unrolled, so
-//   the compiler keeps those fragments in registers across a stage's steps
-//   where registers allow. __launch_bounds__(128, 1) lets it use up to 255
-//   registers a thread: without the bound it held dk/dv at D = 32 to 96
-//   registers and spilled. Shared memory (two own tiles, eight stage tiles
-//   of D + 4 floats a row) is 104 KB a block at D = 64 (two blocks an SM)
-//   and 203 KB at D = 128 (one).
+// - The own rows (Q in K1; Q and dO in K2; K and V in K3) stay raw in
+//   shared memory and are split at use. The k loop of S (and dP) is
+//   unrolled, so the compiler keeps those fragments in registers across a
+//   stage's steps where registers allow (K1 unrolls at most 8 k steps: at
+//   D = 128 all 16 held so spilled). For K1 a twin tile of Q, split once
+//   when it lands, measured 2-19 % slower than this (PERF.md; python3 -m
+//   gradaccum_tpu_torch.utils.kernel_variants q_twin_tile): its fragments
+//   are then read from shared memory at every step.
+//   __launch_bounds__(128, 1) lets the compiler use up to 255 registers a
+//   thread: without the bound it held dk/dv at D = 32 to 96 registers and
+//   spilled. Shared memory (own tiles, eight stage tiles of D + 4 floats a
+//   row) is 87 KB (K1) and 104 KB (K2, K3) a block at D = 64 (two blocks an
+//   SM), 169 and 203 KB at D = 128 (one).
 // - The accumulators live in m16n8 C fragments spread over the warp: 16 x D
-//   floats per warp for dq, twice that for dk and dv, D/2 and D registers a
-//   thread.
+//   floats per warp for o and dq, twice that for dk and dv, D/2 and D
+//   registers a thread.
 // - Shared-memory rows are D + 4 floats. The fragment loads are 32-bit
 //   ld.shared: A fragments and the B fragments of S and dP read rows g and
-//   columns t (+4), banks 4 g + t; the B fragments of dq, dv and dk read
+//   columns t (+4), banks 4 g + t; the B fragments of o, dq, dv and dk read
 //   rows 2 t and 2 t + 1 at column g, banks 8 t + g (+4). Both are free of
-//   bank conflicts at every D.
+//   bank conflicts at every D, and so are the stages' twin tiles, which sit
+//   a multiple of 32 floats further on.
 // - Blocks are taken row block by row block, each for every (b, h), the
 //   longest first (block_coords): under causal masking the last query rows
-//   (K2) and the first key rows (K3) meet the most pairs, and ending on the
-//   short ones keeps the last wave from running on a few SMs.
+//   (K1, K2) and the first key rows (K3) meet the most pairs, and ending on
+//   the short ones keeps the last wave from running on a few SMs.
 // - P and dS go from one product to the next in registers, with no shuffle
 //   and no trip through shared memory. The m16n8 C fragment holds rows g,
 //   g + 8 at columns 2 t, 2 t + 1; the m16k8 A fragment holds rows g, g + 8
 //   at columns t, t + 4. A sum over k may visit k in any order, so each
-//   8-wide k step of dq += dS K, dv += drop(P^T) dO and dk += dS^T Q feeds
-//   the tensor core its k index l as streamed row 2 (l % 4) + l / 4: the C
-//   registers (c0, c2, c1, c3) are then the A fragment, and the B fragment
-//   is read from streamed rows 2 t and 2 t + 1.
-// - Causal: K2 stops after the block's last query row and a warp after its
-//   own; K3 starts at the block's first key and a warp skips the query
-//   steps before its own. Elements past the diagonal are masked one by one.
+//   8-wide k step of o += drop(P) V, dq += dS K, dv += drop(P^T) dO and
+//   dk += dS^T Q feeds the tensor core its k index l as streamed row
+//   2 (l % 4) + l / 4: the C registers (c0, c2, c1, c3) are then the A
+//   fragment, and the B fragment is read from streamed rows 2 t and 2 t + 1.
+// - Causal: K1 and K2 stop after the block's last query row and a warp
+//   after its own; K3 starts at the block's first key and a warp skips the
+//   query steps before its own. Elements past the diagonal are masked one
+//   by one.
+// - K1's online softmax runs on the C fragments of S, 16 keys a step: each
+//   lane holds rows g and g + 8 at 4 keys of the step, the row max is taken
+//   across the quad, and the output registers and the lane's partial sum l
+//   are rescaled by exp(m_old - m_new). l is summed across the quad once,
+//   at the end. Keys past S or past the diagonal score -inf before the max.
 // - delta (K2) is plain float32 FMA over dO and O read from device memory,
 //   summed across the 4 lanes that share a row; it is not a matrix
 //   product. dmask (K3) sums dS per key in float32 across the quad.
@@ -108,158 +116,20 @@
 // (flash_common.cuh): the decision for element (b, h, i, j) is a
 // murmur3-finalizer chain keyed by the seed, the (b, h) slice, the query
 // position and the key position, kept when the hash is below
-// round(keep * 2^32). K2 and K3 draw it for each C fragment slot at its
-// (query, key) position. It reproduces the TPU kernels' bits.
+// round(keep * 2^32). All three kernels draw it for each C fragment slot
+// at its (query, key) position. It reproduces the TPU kernels' bits.
 
 #include "flash_common.cuh"
 
 namespace {
 
-using flash::kNegInf;
 using flash::keep;
 using flash::Params;
 using flash::row_seed;
 
-constexpr int kRows = 64;  // output rows per block, one thread each
-constexpr int kTile = 32;  // streamed rows per shared-memory tile
-
-// rows [r0, r0 + n) of a [S, D] slice into a [kRows][D+1] (or [kTile][D])
-// tile; rows past S read as zero
-template <int D, int NROWS, int STRIDE>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int r0,
-                                          int S) {
-  for (int idx = threadIdx.x; idx < NROWS * D; idx += kRows) {
-    const int r = idx / D;
-    const int d = idx - r * D;
-    dst[r * STRIDE + d] = (r0 + r < S) ? src[(size_t)(r0 + r) * D + d] : 0.f;
-  }
-}
-
-// kRows rows of a [kRows][D+1] tile to rows [r0, ...) of a [S, D] slice,
-// coalesced
-template <int D>
-__device__ __forceinline__ void store_rows(float* dst, const float* src, int r0,
-                                           int S) {
-  for (int idx = threadIdx.x; idx < kRows * D; idx += kRows) {
-    const int r = idx / D;
-    const int d = idx - r * D;
-    if (r0 + r < S) dst[(size_t)(r0 + r) * D + d] = src[r * (D + 1) + d];
-  }
-}
-
-template <int D>
-__device__ __forceinline__ float dot_row(const float* a, const float* b) {
-  float acc = 0.f;
-#pragma unroll 16
-  for (int d = 0; d < D; ++d) acc = fmaf(a[d], b[d], acc);
-  return acc;
-}
-
 // ---------------------------------------------------------------------------
-// K1, forward, float32. Replaces _fwd_kernel
-// (gradaccum_tpu/ops/flash_attention.py:127, launched by _flash_forward
-// :266) for float32; bfloat16 runs flash_attention_tc.cu. One block per
-// (b, h, kRows query rows); the k-block grid axis becomes the loop over key
-// tiles, with the online softmax (m, l, acc) of each row in its thread's
-// registers. l sums the undropped p; the dropout keep mask then scales p by
-// 1/keep before p.V.
-// Causal: the loop stops after the block's last query row, and each row
-// stops at its own diagonal.
-// Bound at [8,8,128,64] float32: 8.5 MB to move (2.5 us at 3.35 TB/s)
-// against 0.27 GFLOP (4 us at the 67 TFLOP/s of float32 FMA). This kernel
-// does the FLOPs as scalar FMA, two shared-memory loads each, on 8192
-// threads: FMA issue, not memory, bounds it.
-// ---------------------------------------------------------------------------
-
-template <int D>
-__global__ void __launch_bounds__(kRows)
-    flash_fwd_kernel(const Params p) {
-  extern __shared__ float smem[];
-  float* q_s = smem;                   // [kRows][D+1] own query rows
-  float* k_s = q_s + kRows * (D + 1);  // [kTile][D]
-  float* v_s = k_s + kTile * D;        // [kTile][D]
-  float* mask_s = v_s + kTile * D;     // [kTile]
-
-  const int S = p.S;
-  const int b = blockIdx.z, h = blockIdx.y, bh = b * p.H + h;
-  const int q0 = blockIdx.x * kRows;
-  const int row = q0 + threadIdx.x;
-  const bool active = row < S;
-  const size_t slice = (size_t)bh * S * D;
-  const float* q = static_cast<const float*>(p.q) + slice;
-  const float* k = static_cast<const float*>(p.k) + slice;
-  const float* v = static_cast<const float*>(p.v) + slice;
-  const float* mask = static_cast<const float*>(p.mask);
-
-  load_rows<D, kRows, D + 1>(q_s, q, q0, S);
-  const uint32_t rseed =
-      p.dropout ? row_seed((uint32_t)(*p.seed), (uint32_t)bh, (uint32_t)row) : 0u;
-  const float* qr = q_s + threadIdx.x * (D + 1);
-
-  float acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  float m = kNegInf, l = 0.f;
-
-  const int k_end = p.causal ? min(S, q0 + kRows) : S;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    const int kn = min(kTile, S - k0);
-    __syncthreads();
-    load_rows<D, kTile, D>(k_s, k, k0, S);
-    load_rows<D, kTile, D>(v_s, v, k0, S);
-    if (threadIdx.x < kTile)
-      mask_s[threadIdx.x] = (mask != nullptr && threadIdx.x < kn)
-                                ? mask[(size_t)b * S + k0 + threadIdx.x]
-                                : 0.f;
-    __syncthreads();
-    if (!active) continue;
-    const int jn = p.causal ? min(kn, row - k0 + 1) : kn;
-    if (jn <= 0) continue;
-
-    float s[kTile];
-    float tile_max = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      s[j] = kNegInf;
-      if (j < jn) {
-        s[j] = dot_row<D>(qr, k_s + j * D) * p.scale + mask_s[j];
-        tile_max = fmaxf(tile_max, s[j]);
-      }
-    }
-    const float m_new = fmaxf(m, tile_max);
-    const float corr = expf(m - m_new);
-    l *= corr;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= corr;
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      if (j < jn) {
-        float pj = expf(s[j] - m_new);
-        l += pj;
-        if (p.dropout)
-          pj = keep(rseed, (uint32_t)(k0 + j), p.threshold) ? pj * p.inv_keep : 0.f;
-        const float* vj = v_s + j * D;
-#pragma unroll
-        for (int d = 0; d < D; ++d) acc[d] = fmaf(pj, vj[d], acc[d]);
-      }
-    }
-    m = m_new;
-  }
-
-  __syncthreads();  // q_s is reused to stage the output rows
-  if (active) {
-    float* orow = q_s + threadIdx.x * (D + 1);
-#pragma unroll
-    for (int d = 0; d < D; ++d) orow[d] = acc[d] / l;
-    p.out_f32[(size_t)bh * S + row] = m + logf(l);
-  }
-  __syncthreads();
-  store_rows<D>(static_cast<float*>(p.out0) + slice, q_s, q0, S);
-}
-
-// ---------------------------------------------------------------------------
-// K2 and K3: tensor cores, 3xTF32. Shared-memory tiles are
-// [rows][D + kPad] float32.
+// Tensor-core helpers, 3xTF32. Shared-memory tiles are [rows][D + kPad]
+// float32.
 //
 // Fragment layout of mma.m16n8k8 tf32 (lane = 4 g + t): A (16 x 8) a0..a3
 // are rows g, g + 8, g, g + 8 at columns t, t, t + 4, t + 4; B (8 x 8) b0,
@@ -391,6 +261,11 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
 // rows [r0, r0 + NR) of a [S, D] slice into a tile; rows past S are zero
 template <int D, int NR>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, int r0,
@@ -448,22 +323,219 @@ __device__ __forceinline__ void block_coords(const Params& p, bool last_first, i
   row0 = (last_first ? gridDim.x - 1 - rb : rb) * kBlockRows;
 }
 
-// a warp's 16 x D accumulators, times `mul`, to rows row_a (C rows g) and
-// row_a + 8 of a [S, D] slice: each quad writes 32 contiguous bytes
+// a warp's 16 x D accumulators to rows row_a (C rows g, times mul_a) and
+// row_a + 8 (times mul_b) of a [S, D] slice: each quad writes 32
+// contiguous bytes
 template <int D>
 __device__ __forceinline__ void store_rows_c(float* out, const float (&acc)[D / 8][4],
-                                             float mul, int row_a, int S, int t) {
+                                             float mul_a, float mul_b, int row_a, int S,
+                                             int t) {
   const int row_b = row_a + 8;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int col = n * 8 + 2 * t;
     if (row_a < S)
       *reinterpret_cast<float2*>(out + (size_t)row_a * D + col) =
-          make_float2(acc[n][0] * mul, acc[n][1] * mul);
+          make_float2(acc[n][0] * mul_a, acc[n][1] * mul_a);
     if (row_b < S)
       *reinterpret_cast<float2*>(out + (size_t)row_b * D + col) =
-          make_float2(acc[n][2] * mul, acc[n][3] * mul);
+          make_float2(acc[n][2] * mul_b, acc[n][3] * mul_b);
   }
+}
+
+// ---------------------------------------------------------------------------
+// K1, forward, float32. Replaces _fwd_kernel
+// (gradaccum_tpu/ops/flash_attention.py:127, launched by _flash_forward
+// :266) for float32; bfloat16 runs flash_attention_tc.cu. One block per
+// (b, h, 64 query rows); warp w owns rows 16 w .. 16 w + 15, whose Q rows
+// stay raw in shared memory and are split at use. The keys and values (and
+// the mask row) stream through two 32-row stages, each split into its TF32
+// parts once it lands.
+// Per 16 keys, each warp computes S = Q K^T (16 queries x 16 keys), then in
+// float32 s = S scale + mask_j (-inf past S and past the diagonal), the
+// online softmax (row max across the quad, rescale of o and of the lane's
+// partial l by exp(m_old - m_new)), p = exp(s - m_new), l += p (undropped),
+// the keep bits keep(rseed_i, j) that scale p by 1/keep or zero it, and
+// adds O += drop(P) V, the B operand read from the V stage by rows. At the
+// end l is summed across the quad; o = O / l and lse = m + log l.
+// Every row meets key 0 in its first step (key 0 is never past S or past a
+// diagonal), so m is finite from then on; a row whose step holds only -inf
+// scores rescales against 0 instead of -inf, so exp(-inf - -inf) is never
+// formed.
+// Bound: see the header (bytes at BERT-Small and gpt_lm, operations at
+// GPT-Small at 165 TFLOP/s).
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const Params p) {
+  constexpr int kStride = D + kPad;
+  constexpr int kStageElems = kStage * kStride;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);  // [kBlockRows][kStride]
+  // [2 stages][K, K small, V, V small][kStage][kStride], split as in K2
+  float* kv_s = q_s + kBlockRows * kStride;
+  float* mask_s = kv_s + 8 * kStageElems;  // [2][kStage]
+
+  const int S = p.S;
+  int b, h, bh, q0;
+  block_coords(p, true, b, h, bh, q0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const size_t slice = (size_t)bh * S * D;
+  const float* k = static_cast<const float*>(p.k) + slice;
+  const float* v = static_cast<const float*>(p.v) + slice;
+  const float* mask =
+      p.mask != nullptr ? static_cast<const float*>(p.mask) + (size_t)b * S : nullptr;
+
+  const int k_end = p.causal ? min(S, q0 + kBlockRows) : S;
+  const int n_stages = (k_end + kStage - 1) / kStage;
+
+  // key/value stage `stage` (and its mask row, 0 past S or without a mask)
+  // into buffer `st`
+  auto load_kv = [&](int stage, int st) {
+    const int j0 = stage * kStage;
+    float* ks = kv_s + st * 4 * kStageElems;
+    load_tile<D, kStage>(ks, k, j0, S);
+    load_tile<D, kStage>(ks + 2 * kStageElems, v, j0, S);
+    if (threadIdx.x < kStage) {
+      const int j = j0 + threadIdx.x;
+      mask_s[st * kStage + threadIdx.x] = (mask != nullptr && j < S) ? mask[j] : 0.f;
+    }
+  };
+
+  load_tile<D, kBlockRows>(q_s, static_cast<const float*>(p.q) + slice, q0, S);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // this lane's two query rows: a (g) and b (g + 8) of the warp's 16
+  const int row_w = q0 + warp * 16;  // the warp's first row
+  const int row_a = row_w + g, row_b = row_a + 8;
+  uint32_t rseed_a = 0u, rseed_b = 0u;
+  if (p.dropout) {
+    const uint32_t seed = (uint32_t)(*p.seed);
+    rseed_a = row_seed(seed, (uint32_t)bh, (uint32_t)row_a);
+    rseed_b = row_seed(seed, (uint32_t)bh, (uint32_t)row_b);
+  }
+  // keys past this bound meet none of the warp's rows
+  const int warp_end = p.causal ? min(k_end, row_w + 16) : k_end;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // the online softmax of rows a and b: running max, and this lane's
+  // partial sum of the undropped p over the keys it holds
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+
+  for (int stage = 0; stage < n_stages; ++stage) {
+    const int st = stage & 1;
+    if (stage + 1 < n_stages) load_kv(stage + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this stage (and Q) landed; the next may be in flight
+    float* ks = kv_s + st * 4 * kStageElems;
+    float* vs = ks + 2 * kStageElems;
+    split_tile<D, kStage>(ks, kStageElems);
+    split_tile<D, kStage>(vs, kStageElems);
+    __syncthreads();
+    const float* ms = mask_s + st * kStage;
+    const int j0 = stage * kStage;
+
+    for (int c = 0; c < kStage / kStep && j0 + c * kStep < warp_end; ++c) {
+      // S = Q K^T: 16 queries x 16 keys, 2 n-tiles. At most 8 k steps are
+      // unrolled: the compiler then keeps Q's split fragments in registers
+      // across the stage's steps up to D = 64 (64 registers); all 16 of
+      // D = 128 held so spilled.
+      float sc[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll 8
+      for (int kk = 0; kk < D / 8; ++kk) {
+        Split<4> qa;
+        load_a<D>(qa, q_s, warp * 16, kk * 8, g, t);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          Split<2> kb;
+          load_b_rows<D>(kb, ks, kStageElems, c * kStep + n * 8, kk * 8, g, t);
+          mma3(sc[n], qa, kb);
+        }
+      }
+
+      // element-wise, in float32: scores, the step's row max, the rescale
+      float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int jl = c * kStep + n * 8 + 2 * t + (e & 1);
+          const int j = j0 + jl;
+          float x = sc[n][e] * p.scale + ms[jl];
+          if (j >= S || (p.causal && j > (e < 2 ? row_a : row_b))) x = -INFINITY;
+          sc[n][e] = x;
+          if (e < 2) mx_a = fmaxf(mx_a, x);
+          else mx_b = fmaxf(mx_b, x);
+        }
+      }
+      const float mn_a = fmaxf(m_a, quad_max(mx_a));
+      const float mn_b = fmaxf(m_b, quad_max(mx_b));
+      const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
+      const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+      const float corr_a = expf(m_a - base_a), corr_b = expf(m_b - base_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      l_a *= corr_a;
+      l_b *= corr_b;
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        acc[dn][0] *= corr_a;
+        acc[dn][1] *= corr_a;
+        acc[dn][2] *= corr_b;
+        acc[dn][3] *= corr_b;
+      }
+      // sc becomes drop(P); l sums the undropped p
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pt = expf(sc[n][e] - (e < 2 ? base_a : base_b));
+          if (e < 2) l_a += pt;
+          else l_b += pt;
+          if (p.dropout) {
+            const int j = j0 + c * kStep + n * 8 + 2 * t + (e & 1);
+            pt = keep(e < 2 ? rseed_a : rseed_b, (uint32_t)j, p.threshold) ? pt * p.inv_keep
+                                                                           : 0.f;
+          }
+          sc[n][e] = pt;
+        }
+      }
+
+      // O += drop(P) V: k = these 16 keys (two steps of 8), n = D
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        Split<4> pa;
+        a_from_c(pa, sc[n]);
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          Split<2> vb;
+          load_b_cols<D>(vb, vs, kStageElems, c * kStep + n * 8, dn * 8, g, t);
+          mma3(acc[dn], pa, vb);
+        }
+      }
+    }
+    __syncthreads();  // the stage is refilled by the next iteration's copy
+  }
+
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  if (t == 0) {
+    float* lse = p.out_f32 + (size_t)bh * S;
+    if (row_a < S) lse[row_a] = m_a + logf(l_a);
+    if (row_b < S) lse[row_b] = m_b + logf(l_b);
+  }
+  store_rows_c<D>(static_cast<float*>(p.out0) + slice, acc, 1.f / l_a, 1.f / l_b, row_a, S,
+                  t);
 }
 
 // ---------------------------------------------------------------------------
@@ -655,7 +727,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel(const Params p) {
     __syncthreads();  // the stage is refilled by the next iteration's copy
   }
 
-  store_rows_c<D>(static_cast<float*>(p.out0) + slice, acc, p.scale, row_a, S, t);
+  store_rows_c<D>(static_cast<float*>(p.out0) + slice, acc, p.scale, p.scale, row_a, S,
+                  t);
 }
 
 // ---------------------------------------------------------------------------
@@ -831,17 +904,19 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_kernel(const Params p) 
     if (key_a < S) dm[key_a] = dmask_a;
     if (key_b < S) dm[key_b] = dmask_b;
   }
-  store_rows_c<D>(static_cast<float*>(p.out0) + slice, dk, p.scale, key_a, S, t);
-  store_rows_c<D>(static_cast<float*>(p.out1) + slice, dv, 1.f, key_a, S, t);
+  store_rows_c<D>(static_cast<float*>(p.out0) + slice, dk, p.scale, p.scale, key_a, S, t);
+  store_rows_c<D>(static_cast<float*>(p.out1) + slice, dv, 1.f, 1.f, key_a, S, t);
 }
 
 // ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
+// own tiles (K1: Q; K2: Q and dO; K3: K and V), eight stage tiles, and the
+// mask rows (K1, K2) or the query rows' lse, delta and seeds (K3)
 template <int D>
 constexpr size_t fwd_smem() {
-  return sizeof(float) * (kRows * (D + 1) + 2 * kTile * D + kTile);
+  return sizeof(float) * ((kBlockRows + 8 * kStage) * (D + kPad) + 2 * kStage);
 }
 template <int D>
 constexpr size_t dq_smem() {
@@ -857,7 +932,8 @@ enum Which { kFwd, kDq, kDkv };
 template <int D>
 int launch_d(Which which, const Params& p, int B, cudaStream_t stream) {
   if (which == kFwd)
-    return flash::launch<flash_fwd_kernel<D>>(fwd_smem<D>(), p, B, kRows, kRows, stream);
+    return flash::launch<flash_fwd_kernel<D>>(fwd_smem<D>(), p, B, kBlockRows, kThreads,
+                                              stream);
   if (which == kDq)
     return flash::launch<flash_dq_kernel<D>>(dq_smem<D>(), p, B, kBlockRows, kThreads,
                                              stream);

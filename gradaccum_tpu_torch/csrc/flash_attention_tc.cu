@@ -7,7 +7,7 @@
 //                delta = rowsum(dO * O) that _flash_backward computes
 //                before it (:476)
 //   _dkv_kernel  gradaccum_tpu/ops/flash_attention.py:399 (K3)
-// float32 inputs run the scalar kernels of flash_attention.cu: the wrapper
+// float32 inputs run the 3xTF32 kernels of flash_attention.cu: the wrapper
 // in gradaccum_tpu_torch/ops/flash_attention.py routes by dtype, with no
 // fallback. Built by gradaccum_tpu_torch/utils/cuda_build.py (nvcc, plain C
 // interface, ctypes), like flash_attention.cu; layouts, dropout bits and
@@ -21,9 +21,10 @@
 // So the tensor-core rate is not the limit; what is left after moving the
 // products onto them is latency: the loads, the dropout hash and exp2.
 //
-// What the design does about the scalar kernels' limits (one thread per
-// row, scalar FMA with two shared-memory loads each, element-wise tile
-// loads with a __syncthreads per 32-row tile, 133/168 registers):
+// What the design does about the limits of the scalar kernels it replaced
+// (one thread per row, scalar FMA with two shared-memory loads each,
+// element-wise tile loads with a __syncthreads per 32-row tile, 133/168
+// registers):
 // - Every product is mma.sync.m16n8k16 bf16 -> f32. A block is 4 warps
 //   owning 64 output rows, 16 per warp (query rows for K1 and K2, key rows
 //   for K3); grid (S/64, H, B) is 128 blocks at the main shape, one wave on
@@ -40,13 +41,13 @@
 //   so P and dS never touch shared memory.
 // - The dropout decision is made on each accumulator element at the
 //   (query, key) position its fragment slot holds, from a row seed computed
-//   once per query row: the same bits as the scalar kernels and the TPU.
+//   once per query row: the same bits as the float32 kernels and the TPU.
 //
 // Numerics: scores, the online softmax, lse, the normalizer l, delta, dS
 // and dmask are float32. P (K1), dS (K2, as _dq_kernel rounds it at :385),
 // drop(P)^T and dS^T (K3) are rounded to bf16 before their second product,
 // as in every tensor-core flash kernel: about 2^-9 relative per term. l sums
-// the undropped, unrounded p, as the scalar kernel does. delta sums the
+// the undropped, unrounded p, as the float32 forward does. delta sums the
 // products of bf16 pairs, each exact in f32. exp is exp2f on scores
 // pre-scaled by log2(e).
 

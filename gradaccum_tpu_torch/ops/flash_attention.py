@@ -7,11 +7,10 @@ dtype and nothing else:
 
 - ``tc`` (``csrc/flash_attention_tc.cu``): every bfloat16 kernel on the
   tensor cores (``mma.sync``, ``ldmatrix``, ``cp.async``).
-- ``scalar`` (``csrc/flash_attention.cu``): every float32 kernel. The key
-  names the float32 route: its forward is scalar float32 FMA, and its dq
-  and dk/dv kernels run on the tensor cores in 3xTF32 (each operand split
-  into two TF32 parts, three products per product), which holds float32's
-  tolerances where a single TF32 product would not.
+- ``tf32x3`` (``csrc/flash_attention.cu``): every float32 kernel on the
+  tensor cores in 3xTF32 (each operand split into two TF32 parts, three
+  products per product), which holds float32's tolerances where a single
+  TF32 product would not.
 
 The design and what bounds each kernel are noted in the sources.
 The forward saves only ``o`` and the per-row logsumexp; the backward
@@ -183,9 +182,9 @@ _ARGTYPES = {
     "flash_bwd_dkv": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P] + _COMMON_TAIL,
 }
 # route -> (source under csrc/, {kernel: C function}); a tc function takes
-# the same arguments as its scalar twin
+# the same arguments as its float32 twin
 _SOURCES = {
-    "scalar": ("flash_attention", {name: name for name in _ARGTYPES}),
+    "tf32x3": ("flash_attention", {name: name for name in _ARGTYPES}),
     "tc": ("flash_attention_tc", {name: f"{name}_tc" for name in _ARGTYPES}),
 }
 
@@ -207,10 +206,8 @@ def build_kernels() -> dict:
 
 def route(dtype: torch.dtype) -> str:
     """The route a CUDA tensor of ``dtype`` takes through every kernel:
-    bfloat16 runs ``tc``, float32 ``scalar`` (the float32 route, whose dq
-    and dk/dv kernels use the tensor cores in 3xTF32). The dtype alone
-    decides."""
-    return "tc" if dtype == torch.bfloat16 else "scalar"
+    bfloat16 runs ``tc``, float32 ``tf32x3``. The dtype alone decides."""
+    return "tc" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def _launch(name: str, dtype: torch.dtype, *args):
@@ -253,8 +250,7 @@ def _check_inputs(q, k, v, mask, *rest):
     for t in (q, k, v, mask) + tuple(x for _, x in rest):
         if t is not None and not t.is_contiguous():
             raise ValueError("the flash kernels take contiguous tensors")
-    # the tensor-core kernels (bfloat16, and the float32 dq and dk/dv) copy
-    # rows in 16-byte chunks (cp.async)
+    # every kernel copies rows in 16-byte chunks (cp.async)
     if any(t.data_ptr() % 16 for t in (q, k, v) + tuple(x for _, x in rest)):
         raise ValueError("q, k, v, dO and o must start on a 16-byte boundary")
 

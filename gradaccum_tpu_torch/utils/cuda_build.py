@@ -74,22 +74,28 @@ def build(name: str) -> Path:
     if lib.exists():
         build_seconds.setdefault(name, 0.0)
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    compile_source(CSRC_DIR / f"{name}.cu", lib)
+    build_seconds[name] = time.perf_counter() - t0
+    return lib
+
+
+def compile_source(source: Path, lib: Path) -> None:
+    """nvcc ``source`` into ``lib`` with the package's flags, the report
+    beside it as ``<lib>.log``; raises with the compiler's errors."""
+    lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     log = lib.with_suffix(".log")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    t0 = time.perf_counter()
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds[name] = time.perf_counter() - t0
     log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}); "
+            f"nvcc failed for {source} (exit {proc.returncode}); "
             f"log: {log}\n{proc.stderr[-4000:]}"
         )
     os.replace(tmp, lib)  # atomic: a reader never sees a half-written file
-    return lib
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -201,15 +201,15 @@ def test_mask_without_grad_gets_no_gradient_and_same_qkv_grads(monkeypatch):
 
 
 def test_routes_are_fixed_by_dtype():
-    """Every bfloat16 kernel (forward, dq, dk/dv) goes to the tensor-core
-    kernels; every float32 one stays on the scalar ones. No other input
-    picks the route."""
+    """Every bfloat16 kernel (forward, dq, dk/dv) goes to the bf16
+    tensor-core kernels; every float32 one to the 3xTF32 ones. No other
+    input picks the route."""
     assert tfa.route(torch.bfloat16) == "tc"
-    assert tfa.route(torch.float32) == "scalar"
+    assert tfa.route(torch.float32) == "tf32x3"
     tfa.reset_launch_counts()
-    assert tfa.route_counts() == {"flash_fwd": {"scalar": 0, "tc": 0},
-                                  "flash_bwd_dq": {"scalar": 0, "tc": 0},
-                                  "flash_bwd_dkv": {"scalar": 0, "tc": 0}}
+    assert tfa.route_counts() == {"flash_fwd": {"tf32x3": 0, "tc": 0},
+                                  "flash_bwd_dq": {"tf32x3": 0, "tc": 0},
+                                  "flash_bwd_dkv": {"tf32x3": 0, "tc": 0}}
 
 
 @pytest.mark.parametrize("route", sorted(tfa._SOURCES))

@@ -1,22 +1,25 @@
-"""3xTF32, the arithmetic of the float32 dq and dk/dv kernels, on the CPU.
+"""3xTF32, the arithmetic of the float32 flash kernels, on the CPU.
 
-``csrc/flash_attention.cu`` runs every matrix product of its dq (K2) and
-dk/dv (K3) kernels on the tensor cores as ``mma.sync.m16n8k8`` TF32. Each
-float32 operand x is split into big = tf32(x) and small = tf32(x - big),
-where tf32 is ``cvt.rna.tf32.f32`` (round to nearest, ties away from zero,
-10 mantissa bits), and each 8-wide k step adds three products into one
-float32 accumulator: small·big, then big·small, then big·big. No compiler
-and no card run here, so this file rebuilds that arithmetic in torch on
-float32 bits, builds the backward's five products from it (S and dP, then
-dq = dS·K in K2; Sᵀ and dPᵀ, then dv = drop(P)ᵀ·dO and dk = dSᵀ·Q in K3),
-and holds the result against :func:`flash_backward_reference` at the
-tolerance ``chip_smoke.py`` holds the kernels to on the card (float32 TOL:
-1e-4 + 1e-4·|ref|). The same backward with one TF32 product per product
-misses that tolerance, which is why the kernels split.
+``csrc/flash_attention.cu`` runs every matrix product of its forward (K1),
+dq (K2) and dk/dv (K3) kernels on the tensor cores as ``mma.sync.m16n8k8``
+TF32. Each float32 operand x is split into big = tf32(x) and
+small = tf32(x - big), where tf32 is ``cvt.rna.tf32.f32`` (round to
+nearest, ties away from zero, 10 mantissa bits), and each 8-wide k step adds
+three products into one float32 accumulator: small·big, then big·small,
+then big·big. No compiler and no card run here, so this file rebuilds that
+arithmetic in torch on float32 bits and builds the kernels from it:
+the forward's two products (S = Q·Kᵀ, then O += drop(P)·V) with its online
+softmax over 16-key steps, held against :func:`flash_forward_reference` at
+the tolerance ``chip_smoke.py`` holds o and lse to on the card (1e-5 +
+1e-5·|ref|); and the backward's five (S and dP, then dq = dS·K in K2; Sᵀ
+and dPᵀ, then dv = drop(P)ᵀ·dO and dk = dSᵀ·Q in K3), held against
+:func:`flash_backward_reference` at the backward's (1e-4 + 1e-4·|ref|).
+The same kernels with one TF32 product per product miss those tolerances,
+which is why the kernels split.
 
 It also models the fragment layouts of ``mma.m16n8k8`` as the PTX ISA
 defines them, lane by lane, and checks the kernels' index choices against
-them: the C fragment of S (or dS) read as the A fragment of the next
+them: the C fragment of S (or P, or dS) read as the A fragment of the next
 product with the k order the kernels use, and the bank of every 32-bit
 shared-memory load.
 """
@@ -26,11 +29,13 @@ import pytest
 import torch
 
 from gradaccum_tpu_torch.ops import flash_attention as fa
+from gradaccum_tpu_torch.utils import cuda_build, kernel_variants
 
 pytestmark = pytest.mark.torch
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-4, atol=1e-4)  # chip_smoke.py's float32 TOL for dq, dk, dv, dmask
+FWD_TOL = dict(rtol=1e-5, atol=1e-5)  # and for o and lse
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -65,6 +70,43 @@ def mm1(a, b):
     for k0 in range(0, a.shape[-1], 8):
         acc = acc + tf32(a[..., k0:k0 + 8]) @ tf32(b[..., k0:k0 + 8, :])
     return acc
+
+
+def kernel_forward(q, k, v, mask, seed, causal, rate, mm):
+    """(o, lse) as K1 computes them, with the products done by ``mm``. The
+    keys stream in 16-key steps (two to a 32-row stage); per step S = Q·Kᵀ,
+    s = S·scale + mask_j, −inf past the diagonal, then the online softmax:
+    m_new = max(m, the step's row max), O and l rescaled by
+    exp(m − m_new) (against 0 while a row's max is still −inf), p =
+    exp(s − m_new), l += p undropped, O += drop(P)·V. At the end o = O·(1/l)
+    and lse = m + log l."""
+    b, h, n, d = q.shape
+    scale = 1.0 / d ** 0.5
+    keep = None
+    if rate > 0.0:
+        _, inv_keep = fa._dropout_config(rate)
+        keep = fa.dropout_keep_mask(seed, b, h, n, rate)
+    rows = torch.arange(n)[:, None]
+    m = torch.full((b, h, n, 1), -torch.inf)
+    l = torch.zeros(b, h, n, 1)  # noqa: E741
+    acc = torch.zeros(b, h, n, d)
+    for j0 in range(0, n, 16):
+        j1 = min(j0 + 16, n)
+        s = mm(q, k[..., j0:j1, :].transpose(-1, -2)) * scale
+        if mask is not None:
+            s = s + mask[..., j0:j1]
+        if causal:
+            s = s.masked_fill(torch.arange(j0, j1)[None, :] > rows, -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        base = torch.where(m_new == -torch.inf, 0.0, m_new)
+        corr = torch.exp(m - base)
+        p = torch.exp(s - base)
+        l = l * corr + p.sum(dim=-1, keepdim=True)  # noqa: E741
+        if keep is not None:
+            p = torch.where(keep[..., j0:j1], p * inv_keep, 0.0)
+        acc = acc * corr + mm(p, v[..., j0:j1, :])
+        m = m_new
+    return acc * (1.0 / l), m + torch.log(l)
 
 
 def kernel_backward(q, k, v, mask, seed, o, lse, g, causal, rate, mm):
@@ -128,10 +170,25 @@ CASES = {
 }
 
 
-def _worst(got, want):
+def _worst(got, want, tol=TOL):
     """max over elements of |got − want| / (atol + rtol·|want|): above 1 is
-    outside TOL."""
-    return float(((got - want).abs() / (TOL["atol"] + TOL["rtol"] * want.abs())).max())
+    outside ``tol``."""
+    return float(((got - want).abs() / (tol["atol"] + tol["rtol"] * want.abs())).max())
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_split_forward_holds_float32_tolerance(case):
+    shape, masked, causal, rate = CASES[case]
+    q, k, v, _, mask = _inputs(shape, masked, seed=sorted(CASES).index(case))
+    seed = 0x5EED1234 if rate else None
+    want = fa.flash_forward_reference(q, k, v, mask, seed, causal, rate)
+    got = kernel_forward(q, k, v, mask, seed, causal, rate, mm3)
+    for name, a, b in zip(("o", "lse"), got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=name, **FWD_TOL)
+    # one TF32 product per product: outside the same tolerance
+    single = kernel_forward(q, k, v, mask, seed, causal, rate, mm1)
+    worst = max(_worst(a, b, FWD_TOL) for a, b in zip(single, want))
+    assert worst > 1.0, f"single TF32 stayed within TOL ({worst:.3f})"
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -223,21 +280,51 @@ def test_c_fragment_is_the_a_fragment_in_the_kernels_k_order():
     np.testing.assert_allclose(_c_matrix(_mma(a_regs, b_regs)), ds @ k, rtol=1e-12)
 
 
+def test_p_fragment_times_v_in_load_b_cols_order():
+    """O += drop(P) V for one 16-key step of K1: P's C fragment of n-tile n
+    (keys 8n .. 8n + 7) taken as (c0, c2, c1, c3) by a_from_c, and V's rows
+    8n + 2t and 8n + 2t + 1 at column g read by load_b_cols; the two mma of
+    the step add up to P·V."""
+    rng = np.random.default_rng(6)
+    p, v = rng.random(size=(16, 16)), rng.normal(size=(16, 8))
+    lanes = [divmod(lane, 4) for lane in range(32)]
+    out = np.zeros((16, 8))
+    for n in range(2):
+        c_regs = [(p[g, 8 * n + 2 * t], p[g, 8 * n + 2 * t + 1], p[g + 8, 8 * n + 2 * t],
+                   p[g + 8, 8 * n + 2 * t + 1]) for g, t in lanes]
+        a_regs = [(c0, c2, c1, c3) for c0, c1, c2, c3 in c_regs]
+        b_regs = [(v[8 * n + 2 * t, g], v[8 * n + 2 * t + 1, g]) for g, t in lanes]
+        out += _c_matrix(_mma(a_regs, b_regs))
+    np.testing.assert_allclose(out, p @ v, rtol=1e-12)
+
+
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_fragment_loads_are_free_of_bank_conflicts(d):
     """Rows of D + 4 floats: every 32-bit load of load_a, load_b_rows (rows
     g, columns t and t+4) and load_b_cols (rows 2t and 2t+1, column g)
-    touches 32 different banks across the warp."""
+    touches 32 different banks across the warp, and so do the loads of a
+    stage's twin tile of small parts, 32 rows on."""
     stride = d + 4
     lanes = [divmod(lane, 4) for lane in range(32)]
+    twin = 32 * stride
     patterns = {
         "rows g, column t": [g * stride + t for g, t in lanes],
         "rows g, column t + 4": [g * stride + t + 4 for g, t in lanes],
         "rows g + 8, column t": [(g + 8) * stride + t for g, t in lanes],
         "rows 2t, column g": [2 * t * stride + g for g, t in lanes],
         "rows 2t + 1, column g": [(2 * t + 1) * stride + g for g, t in lanes],
+        "twin, rows g, column t + 4": [twin + g * stride + t + 4 for g, t in lanes],
+        "twin, rows 2t + 1, column g": [twin + (2 * t + 1) * stride + g for g, t in lanes],
     }
     for col0 in range(0, d, 8):  # every k step / n-tile column offset
         for name, words in patterns.items():
             banks = {(w + col0) % 32 for w in words}
             assert len(banks) == 32, (name, col0)
+
+
+@pytest.mark.parametrize("variant", sorted(kernel_variants.VARIANTS))
+def test_kernel_variants_apply_to_the_source(variant):
+    """Each variant that ``utils/kernel_variants.py`` times on the card is a
+    set of substitutions, each matching the float32 source exactly once."""
+    source = (cuda_build.CSRC_DIR / f"{kernel_variants.SOURCE}.cu").read_text()
+    assert kernel_variants.variant_source(variant) != source
