@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one NVIDIA H100.
 
-    python3 chip_smoke.py     # one card, about two minutes
+    python3 chip_smoke.py     # one card, about three minutes
 
 Phases, each of which fails the run if it fails:
 
@@ -111,6 +111,24 @@ Phases, each of which fails the run if it fails:
     K=4, scan, 2 updates and its evaluations: the only entry-point run of
     the float32 forward with a padded mask. Launch counts exact, every
     launch on the float32 route ``tf32x3``.
+
+19. dp: data parallelism and ZeRO-1 (``gradaccum_tpu_torch/parallel``) on
+    the one card. (a) World size 1 over NCCL: BERT-Small bf16 scan, micro 8
+    x K=4, three updates through ``Estimator(mesh=...)``, parameters and
+    moments bitwise equal to the no-mesh run from the same weights and
+    batches, launch counts exact and on ``tc``, exactly one all-reduce per
+    update; the NCCL kernels' card time from a profiler window over two
+    more updates, and seq/s beside the no-mesh run's. (b) Two ranks that
+    share the card over gloo, spawned here (``python3 chip_smoke.py
+    --dp-rank DIR`` is a rank): explicit DP, BERT-Small bf16, micro 4 per
+    rank x K=4, dropout 0, two updates, then ZeRO-1 ``"collective"`` on the
+    same run; each rank within 1e-5 of the single-process run on the same
+    global batches (each rank's micro-batches run on one card, so only the
+    order of the sums differs) and ZeRO-1 within 1e-7 of DP; launch counts
+    exact per rank; optimizer + accumulator bytes per parameter. (c) GPT-Small
+    bf16 + float32 masters + fused + ZeRO-1 (ladder leg (c), ``zero1=True``)
+    at the two ranks, two updates: bytes per parameter per rank (JAX's
+    accounting: 6), peak memory per rank, a finite loss.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON line describing every kernel in each dtype (bfloat16: launches
@@ -1230,10 +1248,11 @@ def _gpt_batches(n, seed, vocab=None):
 
 
 def _gpt_estimator(compute_dtype, opt, fused=False, clip=1.0, dropout=0.1, layers=GPT_LAYERS,
-                   k=GPT_K, mode="scan", guard=None, loss=None):
+                   k=GPT_K, mode="scan", guard=None, loss=None, mesh=None, zero1=False):
     """GPT-Small (vocab 50257, H 512, A 8, FFN 2048, 512 positions) on the
     causal flash kernels, through the Estimator; ``guard``: a loss scale
-    config (skip_nonfinite on); ``loss``: a wrapper of the bundle's loss."""
+    config (skip_nonfinite on); ``loss``: a wrapper of the bundle's loss;
+    ``mesh``/``zero1``: a rank of a data-parallel run."""
     from gradaccum_tpu_torch.estimator.config import RunConfig
     from gradaccum_tpu_torch.estimator.estimator import Estimator
     from gradaccum_tpu_torch.models.gpt import GPTConfig, gpt_lm_bundle
@@ -1248,7 +1267,7 @@ def _gpt_estimator(compute_dtype, opt, fused=False, clip=1.0, dropout=0.1, layer
                             skip_nonfinite=guard is not None, loss_scale=guard)
     return Estimator(bundle, opt, accum,
                      RunConfig(log_step_count_steps=1000, save_checkpoints_steps=None),
-                     mode=mode, device="cuda")
+                     mode=mode, device="cuda", mesh=mesh, zero1=zero1)
 
 
 def _state_tensors(state):
@@ -1558,6 +1577,367 @@ def phase_bert_f32(updates: int = 2):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 19: data parallelism and ZeRO-1
+# --------------------------------------------------------------------------
+
+DP_UPDATES_A, DP_UPDATES_B, DP_UPDATES_C = 3, 2, 2
+DP_MICRO_B = 4  # rows per rank in leg (b): a global micro-batch of 8
+DP_ATOL, ZERO1_ATOL = 1e-5, 1e-7
+NORM_RTOL = 1e-4  # the gradient norm's relative gap (order of sums only)
+DP_DIR = os.path.join(ROOT, "build", "chip_smoke_dp")
+
+
+def _bert_dp_estimator(mesh=None, zero1=False, dropout=0.1, k=K, lr=None):
+    """BERT-Small bf16 (vocab 30522, seq 128) on the flash kernels through
+    the Estimator, random weights from the run seed; ``lr``: a constant
+    rate (else the main path's schedule)."""
+    from gradaccum_tpu_torch.estimator.config import RunConfig
+    from gradaccum_tpu_torch.estimator.estimator import Estimator
+    from gradaccum_tpu_torch.models.bert import BertConfig, bert_classifier_bundle
+    from gradaccum_tpu_torch.ops.accumulation import GradAccumConfig
+    from gradaccum_tpu_torch.ops.adamw import adamw
+    from gradaccum_tpu_torch.ops.flash_attention import flash_attention
+    from gradaccum_tpu_torch.ops.schedule import warmup_polynomial_decay
+
+    import torch
+
+    cfg = BertConfig.small(dtype=torch.bfloat16, hidden_dropout=dropout,
+                           attention_dropout=dropout)
+    rate = lr if lr is not None else warmup_polynomial_decay(2e-5, 400, 40)
+    return Estimator(bert_classifier_bundle(cfg, attention_fn=flash_attention),
+                     adamw(rate, weight_decay_rate=0.01),
+                     GradAccumConfig(k, clip_norm=1.0, first_step_quirk=False),
+                     RunConfig(log_step_count_steps=1000, save_checkpoints_steps=None),
+                     mode="scan", device="cuda", mesh=mesh, zero1=zero1)
+
+
+def _host_batches(updates, rows, seed):
+    data = _bert_small_batches(updates * rows, seed=seed)
+    return [{key: v[u * rows:(u + 1) * rows] for key, v in data.items()} for u in range(updates)]
+
+
+def _state_bytes(state, n, accum_bytes):
+    """Optimizer + accumulator bytes per parameter held by this rank: the
+    optimizer state's tensors, plus ``accum_bytes``, the buffers the scan
+    step allocated for its window (none under fused accumulation)."""
+    opt = sum(_nbytes(t) for field in state.opt_state
+              for t in (field.values() if isinstance(field, dict) else [field]))
+    return (opt + accum_bytes) / n
+
+
+def _spy_window(acc):
+    """Record the bytes of every window accumulator the scan step
+    allocates (``accumulation._window_accum``) and each update's gradient
+    norm before clipping; returns ``(accum_bytes, wrap)``, where
+    ``wrap(est, norms)`` makes ``est``'s built step append to ``norms``."""
+    window = acc._window_accum
+    held = []
+
+    def measured(params, n_stats=0):
+        out = window(params, n_stats)
+        held.append(sum(_nbytes(b) for b in out[1]))
+        return out
+
+    acc._window_accum = measured
+
+    def wrap(est, norms):
+        inner = est._train_step
+
+        def step(state, batch, *rng):
+            state, aux = inner(state, batch, *rng)
+            norms.append(float(aux["grad_norm"]))
+            return state, aux
+
+        est._train_step = step
+
+    return held, wrap
+
+
+def _launches_per_kernel(updates, k=K, layers=LAYERS):
+    return {name: layers * k * updates for name in REPLACES}
+
+
+def _dp_leg_a():
+    """World size 1 over NCCL against the no-mesh run: bitwise."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gradaccum_tpu_torch.examples.common import free_port
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+    from gradaccum_tpu_torch.parallel import mesh as mesh_lib
+
+    batches = _host_batches(DP_UPDATES_A + 2, K * B, seed=21)
+    ref = _bert_dp_estimator()
+    ref_state = ref.train(batches[:DP_UPDATES_A], final_save=False)
+    torch.cuda.synchronize()
+    ref_seq = ref.examples_per_sec()
+    ref_state = ref_state._replace(params={n: p.detach().clone()
+                                           for n, p in ref_state.params.items()})
+    mesh_lib.initialize_multihost(f"localhost:{free_port()}", 1, 0, device="cuda")
+    try:
+        mesh = mesh_lib.data_parallel_mesh()
+        check(mesh.backend == "nccl", f"dp (a): backend {mesh.backend}, wanted nccl")
+        est = _bert_dp_estimator(mesh=mesh)
+        est.train([], final_save=False)  # weights, optimizer state, the broadcast
+        fa.reset_launch_counts()
+        mesh.reset_calls()
+        state = est.train(batches[:DP_UPDATES_A], final_save=False)
+        torch.cuda.synchronize()
+        counts, routes, calls = fa.launch_counts(), fa.route_counts(), dict(mesh.calls)
+        seq = est.examples_per_sec()
+        with torch.no_grad():
+            same = [name for name in ref_state.params
+                    if torch.equal(state.params[name], ref_state.params[name])
+                    and torch.equal(state.opt_state.m[name], ref_state.opt_state.m[name])
+                    and torch.equal(state.opt_state.v[name], ref_state.opt_state.v[name])]
+        check(len(same) == len(ref_state.params),
+              f"dp (a): {len(ref_state.params) - len(same)} parameters or moments differ from "
+              f"the no-mesh run at world 1")
+        want = _launches_per_kernel(DP_UPDATES_A)
+        check(counts == want, f"dp (a): launches {counts} != {want}")
+        check(all(routes[n]["tc"] == want[n] for n in want), f"dp (a): routes {routes}")
+        check(calls.get("all_reduce") == DP_UPDATES_A
+              and calls.get("all_reduce:grads") == DP_UPDATES_A,
+              f"dp (a): collectives {calls}, wanted one all-reduce per update")
+        print(f"[dp] (a) BERT-Small bf16 micro 8 x K={K}, world 1 over NCCL, "
+              f"{DP_UPDATES_A} updates: {len(same)} parameters and their m, v bitwise equal "
+              f"to the no-mesh run; launches {counts}, all tc; collectives {calls} "
+              f"(one all-reduce per update); {seq:.1f} seq/s against {ref_seq:.1f} "
+              f"without the mesh")
+        # seq/s in turns (no mesh, mesh, mesh, no mesh), two updates each
+        turns = []
+        for name, e in (("no mesh", ref), ("mesh", est), ("mesh", est), ("no mesh", ref)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e.train(batches[DP_UPDATES_A:], final_save=False)
+            torch.cuda.synchronize()
+            turns.append(f"{name} {2 * K * B / (time.perf_counter() - t0):.1f}")
+        print(f"[dp] (a) seq/s in turns of 2 updates: {', '.join(turns)}")
+        # a profiler window of two updates each: the NCCL kernels, the card's
+        # busy time, and the host ops that take the most time
+        for name, e in (("mesh", est), ("no mesh", ref)):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                e.train(batches[DP_UPDATES_A:], final_save=False)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / 2 * 1e3
+            events = prof.key_averages()
+            device = [(ev.key, ev.self_device_time_total, ev.count) for ev in events
+                      if ev.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(t for _, t, _ in device) / 2 / 1e3
+            line = (f"[dp] (a) profile, {name}: {wall:.2f} ms/update wall, card busy "
+                    f"{busy:.2f} ms/update")
+            if e is est:
+                nccl = [row for row in device if "nccl" in row[0].lower()]
+                seen = ", ".join(f"{key[:60]} x{c}" for key, _, c in nccl) or "none"
+                line += (f", NCCL card time {sum(t for _, t, _ in nccl) / 2 / 1e3:.4f} "
+                         f"ms/update (kernels: {seen})")
+            host = sorted((ev for ev in events
+                           if ev.device_type == torch.autograd.DeviceType.CPU),
+                          key=lambda ev: -ev.self_cpu_time_total)[:6]
+            print(line + "; host ops by self time per update: " + ", ".join(
+                f"{ev.key[:40]} {ev.self_cpu_time_total / 2 / 1e3:.2f} ms x{ev.count // 2}"
+                for ev in host))
+    finally:
+        mesh_lib.shutdown()
+    del ref, est
+    _release()
+
+
+def _dp_rank(outdir):
+    """One rank of legs (b) and (c): gloo on the shared card."""
+    import torch
+
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+    from gradaccum_tpu_torch.ops.adamw import adamw
+    from gradaccum_tpu_torch.parallel import mesh as mesh_lib
+
+    from gradaccum_tpu_torch.ops import accumulation as acc
+
+    fa.build_kernels()  # the parent built them: loads the libraries
+    mesh_lib.initialize_multihost(device="cuda:0", backend="gloo", timeout_s=300)
+    out = {}
+    window_bytes, wrap = _spy_window(acc)
+    try:
+        mesh = mesh_lib.data_parallel_mesh()
+        rows = DP_MICRO_B * mesh.world * K
+        batches = _host_batches(DP_UPDATES_B, rows, seed=22)
+        for tag, zero1 in (("dp", False), ("zero1", "collective")):
+            est = _bert_dp_estimator(mesh=mesh, zero1=zero1, dropout=0.0, lr=2e-5)
+            est.train([], final_save=False)
+            norms = []
+            wrap(est, norms)
+            fa.reset_launch_counts()
+            window_bytes.clear()
+            t0 = time.perf_counter()
+            state = est.train(batches, final_save=False)
+            torch.cuda.synchronize()
+            n = sum(p.numel() for p in state.params.values())
+            out[tag] = {"params": {k: v.detach().cpu() for k, v in state.params.items()},
+                        "launches": fa.launch_counts(), "routes": fa.route_counts(),
+                        "bytes": _state_bytes(state, n, max(window_bytes)), "grad_norms": norms,
+                        "seconds": time.perf_counter() - t0}
+            del est, state
+            _release()
+        # (c) GPT-Small bf16 + master + fused + ZeRO-1 (ladder leg (c))
+        est = _gpt_estimator(torch.bfloat16, adamw(1e-4, weight_decay_rate=0.01,
+                                                   master_dtype=torch.float32),
+                             fused=True, clip=None, mesh=mesh, zero1=True)
+        state = est.train([], final_save=False)
+        n = sum(p.numel() for p in state.params.values())
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        mesh.reset_calls()
+        window_bytes.clear()
+        import numpy as np
+
+        ids = np.concatenate([_gpt_batches(1, seed=23 + u)[0]["input_ids"]
+                              for u in range(mesh.world)])  # K x micro rows per rank
+        rng = np.random.default_rng(24)
+        more = [{"input_ids": rng.permutation(ids)} for _ in range(DP_UPDATES_C - 1)]
+        t0 = time.perf_counter()
+        state = est.train([{"input_ids": ids}] + more, final_save=False)
+        torch.cuda.synchronize()
+        out["gpt"] = {"bytes": _state_bytes(state, n, max(window_bytes, default=0)), "params": n,
+                      "peak_MiB": (torch.cuda.max_memory_allocated() - held) / 2**20,
+                      "held_MiB": held / 2**20, "launches": fa.launch_counts(),
+                      "routes": fa.route_counts(), "first_loss": float(est.first_loss),
+                      "loss": float(est.last_loss), "seconds": time.perf_counter() - t0,
+                      "calls": dict(mesh.calls)}
+        out["gloo_cuda"] = _probe_gloo_cuda()
+        torch.save(out, os.path.join(outdir, f"rank{mesh.rank}.pt"))
+        rank = mesh.rank
+    finally:
+        mesh_lib.shutdown()
+    if rank == 0:
+        print(json.dumps({"ok": True}))
+    return 0
+
+
+def _probe_gloo_cuda():
+    """Which collectives this torch's gloo runs on CUDA tensors, asked
+    directly in a group of its own with a short timeout: the port stages
+    none through host memory (``parallel/mesh.py``), so a refusal here
+    names the op that would fail."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    group = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=30))
+    x = torch.ones(4, device="cuda")
+    ops = {
+        "all_reduce": lambda: dist.all_reduce(x.clone(), group=group),
+        "broadcast": lambda: dist.broadcast(x.clone(), src=0, group=group),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(2)], x,
+                                              group=group),
+    }
+    found = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            found[name] = "runs on CUDA tensors"
+        except (RuntimeError, ValueError) as e:
+            found[name] = f"refused: {str(e).splitlines()[0][:120]}"
+    return found
+
+
+def _dp_legs_bc():
+    """Two ranks on the one card over gloo, spawned here."""
+    import torch
+
+    from gradaccum_tpu_torch.examples.common import spawn_ranks
+    from gradaccum_tpu_torch.ops import accumulation as acc
+    from gradaccum_tpu_torch.utils.tree import named_parameters
+
+    world = 2
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    os.makedirs(DP_DIR)
+    # the single-process reference on the same global batches: one card
+    # runs each rank's K micro-batches of 4 rows (the same products, so
+    # only the order of the sums differs), denominator K x 2, one update
+    # each, at the ranks' constant rate
+    rows = DP_MICRO_B * world * K
+    est = _bert_dp_estimator(dropout=0.0, lr=2e-5, k=K * world)
+    state = est.train([], final_save=False)
+    step = est._step_fn()
+    ref_norms = []
+    for batch in _host_batches(DP_UPDATES_B, rows, seed=22):
+        stacked = acc.stack_micro_batches(est._to_device(batch), K)  # [K, 8, ...]
+        local = {key: x.reshape(K, world, DP_MICRO_B, *x.shape[2:]).transpose(0, 1)
+                 .reshape(K * world, DP_MICRO_B, *x.shape[2:]) for key, x in stacked.items()}
+        state, aux = step(state, local, torch.Generator(device="cuda"))
+        ref_norms.append(float(aux["grad_norm"]))
+    torch.cuda.synchronize()
+    ref = {name: p.detach().cpu() for name, p in named_parameters(est.module).items()}
+    del est, state, step
+    _release()
+    t0 = time.perf_counter()
+    spawn_ranks("chip_smoke", ["--dp-rank", DP_DIR], world, "cuda", deadline_s=600)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(DP_DIR, f"rank{r}.pt")) for r in range(world)]
+    want_b = _launches_per_kernel(DP_UPDATES_B)
+    for r, out in enumerate(ranks):
+        for tag in ("dp", "zero1"):
+            check(out[tag]["launches"] == want_b,
+                  f"dp (b) rank {r} {tag}: launches {out[tag]['launches']} != {want_b}")
+            check(all(out[tag]["routes"][n]["tc"] == want_b[n] for n in want_b),
+                  f"dp (b) rank {r} {tag}: routes {out[tag]['routes']}")
+        err = max(float((out["dp"]["params"][n] - ref[n]).abs().max()) for n in ref)
+        zerr = max(float((out["zero1"]["params"][n] - out["dp"]["params"][n]).abs().max())
+                   for n in ref)
+        moved = max(float((out["dp"]["params"][n] - w).abs().max()) for n, w in
+                    named_parameters(_bert_dp_estimator(dropout=0.0).model.init(
+                        19830610, "cpu")).items())
+        # clipping and Adam hide the gradient's scale from the parameters:
+        # the norm of the averaged gradient before clipping shows it
+        norm_err = max(abs(a / b - 1.0) for tag in ("dp", "zero1")
+                       for a, b in zip(out[tag]["grad_norms"], ref_norms))
+        check(len(out["dp"]["grad_norms"]) == len(out["zero1"]["grad_norms"]) == DP_UPDATES_B
+              and norm_err <= NORM_RTOL,
+              f"dp (b) rank {r}: gradient norms {out['dp']['grad_norms']} (DP), "
+              f"{out['zero1']['grad_norms']} (ZeRO-1) against {ref_norms}")
+        check(err <= DP_ATOL, f"dp (b) rank {r}: DP off the single-process run by {err:.3e}")
+        check(zerr <= ZERO1_ATOL, f"dp (b) rank {r}: ZeRO-1 off DP by {zerr:.3e}")
+        check(moved > 10 * DP_ATOL, f"dp (b) rank {r}: the weights did not move ({moved:.3e})")
+        print(f"[dp] (b) rank {r}/2, gloo on the shared card, BERT-Small bf16 micro "
+              f"{DP_MICRO_B} per rank x K={K}, dropout 0, {DP_UPDATES_B} updates: max |DP - "
+              f"single process| {err:.3e} (limit {DP_ATOL:g}), max |ZeRO-1 - DP| {zerr:.3e} "
+              f"(limit {ZERO1_ATOL:g}), weights moved {moved:.3e}; gradient norms before "
+              f"clipping {out['dp']['grad_norms']} against {ref_norms} single-process "
+              f"(max relative gap {norm_err:.3e}, limit {NORM_RTOL:g}); launches "
+              f"{out['dp']['launches']} per run, all tc; optimizer + accumulator "
+              f"{out['dp']['bytes']:.3f} B/param (DP) and {out['zero1']['bytes']:.3f} "
+              f"(ZeRO-1); {out['dp']['seconds']:.2f} s and {out['zero1']['seconds']:.2f} s "
+              f"for the {DP_UPDATES_B} updates")
+    want_c = _launches_per_kernel(DP_UPDATES_C, k=GPT_K, layers=GPT_LAYERS)
+    for r, out in enumerate(ranks):
+        g = out["gpt"]
+        check(math.isfinite(g["first_loss"]) and math.isfinite(g["loss"]),
+              f"dp (c) rank {r}: loss {g['first_loss']} -> {g['loss']}")
+        check(g["launches"] == want_c, f"dp (c) rank {r}: launches {g['launches']} != {want_c}")
+        print(f"[dp] (c) rank {r}/2, GPT-Small bf16 + f32 masters + fused + ZeRO-1 "
+              f"(ladder leg (c)), micro {GPT_MICRO} per rank x K={GPT_K}, seq {GPT_SEQ}, "
+              f"{DP_UPDATES_C} updates: optimizer + accumulator {g['bytes']:.3f} B/param "
+              f"({g['params']} parameters; JAX's accounting: 6), peak {g['peak_MiB']:.1f} MiB "
+              f"above the {g['held_MiB']:.1f} MiB state, loss {g['first_loss']:.4f} -> "
+              f"{g['loss']:.4f}, {g['seconds']:.2f} s; launches {g['launches']}; "
+              f"collectives {g['calls']}")
+    print(f"[dp] legs (b) and (c): the two ranks took {spawn_s:.1f} s, process start included")
+    print(f"[dp] gloo with CUDA tensors on this torch (asked directly): {ranks[0]['gloo_cuda']}")
+
+
+def phase_dp():
+    """Data parallelism and ZeRO-1 on the one card: (a) world 1 over NCCL,
+    (b) and (c) two ranks sharing the card over gloo."""
+    _dp_leg_a()
+    _dp_legs_bc()
+
+
 def _smi():
     try:
         out = subprocess.run(
@@ -1661,6 +2041,7 @@ def main() -> int:
         phase_gpt_guard()
         gpt_lm_runs = phase_gpt_lm()
         bert_f32_counts = phase_bert_f32()
+        phase_dp()
     except SmokeError as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -1677,4 +2058,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:  # a rank of phase 19, spawned by phase_dp
+        sys.path.insert(0, ROOT)
+        sys.exit(_dp_rank(sys.argv[2]))
     sys.exit(main())

@@ -43,9 +43,26 @@ the model's embedding-table gradient as token-level rows
 (``ops/sparse_embed.py``).
 
 The Estimator runs on the card unless the caller passes ``device="cpu"``;
-asking for CUDA without a card raises. Not ported yet (ROADMAP.md): meshes
-and every parallel mode, export, events and the resilience and
-observability hooks; asking for a mesh raises ``NotImplementedError``.
+asking for CUDA without a card raises.
+
+**Data parallelism** (``mesh=``, a ``parallel/mesh.py :: DataMesh``): every
+rank runs this Estimator in its own process on the mesh's device, reads the
+same global host batch and trains on its block of the rows. The step is
+chosen as JAX's Estimator chooses it: the explicit DP step
+(``parallel/dp.py :: make_dp_train_step``; one all-reduce per update in
+scan mode) by default; ``sharding_rules=()`` takes the GSPMD counterpart
+(``make_pjit_dp_train_step``, each micro-batch's gradient averaged over the
+ranks), which ``fused_adam`` needs; ``zero1=True`` shards the optimizer
+state over the ranks on that path, ``zero1="collective"`` on the explicit
+one (``parallel/zero.py``). Rank 0's parameters are broadcast at the start.
+Evaluation splits each eval batch over the ranks and sums the metric
+partials; a batch whose rows do not divide runs whole on every rank. Rank
+0 alone prints, writes ``loss_vs_step.csv`` and writes checkpoints; a
+ZeRO-1 state is gathered to the full tree before a save (every rank takes
+part) and cut again after a restore, so checkpoints stay full-tree and a
+resume is bitwise. Non-empty ``sharding_rules`` (tensor and expert
+parallelism) are not ported yet and raise ``NotImplementedError``, as do
+export, events and the resilience and observability hooks (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -64,6 +81,10 @@ from gradaccum_tpu_torch.estimator.metrics import Metric
 from gradaccum_tpu_torch.ops import accumulation as acc
 from gradaccum_tpu_torch.ops.adamw import Optimizer
 from gradaccum_tpu_torch.ops.sparse_embed import accumulate_scan_sparse_embed
+from gradaccum_tpu_torch.parallel import dp as dp_lib
+from gradaccum_tpu_torch.parallel import zero as zero_lib
+from gradaccum_tpu_torch.parallel.mesh import DATA_AXIS
+from gradaccum_tpu_torch.parallel.sharding import batch_shard, replicate_
 from gradaccum_tpu_torch.utils.flops import peak_flops_for
 from gradaccum_tpu_torch.utils.platform import device_name, resolve_device, synchronize
 from gradaccum_tpu_torch.utils.tree import named_parameters
@@ -112,11 +133,35 @@ class Estimator:
                  accum: acc.GradAccumConfig, config: Optional[RunConfig] = None,
                  mode: str = "streaming", device="cuda", mesh=None,
                  warm_start: Optional[Dict[str, torch.Tensor]] = None,
-                 sparse_embed: bool = False):
+                 sparse_embed: bool = False, zero1=False, sharding_rules=None):
         if mode not in ("streaming", "scan"):
             raise ValueError(f"mode must be 'streaming' or 'scan', got {mode!r}")
-        if mesh is not None:
-            raise NotImplementedError("meshes and parallel modes are not ported yet")
+        if sharding_rules is not None and mesh is None:
+            raise ValueError("sharding_rules requires a mesh")
+        if sharding_rules:
+            raise NotImplementedError("parameter sharding rules (tensor and expert "
+                                      "parallelism) are not ported yet; see ROADMAP.md")
+        axes = mesh.shape if mesh is not None else {}
+        if zero1:
+            if zero1 not in (True, "collective"):
+                raise ValueError(
+                    f"zero1 must be True (GSPMD placement) or 'collective' "
+                    f"(explicit shard_map path), got {zero1!r}")
+            if axes.get(DATA_AXIS, 1) < 2:
+                raise ValueError("zero1 requires a mesh with a 'data' axis")
+            if zero1 == "collective":
+                if sharding_rules is not None:
+                    raise ValueError(
+                        "zero1='collective' runs on shard_map and cannot compose with "
+                        "sharding_rules; use zero1=True (GSPMD placement)")
+                if accum.fused_adam or sparse_embed:
+                    raise ValueError(
+                        "zero1='collective' cannot compose with fused_adam or "
+                        "sparse_embed; use zero1=True (GSPMD placement)")
+        if sparse_embed and mesh is not None and (zero1 or sharding_rules is not None):
+            raise NotImplementedError("sparse_embed on the GSPMD counterpart (zero1=True or "
+                                      "sharding_rules=()) is not ported yet; it runs on "
+                                      "the explicit DP path")
         if sparse_embed:
             if mode != "scan":
                 raise ValueError("sparse_embed requires mode='scan'")
@@ -128,10 +173,21 @@ class Estimator:
             if sparse_embed:
                 raise ValueError("fused_adam and sparse_embed both replace the "
                                  "accumulator; pick one")
+            if mesh is not None and sharding_rules is None and not zero1:
+                raise ValueError(
+                    "fused_adam on a mesh needs the GSPMD path (per-micro-batch "
+                    "global-mean gradients): pass sharding_rules=() or zero1=True "
+                    "instead of the explicit-collective DP path")
             if getattr(optimizer, "fused", None) is None:
                 raise ValueError("fused_adam requires an optimizer exposing FusedAccum "
                                  "hooks (ops.adamw.adamw / ops.adamw.adam)")
-        self.device = resolve_device(device)
+        # a rank runs on its mesh device
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.mesh = mesh
+        self.zero1 = zero1
+        self.sharding_rules = sharding_rules
+        self._chief = mesh is None or mesh.rank == 0  # prints, logs, checkpoints
+        self._zero1_specs = None  # {path: shard dim} of the full state, under zero1
         self.model = model
         self.optimizer = optimizer
         self.accum = accum
@@ -172,22 +228,46 @@ class Estimator:
         d = self.config.model_dir
         if d and ckpt_lib.latest_checkpoint(d):
             state = ckpt_lib.restore(d, state)
+        if self.mesh is not None:
+            replicate_(state.params, self.mesh)
+        if self.zero1:
+            self._zero1_specs = zero_lib.zero1_state_specs(state, self.mesh.world)
+            state = zero_lib.zero1_shard_state(state, self.mesh)
         return state
 
     def _step_fn(self):
         if self._train_step is None:
             module, loss = self.module, self.model.loss
+            loss_fn = lambda params, batch: loss(module, batch)  # noqa: E731
+            needs_rng, mesh, mode = self.model.needs_rng, self.mesh, self.mode
+            sparse = None
             if self.sparse_embed:
                 hooks = self.model.sparse_embed
                 bound = hooks._replace(loss_with_rows=lambda params, rows, batch:
                                        hooks.loss_with_rows(module, rows, batch))
-                self._train_step = accumulate_scan_sparse_embed(bound, self.optimizer,
-                                                                self.accum)
+                sparse = lambda cfg: accumulate_scan_sparse_embed(  # noqa: E731
+                    bound, self.optimizer, cfg)
+            if self.zero1 == "collective":
+                # local accumulation, one all-reduce per window, the sharded
+                # update, an all-gather of the updated parameters
+                step = zero_lib.make_zero1_train_step(loss_fn, self.optimizer, self.accum,
+                                                      mesh, mode=mode, needs_rng=needs_rng)
+            elif self.zero1:
+                step = zero_lib.make_zero1_placement_step(loss_fn, self.optimizer, self.accum,
+                                                          mesh, mode=mode, needs_rng=needs_rng)
+            elif mesh is not None and self.sharding_rules is None:
+                step = dp_lib.make_dp_train_step(loss_fn, self.optimizer, self.accum, mesh,
+                                                 mode=mode, needs_rng=needs_rng,
+                                                 inner_builder=sparse)
+            elif mesh is not None:
+                step = dp_lib.make_pjit_dp_train_step(loss_fn, self.optimizer, self.accum,
+                                                      mesh, mode=mode, needs_rng=needs_rng)
+            elif sparse is not None:
+                step = sparse(self.accum)
             else:
-                build = acc.accumulate_scan if self.mode == "scan" else acc.streaming_step
-                self._train_step = build(lambda params, batch: loss(module, batch),
-                                         self.optimizer, self.accum,
-                                         needs_rng=self.model.needs_rng)
+                build = acc.accumulate_scan if mode == "scan" else acc.streaming_step
+                step = build(loss_fn, self.optimizer, self.accum, needs_rng=needs_rng)
+            self._train_step = step
         return self._train_step
 
     def _to_device(self, batch):
@@ -205,8 +285,13 @@ class Estimator:
         return (batch,)
 
     def _save(self, state):
+        """Rank 0 writes the full-tree state (under ZeRO-1 every rank first
+        takes part in gathering it)."""
         cfg = self.config
-        ckpt_lib.save(cfg.model_dir, state, state.step, keep=cfg.keep_checkpoint_max)
+        if self.zero1:
+            state = zero_lib.zero1_gather_state(state, self.mesh, self._zero1_specs)
+        if self._chief:
+            ckpt_lib.save(cfg.model_dir, state, state.step, keep=cfg.keep_checkpoint_max)
 
     # -- public API -------------------------------------------------------
 
@@ -265,7 +350,7 @@ class Estimator:
                 skip_rows.append(aux["skipped"])
             if "loss_scale" in aux:
                 scale_rows.append((step_no, aux["loss_scale"]))
-            if cfg.model_dir:
+            if cfg.model_dir and self._chief:
                 loss_rows.append((step_no, aux["loss"]))
             if max(len(loss_rows), len(skip_rows), len(scale_rows)) >= _ROW_CAP:
                 flush_rows()
@@ -277,7 +362,8 @@ class Estimator:
                 mfu = self._mfu(rate * micro)
                 if mfu is not None:
                     line += f" mfu={mfu:.4f}"
-                print(line)
+                if self._chief:
+                    print(line)
                 flush_rows()
                 t_log, steps_at_log = time.perf_counter(), step_no
             if cfg.model_dir and cfg.save_checkpoints_steps and \
@@ -305,7 +391,8 @@ class Estimator:
         peak = peak_flops_for(device_name(self.device))
         if peak is None:
             return None
-        return examples_per_sec * self.config.flops_per_example / peak
+        world = self.mesh.world if self.mesh is not None else 1  # the mesh-wide peak
+        return examples_per_sec * self.config.flops_per_example / (peak * world)
 
     def mfu(self) -> Optional[float]:
         """Model FLOPs utilization of :meth:`examples_per_sec` against the
@@ -357,10 +444,7 @@ class Estimator:
         for batch in (input_fn() if callable(input_fn) else input_fn):
             if steps is not None and n_batches >= steps:
                 break
-            tb = self._to_device(batch)
-            outputs = self.model.predict(module, tb)
-            for key, metric in self.model.eval_metrics.items():
-                total, count = metric.update(outputs, tb)
+            for key, (total, count) in self._eval_partials(module, self._to_device(batch)):
                 t = totals.setdefault(key, [0.0, 0.0])
                 t[0] += total
                 t[1] += count
@@ -369,9 +453,32 @@ class Estimator:
             raise ValueError("eval input_fn yielded no batches")
         results = {key: self.model.eval_metrics[key].finalize(t, c)
                    for key, (t, c) in totals.items()}
-        print(f"[{name}] " + " ".join(f"{k}={v:.5f}" for k, v in results.items()))
+        if self._chief:
+            print(f"[{name}] " + " ".join(f"{k}={v:.5f}" for k, v in results.items()))
         results["_num_batches"] = n_batches
         return results
+
+    def _eval_partials(self, module, batch):
+        """``[(metric, (total, count))]`` of one eval batch. On a mesh whose
+        world divides the batch, each rank evaluates its rows and the
+        partials are summed over the ranks in one all-reduce; otherwise the
+        whole batch runs on every rank (JAX's ``_mesh_dispatch``)."""
+        mesh = self.mesh
+        rows = {x.shape[0] for x in batch.values() if x.dim() >= 1}
+        split = mesh is not None and mesh.world > 1 and len(rows) == 1 \
+            and next(iter(rows)) % mesh.world == 0
+        if split:
+            batch = batch_shard(batch, mesh)
+        outputs = self.model.predict(module, batch)
+        out = [(key, metric.update(outputs, batch))
+               for key, metric in self.model.eval_metrics.items()]
+        if not split:
+            return out
+        flat = torch.tensor([v for _, pair in out for v in pair], dtype=torch.float64,
+                            device=self.device)
+        mesh.all_reduce_(flat, tag="eval")
+        values = flat.tolist()
+        return [(key, (values[2 * i], values[2 * i + 1])) for i, (key, _) in enumerate(out)]
 
     def predict(self, input_fn, state=None,
                 checkpoint_path: Optional[str] = None) -> Iterator[Dict[str, Any]]:
@@ -418,6 +525,8 @@ class Estimator:
     def _append_loss_csv(self, rows):
         """``model_dir/loss_vs_step.csv``: the data behind the reference's
         loss-vs-step curves."""
+        if not self._chief:
+            return
         path = os.path.join(self.config.model_dir, "loss_vs_step.csv")
         new = not os.path.exists(path)
         os.makedirs(self.config.model_dir, exist_ok=True)

@@ -26,8 +26,19 @@ host step; ``--mode streaming`` runs the reference's ``tf.cond`` train op,
 one micro-batch per host step, with the first-step quirk. It runs on the
 card unless ``--device cpu`` is given, and prints one JSON line with
 throughput (``seq/s``, over every host step after the first) and ``mfu``
-against the card's bf16 peak. Not ported: the mesh flags
-(``--dp/--tp/--ep/--sp/--pp/--zero1``) and export (ROADMAP.md).
+against the card's bf16 peak.
+
+``--dp N`` trains on N data-parallel ranks (``examples/common.py``: spawned
+here, or by ``torchrun --nproc-per-node N``), each on its own ``micro``
+rows of every host batch of ``micro x N`` (x K in scan mode), through the
+explicit DP step: one all-reduce per update in scan mode. ``--zero1`` (needs
+``--dp >= 2``) shards the Adam moments over the ranks (``zero1=True``, the
+placement path). JAX's ``--flash --dp`` refusal comes from the CPU's missing
+compiled kernel; the port's CPU route is the kernels' plain version, so it
+runs. Not ported: ``--tp/--ep/--sp/--sp-core/--pp`` and export (ROADMAP.md).
+
+    python -m gradaccum_tpu_torch.examples.bert_finetune --device cpu --dp 2 \
+        --max-steps 8 --seq-len 32 --accum-k 2
 """
 
 from __future__ import annotations
@@ -40,7 +51,13 @@ from pathlib import Path
 if __package__ in (None, ""):  # run as a script: make the package importable
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
-from gradaccum_tpu_torch.examples.common import prepare_model_dir  # noqa: E402
+from gradaccum_tpu_torch.examples.common import (  # noqa: E402
+    available_devices,
+    in_rank,
+    prepare_model_dir,
+    rank_mesh,
+    spawn_ranks,
+)
 
 TASKS = {
     # per-device micro-batch, K, synthetic corpus sizes; full_train/full_eval
@@ -143,6 +160,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mode", choices=["scan", "streaming"], default="scan",
                    help="K micro-batches per host step (scan) or one (streaming, "
                         "the reference's tf.cond train op with its first-step quirk)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel ranks (the reference's worker count, 03:76)")
+    p.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1: shard the Adam moments over the data ranks "
+                        "(optimizer memory per rank / dp; needs --dp >= 2)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     p.add_argument("--model-dir", default=None,
@@ -166,12 +188,19 @@ def parse_args(argv=None):
     if args.hf_checkpoint and args.vocab_size:
         parser.error("--vocab-size cannot combine with --hf-checkpoint (the checkpoint "
                      "fixes the vocab size)")
+    if args.dp < 1:
+        parser.error("--dp/--tp/--ep/--sp/--pp must be >= 1")
     if args.moe_top_k < 1 or (args.num_experts and args.moe_top_k > args.num_experts):
         parser.error("--moe-top-k must be in [1, --num-experts]")
     if args.moe_top_k > 1 and args.num_experts == 0:
         parser.error("--moe-top-k needs --num-experts")
+    if args.zero1 and args.dp < 2:
+        parser.error("--zero1 needs --dp >= 2 (moments shard over 'data')")
     if args.sparse_embed_grad and args.mode != "scan":
         parser.error("--sparse-embed-grad requires --mode scan")
+    avail = available_devices(args.device)
+    if args.dp > 1 and avail is not None and args.dp > avail:
+        parser.error(f"mesh needs {args.dp} devices, have {avail}")
     return args
 
 
@@ -194,11 +223,12 @@ def _load_data(args, t):
     return train_texts, train_labels, eval_texts, eval_labels
 
 
-def setup(args):
+def setup(args, mesh=None):
     """The run ``args`` (from :func:`parse_args`) describe, ready to train:
     ``(estimator, train_fn, eval_fn, config, run)``, ``run`` holding the
     step counts, the corpus size and the model directory. Raises without a
-    card unless ``--device cpu``."""
+    card unless ``--device cpu``. ``mesh``: this rank's ``DataMesh`` (a
+    world of ``--dp`` ranks), or None on one device."""
     import dataclasses
 
     import torch
@@ -216,9 +246,11 @@ def setup(args):
     from gradaccum_tpu_torch.utils.platform import resolve_device
 
     error = build_parser().error
-    device = resolve_device(args.device)  # no card and no --device cpu: raise
+    # no card and no --device cpu: raise; a rank runs on its mesh device
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    dp = mesh.world if mesh is not None else 1
     t = TASKS[args.task]
-    model_dir = prepare_model_dir(args)
+    model_dir = prepare_model_dir(args, mesh)
     train_texts, train_labels, eval_texts, eval_labels = _load_data(args, t)
 
     vocab_path = args.vocab
@@ -239,9 +271,10 @@ def setup(args):
     micro = t["batch"]
     k = args.accum_k if args.accum_k is not None else t["k"]
     if args.full:
-        max_steps = len(train_labels) * 3 // micro  # 3 epochs in micro-batch steps
+        # 3 epochs in micro-batch steps; each consumes micro rows per rank
+        max_steps = len(train_labels) * 3 // (micro * dp)
         print(f"[preset] {args.task} --full: corpus={len(train_labels)}, 3 epochs -> "
-              f"{max_steps} micro-steps (micro {micro}, K={k})")
+              f"{max_steps} micro-steps (micro {micro} x dp {dp}, K={k})")
     else:
         max_steps = args.max_steps
     full_max_steps = max_steps
@@ -295,8 +328,14 @@ def setup(args):
         device=device,
         warm_start=pretrained,
         sparse_embed=args.sparse_embed_grad,
+        mesh=mesh,
+        zero1=args.zero1,
     )
-    host_batch = micro * (k if args.mode == "scan" else 1)
+    if mesh is not None and mesh.rank == 0:
+        print(f"[mesh] {mesh.shape}")
+    # the per-rank micro-batch x the data-parallel width (each worker sees
+    # its own micro rows) x K in scan mode
+    host_batch = micro * dp * (k if args.mode == "scan" else 1)
 
     def train_fn():
         return (Dataset.from_arrays(train)
@@ -314,11 +353,20 @@ def setup(args):
 
 
 def main(argv=None) -> dict:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
+    if args.dp > 1 and not in_rank():
+        return spawn_ranks("gradaccum_tpu_torch.examples.bert_finetune", argv, args.dp,
+                           args.device)
+    with rank_mesh(args.dp, args.device, want_mesh=False) as mesh:
+        return _main(args, mesh)
+
+
+def _main(args, mesh) -> dict:
     from gradaccum_tpu_torch.estimator.config import EvalSpec, TrainSpec
     from gradaccum_tpu_torch.utils.platform import device_name
 
-    est, train_fn, eval_fn, cfg, run = setup(args)
+    est, train_fn, eval_fn, cfg, run = setup(args, mesh)
     k = est.accum.num_micro_batches
     micro = TASKS[args.task]["batch"]
     evaluations = []  # one entry per evaluation: each opens the eval input once
@@ -338,6 +386,7 @@ def main(argv=None) -> dict:
         "vocab_size": cfg.vocab_size, "warm_start": args.hf_checkpoint,
         "remat": cfg.remat, "sparse_embed_grad": args.sparse_embed_grad,
         "num_experts": cfg.num_experts, "moe_top_k": cfg.moe_top_k,
+        "dp": est.mesh.world if est.mesh is not None else 1, "zero1": args.zero1,
         "steps": state.step, "updates": state.step // k,
         "timed_host_steps": est.train_stats["host_steps"],
         "first_loss": float(est.first_loss), "loss": float(est.last_loss),
@@ -357,14 +406,15 @@ def main(argv=None) -> dict:
     if args.full:
         out["preset"] = {
             "task": args.task, "corpus": run["corpus"], "micro_batch": micro,
-            "accum_k": k, "epochs": 3, "full_max_steps": run["full_max_steps"],
+            "accum_k": k, "dp": out["dp"], "epochs": 3, "full_max_steps": run["full_max_steps"],
             "ran_steps": run["max_steps"], "quick": args.quick, "lr": args.lr,
             "seq_len": args.seq_len, "final_eval_accuracy": round(float(results["accuracy"]), 4),
         }
-        if run["model_dir"]:
+        if run["model_dir"] and (mesh is None or mesh.rank == 0):
             with open(Path(run["model_dir"]) / "preset.json", "w") as f:
                 json.dump(out["preset"], f, indent=2)
-    print(json.dumps(out))
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps(out))
     return out
 
 

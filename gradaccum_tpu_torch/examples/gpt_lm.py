@@ -19,8 +19,14 @@ window with ``models/gpt.py :: greedy_generate``, which re-runs the prefix
 for every token (JAX's example decodes with the KV cache of
 ``gpt_decode.generate_cached``, part of the serving stack, not ported yet;
 JAX's tests pin both to the same tokens). It runs on the card unless
-``--device cpu`` is given and prints one JSON line. Not ported: the mesh
-flags ``--dp/--tp/--zero1`` and ``--export-dir`` (ROADMAP.md).
+``--device cpu`` is given and prints one JSON line.
+
+``--dp N`` trains on N data-parallel ranks (``examples/common.py``), each
+on ``--batch`` rows of every host batch of ``batch x N`` (x K in scan
+mode); ``--zero1`` (needs ``--dp >= 2``) shards the Adam moments over them.
+``--flash --dp`` runs (JAX refuses it only on the CPU, for its compiled
+kernel; the port's CPU route is the plain version). Not ported: ``--tp``
+and ``--export-dir`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,9 +40,13 @@ if __package__ in (None, ""):  # run as a script: make the package importable
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 from gradaccum_tpu_torch.examples.common import (  # noqa: E402
+    available_devices,
     example_argparser,
+    in_rank,
     prepare_model_dir,
+    rank_mesh,
     run_summary,
+    spawn_ranks,
 )
 
 CORPUS_SEED = 19830610
@@ -64,6 +74,8 @@ def build_parser():
     p.add_argument("--accum-k", type=int, default=2)
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--text-file", default=None, help="real corpus (else synthetic)")
+    p.add_argument("--dp", type=int, default=1)
+    p.add_argument("--zero1", action="store_true")
     p.add_argument("--flash", action="store_true",
                    help="the causal flash kernels (the triangle cut inside them, "
                         "attention dropout inside them)")
@@ -83,9 +95,30 @@ def windows_of(text: str, seq_len: int):
     return windows[:cut], windows[cut:]
 
 
-def main(argv=None) -> dict:
-    args = build_parser().parse_args(argv)
+def parse_args(argv=None):
+    """Parse ``argv`` and refuse what JAX's example refuses."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.dp < 1:
+        parser.error("--dp/--tp must be >= 1")
+    if args.zero1 and args.dp < 2:
+        parser.error("--zero1 needs --dp >= 2 (moments shard over 'data')")
+    avail = available_devices(args.device)
+    if args.dp > 1 and avail is not None and args.dp > avail:
+        parser.error(f"mesh needs {args.dp} devices, have {avail}")
+    return args
 
+
+def main(argv=None) -> dict:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_args(argv)
+    if args.dp > 1 and not in_rank():
+        return spawn_ranks("gradaccum_tpu_torch.examples.gpt_lm", argv, args.dp, args.device)
+    with rank_mesh(args.dp, args.device, want_mesh=False) as mesh:
+        return _main(args, mesh)
+
+
+def _main(args, mesh) -> dict:
     import torch
 
     from gradaccum_tpu_torch.data.pipeline import Dataset
@@ -98,8 +131,10 @@ def main(argv=None) -> dict:
     from gradaccum_tpu_torch.ops.schedule import warmup_polynomial_decay
     from gradaccum_tpu_torch.utils.platform import resolve_device, synchronize
 
-    device = resolve_device(args.device)  # no card and no --device cpu: raise
-    model_dir = prepare_model_dir(args)
+    # no card and no --device cpu: raise; a rank runs on its mesh device
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    chief = mesh is None or mesh.rank == 0
+    model_dir = prepare_model_dir(args, mesh)
     if args.text_file:
         text = Path(args.text_file).read_text(encoding="utf-8", errors="replace")
     else:
@@ -127,8 +162,13 @@ def main(argv=None) -> dict:
         RunConfig(model_dir=model_dir, log_step_count_steps=max(args.max_steps // 10, 1)),
         mode=args.mode,
         device=device,
+        mesh=mesh,
+        zero1=args.zero1,
     )
-    host_batch = args.batch * (args.accum_k if args.mode == "scan" else 1)
+    if mesh is not None and chief:
+        print(f"[mesh] {mesh.shape}")
+    dp = mesh.world if mesh is not None else 1
+    host_batch = args.batch * dp * (args.accum_k if args.mode == "scan" else 1)
     evaluations = []  # one entry per evaluation: each opens the eval input once
 
     def train_fn():
@@ -143,9 +183,10 @@ def main(argv=None) -> dict:
 
     state, results = est.train_and_evaluate(TrainSpec(train_fn, max_steps=args.max_steps),
                                             EvalSpec(eval_fn, throttle_secs=60))
-    print(f"gpt_lm: next-token accuracy {results['token_accuracy']:.4f}")
+    if chief:
+        print(f"gpt_lm: next-token accuracy {results['token_accuracy']:.4f}")
     out = dict(run_summary(est, state), flash=args.flash, seq_len=s,
-               micro_batch=args.batch, accum_k=args.accum_k,
+               micro_batch=args.batch, accum_k=args.accum_k, dp=dp, zero1=args.zero1,
                token_accuracy=results["token_accuracy"],
                eval_batches=results["_num_batches"], evaluations=len(evaluations),
                sample_steps=args.sample)
@@ -157,11 +198,13 @@ def main(argv=None) -> dict:
         synchronize(device)
         dt = time.perf_counter() - t0
         sample = bytes(int(t) for t in ids[0].tolist()).decode("utf-8", "replace")
-        print(f"sample: {sample!r}")
-        print(f"decode: {args.sample / dt:.1f} tokens/sec (recompute: the whole prefix "
-              f"per token, prompt {len(prompt)} + {args.sample} steps)")
+        if chief:
+            print(f"sample: {sample!r}")
+            print(f"decode: {args.sample / dt:.1f} tokens/sec (recompute: the whole "
+                  f"prefix per token, prompt {len(prompt)} + {args.sample} steps)")
         out.update(sample=sample, decode_tokens_per_sec=args.sample / dt)
-    print(json.dumps(out))
+    if chief:
+        print(json.dumps(out))
     return out
 
 

@@ -11,10 +11,14 @@ The port of ``examples/mnist.py``. The reference's matrix, effective batch
 Shared config: Adam lr 1e-4 (``tf.train.AdamOptimizer``), the first-step
 quirk on, shuffle buffer 2·batch+1 with seed 19830610, synthetic
 MNIST-shaped data unless ``--data-dir`` holds the idx files. Variants 03
-and 04 need two workers (data parallelism, not ported yet) and raise
-``NotImplementedError``.
+and 04 run on two workers: two ranks of a ``data`` mesh (``examples/common.py``
+spawns them, or ``torchrun --nproc-per-node 2`` does), each reading the
+same host batch of ``batch x 2`` rows (``x K`` in scan mode) and training
+on its half. With fewer cards than workers the variant runs on as many
+ranks as there are cards, with JAX's ``[warn]``: on one card, at world 1.
 
     python -m gradaccum_tpu_torch.examples.mnist --variant 02 --mode streaming
+    python -m gradaccum_tpu_torch.examples.mnist --variant 04 --device cpu
 
 It runs on the card unless ``--device cpu`` is given, and prints one JSON
 line: first and last loss, eval accuracy, examples/s and time per host step.
@@ -30,9 +34,13 @@ if __package__ in (None, ""):  # run as a script: make the package importable
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 from gradaccum_tpu_torch.examples.common import (  # noqa: E402
+    available_devices,
     example_argparser,
+    in_rank,
     prepare_model_dir,
+    rank_mesh,
     run_summary,
+    spawn_ranks,
 )
 
 VARIANTS = {
@@ -56,13 +64,25 @@ def build_parser():
 
 
 def main(argv=None) -> dict:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     v = VARIANTS[args.variant]
-    if v["workers"] > 1:
-        raise NotImplementedError(
-            f"variant {args.variant} runs on {v['workers']} workers: data parallelism "
-            "is not ported yet; see ROADMAP.md")
+    n = v["workers"]
+    if n > 1:
+        from gradaccum_tpu_torch.utils.platform import resolve_device
 
+        resolve_device(args.device)  # no card and no --device cpu: raise
+        avail = available_devices(args.device)
+        n = n if avail is None else min(n, avail)
+        if n < v["workers"] and not in_rank():
+            print(f"[warn] only {n} device(s); running variant on {n}-wide mesh")
+        if n > 1 and not in_rank():
+            return spawn_ranks("gradaccum_tpu_torch.examples.mnist", argv, n, args.device)
+    with rank_mesh(n, args.device, want_mesh=v["workers"] > 1) as mesh:
+        return _run(args, v, mesh)
+
+
+def _run(args, v, mesh) -> dict:
     from gradaccum_tpu_torch.data.mnist import flip_labels, load
     from gradaccum_tpu_torch.data.pipeline import Dataset
     from gradaccum_tpu_torch.estimator.config import EvalSpec, RunConfig, TrainSpec
@@ -72,8 +92,9 @@ def main(argv=None) -> dict:
     from gradaccum_tpu_torch.ops.adamw import adam
     from gradaccum_tpu_torch.utils.platform import resolve_device
 
-    device = resolve_device(args.device)  # no card and no --device cpu: raise
-    model_dir = prepare_model_dir(args)
+    # no card and no --device cpu: raise; a rank runs on its mesh device
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    model_dir = prepare_model_dir(args, mesh)
     data = load(args.data_dir, num_train=args.train_size)
     train_images, train_labels = data["train"]
     test_images, test_labels = data["test"]
@@ -87,8 +108,10 @@ def main(argv=None) -> dict:
         RunConfig(model_dir=model_dir, log_step_count_steps=100),
         mode=args.mode,
         device=device,
+        mesh=mesh,
     )
-    host_batch = v["batch"] * (v["k"] if args.mode == "scan" else 1)
+    per_host_batch = v["batch"] * (mesh.world if mesh is not None else 1)
+    host_batch = per_host_batch * (v["k"] if args.mode == "scan" else 1)
 
     def train_fn():
         return (Dataset.from_arrays({"image": train_images, "label": train_labels})
@@ -104,8 +127,10 @@ def main(argv=None) -> dict:
     state, results = est.train_and_evaluate(TrainSpec(train_fn, max_steps=args.max_steps),
                                             EvalSpec(eval_fn, throttle_secs=30))
     out = {"variant": args.variant, "micro_batch": v["batch"], "accum_k": v["k"],
+           "workers": mesh.world if mesh is not None else 1,
            **run_summary(est, state), "accuracy": results["accuracy"]}
-    print(json.dumps(out))
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps(out))
     return out
 
 

@@ -53,8 +53,29 @@ into each micro-batch. It refuses ``clip_norm`` (no summed gradient to
 clip), ``normalize_by_good_count`` (the denominator is folded before the
 count is known) and ``axis_name``, and reports no ``grad_norm``.
 
-Not ported yet (ROADMAP.md): ``axis_name`` and ``example_axes``; setting
-one raises ``NotImplementedError``.
+**Data parallelism** (``axis_name``): the step runs on every rank of the
+:class:`~gradaccum_tpu_torch.parallel.mesh.DataMesh` bound to that axis
+name (``parallel/mesh.py :: data_parallel_mesh``), each rank on its own
+rows, with JAX's semantics:
+
+- scan mode: the K micro-batch gradients accumulate locally, and ONE SUM
+  all-reduce per update covers the whole accumulator (flattened into one
+  buffer per dtype, the window's loss statistic and, under the guard, its
+  good count riding in the same buffer); the denominator is ``K·N``. Under
+  the guard each rank's micro-batches skip on their own and the good count
+  is summed over the ranks; the logged loss is the global mean (under the
+  guard the summed ``loss_sum / n_good``); ``apply_step = step + K``,
+  counted in local micro-batches;
+- streaming mode: a SUM all-reduce of each micro-batch's gradients (the
+  reference's mirrored accumulators), the 1/N folded into the apply-time
+  denominator; under the guard the finite-loss verdict is pmin'd over the
+  ranks, so all skip together; the aux loss stays this rank's (the DP
+  wrapper, ``parallel/dp.py``, averages it).
+
+``fused_adam`` with ``axis_name`` is refused, as in JAX: the fused window
+folds each micro-batch into the moments before any window-level
+collective exists. ``example_axes`` (sequence shards of one example) is not
+ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -77,8 +98,9 @@ from gradaccum_tpu_torch.utils.tree import global_norm
 class GradAccumConfig(NamedTuple):
     """``num_micro_batches`` is the reference's
     ``gradient_accumulation_multiplier``; ``clip_norm`` is 1.0 on the BERT
-    path, None on MNIST and housing. ``axis_name`` and ``example_axes`` name
-    knobs of the JAX package that the port does not run yet."""
+    path, None on MNIST and housing. ``axis_name`` names the data-parallel
+    axis the step reduces over; ``example_axes`` is a knob of the JAX
+    package that the port does not run yet."""
 
     num_micro_batches: int
     clip_norm: Optional[float] = None
@@ -126,14 +148,9 @@ def validate_config(config: GradAccumConfig) -> None:
                 "micro-batch. Run fused accumulation on the GSPMD path "
                 "(sharding_rules / zero1) instead"
             )
-    refused = {
-        "axis_name": config.axis_name is not None,
-        "example_axes": bool(config.example_axes),
-    }
-    asked = [name for name, on in refused.items() if on]
-    if asked:
+    if config.example_axes:
         raise NotImplementedError(
-            f"GradAccumConfig knob(s) {asked} are not ported yet; see ROADMAP.md"
+            "GradAccumConfig knob(s) ['example_axes'] are not ported yet; see ROADMAP.md"
         )
 
 
@@ -154,8 +171,35 @@ def _accum_zeros(params):
             for name, p in params.items()}
 
 
-def _accum_add_(accum, grads) -> None:
-    for acc, g in zip(accum.values(), grads):
+def _window_accum(params, n_stats: int = 0):
+    """The scan window's zeroed accumulators, as :func:`_accum_zeros`'s but
+    each a view into one flat buffer per dtype, so that a mesh all-reduces
+    the whole window in place: one call per dtype and no copy. ``n_stats``
+    float32 slots close the float32 buffer (the window's loss statistic and
+    good count ride the same call). Returns ``(accum, buffers, stats)``."""
+    groups: Dict[torch.dtype, list] = {}
+    for name, p in params.items():
+        groups.setdefault(torch.promote_types(p.dtype, torch.float32), []).append(name)
+    if n_stats:
+        groups.setdefault(torch.float32, [])
+    accum, buffers, stats = {}, [], None
+    for dtype, names in groups.items():
+        extra = n_stats if dtype == torch.float32 else 0
+        flat = torch.zeros(sum(params[n].numel() for n in names) + extra, dtype=dtype,
+                           device=_device(params))
+        offset = 0
+        for n in names:
+            size = params[n].numel()
+            accum[n] = flat[offset:offset + size].view(params[n].shape)
+            offset += size
+        if extra:
+            stats = flat[offset:]
+        buffers.append(flat)
+    return {n: accum[n] for n in params}, buffers, stats
+
+
+def _accum_add_(slots, grads) -> None:
+    for acc, g in zip(slots, grads):
         acc.add_(g.to(acc.dtype))
 
 
@@ -227,6 +271,31 @@ def _scale_of(state, config: GradAccumConfig, init_fn: str):
     return state.loss_scale.scale
 
 
+def _axis_mesh(config: GradAccumConfig):
+    """The ``DataMesh`` bound to ``config.axis_name``, or None without one
+    (an unbound name raises JAX's ``NameError``)."""
+    if config.axis_name is None:
+        return None
+    from gradaccum_tpu_torch.parallel.mesh import axis_mesh
+
+    return axis_mesh(config.axis_name)
+
+
+def _global_mean(mesh, loss, check_loss, grads):
+    """One micro-batch's loss, checked loss and gradients averaged over the
+    ranks of ``mesh``: the gradient of the mean loss over the global
+    micro-batch, which the JAX package's GSPMD step (``jit`` with a sharded
+    batch) gets from the all-reduce XLA inserts. One collective: the values
+    are summed in a float32-or-wider buffer, divided by N and cast back to
+    their dtypes (at one rank, bit for bit the input)."""
+    wide = [g.to(torch.promote_types(g.dtype, torch.float32)) for g in grads]
+    stats = torch.stack([loss, check_loss]).to(torch.float32)
+    mesh.all_reduce_tensors_(wide + [stats], tag="grads")
+    grads = tuple((w / mesh.world).to(g.dtype) for w, g in zip(wide, grads))
+    stats = stats / mesh.world
+    return stats[0].to(loss.dtype), stats[1].to(check_loss.dtype), grads
+
+
 # --------------------------------------------------------------------------
 # Scan mode
 # --------------------------------------------------------------------------
@@ -265,12 +334,15 @@ def accumulate_scan(loss_fn: LossFn, optimizer: Optimizer, config: GradAccumConf
 
 
 def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
-                     needs_rng: bool, sparse=None):
+                     needs_rng: bool, sparse=None, micro_mean=None):
     """The scan-mode train step. With ``sparse`` (``SparseEmbedHooks``,
     ``ops/sparse_embed.py``) ``loss_fn`` is ``(params, rows, batch)``: each
     micro-batch differentiates with respect to its gathered [micro, S, H]
     table rows instead of the table, and one ``index_add_`` builds the
-    table's dense gradient after the loop."""
+    table's dense gradient after the loop. With ``micro_mean`` (a
+    ``DataMesh``; ``parallel/dp.py :: make_pjit_dp_train_step``) every
+    micro-batch's loss and gradients are averaged over its ranks before the
+    guard and the accumulator see them."""
     k = config.num_micro_batches
     skip = config.skip_nonfinite
     fused = config.fused_adam
@@ -279,6 +351,10 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
             raise ValueError("fused_adam and sparse_embed both replace the "
                              "accumulator; pick one")
         _require_fused_hooks(optimizer)
+    if sparse is not None and micro_mean is not None:
+        raise NotImplementedError("sparse_embed on the per-micro-batch mean path "
+                                  "(zero1=True or sharding_rules=()) is not ported yet; "
+                                  "it runs on the explicit DP path (axis_name)")
 
     def train_step(state: ScanState, super_batch: Dict[str, Any],
                    generator: Optional[torch.Generator] = None):
@@ -291,6 +367,7 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
         if needs_rng and generator is None:
             raise ValueError("needs_rng=True: pass train_step(state, batch, generator)")
         scale = _scale_of(state, config, "scan_init")
+        mesh = _axis_mesh(config)
         params = state.params
         dense = params
         if sparse is not None:
@@ -302,7 +379,14 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
             mv = optimizer.fused.moments(state.opt_state)
             inv_m, inv_v = _fused_inv_factors(k, scale, device)
         else:
-            accum = _accum_zeros(dense)
+            # under sparse_embed the table's gradient takes its slot when
+            # it sums at its own dtype (one scatter-add, below)
+            in_window = sparse is not None and \
+                torch.promote_types(table.dtype, torch.float32) == table.dtype
+            accum, buffers, stats = _window_accum(
+                params if in_window else dense,
+                0 if mesh is None else 2 if skip else 1)
+            dense_slots = [accum[name] for name in dense]
         # fused mode counts the window position even unguarded: `first`
         n_good = torch.zeros((), dtype=torch.int32, device=device) \
             if skip or fused else None
@@ -321,6 +405,8 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
                     lambda p, b, r=rows: loss_fn(p, r, b), params, micro, scale,
                     wrt=list(dense.values()) + [rows])
             with torch.no_grad():
+                if micro_mean is not None:
+                    loss, check_loss, grads = _global_mean(micro_mean, loss, check_loss, grads)
                 good = None
                 if skip:
                     # the verdict covers the row cotangents too
@@ -336,7 +422,7 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
                     optimizer.fused.accumulate(mv, dict(zip(params, grads)), good, first,
                                                inv_m, inv_v)
                 else:
-                    _accum_add_(accum, grads)
+                    _accum_add_(dense_slots, grads)
                 if skip:
                     n_good = n_good + good.to(torch.int32)
                 elif fused:
@@ -348,9 +434,31 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
                 # rows were zeroed above, so it deposits nothing
                 ids = super_batch[sparse.ids_key].reshape(-1).long()
                 ct = torch.cat([g.reshape(-1, g.shape[-1]) for g in rows_ct]).to(table.dtype)
-                table_grad = torch.zeros_like(table).index_add_(0, ids, ct)
-            accum = {name: table_grad if name == sparse.table_path else accum[name]
-                     for name in params}
+                if in_window:
+                    accum[sparse.table_path].index_add_(0, ids, ct)
+                else:
+                    table_grad = torch.zeros_like(table).index_add_(0, ids, ct)
+                    buffers.append(table_grad)
+                    accum = {name: table_grad if name == sparse.table_path else accum[name]
+                             for name in params}
+        stacked = torch.stack(losses)
+        # the window's loss statistic: the sum of the usable micro-batches'
+        # losses under the guard, else their mean
+        loss_stat = stacked.sum() if skip else stacked.mean()
+        total = k
+        if mesh is not None:  # fused forbids axis_name (validate_config)
+            with torch.no_grad():
+                # the one collective per update: the accumulator, the loss
+                # statistic and the good count in one buffer, reduced in place
+                stats[0] = loss_stat
+                if skip:
+                    stats[1] = n_good
+                for buf in buffers:
+                    mesh.all_reduce_(buf, tag="grads")
+                loss_stat = stats[0].to(stacked.dtype)
+                if skip:
+                    n_good = stats[1].to(torch.int32)
+            total = k * mesh.world
         apply_step = state.step + k
         norm = None
         if fused:
@@ -364,23 +472,23 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
                                                                   apply_step)
         else:
             new_params, new_opt_state, norm = _scan_apply(
-                optimizer, config, state, accum, n_good, scale, apply_step)
+                optimizer, config, state, accum, n_good, scale, apply_step, total)
         new_ls = state.loss_scale
         if config.loss_scale is not None:
-            new_ls = update_loss_scale(state.loss_scale, config.loss_scale, n_good >= k)
-        stacked = torch.stack(losses)
+            new_ls = update_loss_scale(state.loss_scale, config.loss_scale, n_good >= total)
         if skip:
-            # mean over the usable micro-batches; NaN when the whole window was bad
+            # mean over the usable micro-batches (of every rank); NaN when the
+            # whole window was bad
             loss = torch.where(n_good > 0,
-                               stacked.sum() / torch.clamp(n_good.to(stacked.dtype), min=1.0),
+                               loss_stat / torch.clamp(n_good.to(stacked.dtype), min=1.0),
                                torch.full_like(stacked[0], float("nan")))
         else:
-            loss = stacked.mean()
+            loss = loss_stat if mesh is None else loss_stat / mesh.world
         aux = {"loss": loss, "lr_step": apply_step}
         if norm is not None:  # fused mode never sums the window's gradient
             aux["grad_norm"] = norm
         if skip:
-            aux["skipped"] = k - n_good
+            aux["skipped"] = total - n_good  # window-global count
             aux["good_count"] = n_good
         if config.loss_scale is not None:
             aux["loss_scale"] = new_ls.scale
@@ -389,15 +497,16 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
     return train_step
 
 
-def _scan_apply(optimizer, config, state, accum, n_good, scale, apply_step):
-    """The two-pass apply: normalize, unscale, clip, update (none for an
-    all-bad window). Returns ``(params, opt_state, grad_norm)``."""
+def _scan_apply(optimizer, config, state, accum, n_good, scale, apply_step, total):
+    """The two-pass apply: normalize (by ``total`` = K·N, or the good
+    count), unscale, clip, update (none for an all-bad window). Returns
+    ``(params, opt_state, grad_norm)``."""
     with torch.no_grad():
         if config.skip_nonfinite and config.normalize_by_good_count:
             # rescale over the survivors instead of shrinking the update
             denom = torch.clamp(n_good, min=1).to(torch.float32)
         else:
-            denom = config.num_micro_batches  # a skipped micro-batch adds zero: the update shrinks
+            denom = total  # a skipped micro-batch adds zero: the update shrinks
         if scale is not None:
             denom = denom * scale  # unscale BEFORE clip and apply
         grads, norm = _finalize(accum, config, denom)
@@ -457,6 +566,13 @@ def streaming_step(loss_fn: LossFn, optimizer: Optimizer, config: GradAccumConfi
     generator)``.
     """
     validate_config(config)
+    return _streaming_train_step(loss_fn, optimizer, config, needs_rng)
+
+
+def _streaming_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
+                          needs_rng: bool, micro_mean=None):
+    """The streaming-mode train step; ``micro_mean`` as in
+    :func:`_scan_train_step`."""
     k = config.num_micro_batches
     skip = config.skip_nonfinite
     fused = config.fused_adam
@@ -477,6 +593,8 @@ def streaming_step(loss_fn: LossFn, optimizer: Optimizer, config: GradAccumConfi
                 raise ValueError("needs_rng=True: pass train_step(state, batch, generator)")
             micro_batch = dict(micro_batch, rng=generator)
         scale = _scale_of(state, config, "streaming_init")
+        mesh = _axis_mesh(config)
+        n_replicas = 1 if mesh is None else mesh.world
         params = state.params
         loss, check_loss, grads = _grad_call(loss_fn, params, micro_batch, scale)
         applied = state.step % k == phase
@@ -484,9 +602,22 @@ def streaming_step(loss_fn: LossFn, optimizer: Optimizer, config: GradAccumConfi
         new_good, new_ls = state.good_count, state.loss_scale
         accum = state.accum_grads
         with torch.no_grad():
+            if micro_mean is not None:
+                loss, check_loss, grads = _global_mean(micro_mean, loss, check_loss, grads)
+            if mesh is not None:
+                # the reference's SUM-aggregated mirrored accumulators: one
+                # all-reduce of this micro-batch's gradients
+                mesh.all_reduce_tensors_(grads, tag="grads")
             good = None
             if skip:
-                good = _all_finite(check_loss, grads)
+                if mesh is None:
+                    good = _all_finite(check_loss, grads)
+                else:
+                    # the loss is this rank's: any rank's non-finite loss
+                    # skips the micro-batch on every rank, or the zeroed
+                    # accumulators would diverge
+                    finite_loss = mesh.pmin_flag(torch.isfinite(check_loss), tag="guard")
+                    good = finite_loss & _all_finite(check_loss, grads)
                 grads = _zero_if_bad(grads, good)
                 good_inc = good.to(torch.int32)
             else:
@@ -505,7 +636,7 @@ def streaming_step(loss_fn: LossFn, optimizer: Optimizer, config: GradAccumConfi
             else:
                 # both branches accumulate: the apply branch re-accumulates the
                 # current gradient first (optimization.py:81)
-                _accum_add_(accum, grads)
+                _accum_add_(accum.values(), grads)
             if applied:
                 sched_step = state.step + step_offset
                 # an all-bad window must not apply: the window's one host read
@@ -517,10 +648,11 @@ def streaming_step(loss_fn: LossFn, optimizer: Optimizer, config: GradAccumConfi
                     else:
                         new_opt_state = optimizer.fused.carry_into(state.opt_state, mv)
                 else:
+                    # each good call added a sum over the ranks: x N stays
                     if skip and config.normalize_by_good_count:
-                        denom = torch.clamp(window_good, min=1).to(torch.float32)
+                        denom = torch.clamp(window_good, min=1).to(torch.float32) * n_replicas
                     else:
-                        denom = k
+                        denom = k * n_replicas
                     if scale is not None:
                         denom = denom * scale  # unscale BEFORE clip and apply
                     avg, _ = _finalize(accum, config, denom)

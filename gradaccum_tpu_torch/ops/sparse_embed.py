@@ -22,9 +22,10 @@ rows-only update would not be the same optimizer.
 The non-finite guard and loss scaling behave as in ``accumulate_scan``: a
 bad micro-batch's gradients AND its row cotangents are zeroed (its rows
 then deposit nothing), an all-bad window skips the update, and
-``normalize_by_good_count`` divides by the good count. Scan mode only;
-``axis_name`` (data parallelism) is not ported and raises
-``NotImplementedError`` through ``validate_config``.
+``normalize_by_good_count`` divides by the good count. Scan mode only.
+With ``axis_name`` (data parallelism) each rank scatters its own rows, and
+the one all-reduce at apply covers the scattered table gradient with the
+rest of the accumulator (JAX's ``sparse_embed.py`` psums it the same way).
 """
 
 from __future__ import annotations

@@ -190,10 +190,49 @@ def test_stack_micro_batches_matches_jax():
 ])
 def test_unported_knobs_raise(knob):
     # the guard, loss scaling and fused_adam are ported (tests/test_torch_guard.py,
-    # tests/test_torch_mixed.py); these knobs, alone or beside them, are not
-    with pytest.raises(NotImplementedError):
-        tacc.accumulate_scan(lambda p, b: 0.0, tadamw.adamw(1e-3),
-                             tacc.GradAccumConfig(2, **knob))
+    # tests/test_torch_mixed.py); example_axes, alone or beside them, is not.
+    # axis_name is ported (data parallelism, tests/test_torch_parallel.py): on a
+    # one-rank gloo group bound to "data" the step equals the step without it
+    # bit for bit (a one-rank SUM is the identity, the denominator K·1)
+    if "axis_name" not in knob:
+        with pytest.raises(NotImplementedError):
+            tacc.accumulate_scan(lambda p, b: 0.0, tadamw.adamw(1e-3),
+                                 tacc.GradAccumConfig(2, **knob))
+        return
+    from gradaccum_tpu_torch.examples.common import free_port
+    from gradaccum_tpu_torch.parallel import mesh as mesh_lib
+
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2 * 3, 3)).astype(np.float32)
+    batch = tacc.stack_micro_batches({"x": torch.as_tensor(x),
+                                      "y": torch.as_tensor(x @ np.ones((3, 1), np.float32))}, 2)
+    w0 = rng.normal(size=(3, 1)).astype(np.float32)
+
+    def run(config):
+        opt = tadamw.adamw(1e-2)
+        state = tacc.scan_init({"w": torch.tensor(w0, requires_grad=True)}, opt,
+                               loss_scale=config.loss_scale)
+        step = tacc.accumulate_scan(
+            lambda p, b: torch.mean((b["x"] @ p["w"] - b["y"]) ** 2), opt, config)
+        for _ in range(2):
+            state, aux = step(state, batch)
+        return state, aux
+
+    config = tacc.GradAccumConfig(2, **knob)
+    want, want_aux = run(config._replace(axis_name=None))
+    with pytest.raises(NameError, match="unbound axis name: data"):
+        run(config)
+    mesh_lib.initialize_multihost(f"localhost:{free_port()}", 1, 0, device="cpu",
+                                  timeout_s=60)
+    try:
+        mesh = mesh_lib.data_parallel_mesh()
+        got, got_aux = run(config)
+        assert mesh.calls["all_reduce:grads"] == 2  # one per update
+    finally:
+        mesh_lib.shutdown()
+    assert torch.equal(got.params["w"], want.params["w"])
+    assert torch.equal(got.opt_state.m["w"], want.opt_state.m["w"])
+    assert torch.equal(got_aux["loss"], want_aux["loss"])
 
 
 @pytest.mark.parametrize("knob", [dict(master_dtype=torch.float32), dict(moment_dtype="q8")])

@@ -6,8 +6,9 @@
 - The task table, the synthetic corpus, the TSV reader (with its
   malformed-row warning) and the ``--label-noise`` flips equal JAX's.
 - ``--full --quick`` sizes the schedule to 3 epochs of the corpus, trains
-  40 micro-steps of it and writes ``preset.json`` with JAX's keys (but
-  ``dp``: the port has no mesh yet).
+  40 micro-steps of it and writes ``preset.json`` with JAX's keys (``dp``
+  among them; the ``--dp/--zero1`` parser errors are held against JAX's in
+  ``tests/test_torch_dp_examples.py``).
 """
 
 import importlib
@@ -103,8 +104,8 @@ def test_full_quick_preset(tmp_path):
     with open(model_dir / "preset.json") as f:
         preset = json.load(f)
     assert preset == out["preset"]
-    assert {key: preset[key] for key in ("task", "corpus", "micro_batch", "accum_k", "epochs",
-                                         "full_max_steps", "ran_steps", "quick")} == {
-        "task": "cola", "corpus": 160, "micro_batch": 8, "accum_k": 2, "epochs": 3,
+    assert {key: preset[key] for key in ("task", "corpus", "micro_batch", "accum_k", "dp",
+                                         "epochs", "full_max_steps", "ran_steps", "quick")} == {
+        "task": "cola", "corpus": 160, "micro_batch": 8, "accum_k": 2, "dp": 1, "epochs": 3,
         "full_max_steps": 60, "ran_steps": 40, "quick": True}
     assert 0.0 <= preset["final_eval_accuracy"] <= 1.0

@@ -1,7 +1,9 @@
 """The port's GPT entry point held against JAX's ``examples/gpt_lm.py``.
 
 - The flags the port carries take JAX's defaults, and a bad value gets
-  JAX's parser error; the mesh and export flags are not carried.
+  JAX's parser error; ``--dp/--zero1`` are carried (their parser errors
+  against JAX's: ``tests/test_torch_dp_examples.py``), ``--tp`` and
+  ``--export-dir`` are not.
 - The synthetic corpus and its byte windows (90/10 split) equal JAX's.
 - A 4-step CPU run with ``--flash`` prints one JSON line: finite losses,
   token accuracy in [0, 1], the decode rate line says "recompute".
@@ -49,7 +51,7 @@ def _jax_args(argv, monkeypatch):
 def test_defaults_match_jax(monkeypatch):
     want = _jax_args([], monkeypatch)
     got = vars(tlm.build_parser().parse_args([]))
-    mesh_and_export = {"dp", "tp", "zero1", "export_dir"}
+    mesh_and_export = {"tp", "export_dir"}
     assert set(got) == set(want) - mesh_and_export | {"device"}
     for key in set(got) - {"device", "model_dir"}:
         assert got[key] == want[key], key
@@ -70,10 +72,15 @@ def test_bad_values_get_jax_errors(argv, capsys):
 
 
 def test_mesh_and_export_flags_are_not_carried(capsys):
-    for flag in (["--dp", "2"], ["--zero1"], ["--export-dir", "x"]):
+    # --tp and --export-dir wait for model parallelism and export; --dp and
+    # --zero1 are carried, so --zero1 alone now meets JAX's own parser error
+    for flag in (["--tp", "2"], ["--export-dir", "x"]):
         with pytest.raises(SystemExit):
             tlm.main([*flag, "--device", "cpu"])
         assert "unrecognized arguments" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        tlm.main(["--zero1", "--device", "cpu"])
+    assert "--zero1 needs --dp >= 2 (moments shard over 'data')" in capsys.readouterr().err
 
 
 def test_corpus_and_windows_match_jax():

@@ -285,6 +285,13 @@ def test_estimator_and_step_refusals():
     with pytest.raises(ValueError, match="hooks"):
         Estimator(bundle, tadamw.adamw(1e-3), tacc.GradAccumConfig(K), mode="scan",
                   device="cpu", sparse_embed=True)
-    with pytest.raises(NotImplementedError):
-        accumulate_scan_sparse_embed(SparseEmbedHooks("emb", "ids", t_loss_with_rows),
-                                     tadamw.adamw(1e-3), tacc.GradAccumConfig(K, axis_name="data"))
+    # axis_name is ported (data parallelism; sparse DP against dense DP and
+    # JAX in tests/test_torch_parallel.py): the step builds, and outside a
+    # bound mesh its call raises JAX's unbound-axis error
+    step = accumulate_scan_sparse_embed(SparseEmbedHooks("emb", "ids", t_loss_with_rows),
+                                        tadamw.adamw(1e-3),
+                                        tacc.GradAccumConfig(K, axis_name="data"))
+    params = {"emb": torch.zeros(8, 2, requires_grad=True)}
+    batch = {"ids": torch.zeros(K, 1, 3, dtype=torch.int64), "y": torch.zeros(K, 1)}
+    with pytest.raises(NameError, match="unbound axis name: data"):
+        step(tacc.scan_init(params, tadamw.adamw(1e-3)), batch, torch.Generator())
