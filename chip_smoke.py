@@ -130,6 +130,41 @@ Phases, each of which fails the run if it fails:
     at the two ranks, two updates: bytes per parameter per rank (JAX's
     accounting: 6), peak memory per rank, a finite loss.
 
+20. resilience (``resilience/``, ``obs/``, the Estimator's hooks), BERT-Small
+    bf16 micro 8 x K=4, dropout 0.1, random weights from the run seed:
+    (a) streaming, async checkpoints every 3 micro-steps, a crash injected
+    after a seeded micro-step inside a window; a fresh Estimator resumes
+    from the newest checkpoint (itself mid-window) and its parameters, m, v,
+    accumulators and post-resume losses are bitwise those of the
+    uninterrupted run; the flight dump holds the fault; the uninterrupted
+    run's train/step spans carry the accumulate/apply labels. (b) One byte of
+    the newest checkpoint flipped: quarantined, and the restore equals the
+    previous checkpoint exactly. (c) The process sends itself SIGTERM: the
+    final checkpoint lands at that micro-step with the async writer drained,
+    and the resume is bitwise. (d) Two gloo ranks share the card through the
+    launcher (``python3 chip_smoke.py --drain-rank DIR`` is a rank), explicit
+    DP in scan mode; rank 1 alone is preempted, and DrainConsensus over the
+    c10d store stops both at the same micro-step, where the final checkpoint
+    lands. (e) A StepWindowProfiler window of 2 updates writes a Chrome trace
+    holding K1, K2 and K3 under their kernel names (32 each); the scan spans
+    are labelled scan-cycle. (f) Card-busy ms per update and seq/s with obs
+    and the async writer on, then both off, a checkpoint every update: a
+    finding, printed, not a gate.
+21. export: BERT-Small exported in float32 (route ``tf32x3``) and bf16
+    (``tc``) through ``Estimator.export_model`` from a one-row sample, and
+    ``gpt_lm --flash --export-dir`` and ``housing --export-dir`` after their
+    training; one fresh process that imports only
+    ``gradaccum_tpu_torch.estimator.export`` loads every artifact and calls
+    it at batch 8 and 3: outputs within 1e-6 (float32) / 1e-2 (bf16) of
+    ``predict`` on the same weights and batch, classes equal, the flash
+    forward launched inside each kernel artifact on the expected route
+    (counted by the wrapper and by the profiler), none in housing's, no
+    model module imported. Then the native reader (``data/native.py``) is
+    built and byte-identical to the numpy readers on a generated idx pair
+    and CSV, and the flash wrapper's wall time per call is printed
+    (``utils/call_overhead.py``). The exports run before phase 20, and the
+    loader process beside it; the checks come after it.
+
 The last three lines of standard output are the card's name and power
 limit, a JSON line describing every kernel in each dtype (bfloat16: launches
 from the main path; float32: from ``gpt_lm --flash`` in scan mode, and from
@@ -1588,10 +1623,11 @@ NORM_RTOL = 1e-4  # the gradient norm's relative gap (order of sums only)
 DP_DIR = os.path.join(ROOT, "build", "chip_smoke_dp")
 
 
-def _bert_dp_estimator(mesh=None, zero1=False, dropout=0.1, k=K, lr=None):
+def _bert_dp_estimator(mesh=None, zero1=False, dropout=0.1, k=K, lr=None, mode="scan",
+                       **run):
     """BERT-Small bf16 (vocab 30522, seq 128) on the flash kernels through
     the Estimator, random weights from the run seed; ``lr``: a constant
-    rate (else the main path's schedule)."""
+    rate (else the main path's schedule); ``run``: more RunConfig fields."""
     from gradaccum_tpu_torch.estimator.config import RunConfig
     from gradaccum_tpu_torch.estimator.estimator import Estimator
     from gradaccum_tpu_torch.models.bert import BertConfig, bert_classifier_bundle
@@ -1608,8 +1644,9 @@ def _bert_dp_estimator(mesh=None, zero1=False, dropout=0.1, k=K, lr=None):
     return Estimator(bert_classifier_bundle(cfg, attention_fn=flash_attention),
                      adamw(rate, weight_decay_rate=0.01),
                      GradAccumConfig(k, clip_norm=1.0, first_step_quirk=False),
-                     RunConfig(log_step_count_steps=1000, save_checkpoints_steps=None),
-                     mode="scan", device="cuda", mesh=mesh, zero1=zero1)
+                     RunConfig(**dict(dict(log_step_count_steps=1000,
+                                           save_checkpoints_steps=None), **run)),
+                     mode=mode, device="cuda", mesh=mesh, zero1=zero1)
 
 
 def _host_batches(updates, rows, seed):
@@ -1938,6 +1975,631 @@ def phase_dp():
     _dp_legs_bc()
 
 
+# --------------------------------------------------------------------------
+# phase 20: resilience and observability on the card
+# --------------------------------------------------------------------------
+
+RES_DIR = os.path.join(ROOT, "build", "chip_smoke_resilience")
+RES_STEPS = 16  # micro-steps of the streaming runs: 4 windows of K=4
+RES_SAVE = 3  # checkpoint cadence: never a window boundary (K=4)
+COST_UPDATES = 3  # updates of each leg of (f)
+
+
+def _res_estimator(model_dir, mode="streaming", **run):
+    """BERT-Small bf16, dropout 0.1, micro 8 x K=4, on the flash kernels,
+    checkpointing into ``model_dir`` every RES_SAVE micro-steps."""
+    run = dict(dict(model_dir=model_dir, save_checkpoints_steps=RES_SAVE,
+                    keep_checkpoint_max=5), **run)
+    return _bert_dp_estimator(mode=mode, lr=2e-5, **run)
+
+
+def _res_batches(n, rows=8):
+    return _host_batches(n, rows, seed=31)
+
+
+def _flat_equal(fa, fb):
+    """The first leaf of two flat states (``checkpoint.flatten``, or a
+    checkpoint's payload) that differs, else None."""
+    import torch
+
+    if fa.keys() != fb.keys():
+        return f"leaves {sorted(fa.keys() ^ fb.keys())[:3]}"
+    for key in fa:
+        x, y = fa[key], fb[key]
+        if isinstance(x, torch.Tensor):
+            if not torch.equal(x.cpu(), y.cpu()):
+                return key
+        elif x != y:
+            return key
+    return None
+
+
+def _losses(model_dir):
+    with open(os.path.join(model_dir, "loss_vs_step.csv")) as f:
+        next(f)
+        return dict(line.strip().split(",") for line in f)
+
+
+def _res_crash_resume():
+    """(a) crash inside a window, resume from a mid-window checkpoint with
+    the async writer, bitwise against the uninterrupted run; (b) a flipped
+    byte in the newest checkpoint is caught and the previous one restored."""
+    import numpy as np
+    import torch
+
+    from gradaccum_tpu_torch.estimator import checkpoint as ckpt_lib
+    from gradaccum_tpu_torch.obs import flight, trace
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+    from gradaccum_tpu_torch.resilience import faults
+
+    batches = _res_batches(RES_STEPS)
+    ref_dir, crash_dir = (os.path.join(RES_DIR, d) for d in ("ref", "crash"))
+    tracer = trace.Tracer(capacity=None)
+    with trace.installed(tracer):  # the reference needs its final state only
+        est = _res_estimator(ref_dir, async_checkpoint=True, save_checkpoints_steps=None)
+        ref = est.train(batches, max_steps=RES_STEPS)
+    branches = [e["args"]["branch"] for e in tracer.snapshot() if e["name"] == "train/step"]
+    # no first-step quirk: the window applies at step % K == K - 1
+    want = (["accumulate"] * (K - 1) + ["apply"]) * (RES_STEPS // K)
+    check(branches == want, f"resilience (a): train/step labels {branches}")
+    ref_flat = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                for k, v in ckpt_lib.flatten(ref).items()}
+    del est, ref
+    _release()
+
+    crash_at = int(np.random.default_rng(0xC0FFEE).integers(7, 12))
+    check(crash_at % K != 0, f"resilience (a): crash step {crash_at} on a window edge")
+    inj = faults.FaultInjector(faults.FaultSchedule([faults.FaultSpec(
+        faults.POST_TRAIN_STEP, at=crash_at)]))
+    est = _res_estimator(crash_dir, async_checkpoint=True)
+    crashed = False
+    with trace.installed(trace.Tracer()), faults.installed(inj):
+        try:
+            est.train(batches, max_steps=RES_STEPS)
+        except faults.InjectedCrash:
+            crashed = True
+    check(crashed and inj.fired == [(faults.POST_TRAIN_STEP, crash_at, "crash")],
+          f"resilience (a): the crash did not fire ({inj.fired})")
+    check(est._res.async_ckpt is None, "resilience (a): the crash left the writer open")
+    dumps = flight.list_dumps(crash_dir)
+    seen = flight.fault_events(flight.load_dump(dumps[-1])["events"]) if dumps else []
+    check(seen == inj.fired, f"resilience (a): flight dump faults {seen} != {inj.fired}")
+    del est
+    _release()
+    ckpt_step = ckpt_lib.latest_checkpoint(crash_dir)[0]
+    check(0 < ckpt_step < crash_at and ckpt_step % K, f"resilience (a): resumed from "
+          f"step {ckpt_step}, not inside a window before the crash at {crash_at}")
+    est = _res_estimator(crash_dir, async_checkpoint=True)
+    fa.reset_launch_counts()
+    resumed = est.train(batches[ckpt_step:], max_steps=RES_STEPS)
+    counts = fa.launch_counts()
+    want_counts = {n: LAYERS * (RES_STEPS - ckpt_step) for n in REPLACES}
+    check(counts == want_counts, f"resilience (a): launches {counts} != {want_counts}")
+    diff = _flat_equal(ref_flat, ckpt_lib.flatten(resumed))
+    check(diff is None, f"resilience (a): the resumed state differs from the "
+          f"uninterrupted run at {diff}")
+    loss_ref, loss_res = _losses(ref_dir), _losses(crash_dir)
+    after = sorted(int(s) for s in loss_res if int(s) > ckpt_step)
+    check(after and all(loss_res[str(s)] == loss_ref[str(s)] for s in after),
+          "resilience (a): post-resume losses differ from the uninterrupted run")
+    print(f"[resilience] (a) BERT-Small bf16 streaming, micro 8 x K={K}, dropout 0.1, async "
+          f"checkpoints every {RES_SAVE} micro-steps: crash at micro-step {crash_at} "
+          f"(seeded), resumed in a fresh Estimator from the mid-window checkpoint at "
+          f"{ckpt_step}; parameters, m, v, accumulators, good count and step bitwise equal "
+          f"to the uninterrupted run after {RES_STEPS} micro-steps, {len(after)} "
+          f"post-resume losses bitwise equal; flight dump holds {seen}; launches after "
+          f"the resume {counts}; train/step labels {branches[:K]} per window")
+
+    # (b) one flipped byte in the newest checkpoint
+    (prev_step, prev_path), (new_step, new_path) = ckpt_lib.all_checkpoints(crash_dir)[-2:]
+    data = bytearray(open(new_path, "rb").read())
+    data[len(data) // 2] ^= 0x01
+    with open(new_path, "wb") as f:
+        f.write(bytes(data))
+    want = torch.load(prev_path, map_location="cpu", weights_only=True)
+    restored = ckpt_lib.restore(crash_dir, resumed)
+    diff = _flat_equal(want, ckpt_lib.flatten(restored))
+    check(diff is None and os.path.exists(new_path + ".corrupt")
+          and not os.path.exists(new_path),
+          f"resilience (b): restore after a bit flip in ckpt-{new_step} differs from "
+          f"ckpt-{prev_step} at {diff}, or the file was not quarantined")
+    print(f"[resilience] (b) one byte flipped in ckpt-{new_step}.pt: the manifest's sha256 "
+          f"caught it, the file was quarantined as .corrupt, and the restore equals "
+          f"ckpt-{prev_step}.pt exactly")
+    del est, resumed, restored
+    _release()
+    return ref_flat
+
+
+def _res_sigterm(ref_flat):
+    """(c) the process sends itself SIGTERM mid-train: the final checkpoint
+    lands at that micro-step with the async writer drained, and the resume
+    is bitwise."""
+    import signal
+
+    from gradaccum_tpu_torch.estimator import checkpoint as ckpt_lib
+    from gradaccum_tpu_torch.resilience import manifest, preemption
+
+    batches = _res_batches(RES_STEPS)
+    d = os.path.join(RES_DIR, "sigterm")
+    sig_at = 9
+
+    def stream():
+        for i, b in enumerate(batches):
+            if i == sig_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            yield b
+
+    # no periodic saves: the drain's own checkpoint is the one resumed from
+    est = _res_estimator(d, async_checkpoint=True, save_checkpoints_steps=None)
+    with preemption.PreemptionHandler():
+        state = est.train(stream(), max_steps=RES_STEPS)
+    stopped = est.drained_at_step
+    newest = ckpt_lib.latest_checkpoint(d)
+    check(stopped == state.step == sig_at + 1 and newest[0] == stopped
+          and manifest.verify(d, newest[1]) is True and not preemption.requested(),
+          f"resilience (c): drained at {stopped} (state {state.step}), newest checkpoint "
+          f"{newest}, signal at batch {sig_at}")
+    del est, state
+    _release()
+    resumed = _res_estimator(d, async_checkpoint=True, save_checkpoints_steps=None).train(
+        batches[stopped:], max_steps=RES_STEPS)
+    diff = _flat_equal(ref_flat, ckpt_lib.flatten(resumed))
+    check(diff is None, f"resilience (c): the resume after SIGTERM differs at {diff}")
+    print(f"[resilience] (c) SIGTERM sent while batch {sig_at} was read: the loop stopped "
+          f"at micro-step {stopped}, the async writer drained and ckpt-{stopped}.pt "
+          f"verifies against the manifest before train() returned; the resume to "
+          f"{RES_STEPS} is bitwise equal to the uninterrupted run")
+    del resumed
+    _release()
+
+
+DRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_drain")
+DRAIN_UPDATES = 4  # host steps offered to each rank (scan, K micro-batches each)
+
+
+def _drain_rank(outdir):
+    """One rank of phase 20 (d): explicit DP over gloo on the shared card,
+    the drain agreed over the c10d store; rank 1 alone is preempted."""
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+    from gradaccum_tpu_torch.parallel import mesh as mesh_lib
+    from gradaccum_tpu_torch.resilience.preemption import DrainConsensus
+
+    fa.build_kernels()  # the parent built them: loads the libraries
+    mesh_lib.initialize_multihost(device="cuda:0", backend="gloo", timeout_s=300)
+    try:
+        mesh = mesh_lib.data_parallel_mesh()
+        consensus = DrainConsensus(timeout_ms=60_000)
+        est = _bert_dp_estimator(mesh=mesh, dropout=0.1, lr=2e-5,
+                                 model_dir=os.path.join(outdir, "ckpt"),
+                                 drain_consensus=consensus)
+        batches = _host_batches(DRAIN_UPDATES, DP_MICRO_B * mesh.world * K, seed=41)
+
+        def stream():
+            for i, b in enumerate(batches):
+                if mesh.rank == 1 and i == 1:
+                    consensus.request()  # this rank alone sees the preemption
+                yield b
+
+        state = est.train(stream())
+        out = {"rank": mesh.rank, "drained_at_step": est.drained_at_step, "step": state.step,
+               "multiprocess": consensus.multiprocess, "rounds": consensus._round}
+        with open(os.path.join(outdir, f"rank{mesh.rank}.json"), "w") as f:
+            json.dump(out, f)
+        rank = mesh.rank
+    finally:
+        mesh_lib.shutdown()
+    if rank == 0:
+        print(json.dumps({"ok": True}))
+    return 0
+
+
+def _start_drain_ranks():
+    """(d), started: two gloo ranks on the card through the launcher, in a
+    thread, so that they run while the parent's legs (a)-(c) and (e) do."""
+    import threading
+
+    from gradaccum_tpu_torch.examples.common import spawn_ranks
+
+    shutil.rmtree(DRAIN_DIR, ignore_errors=True)
+    os.makedirs(DRAIN_DIR)
+    job = {"t0": time.perf_counter()}
+
+    def run():
+        try:
+            spawn_ranks("chip_smoke", ["--drain-rank", DRAIN_DIR], 2, "cuda", deadline_s=600)
+        except BaseException as e:  # noqa: BLE001 — reported by _res_drain_ranks
+            job["error"] = e
+        job["took"] = time.perf_counter() - job["t0"]
+
+    job["thread"] = threading.Thread(target=run, daemon=True)
+    job["thread"].start()
+    return job
+
+
+def _res_drain_ranks(job):
+    """(d), checked: the drain was agreed over the c10d store and both
+    ranks landed the same final step."""
+    from gradaccum_tpu_torch.estimator import checkpoint as ckpt_lib
+
+    job["thread"].join()
+    check("error" not in job, f"resilience (d): the ranks failed: {job.get('error')}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(DRAIN_DIR, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    steps = {r["drained_at_step"] for r in ranks}
+    newest = ckpt_lib.latest_checkpoint(os.path.join(DRAIN_DIR, "ckpt"))
+    check(len(steps) == 1 and None not in steps and all(r["multiprocess"] for r in ranks)
+          and 0 < ranks[0]["drained_at_step"] < DRAIN_UPDATES * K
+          and newest is not None and newest[0] == ranks[0]["drained_at_step"],
+          f"resilience (d): ranks {ranks}, newest checkpoint {newest}")
+    print(f"[resilience] (d) two gloo ranks sharing the card, explicit DP, BERT-Small bf16 "
+          f"micro {DP_MICRO_B} per rank x K={K}: rank 1 alone preempted while reading its "
+          f"second host batch; DrainConsensus over the c10d store stopped both ranks at "
+          f"micro-step {ranks[0]['drained_at_step']} ({ranks[0]['rounds']} store rounds), "
+          f"the final checkpoint is ckpt-{newest[0]}.pt; {job['took']:.1f} s with process "
+          f"start, beside legs (a)-(c) and (e)")
+
+
+def _trace_kernels(path):
+    """``{kernel name: count}`` of the card's kernel events in a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
+
+
+def _res_profiler():
+    """(e) a StepWindowProfiler window of 2 updates holds K1-K3 under their
+    kernel names; the scan spans carry their label."""
+    from gradaccum_tpu_torch.obs import trace
+
+    prof_dir = os.path.join(RES_DIR, "profile")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    tracer = trace.Tracer(capacity=None)
+    est = _bert_dp_estimator(profile_dir=prof_dir, profile_start_step=K,
+                             profile_num_steps=2 * K)
+    with trace.installed(tracer):
+        est.train(_res_batches(4, rows=8 * K))
+    files = sorted(os.listdir(prof_dir)) if os.path.isdir(prof_dir) else []
+    check(files == ["trace-0001.json"], f"resilience (e): profile dir holds {files}")
+    kernels = _trace_kernels(os.path.join(prof_dir, files[0]))
+    want = {"flash_fwd_tc_kernel": 2 * K * LAYERS, "flash_dq_tc_kernel": 2 * K * LAYERS,
+            "flash_dkv_tc_kernel": 2 * K * LAYERS}
+    got = {short: sum(c for name, c in kernels.items() if short in name) for short in want}
+    check(got == want, f"resilience (e): kernels in the trace {got} != {want}")
+    labels = [e["args"]["branch"] for e in tracer.snapshot() if e["name"] == "train/step"]
+    check(labels == ["scan-cycle"] * 4, f"resilience (e): span labels {labels}")
+    print(f"[resilience] (e) StepWindowProfiler window of 2 updates: {files[0]} holds "
+          f"{got} CUDA kernel events (K1-K3 under their names, {len(kernels)} kernel names "
+          f"in all); train/step spans {labels}")
+    del est
+    _release()
+
+
+def _cost_leg(on: bool):
+    """Card-busy ms and seq/s per update of BERT-Small bf16 scan with a
+    checkpoint every update: obs and the async writer on, or both off."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gradaccum_tpu_torch.obs import trace
+
+    d = os.path.join(RES_DIR, "cost-on" if on else "cost-off")
+    shutil.rmtree(d, ignore_errors=True)
+    batches = _res_batches(2 * COST_UPDATES + 1, rows=8 * K)
+    timed, profiled = batches[1:COST_UPDATES + 1], batches[COST_UPDATES + 1:]
+    est = _bert_dp_estimator(model_dir=d, save_checkpoints_steps=K, async_checkpoint=on)
+    with trace.installed(trace.Tracer() if on else trace.NULL):
+        est.train(batches[:1])  # warm-up: its first step is never timed
+        est.train_stats.update(host_steps=0, examples=0, seconds=0.0)
+        est.train(timed)
+        seq_s = est.examples_per_sec()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            est.train(profiled)
+            torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    del est
+    _release()
+    return busy / len(profiled), seq_s
+
+
+def _res_cost():
+    """(f) the machinery's cost: a finding, not a gate."""
+    on_busy, on_seq = _cost_leg(True)
+    off_busy, off_seq = _cost_leg(False)
+    print(f"[resilience] (f) BERT-Small bf16 scan, micro 8 x K={K}, a checkpoint every "
+          f"update: obs + async writer ON {on_busy:.3f} card-busy ms/update, "
+          f"{on_seq:.1f} seq/s; OFF (obs off, synchronous saves) {off_busy:.3f} card-busy "
+          f"ms/update, {off_seq:.1f} seq/s")
+    return {"on": [on_busy, on_seq], "off": [off_busy, off_seq]}
+
+
+def phase_resilience():
+    """Phase 20: crash and resume, corruption, SIGTERM, the drain across
+    ranks (its two processes run beside the other legs), the profiler
+    window and spans, then the cost of the machinery, alone on the card."""
+    t0 = time.perf_counter()
+    shutil.rmtree(RES_DIR, ignore_errors=True)
+    os.makedirs(RES_DIR)
+    drain = _start_drain_ranks()
+    try:
+        ref_flat = _res_crash_resume()
+        _res_sigterm(ref_flat)
+        _res_profiler()
+    finally:
+        drain["thread"].join()  # the launcher ends its ranks, by its deadline at the latest
+    _res_drain_ranks(drain)
+    cost = _res_cost()
+    print(f"[resilience] phase 20 took {time.perf_counter() - t0:.1f} s")
+    return cost
+
+
+# --------------------------------------------------------------------------
+# phase 21: export, and the native reader
+# --------------------------------------------------------------------------
+
+EXPORT_DIR = os.path.join(ROOT, "build", "chip_smoke_export")
+EXPORT_TOL = {"float32": 1e-6, "bfloat16": 1e-2}  # loaded artifact against predict
+
+# a fresh process that imports only the export module: loads every artifact,
+# calls it at each batch, counts the flash forward launches (the wrapper's
+# count, per route, and the profiler's kernel events) and the port's modules
+_LOADER = r"""
+import json, os, sys
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+from gradaccum_tpu_torch.estimator.export import load_exported
+root = sys.argv[1]
+report = {}
+for name in sorted(os.listdir(root)):
+    d = os.path.join(root, name)
+    if not os.path.exists(os.path.join(d, "model.pt2")):
+        continue
+    fn = load_exported(d)
+    fa = sys.modules["gradaccum_tpu_torch.ops.flash_attention"]  # imported by load_exported
+    outs = {}
+    fa.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for rows in (8, 3):
+            batch = dict(np.load(os.path.join(d, f"batch{rows}.npz")))
+            out = fn(batch)
+            for key, v in out.items():
+                outs[f"{key}{rows}"] = v.float().cpu().numpy()
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and "flash_fwd" in e.key)
+    np.savez(os.path.join(d, "loaded.npz"), **outs)
+    report[name] = {"routes": fa.route_counts()["flash_fwd"], "kernel_events": kernels}
+report["modules"] = sorted(m for m in sys.modules if m.startswith("gradaccum_tpu_torch"))
+print(json.dumps(report))
+"""
+
+
+def _export_bert(dtype_name):
+    """BERT-Small (random weights from the run seed) exported from one row."""
+    import numpy as np
+    import torch
+
+    from gradaccum_tpu_torch.estimator.config import RunConfig
+    from gradaccum_tpu_torch.estimator.estimator import Estimator
+    from gradaccum_tpu_torch.models.bert import BertConfig, bert_classifier_bundle
+    from gradaccum_tpu_torch.ops.accumulation import GradAccumConfig
+    from gradaccum_tpu_torch.ops.adamw import adamw
+    from gradaccum_tpu_torch.ops.flash_attention import flash_attention
+
+    d = os.path.join(EXPORT_DIR, f"bert_{dtype_name}")
+    cfg = BertConfig.small(dtype=getattr(torch, dtype_name))
+    est = Estimator(bert_classifier_bundle(cfg, attention_fn=flash_attention), adamw(2e-5),
+                    GradAccumConfig(K), RunConfig(), mode="scan", device="cuda")
+    strip = lambda b: {k: v for k, v in b.items() if k != "label"}  # noqa: E731
+    t0 = time.perf_counter()
+    est.export_model(d, strip(_bert_small_batches(1, seed=51)))
+    took = time.perf_counter() - t0
+    want = {}
+    for rows in (8, 3):
+        batch = strip(_bert_small_batches(rows, seed=52 + rows))
+        np.savez(os.path.join(d, f"batch{rows}.npz"), **batch)
+        preds = list(est.predict([batch]))
+        for key in preds[0]:
+            want[f"{key}{rows}"] = np.stack([p[key] for p in preds]).astype(np.float32)
+    del est
+    _release()
+    return want, took
+
+
+def _export_entry(name, argv, rebuild):
+    """Run an entry point with --export-dir and --model-dir; ``rebuild``
+    gives ``(bundle, batches)``: the model the entry trained (its weights
+    come from its final checkpoint) and the batches to call."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from gradaccum_tpu_torch.estimator import checkpoint as ckpt_lib
+    from gradaccum_tpu_torch.utils.tree import named_parameters
+
+    d = os.path.join(EXPORT_DIR, name)
+    model_dir = os.path.join(EXPORT_DIR, f"{name}-model")
+    module = importlib.import_module(f"gradaccum_tpu_torch.examples.{name}")
+    t0 = time.perf_counter()
+    out = module.main([*argv, "--export-dir", d, "--model-dir", model_dir])
+    took = time.perf_counter() - t0
+    check(out["export"] == os.path.join(d, "model.pt2"), f"export: {name} wrote {out}")
+    bundle, batches = rebuild()
+    model = bundle.init(19830610, "cuda")
+    ckpt_lib.restore_params(model_dir, named_parameters(model))
+    want = {}
+    for rows, batch in batches.items():
+        np.savez(os.path.join(d, f"batch{rows}.npz"), **batch)
+        with torch.no_grad():
+            got = bundle.predict(model, {k: torch.as_tensor(v).cuda() for k, v in batch.items()})
+        for key, v in got.items():
+            want[f"{key}{rows}"] = v.float().cpu().numpy()
+    del model
+    _release()
+    return want, took
+
+
+def _gpt_lm_rebuild():
+    import numpy as np
+
+    from gradaccum_tpu_torch.models.gpt import GPTConfig, gpt_lm_bundle
+    from gradaccum_tpu_torch.ops.flash_attention import causal_flash_attention
+
+    cfg = GPTConfig(vocab_size=256, hidden_size=128, num_layers=4, num_heads=4,
+                    max_position_embeddings=64, dropout=0.1)
+    rng = np.random.default_rng(61)
+    return (gpt_lm_bundle(cfg, attention_fn=causal_flash_attention),
+            {rows: {"input_ids": rng.integers(0, 256, size=(rows, 64)).astype(np.int32)}
+             for rows in (8, 3)})
+
+
+def _housing_rebuild():
+    import numpy as np
+
+    from gradaccum_tpu_torch.models.housing_mlp import housing_mlp_bundle
+
+    rng = np.random.default_rng(62)
+    return housing_mlp_bundle(), {rows: {"x": rng.normal(size=(rows, 14)).astype(np.float32),
+                                         "y": np.zeros((rows, 1), np.float32)}
+                                  for rows in (8, 3)}
+
+
+def _native_check():
+    """The native reader builds on this machine and gives the numpy
+    readers' bytes on a generated idx pair and a numeric CSV."""
+    import gzip
+    import struct
+
+    import numpy as np
+
+    from gradaccum_tpu_torch.data import csv as csv_lib
+    from gradaccum_tpu_torch.data import mnist, native
+
+    check(native.available(), f"export: the native reader did not build: "
+          f"{native.build_error}")
+    d = os.path.join(EXPORT_DIR, "native")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(63)
+    images = rng.integers(0, 256, size=(100, 28, 28), dtype=np.uint8)
+    labels = rng.integers(0, 10, size=100, dtype=np.uint8)
+    img, lab, table = (os.path.join(d, n) for n in ("img-idx3.gz", "lab-idx1.gz", "t.csv"))
+    with gzip.open(img, "wb") as f:
+        f.write(struct.pack(">iiii", mnist.IMAGE_MAGIC, 100, 28, 28) + images.tobytes())
+    with gzip.open(lab, "wb") as f:
+        f.write(struct.pack(">ii", mnist.LABEL_MAGIC, 100) + labels.tobytes())
+    with open(table, "w") as f:
+        f.write("a,b,c\n" + "".join(",".join(repr(float(v)) for v in row) + "\n"
+                                     for row in rng.normal(0, 30, size=(200, 3))))
+    fast = (mnist.read_images(img), mnist.read_labels(lab),
+            csv_lib.read_csv(table, columns=["a", "b", "c"]))
+    get_lib = native.get_lib
+    native.get_lib = lambda: None  # the numpy readers
+    try:
+        slow = (mnist.read_images(img), mnist.read_labels(lab),
+                csv_lib.read_csv(table, columns=["a", "b", "c"]))
+    finally:
+        native.get_lib = get_lib
+    same = (fast[0].tobytes() == slow[0].tobytes() and fast[1].tobytes() == slow[1].tobytes()
+            and all(fast[2][c].tobytes() == slow[2][c].tobytes() for c in "abc"))
+    check(same, "export: the native reader's bytes differ from the numpy readers'")
+    print("[export] native reader: built into build/native/ on this machine, available; "
+          "idx images/labels (gzip) and a numeric CSV byte-identical to the numpy readers")
+
+
+def phase_export():
+    """Phase 21, started: BERT-Small exported in float32 and bf16, gpt_lm
+    and housing through --export-dir, and the loader process started on
+    them (it runs beside phase 20); returns what ``phase_export_check``
+    holds the loaded artifacts against."""
+    t0 = time.perf_counter()
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    os.makedirs(EXPORT_DIR)
+    want, took = {}, {}
+    for dt in ("float32", "bfloat16"):
+        want[f"bert_{dt}"], took[f"bert_{dt}"] = _export_bert(dt)
+    want["gpt_lm"], took["gpt_lm"] = _export_entry(
+        "gpt_lm", ["--flash", "--max-steps", "8", "--sample", "0"], _gpt_lm_rebuild)
+    want["housing"], took["housing"] = _export_entry(
+        "housing", ["--max-steps", "60"], _housing_rebuild)
+    loader = subprocess.Popen([sys.executable, "-c", _LOADER, EXPORT_DIR],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT))
+    return {"want": want, "took": took, "loader": loader, "t0": t0,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_export_check(job):
+    """Phase 21, checked: every artifact, loaded in one fresh process that
+    imports only the export module, against predict; the flash forward
+    launched inside it on the expected route; the native reader; the
+    wrapper's wall time per call (measured with the card to itself)."""
+    import numpy as np
+
+    from gradaccum_tpu_torch.utils import call_overhead
+
+    t0 = time.perf_counter()
+    want, took = job["want"], job["took"]
+    try:
+        out, err = job["loader"].communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        job["loader"].kill()
+        raise SmokeError("export: the loader did not finish in 600 s")
+    check(job["loader"].returncode == 0, f"export: the loader failed: {err[-3000:]}")
+    report = json.loads(out.strip().splitlines()[-1])
+    check(not any(".models" in m or ".examples" in m for m in report["modules"]),
+          f"export: the loader imported model code: {report['modules']}")
+    routes = {"bert_float32": "tf32x3", "bert_bfloat16": "tc", "gpt_lm": "tf32x3",
+              "housing": None}
+    tol = {"bert_float32": 1e-6, "bert_bfloat16": 1e-2, "gpt_lm": 1e-6, "housing": 1e-6}
+    launches = {}
+    for name, route in routes.items():
+        got = dict(np.load(os.path.join(EXPORT_DIR, name, "loaded.npz")))
+        check(got.keys() == want[name].keys(), f"export {name}: outputs {sorted(got)}")
+        err = 0.0
+        for key, w in want[name].items():
+            if key.startswith(("classes", "next_token")):
+                check(np.array_equal(got[key], w), f"export {name}: {key} differ")
+            else:
+                err = max(err, float(np.abs(got[key] - w).max()))
+        check(err <= tol[name], f"export {name}: loaded artifact off predict by {err:.3e} "
+              f"(limit {tol[name]:g})")
+        r = report[name]
+        n = sum(r["routes"].values())
+        if route is None:
+            check(n == 0 and r["kernel_events"] == 0, f"export {name}: launches {r}")
+        else:
+            check(n > 0 and r["routes"][route] == n and r["kernel_events"] == n,
+                  f"export {name}: flash forward launches {r} (route {route})")
+        launches[name] = r
+        print(f"[export] {name}: exported in {took[name]:.1f} s from a one-row sample; "
+              f"loaded in a fresh process (imports {len(report['modules'])} port modules, "
+              f"no model code) and called at batch 8 and 3: max |artifact - predict| "
+              f"{err:.3e} (limit {tol[name]:g}), classes equal; flash forward launches "
+              f"inside the artifact {r['routes']} ({r['kernel_events']} kernel events under "
+              f"the profiler)")
+    _native_check()
+    overhead = call_overhead.measure()
+    print(f"[export] flash wrapper wall time per call (bf16 [8, 8, 128, 64], dropout 0.1): "
+          f"training forward {overhead['train_forward_ms']:.4f} ms, forward + backward "
+          f"{overhead['train_forward_backward_ms']:.4f} ms, inference forward "
+          f"{overhead['inference_forward_ms']:.4f} ms, the kernel wrapper alone "
+          f"{overhead['kernel_wrapper_ms']:.4f} ms, the operator "
+          f"{overhead['operator_ms']:.4f} ms, the same kernel as a custom_op "
+          f"{overhead['custom_op_ms']:.4f} ms")
+    print(f"[export] phase 21 took {job['seconds'] + time.perf_counter() - t0:.1f} s (the "
+          f"loader ran beside phase 20)")
+    return launches, overhead
+
+
 def _smi():
     try:
         out = subprocess.run(
@@ -2008,6 +2670,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
 
     t_start = time.perf_counter()
+    export_job = None
     try:
         phase_build()  # every other phase needs the kernels
         worst = phase_kernels()
@@ -2042,9 +2705,16 @@ def main() -> int:
         gpt_lm_runs = phase_gpt_lm()
         bert_f32_counts = phase_bert_f32()
         phase_dp()
+        export_job = phase_export()  # its loader process runs beside phase 20
+        phase_resilience()
+        phase_export_check(export_job)
     except SmokeError as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
+    finally:
+        if export_job is not None and export_job["loader"].poll() is None:
+            export_job["loader"].kill()  # a phase failed before the loader was read
+            export_job["loader"].wait()
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     kernels = kernels_line(counts, worst, timing, timing_f32, timing_gpt, timing_gpt_f32,
@@ -2061,4 +2731,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:  # a rank of phase 19, spawned by phase_dp
         sys.path.insert(0, ROOT)
         sys.exit(_dp_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--drain-rank"]:  # a rank of phase 20 (d)
+        sys.path.insert(0, ROOT)
+        sys.exit(_drain_rank(sys.argv[2]))
     sys.exit(main())

@@ -35,7 +35,24 @@ def read_csv(
     semantics, another-example.py:40-47) with the csv module. Numeric
     columns parse to float32 with default 0.0 for empty fields (the
     reference's record_defaults); categorical columns stay strings.
+
+    Fully-numeric tables (no categorical columns) parse through the native
+    runtime (``data/native.py``) when available; tables with categorical
+    columns always take the csv-module path (a through-float round trip of
+    vocabulary strings would remap them), as does any file the native
+    parser declines (ragged rows, quoting).
     """
+    if not any(c in HOUSING_CATEGORICAL for c in columns):
+        from gradaccum_tpu_torch.data import native
+
+        try:
+            native_out = native.read_csv_numeric(path, skip_header)
+        except ValueError:
+            native_out = None  # ragged or quoted input: the csv module handles it
+        if native_out is not None:
+            matrix, n_cols = native_out
+            if n_cols == len(columns):
+                return {name: matrix[:, i].copy() for i, name in enumerate(columns)}
     rows: List[List[str]] = []
     with open(path, newline="") as f:
         reader = _csv.reader(f)

@@ -43,8 +43,17 @@ def read_images(path: str) -> np.ndarray:
     """Parse an idx3 image file → float32 [N, 28, 28, 1] in [0, 1].
 
     The /255 normalization and 28×28×1 reshape mirror
-    mnist_dataset.py:10-12.
+    mnist_dataset.py:10-12. Decodes through the native runtime
+    (``data/native.py``) when available, numpy otherwise.
     """
+    from gradaccum_tpu_torch.data import native
+
+    try:
+        native_out = native.read_idx_images(path)
+    except ValueError:
+        native_out = None  # fall through: the numpy path raises the proper error
+    if native_out is not None:
+        return native_out
     with _open(path) as f:
         magic, n, rows, cols = struct.unpack(">iiii", f.read(16))
         if magic != IMAGE_MAGIC:
@@ -54,7 +63,16 @@ def read_images(path: str) -> np.ndarray:
 
 
 def read_labels(path: str) -> np.ndarray:
-    """Parse an idx1 label file → int32 [N] (mnist_dataset.py:14-16)."""
+    """Parse an idx1 label file → int32 [N] (mnist_dataset.py:14-16),
+    natively when available."""
+    from gradaccum_tpu_torch.data import native
+
+    try:
+        native_out = native.read_idx_labels(path)
+    except ValueError:
+        native_out = None  # fall through: the numpy path raises the proper error
+    if native_out is not None:
+        return native_out
     with _open(path) as f:
         magic, n = struct.unpack(">ii", f.read(8))
         if magic != LABEL_MAGIC:

@@ -61,15 +61,33 @@ partials; a batch whose rows do not divide runs whole on every rank. Rank
 ZeRO-1 state is gathered to the full tree before a save (every rank takes
 part) and cut again after a restore, so checkpoints stay full-tree and a
 resume is bitwise. Non-empty ``sharding_rules`` (tensor and expert
-parallelism) are not ported yet and raise ``NotImplementedError``, as do
-export, events and the resilience and observability hooks (ROADMAP.md).
+parallelism) are not ported yet and raise ``NotImplementedError``
+(ROADMAP.md).
+
+**Resilience and observability** (JAX's train-loop hooks): seeded fault
+points before and after every step (``resilience/faults.py``; the data
+kinds poison the host batch), checkpoints through the manifest, quarantine
+and retries of ``checkpoint.py`` and, with ``RunConfig.async_checkpoint``,
+its asynchronous writer; a SIGTERM (``resilience/preemption.py``) stops
+the loop at the next step boundary, with an agreed target step across
+ranks under ``RunConfig.drain_consensus``, and lands a final checkpoint;
+a ``train/step`` span per host step labelled ``scan-cycle``, ``apply`` or
+``accumulate`` (``obs/trace.py``), the run's scalars in a metrics
+registry streamed to TensorBoard event files when the backend imports
+(``registry``, ``events``), a flight-recorder dump under
+``model_dir/flightrec`` on a crash or a drain, and a profiler window
+(``RunConfig.profile_dir``). ``export_model`` writes a ``torch.export``
+serving artifact (``estimator/export.py``); ``EvalSpec.export_best_dir``
+refreshes one at every improving evaluation (BestExporter).
 """
 
 from __future__ import annotations
 
 import itertools
+import json
 import os
 import time
+import weakref
 from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional
 
 import numpy as np
@@ -85,11 +103,44 @@ from gradaccum_tpu_torch.parallel import dp as dp_lib
 from gradaccum_tpu_torch.parallel import zero as zero_lib
 from gradaccum_tpu_torch.parallel.mesh import DATA_AXIS
 from gradaccum_tpu_torch.parallel.sharding import batch_shard, replicate_
+from gradaccum_tpu_torch.resilience import faults, preemption
 from gradaccum_tpu_torch.utils.flops import peak_flops_for
 from gradaccum_tpu_torch.utils.platform import device_name, resolve_device, synchronize
 from gradaccum_tpu_torch.utils.tree import named_parameters
 
 _ROW_CAP = 4096  # device scalars held between flushes, at most
+
+
+class _Resources:
+    """Background resources (async checkpoint writer, event writer) in a
+    holder the atexit-safe finalizer can close without a reference back to
+    the Estimator (``weakref.finalize`` runs at GC or interpreter exit)."""
+
+    __slots__ = ("async_ckpt", "events")
+
+    def __init__(self):
+        self.async_ckpt = None
+        self.events = None
+
+
+def _close_resources(res: _Resources) -> None:
+    """Drain and close both resources; raises the checkpoint error (the one
+    that can lose data) after the event writer is down too."""
+    ckpt, res.async_ckpt = res.async_ckpt, None
+    ev, res.events = res.events, None
+    try:
+        if ckpt is not None:
+            ckpt.close()
+    finally:
+        if ev is not None:
+            ev.close()
+
+
+def _finalize_quietly(res: _Resources) -> None:
+    try:
+        _close_resources(res)
+    except Exception:
+        pass  # interpreter shutdown / GC: best-effort only
 
 
 class ModelBundle(NamedTuple):
@@ -100,6 +151,9 @@ class ModelBundle(NamedTuple):
     predict: Callable[[torch.nn.Module, Dict[str, Any]], Dict[str, torch.Tensor]]
     eval_metrics: Dict[str, Metric]
     needs_rng: bool = False  # if True, micro-batches get an "rng" generator
+    # batch keys ``predict`` never reads (the reference's ``labels``):
+    # stripped when an eval batch becomes the default export signature
+    label_keys: tuple = ("label",)
     # optional ops.sparse_embed.SparseEmbedHooks: lets the scan step carry
     # token-level embedding cotangents instead of a dense [vocab, hidden]
     # gradient per micro-batch
@@ -208,6 +262,15 @@ class Estimator:
         self.apply_steps = []  # streaming: the micro-batch steps whose call applied
         self.nonfinite_skips = 0  # micro-batches skipped in the last train() call
         self.loss_scale_series = []  # [(step, scale)] from aux["loss_scale"]
+        self.good_count_series = []  # [(step, good)] from aux["good_count"]
+        # the step a preemption drain stopped the last train() call at
+        self.drained_at_step = None
+        # the async checkpoint writer and the event writer, closed by
+        # close(), on a crash out of train(), and at GC or exit
+        self._res = _Resources()
+        self._finalizer = weakref.finalize(self, _finalize_quietly, self._res)
+        self._registry = None
+        self._flight = None
 
     # -- state ----------------------------------------------------------
 
@@ -226,6 +289,7 @@ class Estimator:
             state = acc.streaming_init(params, self.optimizer, loss_scale=self.accum.loss_scale,
                                        fused=self.accum.fused_adam)
         d = self.config.model_dir
+        self._ckpt_sync()
         if d and ckpt_lib.latest_checkpoint(d):
             state = ckpt_lib.restore(d, state)
         if self.mesh is not None:
@@ -286,19 +350,92 @@ class Estimator:
 
     def _save(self, state):
         """Rank 0 writes the full-tree state (under ZeRO-1 every rank first
-        takes part in gathering it)."""
+        takes part in gathering it), through the async writer when
+        configured."""
         cfg = self.config
         if self.zero1:
             state = zero_lib.zero1_gather_state(state, self.mesh, self._zero1_specs)
-        if self._chief:
+        if not self._chief:
+            return
+        if cfg.async_checkpoint:
+            if self._res.async_ckpt is None:
+                self._res.async_ckpt = ckpt_lib.AsyncCheckpointer()
+            self._res.async_ckpt.save(cfg.model_dir, state, state.step, cfg.keep_checkpoint_max)
+        else:
             ckpt_lib.save(cfg.model_dir, state, state.step, keep=cfg.keep_checkpoint_max)
+
+    def _ckpt_sync(self):
+        """Wait for any in-flight async write (before reading the newest
+        checkpoint and before trusting durability at exit)."""
+        if self._res.async_ckpt is not None:
+            self._res.async_ckpt.wait()
+
+    def close(self):
+        """Release the background resources: drain and stop the async
+        checkpoint writer (its last checkpoint lands) and close the event
+        files. Safe to call repeatedly; later calls recreate both lazily.
+        Runs on any exception out of ``train`` and, best effort, at GC or
+        interpreter exit."""
+        _close_resources(self._res)
+
+    @property
+    def events(self):
+        """TensorBoard writer rooted at model_dir (a no-op without a
+        backend, without a model_dir, or on a rank other than 0)."""
+        if self._res.events is None:
+            from gradaccum_tpu_torch.estimator.events import EventWriter
+
+            self._res.events = EventWriter(self.config.model_dir if self._chief else None)
+        return self._res.events
+
+    @property
+    def registry(self):
+        """The run's ``obs.metrics.MetricsRegistry``: every scalar the
+        harness publishes (loss, guard skips, loss scale, good counts, eval
+        metrics) is recorded here and streamed to the EventWriter."""
+        if self._registry is None:
+            from gradaccum_tpu_torch.obs.metrics import MetricsRegistry
+
+            self._registry = MetricsRegistry(event_writer=self.events)
+        else:
+            # close() and a resume recreate the EventWriter: re-bind so the
+            # bridge streams into the live one
+            self._registry.bind_writer(self.events)
+        return self._registry
+
+    def _flight_dump(self, reason: str):
+        """Dump the obs ring under ``model_dir/flightrec`` (rank r > 0:
+        ``flightrec/rank<r>``); a no-op without a model_dir or with obs
+        disabled. Never raises: failure paths call it while an exception is
+        already the story."""
+        if not self.config.model_dir:
+            return None
+        try:
+            if self._flight is None:
+                from gradaccum_tpu_torch.obs.flight import FlightRecorder
+
+                sub = "flightrec" if self._chief else f"flightrec/rank{self.mesh.rank}"
+                self._flight = FlightRecorder(self.config.model_dir, registry=self.registry,
+                                              subdir=sub)
+            return self._flight.dump(reason)
+        except Exception:  # noqa: BLE001 — postmortem is best-effort
+            return None
 
     # -- public API -------------------------------------------------------
 
     def train(self, input_fn, max_steps: Optional[int] = None, final_save: bool = True):
-        """Train until ``max_steps`` micro-batches (or the input runs out);
-        in scan mode, stop at the last whole K-cycle that fits."""
+        """Train until ``max_steps`` micro-batches (or the input runs out,
+        or a preemption drain); in scan mode, stop at the last whole
+        K-cycle that fits."""
+        from gradaccum_tpu_torch.obs import trace as obs_trace
+        from gradaccum_tpu_torch.utils.profiling import StepWindowProfiler
+
         cfg = self.config
+        if cfg.model_dir and self._chief:
+            os.makedirs(cfg.model_dir, exist_ok=True)
+            # the registry and its event writer (whose backend import takes
+            # seconds) exist before the first step, outside the timed steps
+            self.registry  # noqa: B018
         it = iter(input_fn() if callable(input_fn) else input_fn)
         state = self._state if self._state is not None else self._init_state()
         step_fn = self._step_fn()
@@ -307,9 +444,23 @@ class Estimator:
         step_no = state.step
         last_bucket = step_no // log_every
         t_log, steps_at_log = time.perf_counter(), step_no
-        loss_rows, skip_rows, scale_rows = [], [], []  # device scalars until a flush
+        # device scalars until a flush
+        loss_rows, skip_rows, scale_rows, good_rows = [], [], [], []
         self.nonfinite_skips = 0
+        self.drained_at_step = None
+        # under RunConfig.drain_consensus the drain decision and its target
+        # step are agreed across ranks instead of read from the local flag
+        consensus = cfg.drain_consensus
+        drain_target = None
         last_saved = None
+        profiler = StepWindowProfiler(cfg.profile_dir, cfg.profile_start_step,
+                                      cfg.profile_num_steps)
+        tracer = obs_trace.get_tracer()
+        # streaming mode applies when step % K == phase (the reference's
+        # condition, quirk included); scan mode fuses a whole K-cycle into
+        # every host step
+        k_accum = self.accum.num_micro_batches
+        apply_phase = 0 if self.accum.first_step_quirk else k_accum - 1
 
         def flush_rows():
             # one read of the card per kind of row, at log and save cadence only
@@ -318,59 +469,155 @@ class Estimator:
                 self._append_loss_csv(zip((s for s, _ in loss_rows), values))
                 loss_rows.clear()
             if skip_rows:
-                self.nonfinite_skips += int(torch.stack(skip_rows).sum())
+                flushed = int(torch.stack(skip_rows).sum())
+                self.nonfinite_skips += flushed
                 skip_rows.clear()
+                if flushed and tracer.enabled:
+                    tracer.event("train/nonfinite_skip", cat="train", step=step_no,
+                                 skipped=flushed, total=self.nonfinite_skips)
+                if cfg.model_dir and self._chief:
+                    # cumulative count: a flat line means a healthy run
+                    self.registry.publish({"nonfinite_skips": self.nonfinite_skips}, step_no)
             if scale_rows:
-                values = torch.stack([v for _, v in scale_rows]).tolist()
-                self.loss_scale_series.extend(zip((s for s, _ in scale_rows), values))
+                rows = list(zip((s for s, _ in scale_rows),
+                                torch.stack([v for _, v in scale_rows]).tolist()))
                 scale_rows.clear()
+                self.loss_scale_series.extend(rows)
+                if tracer.enabled:
+                    for s, v in rows:
+                        tracer.event("train/loss_scale", cat="train", step=s, scale=v)
+                if cfg.model_dir and self._chief:
+                    for s, v in rows:
+                        self.registry.publish({"loss_scale": v}, s)
+            if good_rows:
+                rows = list(zip((s for s, _ in good_rows),
+                                (int(v) for v in torch.stack(
+                                    [torch.as_tensor(v) for _, v in good_rows]).tolist())))
+                good_rows.clear()
+                self.good_count_series.extend(rows)
+                if tracer.enabled:
+                    for s, v in rows:
+                        if v < k_accum:  # a clean window is not an event
+                            tracer.event("train/guard_verdict", cat="train", step=s,
+                                         good=v, window=k_accum)
+                if cfg.model_dir and self._chief:
+                    for s, v in rows:
+                        self.registry.publish({"good_count": v}, s)
 
         synchronize(self.device)
         t_window, counted, examples = time.perf_counter(), 0, 0
-        while max_steps is None or step_no + k <= max_steps:
-            batch = next(it, None)
-            if batch is None:
-                break
-            micro = len(next(iter(batch.values()))) // k
-            state, aux = step_fn(state, *self._prep_batch(batch, step_no))
-            step_no = state.step
-            self._state = state
-            if self._warm:
-                counted += 1
-                examples += micro * k
-            else:
-                synchronize(self.device)
-                t_window, self._warm = time.perf_counter(), True
-            if self.first_loss is None:
-                self.first_loss = aux["loss"]
-            self.last_loss = aux["loss"]
-            if aux.get("applied"):
-                self.apply_steps.append(step_no - 1)
-            if "skipped" in aux:
-                skip_rows.append(aux["skipped"])
-            if "loss_scale" in aux:
-                scale_rows.append((step_no, aux["loss_scale"]))
-            if cfg.model_dir and self._chief:
-                loss_rows.append((step_no, aux["loss"]))
-            if max(len(loss_rows), len(skip_rows), len(scale_rows)) >= _ROW_CAP:
-                flush_rows()
-            if step_no // log_every != last_bucket:
-                last_bucket = step_no // log_every
-                rate = (step_no - steps_at_log) / max(time.perf_counter() - t_log, 1e-9)
-                line = (f"[train] step={step_no} loss={aux['loss'].item():.5f} "
-                        f"steps/sec={rate:.2f} examples/sec={rate * micro:.1f}")
-                mfu = self._mfu(rate * micro)
-                if mfu is not None:
-                    line += f" mfu={mfu:.4f}"
-                if self._chief:
-                    print(line)
-                flush_rows()
-                t_log, steps_at_log = time.perf_counter(), step_no
-            if cfg.model_dir and cfg.save_checkpoints_steps and \
-                    step_no % cfg.save_checkpoints_steps < k:
-                self._save(state)
-                last_saved = step_no
-                flush_rows()
+        try:
+            while True:
+                # scan mode consumes whole K-cycles: stop before overshooting
+                if max_steps is not None and step_no + k > max_steps:
+                    break
+                if drain_target is None:
+                    req = preemption.requested()
+                    if consensus is not None:
+                        # collective: every rank calls decide() at the same
+                        # cadence until a drain is agreed, then it latches
+                        drain, target = consensus.decide(req, step_no)
+                        if drain:
+                            drain_target = max(int(target), step_no)
+                            if self._chief:
+                                print(f"[train] drain consensus: common target "
+                                      f"step={drain_target}")
+                    elif req:
+                        drain_target = step_no  # one process: stop here
+                if drain_target is not None and step_no >= drain_target:
+                    # break to the final-save path below: it writes a
+                    # checkpoint at this micro-step and drains the async
+                    # writer. Acknowledge only when this call owns the
+                    # final save; train_and_evaluate still needs the flag
+                    if final_save:
+                        preemption.acknowledge()
+                    self.drained_at_step = step_no
+                    if tracer.enabled:
+                        tracer.event("preemption/drain", cat="resilience", step=step_no,
+                                     target=drain_target)
+                    self._flight_dump("sigterm-drain")
+                    if self._chief:
+                        print(f"[train] preemption requested; stopping at step={step_no}"
+                              + (" after final checkpoint" if final_save else ""))
+                    break
+                batch = next(it, None)
+                if batch is None:
+                    break
+                micro = len(next(iter(batch.values()))) // k
+                # seeded fault points (no-ops unless an injector is
+                # installed): PRE may also poison the host batch
+                kind = faults.fire(faults.PRE_TRAIN_STEP, step_no)
+                if kind in faults.DATA_KINDS:
+                    batch = faults.corrupt_batch(batch, kind)
+                profiler.observe(step_no)  # before dispatch: the window traces >= 1 step
+                if tracer.enabled:
+                    branch = ("scan-cycle" if self.mode == "scan" else
+                              "apply" if step_no % k_accum == apply_phase else "accumulate")
+                    step_span = tracer.span("train/step", cat="train", step=step_no,
+                                            branch=branch)
+                else:
+                    step_span = obs_trace.NULL.span("")
+                with step_span:
+                    state, aux = step_fn(state, *self._prep_batch(batch, step_no))
+                step_no = state.step
+                self._state = state
+                faults.fire(faults.POST_TRAIN_STEP, step_no)
+                if self._warm:
+                    counted += 1
+                    examples += micro * k
+                else:
+                    synchronize(self.device)
+                    t_window, self._warm = time.perf_counter(), True
+                if self.first_loss is None:
+                    self.first_loss = aux["loss"]
+                self.last_loss = aux["loss"]
+                if aux.get("applied"):
+                    self.apply_steps.append(step_no - 1)
+                if "skipped" in aux:
+                    skip_rows.append(aux["skipped"])
+                if "loss_scale" in aux:
+                    scale_rows.append((step_no, aux["loss_scale"]))
+                if "good_count" in aux:
+                    good_rows.append((step_no, aux["good_count"]))
+                if cfg.model_dir and self._chief:
+                    loss_rows.append((step_no, aux["loss"]))
+                if max(len(loss_rows), len(skip_rows), len(scale_rows),
+                       len(good_rows)) >= _ROW_CAP:
+                    flush_rows()
+                if step_no // log_every != last_bucket:
+                    last_bucket = step_no // log_every
+                    rate = (step_no - steps_at_log) / max(time.perf_counter() - t_log, 1e-9)
+                    line = (f"[train] step={step_no} loss={aux['loss'].item():.5f} "
+                            f"steps/sec={rate:.2f} examples/sec={rate * micro:.1f}")
+                    mfu = self._mfu(rate * micro)
+                    if mfu is not None:
+                        line += f" mfu={mfu:.4f}"
+                    if self._chief:
+                        print(line)
+                    flush_rows()
+                    t_log, steps_at_log = time.perf_counter(), step_no
+                if cfg.model_dir and cfg.save_checkpoints_steps and \
+                        step_no % cfg.save_checkpoints_steps < k:
+                    self._save(state)
+                    last_saved = step_no
+                    flush_rows()
+        except BaseException:
+            # a crash mid-train still lands the last checkpoint: the flight
+            # recorder dumps first, then the async writer drains and closes
+            # (and the event files); later calls recreate both lazily. The
+            # in-memory state was updated in place up to the crash, so the
+            # next call rebuilds from the newest checkpoint, as a restarted
+            # process would
+            self._state, self._train_step = None, None
+            self._flight_dump("crash")
+            try:
+                self.close()
+            except Exception:
+                pass  # the original exception is the story
+            raise
+        finally:
+            # an exception mid-window must still stop the profiler
+            profiler.close()
         synchronize(self.device)
         self.train_stats["seconds"] += time.perf_counter() - t_window
         self.train_stats["host_steps"] += counted
@@ -378,6 +625,8 @@ class Estimator:
         if final_save and cfg.model_dir and last_saved != step_no:
             self._save(state)
         flush_rows()
+        if final_save:
+            self._ckpt_sync()  # durability: the newest file is on disk
         self._state = state
         return state
 
@@ -423,6 +672,7 @@ class Estimator:
         weights: an explicit ``state``, then ``checkpoint_path`` or the newest
         checkpoint in ``model_dir``, then the in-memory state, then a fresh
         init."""
+        self._ckpt_sync()
         if state is not None:
             return self._module_with(state.params), state.step
         d = self.config.model_dir
@@ -438,7 +688,7 @@ class Estimator:
     def evaluate(self, input_fn, steps: Optional[int] = None, state=None,
                  checkpoint_path: Optional[str] = None, name: str = "eval"):
         """Streaming metrics over the eval input (``Estimator.evaluate``)."""
-        module, _ = self._module_for_inference(state, checkpoint_path)
+        module, at_step = self._module_for_inference(state, checkpoint_path)
         totals: Dict[str, list] = {}
         n_batches = 0
         for batch in (input_fn() if callable(input_fn) else input_fn):
@@ -455,6 +705,13 @@ class Estimator:
                    for key, (t, c) in totals.items()}
         if self._chief:
             print(f"[{name}] " + " ".join(f"{k}={v:.5f}" for k, v in results.items()))
+        if self.config.model_dir and self._chief:
+            # registry gauges under "<name>/<metric>", and the eval
+            # EventWriter subdir
+            for key, value in results.items():
+                self.registry.gauge(f"{name}/{key}").set(value, step=at_step)
+            self.events.scalars(results, at_step, subdir=name)
+            self.events.flush()
         results["_num_batches"] = n_batches
         return results
 
@@ -495,10 +752,60 @@ class Estimator:
             for i in range(len(next(iter(host.values())))):
                 yield {key: v[i] for key, v in host.items()}
 
+    def export_model(self, export_dir: str, sample_batch, state=None,
+                     checkpoint_path: Optional[str] = None,
+                     batch_polymorphic: bool = True) -> str:
+        """Write the predict function and the trained weights as one
+        ``torch.export`` serving artifact (tf.estimator's
+        ``export_savedmodel`` slot), with the same weight resolution as
+        evaluate and predict. Load it back, without the model code, with
+        ``estimator/export.py :: load_exported``."""
+        from gradaccum_tpu_torch.estimator.export import export_predict
+
+        module, _ = self._module_for_inference(state, checkpoint_path)
+        return export_predict(self.model.predict, module, sample_batch, export_dir,
+                              batch_polymorphic=batch_polymorphic)
+
+    def _maybe_export_best(self, eval_spec: EvalSpec, results, state):
+        """tf.estimator.BestExporter: export the serving artifact when
+        ``eval_spec.best_metric`` improves; ``best_metric.json`` keeps the
+        high-water mark (so a resume does not regress it). Rank 0 only."""
+        if eval_spec.export_best_dir is None or not self._chief:
+            return
+        if eval_spec.best_mode not in ("max", "min"):
+            raise ValueError(f"best_mode must be 'max' or 'min', got {eval_spec.best_mode!r}")
+        metric = eval_spec.best_metric
+        if metric not in results:
+            raise KeyError(f"best_metric {metric!r} not in eval results {sorted(results)}")
+        value = float(results[metric])
+        marker = os.path.join(eval_spec.export_best_dir, "best_metric.json")
+        best = None
+        if os.path.exists(marker):
+            with open(marker) as f:
+                best = json.load(f).get("value")
+        improved = best is None or (value > best if eval_spec.best_mode == "max"
+                                    else value < best)
+        if not improved:
+            return
+        sample = eval_spec.export_sample
+        if sample is None:
+            sample = next(iter(eval_spec.input_fn()))
+            stripped = [k for k in sample if k in self.model.label_keys]
+            sample = {k: v for k, v in sample.items() if k not in stripped}
+            if stripped:
+                print(f"[best] export signature from first eval batch, label key(s) "
+                      f"{stripped} stripped; set EvalSpec.export_sample to control it")
+        self.export_model(eval_spec.export_best_dir, sample, state=state)
+        with open(marker, "w") as f:
+            json.dump({"metric": metric, "value": value, "step": int(state.step)}, f)
+        print(f"[best] exported {metric}={value:.5f} to {eval_spec.export_best_dir}")
+
     def train_and_evaluate(self, train_spec: TrainSpec, eval_spec: EvalSpec):
         """Train in chunks of ``log_step_count_steps`` micro-batches,
         evaluating after the first chunk, then at most every
-        ``throttle_secs``, and once at the end."""
+        ``throttle_secs``, and once at the end; each improving evaluation
+        refreshes ``eval_spec.export_best_dir`` when set. A preemption
+        drain saves and stops at once, without a last evaluation."""
         k = self._k()
         chunk = max(self.config.log_step_count_steps, k)
         reachable = None
@@ -506,20 +813,36 @@ class Estimator:
             reachable = (train_spec.max_steps // k) * k
         it = iter(train_spec.input_fn())
         last_eval = 0.0
+        results = None
         while True:
             state = self.train(itertools.islice(it, max(chunk // k, 1)),
                                max_steps=train_spec.max_steps, final_save=False)
+            if preemption.requested() or self.drained_at_step is not None:
+                # the chunked train() left the flag (final_save was False,
+                # so no checkpoint landed there): save now, drain, and stop
+                preemption.acknowledge()
+                if self.config.model_dir:
+                    self._save(state)
+                    self._ckpt_sync()
+                if self._chief:
+                    print(f"[train_and_evaluate] preemption: final checkpoint at "
+                          f"step={state.step}; stopping")
+                return state, results
             peeked = next(it, None)
             if peeked is not None:
                 it = itertools.chain([peeked], it)
             if peeked is None or (reachable is not None and state.step >= reachable):
                 if self.config.model_dir:
                     self._save(state)
-                return state, self.evaluate(eval_spec.input_fn, eval_spec.steps,
-                                            state=state, name=eval_spec.name)
+                    self._ckpt_sync()
+                results = self.evaluate(eval_spec.input_fn, eval_spec.steps,
+                                        state=state, name=eval_spec.name)
+                self._maybe_export_best(eval_spec, results, state)
+                return state, results
             if time.time() - last_eval >= eval_spec.throttle_secs:
-                self.evaluate(eval_spec.input_fn, eval_spec.steps, state=state,
-                              name=eval_spec.name)
+                results = self.evaluate(eval_spec.input_fn, eval_spec.steps, state=state,
+                                        name=eval_spec.name)
+                self._maybe_export_best(eval_spec, results, state)
                 last_eval = time.time()
 
     def _append_loss_csv(self, rows):
@@ -530,8 +853,12 @@ class Estimator:
         path = os.path.join(self.config.model_dir, "loss_vs_step.csv")
         new = not os.path.exists(path)
         os.makedirs(self.config.model_dir, exist_ok=True)
+        rows = list(rows)
         with open(path, "a") as f:
             if new:
                 f.write("step,loss\n")
             for step, loss in rows:
                 f.write(f"{step},{loss}\n")
+        for step, loss in rows:  # the same scalars as TensorBoard events
+            self.registry.publish({"loss": loss}, step)
+        self.events.flush()

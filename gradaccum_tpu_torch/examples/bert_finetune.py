@@ -35,7 +35,14 @@ explicit DP step: one all-reduce per update in scan mode. ``--zero1`` (needs
 ``--dp >= 2``) shards the Adam moments over the ranks (``zero1=True``, the
 placement path). JAX's ``--flash --dp`` refusal comes from the CPU's missing
 compiled kernel; the port's CPU route is the kernels' plain version, so it
-runs. Not ported: ``--tp/--ep/--sp/--sp-core/--pp`` and export (ROADMAP.md).
+runs. Not ported: ``--tp/--ep/--sp/--sp-core/--pp`` (ROADMAP.md).
+
+``--export-dir DIR`` writes the trained predict function and weights as a
+``torch.export`` serving artifact after training (its flash forward is the
+operator ``gradaccum::flash_fwd``, the kernel on the card); reload it
+without the model code with ``estimator/export.py :: load_exported``.
+``--export-best-dir DIR`` refreshes such an artifact at every evaluation
+that improves the accuracy (BestExporter, ``best_metric.json`` beside it).
 
     python -m gradaccum_tpu_torch.examples.bert_finetune --device cpu --dp 2 \
         --max-steps 8 --seq-len 32 --accum-k 2
@@ -165,6 +172,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--zero1", action="store_true",
                    help="ZeRO-1: shard the Adam moments over the data ranks "
                         "(optimizer memory per rank / dp; needs --dp >= 2)")
+    p.add_argument("--export-dir", default=None,
+                   help="after training, write predict + weights to this dir as a "
+                        "torch.export serving artifact (estimator/export.py)")
+    p.add_argument("--export-best-dir", default=None,
+                   help="BestExporter slot: every improving eval during training "
+                        "refreshes a serving export here (best accuracy)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     p.add_argument("--model-dir", default=None,
@@ -348,7 +361,9 @@ def setup(args, mesh=None):
         return Dataset.from_arrays(evald).batch(64)
 
     run = {"max_steps": max_steps, "full_max_steps": full_max_steps,
-           "corpus": len(train_labels), "model_dir": model_dir}
+           "corpus": len(train_labels), "model_dir": model_dir,
+           # one row of the eval set without its label: the export signature
+           "export_sample": {key: v[:1] for key, v in evald.items() if key != "label"}}
     return est, train_fn, eval_fn, cfg, run
 
 
@@ -377,7 +392,9 @@ def _main(args, mesh) -> dict:
 
     state, results = est.train_and_evaluate(
         TrainSpec(train_fn, max_steps=run["max_steps"]),
-        EvalSpec(counted_eval_fn, throttle_secs=60),
+        EvalSpec(counted_eval_fn, throttle_secs=60,
+                 export_best_dir=args.export_best_dir, best_metric="accuracy",
+                 best_mode="max", export_sample=run["export_sample"]),
     )
     out = {
         "task": args.task, "mode": args.mode, "device": device_name(est.device),
@@ -413,6 +430,9 @@ def _main(args, mesh) -> dict:
         if run["model_dir"] and (mesh is None or mesh.rank == 0):
             with open(Path(run["model_dir"]) / "preset.json", "w") as f:
                 json.dump(out["preset"], f, indent=2)
+    if args.export_dir and (mesh is None or mesh.rank == 0):
+        out["export"] = est.export_model(args.export_dir, run["export_sample"], state=state)
+        print(f"exported serving artifact: {out['export']}")
     if mesh is None or mesh.rank == 0:
         print(json.dumps(out))
     return out

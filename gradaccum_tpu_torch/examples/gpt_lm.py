@@ -25,8 +25,10 @@ JAX's tests pin both to the same tokens). It runs on the card unless
 on ``--batch`` rows of every host batch of ``batch x N`` (x K in scan
 mode); ``--zero1`` (needs ``--dp >= 2``) shards the Adam moments over them.
 ``--flash --dp`` runs (JAX refuses it only on the CPU, for its compiled
-kernel; the port's CPU route is the plain version). Not ported: ``--tp``
-and ``--export-dir`` (ROADMAP.md).
+kernel; the port's CPU route is the plain version). ``--export-dir DIR``
+writes the trained predict function and weights as a ``torch.export``
+serving artifact, traced from one eval window. Not ported: ``--tp``
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -79,6 +81,7 @@ def build_parser():
     p.add_argument("--flash", action="store_true",
                    help="the causal flash kernels (the triangle cut inside them, "
                         "attention dropout inside them)")
+    p.add_argument("--export-dir", default=None)
     p.add_argument("--sample", type=int, default=40,
                    help="greedy-decode this many bytes after training")
     return p
@@ -203,6 +206,10 @@ def _main(args, mesh) -> dict:
             print(f"decode: {args.sample / dt:.1f} tokens/sec (recompute: the whole "
                   f"prefix per token, prompt {len(prompt)} + {args.sample} steps)")
         out.update(sample=sample, decode_tokens_per_sec=args.sample / dt)
+    if args.export_dir and chief:
+        out["export"] = est.export_model(args.export_dir, {"input_ids": evald[:1]},
+                                         state=state)
+        print(f"exported serving artifact: {out['export']}")
     if chief:
         print(json.dumps(out))
     return out

@@ -7,7 +7,9 @@ the first-step quirk on. Training ends with evaluate-on-train,
 evaluate-on-test and a 5-example predict (another-example.py:361-389).
 ``--data-dir`` names a housing CSV (``tests/fixtures/housing_tiny.csv`` has
 the schema); without it a synthetic stand-in of 506 rows is generated.
-``--export-dir`` (a serving export) is not ported yet and raises.
+``--export-dir DIR`` then writes predict + weights as a ``torch.export``
+serving artifact, traced from one test row (reload it without the model
+code with ``estimator/export.py :: load_exported``).
 
     python -m gradaccum_tpu_torch.examples.housing --mode streaming
 
@@ -38,15 +40,13 @@ def build_parser():
     p.add_argument("--k", type=int, default=3)
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--export-dir", default=None,
-                   help="serving export of predict + weights (not ported yet)")
+                   help="after training, write predict + weights to this dir as a "
+                        "torch.export serving artifact (estimator/export.py)")
     return p
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.export_dir:
-        raise NotImplementedError("--export-dir (Estimator.export_model) is not ported "
-                                  "yet; see ROADMAP.md")
     import numpy as np
 
     from gradaccum_tpu_torch.data.csv import load_housing
@@ -96,6 +96,10 @@ def main(argv=None) -> dict:
            "test_mae": test_res["mae"], "test_rmse": test_res["rmse"],
            "predictions": [float(p["predictions"][0]) for p in preds],
            "labels": [float(v) for v in y[te][:5, 0]]}
+    if args.export_dir:
+        out["export"] = est.export_model(args.export_dir, {"x": X[te][:1], "y": y[te][:1]},
+                                         state=state)
+        print(f"exported serving artifact: {out['export']}")
     print(json.dumps(out))
     return out
 

@@ -205,7 +205,8 @@ def gpt_lm_bundle(config: GPTConfig, attention_fn: Callable = dense_attention,
         return {"logits": logits, "next_token": torch.argmax(logits[:, -1], dim=-1)}
 
     return ModelBundle(init=init, loss=loss, predict=predict,
-                       eval_metrics={"token_accuracy": token_accuracy()}, needs_rng=True)
+                       eval_metrics={"token_accuracy": token_accuracy()}, needs_rng=True,
+                       label_keys=())  # the LM's targets ARE input_ids (shifted inside)
 
 
 @torch.no_grad()

@@ -64,4 +64,5 @@ def housing_mlp_bundle(hidden: Sequence[int] = (16, 8, 4),
 
     return ModelBundle(init=init, loss=loss, predict=predict,
                        eval_metrics={"mae": mean_absolute_error(label_key="y"),
-                                     "rmse": root_mean_squared_error(label_key="y")})
+                                     "rmse": root_mean_squared_error(label_key="y")},
+                       label_keys=("y",))

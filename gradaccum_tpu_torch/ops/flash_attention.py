@@ -23,7 +23,9 @@ Beside each kernel is its plain PyTorch version
 (:func:`flash_forward_reference`, :func:`flash_backward_reference`): dense
 math with the same formulas. :func:`flash_attention` sends CUDA tensors to
 the kernels and CPU tensors to the plain versions; there is no fallback
-from one to the other. ``bwd_impl="xla"`` (JAX's cross-check backward)
+from one to the other. The forward is the dispatcher operator
+``gradaccum::flash_fwd`` (``flash_fwd_op``), so ``torch.export`` traces it
+and an exported program launches the kernel. ``bwd_impl="xla"`` (JAX's cross-check backward)
 keeps the forward kernel and differentiates the blockwise core instead of
 launching the dq and dk/dv kernels; it is chosen by the caller, never as a
 fallback.
@@ -41,8 +43,6 @@ import ctypes
 from typing import Optional
 
 import torch
-
-from gradaccum_tpu_torch.parallel.ring_attention import blockwise_attention
 
 _NEG_INF = -1e30
 _MASK32 = 0xFFFFFFFF
@@ -365,12 +365,40 @@ reset_launch_counts()
 # --------------------------------------------------------------------------
 
 
+# The forward is one operator of the dispatcher, ``gradaccum::flash_fwd``:
+# its CUDA implementation launches K1 on the dtype's route, its CPU
+# implementation is the plain version, and its fake implementation gives
+# torch.export the shapes of o and lse. Training's autograd function, the
+# no-grad path and an exported program all reach the kernel through it.
+# It is defined with torch.library.Library and called through its
+# OpOverload: torch.library.custom_op's own wrapper costs several times
+# the dispatch (PERF.md, the flash wrapper's wall time per call).
+_OP_LIB = torch.library.Library("gradaccum", "DEF")
+_OP_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, Tensor? mask, Tensor? seed, "
+               "bool causal, float rate) -> (Tensor, Tensor)")
+
+
+def _flash_fwd_plain(q, k, v, mask, seed, causal, rate):
+    # resolved at call time, so a test can substitute the plain version
+    return flash_forward_reference(q, k, v, mask, seed, causal, rate)
+
+
+def _flash_fwd_fake(q, k, v, mask, seed, causal, rate):
+    return torch.empty_like(q), q.new_empty(q.shape[:-1] + (1,), dtype=torch.float32)
+
+
+_OP_LIB.impl("flash_fwd", flash_fwd_cuda, "CUDA")
+_OP_LIB.impl("flash_fwd", _flash_fwd_plain, "CPU")
+torch.library.register_fake("gradaccum::flash_fwd", _flash_fwd_fake, lib=_OP_LIB)
+flash_fwd_op = torch.ops.gradaccum.flash_fwd.default
+
+
 def _forward(q, k, v, mask, seed, causal, rate):
-    if q.device.type == "cuda":
-        return flash_fwd_cuda(q, k, v, mask, seed, causal, rate)
-    if q.device.type == "cpu":
-        return flash_forward_reference(q, k, v, mask, seed, causal, rate)
-    raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
+    """``(o, lse)`` through the operator: the kernel for CUDA tensors, the
+    plain version for CPU tensors; any other device raises."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
+    return flash_fwd_op(q, k, v, mask, _seed_tensor(seed, rate, q.device), causal, rate)
 
 
 def _backward(q, k, v, mask, seed, o, lse, g, causal, rate, with_dmask):
@@ -387,6 +415,8 @@ def _backward(q, k, v, mask, seed, o, lse, g, causal, rate, with_dmask):
 def _blockwise_backward(q, k, v, mask, g, causal, block_k, with_dmask):
     """``bwd_impl="xla"``: recompute the attention with the blockwise core
     and differentiate it with autograd (plain torch ops, no kernel)."""
+    from gradaccum_tpu_torch.parallel.ring_attention import blockwise_attention
+
     with torch.enable_grad():
         inputs = [t.detach().requires_grad_() for t in (q, k, v)]
         m = None if mask is None else mask.detach().requires_grad_(with_dmask)
@@ -482,6 +512,10 @@ def flash_attention(q, k, v, mask=None, dropout_fn=None, *,
         seed = dropout_seed if dropout_seed is not None else draw_seed(generator)
     if bwd_impl not in ("pallas", "xla"):
         raise ValueError(f"bwd_impl must be 'pallas' or 'xla', got {bwd_impl!r}")
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, mask))
+    if not needs_grad:  # inference and export: the operator alone
+        return _forward(q, k, v, mask, seed, bool(causal), float(dropout_rate))[0]
     return _FlashAttention.apply(q, k, v, mask, seed, bool(causal),
                                  float(dropout_rate), bwd_impl, int(block_k))
 

@@ -51,8 +51,8 @@ def _jax_args(argv, monkeypatch):
 def test_defaults_match_jax(monkeypatch):
     want = _jax_args([], monkeypatch)
     got = vars(tlm.build_parser().parse_args([]))
-    mesh_and_export = {"tp", "export_dir"}
-    assert set(got) == set(want) - mesh_and_export | {"device"}
+    mesh = {"tp"}  # --export-dir is carried; --tp waits for model parallelism
+    assert set(got) == set(want) - mesh | {"device"}
     for key in set(got) - {"device", "model_dir"}:
         assert got[key] == want[key], key
     assert got["device"] == "cuda"
@@ -72,12 +72,13 @@ def test_bad_values_get_jax_errors(argv, capsys):
 
 
 def test_mesh_and_export_flags_are_not_carried(capsys):
-    # --tp and --export-dir wait for model parallelism and export; --dp and
-    # --zero1 are carried, so --zero1 alone now meets JAX's own parser error
-    for flag in (["--tp", "2"], ["--export-dir", "x"]):
-        with pytest.raises(SystemExit):
-            tlm.main([*flag, "--device", "cpu"])
-        assert "unrecognized arguments" in capsys.readouterr().err
+    # --tp waits for model parallelism; --export-dir is carried (the
+    # artifact is held in tests/test_torch_export.py); --dp and --zero1 are
+    # carried, so --zero1 alone meets JAX's own parser error
+    with pytest.raises(SystemExit):
+        tlm.main(["--tp", "2", "--device", "cpu"])
+    assert "unrecognized arguments" in capsys.readouterr().err
+    assert tlm.build_parser().parse_args(["--export-dir", "x"]).export_dir == "x"
     with pytest.raises(SystemExit):
         tlm.main(["--zero1", "--device", "cpu"])
     assert "--zero1 needs --dp >= 2 (moments shard over 'data')" in capsys.readouterr().err

@@ -6,7 +6,8 @@
   blocked, every module still imports and a HuggingFace checkpoint
   directory still loads (the card's machine has neither of the last two).
 - Without a card, the Estimator and the entry points (BERT, MNIST, housing)
-  at their default device raise instead of running on the CPU, and
+  at their default device raise instead of running on the CPU (housing's
+  ``--export-dir`` writes an artifact that loads), and
   ``chip_smoke.py`` exits non-zero without printing a result; each entry
   point runs on the CPU when asked.
 - The kernel wrappers refuse CPU tensors, and ``flash_attention`` on CPU
@@ -61,6 +62,14 @@ print(len(names), len(params), cfg.vocab_size)
 """
 
 
+# the observability, resilience, export and native-data modules: each
+# imports here and in the blocked probe below
+NEW_MODULES = ("obs", "obs.trace", "obs.metrics", "obs.flight", "resilience",
+               "resilience.retry", "resilience.manifest", "resilience.faults",
+               "resilience.preemption", "estimator.events", "estimator.export",
+               "utils.timing", "utils.profiling", "data.native")
+
+
 def _run(args, cwd=ROOT, timeout=120):
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True,
@@ -78,9 +87,9 @@ def test_importing_the_port_loads_no_jax():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert "gradaccum_tpu_torch.ops.flash_attention" in report["modules"]
     assert "gradaccum_tpu_torch.examples.bert_finetune" in report["modules"]
-    for name in ("memory.quant", "models.gpt", "examples.gpt_lm"):
+    for name in ("memory.quant", "models.gpt", "examples.gpt_lm") + NEW_MODULES:
         assert f"gradaccum_tpu_torch.{name}" in report["modules"]
-    assert len(report["modules"]) >= 23
+    assert len(report["modules"]) >= 23 + len(NEW_MODULES)
     assert report["loaded"] == []
 
 
@@ -89,7 +98,7 @@ def test_the_port_imports_with_jax_triton_transformers_and_safetensors_blocked()
     out = _run(["-c", _BLOCKED_PROBE, fixture])
     assert out.returncode == 0, out.stderr
     n_modules, n_params, vocab = map(int, out.stdout.split())
-    assert n_modules >= 23 and n_params > 0 and vocab == 24
+    assert n_modules >= 23 + len(NEW_MODULES) and n_params > 0 and vocab == 24
 
 
 def _tiny_estimator(**kw):
@@ -161,15 +170,21 @@ def test_small_entry_point_scripts_run_on_the_cpu_when_asked(name):
 @pytest.mark.parametrize("name,argv", [
     ("mnist", ["--variant", "03", "--device", "cpu"]),
     ("mnist", ["--variant", "04", "--device", "cpu"]),
-    ("housing", ["--export-dir", "unused", "--device", "cpu"]),
+    ("housing", ["--export-dir", "EXPORT", "--device", "cpu", "--max-steps", "6"]),
 ])
-def test_unported_entry_point_options_raise(name, argv, monkeypatch):
+def test_unported_entry_point_options_raise(name, argv, monkeypatch, tmp_path):
     import importlib
 
     module = importlib.import_module(f"gradaccum_tpu_torch.examples.{name}")
-    if name == "housing":  # export waits for its slice
-        with pytest.raises(NotImplementedError):
-            module.main(argv)
+    if name == "housing":  # --export-dir is ported: it writes a loadable artifact
+        from gradaccum_tpu_torch.estimator.export import load_exported
+
+        export_dir = str(tmp_path / "export")
+        out = module.main([export_dir if a == "EXPORT" else a for a in argv])
+        assert out["export"] == os.path.join(export_dir, "model.pt2")
+        got = load_exported(export_dir)({"x": np.ones((3, 14), np.float32),
+                                         "y": np.zeros((3, 1), np.float32)})
+        assert got["predictions"].shape == (3, 1)
         return
     # MNIST 03 and 04 are ported: the command hands its two workers to the
     # launcher as two CPU ranks (tests/test_torch_dp_examples.py trains them)
