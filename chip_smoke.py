@@ -21,7 +21,12 @@ Phases, each of which fails the run if it fails:
    kernel's delta = rowsum(dO * O) is held against the plain one. Read the
    keep mask back out of the forward, dq and dk/dv kernels (float32 and
    bfloat16, both at S = 200, and at both GPT shapes) and require it equal
-   to the plain mask bit for bit. Then time each kernel, its plain version
+   to the plain mask bit for bit; and, as one rank's heads under tensor
+   parallelism, the kernels on heads 4-7 of [8, 8, 128, 64] told their
+   place (``head_offset=4, heads_total=8``): their keep mask exactly the
+   slice of the 8-head plain mask, and o, lse, dq, dk, dv within TOL of
+   the slice of the plain version's outputs on all 8 heads, in float32 and
+   bfloat16. Then time each kernel, its plain version
    and the PyTorch call that computes the same function
    (scaled_dot_product_attention's forward, and its backward, which
    computes dq, dk and dv together, for both backward kernels; never used
@@ -164,6 +169,28 @@ Phases, each of which fails the run if it fails:
     and CSV, and the flash wrapper's wall time per call is printed
     (``utils/call_overhead.py``). The exports run before phase 20, and the
     loader process beside it; the checks come after it.
+
+22. model parallelism (``parallel/{mesh,sharding,tp,zero}.py``, the models'
+    collectives): ranks spawned here share the card over gloo
+    (``python3 chip_smoke.py --mp-rank DIR N`` is a rank), each leg against
+    the same run in one process (tp=1) from the same seed and batches,
+    BERT-Small (vocab 30522, L-4 H-512 A-8, seq 128), micro 8 x K=4, through
+    ``Estimator(mesh=make_mesh(...), sharding_rules=...)``. (a) tp=2 in
+    float32 (route ``tf32x3``), dropout 0.1, 3 updates: losses within
+    relative 1e-5, each update's norm before clipping within NORM_RTOL,
+    the gathered parameters within rtol 2e-4, atol 2e-5 (JAX's
+    ``tests/test_tp.py``); each rank's kernels launched on [8, 4, 128, 64]
+    with its head offset, seen in a profiler window. (b) The same in
+    bfloat16 (``tc``), held to TOL's bfloat16 limits. (c) 8 experts top-2,
+    bf16, tp=2 x ep=2 (4 ranks, ``bert_tp_ep_rules``), 2 updates: the
+    dropped fraction of every layer exactly the one process's. (d) dp=2 x
+    tp=2, ZeRO-1 with the rules, Adam-mini, dropout 0, float32, 2 updates,
+    within 1e-5; bytes per parameter per rank; its checkpoint (the global
+    state) restored in one process bitwise equal to the gathered state.
+    Every leg's collectives per update must equal the design's count
+    (``_mp_predicted_calls``, PERF.md); gloo's SUM/MIN all-reduce,
+    all-gather and broadcast are asked on a ``new_group`` subgroup with CUDA
+    tensors.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON line describing every kernel in each dtype (bfloat16: launches
@@ -401,10 +428,45 @@ def phase_kernels():
                          (torch.bfloat16, GPT_SHAPE),
                          (torch.float32, GPT_SHAPE), (torch.float32, GPT_LM_SHAPE)):
         _check_keep_masks(fa, dtype, shape)
+    for dtype in (torch.float32, torch.bfloat16):
+        # one rank's heads under tensor parallelism: heads 4-7 of 8
+        _check_keep_masks(fa, dtype, (B, H // 2, S, D), head_offset=H // 2, heads_total=H)
+        _check_head_slice(fa, dtype)
     return worst
 
 
-def _check_keep_masks(fa, dtype, shape):
+def _check_head_slice(fa, dtype, first=H // 2):
+    """The kernels on heads [first, H) of the main shape, told their place
+    (``head_offset=first, heads_total=H``), against the matching slice of
+    the plain version's outputs on all H heads, dropout on: o, lse, dq,
+    dk, dv within TOL."""
+    import torch
+
+    q, k, v, mask, do = _inputs(dtype, True, seed=3)
+    o_r, lse_r = fa.flash_forward_reference(q, k, v, mask, SEED, False, RATE)
+    dq_r, dk_r, dv_r, _ = fa.flash_backward_reference(q, k, v, mask, SEED, o_r, lse_r, do,
+                                                      False, RATE)
+    part = [x[:, first:].contiguous() for x in (q, k, v, do, o_r)]
+    qp, kp, vp, dop, op = part
+    lsep = lse_r[:, first:].contiguous()
+    heads = dict(head_offset=first, heads_total=H)
+    o, lse = fa.flash_fwd_cuda(qp, kp, vp, mask, SEED, False, RATE, **heads)
+    dq, _ = fa.flash_bwd_dq_cuda(qp, kp, vp, mask, SEED, dop, op, lsep, False, RATE, **heads)
+    dk, dv, _ = fa.flash_bwd_dkv_cuda(qp, kp, vp, mask, SEED, dop, lsep, fa._delta(dop, op),
+                                      False, RATE, False, **heads)
+    torch.cuda.synchronize()
+    line = []
+    for name, got, want in (("o", o, o_r), ("lse", lse, lse_r), ("dq", dq, dq_r),
+                            ("dk", dk, dk_r), ("dv", dv, dv_r)):
+        err, ok, atol, rtol = _err(name, got, want[:, first:], dtype)
+        check(ok, f"{name} on heads {first}-{H - 1} of {H} ({dtype}) disagrees with the "
+                  f"slice of the plain version: max |err| {err:.3e} > {atol} + {rtol}|ref|")
+        line.append(f"{name}={err:.2e}")
+    print(f"[kernels] {str(dtype)[6:]} heads {first}-{H - 1} of {H} (head_offset={first}, "
+          f"heads_total={H}) against the plain version's slice: " + " ".join(line))
+
+
+def _check_keep_masks(fa, dtype, shape, head_offset=0, heads_total=None):
     """Read the keep decisions back out of the forward, dq and dk/dv kernels
     and require them equal to the plain mask. With q = k = 0 every
     probability is 1/s, so o[i, d] = keep[i, c*D + d]/(keep_prob*s) when v
@@ -413,11 +475,17 @@ def _check_keep_masks(fa, dtype, shape):
     o = 0 (so delta = 0) and every row of v and dO is e_0 (so dP = 1); with
     k the one-hot block c, dq[i, d] = scale*keep[i, c*D + d]/(keep_prob*s).
     All three are positive (bfloat16 too) exactly where the element is
-    kept. The last block of a ragged length is narrower than D."""
+    kept. The last block of a ragged length is narrower than D. With
+    ``head_offset`` and ``heads_total`` the kernels run heads [head_offset,
+    head_offset + h) of a wider attention, and their mask must be that
+    slice of the whole attention's plain mask."""
     import torch
 
     b, h, s, d = shape
-    want = fa.dropout_keep_mask(SEED, b, h, s, RATE, device="cuda")
+    total = heads_total or h
+    want = fa.dropout_keep_mask(SEED, b, total, s, RATE,
+                                device="cuda")[:, head_offset:head_offset + h]
+    heads = dict(head_offset=head_offset, heads_total=total)
     zeros = torch.zeros(shape, dtype=dtype, device="cuda")
     e0 = torch.zeros(shape, dtype=dtype, device="cuda")
     e0[..., 0] = 1
@@ -429,16 +497,17 @@ def _check_keep_masks(fa, dtype, shape):
         w = min(d, s - c0)
         onehot = torch.zeros(shape, dtype=dtype, device="cuda")
         onehot[:, :, c0:c0 + w, :w] = torch.eye(w, dtype=dtype, device="cuda")
-        o, _ = fa.flash_fwd_cuda(zeros, zeros, onehot, None, SEED, False, RATE)
+        o, _ = fa.flash_fwd_cuda(zeros, zeros, onehot, None, SEED, False, RATE, **heads)
         got["forward"][..., c0:c0 + w] = o[..., :w] > 0
         dq, _ = fa.flash_bwd_dq_cuda(zeros, onehot, e0, None, SEED, e0, zeros, lse,
-                                     False, RATE)
+                                     False, RATE, **heads)
         got["dq"][..., c0:c0 + w] = dq[..., :w] > 0
         _, dv, _ = fa.flash_bwd_dkv_cuda(zeros, zeros, zeros, None, SEED, onehot, lse,
-                                         delta, False, RATE)
+                                         delta, False, RATE, True, **heads)
         got["dk/dv"][:, :, c0:c0 + w, :] = (dv[..., :w] > 0).transpose(-1, -2)
     torch.cuda.synchronize()
-    kind = f"{str(dtype)[6:]} {list(shape)}"
+    kind = f"{str(dtype)[6:]} {list(shape)}" + (
+        f" heads {head_offset}-{head_offset + h - 1} of {total}" if total != h else "")
     for name, mask in got.items():
         check(torch.equal(mask, want), f"{name} kernel keep mask ({kind}) differs "
                                        f"from the plain mask")
@@ -1976,6 +2045,423 @@ def phase_dp():
 
 
 # --------------------------------------------------------------------------
+# phase 22: model parallelism (tensor and expert parallelism, ZeRO-1 with rules)
+# --------------------------------------------------------------------------
+
+MP_DIR = os.path.join(ROOT, "build", "chip_smoke_mp")
+MP_LOSS_RTOL = 1e-5  # float32 legs: losses against the one-process run
+MP_PARAM_TOL = (2e-4, 2e-5)  # rtol, atol: JAX's tests/test_tp.py
+MP_EXPERTS, MP_TOP_K = 8, 2
+
+
+def _mp_legs():
+    """The legs of phase 22 by name: ranks, mesh axes, rules and the run."""
+    import torch
+
+    from gradaccum_tpu_torch.parallel.tp import bert_tp_ep_rules, bert_tp_rules
+
+    return {
+        "tp_f32": dict(world=2, axes=[("data", 1), ("model", 2)], rules=bert_tp_rules(),
+                       dtype=torch.float32, dropout=0.1, updates=3),
+        "tp_bf16": dict(world=2, axes=[("data", 1), ("model", 2)], rules=bert_tp_rules(),
+                        dtype=torch.bfloat16, dropout=0.1, updates=3),
+        "tpep_f32": dict(world=4, axes=[("data", 1), ("model", 2), ("expert", 2)],
+                         rules=bert_tp_ep_rules(), dtype=torch.float32, dropout=0.1,
+                         updates=2, experts=MP_EXPERTS),
+        # bf16: the router's input differs from one process's by rounding
+        # (the row-parallel sums), which flips the routing of near-tied
+        # tokens: the ranks must agree exactly, the one process is a finding
+        "tpep": dict(world=4, axes=[("data", 1), ("model", 2), ("expert", 2)],
+                     rules=bert_tp_ep_rules(), dtype=torch.bfloat16, dropout=0.1, updates=2,
+                     experts=MP_EXPERTS, ranks_only=True),
+        "zero1": dict(world=4, axes=[("data", 2), ("model", 2)], rules=bert_tp_rules(),
+                      dtype=torch.float32, dropout=0.0, updates=2, adam_mini=True, zero1=True),
+    }
+
+
+def _mp_predicted_calls(name):
+    """The collectives of one update the design predicts (PERF.md, phase
+    22), by ``"<axes>/<op>[:<tag>]"``: per micro-batch on the model axis the
+    vocab lookup's sum, then per layer the attention output's sum forward
+    and the QKV ``copy_to`` sum backward, and the FFN's pair (the MoE's:
+    the combine's sum forward and x's and the gates' ``copy_to`` backward,
+    over model+expert, and b_out's ``copy_to`` over model); per update one
+    scalar norm all-reduce over the split axes; under dp=2 one gradient
+    average per micro-batch over data; ZeRO-1 one parameter all-gather and
+    Adam-mini one statistics all-reduce per split axis."""
+    L = LAYERS
+    if name in ("tp_f32", "tp_bf16"):
+        return {"model/all_reduce": K * (1 + 4 * L) + 1}
+    if name in ("tpep", "tpep_f32"):
+        return {"model/all_reduce": K * (1 + 3 * L),
+                "model+expert/all_reduce": K * 3 * L + 1}
+    return {"model/all_reduce": K * (1 + 4 * L) + 1 + 1,
+            "data/all_reduce": K + 1, "data/all_gather": 1}
+
+
+def _bert_mp_estimator(mesh=None, rules=None, dtype=None, dropout=0.1, experts=0,
+                       adam_mini=False, zero1=False, model_dir=None, **_leg):
+    """BERT-Small (vocab 30522, seq 128, L-4 H-512 A-8) on the flash
+    kernels through the Estimator, random weights from the run seed, the
+    main path's schedule; ``experts``: the MoE FFN, top-2."""
+    import torch
+
+    from gradaccum_tpu_torch.estimator.config import RunConfig
+    from gradaccum_tpu_torch.estimator.estimator import Estimator
+    from gradaccum_tpu_torch.models.bert import BertConfig, bert_classifier_bundle
+    from gradaccum_tpu_torch.ops.accumulation import GradAccumConfig
+    from gradaccum_tpu_torch.ops.adamw import adam_mini as mini, adamw
+    from gradaccum_tpu_torch.ops.flash_attention import flash_attention
+    from gradaccum_tpu_torch.ops.schedule import warmup_polynomial_decay
+
+    cfg = BertConfig.small(dtype=dtype or torch.float32, hidden_dropout=dropout,
+                           attention_dropout=dropout, num_experts=experts,
+                           moe_top_k=MP_TOP_K if experts else 1)
+    rate = warmup_polynomial_decay(2e-5, 400, 40)
+    opt = mini(rate) if adam_mini else adamw(rate, weight_decay_rate=0.01)
+    return Estimator(bert_classifier_bundle(cfg, attention_fn=flash_attention), opt,
+                     GradAccumConfig(K, clip_norm=1.0, first_step_quirk=False),
+                     RunConfig(log_step_count_steps=1000, save_checkpoints_steps=None,
+                               model_dir=model_dir),
+                     mode="scan", device="cuda", mesh=mesh, zero1=zero1, sharding_rules=rules)
+
+
+def _mp_run(est, batches, norms, mesh=None, profile_last=False):
+    """Train one update per batch: the losses, the collectives of each
+    update, and (``profile_last``) the card's flash kernels in a profiler
+    window over the last update."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    losses, calls, seen = [], [], {}
+    for i, batch in enumerate(batches):
+        if mesh is not None:
+            mesh.reset_calls()
+        if profile_last and i == len(batches) - 1:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                est.train([batch], final_save=False)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            device = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            # gloo moves a CUDA tensor through host memory: its copies are
+            # the collectives' card time
+            seen = {"flash": {e.key[:40]: e.count for e in device if "flash_" in e.key},
+                    "wall_ms": wall * 1e3,
+                    "busy_ms": sum(e.self_device_time_total for e in device) / 1e3,
+                    "copy_ms": sum(e.self_device_time_total for e in device
+                                   if "memcpy" in e.key.lower()) / 1e3,
+                    "flash_ms": sum(e.self_device_time_total for e in device
+                                    if "flash_" in e.key) / 1e3}
+        else:
+            est.train([batch], final_save=False)
+        losses.append(float(est.last_loss))
+        if mesh is not None:
+            calls.append({k: v for k, v in mesh.calls.items() if ":" not in k})
+    return losses, calls, seen
+
+
+def _model_numel(est):
+    """The model's parameter count, from this rank's blocks and their
+    placement."""
+    from gradaccum_tpu_torch.parallel.sharding import placement
+
+    total = 0
+    for p in est._state.params.values():
+        n = p.numel()
+        for axis in placement(p) or ():
+            n *= est.mesh.shape[axis] if axis else 1
+        total += n
+    return total
+
+
+def _wrap_norms(est, norms):
+    """Make ``est``'s built step append each update's norm before clipping."""
+    inner = est._train_step
+
+    def step(state, batch, *rng):
+        state, aux = inner(state, batch, *rng)
+        norms.append(float(aux["grad_norm"]))
+        return state, aux
+
+    est._train_step = step
+
+
+def _moe_dropped(est):
+    return [float(getattr(est.module.bert, f"layer_{i}").moe.last_aux["dropped_fraction"])
+            for i in range(LAYERS)]
+
+
+def _mp_rank(outdir, world):
+    """One rank of phase 22: gloo on the shared card; runs every leg of
+    ``world`` ranks."""
+    import torch
+
+    from gradaccum_tpu_torch.estimator import checkpoint as ckpt_lib
+    from gradaccum_tpu_torch.ops import accumulation as acc
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+    from gradaccum_tpu_torch.parallel import mesh as mesh_lib
+    
+    fa.build_kernels()  # the parent built them: loads the libraries
+    mesh_lib.initialize_multihost(device="cuda:0", backend="gloo", timeout_s=300)
+    window_bytes, wrap = _spy_window(acc)
+    launch = fa._launch
+    shapes = set()
+
+    def spy(name, dtype, *args):
+        # (B, H, S, D, head_offset, heads_total) of every kernel launch
+        shapes.add((name, args[-11], args[-10], args[-9], args[0], args[-3], args[-2]))
+        return launch(name, dtype, *args)
+
+    fa._launch = spy
+    out = {}
+    try:
+        for name, leg in _mp_legs().items():
+            if leg["world"] != int(world):
+                continue
+            mesh = mesh_lib.make_mesh(leg["axes"])
+            if name == "zero1":
+                out["gloo_subgroups"] = _probe_gloo_subgroup(mesh)
+            model_dir = os.path.join(outdir, f"ckpt_{name}") if name == "zero1" else None
+            est = _bert_mp_estimator(mesh, model_dir=model_dir, **leg)
+            est.train([], final_save=False)
+            norms = []
+            wrap(est, norms)
+            window_bytes.clear()
+            shapes.clear()
+            fa.reset_launch_counts()
+            batches = _host_batches(leg["updates"], K * B, seed=61)
+            t0 = time.perf_counter()
+            losses, calls, seen = _mp_run(est, batches, norms, mesh, profile_last=True)
+            seconds = time.perf_counter() - t0
+            state = est._state
+            n = _model_numel(est)
+            res = {"losses": losses, "norms": norms, "calls": calls, "profile": seen,
+                   "launches": fa.launch_counts(), "routes": fa.route_counts(),
+                   "shapes": sorted(shapes), "seconds": seconds,
+                   "bytes": _state_bytes(state, n, max(window_bytes, default=0)),
+                   "param_bytes": sum(_nbytes(p) for p in state.params.values()) / n}
+            if leg.get("experts"):
+                res["dropped"] = _moe_dropped(est)
+            whole = est._global_state(state)  # every rank gathers
+            if mesh.rank == 0:
+                res["params"] = {k: v.detach().float().cpu() for k, v in whole.params.items()}
+                if name == "zero1":
+                    res["gathered"] = {k: v.detach().cpu() if isinstance(v, torch.Tensor) else v
+                                       for k, v in ckpt_lib.flatten(whole).items()}
+            if model_dir:
+                est._save(state)  # the global state: every rank gathers, rank 0 writes
+                est._ckpt_sync()
+            out[name] = res
+            del est, state, whole
+            _release()
+        torch.save(out, os.path.join(outdir, f"rank{mesh_lib.current_mesh().rank}.pt"))
+        rank = mesh_lib.current_mesh().rank
+    finally:
+        fa._launch = launch
+        mesh_lib.shutdown()
+    if rank == 0:
+        print(json.dumps({"ok": True}))
+    return 0
+
+
+def _probe_gloo_subgroup(mesh):
+    """Whether this torch's gloo runs each collective the model axes issue
+    on CUDA tensors in a ``dist.new_group`` subgroup (the model axis of a
+    data x model mesh): SUM and MIN all-reduce, all-gather and broadcast,
+    in float32 and bfloat16."""
+    import torch
+
+    m = mesh.axis("model")
+    found = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.ones(4, dtype=dtype, device=mesh.device)
+        ops = {
+            "all_reduce": lambda: m.all_reduce_(x.clone(), tag="probe"),
+            "pmin": lambda: m.pmin_flag(torch.ones((), dtype=torch.bool, device=mesh.device)),
+            "all_gather": lambda: m.all_gather(x, tag="probe"),
+            "broadcast": lambda: m.broadcast_(x.clone(), tag="probe"),
+        }
+        for name, op in ops.items():
+            key = f"{name}:{str(dtype)[6:]}"
+            try:
+                op()
+                torch.cuda.synchronize()
+                found[key] = "runs"
+            except (RuntimeError, ValueError) as e:
+                found[key] = f"refused: {str(e).splitlines()[0][:100]}"
+    m.reset_calls()
+    return found
+
+
+def _mp_reference(name, leg):
+    """The leg in one process (tp=1, no mesh) on the same global batches."""
+    import torch
+
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+
+    est = _bert_mp_estimator(**dict(leg, rules=None, zero1=False))
+    est.train([], final_save=False)
+    norms = []
+    _wrap_norms(est, norms)
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses, _, _ = _mp_run(est, _host_batches(leg["updates"], K * B, seed=61), norms)
+    torch.cuda.synchronize()
+    ref = {"losses": losses, "norms": norms, "launches": fa.launch_counts(),
+           "seconds": time.perf_counter() - t0,
+           "params": {k: v.detach().float().cpu() for k, v in est._state.params.items()}}
+    if leg.get("experts"):
+        ref["dropped"] = _moe_dropped(est)
+    del est
+    _release()
+    return ref
+
+
+def _mp_check(name, leg, ref, ranks):
+    """Hold each rank of leg ``name`` against the one-process run."""
+    import torch
+
+    bf16 = leg["dtype"] == torch.bfloat16
+    atol, rtol = TOL["torch.bfloat16"]["o"] if bf16 else (MP_PARAM_TOL[1], MP_PARAM_TOL[0])
+    loss_rtol = TOL["torch.bfloat16"]["o"][1] if bf16 else MP_LOSS_RTOL
+    want_launch = _launches_per_kernel(leg["updates"])
+    want_calls = _mp_predicted_calls(name)
+    heads = H // dict(leg["axes"])["model"]
+    route = "tc" if bf16 else "tf32x3"
+    ranks_only = leg.get("ranks_only", False)
+    for r, out in enumerate(ranks):
+        res = out[name]
+        gaps = [abs(a - b) / abs(b) for a, b in zip(res["losses"], ref["losses"])]
+        norm_gap = max(abs(a / b - 1.0) for a, b in zip(res["norms"], ref["norms"]))
+        if ranks_only:
+            # every rank of a model copy computes the same loss, norm and drops
+            for key in ("losses", "norms", "dropped"):
+                check(res[key] == ranks[0][name][key],
+                      f"mp {name} rank {r}: {key} {res[key]} against rank 0's "
+                      f"{ranks[0][name][key]}")
+        else:
+            check(len(gaps) == leg["updates"] and max(gaps) <= loss_rtol,
+                  f"mp {name} rank {r}: losses {res['losses']} against {ref['losses']}")
+            check(norm_gap <= (TOL["torch.bfloat16"]["o"][1] if bf16 else NORM_RTOL),
+                  f"mp {name} rank {r}: norms {res['norms']} against {ref['norms']}")
+        check(res["launches"] == want_launch and ref["launches"] == want_launch,
+              f"mp {name} rank {r}: launches {res['launches']} (one process "
+              f"{ref['launches']}) != {want_launch}")
+        check(all(res["routes"][k][route] == want_launch[k] for k in want_launch),
+              f"mp {name} rank {r}: routes {res['routes']}")
+        for u, calls in enumerate(res["calls"]):
+            check(calls == want_calls, f"mp {name} rank {r} update {u}: collectives {calls}, "
+                                       f"the design predicts {want_calls}")
+        kinds = {(b, h, s, d) for _, b, h, s, d, _, _ in res["shapes"]}
+        offsets = {(off, total) for *_, off, total in res["shapes"]}
+        rows = B // dict(leg["axes"])["data"]
+        import numpy as np
+
+        coords = dict(zip([a for a, _ in leg["axes"]],
+                          np.unravel_index(r, [n for _, n in leg["axes"]])))
+        # the dropout key places this rank's heads in the whole attention;
+        # without dropout the kernels are asked for their own heads
+        want_off = {(int(coords["model"]) * heads, H)} if leg["dropout"] else {(0, heads)}
+        check(kinds == {(rows, heads, S, D)} and offsets == want_off,
+              f"mp {name} rank {r}: kernel shapes {kinds}, head offset/total {offsets}, "
+              f"wanted {(rows, heads, S, D)} and {want_off}")
+        prof = res["profile"]
+        check(len(prof["flash"]) >= 3, f"mp {name} rank {r}: the profiler window saw the "
+                                       f"flash kernels {prof['flash']}")
+        if leg.get("experts") and not ranks_only:
+            check(res["dropped"] == ref["dropped"],
+                  f"mp {name} rank {r}: dropped fraction {res['dropped']} against "
+                  f"{ref['dropped']}")
+        line = (f"[mp] {name} rank {r}/{leg['world']} {dict(leg['axes'])}, "
+                f"{str(leg['dtype'])[6:]} route {route}, dropout {leg['dropout']}, "
+                f"{leg['updates']} updates: losses {res['losses']} against {ref['losses']} "
+                f"one process (max relative gap {max(gaps):.2e}, "
+                f"{'not gated' if ranks_only else f'limit {loss_rtol:g}'}); norms "
+                f"before clipping gap {norm_gap:.2e}; kernels on {sorted(kinds)} with head "
+                f"offset/total {sorted(offsets)}; last update under the profiler: "
+                f"{prof['wall_ms']:.1f} ms wall, card busy {prof['busy_ms']:.2f} ms, of which "
+                f"gloo's host copies {prof['copy_ms']:.2f} ms and the flash kernels "
+                f"{prof['flash_ms']:.2f} ms ({prof['flash']}); "
+                f"collectives per update {res['calls'][0]}; optimizer + accumulator "
+                f"{res['bytes']:.3f} B and parameters {res['param_bytes']:.3f} B per "
+                f"parameter of the model on this rank; {res['seconds']:.2f} s against "
+                f"{ref['seconds']:.2f} s one process")
+        if leg.get("experts"):
+            line += (f"; dropped fraction per layer {res['dropped']} (one process "
+                     f"{ref['dropped']})")
+        print(line)
+    params = ranks[0][name]["params"]
+    skip = ("attention/key/bias",) if leg.get("adam_mini") else ()
+    worst = 0.0
+    for k, want in ref["params"].items():
+        if any(s_ in k for s_ in skip):
+            continue
+        err = (params[k] - want).abs()
+        worst = max(worst, float(err.max()))
+        check(ranks_only or bool((err <= atol + rtol * want.abs()).all()),
+              f"mp {name}: parameter {k} off the one-process run by {float(err.max()):.3e}")
+    if ranks_only:
+        print(f"[mp] {name}: the ranks agree exactly on losses, norms and drops; against "
+              f"the one-process run (a finding, not a gate): max loss gap "
+              f"{max(gaps):.3e}, max |parameter err| {worst:.3e}")
+        return
+    print(f"[mp] {name}: every gathered parameter within atol {atol:g} + rtol {rtol:g} of "
+          f"the one-process run (max |err| {worst:.3e})"
+          + (" (the key biases aside: their gradient is zero but for rounding and Adam-mini "
+             "divides it by its own RMS)" if skip else ""))
+
+
+def phase_mp():
+    """Model parallelism on the one card, its ranks sharing it over gloo:
+    (a) tp=2 BERT-Small float32 (route tf32x3) and (b) bfloat16 (tc) with
+    dropout 0.1 against tp=1 in one process; (c) MoE-BERT bf16 at tp=2 x
+    ep=2; (d) ZeRO-1 with rules and Adam-mini at dp=2 x tp=2, and its
+    checkpoint restored in one process."""
+    import torch
+
+    from gradaccum_tpu_torch.estimator import checkpoint as ckpt_lib
+    from gradaccum_tpu_torch.examples.common import spawn_ranks
+
+    legs = _mp_legs()
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+    os.makedirs(MP_DIR)
+    for world in (2, 4):
+        names = [n for n, leg in legs.items() if leg["world"] == world]
+        refs = {n: _mp_reference(n, legs[n]) for n in names}
+        t0 = time.perf_counter()
+        spawn_ranks("chip_smoke", ["--mp-rank", MP_DIR, str(world)], world, "cuda",
+                    deadline_s=900)
+        took = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(MP_DIR, f"rank{r}.pt")) for r in range(world)]
+        for n in names:
+            _mp_check(n, legs[n], refs[n], ranks)
+        print(f"[mp] the {world} ranks took {took:.1f} s, process start included")
+        if world == 4:
+            print(f"[mp] gloo on a new_group subgroup with CUDA tensors (asked directly): "
+                  f"{ranks[0]['gloo_subgroups']}")
+            check(all(v == "runs" for v in ranks[0]["gloo_subgroups"].values()),
+                  f"mp: gloo refused a subgroup collective: {ranks[0]['gloo_subgroups']}")
+            # (d) the tp=2 x dp=2 checkpoint restores in one process, bitwise
+            est = _bert_mp_estimator(model_dir=os.path.join(MP_DIR, "ckpt_zero1"),
+                                     **dict(legs["zero1"], rules=None, zero1=False))
+            restored = ckpt_lib.flatten(est._init_state())
+            gathered = ranks[0]["zero1"]["gathered"]
+            same = [k for k in gathered if k in restored and (
+                torch.equal(restored[k].cpu(), gathered[k])
+                if isinstance(gathered[k], torch.Tensor) else restored[k] == gathered[k])]
+            check(len(same) == len(gathered) == len(restored),
+                  f"mp (d): {len(gathered) - len(same)} of {len(gathered)} leaves of the "
+                  f"restored checkpoint differ from the gathered state")
+            print(f"[mp] (d) the checkpoint written at dp=2 x tp=2 (ZeRO-1, Adam-mini) restored "
+                  f"in one process: {len(same)} leaves bitwise equal to the gathered state")
+            del est
+            _release()
+
+
+# --------------------------------------------------------------------------
 # phase 20: resilience and observability on the card
 # --------------------------------------------------------------------------
 
@@ -2708,6 +3194,7 @@ def main() -> int:
         export_job = phase_export()  # its loader process runs beside phase 20
         phase_resilience()
         phase_export_check(export_job)
+        phase_mp()
     except SmokeError as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -2731,6 +3218,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:  # a rank of phase 19, spawned by phase_dp
         sys.path.insert(0, ROOT)
         sys.exit(_dp_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--mp-rank"]:  # a rank of phase 22, spawned by phase_mp
+        sys.path.insert(0, ROOT)
+        sys.exit(_mp_rank(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--drain-rank"]:  # a rank of phase 20 (d)
         sys.path.insert(0, ROOT)
         sys.exit(_drain_rank(sys.argv[2]))

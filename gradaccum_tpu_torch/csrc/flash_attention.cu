@@ -125,7 +125,10 @@ namespace {
 
 using flash::keep;
 using flash::Params;
+using flash::drop_slice;
 using flash::row_seed;
+using flash::row_seed_of;
+using flash::slice_seed;
 
 // ---------------------------------------------------------------------------
 // Tensor-core helpers, 3xTF32. Shared-memory tiles are [rows][D + kPad]
@@ -413,8 +416,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const Params p) 
   uint32_t rseed_a = 0u, rseed_b = 0u;
   if (p.dropout) {
     const uint32_t seed = (uint32_t)(*p.seed);
-    rseed_a = row_seed(seed, (uint32_t)bh, (uint32_t)row_a);
-    rseed_b = row_seed(seed, (uint32_t)bh, (uint32_t)row_b);
+    rseed_a = row_seed(seed, drop_slice(p, b, h), (uint32_t)row_a);
+    rseed_b = row_seed(seed, drop_slice(p, b, h), (uint32_t)row_b);
   }
   // keys past this bound meet none of the warp's rows
   const int warp_end = p.causal ? min(k_end, row_w + 16) : k_end;
@@ -643,8 +646,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel(const Params p) {
   uint32_t rseed_a = 0u, rseed_b = 0u;
   if (p.dropout) {
     const uint32_t seed = (uint32_t)(*p.seed);
-    rseed_a = row_seed(seed, (uint32_t)bh, (uint32_t)row_a);
-    rseed_b = row_seed(seed, (uint32_t)bh, (uint32_t)row_b);
+    rseed_a = row_seed(seed, drop_slice(p, b, h), (uint32_t)row_a);
+    rseed_b = row_seed(seed, drop_slice(p, b, h), (uint32_t)row_b);
   }
   // keys past this bound meet none of the warp's rows
   const int warp_end = p.causal ? min(k_end, row_w + 16) : k_end;
@@ -768,7 +771,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_kernel(const Params p) 
   const float* q = static_cast<const float*>(p.q) + slice;
   const float* dout = static_cast<const float*>(p.dout) + slice;
   const float* mask = static_cast<const float*>(p.mask);
-  const uint32_t seed = p.dropout ? (uint32_t)(*p.seed) : 0u;
+  // the dropout key of this block's (batch, head) slice, once
+  const uint32_t sseed =
+      p.dropout ? slice_seed((uint32_t)(*p.seed), drop_slice(p, b, h)) : 0u;
 
   const int i_begin = p.causal ? k0 : 0;
   const int n_stages = (S - i_begin + kStage - 1) / kStage;
@@ -786,7 +791,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_kernel(const Params p) 
       lse_s[st * kStage + threadIdx.x] = in ? p.lse[(size_t)bh * S + i] : 0.f;
       delta_s[st * kStage + threadIdx.x] = in ? p.delta[(size_t)bh * S + i] : 0.f;
       rseed_s[st * kStage + threadIdx.x] =
-          p.dropout ? row_seed(seed, (uint32_t)bh, (uint32_t)i) : 0u;
+          p.dropout ? row_seed_of(sseed, (uint32_t)i) : 0u;
     }
   };
 
@@ -962,9 +967,11 @@ extern "C" int flash_fwd(int dtype, int D, const void* q, const void* k,
                          const void* v, const void* mask, const int64_t* seed,
                          void* o, float* lse, int B, int H, int S,
                          float scale, int causal, uint32_t threshold,
-                         float inv_keep, int dropout, void* stream) {
+                         float inv_keep, int dropout, int head_offset, int heads_total, void* stream) {
   Params p = flash::make_params(q, k, v, mask, seed, H, S, scale, causal,
                                 threshold, inv_keep, dropout);
+  p.head_offset = (uint16_t)head_offset;
+  p.heads_total = (uint16_t)heads_total;
   p.out0 = o;
   p.out_f32 = lse;
   return dispatch(kFwd, dtype, D, p, B, stream);
@@ -977,9 +984,11 @@ extern "C" int flash_bwd_dq(int dtype, int D, const void* q, const void* k,
                             const void* o, const float* lse, void* dq,
                             float* delta, int B, int H, int S, float scale,
                             int causal, uint32_t threshold, float inv_keep,
-                            int dropout, void* stream) {
+                            int dropout, int head_offset, int heads_total, void* stream) {
   Params p = flash::make_params(q, k, v, mask, seed, H, S, scale, causal,
                                 threshold, inv_keep, dropout);
+  p.head_offset = (uint16_t)head_offset;
+  p.heads_total = (uint16_t)heads_total;
   p.dout = dout;
   p.o = o;
   p.lse = lse;
@@ -994,9 +1003,11 @@ extern "C" int flash_bwd_dkv(int dtype, int D, const void* q, const void* k,
                              const float* lse, const float* delta, void* dk,
                              void* dv, float* dmask, int B, int H, int S,
                              float scale, int causal, uint32_t threshold,
-                             float inv_keep, int dropout, void* stream) {
+                             float inv_keep, int dropout, int head_offset, int heads_total, void* stream) {
   Params p = flash::make_params(q, k, v, mask, seed, H, S, scale, causal,
                                 threshold, inv_keep, dropout);
+  p.head_offset = (uint16_t)head_offset;
+  p.heads_total = (uint16_t)heads_total;
   p.dout = dout;
   p.lse = lse;
   p.delta = delta;

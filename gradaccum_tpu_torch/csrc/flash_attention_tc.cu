@@ -58,7 +58,10 @@ namespace {
 using flash::kNegInf;
 using flash::keep;
 using flash::Params;
+using flash::drop_slice;
 using flash::row_seed;
+using flash::row_seed_of;
+using flash::slice_seed;
 typedef __nv_bfloat16 bf16;
 
 constexpr int kWarps = 4;
@@ -286,8 +289,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(const Params p) 
   uint32_t rseed_a = 0u, rseed_b = 0u;
   if (p.dropout) {
     const uint32_t seed = (uint32_t)(*p.seed);
-    rseed_a = row_seed(seed, (uint32_t)bh, (uint32_t)row_a);
-    rseed_b = row_seed(seed, (uint32_t)bh, (uint32_t)row_b);
+    rseed_a = row_seed(seed, drop_slice(p, b, h), (uint32_t)row_a);
+    rseed_b = row_seed(seed, drop_slice(p, b, h), (uint32_t)row_b);
   }
   const float scale_log2 = p.scale * kLog2e;
 
@@ -490,8 +493,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_tc_kernel(const Params p) {
   uint32_t rseed_a = 0u, rseed_b = 0u;
   if (p.dropout) {
     const uint32_t seed = (uint32_t)(*p.seed);
-    rseed_a = row_seed(seed, (uint32_t)bh, (uint32_t)row_a);
-    rseed_b = row_seed(seed, (uint32_t)bh, (uint32_t)row_b);
+    rseed_a = row_seed(seed, drop_slice(p, b, h), (uint32_t)row_a);
+    rseed_b = row_seed(seed, drop_slice(p, b, h), (uint32_t)row_b);
   }
   const float scale_log2 = p.scale * kLog2e;
 
@@ -635,7 +638,9 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_tc_kernel(const Params p) 
   const bf16* q = static_cast<const bf16*>(p.q) + slice;
   const bf16* dout = static_cast<const bf16*>(p.dout) + slice;
   const bf16* mask = static_cast<const bf16*>(p.mask);
-  const uint32_t seed = p.dropout ? (uint32_t)(*p.seed) : 0u;
+  // the dropout key of this block's (batch, head) slice, once
+  const uint32_t sseed =
+      p.dropout ? slice_seed((uint32_t)(*p.seed), drop_slice(p, b, h)) : 0u;
 
   const int i_begin = p.causal ? k0 : 0;
   const int n_tiles = (S - i_begin + kTile - 1) / kTile;
@@ -653,7 +658,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_tc_kernel(const Params p) 
       lse_s[st * kTile + threadIdx.x] = in ? p.lse[(size_t)bh * S + i] * kLog2e : 0.f;
       delta_s[st * kTile + threadIdx.x] = in ? p.delta[(size_t)bh * S + i] : 0.f;
       rseed_s[st * kTile + threadIdx.x] =
-          p.dropout ? row_seed(seed, (uint32_t)bh, (uint32_t)i) : 0u;
+          p.dropout ? row_seed_of(sseed, (uint32_t)i) : 0u;
     }
   };
 
@@ -839,9 +844,11 @@ extern "C" int flash_fwd_tc(int dtype, int D, const void* q, const void* k,
                             const int64_t* seed, void* o, float* lse, int B,
                             int H, int S, float scale, int causal,
                             uint32_t threshold, float inv_keep, int dropout,
-                            void* stream) {
+                            int head_offset, int heads_total, void* stream) {
   Params p = flash::make_params(q, k, v, mask, seed, H, S, scale, causal,
                                 threshold, inv_keep, dropout);
+  p.head_offset = (uint16_t)head_offset;
+  p.heads_total = (uint16_t)heads_total;
   p.out0 = o;
   p.out_f32 = lse;
   return dispatch(kFwd, dtype, D, p, B, stream);
@@ -853,9 +860,11 @@ extern "C" int flash_bwd_dq_tc(int dtype, int D, const void* q, const void* k,
                                const void* o, const float* lse, void* dq,
                                float* delta, int B, int H, int S, float scale,
                                int causal, uint32_t threshold, float inv_keep,
-                               int dropout, void* stream) {
+                               int dropout, int head_offset, int heads_total, void* stream) {
   Params p = flash::make_params(q, k, v, mask, seed, H, S, scale, causal,
                                 threshold, inv_keep, dropout);
+  p.head_offset = (uint16_t)head_offset;
+  p.heads_total = (uint16_t)heads_total;
   p.dout = dout;
   p.o = o;
   p.lse = lse;
@@ -870,9 +879,11 @@ extern "C" int flash_bwd_dkv_tc(int dtype, int D, const void* q, const void* k,
                                 const float* lse, const float* delta, void* dk,
                                 void* dv, float* dmask, int B, int H, int S,
                                 float scale, int causal, uint32_t threshold,
-                                float inv_keep, int dropout, void* stream) {
+                                float inv_keep, int dropout, int head_offset, int heads_total, void* stream) {
   Params p = flash::make_params(q, k, v, mask, seed, H, S, scale, causal,
                                 threshold, inv_keep, dropout);
+  p.head_offset = (uint16_t)head_offset;
+  p.heads_total = (uint16_t)heads_total;
   p.dout = dout;
   p.lse = lse;
   p.delta = delta;

@@ -30,11 +30,19 @@ __device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
   return x ^ (x >> 16);
 }
 
-// slice seed from (seed, b*H + h), then the row seed from the query position
+// slice seed from (seed, the slice b*H + h), then the row seed from the
+// query position
+__device__ __forceinline__ uint32_t slice_seed(uint32_t seed, uint32_t bh) {
+  return hash_u32(seed + bh * kGolden);
+}
+
+__device__ __forceinline__ uint32_t row_seed_of(uint32_t sseed, uint32_t q_pos) {
+  return hash_u32(q_pos + sseed * kGolden);
+}
+
 __device__ __forceinline__ uint32_t row_seed(uint32_t seed, uint32_t bh,
                                              uint32_t q_pos) {
-  const uint32_t slice_seed = hash_u32(seed + bh * kGolden);
-  return hash_u32(q_pos + slice_seed * kGolden);
+  return row_seed_of(slice_seed(seed, bh), q_pos);
 }
 
 __device__ __forceinline__ bool keep(uint32_t rseed, uint32_t k_pos,
@@ -63,7 +71,20 @@ struct Params {
   uint32_t threshold;
   float inv_keep;
   int dropout;
+  // the dropout key's (batch, head) slice is b*heads_total + head_offset + h:
+  // a launch on heads [head_offset, head_offset + H) of a heads_total-head
+  // attention (one rank's heads under tensor parallelism) draws exactly that
+  // slice of the whole attention's keep mask. Defaults 0 and H. 16 bits
+  // each, so that the block stays 128 bytes.
+  uint16_t head_offset;
+  uint16_t heads_total;
 };
+
+// the (batch, head) slice the dropout hash keys on: the launch's (b, h)
+// placed in the whole attention, b*H + h under the defaults
+__device__ __forceinline__ uint32_t drop_slice(const Params& p, int b, int h) {
+  return (uint32_t)(b * p.heads_total + p.head_offset + h);
+}
 
 inline Params make_params(const void* q, const void* k, const void* v,
                           const void* mask, const int64_t* seed, int H, int S,
@@ -82,6 +103,8 @@ inline Params make_params(const void* q, const void* k, const void* v,
   p.threshold = threshold;
   p.inv_keep = inv_keep;
   p.dropout = dropout;
+  p.head_offset = 0;
+  p.heads_total = (uint16_t)H;
   return p;
 }
 

@@ -60,9 +60,26 @@ partials; a batch whose rows do not divide runs whole on every rank. Rank
 0 alone prints, writes ``loss_vs_step.csv`` and writes checkpoints; a
 ZeRO-1 state is gathered to the full tree before a save (every rank takes
 part) and cut again after a restore, so checkpoints stay full-tree and a
-resume is bitwise. Non-empty ``sharding_rules`` (tensor and expert
-parallelism) are not ported yet and raise ``NotImplementedError``
-(ROADMAP.md).
+resume is bitwise.
+
+**Tensor and expert parallelism** (``mesh=`` a multi-axis
+``parallel/mesh.py :: Mesh``, ``sharding_rules=`` e.g. ``bert_tp_rules()``,
+``bert_tp_ep_rules()``, ``moe_ep_rules()``, ``gpt_tp_rules()``): the state
+is placed as JAX's ``_place_state`` places it. Every rank builds the whole
+state, then keeps its block of every leaf the rules split (parameters,
+accumulators, moments and masters: they share the names), and the model
+runs on its blocks with the collectives of ``parallel/tp.py``. The step is
+the GSPMD counterpart over the ``data`` axis (each micro-batch's gradient
+averaged over the data ranks; nothing with one), run under the
+placement's ``ShardingPlan`` (the global norm, the guard's verdict and
+Adam-mini's statistic over the whole parameters). ZeRO-1 then splits the
+rule-replicated moments over ``data``. Checkpoints hold the GLOBAL state:
+every rank gathers at the save point (``gather_params``, a collective on
+the main thread; the asynchronous writer only writes), rank 0 writes, and
+a restore reads the whole state and cuts it again, so a checkpoint written
+at one width restores at another. Evaluation and ``predict`` run the
+sharded forward; ``export_model`` gathers the parameters (every rank calls
+it) and rank 0 traces the unsharded model.
 
 **Resilience and observability** (JAX's train-loop hooks): seeded fault
 points before and after every step (``resilience/faults.py``; the data
@@ -101,8 +118,15 @@ from gradaccum_tpu_torch.ops.adamw import Optimizer
 from gradaccum_tpu_torch.ops.sparse_embed import accumulate_scan_sparse_embed
 from gradaccum_tpu_torch.parallel import dp as dp_lib
 from gradaccum_tpu_torch.parallel import zero as zero_lib
-from gradaccum_tpu_torch.parallel.mesh import DATA_AXIS
-from gradaccum_tpu_torch.parallel.sharding import batch_shard, replicate_
+from gradaccum_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
+from gradaccum_tpu_torch.parallel.sharding import (
+    batch_shard,
+    gather_params,
+    placement,
+    replicate_,
+    shard_params,
+)
+from gradaccum_tpu_torch.parallel.tp import ShardingPlan, plan_scope
 from gradaccum_tpu_torch.resilience import faults, preemption
 from gradaccum_tpu_torch.utils.flops import peak_flops_for
 from gradaccum_tpu_torch.utils.platform import device_name, resolve_device, synchronize
@@ -177,6 +201,16 @@ def _copy_strict(params: Dict[str, torch.nn.Parameter], tensors) -> None:
             p.copy_(torch.as_tensor(tensors[name]))
 
 
+def _under_plan(step, plan):
+    """``step`` run under the sharding ``plan`` (``parallel/tp.py``)."""
+
+    def train_step(*args):
+        with plan_scope(plan):
+            return step(*args)
+
+    return train_step
+
+
 def step_seed(seed: int, step: int) -> int:
     """A 63-bit generator seed derived from a run seed and a step."""
     return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0] >> 1)
@@ -192,9 +226,9 @@ class Estimator:
             raise ValueError(f"mode must be 'streaming' or 'scan', got {mode!r}")
         if sharding_rules is not None and mesh is None:
             raise ValueError("sharding_rules requires a mesh")
-        if sharding_rules:
-            raise NotImplementedError("parameter sharding rules (tensor and expert "
-                                      "parallelism) are not ported yet; see ROADMAP.md")
+        if sharding_rules and not isinstance(mesh, Mesh):
+            raise ValueError("sharding_rules name mesh axes: build the mesh with "
+                             "parallel.mesh.make_mesh")
         axes = mesh.shape if mesh is not None else {}
         if zero1:
             if zero1 not in (True, "collective"):
@@ -212,10 +246,6 @@ class Estimator:
                     raise ValueError(
                         "zero1='collective' cannot compose with fused_adam or "
                         "sparse_embed; use zero1=True (GSPMD placement)")
-        if sparse_embed and mesh is not None and (zero1 or sharding_rules is not None):
-            raise NotImplementedError("sparse_embed on the GSPMD counterpart (zero1=True or "
-                                      "sharding_rules=()) is not ported yet; it runs on "
-                                      "the explicit DP path")
         if sparse_embed:
             if mode != "scan":
                 raise ValueError("sparse_embed requires mode='scan'")
@@ -238,8 +268,12 @@ class Estimator:
         # a rank runs on its mesh device
         self.device = mesh.device if mesh is not None else resolve_device(device)
         self.mesh = mesh
+        # the data axis the batch splits over (one rank without one)
+        self._data = mesh.axis(DATA_AXIS) if isinstance(mesh, Mesh) else mesh
         self.zero1 = zero1
         self.sharding_rules = sharding_rules
+        self._rules = sharding_rules or None  # non-empty rules: a sharded placement
+        self._plan = None  # the ShardingPlan of the placed parameters
         self._chief = mesh is None or mesh.rank == 0  # prints, logs, checkpoints
         self._zero1_specs = None  # {path: shard dim} of the full state, under zero1
         self.model = model
@@ -291,46 +325,56 @@ class Estimator:
         d = self.config.model_dir
         self._ckpt_sync()
         if d and ckpt_lib.latest_checkpoint(d):
-            state = ckpt_lib.restore(d, state)
+            state = ckpt_lib.restore(d, state)  # the global state
         if self.mesh is not None:
-            replicate_(state.params, self.mesh)
+            replicate_(state.params, self._data)
+        if self._rules:
+            state = shard_params(state, self.mesh, self._rules)
+            self._plan = ShardingPlan(self.mesh, {
+                name: placement(p) or (None,) * p.dim() for name, p in state.params.items()})
         if self.zero1:
-            self._zero1_specs = zero_lib.zero1_state_specs(state, self.mesh.world)
-            state = zero_lib.zero1_shard_state(state, self.mesh)
+            self._zero1_specs = zero_lib.zero1_state_specs(state, self._data.world, self._rules)
+            state = zero_lib.zero1_shard_state(state, self._data, self._rules)
         return state
 
     def _step_fn(self):
         if self._train_step is None:
             module, loss = self.module, self.model.loss
             loss_fn = lambda params, batch: loss(module, batch)  # noqa: E731
-            needs_rng, mesh, mode = self.model.needs_rng, self.mesh, self.mode
-            sparse = None
+            needs_rng, mesh, mode = self.model.needs_rng, self._data, self.mode
+            sparse = bound = None
             if self.sparse_embed:
                 hooks = self.model.sparse_embed
                 bound = hooks._replace(loss_with_rows=lambda params, rows, batch:
                                        hooks.loss_with_rows(module, rows, batch))
                 sparse = lambda cfg: accumulate_scan_sparse_embed(  # noqa: E731
                     bound, self.optimizer, cfg)
+                if mesh is not None and (self.zero1 is True or self.sharding_rules is not None):
+                    loss_fn = bound.loss_with_rows  # the GSPMD counterpart's sparse step
             if self.zero1 == "collective":
                 # local accumulation, one all-reduce per window, the sharded
                 # update, an all-gather of the updated parameters
                 step = zero_lib.make_zero1_train_step(loss_fn, self.optimizer, self.accum,
                                                       mesh, mode=mode, needs_rng=needs_rng)
             elif self.zero1:
-                step = zero_lib.make_zero1_placement_step(loss_fn, self.optimizer, self.accum,
-                                                          mesh, mode=mode, needs_rng=needs_rng)
+                step = zero_lib.make_zero1_placement_step(
+                    loss_fn, self.optimizer, self.accum, mesh, mode=mode,
+                    needs_rng=needs_rng, rules=self._rules, sparse=bound)
             elif mesh is not None and self.sharding_rules is None:
                 step = dp_lib.make_dp_train_step(loss_fn, self.optimizer, self.accum, mesh,
                                                  mode=mode, needs_rng=needs_rng,
                                                  inner_builder=sparse)
             elif mesh is not None:
                 step = dp_lib.make_pjit_dp_train_step(loss_fn, self.optimizer, self.accum,
-                                                      mesh, mode=mode, needs_rng=needs_rng)
+                                                      mesh, mode=mode, needs_rng=needs_rng,
+                                                      sparse=bound)
             elif sparse is not None:
                 step = sparse(self.accum)
             else:
                 build = acc.accumulate_scan if mode == "scan" else acc.streaming_step
                 step = build(loss_fn, self.optimizer, self.accum, needs_rng=needs_rng)
+            if self._plan is not None:
+                step = _under_plan(step, self._plan)
             self._train_step = step
         return self._train_step
 
@@ -353,8 +397,7 @@ class Estimator:
         takes part in gathering it), through the async writer when
         configured."""
         cfg = self.config
-        if self.zero1:
-            state = zero_lib.zero1_gather_state(state, self.mesh, self._zero1_specs)
+        state = self._global_state(state)
         if not self._chief:
             return
         if cfg.async_checkpoint:
@@ -363,6 +406,15 @@ class Estimator:
             self._res.async_ckpt.save(cfg.model_dir, state, state.step, cfg.keep_checkpoint_max)
         else:
             ckpt_lib.save(cfg.model_dir, state, state.step, keep=cfg.keep_checkpoint_max)
+
+    def _global_state(self, state):
+        """The whole state from this rank's blocks (a collective under
+        ZeRO-1 or sharding rules: every rank calls it, on the main thread)."""
+        if self.zero1:
+            state = zero_lib.zero1_gather_state(state, self._data, self._zero1_specs)
+        if self._rules:
+            state = gather_params(state, self.mesh, self._rules)
+        return state
 
     def _ckpt_sync(self):
         """Wait for any in-flight async write (before reading the newest
@@ -664,8 +716,14 @@ class Estimator:
 
     def _inference_module(self):
         if self._infer_module is None:
-            self._infer_module = self.model.init(self.config.seed, self.device)
+            self._infer_module = self._placed(self.model.init(self.config.seed, self.device))
         return self._infer_module
+
+    def _placed(self, module):
+        """``module`` cut to this rank's blocks under the sharding rules."""
+        if self._rules:
+            shard_params(named_parameters(module), self.mesh, self._rules)
+        return module
 
     def _module_for_inference(self, state, checkpoint_path):
         """``(module, step)`` for evaluate and predict, as JAX picks the
@@ -677,6 +735,10 @@ class Estimator:
             return self._module_with(state.params), state.step
         d = self.config.model_dir
         if checkpoint_path or (d and ckpt_lib.latest_checkpoint(d)):
+            if self._rules:  # the checkpoint is global: restore whole, then cut
+                module = self.model.init(self.config.seed, self.device)
+                step = ckpt_lib.restore_params(checkpoint_path or d, named_parameters(module))
+                return self._placed(module), step
             module = self._inference_module()
             step = ckpt_lib.restore_params(checkpoint_path or d, named_parameters(module))
             return module, step
@@ -720,7 +782,7 @@ class Estimator:
         world divides the batch, each rank evaluates its rows and the
         partials are summed over the ranks in one all-reduce; otherwise the
         whole batch runs on every rank (JAX's ``_mesh_dispatch``)."""
-        mesh = self.mesh
+        mesh = self._data
         rows = {x.shape[0] for x in batch.values() if x.dim() >= 1}
         split = mesh is not None and mesh.world > 1 and len(rows) == 1 \
             and next(iter(rows)) % mesh.world == 0
@@ -759,18 +821,47 @@ class Estimator:
         ``torch.export`` serving artifact (tf.estimator's
         ``export_savedmodel`` slot), with the same weight resolution as
         evaluate and predict. Load it back, without the model code, with
-        ``estimator/export.py :: load_exported``."""
+        ``estimator/export.py :: load_exported``. Under sharding rules every
+        rank calls it (the parameters are gathered) and rank 0 alone traces
+        the unsharded model and writes; the others return None."""
+        module, _ = self._module_for_inference(state, checkpoint_path)
+        return self._export(self._whole_module(module), export_dir, sample_batch,
+                            batch_polymorphic)
+
+    def _whole_module(self, module):
+        """``module``, or under sharding rules a fresh unsharded module
+        holding its gathered parameters (a collective), None off rank 0."""
+        if not self._rules:
+            return module
+        params = gather_params(named_parameters(module), self.mesh, self._rules)
+        if not self._chief:
+            return None
+        whole = self.model.init(self.config.seed, self.device)
+        with torch.no_grad():
+            for name, t in named_parameters(whole).items():
+                t.copy_(params[name])
+        return whole
+
+    def _export(self, module, export_dir, sample_batch, batch_polymorphic=True):
         from gradaccum_tpu_torch.estimator.export import export_predict
 
-        module, _ = self._module_for_inference(state, checkpoint_path)
+        if module is None:
+            return None
         return export_predict(self.model.predict, module, sample_batch, export_dir,
                               batch_polymorphic=batch_polymorphic)
 
     def _maybe_export_best(self, eval_spec: EvalSpec, results, state):
         """tf.estimator.BestExporter: export the serving artifact when
         ``eval_spec.best_metric`` improves; ``best_metric.json`` keeps the
-        high-water mark (so a resume does not regress it). Rank 0 only."""
-        if eval_spec.export_best_dir is None or not self._chief:
+        high-water mark (so a resume does not regress it). Rank 0 decides
+        and writes; under sharding rules every rank first takes part in
+        gathering the parameters."""
+        if eval_spec.export_best_dir is None:
+            return
+        whole = None
+        if self._rules:
+            whole = self._whole_module(self._module_with(state.params))
+        if not self._chief:
             return
         if eval_spec.best_mode not in ("max", "min"):
             raise ValueError(f"best_mode must be 'max' or 'min', got {eval_spec.best_mode!r}")
@@ -795,7 +886,10 @@ class Estimator:
             if stripped:
                 print(f"[best] export signature from first eval batch, label key(s) "
                       f"{stripped} stripped; set EvalSpec.export_sample to control it")
-        self.export_model(eval_spec.export_best_dir, sample, state=state)
+        if whole is not None:
+            self._export(whole, eval_spec.export_best_dir, sample)
+        else:
+            self.export_model(eval_spec.export_best_dir, sample, state=state)
         with open(marker, "w") as f:
             json.dump({"metric": metric, "value": value, "step": int(state.step)}, f)
         print(f"[best] exported {metric}={value:.5f} to {eval_spec.export_best_dir}")

@@ -35,7 +35,16 @@ explicit DP step: one all-reduce per update in scan mode. ``--zero1`` (needs
 ``--dp >= 2``) shards the Adam moments over the ranks (``zero1=True``, the
 placement path). JAX's ``--flash --dp`` refusal comes from the CPU's missing
 compiled kernel; the port's CPU route is the kernels' plain version, so it
-runs. Not ported: ``--tp/--ep/--sp/--sp-core/--pp`` (ROADMAP.md).
+runs.
+
+``--tp N`` and ``--ep N`` add the ``model`` and ``expert`` axes (a
+data x model [x expert] mesh of ``--dp x --tp x --ep`` ranks, the
+launcher's) with JAX's rules: ``bert_tp_rules`` for ``--tp``,
+``moe_ep_rules`` for ``--ep`` (data x expert), ``bert_tp_ep_rules`` for
+both. Each rank attends its own heads through the flash kernels: JAX
+refuses ``--flash --tp`` because GSPMD cannot partition a Pallas call, and
+the port issues the collectives itself. Not ported: ``--sp/--sp-core/--pp``
+(ROADMAP.md).
 
 ``--export-dir DIR`` writes the trained predict function and weights as a
 ``torch.export`` serving artifact after training (its flash forward is the
@@ -46,6 +55,8 @@ that improves the accuracy (BestExporter, ``best_metric.json`` beside it).
 
     python -m gradaccum_tpu_torch.examples.bert_finetune --device cpu --dp 2 \
         --max-steps 8 --seq-len 32 --accum-k 2
+    python -m gradaccum_tpu_torch.examples.bert_finetune --device cpu --tp 2 --ep 2 \
+        --num-experts 4 --max-steps 8 --seq-len 32 --accum-k 2
 """
 
 from __future__ import annotations
@@ -169,9 +180,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "the reference's tf.cond train op with its first-step quirk)")
     p.add_argument("--dp", type=int, default=1,
                    help="data-parallel ranks (the reference's worker count, 03:76)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel width: shard QKV/FFN kernels and the vocab "
+                        "embedding over a 'model' axis (bert_tp_rules)")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel width: shard the MoE expert bank over an "
+                        "'expert' axis (moe_ep_rules; requires --num-experts)")
     p.add_argument("--zero1", action="store_true",
                    help="ZeRO-1: shard the Adam moments over the data ranks "
-                        "(optimizer memory per rank / dp; needs --dp >= 2)")
+                        "(optimizer memory per rank / dp; needs --dp >= 2, composes "
+                        "with --tp/--ep)")
     p.add_argument("--export-dir", default=None,
                    help="after training, write predict + weights to this dir as a "
                         "torch.export serving artifact (estimator/export.py)")
@@ -201,8 +219,10 @@ def parse_args(argv=None):
     if args.hf_checkpoint and args.vocab_size:
         parser.error("--vocab-size cannot combine with --hf-checkpoint (the checkpoint "
                      "fixes the vocab size)")
-    if args.dp < 1:
+    if min(args.dp, args.tp, args.ep) < 1:
         parser.error("--dp/--tp/--ep/--sp/--pp must be >= 1")
+    if args.ep > 1 and (args.num_experts == 0 or args.num_experts % args.ep):
+        parser.error("--ep requires --num-experts divisible by it")
     if args.moe_top_k < 1 or (args.num_experts and args.moe_top_k > args.num_experts):
         parser.error("--moe-top-k must be in [1, --num-experts]")
     if args.moe_top_k > 1 and args.num_experts == 0:
@@ -212,9 +232,27 @@ def parse_args(argv=None):
     if args.sparse_embed_grad and args.mode != "scan":
         parser.error("--sparse-embed-grad requires --mode scan")
     avail = available_devices(args.device)
-    if args.dp > 1 and avail is not None and args.dp > avail:
-        parser.error(f"mesh needs {args.dp} devices, have {avail}")
+    n_mesh = args.dp * args.tp * args.ep
+    if n_mesh > 1 and avail is not None and n_mesh > avail:
+        parser.error(f"mesh needs {n_mesh} devices, have {avail}")
     return args
+
+
+def mesh_axes(args):
+    """``(axes, rules)`` of the run's mesh, as JAX's example picks them:
+    data x model x expert with ``bert_tp_ep_rules``, data x model with
+    ``bert_tp_rules``, data x expert with ``moe_ep_rules``; None and None
+    for the data-parallel (or single-rank) run."""
+    from gradaccum_tpu_torch.models.moe import moe_ep_rules
+    from gradaccum_tpu_torch.parallel.tp import bert_tp_ep_rules, bert_tp_rules
+
+    if args.tp > 1 and args.ep > 1:
+        return [("data", args.dp), ("model", args.tp), ("expert", args.ep)], bert_tp_ep_rules()
+    if args.tp > 1:
+        return [("data", args.dp), ("model", args.tp)], bert_tp_rules()
+    if args.ep > 1:
+        return [("data", args.dp), ("expert", args.ep)], moe_ep_rules()
+    return None, None
 
 
 def _load_data(args, t):
@@ -241,7 +279,8 @@ def setup(args, mesh=None):
     ``(estimator, train_fn, eval_fn, config, run)``, ``run`` holding the
     step counts, the corpus size and the model directory. Raises without a
     card unless ``--device cpu``. ``mesh``: this rank's ``DataMesh`` (a
-    world of ``--dp`` ranks), or None on one device."""
+    world of ``--dp`` ranks) or multi-axis ``Mesh`` (:func:`mesh_axes`),
+    or None on one device."""
     import dataclasses
 
     import torch
@@ -261,7 +300,7 @@ def setup(args, mesh=None):
     error = build_parser().error
     # no card and no --device cpu: raise; a rank runs on its mesh device
     device = mesh.device if mesh is not None else resolve_device(args.device)
-    dp = mesh.world if mesh is not None else 1
+    dp = mesh.shape.get("data", 1) if mesh is not None else 1
     t = TASKS[args.task]
     model_dir = prepare_model_dir(args, mesh)
     train_texts, train_labels, eval_texts, eval_labels = _load_data(args, t)
@@ -343,9 +382,12 @@ def setup(args, mesh=None):
         sparse_embed=args.sparse_embed_grad,
         mesh=mesh,
         zero1=args.zero1,
+        sharding_rules=mesh_axes(args)[1],
     )
     if mesh is not None and mesh.rank == 0:
-        print(f"[mesh] {mesh.shape}")
+        kind = {(True, True): "tp+ep", (True, False): "tp", (False, True): "ep"}.get(
+            (args.tp > 1, args.ep > 1))
+        print(f"[mesh] {mesh.shape}" + (f" rules={kind}" if kind else ""))
     # the per-rank micro-batch x the data-parallel width (each worker sees
     # its own micro rows) x K in scan mode
     host_batch = micro * dp * (k if args.mode == "scan" else 1)
@@ -370,10 +412,11 @@ def setup(args, mesh=None):
 def main(argv=None) -> dict:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
-    if args.dp > 1 and not in_rank():
-        return spawn_ranks("gradaccum_tpu_torch.examples.bert_finetune", argv, args.dp,
+    world = args.dp * args.tp * args.ep
+    if world > 1 and not in_rank():
+        return spawn_ranks("gradaccum_tpu_torch.examples.bert_finetune", argv, world,
                            args.device)
-    with rank_mesh(args.dp, args.device, want_mesh=False) as mesh:
+    with rank_mesh(world, args.device, want_mesh=False, axes=mesh_axes(args)[0]) as mesh:
         return _main(args, mesh)
 
 
@@ -403,7 +446,8 @@ def _main(args, mesh) -> dict:
         "vocab_size": cfg.vocab_size, "warm_start": args.hf_checkpoint,
         "remat": cfg.remat, "sparse_embed_grad": args.sparse_embed_grad,
         "num_experts": cfg.num_experts, "moe_top_k": cfg.moe_top_k,
-        "dp": est.mesh.world if est.mesh is not None else 1, "zero1": args.zero1,
+        "dp": est.mesh.shape.get("data", 1) if est.mesh is not None else 1,
+        "tp": args.tp, "ep": args.ep, "zero1": args.zero1,
         "steps": state.step, "updates": state.step // k,
         "timed_host_steps": est.train_stats["host_steps"],
         "first_loss": float(est.first_loss), "loss": float(est.last_loss),
@@ -430,9 +474,11 @@ def _main(args, mesh) -> dict:
         if run["model_dir"] and (mesh is None or mesh.rank == 0):
             with open(Path(run["model_dir"]) / "preset.json", "w") as f:
                 json.dump(out["preset"], f, indent=2)
-    if args.export_dir and (mesh is None or mesh.rank == 0):
+    if args.export_dir and (mesh is None or mesh.rank == 0 or est.sharding_rules):
+        # under sharding rules every rank gathers, rank 0 writes
         out["export"] = est.export_model(args.export_dir, run["export_sample"], state=state)
-        print(f"exported serving artifact: {out['export']}")
+        if out["export"] is not None:
+            print(f"exported serving artifact: {out['export']}")
     if mesh is None or mesh.rank == 0:
         print(json.dumps(out))
     return out

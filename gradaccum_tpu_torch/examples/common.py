@@ -107,8 +107,10 @@ def available_devices(device: str) -> Optional[int]:
 
 
 @contextlib.contextmanager
-def rank_mesh(world: int, device: str, want_mesh: bool):
-    """The ``DataMesh`` this process trains on, or None.
+def rank_mesh(world: int, device: str, want_mesh: bool, axes=None):
+    """The ``DataMesh`` this process trains on, or None; with ``axes``
+    (``[(name, size)]``, e.g. data x model x expert) the multi-axis
+    ``Mesh`` of ``parallel/mesh.py :: make_mesh`` over them.
 
     Under ``torchrun`` or :func:`spawn_ranks` (``RANK``/``WORLD_SIZE`` set)
     it joins that group, whose size must be ``world``. Otherwise, with
@@ -125,7 +127,7 @@ def rank_mesh(world: int, device: str, want_mesh: bool):
         yield None
         return
     try:
-        mesh = mesh_lib.data_parallel_mesh()
+        mesh = mesh_lib.make_mesh(axes) if axes else mesh_lib.data_parallel_mesh()
         if mesh.world != world:
             raise ValueError(f"the launched group has {mesh.world} ranks, the run "
                              f"asks for {world}")

@@ -27,8 +27,16 @@ mode); ``--zero1`` (needs ``--dp >= 2``) shards the Adam moments over them.
 ``--flash --dp`` runs (JAX refuses it only on the CPU, for its compiled
 kernel; the port's CPU route is the plain version). ``--export-dir DIR``
 writes the trained predict function and weights as a ``torch.export``
-serving artifact, traced from one eval window. Not ported: ``--tp``
-(ROADMAP.md).
+serving artifact, traced from one eval window.
+
+``--tp N`` adds a ``model`` axis (a data x model mesh of ``--dp x --tp``
+ranks) with ``gpt_tp_rules``: each rank runs its own heads and FFN slice,
+and the tied head's logits are gathered from the vocab-sharded table.
+``--flash --tp`` runs the kernels on each rank's heads (JAX refuses it
+because GSPMD cannot partition a Pallas call; the port issues the
+collectives itself).
+
+    python -m gradaccum_tpu_torch.examples.gpt_lm --device cpu --tp 2 --flash --max-steps 8
 """
 
 from __future__ import annotations
@@ -77,6 +85,9 @@ def build_parser():
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--text-file", default=None, help="real corpus (else synthetic)")
     p.add_argument("--dp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel width (gpt_tp_rules: BERT's rules, the same "
+                        "parameter names)")
     p.add_argument("--zero1", action="store_true")
     p.add_argument("--flash", action="store_true",
                    help="the causal flash kernels (the triangle cut inside them, "
@@ -102,22 +113,25 @@ def parse_args(argv=None):
     """Parse ``argv`` and refuse what JAX's example refuses."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.dp < 1:
+    if min(args.dp, args.tp) < 1:
         parser.error("--dp/--tp must be >= 1")
     if args.zero1 and args.dp < 2:
         parser.error("--zero1 needs --dp >= 2 (moments shard over 'data')")
     avail = available_devices(args.device)
-    if args.dp > 1 and avail is not None and args.dp > avail:
-        parser.error(f"mesh needs {args.dp} devices, have {avail}")
+    n_mesh = args.dp * args.tp
+    if n_mesh > 1 and avail is not None and n_mesh > avail:
+        parser.error(f"mesh needs {n_mesh} devices, have {avail}")
     return args
 
 
 def main(argv=None) -> dict:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
-    if args.dp > 1 and not in_rank():
-        return spawn_ranks("gradaccum_tpu_torch.examples.gpt_lm", argv, args.dp, args.device)
-    with rank_mesh(args.dp, args.device, want_mesh=False) as mesh:
+    world = args.dp * args.tp
+    if world > 1 and not in_rank():
+        return spawn_ranks("gradaccum_tpu_torch.examples.gpt_lm", argv, world, args.device)
+    axes = [("data", args.dp), ("model", args.tp)] if args.tp > 1 else None
+    with rank_mesh(world, args.device, want_mesh=False, axes=axes) as mesh:
         return _main(args, mesh)
 
 
@@ -132,6 +146,7 @@ def _main(args, mesh) -> dict:
     from gradaccum_tpu_torch.ops.adamw import adamw
     from gradaccum_tpu_torch.ops.flash_attention import causal_flash_attention
     from gradaccum_tpu_torch.ops.schedule import warmup_polynomial_decay
+    from gradaccum_tpu_torch.parallel.tp import gpt_tp_rules
     from gradaccum_tpu_torch.utils.platform import resolve_device, synchronize
 
     # no card and no --device cpu: raise; a rank runs on its mesh device
@@ -167,10 +182,11 @@ def _main(args, mesh) -> dict:
         device=device,
         mesh=mesh,
         zero1=args.zero1,
+        sharding_rules=gpt_tp_rules() if args.tp > 1 else None,
     )
     if mesh is not None and chief:
         print(f"[mesh] {mesh.shape}")
-    dp = mesh.world if mesh is not None else 1
+    dp = mesh.shape.get("data", 1) if mesh is not None else 1
     host_batch = args.batch * dp * (args.accum_k if args.mode == "scan" else 1)
     evaluations = []  # one entry per evaluation: each opens the eval input once
 
@@ -189,7 +205,8 @@ def _main(args, mesh) -> dict:
     if chief:
         print(f"gpt_lm: next-token accuracy {results['token_accuracy']:.4f}")
     out = dict(run_summary(est, state), flash=args.flash, seq_len=s,
-               micro_batch=args.batch, accum_k=args.accum_k, dp=dp, zero1=args.zero1,
+               micro_batch=args.batch, accum_k=args.accum_k, dp=dp, tp=args.tp,
+               zero1=args.zero1,
                token_accuracy=results["token_accuracy"],
                eval_batches=results["_num_batches"], evaluations=len(evaluations),
                sample_steps=args.sample)
@@ -206,10 +223,12 @@ def _main(args, mesh) -> dict:
             print(f"decode: {args.sample / dt:.1f} tokens/sec (recompute: the whole "
                   f"prefix per token, prompt {len(prompt)} + {args.sample} steps)")
         out.update(sample=sample, decode_tokens_per_sec=args.sample / dt)
-    if args.export_dir and chief:
+    if args.export_dir and (chief or args.tp > 1):
+        # under --tp every rank gathers the parameters, rank 0 writes
         out["export"] = est.export_model(args.export_dir, {"input_ids": evald[:1]},
                                          state=state)
-        print(f"exported serving artifact: {out['export']}")
+        if out["export"] is not None:
+            print(f"exported serving artifact: {out['export']}")
     if chief:
         print(json.dumps(out))
     return out

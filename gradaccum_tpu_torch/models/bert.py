@@ -26,6 +26,23 @@ sparse-embedding hooks (``word_rows``: the loss with the gathered word rows
 as an argument, for ``ops/sparse_embed.py``). Not ported yet (ROADMAP.md):
 ``seq_axis`` (sequence parallelism); asking for it raises
 ``NotImplementedError``.
+
+**Tensor and expert parallelism.** A model whose parameters
+``parallel/sharding.py :: shard_params`` cut by rules (``parallel/tp.py``:
+``bert_tp_rules``, ``bert_tp_ep_rules``; ``models/moe.py ::
+moe_ep_rules``) runs on its blocks and issues the collectives GSPMD would
+insert, read from each weight's placement: a column-parallel layer (QKV,
+intermediate) takes its input through ``copy_to``, a row-parallel one
+(attention output, FFN output) sums its output with ``reduce_from`` and
+adds its replicated bias once after the sum, a vocab-sharded word table
+looks up with ``vocab_parallel_embed``, and the expert bank runs its own
+experts (``moe_apply(ep=...)``). Each rank attends its own ``num_heads/tp``
+heads through the same attention core: the flash kernels take the heads'
+place in the whole attention (``head_offset``, ``heads_total``), so their
+dropout draws the tp=1 keep mask's slice, and the dense core draws the
+whole [B, heads, S, S] mask and keeps its heads. Hidden dropout acts on
+replicated activations, and every rank of a model group draws it from the
+same generator state, so the replicas stay equal.
 """
 
 from __future__ import annotations
@@ -41,8 +58,10 @@ from torch.utils.checkpoint import checkpoint
 from gradaccum_tpu_torch.estimator.estimator import ModelBundle
 from gradaccum_tpu_torch.estimator.metrics import accuracy
 from gradaccum_tpu_torch.models.init import init_weights, store_in
-from gradaccum_tpu_torch.models.moe import moe_apply, moe_init
+from gradaccum_tpu_torch.models.moe import ExpertShards, moe_apply, moe_init
 from gradaccum_tpu_torch.ops.sparse_embed import SparseEmbedHooks
+from gradaccum_tpu_torch.parallel import tp
+from gradaccum_tpu_torch.parallel.mesh import axis_mesh, current_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,9 +119,22 @@ def dropout(x, rate: float, generator: torch.Generator):
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def head_dropout(p, rate: float, generator: torch.Generator, first: int, total: int):
+    """:func:`dropout` of the probabilities ``p`` [B, heads, S, S] of heads
+    ``[first, first + heads)`` of a ``total``-head attention: the whole
+    attention's mask is drawn and these heads' slice kept, so the ranks of
+    a model group draw alike and together drop what one device would."""
+    b, h, q, k = p.shape
+    keep_prob = 1.0 - rate
+    keep = torch.rand((b, total, q, k), generator=generator,
+                      device=p.device)[:, first:first + h] < keep_prob
+    return torch.where(keep, p / keep_prob, torch.zeros((), dtype=p.dtype, device=p.device))
+
+
 class Dense(nn.Linear):
     """flax ``nn.Dense(dtype=...)``: float32 parameters, the product in the
-    compute dtype."""
+    compute dtype. A column-parallel Dense (its output features split, the
+    input already through ``copy_to``) runs as is on its block."""
 
     def __init__(self, in_features: int, out_features: int, dtype):
         super().__init__(in_features, out_features)
@@ -111,6 +143,25 @@ class Dense(nn.Linear):
     def forward(self, x):
         dt = self.compute_dtype
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+    def row_parallel(self, x):
+        """The layer on ``x`` whose features this rank holds a slice of,
+        when its weight's input features are split: the partial products
+        summed over the axis (``reduce_from``), then the replicated bias,
+        added once. An unsplit Dense is :meth:`forward`."""
+        axis = tp.axis_of(self.weight, 1)
+        if axis is None:
+            return self(x)
+        dt = self.compute_dtype
+        y = tp.reduce_from(F.linear(x.to(dt), self.weight.to(dt)), axis_mesh(axis))
+        return y + self.bias.to(dt)
+
+
+def column_input(x, dense: Dense):
+    """``x`` entering the column-parallel ``dense`` (its output features
+    split over an axis) through ``copy_to``; unchanged otherwise."""
+    axis = tp.axis_of(dense.weight, 0)
+    return x if axis is None else tp.copy_to(x, axis_mesh(axis))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -135,6 +186,10 @@ class Embed(nn.Embedding):
         self.compute_dtype = dtype
 
     def forward(self, ids):
+        axis = tp.axis_of(self.weight, 0)
+        if axis is not None:  # vocab-sharded: this rank holds a block of rows
+            return tp.vocab_parallel_embed(ids, self.weight, axis_mesh(axis)).to(
+                self.compute_dtype)
         return super().forward(ids.long()).to(self.compute_dtype)
 
 
@@ -151,22 +206,34 @@ class SelfAttention(nn.Module):
         cfg = self.config
         b, s, _ = x.shape
         head_dim = cfg.hidden_size // cfg.num_heads
+        # under tensor parallelism this rank's heads are a block of them
+        heads = self.query.weight.shape[0] // head_dim
+        axis = tp.axis_of(self.query.weight, 0)
+        first = 0 if axis is None else axis_mesh(axis).rank * heads
+        x = column_input(x, self.query)
 
         def split_heads(t):
-            return t.reshape(b, s, cfg.num_heads, head_dim).transpose(1, 2).contiguous()
+            return t.reshape(b, s, heads, head_dim).transpose(1, 2).contiguous()
 
         q, k, v = (split_heads(layer(x)) for layer in (self.query, self.key, self.value))
         dropout_fn, extra = None, {}
-        if cfg.attention_dropout > 0 and not deterministic:
+        rate = cfg.attention_dropout
+        if rate > 0 and not deterministic:
             if getattr(self.attention_fn, "inkernel_dropout", False):
                 # the flash kernels never materialize the probabilities a
-                # dropout_fn would act on: they take a rate and a seed
-                extra = dict(dropout_rate=cfg.attention_dropout, generator=generator)
+                # dropout_fn would act on: they take a rate and a seed, and
+                # key the mask on these heads' place in the whole attention
+                extra = dict(dropout_rate=rate, generator=generator)
+                if axis is not None:
+                    extra.update(head_offset=first, heads_total=cfg.num_heads)
+            elif axis is None:
+                dropout_fn = lambda p: dropout(p, rate, generator)  # noqa: E731
             else:
-                dropout_fn = lambda p: dropout(p, cfg.attention_dropout, generator)  # noqa: E731
+                dropout_fn = lambda p: head_dropout(  # noqa: E731
+                    p, rate, generator, first, cfg.num_heads)
         ctx = self.attention_fn(q, k, v, mask, dropout_fn, **extra)
-        ctx = ctx.transpose(1, 2).reshape(b, s, cfg.hidden_size)
-        return self.output(ctx)
+        ctx = ctx.transpose(1, 2).reshape(b, s, heads * head_dim)
+        return self.output.row_parallel(ctx)
 
 
 class MoEFFN(nn.Module):
@@ -195,10 +262,22 @@ class MoEFFN(nn.Module):
         for name, t in drawn.items():
             getattr(self, name).copy_(t)
 
+    def shards(self):
+        """The :class:`~.moe.ExpertShards` of this bank's placement, or
+        None when it is whole on this rank."""
+        e_axis, m_axis = tp.axis_of(self.w_in, 0), tp.axis_of(self.w_in, 2)
+        if e_axis is None and m_axis is None:
+            return None
+        first = 0 if e_axis is None else axis_mesh(e_axis).rank * self.w_in.shape[0]
+        axes = tuple(a for a in (e_axis, m_axis) if a is not None)
+        group = axis_mesh(axes[0]) if len(axes) == 1 else current_mesh().over(axes)
+        return ExpertShards(first, group, None if m_axis is None else axis_mesh(m_axis))
+
     def forward(self, x):
         cfg = self.config
         params = {name: p.to(cfg.dtype) for name, p in self.named_parameters()}
-        y, aux = moe_apply(params, x, cfg.moe_capacity_factor, cfg.moe_top_k)
+        y, aux = moe_apply(params, x, cfg.moe_capacity_factor, cfg.moe_top_k,
+                           ep=self.shards())
         self.last_aux = {key: v.detach() for key, v in aux.items()}
         return y, aux["load_balance_loss"]
 
@@ -232,8 +311,9 @@ class EncoderLayer(nn.Module):
         load_balance = None
         if self.config.num_experts > 0:
             ffn, load_balance = self.moe(x)
-        else:
-            ffn = self.ffn_output(F.gelu(self.intermediate(x)))  # exact erf GELU
+        else:  # exact erf GELU
+            ffn = self.ffn_output.row_parallel(
+                F.gelu(self.intermediate(column_input(x, self.intermediate))))
         ffn = self._drop(ffn, deterministic, generator)
         return self.output_LayerNorm(x + ffn), load_balance
 

@@ -24,6 +24,11 @@ optimizer). The head and the loss stay float32. A sequence longer than
 :func:`greedy_generate` re-runs the whole prefix for each new token. The
 KV-cache decode of JAX's ``models/gpt_decode.py`` belongs to the serving
 stack and is not ported yet (ROADMAP.md).
+
+Under ``gpt_tp_rules`` (``parallel/tp.py``) the blocks run as BERT's do
+(``models/bert.py``), and the tied head reads the vocab-sharded table:
+each rank's vocab slice of the logits, all-gathered whole with
+``gather_slices`` (a vocab-parallel cross entropy would skip the gather).
 """
 
 from __future__ import annotations
@@ -44,10 +49,13 @@ from gradaccum_tpu_torch.models.bert import (
     LayerNorm,
     SelfAttention,
     _remat,
+    column_input,
     dense_attention,
     dropout,
 )
 from gradaccum_tpu_torch.models.init import init_weights, store_in
+from gradaccum_tpu_torch.parallel import tp
+from gradaccum_tpu_torch.parallel.mesh import axis_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,8 +111,9 @@ class DecoderBlock(nn.Module):
     def forward(self, x, mask, deterministic: bool, generator=None):
         h = self.attention(self.attention_LayerNorm(x), mask, deterministic, generator)
         x = x + self._drop(h, deterministic, generator)
-        h = F.gelu(self.intermediate(self.mlp_LayerNorm(x)), approximate="tanh")
-        return x + self._drop(self.ffn_output(h), deterministic, generator)
+        h = column_input(self.mlp_LayerNorm(x), self.intermediate)
+        h = F.gelu(self.intermediate(h), approximate="tanh")
+        return x + self._drop(self.ffn_output.row_parallel(h), deterministic, generator)
 
 
 class GPTLM(nn.Module):
@@ -146,8 +155,16 @@ class GPTLM(nn.Module):
             else:
                 x = layer(x, mask, deterministic, generator)
         x = self.final_LayerNorm(x)
-        # the weight-tied head, in float32
-        return torch.einsum("bsd,vd->bsv", x.float(), self.word_embeddings.weight.float())
+        # the weight-tied head, in float32; a vocab-sharded table gives this
+        # rank's vocab slice of the logits, gathered whole (the loss after
+        # it is replicated, so the gather's backward keeps the slice)
+        table = self.word_embeddings.weight
+        axis = tp.axis_of(table, 0)
+        if axis is None:
+            return torch.einsum("bsd,vd->bsv", x.float(), table.float())
+        mesh = axis_mesh(axis)
+        part = torch.einsum("bsd,vd->bsv", tp.copy_to(x, mesh).float(), table.float())
+        return tp.gather_slices(part, mesh, dim=-1)
 
 
 def next_token_loss(logits, input_ids, loss_mask=None):

@@ -86,13 +86,13 @@ import torch
 import torch.nn.functional as F
 
 from gradaccum_tpu_torch.ops.adamw import Optimizer
-from gradaccum_tpu_torch.ops.clipping import clip_by_global_norm
+from gradaccum_tpu_torch.parallel import tp as tp_lib
+from gradaccum_tpu_torch.ops.clipping import clip_by_global_norm, grad_norm
 from gradaccum_tpu_torch.ops.loss_scale import (
     LossScaleConfig,
     init_loss_scale,
     update_loss_scale,
 )
-from gradaccum_tpu_torch.utils.tree import global_norm
 
 
 class GradAccumConfig(NamedTuple):
@@ -217,9 +217,11 @@ def _grad_call(loss_fn: LossFn, params, micro_batch, scale, wrt=None):
 
 
 def _all_finite(check_loss, grads) -> torch.Tensor:
-    """0-d bool on the card: the loss and every gradient are finite."""
-    return torch.stack([torch.isfinite(check_loss)]
-                       + [torch.isfinite(g).all() for g in grads]).all()
+    """0-d bool on the card: the loss and every gradient are finite. Under
+    a sharding plan the verdict is pmin'd over the ranks that hold the
+    gradients' other blocks, so no rank skips what another applies."""
+    return tp_lib.all_finite(torch.stack([torch.isfinite(check_loss)]
+                                         + [torch.isfinite(g).all() for g in grads]).all())
 
 
 def _zero_if_bad(grads, good):
@@ -256,7 +258,7 @@ def _finalize(accum, config: GradAccumConfig, denom):
     grads = {name: g / denom for name, g in accum.items()}
     if config.clip_norm is not None:
         return clip_by_global_norm(grads, config.clip_norm)
-    return grads, global_norm(grads.values())
+    return grads, grad_norm(grads)
 
 
 def _scale_of(state, config: GradAccumConfig, init_fn: str):
@@ -342,7 +344,11 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
     table's dense gradient after the loop. With ``micro_mean`` (a
     ``DataMesh``; ``parallel/dp.py :: make_pjit_dp_train_step``) every
     micro-batch's loss and gradients are averaged over its ranks before the
-    guard and the accumulator see them."""
+    guard and the accumulator see them; the row cotangents stay this
+    rank's (its rows), scaled by 1/N, and the table's gradient is summed
+    over the ranks once after the scatter. A vocab-sharded table (tensor
+    parallelism) gathers its rows across the model ranks and each rank
+    scatters only the rows of its own vocabulary range."""
     k = config.num_micro_batches
     skip = config.skip_nonfinite
     fused = config.fused_adam
@@ -351,10 +357,6 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
             raise ValueError("fused_adam and sparse_embed both replace the "
                              "accumulator; pick one")
         _require_fused_hooks(optimizer)
-    if sparse is not None and micro_mean is not None:
-        raise NotImplementedError("sparse_embed on the per-micro-batch mean path "
-                                  "(zero1=True or sharding_rules=()) is not ported yet; "
-                                  "it runs on the explicit DP path (axis_name)")
 
     def train_step(state: ScanState, super_batch: Dict[str, Any],
                    generator: Optional[torch.Generator] = None):
@@ -370,9 +372,15 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
         mesh = _axis_mesh(config)
         params = state.params
         dense = params
+        vocab_mesh = None
         if sparse is not None:
             table = params[sparse.table_path]
             dense = {name: p for name, p in params.items() if name != sparse.table_path}
+            vocab_axis = tp_lib.axis_of(table, 0)
+            if vocab_axis is not None:
+                from gradaccum_tpu_torch.parallel.mesh import axis_mesh
+
+                vocab_mesh = axis_mesh(vocab_axis)
         device = _device(params)
         if fused:
             # the moments carry the window: no accumulator
@@ -400,17 +408,29 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
             else:
                 # the gather stays outside autograd: the table takes no
                 # cotangent, the rows do
-                rows = F.embedding(micro[sparse.ids_key].long(), table.detach()).requires_grad_()
+                ids = micro[sparse.ids_key]
+                if vocab_mesh is None:
+                    rows = F.embedding(ids.long(), table.detach())
+                else:
+                    rows = tp_lib.vocab_parallel_embed(ids, table.detach(), vocab_mesh)
+                rows = rows.requires_grad_()
                 loss, check_loss, grads = _grad_call(
                     lambda p, b, r=rows: loss_fn(p, r, b), params, micro, scale,
                     wrt=list(dense.values()) + [rows])
             with torch.no_grad():
-                if micro_mean is not None:
+                if micro_mean is not None and sparse is not None:
+                    # this rank's rows: their share of the global mean
+                    loss, check_loss, dense_g = _global_mean(micro_mean, loss, check_loss,
+                                                             grads[:-1])
+                    grads = dense_g + (grads[-1] / micro_mean.world,)
+                elif micro_mean is not None:
                     loss, check_loss, grads = _global_mean(micro_mean, loss, check_loss, grads)
                 good = None
                 if skip:
                     # the verdict covers the row cotangents too
                     good = _all_finite(check_loss, grads)
+                    if micro_mean is not None and sparse is not None:
+                        good = micro_mean.pmin_flag(good, tag="guard")
                     grads = _zero_if_bad(grads, good)
                     loss = torch.where(good, loss, torch.zeros_like(loss))  # out of the mean
                 if sparse is not None:
@@ -435,12 +455,18 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
                 ids = super_batch[sparse.ids_key].reshape(-1).long()
                 ct = torch.cat([g.reshape(-1, g.shape[-1]) for g in rows_ct]).to(table.dtype)
                 if in_window:
-                    accum[sparse.table_path].index_add_(0, ids, ct)
+                    table_grad = accum[sparse.table_path]
                 else:
-                    table_grad = torch.zeros_like(table).index_add_(0, ids, ct)
+                    table_grad = torch.zeros_like(table)
                     buffers.append(table_grad)
                     accum = {name: table_grad if name == sparse.table_path else accum[name]
                              for name in params}
+                if vocab_mesh is None:
+                    table_grad.index_add_(0, ids, ct)
+                else:
+                    tp_lib.vocab_rows_(table_grad, ids, ct, vocab_mesh)
+                if micro_mean is not None:
+                    micro_mean.all_reduce_(table_grad, tag="grads")
         stacked = torch.stack(losses)
         # the window's loss statistic: the sum of the usable micro-batches'
         # losses under the guard, else their mean

@@ -388,7 +388,11 @@ def adam_mini(learning_rate, beta_1: float = 0.9, beta_2: float = 0.999,
     schema are :func:`adam`'s (:class:`AdamBCState` /
     :class:`MasterAdamBCState`). With ``moment_dtype="q8"`` the first moment
     is stored blockwise int8. No fused hooks: the fused window carries the
-    per-parameter v this optimizer deletes."""
+    per-parameter v this optimizer deletes. Where a rank holds a block of a
+    parameter (tensor parallelism, ZeRO-1), the mean square is the whole
+    tensor's: the blocks' Σg² are all-reduced over the ranks that hold the
+    other blocks and divided by the whole element count
+    (``parallel/tp.py :: whole_mean_sq``)."""
     schedule = as_schedule(learning_rate)
     cast_grad = _grad_caster(moment_dtype is not None)
 
@@ -410,11 +414,16 @@ def adam_mini(learning_rate, beta_1: float = 0.9, beta_2: float = 0.999,
         alpha = _alpha(lr, t, beta_1, beta_2)
         has_master = isinstance(state, MasterAdamBCState)
         masters = state.master if has_master else params
+        ms = {name: _read(state.m[name]) for name in params}
+        cast = {name: cast_grad(grads[name], ms[name].dtype) for name in params}
+        # over the whole tensor, also where this rank holds a block of it
+        from gradaccum_tpu_torch.parallel.tp import whole_mean_sq
+
+        mean_sq = whole_mean_sq(cast)
         for name, param in params.items():
-            m, v = _read(state.m[name]), state.v[name]
-            grad = cast_grad(grads[name], m.dtype)
+            m, v, grad = ms[name], state.v[name], cast[name]
             next_m = beta_1 * m + (1.0 - beta_1) * grad
-            next_v = beta_2 * v + (1.0 - beta_2) * torch.mean(torch.square(grad))
+            next_v = beta_2 * v + (1.0 - beta_2) * mean_sq[name]
             new_master = masters[name] - alpha * _up(next_m, alpha) / (torch.sqrt(next_v)
                                                                         + epsilon)
             _write_param(param, masters[name], new_master, has_master)

@@ -83,18 +83,35 @@ def _dropout_config(dropout_rate: float):
     return threshold, 1.0 / keep_prob
 
 
+def _heads_total(num_heads: int, head_offset: int, heads_total) -> int:
+    """The attention's whole head count (``heads_total``; None or 0: the
+    launch's own ``num_heads``), checked against the launch's slice."""
+    total = heads_total or num_heads
+    if head_offset < 0 or head_offset + num_heads > total:
+        raise ValueError(f"heads [{head_offset}, {head_offset + num_heads}) do not lie in "
+                         f"the attention's {total} heads")
+    if total >= 2**16:
+        raise ValueError(f"{total} heads: the kernels key dropout on 16-bit head counts")
+    return total
+
+
 def dropout_keep_mask(seed, batch: int, num_heads: int, seq: int, rate: float,
-                      device=None) -> torch.Tensor:
+                      device=None, head_offset: int = 0,
+                      heads_total: Optional[int] = None) -> torch.Tensor:
     """The [B, H, S, S] bool keep mask the kernels derive from ``seed`` (an
     int or a one-element integer tensor holding a uint32): slice seed from
-    ``seed + (b*H + h)·GOLDEN``, row seed from the query position, then the
-    key position. Equal, bit for bit, to the JAX package's mask."""
+    ``seed + (b*heads_total + head_offset + h)·GOLDEN``, row seed from the
+    query position, then the key position. With the defaults (0 and H)
+    equal, bit for bit, to the JAX package's mask; heads ``[head_offset,
+    head_offset + H)`` of a ``heads_total``-head attention (one rank's heads
+    under tensor parallelism) draw exactly that slice of its mask."""
     threshold, _ = _dropout_config(rate)
+    total = _heads_total(num_heads, head_offset, heads_total)
     if device is None:
         device = seed.device if isinstance(seed, torch.Tensor) else "cpu"
     seed = torch.as_tensor(seed, dtype=torch.int64, device=device).reshape(()) & _MASK32
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
-    bh = (ar(batch)[:, None] * num_heads + ar(num_heads)[None, :])[..., None, None]
+    bh = (ar(batch)[:, None] * total + head_offset + ar(num_heads)[None, :])[..., None, None]
     slice_seed = _hash_u32((seed + _mul32(bh, _GOLDEN)) & _MASK32)
     row_seed = _hash_u32((ar(seq)[:, None] + _mul32(slice_seed, _GOLDEN)) & _MASK32)
     return _hash_u32((ar(seq) + _mul32(row_seed, _GOLDEN)) & _MASK32) < threshold
@@ -117,10 +134,13 @@ def _scores(q, k, mask, causal):
     return s
 
 
-def flash_forward_reference(q, k, v, mask, seed, causal: bool, rate: float):
+def flash_forward_reference(q, k, v, mask, seed, causal: bool, rate: float,
+                            head_offset: int = 0, heads_total: Optional[int] = None):
     """Plain version of the forward kernel: ``(o, lse)`` with ``o`` in the
     input dtype and ``lse`` [B, H, S, 1] float32. The normalizer sums the
-    undropped probabilities; the keep mask scales P by 1/keep before P·V."""
+    undropped probabilities; the keep mask (keyed on ``head_offset`` and
+    ``heads_total``, :func:`dropout_keep_mask`) scales P by 1/keep before
+    P·V."""
     s = _scores(q, k, mask, causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -128,14 +148,16 @@ def flash_forward_reference(q, k, v, mask, seed, causal: bool, rate: float):
     if rate > 0.0:
         b, h, n, _ = q.shape
         _, inv_keep = _dropout_config(rate)
-        keep = dropout_keep_mask(seed, b, h, n, rate, device=q.device)
+        keep = dropout_keep_mask(seed, b, h, n, rate, device=q.device,
+                                 head_offset=head_offset, heads_total=heads_total)
         p = torch.where(keep, p * inv_keep, 0.0)
     o = torch.matmul(p, v.float()) / l
     return o.to(q.dtype), m + torch.log(l)
 
 
 def flash_backward_reference(q, k, v, mask, seed, o, lse, g, causal: bool,
-                             rate: float):
+                             rate: float, head_offset: int = 0,
+                             heads_total: Optional[int] = None):
     """Plain version of the dq and dk/dv kernels:
     ``(dq, dk, dv, dmask_per_head)``, the last [B, H, 1, S] float32 (None
     without a mask). P = exp(S − lse); dP = dO·Vᵀ dropped like the forward;
@@ -148,7 +170,8 @@ def flash_backward_reference(q, k, v, mask, seed, o, lse, g, causal: bool,
     if rate > 0.0:
         b, h, n, _ = q.shape
         _, inv_keep = _dropout_config(rate)
-        keep = dropout_keep_mask(seed, b, h, n, rate, device=q.device)
+        keep = dropout_keep_mask(seed, b, h, n, rate, device=q.device,
+                                 head_offset=head_offset, heads_total=heads_total)
         dp = torch.where(keep, dp * inv_keep, 0.0)
         p_dropped = torch.where(keep, p * inv_keep, 0.0)
     delta = _delta(g, o)
@@ -175,7 +198,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint32
-_COMMON_TAIL = [_I, _I, _I, _F, _I, _U, _F, _I, _P]  # B H S scale causal thr inv drop stream
+# B H S scale causal thr inv drop head_offset heads_total stream
+_COMMON_TAIL = [_I, _I, _I, _F, _I, _U, _F, _I, _I, _I, _P]
 _ARGTYPES = {
     "flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P] + _COMMON_TAIL,
     "flash_bwd_dq": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P] + _COMMON_TAIL,
@@ -276,30 +300,34 @@ def _seed_tensor(seed, rate, device):
     return t.to(device) if t.device != device else t.contiguous()
 
 
-def _scalar_args(q, causal, rate):
+def _scalar_args(q, causal, rate, head_offset: int = 0, heads_total: Optional[int] = None):
     b, h, s, d = q.shape
     threshold, inv_keep = _dropout_config(rate) if rate > 0.0 else (0, 1.0)
     return [b, h, s, 1.0 / d ** 0.5, int(causal), threshold, inv_keep,
-            int(rate > 0.0), torch.cuda.current_stream(q.device).cuda_stream]
+            int(rate > 0.0), int(head_offset), _heads_total(h, head_offset, heads_total),
+            torch.cuda.current_stream(q.device).cuda_stream]
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def flash_fwd_cuda(q, k, v, mask, seed, causal: bool, rate: float):
-    """K1 on the card: ``(o, lse)`` as :func:`flash_forward_reference`."""
+def flash_fwd_cuda(q, k, v, mask, seed, causal: bool, rate: float, head_offset: int = 0,
+                   heads_total: int = 0):
+    """K1 on the card: ``(o, lse)`` as :func:`flash_forward_reference`
+    (``heads_total`` 0: the launch's own head count)."""
     _check_inputs(q, k, v, mask)
     seed_t = _seed_tensor(seed, rate, q.device)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:-1] + (1,), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", q.dtype, q.shape[-1], _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
-            _ptr(seed_t), _ptr(o), _ptr(lse), *_scalar_args(q, causal, rate))
+            _ptr(seed_t), _ptr(o), _ptr(lse),
+            *_scalar_args(q, causal, rate, head_offset, heads_total))
     return o, lse
 
 
 def flash_bwd_dq_cuda(q, k, v, mask, seed, g, o, lse, causal: bool,
-                      rate: float):
+                      rate: float, head_offset: int = 0, heads_total: int = 0):
     """K2 on the card: ``(dq, delta)``, dq as :func:`flash_backward_reference`
     and delta [B, H, S, 1] float32 as :func:`_delta` (the dk/dv kernel's
     input), both computed by the one kernel from the forward's ``o``."""
@@ -310,12 +338,13 @@ def flash_bwd_dq_cuda(q, k, v, mask, seed, g, o, lse, causal: bool,
     delta = torch.empty_like(lse)
     _launch("flash_bwd_dq", q.dtype, q.shape[-1], _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
             _ptr(seed_t), _ptr(g), _ptr(o), _ptr(lse), _ptr(dq), _ptr(delta),
-            *_scalar_args(q, causal, rate))
+            *_scalar_args(q, causal, rate, head_offset, heads_total))
     return dq, delta
 
 
 def flash_bwd_dkv_cuda(q, k, v, mask, seed, g, lse, delta, causal: bool,
-                       rate: float, with_dmask: bool = True):
+                       rate: float, with_dmask: bool = True, head_offset: int = 0,
+                       heads_total: int = 0):
     """K3 on the card: ``(dk, dv, dmask_per_head)`` as
     :func:`flash_backward_reference`, given Δ. dmask is None without a mask
     or with ``with_dmask=False``; the kernel then skips writing it."""
@@ -330,7 +359,7 @@ def flash_bwd_dkv_cuda(q, k, v, mask, seed, g, lse, delta, causal: bool,
         dmask = torch.empty((b, h, 1, s), dtype=torch.float32, device=q.device)
     _launch("flash_bwd_dkv", q.dtype, q.shape[-1], _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
             _ptr(seed_t), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv),
-            _ptr(dmask), *_scalar_args(q, causal, rate))
+            _ptr(dmask), *_scalar_args(q, causal, rate, head_offset, heads_total))
     return dk, dv, dmask
 
 
@@ -375,15 +404,17 @@ reset_launch_counts()
 # the dispatch (PERF.md, the flash wrapper's wall time per call).
 _OP_LIB = torch.library.Library("gradaccum", "DEF")
 _OP_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, Tensor? mask, Tensor? seed, "
-               "bool causal, float rate) -> (Tensor, Tensor)")
+               "bool causal, float rate, int head_offset=0, int heads_total=0) "
+               "-> (Tensor, Tensor)")
 
 
-def _flash_fwd_plain(q, k, v, mask, seed, causal, rate):
+def _flash_fwd_plain(q, k, v, mask, seed, causal, rate, head_offset=0, heads_total=0):
     # resolved at call time, so a test can substitute the plain version
-    return flash_forward_reference(q, k, v, mask, seed, causal, rate)
+    return flash_forward_reference(q, k, v, mask, seed, causal, rate, head_offset,
+                                   heads_total or None)
 
 
-def _flash_fwd_fake(q, k, v, mask, seed, causal, rate):
+def _flash_fwd_fake(q, k, v, mask, seed, causal, rate, head_offset=0, heads_total=0):
     return torch.empty_like(q), q.new_empty(q.shape[:-1] + (1,), dtype=torch.float32)
 
 
@@ -393,22 +424,27 @@ torch.library.register_fake("gradaccum::flash_fwd", _flash_fwd_fake, lib=_OP_LIB
 flash_fwd_op = torch.ops.gradaccum.flash_fwd.default
 
 
-def _forward(q, k, v, mask, seed, causal, rate):
+def _forward(q, k, v, mask, seed, causal, rate, heads=(0, 0)):
     """``(o, lse)`` through the operator: the kernel for CUDA tensors, the
-    plain version for CPU tensors; any other device raises."""
+    plain version for CPU tensors; any other device raises. ``heads``:
+    ``(head_offset, heads_total)`` of the dropout key, (0, 0) for the
+    launch's own heads (the operator's defaults)."""
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
-    return flash_fwd_op(q, k, v, mask, _seed_tensor(seed, rate, q.device), causal, rate)
+    seed_t = _seed_tensor(seed, rate, q.device)
+    if heads == (0, 0):
+        return flash_fwd_op(q, k, v, mask, seed_t, causal, rate)
+    return flash_fwd_op(q, k, v, mask, seed_t, causal, rate, *heads)
 
 
-def _backward(q, k, v, mask, seed, o, lse, g, causal, rate, with_dmask):
+def _backward(q, k, v, mask, seed, o, lse, g, causal, rate, heads, with_dmask):
     if q.device.type == "cuda":
-        dq, delta = flash_bwd_dq_cuda(q, k, v, mask, seed, g, o, lse, causal, rate)
+        dq, delta = flash_bwd_dq_cuda(q, k, v, mask, seed, g, o, lse, causal, rate, *heads)
         dk, dv, dmask = flash_bwd_dkv_cuda(q, k, v, mask, seed, g, lse, delta,
-                                           causal, rate, with_dmask)
+                                           causal, rate, with_dmask, *heads)
         return dq, dk, dv, dmask
     dq, dk, dv, dmask = flash_backward_reference(q, k, v, mask, seed, o, lse, g,
-                                                 causal, rate)
+                                                 causal, rate, heads[0], heads[1] or None)
     return dq, dk, dv, dmask if with_dmask else None
 
 
@@ -429,12 +465,13 @@ def _blockwise_backward(q, k, v, mask, g, causal, block_k, with_dmask):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, mask, seed, causal, rate, bwd_impl, block_k):
-        o, lse = _forward(q, k, v, mask, seed, causal, rate)
+    def forward(ctx, q, k, v, mask, seed, causal, rate, bwd_impl, block_k, heads):
+        o, lse = _forward(q, k, v, mask, seed, causal, rate, heads)
         seed_t = seed if isinstance(seed, torch.Tensor) else None
         ctx.save_for_backward(q, k, v, mask, seed_t, o, lse)
         ctx.seed_int = None if seed_t is not None else seed
         ctx.causal, ctx.rate, ctx.bwd_impl, ctx.block_k = causal, rate, bwd_impl, block_k
+        ctx.heads = heads
         return o
 
     @staticmethod
@@ -447,14 +484,14 @@ class _FlashAttention(torch.autograd.Function):
         if ctx.bwd_impl == "xla":
             dq, dk, dv, dmask = _blockwise_backward(q, k, v, mask, g, ctx.causal,
                                                     ctx.block_k, with_dmask)
-            return dq, dk, dv, dmask, None, None, None, None, None
+            return dq, dk, dv, dmask, None, None, None, None, None, None
         dq, dk, dv, dmask = _backward(q, k, v, mask, seed, o, lse, g.contiguous(),
-                                      ctx.causal, ctx.rate, with_dmask)
+                                      ctx.causal, ctx.rate, ctx.heads, with_dmask)
         if dmask is not None:
             # the mask broadcasts [B,1,1,S] over heads and queries: its
             # cotangent sums the per-head rows over heads
             dmask = dmask.sum(dim=1, keepdim=True).to(mask.dtype)
-        return dq, dk, dv, dmask, None, None, None, None, None
+        return dq, dk, dv, dmask, None, None, None, None, None, None
 
 
 # --------------------------------------------------------------------------
@@ -473,7 +510,8 @@ def flash_attention(q, k, v, mask=None, dropout_fn=None, *,
                     dropout_rate: float = 0.0, dropout_seed=None,
                     generator: Optional[torch.Generator] = None,
                     causal: bool = False, bwd_impl: str = "pallas",
-                    block_k: int = 128):
+                    block_k: int = 128, head_offset: int = 0,
+                    heads_total: Optional[int] = None):
     """Fused attention: drop-in for ``models.bert.dense_attention``.
 
     ``q, k, v``: [B, heads, S, head_dim]; ``mask``: additive key mask
@@ -490,7 +528,10 @@ def flash_attention(q, k, v, mask=None, dropout_fn=None, *,
     either ``dropout_seed`` (a uint32 as int or tensor; tests hand the JAX
     package's seed in here) or ``generator``, from which the seed is drawn.
     A ``dropout_fn`` closure cannot apply, since the kernels never
-    materialize the probabilities, and is refused.
+    materialize the probabilities, and is refused. ``head_offset`` and
+    ``heads_total`` place these heads in a wider attention for the dropout
+    key (a rank's own heads under tensor parallelism draw their slice of
+    the whole attention's mask); the defaults are the heads given.
     """
     if dropout_fn is not None:
         raise NotImplementedError(
@@ -512,12 +553,14 @@ def flash_attention(q, k, v, mask=None, dropout_fn=None, *,
         seed = dropout_seed if dropout_seed is not None else draw_seed(generator)
     if bwd_impl not in ("pallas", "xla"):
         raise ValueError(f"bwd_impl must be 'pallas' or 'xla', got {bwd_impl!r}")
+    total = _heads_total(q.shape[1], head_offset, heads_total)
+    heads = (0, 0) if (head_offset, total) == (0, q.shape[1]) else (int(head_offset), total)
     needs_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (q, k, v, mask))
     if not needs_grad:  # inference and export: the operator alone
-        return _forward(q, k, v, mask, seed, bool(causal), float(dropout_rate))[0]
+        return _forward(q, k, v, mask, seed, bool(causal), float(dropout_rate), heads)[0]
     return _FlashAttention.apply(q, k, v, mask, seed, bool(causal),
-                                 float(dropout_rate), bwd_impl, int(block_k))
+                                 float(dropout_rate), bwd_impl, int(block_k), heads)
 
 
 # models pass dropout_rate/generator instead of a dropout_fn closure

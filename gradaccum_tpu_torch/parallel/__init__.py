@@ -1,12 +1,14 @@
-"""Data parallelism and the attention cores beyond the flash kernels (the
-port of ``gradaccum_tpu/parallel``).
+"""Data, tensor and expert parallelism, and the attention cores beyond the
+flash kernels (the port of ``gradaccum_tpu/parallel``).
 
-Ported: the process-group mesh (``mesh``), batch and parameter placement
-(``sharding``), the data-parallel steps (``dp``), ZeRO-1 (``zero``), the
+Ported: the process-group meshes (``mesh``: the 1-D data mesh and the
+multi-axis ``make_mesh``), batch and parameter placement with JAX's regex
+rules (``sharding``), the Megatron rules and collectives (``tp``), the
+data-parallel steps (``dp``), ZeRO-1 with or without rules (``zero``), the
 CrossShardOptimizer wrapper (``cross_shard``) and the single-device
-``blockwise_attention`` (``ring_attention``). Tensor, sequence, expert and
-pipeline parallelism, and the mesh-bound ring and Ulysses cores, wait for
-model parallelism (ROADMAP.md).
+``blockwise_attention`` (``ring_attention``). Sequence and pipeline
+parallelism, and the mesh-bound ring and Ulysses cores, are not ported yet
+(ROADMAP.md).
 """
 
 from gradaccum_tpu_torch.parallel.cross_shard import cross_shard_optimizer
@@ -18,23 +20,33 @@ from gradaccum_tpu_torch.parallel.mesh import (
     PIPE_AXIS,
     SEQ_AXIS,
     DataMesh,
+    Mesh,
     axis_mesh,
     data_parallel_mesh,
     initialize_multihost,
+    make_hybrid_mesh,
+    make_mesh,
 )
 from gradaccum_tpu_torch.parallel.ring_attention import blockwise_attention
 from gradaccum_tpu_torch.parallel.sharding import (
+    P,
+    PartitionSpec,
     batch_shard,
+    gather_params,
     host_shard,
+    param_shardings,
     replicate_,
     shard_params,
+    spec_for,
 )
+from gradaccum_tpu_torch.parallel.tp import bert_tp_ep_rules, bert_tp_rules, gpt_tp_rules
 from gradaccum_tpu_torch.parallel.zero import (
     make_zero1_placement_step,
     make_zero1_train_step,
     shard_dim,
     zero1_gather_state,
     zero1_optimizer,
+    zero1_partition_specs,
     zero1_shard_state,
     zero1_state_specs,
 )

@@ -89,20 +89,28 @@ def make_dp_train_step(loss_fn: acc.LossFn, optimizer: Optimizer,
 def make_pjit_dp_train_step(loss_fn: acc.LossFn, optimizer: Optimizer,
                             config: acc.GradAccumConfig, mesh: DataMesh,
                             mode: str = "scan", axis: str = DATA_AXIS,
-                            needs_rng: bool = False):
+                            needs_rng: bool = False, sparse=None):
     """The GSPMD counterpart: the single-device step with every
     micro-batch's loss and gradients averaged over the ranks (one
     all-reduce per micro-batch). Prefer :func:`make_dp_train_step` when
-    collectives cost; this path serves ``fused_adam`` and ZeRO-1's
-    placement (``Estimator(zero1=True)``)."""
+    collectives cost; this path serves ``fused_adam``, ZeRO-1's placement
+    (``Estimator(zero1=True)``) and the sharding rules. ``sparse``
+    (``ops/sparse_embed.py :: SparseEmbedHooks``, scan mode; ``loss_fn`` is
+    then ``(params, rows, batch)``): each rank scatters its own rows and
+    the table's gradient is averaged once per update. A one-rank data axis
+    of a multi-axis mesh averages nothing."""
     _check_axis(mesh, axis)
     config = config._replace(axis_name=None)
     acc.validate_config(config)
+    micro_mean = None if mesh.solo else mesh
+    if sparse is not None and mode != "scan":
+        raise ValueError("sparse_embed requires mode='scan'")
     if mode == "scan":
-        inner = acc._scan_train_step(loss_fn, optimizer, config, needs_rng, micro_mean=mesh)
+        inner = acc._scan_train_step(loss_fn, optimizer, config, needs_rng, sparse=sparse,
+                                     micro_mean=micro_mean)
     elif mode == "streaming":
         inner = acc._streaming_train_step(loss_fn, optimizer, config, needs_rng,
-                                          micro_mean=mesh)
+                                          micro_mean=micro_mean)
     else:
         raise ValueError(f"mode must be 'scan' or 'streaming', got {mode!r}")
     return _on_local_rows(inner, mesh, mode)

@@ -8,7 +8,13 @@ by ``torch.distributed``: NCCL between cards, gloo on the CPU. A
 :class:`DataMesh` holds that process group, this process's ``rank`` of
 ``world`` and its device, under the axis name ``"data"``.
 
-Every collective the data-parallel slice issues lives here, in one place:
+:func:`make_mesh` lays the ranks out on several named axes (``data``,
+``model``, ``expert``: JAX's ``make_mesh``) and gives each rank a
+:class:`DataMesh` per axis, over the subgroup of ranks that differ only in
+that axis, so tensor and expert parallelism issue their collectives over
+the right ranks.
+
+Every collective the mesh paths issue lives here, in one place:
 the SUM all-reduce (of one tensor, or of a list of tensors flattened into
 one buffer per dtype, so that a whole gradient tree costs one call), the
 all-gather along a dimension, the broadcast from rank 0, and the pmin of a
@@ -29,10 +35,12 @@ died stops waiting instead of blocking forever.
 from __future__ import annotations
 
 import datetime
+import itertools
 import os
 from collections import Counter
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -44,23 +52,36 @@ PIPE_AXIS = "pipe"
 
 DEFAULT_TIMEOUT_S = 300.0
 
+SOLO = object()  # the group of a one-rank axis: no collective is issued
+
 _BOUND: Dict[str, "DataMesh"] = {}  # axis name -> the mesh that binds it
+_MESH: Dict[str, "Mesh"] = {}  # "current" -> the multi-axis mesh of this process
 
 
 class DataMesh:
-    """A 1-D data-parallel mesh over the process group of
-    :func:`initialize_multihost`: ``world`` ranks, one process and one
-    device each. ``shape`` is ``{"data": world}``, as JAX's ``mesh.shape``.
-    Build it with :func:`data_parallel_mesh`."""
+    """A 1-D mesh: ``world`` ranks, one process and one device each, under
+    one axis name. ``shape`` is ``{axis: world}``, as JAX's ``mesh.shape``.
+    :func:`data_parallel_mesh` builds it over the whole process group of
+    :func:`initialize_multihost`; :func:`make_mesh` builds one per axis of a
+    multi-axis mesh, over the subgroup of ranks that differ only in that
+    axis (``group``, with ``ranks`` their global ranks in order). A
+    one-rank axis of a multi-axis mesh (``group`` is :data:`SOLO`) issues
+    no collective: each op returns its input."""
 
     def __init__(self, rank: int, world: int, device: torch.device, backend: str,
-                 axis: str = DATA_AXIS):
+                 axis: str = DATA_AXIS, group=None, ranks: Optional[Sequence[int]] = None):
         self.rank = rank
         self.world = world
         self.device = torch.device(device)
         self.backend = backend
         self.axis = axis
+        self.group = group
+        self.ranks = list(ranks) if ranks is not None else list(range(world))
         self.calls: Counter = Counter()
+
+    @property
+    def solo(self) -> bool:
+        return self.group is SOLO
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -102,14 +123,18 @@ class DataMesh:
 
     def all_reduce_(self, tensor: torch.Tensor, tag: Optional[str] = None) -> torch.Tensor:
         """SUM ``tensor`` over the ranks, in place."""
+        if self.solo:
+            return tensor
         self._count("all_reduce", tag)
-        dist.all_reduce(tensor, op=dist.ReduceOp.SUM)
+        dist.all_reduce(tensor, op=dist.ReduceOp.SUM, group=self.group)
         return tensor
 
     def all_reduce_tensors_(self, tensors: Sequence[torch.Tensor],
                             tag: Optional[str] = None) -> None:
         """SUM every tensor of ``tensors`` over the ranks, in place: one
         collective per dtype, so a whole gradient tree costs one call."""
+        if self.solo:
+            return
         self._flat_(tensors, lambda flat: self.all_reduce_(flat, tag))
 
     def pmean(self, tensor: torch.Tensor, tag: Optional[str] = None) -> torch.Tensor:
@@ -120,16 +145,20 @@ class DataMesh:
 
     def pmin_flag(self, flag: torch.Tensor, tag: Optional[str] = None) -> torch.Tensor:
         """A 0-d bool: True only where ``flag`` is True on every rank."""
+        if self.solo:
+            return flag.reshape(()).to(torch.bool)
         self._count("pmin", tag)
         x = flag.to(torch.int32).reshape(1)
-        dist.all_reduce(x, op=dist.ReduceOp.MIN)
+        dist.all_reduce(x, op=dist.ReduceOp.MIN, group=self.group)
         return x.reshape(()) > 0
 
     def broadcast_(self, tensor: torch.Tensor, src: int = 0,
                    tag: Optional[str] = None) -> torch.Tensor:
         """Overwrite ``tensor`` with rank ``src``'s, in place."""
+        if self.solo:
+            return tensor
         self._count("broadcast", tag)
-        dist.broadcast(tensor, src=src)
+        dist.broadcast(tensor, src=self.ranks[src], group=self.group)
         return tensor
 
     def broadcast_tensors_(self, tensors: Sequence[torch.Tensor], src: int = 0,
@@ -141,14 +170,17 @@ class DataMesh:
                    tag: Optional[str] = None) -> torch.Tensor:
         """Every rank's ``tensor`` concatenated along ``dim`` in rank order
         (JAX's ``all_gather(..., tiled=True)``), in ``tensor``'s dtype."""
-        self._count("all_gather", tag)
         src = tensor.detach().contiguous()
+        if self.solo:
+            return src
+        self._count("all_gather", tag)
         parts = [torch.empty_like(src) for _ in range(self.world)]
-        dist.all_gather(parts, src)
+        dist.all_gather(parts, src, group=self.group)
         return torch.cat(parts, dim=dim)
 
     def barrier(self) -> None:
-        dist.barrier()
+        if not self.solo:
+            dist.barrier(group=self.group)
 
 
 def _backend_for(device: torch.device) -> str:
@@ -234,6 +266,156 @@ def data_parallel_mesh(num_devices: Optional[int] = None,
     return mesh
 
 
+class Mesh:
+    """A multi-axis mesh over every rank of the process group, JAX's
+    ``Mesh`` layout: rank r sits at coordinates ``np.unravel_index(r,
+    sizes)`` in the order the axes were given (the first axis varies
+    slowest, as ``np.asarray(devices).reshape(sizes)`` lays devices out).
+
+    :meth:`axis` is this rank's :class:`DataMesh` on one axis, over the
+    ranks that share every other coordinate; :meth:`over` is the one over
+    several axes at once (the ranks that share the remaining coordinates),
+    which the norm, the guard and the MoE combine reduce over. Every group
+    is created by :func:`make_mesh` on every rank in the same order, as
+    ``dist.new_group`` requires. ``shape``, ``rank``, ``world``,
+    ``device`` and ``backend`` read as a :class:`DataMesh`'s do; ``calls``
+    counts each axis's collectives under ``"<axes>/<op>[:<tag>]"``."""
+
+    def __init__(self, names, sizes, rank: int, device: torch.device, backend: str,
+                 groups: Dict[tuple, DataMesh]):
+        self.axis_names = tuple(names)
+        self.sizes = tuple(sizes)
+        self.rank = rank
+        self.world = int(np.prod(sizes))
+        self.device = torch.device(device)
+        self.backend = backend
+        self.coords = dict(zip(names, (int(c) for c in np.unravel_index(rank, sizes))))
+        self._groups = groups
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, rank={self.rank}, device={self.device}, backend={self.backend})"
+
+    def axis(self, name: str) -> DataMesh:
+        """This rank's mesh on axis ``name``; an axis the mesh does not
+        have is a one-rank axis (JAX's ``mesh.shape.get(name, 1)``)."""
+        return self.over((name,))
+
+    def over(self, names) -> DataMesh:
+        """This rank's mesh over the axes ``names`` together (in the
+        mesh's axis order); axes of size 1 or absent drop out."""
+        key = tuple(n for n in self.axis_names if n in names and self.shape[n] > 1)
+        if not key:
+            return DataMesh(0, 1, self.device, self.backend, "+".join(names) or DATA_AXIS,
+                            group=SOLO, ranks=[self.rank])
+        return self._groups[key]
+
+    @property
+    def calls(self) -> Counter:
+        total: Counter = Counter()
+        for key, m in self._groups.items():
+            for op, n in m.calls.items():
+                total[f"{'+'.join(key)}/{op}"] += n
+        return total
+
+    def reset_calls(self) -> None:
+        for m in self._groups.values():
+            m.reset_calls()
+
+    def barrier(self) -> None:
+        dist.barrier()
+
+
+def _axis_sizes(axis_sizes, axes, n_devices: int):
+    """``(names, sizes)`` with a single -1 resolved: JAX's rules and errors."""
+    if axis_sizes is None:
+        axis_sizes = list(axes.items())
+    elif axes:
+        raise ValueError("pass axis_sizes or keyword axes, not both")
+    if not axis_sizes:
+        axis_sizes = [(DATA_AXIS, -1)]
+    names = [n for n, _ in axis_sizes]
+    sizes = [s for _, s in axis_sizes]
+    if sizes.count(-1) > 1:
+        raise ValueError("at most one axis size may be -1")
+    if -1 in sizes:
+        known = int(np.prod([s for s in sizes if s != -1]))
+        if n_devices % known:
+            raise ValueError(f"{n_devices} devices not divisible by fixed axes {known}")
+        sizes[sizes.index(-1)] = n_devices // known
+    total = int(np.prod(sizes))
+    if total != n_devices:
+        raise ValueError(
+            f"mesh axes {dict(zip(names, sizes))} need exactly {total} devices, "
+            f"have {n_devices}; use -1 to absorb the remainder or pass an "
+            "explicit devices= subset")
+    return names, sizes
+
+
+def make_mesh(axis_sizes: Optional[Sequence[Tuple[str, int]]] = None, **axes: int) -> Mesh:
+    """The multi-axis mesh over every rank of the initialized group, from
+    ``(name, size)`` pairs or keyword axes (``make_mesh(data=-1, model=2)``):
+    a single ``-1`` absorbs the remaining ranks; JAX's errors word for word.
+
+    Every rank creates, in the same order, one subgroup per subset of the
+    axes of size > 1 and per coordinate of the other axes, and binds each
+    one-axis mesh to its name (:func:`axis_mesh`), so a step built with
+    ``GradAccumConfig(axis_name="data")`` reduces over the data axis."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh: call initialize_multihost first")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    names, sizes = _axis_sizes(axis_sizes, axes, world)
+    device, backend = _STATE["device"], dist.get_backend()
+    grid = np.arange(world).reshape(sizes)
+    live = [i for i, s in enumerate(sizes) if s > 1]
+    groups: Dict[tuple, DataMesh] = {}
+    for count in range(1, len(live) + 1):
+        for subset in itertools.combinations(live, count):
+            rest = [i for i in range(len(sizes)) if i not in subset]
+            # the grid with the subset's axes last, one row per coordinate
+            # of the other axes: each row is a group
+            rows = np.transpose(grid, rest + list(subset)).reshape(-1, int(np.prod(
+                [sizes[i] for i in subset])))
+            key = tuple(names[i] for i in subset)
+            for row in rows:
+                members = [int(r) for r in row]
+                if len(members) == world:
+                    group = None  # every rank: the default group
+                else:
+                    group = dist.new_group(members)
+                if rank in members:
+                    groups[key] = DataMesh(members.index(rank), len(members), device, backend,
+                                           "+".join(key), group=group, ranks=members)
+    mesh = Mesh(names, sizes, rank, device, backend, groups)
+    for name in names:
+        _BOUND[name] = mesh.axis(name)
+        _BOUND[name].axis = name
+    _MESH["current"] = mesh
+    return mesh
+
+
+def make_hybrid_mesh(ici_axes: Sequence[Tuple[str, int]],
+                     dcn_axes: Sequence[Tuple[str, int]]) -> Mesh:
+    """JAX's single-slice case of the hybrid mesh: every DCN axis has size
+    1, so the mesh is :func:`make_mesh` over the DCN axes (size 1, first)
+    and the ICI axes. One host's ranks form one slice; a DCN axis wider
+    than 1 raises."""
+    dcn_sizes = [s for _, s in dcn_axes]
+    if int(np.prod(dcn_sizes)) != 1:
+        raise NotImplementedError(
+            f"hybrid mesh dcn axes {list(dcn_axes)}: only one slice (every dcn axis "
+            f"of size 1) is supported")
+    return make_mesh(list(dcn_axes) + list(ici_axes))
+
+
+def current_mesh() -> Optional[Mesh]:
+    """The multi-axis mesh :func:`make_mesh` built in this process, or None."""
+    return _MESH.get("current")
+
+
 def axis_mesh(axis: str) -> DataMesh:
     """The mesh bound to ``axis`` in this process; JAX's error otherwise."""
     mesh = _BOUND.get(axis)
@@ -246,5 +428,6 @@ def shutdown() -> None:
     """Leave the process group and unbind every axis."""
     _BOUND.clear()
     _STATE.clear()
+    _MESH.clear()
     if dist.is_initialized():
         dist.destroy_process_group()

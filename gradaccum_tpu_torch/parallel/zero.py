@@ -8,8 +8,10 @@ world size while the training math is unchanged.
 
 - :func:`shard_dim` is the ONE rule deciding how a leaf splits: its first
   dimension divisible by the world size (None: it stays whole, as scalars
-  and indivisible leaves do). The state's layout, the update's slices and
-  the gather all read it, so they cannot disagree.
+  and indivisible leaves do), read in the JAX package's layout
+  (:func:`zero_dim`: a Dense kernel's [in, out]), so each leaf splits as
+  JAX's does. The state's layout, the update's slices and the gather all
+  read it, so they cannot disagree.
 - :func:`zero1_state_specs` / :func:`zero1_shard_state`: every
   ``opt_state/`` leaf, masters included, keeps only this rank's contiguous
   block of its :func:`shard_dim`; the parameters (and streaming mode's
@@ -21,9 +23,14 @@ world size while the training math is unchanged.
   on the slices against the local moments, and the new parameter blocks are
   all-gathered back into the full parameters in the PARAMETER dtype (bf16
   parameters gather at half the bytes of the float32 state), one collective
-  per dtype. A block cannot compute a statistic over a whole parameter, so
-  a state that holds one (Adam-mini's per-tensor second moment) is refused
-  where JAX's GSPMD placement would compute it whole.
+  per dtype. A statistic over a whole parameter (Adam-mini's per-tensor
+  second moment) sums its blocks' Σg² over the ranks first, where JAX's
+  GSPMD placement computes it whole.
+- With parameter ``rules`` (tensor and expert parallelism), a moment the
+  rules split keeps that split and every rank of the data axis updates its
+  model block whole; the rest split over ``data``, as JAX's
+  ``_zero1_spec``. :func:`zero1_partition_specs` states the layout in JAX's
+  terms.
 - :func:`make_zero1_train_step`: the explicit step, ``make_dp_train_step``'s
   cost model (scan: one all-reduce per update) with the sharded update; it
   rejects q8 moments and ``fused_adam``, as JAX does.
@@ -45,25 +52,23 @@ from gradaccum_tpu_torch.ops import accumulation as acc
 from gradaccum_tpu_torch.ops.adamw import FusedAccum, Optimizer
 from gradaccum_tpu_torch.parallel.dp import make_dp_train_step, make_pjit_dp_train_step
 from gradaccum_tpu_torch.parallel.mesh import DATA_AXIS, DataMesh
+from gradaccum_tpu_torch.parallel.sharding import (
+    P,
+    PartitionSpec,
+    Rules,
+    layout_perm,
+    spec_for,
+    torch_dims,
+)
+from gradaccum_tpu_torch.parallel.tp import split_scope
+from gradaccum_tpu_torch.utils.tree import map_state
 
 _MOMENT_PREFIX = "opt_state/"
 
 
 def _map_tree(fn, node, path: str):
-    """``node`` rebuilt with every tensor (and QuantTensor) leaf replaced by
-    ``fn(path, leaf)``; paths join names with "/" as checkpoints do."""
-    if isinstance(node, (torch.Tensor, QuantTensor)):
-        return fn(path, node)
-    if isinstance(node, tuple) and hasattr(node, "_fields"):
-        return type(node)(*(_map_tree(fn, child, f"{path}/{key}" if path else key)
-                            for key, child in zip(node._fields, node)))
-    if isinstance(node, dict):
-        return {key: _map_tree(fn, child, f"{path}/{key}" if path else key)
-                for key, child in node.items()}
-    if isinstance(node, (tuple, list)):
-        return type(node)(_map_tree(fn, child, f"{path}/{i}" if path else str(i))
-                          for i, child in enumerate(node))
-    return node
+    """:func:`~..utils.tree.map_state` with QuantTensor leaves too."""
+    return map_state(fn, node, path, leaf_types=(torch.Tensor, QuantTensor))
 
 
 def _reject_quantized(state) -> None:
@@ -79,38 +84,6 @@ def _reject_quantized(state) -> None:
         )
 
 
-def _reject_whole_tensor_stats(state, n: int) -> None:
-    """Refuse an ``opt_state/`` leaf that belongs to a parameter this rank
-    updates a block of, but is neither that parameter's shape nor its
-    block's (Adam-mini's one second moment per tensor): the sliced update
-    would fill it from this rank's block of the gradient alone. Works on
-    the full state and on the sharded one."""
-    params = state.params
-    found = []
-
-    def check(path, leaf):
-        parts = path.split("/")
-        name = next(("/".join(parts[i:]) for i in range(2, len(parts))
-                     if "/".join(parts[i:]) in params), None)
-        if name is None:
-            return leaf
-        shape = tuple(params[name].shape)
-        d = shard_dim(shape, n)
-        block = None if d is None else shape[:d] + (shape[d] // n,) + shape[d + 1:]
-        if d is not None and tuple(leaf.shape) not in (shape, block):
-            found.append(f"{path}, shape {tuple(leaf.shape)} for a parameter of {shape}")
-        return leaf
-
-    _map_tree(check, state.opt_state, "opt_state")
-    if found:
-        raise ValueError(
-            f"ZeRO-1 cannot shard optimizer state that holds a statistic over a "
-            f"whole parameter ({found[0]}; adam_mini's per-tensor second moment is "
-            f"one): each rank would compute it from its block of the gradient "
-            f"alone — use adam_mini OR zero1, not both"
-        )
-
-
 def shard_dim(shape, n: int) -> Optional[int]:
     """The first dimension of ``shape`` divisible by ``n`` (None: none)."""
     for d, size in enumerate(shape):
@@ -119,16 +92,53 @@ def shard_dim(shape, n: int) -> Optional[int]:
     return None
 
 
-def zero1_state_specs(state, n: int) -> Dict[str, Optional[int]]:
-    """``{path: shard dim}`` for every tensor leaf of a Scan/Streaming
-    state: the :func:`shard_dim` of each ``opt_state/`` leaf, None (whole)
-    for every other leaf."""
+def zero_dim(name: str, shape, n: int) -> Optional[int]:
+    """The dimension of the port's tensor ``name`` that ZeRO-1 splits:
+    :func:`shard_dim` of the shape in the JAX package's layout (a Dense
+    kernel's [in, out]), as the port's dimension, so every leaf splits as
+    JAX's does (None: it stays whole)."""
+    perm = layout_perm(name, len(shape))
+    d = shard_dim([shape[perm.index(j)] for j in range(len(shape))], n)
+    return None if d is None else perm.index(d)
+
+
+def _rule_split(path: str, leaf, rules: Optional[Rules]) -> bool:
+    return any(torch_dims(path, spec_for(path, rules), leaf.dim()))
+
+
+def zero1_state_specs(state, n: int, rules: Optional[Rules] = None) -> Dict[str, Optional[int]]:
+    """``{path: split dim}`` for every tensor leaf of a Scan/Streaming
+    state: the :func:`zero_dim` of each ``opt_state/`` leaf that the
+    parameter ``rules`` leave whole, None for every other leaf (a leaf the
+    rules split keeps that split, over its model axes)."""
     _reject_quantized(state)
-    _reject_whole_tensor_stats(state, n)
     specs = {}
 
     def spec(path, leaf):
-        specs[path] = shard_dim(leaf.shape, n) if path.startswith(_MOMENT_PREFIX) else None
+        moment = path.startswith(_MOMENT_PREFIX) and not _rule_split(path, leaf, rules)
+        specs[path] = zero_dim(path, tuple(leaf.shape), n) if moment else None
+        return leaf
+
+    _map_tree(spec, state, "")
+    return specs
+
+
+def zero1_partition_specs(state, n: int, rules: Optional[Rules] = None,
+                          axis: str = DATA_AXIS) -> Dict[str, PartitionSpec]:
+    """``{path: PartitionSpec}`` of the ZeRO-1 layout in the JAX package's
+    terms (its layout, its ``zero1_state_specs``): every leaf follows
+    ``rules``, except the rule-replicated ``opt_state/`` leaves, split over
+    ``axis`` along their :func:`zero_dim`."""
+    _reject_quantized(state)
+    specs = {}
+
+    def spec(path, leaf):
+        base = spec_for(path, rules)
+        if not path.startswith(_MOMENT_PREFIX) or base != P():
+            specs[path] = base
+            return leaf
+        d = zero_dim(path, tuple(leaf.shape), n)
+        specs[path] = P() if d is None else P(*([None] * layout_perm(path, leaf.dim())[d]), axis)
         return leaf
 
     _map_tree(spec, state, "")
@@ -143,10 +153,10 @@ def _block(x: torch.Tensor, d: Optional[int], rank: int, n: int) -> torch.Tensor
     return x.narrow(d, rank * size, size)
 
 
-def zero1_shard_state(state, mesh: DataMesh):
+def zero1_shard_state(state, mesh: DataMesh, rules: Optional[Rules] = None):
     """The state with every sharded ``opt_state/`` leaf cut to this rank's
     block (a copy: the full tensor is freed with the old state)."""
-    specs = zero1_state_specs(state, mesh.world)
+    specs = zero1_state_specs(state, mesh.world, rules)
     return _map_tree(lambda path, leaf: leaf if specs[path] is None else
                      _block(leaf, specs[path], mesh.rank, mesh.world).clone(),
                      state, "")
@@ -179,10 +189,14 @@ def _gather_params_(params, dims, mesh: DataMesh) -> None:
 
 
 def zero1_optimizer(inner: Optimizer, mesh: DataMesh,
-                    forward_fused: bool = False) -> Optimizer:
+                    forward_fused: bool = False, rules: Optional[Rules] = None) -> Optimizer:
     """Wrap ``inner`` so its update runs on this rank's blocks (see the
     module docstring) against a state placed by :func:`zero1_shard_state`.
-    ``init`` is the inner, full-size init.
+    ``init`` is the inner, full-size init. A parameter the ``rules`` split
+    over model axes is updated whole on its model block (its moments are
+    not split over the data ranks). A statistic over a whole parameter
+    (Adam-mini's mean square) sums its blocks over the data ranks
+    (``parallel/tp.py :: split_scope``).
 
     The fused-accumulation hooks are forwarded only with
     ``forward_fused=True`` (the placement path, whose micro-batch gradients
@@ -190,7 +204,8 @@ def zero1_optimizer(inner: Optimizer, mesh: DataMesh,
     rank's block of the moments, and the apply gathers the parameters."""
 
     def dims_of(tree):
-        return {name: shard_dim(t.shape, mesh.world) for name, t in tree.items()}
+        return {name: None if _rule_split(name, t, rules)
+                else zero_dim(name, tuple(t.shape), mesh.world) for name, t in tree.items()}
 
     def local(tree, dims):
         return {name: _block(t, dims[name], mesh.rank, mesh.world) for name, t in tree.items()}
@@ -198,7 +213,8 @@ def zero1_optimizer(inner: Optimizer, mesh: DataMesh,
     @torch.no_grad()
     def update(grads, state, params, step):
         dims = dims_of(params)
-        _, new_state = inner.update(local(grads, dims), state, local(params, dims), step)
+        with split_scope({name: [mesh] for name, d in dims.items() if d is not None}):
+            _, new_state = inner.update(local(grads, dims), state, local(params, dims), step)
         _gather_params_(params, dims, mesh)
         return params, new_state
 
@@ -221,15 +237,13 @@ def zero1_optimizer(inner: Optimizer, mesh: DataMesh,
     return Optimizer(init=inner.init, update=update, fused=fused)
 
 
-def _checked(step, mesh: DataMesh):
-    """``step`` that rejects a q8 state, and a whole-tensor statistic, at
-    its first call."""
+def _checked(step):
+    """``step`` that rejects a q8 state at its first call."""
     seen = []
 
     def train_step(state, batch, *rng):
         if not seen:
             _reject_quantized(state)
-            _reject_whole_tensor_stats(state, mesh.world)
             seen.append(True)
         return step(state, batch, *rng)
 
@@ -252,15 +266,17 @@ def make_zero1_train_step(loss_fn: acc.LossFn, optimizer: Optimizer,
         )
     zopt = zero1_optimizer(optimizer, mesh)
     return _checked(make_dp_train_step(loss_fn, zopt, config, mesh, mode=mode, axis=axis,
-                                       needs_rng=needs_rng), mesh)
+                                       needs_rng=needs_rng))
 
 
 def make_zero1_placement_step(loss_fn: acc.LossFn, optimizer: Optimizer,
                               config: acc.GradAccumConfig, mesh: DataMesh,
                               mode: str = "scan", axis: str = DATA_AXIS,
-                              needs_rng: bool = False):
+                              needs_rng: bool = False, rules: Optional[Rules] = None,
+                              sparse=None):
     """``Estimator(zero1=True)``'s step: :func:`~.dp.make_pjit_dp_train_step`
-    with the sharded update, fused hooks forwarded."""
-    zopt = zero1_optimizer(optimizer, mesh, forward_fused=True)
+    with the sharded update, fused hooks forwarded; ``rules`` as in
+    :func:`zero1_optimizer`, ``sparse`` as in ``make_pjit_dp_train_step``."""
+    zopt = zero1_optimizer(optimizer, mesh, forward_fused=True, rules=rules)
     return _checked(make_pjit_dp_train_step(loss_fn, zopt, config, mesh, mode=mode,
-                                            axis=axis, needs_rng=needs_rng), mesh)
+                                            axis=axis, needs_rng=needs_rng, sparse=sparse))

@@ -48,6 +48,26 @@ def named_parameters(module: nn.Module, prefix: str = "params") -> Dict[str, nn.
     return {name: out[name] for name in sorted(out, key=_path_key)}
 
 
+def map_state(fn: Callable, node, path: str = "", leaf_types=(torch.Tensor,)):
+    """``node`` (a state: NamedTuples, dicts, tuples and lists of tensors)
+    rebuilt with every leaf of ``leaf_types`` replaced by ``fn(path,
+    leaf)``; paths join field names and keys with "/" as checkpoints do
+    (``opt_state/m/params/bert/...``). Anything else (an int step, None)
+    is kept."""
+    if isinstance(node, leaf_types):
+        return fn(path, node)
+    join = (lambda key: f"{path}/{key}") if path else str
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(map_state(fn, child, join(key), leaf_types)
+                            for key, child in zip(node._fields, node)))
+    if isinstance(node, dict):
+        return {key: map_state(fn, child, join(key), leaf_types) for key, child in node.items()}
+    if isinstance(node, (tuple, list)):
+        return type(node)(map_state(fn, child, join(i), leaf_types)
+                          for i, child in enumerate(node))
+    return node
+
+
 def tree_map_with_names(fn: Callable, named: Dict[str, torch.Tensor], *rest):
     """``{name: fn(name, leaf, *rest_leaves)}`` over a named dictionary."""
     return {name: fn(name, leaf, *(r[name] for r in rest)) for name, leaf in named.items()}

@@ -9,6 +9,11 @@
   40 micro-steps of it and writes ``preset.json`` with JAX's keys (``dp``
   among them; the ``--dp/--zero1`` parser errors are held against JAX's in
   ``tests/test_torch_dp_examples.py``).
+- ``--tp/--ep``: JAX's parser errors word for word (JAX's ``--flash``
+  refusal excepted: the port's attention core is the flash kernels on each
+  rank's heads), and tiny CPU runs at ``--tp 2`` and ``--tp 2 --ep 2
+  --num-experts 4`` (spawned gloo ranks) whose losses equal the one-rank
+  runs' within 1e-5.
 """
 
 import importlib
@@ -109,3 +114,57 @@ def test_full_quick_preset(tmp_path):
         "task": "cola", "corpus": 160, "micro_batch": 8, "accum_k": 2, "dp": 1, "epochs": 3,
         "full_max_steps": 60, "ran_steps": 40, "quick": True}
     assert 0.0 <= preset["final_eval_accuracy"] <= 1.0
+
+
+JAX_DEVICES = 8  # tests/conftest.py's virtual CPU devices
+
+
+@pytest.mark.parametrize("argv", [
+    ["--tp", "0"],
+    ["--ep", "0"],
+    ["--ep", "2"],
+    ["--ep", "3", "--num-experts", "4"],
+    ["--tp", "4", "--ep", "4", "--num-experts", "4"],
+    ["--dp", "2", "--tp", "2", "--ep", "4", "--num-experts", "4"],
+], ids=["tp-0", "ep-0", "ep-without-experts", "ep-not-dividing", "mesh-past-devices",
+        "dp-tp-ep-past-devices"])
+def test_tp_ep_parser_errors_match_jax(argv, tmp_path, capsys, monkeypatch):
+    with pytest.raises(SystemExit):
+        jbf.main([*argv, "--model-dir", str(tmp_path / "jax")])
+    want = _error_line(capsys)
+    # as many cards as JAX has devices here, so "--device cuda" parses
+    monkeypatch.setattr(tbf, "available_devices", lambda device: JAX_DEVICES)
+    with pytest.raises(SystemExit):
+        tbf.main([*argv, "--device", "cuda"])
+    assert _error_line(capsys) == want
+
+
+def test_tp_ep_mesh_and_rules_follow_jax():
+    from gradaccum_tpu_torch.models.moe import moe_ep_rules
+    from gradaccum_tpu_torch.parallel.tp import bert_tp_ep_rules, bert_tp_rules
+
+    def pick(*argv):
+        return tbf.mesh_axes(tbf.parse_args([*argv, "--device", "cpu"]))
+
+    assert pick() == (None, None)
+    assert pick("--dp", "2") == (None, None)
+    assert pick("--dp", "2", "--tp", "2") == ([("data", 2), ("model", 2)], bert_tp_rules())
+    assert pick("--ep", "2", "--num-experts", "4") == ([("data", 1), ("expert", 2)],
+                                                        moe_ep_rules())
+    assert pick("--tp", "2", "--ep", "2", "--num-experts", "4") == (
+        [("data", 1), ("model", 2), ("expert", 2)], bert_tp_ep_rules())
+
+
+@pytest.mark.parametrize("extra", [[], ["--num-experts", "4", "--moe-top-k", "2"]],
+                         ids=["tp2", "tp2-ep2"])
+def test_tp_ep_runs_equal_the_one_rank_run(extra):
+    base = ["--device", "cpu", "--max-steps", "4", "--seq-len", "16", "--accum-k", "2",
+            "--vocab-size", "128", "--train-size", "64", *extra]
+    one = tbf.main(base)
+    wide = ["--tp", "2"] + (["--ep", "2"] if extra else [])
+    got = tbf.main(base + wide)
+    assert got["tp"] == 2 and got["ep"] == (2 if extra else 1) and got["updates"] == 2
+    for key in ("first_loss", "loss"):
+        np.testing.assert_allclose(got[key], one[key], rtol=1e-5, err_msg=key)
+    if extra:
+        assert got["moe_dropped_fraction"] == one["moe_dropped_fraction"]

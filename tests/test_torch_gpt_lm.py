@@ -2,8 +2,11 @@
 
 - The flags the port carries take JAX's defaults, and a bad value gets
   JAX's parser error; ``--dp/--zero1`` are carried (their parser errors
-  against JAX's: ``tests/test_torch_dp_examples.py``), ``--tp`` and
-  ``--export-dir`` are not.
+  against JAX's: ``tests/test_torch_dp_examples.py``), and so are ``--tp``
+  and ``--export-dir``.
+- ``--tp``: JAX's parser errors (its ``--flash --tp`` refusal excepted),
+  and a tiny CPU run at ``--tp 2 --flash`` (two spawned gloo ranks) whose
+  losses equal the one-rank run's within 1e-5.
 - The synthetic corpus and its byte windows (90/10 split) equal JAX's.
 - A 4-step CPU run with ``--flash`` prints one JSON line: finite losses,
   token accuracy in [0, 1], the decode rate line says "recompute".
@@ -51,8 +54,7 @@ def _jax_args(argv, monkeypatch):
 def test_defaults_match_jax(monkeypatch):
     want = _jax_args([], monkeypatch)
     got = vars(tlm.build_parser().parse_args([]))
-    mesh = {"tp"}  # --export-dir is carried; --tp waits for model parallelism
-    assert set(got) == set(want) - mesh | {"device"}
+    assert set(got) == set(want) | {"device"}
     for key in set(got) - {"device", "model_dir"}:
         assert got[key] == want[key], key
     assert got["device"] == "cuda"
@@ -72,12 +74,11 @@ def test_bad_values_get_jax_errors(argv, capsys):
 
 
 def test_mesh_and_export_flags_are_not_carried(capsys):
-    # --tp waits for model parallelism; --export-dir is carried (the
-    # artifact is held in tests/test_torch_export.py); --dp and --zero1 are
-    # carried, so --zero1 alone meets JAX's own parser error
-    with pytest.raises(SystemExit):
-        tlm.main(["--tp", "2", "--device", "cpu"])
-    assert "unrecognized arguments" in capsys.readouterr().err
+    # every mesh flag of JAX's example is carried now: --tp (tensor
+    # parallelism), --dp and --zero1, so --zero1 alone meets JAX's own
+    # parser error; --export-dir is carried too (the artifact is held in
+    # tests/test_torch_export.py)
+    assert tlm.parse_args(["--tp", "2", "--device", "cpu"]).tp == 2
     assert tlm.build_parser().parse_args(["--export-dir", "x"]).export_dir == "x"
     with pytest.raises(SystemExit):
         tlm.main(["--zero1", "--device", "cpu"])
@@ -111,3 +112,30 @@ def test_raises_without_a_card():
         pytest.skip("a CUDA device is present: the no-card refusal does not apply")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tlm.main(["--max-steps", "2"])
+
+
+JAX_DEVICES = 8  # tests/conftest.py's virtual CPU devices
+
+
+@pytest.mark.parametrize("argv", [["--tp", "0"], ["--tp", "16"], ["--dp", "4", "--tp", "4"]],
+                         ids=["tp-0", "tp-past-devices", "dp-tp-past-devices"])
+def test_tp_parser_errors_match_jax(argv, tmp_path, capsys, monkeypatch):
+    with pytest.raises(SystemExit):
+        jlm.main([*argv, "--model-dir", str(tmp_path / "jax")])
+    want = capsys.readouterr().err.strip().splitlines()[-1].split("error: ", 1)[1]
+    # as many cards as JAX has devices here, so "--device cuda" parses
+    monkeypatch.setattr(tlm, "available_devices", lambda device: JAX_DEVICES)
+    with pytest.raises(SystemExit):
+        tlm.main([*argv, "--device", "cuda"])
+    got = capsys.readouterr().err.strip().splitlines()[-1].split("error: ", 1)[1]
+    assert got == want
+
+
+def test_tp_flash_run_equals_the_one_rank_run():
+    base = ["--device", "cpu", "--flash", "--max-steps", "4", "--seq-len", "32",
+            "--batch", "4", "--sample", "0"]
+    one = tlm.main(base)
+    got = tlm.main(base + ["--tp", "2"])
+    assert got["tp"] == 2 and got["updates"] == 2
+    for key in ("first_loss", "loss"):
+        np.testing.assert_allclose(got[key], one[key], rtol=1e-5, err_msg=key)
