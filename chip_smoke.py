@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one NVIDIA H100.
 
-    python3 chip_smoke.py     # one card, about three minutes
+    python3 chip_smoke.py     # one card, about six minutes
 
 Phases, each of which fails the run if it fails:
 
@@ -190,12 +190,45 @@ Phases, each of which fails the run if it fails:
     Every leg's collectives per update must equal the design's count
     (``_mp_predicted_calls``, PERF.md); gloo's SUM/MIN all-reduce,
     all-gather and broadcast are asked on a ``new_group`` subgroup with CUDA
-    tensors.
+    tensors, and so are ``ppermute`` (round the ring and along a pipeline)
+    and ``all_to_all`` in float32 and bfloat16, their received values
+    checked.
+
+23. sequence and pipeline parallelism (``parallel/{ring_attention,ulysses,
+    sp,pp}.py``, ``models/bert_pp.py``) and long context: ranks spawned here
+    share the card over gloo (``python3 chip_smoke.py --sppp-rank DIR N`` is
+    a rank), BERT-Small float32, dropout 0, micro 8 x K=4, 2 updates of SGD
+    at lr 1 with the clip at 1 through the Estimator, each leg against the
+    same run in one process from the same seed and batches: (a) sp=2 ring at
+    seq 512 (the dense twin evaluating), (b) the same with Ulysses, (c)
+    pipe=2 at seq 128 with the guard, rank 0's stage output of one
+    micro-batch NaN: it is skipped on both ranks as in the one process
+    (whose loss sees a NaN in that micro-batch), and the global checkpoint
+    restores in one process bitwise; (d) data=2 x pipe=2. Losses within
+    relative 1e-5, parameters within rtol 2e-4, atol 2e-5, and each tensor's
+    move from its initial value within 1e-3 of the one-process move in norm
+    (plus 1e-6 of the whole move, for gradients zero but for rounding);
+    every leg's collectives per update equal the design's count
+    (``_sppp_predicted_calls``, PERF.md); ``ppermute`` and ``all_to_all``
+    asked on every mesh axis in both dtypes, values checked; gloo's
+    send/recv of a CUDA tensor asked in two ranks of their own
+    (``--p2p-rank``; a finding). (e) ``bench_longcontext`` at S = 512, 2048
+    and 8192 (16384 tokens per step, bf16), all four cores, the sharded ones
+    at 2 seq ranks, 5 iterations: ms per step, tokens/s and peak memory of
+    each row, the flash leg's launches per step exact; no flash, ring or
+    Ulysses row may fail; each kernel against its plain version in bf16
+    within TOL at [32, 8, 512, 64], [8, 8, 2048, 64] and [2, 8, 8192, 64]
+    (dropout 0; 0.1 too at 2048), and timed at those shapes beside its
+    bound, plain version and SDPA in a process of its own
+    (``--longctx-timing PATH``). Every time in the kernels line says how it
+    was taken (``ms_from``: the profiler's device events, or CUDA events
+    where the profiler kept losing events).
 
 The last three lines of standard output are the card's name and power
 limit, a JSON line describing every kernel in each dtype (bfloat16: launches
-from the main path; float32: from ``gpt_lm --flash`` in scan mode, and from
-phase 18 under ``launches_bert_f32``), and the
+from the main path, and at phase 23's long-context shapes; float32: from
+``gpt_lm --flash`` in scan mode, and from phase 18 under
+``launches_bert_f32``), and the
 result line ``{"ok": true, "device": {...}}``. Without a card, or without the package
 beside this script, it exits non-zero and prints no result.
 """
@@ -392,37 +425,7 @@ def phase_kernels():
              (torch.float32, GPT_LM_SHAPE, gpt)]
     for dtype, shape, shape_cases in runs:
         for masked, causal, rate in shape_cases:
-            q, k, v, mask, do = _inputs(dtype, masked, shape=shape)
-            seed = SEED if rate else None
-            o, lse = fa.flash_fwd_cuda(q, k, v, mask, seed, causal, rate)
-            o_r, lse_r = fa.flash_forward_reference(q, k, v, mask, seed, causal, rate)
-            # each backward kernel gets exactly its plain twin's inputs: dk/dv
-            # the plain delta, which the dq kernel's own is held against
-            delta = fa._delta(do, o_r)
-            dq, delta_k = fa.flash_bwd_dq_cuda(q, k, v, mask, seed, do, o_r, lse_r, causal,
-                                               rate)
-            dk, dv, dm = fa.flash_bwd_dkv_cuda(q, k, v, mask, seed, do, lse_r, delta,
-                                               causal, rate)
-            dq_r, dk_r, dv_r, dm_r = fa.flash_backward_reference(
-                q, k, v, mask, seed, o_r, lse_r, do, causal, rate)
-            torch.cuda.synchronize()
-            outs = {"o": (o, o_r), "lse": (lse, lse_r), "dq": (dq, dq_r),
-                    "delta": (delta_k, delta), "dk": (dk, dk_r), "dv": (dv, dv_r)}
-            if masked:
-                outs["dmask"] = (dm, dm_r)
-            line = []
-            for name, (got, want) in outs.items():
-                err, ok, atol, rtol = _err(name, got, want, dtype)
-                kernel = {"o": "flash_fwd", "lse": "flash_fwd", "dq": "flash_bwd_dq",
-                          "delta": "flash_bwd_dq"}.get(name, "flash_bwd_dkv")
-                key = (kernel, str(dtype))
-                worst[key] = max(worst.get(key, 0.0), err)
-                line.append(f"{name}={err:.2e}")
-                check(ok, f"{name} disagrees ({dtype}, {shape}, mask={masked}, "
-                          f"causal={causal}, rate={rate}): max |err| {err:.3e} > "
-                          f"{atol} + {rtol}|ref|")
-            print(f"[kernels] {str(dtype)[6:]:8s} {shape} mask={int(masked)} "
-                  f"causal={int(causal)} rate={rate}: " + " ".join(line))
+            _check_kernels(fa, dtype, shape, masked, causal, rate, worst)
     for dtype, shape in ((torch.float32, (B, H, S, D)), (torch.bfloat16, (B, H, S, D)),
                          (torch.bfloat16, (B, H, 200, D)), (torch.float32, (B, H, 200, D)),
                          (torch.bfloat16, GPT_SHAPE),
@@ -433,6 +436,42 @@ def phase_kernels():
         _check_keep_masks(fa, dtype, (B, H // 2, S, D), head_offset=H // 2, heads_total=H)
         _check_head_slice(fa, dtype)
     return worst
+
+
+def _check_kernels(fa, dtype, shape, masked, causal, rate, worst, tag="kernels"):
+    """Each kernel against its plain version on one case, within TOL; the
+    largest error of each kernel lands in ``worst``."""
+    import torch
+
+    q, k, v, mask, do = _inputs(dtype, masked, shape=shape)
+    seed = SEED if rate else None
+    o, lse = fa.flash_fwd_cuda(q, k, v, mask, seed, causal, rate)
+    o_r, lse_r = fa.flash_forward_reference(q, k, v, mask, seed, causal, rate)
+    # each backward kernel gets exactly its plain twin's inputs: dk/dv the
+    # plain delta, which the dq kernel's own is held against
+    delta = fa._delta(do, o_r)
+    dq, delta_k = fa.flash_bwd_dq_cuda(q, k, v, mask, seed, do, o_r, lse_r, causal, rate)
+    dk, dv, dm = fa.flash_bwd_dkv_cuda(q, k, v, mask, seed, do, lse_r, delta, causal, rate)
+    dq_r, dk_r, dv_r, dm_r = fa.flash_backward_reference(
+        q, k, v, mask, seed, o_r, lse_r, do, causal, rate)
+    torch.cuda.synchronize()
+    outs = {"o": (o, o_r), "lse": (lse, lse_r), "dq": (dq, dq_r),
+            "delta": (delta_k, delta), "dk": (dk, dk_r), "dv": (dv, dv_r)}
+    if masked:
+        outs["dmask"] = (dm, dm_r)
+    line = []
+    for name, (got, want) in outs.items():
+        err, ok, atol, rtol = _err(name, got, want, dtype)
+        kernel = {"o": "flash_fwd", "lse": "flash_fwd", "dq": "flash_bwd_dq",
+                  "delta": "flash_bwd_dq"}.get(name, "flash_bwd_dkv")
+        key = (kernel, str(dtype))
+        worst[key] = max(worst.get(key, 0.0), err)
+        line.append(f"{name}={err:.2e}")
+        check(ok, f"{name} disagrees ({dtype}, {shape}, mask={masked}, "
+                  f"causal={causal}, rate={rate}): max |err| {err:.3e} > "
+                  f"{atol} + {rtol}|ref|")
+    print(f"[{tag}] {str(dtype)[6:]:8s} {shape} mask={int(masked)} "
+          f"causal={int(causal)} rate={rate}: " + " ".join(line))
 
 
 def _check_head_slice(fa, dtype, first=H // 2):
@@ -536,12 +575,17 @@ def _time_ms(fn, iters=50, warmup=5):
 def _device_ms(fn, iters=50, warmup=5, attempts=3):
     """Card time per call (ms): the device time of every kernel, copy and
     memset the calls launched, summed from torch.profiler's device events,
-    over the number of calls. Host dispatch is not in it. Returns the time
-    and the device events' names, the longest first. A window that records
+    over the number of calls. Host dispatch is not in it. Returns the time,
+    the device events' names, the longest first, and the method that gave
+    the time: ``"profiler"`` or ``"cuda_events"``. A window that records
     no device event at all (seen once, in the first window of a process),
     or an event a number of times that is not a multiple of the calls (a
-    window that lost some of its events would read low), is profiled again;
-    the last attempt's reading stands, with a note."""
+    window that lost some of its events would read low: late in a long
+    process windows lose half their events), is profiled again; when the
+    last attempt loses events too, the time is the CUDA events' over the
+    same back-to-back calls (``_time_ms``: the card's time where the calls'
+    kernels outlast their dispatch, an upper bound otherwise), with a note
+    and the method ``"cuda_events"``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -557,10 +601,14 @@ def _device_ms(fn, iters=50, warmup=5, attempts=3):
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         device = sorted(((e.self_device_time_total, e.key) for e in events), reverse=True)
         ragged = [f"{e.key[:40]} x{e.count}" for e in events if e.count % iters]
-        if device and (not ragged or attempt + 1 == attempts):
-            if ragged:
-                print(f"[timing] device events not a multiple of {iters} calls: {ragged}")
-            return sum(t for t, _ in device) / iters / 1e3, [key for _, key in device]
+        if device and not ragged:
+            return (sum(t for t, _ in device) / iters / 1e3, [key for _, key in device],
+                    "profiler")
+        if device and attempt + 1 == attempts:
+            ms = _time_ms(fn, iters, warmup)
+            print(f"[timing] device events not a multiple of {iters} calls: {ragged}; "
+                  f"CUDA events over the calls instead: {ms:.4f} ms a call")
+            return ms, [key for _, key in device], "cuda_events"
         print(f"[timing] profiler window {attempt + 1} of {attempts} saw "
               + (f"device events not a multiple of {iters} calls: {ragged}" if device
                  else "no device event"))
@@ -599,14 +647,16 @@ def _bounds(dtype, masked, shape=(B, H, S, D), causal=False):
     return out
 
 
-def phase_timing(shape=(B, H, S, D), masked=True, causal=False, label="bert", dtype=None):
+def phase_timing(shape=(B, H, S, D), masked=True, causal=False, label="bert", dtype=None,
+                 rate=RATE):
     """Each kernel, its plain version and the library yardstick with dropout
     0.1: at the main path's conditions (BERT-Small bf16, padded mask, not
     causal), or at GPT's (no mask, causal: GPT-Small's seq 512 in bf16 and
     float32, gpt_lm's [16, 4, 64, 32] in float32). Every number is card time
     per call (torch.profiler device events); the wall time per call of
     back-to-back calls, dispatch included, is printed beside each
-    kernel's."""
+    kernel's. Returns the times, the bounds, and for each kernel the method
+    behind each of its times (``_device_ms``)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -615,28 +665,26 @@ def phase_timing(shape=(B, H, S, D), masked=True, causal=False, label="bert", dt
 
     dtype = dtype or torch.bfloat16
     q, k, v, mask, do = _inputs(dtype, masked, seed=1, shape=shape)
-    seed = torch.tensor([SEED], dtype=torch.int64, device="cuda")
-    o, lse = fa.flash_fwd_cuda(q, k, v, mask, seed, causal, RATE)
-    _, delta = fa.flash_bwd_dq_cuda(q, k, v, mask, seed, do, o, lse, causal, RATE)
+    seed = torch.tensor([SEED], dtype=torch.int64, device="cuda") if rate else None
+    o, lse = fa.flash_fwd_cuda(q, k, v, mask, seed, causal, rate)
+    _, delta = fa.flash_bwd_dq_cuda(q, k, v, mask, seed, do, o, lse, causal, rate)
     calls = {
-        "flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, mask, seed, causal, RATE),
+        "flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, mask, seed, causal, rate),
         "flash_bwd_dq": lambda: fa.flash_bwd_dq_cuda(
-            q, k, v, mask, seed, do, o, lse, causal, RATE),
+            q, k, v, mask, seed, do, o, lse, causal, rate),
         "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_cuda(
-            q, k, v, mask, seed, do, lse, delta, causal, RATE),
+            q, k, v, mask, seed, do, lse, delta, causal, rate),
     }
-    ms = {name: _device_ms(fn)[0] for name, fn in calls.items()}
+    timed = {name: _device_ms(fn) for name, fn in calls.items()}
+    ms = {name: t[0] for name, t in timed.items()}
     wall = {name: _time_ms(fn) for name, fn in calls.items()}
     # the plain backward computes dq, dk, dv and dmask in one pass: its time
     # stands beside both backward kernels
-    plain_bwd = _device_ms(lambda: fa.flash_backward_reference(
-        q, k, v, mask, seed, o, lse, do, causal, RATE), iters=20)[0]
-    plain = {
-        "flash_fwd": _device_ms(lambda: fa.flash_forward_reference(
-            q, k, v, mask, seed, causal, RATE), iters=20)[0],
-        "flash_bwd_dq": plain_bwd,
-        "flash_bwd_dkv": plain_bwd,
-    }
+    plain_bwd, _, plain_bwd_from = _device_ms(lambda: fa.flash_backward_reference(
+        q, k, v, mask, seed, o, lse, do, causal, rate), iters=20)
+    plain_fwd, _, plain_fwd_from = _device_ms(lambda: fa.flash_forward_reference(
+        q, k, v, mask, seed, causal, rate), iters=20)
+    plain = {"flash_fwd": plain_fwd, "flash_bwd_dq": plain_bwd, "flash_bwd_dkv": plain_bwd}
     # SDPA's backward computes dq, dk and dv in one call: its time stands
     # beside both backward kernels, so K2 + K3 is the fair comparison. The
     # window holds the backward alone (the forward ran once, before it).
@@ -644,16 +692,20 @@ def phase_timing(shape=(B, H, S, D), masked=True, causal=False, label="bert", dt
     # memory-efficient one takes an additive mask and dropout in bfloat16.
     backend = SDPBackend.EFFICIENT_ATTENTION
     with sdpa_kernel(backend):
-        sdpa_fwd, fwd_kernels = _device_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, dropout_p=RATE, is_causal=causal))
+        sdpa_fwd, fwd_kernels, sdpa_fwd_from = _device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, dropout_p=rate, is_causal=causal))
         qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-        o_sdpa = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, dropout_p=RATE,
+        o_sdpa = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, dropout_p=rate,
                                                 is_causal=causal)
-    sdpa_bwd, bwd_kernels = _device_ms(lambda: torch.autograd.grad(
+    sdpa_bwd, bwd_kernels, sdpa_bwd_from = _device_ms(lambda: torch.autograd.grad(
         o_sdpa, (qg, kg, vg), do, retain_graph=True))
     library = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd, "flash_bwd_dkv": sdpa_bwd}
+    method = {name: {"ms": timed[name][2],
+                     "plain_ms": plain_fwd_from if name == "flash_fwd" else plain_bwd_from,
+                     "library_ms": sdpa_fwd_from if name == "flash_fwd" else sdpa_bwd_from}
+              for name in ms}
     print(f"[timing] {label} {str(dtype)[6:]} {list(shape)} mask={int(masked)} "
-          f"causal={int(causal)}")
+          f"causal={int(causal)} dropout={rate}")
     print(f"[timing] sdpa backend {backend.name}: forward {sdpa_fwd:.4f} ms "
           f"({', '.join(n[:60] for n in fwd_kernels[:3])}), backward (dq + dk + dv) "
           f"{sdpa_bwd:.4f} ms ({', '.join(n[:60] for n in bwd_kernels[:3])}); "
@@ -669,8 +721,9 @@ def phase_timing(shape=(B, H, S, D), masked=True, causal=False, label="bert", dt
         print(f"[timing] {name} ({fa.route(dtype)}): {ms[name]:.4f} ms on the card, "
               f"{wall[name]:.4f} ms a call with dispatch (plain {plain[name]:.4f} ms, "
               f"sdpa {library[name]:.4f} ms; bound {bounds[name][0] * 1e3:.2f} us by "
-              f"{bounds[name][1]}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP{fma})")
-    return ms, plain, library, bounds
+              f"{bounds[name][1]}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP{fma}; "
+              f"times from {method[name]})")
+    return ms, plain, library, bounds, method
 
 
 # --------------------------------------------------------------------------
@@ -836,14 +889,14 @@ def phase_streaming(windows: int = 8):
     return result
 
 
-def _bert_small_batches(n, seed, vocab=30522):
+def _bert_small_batches(n, seed, vocab=30522, seq=S):
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    lengths = rng.integers(S // 4, S + 1, size=n)
-    mask = (np.arange(S)[None, :] < lengths[:, None]).astype(np.int32)
-    return {"input_ids": (rng.integers(5, vocab, size=(n, S)) * mask).astype(np.int32),
-            "input_mask": mask, "segment_ids": np.zeros((n, S), np.int32),
+    lengths = rng.integers(seq // 4, seq + 1, size=n)
+    mask = (np.arange(seq)[None, :] < lengths[:, None]).astype(np.int32)
+    return {"input_ids": (rng.integers(5, vocab, size=(n, seq)) * mask).astype(np.int32),
+            "input_mask": mask, "segment_ids": np.zeros((n, seq), np.int32),
             "label": rng.integers(0, 2, size=n).astype(np.int32)}
 
 
@@ -1718,8 +1771,8 @@ def _bert_dp_estimator(mesh=None, zero1=False, dropout=0.1, k=K, lr=None, mode="
                      mode=mode, device="cuda", mesh=mesh, zero1=zero1)
 
 
-def _host_batches(updates, rows, seed):
-    data = _bert_small_batches(updates * rows, seed=seed)
+def _host_batches(updates, rows, seed, seq=S):
+    data = _bert_small_batches(updates * rows, seed=seed, seq=seq)
     return [{key: v[u * rows:(u + 1) * rows] for key, v in data.items()} for u in range(updates)]
 
 
@@ -1935,18 +1988,29 @@ def _probe_gloo_cuda():
 
     group = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=30))
     x = torch.ones(4, device="cuda")
+    rank = dist.get_rank(group)
+
+    def all_to_all():
+        # rank r sends [r, r] to each peer: it receives [j, j] from rank j
+        got = torch.empty(4, device="cuda")
+        dist.all_to_all_single(got, torch.full((4,), float(rank), device="cuda"),
+                               group=group)
+        want = torch.tensor([0.0, 0.0, 1.0, 1.0], device="cuda")
+        return None if torch.equal(got, want) else f"wrong values {got.tolist()}"
+
     ops = {
         "all_reduce": lambda: dist.all_reduce(x.clone(), group=group),
         "broadcast": lambda: dist.broadcast(x.clone(), src=0, group=group),
         "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(2)], x,
                                               group=group),
+        "all_to_all_single": all_to_all,
     }
     found = {}
     for name, op in ops.items():
         try:
-            op()
+            wrong = op()
             torch.cuda.synchronize()
-            found[name] = "runs on CUDA tensors"
+            found[name] = wrong or "runs on CUDA tensors"
         except (RuntimeError, ValueError) as e:
             found[name] = f"refused: {str(e).splitlines()[0][:120]}"
     return found
@@ -2284,16 +2348,51 @@ def _probe_gloo_subgroup(mesh):
             "all_gather": lambda: m.all_gather(x, tag="probe"),
             "broadcast": lambda: m.broadcast_(x.clone(), tag="probe"),
         }
+        ops.update(_collective_probes(m, dtype))
         for name, op in ops.items():
             key = f"{name}:{str(dtype)[6:]}"
             try:
-                op()
+                wrong = op()
                 torch.cuda.synchronize()
-                found[key] = "runs"
+                found[key] = wrong if isinstance(wrong, str) else "runs"
             except (RuntimeError, ValueError) as e:
                 found[key] = f"refused: {str(e).splitlines()[0][:100]}"
     m.reset_calls()
     return found
+
+
+def _collective_probes(m, dtype):
+    """The differentiable collectives of ``parallel/mesh.py`` on the axis
+    mesh ``m``, each a function that returns None when every rank received
+    the values it should, else a string saying what came: ``ppermute``
+    round the ring and along the pipeline (the first rank gets zeros), and
+    ``all_to_all``."""
+    import torch
+
+    n, r, dev = m.world, m.rank, m.device
+
+    def block(rank):  # what rank ``rank`` sends: its index in every value
+        return (torch.arange(6, device=dev, dtype=torch.float32) + 100 * rank).to(dtype)
+
+    def compare(got, want):
+        return None if torch.equal(got, want) else f"wrong values {got.float().tolist()}"
+
+    def ring():
+        return compare(m.ppermute(block(r), [(i, (i + 1) % n) for i in range(n)],
+                                  tag="probe"), block((r - 1) % n))
+
+    def pipe():
+        want = torch.zeros_like(block(r)) if r == 0 else block(r - 1)
+        return compare(m.ppermute(block(r), [(i, i + 1) for i in range(n - 1)],
+                                  tag="probe"), want)
+
+    def all_to_all():
+        # rank r's chunk j is [r, j]; rank r receives chunk r of every rank
+        x = torch.tensor([[r, j] for j in range(n)], device=dev, dtype=torch.float32)
+        want = torch.tensor([[j, r] for j in range(n)], device=dev, dtype=torch.float32)
+        return compare(m.all_to_all(x.to(dtype), 0, 0, tag="probe"), want.to(dtype))
+
+    return {"ppermute_ring": ring, "ppermute_pipe": pipe, "all_to_all": all_to_all}
 
 
 def _mp_reference(name, leg):
@@ -2459,6 +2558,502 @@ def phase_mp():
                   f"in one process: {len(same)} leaves bitwise equal to the gathered state")
             del est
             _release()
+
+
+# --------------------------------------------------------------------------
+# phase 23: sequence and pipeline parallelism, and long context
+# --------------------------------------------------------------------------
+
+SPPP_DIR = os.path.join(ROOT, "build", "chip_smoke_sp_pp")
+SPPP_UPDATES = 2
+SP_SEQ, PP_SEQ = 512, 128  # sequence-parallel legs at seq 512, pipeline legs at 128
+PP_POISON = (0, 1)  # (update, micro-batch) whose stage-0 output is NaN on pipe rank 0
+LONG_SEQS = (512, 2048, 8192)  # bench_longcontext at 16384 tokens per step
+LONG_SHAPES = [(32, H, 512, D), (8, H, 2048, D), (2, H, 8192, D)]
+LONG_CHECK = (8, H, 2048, D)  # the kernels also with dropout against their plain versions
+SPPP_LR = 1.0  # SGD: each parameter moves by its clipped gradient
+SPPP_DELTA_RTOL = 1e-3  # each tensor's move against one process's, relative in norm
+SPPP_MOVE_FLOOR = 1e-6  # ... plus this share of the whole move, in norm: the floor of a
+# tensor whose gradient is zero but for rounding (the key bias: softmax ignores it)
+
+
+def _sppp_legs():
+    """The legs of phase 23 by name: ranks, mesh axes and the run."""
+    return {
+        "sp_ring": dict(world=2, axes=[("data", 1), ("seq", 2)], core="ring", seq=SP_SEQ),
+        "sp_ulysses": dict(world=2, axes=[("data", 1), ("seq", 2)], core="ulysses",
+                           seq=SP_SEQ),
+        "pp": dict(world=2, axes=[("pipe", 2), ("data", 1)], seq=PP_SEQ, guard=True),
+        "dp_pp": dict(world=4, axes=[("pipe", 2), ("data", 2)], seq=PP_SEQ),
+    }
+
+
+def _sppp_predicted_calls(name):
+    """The collectives of one update the design predicts (PERF.md, phase
+    23): the ring one ppermute per hop per layer forward and one back, the
+    Ulysses core two all-to-alls forward, two back and a mask all-gather per
+    layer, the [CLS] readout's sum per micro-batch, and ONE gradient
+    all-reduce per update over data and seq (data=1: over seq); the
+    pipeline 2 (K + P - 2) ppermutes, one all-reduce on pipe, one on data
+    with a data axis, and under the guard two MIN all-reduces."""
+    L = LAYERS
+    if name == "sp_ring":
+        return {"seq/ppermute": K * 2 * L, "seq/all_reduce": K + 1}
+    if name == "sp_ulysses":
+        return {"seq/all_to_all": K * 4 * L, "seq/all_gather": K * L, "seq/all_reduce": K + 1}
+    if name == "pp":
+        return {"pipe/ppermute": 2 * K, "pipe/all_reduce": 1, "pipe/pmin": 2}
+    return {"pipe/ppermute": 2 * K, "pipe/all_reduce": 1, "data/all_reduce": 1}
+
+
+def _sppp_cfg():
+    import torch
+
+    from gradaccum_tpu_torch.models.bert import BertConfig
+
+    return BertConfig.small(dtype=torch.float32, hidden_dropout=0.0, attention_dropout=0.0)
+
+
+def _sppp_opt():
+    """SGD at SPPP_LR: the move is the gradient itself (Adam would divide out
+    a gradient off by a constant factor, such as a head summed over seq)."""
+    from gradaccum_tpu_torch.ops.adamw import sgd
+
+    return sgd(SPPP_LR)
+
+
+def _sppp_estimator(leg=None, mesh=None, model_dir=None, poison_rank=False):
+    """BERT-Small float32, dropout 0, micro 8 x K=4, through the Estimator:
+    with ``leg`` on its mesh (the sequence-parallel model and its dense
+    twin, or the pipeline of two stages), else the one-process run; the
+    guarded legs skip non-finite micro-batches. ``poison_rank``: this
+    rank's stage output of micro-batch ``PP_POISON`` is NaN."""
+    import torch
+
+    from gradaccum_tpu_torch.estimator.config import RunConfig
+    from gradaccum_tpu_torch.estimator.estimator import Estimator
+    from gradaccum_tpu_torch.models.bert import bert_classifier_bundle
+    from gradaccum_tpu_torch.models.bert_pp import bert_pipeline_spec
+    from gradaccum_tpu_torch.ops.accumulation import GradAccumConfig
+    from gradaccum_tpu_torch.parallel.ring_attention import make_ring_attention_fn
+    from gradaccum_tpu_torch.parallel.ulysses import make_ulysses_attention_fn
+
+    leg = leg or {}
+    cfg = _sppp_cfg()
+    bundle = bert_classifier_bundle(cfg)
+    kw = {}
+    if "core" in leg:
+        core = make_ring_attention_fn() if leg["core"] == "ring" else make_ulysses_attention_fn()
+        kw["eval_model"] = bundle
+        bundle = bert_classifier_bundle(cfg, attention_fn=core, seq_axis="seq")
+    elif "pipe" in dict(leg.get("axes", ())):
+        spec = bert_pipeline_spec(cfg, 2)
+        if poison_rank:
+            calls = []
+            ticks = K + 2 - 1
+
+            def stage_fn(params, x, ctx, inner=spec.stage_fn):
+                # rank 0 holds micro-batch t at tick t; a select, so the NaN
+                # takes no gradient back into the stage (as an overflow the
+                # next stage's guard catches)
+                y = inner(params, x, ctx)
+                update, micro = divmod(len(calls), ticks)
+                calls.append(1)
+                hit = torch.tensor((update, micro) == PP_POISON, device=y.device)
+                return torch.where(hit, torch.full_like(y, float("nan")), y)
+
+            spec = spec._replace(stage_fn=stage_fn)
+        kw["pipeline"] = spec
+    elif leg.get("guard"):  # the one-process twin of the guarded pipeline leg
+        base = bundle
+        bundle = base._replace(loss=lambda m, b: base.loss(m, b) + b["poison"].sum() * 0)
+    return Estimator(bundle, _sppp_opt(),
+                     GradAccumConfig(K, clip_norm=1.0, first_step_quirk=False,
+                                     skip_nonfinite=bool(leg.get("guard"))),
+                     RunConfig(log_step_count_steps=1000, save_checkpoints_steps=None,
+                               model_dir=model_dir),
+                     mode="scan", device="cuda", mesh=mesh, **kw)
+
+
+def _sppp_batches(leg, poisoned=False):
+    """The leg's host batches (K x micro rows of its length); ``poisoned``
+    adds the float column whose NaN marks micro-batch ``PP_POISON`` for the
+    one-process twin of the guarded leg."""
+    import numpy as np
+
+    rows = K * B * dict(leg["axes"]).get("data", 1)
+    batches = _host_batches(SPPP_UPDATES, rows, seed=71, seq=leg["seq"])
+    if poisoned:
+        for u, batch in enumerate(batches):
+            poison = np.zeros((rows, 1), np.float32)
+            if u == PP_POISON[0]:
+                micro = rows // K
+                poison[PP_POISON[1] * micro] = np.nan
+            batch["poison"] = poison
+    return batches
+
+
+def _sppp_run(est, batches, mesh=None):
+    """Train one update per batch: losses, skip counts, each update's
+    collectives, and (one process: ``mesh`` None) the initial parameters."""
+    losses, calls, skipped = [], [], []
+    est.train([], final_save=False)
+    init = None if mesh is not None else {
+        k: v.detach().float().cpu().clone() for k, v in est._state.params.items()}
+    inner = est._train_step
+
+    def step(state, batch, *rng):
+        state, aux = inner(state, batch, *rng)
+        skipped.append(int(aux.get("skipped", 0)))
+        return state, aux
+
+    est._train_step = step
+    for batch in batches:
+        if mesh is not None:
+            mesh.reset_calls()
+        est.train([batch], final_save=False)
+        losses.append(float(est.last_loss))
+        if mesh is not None:
+            calls.append({k: v for k, v in mesh.calls.items() if ":" not in k})
+    return losses, calls, skipped, init
+
+
+def _sppp_rank(outdir, world):
+    """One rank of phase 23: gloo on the shared card; every leg of
+    ``world`` ranks, then the collectives probed on its meshes."""
+    import torch
+
+    from gradaccum_tpu_torch.estimator import checkpoint as ckpt_lib
+    from gradaccum_tpu_torch.parallel import mesh as mesh_lib
+
+    os.environ["GRADACCUM_EVENTS"] = "0"  # (c)'s checkpoints: no TensorBoard import
+    mesh_lib.initialize_multihost(device="cuda:0", backend="gloo", timeout_s=300)
+    out = {}
+    try:
+        for name, leg in _sppp_legs().items():
+            if leg["world"] != int(world):
+                continue
+            mesh = mesh_lib.make_mesh(leg["axes"])
+            model_dir = os.path.join(outdir, f"ckpt_{name}") if leg.get("guard") else None
+            est = _sppp_estimator(leg, mesh, model_dir,
+                                  poison_rank=leg.get("guard") and mesh.coords["pipe"] == 0)
+            t0 = time.perf_counter()
+            losses, calls, skipped, _ = _sppp_run(est, _sppp_batches(leg), mesh)
+            res = {"losses": losses, "calls": calls, "skipped": skipped,
+                   "seconds": time.perf_counter() - t0,
+                   "peak_MiB": torch.cuda.max_memory_allocated() / 2**20}
+            whole = est._global_state(est._state)  # every rank gathers
+            params = whole.params
+            if est.pipeline is not None:
+                params = est.pipeline.merge(params)
+            if mesh.rank == 0:
+                res["params"] = {k: v.detach().float().cpu() for k, v in params.items()}
+                if model_dir:
+                    res["gathered"] = {k: v.detach().cpu() for k, v in
+                                       ckpt_lib.flatten(whole).items()
+                                       if isinstance(v, torch.Tensor)}
+            if model_dir:
+                est._save(est._state)  # the whole state: every rank gathers, rank 0 writes
+                est._ckpt_sync()
+            for axis in mesh.axis_names:
+                if mesh.shape[axis] > 1:
+                    m = mesh.axis(axis)
+                    for dtype in (torch.float32, torch.bfloat16):
+                        for op, fn in _collective_probes(m, dtype).items():
+                            key = f"{axis}:{op}:{str(dtype)[6:]}"
+                            try:
+                                res.setdefault("probes", {})[key] = fn() or "values right"
+                            except (RuntimeError, ValueError) as e:
+                                res.setdefault("probes", {})[key] = \
+                                    f"refused: {str(e).splitlines()[0][:100]}"
+            out[name] = res
+            del est, whole, params
+            _release()
+        torch.save(out, os.path.join(outdir, f"rank{mesh_lib.current_mesh().rank}.pt"))
+        rank = mesh_lib.current_mesh().rank
+    finally:
+        mesh_lib.shutdown()
+    if rank == 0:
+        print(json.dumps({"ok": True}))
+    return 0
+
+
+def _p2p_rank(outdir):
+    """One rank of the point-to-point probe: gloo's send/recv of a CUDA
+    tensor, the values received written down."""
+    import torch
+    import torch.distributed as dist
+
+    from gradaccum_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh_lib.initialize_multihost(device="cuda:0", backend="gloo", timeout_s=30)
+    try:
+        rank = dist.get_rank()
+        x = torch.arange(8, dtype=torch.float32, device="cuda") + 1
+        if rank == 0:
+            dist.send(x, 1)
+        else:
+            got = torch.zeros_like(x)
+            dist.recv(got, 0)
+            torch.cuda.synchronize()
+            found = "values right" if torch.equal(got, x) else \
+                f"wrong values {got.tolist()}"
+            with open(os.path.join(outdir, "p2p.json"), "w") as f:
+                json.dump({"send_recv": found}, f)
+    finally:
+        mesh_lib.shutdown()
+    if rank == 0:
+        print(json.dumps({"ok": True}))
+    return 0
+
+
+def _probe_p2p():
+    """gloo's send/recv on CUDA tensors, in two ranks of their own: a
+    finding, not a gate (the port's ppermute runs on the all-to-all). A
+    crash or a hang of the pair is the finding too."""
+    from gradaccum_tpu_torch.examples.common import spawn_ranks
+
+    d = os.path.join(SPPP_DIR, "p2p")
+    os.makedirs(d, exist_ok=True)
+    try:
+        spawn_ranks("chip_smoke", ["--p2p-rank", d], 2, "cuda", deadline_s=90)
+    except RuntimeError as e:  # the probe's own finding: the ranks failed
+        return f"the ranks failed: {e}"
+    with open(os.path.join(d, "p2p.json")) as f:
+        return json.load(f)["send_recv"]
+
+
+def _sppp_check(name, leg, ref, ranks):
+    """Hold each rank of leg ``name`` against the one-process run."""
+    rtol, atol = MP_PARAM_TOL
+    want_calls = _sppp_predicted_calls(name)
+    for r, out in enumerate(ranks):
+        res = out[name]
+        gaps = [abs(a - b) / abs(b) for a, b in zip(res["losses"], ref["losses"])]
+        check(len(gaps) == SPPP_UPDATES and max(gaps) <= MP_LOSS_RTOL,
+              f"sp/pp {name} rank {r}: losses {res['losses']} against {ref['losses']}")
+        for u, calls in enumerate(res["calls"]):
+            check(calls == want_calls, f"sp/pp {name} rank {r} update {u}: collectives "
+                                       f"{calls}, the design predicts {want_calls}")
+        if leg.get("guard"):
+            want_skips = [1 if u == PP_POISON[0] else 0 for u in range(SPPP_UPDATES)]
+            check(res["skipped"] == want_skips == ref["skipped"],
+                  f"sp/pp {name} rank {r}: skipped {res['skipped']} (one process "
+                  f"{ref['skipped']}), wanted {want_skips}")
+        bad = {k: v for k, v in res["probes"].items() if v != "values right"}
+        check(not bad, f"sp/pp {name} rank {r}: collectives on CUDA tensors: {bad}")
+        print(f"[sp/pp] {name} rank {r}/{leg['world']} {dict(leg['axes'])}, seq "
+              f"{leg['seq']}, float32, dropout 0, {SPPP_UPDATES} updates: losses "
+              f"{res['losses']} against {ref['losses']} one process (max relative gap "
+              f"{max(gaps):.2e}, limit {MP_LOSS_RTOL:g}); skipped per update "
+              f"{res['skipped']}; collectives per update {res['calls'][0]}; peak "
+              f"{res['peak_MiB']:.0f} MiB on the card (all ranks' processes); "
+              f"{res['seconds']:.2f} s against {ref['seconds']:.2f} s one process; "
+              f"probes {res['probes']}")
+    params = ranks[0][name]["params"]
+    moves = {k: want - ref["init"][k] for k, want in ref["params"].items()}
+    whole = sum(float(m.norm()) ** 2 for m in moves.values()) ** 0.5
+    worst, worst_move = 0.0, 0.0
+    for k, want in ref["params"].items():
+        err = (params[k] - want).abs()
+        worst = max(worst, float(err.max()))
+        check(bool((err <= atol + rtol * want.abs()).all()),
+              f"sp/pp {name}: parameter {k} off the one-process run by {float(err.max()):.3e}")
+        # the move itself, which the parameters' own size hides: a gradient
+        # off by a factor (a head summed n_seq times) moves a tensor that far
+        move = float(moves[k].norm())
+        gap = float((params[k] - ref["init"][k] - moves[k]).norm())
+        check(gap <= SPPP_DELTA_RTOL * move + SPPP_MOVE_FLOOR * whole,
+              f"sp/pp {name}: parameter {k} moved {gap:.3e} (in norm) off the one-process "
+              f"run's move of {move:.3e} (whole move {whole:.4f})")
+        if move > SPPP_MOVE_FLOOR * whole:
+            worst_move = max(worst_move, gap / move)
+    print(f"[sp/pp] {name}: every parameter within atol {atol:g} + rtol {rtol:g} of the "
+          f"one-process run (max |err| {worst:.3e}); each tensor's move within "
+          f"{SPPP_DELTA_RTOL:g} of its one-process move in norm, plus {SPPP_MOVE_FLOOR:g} of "
+          f"the whole move {whole:.4f} (SGD lr {SPPP_LR:g}, clip 1; worst relative gap "
+          f"{worst_move:.3e} among tensors that moved more than that)")
+
+
+def _sppp_reference(name, leg):
+    """The leg in one process on the same global batches."""
+    import torch
+
+    est = _sppp_estimator(dict(guard=True) if leg.get("guard") else None)
+    t0 = time.perf_counter()
+    losses, _, skipped, init = _sppp_run(
+        est, _sppp_batches(leg, poisoned=leg.get("guard", False)))
+    torch.cuda.synchronize()
+    ref = {"losses": losses, "skipped": skipped, "seconds": time.perf_counter() - t0,
+           "params": {k: v.detach().float().cpu() for k, v in est._state.params.items()},
+           "init": init}
+    del est
+    _release()
+    return ref
+
+
+def _sppp_restore_check(ranks):
+    """(c)'s checkpoint, written at pipe=2, restored in one process into
+    the whole pipeline state: every leaf bitwise the gathered one."""
+    import torch
+
+    from gradaccum_tpu_torch.estimator import checkpoint as ckpt_lib
+    from gradaccum_tpu_torch.estimator.config import RunConfig
+    from gradaccum_tpu_torch.models.bert import bert_classifier_bundle
+    from gradaccum_tpu_torch.models.bert_pp import bert_pp_partition
+    from gradaccum_tpu_torch.parallel.pp import pp_init
+    from gradaccum_tpu_torch.utils.tree import named_parameters
+
+    dense = named_parameters(bert_classifier_bundle(_sppp_cfg()).init(RunConfig().seed, "cuda"))
+    pre, stages, post = bert_pp_partition(dense, 2)
+    template = pp_init(stages, _sppp_opt(), pre_params=pre, post_params=post)
+    restored = ckpt_lib.flatten(ckpt_lib.restore(os.path.join(SPPP_DIR, "ckpt_pp"), template))
+    gathered = ranks[0]["pp"]["gathered"]
+    same = [k for k in gathered if k in restored and torch.equal(restored[k].cpu(), gathered[k])]
+    check(len(same) == len(gathered),
+          f"sp/pp (c): {len(gathered) - len(same)} of {len(gathered)} leaves of the restored "
+          f"checkpoint differ from the gathered state")
+    print(f"[sp/pp] (c) the checkpoint written at pipe=2 restored in one process: "
+          f"{len(same)} leaves bitwise equal to the gathered state")
+    del template, restored
+    _release()
+
+
+def _longctx_timing(path):
+    """Each kernel timed at LONG_SHAPES (dropout 0, the bench's conditions)
+    beside its bound, plain version and SDPA, in a process of its own:
+    late in the whole script, profiler windows at these shapes lose device
+    events. Writes phase_timing's tuples to ``path`` as JSON."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("[chip_smoke] no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        timing = {"x".join(map(str, shape)): phase_timing(shape, masked=True,
+                                                           label="longctx", rate=0.0)
+                  for shape in LONG_SHAPES}
+    except SmokeError as e:
+        print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
+        return 1
+    with open(path, "w") as f:
+        json.dump(timing, f)
+    return 0
+
+
+def _longcontext():
+    """(e) ``bench_longcontext`` on the card: its rows at LONG_SEQS, the
+    flash leg's launches, and each kernel against its plain version at
+    every shape of LONG_SHAPES (dropout 0, and dropout RATE at LONG_CHECK);
+    then each kernel timed at LONG_SHAPES in a process of its own
+    (``_longctx_timing``)."""
+    import ast
+    import csv
+
+    import torch
+
+    from gradaccum_tpu_torch.examples import bench_longcontext as bench
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+
+    worst = {}
+    for shape, rate in [(shape, 0.0) for shape in LONG_SHAPES] + [(LONG_CHECK, RATE)]:
+        _check_kernels(fa, torch.bfloat16, shape, True, False, rate, worst, tag="longctx")
+        _release()
+    out = os.path.join(SPPP_DIR, "longcontext.csv")
+    t0 = time.perf_counter()
+    bench.main(["--seqs", *map(str, LONG_SEQS), "--iters", "5", "--remat-legs", "none",
+                "--out", out])
+    with open(out, newline="") as f:
+        rows = list(csv.DictReader(f))
+    print(f"[longctx] bench_longcontext took {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for row in rows:
+        print(f"[longctx] {row['core']:8s} seq {row['seq']:>5s} micro {row['micro_batch']:>2s}: "
+              f"{row['ms_per_step']} ms/step, {row['tokens_per_sec']} tokens/s, peak "
+              f"{row['peak_temp_mb']} MiB above the state ({row['device']})"
+              + (f", error {row['error']}" if row["error"] else ""))
+        check(not (row["core"] != "dense" and row["error"]),
+              f"longctx: the {row['core']} leg at seq {row['seq']} failed: {row['error']}")
+        if row["core"] == "flash":
+            per_step = ast.literal_eval(row["launches_per_step"])
+            launches[int(row["seq"])] = per_step
+            check(per_step == {name: LAYERS for name in REPLACES},
+                  f"longctx: flash leg at seq {row['seq']} launched {per_step} per step, "
+                  f"wanted {LAYERS} of each")
+    path = os.path.join(SPPP_DIR, "longctx_timing.json")
+    sys.stdout.flush()  # the timing process prints after what this one printed
+    rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--longctx-timing", path],
+                        cwd=ROOT, timeout=600).returncode
+    check(rc == 0, f"longctx: the kernel timing process exited {rc}")
+    with open(path) as f:
+        timed = json.load(f)
+    timing = {shape: timed["x".join(map(str, shape))] for shape in LONG_SHAPES}
+    return {"rows": rows, "launches": launches, "timing": timing, "worst": worst}
+
+
+def _in_background(fn):
+    """Run ``fn`` in a thread; returns the function that waits for it and
+    gives its result (or raises its exception)."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["value"] = fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised by the waiter
+            box["error"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["value"]
+
+    return wait
+
+
+def phase_sp_pp():
+    """Sequence and pipeline parallelism on the one card, ranks sharing it
+    over gloo: (a) sp=2 ring and (b) Ulysses, BERT-Small float32 at seq
+    512; (c) pipe=2 with the guard and a micro-batch poisoned on one rank,
+    and its checkpoint restored in one process; (d) data=2 x pipe=2; each
+    against one process. Then the point-to-point probe and (e) the
+    long-context bench with the flash kernels."""
+    import torch
+
+    from gradaccum_tpu_torch.examples.common import spawn_ranks
+
+    t_phase = time.perf_counter()
+    legs = _sppp_legs()
+    shutil.rmtree(SPPP_DIR, ignore_errors=True)
+    os.makedirs(SPPP_DIR)
+    # the probe and each spawn of ranks start their processes while this
+    # one runs the references: the legs' numbers do not depend on it, their
+    # printed seconds do
+    p2p = _in_background(_probe_p2p)
+    for world in (2, 4):
+        names = [n for n, leg in legs.items() if leg["world"] == world]
+        t0 = time.perf_counter()
+        spawned = _in_background(lambda w=world: spawn_ranks(
+            "chip_smoke", ["--sppp-rank", SPPP_DIR, str(w)], w, "cuda", deadline_s=900))
+        refs = {n: _sppp_reference(n, legs[n]) for n in names}
+        spawned()
+        took = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(SPPP_DIR, f"rank{r}.pt")) for r in range(world)]
+        for n in names:
+            _sppp_check(n, legs[n], refs[n], ranks)
+        print(f"[sp/pp] the {world} ranks and their references took {took:.1f} s, process "
+              f"start included")
+        if world == 2:
+            _sppp_restore_check(ranks)
+    print(f"[sp/pp] gloo send/recv of a CUDA tensor (two ranks of their own): {p2p()}")
+    long = _longcontext()
+    print(f"[sp/pp] phase 23 took {time.perf_counter() - t_phase:.1f} s")
+    return long
 
 
 # --------------------------------------------------------------------------
@@ -3098,17 +3693,21 @@ def _smi():
 
 
 def kernels_line(counts, worst, timing, timing_f32, timing_gpt, timing_gpt_f32,
-                 timing_gpt_lm, ladder, gpt_lm_runs, bert_f32_counts):
+                 timing_gpt_lm, ladder, gpt_lm_runs, bert_f32_counts, long):
     """The ``{"kernels": [...]}`` entries: each kernel in bfloat16 and in
     float32, with its launches, largest error against the plain version,
-    and its card, plain, bound and library times (phase_timing's tuples)."""
+    and its card, plain, bound and library times (phase_timing's tuples)
+    with the method behind each time (``ms_from``);
+    the bfloat16 entries also at the long-context shapes of phase 23, with
+    the flash leg's launches per step."""
     lm_per_update = 4 * gpt_lm_runs["scan"]["accum_k"]  # gpt_lm's layers x K
     lm_counts = gpt_lm_runs["scan"]["launches"]
 
     def at(timed, name, per_update=None):
-        t_ms, t_plain, t_library, t_bounds = timed
+        t_ms, t_plain, t_library, t_bounds, t_from = timed
         out = {"ms": t_ms[name], "plain_ms": t_plain[name], "bound_ms": t_bounds[name][0],
-               "bound_by": t_bounds[name][1], "library_ms": t_library[name]}
+               "bound_by": t_bounds[name][1], "library_ms": t_library[name],
+               "ms_from": t_from[name]}
         if per_update is not None:
             out["launches_per_update"] = per_update
         return out
@@ -3122,7 +3721,12 @@ def kernels_line(counts, worst, timing, timing_f32, timing_gpt, timing_gpt_f32,
             "source": SOURCES["torch.bfloat16"], "replaces": REPLACES[name],
             "launches": counts[name], "max_abs_err": worst[(name, "torch.bfloat16")],
             **at(timing, name),
-            "gpt_causal": at(timing_gpt, name, ladder[1]["launches_per_update"])})
+            "gpt_causal": at(timing_gpt, name, ladder[1]["launches_per_update"]),
+            "longcontext": {
+                "x".join(map(str, shape)): at(long["timing"][shape], name,
+                                              long["launches"][shape[2]][name])
+                for shape in LONG_SHAPES},
+            "longcontext_max_abs_err": long["worst"][(name, "torch.bfloat16")]})
     for name in REPLACES:
         # float32 (route tf32x3): launches from gpt_lm --flash in scan mode,
         # the float32 path whose counts were zeroed before it, and from
@@ -3195,6 +3799,7 @@ def main() -> int:
         phase_resilience()
         phase_export_check(export_job)
         phase_mp()
+        long = phase_sp_pp()
     except SmokeError as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -3205,7 +3810,7 @@ def main() -> int:
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     kernels = kernels_line(counts, worst, timing, timing_f32, timing_gpt, timing_gpt_f32,
-                           timing_gpt_lm, ladder, gpt_lm_runs, bert_f32_counts)
+                           timing_gpt_lm, ladder, gpt_lm_runs, bert_f32_counts, long)
     print(_smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3221,6 +3826,15 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mp-rank"]:  # a rank of phase 22, spawned by phase_mp
         sys.path.insert(0, ROOT)
         sys.exit(_mp_rank(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--sppp-rank"]:  # a rank of phase 23, spawned by phase_sp_pp
+        sys.path.insert(0, ROOT)
+        sys.exit(_sppp_rank(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--longctx-timing"]:  # phase 23 (e)'s kernel timing
+        sys.path.insert(0, ROOT)
+        sys.exit(_longctx_timing(sys.argv[2]))
+    if sys.argv[1:2] == ["--p2p-rank"]:  # a rank of phase 23's point-to-point probe
+        sys.path.insert(0, ROOT)
+        sys.exit(_p2p_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--drain-rank"]:  # a rank of phase 20 (d)
         sys.path.insert(0, ROOT)
         sys.exit(_drain_rank(sys.argv[2]))

@@ -5,7 +5,10 @@ The idx (MNIST) and numeric-CSV readers of :mod:`.mnist` and :mod:`.csv`
 call into it when it is available and take their numpy paths when it is
 not (no compiler, ``GRADACCUM_NATIVE=0``, a failed build or load) or when
 it declines a file (a parse problem it reports). Both paths give the same
-bytes.
+bytes. :class:`NativeWordPiece` is the WordPiece encoder's ASCII fast
+path, which ``tokenization.Tokenizer`` takes when the library is there; it
+declines non-ASCII text (and text with a NUL), which the Python path
+encodes.
 
 The library is built at first use with ``g++`` from the source into
 ``build/native/libgradaccum_data-<hash of the source>.so`` (``build/`` is
@@ -175,3 +178,95 @@ def read_csv_numeric(path: str, skip_header: bool = True) -> Optional[Tuple[np.n
                            out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), out.size),
            "csv_read", path)
     return out.reshape(n_rows.value, n_cols.value), n_cols.value
+
+
+NONASCII = -6  # ga_wp_encode's code for text the Python path must encode
+
+
+def _native_safe(text: Optional[str]) -> bool:
+    """Can the C string interface see this text faithfully? Interior NULs
+    truncate at the C boundary with no error, so they take the Python path,
+    as non-ASCII text does (the C side rejects control bytes itself)."""
+    return text is None or (text.isascii() and "\x00" not in text)
+
+
+def _i32(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+class NativeWordPiece:
+    """Handle to the C++ WordPiece encoder (the ASCII fast path).
+
+    ``encode`` returns ``(ids, mask, segments)`` int32 arrays, or None when
+    the text needs the full-Unicode Python path; ``encode_batch`` encodes a
+    whole batch in one call and flags the rows the Python path must redo.
+    The handle's vocab is read-only after construction, so encoding is
+    reentrant."""
+
+    def __init__(self, vocab_tokens, pad_id, unk_id, cls_id, sep_id, lower=True):
+        self._lib = get_lib()
+        self._handle = None
+        if self._lib is None:
+            return
+        # a non-ASCII (or NUL-bearing) entry could only match text the
+        # native path declines anyway: a lone space stands in for it, which
+        # basic tokenization (it splits on whitespace) can never produce
+        tokens = [t if _native_safe(t) else " " for t in vocab_tokens]
+        arr = (ctypes.c_char_p * len(tokens))(*[t.encode() for t in tokens])
+        self._handle = self._lib.ga_wp_create(arr, len(tokens), pad_id, unk_id, cls_id,
+                                              sep_id, int(lower))
+
+    @property
+    def available(self) -> bool:
+        return self._handle is not None
+
+    def encode(self, text_a: str, text_b: Optional[str], max_seq_length: int):
+        if self._handle is None or not _native_safe(text_a) or not _native_safe(text_b):
+            return None
+        ids, mask, seg = (np.empty(max_seq_length, np.int32) for _ in range(3))
+        rc = self._lib.ga_wp_encode(self._handle, text_a.encode(),
+                                    text_b.encode() if text_b else None, max_seq_length,
+                                    _i32(ids), _i32(mask), _i32(seg))
+        if rc == NONASCII:
+            return None
+        if rc != 0:
+            raise ValueError(f"native wordpiece encode failed with code {rc}")
+        return ids, mask, seg
+
+    def encode_batch(self, texts, text_pairs, max_seq_length: int):
+        """``(ids, mask, seg, needs_python)``: ``[n, max_seq_length]`` arrays
+        and the bool rows the Python path must encode (non-ASCII); None when
+        the library is unavailable."""
+        if self._handle is None:
+            return None
+        n = len(texts)
+        pairs = text_pairs if text_pairs is not None else [None] * n
+        safe_a = [_native_safe(t) for t in texts]
+        safe_b = [_native_safe(p) for p in pairs]
+        # a declined row is encoded from "" (cheaply) and replaced
+        arr_a = (ctypes.c_char_p * n)(*[t.encode() if ok else b""
+                                        for t, ok in zip(texts, safe_a)])
+        arr_b = None
+        if any(p for p in pairs):
+            arr_b = (ctypes.c_char_p * n)(*[p.encode() if (p and ok) else None
+                                            for p, ok in zip(pairs, safe_b)])
+        ids, mask, seg = (np.empty((n, max_seq_length), np.int32) for _ in range(3))
+        status = np.empty(n, np.int32)
+        rc = self._lib.ga_wp_encode_batch(self._handle, arr_a, arr_b, n, max_seq_length,
+                                          _i32(ids), _i32(mask), _i32(seg), _i32(status))
+        if rc != 0:
+            raise ValueError(f"native wordpiece batch failed with code {rc}")
+        needs_python = np.zeros(n, bool)
+        for i in range(n):
+            if not safe_a[i] or not safe_b[i] or status[i] == NONASCII:
+                needs_python[i] = True
+            elif status[i] != 0:
+                raise ValueError(f"native wordpiece encode failed with code {int(status[i])}")
+        return ids, mask, seg, needs_python
+
+    def __del__(self):
+        try:
+            if self._handle is not None and self._lib is not None:
+                self._lib.ga_wp_destroy(self._handle)
+        except Exception:  # noqa: BLE001 — interpreter shutdown
+            pass

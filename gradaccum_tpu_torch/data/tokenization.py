@@ -6,8 +6,10 @@ The port's pure-Python copy of ``gradaccum_tpu/data/tokenization.py``
 with "##" continuations, and ``[CLS] a [SEP] b? [SEP]`` packing padded to
 ``max_seq_length`` with an input mask and segment ids. ``build_vocab``
 derives a WordPiece-style vocab from a corpus; ``load_vocab`` reads a
-one-token-per-line vocab.txt. The JAX package's native C++ encoder is not
-ported.
+one-token-per-line vocab.txt. ASCII text encodes through the repo's native
+C++ encoder (``native.NativeWordPiece``) when its library is built,
+byte-identical to the Python path; non-ASCII text, and every text without
+the library, takes the Python path.
 """
 
 from __future__ import annotations
@@ -83,10 +85,28 @@ def wordpiece_tokenize(
 class Tokenizer:
     def __init__(self, vocab: Dict[str, int], lower: bool = True):
         self.vocab = vocab
+        self.inv_vocab = {v: k for k, v in vocab.items()}
         self.lower = lower
         for tok in (PAD, UNK, CLS, SEP):
             if tok not in vocab:
                 raise ValueError(f"vocab is missing special token {tok}")
+        self._native = None  # the lazy C++ encoder (ASCII fast path)
+        self._native_tried = False
+
+    def _native_encoder(self):
+        """The native encoder, built at first use; None without the library
+        or when the vocab's ids are not its positions."""
+        if not self._native_tried:
+            self._native_tried = True
+            from gradaccum_tpu_torch.data.native import NativeWordPiece
+
+            if sorted(self.vocab.values()) == list(range(len(self.vocab))):
+                tokens = [self.inv_vocab[i] for i in range(len(self.vocab))]
+                enc = NativeWordPiece(tokens, self.vocab[PAD], self.vocab[UNK],
+                                      self.vocab[CLS], self.vocab[SEP], lower=self.lower)
+                if enc.available:
+                    self._native = enc
+        return self._native
 
     def tokenize(self, text: str) -> List[str]:
         out: List[str] = []
@@ -106,7 +126,17 @@ class Tokenizer:
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """run_classifier.py feature conversion: ``[CLS] a [SEP] b? [SEP]``,
         truncated then zero-padded; returns (input_ids, input_mask,
-        segment_ids) int32 arrays of length max_seq_length."""
+        segment_ids) int32 arrays of length max_seq_length. ASCII text
+        encodes natively when the library is built (the same bytes)."""
+        native = self._native_encoder()
+        if native is not None:
+            out = native.encode(text_a, text_b, max_seq_length)
+            if out is not None:
+                return out
+        return self._encode_python(text_a, text_b, max_seq_length)
+
+    def _encode_python(self, text_a: str, text_b: Optional[str] = None,
+                       max_seq_length: int = 128) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         tokens_a = self.tokenize(text_a)
         tokens_b = self.tokenize(text_b) if text_b else None
         if tokens_b:
@@ -137,6 +167,17 @@ class Tokenizer:
 
     def encode_batch(self, texts, text_pairs=None, max_seq_length: int = 128):
         pairs = text_pairs if text_pairs is not None else [None] * len(texts)
+        native = self._native_encoder()
+        if native is not None and texts:
+            # one native call for the batch; the rows it declines re-encode
+            # through the Python path
+            out = native.encode_batch(texts, text_pairs, max_seq_length)
+            if out is not None:
+                ids, mask, seg, needs_python = out
+                for i in np.flatnonzero(needs_python):
+                    ids[i], mask[i], seg[i] = self._encode_python(texts[i], pairs[i],
+                                                                  max_seq_length)
+                return {"input_ids": ids, "input_mask": mask, "segment_ids": seg}
         trip = [self.encode(a, b, max_seq_length) for a, b in zip(texts, pairs)]
         ids, mask, seg = zip(*trip)
         return {

@@ -81,6 +81,25 @@ at one width restores at another. Evaluation and ``predict`` run the
 sharded forward; ``export_model`` gathers the parameters (every rank calls
 it) and rank 0 traces the unsharded model.
 
+**Sequence parallelism** (a ``Mesh`` with a ``seq`` axis wider than 1,
+scan mode): the step is ``parallel/sp.py :: make_dp_sp_train_step`` over
+``data`` × ``seq`` (ZeRO-1 over ``data`` with ``zero1``). The model must be
+sequence-aware (``bert_classifier_bundle(..., seq_axis="seq",
+attention_fn=make_ring_attention_fn("seq"))``); pass its dense twin (the
+same parameters, no axis) as ``eval_model``, which serves evaluate,
+predict and export.
+
+**Pipeline parallelism** (``pipeline=``, a ``parallel/pp.py ::
+PipelineSpec`` such as ``models/bert_pp.py :: bert_pipeline_spec``, on a
+``Mesh`` with a ``pipe`` axis, and ``data``): the dense parameters of
+``model.init`` are partitioned into stages, each rank keeps its own
+stage's parameters and optimizer state, and the K micro-batches run the
+GPipe schedule (``make_pp_train_step``; ``clip_norm``, the guard and loss
+scaling as the scan path has them). Checkpoints hold the whole ``[P, ...]``
+state (every rank gathers, rank 0 writes); evaluate, predict and export
+merge the stages back into the dense model. It needs
+``GradAccumConfig(first_step_quirk=False)``, as in JAX.
+
 **Resilience and observability** (JAX's train-loop hooks): seeded fault
 points before and after every step (``resilience/faults.py``; the data
 kinds poison the host batch), checkpoints through the manifest, quarantine
@@ -117,8 +136,9 @@ from gradaccum_tpu_torch.ops import accumulation as acc
 from gradaccum_tpu_torch.ops.adamw import Optimizer
 from gradaccum_tpu_torch.ops.sparse_embed import accumulate_scan_sparse_embed
 from gradaccum_tpu_torch.parallel import dp as dp_lib
+from gradaccum_tpu_torch.parallel import pp as pp_lib
 from gradaccum_tpu_torch.parallel import zero as zero_lib
-from gradaccum_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
+from gradaccum_tpu_torch.parallel.mesh import DATA_AXIS, PIPE_AXIS, SEQ_AXIS, Mesh
 from gradaccum_tpu_torch.parallel.sharding import (
     batch_shard,
     gather_params,
@@ -182,6 +202,9 @@ class ModelBundle(NamedTuple):
     # token-level embedding cotangents instead of a dense [vocab, hidden]
     # gradient per micro-batch
     sparse_embed: Any = None
+    # batch keys whose [.., B, S] token dimension a 'seq' mesh axis splits
+    # (None: parallel.ring_attention.SEQ_BATCH_KEYS)
+    seq_keys: Any = None
 
 
 def _copy_strict(params: Dict[str, torch.nn.Parameter], tensors) -> None:
@@ -221,7 +244,8 @@ class Estimator:
                  accum: acc.GradAccumConfig, config: Optional[RunConfig] = None,
                  mode: str = "streaming", device="cuda", mesh=None,
                  warm_start: Optional[Dict[str, torch.Tensor]] = None,
-                 sparse_embed: bool = False, zero1=False, sharding_rules=None):
+                 sparse_embed: bool = False, zero1=False, sharding_rules=None,
+                 eval_model: Optional[ModelBundle] = None, pipeline=None):
         if mode not in ("streaming", "scan"):
             raise ValueError(f"mode must be 'streaming' or 'scan', got {mode!r}")
         if sharding_rules is not None and mesh is None:
@@ -230,6 +254,34 @@ class Estimator:
             raise ValueError("sharding_rules name mesh axes: build the mesh with "
                              "parallel.mesh.make_mesh")
         axes = mesh.shape if mesh is not None else {}
+        self._sp_active = axes.get(SEQ_AXIS, 1) > 1
+        if self._sp_active:
+            if mode != "scan":
+                raise ValueError("a 'seq' mesh axis requires mode='scan'")
+            if sharding_rules is not None:
+                raise ValueError(
+                    "sharding_rules cannot combine with a 'seq' mesh axis "
+                    "(sequence parallelism runs on the shard_map path)"
+                )
+        if pipeline is not None:
+            if axes.get(PIPE_AXIS, 1) < 2:
+                raise ValueError("pipeline requires a mesh with a 'pipe' axis")
+            if mode != "scan":
+                raise ValueError("pipeline requires mode='scan' (K pipeline "
+                                 "micro-batches per host step)")
+            if sharding_rules is not None or self._sp_active:
+                raise ValueError(
+                    "pipeline composes with the 'data' axis only (no "
+                    "sharding_rules / 'seq' axis)"
+                )
+            if accum.first_step_quirk:
+                raise ValueError(
+                    "pipeline runs on the scan path, which has no "
+                    "first-step quirk (the reference's step-0 apply, "
+                    "optimization.py:91, is a streaming-mode semantic); "
+                    "pass GradAccumConfig(first_step_quirk=False) to "
+                    "acknowledge the schedule starts at a full K-cycle"
+                )
         if zero1:
             if zero1 not in (True, "collective"):
                 raise ValueError(
@@ -237,7 +289,12 @@ class Estimator:
                     f"(explicit shard_map path), got {zero1!r}")
             if axes.get(DATA_AXIS, 1) < 2:
                 raise ValueError("zero1 requires a mesh with a 'data' axis")
-            if zero1 == "collective":
+            if pipeline is not None:
+                raise ValueError(
+                    "zero1 does not compose with pipeline (stage-sharded "
+                    "optimizer state is already partitioned over 'pipe')"
+                )
+            if zero1 == "collective" and not self._sp_active:
                 if sharding_rules is not None:
                     raise ValueError(
                         "zero1='collective' runs on shard_map and cannot compose with "
@@ -252,8 +309,25 @@ class Estimator:
             if model.sparse_embed is None:
                 raise ValueError("sparse_embed requires a model with ModelBundle."
                                  "sparse_embed hooks (see models/bert.py)")
+            if self._sp_active or pipeline is not None:
+                raise ValueError(
+                    "sparse_embed composes with the scan/DP/GSPMD paths, "
+                    "not 'seq' axis or pipeline"
+                )
         acc.validate_config(accum)
         if accum.fused_adam:
+            if pipeline is not None:
+                raise ValueError(
+                    "fused_adam is not implemented for the pipeline step "
+                    "(stage gradients assemble once per window, there is "
+                    "no accumulation loop to fuse into)"
+                )
+            if self._sp_active:
+                raise ValueError(
+                    "fused_adam does not compose with the 'seq'-axis "
+                    "shard_map path (it would need a collective per "
+                    "micro-batch); drop fused_adam or the seq axis"
+                )
             if sparse_embed:
                 raise ValueError("fused_adam and sparse_embed both replace the "
                                  "accumulator; pick one")
@@ -277,6 +351,11 @@ class Estimator:
         self._chief = mesh is None or mesh.rank == 0  # prints, logs, checkpoints
         self._zero1_specs = None  # {path: shard dim} of the full state, under zero1
         self.model = model
+        # evaluate, predict and export run this bundle (the dense twin of a
+        # sequence-parallel model)
+        self.eval_model = eval_model if eval_model is not None else model
+        self.pipeline = pipeline
+        self._pipe = mesh.axis(PIPE_AXIS) if pipeline is not None else None
         self.optimizer = optimizer
         self.accum = accum
         self.config = config or RunConfig()
@@ -312,11 +391,27 @@ class Estimator:
         """Micro-batches per host step."""
         return self.accum.num_micro_batches if self.mode == "scan" else 1
 
+    def _pipeline_state(self, params):
+        """The whole pipeline state from the dense ``params``."""
+        spec = self.pipeline
+        pre, stages, post = spec.partition(params, spec.n_stages)
+        return pp_lib.pp_init(stages, self.optimizer, pre_params=pre, post_params=post,
+                              loss_scale=self.accum.loss_scale)
+
     def _init_state(self):
         self.module = self.model.init(self.config.seed, self.device)
         params = named_parameters(self.module)
         if self.warm_start is not None:
             _copy_strict(params, self.warm_start)
+        if self.pipeline is not None:
+            # every rank builds the whole state (and restores the whole
+            # checkpoint), then keeps its own stage
+            state = self._pipeline_state(params)
+            d = self.config.model_dir
+            self._ckpt_sync()
+            if d and ckpt_lib.latest_checkpoint(d):
+                state = ckpt_lib.restore(d, state)
+            return pp_lib.pp_local_state(state, self._pipe)
         if self.mode == "scan":
             state = acc.scan_init(params, self.optimizer, loss_scale=self.accum.loss_scale)
         else:
@@ -343,6 +438,27 @@ class Estimator:
             loss_fn = lambda params, batch: loss(module, batch)  # noqa: E731
             needs_rng, mesh, mode = self.model.needs_rng, self._data, self.mode
             sparse = bound = None
+            if self.pipeline is not None:
+                spec = self.pipeline
+                data = self.mesh.shape.get(DATA_AXIS, 1) > 1
+                self._train_step = pp_lib.make_pp_train_step(
+                    spec.stage_fn, spec.loss_fn, self.optimizer, self.accum.num_micro_batches,
+                    self.mesh, data_axis=DATA_AXIS if data else None,
+                    input_key=spec.input_key, pre_fn=spec.pre_fn,
+                    ctx_keys=tuple(spec.ctx_keys), clip_norm=self.accum.clip_norm,
+                    skip_nonfinite=self.accum.skip_nonfinite,
+                    normalize_by_good_count=self.accum.normalize_by_good_count,
+                    loss_scale=self.accum.loss_scale)
+                return self._train_step
+            if self._sp_active:
+                from gradaccum_tpu_torch.parallel.sp import make_dp_sp_train_step
+
+                keys = {} if self.model.seq_keys is None else \
+                    {"seq_keys": tuple(self.model.seq_keys)}
+                self._train_step = make_dp_sp_train_step(
+                    loss_fn, self.optimizer, self.accum, self.mesh, needs_rng=needs_rng,
+                    zero1=bool(self.zero1), **keys)
+                return self._train_step
             if self.sparse_embed:
                 hooks = self.model.sparse_embed
                 bound = hooks._replace(loss_with_rows=lambda params, rows, batch:
@@ -386,6 +502,8 @@ class Estimator:
         batch = self._to_device(batch)
         if self.mode == "scan":
             batch = acc.stack_micro_batches(batch, self.accum.num_micro_batches)
+        if self.pipeline is not None:
+            return (batch,)  # the stages run deterministically: no generator
         if self.model.needs_rng:
             g = torch.Generator(device=self.device)
             g.manual_seed(step_seed(self.config.seed + 1, step_no))
@@ -414,6 +532,8 @@ class Estimator:
             state = zero_lib.zero1_gather_state(state, self._data, self._zero1_specs)
         if self._rules:
             state = gather_params(state, self.mesh, self._rules)
+        if self.pipeline is not None:
+            state = pp_lib.pp_global_state(state, self._pipe)
         return state
 
     def _ckpt_sync(self):
@@ -702,8 +822,13 @@ class Estimator:
 
     def _module_with(self, params):
         """A module holding ``params``: the training module when they are its
-        own tensors, else the inference module with them copied in."""
-        if self.module is not None:
+        own tensors, else the inference module with them copied in. A
+        pipeline's parameters are gathered (a collective) and merged into
+        the dense names first."""
+        if self.pipeline is not None:
+            whole = pp_lib.pp_global_state(pp_lib.PPState(params, None, 0), self._pipe)
+            params = self.pipeline.merge(whole.params)
+        elif self.module is not None and self.eval_model is self.model:
             own = named_parameters(self.module)
             if own.keys() == params.keys() and all(
                     own[name] is params[name] for name in own):
@@ -716,7 +841,8 @@ class Estimator:
 
     def _inference_module(self):
         if self._infer_module is None:
-            self._infer_module = self._placed(self.model.init(self.config.seed, self.device))
+            self._infer_module = self._placed(self.eval_model.init(self.config.seed,
+                                                                   self.device))
         return self._infer_module
 
     def _placed(self, module):
@@ -729,12 +855,29 @@ class Estimator:
         """``(module, step)`` for evaluate and predict, as JAX picks the
         weights: an explicit ``state``, then ``checkpoint_path`` or the newest
         checkpoint in ``model_dir``, then the in-memory state, then a fresh
-        init."""
+        init. Under a pipeline every rank takes the same branch: the ranks
+        meet once rank 0's checkpoint is on disk."""
+        if self._sp_active and self.eval_model is self.model:
+            raise ValueError("evaluate, predict and export on a 'seq' mesh run whole "
+                             "sequences: pass the model's dense twin as eval_model")
         self._ckpt_sync()
+        if self.pipeline is not None:
+            self.mesh.barrier()
         if state is not None:
             return self._module_with(state.params), state.step
         d = self.config.model_dir
         if checkpoint_path or (d and ckpt_lib.latest_checkpoint(d)):
+            if self.pipeline is not None:  # the whole pipeline state: merge it
+                template = self._pipeline_state(named_parameters(
+                    self.eval_model.init(self.config.seed, self.device)))
+                step = ckpt_lib.restore_params(checkpoint_path or d,
+                                               pp_lib.flat_params(template.params))
+                module = self._inference_module()
+                merged = self.pipeline.merge(template.params)
+                with torch.no_grad():
+                    for name, t in named_parameters(module).items():
+                        t.copy_(merged[name])
+                return module, step
             if self._rules:  # the checkpoint is global: restore whole, then cut
                 module = self.model.init(self.config.seed, self.device)
                 step = ckpt_lib.restore_params(checkpoint_path or d, named_parameters(module))
@@ -744,6 +887,8 @@ class Estimator:
             return module, step
         if self._state is None:
             self._state = self._init_state()
+        if self.pipeline is not None or self.eval_model is not self.model:
+            return self._module_with(self._state.params), self._state.step
         return self.module, self._state.step
 
     @torch.no_grad()
@@ -763,7 +908,7 @@ class Estimator:
             n_batches += 1
         if not n_batches:
             raise ValueError("eval input_fn yielded no batches")
-        results = {key: self.model.eval_metrics[key].finalize(t, c)
+        results = {key: self.eval_model.eval_metrics[key].finalize(t, c)
                    for key, (t, c) in totals.items()}
         if self._chief:
             print(f"[{name}] " + " ".join(f"{k}={v:.5f}" for k, v in results.items()))
@@ -788,9 +933,9 @@ class Estimator:
             and next(iter(rows)) % mesh.world == 0
         if split:
             batch = batch_shard(batch, mesh)
-        outputs = self.model.predict(module, batch)
+        outputs = self.eval_model.predict(module, batch)
         out = [(key, metric.update(outputs, batch))
-               for key, metric in self.model.eval_metrics.items()]
+               for key, metric in self.eval_model.eval_metrics.items()]
         if not split:
             return out
         flat = torch.tensor([v for _, pair in out for v in pair], dtype=torch.float64,
@@ -809,7 +954,7 @@ class Estimator:
         module, _ = self._module_for_inference(state, checkpoint_path)
         for batch in itertools.chain([first], it):
             with torch.no_grad():
-                outputs = self.model.predict(module, self._to_device(batch))
+                outputs = self.eval_model.predict(module, self._to_device(batch))
             host = {key: v.cpu().numpy() for key, v in outputs.items()}
             for i in range(len(next(iter(host.values())))):
                 yield {key: v[i] for key, v in host.items()}
@@ -847,7 +992,7 @@ class Estimator:
 
         if module is None:
             return None
-        return export_predict(self.model.predict, module, sample_batch, export_dir,
+        return export_predict(self.eval_model.predict, module, sample_batch, export_dir,
                               batch_polymorphic=batch_polymorphic)
 
     def _maybe_export_best(self, eval_spec: EvalSpec, results, state):
@@ -881,7 +1026,7 @@ class Estimator:
         sample = eval_spec.export_sample
         if sample is None:
             sample = next(iter(eval_spec.input_fn()))
-            stripped = [k for k in sample if k in self.model.label_keys]
+            stripped = [k for k in sample if k in self.eval_model.label_keys]
             sample = {k: v for k, v in sample.items() if k not in stripped}
             if stripped:
                 print(f"[best] export signature from first eval batch, label key(s) "

@@ -43,8 +43,18 @@ launcher's) with JAX's rules: ``bert_tp_rules`` for ``--tp``,
 ``moe_ep_rules`` for ``--ep`` (data x expert), ``bert_tp_ep_rules`` for
 both. Each rank attends its own heads through the flash kernels: JAX
 refuses ``--flash --tp`` because GSPMD cannot partition a Pallas call, and
-the port issues the collectives itself. Not ported: ``--sp/--sp-core/--pp``
-(ROADMAP.md).
+the port issues the collectives itself.
+
+``--sp N`` trains sequence-parallel over a ``seq`` axis (a data x seq mesh
+of ``--dp x --sp`` ranks): each rank holds ``--seq-len / N`` tokens of
+every sequence and attends through ``--sp-core`` (``ring``: k and v pass
+round the ranks; ``ulysses``: an all-to-all to whole sequences of
+``heads / N`` heads); evaluation runs the dense twin. ``--pp N`` runs the
+GPipe schedule over a ``pipe`` axis (pipe x data, ``--pp x --dp`` ranks),
+``L / N`` encoder layers per stage, the K micro-batches as the pipeline's.
+Both set dropout to 0 and attend with the plain dense core in their
+stages and evaluations, as JAX's example does (it refuses ``--flash``
+there).
 
 ``--export-dir DIR`` writes the trained predict function and weights as a
 ``torch.export`` serving artifact after training (its flash forward is the
@@ -57,6 +67,10 @@ that improves the accuracy (BestExporter, ``best_metric.json`` beside it).
         --max-steps 8 --seq-len 32 --accum-k 2
     python -m gradaccum_tpu_torch.examples.bert_finetune --device cpu --tp 2 --ep 2 \
         --num-experts 4 --max-steps 8 --seq-len 32 --accum-k 2
+    python -m gradaccum_tpu_torch.examples.bert_finetune --device cpu --sp 2 \
+        --sp-core ulysses --max-steps 4 --seq-len 32 --accum-k 2
+    python -m gradaccum_tpu_torch.examples.bert_finetune --device cpu --pp 2 \
+        --max-steps 4 --seq-len 32 --accum-k 2
 """
 
 from __future__ import annotations
@@ -186,6 +200,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ep", type=int, default=1,
                    help="expert-parallel width: shard the MoE expert bank over an "
                         "'expert' axis (moe_ep_rules; requires --num-experts)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel width: shard the token dim over a 'seq' axis "
+                        "(long-context training; composes with --dp, forces dropout=0, "
+                        "excludes --tp/--ep)")
+    p.add_argument("--sp-core", choices=["ring", "ulysses"], default="ring",
+                   help="sequence-parallel attention layout: ring (ppermute K/V hops) or "
+                        "ulysses (all_to_all seq<->heads repartition)")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel stages: GPipe over a 'pipe' axis, the K "
+                        "accumulation micro-batches doubling as pipeline micro-batches "
+                        "(composes with --dp; forces dropout=0, excludes --tp/--ep/--sp)")
     p.add_argument("--zero1", action="store_true",
                    help="ZeRO-1: shard the Adam moments over the data ranks "
                         "(optimizer memory per rank / dp; needs --dp >= 2, composes "
@@ -219,7 +244,7 @@ def parse_args(argv=None):
     if args.hf_checkpoint and args.vocab_size:
         parser.error("--vocab-size cannot combine with --hf-checkpoint (the checkpoint "
                      "fixes the vocab size)")
-    if min(args.dp, args.tp, args.ep) < 1:
+    if min(args.dp, args.tp, args.ep, args.sp, args.pp) < 1:
         parser.error("--dp/--tp/--ep/--sp/--pp must be >= 1")
     if args.ep > 1 and (args.num_experts == 0 or args.num_experts % args.ep):
         parser.error("--ep requires --num-experts divisible by it")
@@ -227,25 +252,60 @@ def parse_args(argv=None):
         parser.error("--moe-top-k must be in [1, --num-experts]")
     if args.moe_top_k > 1 and args.num_experts == 0:
         parser.error("--moe-top-k needs --num-experts")
+    if args.sp > 1 and (args.tp > 1 or args.ep > 1):
+        parser.error("--sp composes with --dp only (shard_map path)")
+    if args.sp > 1 and args.mode != "scan":
+        parser.error("--sp requires --mode scan")
+    if args.sp > 1 and args.seq_len % args.sp:
+        parser.error(f"--seq-len {args.seq_len} not divisible by --sp {args.sp}")
+    if args.pp > 1 and (args.tp > 1 or args.ep > 1 or args.sp > 1):
+        parser.error("--pp composes with --dp only")
+    if args.pp > 1 and args.mode != "scan":
+        parser.error("--pp requires --mode scan")
+    if args.pp > 1 and not args.hf_checkpoint:
+        layers = _small_layers()  # a checkpoint's depth is checked once it is read
+        if layers % args.pp:
+            parser.error(f"{layers} layers do not split over --pp {args.pp}")
     if args.zero1 and args.dp < 2:
         parser.error("--zero1 needs --dp >= 2 (moments shard over 'data')")
-    if args.sparse_embed_grad and args.mode != "scan":
-        parser.error("--sparse-embed-grad requires --mode scan")
+    if args.zero1 and (args.sp > 1 or args.pp > 1):
+        parser.error("--zero1 runs on the GSPMD path (no --sp/--pp)")
+    if args.sparse_embed_grad:
+        if args.mode != "scan":
+            parser.error("--sparse-embed-grad requires --mode scan")
+        if args.sp > 1 or args.pp > 1:
+            parser.error("--sparse-embed-grad composes with scan/dp/tp/ep, not --sp/--pp")
     avail = available_devices(args.device)
-    n_mesh = args.dp * args.tp * args.ep
+    n_mesh = world_size(args)
     if n_mesh > 1 and avail is not None and n_mesh > avail:
         parser.error(f"mesh needs {n_mesh} devices, have {avail}")
     return args
 
 
+def _small_layers() -> int:
+    from gradaccum_tpu_torch.models.bert import BertConfig
+
+    return BertConfig.small().num_layers
+
+
+def world_size(args) -> int:
+    """The ranks the run takes: the product of the mesh's axes."""
+    return args.dp * args.tp * args.ep * args.sp * args.pp
+
+
 def mesh_axes(args):
     """``(axes, rules)`` of the run's mesh, as JAX's example picks them:
-    data x model x expert with ``bert_tp_ep_rules``, data x model with
-    ``bert_tp_rules``, data x expert with ``moe_ep_rules``; None and None
-    for the data-parallel (or single-rank) run."""
+    pipe x data for ``--pp``, data x seq for ``--sp``, data x model x expert
+    with ``bert_tp_ep_rules``, data x model with ``bert_tp_rules``, data x
+    expert with ``moe_ep_rules``; None and None for the data-parallel (or
+    single-rank) run."""
     from gradaccum_tpu_torch.models.moe import moe_ep_rules
     from gradaccum_tpu_torch.parallel.tp import bert_tp_ep_rules, bert_tp_rules
 
+    if args.pp > 1:
+        return [("pipe", args.pp), ("data", args.dp)], None
+    if args.sp > 1:
+        return [("data", args.dp), ("seq", args.sp)], None
     if args.tp > 1 and args.ep > 1:
         return [("data", args.dp), ("model", args.tp), ("expert", args.ep)], bert_tp_ep_rules()
     if args.tp > 1:
@@ -274,6 +334,32 @@ def _load_data(args, t):
     return train_texts, train_labels, eval_texts, eval_labels
 
 
+def _bundles(args, cfg):
+    """``(train bundle, eval bundle or None, pipeline spec or None)``: the
+    flash kernels as the attention core; under ``--sp`` the sequence-parallel
+    model with its core and its dense twin for evaluation; under ``--pp``
+    the dense model and its pipeline spec (JAX's example runs neither on the
+    flash core)."""
+    from gradaccum_tpu_torch.models.bert import bert_classifier_bundle, dense_attention
+    from gradaccum_tpu_torch.ops.flash_attention import flash_attention
+
+    if args.sp > 1:
+        from gradaccum_tpu_torch.parallel.ring_attention import make_ring_attention_fn
+        from gradaccum_tpu_torch.parallel.ulysses import make_ulysses_attention_fn
+
+        core = (make_ring_attention_fn("seq") if args.sp_core == "ring"
+                else make_ulysses_attention_fn("seq"))
+        return (bert_classifier_bundle(cfg, num_classes=2, attention_fn=core, seq_axis="seq"),
+                bert_classifier_bundle(cfg, num_classes=2, attention_fn=dense_attention),
+                None)
+    if args.pp > 1:
+        from gradaccum_tpu_torch.models.bert_pp import bert_pipeline_spec
+
+        return (bert_classifier_bundle(cfg, num_classes=2, attention_fn=dense_attention),
+                None, bert_pipeline_spec(cfg, n_stages=args.pp))
+    return bert_classifier_bundle(cfg, num_classes=2, attention_fn=flash_attention), None, None
+
+
 def setup(args, mesh=None):
     """The run ``args`` (from :func:`parse_args`) describe, ready to train:
     ``(estimator, train_fn, eval_fn, config, run)``, ``run`` holding the
@@ -289,10 +375,9 @@ def setup(args, mesh=None):
     from gradaccum_tpu_torch.data.tokenization import build_vocab, load_vocab
     from gradaccum_tpu_torch.estimator.config import RunConfig
     from gradaccum_tpu_torch.estimator.estimator import Estimator
-    from gradaccum_tpu_torch.models.bert import BertConfig, bert_classifier_bundle
+    from gradaccum_tpu_torch.models.bert import BertConfig
     from gradaccum_tpu_torch.ops.accumulation import GradAccumConfig
     from gradaccum_tpu_torch.ops.adamw import adamw
-    from gradaccum_tpu_torch.ops.flash_attention import flash_attention
     from gradaccum_tpu_torch.ops.schedule import warmup_polynomial_decay
     from gradaccum_tpu_torch.utils.flops import bert_train_flops_per_seq
     from gradaccum_tpu_torch.utils.platform import resolve_device
@@ -358,13 +443,19 @@ def setup(args, mesh=None):
             num_experts=args.num_experts, moe_top_k=args.moe_top_k)
     if args.remat:
         cfg = dataclasses.replace(cfg, remat=True)
+    if args.pp > 1 and cfg.num_layers % args.pp:
+        error(f"{cfg.num_layers} layers do not split over --pp {args.pp}")
+    if args.sp > 1 or args.pp > 1:
+        # sequence- and pipeline-parallel BERT run deterministic layers
+        cfg = dataclasses.replace(cfg, hidden_dropout=0.0, attention_dropout=0.0)
+    bundle, eval_bundle, pipeline = _bundles(args, cfg)
     # full_max_steps, not the --quick cap: the smoke runs the full run's
     # warmup and decay
     schedule = warmup_polynomial_decay(
         args.lr, num_train_steps=full_max_steps,
         num_warmup_steps=int(full_max_steps * args.warmup_frac))
     est = Estimator(
-        bert_classifier_bundle(cfg, num_classes=2, attention_fn=flash_attention),
+        bundle,
         adamw(schedule, weight_decay_rate=0.01),
         # the first-step quirk is a streaming-mode semantic; say False on the
         # scan path so the config states what runs
@@ -383,10 +474,13 @@ def setup(args, mesh=None):
         mesh=mesh,
         zero1=args.zero1,
         sharding_rules=mesh_axes(args)[1],
+        eval_model=eval_bundle,
+        pipeline=pipeline,
     )
     if mesh is not None and mesh.rank == 0:
         kind = {(True, True): "tp+ep", (True, False): "tp", (False, True): "ep"}.get(
             (args.tp > 1, args.ep > 1))
+        kind = "pp" if args.pp > 1 else f"sp[{args.sp_core}]" if args.sp > 1 else kind
         print(f"[mesh] {mesh.shape}" + (f" rules={kind}" if kind else ""))
     # the per-rank micro-batch x the data-parallel width (each worker sees
     # its own micro rows) x K in scan mode
@@ -412,7 +506,7 @@ def setup(args, mesh=None):
 def main(argv=None) -> dict:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
-    world = args.dp * args.tp * args.ep
+    world = world_size(args)
     if world > 1 and not in_rank():
         return spawn_ranks("gradaccum_tpu_torch.examples.bert_finetune", argv, world,
                            args.device)
@@ -447,7 +541,8 @@ def _main(args, mesh) -> dict:
         "remat": cfg.remat, "sparse_embed_grad": args.sparse_embed_grad,
         "num_experts": cfg.num_experts, "moe_top_k": cfg.moe_top_k,
         "dp": est.mesh.shape.get("data", 1) if est.mesh is not None else 1,
-        "tp": args.tp, "ep": args.ep, "zero1": args.zero1,
+        "tp": args.tp, "ep": args.ep, "zero1": args.zero1, "sp": args.sp,
+        "sp_core": args.sp_core if args.sp > 1 else None, "pp": args.pp,
         "steps": state.step, "updates": state.step // k,
         "timed_host_steps": est.train_stats["host_steps"],
         "first_loss": float(est.first_loss), "loss": float(est.last_loss),

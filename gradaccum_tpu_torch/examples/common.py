@@ -137,11 +137,12 @@ def rank_mesh(world: int, device: str, want_mesh: bool, axes=None):
 
 
 def spawn_ranks(module: str, argv: Sequence[str], world: int, device: str,
-                deadline_s: Optional[float] = None) -> dict:
+                deadline_s: Optional[float] = None, output: Optional[list] = None) -> dict:
     """Run ``python -m module argv`` as ``world`` local ranks (the
     variables ``torchrun`` would set), echo rank 0's output and return its
-    last line, the entry point's JSON. A rank that fails, or a run past the
-    deadline (default 4 x ``DP_TIMEOUT_S``), kills every rank and raises."""
+    last line, the entry point's JSON (``output``, when given, receives
+    every line). A rank that fails, or a run past the deadline (default 4 x
+    ``DP_TIMEOUT_S``), kills every rank and raises."""
     import json
     import subprocess
     import threading
@@ -195,4 +196,6 @@ def spawn_ranks(module: str, argv: Sequence[str], world: int, device: str,
         reader.join(timeout=10)
     if failed is not None:
         raise RuntimeError(f"data-parallel run of {module}: {failed}")
+    if output is not None:
+        output.extend(lines)
     return json.loads(lines[-1])

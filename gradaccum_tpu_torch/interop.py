@@ -21,6 +21,14 @@ flax one carries across: BERT, the MNIST CNN, the housing MLP and GPT
 ``final_LayerNorm`` and ``position_embeddings``). Names stay the JAX
 package's, since the optimizer's weight-decay exclusion regex-searches them:
 a renamed leaf would silently change which weights decay.
+
+:func:`pipeline_params_from_jax` and :func:`pipeline_params_to_jax` carry
+the pipeline's parameters (``parallel/pp.py``): a JAX ``PipelineParams``
+(``pre``/``stages``/``post`` flax trees, the stages stacked ``[P, ...]``)
+or a bare stage-stacked tree, as ``(pre, stages, post)`` of numpy trees or
+from ``jax.device_get``, to and from the port's ``{jax_name: tensor}``
+dictionaries in the port's layouts (a stacked Dense kernel ``[P, in, out]``
+is ``[P, out, in]`` here).
 """
 
 from __future__ import annotations
@@ -57,7 +65,9 @@ def state_dict_key(jax_name: str) -> str:
     return ".".join(parts[:-1] + [leaf])
 
 
-def _kernel_to_torch(arr, name):
+def _kernel_to_torch(arr, name, stacked=False):
+    if stacked:  # stage-stacked Dense [P, in, out] -> [P, out, in]
+        return np.swapaxes(arr, -1, -2)
     if arr.ndim == 2:  # Dense [in, out] -> Linear [out, in]
         return arr.T
     if arr.ndim == 4:  # Conv HWIO -> Conv2d OIHW
@@ -65,35 +75,68 @@ def _kernel_to_torch(arr, name):
     raise ValueError(f"{name}: only 2-D Dense and 4-D Conv kernels map to torch")
 
 
-def _kernel_to_jax(arr):
+def _kernel_to_jax(arr, stacked=False):
+    if stacked:
+        return np.swapaxes(arr, -1, -2)
     return arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+
+
+def _named_from_jax(tree, stacked=False):
+    """A flax tree -> ``(jax_name, tensor)`` pairs in the port's layouts;
+    with ``stacked`` the leaves carry a leading stage dimension."""
+    for path, leaf in _flatten(tree):
+        arr = np.asarray(leaf)
+        if path[-1] == "kernel":
+            arr = _kernel_to_torch(arr, "/".join(path), stacked)
+        yield "/".join(path), torch.tensor(arr)  # a copy: jax arrays are read-only
 
 
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     """A flax parameter tree -> a torch ``state_dict`` (float tensors on the
     CPU; ``module.load_state_dict`` moves them to the module's device)."""
-    out = {}
-    for path, leaf in _flatten(tree):
-        arr = np.asarray(leaf)
-        if path[-1] == "kernel":
-            arr = _kernel_to_torch(arr, "/".join(path))
-        out[state_dict_key("/".join(path))] = torch.tensor(arr)  # a copy: jax arrays are read-only
-    return out
+    return {state_dict_key(name): t for name, t in _named_from_jax(tree)}
 
 
-def params_to_jax(named: Union[nn.Module, Dict[str, torch.Tensor]]):
+def params_to_jax(named: Union[nn.Module, Dict[str, torch.Tensor]], stacked: bool = False):
     """``{jax_name: tensor}`` (or a module) -> a nested flax-shaped dict of
-    float32 numpy arrays, kernels back in flax's layouts."""
+    float32 numpy arrays, kernels back in flax's layouts; with ``stacked``
+    the leaves carry a leading stage dimension."""
     if isinstance(named, nn.Module):
         named = named_parameters(named)
     tree: dict = {}
     for name, t in named.items():
         arr = t.detach().to("cpu", torch.float32).numpy()
         if name.endswith("/kernel"):
-            arr = _kernel_to_jax(arr)
+            arr = _kernel_to_jax(arr, stacked)
         node = tree
         *parents, leaf = name.split("/")
         for part in parents:
             node = node.setdefault(part, {})
         node[leaf] = np.ascontiguousarray(arr)
     return tree
+
+
+def pipeline_params_from_jax(params):
+    """JAX pipeline parameters -> the port's: a ``PipelineParams`` (any
+    object with ``pre``, ``stages`` and ``post``) gives the port's
+    ``PipelineParams`` of ``{jax_name: tensor}`` dictionaries, a bare
+    stage-stacked tree gives one dictionary."""
+    from gradaccum_tpu_torch.parallel.pp import PipelineParams
+
+    if not hasattr(params, "stages"):
+        return dict(_named_from_jax(params, stacked=True))
+    return PipelineParams(
+        pre=None if params.pre is None else dict(_named_from_jax(params.pre)),
+        stages=dict(_named_from_jax(params.stages, stacked=True)),
+        post=None if params.post is None else dict(_named_from_jax(params.post)))
+
+
+def pipeline_params_to_jax(params):
+    """The port's pipeline parameters -> ``(pre, stages, post)`` flax-shaped
+    numpy trees (``pre`` and ``post`` None for a bare stage dictionary), to
+    build JAX's ``PipelineParams`` from."""
+    if not hasattr(params, "stages"):
+        return None, params_to_jax(params, stacked=True), None
+    return (None if params.pre is None else params_to_jax(params.pre),
+            params_to_jax(params.stages, stacked=True),
+            None if params.post is None else params_to_jax(params.post))

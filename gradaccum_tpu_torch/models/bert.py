@@ -23,9 +23,20 @@ layer, with the layer's draws replayed in the recompute), the MoE FFN
 (``num_experts > 0``: ``models/moe.py`` in every layer, the mean per-layer
 load-balance loss added to the loss at ``moe_aux_weight``), and the
 sparse-embedding hooks (``word_rows``: the loss with the gathered word rows
-as an argument, for ``ops/sparse_embed.py``). Not ported yet (ROADMAP.md):
-``seq_axis`` (sequence parallelism); asking for it raises
-``NotImplementedError``.
+as an argument, for ``ops/sparse_embed.py``).
+
+**Sequence parallelism** (``seq_axis``): the encoder runs on this rank's
+token block of every sequence (``parallel/ring_attention.py ::
+shard_seq_batch``) with a sequence-parallel ``attention_fn``
+(``make_ring_attention_fn``, ``make_ulysses_attention_fn``). Position ids
+are global (local position + rank · S_local); the [CLS] row lives on rank 0
+of the axis, and the readout sums it over the axis (``tp.reduce_from``:
+forward sum, backward identity), so the pooler and classifier run on the
+same values on every rank and each rank computes their whole gradient,
+while the embeddings' and encoder's gradients are each rank's part. The
+head's parameters say so (``parallel/sharding.py :: invariant_axes``): the
+step sums the parts over the axis and counts the head's once. Dropout is
+refused, as in JAX.
 
 **Tensor and expert parallelism.** A model whose parameters
 ``parallel/sharding.py :: shard_params`` cut by rules (``parallel/tp.py``:
@@ -62,6 +73,7 @@ from gradaccum_tpu_torch.models.moe import ExpertShards, moe_apply, moe_init
 from gradaccum_tpu_torch.ops.sparse_embed import SparseEmbedHooks
 from gradaccum_tpu_torch.parallel import tp
 from gradaccum_tpu_torch.parallel.mesh import axis_mesh, current_mesh
+from gradaccum_tpu_torch.parallel.sharding import mark_invariant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -343,10 +355,15 @@ def _remat(layer, x, mask, deterministic, generator):
 
 
 class BertEncoder(nn.Module):
-    def __init__(self, config: BertConfig, attention_fn: Callable = dense_attention):
+    """``seq_axis``: the encoder runs on this rank's token block of a
+    sequence sharded over that mesh axis, with global position ids."""
+
+    def __init__(self, config: BertConfig, attention_fn: Callable = dense_attention,
+                 seq_axis: Optional[str] = None):
         super().__init__()
         cfg = config
         self.config = cfg
+        self.seq_axis = seq_axis
         self.word_embeddings = Embed(cfg.vocab_size, cfg.hidden_size, cfg.dtype)
         self.position_embeddings = Embed(cfg.max_position_embeddings, cfg.hidden_size,
                                          cfg.dtype)
@@ -369,6 +386,9 @@ class BertEncoder(nn.Module):
         if segment_ids is None:
             segment_ids = torch.zeros((b, s), dtype=torch.int32, device=dev)
         positions = torch.arange(s, device=dev)[None, :]
+        if self.seq_axis is not None:
+            # the local block of a seq-sharded sequence: global positions
+            positions = positions + axis_mesh(self.seq_axis).rank * s
         word = self.word_embeddings(input_ids) if word_rows is None else word_rows.to(cfg.dtype)
         x = word + self.position_embeddings(positions) + self.token_type_embeddings(segment_ids)
         x = self.embeddings_LayerNorm(x)
@@ -390,16 +410,26 @@ class BertEncoder(nn.Module):
 
 
 class BertClassifier(nn.Module):
-    """Encoder + tanh pooler + dropout classifier (run_classifier.py's head)."""
+    """Encoder + tanh pooler + dropout classifier (run_classifier.py's head).
+
+    With ``seq_axis`` the [CLS] token lives on rank 0 of the axis; its row
+    is summed over the axis (zeros elsewhere), so the head runs on the same
+    values on every rank, and its parameters are marked invariant over the
+    axis (each rank's gradient of them is the whole one)."""
 
     def __init__(self, config: BertConfig, num_classes: int = 2,
-                 attention_fn: Callable = dense_attention):
+                 attention_fn: Callable = dense_attention, seq_axis: Optional[str] = None):
         super().__init__()
         cfg = config
         self.config = cfg
-        self.bert = BertEncoder(cfg, attention_fn)
+        self.seq_axis = seq_axis
+        self.bert = BertEncoder(cfg, attention_fn, seq_axis)
         self.pooler = Dense(cfg.hidden_size, cfg.hidden_size, cfg.dtype)
         self.classifier = Dense(cfg.hidden_size, num_classes, torch.float32)
+        if seq_axis is not None:
+            for head in (self.pooler, self.classifier):
+                for p in head.parameters():
+                    mark_invariant(p, seq_axis)
 
     def forward(self, input_ids, input_mask=None, segment_ids=None,
                 deterministic: bool = True, generator=None):
@@ -413,7 +443,12 @@ class BertClassifier(nn.Module):
         cfg = self.config
         seq, moe_aux = self.bert(input_ids, input_mask, segment_ids, deterministic,
                                  generator, word_rows)
-        pooled = torch.tanh(self.pooler(seq[:, 0]))
+        cls = seq[:, 0]  # with seq_axis: local token 0 of this rank's block
+        if self.seq_axis is not None:
+            mesh = axis_mesh(self.seq_axis)
+            first = torch.tensor(mesh.rank == 0, device=cls.device)
+            cls = tp.reduce_from(torch.where(first, cls, torch.zeros_like(cls)), mesh)
+        pooled = torch.tanh(self.pooler(cls))
         if not deterministic and cfg.hidden_dropout > 0:
             pooled = dropout(pooled, cfg.hidden_dropout, generator)
         return self.classifier(pooled.float()), moe_aux
@@ -435,14 +470,23 @@ def bert_classifier_bundle(config: BertConfig, num_classes: int = 2,
     ``compute_dtype`` (``torch.bfloat16``): store the parameters in that
     dtype and run the encoder in it (the classifier head and the loss stay
     float32); pair it with ``adamw(..., master_dtype=torch.float32)``.
+
+    ``seq_axis`` builds the sequence-parallel model (pair it with a
+    sequence-parallel ``attention_fn``): its ``loss`` and ``predict`` run on
+    a rank's token block under a mesh with that axis, and its parameters are
+    the dense model's, so ``init`` draws the same weights. Dropout is
+    refused in that mode, as in JAX.
     """
-    if seq_axis is not None:
-        raise NotImplementedError("sequence-parallel BERT (seq_axis) is not ported yet")
+    if seq_axis is not None and (config.hidden_dropout > 0 or config.attention_dropout > 0):
+        raise ValueError(
+            "sequence-parallel BERT requires hidden_dropout=0 and "
+            "attention_dropout=0 (standard for long-context training)"
+        )
     if compute_dtype is not None:
         config = dataclasses.replace(config, dtype=compute_dtype)
 
     def init(seed: int, device) -> BertClassifier:
-        model = BertClassifier(config, num_classes, attention_fn)
+        model = BertClassifier(config, num_classes, attention_fn, seq_axis)
         init_weights(model, torch.Generator().manual_seed(seed))
         return store_in(model, compute_dtype).to(device)
 

@@ -74,8 +74,26 @@ rows, with JAX's semantics:
 
 ``fused_adam`` with ``axis_name`` is refused, as in JAX: the fused window
 folds each micro-batch into the moments before any window-level
-collective exists. ``example_axes`` (sequence shards of one example) is not
-ported yet and raises ``NotImplementedError``.
+collective exists.
+
+**Example axes** (``example_axes``, the ``seq`` axis of sequence
+parallelism): mesh axes whose ranks hold shards of the SAME examples.
+Each rank's micro-batch gradient is its part of the example's gradient,
+and the parts sum (the denominator counts ``K·N`` over ``axis_name``
+only). A parameter marked invariant over such an axis
+(``parallel/sharding.py :: invariant_axes``: the head after a summed
+readout) has its whole gradient on every rank, so only the rank at
+coordinate 0 of that axis counts it in the sum, as JAX's varying-axes
+typing sums only the varying ones; the window's loss statistic and good
+count, equal on every such rank, count once the same way. Scan mode sums
+the parts once per update, inside the window's one all-reduce (over
+``axis_name`` and the example axes together), where JAX sums each
+micro-batch's: the same sum in another order, K-fold fewer collectives.
+Streaming mode sums each micro-batch's over the same group. Under the
+guard each micro-batch's verdict is pmin'd over the example axes: a
+micro-batch bad on one shard of its examples is skipped on all of them
+(finite parts sum to a finite gradient, so the verdict on the parts is
+the verdict on the sum, overflow of the sum aside).
 """
 
 from __future__ import annotations
@@ -87,6 +105,7 @@ import torch.nn.functional as F
 
 from gradaccum_tpu_torch.ops.adamw import Optimizer
 from gradaccum_tpu_torch.parallel import tp as tp_lib
+from gradaccum_tpu_torch.parallel.sharding import invariant_axes
 from gradaccum_tpu_torch.ops.clipping import clip_by_global_norm, grad_norm
 from gradaccum_tpu_torch.ops.loss_scale import (
     LossScaleConfig,
@@ -99,8 +118,8 @@ class GradAccumConfig(NamedTuple):
     """``num_micro_batches`` is the reference's
     ``gradient_accumulation_multiplier``; ``clip_norm`` is 1.0 on the BERT
     path, None on MNIST and housing. ``axis_name`` names the data-parallel
-    axis the step reduces over; ``example_axes`` is a knob of the JAX
-    package that the port does not run yet."""
+    axis the step reduces over; ``example_axes`` the mesh axes that shard
+    each example (the module docstring)."""
 
     num_micro_batches: int
     clip_norm: Optional[float] = None
@@ -114,8 +133,7 @@ class GradAccumConfig(NamedTuple):
 
 
 def validate_config(config: GradAccumConfig) -> None:
-    """The JAX package's refusals (same errors, same order), then
-    ``NotImplementedError`` for the knobs the port does not run yet."""
+    """The JAX package's refusals (same errors, same order)."""
     if config.num_micro_batches < 1:
         raise ValueError(f"num_micro_batches must be >= 1, got {config.num_micro_batches}")
     if config.normalize_by_good_count and not config.skip_nonfinite:
@@ -148,10 +166,6 @@ def validate_config(config: GradAccumConfig) -> None:
                 "micro-batch. Run fused accumulation on the GSPMD path "
                 "(sharding_rules / zero1) instead"
             )
-    if config.example_axes:
-        raise NotImplementedError(
-            "GradAccumConfig knob(s) ['example_axes'] are not ported yet; see ROADMAP.md"
-        )
 
 
 # loss_fn(params, micro_batch) -> scalar loss (mean over the micro batch).
@@ -283,6 +297,56 @@ def _axis_mesh(config: GradAccumConfig):
     return axis_mesh(config.axis_name)
 
 
+class _Reduce(NamedTuple):
+    """Where a window's gradient sums: ``mesh`` over ``axis_name`` and the
+    example axes together, ``examples`` over the example axes (the guard's
+    pmin), ``replicas`` the ``axis_name`` width (the denominator's N), and
+    ``once`` whether this rank counts the values its example shards share
+    (coordinate 0 on every example axis)."""
+
+    mesh: Any
+    examples: Any
+    replicas: int
+    once: bool
+
+
+def _reduction(config: GradAccumConfig) -> Optional[_Reduce]:
+    """The :class:`_Reduce` of ``config``, or None with neither
+    ``axis_name`` nor ``example_axes``."""
+    data = _axis_mesh(config)
+    axes = tuple(config.example_axes)
+    if not axes:
+        return None if data is None else _Reduce(data, None, data.world, True)
+    from gradaccum_tpu_torch.parallel.mesh import axis_mesh, current_mesh
+
+    shards = [axis_mesh(a) for a in axes]  # an unbound name raises JAX's NameError
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError("example_axes need the multi-axis mesh of parallel.mesh.make_mesh")
+    names = axes + ((config.axis_name,) if config.axis_name is not None else ())
+    return _Reduce(mesh.over(names), mesh.over(axes), 1 if data is None else data.world,
+                   all(m.rank == 0 for m in shards))
+
+
+def _shared_names(params, config: GradAccumConfig):
+    """The parameters invariant over an example axis: each rank of it holds
+    their whole gradient, counted once in the sum."""
+    axes = set(config.example_axes)
+    return [name for name, p in params.items() if axes & set(invariant_axes(p))]
+
+
+def _sum_parts(grads, params, config: GradAccumConfig, red: _Reduce):
+    """One micro-batch's gradients summed over ``red.mesh``, the whole
+    gradients of the parameters shared by the example shards counted once."""
+    if not red.once:
+        shared = set(_shared_names(params, config))
+        grads = [torch.zeros_like(g) if name in shared else g
+                 for name, g in zip(params, grads)]
+    grads = list(grads)
+    red.mesh.all_reduce_tensors_(grads, tag="grads")
+    return grads
+
+
 def _global_mean(mesh, loss, check_loss, grads):
     """One micro-batch's loss, checked loss and gradients averaged over the
     ranks of ``mesh``: the gradient of the mean loss over the global
@@ -369,7 +433,8 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
         if needs_rng and generator is None:
             raise ValueError("needs_rng=True: pass train_step(state, batch, generator)")
         scale = _scale_of(state, config, "scan_init")
-        mesh = _axis_mesh(config)
+        red = _reduction(config)
+        mesh = None if red is None else red.mesh
         params = state.params
         dense = params
         vocab_mesh = None
@@ -431,11 +496,19 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
                     good = _all_finite(check_loss, grads)
                     if micro_mean is not None and sparse is not None:
                         good = micro_mean.pmin_flag(good, tag="guard")
+                    if red is not None and red.examples is not None:
+                        # shards of one example agree: bad on one, skipped on all
+                        good = red.examples.pmin_flag(good, tag="guard")
                     grads = _zero_if_bad(grads, good)
                     loss = torch.where(good, loss, torch.zeros_like(loss))  # out of the mean
                 if sparse is not None:
                     rows_ct.append(grads[-1])
                     grads = grads[:-1]
+                if fused and red is not None:
+                    # the moments fold each micro-batch: its example shards'
+                    # parts sum first (fused forbids axis_name: this is the
+                    # example axes alone)
+                    grads = _sum_parts(grads, params, config, red)
                 if fused:
                     # the first usable micro-batch carries the moments' decay
                     first = n_good == 0 if good is None else (n_good == 0) & good
@@ -472,19 +545,24 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
         # losses under the guard, else their mean
         loss_stat = stacked.sum() if skip else stacked.mean()
         total = k
-        if mesh is not None:  # fused forbids axis_name (validate_config)
+        if mesh is not None and not fused:
             with torch.no_grad():
                 # the one collective per update: the accumulator, the loss
                 # statistic and the good count in one buffer, reduced in place
                 stats[0] = loss_stat
                 if skip:
                     stats[1] = n_good
+                if not red.once:
+                    # what every shard of these examples holds whole counts once
+                    stats.zero_()
+                    for name in _shared_names(params, config):
+                        accum[name].zero_()
                 for buf in buffers:
                     mesh.all_reduce_(buf, tag="grads")
                 loss_stat = stats[0].to(stacked.dtype)
                 if skip:
                     n_good = stats[1].to(torch.int32)
-            total = k * mesh.world
+            total = k * red.replicas
         apply_step = state.step + k
         norm = None
         if fused:
@@ -509,7 +587,7 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
                                loss_stat / torch.clamp(n_good.to(stacked.dtype), min=1.0),
                                torch.full_like(stacked[0], float("nan")))
         else:
-            loss = loss_stat if mesh is None else loss_stat / mesh.world
+            loss = loss_stat if mesh is None else loss_stat / red.replicas
         aux = {"loss": loss, "lr_step": apply_step}
         if norm is not None:  # fused mode never sums the window's gradient
             aux["grad_norm"] = norm
@@ -619,8 +697,9 @@ def _streaming_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig
                 raise ValueError("needs_rng=True: pass train_step(state, batch, generator)")
             micro_batch = dict(micro_batch, rng=generator)
         scale = _scale_of(state, config, "streaming_init")
-        mesh = _axis_mesh(config)
-        n_replicas = 1 if mesh is None else mesh.world
+        red = _reduction(config)
+        data = _axis_mesh(config)
+        n_replicas = 1 if red is None else red.replicas
         params = state.params
         loss, check_loss, grads = _grad_call(loss_fn, params, micro_batch, scale)
         applied = state.step % k == phase
@@ -630,20 +709,23 @@ def _streaming_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig
         with torch.no_grad():
             if micro_mean is not None:
                 loss, check_loss, grads = _global_mean(micro_mean, loss, check_loss, grads)
-            if mesh is not None:
+            if red is not None:
                 # the reference's SUM-aggregated mirrored accumulators: one
-                # all-reduce of this micro-batch's gradients
-                mesh.all_reduce_tensors_(grads, tag="grads")
+                # all-reduce of this micro-batch's gradients (and of the
+                # example shards' parts; a whole one counts once)
+                grads = _sum_parts(grads, params, config, red)
             good = None
             if skip:
-                if mesh is None:
+                if data is None:
                     good = _all_finite(check_loss, grads)
                 else:
                     # the loss is this rank's: any rank's non-finite loss
                     # skips the micro-batch on every rank, or the zeroed
                     # accumulators would diverge
-                    finite_loss = mesh.pmin_flag(torch.isfinite(check_loss), tag="guard")
+                    finite_loss = data.pmin_flag(torch.isfinite(check_loss), tag="guard")
                     good = finite_loss & _all_finite(check_loss, grads)
+                if red is not None and red.examples is not None:
+                    good = red.examples.pmin_flag(good, tag="guard")
                 grads = _zero_if_bad(grads, good)
                 good_inc = good.to(torch.int32)
             else:

@@ -17,10 +17,24 @@ the right ranks.
 Every collective the mesh paths issue lives here, in one place:
 the SUM all-reduce (of one tensor, or of a list of tensors flattened into
 one buffer per dtype, so that a whole gradient tree costs one call), the
-all-gather along a dimension, the broadcast from rank 0, and the pmin of a
-boolean flag. Each call adds one to ``DataMesh.calls`` under its op (and
-under ``op:tag`` when the caller tags it), so tests and ``chip_smoke.py``
-can count the collectives of a step.
+all-gather along a dimension, the broadcast from rank 0, the MIN of a
+boolean flag or of an int vector, and two differentiable ones that
+sequence and pipeline parallelism need: :meth:`DataMesh.ppermute` (JAX's
+``lax.ppermute``: each rank sends its tensor to one rank of a permutation,
+and a rank that receives nothing gets zeros; its backward is the inverse
+permutation) and :meth:`DataMesh.all_to_all` (JAX's tiled
+``lax.all_to_all``; its backward is the inverse all-to-all). Each call
+adds one to ``DataMesh.calls`` under its op (and under ``op:tag`` when the
+caller tags it), so tests and ``chip_smoke.py`` can count the collectives
+of a step.
+
+Both differentiable ops run on ``all_to_all_single`` on every backend, a
+permutation as an all-to-all whose chunks are empty but the one sent and
+the one received. Gloo's point-to-point ``send``/``recv`` hand the
+tensor's data pointer to the transport as host memory, so they cannot
+move a CUDA tensor, while its all-to-all takes CUDA tensors
+(``chip_smoke.py`` phase 23 asks both on each run and checks the values
+received).
 
 Gloo runs on CUDA tensors too (two ranks that share one card use it):
 the torch this port runs on the card took all-reduce, broadcast and
@@ -178,9 +192,101 @@ class DataMesh:
         dist.all_gather(parts, src, group=self.group)
         return torch.cat(parts, dim=dim)
 
+    def pmin_(self, tensor: torch.Tensor, tag: Optional[str] = None) -> torch.Tensor:
+        """MIN of an integer ``tensor`` over the ranks, in place (a
+        per-micro-batch verdict vector: bad on one rank is bad on all)."""
+        if self.solo:
+            return tensor
+        self._count("pmin", tag)
+        dist.all_reduce(tensor, op=dist.ReduceOp.MIN, group=self.group)
+        return tensor
+
+    def ppermute(self, x: torch.Tensor, perm: Sequence[Tuple[int, int]],
+                 tag: Optional[str] = None) -> torch.Tensor:
+        """JAX's ``lax.ppermute`` over this axis: rank ``src`` of each
+        ``(src, dst)`` pair sends ``x`` to rank ``dst`` (ranks of this axis);
+        a rank that receives nothing gets zeros. Differentiable: the
+        gradient goes back along the inverse permutation."""
+        if self.solo:
+            dst = dict(perm).get(0)
+            return x if dst == 0 else torch.zeros_like(x)
+        return _PPermute.apply(x, self, tuple(perm), tag)
+
+    def all_to_all(self, x: torch.Tensor, split_dim: int, concat_dim: int,
+                   tag: Optional[str] = None) -> torch.Tensor:
+        """JAX's tiled ``lax.all_to_all`` over this axis: ``x`` is cut into
+        ``world`` chunks along ``split_dim``, chunk j goes to rank j, and the
+        chunks received are concatenated along ``concat_dim`` in rank order.
+        Differentiable: the backward is the inverse all-to-all."""
+        if self.solo:
+            return x
+        if x.shape[split_dim] % self.world:
+            raise ValueError(f"all_to_all: dimension {split_dim} of {tuple(x.shape)} does "
+                             f"not split into {self.world} chunks")
+        return _AllToAll.apply(x, self, split_dim % x.dim(), concat_dim % x.dim(), tag)
+
+    def _exchange(self, send: torch.Tensor, send_sizes: List[int],
+                  recv_sizes: List[int], op: str, tag: Optional[str]) -> torch.Tensor:
+        """One ``all_to_all_single`` of the flat ``send``: ``send_sizes[j]``
+        elements to rank j, ``recv_sizes[j]`` from it."""
+        self._count(op, tag)
+        out = torch.empty(sum(recv_sizes), dtype=send.dtype, device=send.device)
+        dist.all_to_all_single(out, send.contiguous(), recv_sizes, send_sizes,
+                               group=self.group)
+        return out
+
     def barrier(self) -> None:
         if not self.solo:
             dist.barrier(group=self.group)
+
+
+def _permute(x: torch.Tensor, mesh: DataMesh, perm, tag) -> torch.Tensor:
+    """The forward of :meth:`DataMesh.ppermute` (no autograd)."""
+    sends = dict(perm)
+    recvs = {dst: src for src, dst in perm}
+    if len(sends) != len(perm) or len(recvs) != len(perm):
+        raise ValueError(f"ppermute: {list(perm)} is not a permutation")
+    n = x.numel()
+    dst, src = sends.get(mesh.rank), recvs.get(mesh.rank)
+    send_sizes = [n if j == dst else 0 for j in range(mesh.world)]
+    recv_sizes = [n if j == src else 0 for j in range(mesh.world)]
+    flat = x.detach().reshape(-1) if dst is not None else x.detach().reshape(-1)[:0]
+    got = mesh._exchange(flat, send_sizes, recv_sizes, "ppermute", tag)
+    return got.view(x.shape) if src is not None else torch.zeros_like(x)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, perm, tag):
+        ctx.mesh, ctx.perm, ctx.tag = mesh, perm, tag
+        return _permute(x, mesh, perm, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = tuple((dst, src) for src, dst in ctx.perm)
+        return _permute(g.contiguous(), ctx.mesh, inverse, ctx.tag), None, None, None
+
+
+def _all_to_all(x: torch.Tensor, mesh: DataMesh, split_dim: int, concat_dim: int,
+                tag) -> torch.Tensor:
+    """The forward of :meth:`DataMesh.all_to_all` (no autograd)."""
+    chunks = torch.stack(x.detach().chunk(mesh.world, dim=split_dim)).contiguous()
+    size = chunks[0].numel()
+    got = mesh._exchange(chunks.reshape(-1), [size] * mesh.world, [size] * mesh.world,
+                         "all_to_all", tag)
+    return torch.cat(got.view(chunks.shape).unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, split_dim, concat_dim, tag):
+        ctx.args = (mesh, split_dim, concat_dim, tag)
+        return _all_to_all(x, mesh, split_dim, concat_dim, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, split_dim, concat_dim, tag = ctx.args
+        return _all_to_all(g, mesh, concat_dim, split_dim, tag), None, None, None, None
 
 
 def _backend_for(device: torch.device) -> str:
@@ -389,8 +495,15 @@ def make_mesh(axis_sizes: Optional[Sequence[Tuple[str, int]]] = None, **axes: in
                 if rank in members:
                     groups[key] = DataMesh(members.index(rank), len(members), device, backend,
                                            "+".join(key), group=group, ranks=members)
-    mesh = Mesh(names, sizes, rank, device, backend, groups)
-    for name in names:
+    return bind_mesh(Mesh(names, sizes, rank, device, backend, groups))
+
+
+def bind_mesh(mesh: Mesh) -> Mesh:
+    """Make ``mesh`` this process's current mesh: each of its axis names
+    binds to its one-axis mesh (:func:`axis_mesh`), as :func:`make_mesh`
+    leaves the mesh it builds. A process that built several meshes binds
+    the one its next step runs on."""
+    for name in mesh.axis_names:
         _BOUND[name] = mesh.axis(name)
         _BOUND[name].axis = name
     _MESH["current"] = mesh

@@ -143,6 +143,21 @@ def placement(param: torch.Tensor) -> Optional[Tuple[Optional[str], ...]]:
     return getattr(param, "placement", None)
 
 
+def mark_invariant(param: torch.Tensor, axis: str) -> torch.Tensor:
+    """Mark ``param`` invariant over the mesh axis ``axis``: every use of it
+    follows a sum over that axis (the head after the sequence-parallel
+    readout), so each rank of the axis computes its whole gradient, where
+    the other parameters' gradients are each rank's part (JAX's
+    varying-manual-axes typing tells the two apart)."""
+    param.invariant_axes = tuple(getattr(param, "invariant_axes", ())) + (axis,)
+    return param
+
+
+def invariant_axes(param: torch.Tensor) -> Tuple[str, ...]:
+    """The axes :func:`mark_invariant` marked ``param`` invariant over."""
+    return getattr(param, "invariant_axes", ())
+
+
 def host_shard(batch, num_hosts: Optional[int] = None, host_id: Optional[int] = None):
     """This host's stripe of every value of the dict ``batch`` (numpy
     arrays or tensors), dim 0. Defaults: the process group's world size and

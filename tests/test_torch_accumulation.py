@@ -190,15 +190,12 @@ def test_stack_micro_batches_matches_jax():
 ])
 def test_unported_knobs_raise(knob):
     # the guard, loss scaling and fused_adam are ported (tests/test_torch_guard.py,
-    # tests/test_torch_mixed.py); example_axes, alone or beside them, is not.
-    # axis_name is ported (data parallelism, tests/test_torch_parallel.py): on a
-    # one-rank gloo group bound to "data" the step equals the step without it
-    # bit for bit (a one-rank SUM is the identity, the denominator K·1)
-    if "axis_name" not in knob:
-        with pytest.raises(NotImplementedError):
-            tacc.accumulate_scan(lambda p, b: 0.0, tadamw.adamw(1e-3),
-                                 tacc.GradAccumConfig(2, **knob))
-        return
+    # tests/test_torch_mixed.py), and so are axis_name (data parallelism,
+    # tests/test_torch_parallel.py) and example_axes (sequence parallelism,
+    # tests/test_torch_sp.py). Each builds; unbound, its axis raises JAX's
+    # NameError at the first call; on a one-rank gloo group bound to it the
+    # step equals the step without it bit for bit (a one-rank SUM is the
+    # identity, the denominator K·1)
     from gradaccum_tpu_torch.examples.common import free_port
     from gradaccum_tpu_torch.parallel import mesh as mesh_lib
 
@@ -219,15 +216,21 @@ def test_unported_knobs_raise(knob):
         return state, aux
 
     config = tacc.GradAccumConfig(2, **knob)
-    want, want_aux = run(config._replace(axis_name=None))
-    with pytest.raises(NameError, match="unbound axis name: data"):
+    want, want_aux = run(config._replace(axis_name=None, example_axes=()))
+    axis = "data" if "axis_name" in knob else "seq"
+    with pytest.raises(NameError, match=f"unbound axis name: {axis}"):
         run(config)
     mesh_lib.initialize_multihost(f"localhost:{free_port()}", 1, 0, device="cpu",
                                   timeout_s=60)
     try:
-        mesh = mesh_lib.data_parallel_mesh()
-        got, got_aux = run(config)
-        assert mesh.calls["all_reduce:grads"] == 2  # one per update
+        if axis == "data":
+            mesh = mesh_lib.data_parallel_mesh()
+            got, got_aux = run(config)
+            assert mesh.calls["all_reduce:grads"] == 2  # one per update
+        else:
+            mesh = mesh_lib.make_mesh(data=1, seq=1)  # one-rank axes issue nothing
+            got, got_aux = run(config)
+            assert not mesh.calls
     finally:
         mesh_lib.shutdown()
     assert torch.equal(got.params["w"], want.params["w"])

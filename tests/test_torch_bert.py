@@ -148,12 +148,21 @@ def test_dropout_follows_the_generator():
 
 @pytest.mark.parametrize("kw", [dict(seq_axis="seq"), dict(compute_dtype=torch.bfloat16)])
 def test_unported_options_raise(kw):
-    # seq_axis is still refused; compute_dtype was refused before the
-    # mixed-precision slice and now stores the parameters in bfloat16
-    # (tests/test_torch_mixed.py holds its forward against JAX)
+    # seq_axis was refused before the sequence-parallel slice: it now raises
+    # only JAX's refusal of dropout (tests/test_torch_sp.py holds the model
+    # against JAX) and draws the dense model's parameters; compute_dtype was
+    # refused before the mixed-precision slice and now stores the parameters
+    # in bfloat16 (tests/test_torch_mixed.py holds its forward against JAX)
     if "seq_axis" in kw:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="sequence-parallel BERT requires"):
             tbert.bert_classifier_bundle(tbert.BertConfig.tiny_for_tests(), **kw)
+        from gradaccum_tpu_torch.utils.tree import named_parameters
+
+        cfg = tbert.BertConfig.tiny_for_tests(hidden_dropout=0.0, attention_dropout=0.0)
+        sp = named_parameters(tbert.bert_classifier_bundle(cfg, **kw).init(0, "cpu"))
+        dense = named_parameters(tbert.bert_classifier_bundle(cfg).init(0, "cpu"))
+        assert sp.keys() == dense.keys()
+        assert all(torch.equal(sp[k], dense[k]) for k in sp)
         return
     model = tbert.bert_classifier_bundle(tbert.BertConfig.tiny_for_tests(), **kw).init(0, "cpu")
     assert {p.dtype for p in model.parameters()} == {torch.bfloat16}

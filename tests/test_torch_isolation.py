@@ -67,7 +67,10 @@ print(len(names), len(params), cfg.vocab_size)
 NEW_MODULES = ("obs", "obs.trace", "obs.metrics", "obs.flight", "resilience",
                "resilience.retry", "resilience.manifest", "resilience.faults",
                "resilience.preemption", "estimator.events", "estimator.export",
-               "utils.timing", "utils.profiling", "data.native")
+               "utils.timing", "utils.profiling", "data.native",
+               # sequence and pipeline parallelism
+               "parallel.sp", "parallel.pp", "parallel.ulysses", "models.bert_pp",
+               "examples.bench_longcontext")
 
 
 def _run(args, cwd=ROOT, timeout=120):

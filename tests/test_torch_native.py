@@ -130,3 +130,83 @@ def test_switch_off_disables_the_library(monkeypatch):
     monkeypatch.setenv("GRADACCUM_NATIVE", "0")
     assert native.get_lib() is None and not native.available()
     assert native.read_idx_labels("/nonexistent") is None
+
+
+# --------------------------------------------------------------------------
+# the WordPiece encoder's native fast path (tests/test_native.py:199-264)
+# --------------------------------------------------------------------------
+
+
+def _vocab_pair(corpus, size):
+    """The port's tokenizer (native fast path), its pure-Python twin, and
+    JAX's tokenizer on its Python path, over one corpus."""
+    from gradaccum_tpu.data import tokenization as jtok
+    from gradaccum_tpu_torch.data import tokenization as ttok
+
+    tok = ttok.build_vocab(corpus, size=size)
+    assert tok._native_encoder() is not None, "native wordpiece not built"
+    tok_py = ttok.build_vocab(corpus, size=size)
+    tok_py._native_tried = True  # skip native: the pure-Python reference
+    tok_jax = jtok.build_vocab(corpus, size=size)
+    tok_jax._native_tried = True
+    assert tok.vocab == tok_jax.vocab
+    return tok, tok_py, tok_jax
+
+
+@pytest.mark.parametrize("text_a,text_b", [
+    ("the cat sat", None),
+    ("a dog runs fast!", None),
+    ("unbelievable running", "the mat."),
+    ("THE CAT", None),  # the lowercase path
+    ("totally-unseen zqxj", None),  # UNK and a punctuation split
+    ("word " * 200, "pad " * 150),  # the pair truncation loop
+    ("", None),  # empty text
+], ids=["plain", "punct", "pair", "upper", "unk", "truncate", "empty"])
+def test_wordpiece_native_matches_python_and_jax(text_a, text_b):
+    corpus = ["the cat sat on the mat", "a dog runs fast!", "unbelievable",
+              "it's a fine day, isn't it?", "running runner ran"]
+    tok, tok_py, tok_jax = _vocab_pair(corpus, 64)
+    got = tok._native_encoder().encode(text_a, text_b, 32)
+    assert got is not None
+    for want in (tok_py.encode(text_a, text_b, max_seq_length=32),
+                 tok_jax.encode(text_a, text_b, max_seq_length=32)):
+        for g, w, name in zip(got, want, ["ids", "mask", "segments"]):
+            assert g.dtype == w.dtype == np.int32
+            np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+def test_wordpiece_native_declines_non_ascii():
+    tok, tok_py, _ = _vocab_pair(["plain ascii corpus"], 64)
+    assert tok._native_encoder().encode("café au lait", None, 16) is None  # Python does it
+    got, want = tok.encode("café au lait", max_seq_length=16), \
+        tok_py.encode("café au lait", max_seq_length=16)
+    assert got[1].sum() > 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["single", "pairs"])
+def test_wordpiece_native_batch_matches_python_with_mixed_unicode(paired):
+    tok, tok_py, tok_jax = _vocab_pair(
+        ["plain ascii text", "with punctuation, too!", "more words here"], 128)
+    texts = ["plain text", "café au lait", "naïve approach!", "ascii again", ""]
+    pairs = [None, "more words", "plain", None, "touché"] if paired else None
+    got = tok.encode_batch(texts, pairs, max_seq_length=16)
+    for ref in (tok_py, tok_jax):
+        want = ref.encode_batch(texts, pairs, max_seq_length=16)
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+def test_wordpiece_native_control_bytes_fall_back():
+    """Interior NULs truncate at the C boundary and 0x1C-0x1F are whitespace
+    to Python but not to std::isspace: both take the Python path."""
+    tok, tok_py, tok_jax = _vocab_pair(["cat dog fish", "short rest of sentence"], 128)
+    tricky = ["cat\x1cdog", "short\x00 rest", "cat\x1ddog fish", "plain cat"]
+    assert tok._native_encoder().encode(tricky[0], None, 16) is None
+    assert tok._native_encoder().encode(tricky[1], None, 16) is None
+    got = tok.encode_batch(tricky, max_seq_length=16)
+    for ref in (tok_py, tok_jax):
+        want = ref.encode_batch(tricky, max_seq_length=16)
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
