@@ -109,8 +109,9 @@ Phases, each of which fails the run if it fails:
     all-bad window a bitwise no-op over parameters, masters and moments,
     the scale halving at each dirty window.
 17. gpt_lm: the entry point with ``--flash`` (float32, route ``tf32x3``),
-    scan and streaming, 32 micro-steps and ``--sample 40``: the loss falls,
-    token accuracy in [0, 1], launch counts exact from its JSON line.
+    scan and streaming, 32 micro-steps and ``--sample 40`` (decoded with the
+    KV cache, which launches no flash kernel): the loss falls, token
+    accuracy in [0, 1], launch counts exact from its JSON line.
 18. bert f32: the entry point ``bert_finetune`` at its default dtype
     (float32, no ``--bf16``), BERT-Small width, seq 128, micro-batch 8 x
     K=4, scan, 2 updates and its evaluations: the only entry-point run of
@@ -223,6 +224,27 @@ Phases, each of which fails the run if it fails:
     (``--longctx-timing PATH``). Every time in the kernels line says how it
     was taken (``ms_from``: the profiler's device events, or CUDA events
     where the profiler kept losing events).
+
+24. serving (``models/gpt_decode.py``, ``serving/``): GPT-Small (vocab
+    50257, L-4 H-512 A-8, FFN 2048, 512 positions), float32, random weights
+    from SERVE_SEED. (a) A fixed-pool engine (8 slots, max_len 512, decode
+    block 8) and a paged engine of equal pool bytes (page 16, 32 slots)
+    each serve a seeded ``SimulationDriver`` trace of 24 requests (prompts
+    16-256 tokens, 16-96 new): every stream equals ``generate_cached`` on
+    the card token for token; a difference prints its first position and
+    the reference's top-2 logit gap there, and fails. (b) The same at
+    temperature 0.8, top-k 50, against ``generate_cached`` with the
+    request's seed. (c) ``ServingServer`` over a paged engine: a request
+    cancelled after its first token gives its slot and blocks back, 8
+    concurrent streams equal ``generate_cached``, a full queue rejects. (d)
+    ``bench_serving`` default and ``--paged`` legs (tokens/s serial and
+    engine, TTFT p50/p99 in wall ms and in ticks, KV bytes per token in
+    flight; results in ``build/chip_smoke_serving/``). (e) A profiler
+    window over 4 ticks of the sampled fixed engine: wall and card-busy ms
+    per tick, idle share, launches per micro-step (model, sampling, engine)
+    and the top kernels, in a process of its own (``--serving-profile``:
+    late in the script profiler windows lose events). No flash kernel
+    launches in this phase.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON line describing every kernel in each dtype (bfloat16: launches
@@ -1694,7 +1716,8 @@ def phase_gpt_lm(steps: int = 32):
                                            f"({r['first_loss']} -> {r['loss']})")
         check(0.0 <= r["token_accuracy"] <= 1.0, f"gpt_lm {mode}: accuracy {r['token_accuracy']}")
         train = layers * r["steps"]
-        forward = train + layers * (r["eval_batches"] * r["evaluations"] + r["sample_steps"])
+        # --sample decodes with the KV cache (torch ops): no flash launch
+        forward = train + layers * r["eval_batches"] * r["evaluations"]
         want = {"flash_fwd": forward, "flash_bwd_dq": train, "flash_bwd_dkv": train}
         check(counts == want, f"gpt_lm {mode}: launches {counts} != {want}")
         check(all(routes[k]["tf32x3"] == n and routes[k]["tc"] == 0 for k, n in want.items()),
@@ -1703,7 +1726,7 @@ def phase_gpt_lm(steps: int = 32):
               f"updates, loss {r['first_loss']:.4f} -> {r['loss']:.4f}, token accuracy "
               f"{r['token_accuracy']:.4f} ({r['evaluations']} evaluations of "
               f"{r['eval_batches']} batches), {r['examples/s']:.1f} seq/s, decode "
-              f"{r['decode_tokens_per_sec']:.1f} tokens/s (recompute); launches {counts}, all "
+              f"{r['decode_tokens_per_sec']:.1f} tokens/s (KV cache); launches {counts}, all "
               f"tf32x3; sample {r['sample']!r}")
         out[mode] = dict(r, launches=counts)
     return out
@@ -3681,6 +3704,304 @@ def phase_export_check(job):
     return launches, overhead
 
 
+# --------------------------------------------------------------------------
+# phase 24: serving (cached and paged decode, the engine, the server)
+# --------------------------------------------------------------------------
+
+SERVE_SEED = 24  # the model's weights and the trace
+SERVE_TRACE = dict(n_requests=24, arrival_rate=0.5, prompt_len=(16, 256), max_new=(16, 96))
+SERVE_SAMPLING = dict(temperature=0.8, top_k=50)
+SERVE_PROFILE_TICKS = 4
+SERVE_DIR = os.path.join(ROOT, "build", "chip_smoke_serving")
+
+
+def _serve_model():
+    """GPT-Small (vocab 50257, L-4 H-512 A-8, FFN 2048, 512 positions),
+    float32, random weights from SERVE_SEED, as the decode tree."""
+    from gradaccum_tpu_torch.interop import params_tree
+    from gradaccum_tpu_torch.models.gpt import GPTConfig, gpt_lm_bundle
+
+    cfg = GPTConfig.small(dropout=0.0)
+    return cfg, params_tree(gpt_lm_bundle(cfg).init(SERVE_SEED, "cuda"))
+
+
+def _first_gap(params, cfg, prompt, got, want):
+    """The first position where two streams differ and the top-2 gap of the
+    reference's logits there."""
+    import torch
+
+    from gradaccum_tpu_torch.models.gpt_decode import prefill
+
+    pos = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    ids = torch.tensor([list(prompt) + list(want[:pos])], device="cuda")
+    _, logits = prefill(params, cfg, ids, ids.shape[1])
+    top2 = torch.topk(logits[0], 2).values
+    return pos, float(top2[0] - top2[1])
+
+
+def _serve_solo(params, cfg, trace, sampling):
+    """Each request of ``trace`` alone through ``generate_cached`` on the card
+    (its seed as the key)."""
+    from gradaccum_tpu_torch.models.gpt_decode import generate_cached
+    from gradaccum_tpu_torch.utils import prng
+
+    return [generate_cached(params, cfg, item.prompt, item.max_new_tokens,
+                            rng=prng.PRNGKey(item.rng_seed), **sampling)
+            [0, item.prompt.size:].tolist() for item in trace]
+
+
+def _serve_check(tag, params, cfg, trace, records, wants):
+    """Every request's stream against its ``generate_cached`` tokens."""
+    for item, rec, want in zip(trace, records, wants):
+        check(rec["status"] == "done", f"[serving] {tag}: request {rec['request_id']} "
+                                       f"ended {rec['status']}")
+        if rec["tokens"] != want:
+            pos, gap = _first_gap(params, cfg, item.prompt, rec["tokens"], want)
+            raise SmokeError(f"[serving] {tag}: request {rec['request_id']} (prompt "
+                             f"{item.prompt.size}, {item.max_new_tokens} new) first differs "
+                             f"from generate_cached at token {pos}: {rec['tokens'][pos]} "
+                             f"against {want[pos]}, the reference's top-2 logit gap there "
+                             f"{gap:.3e}")
+
+
+def _serve_engines(params, cfg, sampling, tag):
+    """(a)/(b): a fixed engine (8 slots, max_len 512, decode block 8) and a
+    paged engine at equal pool bytes (page 16, 4x the slots) serve one
+    seeded trace; every stream equals generate_cached."""
+    import torch
+
+    from gradaccum_tpu_torch.serving import Engine, Scheduler, SimulationDriver
+
+    pool_bytes, wants = {}, None
+    # the paged pool holds the fixed pool's 8 x 512 positions as 256 blocks
+    for pool, kw in (("fixed", dict(num_slots=8)),
+                     ("paged", dict(num_slots=32, page_size=16, num_blocks=256))):
+        engine = Engine(params, cfg, max_len=512, decode_block=8,
+                        scheduler=Scheduler(max_queue=64), **kw, **sampling)
+        driver = SimulationDriver(engine, seed=SERVE_SEED)
+        trace = driver.make_trace(**SERVE_TRACE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        records = driver.run(trace)
+        wall = time.perf_counter() - t0
+        if wants is None:  # one trace (one seed) for both pools: one reference
+            wants = _serve_solo(params, cfg, trace, sampling)
+        _serve_check(f"{tag} {pool}", params, cfg, trace, records, wants)
+        m = engine.metrics.summary()
+        tokens = sum(len(r["tokens"]) for r in records)
+        pool_bytes[pool] = engine.kv_pool_bytes
+        check(engine.decode_compile_count() == 1,
+              f"[serving] {tag} {pool}: {engine.decode_compile_count()} tick signatures")
+        print(f"[serving] ({'a' if not sampling else 'b'}) {tag} {pool}: {len(records)} "
+              f"requests, {tokens} tokens token for token with generate_cached; {m['ticks']} "
+              f"ticks, {tokens / wall:.1f} tokens/s, {1e3 * wall / m['ticks']:.2f} ms/tick "
+              f"(wall, trace on the tick clock), KV {m['kv_bytes_per_token_in_flight']:.0f} "
+              f"B/token in flight of a {engine.kv_pool_bytes / 2 ** 20:.1f} MiB pool, "
+              f"{engine.prefill_compile_count()} prefill signatures")
+    check(pool_bytes["fixed"] == pool_bytes["paged"],
+          f"[serving] pools of unequal bytes: {pool_bytes}")
+
+
+def _serve_server(params, cfg):
+    """(c): 8 concurrent streams through ServingServer, a cancelled request
+    handing its slot and blocks back, and a full queue rejecting."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from gradaccum_tpu_torch.models.gpt_decode import generate_cached
+    from gradaccum_tpu_torch.serving import (Engine, QueueFull, Scheduler,
+                                             ServingServer)
+
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(16, 129))).astype(np.int32)
+               for _ in range(8)]
+    # decode block 1: the request to cancel runs 400 ticks, far longer than
+    # the wait between its first token and the cancel
+    engine = Engine(params, cfg, num_slots=8, max_len=512, page_size=16, decode_block=1,
+                    scheduler=Scheduler(max_queue=16))
+    with ServingServer(engine) as srv:
+        doomed = srv.submit(prompts[0][:64], 400)
+        first = next(iter(doomed))
+        check(srv.cancel(doomed.request_id), "[serving] (c) cancel refused")
+        tokens, reason = doomed.result(timeout=60)
+        check(reason == "cancelled" and tokens[0] == first,
+              f"[serving] (c) cancelled stream ended {reason}")
+        stats = srv.stats()
+        check(stats["active_slots"] == 0 and stats["free_kv_blocks"] == stats["num_kv_blocks"],
+              f"[serving] (c) the cancelled request kept its slot or blocks: {stats}")
+
+        def stream(i):
+            handle = srv.submit(prompts[i], 48, rng_seed=i)
+            return list(handle), handle.result(timeout=120)
+
+        with ThreadPoolExecutor(8) as pool:
+            results = list(pool.map(stream, range(8)))
+    for prompt, (streamed, (tokens, reason)) in zip(prompts, results):
+        want = generate_cached(params, cfg, prompt, 48)[0, prompt.size:].tolist()
+        check(reason == "length" and streamed == tokens == want,
+              f"[serving] (c) a stream differs from generate_cached ({reason})")
+    full = ServingServer(Engine(params, cfg, num_slots=1, max_len=64,
+                                scheduler=Scheduler(max_queue=2)))
+    full.submit(prompts[0][:8], 4)
+    full.submit(prompts[1][:8], 4)
+    try:
+        full.submit(prompts[2][:8], 4)
+        raise SmokeError("[serving] (c) a full queue accepted a request")
+    except QueueFull as e:
+        rejected = str(e)
+    full.stop()
+    print(f"[serving] (c) ServingServer: a request cancelled after its first token gave its "
+          f"slot and blocks back; 8 concurrent streams token for token with generate_cached; "
+          f"a full queue rejects: {rejected!r}")
+
+
+def _serve_bench():
+    """(d): bench_serving's default and --paged legs on the card."""
+    from gradaccum_tpu_torch.examples import bench_serving
+
+    os.makedirs(SERVE_DIR, exist_ok=True)
+    out = {}
+    for name, argv in (("default", []), ("paged", ["--paged"])):
+        path = os.path.join(SERVE_DIR, f"bench_serving_{name}.json")
+        out[name] = bench_serving.main(["--device", "cuda", "--out", path, *argv])
+    r, p = out["default"], out["paged"]
+    print(f"[serving] (d) bench_serving: serial {r['serial_tokens_per_s']:.1f} tokens/s, "
+          f"engine {r['engine']['tokens_per_s']:.1f} tokens/s "
+          f"({r['speedup_vs_serial']:.2f}x serial, {r['engine']['ms_per_tick']:.2f} ms/tick, "
+          f"KV {r['engine']['kv_bytes_per_token_in_flight']:.0f} B/token in flight)")
+    for leg in r["sweep"]:
+        print(f"[serving] (d)   load {leg['load_fraction']:.2f}x ({leg['offered_rps']:.1f} "
+              f"rps): {leg['tokens_per_s']:.1f} tokens/s, TTFT p50/p99 "
+              f"{leg['ttft_s']['p50'] * 1e3:.2f}/{leg['ttft_s']['p99'] * 1e3:.2f} ms wall, "
+              f"{leg['ttft_ticks']['p50']:.1f}/{leg['ttft_ticks']['p99']:.1f} ticks, occupancy "
+              f"{leg['occupancy_mean']:.2f}, KV {leg['kv_bytes_per_token_in_flight']:.0f} "
+              f"B/token")
+    for pool in ("fixed", "paged"):
+        leg = p[pool]
+        print(f"[serving] (d)   --paged {pool} ({leg['num_slots']} slots): "
+              f"{leg['tokens_per_s']:.1f} tokens/s, peak {leg['peak_concurrent_requests']} "
+              f"concurrent, KV {leg['kv_bytes_per_token_in_flight']:.0f} B/token in flight, "
+              f"{leg['ms_per_tick']:.2f} ms/tick")
+    print(f"[serving] (d)   --paged: concurrency {p['concurrency_gain']:.2f}x, KV bytes/token "
+          f"{p['kv_bytes_per_token_ratio']:.3f}x, acceptance {p['acceptance']['passed']}")
+
+
+def _device_events(fn):
+    """Run ``fn`` under torch.profiler; the device events (kernels, copies,
+    memsets) as ``(key, device_us, count)`` and the wall seconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return ([(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA], wall)
+
+
+def _launches_per_call(fn, iters=8, attempts=3):
+    """Device launches per call of ``fn``: profiler windows over ``iters``
+    calls until two in a row count the same total (a window that lost
+    events counts fewer), rounded over the calls (a window of 8 decode steps
+    counted one event short of 8 x 160 every time on the card). Per-kernel
+    counts need not divide: an elementwise kernel's name changes with its
+    operands' alignment."""
+    totals = []
+    for _ in range(attempts + 1):
+        events, _ = _device_events(lambda: [fn() for _ in range(iters)])
+        totals.append(sum(count for _, _, count in events))
+        if len(totals) > 1 and totals[-1] == totals[-2]:
+            return round(totals[-1] / iters)
+    raise SmokeError(f"[serving] (e) launch counts of {iters} calls disagree: {totals}")
+
+
+def _serve_profile(params, cfg):
+    """(e): a profiler window over SERVE_PROFILE_TICKS ticks of the sampled
+    fixed engine with all 8 slots decoding: wall and card-busy ms per tick,
+    idle share, launches per micro-step split into the model (one
+    decode_step_ragged, profiled alone), sampling (one sample_token, alone)
+    and the engine's own; the top kernels."""
+    import numpy as np
+    import torch
+
+    from gradaccum_tpu_torch.models.gpt_decode import decode_step_ragged, sample_token
+    from gradaccum_tpu_torch.serving import Engine
+
+    block = 8
+    engine = Engine(params, cfg, num_slots=8, max_len=512, decode_block=block,
+                    **SERVE_SAMPLING)
+    rng = np.random.default_rng(SERVE_SEED + 2)
+    for i in range(8):
+        engine.submit(rng.integers(0, cfg.vocab_size, 128).astype(np.int32), 300, rng_seed=i)
+    engine.step()  # admits all 8
+    engine.step()  # one warm tick
+    events, wall = _device_events(lambda: [engine.step() for _ in range(SERVE_PROFILE_TICKS)])
+    busy = sum(t for _, t, _ in events) / 1e6
+    if busy == 0:
+        raise SmokeError("[serving] (e) the profiler saw no device time")
+    launches = sum(c for _, _, c in events) / (SERVE_PROFILE_TICKS * block)
+    pool = engine.pool
+    active = torch.ones(8, dtype=torch.bool, device="cuda")
+    tokens = engine._cur_tok.clone()
+    model = _launches_per_call(lambda: decode_step_ragged(params, cfg, pool.as_cache(),
+                                                          tokens, active))
+    logits = torch.randn(8, cfg.vocab_size, device="cuda")
+    sampling = _launches_per_call(lambda: sample_token(
+        logits, engine._rngs, engine._gen, SERVE_SAMPLING["temperature"],
+        SERVE_SAMPLING["top_k"]))
+    per_tick = wall / SERVE_PROFILE_TICKS
+    print(f"[serving] (e) profile, {SERVE_PROFILE_TICKS} ticks of {block} micro-steps, 8 "
+          f"slots, GPT-Small f32, T 0.8 top-k 50: {per_tick * 1e3:.2f} ms/tick wall, card "
+          f"busy {busy / SERVE_PROFILE_TICKS * 1e3:.2f} ms/tick (idle share "
+          f"{1 - busy / wall:.3f}); {launches:.1f} launches per micro-step: model {model}, "
+          f"sampling {sampling}, engine {launches - model - sampling:.1f}")
+    for key, t, count in sorted(events, key=lambda x: -x[1])[:8]:
+        print(f"[serving]   {t / SERVE_PROFILE_TICKS / 1e3:8.3f} ms/tick  "
+              f"{count // SERVE_PROFILE_TICKS:5d}x  {key[:90]}")
+
+
+def _serving_profile_main():
+    """Phase 24 (e) in a process of its own (``--serving-profile``): late in
+    the whole script profiler windows lose events."""
+    cfg, params = _serve_model()
+    try:
+        _serve_profile(params, cfg)
+    except SmokeError as e:
+        print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def phase_serving():
+    """Phase 24: the serving path at GPT-Small width on the card. No flash
+    kernel launches here: the decode attention is torch ops, as JAX's is
+    XLA (the counters stay 0)."""
+    import torch
+
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fa.reset_launch_counts()
+    cfg, params = _serve_model()
+    _serve_engines(params, cfg, {}, "greedy")
+    _serve_engines(params, cfg, SERVE_SAMPLING, "T 0.8 top-k 50")
+    _serve_server(params, cfg)
+    _serve_bench()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serving-profile"],
+                          timeout=300)
+    check(proc.returncode == 0, f"[serving] (e) the profile process failed (exit "
+                                f"{proc.returncode})")
+    counts = fa.launch_counts()
+    check(not any(counts.values()), f"[serving] flash kernels launched: {counts}")
+    print(f"[serving] flash launches in phase 24: {counts}; phase 24 took "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def _smi():
     try:
         out = subprocess.run(
@@ -3800,6 +4121,7 @@ def main() -> int:
         phase_export_check(export_job)
         phase_mp()
         long = phase_sp_pp()
+        phase_serving()
     except SmokeError as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -3835,6 +4157,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--p2p-rank"]:  # a rank of phase 23's point-to-point probe
         sys.path.insert(0, ROOT)
         sys.exit(_p2p_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--serving-profile"]:  # phase 24 (e)'s profile window
+        sys.path.insert(0, ROOT)
+        sys.exit(_serving_profile_main())
     if sys.argv[1:2] == ["--drain-rank"]:  # a rank of phase 20 (d)
         sys.path.insert(0, ROOT)
         sys.exit(_drain_rank(sys.argv[2]))

@@ -4,8 +4,9 @@
 ``export_predict`` traces ``predict_fn(module, batch)`` with the trained
 weights into one ``torch.export`` program and saves it as ``model.pt2``,
 beside JAX's ``manifest.json`` (the input and output shapes and dtypes of
-the caller's sample, and ``batch_polymorphic``; JAX's optional ``extra``
-belongs to its serving tier, not ported yet). Any later
+the caller's sample, ``batch_polymorphic``, and under ``"extra"`` any
+JSON-serializable metadata the caller passes: the serving tier records its
+engine's knobs there, ``serving/engine.py :: Engine.manifest``). Any later
 process loads it with :func:`load_exported`, which imports the port's
 operator library (``ops/flash_attention.py``, where the flash forward is the
 operator ``gradaccum::flash_fwd``) and nothing of the model code.
@@ -59,13 +60,16 @@ def export_predict(
     sample_batch: Dict[str, Any],
     export_dir: str,
     batch_polymorphic: bool = True,
+    extra: Dict[str, Any] = None,
 ) -> str:
     """Serialize ``lambda batch: predict_fn(module, batch)`` to
     ``export_dir`` (weights included). Returns the program's path.
 
     ``sample_batch``: a dict batch of arrays fixing every input's shape and
     dtype; with ``batch_polymorphic`` the leading dim is exported as a
-    dynamic dimension, so the artifact serves any batch size."""
+    dynamic dimension, so the artifact serves any batch size. ``extra``:
+    JSON-serializable metadata stored under the manifest's ``"extra"``
+    key."""
     if not isinstance(sample_batch, dict):
         raise TypeError("export expects dict batches (the ModelBundle contract)")
     device = _module_device(module)
@@ -99,6 +103,8 @@ def export_predict(
                     for key, v in outputs.items()},
         "batch_polymorphic": batch_polymorphic,
     }
+    if extra is not None:
+        manifest["extra"] = extra
     with open(os.path.join(export_dir, _MANIFEST), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
     return blob_path

@@ -15,11 +15,11 @@ micro-batch ``--batch`` x K=``--accum-k`` accumulation, AdamW (weight decay
 (``causal_flash_attention``: the kernels cut the triangle, attention
 dropout inside them); without it the dense core runs with a [S, S] causal
 mask. ``--sample N`` then decodes N bytes greedily after a prompt of half a
-window with ``models/gpt.py :: greedy_generate``, which re-runs the prefix
-for every token (JAX's example decodes with the KV cache of
-``gpt_decode.generate_cached``, part of the serving stack, not ported yet;
-JAX's tests pin both to the same tokens). It runs on the card unless
-``--device cpu`` is given and prints one JSON line.
+window with the KV cache of ``models/gpt_decode.py :: generate_cached``, as
+JAX's example does: one prefill, then one cached step per token (dense
+torch attention over the cache: no flash kernel launches while decoding).
+Like JAX's, it times the second of two identical calls. It runs on the card
+unless ``--device cpu`` is given and prints one JSON line.
 
 ``--dp N`` trains on N data-parallel ranks (``examples/common.py``), each
 on ``--batch`` rows of every host batch of ``batch x N`` (x K in scan
@@ -136,12 +136,12 @@ def main(argv=None) -> dict:
 
 
 def _main(args, mesh) -> dict:
-    import torch
-
     from gradaccum_tpu_torch.data.pipeline import Dataset
     from gradaccum_tpu_torch.estimator.config import EvalSpec, RunConfig, TrainSpec
     from gradaccum_tpu_torch.estimator.estimator import Estimator
-    from gradaccum_tpu_torch.models.gpt import GPTConfig, gpt_lm_bundle, greedy_generate
+    from gradaccum_tpu_torch.interop import params_tree
+    from gradaccum_tpu_torch.models.gpt import GPTConfig, gpt_lm_bundle
+    from gradaccum_tpu_torch.models.gpt_decode import generate_cached
     from gradaccum_tpu_torch.ops.accumulation import GradAccumConfig
     from gradaccum_tpu_torch.ops.adamw import adamw
     from gradaccum_tpu_torch.ops.flash_attention import causal_flash_attention
@@ -210,18 +210,23 @@ def _main(args, mesh) -> dict:
                token_accuracy=results["token_accuracy"],
                eval_batches=results["_num_batches"], evaluations=len(evaluations),
                sample_steps=args.sample)
-    if args.sample > 0:
-        prompt = torch.as_tensor(train[0][:s // 2])
+    # under --tp the decode reads the gathered weights (every rank gathers,
+    # rank 0 decodes); otherwise each rank's own module
+    module = est._whole_module(est.module) if args.sample > 0 else None
+    if module is not None:
+        prompt = train[0][:s // 2]
+        params = params_tree(module)
+        generate_cached(params, cfg, prompt, args.sample)  # the first call warms up
         synchronize(device)
         t0 = time.perf_counter()
-        ids = greedy_generate(est.module, prompt, args.sample)
+        ids = generate_cached(params, cfg, prompt, args.sample)
         synchronize(device)
         dt = time.perf_counter() - t0
         sample = bytes(int(t) for t in ids[0].tolist()).decode("utf-8", "replace")
         if chief:
             print(f"sample: {sample!r}")
-            print(f"decode: {args.sample / dt:.1f} tokens/sec (recompute: the whole "
-                  f"prefix per token, prompt {len(prompt)} + {args.sample} steps)")
+            print(f"decode: {args.sample / dt:.1f} tokens/sec (KV-cache, prefill "
+                  f"{len(prompt)} + {args.sample} steps)")
         out.update(sample=sample, decode_tokens_per_sec=args.sample / dt)
     if args.export_dir and (chief or args.tp > 1):
         # under --tp every rank gathers the parameters, rank 0 writes

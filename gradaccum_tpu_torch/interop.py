@@ -22,6 +22,11 @@ flax one carries across: BERT, the MNIST CNN, the housing MLP and GPT
 package's, since the optimizer's weight-decay exclusion regex-searches them:
 a renamed leaf would silently change which weights decay.
 
+:func:`params_tree` is the same tree the other way: the port's own tensors
+arranged as JAX's nested ``params["params"]["layer_0"]...`` tree, kernels
+as ``[in, out]`` views (no copy), which ``models/gpt_decode.py`` reads as
+JAX's decode reads the flax tree.
+
 :func:`pipeline_params_from_jax` and :func:`pipeline_params_to_jax` carry
 the pipeline's parameters (``parallel/pp.py``): a JAX ``PipelineParams``
 (``pre``/``stages``/``post`` flax trees, the stages stacked ``[P, ...]``)
@@ -113,6 +118,29 @@ def params_to_jax(named: Union[nn.Module, Dict[str, torch.Tensor]], stacked: boo
         for part in parents:
             node = node.setdefault(part, {})
         node[leaf] = np.ascontiguousarray(arr)
+    return tree
+
+
+def params_tree(named: Union[nn.Module, Dict[str, torch.Tensor]]):
+    """``{jax_name: tensor}`` (or a module) -> the nested flax-shaped tree of
+    the same tensors, detached: a Dense ``kernel`` is the transposed view of
+    ``Linear.weight`` (``[in, out]``, flax's layout), every other leaf the
+    tensor itself. Nothing is copied, so the tree follows the module's
+    weights and its device."""
+    if isinstance(named, nn.Module):
+        named = named_parameters(named)
+    tree: dict = {}
+    for name, t in named.items():
+        t = t.detach()
+        if name.endswith("/kernel"):
+            if t.dim() != 2:
+                raise ValueError(f"{name}: only 2-D Dense kernels map to a decode tree")
+            t = t.t()
+        node = tree
+        *parents, leaf = name.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = t
     return tree
 
 

@@ -9,7 +9,9 @@
   losses equal the one-rank run's within 1e-5.
 - The synthetic corpus and its byte windows (90/10 split) equal JAX's.
 - A 4-step CPU run with ``--flash`` prints one JSON line: finite losses,
-  token accuracy in [0, 1], the decode rate line says "recompute".
+  token accuracy in [0, 1], the decode rate line says "KV-cache".
+- ``--sample`` decodes with ``generate_cached``: from the same trained
+  weights, its bytes equal JAX's ``generate_cached`` output.
 - Without ``--device cpu`` it raises here, where there is no card.
 """
 
@@ -100,7 +102,7 @@ def test_a_short_cpu_run_prints_its_json_line(capsys):
                     "--batch", "4", "--sample", "4"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == out
-    assert any("tokens/sec (recompute" in line for line in lines)
+    assert any("tokens/sec (KV-cache" in line for line in lines)
     assert out["device"] == "cpu" and out["flash"] and out["updates"] == 2
     assert np.isfinite(out["loss"]) and np.isfinite(out["first_loss"])
     assert 0.0 <= out["token_accuracy"] <= 1.0 and out["evaluations"] >= 1
@@ -139,3 +141,36 @@ def test_tp_flash_run_equals_the_one_rank_run():
     assert got["tp"] == 2 and got["updates"] == 2
     for key in ("first_loss", "loss"):
         np.testing.assert_allclose(got[key], one[key], rtol=1e-5, err_msg=key)
+
+
+def test_sample_decodes_with_the_kv_cache_as_jax_does(monkeypatch):
+    """``--sample``'s bytes equal JAX's ``generate_cached`` on the same trained
+    weights (the tree the port's decode was handed, carried to JAX)."""
+    from gradaccum_tpu_torch.models import gpt_decode as tdec
+
+    jdec = importlib.import_module("gradaccum_tpu.models.gpt_decode")
+    jgpt = importlib.import_module("gradaccum_tpu.models.gpt")
+    seen = []
+    real = tdec.generate_cached
+
+    def spy(params, cfg, prompt, num_steps, **kw):
+        seen.append((params, cfg, np.asarray(prompt)))
+        return real(params, cfg, prompt, num_steps, **kw)
+
+    monkeypatch.setattr(tdec, "generate_cached", spy)
+    out = tlm.main(["--device", "cpu", "--max-steps", "4", "--seq-len", "32",
+                    "--batch", "4", "--sample", "12"])
+    params, cfg, prompt = seen[-1]
+
+    def to_numpy(node):
+        if isinstance(node, dict):
+            return {k: to_numpy(v) for k, v in node.items()}
+        return node.detach().numpy().copy()
+
+    jcfg = jgpt.GPTConfig(vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size,
+                          num_layers=cfg.num_layers, num_heads=cfg.num_heads,
+                          intermediate_size=cfg.intermediate_size,
+                          max_position_embeddings=cfg.max_position_embeddings, dropout=0.0)
+    want = np.asarray(jdec.generate_cached(to_numpy(params), jcfg, prompt, 12))[0]
+    assert out["sample"] == bytes(int(t) for t in want).decode("utf-8", "replace")
+    assert len(want) == 32 // 2 + 12

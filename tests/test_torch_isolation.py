@@ -62,15 +62,19 @@ print(len(names), len(params), cfg.vocab_size)
 """
 
 
-# the observability, resilience, export and native-data modules: each
-# imports here and in the blocked probe below
+# the observability, resilience, export, native-data, parallel and serving
+# modules: each imports here and in the blocked probe below
 NEW_MODULES = ("obs", "obs.trace", "obs.metrics", "obs.flight", "resilience",
                "resilience.retry", "resilience.manifest", "resilience.faults",
                "resilience.preemption", "estimator.events", "estimator.export",
                "utils.timing", "utils.profiling", "data.native",
                # sequence and pipeline parallelism
                "parallel.sp", "parallel.pp", "parallel.ulysses", "models.bert_pp",
-               "examples.bench_longcontext")
+               "examples.bench_longcontext",
+               # the serving stack's core
+               "utils.prng", "models.gpt_decode", "serving", "serving.scheduler",
+               "serving.metrics", "serving.cache_pool", "serving.engine", "serving.server",
+               "examples.bench_serving")
 
 
 def _run(args, cwd=ROOT, timeout=120):

@@ -1,9 +1,15 @@
 """The port's native data reader (``data/native.py``) against the numpy
-readers and JAX's native reader.
+readers and JAX's readers.
 
 On generated idx files (raw and gzipped) and numeric CSVs, the native
 reader's arrays are byte-identical to the port's numpy paths and to JAX's
-native reader; the library is built into ``build/native/`` and never into
+readers on their numpy path. JAX's native library is kept out of these
+tests (its ``get_lib`` patched to None): JAX's loader runs ``make`` in
+place when the library is missing, with a lock of one process only, so
+test workers that start together can load a half-written library and keep
+``None`` for good. JAX's own ``tests/test_native.py`` holds its native
+reader to that same numpy path. The port's library is built into
+``build/native/`` and never into
 ``native/``; ``GRADACCUM_NATIVE=0`` disables it; a file the native parser
 declines (ragged rows, quoting, a bad magic) takes the numpy path with the
 numpy path's own error.
@@ -23,6 +29,7 @@ from gradaccum_tpu_torch.data import native
 
 jnative = importlib.import_module("gradaccum_tpu.data.native")
 jcsv = importlib.import_module("gradaccum_tpu.data.csv")
+jmnist = importlib.import_module("gradaccum_tpu.data.mnist")
 
 pytestmark = pytest.mark.torch
 
@@ -48,6 +55,13 @@ def _numpy_path(monkeypatch):
     monkeypatch.setattr(native, "get_lib", lambda: None)
 
 
+@pytest.fixture(autouse=True)
+def _jax_readers_on_numpy(monkeypatch):
+    """JAX's readers take their numpy path: nothing here builds JAX's
+    library (its in-place ``make`` is not safe across processes)."""
+    monkeypatch.setattr(jnative, "get_lib", lambda: None)
+
+
 def _same_bytes(a, b):
     a, b = np.asarray(a), np.asarray(b)
     assert a.dtype == b.dtype and a.shape == b.shape
@@ -66,8 +80,8 @@ def test_the_library_builds_into_build_native():
 def test_idx_readers_are_byte_identical(tmp_path, monkeypatch, gz):
     img, lab = _idx_files(tmp_path, gz)
     got_i, got_l = native.read_idx_images(img), native.read_idx_labels(lab)
-    _same_bytes(got_i, jnative.read_idx_images(img))
-    _same_bytes(got_l, jnative.read_idx_labels(lab))
+    _same_bytes(got_i, jmnist.read_images(img))
+    _same_bytes(got_l, jmnist.read_labels(lab))
     _same_bytes(tmnist.read_images(img), got_i)  # the reader takes the native path
     _numpy_path(monkeypatch)
     _same_bytes(tmnist.read_images(img), got_i)
@@ -97,12 +111,11 @@ def test_numeric_csv_is_byte_identical(tmp_path, monkeypatch):
     cols = ["a", "b", "c", "d"]
     matrix, n_cols = native.read_csv_numeric(path)
     assert n_cols == 4 and matrix.shape == (17, 4)
-    jm, _ = jnative.read_csv_numeric(path)
-    _same_bytes(matrix, jm)
+    want = jcsv.read_csv(path, columns=cols)
+    _same_bytes(matrix, np.stack([want[c] for c in cols], axis=1))
     via_native = tcsv.read_csv(path, columns=cols)
     _numpy_path(monkeypatch)
     via_numpy = tcsv.read_csv(path, columns=cols)
-    want = jcsv.read_csv(path, columns=cols)
     for c in cols:
         _same_bytes(via_native[c], via_numpy[c])
         _same_bytes(via_native[c], want[c])
