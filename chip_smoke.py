@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one NVIDIA H100.
 
-    python3 chip_smoke.py     # one card, about six minutes
+    python3 chip_smoke.py     # one card, about eleven minutes
 
 Phases, each of which fails the run if it fails:
 
@@ -245,6 +245,34 @@ Phases, each of which fails the run if it fails:
     and the top kernels, in a process of its own (``--serving-profile``:
     late in the script profiler windows lose events). No flash kernel
     launches in this phase.
+
+25. prefix sharing, copy-on-write and speculative decoding, the same
+    GPT-Small model. (a) A seeded trace of 24 requests sharing a 192-token
+    system prompt (unique tails of 4-40 tokens, 16-64 new; the leader at
+    tick 0, then four a tick) through paged engines of equal pool bytes
+    (page 16, decode block 8): prefix off, prefix on without COW tails, and
+    COW on, greedy and at T 0.8 top-k 50. Every stream equals the other
+    legs' and ``generate_cached``'s token for token (a difference passes
+    only where the reference's top-2 logit gap is under NEAR_TIE, and is
+    printed), and each pool ends with no block allocated; per leg: prefill
+    tokens computed and skipped, hit rate, blocks saved, KV bytes per token
+    in flight, tokens/s, TTFT p50/p99 in wall ms and in ticks. Then
+    sub-page sharing: a prompt sharing 8 tokens of the leader's tail page
+    forks it at admission, an identical one forks at its first decode
+    write; both streams equal ``generate_cached``. (b) Speculation, k = 4,
+    a draft of the target's first layer (``truncate_draft_params``), on
+    phase 24's trace, the fixed and the paged pool: greedy streams equal
+    ``generate_cached`` (the near-tie rule again), sampled ones complete and
+    identical over two runs; the accept rate, tokens per cycle, and tokens/s
+    at closed load against the non-speculative engine (decode block 8);
+    then a target whose layers past the first add nothing (their attention
+    output and ``ffn_output`` scaled by 0, as JAX's ``tools/bench_spec.py``
+    builds it), whose accept rate must read >= 0.95. (c) ``bench_serving
+    --prefix`` at JAX's full bench config; its acceptance passes. (d) A
+    profiler window over 4 sampled speculative cycles, 8 slots, in a
+    process of its own (``--spec-profile``): launches per cycle split into
+    the draft's steps, its sampling, the verify step and the accept rule,
+    card-busy ms per cycle and the idle share. No flash kernel launches.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON line describing every kernel in each dtype (bfloat16: launches
@@ -3800,6 +3828,7 @@ def _serve_engines(params, cfg, sampling, tag):
               f"{engine.prefill_compile_count()} prefill signatures")
     check(pool_bytes["fixed"] == pool_bytes["paged"],
           f"[serving] pools of unequal bytes: {pool_bytes}")
+    return trace, wants
 
 
 def _serve_server(params, cfg):
@@ -3979,7 +4008,8 @@ def _serving_profile_main():
 def phase_serving():
     """Phase 24: the serving path at GPT-Small width on the card. No flash
     kernel launches here: the decode attention is torch ops, as JAX's is
-    XLA (the counters stay 0)."""
+    XLA (the counters stay 0). Returns the trace and its greedy
+    ``generate_cached`` streams for phase 25."""
     import torch
 
     from gradaccum_tpu_torch.ops import flash_attention as fa
@@ -3988,7 +4018,7 @@ def phase_serving():
     torch.backends.cuda.matmul.allow_tf32 = False
     fa.reset_launch_counts()
     cfg, params = _serve_model()
-    _serve_engines(params, cfg, {}, "greedy")
+    greedy = _serve_engines(params, cfg, {}, "greedy")
     _serve_engines(params, cfg, SERVE_SAMPLING, "T 0.8 top-k 50")
     _serve_server(params, cfg)
     _serve_bench()
@@ -3999,6 +4029,394 @@ def phase_serving():
     counts = fa.launch_counts()
     check(not any(counts.values()), f"[serving] flash kernels launched: {counts}")
     print(f"[serving] flash launches in phase 24: {counts}; phase 24 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return greedy
+
+
+# --------------------------------------------------------------------------
+# phase 25: prefix sharing, copy-on-write and speculative decoding
+# --------------------------------------------------------------------------
+
+PREFIX_SYS_LEN = 192  # the shared system prompt: 12 pages of 16
+PREFIX_TRACE = dict(n=24, tail=(4, 40), new=(16, 64))
+# equal pool bytes for the three legs: 160 blocks of 16 hold about 9
+# unshared requests of the trace, or all 24 with the system prompt shared
+PREFIX_ENGINE = dict(num_slots=24, max_len=320, page_size=16, num_blocks=160,
+                     decode_block=8)
+SPEC_K = 4
+SPEC_PROFILE_CYCLES = 4
+# a greedy stream may leave generate_cached's only where the reference's two
+# best logits are closer than this: a batch of another shape moves cuBLAS's
+# rounding by ~1e-6
+NEAR_TIE = 1e-4
+
+
+def _prefix_trace(cfg):
+    """24 requests behind one 192-token system prompt: the leader at tick 0
+    (its pages are indexed before anyone else admits), then four arrivals a
+    tick, more than the pool holds unshared."""
+    import numpy as np
+
+    from gradaccum_tpu_torch.serving import TraceItem
+
+    rng = np.random.default_rng(SERVE_SEED + 25)
+    sys_p = rng.integers(0, cfg.vocab_size, PREFIX_SYS_LEN).astype(np.int32)
+    lo, hi = PREFIX_TRACE["tail"]
+    new_lo, new_hi = PREFIX_TRACE["new"]
+    return [TraceItem(arrival_tick=0 if i == 0 else 1 + (i - 1) // 4,
+                      prompt=np.concatenate([sys_p, rng.integers(
+                          0, cfg.vocab_size, int(rng.integers(lo, hi + 1))).astype(np.int32)]),
+                      max_new_tokens=int(rng.integers(new_lo, new_hi + 1)), rng_seed=i)
+            for i in range(PREFIX_TRACE["n"])]
+
+
+def _drive(engine, trace):
+    """Run ``trace`` on the tick clock, submitting each arrival at its tick;
+    returns the streams in trace order, the wall seconds, and TTFT in wall
+    ms and in ticks (submit to the tick whose admission read the first
+    token back)."""
+    import torch
+
+    from gradaccum_tpu_torch.utils.timing import LatencySeries
+
+    pending = sorted(range(len(trace)), key=lambda i: trace[i].arrival_tick)
+    rids, submitted = {}, {}
+    ttft_ms, ttft_ticks = LatencySeries(), LatencySeries()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while pending or not engine.idle:
+        while pending and trace[pending[0]].arrival_tick <= engine.tick_count:
+            item = trace[pending.pop(0)]
+            rid = engine.submit(item.prompt, item.max_new_tokens, rng_seed=item.rng_seed)
+            rids[item.rng_seed] = rid
+            submitted[rid] = (time.perf_counter(), engine.tick_count)
+        events = engine.step()
+        now = time.perf_counter()
+        for rid in events.admitted:
+            ts, tick = submitted.pop(rid)
+            ttft_ms.add(1e3 * (now - ts))
+            ttft_ticks.add(events.tick - tick)
+    wall = time.perf_counter() - t0
+    streams = []
+    for item in trace:
+        tokens, status = engine.pop_result(rids[item.rng_seed])
+        check(status == "done", f"[prefix/spec] request {item.rng_seed} ended {status}")
+        streams.append(list(tokens))
+    return streams, wall, ttft_ms.summary(), ttft_ticks.summary()
+
+
+def _near_tie_check(tag, params, cfg, prompt, got, want, cases):
+    """``got`` must equal ``want``; a first difference passes only where the
+    reference's top-2 logit gap there is under NEAR_TIE (added to
+    ``cases`` and printed)."""
+    if got == want:
+        return
+    pos, gap = _first_gap(params, cfg, prompt, got, want)
+    if gap >= NEAR_TIE:
+        raise SmokeError(f"[prefix/spec] {tag}: a stream first differs at token {pos}: "
+                         f"{got[pos]} against {want[pos]}, the reference's top-2 logit gap "
+                         f"{gap:.3e}")
+    cases.append((tag, pos, gap))
+    print(f"[prefix/spec]   {tag}: near tie at token {pos} (top-2 gap {gap:.3e}): "
+          f"{got[pos]} against {want[pos]}")
+
+
+def _prefix_legs(params, cfg, sampling, tag):
+    """(a): prefix off, on without COW tails, and COW on, at equal pool
+    bytes; every stream against generate_cached."""
+    from gradaccum_tpu_torch.serving import Engine, Scheduler
+
+    trace = _prefix_trace(cfg)
+    wants = _serve_solo(params, cfg, trace, sampling)
+    cases, kv = [], {}
+    for leg, kw in (("off", dict(prefix_cache=False)),
+                    ("on", dict(prefix_cache=True, cow_tails=False)),
+                    ("cow", dict(prefix_cache=True))):
+        engine = Engine(params, cfg, scheduler=Scheduler(max_queue=64), **PREFIX_ENGINE, **kw,
+                        **sampling)
+        streams, wall, ttft_ms, ttft_ticks = _drive(engine, trace)
+        for item, got, want in zip(trace, streams, wants):
+            if sampling:  # a draw has no near tie to excuse it
+                check(got == want, f"[prefix/spec] (a) {tag} {leg}: request {item.rng_seed} "
+                                   f"differs from generate_cached")
+            else:
+                _near_tie_check(f"(a) {tag} {leg} request {item.rng_seed}", params, cfg,
+                                item.prompt, got, want, cases)
+        pool, m = engine.pool, engine.metrics.summary()
+        check(pool.allocated_blocks == 0 and pool.unreserved_blocks == pool.num_blocks,
+              f"[prefix/spec] (a) {tag} {leg}: the pool kept {pool.allocated_blocks} blocks")
+        check(engine.decode_compile_count() == 1,
+              f"[prefix/spec] (a) {tag} {leg}: {engine.decode_compile_count()} tick signatures")
+        if leg != "off":
+            check(m["prefill_tokens_skipped"] > 0 and m["prefix_hit_rate"] > 0,
+                  f"[prefix/spec] (a) {tag} {leg}: nothing shared")
+        kv[leg] = m["kv_bytes_per_token_in_flight"]
+        hit = "-" if m["prefix_hit_rate"] is None else f"{m['prefix_hit_rate']:.3f}"
+        print(f"[prefix/spec] (a) {tag} {leg}: prefill {m['prefill_tokens_computed']} tokens "
+              f"computed, {m['prefill_tokens_skipped']} skipped, hit rate {hit}, "
+              f"{m['blocks_saved']} blocks saved, COW forks {m['cow_forks']}; KV "
+              f"{m['kv_bytes_per_token_in_flight']:.0f} B/token in flight; "
+              f"{sum(map(len, streams)) / wall:.1f} tokens/s over {m['ticks']} ticks; TTFT "
+              f"p50/p99 {ttft_ms['p50']:.2f}/{ttft_ms['p99']:.2f} ms wall, "
+              f"{ttft_ticks['p50']:.1f}/{ttft_ticks['p99']:.1f} ticks; "
+              f"{engine.prefill_compile_count()} prefill signatures")
+    print(f"[prefix/spec] (a) {tag}: KV bytes per token on/off {kv['on'] / kv['off']:.3f}, "
+          f"cow/off {kv['cow'] / kv['off']:.3f}; {len(cases)} near ties")
+
+
+def _cow_fork_check(params, cfg):
+    """(a) sub-page sharing: B shares 8 tokens of the leader's 13th page
+    (forked at its admission), C is the leader's prompt (fully shared, its
+    fork deferred to the first decode write)."""
+    import numpy as np
+
+    from gradaccum_tpu_torch.models.gpt_decode import generate_cached
+    from gradaccum_tpu_torch.serving import Engine
+
+    trace = _prefix_trace(cfg)
+    rng = np.random.default_rng(SERVE_SEED + 26)
+    a = np.concatenate([trace[0].prompt[:PREFIX_SYS_LEN],
+                        rng.integers(0, cfg.vocab_size, 20).astype(np.int32)])
+    b = np.concatenate([a[:PREFIX_SYS_LEN + 8],
+                        rng.integers(0, cfg.vocab_size, 9).astype(np.int32)])
+    engine = Engine(params, cfg, **PREFIX_ENGINE, prefix_cache=True)
+    rids = [engine.submit(a, 24)]
+    engine.step()
+    for prompt in (b, a.copy()):
+        rids.append(engine.submit(prompt, 24))
+        engine.step()
+    engine.run_until_idle()
+    cases = []
+    for name, prompt, rid in zip("ABC", (a, b, a), rids):
+        want = generate_cached(params, cfg, prompt, 24)[0, prompt.size:].tolist()
+        _near_tie_check(f"(a) COW {name}", params, cfg, prompt, engine.results[rid], want,
+                        cases)
+    m = engine.metrics
+    check(m.cow_adoptions == 2 and m.cow_forks == 2,
+          f"[prefix/spec] (a) COW: {m.cow_adoptions} adoptions, {m.cow_forks} forks "
+          f"(want 2 and 2)")
+    check(engine.pool.allocated_blocks == 0, "[prefix/spec] (a) COW: the pool kept blocks")
+    print(f"[prefix/spec] (a) COW: a prompt sharing 8 tokens of a tail page forked it at "
+          f"admission, an identical prompt at its first decode write ({m.cow_tokens_shared} "
+          f"tokens shared sub-page); streams against generate_cached, {len(cases)} near ties")
+
+
+def _closed_load(engine, trace):
+    """All of ``trace`` submitted at once, run to idle: ``(streams, wall)``."""
+    import torch
+
+    rids = [engine.submit(item.prompt, item.max_new_tokens, rng_seed=item.rng_seed)
+            for item in trace]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run_until_idle()
+    wall = time.perf_counter() - t0
+    return [list(engine.pop_result(rid)[0]) for rid in rids], wall
+
+
+def _spec_versus_plain(tag, params, cfg, draft, trace, min_accept=None):
+    """Closed load through the speculative engine and the plain one (fixed
+    pool, 8 slots, decode block 8), greedy: equal streams, tokens/s, the
+    accept rate and tokens per slot-cycle."""
+    from gradaccum_tpu_torch.serving import Engine, Scheduler
+
+    plain = Engine(params, cfg, num_slots=8, max_len=512, decode_block=8,
+                   scheduler=Scheduler(max_queue=64))
+    want, plain_wall = _closed_load(plain, trace)
+    spec = Engine(params, cfg, num_slots=8, max_len=512, speculate_k=SPEC_K,
+                  draft_params=draft[0], draft_cfg=draft[1], scheduler=Scheduler(max_queue=64))
+    got, spec_wall = _closed_load(spec, trace)
+    cases = []
+    for item, g, w in zip(trace, got, want):
+        _near_tie_check(f"(b) {tag} closed load request {item.rng_seed}", params, cfg,
+                        item.prompt, g, w, cases)
+    rate = spec.metrics.spec_accept_rate()
+    if min_accept is not None:
+        check(rate >= min_accept, f"[prefix/spec] (b) {tag}: accept rate {rate:.3f} < "
+                                  f"{min_accept}")
+    tokens = sum(item.max_new_tokens for item in trace)
+    print(f"[prefix/spec] (b) {tag}, closed load, fixed pool: speculative "
+          f"{tokens / spec_wall:.1f} tokens/s against plain {tokens / plain_wall:.1f} "
+          f"({plain_wall / spec_wall:.3f}x); accept rate {rate:.4f}, "
+          f"{1 + SPEC_K * rate:.3f} tokens per slot-cycle, {spec.metrics.ticks} cycles "
+          f"against {plain.metrics.ticks} ticks of 8; {len(cases)} near ties")
+
+
+def _zeroed_tail(params, cfg):
+    """The target with every layer past the first adding nothing: its
+    attention output and ffn_output scaled by 0 (JAX's
+    ``tools/bench_spec.py :: _build_model`` at eps 0). New tensors: the
+    model of the other legs is untouched."""
+    import torch
+
+    tree = {"params": dict(params["params"])}
+    for i in range(1, cfg.num_layers):
+        layer = dict(params["params"][f"layer_{i}"])
+        attention = dict(layer["attention"])
+        attention["output"] = {k: torch.zeros_like(t) for k, t in attention["output"].items()}
+        layer["attention"] = attention
+        layer["ffn_output"] = {k: torch.zeros_like(t) for k, t in layer["ffn_output"].items()}
+        tree["params"][f"layer_{i}"] = layer
+    return tree
+
+
+def _spec_legs(params, cfg, trace, wants):
+    """(b): speculation on phase 24's trace, fixed and paged, greedy and
+    sampled; then closed load against the plain engine, at random weights
+    and with the target's tail zeroed."""
+    from gradaccum_tpu_torch.models.gpt_decode import truncate_draft_params
+    from gradaccum_tpu_torch.serving import Engine, Scheduler, SimulationDriver
+
+    draft = truncate_draft_params(params, cfg, 1)
+    cases = []
+    for pool, kw in (("fixed", dict(num_slots=8)),
+                     ("paged", dict(num_slots=32, page_size=16, num_blocks=256))):
+        def run(sampling):
+            engine = Engine(params, cfg, max_len=512, speculate_k=SPEC_K,
+                            draft_params=draft[0], draft_cfg=draft[1],
+                            scheduler=Scheduler(max_queue=64), **kw, **sampling)
+            t0 = time.perf_counter()
+            records = SimulationDriver(engine, seed=SERVE_SEED).run(trace)
+            wall = time.perf_counter() - t0
+            check(all(r["status"] == "done" for r in records),
+                  f"[prefix/spec] (b) {pool}: a request did not finish")
+            check(engine.decode_compile_count() == 1,
+                  f"[prefix/spec] (b) {pool}: {engine.decode_compile_count()} tick signatures")
+            if engine.paged:
+                check(engine.pool.allocated_blocks == 0,
+                      f"[prefix/spec] (b) {pool}: the pool kept blocks")
+            return [r["tokens"] for r in records], engine, wall
+
+        streams, engine, wall = run({})
+        for item, got, want in zip(trace, streams, wants):
+            _near_tie_check(f"(b) {pool} greedy request {item.rng_seed}", params, cfg,
+                            item.prompt, got, want, cases)
+        rate = engine.metrics.spec_accept_rate()
+        print(f"[prefix/spec] (b) {pool} greedy, k={SPEC_K}: accept rate {rate:.4f}, "
+              f"{1 + SPEC_K * rate:.3f} tokens per slot-cycle, {engine.metrics.ticks} cycles, "
+              f"{sum(map(len, streams)) / wall:.1f} tokens/s on the trace")
+        first, engine, wall = run(SERVE_SAMPLING)
+        second, _, _ = run(SERVE_SAMPLING)
+        check(first == second, f"[prefix/spec] (b) {pool} sampled: two runs differ")
+        check(all(len(s) == item.max_new_tokens for s, item in zip(first, trace)),
+              f"[prefix/spec] (b) {pool} sampled: a stream is incomplete")
+        rate = engine.metrics.spec_accept_rate()
+        print(f"[prefix/spec] (b) {pool} T 0.8 top-k 50: two runs identical and complete; "
+              f"accept rate {rate:.4f}, {1 + SPEC_K * rate:.3f} tokens per slot-cycle, "
+              f"{engine.metrics.ticks} cycles, {sum(map(len, first)) / wall:.1f} tokens/s on "
+              f"the trace")
+    print(f"[prefix/spec] (b) greedy streams against generate_cached: {len(cases)} near ties")
+    _spec_versus_plain("random weights", params, cfg, draft, trace)
+    zeroed = _zeroed_tail(params, cfg)
+    _spec_versus_plain("tail zeroed", zeroed, cfg, truncate_draft_params(zeroed, cfg, 1),
+                       trace, min_accept=0.95)
+
+
+def _prefix_bench():
+    """(c): bench_serving --prefix at JAX's full bench config."""
+    from gradaccum_tpu_torch.examples import bench_serving
+
+    os.makedirs(SERVE_DIR, exist_ok=True)
+    r = bench_serving.main(["--device", "cuda", "--prefix", "--out",
+                            os.path.join(SERVE_DIR, "bench_serving_prefix.json")])
+    check(r["acceptance"]["passed"], f"[prefix/spec] (c) bench_serving --prefix failed its "
+                                     f"acceptance: {r['acceptance']}")
+    for leg in ("off", "on"):
+        m = r[leg]
+        print(f"[prefix/spec] (c) --prefix {leg}: {m['tokens_per_s']:.1f} tokens/s, prefill "
+              f"{m['prefill_tokens_computed']} computed / {m['prefill_tokens_skipped']} skipped, "
+              f"KV {m['kv_bytes_per_token_in_flight']:.0f} B/token, TTFT p50 "
+              f"{m['ttft_s_p50'] * 1e3:.2f} ms, {m['prefill_programs']} prefill signatures")
+    print(f"[prefix/spec] (c) --prefix: prefill cut {r['prefill_reduction']:.2f}x, KV bytes per "
+          f"token {r['kv_bytes_per_token_ratio']:.3f}x, {r['prefix_speedup']:.3f}x tokens/s; "
+          f"acceptance passed")
+
+
+def _spec_profile(params, cfg):
+    """(d): a profiler window over SPEC_PROFILE_CYCLES sampled speculative
+    cycles, 8 slots decoding: wall and card-busy ms per cycle, the idle
+    share, and launches per cycle split into the draft's k + 1 steps, its
+    k draws, the verify step, and the rest (the accept rule and the final
+    draw), each part profiled alone."""
+    import numpy as np
+    import torch
+
+    from gradaccum_tpu_torch.models.gpt_decode import (DecodeCache, decode_step_ragged,
+                                                      truncate_draft_params,
+                                                      verify_step_ragged)
+    from gradaccum_tpu_torch.serving import Engine
+
+    draft, draft_cfg = truncate_draft_params(params, cfg, 1)
+    engine = Engine(params, cfg, num_slots=8, max_len=512, speculate_k=SPEC_K,
+                    draft_params=draft, draft_cfg=draft_cfg, **SERVE_SAMPLING)
+    rng = np.random.default_rng(SERVE_SEED + 3)
+    for i in range(8):
+        engine.submit(rng.integers(0, cfg.vocab_size, 128).astype(np.int32), 300, rng_seed=i)
+    engine.step()  # admits all 8
+    engine.step()  # one warm cycle
+    events, wall = _device_events(lambda: [engine.step() for _ in range(SPEC_PROFILE_CYCLES)])
+    busy = sum(t for _, t, _ in events) / 1e6
+    if busy == 0:
+        raise SmokeError("[prefix/spec] (d) the profiler saw no device time")
+    total = sum(c for _, _, c in events) / SPEC_PROFILE_CYCLES
+    pool, active = engine.pool, torch.ones(8, dtype=torch.bool, device="cuda")
+    tokens = engine._cur_tok.clone()
+    draft_step = _launches_per_call(lambda: decode_step_ragged(
+        draft, draft_cfg, DecodeCache(engine._draft_k, engine._draft_v, pool.lengths), tokens,
+        active))
+    logits = torch.randn(8, cfg.vocab_size, device="cuda")
+    draw = _launches_per_call(lambda: engine._draft_draw(logits, pool.lengths))
+    verify = _launches_per_call(lambda: verify_step_ragged(
+        params, cfg, pool.as_cache(), tokens[:, None].expand(8, SPEC_K + 1), active))
+    accept = total - (SPEC_K + 1) * draft_step - SPEC_K * draw - verify
+    per_cycle = wall / SPEC_PROFILE_CYCLES
+    print(f"[prefix/spec] (d) profile, {SPEC_PROFILE_CYCLES} sampled cycles (k={SPEC_K}, T 0.8 "
+          f"top-k 50), 8 slots: {per_cycle * 1e3:.2f} ms/cycle wall, card busy "
+          f"{busy / SPEC_PROFILE_CYCLES * 1e3:.2f} ms/cycle (idle share {1 - busy / wall:.3f}); "
+          f"{total:.1f} launches per cycle: draft {SPEC_K + 1} x {draft_step}, its sampling "
+          f"{SPEC_K} x {draw}, verify {verify}, accept and final draw {accept:.1f}; accept rate "
+          f"{engine.metrics.spec_accept_rate():.4f}")
+    for key, t, count in sorted(events, key=lambda x: -x[1])[:6]:
+        print(f"[prefix/spec]   {t / SPEC_PROFILE_CYCLES / 1e3:8.3f} ms/cycle  "
+              f"{count // SPEC_PROFILE_CYCLES:5d}x  {key[:90]}")
+
+
+def _spec_profile_main():
+    """Phase 25 (d) in a process of its own (``--spec-profile``)."""
+    cfg, params = _serve_model()
+    try:
+        _spec_profile(params, cfg)
+    except SmokeError as e:
+        print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def phase_prefix_spec(serving):
+    """Phase 25: prefix sharing, copy-on-write and speculative decoding at
+    GPT-Small width; ``serving`` is phase 24's trace and its greedy
+    ``generate_cached`` streams. No flash kernel launches."""
+    import torch
+
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fa.reset_launch_counts()
+    print(f"[prefix/spec] on {_smi()}")
+    cfg, params = _serve_model()
+    _prefix_legs(params, cfg, {}, "greedy")
+    _prefix_legs(params, cfg, SERVE_SAMPLING, "T 0.8 top-k 50")
+    _cow_fork_check(params, cfg)
+    _spec_legs(params, cfg, *serving)
+    _prefix_bench()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--spec-profile"],
+                          timeout=300)
+    check(proc.returncode == 0, f"[prefix/spec] (d) the profile process failed (exit "
+                                f"{proc.returncode})")
+    counts = fa.launch_counts()
+    check(not any(counts.values()), f"[prefix/spec] flash kernels launched: {counts}")
+    print(f"[prefix/spec] flash launches in phase 25: {counts}; phase 25 took "
           f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -4121,7 +4539,7 @@ def main() -> int:
         phase_export_check(export_job)
         phase_mp()
         long = phase_sp_pp()
-        phase_serving()
+        phase_prefix_spec(phase_serving())
     except SmokeError as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -4160,6 +4578,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--serving-profile"]:  # phase 24 (e)'s profile window
         sys.path.insert(0, ROOT)
         sys.exit(_serving_profile_main())
+    if sys.argv[1:2] == ["--spec-profile"]:  # phase 25 (d)'s profile window
+        sys.path.insert(0, ROOT)
+        sys.exit(_spec_profile_main())
     if sys.argv[1:2] == ["--drain-rank"]:  # a rank of phase 20 (d)
         sys.path.insert(0, ROOT)
         sys.exit(_drain_rank(sys.argv[2]))

@@ -18,14 +18,22 @@ pool of EQUAL device memory (the paged engine spends it on blocks shared
 by 4x the slots) serve a long-tail workload; per pool: peak concurrent
 requests, tokens/s, KV bytes per token in flight, the block waterline.
 
+``--prefix`` runs the shared-prefix comparison: one system prompt with
+short unique tails (a leader one tick ahead, then the flood) through the
+paged engine with the prefix cache off and on, at equal pool memory; per
+leg: prefill tokens computed and skipped, the hit rate, blocks saved, KV
+bytes per token in flight, tokens/s, TTFT. JAX's acceptance: prefill
+tokens cut by 2x or more, KV bytes per token at 0.7x or less, one decode
+program per leg, and at most two more admission programs with the cache on.
+
 Every engine leg reports the pool's KV bytes per token in flight. The
 engine is warmed at the leg's shapes before each timed window. One JSON
 line per leg on standard output; ``--out FILE`` also writes the whole
-result (JAX's keys). ``--prefix`` and ``--mesh`` wait for ROADMAP.md items
-5i (and 5b, 5g). Runs on the card unless ``--device cpu``.
+result (JAX's keys). ``--mesh`` waits for ROADMAP.md item 5i (after the
+serving mesh, 5g). Runs on the card unless ``--device cpu``.
 
-    python -m gradaccum_tpu_torch.examples.bench_serving [--fast] [--paged]
-        [--out FILE] [--device cpu]
+    python -m gradaccum_tpu_torch.examples.bench_serving [--fast]
+        [--paged | --prefix] [--out FILE] [--device cpu]
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ from pathlib import Path
 if __package__ in (None, ""):  # run as a script: make the package importable
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
-LATER_ITEM = "ROADMAP.md item 5i (after prefix sharing, 5b, and the serving mesh, 5g)"
+LATER_ITEM = "ROADMAP.md item 5i (after the serving mesh, 5g)"
 
 
 def _build(fast, device):
@@ -168,8 +176,9 @@ def _longtail_workload(cfg, fast, rng):
     return shape, work
 
 
-def _run_closed(eng, work):
-    """Closed load until the engine is idle: ``(elapsed_s, peak concurrent)``."""
+def _run_closed(eng, work, rng_seed_base=0):
+    """Closed load until the engine is idle (requests already in flight,
+    the ``--prefix`` leader, included): ``(elapsed_s, peak concurrent)``."""
     from gradaccum_tpu_torch.serving import QueueFull
 
     pending = list(enumerate(work))
@@ -179,7 +188,7 @@ def _run_closed(eng, work):
         still = []
         for i, (p, n) in pending:
             try:
-                eng.submit(p, n, rng_seed=i)
+                eng.submit(p, n, rng_seed=rng_seed_base + i)
             except QueueFull:
                 still.append((i, (p, n)))
         pending = still
@@ -243,6 +252,101 @@ def bench_paged(cfg, params, fast, device):
     }
 
 
+def _prefix_workload(cfg, fast, rng):
+    """One shared system prompt and short unique tails (JAX's shapes)."""
+    import numpy as np
+
+    if fast:
+        shape = dict(max_len=64, sys_len=24, tail=(2, 6), new=(4, 8), n=8, num_slots=8,
+                     page_size=4, decode_block=2)
+    else:
+        shape = dict(max_len=128, sys_len=64, tail=(4, 12), new=(8, 16), n=24, num_slots=16,
+                     page_size=8, decode_block=8)
+    sys_prompt = rng.integers(0, cfg.vocab_size, shape["sys_len"]).astype(np.int32)
+    work = []
+    for _ in range(shape["n"]):
+        tail = rng.integers(0, cfg.vocab_size, int(rng.integers(*shape["tail"]) + 1))
+        work.append((np.concatenate([sys_prompt, tail.astype(np.int32)]),
+                     int(rng.integers(*shape["new"]) + 1)))
+    return shape, work
+
+
+def _run_leader_flood(eng, work):
+    """The leader one tick ahead (its pages are indexed before anyone else
+    is admitted), then the flood: ``(tokens_per_s, peak concurrent)``, the
+    head-start tick timed too."""
+    t0 = time.perf_counter()
+    eng.submit(work[0][0], work[0][1], rng_seed=0)
+    eng.step()
+    _, peak = _run_closed(eng, work[1:], rng_seed_base=1)
+    return sum(n for _, n in work) / (time.perf_counter() - t0), peak
+
+
+def bench_prefix(cfg, params, fast, device):
+    """The prefix cache off against on, one paged engine shape, equal pool
+    memory, the shared-system-prompt workload."""
+    import numpy as np
+
+    from gradaccum_tpu_torch.serving import Engine, Scheduler, ServingMetrics
+
+    shape, work = _prefix_workload(cfg, fast, np.random.default_rng(11))
+    num_blocks = shape["num_slots"] * shape["max_len"] // shape["page_size"]
+
+    def leg(prefix):
+        eng = Engine(params, cfg, num_slots=shape["num_slots"], max_len=shape["max_len"],
+                     page_size=shape["page_size"], num_blocks=num_blocks,
+                     decode_block=shape["decode_block"], prefix_cache=prefix,
+                     scheduler=Scheduler(max_queue=4 * len(work)), device=device)
+        _run_leader_flood(eng, work)  # warm pass
+        eng.metrics = ServingMetrics()
+        eng.scheduler.stalls.clear()
+        tps, peak = _run_leader_flood(eng, work)
+        m = eng.metrics.summary()
+        return {
+            "tokens_per_s": tps,
+            "peak_concurrent_requests": peak,
+            "prefill_tokens_computed": m["prefill_tokens_computed"],
+            "prefill_tokens_skipped": m["prefill_tokens_skipped"],
+            "prefix_hit_rate": m["prefix_hit_rate"],
+            "blocks_saved": m["blocks_saved"],
+            "shared_blocks_peak": m["shared_blocks_peak"],
+            "kv_bytes_per_token_in_flight": m["kv_bytes_per_token_in_flight"],
+            "kv_pool_bytes": eng.kv_pool_bytes,
+            "ttft_s_p50": m["ttft"]["p50"],
+            "ttft_s_p99": m["ttft"]["p99"],
+            "decode_programs": eng.decode_compile_count(),
+            "prefill_programs": eng.prefill_compile_count(),
+            "num_slots": eng.pool.num_slots,
+            "num_blocks": num_blocks,
+        }
+
+    off = leg(prefix=False)
+    _emit({"leg": "prefix off", **off})
+    on = leg(prefix=True)
+    _emit({"leg": "prefix on", **on})
+    reduction = off["prefill_tokens_computed"] / on["prefill_tokens_computed"]
+    kv_ratio = on["kv_bytes_per_token_in_flight"] / off["kv_bytes_per_token_in_flight"]
+    # admission may add its second family's programs, never traffic's
+    compile_once = (off["decode_programs"] == 1 and on["decode_programs"] == 1
+                    and on["prefill_programs"] <= off["prefill_programs"] + 2)
+    return {
+        "bench": "shared-prefix KV blocks: prefix cache off vs on at equal pool memory",
+        "workload": {**shape, "n_requests": len(work),
+                     "total_new_tokens": sum(n for _, n in work),
+                     "shared_fraction_mean": float(np.mean([shape["sys_len"] / p.size
+                                                            for p, _ in work]))},
+        "off": off,
+        "on": on,
+        "prefill_reduction": reduction,
+        "kv_bytes_per_token_ratio": kv_ratio,
+        "prefix_speedup": on["tokens_per_s"] / off["tokens_per_s"],
+        "acceptance": {
+            "required": "prefill_reduction >= 2.0 and kv ratio <= 0.7 and decode_programs "
+                        "== 1 both legs and prefix admit programs bounded (off + <= 2)",
+            "passed": reduction >= 2.0 and kv_ratio <= 0.7 and compile_once},
+    }
+
+
 def _emit(record):
     print(json.dumps(record), flush=True)
 
@@ -271,15 +375,15 @@ def main(argv=None):
     ap.add_argument("--fast", action="store_true", help="small shapes")
     ap.add_argument("--paged", action="store_true",
                     help="fixed-vs-paged pool comparison at equal memory")
-    ap.add_argument("--prefix", action="store_true", help=f"waits for {LATER_ITEM}")
+    ap.add_argument("--prefix", action="store_true",
+                    help="prefix cache off-vs-on comparison at equal pool memory")
     ap.add_argument("--mesh", action="store_true", help=f"waits for {LATER_ITEM}")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if sum((args.paged, args.prefix, args.mesh)) > 1:
         ap.error("--paged / --prefix / --mesh are separate comparisons")
-    if args.prefix or args.mesh:
-        raise NotImplementedError(
-            f"bench_serving --{'prefix' if args.prefix else 'mesh'} waits for {LATER_ITEM}")
+    if args.mesh:
+        raise NotImplementedError(f"bench_serving --mesh waits for {LATER_ITEM}")
 
     import torch
 
@@ -290,6 +394,9 @@ def main(argv=None):
         cfg, params, prompts, knobs = _build(args.fast, device)
         if args.paged:
             return _finalize(bench_paged(cfg, params, args.fast, device), cfg, args.out,
+                             device)
+        if args.prefix:
+            return _finalize(bench_prefix(cfg, params, args.fast, device), cfg, args.out,
                              device)
         serial_tps = bench_serial(cfg, params, prompts, knobs)
         _emit({"leg": "serial", "tokens_per_s": serial_tps})

@@ -30,12 +30,17 @@ both. Torch raises instead, so the semantics are made explicit:
 
 - the paged pool holds one more block than its ``num_blocks``, the
   *trash block* at index ``num_blocks``. A dropped write (a masked slot, a
-  position past its write limit, a sentinel page) lands there; a read
-  through a sentinel page reads it, at virtual positions the attention
-  mask removes. Sizes reported to users (``memory_stats``,
-  ``kv_pool_bytes``) stay JAX's, ``num_blocks`` blocks.
-- the fixed cache drops a masked row's write by writing back the value it
-  already holds (each row writes only its own slot, so no two writes
+  position past its write limit, a sentinel page) lands there. A read
+  through a sentinel page reads the last real block, as JAX's clamped
+  gather does: mostly at virtual positions the attention mask removes, but
+  a verify query past its slot's write limit sees them, and its logits
+  (never emitted) then equal JAX's too. Sizes reported to users
+  (``memory_stats``, ``kv_pool_bytes``) stay JAX's, ``num_blocks`` blocks.
+- the fixed cache drops a masked write by writing back the value already
+  held where it lands: a single-position step clamps the position to the
+  last one, and a multi-position verify step moves a position past the
+  end ``n`` places down, below the row's first write (each row writes
+  only its own slot and its targets stay distinct, so no two writes
   meet).
 - positions past the position table clamp to its last row, as JAX's
   gather does; only tokens the caller discards are computed there.
@@ -44,15 +49,19 @@ Sampling is :func:`sample_token`, JAX's rule with JAX's random numbers
 (``utils/prng.py``): a request's tokens depend on its seed and the token
 index, never on its slot or batch.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: ``verify_step_ragged``/``verify_step_paged`` and
-``truncate_draft_params`` (speculative decoding, item 5c),
-``prefill_paged_cow`` and the suffix mode of ``prefill_paged`` (prefix
-sharing, item 5b), and an int8 pool (the int8 KV codec, item 5e).
+**Speculative decoding** (:func:`truncate_draft_params`,
+:func:`verify_step_ragged`, :func:`verify_step_paged`) scores a row's next
+``n`` tokens in one multi-position step. **Prefix sharing**
+(:func:`prefill_paged`'s suffix mode, :func:`prefill_paged_cow`) prefills
+only the unshared tail of a prompt against the shared prefix's K/V read
+from the pool. Both are torch ops, as JAX's are XLA: no flash kernel runs
+on the decode path. An int8 pool waits for the int8 KV codec (ROADMAP.md
+item 5e).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple, Optional, Union
 
@@ -62,8 +71,6 @@ import torch.nn.functional as F
 from gradaccum_tpu_torch.models.gpt import GPTConfig
 from gradaccum_tpu_torch.utils import prng
 
-SPEC_ITEM = "speculative decoding (ROADMAP.md item 5c)"
-PREFIX_ITEM = "prefix sharing and copy-on-write (ROADMAP.md item 5b)"
 INT8_ITEM = "the int8 KV codec (ROADMAP.md item 5e)"
 
 
@@ -198,7 +205,19 @@ def init_cache(cfg: GPTConfig, batch: int, max_len: int, cache_dtype=None,
 
 
 def truncate_draft_params(params, cfg: GPTConfig, num_layers: int):
-    raise NotImplementedError(f"truncate_draft_params waits for {SPEC_ITEM}")
+    """A draft model carved from the target's own weights: its first
+    ``num_layers`` blocks with the (tied) embeddings and the final
+    LayerNorm. Returns ``(draft_params, draft_cfg)`` for
+    ``Engine(speculate_k=, draft_params=, draft_cfg=)``; the leaves are the
+    target's own tensors, not copies."""
+    if not 1 <= num_layers <= cfg.num_layers:
+        raise ValueError(f"draft num_layers must be in [1, {cfg.num_layers}], "
+                         f"got {num_layers}")
+    p = params["params"]
+    keep = {name: leaf for name, leaf in p.items() if not name.startswith("layer_")}
+    for i in range(num_layers):
+        keep[f"layer_{i}"] = p[f"layer_{i}"]
+    return {"params": keep}, dataclasses.replace(cfg, num_layers=num_layers)
 
 
 def _as_ids(ids, device):
@@ -330,7 +349,48 @@ def decode_step_ragged(params, cfg: GPTConfig, cache: DecodeCache, token, active
 
 
 def verify_step_ragged(params, cfg: GPTConfig, cache: DecodeCache, tokens, active=None):
-    raise NotImplementedError(f"verify_step_ragged waits for {SPEC_ITEM}")
+    """The multi-position cached step of speculative decoding: ``tokens``
+    ``[B, n]`` are row b's next ``n`` tokens at positions ``length[b] + j``.
+    All ``n`` K/V pairs are written (a masked row's, and positions at or
+    past ``max_len``, are dropped) and query j sees the cache up to its own
+    position, so the logits equal a loop of ``n`` :func:`decode_step_ragged`
+    calls. ``cache.length`` comes back unchanged: the caller advances it by
+    its accept count. Writes in place; returns ``(cache, logits [B, n,
+    vocab])``."""
+    pos = cache.length
+    device = cache.k.device
+    tokens = torch.as_tensor(tokens, device=device).to(torch.int64)
+    b, n = tokens.shape
+    if active is None:
+        active = torch.ones(b, dtype=torch.bool, device=device)
+    max_len, num_heads = cache.k.shape[3], cache.k.shape[2]
+    positions = pos[:, None] + torch.arange(n, device=device)[None, :]  # [B, n]
+    x = _embed(params, cfg, tokens, positions)
+    visible = torch.arange(max_len, device=device)[None, None, :] <= positions[:, :, None]
+    pos_mask = _mask_value(visible, cfg.dtype)[:, None]  # [B, 1, n, T]
+    # a position past the end writes back, n places down, what is already
+    # there: below the row's first write, distinct for distinct j
+    inside = positions < max_len
+    writable = (active[:, None] & inside)[:, None, :, None]  # [B, 1, n, 1]
+    wpos = torch.where(inside, positions, positions - n).clamp(0, max_len - 1)
+    bidx = torch.arange(b, device=device)[:, None, None]
+    hidx = torch.arange(num_heads, device=device)[None, :, None]
+    widx = wpos[:, None, :]  # [B, 1, n]
+    p = params["params"]
+    new_k, new_v = cache.k, cache.v
+
+    for i in range(cfg.num_layers):
+
+        def attend_cached(q, k, v, i=i):
+            for pool, val in ((new_k, k), (new_v, v)):  # val [B, H, n, hd]
+                old = pool[i, bidx, hidx, widx]
+                pool[i, bidx, hidx, widx] = torch.where(writable, val.to(pool.dtype), old)
+            return _attend(q, new_k[i].to(q.dtype), new_v[i].to(q.dtype), pos_mask), None
+
+        x, _ = _block(cfg, p[f"layer_{i}"], x, attend_cached)
+
+    logits = _lm_head(params, cfg, x)  # [B, n, V]
+    return DecodeCache(k=new_k, v=new_v, length=pos), logits
 
 
 # -- the paged pool -----------------------------------------------------------
@@ -374,9 +434,16 @@ def _pool_write(pool, idx, values):
     return pool
 
 
+def _read_table(page_table, num_blocks: int):
+    """Block ids for reading: the sentinel clamps to the last real block,
+    as JAX's gather clamps it."""
+    return page_table.clamp(max=num_blocks - 1)
+
+
 def _virt_view(pool, i, page_table, kv_shape, dtype):
-    """Layer ``i``'s pages gathered through ``page_table`` into the virtual
-    ``[B, H, max_pages * page_size, hd]`` view, upcast to ``dtype``."""
+    """Layer ``i``'s pages gathered through ``page_table`` (a
+    :func:`_read_table`) into the virtual ``[B, H, max_pages * page_size,
+    hd]`` view, upcast to ``dtype``."""
     return pool[i][page_table].permute(0, 2, 1, 3, 4).reshape(kv_shape).to(dtype)
 
 
@@ -425,6 +492,7 @@ def decode_step_paged(params, cfg: GPTConfig, pool_k, pool_v, page_table, length
     blk = torch.where(writable[:, None], blk, torch.full_like(blk, num_blocks))
     off = (pos % page_size)[:, None]
     hidx = torch.arange(cfg.num_heads, device=device)[None]
+    read = _read_table(page_table, num_blocks)
     p = params["params"]
 
     for i in range(cfg.num_layers):
@@ -433,8 +501,8 @@ def decode_step_paged(params, cfg: GPTConfig, pool_k, pool_v, page_table, length
             _pool_write(pool_k, (i, blk, hidx, off), k[:, :, 0, :])
             _pool_write(pool_v, (i, blk, hidx, off), v[:, :, 0, :])
             kv_shape = (b, cfg.num_heads, t_virt, k.shape[-1])
-            k_virt = _virt_view(pool_k, i, page_table, kv_shape, q.dtype)
-            v_virt = _virt_view(pool_v, i, page_table, kv_shape, q.dtype)
+            k_virt = _virt_view(pool_k, i, read, kv_shape, q.dtype)
+            v_virt = _virt_view(pool_v, i, read, kv_shape, q.dtype)
             return _attend(q, k_virt, v_virt, pos_mask), None
 
         x, _ = _block(cfg, p[f"layer_{i}"], x, attend_cached)
@@ -446,7 +514,48 @@ def decode_step_paged(params, cfg: GPTConfig, pool_k, pool_v, page_table, length
 
 def verify_step_paged(params, cfg: GPTConfig, pool_k, pool_v, page_table, lengths, tokens,
                       active=None, limit=None):
-    raise NotImplementedError(f"verify_step_paged waits for {SPEC_ITEM}")
+    """The paged twin of :func:`verify_step_ragged`: ``n`` positions per slot
+    written through the page table and scored in one step. Positions at or
+    past a slot's write ``limit``, and a masked slot's, go to the trash
+    block. Lengths are the caller's to advance. Writes in place; returns
+    ``(pool_k, pool_v, logits [B, n, vocab])``."""
+    device = pool_k.device
+    tokens = torch.as_tensor(tokens, device=device).to(torch.int64)
+    b, n = tokens.shape
+    num_blocks, page_size = pool_blocks(pool_k), pool_k.shape[3]
+    max_pages = page_table.shape[1]
+    t_virt = max_pages * page_size
+    pos = lengths
+    if active is None:
+        active = torch.ones(b, dtype=torch.bool, device=device)
+    positions = pos[:, None] + torch.arange(n, device=device)[None, :]  # [B, n]
+    writable = active[:, None].expand(b, n)
+    if limit is not None:
+        writable = writable & (positions < limit[:, None])
+    x = _embed(params, cfg, tokens, positions)
+    visible = torch.arange(t_virt, device=device)[None, None, :] <= positions[:, :, None]
+    pos_mask = _mask_value(visible, cfg.dtype)[:, None]
+    page = (positions // page_size).clamp(max=max_pages - 1)
+    blk = torch.gather(page_table, 1, page)
+    blk = torch.where(writable, blk, torch.full_like(blk, num_blocks))
+    idx = (blk[:, None, :], torch.arange(cfg.num_heads, device=device)[None, :, None],
+           (positions % page_size)[:, None, :])  # each [B|1, H|1, n]
+    read = _read_table(page_table, num_blocks)
+    p = params["params"]
+
+    for i in range(cfg.num_layers):
+
+        def attend_cached(q, k, v, i=i):
+            _pool_write(pool_k, (i,) + idx, k)  # k/v [B, H, n, hd]
+            _pool_write(pool_v, (i,) + idx, v)
+            kv_shape = (b, cfg.num_heads, t_virt, k.shape[-1])
+            k_virt = _virt_view(pool_k, i, read, kv_shape, q.dtype)
+            v_virt = _virt_view(pool_v, i, read, kv_shape, q.dtype)
+            return _attend(q, k_virt, v_virt, pos_mask), None
+
+        x, _ = _block(cfg, p[f"layer_{i}"], x, attend_cached)
+
+    return pool_k, pool_v, _lm_head(params, cfg, x)
 
 
 def prefill_paged(params, cfg: GPTConfig, prompt_ids, prompt_lens, pool_k, pool_v,
@@ -455,9 +564,16 @@ def prefill_paged(params, cfg: GPTConfig, prompt_ids, prompt_lens, pool_k, pool_
     ``[B, S0]`` left-padded, ``prompt_lens`` ``[B]``, ``page_rows`` ``[B,
     ceil(S0 / page_size)]`` each row's block ids for its prompt pages (the
     sentinel ``num_blocks`` past them). The compacted K/V are written page
-    by page, in place. Returns ``(pool_k, pool_v, last_logits)``."""
-    if start_lens is not None or read_tables is not None:
-        raise NotImplementedError(f"prefill_paged's suffix mode waits for {PREFIX_ITEM}")
+    by page, in place. Returns ``(pool_k, pool_v, last_logits)``.
+
+    **Suffix mode** (``start_lens`` ``[B]``, each a PAGE-ALIGNED token
+    count): row b's prompt begins with ``start_lens[b]`` tokens whose K/V
+    already live in the pool (a prefix hit), and ``prompt_ids`` /
+    ``prompt_lens`` hold only the unshared tail. The tail runs at positions
+    ``start_lens[b] + j`` and attends to the shared prefix read through
+    ``read_tables`` ``[B, P]`` (the rows' leading page-table entries,
+    masked past each row's prefix) and to itself; ``page_rows`` then name
+    the tail's pages only, so the shared pages are never written."""
     device = pool_k.device
     ids = _as_ids(prompt_ids, device)
     page_rows = torch.as_tensor(page_rows, device=device).to(torch.int64)
@@ -467,20 +583,113 @@ def prefill_paged(params, cfg: GPTConfig, prompt_ids, prompt_lens, pool_k, pool_
     if tuple(page_rows.shape) != (b, s0_pages):
         raise ValueError(f"page_rows must be [batch={b}, ceil(S0/page)={s0_pages}], "
                          f"got {tuple(page_rows.shape)}")
-    cache, logits = prefill(params, cfg, ids, s0_pages * page_size, lengths=prompt_lens)
-    num_layers, _, heads, _, hd = cache.k.shape
+    if start_lens is None:
+        cache, logits = prefill(params, cfg, ids, s0_pages * page_size, lengths=prompt_lens)
+        k_stack, v_stack = cache.k, cache.v
+    else:
+        if read_tables is None:
+            raise ValueError("suffix mode needs read_tables (the full page-table rows "
+                             "for reading the shared prefix)")
+        k_stack, v_stack, logits = _prefill_suffix(params, cfg, ids, prompt_lens, start_lens,
+                                                   pool_k, pool_v, read_tables,
+                                                   s0_pages * page_size)
+    num_layers, _, heads, _, hd = k_stack.shape
 
     def to_pages(t):  # [L, B, H, s0p*P, hd] -> [L, B, s0p, H, P, hd]
         return t.view(num_layers, b, heads, s0_pages, page_size, hd).permute(0, 1, 3, 2, 4, 5)
 
     idx = (slice(None), _trash_ids(page_rows, pool_blocks(pool_k)))
-    _pool_write(pool_k, idx, to_pages(cache.k))
-    _pool_write(pool_v, idx, to_pages(cache.v))
+    _pool_write(pool_k, idx, to_pages(k_stack))
+    _pool_write(pool_v, idx, to_pages(v_stack))
     return pool_k, pool_v, logits
 
 
-def prefill_paged_cow(*args, **kwargs):
-    raise NotImplementedError(f"prefill_paged_cow waits for {PREFIX_ITEM}")
+def prefill_paged_cow(params, cfg: GPTConfig, suffix_ids, suffix_lens, start_lens,
+                      write_starts, pool_k, pool_v, read_tables, write_tables):
+    """The suffix prefill of copy-on-write sharing: :func:`prefill_paged`'s
+    suffix mode for a shared region that need not be page-aligned, with
+    per-POSITION writes. ``start_lens`` ``[B]`` is each row's first
+    recomputed position; the prefix is masked exactly to it. Positions
+    below ``write_starts`` ``[B]`` are not stored (a fully shared prompt
+    recomputes its last token for the logits only), nor are pad columns;
+    every other position lands at its (block, offset) through
+    ``write_tables`` ``[B, max_pages]``, the rows' whole page-table rows,
+    so a write mid-page leaves the copied content below it alone. Dropped
+    writes go to the trash block. Returns ``(pool_k, pool_v,
+    last_logits)``."""
+    device = pool_k.device
+    ids = _as_ids(suffix_ids, device)
+    write_tables = torch.as_tensor(write_tables, device=device).to(torch.int64)
+    b, s0 = ids.shape
+    num_blocks, page_size = pool_blocks(pool_k), pool_k.shape[3]
+    max_pages = write_tables.shape[1]
+    out_len = -(-s0 // page_size) * page_size
+    k_stack, v_stack, logits = _prefill_suffix(params, cfg, ids, suffix_lens, start_lens,
+                                               pool_k, pool_v, read_tables, out_len)
+    start_lens = torch.as_tensor(start_lens, device=device).to(torch.int64)
+    write_starts = torch.as_tensor(write_starts, device=device).to(torch.int64)
+    suffix_lens = torch.as_tensor(suffix_lens, device=device).to(torch.int64)
+    ar = torch.arange(out_len, device=device)
+    positions = start_lens[:, None] + ar[None, :]  # [B, T]: tail token j at start + j
+    valid = (ar[None, :] < suffix_lens[:, None]) & (positions >= write_starts[:, None])
+    page = (positions // page_size).clamp(max=max_pages - 1)
+    blk = torch.gather(write_tables, 1, page)
+    blk = torch.where(valid, blk, torch.full_like(blk, num_blocks))
+    idx = (slice(None), blk[:, None, :], torch.arange(cfg.num_heads, device=device)[None, :, None],
+           (positions % page_size)[:, None, :])  # k_stack [L, B, H, T, hd]
+    _pool_write(pool_k, idx, k_stack)
+    _pool_write(pool_v, idx, v_stack)
+    return pool_k, pool_v, logits
+
+
+def _prefill_suffix(params, cfg: GPTConfig, suffix_ids, suffix_lens, start_lens, pool_k,
+                    pool_v, read_tables, out_len):
+    """The body of the suffix modes: run only the unshared tail, attending
+    to the shared prefix's pooled K/V (exactly ``[0, start_lens[b])`` of the
+    gathered pages, a partial last page included) and to the tail itself
+    under the ragged causal mask. Returns the tail's compacted ``(k_stack,
+    v_stack)`` ``[L, B, H, out_len, hd]`` and the last token's logits.
+
+    Every layer reads the prefix from the pool as it stood before this
+    admission: the pool is written only after this returns, by the
+    caller."""
+    device = pool_k.device
+    ids = _as_ids(suffix_ids, device)
+    read_tables = _read_table(torch.as_tensor(read_tables, device=device).to(torch.int64),
+                              pool_blocks(pool_k))
+    b, s0 = ids.shape
+    num_heads = cfg.num_heads
+    page_size = pool_k.shape[3]
+    t_virt = read_tables.shape[1] * page_size
+    suffix_lens = torch.as_tensor(suffix_lens, device=device).to(torch.int64)
+    start_lens = torch.as_tensor(start_lens, device=device).to(torch.int64)
+    pad = s0 - suffix_lens
+    ar = torch.arange(s0, device=device)
+    positions = start_lens[:, None] + (ar[None, :] - pad[:, None]).clamp(min=0)
+    x = _embed(params, cfg, ids, positions)
+    self_mask = _ragged_self_mask(cfg, s0, pad)  # [B, 1, S0, S0]
+    # every tail query sits past the prefix: no causal term on that side
+    vis_pref = torch.arange(t_virt, device=device)[None, :] < start_lens[:, None]
+    pref_mask = _mask_value(vis_pref, cfg.dtype)[:, None, None, :].expand(b, 1, s0, t_virt)
+    mask = torch.cat([pref_mask, self_mask], dim=-1)
+
+    ks, vs = [], []
+    p = params["params"]
+    for i in range(cfg.num_layers):
+
+        def attend_mixed(q, k, v, i=i):
+            kv_shape = (b, num_heads, t_virt, k.shape[-1])
+            k_all = torch.cat([_virt_view(pool_k, i, read_tables, kv_shape, k.dtype), k], dim=2)
+            v_all = torch.cat([_virt_view(pool_v, i, read_tables, kv_shape, v.dtype), v], dim=2)
+            return _attend(q, k_all, v_all, mask), (k, v)
+
+        x, (k, v) = _block(cfg, p[f"layer_{i}"], x, attend_mixed)
+        ks.append(k)
+        vs.append(v)
+
+    k_stack, v_stack = _compact_ragged(torch.stack(ks), torch.stack(vs), pad, suffix_lens,
+                                       out_len)
+    return k_stack, v_stack, _lm_head(params, cfg, x[:, -1:, :])[:, 0]
 
 
 # -- sampling and generation --------------------------------------------------

@@ -7,13 +7,15 @@ tick of ``decode_block`` micro-steps (``engine``) with admissions
 batch-prefilled into free slots; the bounded FIFO with backpressure and
 deadlines (``scheduler``); TTFT, throughput and occupancy telemetry
 (``metrics``); and the threaded front-end and the seeded simulation driver
-(``server``). Greedy and seeded-sampled outputs equal
-``models/gpt_decode.py :: generate_cached`` token for token.
+(``server``). Prefix sharing with copy-on-write tails
+(``cache_pool.PrefixCache``) and speculative decoding with a draft model
+ride on the same engine. Greedy and seeded-sampled outputs equal
+``models/gpt_decode.py :: generate_cached`` token for token (speculative
+sampling follows JAX's accept rule draw for draw).
 
-Prefix sharing, speculation, admission control and swap, int8 KV,
-reconfiguration, replica fleets and the serving fault contract are not
-ported yet: their knobs raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+Admission control and swap, int8 KV, reconfiguration, replica fleets and
+the serving fault contract are not ported yet: their knobs raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from gradaccum_tpu_torch.serving.cache_pool import (
@@ -21,6 +23,7 @@ from gradaccum_tpu_torch.serving.cache_pool import (
     CachePool,
     PagedCachePool,
     PoolPressure,
+    PrefixCache,
 )
 from gradaccum_tpu_torch.serving.engine import Engine, StepEvents
 from gradaccum_tpu_torch.serving.metrics import ServingMetrics
@@ -38,6 +41,7 @@ __all__ = [
     "Engine",
     "PagedCachePool",
     "PoolPressure",
+    "PrefixCache",
     "QueueFull",
     "Request",
     "Scheduler",

@@ -1,7 +1,6 @@
 """KV-cache pools: the engine's device memory, fixed-slot or paged.
 
-The port of ``gradaccum_tpu/serving/cache_pool.py`` without its
-``PrefixCache`` (prefix sharing, ROADMAP.md item 5b).
+The port of ``gradaccum_tpu/serving/cache_pool.py``.
 
 A ``CachePool`` owns one ``[num_layers, num_slots, heads, max_len,
 head_dim]`` K/V pair (``models/gpt_decode.py``'s fixed layout, the batch
@@ -31,18 +30,28 @@ shared block whose allocating slot released is an ORPHAN, counted so that
 ``unreserved_blocks`` never promises memory a survivor still holds.
 Every size reported to users is JAX's: ``num_blocks`` blocks, the trash
 block apart.
+
+:class:`PrefixCache` is the host index that finds shareable blocks: full
+prompt pages by a cumulative sha1 of their token bytes, and with ``cow``
+the prompt's final partial page at every sub-page length (a radix tree,
+``memory/radix.py``). A sharer adopts a partial tail block read-only up to
+its matched length, and its first write into that page forks the block
+(:meth:`PagedCachePool.fork_cow`: a fresh private block, a one-block device
+copy by the engine, the page-table entry rewritten), or takes it over when
+it is the last reference.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import hashlib
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from gradaccum_tpu_torch.memory.radix import RadixIndex
 from gradaccum_tpu_torch.models.gpt import GPTConfig
 from gradaccum_tpu_torch.models.gpt_decode import (
-    PREFIX_ITEM,
     DecodeCache,
     init_cache,
     init_paged_pool,
@@ -143,6 +152,184 @@ class CachePool(_SlotLedger):
         return DecodeCache(k=self.k, v=self.v, length=self.lengths)
 
 
+def _tokens(prompt) -> np.ndarray:
+    """A prompt as flat contiguous ``np.int32``, whatever it came as (a
+    list, a numpy array of any integer width, a torch tensor on any
+    device): the keys hash these bytes, so one prompt keys the same from
+    every caller, and as JAX keys it."""
+    if torch.is_tensor(prompt):
+        prompt = prompt.detach().cpu().numpy()
+    return np.ascontiguousarray(np.asarray(prompt).reshape(-1), np.int32)
+
+
+class PrefixCache:
+    """Host index from page-aligned prompt chunks to live pool blocks.
+
+    Chunk ``i`` covers tokens ``[i*page_size, (i+1)*page_size)`` and is keyed
+    by a CUMULATIVE sha1 of tokens ``[0, (i+1)*page_size)``, so a match of
+    chunk ``i`` implies a match of every earlier one and a lookup walks
+    chunks to the first miss. The pool forgets a block's entries the moment
+    its refcount reaches zero (``forget_block``): the index never hands out
+    a recycled page, and an idle pool implies an empty index.
+
+    With ``cow=True`` the index also marks the prompt's final PARTIAL chunk
+    at every token length in a radix tree (:meth:`insert_tail`): a later
+    prompt matching one of those sub-page prefixes adopts the block
+    read-only up to the matched count (:meth:`match_cow`), and the engine
+    forks it before the sharer's first write into that page. The same
+    sub-page content may live in many private blocks (every fork copies
+    it), so each position keeps every live backing block, first registered
+    first. :meth:`trim_tail` drops what a sole surviving sharer will
+    overwrite when it takes a block over."""
+
+    def __init__(self, page_size: int, cow: bool = True):
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        self.page_size = int(page_size)
+        self.cow = bool(cow)
+        self._by_hash: Dict[str, int] = {}   # chunk hash -> block id
+        self._by_block: Dict[int, str] = {}  # block id -> its chunk hash
+        self._tails = RadixIndex()
+
+    def __len__(self) -> int:
+        """Full-chunk entries: the operator's "indexed chunks" gauge."""
+        return len(self._by_hash)
+
+    @property
+    def tail_count(self) -> int:
+        """Live sub-page (copy-on-write) tail entries: distinct marked
+        positions in the radix tree."""
+        return self._tails.mark_points
+
+    def _chunk(self, data: np.ndarray, chunk: int) -> bytes:
+        return data[chunk * self.page_size:(chunk + 1) * self.page_size].tobytes()
+
+    def match(self, prompt) -> List[int]:
+        """Block ids of the longest indexed prefix of ``prompt``, STRICTLY
+        shorter than the prompt: at least one trailing token is left to
+        prefill (the request needs its last token's logits)."""
+        data = _tokens(prompt)
+        blocks: List[int] = []
+        h = hashlib.sha1()
+        for chunk in range((data.size - 1) // self.page_size):
+            h.update(self._chunk(data, chunk))
+            block = self._by_hash.get(h.copy().hexdigest())
+            if block is None:
+                break
+            blocks.append(block)
+        return blocks
+
+    def insert(self, prompt, blocks: List[int]) -> None:
+        """Register ``prompt``'s leading full-page chunks as backed by
+        ``blocks`` (one per chunk, in order). An indexed chunk is skipped:
+        the first writer's block stays canonical. With ``cow`` every
+        sub-page prefix of each newly indexed chunk is marked in the tree
+        too (a chunk already indexed was marked when it was first
+        inserted, so it is only walked)."""
+        data = _tokens(prompt)
+        h = hashlib.sha1()
+        w = self._tails.writer() if self.cow else None
+        for chunk, block in enumerate(blocks):
+            block = int(block)
+            base = chunk * self.page_size
+            if self.cow:
+                probe = h.copy()
+                probe.update(self._chunk(data, chunk))
+                if probe.hexdigest() in self._by_hash:
+                    h = probe
+                    w.advance(data[base:base + self.page_size])
+                    continue
+                for t in range(1, self.page_size):
+                    w.advance(data[base + t - 1])
+                    w.mark(block, t)
+                w.advance(data[base + self.page_size - 1])
+            h.update(self._chunk(data, chunk))
+            key = h.copy().hexdigest()
+            if key in self._by_hash:
+                continue
+            self._by_hash[key] = block
+            self._by_block[block] = key
+
+    def insert_tail(self, prompt, block: int) -> None:
+        """Register the prompt's FINAL partial chunk as backed by ``block``:
+        one mark per tail length in ``[1, len % page_size]``. A no-op when
+        ``cow`` is off or the prompt is page-aligned."""
+        if not self.cow:
+            return
+        data = _tokens(prompt)
+        rem = data.size % self.page_size
+        if rem == 0:
+            return
+        full = data.size - rem
+        w = self._tails.writer(data[:full])
+        for t in range(1, rem + 1):
+            w.advance(data[full + t - 1])
+            w.mark(int(block), t)
+
+    def match_cow(self, prompt) -> Tuple[List[int], Optional[int], int]:
+        """``(full_blocks, tail_block, tail_tokens)``: the page-aligned
+        chunks matched (UNCLAMPED: an identical page-aligned prompt may
+        share every page; the engine recomputes its last token with the
+        write dropped) and the longest indexed sub-page continuation
+        (``None, 0`` when the walk ends on a page boundary). The shared
+        total never exceeds the prompt. Without ``cow`` this is
+        :meth:`match` with no tail."""
+        if not self.cow:
+            return self.match(prompt), None, 0
+        data = _tokens(prompt)
+        blocks: List[int] = []
+        h = hashlib.sha1()
+        for chunk in range(data.size // self.page_size):
+            h.update(self._chunk(data, chunk))
+            block = self._by_hash.get(h.copy().hexdigest())
+            if block is None:
+                break
+            blocks.append(block)
+        start = len(blocks) * self.page_size
+        tail_block: Optional[int] = None
+        tail_tokens = 0
+        # marks along an insert's chunk cover the contiguous lengths 1..k,
+        # so the first divergence ends the longest match
+        r = self._tails.reader(data[:start])
+        if r is not None:
+            for t in range(1, min(self.page_size - 1, data.size - start) + 1):
+                if not r.advance(data[start + t - 1]):
+                    break
+                pairs = r.marks()
+                if pairs:
+                    tail_block, tail_tokens = pairs[0][0], t
+        return blocks, tail_block, tail_tokens
+
+    def is_live(self, block: int) -> bool:
+        """Whether ``block`` backs an indexed FULL chunk (sub-page entries
+        are ignored: every prompt page carries them under COW)."""
+        return int(block) in self._by_block
+
+    def forget_block(self, block: int) -> None:
+        """Drop every entry ``block`` backs: the pool calls this when the
+        block's refcount reaches zero."""
+        key = self._by_block.pop(int(block), None)
+        if key is not None:
+            self._by_hash.pop(key, None)
+        self._tails.forget(int(block))
+
+    def trim_tail(self, block: int, max_tokens: int) -> None:
+        """Drop every entry of ``block`` covering more than ``max_tokens``
+        of it, its full-chunk entry included when ``max_tokens`` is under a
+        page: the sole surviving sharer that takes the block over will
+        overwrite what lies past its own matched extent."""
+        if int(max_tokens) < self.page_size:
+            key = self._by_block.pop(int(block), None)
+            if key is not None:
+                self._by_hash.pop(key, None)
+        self._tails.trim(int(block), int(max_tokens))
+
+    def clear(self) -> None:
+        self._by_hash.clear()
+        self._by_block.clear()
+        self._tails.clear()
+
+
 class PagedCachePool(_SlotLedger):
     """Slot and block bookkeeping (host) and the paged pool (device).
 
@@ -152,15 +339,17 @@ class PagedCachePool(_SlotLedger):
     page-table entries hold the sentinel ``num_blocks``."""
 
     def __init__(self, cfg: GPTConfig, num_slots: int, max_len: int, page_size: int,
-                 num_blocks: int, prefix_cache=None, cache_dtype=None, device=None):
+                 num_blocks: int, prefix_cache: Optional[PrefixCache] = None,
+                 cache_dtype=None, device=None):
         self._init_slots(num_slots)
-        if prefix_cache is not None:
-            raise NotImplementedError(f"a prefix cache waits for {PREFIX_ITEM}")
         if max_len % page_size:
             raise ValueError(f"max_len {max_len} must be a multiple of page_size {page_size}")
         if max_len > cfg.max_position_embeddings:
             raise ValueError(f"max_len {max_len} exceeds max_position_embeddings "
                              f"{cfg.max_position_embeddings}")
+        if prefix_cache is not None and prefix_cache.page_size != page_size:
+            raise ValueError(f"prefix cache page_size {prefix_cache.page_size} != pool "
+                             f"page_size {page_size}")
         self.k, self.v = init_paged_pool(cfg, num_blocks, page_size, cache_dtype=cache_dtype,
                                          device=device)
         self._cfg = cfg
@@ -172,6 +361,7 @@ class PagedCachePool(_SlotLedger):
         self.page_size = page_size
         self.num_blocks = num_blocks
         self.max_pages = max_len // page_size
+        self.prefix_cache = prefix_cache
         self.page_table = np.full((num_slots, self.max_pages), num_blocks, np.int32)
         self._table_device: Optional[torch.Tensor] = None
         self._free_blocks: List[int] = list(range(num_blocks - 1, -1, -1))
@@ -202,9 +392,14 @@ class PagedCachePool(_SlotLedger):
         return False
 
     def _reclaim(self, blocks: List[int]) -> None:
-        if blocks:
-            self._free_blocks.extend(blocks)
-            self._free_blocks.sort(reverse=True)  # deterministic: lowest block next
+        """Free blocks that reached zero and forget their index entries."""
+        if not blocks:
+            return
+        self._free_blocks.extend(blocks)
+        self._free_blocks.sort(reverse=True)  # deterministic: lowest block next
+        if self.prefix_cache is not None:
+            for block in blocks:
+                self.prefix_cache.forget_block(block)
 
     def release(self, slot: int) -> None:
         """Free the slot, decref its blocks (freeing those that hit zero) and
@@ -319,7 +514,38 @@ class PagedCachePool(_SlotLedger):
             self._table_device = None
 
     def fork_cow(self, slot: int, page: int) -> Optional[int]:
-        raise NotImplementedError(f"copy-on-write forks wait for {PREFIX_ITEM}")
+        """Copy-on-write fork of the slot's ADOPTED block at ``page``: a
+        fresh private block (refcount 1, covered by the slot's reservation,
+        which never counted the adopted tail as shared) takes its
+        page-table entry and the shared block loses a reference. Returns
+        the OLD block id, for the engine's one-block device copy, or None
+        when the fork is ELIDED: the slot held the last reference, so it
+        takes the block over in place."""
+        if not self._claimed[slot]:
+            raise ValueError(f"slot {slot} is not claimed")
+        old = int(self.page_table[slot, page])
+        if not 0 <= old < self.num_blocks or self._block_refs[old] < 1:
+            raise ValueError(f"slot {slot} page {page} maps no live block")
+        if self._slot_blocks[slot][page] != old:
+            raise ValueError("page-table/slot-blocks mirror out of sync")
+        if self._block_refs[old] == 1 and self._block_owner[old] != slot:
+            if self._block_owner[old] is None:
+                self._orphans -= 1  # now covered by this slot's reservation
+            self._block_owner[old] = slot
+            self._slot_shared[slot] -= 1
+            return None
+        if not self._free_blocks:
+            raise PoolPressure(slot, 1, 0, self._slot_reserved[slot])
+        new = self._free_blocks.pop()
+        self._block_refs[new] = 1
+        self._block_owner[new] = slot
+        self._slot_blocks[slot][page] = new
+        self.page_table[slot, page] = new
+        self._table_device = None
+        self._slot_shared[slot] -= 1
+        if self._decref(old, slot):
+            self._reclaim([old])
+        return old
 
     def grow(self, extra_blocks: int) -> int:
         """Append ``extra_blocks`` blocks: ids ``num_blocks..num_blocks +
@@ -348,7 +574,8 @@ class PagedCachePool(_SlotLedger):
 
     def page_table_device(self) -> torch.Tensor:
         """The page table on the device, re-uploaded only after a change
-        (``alloc_to``, ``adopt_shared``, ``release``, ``grow``); an upload
+        (``alloc_to``, ``adopt_shared``, ``fork_cow``, ``release``,
+        ``grow``); an upload
         bounds-checks the host table first."""
         if self._table_device is None:
             bad_mask = (self.page_table < 0) | (self.page_table > self.num_blocks)

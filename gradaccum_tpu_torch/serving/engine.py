@@ -22,11 +22,20 @@ signatures its tick and its admission have been given: one per block size
 for the tick, one per (batch, bucketed length) for admission. That is the
 contract a CUDA graph of the tick would need.
 
+**Prefix sharing** (``prefix_cache``, paged pool only): a request whose
+leading prompt pages match live blocks (``cache_pool.PrefixCache``) maps
+its page table onto them, reserves and prefills only its unshared tail;
+with ``cow_tails`` a partial tail page is shared too and forked before the
+sharer's first write into it. **Speculative decoding** (``speculate_k``):
+a draft model proposes ``k`` tokens from its own fixed-layout cache, the
+target scores all ``k + 1`` positions in one verify step, and the accept
+rule emits up to ``k + 1`` tokens a slot per tick: greedy streams are the
+plain engine's, sampled ones follow JAX's rejection sampling draw for draw.
+
 **Not ported yet**, each raising ``NotImplementedError`` with its
-ROADMAP.md item: ``prefix_cache`` (5b), ``speculate_k > 0`` (5c),
-``admission``, ``swap`` other than the default, ``swap_max_bytes``,
-``victim_score``, ``overlap_prefill`` and ``preempt`` (5d),
-``cache_dtype=int8`` (5e), ``mesh`` and ``reconfigure`` (5g), and
+ROADMAP.md item: ``admission``, ``swap`` other than the default,
+``swap_max_bytes``, ``victim_score``, ``overlap_prefill`` and ``preempt``
+(5d), ``cache_dtype=int8`` (5e), ``mesh`` and ``reconfigure`` (5g), and
 ``recover`` (5h).
 """
 
@@ -42,17 +51,20 @@ from gradaccum_tpu_torch.interop import params_tree
 from gradaccum_tpu_torch.models.gpt import GPTConfig
 from gradaccum_tpu_torch.models.gpt_decode import (
     INT8_ITEM,
-    PREFIX_ITEM,
-    SPEC_ITEM,
     DecodeCache,
+    _top_k_mask,
     decode_step_paged,
     decode_step_ragged,
+    init_cache,
     prefill,
     prefill_paged,
+    prefill_paged_cow,
     sample_token,
+    verify_step_paged,
+    verify_step_ragged,
 )
 from gradaccum_tpu_torch.obs import trace as obs_trace
-from gradaccum_tpu_torch.serving.cache_pool import CachePool, PagedCachePool
+from gradaccum_tpu_torch.serving.cache_pool import CachePool, PagedCachePool, PrefixCache
 from gradaccum_tpu_torch.serving.metrics import ServingMetrics
 from gradaccum_tpu_torch.serving.scheduler import QueueFull, Request, Scheduler
 from gradaccum_tpu_torch.utils import prng
@@ -151,12 +163,31 @@ class Engine:
             raise ValueError(f"id_stride must be >= 1, got {id_stride}")
         if speculate_k < 0:
             raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
+        if speculate_k > 0:
+            if draft_params is None or draft_cfg is None:
+                raise ValueError(
+                    "speculate_k needs draft_params and draft_cfg "
+                    "(models/gpt_decode.truncate_draft_params carves a "
+                    "draft from the target's own weights)")
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(f"draft vocab {draft_cfg.vocab_size} != target vocab "
+                                 f"{cfg.vocab_size} — the draft proposes target tokens")
+            if decode_block != 1 or decode_block_set is not None:
+                raise ValueError(
+                    "speculate_k already advances up to k+1 positions per "
+                    "dispatch (it IS the block knob); use decode_block=1 "
+                    "without decode_block_set")
         if swap not in ("host", "recompute", "tiered"):
             raise ValueError(f"swap must be 'host', 'recompute', or 'tiered', got {swap!r}")
+        if cache_dtype is not None and cache_dtype == torch.int8:
+            if page_size is None:
+                raise ValueError("cache_dtype=int8 needs paged mode (page_size=...): "
+                                 "the quantization scales live per pool block vector")
+            if speculate_k > 0:
+                raise ValueError("cache_dtype=int8 does not compose with speculate_k: the "
+                                 "draft cache is fixed-layout (use bf16 for speculative "
+                                 "engines)")
         refused = [
-            (prefix_cache is not None and prefix_cache is not False, "prefix_cache",
-             PREFIX_ITEM),
-            (speculate_k > 0, "speculate_k", SPEC_ITEM),
             (cache_dtype is not None and cache_dtype == torch.int8, "cache_dtype=int8",
              INT8_ITEM),
             (bool(overlap_prefill), "overlap_prefill", ADMISSION_ITEM),
@@ -168,10 +199,17 @@ class Engine:
         for hit, knob, item in refused:
             if hit:
                 raise NotImplementedError(f"Engine({knob}=...) waits for {item}")
+        # an EMPTY PrefixCache is falsy (len 0) but still asks for sharing
+        wants_prefix = bool(prefix_cache) or isinstance(prefix_cache, PrefixCache)
+        if wants_prefix and page_size is None:
+            raise ValueError("prefix_cache needs paged mode (page_size=...)")
         self.device = resolve_device(device)
         if isinstance(params, torch.nn.Module):
             params = params_tree(params)
-        self.params = _tree_to(params, self.device)
+        if isinstance(draft_params, torch.nn.Module):
+            draft_params = params_tree(draft_params)
+        moved: Dict[int, torch.Tensor] = {}  # a draft's leaves that are the target's stay so
+        self.params = _tree_to(params, self.device, moved)
         self.cfg = cfg
         self.max_len = max_len
         self.temperature = float(temperature)
@@ -179,17 +217,38 @@ class Engine:
         self.paged = page_size is not None
         self.page_size = None if page_size is None else int(page_size)
         self.cache_dtype = cache_dtype
+        self.speculate_k = int(speculate_k)
+        self.draft_cfg = draft_cfg if self.speculate_k else None
+        self.draft_params = (_tree_to(draft_params, self.device, moved) if self.speculate_k
+                             else None)
         if self.paged:
+            if isinstance(prefix_cache, PrefixCache):
+                # an injected cache's own cow flag wins
+                self.prefix_cache: Optional[PrefixCache] = prefix_cache
+                self.cow_tails = bool(cow_tails) and prefix_cache.cow
+            else:
+                self.prefix_cache = (PrefixCache(self.page_size, cow=bool(cow_tails))
+                                     if wants_prefix else None)
+                self.cow_tails = bool(cow_tails) and wants_prefix
             if num_blocks is None:
                 num_blocks = num_slots * max_len // self.page_size  # the fixed pool's bytes
             self.num_blocks = int(num_blocks)
             self.pool = PagedCachePool(cfg, num_slots, max_len, self.page_size,
-                                       self.num_blocks, cache_dtype=cache_dtype,
-                                       device=self.device)
+                                       self.num_blocks, prefix_cache=self.prefix_cache,
+                                       cache_dtype=cache_dtype, device=self.device)
         else:
+            self.prefix_cache = None
+            self.cow_tails = False
             self.num_blocks = None
             self.pool = CachePool(cfg, num_slots, max_len, cache_dtype=cache_dtype,
                                   device=self.device)
+        # the draft's own cache: the fixed layout whatever the target's pool
+        if self.speculate_k:
+            dcache = init_cache(draft_cfg, num_slots, max_len, cache_dtype=cache_dtype,
+                                device=self.device)
+            self._draft_k, self._draft_v = dcache.k, dcache.v
+        else:
+            self._draft_k = self._draft_v = None
         self.replica_id = None if replica_id is None else int(replica_id)
         self._obs_args: Dict[str, object] = {}
         if self.replica_id is not None:
@@ -218,6 +277,15 @@ class Engine:
         # and the token gauges never read the card
         self._slot_len = np.zeros((num_slots,), np.int64)
         self._slot_limit = np.zeros((num_slots,), np.int64)
+        # copy-on-write: the absolute shared boundary of a slot's ADOPTED
+        # partial tail block, 0 once forked (or never adopted); a write past
+        # it forks the block first (_fork_cow)
+        self._slot_cow = np.zeros((num_slots,), np.int64)
+        # prefix matches found by this tick's admission gate, consumed by
+        # _admit_dispatch: request_id -> (full blocks, cow tail block, tokens)
+        self._pending_match: Dict[int, Tuple[List[int], Optional[int], int]] = {}
+        # (request_id, shared blocks) of the queue head, for _bottleneck
+        self._head_match_memo: Optional[Tuple[int, int]] = None
 
         if decode_block_set is not None:
             blocks = sorted({int(b) for b in decode_block_set})
@@ -262,13 +330,14 @@ class Engine:
 
     def decode_compile_count(self) -> int:
         """Distinct input-shape signatures the decode tick has run with:
-        one per block size used, never more with traffic (JAX counts its
-        compiled tick programs)."""
+        one per block size used (the speculative cycle is one more), never
+        more with traffic (JAX counts its compiled tick programs)."""
         return len(self._tick_shapes)
 
     def prefill_compile_count(self) -> int:
         """Distinct (batch, bucketed length) signatures of the admission
-        prefill, bounded by the bucket set."""
+        prefill, bounded by the bucket set (and the bucketed prefix pages:
+        a prefix engine has a second admission family)."""
         return len(self._admit_shapes)
 
     def manifest(self) -> dict:
@@ -281,16 +350,16 @@ class Engine:
             "decode_block_set": list(self.decode_block_set),
             "page_size": self.page_size,
             "num_blocks": self.num_blocks,
-            "prefix_cache": False,
-            "cow_tails": False,
+            "prefix_cache": self.prefix_cache is not None,
+            "cow_tails": self.cow_tails,
             "victim_score": None,
             "temperature": self.temperature,
             "top_k": self.top_k,
             "min_prefill_bucket": self.min_prefill_bucket,
             "mesh": None,
             "replica_id": self.replica_id,
-            "speculate_k": 0,
-            "draft_num_layers": None,
+            "speculate_k": self.speculate_k,
+            "draft_num_layers": self.draft_cfg.num_layers if self.speculate_k else None,
             "cache_dtype": None if self.cache_dtype is None else _dtype_name(self.cache_dtype),
             "overlap_prefill": False,
             "admission": None,
@@ -399,8 +468,17 @@ class Engine:
             return tag + "no free slots"
         if self.paged:
             head = self.scheduler.peek()
-            need = (1 if head is None
-                    else self.pool.blocks_for(head.prompt.size + head.max_new_tokens))
+            if head is None:
+                need = 1
+            else:
+                # what admission would ask: only the head's unshared blocks
+                need = self.pool.blocks_for(head.prompt.size + head.max_new_tokens)
+                if self.prefix_cache is not None:
+                    memo = self._head_match_memo
+                    if memo is None or memo[0] != head.request_id:
+                        memo = (head.request_id, len(self.prefix_cache.match(head.prompt)))
+                        self._head_match_memo = memo
+                    need -= memo[1]
             if need > self.pool.unreserved_blocks:
                 return tag + "no free KV blocks"
         return tag + "queue backlog (slots available)"
@@ -446,15 +524,23 @@ class Engine:
         fits = None
         if self.paged:
             # reservations of earlier requests in this same admission batch
-            # count: they reach the pool only inside _admit
+            # count: they reach the pool only inside _admit_dispatch
             pending = [0]
+            self._pending_match.clear()
 
             def fits(r):
                 total = self.pool.blocks_for(r.prompt.size + r.max_new_tokens)
-                if total > self.pool.max_pages or \
-                        pending[0] + total > self.pool.unreserved_blocks:
+                if total > self.pool.max_pages:
                     return False
-                pending[0] += total
+                match = (self.prefix_cache.match_cow(r.prompt)
+                         if self.prefix_cache is not None else ([], None, 0))
+                # only FULL shared pages cut the ask: an adopted COW tail
+                # needs its fork block once the request writes that page
+                need = total - len(match[0])
+                if pending[0] + need > self.pool.unreserved_blocks:
+                    return False
+                pending[0] += need
+                self._pending_match[r.request_id] = match
                 return True
 
         reqs = self.scheduler.admit(self.pool.free_count, t, fits=fits)
@@ -468,14 +554,12 @@ class Engine:
 
         active_now = self._active.copy()
         if self.paged:
-            # grow every active slot's pages to this tick's worst-case end;
-            # the reservation guarantees the supply
-            for slot in np.nonzero(active_now)[0]:
-                self.pool.alloc_to(int(slot), min(self._slot_len[slot] + block,
-                                                  self._slot_limit[slot]))
+            self._ensure_blocks(active_now, self.speculate_k + 1 if self.speculate_k else block)
         if active_now.any():
             if tr.enabled:
                 args = dict(block=block, active=int(active_now.sum()))
+                if self.speculate_k:
+                    args["speculate_k"] = self.speculate_k
                 if self.paged:
                     args["free_blocks"] = self.pool.free_blocks
                 span = tr.span("serve/decode", cat="serving", tick=t, **args)
@@ -492,6 +576,13 @@ class Engine:
                           kv_bytes_in_use=(self.pool.allocated_blocks * self.page_size
                                            * self._token_bytes),
                           free_blocks=self.pool.free_blocks)
+            if self.prefix_cache is not None:
+                gauges["shared_blocks"] = self.pool.shared_blocks
+            if self.cow_tails:
+                # distinct blocks shared sub-page (adopted, not forked yet)
+                gauges["cow_shared_blocks"] = len({
+                    int(self.pool.page_table[s, int(self._slot_cow[s]) // self.page_size])
+                    for s in range(self.pool.num_slots) if self._slot_cow[s] > 0})
         else:
             gauges.update(token_capacity=self.pool.num_slots * self.max_len,
                           kv_bytes_in_use=(self.pool.active_count * self.max_len
@@ -502,12 +593,18 @@ class Engine:
         return StepEvents(emitted, finished, admitted, t)
 
     def _decode_dispatch(self, active_now, block: int):
-        """Run this tick's ``block`` micro-steps on every slot and keep the
-        device state; the tokens stay on the card until
-        :meth:`_decode_finish` reads them back once."""
+        """Run this tick's decode on every slot and keep the device state:
+        ``block`` micro-steps, or one speculative cycle. The tokens stay on
+        the card until :meth:`_decode_finish` reads them back once."""
         pool = self.pool
         active = torch.as_tensor(active_now).to(self.device)
         table = pool.page_table_device() if self.paged else None
+        if self.speculate_k:
+            self._tick_shapes.add(("spec", self.speculate_k, tuple(pool.k.shape),
+                                   str(pool.k.dtype), tuple(self._draft_k.shape),
+                                   None if table is None else tuple(table.shape)))
+            # the host length mirror advances at finish: by the accept count
+            return "spec", active_now, self._spec_cycle(active, table)
         self._tick_shapes.add((block, tuple(pool.k.shape), str(pool.k.dtype),
                                None if table is None else tuple(table.shape)))
         lengths, cur, gen = pool.lengths, self._cur_tok, self._gen
@@ -530,19 +627,169 @@ class Engine:
         self._slot_len[active_now] = np.minimum(
             self._slot_len[active_now] + block,
             self._slot_limit[active_now] if self.paged else self.max_len)
-        return active_now, torch.stack(toks)
+        return "plain", active_now, torch.stack(toks)
+
+    def _spec_keys(self, index, salt: int):
+        """JAX's spec-cycle keys: ``fold_in(fold_in(rng, index), salt)`` for
+        each slot's stream (``index`` ``[S]`` or ``[S, n]``)."""
+        rngs = self._rngs if index.dim() == 1 else self._rngs[:, None, :]
+        return prng.fold_in(prng.fold_in(rngs, index), salt)
+
+    def _spec_mask(self, logits):
+        return _top_k_mask(logits, self.top_k) if self.top_k is not None else logits
+
+    def _draft_draw(self, logits, index):
+        """One sampled draft column: the draw (salt 1) and the draft's
+        distribution it was drawn from, ``[S]`` and ``[S, V]``."""
+        t = torch.full((), self.temperature, dtype=torch.float32, device=self.device)
+        masked = self._spec_mask(logits)
+        return (prng.categorical(self._spec_keys(index, 1), torch.div(masked, t)),
+                torch.softmax(torch.div(masked.float(), t), dim=-1))
+
+    def _spec_cycle(self, active, table):
+        """One speculative cycle (JAX's ``_make_spec_tick_fn``): the draft
+        proposes ``k`` tokens on its own cache (plus one more write, so an
+        all-accepted cycle leaves no hole at ``pos + k``), the target scores
+        the ``k + 1`` positions in one verify step, and the accept rule
+        turns both into up to ``k + 1`` tokens a slot. Greedy accepts the
+        longest run of drafts equal to the target's argmaxes and emits the
+        argmaxes, the plain engine's stream; sampled mode keeps draft ``d_j``
+        with probability ``min(1, p_t / p_d)`` and draws the first rejected
+        column from ``max(p_t - p_d, 0)`` renormalized. Every draw folds the
+        slot's key with ``pos * (k + 2) + column``, then the salt: 1 for the
+        draft's draws, 2 for the accept uniforms, 3 for the final draw.
+        Nothing rolls back: lengths advance by the accept count, and what
+        lies past them is masked on both caches. Returns ``[S, k + 2]``:
+        the ``k + 1`` tokens and the count to emit."""
+        k, pool = self.speculate_k, self.pool
+        pos, cur = pool.lengths, self._cur_tok
+        base = pos * (k + 2)
+        sampled = self.temperature > 0
+        dcache = DecodeCache(self._draft_k, self._draft_v, pos)
+        tok, drafts, p_draft = cur, [], []
+        for j in range(k):
+            dcache, logits = decode_step_ragged(self.draft_params, self.draft_cfg, dcache, tok,
+                                                active)
+            if sampled:
+                nxt, p_d = self._draft_draw(logits, base + j)
+                p_draft.append(p_d)
+            else:
+                nxt = torch.argmax(logits, dim=-1)
+            tok = torch.where(active, nxt, tok)
+            drafts.append(tok)
+        decode_step_ragged(self.draft_params, self.draft_cfg, dcache, tok, active)
+        d_bt = torch.stack(drafts, dim=1)  # [S, k]
+        tokens_in = torch.cat([cur[:, None], d_bt], dim=1)
+        if self.paged:
+            _, _, logits = verify_step_paged(self.params, self.cfg, pool.k, pool.v, table, pos,
+                                             tokens_in, active, self._limit)
+        else:
+            _, logits = verify_step_ragged(self.params, self.cfg,
+                                           DecodeCache(pool.k, pool.v, pos), tokens_in, active)
+        rows = torch.arange(pos.shape[0], device=self.device)
+        if sampled:
+            t = torch.full((), self.temperature, dtype=torch.float32, device=self.device)
+            p_t = torch.softmax(torch.div(self._spec_mask(logits).float(), t), dim=-1)
+            p_d = torch.stack(p_draft, dim=1)  # [S, k, V]
+            pt_d = torch.gather(p_t[:, :k], 2, d_bt[..., None])[..., 0]
+            pd_d = torch.gather(p_d, 2, d_bt[..., None])[..., 0]
+            cols = base[:, None] + torch.arange(k, device=self.device)[None, :]
+            us = prng.uniform(self._spec_keys(cols, 2), ())  # [S, k]
+            match = us * pd_d.clamp(min=1e-20) <= pt_d
+            acc = torch.cumprod(match.long(), dim=1).sum(dim=1)
+            # past the last draft the "draft" distribution is the target's
+            # own, so an all-accepted row draws its bonus from p_t
+            p_d_ext = torch.cat([p_d, p_t[:, k:]], dim=1)
+            p_t_a, p_d_a = p_t[rows, acc], p_d_ext[rows, acc]
+            resid = (p_t_a - p_d_a).clamp(min=0.0)
+            rs = resid.sum(-1, keepdim=True)
+            final_dist = torch.where(rs > 0, torch.div(resid, rs.clamp(min=1e-20)), p_t_a)
+            final = prng.categorical(self._spec_keys(base + acc, 3), torch.log(final_dist))
+            offs = torch.arange(k + 1, device=self.device)[None, :]
+            d_ext = torch.cat([d_bt, final[:, None]], dim=1)
+            out = torch.where(offs < acc[:, None], d_ext, final[:, None])
+            new_cur = final
+        else:
+            tgt = torch.argmax(logits, dim=-1)  # [S, k+1]
+            acc = torch.cumprod((tgt[:, :k] == d_bt).long(), dim=1).sum(dim=1)
+            out, new_cur = tgt, tgt[rows, acc]
+        counts = torch.where(active, acc + 1, torch.zeros_like(acc))
+        new_len = pos + counts
+        if self.paged:
+            new_len = torch.minimum(new_len, self._limit)
+        pool.lengths = new_len
+        self._cur_tok = torch.where(active, new_cur, cur)
+        self._gen = self._gen + counts
+        return torch.cat([out, counts[:, None]], dim=1)
 
     def _decode_finish(self, state, emitted, finished) -> None:
-        """Read the block's tokens back (the tick's one sync) and emit them."""
-        active_now, toks = state
-        toks_host = toks.cpu().numpy()  # [block, slots]
-        for d in range(toks_host.shape[0]):
+        """Read the tick's tokens back (its one sync) and emit them. A
+        speculative cycle emits each slot's own run of accept count + 1
+        tokens; an eos or the budget inside the run drops the rest."""
+        kind, active_now, toks = state
+        toks_host = toks.cpu().numpy()
+        if kind == "spec":  # [slots, k + 2]: the tokens, then the count
+            counts = toks_host[:, -1]
+            slots = np.nonzero(active_now)[0]
+            self.metrics.record_speculation(
+                proposed=int(self.speculate_k * len(slots)),
+                accepted=int(np.maximum(counts[slots] - 1, 0).sum()))
+            self._slot_len[active_now] = np.minimum(
+                self._slot_len[active_now] + counts[active_now],
+                self._slot_limit[active_now] if self.paged else self.max_len)
+            for d in range(self.speculate_k + 1):
+                for slot in slots:
+                    req = self._slot_req[slot]
+                    if d >= counts[slot] or req is None:  # rejected, or retired
+                        continue
+                    self._emit(int(slot), req, int(toks_host[slot, d]), emitted, finished,
+                               first=False)
+            return
+        for d in range(toks_host.shape[0]):  # [block, slots]
             for slot in np.nonzero(active_now)[0]:
                 req = self._slot_req[slot]
                 if req is None:  # retired earlier in this block
                     continue
                 self._emit(int(slot), req, int(toks_host[d, slot]), emitted, finished,
                            first=False)
+
+    def _ensure_blocks(self, active_now, advance: int) -> None:
+        """Grow every active slot's pages to this tick's worst-case end
+        (``advance`` more positions, clamped at the write limit); the
+        reservation guarantees the supply. A slot still riding a shared COW
+        tail forks it first: its next write lands in that page."""
+        for slot in np.nonzero(active_now)[0]:
+            slot = int(slot)
+            if self._slot_cow[slot]:
+                self._fork_cow(slot)
+            self.pool.alloc_to(slot, min(self._slot_len[slot] + advance,
+                                         self._slot_limit[slot]))
+
+    def _fork_cow(self, slot: int) -> None:
+        """Fork the slot's adopted partial tail block before its first write
+        past ``cow_limit``: the pool gives the page a private block and the
+        card copies the one block; a fork the pool elides (the slot held
+        the last reference) only trims the tail index past the slot's own
+        extent, since its writes will replace that content."""
+        pool = self.pool
+        cow = int(self._slot_cow[slot])
+        page = cow // self.page_size
+        old = pool.fork_cow(slot, page)
+        if old is None:
+            if self.prefix_cache is not None:
+                self.prefix_cache.trim_tail(int(pool.page_table[slot, page]),
+                                            cow % self.page_size)
+            self.metrics.record_cow_fork(elided=True)
+        else:
+            new = int(pool.page_table[slot, page])
+            pool.k[:, new] = pool.k[:, old]
+            pool.v[:, new] = pool.v[:, old]
+            self.metrics.record_cow_fork(elided=False)
+        self._slot_cow[slot] = 0
+        tr = self.tracer
+        if tr.enabled:
+            tr.event("serve/cow_fork", cat="serving", tick=self._tick, slot=slot,
+                     elided=old is None, **self._obs_args)
 
     # -- lifecycle --------------------------------------------------------
 
@@ -583,6 +830,7 @@ class Engine:
         self.pool.release(slot)
         self._slot_len[slot] = 0
         self._slot_limit[slot] = 0
+        self._slot_cow[slot] = 0
 
     def preempt(self, request_id: int) -> bool:
         raise NotImplementedError(f"Engine.preempt waits for {ADMISSION_ITEM}")
@@ -614,8 +862,12 @@ class Engine:
         return min(b, self.max_len)
 
     def _admit_dispatch(self, reqs):
-        """Claim slots (and reserve and allocate blocks), then one ragged
-        prefill of the batch into them; the first tokens stay on the card."""
+        """Claim slots (on the paged pool: adopt shared prefix blocks,
+        reserve the unshared worst case, allocate the prompt's pages), then
+        one ragged prefill of the batch into them, of each prompt's
+        unshared tail only where a prefix matched; a speculative engine
+        prefills the draft's cache beside it. The first tokens stay on the
+        card."""
         tr = self.tracer
         now = tr.now() if tr.enabled else 0.0
         for r in reqs:
@@ -630,34 +882,40 @@ class Engine:
         assert len(slots) == len(reqs), "scheduler admitted beyond free slots"
         for slot, req in zip(slots, reqs):
             self._slot_req[slot] = req
-        lens_host = [r.prompt.size for r in reqs]
-        s0 = self._bucket_len(max(lens_host))
+        prefix = self.prefix_cache is not None
+        no_match = ([], None, 0)
+        matches = [self._pending_match.pop(r.request_id, no_match) if prefix else no_match
+                   for r in reqs]
+        # shared: the whole shared extent (full pages and a COW tail; it may
+        # be the whole prompt, whose redundant writes are dropped); start:
+        # where recomputing begins, leaving the last prompt token at least
+        shared = [len(full) * (self.page_size or 0) + tail_t for full, _, tail_t in matches]
+        starts = [min(sh, r.prompt.size - 1) for sh, r in zip(shared, reqs)]
+        tails = [r.prompt.size - st for r, st in zip(reqs, starts)]
+        s0 = self._bucket_len(max(tails))
         ids = np.zeros((len(reqs), s0), np.int64)
         for i, r in enumerate(reqs):
-            ids[i, s0 - r.prompt.size:] = r.prompt
+            ids[i, s0 - tails[i]:] = r.prompt[starts[i]:]
         dev = self.device
         ids_t = torch.as_tensor(ids).to(dev)
-        lens = torch.as_tensor(np.asarray(lens_host, np.int64)).to(dev)
+        lens = torch.as_tensor(np.asarray(tails, np.int64)).to(dev)
         slots_t = torch.as_tensor(np.asarray(slots, np.int64)).to(dev)
         keys = prng.key_data([r.rng_seed for r in reqs], dev)
+        full_ids, full_lens = ids_t, lens  # what the draft prefills: whole prompts
         pool = self.pool
         if self.paged:
-            s0_pages = -(-s0 // self.page_size)
-            page_rows = np.full((len(reqs), s0_pages), pool.num_blocks, np.int64)
-            limits = np.zeros((len(reqs),), np.int64)
-            for i, (slot, r) in enumerate(zip(slots, reqs)):
-                budget = r.prompt.size + r.max_new_tokens
-                pool.reserve(slot, budget)
-                pool.alloc_to(slot, r.prompt.size)
-                n = pool.blocks_for(r.prompt.size)
-                page_rows[i, :n] = pool.page_table[slot, :n]
-                limits[i] = budget
-                self._slot_len[slot] = r.prompt.size
-                self._slot_limit[slot] = budget
-            self._admit_shapes.add((len(reqs), s0, s0_pages))
-            _, _, logits = prefill_paged(self.params, self.cfg, ids_t, lens, pool.k, pool.v,
-                                         torch.as_tensor(page_rows).to(dev))
-            self._limit[slots_t] = torch.as_tensor(limits).to(dev)
+            logits, signature = self._admit_paged(reqs, slots, matches, shared, starts, s0,
+                                                  ids_t, lens)
+            if self.speculate_k and any(starts):
+                s0f = self._bucket_len(max(r.prompt.size for r in reqs))
+                signature += (s0f,)
+                full = np.zeros((len(reqs), s0f), np.int64)
+                for i, r in enumerate(reqs):
+                    full[i, s0f - r.prompt.size:] = r.prompt
+                full_ids = torch.as_tensor(full).to(dev)
+                full_lens = torch.as_tensor(np.asarray([r.prompt.size for r in reqs],
+                                                       np.int64)).to(dev)
+            self._admit_shapes.add(signature)
         else:
             for slot, r in zip(slots, reqs):
                 self._slot_len[slot] = r.prompt.size
@@ -665,19 +923,105 @@ class Engine:
             cache, logits = prefill(self.params, self.cfg, ids_t, self.max_len, lengths=lens)
             pool.k[:, slots_t] = cache.k.to(pool.k.dtype)
             pool.v[:, slots_t] = cache.v.to(pool.v.dtype)
+        if self.speculate_k:
+            dcache, _ = prefill(self.draft_params, self.draft_cfg, full_ids, self.max_len,
+                                lengths=full_lens)
+            self._draft_k[:, slots_t] = dcache.k.to(self._draft_k.dtype)
+            self._draft_v[:, slots_t] = dcache.v.to(self._draft_v.dtype)
         tok0 = sample_token(logits, keys, torch.zeros_like(lens), self.temperature,
                             self.top_k)
-        pool.lengths[slots_t] = lens
+        pool.lengths[slots_t] = torch.as_tensor(
+            np.asarray([r.prompt.size for r in reqs], np.int64)).to(dev)
         self._cur_tok[slots_t] = tok0
         self._gen[slots_t] = 1
         self._rngs[slots_t] = keys
-        for r in reqs:
-            self.metrics.record_admission(computed_tokens=r.prompt.size)
+        for i, r in enumerate(reqs):
+            # the hit-rate denominator counts only admissions that COULD
+            # hit: past one page, or (COW) past one token
+            eligible = prefix and (r.prompt.size > self.page_size
+                                   or (self.cow_tails and r.prompt.size > 1))
+            full_m, _, tail_t = matches[i]
+            n_shared = len(full_m) + (1 if tail_t else 0)
+            self.metrics.record_admission(computed_tokens=tails[i], skipped_tokens=starts[i],
+                                          shared_blocks=n_shared,
+                                          prefix_hit=(starts[i] > 0) if eligible else None)
             if tr.enabled:
                 tr.event("req/admit", cat="request", rid=r.request_id,
-                         computed_tokens=int(r.prompt.size), skipped_tokens=0,
-                         shared_blocks=0, **self._obs_args)
+                         computed_tokens=int(tails[i]), skipped_tokens=int(starts[i]),
+                         shared_blocks=int(n_shared), **self._obs_args)
         return reqs, slots, tok0
+
+    def _admit_paged(self, reqs, slots, matches, shared, starts, s0, ids_t, lens):
+        """The paged half of :meth:`_admit_dispatch`: page bookkeeping, the
+        prefill into the pool (plain, suffix or COW), the limits, and the
+        prefix index of the new pages. Returns the last-token logits and the
+        call's input-shape signature."""
+        pool, page_size, dev = self.pool, self.page_size, self.device
+        s0_pages = -(-s0 // page_size)
+        page_rows = np.full((len(reqs), s0_pages), pool.num_blocks, np.int64)
+        # the prefix gather reaches the batch's largest shared region (a COW
+        # tail is one more page), bucketed to powers of two
+        max_shared = max(len(full) + (1 if tail_t else 0) for full, _, tail_t in matches)
+        prefix_pages = 1
+        while prefix_pages < max_shared:
+            prefix_pages *= 2
+        prefix_pages = min(prefix_pages, pool.max_pages)
+        read_tables = np.full((len(reqs), prefix_pages), pool.num_blocks, np.int64)
+        write_tables = np.full((len(reqs), pool.max_pages), pool.num_blocks, np.int64)
+        limits = np.zeros((len(reqs),), np.int64)
+        for i, (slot, r) in enumerate(zip(slots, reqs)):
+            full_m, tail_b, tail_t = matches[i]
+            adopt = full_m + ([tail_b] if tail_t else [])
+            budget = r.prompt.size + r.max_new_tokens
+            # only FULL shared pages discount the reservation: an adopted
+            # COW tail's fork block is paid for up front
+            pool.reserve(slot, budget, shared_blocks=len(full_m))
+            if adopt:
+                pool.adopt_shared(slot, adopt)
+            if tail_t:
+                self._slot_cow[slot] = len(full_m) * page_size + tail_t
+                self.metrics.record_cow_adopt(tokens=tail_t)
+                if r.prompt.size > self._slot_cow[slot]:
+                    # the suffix prefill writes into the shared tail page
+                    # now; a fully shared prompt forks at its first decode
+                    self._fork_cow(slot)
+            pool.alloc_to(slot, r.prompt.size)
+            n = pool.blocks_for(r.prompt.size) - len(adopt)
+            page_rows[i, :n] = pool.page_table[slot, len(adopt):len(adopt) + n]
+            read_tables[i] = pool.page_table[slot, :prefix_pages]
+            write_tables[i] = pool.page_table[slot]
+            limits[i] = budget
+            self._slot_len[slot] = r.prompt.size
+            self._slot_limit[slot] = budget
+        if any(starts):
+            starts_t = torch.as_tensor(np.asarray(starts, np.int64)).to(dev)
+            read_t = torch.as_tensor(read_tables).to(dev)
+            signature = ("prefix", len(reqs), s0, prefix_pages)
+            if self.cow_tails:
+                _, _, logits = prefill_paged_cow(
+                    self.params, self.cfg, ids_t, lens, starts_t,
+                    torch.as_tensor(np.asarray(shared, np.int64)).to(dev), pool.k, pool.v,
+                    read_t, torch.as_tensor(write_tables).to(dev))
+            else:
+                _, _, logits = prefill_paged(self.params, self.cfg, ids_t, lens, pool.k, pool.v,
+                                             torch.as_tensor(page_rows).to(dev),
+                                             start_lens=starts_t, read_tables=read_t)
+        else:
+            # an all-miss batch (or prefix off): no prefix to gather
+            signature = (len(reqs), s0, s0_pages)
+            _, _, logits = prefill_paged(self.params, self.cfg, ids_t, lens, pool.k, pool.v,
+                                         torch.as_tensor(page_rows).to(dev))
+        self._limit[torch.as_tensor(np.asarray(slots, np.int64)).to(dev)] = \
+            torch.as_tensor(limits).to(dev)
+        if self.prefix_cache is not None:
+            # index the batch's new pages for LATER admissions (after the
+            # prefill, so no lookup in this batch could name them)
+            for slot, r in zip(slots, reqs):
+                full = r.prompt.size // page_size
+                self.prefix_cache.insert(r.prompt, [int(b) for b in pool.page_table[slot, :full]])
+                if self.cow_tails and r.prompt.size % page_size:
+                    self.prefix_cache.insert_tail(r.prompt, int(pool.page_table[slot, full]))
+        return logits, signature
 
     def _admit_finish(self, state, emitted, finished, admitted) -> None:
         """Read the batch's first tokens back, activate the slots, emit."""
@@ -713,9 +1057,12 @@ class Engine:
                         tokens=len(out), **self._obs_args)
 
 
-def _tree_to(tree, device):
+def _tree_to(tree, device, moved: Dict[int, torch.Tensor]):
     """Every tensor of a nested dict on ``device`` (no copy when it is
-    there already)."""
+    there already); a tensor already in ``moved`` (by identity) is not
+    copied twice, so a draft carved from the target shares its copies."""
     if isinstance(tree, dict):
-        return {key: _tree_to(child, device) for key, child in tree.items()}
-    return tree.to(device)
+        return {key: _tree_to(child, device, moved) for key, child in tree.items()}
+    if id(tree) not in moved:
+        moved[id(tree)] = tree.to(device)
+    return moved[id(tree)]

@@ -198,6 +198,24 @@ class ServingServer:
             out["free_kv_blocks"] = pool.free_blocks
             out["num_kv_blocks"] = pool.num_blocks
             out["kv_token_capacity"] = pool.token_capacity
+        m = engine.metrics
+        if engine.prefix_cache is not None:
+            # live sharing and the prefill the prefix cache saved so far
+            out["prefix"] = {
+                "indexed_chunks": len(engine.prefix_cache),
+                "shared_kv_blocks": pool.shared_blocks,
+                "prefix_hit_rate": m.prefix_hit_rate(),
+                "blocks_saved": m.blocks_saved,
+                "prefill_tokens_skipped": m.prefill_tokens_skipped,
+            }
+            if engine.cow_tails:
+                out["prefix"]["cow"] = {
+                    "adoptions": m.cow_adoptions,
+                    "tokens_shared": m.cow_tokens_shared,
+                    "forks": m.cow_forks,
+                    "forks_elided": m.cow_forks_elided,
+                    "resume_prefill_tokens_saved": m.resume_prefill_tokens_saved,
+                }
         out["memory"] = engine.memory_stats()
         return out
 
@@ -209,7 +227,10 @@ class ServingServer:
 
     def cancel(self, request_id: int) -> bool:
         """Thread-safe cancel of a queued or running request: its handle
-        finishes "cancelled" with the tokens already streamed."""
+        finishes "cancelled" with the tokens already streamed. It runs under
+        the engine lock, between ticks: a running request's private blocks
+        and reservation come back at once, and the prefix blocks it shares
+        stay alive for their other users."""
         with self._lock:
             ok = self._engine.cancel(request_id)
             if ok:

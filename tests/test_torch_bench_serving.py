@@ -5,7 +5,8 @@ Its default legs (serial, engine closed-load, the offered-load sweep) and
 every key of JAX's committed ``BENCH_serving.json`` and ``BENCH_paged.json``
 (the structure JAX's slow-lane ``test_bench_serving_fast_sweep`` and
 ``test_bench_paged_fast`` check), plus the port's TTFT on the tick clock
-and KV bytes per token in flight. ``--prefix`` and ``--mesh`` raise; without
+and KV bytes per token in flight. ``--prefix`` runs (the keys of JAX's
+``BENCH_prefix.json``, and its acceptance passes); ``--mesh`` raises; without
 ``--device cpu`` it raises here, where there is no card.
 """
 
@@ -70,7 +71,20 @@ def test_paged_legs_at_fast_shapes(capsys):
 
 
 @pytest.mark.parametrize("flag", ["--prefix", "--mesh"])
-def test_later_comparisons_raise(flag):
+def test_later_comparisons_raise(flag, capsys):
+    """``--mesh`` waits for item 5i; ``--prefix`` has landed and runs."""
+    if flag == "--prefix":
+        result = bench_serving.main([flag, "--fast", "--device", "cpu"])
+        _keys_cover(result, json.loads((REPO / "BENCH_prefix.json").read_text()))
+        assert [leg["leg"] for leg in _legs(capsys)] == ["prefix off", "prefix on"]
+        assert result["acceptance"]["passed"], result
+        assert result["prefill_reduction"] >= 2.0 and result["kv_bytes_per_token_ratio"] <= 0.7
+        on, off = result["on"], result["off"]
+        assert on["decode_programs"] == off["decode_programs"] == 1
+        assert on["prefill_programs"] <= off["prefill_programs"] + 2
+        assert on["prefix_hit_rate"] > 0 and on["blocks_saved"] > 0 and off["blocks_saved"] == 0
+        assert on["kv_pool_bytes"] == off["kv_pool_bytes"]
+        return
     with pytest.raises(NotImplementedError, match="item 5i"):
         bench_serving.main([flag, "--fast", "--device", "cpu"])
 

@@ -9,8 +9,8 @@ carried into the port's ``GPTLM`` and read back as the decode tree
   logits and the K/V they write within 1e-5 at per-row positions, with an
   inactive row, a full row and a row at its write limit.
 - The paged pool's sentinel: a dropped write changes no real block, and a
-  read through a sentinel page is masked (garbage in the trash block moves
-  no logit). ``gather_blocks``/``scatter_blocks`` are exact, out-of-range
+  read through a sentinel page reads the last real block, as JAX's clamped
+  gather does (garbage in the trash block moves no logit). ``gather_blocks``/``scatter_blocks`` are exact, out-of-range
   ids included (clamped reads, dropped writes).
 - ``generate_cached`` greedy, ``top_k=1`` and sampled at temperature 0.8
   (with and without ``top_k``) token for token with JAX's under the same
@@ -20,7 +20,9 @@ carried into the port's ``GPTLM`` and read back as the decode tree
   the bytes per token, a run to completion, the manifest); here the decode
   logits from a bfloat16 cache are also held to JAX's from its bfloat16
   cache within BF16_TOL.
-- The functions of later items raise ``NotImplementedError`` naming them.
+- The functions of later items raise ``NotImplementedError`` naming them;
+  those of items that have landed since (5b, 5c) run, each held to JAX in
+  ``tests/test_torch_prefix_decode.py``.
 """
 
 import importlib
@@ -164,8 +166,8 @@ def test_decode_step_paged_matches_jax(lm):
                                                   torch.tensor(limit, dtype=torch.int64))
         # row 2 writes into a sentinel page (the engine never lets a slot
         # do so): JAX drops the write and reads a clamped real block there,
-        # the port reads the trash block; only its logits differ
-        _close(tl[:2], np.asarray(jl)[:2])
+        # and so does the port (its write lands in the trash block)
+        _close(tl, jl)
         _close(tk[:, :6], jk)
         _close(tv[:, :6], jv)
         np.testing.assert_array_equal(tlen.numpy(), np.asarray(jlen))
@@ -187,7 +189,7 @@ def test_sentinel_write_dropped_and_read_masked(lm):
     changed = (tk[:, :6] != torch.tensor(pool_k)).any(dim=(0, 2, 3, 4))
     assert changed.tolist() == [False] * 5 + [True]  # row 1's position 9: page 2, block 5
     assert (tk[:, 6] != 0).any()  # row 2's write went to the trash block
-    # garbage in the trash block (where sentinel pages read) moves no logit
+    # garbage in the trash block (dropped writes land there, no read does) moves no logit
     ga, gv = _torch_pool(pool_k, trash=1e3), _torch_pool(pool_v, trash=-1e3)
     _, _, _, garbage = tdec.decode_step_paged(tree, tcfg, ga, gv, ttable, tlen, tok, active)
     assert torch.equal(garbage[:2], logits[:2])
@@ -293,18 +295,22 @@ def test_cache_dtype_bf16(lm):
 
 
 def test_later_items_raise(lm):
+    """The calls of items 5b and 5c now run; int8 (5e) still raises."""
     _, _, tcfg, _, tree = lm
-    calls = ((lambda: tdec.verify_step_ragged(tree, tcfg, None, None), "5c"),
-             (lambda: tdec.verify_step_paged(tree, tcfg, None, None, None, None, None), "5c"),
-             (lambda: tdec.truncate_draft_params(tree, tcfg, 1), "5c"),
-             (lambda: tdec.prefill_paged_cow(tree, tcfg), "5b"))
-    for call, item in calls:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            call()
+    tok = torch.tensor([[3, 4, 5]])
+    cache = tdec.init_cache(tcfg, 1, 8)
+    cache = tdec.DecodeCache(cache.k, cache.v, torch.tensor([2]))
+    assert tdec.verify_step_ragged(tree, tcfg, cache, tok)[1].shape == (1, 3, 96)
     k, v = tdec.init_paged_pool(tcfg, 4, 4)
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        tdec.prefill_paged(tree, tcfg, np.ones((1, 4), np.int32), [4], k, v, [[0]],
-                           start_lens=[0])
+    table = torch.tensor([[0, 1]])
+    assert tdec.verify_step_paged(tree, tcfg, k, v, table, torch.tensor([2]), tok)[2].shape \
+        == (1, 3, 96)
+    assert tdec.truncate_draft_params(tree, tcfg, 1)[1].num_layers == 1
+    ids = np.ones((1, 4), np.int32)
+    _, _, logits = tdec.prefill_paged(tree, tcfg, ids, [4], k, v, [[2]], start_lens=[4],
+                                      read_tables=[[0]])
+    _, _, cow = tdec.prefill_paged_cow(tree, tcfg, ids, [4], [4], [4], k, v, [[0]], [[0, 2]])
+    assert torch.equal(logits, cow)
     with pytest.raises(NotImplementedError, match="item 5e"):
         tdec.init_paged_pool(tcfg, 4, 4, cache_dtype=torch.int8)
     with pytest.raises(ValueError, match="paged pool layout"):  # JAX's refusal

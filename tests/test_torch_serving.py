@@ -17,7 +17,9 @@ port and, where the case has numbers, on JAX beside it:
 - the threaded server: streaming, timeouts, stop, rejection, cancel,
   stats;
 - every knob and method of a later ROADMAP.md item raises
-  ``NotImplementedError`` naming it; an engine without a card raises.
+  ``NotImplementedError`` naming it; those of items that have landed since
+  (prefix sharing, 5b; speculation, 5c) work instead; an engine without a
+  card raises.
 
 JAX's cases with no counterpart: the fault-recovery and requeue cases
 (``test_paged_engine_recovers_from_tick_fault``; ``Engine.recover`` waits
@@ -44,6 +46,7 @@ from gradaccum_tpu_torch.serving import (
     CachePool,
     Engine,
     PagedCachePool,
+    PrefixCache,
     QueueFull,
     Request,
     Scheduler,
@@ -509,9 +512,25 @@ def test_profile_window_writes_a_trace(tmp_path, lm):
 # -- later items refuse -------------------------------------------------------
 
 
+def _landed_engine(lm, kw):
+    """An engine with a knob of a landed item: it serves a request as
+    ``generate_cached`` does."""
+    _, _, tcfg, _, tree = lm
+    if kw.get("speculate_k"):
+        draft, draft_cfg = tdec.truncate_draft_params(tree, tcfg, 1)
+        kw = dict(kw, draft_params=draft, draft_cfg=draft_cfg)
+    engine = _engine(lm, num_slots=2, max_len=16, **kw)
+    prompt = np.arange(1, 7, dtype=np.int32)
+    rid = engine.submit(prompt, 5)
+    engine.run_until_idle()
+    assert engine.pop_result(rid) == (_solo(lm, prompt, 5), "done")
+    return engine
+
+
+# None: the item has landed, and the knob works
 REFUSED = {
-    "prefix_cache": (dict(page_size=4, prefix_cache=True), "5b"),
-    "speculate_k": (dict(speculate_k=2), "5c"),
+    "prefix_cache": (dict(page_size=4, prefix_cache=True), None),
+    "speculate_k": (dict(speculate_k=2), None),
     "overlap_prefill": (dict(overlap_prefill=True), "5d"),
     "admission": (dict(page_size=4, admission="quantile"), "5d"),
     "swap": (dict(swap="recompute"), "5d"),
@@ -525,6 +544,10 @@ REFUSED = {
 @pytest.mark.parametrize("knob", sorted(REFUSED))
 def test_engine_knobs_of_later_items_raise(lm, knob):
     kw, item = REFUSED[knob]
+    if item is None:
+        engine = _landed_engine(lm, kw)
+        assert engine.manifest()[knob] == kw[knob]
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         _engine(lm, num_slots=2, max_len=16, **kw)
 
@@ -539,16 +562,51 @@ def test_engine_knobs_of_later_items_raise(lm, knob):
     (lambda e, s: ServingServer(e, slo=object()), "5f"),
     (lambda e, s: ServingServer(e, telemetry_port=0), "5f"),
     (lambda e, s: ServingServer(e, free_running=True), "5g"),
-    (lambda e, s: PagedCachePool(e.cfg, 1, 8, 4, 2, prefix_cache=object()), "5b"),
-    (lambda e, s: e.pool.fork_cow(0, 0), "5b"),
+    (lambda e, s: _prefix_pool_matches(e), None),
+    (lambda e, s: _fork_cow_copies(e), None),
 ], ids=["preempt", "reconfigure", "recover", "request_recover", "request_reconfig",
         "server_reconfigure", "watchdog", "healer", "sentinel", "slo", "telemetry",
         "free_running", "prefix_pool", "fork_cow"])
 def test_methods_of_later_items_raise(lm, call, item):
+    """Item None: the item has landed, and the call works."""
     engine = _engine(lm, num_slots=1, max_len=8, page_size=4)
     server = ServingServer(engine)
+    if item is None:
+        call(engine, server)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         call(engine, server)
+
+
+def _prefix_pool_matches(engine):
+    """A pool with a prefix cache indexes a written prompt's pages and a
+    later prompt sharing them matches, as JAX's pool does."""
+    cache = PrefixCache(4)
+    pool = PagedCachePool(engine.cfg, 2, 16, 4, 6, prefix_cache=cache)
+    prompt = np.arange(10, dtype=np.int32)
+    a = pool.claim()
+    pool.reserve(a, 12)
+    pool.alloc_to(a, 10)
+    cache.insert(prompt, pool.blocks_of(a)[:2])
+    assert cache.match(np.concatenate([prompt[:8], [50, 51]])) == pool.blocks_of(a)[:2]
+    pool.release(a)  # the blocks free, and the index forgets them
+    assert cache.match(prompt) == [] and len(cache) == 0
+
+
+def _fork_cow_copies(engine):
+    """``fork_cow`` gives an adopted block's page a private block while a
+    sharer lives, and elides the fork for the last reference."""
+    pool = PagedCachePool(engine.cfg, 2, 16, 4, 6)
+    a, b = pool.claim(), pool.claim()
+    pool.reserve(a, 8)
+    pool.alloc_to(a, 8)
+    pool.reserve(b, 8, shared_blocks=1)
+    pool.adopt_shared(b, pool.blocks_of(a))
+    old = pool.blocks_of(a)[1]
+    assert pool.fork_cow(b, 1) == old and pool.blocks_of(b)[1] != old
+    assert pool.refcount(old) == 1 and pool.shared_blocks == 1
+    pool.release(a)
+    assert pool.fork_cow(b, 0) is None and pool.owner_of(pool.blocks_of(b)[0]) == b
 
 
 def test_engine_defaults_to_the_card(lm):
