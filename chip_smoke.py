@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one NVIDIA H100.
 
-    python3 chip_smoke.py     # one card, about eleven minutes
+    python3 chip_smoke.py     # one card, about twelve minutes
 
 Phases, each of which fails the run if it fails:
 
@@ -273,6 +273,30 @@ Phases, each of which fails the run if it fails:
     process of its own (``--spec-profile``): launches per cycle split into
     the draft's steps, its sampling, the verify step and the accept rule,
     card-busy ms per cycle and the idle share. No flash kernel launches.
+
+26. admission control, preemption and swap, int8 KV and overlapped
+    prefill, the same GPT-Small model, every tensor on the card. (a)
+    ``bench_admission``'s long-tail trace (28 requests declaring 20 new, 8
+    slots, 16 blocks of 4) through reserve, quantile and optimistic: every
+    stream against ``generate_cached`` under the near-tie rule, a real
+    preemption in the optimistic leg, and the best overcommitting leg at
+    1.5x reserve or more on requests per 1k ticks or peak concurrency
+    (JAX's acceptance); per leg those, the preemptions, swap-outs,
+    swap-ins, re-prefills and wall tokens/s. (b) 8 requests admitted at
+    once into a pool their decode runs dry, one also preempted by
+    ``Engine.preempt``, under host, recompute and tiered swap (a host rung
+    of 4 pages, so records reach disk): host and tiered streams equal the
+    calm run's token for token, re-prefilled ones under the near-tie rule;
+    a rotted record falls back once; the ms and MiB/s of a swap-out and a
+    swap-in of one 256-position request beside the ms of re-prefilling it.
+    (c) ``kv_quantize`` on the card bitwise its CPU run; the int8 engine
+    churned through the tiered store equals a calm int8 engine token for
+    token; int8 against float32 agreement (recorded) and KV bytes per
+    position; ``bench_mem``'s KV ladder to JAX's acceptance. (d) phase 24's
+    trace with ``overlap_prefill`` on and off, identical streams; ms and
+    card-busy ms per tick and the idle share of both over 4 profiled ticks
+    (``--overlap-profile``, a process of its own). (e) No flash kernel
+    launches.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON line describing every kernel in each dtype (bfloat16: launches
@@ -4420,6 +4444,358 @@ def phase_prefix_spec(serving):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# phase 26: admission control, preemption and swap, int8 KV, overlapped prefill
+# --------------------------------------------------------------------------
+
+# (b)/(c): 8 requests submitted at once; prompts 48-112, 96 new. Optimistic
+# admission takes all 8 at tick 0 in 64 blocks of 16 (their asks: the prompt
+# and one page), whose worst case needs ~88: decode runs the pool dry. The
+# calm run reserves the worst case in 128 blocks and admits the same batch
+SWAP_TRACE = dict(n=8, prompt=(48, 112), new=96)
+SWAP_ENGINE = dict(num_slots=8, max_len=256, page_size=16, decode_block=4)
+SWAP_BLOCKS, CALM_BLOCKS = 64, 128
+SWAP_PREEMPT_TICK = 2          # the forced preemption: the lowest running id
+TIER_HOST_PAGES = 4  # the tiered host rung holds 4 pages: most records go to disk
+SWAP_COST_LEN = (192, 64)      # (prompt, generated) of the swap-cost request
+OVERLAP_PROFILE_TICKS = 4
+
+
+def _admission_legs(params, cfg):
+    """(a): bench_admission's long-tail trace (its full config: 28 requests
+    declaring 20 new, 8 slots, 16 blocks of 4) through reserve, quantile and
+    optimistic at GPT-Small width; every stream against its
+    generate_cached greedy stream on the card under the near-tie rule; the
+    bench's acceptance."""
+    from gradaccum_tpu_torch.examples import bench_admission
+
+    items = bench_admission.make_workload(params, cfg, 28, bench_admission.DECLARED_NEW, 7)
+    cases, legs = [], []
+    for admission in bench_admission.policies():
+        leg, streams = bench_admission.run_leg(params, cfg, items, admission,
+                                               **bench_admission.shapes(False))
+        for i, (it, got) in enumerate(zip(items, streams)):
+            _near_tie_check(f"(a) {leg['admission']} request {i}", params, cfg, it["prompt"],
+                            got, it["want"], cases)
+        leg["parity_ok"] = True  # held above, under the near-tie rule
+        legs.append(leg)
+        print(f"[admission] (a) {leg['admission']}: {leg['requests_per_1k_ticks']} requests "
+              f"per 1k ticks, peak concurrency {leg['peak_concurrency']}, "
+              f"{leg['preemptions']} preemptions, {leg['swap_outs']} swap-outs, "
+              f"{leg['swap_ins']} swap-ins, {leg['reprefills']} re-prefills, "
+              f"{leg['ticks_to_drain']} ticks, {leg['tokens_per_s']:.1f} tokens/s wall")
+    acc = bench_admission.acceptance(legs)
+    check(acc["passed"], f"[admission] (a) JAX's acceptance failed: {acc} {legs}")
+    print(f"[admission] (a) best overcommitting leg against reserve: "
+          f"{acc['admitted_rate_x']:.3f}x requests per 1k ticks, "
+          f"{acc['peak_concurrency_x']:.3f}x peak concurrency; {len(cases)} near ties; "
+          f"acceptance passed")
+
+
+def _swap_prompts(cfg):
+    import numpy as np
+
+    rng = np.random.default_rng(SERVE_SEED + 26)
+    lo, hi = SWAP_TRACE["prompt"]
+    return [rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi + 1))).astype(np.int32)
+            for _ in range(SWAP_TRACE["n"])]
+
+
+def _tier_host_bytes(cfg, int8=False):
+    """TIER_HOST_PAGES pages of K/V at the pool's storage layout."""
+    per_position = 2 * cfg.num_layers * (cfg.hidden_size + cfg.num_heads * 4 if int8
+                                         else cfg.hidden_size * 4)
+    return TIER_HOST_PAGES * SWAP_ENGINE["page_size"] * per_position
+
+
+def _swap_run(params, cfg, prompts, num_blocks, force=True, rot=False, **kw):
+    """All of ``prompts`` submitted at tick 0, run to idle; at
+    SWAP_PREEMPT_TICK the running request of the lowest id is preempted
+    (its host record rotted by one element if ``rot``). Returns the streams
+    and the engine."""
+    from gradaccum_tpu_torch.serving import Engine
+
+    engine = Engine(params, cfg, num_blocks=num_blocks, **SWAP_ENGINE, **kw)
+    rids = [engine.submit(p, SWAP_TRACE["new"]) for p in prompts]
+    while not engine.idle:
+        engine.step()
+        if force and engine.tick_count == SWAP_PREEMPT_TICK:
+            running = [r for r in rids if engine.status[r] == "running"]
+            check(running and engine.preempt(running[0]),
+                  "[admission] the forced preemption found no running request")
+            if rot:
+                check(engine._swap_store is not None and running[0] in engine._swap_store,
+                      "[admission] the forced preemption left no record to rot")
+                engine._swap_store._recs[running[0]].arrays["k"].flat[0] += 1.0
+        check(engine.tick_count < 2000, "[admission] a swap run did not drain")
+    check(all(engine.status[r] == "done" for r in rids), "[admission] a request did not finish")
+    pool = engine.pool
+    check(pool.allocated_blocks == 0 and pool.unreserved_blocks == pool.num_blocks,
+          f"[admission] the pool kept {pool.allocated_blocks} blocks")
+    return [list(engine.results[r]) for r in rids], engine
+
+
+def _swap_costs(params, cfg):
+    """(b) the recompute-against-memory trade: one request (prompt 192, 64
+    generated, 256 positions) preempted and resumed in an otherwise idle
+    engine, three times per mode: the ms and MB/s of the swap-out (read
+    back, sha256, store) and the swap-in (sha check, upload, scatter, the
+    slot's state), and the ms of re-prefilling the same 256 positions."""
+    import numpy as np
+    import torch
+
+    from gradaccum_tpu_torch.serving import Engine
+
+    prompt_len, generated = SWAP_COST_LEN
+    prompt = np.random.default_rng(SERVE_SEED + 27).integers(
+        0, cfg.vocab_size, prompt_len).astype(np.int32)
+    out = {}
+    for swap in ("host", "recompute"):
+        engine = Engine(params, cfg, num_slots=1, max_len=512, page_size=16, decode_block=8,
+                        admission="quantile", swap=swap)
+        rid = engine.submit(prompt, 256)
+        while len(engine.results[rid]) < generated:
+            engine.step()
+        length = int(engine._slot_len[0])
+        outs, ins = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.preempt(rid)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            check(engine._try_resume() == [rid], f"[admission] (b) {swap}: no resume")
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            outs.append(t1 - t0)
+            ins.append(t2 - t1)
+        m = engine.metrics
+        check(m.preemptions == 3 and (m.swap_ins if swap == "host" else m.reprefills) == 3,
+              f"[admission] (b) {swap}: {m.swap_ins} swap-ins, {m.reprefills} re-prefills")
+        out[swap] = (float(np.median(outs)), float(np.median(ins)),
+                     m.swap_bytes_out / 3, length)
+        engine.cancel(rid)
+    host_out, host_in, nbytes, length = out["host"]
+    re_out, re_in, _, _ = out["recompute"]
+    mb = nbytes / 2 ** 20
+    print(f"[admission] (b) swap cost of one request ({length} positions, {mb:.2f} MiB of "
+          f"K/V): swap-out {host_out * 1e3:.2f} ms ({mb / host_out:.1f} MiB/s), swap-in "
+          f"{host_in * 1e3:.2f} ms ({mb / host_in:.1f} MiB/s); recompute: park "
+          f"{re_out * 1e3:.2f} ms, re-prefill {re_in * 1e3:.2f} ms (median of 3)")
+
+
+def _swap_legs(params, cfg):
+    """(b): preemption by pool pressure and by preempt() under host,
+    recompute and tiered swap (its host rung smaller than most records),
+    against the calm run of the same batch; a rotted record falls back."""
+    from gradaccum_tpu_torch.models.gpt_decode import generate_cached
+
+    prompts = _swap_prompts(cfg)
+    n = SWAP_TRACE["new"]
+    wants = [generate_cached(params, cfg, p, n)[0, p.size:].tolist() for p in prompts]
+    calm, engine = _swap_run(params, cfg, prompts, CALM_BLOCKS, force=False)
+    check(engine.metrics.preemptions == 0, "[admission] (b) the calm run preempted")
+    calm_ticks = engine.metrics.ticks
+    cases, runs = [], {}
+    for mode, kw in (("host", dict(swap="host")), ("recompute", dict(swap="recompute")),
+                     ("tiered", dict(swap="tiered", swap_max_bytes=_tier_host_bytes(cfg))),
+                     ("host, rotted", dict(swap="host", rot=True))):
+        streams, engine = _swap_run(params, cfg, prompts, SWAP_BLOCKS,
+                                    admission="optimistic", **kw)
+        runs[mode] = streams
+        for i, (p, got, want) in enumerate(zip(prompts, streams, wants)):
+            _near_tie_check(f"(b) {mode} request {i}", params, cfg, p, got, want, cases)
+        m = engine.metrics
+        check(m.preemptions >= 2, f"[admission] (b) {mode}: {m.preemptions} preemptions")
+        tiers = ""
+        if mode == "tiered":
+            st = engine._swap_store.stats()
+            check(st["demotions"] >= 1 and st["promotions"] >= 1,
+                  f"[admission] (b) tiered: no record reached disk: {st}")
+            tiers = f", {st['demotions']} demotions, {st['promotions']} promotions"
+        if mode == "host, rotted":
+            check(m.swap_fallbacks == 1, f"[admission] (b) rotted: {m.swap_fallbacks} "
+                                         "swap fallbacks")
+        else:
+            check(m.swap_fallbacks == 0, f"[admission] (b) {mode}: {m.swap_fallbacks} "
+                                         "swap fallbacks")
+        print(f"[admission] (b) {mode}: {m.preemptions} preemptions ({m.swap_outs} swapped "
+              f"out, {m.swap_bytes_out / 2 ** 20:.2f} MiB), {m.swap_ins} swap-ins, "
+              f"{m.reprefills} re-prefills, {m.swap_fallbacks} swap fallbacks{tiers}; "
+              f"{m.ticks} ticks against the calm run's {calm_ticks}")
+    # swap-in restores the exact bytes, and every run admitted the same
+    # batch at tick 0: the swapped streams are the calm run's, bit for bit
+    check(runs["host"] == calm and runs["tiered"] == calm,
+          "[admission] (b) a swap-in stream differs from the calm run's")
+    same = sum(a == b for a, b in zip(runs["recompute"], calm))
+    print(f"[admission] (b) host and tiered streams equal the calm run's token for token; "
+          f"re-prefill streams equal it in {same} of {len(calm)}; {len(cases)} near ties "
+          f"against generate_cached")
+    _swap_costs(params, cfg)
+    return calm
+
+
+def _int8_legs(params, cfg, calm_f32):
+    """(c): kv_quantize on the card bitwise its CPU run; an int8 engine
+    churned by pressure and preempt() through the tiered store equals a calm
+    int8 engine token for token; int8 against float32 agreement (recorded);
+    KV bytes per token in flight; bench_mem's KV ladder."""
+    import numpy as np
+    import torch
+
+    from gradaccum_tpu_torch.examples import bench_mem
+    from gradaccum_tpu_torch.memory.quant import kv_quantize
+
+    x = torch.randn(4, 8, 8, 16, 64, generator=torch.Generator().manual_seed(26)) * 3
+    x[0, 0, 0, 0] = 0
+    x[0, 0, 0, 1] = torch.finfo(torch.float32).max
+    x[0, 0, 0, 2] = -torch.finfo(torch.float32).max
+    q_card, s_card = kv_quantize(x.cuda())
+    q_cpu, s_cpu = kv_quantize(x)
+    check(torch.equal(q_card.cpu(), q_cpu)
+          and torch.equal(s_card.cpu().view(torch.int32), s_cpu.view(torch.int32)),
+          "[admission] (c) kv_quantize on the card differs from its CPU run")
+    prompts = _swap_prompts(cfg)
+    calm, calm_engine = _swap_run(params, cfg, prompts, CALM_BLOCKS, force=False,
+                                  cache_dtype=torch.int8)
+    churned, engine = _swap_run(params, cfg, prompts, SWAP_BLOCKS, admission="optimistic",
+                                swap="tiered", swap_max_bytes=_tier_host_bytes(cfg, int8=True),
+                                cache_dtype=torch.int8)
+    m, st = engine.metrics, engine._swap_store.stats()
+    check(m.preemptions >= 2 and m.swap_ins >= 1 and m.swap_fallbacks == 0
+          and st["demotions"] >= 1 and st["promotions"] >= 1,
+          f"[admission] (c) the int8 churn missed the ladder: {m.preemptions} preemptions, "
+          f"{m.swap_ins} swap-ins, {st}")
+    check(churned == calm, "[admission] (c) the churned int8 engine differs from the calm one")
+    agree = [next((i for i, (a, b) in enumerate(zip(s, f)) if a != b), len(s)) / len(s)
+             for s, f in zip(calm, calm_f32)]
+    exact = sum(s == f for s, f in zip(calm, calm_f32))
+    kv8 = calm_engine.metrics.summary()["kv_bytes_per_token_in_flight"]
+    f32_bytes = 2 * cfg.num_layers * cfg.hidden_size * 4
+    print(f"[admission] (c) kv_quantize on the card bitwise its CPU run; int8 churn: "
+          f"{m.preemptions} preemptions, {m.swap_ins} swap-ins, {st['demotions']} demotions, "
+          f"{st['promotions']} promotions: token for token with the calm int8 engine")
+    print(f"[admission] (c) int8 against float32 greedy: {exact} of {len(calm)} streams equal, "
+          f"{float(np.mean(agree)):.3f} of tokens before the first difference (recorded, not "
+          f"gated); KV {calm_engine._token_bytes} B per position against float32's "
+          f"{f32_bytes} ({calm_engine._token_bytes / f32_bytes:.4f}); {kv8:.0f} B per token in "
+          f"flight")
+    rows = bench_mem.kv_ladder("cuda")
+    ladder, passed = bench_mem.kv_verdict(rows)
+    bf, i8 = rows
+    check(passed, f"[admission] (c) bench_mem's KV ladder failed its acceptance: {rows}")
+    print(f"[admission] (c) bench_mem KV ladder: bf16+host {bf['streams_resumable_after_drain']}"
+          f" resumable, {bf['ram_bytes_per_resumable_stream']:.1f} RAM B/stream; int8+tiered "
+          f"{i8['streams_resumable_after_drain']} resumable, "
+          f"{i8['ram_bytes_per_resumable_stream']:.1f}: {ladder:.3f}x; parity with the calm "
+          f"runs; acceptance passed")
+
+
+def _overlap_legs(params, cfg, trace, wants):
+    """(d): phase 24's trace through the paged engine with overlap_prefill
+    on and off: identical streams, each against generate_cached."""
+    from gradaccum_tpu_torch.serving import Engine, Scheduler, SimulationDriver
+
+    got, cases = {}, []
+    for overlap in (False, True):
+        engine = Engine(params, cfg, num_slots=32, max_len=512, page_size=16, num_blocks=256,
+                        decode_block=8, overlap_prefill=overlap,
+                        scheduler=Scheduler(max_queue=64))
+        t0 = time.perf_counter()
+        records = SimulationDriver(engine, seed=SERVE_SEED).run(trace)
+        wall = time.perf_counter() - t0
+        check(all(r["status"] == "done" for r in records),
+              f"[admission] (d) overlap {overlap}: a request did not finish")
+        got[overlap] = [r["tokens"] for r in records]
+        print(f"[admission] (d) phase 24's trace, overlap_prefill={overlap}: "
+              f"{engine.metrics.ticks} ticks, {wall * 1e3 / engine.metrics.ticks:.2f} ms/tick "
+              f"wall, {sum(map(len, got[overlap])) / wall:.1f} tokens/s")
+    check(got[True] == got[False], "[admission] (d) overlap changed a stream")
+    for item, toks, want in zip(trace, got[True], wants):
+        _near_tie_check(f"(d) request {item.rng_seed}", params, cfg, item.prompt, toks, want,
+                        cases)
+    print(f"[admission] (d) overlap on and off: identical streams; {len(cases)} near ties "
+          f"against generate_cached")
+
+
+def _overlap_profile(params, cfg):
+    """(d): a profiler window over OVERLAP_PROFILE_TICKS ticks, overlap off
+    and on: 7 slots decoding and one 128-token admission a tick (one new
+    token, so it retires at its readback): wall and card-busy ms per tick,
+    the idle share."""
+    import numpy as np
+
+    from gradaccum_tpu_torch.serving import Engine
+
+    rng = np.random.default_rng(SERVE_SEED + 4)
+    long_prompts = [rng.integers(0, cfg.vocab_size, 128).astype(np.int32) for _ in range(7)]
+    short = [rng.integers(0, cfg.vocab_size, 128).astype(np.int32)
+             for _ in range(OVERLAP_PROFILE_TICKS + 1)]
+    for overlap in (False, True):
+        engine = Engine(params, cfg, num_slots=8, max_len=512, page_size=16, decode_block=8,
+                        overlap_prefill=overlap)
+        for p in long_prompts:
+            engine.submit(p, 300)
+        engine.step()  # admits the 7
+        engine.submit(short[-1], 1)
+        engine.step()  # one warm tick with an admission
+
+        def window():
+            for p in short[:OVERLAP_PROFILE_TICKS]:
+                engine.submit(p, 1)
+                engine.step()
+
+        events, wall = _device_events(window)
+        busy = sum(t for _, t, _ in events) / 1e6
+        if busy == 0:
+            raise SmokeError("[admission] (d) the profiler saw no device time")
+        print(f"[admission] (d) profile, overlap_prefill={overlap}, {OVERLAP_PROFILE_TICKS} "
+              f"ticks of 8 micro-steps, 7 slots decoding + one 128-token admission a tick: "
+              f"{wall / OVERLAP_PROFILE_TICKS * 1e3:.2f} ms/tick wall, card busy "
+              f"{busy / OVERLAP_PROFILE_TICKS * 1e3:.2f} ms/tick (idle share "
+              f"{1 - busy / wall:.3f})")
+
+
+def _overlap_profile_main():
+    """Phase 26 (d)'s profile in a process of its own (``--overlap-profile``)."""
+    cfg, params = _serve_model()
+    try:
+        _overlap_profile(params, cfg)
+    except SmokeError as e:
+        print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def phase_admission(serving):
+    """Phase 26: admission control, preemption and swap, int8 KV and
+    overlapped prefill at GPT-Small width; ``serving`` is phase 24's trace
+    and its greedy ``generate_cached`` streams. No flash kernel launches:
+    the codec, the page view and the block moves are torch ops, as JAX's
+    are XLA."""
+    import torch
+
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fa.reset_launch_counts()
+    print(f"[admission] on {_smi()}")
+    cfg, params = _serve_model()
+    _admission_legs(params, cfg)
+    calm_f32 = _swap_legs(params, cfg)
+    _int8_legs(params, cfg, calm_f32)
+    _overlap_legs(params, cfg, *serving)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--overlap-profile"],
+                          timeout=300)
+    check(proc.returncode == 0, f"[admission] (d) the profile process failed (exit "
+                                f"{proc.returncode})")
+    counts = fa.launch_counts()
+    check(not any(counts.values()), f"[admission] flash kernels launched: {counts}")
+    print(f"[admission] (e) flash launches in phase 26: {counts}; phase 26 took "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def _smi():
     try:
         out = subprocess.run(
@@ -4539,7 +4915,9 @@ def main() -> int:
         phase_export_check(export_job)
         phase_mp()
         long = phase_sp_pp()
-        phase_prefix_spec(phase_serving())
+        serving = phase_serving()
+        phase_prefix_spec(serving)
+        phase_admission(serving)
     except SmokeError as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -4581,6 +4959,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--spec-profile"]:  # phase 25 (d)'s profile window
         sys.path.insert(0, ROOT)
         sys.exit(_spec_profile_main())
+    if sys.argv[1:2] == ["--overlap-profile"]:  # phase 26 (d)'s profile window
+        sys.path.insert(0, ROOT)
+        sys.exit(_overlap_profile_main())
     if sys.argv[1:2] == ["--drain-rank"]:  # a rank of phase 20 (d)
         sys.path.insert(0, ROOT)
         sys.exit(_drain_rank(sys.argv[2]))

@@ -1,2 +1,3 @@
-"""Memory-lean storage: the blockwise int8 codec of optimizer moments
-(``quant``) and the radix index of the serving prefix cache (``radix``)."""
+"""Memory-lean storage: the int8 codec of optimizer moments and of the KV
+pool (``quant``), the radix index of the serving prefix cache (``radix``),
+and the host and disk rungs below the KV pool (``tiers``)."""

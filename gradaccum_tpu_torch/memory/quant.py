@@ -1,6 +1,9 @@
-"""Blockwise int8 storage of optimizer moments.
+"""8-bit storage with absmax scales: optimizer moments and the KV pool.
 
-The port of the flat codec of ``gradaccum_tpu/memory/quant.py``: a tensor is
+The port of ``gradaccum_tpu/memory/quant.py``, one codec for two block
+shapes.
+
+**Optimizer moments** (:class:`QuantTensor`): a tensor is
 flattened and cut into runs of :data:`BLOCK` consecutive values (the last
 run zero-padded, which never raises an absmax); each run shares one float32
 scale ``absmax(run) / 127`` and stores ``round(x / scale)`` as int8, rounded
@@ -14,19 +17,85 @@ CUDA divides a tensor by a Python scalar as a multiply by its reciprocal,
 which rounds differently from JAX's division, and would move ``q`` and
 ``scale`` off JAX's bits.
 
-The KV-pool codec of the same JAX module (``kv_quantize``, ``QuantKV``)
-serves the serving stack and is not ported yet (ROADMAP.md).
+**KV pools** (:class:`QuantKV`): the block is one head vector, the last
+axis (``head_dim``) of the pool layout ``[L, blocks, H, page, hd]``, so the
+scale array is the payload's shape without its last axis. A pool write
+quantizes and then scatters ``q`` and ``scale`` at the same indices (the
+scale one rank lower), so no write reads its neighbours' scales.
+:func:`kv_quantize` divides tensor by tensor too, for the scale and for
+``x / scale``, and rounds half to even as ``jnp.round`` does;
+:func:`kv_dequantize` multiplies in float32 and then casts, in JAX's order.
+On the card the codes and scales are bitwise the CPU's.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 Q_MAX = 127  # symmetric int8 range [-127, 127]; -128 unused
 BLOCK = 256  # values per scale
+
+
+class QuantKV(NamedTuple):
+    """A quantized KV pool array: ``q`` int8 payload and ``scale`` float32,
+    one per last-axis vector (``scale.shape == q.shape[:-1]``). ``shape``,
+    ``device`` and ``dtype`` read as the payload's, so pool code that only
+    asks for sizes needs no branch; :func:`kv_map` maps the two leaves."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """The logical (payload) shape, what a float pool would have."""
+        return tuple(self.q.shape)
+
+    @property
+    def device(self) -> torch.device:
+        return self.q.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.q.dtype
+
+    @property
+    def nbytes(self) -> int:
+        return self.q.numel() + 4 * self.scale.numel()
+
+
+def is_quantized_kv(x) -> bool:
+    return isinstance(x, QuantKV)
+
+
+def kv_map(fn, *kvs):
+    """Apply ``fn`` leafwise across KV arrays that are all :class:`QuantKV`
+    or all plain tensors (slicing, copying, host transfer)."""
+    if isinstance(kvs[0], QuantKV):
+        return QuantKV(fn(*[x.q for x in kvs]), fn(*[x.scale for x in kvs]))
+    return fn(*kvs)
+
+
+def kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize ``x`` along its last axis: ``(q int8, scale float32)`` with
+    ``scale.shape == x.shape[:-1]``. An all-zero vector gets scale 0 and
+    codes 0. Both divisions are tensor by tensor (a scalar divisor on CUDA
+    becomes a multiply by its reciprocal, off JAX's bits)."""
+    xf = x.to(torch.float32)
+    # a fill, not torch.tensor: a host-to-card copy would sync the stream on
+    # every pool write
+    q_max = torch.full((), float(Q_MAX), dtype=torch.float32, device=x.device)
+    scale = torch.div(xf.abs().amax(dim=-1), q_max)
+    safe = torch.where(scale > 0, scale, torch.ones((), dtype=torch.float32, device=x.device))
+    q = torch.clamp(torch.round(torch.div(xf, safe[..., None])), -Q_MAX, Q_MAX)
+    return q.to(torch.int8), scale
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """Invert :func:`kv_quantize`: ``q * scale`` in float32, then ``dtype``."""
+    return (q.to(torch.float32) * scale[..., None]).to(dtype)
 
 
 class QuantTensor:

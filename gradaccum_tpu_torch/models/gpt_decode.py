@@ -55,8 +55,13 @@ index, never on its slot or batch.
 (:func:`prefill_paged`'s suffix mode, :func:`prefill_paged_cow`) prefills
 only the unshared tail of a prompt against the shared prefix's K/V read
 from the pool. Both are torch ops, as JAX's are XLA: no flash kernel runs
-on the decode path. An int8 pool waits for the int8 KV codec (ROADMAP.md
-item 5e).
+on the decode path.
+
+**int8 pools** (``cache_dtype=torch.int8``, paged only): the pool is a
+:class:`~gradaccum_tpu_torch.memory.quant.QuantKV`, int8 codes and one
+float32 scale per (position, head) vector. A write quantizes and scatters
+codes and scales at the same indices; a read gathers the pages and
+dequantizes them to the compute dtype. Block moves map over both leaves.
 """
 
 from __future__ import annotations
@@ -68,10 +73,15 @@ from typing import NamedTuple, Optional, Union
 import torch
 import torch.nn.functional as F
 
+from gradaccum_tpu_torch.memory.quant import (
+    QuantKV,
+    is_quantized_kv,
+    kv_dequantize,
+    kv_map,
+    kv_quantize,
+)
 from gradaccum_tpu_torch.models.gpt import GPTConfig
 from gradaccum_tpu_torch.utils import prng
-
-INT8_ITEM = "the int8 KV codec (ROADMAP.md item 5e)"
 
 
 def _is_int8(cache_dtype) -> bool:
@@ -401,15 +411,21 @@ def init_paged_pool(cfg: GPTConfig, num_blocks: int, page_size: int, cache_dtype
     """The block pool, K and V ``[L, num_blocks + 1, H, page_size, hd]``:
     blocks ``0..num_blocks-1`` are real, block ``num_blocks`` is the trash
     block that page-table sentinels address (dropped writes land there,
-    reads through it are masked)."""
+    reads through it are masked). ``cache_dtype=torch.int8`` gives
+    :class:`QuantKV` pools."""
     if num_blocks < 1:
         raise ValueError(f"need at least one block, got {num_blocks}")
     if page_size < 1:
         raise ValueError(f"page_size must be >= 1, got {page_size}")
-    if _is_int8(cache_dtype):
-        raise NotImplementedError(f"cache_dtype=int8 waits for {INT8_ITEM}")
     hd = cfg.hidden_size // cfg.num_heads
     shape = (cfg.num_layers, num_blocks + 1, cfg.num_heads, page_size, hd)
+    if _is_int8(cache_dtype):
+        # codes [L, blocks + 1, H, page, hd] and scales one rank lower
+        def zeros():
+            return QuantKV(torch.zeros(shape, dtype=torch.int8, device=device),
+                           torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+
+        return zeros(), zeros()
     dtype = cfg.dtype if cache_dtype is None else cache_dtype
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
@@ -429,7 +445,14 @@ def _trash_ids(ids, num_blocks: int):
 
 def _pool_write(pool, idx, values):
     """Scatter ``values`` into ``pool`` at the index tuple ``idx``, in place,
-    downcast to the pool's dtype."""
+    downcast to the pool's dtype. A quantized pool takes the codes and the
+    scales at the same indices (the scale array is one rank lower, so the
+    same tuple addresses it)."""
+    if is_quantized_kv(pool):
+        q, scale = kv_quantize(values)
+        pool.q[idx] = q
+        pool.scale[idx] = scale
+        return pool
     pool[idx] = values.to(pool.dtype)
     return pool
 
@@ -443,27 +466,42 @@ def _read_table(page_table, num_blocks: int):
 def _virt_view(pool, i, page_table, kv_shape, dtype):
     """Layer ``i``'s pages gathered through ``page_table`` (a
     :func:`_read_table`) into the virtual ``[B, H, max_pages * page_size,
-    hd]`` view, upcast to ``dtype``."""
+    hd]`` view, upcast (a quantized pool: dequantized) to ``dtype``."""
+    if is_quantized_kv(pool):
+        q = pool.q[i][page_table].permute(0, 2, 1, 3, 4).reshape(kv_shape)
+        scale = pool.scale[i][page_table].permute(0, 2, 1, 3).reshape(kv_shape[:-1])
+        return kv_dequantize(q, scale, dtype)
     return pool[i][page_table].permute(0, 2, 1, 3, 4).reshape(kv_shape).to(dtype)
 
 
 def gather_blocks(pool_k, pool_v, block_ids):
     """Whole blocks out of the pool: ``(k, v)`` each ``[L, n, H, page, hd]``.
     Ids past the last real block clamp to it, as JAX's gather does (the
-    caller drops those rows)."""
+    caller drops those rows). A quantized pool gives :class:`QuantKV`
+    blocks."""
     ids = torch.as_tensor(block_ids, device=pool_k.device).to(torch.int64)
     ids = ids.clamp(0, pool_blocks(pool_k) - 1)
-    return pool_k[:, ids], pool_v[:, ids]
+
+    def take(a):
+        return a[:, ids]
+
+    return kv_map(take, pool_k), kv_map(take, pool_v)
 
 
 def scatter_blocks(pool_k, pool_v, block_ids, k_blocks, v_blocks):
     """Write ``n`` whole blocks into the pool at ``block_ids``, in place; ids
     outside ``[0, num_blocks)`` (the sentinel padding) write nothing real.
-    Returns ``(pool_k, pool_v)``."""
+    Blocks of a quantized pool are :class:`QuantKV` and land leaf by leaf,
+    as they are (no second quantization). Returns ``(pool_k, pool_v)``."""
     ids = torch.as_tensor(block_ids, device=pool_k.device).to(torch.int64)
     ids = _trash_ids(ids, pool_blocks(pool_k))
-    _pool_write(pool_k, (slice(None), ids), torch.as_tensor(k_blocks, device=pool_k.device))
-    _pool_write(pool_v, (slice(None), ids), torch.as_tensor(v_blocks, device=pool_v.device))
+
+    def put(pool, blocks):
+        pool[:, ids] = torch.as_tensor(blocks, device=pool.device).to(pool.dtype)
+        return pool
+
+    kv_map(put, pool_k, k_blocks)
+    kv_map(put, pool_v, v_blocks)
     return pool_k, pool_v
 
 

@@ -8,15 +8,23 @@ batch-prefilled into free slots; the bounded FIFO with backpressure and
 deadlines (``scheduler``); TTFT, throughput and occupancy telemetry
 (``metrics``); and the threaded front-end and the seeded simulation driver
 (``server``). Prefix sharing with copy-on-write tails
-(``cache_pool.PrefixCache``) and speculative decoding with a draft model
-ride on the same engine. Greedy and seeded-sampled outputs equal
-``models/gpt_decode.py :: generate_cached`` token for token (speculative
+(``cache_pool.PrefixCache``), speculative decoding with a draft model,
+admission control with preemption (``admission``: the policy and the victim
+ranking; ``swap``: the host store; ``memory/tiers.py``: the host and disk
+ladder), int8 KV pools and overlapped prefill ride on the same engine.
+Greedy and seeded-sampled outputs equal ``models/gpt_decode.py ::
+generate_cached`` token for token, through any preemption (speculative
 sampling follows JAX's accept rule draw for draw).
 
-Admission control and swap, int8 KV, reconfiguration, replica fleets and
-the serving fault contract are not ported yet: their knobs raise
+The live ops plane (sentinel, SLOs, telemetry), reconfiguration, replica
+fleets and the serving fault contract are not ported yet: their knobs raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
+
+from gradaccum_tpu_torch.serving.admission import (
+    AdmissionPolicy,
+    LengthQuantileEstimator,
+)
 
 from gradaccum_tpu_torch.serving.cache_pool import (
     BlockTableCorruption,
@@ -28,6 +36,7 @@ from gradaccum_tpu_torch.serving.cache_pool import (
 from gradaccum_tpu_torch.serving.engine import Engine, StepEvents
 from gradaccum_tpu_torch.serving.metrics import ServingMetrics
 from gradaccum_tpu_torch.serving.scheduler import QueueFull, Request, Scheduler
+from gradaccum_tpu_torch.serving.swap import HostSwapStore, SwapCapacityError, SwapError
 from gradaccum_tpu_torch.serving.server import (
     ServingServer,
     SimulationDriver,
@@ -36,9 +45,12 @@ from gradaccum_tpu_torch.serving.server import (
 )
 
 __all__ = [
+    "AdmissionPolicy",
     "BlockTableCorruption",
     "CachePool",
     "Engine",
+    "HostSwapStore",
+    "LengthQuantileEstimator",
     "PagedCachePool",
     "PoolPressure",
     "PrefixCache",
@@ -50,5 +62,7 @@ __all__ = [
     "SimulationDriver",
     "StepEvents",
     "StreamHandle",
+    "SwapCapacityError",
+    "SwapError",
     "TraceItem",
 ]

@@ -49,6 +49,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from gradaccum_tpu_torch.memory.quant import kv_map
 from gradaccum_tpu_torch.memory.radix import RadixIndex
 from gradaccum_tpu_torch.models.gpt import GPTConfig
 from gradaccum_tpu_torch.models.gpt_decode import (
@@ -56,13 +57,14 @@ from gradaccum_tpu_torch.models.gpt_decode import (
     init_cache,
     init_paged_pool,
 )
+from gradaccum_tpu_torch.utils.platform import upload
 
 
 class PoolPressure(RuntimeError):
     """Structured mid-stream allocation failure: a slot needed blocks the
     free list could not supply. Impossible under the worst-case reservation
-    gate; an overcommitting admission policy (ROADMAP.md item 5d) raises it
-    to preempt a victim."""
+    gate; under an overcommitting admission policy (``allow_overcommit``) it
+    is the engine's signal to preempt a victim and retry."""
 
     def __init__(self, slot: int, need_blocks: int, free_blocks: int,
                  reserved_blocks: int):
@@ -373,6 +375,10 @@ class PagedCachePool(_SlotLedger):
         self._shared_count = 0  # blocks at refcount > 1
         self._block_owner: List[Optional[int]] = [None] * num_blocks
         self._orphans = 0  # live blocks covered by no reservation
+        # an overcommitting admission policy sets this: alloc_to may then
+        # grow a slot past its reservation, and an empty free list raises
+        # PoolPressure for the engine to preempt a victim
+        self.allow_overcommit = False
 
     def _decref(self, block: int, slot: int) -> bool:
         """Drop one reference ``slot`` holds on ``block``; True when the
@@ -497,13 +503,15 @@ class PagedCachePool(_SlotLedger):
         start at refcount 1, owned by this slot."""
         need = min(self.blocks_for(tokens), self.max_pages)
         have = len(self._slot_blocks[slot])
-        if need - self._slot_shared[slot] > self._slot_reserved[slot]:
+        if (not self.allow_overcommit
+                and need - self._slot_shared[slot] > self._slot_reserved[slot]):
             raise ValueError(
                 f"slot {slot} needs {need - self._slot_shared[slot]} private blocks but "
                 f"reserved only {self._slot_reserved[slot]} — the write limit should "
                 "have made this unreachable")
         for page in range(have, need):
             if not self._free_blocks:
+                # only under overcommit; the blocks granted so far stay mapped
                 raise PoolPressure(slot, need - page, 0, self._slot_reserved[slot])
             block = self._free_blocks.pop()
             self._block_refs[block] = 1
@@ -559,8 +567,11 @@ class PagedCachePool(_SlotLedger):
         extra_k, extra_v = init_paged_pool(self._cfg, extra, self.page_size,
                                            cache_dtype=self.cache_dtype, device=self.device)
         # [real blocks, new blocks, trash]: the new trash is a fresh block
-        self.k = torch.cat([self.k[:, :old], extra_k], dim=1)
-        self.v = torch.cat([self.v[:, :old], extra_v], dim=1)
+        def cat(a, b):
+            return torch.cat([a[:, :old], b], dim=1)
+
+        self.k = kv_map(cat, self.k, extra_k)
+        self.v = kv_map(cat, self.v, extra_v)
         total = old + extra
         self.page_table[self.page_table == old] = total
         self.num_blocks = total
@@ -585,6 +596,5 @@ class PagedCachePool(_SlotLedger):
                     f"page table holds out-of-range block id "
                     f"{int(self.page_table[tuple(bad)])} at slot {int(bad[0])} page "
                     f"{int(bad[1])} (valid ids are 0..{self.num_blocks})")
-            self._table_device = torch.as_tensor(self.page_table.astype(np.int64)).to(
-                self.device)
+            self._table_device = upload(self.page_table.astype(np.int64), self.device)
         return self._table_device

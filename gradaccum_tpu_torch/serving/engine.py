@@ -32,11 +32,23 @@ target scores all ``k + 1`` positions in one verify step, and the accept
 rule emits up to ``k + 1`` tokens a slot per tick: greedy streams are the
 plain engine's, sampled ones follow JAX's rejection sampling draw for draw.
 
+**Admission control** (``admission``): an
+:class:`~gradaccum_tpu_torch.serving.admission.AdmissionPolicy` reserves a
+length-quantile or one-page budget instead of the worst case, so the paged
+pool can run dry mid-stream; allocation then raises ``PoolPressure`` and the
+engine preempts the cheapest victim (``pick_victim``, or
+``victim_score``), parks it ahead of fresh admissions and resumes it when
+blocks free up: from the host store (``swap="host"``, sha-checked), from the
+host and disk ladder (``swap="tiered"``, ``memory/tiers.py``), or by
+re-prefilling prompt + generated-so-far (``swap="recompute"``). Either way
+the stream is the uninterrupted one, token for token. ``preempt(rid)``
+does the same on demand. **int8 KV** (``cache_dtype=torch.int8``, paged
+only): one float32 scale per head vector (``memory/quant.py``).
+**overlap_prefill**: the admission's prefill and the tick's decode are both
+queued on the card before either is read back.
+
 **Not ported yet**, each raising ``NotImplementedError`` with its
-ROADMAP.md item: ``admission``, ``swap`` other than the default,
-``swap_max_bytes``, ``victim_score``, ``overlap_prefill`` and ``preempt``
-(5d), ``cache_dtype=int8`` (5e), ``mesh`` and ``reconfigure`` (5g), and
-``recover`` (5h).
+ROADMAP.md item: ``mesh`` and ``reconfigure`` (5g), and ``recover`` (5h).
 """
 
 from __future__ import annotations
@@ -48,30 +60,38 @@ import numpy as np
 import torch
 
 from gradaccum_tpu_torch.interop import params_tree
+from gradaccum_tpu_torch.memory.quant import QuantKV, kv_map
 from gradaccum_tpu_torch.models.gpt import GPTConfig
 from gradaccum_tpu_torch.models.gpt_decode import (
-    INT8_ITEM,
     DecodeCache,
     _top_k_mask,
     decode_step_paged,
     decode_step_ragged,
+    gather_blocks,
     init_cache,
     prefill,
     prefill_paged,
     prefill_paged_cow,
     sample_token,
+    scatter_blocks,
     verify_step_paged,
     verify_step_ragged,
 )
 from gradaccum_tpu_torch.obs import trace as obs_trace
-from gradaccum_tpu_torch.serving.cache_pool import CachePool, PagedCachePool, PrefixCache
+from gradaccum_tpu_torch.serving import admission as admission_lib
+from gradaccum_tpu_torch.serving.cache_pool import (
+    CachePool,
+    PagedCachePool,
+    PoolPressure,
+    PrefixCache,
+)
 from gradaccum_tpu_torch.serving.metrics import ServingMetrics
 from gradaccum_tpu_torch.serving.scheduler import QueueFull, Request, Scheduler
+from gradaccum_tpu_torch.serving.swap import HostSwapStore, SwapError, to_device, to_host
 from gradaccum_tpu_torch.utils import prng
-from gradaccum_tpu_torch.utils.platform import resolve_device
+from gradaccum_tpu_torch.utils.platform import resolve_device, upload
 from gradaccum_tpu_torch.utils.profiling import StepWindowProfiler
 
-ADMISSION_ITEM = "admission control and swap (ROADMAP.md item 5d)"
 FLEET_ITEM = "reconfiguration, replicas and the serving mesh (ROADMAP.md item 5g)"
 RECOVER_ITEM = "the serving fault points and Engine.recover (ROADMAP.md item 5h)"
 
@@ -92,6 +112,32 @@ def _dtype_name(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+def _block_bucket(n: int) -> int:
+    """The power-of-two bucket of a swap's block-id count, one definition
+    for the gather out and the scatter back."""
+    bucket = 1
+    while bucket < n:
+        bucket *= 2
+    return bucket
+
+
+@dataclasses.dataclass
+class _ParkedState:
+    """What resumes a preempted slot token for token: its per-slot card
+    state read back at preemption, and (swapped) a record in the swap store.
+    ``generated`` is the emitted-token count at preemption."""
+
+    request: Request
+    generated: int
+    cur_tok: int
+    gen_count: int
+    rng_key: np.ndarray
+    length: int
+    limit: int
+    swapped: bool     # the swap store holds a record for this request
+    page_start: int   # leading pages that were shared-prefix blocks
+
+
 class Engine:
     """Multiplexes concurrent generation requests through one decode tick.
 
@@ -107,7 +153,15 @@ class Engine:
     ``page_size`` positions shared by all slots (default ``num_slots *
     max_len / page_size``, the fixed pool's bytes), admission reserving a
     request's worst-case pages, so the engine refuses admission (and says it
-    was BLOCKS) instead of preempting.
+    was BLOCKS) instead of preempting. ``admission`` (a policy or one of
+    ``"reserve"``, ``"quantile"``, ``"optimistic"``; the last two paged only)
+    admits on a smaller budget and preempts on pressure; ``swap`` picks where
+    a victim's K/V waits (``"host"``, ``"tiered"``, or ``"recompute"`` for
+    nowhere), ``swap_max_bytes`` caps the host store (the tiered store's host
+    rung), ``victim_score`` (``"deadline"`` or ``callable(engine, slot)``)
+    ranks victims. ``cache_dtype=torch.int8`` (or ``"int8"``) quantizes the
+    paged pool. ``overlap_prefill`` queues the admission's prefill and the
+    decode before reading either back.
 
     ``replica_id`` names this engine in backpressure messages, stall keys,
     spans and metric labels; ``id_start``/``id_stride`` give it a request-id
@@ -177,9 +231,13 @@ class Engine:
                     "speculate_k already advances up to k+1 positions per "
                     "dispatch (it IS the block knob); use decode_block=1 "
                     "without decode_block_set")
+        admission_policy = admission_lib.resolve_policy(admission)
         if swap not in ("host", "recompute", "tiered"):
             raise ValueError(f"swap must be 'host', 'recompute', or 'tiered', got {swap!r}")
-        if cache_dtype is not None and cache_dtype == torch.int8:
+        if isinstance(cache_dtype, str) and cache_dtype == "int8":
+            cache_dtype = torch.int8
+        self._kv_quant = cache_dtype is not None and cache_dtype == torch.int8
+        if self._kv_quant:
             if page_size is None:
                 raise ValueError("cache_dtype=int8 needs paged mode (page_size=...): "
                                  "the quantization scales live per pool block vector")
@@ -187,18 +245,15 @@ class Engine:
                 raise ValueError("cache_dtype=int8 does not compose with speculate_k: the "
                                  "draft cache is fixed-layout (use bf16 for speculative "
                                  "engines)")
-        refused = [
-            (cache_dtype is not None and cache_dtype == torch.int8, "cache_dtype=int8",
-             INT8_ITEM),
-            (bool(overlap_prefill), "overlap_prefill", ADMISSION_ITEM),
-            (admission is not None, "admission", ADMISSION_ITEM),
-            (swap != "host" or swap_max_bytes is not None, "swap", ADMISSION_ITEM),
-            (victim_score is not None, "victim_score", ADMISSION_ITEM),
-            (mesh is not None, "mesh", FLEET_ITEM),
-        ]
-        for hit, knob, item in refused:
-            if hit:
-                raise NotImplementedError(f"Engine({knob}=...) waits for {item}")
+        if (admission_policy is not None and admission_policy.mode != "reserve"
+                and page_size is None):
+            raise ValueError(f"admission mode {admission_policy.mode!r} needs paged mode "
+                             "(page_size=...): overcommit is accounted in KV blocks")
+        if not (victim_score is None or victim_score == "deadline" or callable(victim_score)):
+            raise ValueError(f"victim_score must be None, 'deadline', or a callable; "
+                             f"got {victim_score!r}")
+        if mesh is not None:
+            raise NotImplementedError(f"Engine(mesh=...) waits for {FLEET_ITEM}")
         # an EMPTY PrefixCache is falsy (len 0) but still asks for sharing
         wants_prefix = bool(prefix_cache) or isinstance(prefix_cache, PrefixCache)
         if wants_prefix and page_size is None:
@@ -217,6 +272,28 @@ class Engine:
         self.paged = page_size is not None
         self.page_size = None if page_size is None else int(page_size)
         self.cache_dtype = cache_dtype
+        self.overlap_prefill = bool(overlap_prefill)
+        # None keeps the worst-case gate; a policy brings preempt -> park ->
+        # resume with it
+        self.admission_policy = admission_policy
+        self.victim_score = victim_score
+        self.swap_mode = swap
+        self.swap_max_bytes = None if swap_max_bytes is None else int(swap_max_bytes)
+        if swap == "host":
+            self._swap_store = HostSwapStore(max_bytes=self.swap_max_bytes)
+        elif swap == "tiered":
+            # host overflow demotes to disk; swap_max_bytes caps the host rung
+            from gradaccum_tpu_torch.memory.tiers import TieredStore
+
+            self._swap_store = (TieredStore(host_max_bytes=self.swap_max_bytes)
+                                if self.swap_max_bytes is not None else TieredStore())
+        else:
+            self._swap_store = None
+        self._parked_state: Dict[int, _ParkedState] = {}  # rid -> resume point
+        # rid -> the policy budget this tick's admission gate admitted on
+        self._pending_budget: Dict[int, int] = {}
+        # the rid re-prefilling through _admit_dispatch as a resume
+        self._resuming_rid: Optional[int] = None
         self.speculate_k = int(speculate_k)
         self.draft_cfg = draft_cfg if self.speculate_k else None
         self.draft_params = (_tree_to(draft_params, self.device, moved) if self.speculate_k
@@ -236,6 +313,8 @@ class Engine:
             self.pool = PagedCachePool(cfg, num_slots, max_len, self.page_size,
                                        self.num_blocks, prefix_cache=self.prefix_cache,
                                        cache_dtype=cache_dtype, device=self.device)
+            if admission_policy is not None and admission_policy.mode != "reserve":
+                self.pool.allow_overcommit = True
         else:
             self.prefix_cache = None
             self.cow_tails = False
@@ -352,7 +431,9 @@ class Engine:
             "num_blocks": self.num_blocks,
             "prefix_cache": self.prefix_cache is not None,
             "cow_tails": self.cow_tails,
-            "victim_score": None,
+            "victim_score": (None if self.victim_score is None
+                             else self.victim_score if isinstance(self.victim_score, str)
+                             else "custom"),
             "temperature": self.temperature,
             "top_k": self.top_k,
             "min_prefill_bucket": self.min_prefill_bucket,
@@ -361,25 +442,33 @@ class Engine:
             "speculate_k": self.speculate_k,
             "draft_num_layers": self.draft_cfg.num_layers if self.speculate_k else None,
             "cache_dtype": None if self.cache_dtype is None else _dtype_name(self.cache_dtype),
-            "overlap_prefill": False,
-            "admission": None,
-            "admission_q": None,
-            "swap": "host",
-            "swap_max_bytes": None,
-            "memory": {"kv_quant": False, "token_bytes": self._token_bytes,
-                       "tiered_swap": False},
+            "overlap_prefill": self.overlap_prefill,
+            "admission": None if self.admission_policy is None else self.admission_policy.mode,
+            "admission_q": (self.admission_policy.q if self.admission_policy is not None
+                            and self.admission_policy.mode == "quantile" else None),
+            "swap": self.swap_mode,
+            "swap_max_bytes": self.swap_max_bytes,
+            "memory": {"kv_quant": self._kv_quant, "token_bytes": self._token_bytes,
+                       "tiered_swap": self.swap_mode == "tiered"},
             "healer": getattr(self, "healer_knobs", None),
         }
 
     def memory_stats(self) -> dict:
-        """Bytes per token at the pool's storage dtype and the bytes the pool
-        charges for what is in flight."""
+        """Bytes per token at the pool's storage layout, the bytes the pool
+        charges for what is in flight, an int8 pool's saving against the
+        model dtype, and under ``swap="tiered"`` the ladder's counters."""
         if self.paged:
             used_tokens = self.pool.allocated_blocks * self.page_size
         else:
             used_tokens = self.pool.active_count * self.max_len
-        return {"kv_quant": False, "token_bytes": self._token_bytes,
-                "kv_bytes_in_use": used_tokens * self._token_bytes}
+        out = {"kv_quant": self._kv_quant, "token_bytes": self._token_bytes,
+               "kv_bytes_in_use": used_tokens * self._token_bytes}
+        if self._kv_quant:
+            full = 2 * self.cfg.num_layers * self.cfg.hidden_size * self.cfg.dtype.itemsize
+            out["kv_bytes_saved"] = used_tokens * (full - self._token_bytes)
+        if self.swap_mode == "tiered":
+            out["tiers"] = self._swap_store.stats()
+        return out
 
     @property
     def kv_pool_bytes(self) -> int:
@@ -467,26 +556,43 @@ class Engine:
         if self.pool.free_count == 0:
             return tag + "no free slots"
         if self.paged:
+            policy = self.admission_policy
+            if self.scheduler.parked_depth:
+                # preempted requests resume ahead of everything
+                return tag + "parked requests ahead (preemption backlog)"
             head = self.scheduler.peek()
             if head is None:
                 need = 1
             else:
-                # what admission would ask: only the head's unshared blocks
-                need = self.pool.blocks_for(head.prompt.size + head.max_new_tokens)
+                # what admission would ask: the policy's budget (the worst
+                # case without one), only the head's unshared blocks
+                budget = head.prompt.size + head.max_new_tokens
+                if policy is not None:
+                    budget = policy.budget_tokens(head.prompt.size, head.max_new_tokens,
+                                                  self.page_size, self._tick)
+                need = self.pool.blocks_for(budget)
                 if self.prefix_cache is not None:
                     memo = self._head_match_memo
                     if memo is None or memo[0] != head.request_id:
                         memo = (head.request_id, len(self.prefix_cache.match(head.prompt)))
                         self._head_match_memo = memo
                     need -= memo[1]
-            if need > self.pool.unreserved_blocks:
+            if policy is not None and policy.mode != "reserve":
+                # overcommit: the supply is bounded by the free list too
+                if need > self.pool.admittable_blocks:
+                    if self.pool.free_blocks > 0:
+                        return tag + "held by quantile gate"
+                    return tag + "no free KV blocks"
+            elif need > self.pool.unreserved_blocks:
                 return tag + "no free KV blocks"
         return tag + "queue backlog (slots available)"
 
     @property
     def _token_bytes(self) -> int:
         """Pool bytes per cache position (K and V, all layers) at the pool's
-        storage dtype."""
+        storage layout: an int8 pool pays one float32 scale per head."""
+        if self._kv_quant:
+            return 2 * self.cfg.num_layers * (self.cfg.hidden_size + self.cfg.num_heads * 4)
         dtype = self.cfg.dtype if self.cache_dtype is None else self.cache_dtype
         return 2 * self.cfg.num_layers * self.cfg.hidden_size * dtype.itemsize
 
@@ -510,8 +616,13 @@ class Engine:
         emitted: List[Tuple[int, int]] = []
         finished: List[Tuple[int, str]] = []
         admitted: List[int] = []
+        preempted: List[int] = []
 
         for req in self.scheduler.expire(t):
+            # a parked expiry forfeits its resume state, swap record included
+            self._parked_state.pop(req.request_id, None)
+            if self._swap_store is not None:
+                self._swap_store.discard(req.request_id)
             self.status[req.request_id] = "timeout"
             finished.append((req.request_id, "timeout"))
             self.metrics.record_expired(req.request_id)
@@ -521,7 +632,12 @@ class Engine:
                 tr.complete("req/queue", ts0, cat="request", rid=req.request_id,
                             outcome="timeout", **self._obs_args)
 
+        # parked requests resume strictly ahead of fresh admissions
+        resumed = self._try_resume()
+
         fits = None
+        policy = self.admission_policy
+        stall_override = [None]
         if self.paged:
             # reservations of earlier requests in this same admission batch
             # count: they reach the pool only inside _admit_dispatch
@@ -529,45 +645,91 @@ class Engine:
             self._pending_match.clear()
 
             def fits(r):
-                total = self.pool.blocks_for(r.prompt.size + r.max_new_tokens)
+                full = r.prompt.size + r.max_new_tokens
+                total = self.pool.blocks_for(full)
                 if total > self.pool.max_pages:
                     return False
                 match = (self.prefix_cache.match_cow(r.prompt)
                          if self.prefix_cache is not None else ([], None, 0))
                 # only FULL shared pages cut the ask: an adopted COW tail
                 # needs its fork block once the request writes that page
-                need = total - len(match[0])
-                if pending[0] + need > self.pool.unreserved_blocks:
+                if policy is None:
+                    budget, need = full, total - len(match[0])
+                    supply = self.pool.unreserved_blocks
+                else:
+                    # the policy's budget is the ask; under overcommit the
+                    # free list bounds the supply too
+                    budget = policy.budget_tokens(r.prompt.size, r.max_new_tokens,
+                                                  self.page_size, t)
+                    need = self.pool.blocks_for(budget) - len(match[0])
+                    supply = self.pool.admittable_blocks
+                if pending[0] + need > supply:
+                    if (policy is not None and policy.mode != "reserve"
+                            and self.pool.free_blocks > 0):
+                        # blocks exist: the policy gate is what refused
+                        stall_override[0] = "held_by_quantile_gate"
                     return False
                 pending[0] += need
                 self._pending_match[r.request_id] = match
+                self._pending_budget[r.request_id] = budget
                 return True
 
-        reqs = self.scheduler.admit(self.pool.free_count, t, fits=fits)
+        if self.scheduler.parked_depth:
+            # parked requests not yet resumed hold fresh admission entirely
+            reqs = []
+            if self.scheduler.depth:
+                self.scheduler.record_stall("parked_queue_ahead")
+        else:
+            reqs = self.scheduler.admit(self.pool.free_count, t, fits=fits)
+            if stall_override[0] is not None:
+                self._relabel_stall(stall_override[0])
         block = self._pick_block()
-        if reqs:
-            with (tr.span("serve/prefill", cat="serving", tick=t, batch=len(reqs))
-                  if tr.enabled else obs_trace.NULL.span("")):
-                self._admit_finish(self._admit_dispatch(reqs), emitted, finished, admitted)
-        if self.scheduler.depth > 0 and self.pool.free_count == 0:
-            self.scheduler.record_stall("no_free_slots")
-
-        active_now = self._active.copy()
-        if self.paged:
-            self._ensure_blocks(active_now, self.speculate_k + 1 if self.speculate_k else block)
-        if active_now.any():
-            if tr.enabled:
-                args = dict(block=block, active=int(active_now.sum()))
-                if self.speculate_k:
-                    args["speculate_k"] = self.speculate_k
-                if self.paged:
-                    args["free_blocks"] = self.pool.free_blocks
-                span = tr.span("serve/decode", cat="serving", tick=t, **args)
-            else:
-                span = obs_trace.NULL.span("")
-            with span:
-                self._decode_finish(self._decode_dispatch(active_now, block), emitted,
-                                    finished)
+        adv = self.speculate_k + 1 if self.speculate_k else block
+        if self.overlap_prefill:
+            # both dispatches are queued before any readback: the card rolls
+            # from the prefill into the decode while the host emits the
+            # admission's first tokens. The overlap holds only while nothing
+            # between the two dispatches reads the card (no .item(),
+            # .tolist(), bool(tensor), numpy conversion or blocking upload):
+            # the uploads of both use _to_device. Tokens equal lockstep's.
+            astate = None
+            if reqs:
+                with (tr.span("serve/prefill", cat="serving", tick=t, batch=len(reqs))
+                      if tr.enabled else obs_trace.NULL.span("")):
+                    astate = self._admit_dispatch(reqs)
+                for slot, req in zip(astate[1], astate[0]):
+                    self._active[slot] = True
+                    self.status[req.request_id] = "running"
+                    admitted.append(req.request_id)
+            if self.scheduler.depth > 0 and self.pool.free_count == 0:
+                self.scheduler.record_stall("no_free_slots")
+            active_now = self._active.copy()
+            if self.paged:
+                # admitted slots' first tokens are still on the card: they
+                # may not be preempted this tick
+                protect = (frozenset(int(s) for s in astate[1]) if astate is not None
+                           else frozenset())
+                active_now = self._ensure_blocks(active_now, adv, preempted, protect=protect)
+            with self._decode_span(t, block, active_now):
+                dstate = self._decode_dispatch(active_now, block) if active_now.any() else None
+                if astate is not None:
+                    self._admit_finish(astate, emitted, finished, admitted, activate=False)
+                if dstate is not None:
+                    self._decode_finish(dstate, emitted, finished)
+        else:
+            if reqs:
+                with (tr.span("serve/prefill", cat="serving", tick=t, batch=len(reqs))
+                      if tr.enabled else obs_trace.NULL.span("")):
+                    self._admit_finish(self._admit_dispatch(reqs), emitted, finished, admitted)
+            if self.scheduler.depth > 0 and self.pool.free_count == 0:
+                self.scheduler.record_stall("no_free_slots")
+            active_now = self._active.copy()
+            if self.paged:
+                active_now = self._ensure_blocks(active_now, adv, preempted)
+            if active_now.any():
+                with self._decode_span(t, block, active_now):
+                    self._decode_finish(self._decode_dispatch(active_now, block), emitted,
+                                        finished)
 
         gauges = dict(tokens_in_flight=int(self._slot_len[self._active].sum()),
                       decode_block=block)
@@ -587,17 +749,52 @@ class Engine:
             gauges.update(token_capacity=self.pool.num_slots * self.max_len,
                           kv_bytes_in_use=(self.pool.active_count * self.max_len
                                            * self._token_bytes))
+        if policy is not None:
+            gauges.update(parked=self.scheduler.parked_depth, preemptions=len(preempted))
+        if self._swap_store is not None and (policy is not None or self._swap_store.held_bytes
+                                             or self.metrics.swap_store_bytes):
+            # sampled through the decay back to zero after a storm
+            gauges["swap_store_bytes"] = self._swap_store.held_bytes
+        if self.swap_mode == "tiered":
+            ts = self._swap_store.stats()
+            gauges.update(tier_disk_bytes=ts["disk_bytes"], tier_demotions=ts["demotions"],
+                          tier_promotions=ts["promotions"])
         self.metrics.record_tick(self.scheduler.depth, self.pool.active_count,
                                  self.pool.num_slots, **gauges)
         self._tick = t + 1
-        return StepEvents(emitted, finished, admitted, t)
+        return StepEvents(emitted, finished, admitted, t, preempted=preempted, resumed=resumed)
+
+    def _relabel_stall(self, key: str) -> None:
+        """Rewrite the generic no_free_blocks stall the scheduler just
+        recorded into the policy-aware ``key``."""
+        stalls, label = self.scheduler.stalls, self.scheduler.label
+        generic = "no_free_blocks" if label is None else f"{label}: no_free_blocks"
+        named = key if label is None else f"{label}: {key}"
+        if stalls.get(generic):
+            stalls[generic] -= 1
+            if not stalls[generic]:
+                del stalls[generic]
+            stalls[named] = stalls.get(named, 0) + 1
+
+    def _decode_span(self, t: int, block: int, active_now):
+        """The tick's ``serve/decode`` span (a null span when tracing is off
+        or no slot decodes)."""
+        tr = self.tracer
+        if not (tr.enabled and active_now.any()):
+            return obs_trace.NULL.span("")
+        args = dict(block=block, active=int(active_now.sum()))
+        if self.speculate_k:
+            args["speculate_k"] = self.speculate_k
+        if self.paged:
+            args["free_blocks"] = self.pool.free_blocks
+        return tr.span("serve/decode", cat="serving", tick=t, **args)
 
     def _decode_dispatch(self, active_now, block: int):
         """Run this tick's decode on every slot and keep the device state:
         ``block`` micro-steps, or one speculative cycle. The tokens stay on
         the card until :meth:`_decode_finish` reads them back once."""
         pool = self.pool
-        active = torch.as_tensor(active_now).to(self.device)
+        active = upload(active_now, self.device)
         table = pool.page_table_device() if self.paged else None
         if self.speculate_k:
             self._tick_shapes.add(("spec", self.speculate_k, tuple(pool.k.shape),
@@ -753,24 +950,72 @@ class Engine:
                 self._emit(int(slot), req, int(toks_host[d, slot]), emitted, finished,
                            first=False)
 
-    def _ensure_blocks(self, active_now, advance: int) -> None:
+    def _ensure_blocks(self, active_now, advance: int, preempted: List[int],
+                       protect=frozenset()):
         """Grow every active slot's pages to this tick's worst-case end
-        (``advance`` more positions, clamped at the write limit); the
-        reservation guarantees the supply. A slot still riding a shared COW
-        tail forks it first: its next write lands in that page."""
-        for slot in np.nonzero(active_now)[0]:
+        (``advance`` more positions, clamped at the write limit). Under the
+        worst-case gate the supply is guaranteed; under an admission policy
+        the pool may run dry (``PoolPressure``): preempt the cheapest victim
+        (never the pressured slot, never a ``protect``-ed one) and retry.
+        With no victim that frees a block, the pressured slot sits this tick
+        out. A slot still riding a shared COW tail forks it first. Returns
+        the (possibly narrowed) active mask."""
+        tr = self.tracer
+        for slot in list(np.nonzero(active_now)[0]):
             slot = int(slot)
-            if self._slot_cow[slot]:
-                self._fork_cow(slot)
-            self.pool.alloc_to(slot, min(self._slot_len[slot] + advance,
-                                         self._slot_limit[slot]))
+            if not active_now[slot]:
+                continue  # taken as a victim earlier in this loop
+            while True:
+                try:
+                    if self._slot_cow[slot]:
+                        self._fork_cow(slot)
+                    self.pool.alloc_to(slot, min(self._slot_len[slot] + advance,
+                                                 self._slot_limit[slot]))
+                    break
+                except PoolPressure as pressure:
+                    # every resident slot stays a candidate, one that sat this
+                    # tick out too: two pressured slots must not deadlock
+                    candidates = [s for s, r in enumerate(self._slot_req)
+                                  if r is not None and self._active[s] and s != slot
+                                  and s not in protect]
+                    victim = admission_lib.pick_victim(self.pool, candidates,
+                                                       self.prefix_cache,
+                                                       score=self._victim_scorer())
+                    if victim is None:
+                        active_now[slot] = False
+                        if tr.enabled:
+                            tr.event("serve/decode_skip", cat="serving", tick=self._tick,
+                                     slot=slot, need=pressure.need_blocks, **self._obs_args)
+                        break
+                    self._preempt(victim, preempted)
+                    active_now[victim] = False
+        return active_now
+
+    def _victim_scorer(self):
+        """The ``victim_score`` knob as a per-slot cost for ``pick_victim``
+        (None: the stock refcount and prefix-liveness cost)."""
+        if self.victim_score is None:
+            return None
+        if callable(self.victim_score):
+            return lambda slot: self.victim_score(self, slot)
+
+        def score(slot):
+            req = self._slot_req[slot]
+            done = len(self.results.get(req.request_id, ()))
+            return admission_lib.deadline_victim_cost(
+                self.pool, slot, self.prefix_cache,
+                progress=done / max(req.max_new_tokens, 1),
+                waited=self._tick - req.submit_tick)
+
+        return score
 
     def _fork_cow(self, slot: int) -> None:
         """Fork the slot's adopted partial tail block before its first write
         past ``cow_limit``: the pool gives the page a private block and the
-        card copies the one block; a fork the pool elides (the slot held
-        the last reference) only trims the tail index past the slot's own
-        extent, since its writes will replace that content."""
+        card copies the one block (both leaves of an int8 pool); a fork the
+        pool elides (the slot held the last reference) only trims the tail
+        index past the slot's own extent. Raises ``PoolPressure`` like any
+        growth."""
         pool = self.pool
         cow = int(self._slot_cow[slot])
         page = cow // self.page_size
@@ -782,14 +1027,323 @@ class Engine:
             self.metrics.record_cow_fork(elided=True)
         else:
             new = int(pool.page_table[slot, page])
-            pool.k[:, new] = pool.k[:, old]
-            pool.v[:, new] = pool.v[:, old]
+
+            def copy(a):
+                a[:, new] = a[:, old]
+                return a
+
+            kv_map(copy, pool.k)
+            kv_map(copy, pool.v)
             self.metrics.record_cow_fork(elided=False)
         self._slot_cow[slot] = 0
         tr = self.tracer
         if tr.enabled:
             tr.event("serve/cow_fork", cat="serving", tick=self._tick, slot=slot,
                      elided=old is None, **self._obs_args)
+
+    # -- preempt -> park -> resume ------------------------------------------
+
+    def _gather_tail(self, blocks: List[int]):
+        """Whole blocks off the card into host numpy, ``(k, v)`` (dicts of
+        leaves for an int8 pool) and the dtype names of raw-bit leaves. The
+        ids are padded to a power of two with real ids (the gather clamps
+        nothing out of range) and the padding is cut before the copy. The
+        copy is synchronous: the blocks go back to the free list next."""
+        n = len(blocks)
+        ids = np.full((_block_bucket(n),), blocks[0], np.int64)
+        ids[:n] = blocks
+        kb, vb = gather_blocks(self.pool.k, self.pool.v, upload(ids, self.device))
+        arrays, dtypes = {}, {}
+        for name, blk in (("k", kb), ("v", vb)):
+            leaves = ({f"{name}_q": blk.q, f"{name}_scale": blk.scale}
+                      if isinstance(blk, QuantKV) else {name: blk})
+            for leaf, t in leaves.items():
+                arrays[leaf], dtype = to_host(t[:, :n])
+                if dtype is not None:
+                    dtypes[leaf] = dtype
+        return arrays, dtypes
+
+    def _stage_swap_out(self, slot: int, rid: int, length: int) -> Tuple[bool, int, int]:
+        """Stage a victim's live PRIVATE blocks (the fixed pool: its slot
+        row) in the swap store. Returns ``(swapped, page_start, bytes)``;
+        ``page_start`` counts the leading shared pages left in the pool for
+        their other users."""
+        pool = self.pool
+        page_start = 0
+        arrays = None
+        dtypes: Dict[str, str] = {}
+        if self.paged:
+            blocks = pool.blocks_of(slot)
+            live = min(pool.blocks_for(length), len(blocks))
+            for b in blocks[:live]:
+                if pool.refcount(b) == 1 and pool.owner_of(b) == slot:
+                    break
+                page_start += 1
+            tail = blocks[page_start:live]
+            # sharing is prefix-shaped; anything else re-prefills rather than
+            # copying blocks out from under their other users
+            if tail and all(pool.refcount(b) == 1 and pool.owner_of(b) == slot for b in tail):
+                arrays, dtypes = self._gather_tail(tail)
+        else:
+            arrays = {}
+            for name, t in (("k", pool.k), ("v", pool.v)):
+                arrays[name], dtype = to_host(t[:, slot])
+                if dtype is not None:
+                    dtypes[name] = dtype
+        if arrays is None:
+            return False, 0, 0
+        if self.speculate_k:
+            # a speculative victim parks its draft cache rows too
+            for name, t in (("draft_k", self._draft_k), ("draft_v", self._draft_v)):
+                arrays[name], dtype = to_host(t[:, slot])
+                if dtype is not None:
+                    dtypes[name] = dtype
+        try:
+            rec = self._swap_store.put(rid, arrays, page_start, length, dtypes)
+            return True, page_start, rec.nbytes
+        except OSError:
+            # a swap-IO fault, or a record over the store's cap: the request
+            # resumes by re-prefill
+            self._swap_store.discard(rid)
+            self.metrics.record_swap_fallback()
+            return False, 0, 0
+
+    def _preempt(self, slot: int, preempted: List[int]) -> None:
+        """Evict the request in ``slot``: read its resume point back, stage
+        its live private blocks in the swap store (shared prefix blocks are
+        decref'd, never copied), release the slot, blocks and reservation,
+        and park the request ahead of all fresh admissions."""
+        req = self._slot_req[slot]
+        rid = req.request_id
+        tr = self.tracer
+        generated = len(self.results[rid])
+        cur = int(self._cur_tok[slot])
+        gen = int(self._gen[slot])
+        key = self._rngs[slot].cpu().numpy().copy()
+        length = int(self._slot_len[slot])
+        limit = (int(self._slot_limit[slot]) if self.paged
+                 else req.prompt.size + req.max_new_tokens)
+        swapped, page_start, bytes_out = False, 0, 0
+        if self._swap_store is not None:
+            swapped, page_start, bytes_out = self._stage_swap_out(slot, rid, length)
+        self._parked_state[rid] = _ParkedState(
+            request=req, generated=generated, cur_tok=cur, gen_count=gen, rng_key=key,
+            length=length, limit=limit, swapped=swapped,
+            page_start=page_start if swapped else 0)
+        # an unforked COW adoption goes with the slot's other references; the
+        # resume re-adopts whatever is still live
+        self._release(slot)
+        self.scheduler.park(req)
+        self.status[rid] = "preempted"
+        preempted.append(rid)
+        if self.admission_policy is not None:
+            self.admission_policy.note_preemption(self._tick)
+        self.metrics.record_preemption(swapped=swapped, bytes_out=bytes_out)
+        if tr.enabled:
+            tr.event("req/preempt", cat="request", rid=rid, swapped=swapped,
+                     generated=generated, swap_bytes=bytes_out, **self._obs_args)
+
+    def preempt(self, request_id: int) -> bool:
+        """Preempt a RUNNING request: its slot (and private blocks and
+        reservation) come back at once, it parks ahead of fresh admissions,
+        and its output is the uninterrupted run's, token for token. False for
+        an id not running. Not thread-safe: through a server, stop its loop
+        or hold its lock."""
+        for slot, req in enumerate(self._slot_req):
+            if req is not None and req.request_id == request_id and self._active[slot]:
+                self._preempt(slot, [])
+                return True
+        return False
+
+    def _try_resume(self) -> List[int]:
+        """Re-admit parked requests, oldest first, as far as resources allow
+        (the head blocks those behind it). Returns the ids resumed."""
+        resumed: List[int] = []
+        while self.scheduler.parked_depth:
+            req = self.scheduler.peek_parked()
+            pk = self._parked_state.get(req.request_id)
+            if pk is None:  # resume state lost: drop the stale entry
+                self.scheduler.pop_parked()
+                continue
+            if self.pool.free_count == 0 or not self._resume_one(req, pk):
+                break
+            resumed.append(req.request_id)
+        return resumed
+
+    def _fetch_swap(self, rid: int):
+        """The verified swap record, or None after counting a fallback (a
+        fault, a rotted or a missing record)."""
+        try:
+            return self._swap_store.get(rid)
+        except (OSError, SwapError, KeyError):
+            self._swap_store.discard(rid)
+            self.metrics.record_swap_fallback()
+            return None
+
+    def _resume_one(self, req: Request, pk: _ParkedState) -> bool:
+        """Try one parked request's re-admission: False, changing nothing,
+        when resources are short."""
+        rid = req.request_id
+        pool = self.pool
+        tr = self.tracer
+        rec = None
+        match: Tuple[List[int], Optional[int], int] = ([], None, 0)
+        ext = None
+        reserve_tokens = None
+        adopt: List[int] = []
+        if self.paged:
+            # prefix-aware: both restore paths re-adopt what of prompt +
+            # generated-so-far still lives in the prefix cache
+            if self.prefix_cache is not None:
+                prior = np.asarray(self.results[rid][:max(pk.generated - 1, 0)], np.int32)
+                ext = np.concatenate([np.asarray(req.prompt, np.int32), prior])
+                match = self.prefix_cache.match_cow(ext)
+            # a swap restore needs the shared head alive in the prefix cache
+            swap_ok = pk.swapped and self._swap_store is not None
+            if swap_ok and pk.page_start:
+                swap_ok = len(match[0]) >= pk.page_start
+            adopt = match[0][:pk.page_start] if swap_ok else []
+
+            def gate(n_adopt):
+                """The full remaining worst case when it fits, else (policy
+                engines) just enough to keep decoding; None: not yet."""
+                tokens = pk.limit
+                if pool.blocks_for(tokens) - n_adopt > pool.unreserved_blocks:
+                    if not pool.allow_overcommit:
+                        return None
+                    tokens = min(pk.limit, pk.length + self.page_size)
+                    if pool.blocks_for(tokens) - n_adopt > pool.unreserved_blocks:
+                        return None
+                if pool.blocks_for(pk.length) - n_adopt > pool.free_blocks:
+                    return None
+                return tokens
+
+            # the re-prefill leg discounts only FULL matched pages, the swap
+            # leg exactly its surviving shared head
+            reserve_tokens = gate(len(adopt) if swap_ok else len(match[0]))
+            if reserve_tokens is None:
+                return False
+            if swap_ok:
+                # fetch and sha-check only once the resume commits
+                rec = self._fetch_swap(rid)
+                if rec is None:
+                    # no reference was taken yet: re-gate for re-prefill
+                    pk.swapped = False
+                    adopt = []
+                    reserve_tokens = gate(len(match[0]))
+                    if reserve_tokens is None:
+                        return False
+        elif pk.swapped and self._swap_store is not None:
+            rec = self._fetch_swap(rid)
+        # resources committed: the request leaves the parked queue now
+        self.scheduler.pop_parked()
+        self._parked_state.pop(rid, None)
+        if rec is not None:
+            if self.paged:
+                self._resume_swap_in(req, pk, rec, adopt, reserve_tokens)
+            else:
+                self._resume_fixed_swap_in(req, pk, rec)
+            kind = "swap_in"
+        else:
+            self._resume_reprefill(req, pk, reserve_tokens,
+                                   match=match if self.paged else None, ext=ext)
+            kind = "reprefill"
+        if self._swap_store is not None:
+            self._swap_store.discard(rid)  # consumed, or superseded
+        self.status[rid] = "running"
+        self.metrics.record_resume(kind, bytes_in=rec.nbytes if rec else 0)
+        if tr.enabled:
+            tr.event("req/resume", cat="request", rid=rid, kind=kind, generated=pk.generated,
+                     **self._obs_args)
+        return True
+
+    def _record_leaf(self, rec, name: str) -> torch.Tensor:
+        return to_device(rec.arrays[name], rec.dtypes.get(name), self.device)
+
+    def _resume_swap_in(self, req: Request, pk: _ParkedState, rec, adopt: List[int],
+                        reserve_tokens: int) -> None:
+        """Restore from the swap store: adopt the live shared head, allocate
+        fresh private blocks, scatter the checked bytes into them, and
+        reinstate the slot's card state."""
+        pool = self.pool
+        slot = pool.claim()
+        self._slot_req[slot] = req
+        pool.reserve(slot, reserve_tokens, shared_blocks=len(adopt))
+        if adopt:
+            pool.adopt_shared(slot, adopt)
+        pool.alloc_to(slot, pk.length)
+        n_pages = pool.blocks_for(pk.length)
+        dst = [int(b) for b in pool.page_table[slot, pk.page_start:n_pages]]
+        if self._kv_quant:
+            kb = QuantKV(self._record_leaf(rec, "k_q"), self._record_leaf(rec, "k_scale"))
+            vb = QuantKV(self._record_leaf(rec, "v_q"), self._record_leaf(rec, "v_scale"))
+        else:
+            kb, vb = self._record_leaf(rec, "k"), self._record_leaf(rec, "v")
+        assert len(dst) == kb.shape[1], "swap record / page-table mismatch"
+        # exactly the record's blocks: no padding id reaches the scatter
+        scatter_blocks(pool.k, pool.v, upload(np.asarray(dst, np.int64), self.device), kb, vb)
+        pool.lengths[slot] = pk.length
+        self._restore_slot_state(slot, pk, rec)
+        self._slot_len[slot] = pk.length
+        self._slot_limit[slot] = pk.limit
+        self._active[slot] = True
+
+    def _resume_fixed_swap_in(self, req: Request, pk: _ParkedState, rec) -> None:
+        """The fixed pool's restore: the swap unit is the slot's row."""
+        pool = self.pool
+        slot = pool.claim()
+        self._slot_req[slot] = req
+        pool.k[:, slot] = self._record_leaf(rec, "k")
+        pool.v[:, slot] = self._record_leaf(rec, "v")
+        pool.lengths[slot] = pk.length
+        self._restore_slot_state(slot, pk, rec)
+        self._slot_len[slot] = pk.length
+        self._active[slot] = True
+
+    def _restore_slot_state(self, slot: int, pk: _ParkedState, rec) -> None:
+        self._cur_tok[slot] = pk.cur_tok
+        self._gen[slot] = pk.gen_count
+        self._rngs[slot] = torch.from_numpy(pk.rng_key).to(self.device)
+        if self.paged:
+            self._limit[slot] = pk.limit
+        if self.speculate_k and rec is not None and "draft_k" in rec.arrays:
+            self._draft_k[:, slot] = self._record_leaf(rec, "draft_k")
+            self._draft_v[:, slot] = self._record_leaf(rec, "draft_v")
+
+    def _resume_reprefill(self, req: Request, pk: _ParkedState,
+                          reserve_tokens: Optional[int] = None, match=None, ext=None) -> None:
+        """Recompute a parked request's K/V: re-prefill ``prompt +
+        generated[:-1]`` through the normal admission, then pin the resume
+        point (the admission's sampled token is dropped, never emitted, and
+        the generation counter restored, so the stream folds the same rng
+        indices). ``reserve_tokens`` is the reservation :meth:`_resume_one`
+        checked, ``match`` its prefix lookup against the extended prompt."""
+        rid = req.request_id
+        if reserve_tokens is not None:
+            self._pending_budget[rid] = int(reserve_tokens)
+        if ext is None:
+            prior = np.asarray(self.results[rid][:pk.generated - 1], np.int32)
+            ext = np.concatenate([np.asarray(req.prompt, np.int32), prior])
+        assert ext.size == pk.length, "resume point drifted from the mirror"
+        if match is not None and (match[0] or match[2]):
+            self._pending_match[rid] = match
+        synth = Request(request_id=rid, prompt=ext, max_new_tokens=pk.limit - int(ext.size),
+                        eos_id=req.eos_id, rng_seed=req.rng_seed,
+                        deadline_tick=req.deadline_tick, submit_tick=req.submit_tick)
+        self._resuming_rid = rid
+        try:
+            state = self._admit_dispatch([synth])
+        finally:
+            self._resuming_rid = None
+            # the slot map points at the ORIGINAL request: retirement reads
+            # its max_new_tokens
+            for s, r in enumerate(self._slot_req):
+                if r is synth:
+                    self._slot_req[s] = req
+        slot = int(state[1][0])
+        self._cur_tok[slot] = pk.cur_tok
+        self._gen[slot] = pk.gen_count
+        self._active[slot] = True
 
     # -- lifecycle --------------------------------------------------------
 
@@ -798,13 +1352,18 @@ class Engine:
         return self.results.pop(request_id), self.status.pop(request_id)
 
     def cancel(self, request_id: int) -> bool:
-        """Cancel a queued or running request; a running one's slot (and on
-        the paged pool its blocks and reservation) come back at once. The
+        """Cancel a queued, parked or running request; a running one's slot
+        (and on the paged pool its blocks and reservation) come back at once,
+        a parked one's swap record goes. The
         partial result stays poppable with status "cancelled". False for an
         unknown or finished id. Not thread-safe: through a server, call
         ``ServingServer.cancel``."""
         tr = self.tracer
         if self.scheduler.cancel(request_id):
+            # a parked request takes its resume state and swap record along
+            self._parked_state.pop(request_id, None)
+            if self._swap_store is not None:
+                self._swap_store.discard(request_id)
             self.status[request_id] = "cancelled"
             self.metrics.record_finish(request_id, "cancelled")
             ts0 = self._req_submit_ts.pop(request_id, None)
@@ -831,9 +1390,6 @@ class Engine:
         self._slot_len[slot] = 0
         self._slot_limit[slot] = 0
         self._slot_cow[slot] = 0
-
-    def preempt(self, request_id: int) -> bool:
-        raise NotImplementedError(f"Engine.preempt waits for {ADMISSION_ITEM}")
 
     def reconfigure(self, spec):
         raise NotImplementedError(f"Engine.reconfigure waits for {FLEET_ITEM}")
@@ -897,10 +1453,10 @@ class Engine:
         for i, r in enumerate(reqs):
             ids[i, s0 - tails[i]:] = r.prompt[starts[i]:]
         dev = self.device
-        ids_t = torch.as_tensor(ids).to(dev)
-        lens = torch.as_tensor(np.asarray(tails, np.int64)).to(dev)
-        slots_t = torch.as_tensor(np.asarray(slots, np.int64)).to(dev)
-        keys = prng.key_data([r.rng_seed for r in reqs], dev)
+        ids_t = upload(ids, dev)
+        lens = upload(np.asarray(tails, np.int64), dev)
+        slots_t = upload(np.asarray(slots, np.int64), dev)
+        keys = upload(prng.key_data([r.rng_seed for r in reqs]), dev)
         full_ids, full_lens = ids_t, lens  # what the draft prefills: whole prompts
         pool = self.pool
         if self.paged:
@@ -912,9 +1468,9 @@ class Engine:
                 full = np.zeros((len(reqs), s0f), np.int64)
                 for i, r in enumerate(reqs):
                     full[i, s0f - r.prompt.size:] = r.prompt
-                full_ids = torch.as_tensor(full).to(dev)
-                full_lens = torch.as_tensor(np.asarray([r.prompt.size for r in reqs],
-                                                       np.int64)).to(dev)
+                full_ids = upload(full, dev)
+                full_lens = upload(np.asarray([r.prompt.size for r in reqs],
+                                                       np.int64), dev)
             self._admit_shapes.add(signature)
         else:
             for slot, r in zip(slots, reqs):
@@ -930,26 +1486,45 @@ class Engine:
             self._draft_v[:, slots_t] = dcache.v.to(self._draft_v.dtype)
         tok0 = sample_token(logits, keys, torch.zeros_like(lens), self.temperature,
                             self.top_k)
-        pool.lengths[slots_t] = torch.as_tensor(
-            np.asarray([r.prompt.size for r in reqs], np.int64)).to(dev)
+        pool.lengths[slots_t] = upload(
+            np.asarray([r.prompt.size for r in reqs], np.int64), dev)
         self._cur_tok[slots_t] = tok0
         self._gen[slots_t] = 1
         self._rngs[slots_t] = keys
         for i, r in enumerate(reqs):
             # the hit-rate denominator counts only admissions that COULD
-            # hit: past one page, or (COW) past one token
+            # hit: past one page, or (COW) past one token; a re-prefill
+            # resume is billed but never counted as a second miss
+            resuming = r.request_id == self._resuming_rid
             eligible = prefix and (r.prompt.size > self.page_size
-                                   or (self.cow_tails and r.prompt.size > 1))
+                                   or (self.cow_tails and r.prompt.size > 1)) and not resuming
             full_m, _, tail_t = matches[i]
             n_shared = len(full_m) + (1 if tail_t else 0)
             self.metrics.record_admission(computed_tokens=tails[i], skipped_tokens=starts[i],
                                           shared_blocks=n_shared,
                                           prefix_hit=(starts[i] > 0) if eligible else None)
+            if resuming and self.paged:
+                # tokens a prefix-aware resume did not recompute
+                self.metrics.record_resume_prefill(computed=tails[i], saved=starts[i])
             if tr.enabled:
                 tr.event("req/admit", cat="request", rid=r.request_id,
                          computed_tokens=int(tails[i]), skipped_tokens=int(starts[i]),
                          shared_blocks=int(n_shared), **self._obs_args)
-        return reqs, slots, tok0
+        return reqs, slots, self._read_later(tok0)
+
+    def _read_later(self, t: torch.Tensor):
+        """Queue ``t``'s copy to pinned host memory right behind its producer
+        and mark it with an event, so a reader after later dispatches waits
+        for the producer alone (a plain ``.cpu()`` then would wait for
+        everything queued since). Returns ``(host tensor, event)``; on the
+        CPU, ``(t, None)``."""
+        if t.device.type != "cuda":
+            return t, None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
 
     def _admit_paged(self, reqs, slots, matches, shared, starts, s0, ids_t, lens):
         """The paged half of :meth:`_admit_dispatch`: page bookkeeping, the
@@ -975,7 +1550,10 @@ class Engine:
             budget = r.prompt.size + r.max_new_tokens
             # only FULL shared pages discount the reservation: an adopted
             # COW tail's fork block is paid for up front
-            pool.reserve(slot, budget, shared_blocks=len(full_m))
+            # the reservation is the admission policy's budget; the write
+            # limit stays the worst case
+            pool.reserve(slot, self._pending_budget.pop(r.request_id, budget),
+                         shared_blocks=len(full_m))
             if adopt:
                 pool.adopt_shared(slot, adopt)
             if tail_t:
@@ -994,25 +1572,25 @@ class Engine:
             self._slot_len[slot] = r.prompt.size
             self._slot_limit[slot] = budget
         if any(starts):
-            starts_t = torch.as_tensor(np.asarray(starts, np.int64)).to(dev)
-            read_t = torch.as_tensor(read_tables).to(dev)
+            starts_t = upload(np.asarray(starts, np.int64), dev)
+            read_t = upload(read_tables, dev)
             signature = ("prefix", len(reqs), s0, prefix_pages)
             if self.cow_tails:
                 _, _, logits = prefill_paged_cow(
                     self.params, self.cfg, ids_t, lens, starts_t,
-                    torch.as_tensor(np.asarray(shared, np.int64)).to(dev), pool.k, pool.v,
-                    read_t, torch.as_tensor(write_tables).to(dev))
+                    upload(np.asarray(shared, np.int64), dev), pool.k, pool.v,
+                    read_t, upload(write_tables, dev))
             else:
                 _, _, logits = prefill_paged(self.params, self.cfg, ids_t, lens, pool.k, pool.v,
-                                             torch.as_tensor(page_rows).to(dev),
+                                             upload(page_rows, dev),
                                              start_lens=starts_t, read_tables=read_t)
         else:
             # an all-miss batch (or prefix off): no prefix to gather
             signature = (len(reqs), s0, s0_pages)
             _, _, logits = prefill_paged(self.params, self.cfg, ids_t, lens, pool.k, pool.v,
-                                         torch.as_tensor(page_rows).to(dev))
-        self._limit[torch.as_tensor(np.asarray(slots, np.int64)).to(dev)] = \
-            torch.as_tensor(limits).to(dev)
+                                         upload(page_rows, dev))
+        self._limit[upload(np.asarray(slots, np.int64), dev)] = \
+            upload(limits, dev)
         if self.prefix_cache is not None:
             # index the batch's new pages for LATER admissions (after the
             # prefill, so no lookup in this batch could name them)
@@ -1023,13 +1601,20 @@ class Engine:
                     self.prefix_cache.insert_tail(r.prompt, int(pool.page_table[slot, full]))
         return logits, signature
 
-    def _admit_finish(self, state, emitted, finished, admitted) -> None:
-        """Read the batch's first tokens back, activate the slots, emit."""
-        reqs, slots, tok0 = state
-        for slot, req, tok in zip(slots, reqs, tok0.cpu().tolist()):
-            self._active[slot] = True
-            self.status[req.request_id] = "running"
-            admitted.append(req.request_id)
+    def _admit_finish(self, state, emitted, finished, admitted, activate: bool = True) -> None:
+        """Read the batch's first tokens back and emit them; activate the
+        slots unless the overlapped tick already did (``activate=False``)."""
+        reqs, slots, (tok0, event) = state
+        if event is not None:
+            event.synchronize()
+        for slot, req, tok in zip(slots, reqs, tok0.tolist()):
+            if self._slot_req[slot] is not req:
+                # the slot changed hands between dispatch and readback
+                continue
+            if activate:
+                self._active[slot] = True
+                self.status[req.request_id] = "running"
+                admitted.append(req.request_id)
             self._emit(slot, req, int(tok), emitted, finished, first=True)
 
     def _emit(self, slot: int, req: Request, token: int, emitted, finished,
@@ -1050,6 +1635,9 @@ class Engine:
         self.status[rid] = "done"
         finished.append((rid, reason))
         self.metrics.record_finish(rid, reason)
+        if self.admission_policy is not None:
+            # a completion is the quantile estimator's only food
+            self.admission_policy.observe_finish(len(out))
         tr = self.tracer
         ts0 = self._req_admit_ts.pop(rid, None)
         if tr.enabled and ts0 is not None:

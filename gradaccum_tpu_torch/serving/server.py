@@ -216,6 +216,28 @@ class ServingServer:
                     "forks_elided": m.cow_forks_elided,
                     "resume_prefill_tokens_saved": m.resume_prefill_tokens_saved,
                 }
+        policy = engine.admission_policy
+        if policy is not None:
+            # how optimistic the gate runs, the preemption bill, the backlog
+            out["admission"] = {
+                **policy.status(),
+                "parked": engine.scheduler.parked_depth,
+                "swap_ins": m.swap_ins,
+                "reprefills": m.reprefills,
+                "swap_fallbacks": m.swap_fallbacks,
+                "swap_bytes_out": m.swap_bytes_out,
+                "swap_bytes_in": m.swap_bytes_in,
+                "governed": policy.governed(engine.tick_count),
+            }
+        store = engine._swap_store
+        if store is not None:
+            # the bounded host store: what parked K/V holds against its cap
+            out["swap_store"] = {
+                "held_bytes": store.held_bytes,
+                "max_bytes": store.max_bytes,
+                "records": len(store),
+                "evictions": store.evictions,
+            }
         out["memory"] = engine.memory_stats()
         return out
 

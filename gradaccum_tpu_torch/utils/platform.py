@@ -33,3 +33,16 @@ def synchronize(device: torch.device) -> None:
 
 def device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+def upload(array, device: torch.device) -> torch.Tensor:
+    """Host data (numpy or a CPU tensor) onto ``device`` without waiting for
+    the card: staged through pinned memory and copied with
+    ``non_blocking=True``, it queues behind the card's work, where a plain
+    ``.to("cuda")`` of pageable memory synchronizes the stream first. The
+    caching host allocator keeps the staging buffer until the copy is done.
+    On the CPU it is ``torch.as_tensor``."""
+    t = torch.as_tensor(array)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

@@ -295,7 +295,8 @@ def test_cache_dtype_bf16(lm):
 
 
 def test_later_items_raise(lm):
-    """The calls of items 5b and 5c now run; int8 (5e) still raises."""
+    """The calls of items 5b, 5c and 5e now run: the int8 pool (5e) is a
+    QuantKV of codes and one scale per head vector."""
     _, _, tcfg, _, tree = lm
     tok = torch.tensor([[3, 4, 5]])
     cache = tdec.init_cache(tcfg, 1, 8)
@@ -311,7 +312,8 @@ def test_later_items_raise(lm):
                                       read_tables=[[0]])
     _, _, cow = tdec.prefill_paged_cow(tree, tcfg, ids, [4], [4], [4], k, v, [[0]], [[0, 2]])
     assert torch.equal(logits, cow)
-    with pytest.raises(NotImplementedError, match="item 5e"):
-        tdec.init_paged_pool(tcfg, 4, 4, cache_dtype=torch.int8)
+    qk, qv = tdec.init_paged_pool(tcfg, 4, 4, cache_dtype=torch.int8)
+    assert qk.q.dtype == torch.int8 and qk.q.shape == k.shape
+    assert qv.scale.dtype == torch.float32 and qv.scale.shape == k.shape[:-1]
     with pytest.raises(ValueError, match="paged pool layout"):  # JAX's refusal
         tdec.init_cache(tcfg, 2, 8, cache_dtype=torch.int8)

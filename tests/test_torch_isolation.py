@@ -4,7 +4,9 @@
   loads neither ``jax`` nor ``gradaccum_tpu``; with ``jax``,
   ``gradaccum_tpu``, ``triton``, ``transformers`` and ``safetensors`` all
   blocked, every module still imports and a HuggingFace checkpoint
-  directory still loads (the card's machine has neither of the last two).
+  directory still loads (the card's machine has neither of the last two);
+  with ``ml_dtypes`` blocked too (the card's numpy has no bfloat16), a
+  bfloat16 pool's K/V goes through the swap store and the disk rung.
 - Without a card, the Estimator and the entry points (BERT, MNIST, housing)
   at their default device raise instead of running on the CPU (housing's
   ``--export-dir`` writes an artifact that loads), and
@@ -74,7 +76,45 @@ NEW_MODULES = ("obs", "obs.trace", "obs.metrics", "obs.flight", "resilience",
                # the serving stack's core
                "utils.prng", "models.gpt_decode", "serving", "serving.scheduler",
                "serving.metrics", "serving.cache_pool", "serving.engine", "serving.server",
-               "examples.bench_serving")
+               "examples.bench_serving",
+               # admission control, swap, the tiered store and the int8 KV codec
+               "serving.admission", "serving.swap", "memory.tiers",
+               "examples.bench_admission", "examples.bench_mem")
+
+
+# a bfloat16 pool's K/V through the host store and the disk rung, with
+# ml_dtypes blocked as well: the card's machine has numpy without it, so a
+# record must hold the raw bits (an int16 view) and never a numpy bfloat16
+_BF16_SWAP_PROBE = """
+import sys, tempfile
+for name in ("jax", "jaxlib", "flax", "gradaccum_tpu", "ml_dtypes"):
+    sys.modules[name] = None
+import numpy as np, torch
+from gradaccum_tpu_torch.interop import params_tree
+from gradaccum_tpu_torch.memory.tiers import TieredStore
+from gradaccum_tpu_torch.models.gpt import GPTConfig, gpt_lm_bundle
+from gradaccum_tpu_torch.serving import Engine
+cfg = GPTConfig.tiny_for_tests(dropout=0.0)
+params = params_tree(gpt_lm_bundle(cfg).init(0, "cpu"))
+prompt = np.arange(1, 7, dtype=np.int32)
+streams = []
+for swap in ("host", "tiered", None):
+    kw = dict(swap=swap, admission="quantile") if swap else {}
+    eng = Engine(params, cfg, num_slots=2, max_len=32, page_size=4, device="cpu",
+                 cache_dtype=torch.bfloat16, **kw)
+    if swap == "tiered":
+        eng._swap_store = TieredStore(host_max_bytes=64, disk_dir=tempfile.mkdtemp())
+    rid = eng.submit(prompt, 10)
+    if swap:
+        for _ in range(3):
+            eng.step()
+        assert eng.preempt(rid)
+    eng.run_until_idle()
+    assert eng.metrics.swap_ins == (1 if swap else 0), swap
+    streams.append(list(eng.results[rid]))
+assert streams[0] == streams[1] == streams[2], streams
+print("ok", "ml_dtypes" in sys.modules and sys.modules["ml_dtypes"] is None)
+"""
 
 
 def _run(args, cwd=ROOT, timeout=120):
@@ -106,6 +146,12 @@ def test_the_port_imports_with_jax_triton_transformers_and_safetensors_blocked()
     assert out.returncode == 0, out.stderr
     n_modules, n_params, vocab = map(int, out.stdout.split())
     assert n_modules >= 23 + len(NEW_MODULES) and n_params > 0 and vocab == 24
+
+
+def test_bf16_swap_records_need_no_numpy_bfloat16():
+    out = _run(["-c", _BF16_SWAP_PROBE])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["ok", "True"]
 
 
 def _tiny_estimator(**kw):

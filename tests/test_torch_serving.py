@@ -18,8 +18,8 @@ port and, where the case has numbers, on JAX beside it:
   stats;
 - every knob and method of a later ROADMAP.md item raises
   ``NotImplementedError`` naming it; those of items that have landed since
-  (prefix sharing, 5b; speculation, 5c) work instead; an engine without a
-  card raises.
+  (prefix sharing, 5b; speculation, 5c; admission, swap and overlap, 5d;
+  int8 KV, 5e) work instead; an engine without a card raises.
 
 JAX's cases with no counterpart: the fault-recovery and requeue cases
 (``test_paged_engine_recovers_from_tick_fault``; ``Engine.recover`` waits
@@ -531,12 +531,12 @@ def _landed_engine(lm, kw):
 REFUSED = {
     "prefix_cache": (dict(page_size=4, prefix_cache=True), None),
     "speculate_k": (dict(speculate_k=2), None),
-    "overlap_prefill": (dict(overlap_prefill=True), "5d"),
-    "admission": (dict(page_size=4, admission="quantile"), "5d"),
-    "swap": (dict(swap="recompute"), "5d"),
-    "swap_max_bytes": (dict(swap_max_bytes=1 << 20), "5d"),
-    "victim_score": (dict(victim_score="deadline"), "5d"),
-    "int8": (dict(page_size=4, cache_dtype=torch.int8), "5e"),
+    "overlap_prefill": (dict(overlap_prefill=True), None),
+    "admission": (dict(page_size=4, admission="quantile"), None),
+    "swap": (dict(swap="recompute"), None),
+    "swap_max_bytes": (dict(swap_max_bytes=1 << 20), None),
+    "victim_score": (dict(victim_score="deadline"), None),
+    "int8": (dict(page_size=4, cache_dtype=torch.int8), None),
     "mesh": (dict(mesh=object()), "5g"),
 }
 
@@ -546,14 +546,17 @@ def test_engine_knobs_of_later_items_raise(lm, knob):
     kw, item = REFUSED[knob]
     if item is None:
         engine = _landed_engine(lm, kw)
-        assert engine.manifest()[knob] == kw[knob]
+        if knob == "int8":
+            assert engine.manifest()["cache_dtype"] == "int8"
+        else:
+            assert engine.manifest()[knob] == kw[knob]
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         _engine(lm, num_slots=2, max_len=16, **kw)
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda e, s: e.preempt(0), "5d"), (lambda e, s: e.reconfigure(None), "5g"),
+    (lambda e, s: e.preempt(0), None), (lambda e, s: e.reconfigure(None), "5g"),
     (lambda e, s: e.recover(), "5h"), (lambda e, s: s.request_recover("x"), "5h"),
     (lambda e, s: s.request_reconfig(None), "5g"), (lambda e, s: s.reconfigure(None), "5g"),
     (lambda e, s: ServingServer(e, watchdog_timeout=1.0), "5h"),

@@ -12,16 +12,16 @@ sharing every page, speculation over COW tails, the operator surfaces, the
 full-chunk entry dropped with an elided fork, ``is_live`` ignoring sub-page
 entries, and COW needing the prefix cache.
 
-Left out, with their items: the ``PoolPressure`` leg of
-``test_pool_fork_cow_accounting`` (an overcommitting pool,
-``allow_overcommit``), ``test_cow_fork_under_forced_preemption_parity``,
-``test_unforked_cow_preemption_resumes_clean``,
-``test_swap_degrade_releases_cow_refs_and_readopts``,
-``test_deadline_victim_cost_orders_by_progress_and_wait``,
-``test_engine_deadline_victim_score_picks_least_progress`` and
-``test_bench_cow_fast`` (``tools/bench_cow.py`` needs ``admission=`` and
-``swap="recompute"``): admission, preemption and swap, 5d;
-``test_cow_reconfig_pool_shrink_parity``: reconfiguration, 5g.
+Since admission and swap landed (5d): the ``PoolPressure`` leg of
+``test_pool_fork_cow_accounting`` (as its own case), a COW sharer preempted
+after its fork on both swap legs, an unforked sharer preempted with nothing
+private to swap, and a rotted swap record degrading to a prefix-aware
+re-prefill without leaking a reference. JAX's deadline victim cases are in
+``tests/test_torch_serving_admission.py``.
+
+Left out: ``test_bench_cow_fast`` (``tools/bench_cow.py`` is not ported;
+ROADMAP.md) and ``test_cow_reconfig_pool_shrink_parity`` (reconfiguration,
+5g).
 """
 
 import importlib
@@ -38,6 +38,7 @@ from gradaccum_tpu_torch.models import gpt_decode as tdec
 from gradaccum_tpu_torch.serving import (
     Engine,
     PagedCachePool,
+    PoolPressure,
     PrefixCache,
     ServingServer,
     SimulationDriver,
@@ -194,6 +195,129 @@ def test_pool_fork_cow_accounting(lm):
     got = scenario(PagedCachePool, tcfg)
     assert got == scenario(jserving.PagedCachePool, jcfg)
     assert got == [(2, 2), (True, True, 1, 1, 1, 0, 1, True), 2, (None, 2, 1, 1), (0, 6, 0)]
+
+
+def test_pool_fork_cow_pressure_under_overcommit(lm):
+    """JAX's pressure leg of ``test_pool_fork_cow_accounting``: a fork
+    against a dry free list under ``allow_overcommit`` raises
+    ``PoolPressure``, on both pools at the same state."""
+    jcfg, _, tcfg, _ = lm
+
+    def scenario(make, cfg, pressure):
+        pool = make(cfg, num_slots=4, max_len=32, page_size=4, num_blocks=6)
+        a = pool.claim()
+        pool.reserve(a, 8)
+        pool.alloc_to(a, 7)
+        tail = pool.blocks_of(a)[1]
+        c = pool.claim()
+        pool.reserve(c, 8)
+        pool.adopt_shared(c, [tail])
+        pool.allow_overcommit = True
+        e = pool.claim()
+        pool.reserve(e, 4)
+        pool.adopt_shared(e, [tail])
+        pool.alloc_to(c, 4 * (len(pool.blocks_of(c)) + pool.free_blocks))
+        seen = [pool.free_blocks, pool.refcount(tail), pool.blocks_of(c)]
+        with pytest.raises(pressure) as exc:
+            pool.fork_cow(e, 0)
+        return seen + [exc.value.slot, exc.value.need_blocks, pool.blocks_of(e)]
+
+    got = scenario(PagedCachePool, tcfg, PoolPressure)
+    assert got == scenario(jserving.PagedCachePool, jcfg, jserving.PoolPressure)
+    assert got[0] == 0
+
+
+# -- preemption of COW sharers (5d) -----------------------------------------------------
+
+
+def _cow_pair(seed):
+    rng = np.random.default_rng(seed)
+    sys_p = rng.integers(0, 96, 9).astype(np.int32)
+    return (np.concatenate([sys_p, rng.integers(0, 96, 2).astype(np.int32)]),
+            np.concatenate([sys_p, rng.integers(0, 96, 3).astype(np.int32)]))
+
+
+@pytest.mark.parametrize("swap", ["host", "recompute"])
+def test_cow_fork_under_forced_preemption_parity(lm, swap):
+    """A COW sharer preempted after its fork resumes token for token on both
+    swap legs (re-prefill re-adopts the shared head); the survivor is
+    untouched and the pool drains. Bills and pool states equal JAX's."""
+    p1, p2 = _cow_pair(10)
+
+    def scenario(side):
+        eng = side.engine(num_slots=3, max_len=32, page_size=4, prefix_cache=True,
+                          admission="quantile", swap=swap)
+        r1 = eng.submit(p1, 10)
+        eng.step()
+        r2 = eng.submit(p2, 10)
+        eng.step()
+        seen = [eng.metrics.cow_adoptions, eng.preempt(r2), eng.status[r1]]
+        eng.run_until_idle()
+        m = eng.metrics
+        return seen + [_ints(eng.results[r1]), _ints(eng.results[r2]), m.swap_ins,
+                       m.reprefills, m.resume_prefill_tokens_saved, _drained(eng.pool)]
+
+    got = _both(lm, scenario)
+    assert got[0] >= 1 and got[1] is True and got[2] == "running"
+    assert got[3] == _solo(lm, p1, 10) and got[4] == _solo(lm, p2, 10)
+    if swap == "host":
+        assert got[5] == 1
+    else:
+        assert got[6] == 1 and got[7] >= 8
+    assert got[8] is True
+
+
+def test_unforked_cow_preemption_resumes_clean(lm):
+    """A fully shared stream preempted before its first decode write has
+    nothing private to swap: it parks an empty footprint and resumes by a
+    1-token re-prefill that re-adopts everything."""
+    prompt = np.random.default_rng(11).integers(0, 96, 9).astype(np.int32)
+
+    def scenario(side):
+        eng = side.engine(num_slots=2, max_len=32, page_size=4, prefix_cache=True,
+                          admission="quantile", swap="host")
+        r1 = eng.submit(prompt, 8)
+        eng.step()
+        r2 = eng.submit(prompt.copy(), 8)
+        _admit_alone(side, eng, r2, prompt)
+        eng._active[1] = True
+        eng.status[r2] = "running"
+        seen = [int(eng._slot_cow[1]), eng.preempt(r2), eng.metrics.swap_outs]
+        eng.run_until_idle()
+        return seen + [_ints(eng.results[r1]), _ints(eng.results[r2]), eng.metrics.reprefills,
+                       _drained(eng.pool)]
+
+    got = _both(lm, scenario)
+    assert got[:3] == [9, True, 0]
+    assert got[3] == got[4] == _solo(lm, prompt, 8)
+    assert got[5:] == [1, True]
+
+
+def test_swap_degrade_releases_cow_refs_and_readopts(lm):
+    """A rotted record at resume degrades to re-prefill without leaking a
+    shared or COW reference taken for the abandoned swap plan: the degraded
+    resume re-adopts through the prefix-aware path, the pool drains."""
+    p1, p2 = _cow_pair(12)
+
+    def scenario(side):
+        eng = side.engine(num_slots=3, max_len=32, page_size=4, prefix_cache=True,
+                          admission="quantile", swap="host")
+        r1 = eng.submit(p1, 10)
+        eng.step()
+        r2 = eng.submit(p2, 10)
+        eng.step()
+        eng.preempt(r2)
+        eng._swap_store._recs[r2].arrays["k"].flat[0] += 1.0
+        eng.run_until_idle()
+        m = eng.metrics
+        return [m.swap_fallbacks, m.swap_ins, m.reprefills, m.resume_prefill_tokens_saved,
+                _ints(eng.results[r1]), _ints(eng.results[r2]), _drained(eng.pool),
+                len(eng._swap_store)]
+
+    got = _both(lm, scenario)
+    assert got[:3] == [1, 0, 1] and got[3] >= 8
+    assert got[4] == _solo(lm, p1, 10) and got[5] == _solo(lm, p2, 10)
+    assert got[6:] == [True, 0]
 
 
 # -- parity gates ---------------------------------------------------------------------

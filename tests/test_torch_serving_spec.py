@@ -17,11 +17,11 @@ cases of JAX's file.
 Left out, with their items: ``test_spec_parity_tp_mesh`` (the serving mesh,
 5g); ``test_spec_recover_dirty_draft_cache_and_requeue_parity``
 (``Engine.recover``, 5h); ``test_sentinel_degenerate_draft_fires_and_resolves``
-(``obs/sentinel.py``, 5f); ``test_overlap_prefill_parity_fixed_and_paged``,
-``test_overlap_prefill_fault_recovers_admitted_requests`` and the
-``overlap_prefill`` knob of ``test_spec_accept_rate_in_metrics_and_manifest``
-(5d); the free-running server cases (5g); ``test_bench_spec_fast``
-(``tools/bench_spec.py`` needs ``overlap_prefill``, 5d).
+(``obs/sentinel.py``, 5f); ``test_overlap_prefill_fault_recovers_admitted_requests``
+(``Engine.recover``, 5h); the free-running server cases (5g);
+``test_bench_spec_fast`` (``tools/bench_spec.py`` is not ported).
+``test_overlap_prefill_parity_fixed_and_paged`` is in
+``tests/test_torch_serving_admission.py`` with the rest of item 5d.
 """
 
 import dataclasses
@@ -192,8 +192,8 @@ def _error(fn):
 
 def test_spec_validation_with_jax_s_messages(lm):
     """Each bad construction raises JAX's ValueError with JAX's message; an
-    int8 cache with speculation is JAX's ValueError, before the int8 codec's
-    refusal (5e)."""
+    int8 cache with speculation is JAX's ValueError, and an int8 paged engine
+    without speculation builds (5e)."""
     jcfg, params, tcfg, tree, _, _ = lm
     jd, jdc, td, tdc = _draft(lm, "truncated")
     jbad, tbad = dataclasses.replace(jdc, vocab_size=7), dataclasses.replace(tdc, vocab_size=7)
@@ -213,8 +213,8 @@ def test_spec_validation_with_jax_s_messages(lm):
         assert _error(lambda: Engine(tree, tcfg, speculate_k=2, device="cpu", **tkw)) == want
     assert _error(lambda: Engine(tree, tcfg, speculate_k=-1, device="cpu")) == \
         _error(lambda: jserving.Engine(params, jcfg, speculate_k=-1))
-    with pytest.raises(NotImplementedError, match="item 5e"):
-        Engine(tree, tcfg, page_size=4, cache_dtype=torch.int8, device="cpu")
+    assert Engine(tree, tcfg, max_len=32, page_size=4, cache_dtype=torch.int8,
+                  device="cpu").manifest()["memory"]["kv_quant"] is True
     assert _error(lambda: tdec.truncate_draft_params(tree, tcfg, 3)) == \
         _error(lambda: jdec.truncate_draft_params(params, jcfg, 3))
 
