@@ -298,6 +298,35 @@ Phases, each of which fails the run if it fails:
     (``--overlap-profile``, a process of its own). (e) No flash kernel
     launches.
 
+27. serving recovery, the watchdog and the live ops plane, the same
+    GPT-Small model. (a) The CPU tests' fault schedule through
+    ``ServingServer`` (every request submitted before the loop starts):
+    ``MID_DECODE_TICK`` in the lockstep tick (fixed pool) and after both
+    dispatches of the overlapped one, ``POOL_PAGE_TABLE`` ``corrupt`` on a
+    paged pool with a prefix cache (``BlockTableCorruption`` at upload),
+    a crash mid speculative cycle (k = 4, overlapped), and ``MID_SWAP_IO``
+    crashing a victim's swap-out on phase 26's overcommitted leg: each
+    fault recovered once, every in-slot request requeued, the requeued
+    streams equal the calm run's under the near-tie rule, the pool
+    invariants after every recover (free + live blocks, refcounts against
+    the page tables, the prefix index, swap records); the ms of each
+    ``recover()`` and of the requeued re-prefills; then
+    ``max_engine_faults + 1`` consecutive faults fail every handle and
+    ``stop()`` raises. (b) A ``slow_tick`` of 10x ``watchdog_timeout``
+    fails its handle within twice the timeout; one of 0.1x is harmless.
+    (c) A server with a sentinel, ``default_serving_objectives`` and
+    ``telemetry_port=0``: two ticks slowed by 1 s fire
+    ``latency_cliff`` once, ``bind_default_remediations`` recovers and
+    requeues with token parity, the anomaly resolves; every endpoint
+    answers over HTTP and ``/metrics`` parses; ``/readyz`` and
+    ``/healthz`` answer 503 after a give-up. No flash kernel launches in
+    (a)-(c). (d) The BERT-Small main path (bf16, micro 8 x K=4, scan) for
+    2 updates with ``RunConfig(slos=, sentinel=)``: losses, weights and
+    launch counts equal the run without them. (e) ``bench_slo`` on the
+    card, 48 requests: the ops plane's cost per tick over the baseline
+    tick at GPT-Small width and at JAX's tiny bench model, each at most
+    1.02 (JAX's gate), with the card's name and power limit.
+
 The last three lines of standard output are the card's name and power
 limit, a JSON line describing every kernel in each dtype (bfloat16: launches
 from the main path, and at phase 23's long-context shapes; float32: from
@@ -4796,6 +4825,446 @@ def phase_admission(serving):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# phase 27: serving recovery, the watchdog and the live ops plane
+# --------------------------------------------------------------------------
+
+RECOVER_SYS_LEN = 64  # the prefix leg's shared system prompt: 4 pages of 16
+RECOVER_TRACE = dict(n=4, prompt=(32, 96), new=24)
+RECOVER_ENGINE = dict(num_slots=4, max_len=256, decode_block=4)
+WATCHDOG_TIMEOUT = 0.5  # s: a one-step GPT-Small tick takes milliseconds
+WATCHDOG_STALL = 10 * WATCHDOG_TIMEOUT
+CLIFF_TICKS = (12, 13)  # ticks of the ops-plane leg slowed by CLIFF_SLEEP
+CLIFF_SLEEP = 1.0
+RECOVER_DIR = os.path.join(ROOT, "build", "chip_smoke_recovery")
+
+
+def _recover_prompts(cfg, salt, system=0):
+    """RECOVER_TRACE's prompts from seed SERVE_SEED + salt, behind a shared
+    ``system``-token prompt when given."""
+    import numpy as np
+
+    rng = np.random.default_rng(SERVE_SEED + salt)
+    head = rng.integers(0, cfg.vocab_size, system).astype(np.int32)
+    lo, hi = RECOVER_TRACE["prompt"]
+    return [np.concatenate([head, rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi + 1)))
+                            .astype(np.int32)]) for _ in range(RECOVER_TRACE["n"])]
+
+
+def _pool_invariants(engine, failed=()):
+    """What must hold after ``recover()``: every slot released and gated;
+    on a paged pool free + live blocks = num_blocks, each block's refcount
+    the page-table rows holding it, each row its slot's block list, the
+    prefix index and the radix tails naming live blocks only; no swap
+    record of a recovered request. Returns the violations."""
+    from collections import Counter
+
+    bad = []
+    pool = engine.pool
+    for s, req in enumerate(engine._slot_req):
+        if req is not None or engine._active[s] or engine._slot_len[s]:
+            bad.append(f"slot {s} not released")
+    if engine.paged:
+        held = Counter()
+        for s in range(pool.num_slots):
+            row = [int(b) for b in pool.page_table[s] if b != pool.num_blocks]
+            if row != pool.blocks_of(s):
+                bad.append(f"slot {s}: row {row} against blocks {pool.blocks_of(s)}")
+            held.update(pool.blocks_of(s))
+        live = sum(pool.refcount(b) > 0 for b in range(pool.num_blocks))
+        if pool.free_blocks + live != pool.num_blocks:
+            bad.append(f"{pool.free_blocks} free + {live} live != {pool.num_blocks}")
+        bad += [f"block {b}: refcount {pool.refcount(b)}, rows {held[b]}"
+                for b in range(pool.num_blocks) if pool.refcount(b) != held[b]]
+        if engine.prefix_cache is not None:
+            named = set(engine.prefix_cache._by_block) | set(engine.prefix_cache._tails._by_value)
+            bad += [f"the prefix index names freed block {b}" for b in sorted(named)
+                    if pool.refcount(b) == 0]
+    store = engine._swap_store
+    if store is not None:
+        bad += [f"a swap record of {r.request_id} survived" for r in failed
+                if r.request_id in store]
+    return bad
+
+
+def _faulted_serve(tag, engine, prompts, n, specs, **server_kw):
+    """Serve ``prompts`` through a ServingServer under the fault schedule
+    ``specs`` (FaultSpec keyword dicts), every request submitted before the
+    loop starts. Each recover is timed and followed by the pool invariants.
+    Returns the streams (None for a failed request), the counts, the
+    recover ms and the requeued re-prefill ms (the serve/prefill spans
+    after the first recover: they read the first tokens back)."""
+    from gradaccum_tpu_torch.obs import trace as obs_trace
+    from gradaccum_tpu_torch.resilience import faults
+    from gradaccum_tpu_torch.serving import ServingServer
+
+    recover_ms, bad = [], []
+    plain = engine.recover
+
+    def recover():
+        t0 = time.perf_counter()
+        failed = plain()
+        recover_ms.append(1e3 * (time.perf_counter() - t0))
+        bad.extend(_pool_invariants(engine, failed))
+        return failed
+
+    engine.recover = recover
+    tracer = obs_trace.Tracer(capacity=None)
+    inj = faults.FaultInjector(faults.FaultSchedule([faults.FaultSpec(**s) for s in specs]))
+    with faults.installed(inj), obs_trace.installed(tracer):
+        server = ServingServer(engine, **server_kw)
+        handles = [server.submit(p, n, rng_seed=i) for i, p in enumerate(prompts)]
+        server.start()
+        streams = []
+        for h in handles:
+            try:
+                streams.append(list(h.result(timeout=300)[0]))
+            except RuntimeError:
+                streams.append(None)
+        try:
+            server.stop()
+            stopped = "ok"
+        except RuntimeError as e:
+            stopped = type(e.__cause__).__name__
+    check(not specs or inj.fired, f"[recovery] {tag}: the fault schedule never fired")
+    check(not bad, f"[recovery] {tag}: pool invariants broken after recover: {bad[:4]}")
+    events = tracer.snapshot()
+    names = [e["name"] for e in events]
+    first = names.index("serve/recover") if "serve/recover" in names else len(events)
+    counts = dict(
+        fired=[tuple(f) for f in inj.fired],
+        faults=names.count("serve/engine_fault"),
+        failed=sum(e["args"]["failed"] for e in events if e["name"] == "serve/recover"),
+        requeued=names.count("req/requeue"),
+        given_up=sum(1 for e in events if e["name"] == "serve/engine_fault"
+                     and e["args"]["give_up"]),
+        errors=sorted({e["args"]["error"] for e in events if e["name"] == "serve/engine_fault"}),
+        stopped=stopped)
+    prefill_ms = [e["dur"] / 1e3 for e in events[first:] if e["name"] == "serve/prefill"]
+    return streams, counts, recover_ms, prefill_ms
+
+
+def _recover_legs(params, cfg):
+    """(a): the fault schedule of the CPU tests on the card; requeued
+    streams against the calm run under the near-tie rule."""
+    import numpy as np
+
+    from gradaccum_tpu_torch.models.gpt_decode import truncate_draft_params
+    from gradaccum_tpu_torch.serving import Engine
+
+    n = RECOVER_TRACE["new"]
+    prompts = _recover_prompts(cfg, 30)
+    prefix_prompts = _recover_prompts(cfg, 31, system=RECOVER_SYS_LEN)
+    draft = truncate_draft_params(params, cfg, 1)
+    calm = _faulted_serve("calm", Engine(params, cfg, **RECOVER_ENGINE), prompts, n, [])[0]
+    calm_prefix = _faulted_serve("calm prefix", Engine(params, cfg, **RECOVER_ENGINE),
+                                 prefix_prompts, n, [])[0]
+    crash = [dict(point="mid_decode_tick", at=2)]
+    legs = [
+        ("MID_DECODE_TICK, lockstep", dict(), prompts, crash, calm),
+        ("MID_DECODE_TICK, overlapped", dict(overlap_prefill=True), prompts,
+         [dict(point="mid_decode_tick", at=0)], calm),
+        ("POOL_PAGE_TABLE corrupt, paged + prefix",
+         dict(page_size=16, num_blocks=64, prefix_cache=True), prefix_prompts,
+         [dict(point="pool_page_table", at=2, kind="corrupt")], calm_prefix),
+        ("mid spec cycle, k=4", dict(page_size=16, num_blocks=64, speculate_k=SPEC_K,
+                                     draft_params=draft[0], draft_cfg=draft[1],
+                                     decode_block=1, overlap_prefill=True),
+         prompts, crash, calm),
+    ]
+    cases, recover_ms, prefill_ms = [], [], []
+    for tag, kw, ps, specs, want in legs:
+        engine = Engine(params, cfg, **dict(RECOVER_ENGINE, **kw))
+        streams, counts, r_ms, p_ms = _faulted_serve(tag, engine, ps, n, specs,
+                                                     max_requeues=2)
+        check(counts["faults"] == 1 and counts["requeued"] == counts["failed"] >= 1
+              and counts["given_up"] == 0 and counts["stopped"] == "ok",
+              f"[recovery] (a) {tag}: counts {counts}")
+        if "corrupt" in tag:
+            check(counts["errors"] == ["BlockTableCorruption"],
+                  f"[recovery] (a) {tag}: faulted with {counts['errors']}")
+        for i, (p, got, w) in enumerate(zip(ps, streams, want)):
+            _near_tie_check(f"(a) {tag} request {i}", params, cfg, p, got, w, cases)
+        recover_ms += r_ms
+        if tag.endswith("lockstep"):
+            prefill_ms = p_ms
+        print(f"[recovery] (a) {tag}: {counts['failed']} failed, {counts['requeued']} "
+              f"requeued, recover {r_ms[0]:.3f} ms; streams equal the calm run's")
+    # MID_SWAP_IO: a crash inside a victim's swap-out on phase 26's
+    # overcommitted leg, against its calm run
+    swap_prompts = _swap_prompts(cfg)
+    swap_calm = _swap_run(params, cfg, swap_prompts, CALM_BLOCKS, force=False)[0]
+    engine = Engine(params, cfg, num_blocks=SWAP_BLOCKS, admission="optimistic", swap="host",
+                    **SWAP_ENGINE)
+    streams, counts, r_ms, _ = _faulted_serve(
+        "MID_SWAP_IO", engine, swap_prompts, SWAP_TRACE["new"],
+        [dict(point="mid_swap_io", at=None)], max_requeues=2)
+    check(counts["faults"] == 1 and counts["failed"] >= 1 and counts["stopped"] == "ok"
+          and engine.pool.allocated_blocks == 0 and len(engine._swap_store) == 0,
+          f"[recovery] (a) MID_SWAP_IO: counts {counts}, {engine.pool.allocated_blocks} blocks "
+          f"kept, {len(engine._swap_store)} records kept")
+    for i, (p, got, w) in enumerate(zip(swap_prompts, streams, swap_calm)):
+        _near_tie_check(f"(a) MID_SWAP_IO request {i}", params, cfg, p, got, w, cases)
+    recover_ms += r_ms
+    print(f"[recovery] (a) MID_SWAP_IO crash mid-preemption: {counts['failed']} failed, "
+          f"{counts['requeued']} requeued, {engine.metrics.preemptions} preemptions after "
+          f"the requeue; streams equal the calm run's")
+    # the give-up: max_engine_faults + 1 consecutive faulted ticks
+    engine = Engine(params, cfg, **RECOVER_ENGINE)
+    streams, counts, _, _ = _faulted_serve(
+        "give-up", engine, prompts, n, [dict(point="mid_decode_tick", at=None, count=100)],
+        max_requeues=5, max_engine_faults=3)
+    check(streams == [None] * len(prompts) and counts["faults"] == 4
+          and counts["given_up"] == 1 and counts["stopped"] == "InjectedCrash",
+          f"[recovery] (a) give-up: {counts}, streams {[s is None for s in streams]}")
+    print(f"[recovery] (a) give-up after {counts['faults']} consecutive faults: every handle "
+          f"failed, stop() raised {counts['stopped']}; {len(cases)} near ties")
+    print(f"[recovery] (a) recover() ms over {len(recover_ms)} recovers: min "
+          f"{min(recover_ms):.3f}, median {float(np.median(recover_ms)):.3f}, max "
+          f"{max(recover_ms):.3f}; requeued re-prefill ms (lockstep leg, "
+          f"{len(prefill_ms)} prefills of {RECOVER_TRACE['prompt']}-token prompts): "
+          f"{', '.join(f'{x:.2f}' for x in prefill_ms)}")
+
+
+def _watchdog_legs(params, cfg):
+    """(b): a slow_tick ten times the watchdog's budget fails the stalled
+    handle within the budget plus slack; one at a tenth of it is harmless."""
+    from gradaccum_tpu_torch.models.gpt_decode import generate_cached
+    from gradaccum_tpu_torch.resilience import faults
+    from gradaccum_tpu_torch.serving import Engine, ServingServer
+
+    prompt = _recover_prompts(cfg, 32)[0]
+    want = generate_cached(params, cfg, prompt, 8)[0, prompt.size:].tolist()
+    engine = Engine(params, cfg, num_slots=2, max_len=256)
+    with ServingServer(engine) as warm:  # first ticks out of the window
+        check(warm.submit(prompt, 8).result(timeout=120)[0] == want,
+              "[recovery] (b) the warm-up stream differs from generate_cached")
+    stall = faults.FaultInjector(faults.FaultSchedule([faults.FaultSpec(
+        faults.MID_DECODE_TICK, at=None, kind=faults.KIND_SLOW_TICK, delay=WATCHDOG_STALL)]))
+    with faults.installed(stall):
+        server = ServingServer(engine, watchdog_timeout=WATCHDOG_TIMEOUT)
+        handle = server.submit(prompt, 8)
+        t0 = time.perf_counter()
+        server.start()
+        try:
+            handle.result(timeout=60)
+            raise SmokeError("[recovery] (b) a stalled tick did not fail its handle")
+        except RuntimeError as e:
+            failed_after = time.perf_counter() - t0
+            check(isinstance(e.__cause__, TimeoutError),
+                  f"[recovery] (b) the stalled handle failed with {e.__cause__!r}")
+        wedged = server._thread
+        try:
+            server.stop()
+            raise SmokeError("[recovery] (b) stop() after a stall did not raise")
+        except RuntimeError:
+            pass
+        wedged.join(WATCHDOG_STALL + 30)  # the stalled tick ends; its loop then exits
+        check(not wedged.is_alive(), "[recovery] (b) the stalled loop never exited")
+    check(failed_after < 2 * WATCHDOG_TIMEOUT,
+          f"[recovery] (b) the stalled handle failed after {failed_after:.3f} s, past "
+          f"{2 * WATCHDOG_TIMEOUT} s")
+    engine = Engine(params, cfg, num_slots=2, max_len=256)
+    slow = faults.FaultInjector(faults.FaultSchedule([faults.FaultSpec(
+        faults.MID_DECODE_TICK, at=1, kind=faults.KIND_SLOW_TICK,
+        delay=0.1 * WATCHDOG_TIMEOUT)]))
+    with faults.installed(slow):
+        with ServingServer(engine, watchdog_timeout=WATCHDOG_TIMEOUT) as server:
+            tokens, reason = server.submit(prompt, 8).result(timeout=120)
+    check(slow.fired and tokens == want and reason == "length",
+          f"[recovery] (b) a slow tick under budget changed the stream ({reason})")
+    print(f"[recovery] (b) a {WATCHDOG_STALL:.1f} s stalled tick failed its handle after "
+          f"{failed_after:.3f} s (watchdog {WATCHDOG_TIMEOUT} s) and stop() raised; a "
+          f"{0.1 * WATCHDOG_TIMEOUT:.2f} s slow tick was harmless (stream equals "
+          f"generate_cached)")
+
+
+def _get_json(url):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _ops_legs(params, cfg):
+    """(c): a server with a sentinel, the stock serving objectives and
+    telemetry on an ephemeral port: every endpoint over HTTP, an injected
+    latency cliff fired once, recovered and requeued with token parity by
+    bind_default_remediations, then resolved; /readyz 503 after a give-up."""
+    import re
+
+    from gradaccum_tpu_torch.models.gpt_decode import generate_cached
+    from gradaccum_tpu_torch.obs.sentinel import Sentinel
+    from gradaccum_tpu_torch.obs.slo import SLOEvaluator, default_serving_objectives
+    from gradaccum_tpu_torch.resilience import faults, remediation
+    from gradaccum_tpu_torch.serving import Engine, ServingServer
+
+    n = 48
+    prompts = _recover_prompts(cfg, 33)
+    wants = [generate_cached(params, cfg, p, n)[0, p.size:].tolist() for p in prompts]
+    engine = Engine(params, cfg, num_slots=4, max_len=256)
+    snt = Sentinel(clock=lambda: float(engine.tick_count), cliff_warmup=8,
+                   cliff_consecutive=2, cliff_score=50.0)
+    server = ServingServer(engine, max_requeues=2, max_engine_faults=1, sentinel=snt,
+                           slo=SLOEvaluator(default_serving_objectives()), telemetry_port=0)
+    remediation.bind_default_remediations(snt, server=server)
+    plain = engine.step
+
+    def step():
+        if engine.tick_count in CLIFF_TICKS:
+            time.sleep(CLIFF_SLEEP)
+        return plain()
+
+    engine.step = step
+    handles = [server.submit(p, n, rng_seed=i) for i, p in enumerate(prompts)]
+    server.start()
+    tel = server.telemetry
+    port = tel.port
+    try:
+        results = [h.result(timeout=300) for h in handles]
+        cases = []
+        for i, (p, (got, reason), w) in enumerate(zip(prompts, results, wants)):
+            check(reason == "length", f"[recovery] (c) request {i} ended {reason}")
+            _near_tie_check(f"(c) cliff request {i}", params, cfg, p, got, w, cases)
+        states = [(a.kind, a.state) for a in snt.anomalies]
+        check(states == [("latency_cliff", "fire"), ("latency_cliff", "resolve")],
+              f"[recovery] (c) anomalies {states}")
+        fire = snt.anomalies[0]
+        got = {}
+        for path in ("/metrics", "/healthz", "/readyz", "/varz", "/trace", "/slo", "/sentinel",
+                     "/"):
+            status, body = _get_json(tel.url(path))
+            check(status == 200, f"[recovery] (c) {path} answered {status}")
+            got[path] = body
+        samples = [line for line in got["/metrics"].splitlines()
+                   if line and not line.startswith("#")]
+        sample_re = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? \S+$')
+        for line in samples:
+            check(sample_re.match(line), f"[recovery] (c) /metrics line {line!r}")
+            float(line.rsplit(" ", 1)[1])
+        check("serving_tokens_emitted_total" in got["/metrics"], "[recovery] (c) /metrics "
+              "lacks serving_tokens_emitted_total")
+        varz = json.loads(got["/varz"])
+        check(varz["metrics"]["tokens_emitted"] >= len(prompts) * n,
+              f"[recovery] (c) /varz tokens {varz['metrics']['tokens_emitted']}")
+        check("serve/ttft_p99" in json.loads(got["/slo"])["objectives"],
+              "[recovery] (c) /slo lacks serve/ttft_p99")
+        check(json.loads(got["/sentinel"])["anomalies"] == 2, "[recovery] (c) /sentinel")
+        check("serve/recover" in {e["name"] for e in json.loads(got["/trace"])["traceEvents"]},
+              "[recovery] (c) /trace holds no serve/recover")
+        ready_before = json.loads(got["/readyz"])["ok"]
+        # the give-up: two consecutive faulted ticks past max_engine_faults=1
+        inj = faults.FaultInjector(faults.FaultSchedule([faults.FaultSpec(
+            faults.MID_DECODE_TICK, at=None, count=100)]))
+        with faults.installed(inj):
+            doomed = server.submit(prompts[0], 4)
+            try:
+                doomed.result(timeout=120)
+                raise SmokeError("[recovery] (c) the give-up left a handle alive")
+            except RuntimeError:
+                pass
+            ready_after, _ = _get_json(tel.url("/readyz"))
+            health_after, _ = _get_json(tel.url("/healthz"))
+    finally:
+        try:
+            server.stop()
+            stopped = "ok"
+        except RuntimeError:
+            stopped = "raised"
+    check(ready_before and ready_after == 503 and health_after == 503 and stopped == "raised",
+          f"[recovery] (c) /readyz {ready_before} then {ready_after}, /healthz {health_after}, "
+          f"stop() {stopped}")
+    print(f"[recovery] (c) every endpoint answered on 127.0.0.1:{port} "
+          f"({len(samples)} /metrics samples parsed); latency_cliff fired once at tick "
+          f"{fire.at:.0f} (score {fire.detail['score']}), recover_and_requeue requeued the "
+          f"streams token for token ({len(cases)} near ties), the anomaly resolved; /readyz "
+          f"200 -> 503 and /healthz 503 after the give-up, stop() raised")
+
+
+def _ops_training():
+    """(d): the BERT-Small main path (bf16, micro 8 x K=4, scan), 2 updates
+    with RunConfig(slos=, sentinel=) and without: losses and weights
+    bitwise equal, the same kernel launches."""
+    import torch
+
+    from gradaccum_tpu_torch.obs.sentinel import Sentinel
+    from gradaccum_tpu_torch.obs.slo import SLOEvaluator, default_training_objectives
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+
+    runs = {}
+    for attach in (False, True):
+        d = os.path.join(RECOVER_DIR, f"train_{attach}")
+        shutil.rmtree(d, ignore_errors=True)
+        kw = (dict(slos=SLOEvaluator(default_training_objectives()), sentinel=Sentinel())
+              if attach else {})
+        est = _bert_dp_estimator(mode="scan", model_dir=d, log_step_count_steps=1, **kw)
+        fa.reset_launch_counts()
+        est.train(_host_batches(2, 8 * K, seed=27), max_steps=2 * K)
+        torch.cuda.synchronize()
+        counts = dict(fa.launch_counts())
+        est.close()
+        runs[attach] = (_losses(d), {n: t.detach().cpu() for n, t in est._state.params.items()},
+                        counts)
+    (l0, p0, c0), (l1, p1, c1) = runs[False], runs[True]
+    check(len(l0) == 2 and l0 == l1, f"[recovery] (d) losses differ: {l0} against {l1}")
+    check(all(torch.equal(p0[n], p1[n]) for n in p0), "[recovery] (d) weights differ")
+    check(c0 == c1 and all(c0.values()), f"[recovery] (d) launches {c0} against {c1}")
+    print(f"[recovery] (d) BERT-Small bf16 scan, 2 updates: with slos and sentinel attached "
+          f"the {len(l0)} losses and every weight are bitwise the run without; launches "
+          f"{c0} in both")
+
+
+def phase_recovery():
+    """Phase 27: serving recovery, the watchdog and the live ops plane at
+    GPT-Small width (phase 24's model), then the training side and the
+    ops plane's cost. Only (d) launches flash kernels (the training step)."""
+    import torch
+
+    from gradaccum_tpu_torch.examples import bench_slo
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.makedirs(RECOVER_DIR, exist_ok=True)
+    fa.reset_launch_counts()
+    smi = _smi()
+    print(f"[recovery] on {smi}")
+    cfg, params = _serve_model()
+    marks = [("model", time.perf_counter())]
+    _recover_legs(params, cfg)
+    marks.append(("(a)", time.perf_counter()))
+    _watchdog_legs(params, cfg)
+    marks.append(("(b)", time.perf_counter()))
+    _ops_legs(params, cfg)
+    marks.append(("(c)", time.perf_counter()))
+    counts = fa.launch_counts()
+    check(not any(counts.values()), f"[recovery] flash kernels launched in (a)-(c): {counts}")
+    _ops_training()
+    marks.append(("(d)", time.perf_counter()))
+    ratios = {}
+    for model in ("small", "tiny"):
+        result = bench_slo.main(["--device", "cuda", "--model", model, "--requests", "48",
+                                 "--out", os.path.join(RECOVER_DIR, f"bench_slo_{model}.json")])
+        serve = result["serve"]
+        ratios[model] = serve["overhead_ratio"]
+        print(f"[recovery] (e) bench_slo --model {model} on {smi}: baseline "
+              f"{serve['baseline_s_per_tick'] * 1e3:.4f} ms per tick, ops plane "
+              f"{serve['ops_plane_s_per_tick'] * 1e6:.3f} us per tick, ratio "
+              f"{serve['overhead_ratio']:.6f} (gate {bench_slo.GATE})")
+    marks.append(("(e)", time.perf_counter()))
+    check(max(ratios.values()) <= bench_slo.GATE,
+          f"[recovery] (e) the ops plane's cost per tick {ratios} exceeds {bench_slo.GATE}")
+    prev, parts = t0, []
+    for name, at in marks:
+        parts.append(f"{name} {at - prev:.1f} s")
+        prev = at
+    print(f"[recovery] phase 27 took {time.perf_counter() - t0:.1f} s ({', '.join(parts)})")
+
+
 def _smi():
     try:
         out = subprocess.run(
@@ -4918,6 +5387,7 @@ def main() -> int:
         serving = phase_serving()
         phase_prefix_spec(serving)
         phase_admission(serving)
+        phase_recovery()
     except SmokeError as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1

@@ -31,17 +31,14 @@ class RunConfig:
     # rank drains every rank to one common target step, so all land the
     # same final checkpoint. None keeps the per-process flag
     drain_consensus: Optional[Any] = None
-    # JAX's obs/slo.py SLOEvaluator and obs/sentinel.py Sentinel belong to
-    # the serving stack, not ported yet: setting either raises
+    # obs/slo.py SLOEvaluator: evaluated on the STEP clock. Pull-based
+    # objectives sample the Estimator's registry every host step; the
+    # nonfinite-skip rate (train/nonfinite_skip_rate) is pushed at flushes
     slos: Optional[Any] = None
+    # obs/sentinel.py Sentinel: when set, the train loop feeds every
+    # loss-scale sample to it (scale-halving storm detection); bind its
+    # remediations (resilience/remediation.py) to act on them
     sentinel: Optional[Any] = None
-
-    def __post_init__(self):
-        for name in ("slos", "sentinel"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"RunConfig.{name} (obs/{'slo' if name == 'slos' else name}.py) "
-                    f"comes with the serving stack and is not ported yet; see ROADMAP.md")
 
 
 @dataclass

@@ -625,6 +625,14 @@ class Estimator:
         consensus = cfg.drain_consensus
         drain_target = None
         last_saved = None
+        # the live ops plane: the SLO evaluator runs on the step clock (no
+        # wall time), pulls registry objectives each step and receives the
+        # nonfinite-skip rate at flushes; the sentinel watches the
+        # loss-scale stream for halving storms
+        slos = cfg.slos
+        if slos is not None:
+            slos.bind_registry(self.registry)
+        sentinel = cfg.sentinel
         profiler = StepWindowProfiler(cfg.profile_dir, cfg.profile_start_step,
                                       cfg.profile_num_steps)
         tracer = obs_trace.get_tracer()
@@ -641,9 +649,15 @@ class Estimator:
                 self._append_loss_csv(zip((s for s, _ in loss_rows), values))
                 loss_rows.clear()
             if skip_rows:
+                n_skip_rows = len(skip_rows)
                 flushed = int(torch.stack(skip_rows).sum())
                 self.nonfinite_skips += flushed
                 skip_rows.clear()
+                if slos is not None and "train/nonfinite_skip_rate" in slos.trackers:
+                    # skipped micro-batches per host step over this flush
+                    # window: the training side's burn-rate indicator
+                    slos.observe("train/nonfinite_skip_rate", flushed / n_skip_rows,
+                                 now=float(step_no))
                 if flushed and tracer.enabled:
                     tracer.event("train/nonfinite_skip", cat="train", step=step_no,
                                  skipped=flushed, total=self.nonfinite_skips)
@@ -655,6 +669,9 @@ class Estimator:
                                 torch.stack([v for _, v in scale_rows]).tolist()))
                 scale_rows.clear()
                 self.loss_scale_series.extend(rows)
+                if sentinel is not None:
+                    for s, v in rows:
+                        sentinel.observe_scale(v, now=float(s))
                 if tracer.enabled:
                     for s, v in rows:
                         tracer.event("train/loss_scale", cat="train", step=s, scale=v)
@@ -734,6 +751,8 @@ class Estimator:
                 step_no = state.step
                 self._state = state
                 faults.fire(faults.POST_TRAIN_STEP, step_no)
+                if slos is not None:
+                    slos.tick(now=float(step_no))
                 if self._warm:
                     counted += 1
                     examples += micro * k

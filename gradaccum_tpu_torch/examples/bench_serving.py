@@ -48,7 +48,7 @@ from pathlib import Path
 if __package__ in (None, ""):  # run as a script: make the package importable
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
-LATER_ITEM = "ROADMAP.md item 5i (after the serving mesh, 5g)"
+LATER_ITEM = "ROADMAP.md item 5i (after the serving mesh, 5g's second half)"
 
 
 def _build(fast, device):

@@ -1,5 +1,5 @@
 """Fault tolerance: seeded fault injection and the machinery that survives
-it (the port of ``gradaccum_tpu/resilience/``, its training half).
+it (the port of ``gradaccum_tpu/resilience/``).
 
 - :mod:`faults` — a deterministic, seeded fault-injection harness: crash
   points (pre/post train step, mid checkpoint write), injectable NaN/Inf
@@ -12,11 +12,22 @@ it (the port of ``gradaccum_tpu/resilience/``, its training half).
   async checkpoint writer and lands one final checkpoint, and the drain
   consensus that makes every rank land the same one.
 
-JAX's ``watchdog``, ``healer`` and ``remediation`` serve the serving stack
-and are not ported yet (ROADMAP.md).
+- :mod:`watchdog` — stall detection for the serving tick loop.
+- :mod:`remediation` — sentinel anomalies bound to the recover/requeue and
+  drain contracts.
+
+JAX's ``healer`` and the escalation-ladder rungs of ``remediation`` wait
+for ROADMAP.md item 5h's second half.
 """
 
-from gradaccum_tpu_torch.resilience import faults, manifest, preemption, retry
+from gradaccum_tpu_torch.resilience import (
+    faults,
+    manifest,
+    preemption,
+    remediation,
+    retry,
+    watchdog,
+)
 from gradaccum_tpu_torch.resilience.faults import (
     FaultInjector,
     FaultSchedule,
@@ -30,12 +41,15 @@ from gradaccum_tpu_torch.resilience.preemption import (
     PreemptionHandler,
 )
 from gradaccum_tpu_torch.resilience.retry import retry_io
+from gradaccum_tpu_torch.resilience.watchdog import Watchdog
 
 __all__ = [
     "faults",
     "manifest",
     "preemption",
+    "remediation",
     "retry",
+    "watchdog",
     "DrainConsensus",
     "FaultInjector",
     "FaultSchedule",
@@ -44,5 +58,6 @@ __all__ = [
     "InjectedIOError",
     "LocalDrainBus",
     "PreemptionHandler",
+    "Watchdog",
     "retry_io",
 ]

@@ -21,11 +21,23 @@ Fault points the port fires (the ``index`` each site passes):
   write; index = checkpoint step. ``crash`` leaves a truncated ``.tmp``
   (the sweep's job), ``io_error`` exercises retry-with-backoff.
 
-The serving tier's points (``MID_DECODE_TICK``, ``MID_SWAP_IO``,
-``POOL_PAGE_TABLE``, ``MID_RECONFIG``, ``FLEET_STEP``) and kinds
-(``slow_tick``, ``corrupt``, the fleet kinds) are kept as names, with
-JAX's validation, so schedules drawn from a seed stay equal to JAX's;
-nothing in the port fires them until serving is ported (ROADMAP.md).
+The serving engine fires the serving tier's points (index = the engine
+tick, or the request id for swap IO):
+
+- ``MID_DECODE_TICK`` — between admission and the decode dispatch, or, with
+  ``overlap_prefill``, after both dispatches and before any readback;
+  ``crash`` fails the tick (the server recovers and requeues), ``slow_tick``
+  sleeps ``delay`` seconds inside it (the watchdog's case);
+- ``POOL_PAGE_TABLE`` — before a paged pool's blocks grow; ``corrupt``
+  poisons a page-table row, which the upload-time bounds check turns into
+  ``BlockTableCorruption`` on the same tick;
+- ``MID_SWAP_IO`` — in the swap stores' ``put`` and ``get``; ``io_error``
+  falls back to re-prefill, ``crash`` fails the tick mid-preemption.
+
+``MID_RECONFIG`` and ``FLEET_STEP`` and the fleet kinds are kept as names,
+with JAX's validation, so schedules drawn from a seed stay equal to JAX's;
+nothing fires them until reconfiguration and replicas are ported
+(ROADMAP.md item 5g).
 
 Kinds: ``crash`` raises :class:`InjectedCrash` (simulated process death —
 deliberately NOT an OSError, so IO retry loops never swallow it);

@@ -16,9 +16,14 @@ Greedy and seeded-sampled outputs equal ``models/gpt_decode.py ::
 generate_cached`` token for token, through any preemption (speculative
 sampling follows JAX's accept rule draw for draw).
 
-The live ops plane (sentinel, SLOs, telemetry), reconfiguration, replica
-fleets and the serving fault contract are not ported yet: their knobs raise
-``NotImplementedError`` naming their ROADMAP.md item.
+The serving fault contract rides on the same engine: its tick fires the
+serving fault points, ``Engine.recover`` releases what a failed tick held,
+and the server requeues the recovered requests (bounded), breaks stalled
+ticks with a watchdog and feeds the live ops plane (``obs/sentinel.py``,
+``obs/slo.py``, ``obs/telemetry.py``). Reconfiguration (ROADMAP.md item 5g,
+first half), replica fleets and the serving mesh (5g, second half) and the
+self-healing ladder (5h, second half) are not ported yet: their knobs raise
+``NotImplementedError`` naming their item.
 """
 
 from gradaccum_tpu_torch.serving.admission import (

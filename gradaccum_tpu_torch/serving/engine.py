@@ -47,12 +47,24 @@ only): one float32 scale per head vector (``memory/quant.py``).
 **overlap_prefill**: the admission's prefill and the tick's decode are both
 queued on the card before either is read back.
 
+**Faults.** The tick fires the serving fault points of
+``resilience/faults.py``: ``MID_DECODE_TICK`` between admission and the
+decode dispatch (with ``overlap_prefill``, after both dispatches and before
+any readback), ``POOL_PAGE_TABLE`` before a paged pool's blocks grow (its
+``corrupt`` kind poisons a page-table row, which the upload-time bounds
+check turns into ``BlockTableCorruption`` on the same tick), and the
+``slow_tick`` kind at either. :meth:`Engine.recover` resets the host
+bookkeeping after a failed ``step()`` and hands back the requests that were
+in slots; ``ServingServer`` requeues them.
+
 **Not ported yet**, each raising ``NotImplementedError`` with its
-ROADMAP.md item: ``mesh`` and ``reconfigure`` (5g), and ``recover`` (5h).
+ROADMAP.md item: ``mesh`` (replicas and the serving mesh, 5g second half)
+and ``reconfigure`` (5g first half).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
@@ -78,6 +90,7 @@ from gradaccum_tpu_torch.models.gpt_decode import (
     verify_step_ragged,
 )
 from gradaccum_tpu_torch.obs import trace as obs_trace
+from gradaccum_tpu_torch.resilience import faults
 from gradaccum_tpu_torch.serving import admission as admission_lib
 from gradaccum_tpu_torch.serving.cache_pool import (
     CachePool,
@@ -92,8 +105,9 @@ from gradaccum_tpu_torch.utils import prng
 from gradaccum_tpu_torch.utils.platform import resolve_device, upload
 from gradaccum_tpu_torch.utils.profiling import StepWindowProfiler
 
-FLEET_ITEM = "reconfiguration, replicas and the serving mesh (ROADMAP.md item 5g)"
-RECOVER_ITEM = "the serving fault points and Engine.recover (ROADMAP.md item 5h)"
+RECONFIG_ITEM = "live reconfiguration (ROADMAP.md item 5g, first half)"
+FLEET_ITEM = "replicas and the serving mesh (ROADMAP.md item 5g, second half)"
+HEALER_ITEM = "the self-healing ladder (ROADMAP.md item 5h, second half)"
 
 
 @dataclasses.dataclass
@@ -294,6 +308,9 @@ class Engine:
         self._pending_budget: Dict[int, int] = {}
         # the rid re-prefilling through _admit_dispatch as a resume
         self._resuming_rid: Optional[int] = None
+        # an attached ServingServer pins its tick watchdog here, so planned
+        # long operations (a victim's swap-out) can pause the stall clock
+        self.watchdog = None
         self.speculate_k = int(speculate_k)
         self.draft_cfg = draft_cfg if self.speculate_k else None
         self.draft_params = (_tree_to(draft_params, self.device, moved) if self.speculate_k
@@ -705,6 +722,7 @@ class Engine:
                 self.scheduler.record_stall("no_free_slots")
             active_now = self._active.copy()
             if self.paged:
+                self._page_table_fault(t)
                 # admitted slots' first tokens are still on the card: they
                 # may not be preempted this tick
                 protect = (frozenset(int(s) for s in astate[1]) if astate is not None
@@ -712,6 +730,9 @@ class Engine:
                 active_now = self._ensure_blocks(active_now, adv, preempted, protect=protect)
             with self._decode_span(t, block, active_now):
                 dstate = self._decode_dispatch(active_now, block) if active_now.any() else None
+                # both dispatches in flight, nothing read back: recover()
+                # hands back every request in a slot, the freshly admitted too
+                faults.fire(faults.MID_DECODE_TICK, t)
                 if astate is not None:
                     self._admit_finish(astate, emitted, finished, admitted, activate=False)
                 if dstate is not None:
@@ -723,8 +744,12 @@ class Engine:
                     self._admit_finish(self._admit_dispatch(reqs), emitted, finished, admitted)
             if self.scheduler.depth > 0 and self.pool.free_count == 0:
                 self.scheduler.record_stall("no_free_slots")
+            # between admission and the decode dispatch: the requests in
+            # slots at this instant are what recover() hands back
+            faults.fire(faults.MID_DECODE_TICK, t)
             active_now = self._active.copy()
             if self.paged:
+                self._page_table_fault(t)
                 active_now = self._ensure_blocks(active_now, adv, preempted)
             if active_now.any():
                 with self._decode_span(t, block, active_now):
@@ -991,6 +1016,26 @@ class Engine:
                     active_now[victim] = False
         return active_now
 
+    def _page_table_fault(self, t: int) -> None:
+        """The ``pool_page_table`` fault point: its ``corrupt`` kind writes
+        an out-of-range block id into the first claimed slot's page-table
+        row. The pool's upload-time bounds check turns it into
+        ``BlockTableCorruption`` on this very tick (no kernel or gather ever
+        sees it); recover's release resets the row."""
+        if faults.fire(faults.POOL_PAGE_TABLE, t) == faults.KIND_CORRUPT:
+            for slot, req in enumerate(self._slot_req):
+                if req is not None:
+                    self.pool.page_table[slot, 0] = self.pool.num_blocks + 7
+                    self.pool._table_device = None
+                    break
+
+    def _wd_suspend(self):
+        """Suspend the attached server watchdog (a null context when none)
+        across a planned long operation: a victim's swap-out inside a
+        preemption burst is not a wedged dispatch."""
+        wd = self.watchdog
+        return wd.suspend() if wd is not None else contextlib.nullcontext()
+
     def _victim_scorer(self):
         """The ``victim_score`` knob as a per-slot cost for ``pick_victim``
         (None: the stock refcount and prefix-liveness cost)."""
@@ -1125,7 +1170,8 @@ class Engine:
                  else req.prompt.size + req.max_new_tokens)
         swapped, page_start, bytes_out = False, 0, 0
         if self._swap_store is not None:
-            swapped, page_start, bytes_out = self._stage_swap_out(slot, rid, length)
+            with self._wd_suspend():
+                swapped, page_start, bytes_out = self._stage_swap_out(slot, rid, length)
         self._parked_state[rid] = _ParkedState(
             request=req, generated=generated, cur_tok=cur, gen_count=gen, rng_key=key,
             length=length, limit=limit, swapped=swapped,
@@ -1392,10 +1438,59 @@ class Engine:
         self._slot_cow[slot] = 0
 
     def reconfigure(self, spec):
-        raise NotImplementedError(f"Engine.reconfigure waits for {FLEET_ITEM}")
+        raise NotImplementedError(f"Engine.reconfigure waits for {RECONFIG_ITEM}")
 
-    def recover(self):
-        raise NotImplementedError(f"Engine.recover waits for {RECOVER_ITEM}")
+    def recover(self) -> List[Request]:
+        """Reset the host bookkeeping after a failed ``step()``.
+
+        Returns the requests that were in slots, running or mid-admission,
+        with status "error": their slots, blocks, reservations and COW
+        adoptions are released, their parked resume state and swap records
+        dropped, their metrics lifecycle closed. Queued and parked requests
+        stay where they are: they hold nothing on the card. The front-end
+        decides what to do with the returned requests (the bounded requeue
+        of :class:`~gradaccum_tpu_torch.serving.server.ServingServer`).
+
+        The pool is never rebuilt (``serve/recover`` reports
+        ``pool_rebuilt=False``). JAX rebuilds it when the failed dispatch
+        consumed a donated buffer; the port writes its pool, draft cache
+        and per-slot tensors in place, so a failed dispatch can leave them
+        half written but never gone. Correctness rests on what it rests on
+        in JAX: slot lengths gate every read (a released slot's stale K/V,
+        in the pool or the draft cache, is masked until a prefill
+        overwrites it), and a recovered request re-prefills from scratch.
+        A half-done COW fork is safe the same way: the fork's block is in
+        the slot's page table once the pool hands it out, so the release
+        frees it with the rest. A CUDA error that poisons the context
+        cannot be healed in process; the server's bounded
+        ``max_engine_faults`` give-up is what catches it."""
+        failed = []
+        tr = self.tracer
+        self._pending_match.clear()
+        self._pending_budget.clear()
+        self._resuming_rid = None
+        for slot, req in enumerate(self._slot_req):
+            if req is None:
+                continue
+            rid = req.request_id
+            failed.append(req)
+            # a fault mid-resume: the request is back in the failed set, so
+            # no leftover park bookkeeping may shadow the requeue
+            self._parked_state.pop(rid, None)
+            if self._swap_store is not None:
+                self._swap_store.discard(rid)
+            self._release(slot)
+            self.status[rid] = "error"
+            # close the metrics lifecycle, or its timers leak per fault
+            self.metrics.record_finish(rid, "error")
+            ts0 = self._req_admit_ts.pop(rid, None)
+            if tr.enabled and ts0 is not None:
+                tr.complete("req/decode", ts0, cat="request", rid=rid, outcome="error",
+                            **self._obs_args)
+        if tr.enabled:
+            tr.event("serve/recover", cat="resilience", tick=self._tick, failed=len(failed),
+                     pool_rebuilt=False, **self._obs_args)
+        return failed
 
     def run_until_idle(self, max_ticks: int = 100_000) -> List[StepEvents]:
         events = []

@@ -79,7 +79,11 @@ NEW_MODULES = ("obs", "obs.trace", "obs.metrics", "obs.flight", "resilience",
                "examples.bench_serving",
                # admission control, swap, the tiered store and the int8 KV codec
                "serving.admission", "serving.swap", "memory.tiers",
-               "examples.bench_admission", "examples.bench_mem")
+               "examples.bench_admission", "examples.bench_mem",
+               # the serving fault contract and the live ops plane
+               "resilience.watchdog", "resilience.remediation", "obs.slo",
+               "obs.sentinel", "obs.telemetry", "examples.bench_slo",
+               "examples.slo_check", "examples.bench_cow", "examples.bench_spec")
 
 
 # a bfloat16 pool's K/V through the host store and the disk rung, with

@@ -1,11 +1,13 @@
 """The int8 KV codec, the swap stores and the tiered ladder, against JAX's.
 
 The port's counterparts of JAX's ``tests/test_memory.py`` cases of the KV
-codec, the stores and the engine (the sentinel's ``tier_thrash`` case waits
-for item 5f):
+codec, the stores, the engine and the sentinel's ``tier_thrash`` anomaly:
 
 - ``kv_quantize`` codes and scales BITWISE equal to JAX's over random,
   all-zero, +-max and rounding-tie vectors, and within JAX's error bound;
+  where the scale is subnormal (JAX flushes it, the port keeps it) the
+  port's own bound: finite scales, codes within +-127, the round trip
+  within absmax / 254 plus the subnormal grid's steps;
 - the dequantizing page view of an int8 pool within 1e-6 of JAX's, and an
   int8 decode step and prefill beside JAX's;
 - the tiered store's demotions, promotions, evictions and corruption
@@ -106,6 +108,38 @@ def test_kv_quantize_roundtrip_error_bound():
     jb = jnp.asarray(x[1]).astype(jnp.bfloat16)
     np.testing.assert_array_equal(tquant.kv_quantize(xb)[0].numpy(),
                                   np.asarray(jquant.kv_quantize(jb)[0]))
+
+
+def test_kv_quantize_subnormal_scales_stay_bounded():
+    """Vectors whose absmax is under 127 x FLT_MIN get a subnormal scale,
+    which XLA's CPU flushes to zero (codes 0, error = absmax) and torch
+    keeps, so the bitwise case above leaves them out. The port's own
+    behaviour there: every scale finite and subnormal, codes within +-127,
+    and the round trip within absmax / 254 plus 64 steps of the subnormal
+    grid (2^-149). The grid term is needed: a subnormal scale is itself a
+    multiple of 2^-149, so for absmax = 128 * 2^-149 with an element of
+    2^-149 every possible scale leaves an error of one whole step, about
+    twice absmax / 254. Where the scale is exact the plain bound holds."""
+    step = 2.0 ** -149
+    tiny = float(np.finfo(np.float32).tiny)
+    rng = np.random.default_rng(1)
+    # absmax log-uniform over [one grid step, 127 x FLT_MIN)
+    k = np.exp(rng.uniform(0.0, np.log(127 * tiny / step), 4096))
+    x = rng.uniform(-1.0, 1.0, (4096, 16))
+    x = (x / np.abs(x).max(1, keepdims=True) * (k * step)[:, None]).astype(np.float32)
+    x[:, 0] = np.sign(x[:, 0]) * np.abs(x).max(1)
+    x[0] = [128 * step, step] + [0.0] * 14  # the example above
+    x[1] = [127 * 5 * step, -5 * step, 2 * step] + [0.0] * 13  # an exact scale of 5 steps
+    q, scale = tquant.kv_quantize(torch.from_numpy(x))
+    scale = scale.numpy().astype(np.float64)
+    assert np.isfinite(scale).all() and (scale < tiny).all()
+    assert int(q.abs().max()) <= 127
+    back = tquant.kv_dequantize(q, torch.from_numpy(scale.astype(np.float32)),
+                                torch.float32).numpy().astype(np.float64)
+    absmax = np.abs(x.astype(np.float64)).max(1)
+    err = np.abs(back - x).max(1)
+    assert np.all(err <= absmax / 254 + 64 * step)
+    assert scale[1] == 5 * step and err[1] <= absmax[1] / 254
 
 
 def test_quant_kv_pytree_helpers():
@@ -503,3 +537,33 @@ def test_kv_tiers_generate_cached_reference(lm):
            for p in prompts]
     agree = np.mean([a == b for s, f in zip(got["torch"], f32) for a, b in zip(s, f)])
     assert 0.0 <= agree <= 1.0
+
+
+def test_sentinel_tier_thrash_fires_and_resolves():
+    """A demotion rate pinned above the ceiling fires ``tier_thrash`` once;
+    decay below it resolves; a second storm fires again; the anomaly log
+    equals JAX's for the same feed."""
+    from gradaccum_tpu_torch.obs import sentinel as tsentinel
+
+    jsentinel = importlib.import_module("gradaccum_tpu.obs.sentinel")
+    logs = []
+    for mod in (tsentinel, jsentinel):
+        t = [0.0]
+        snt = mod.Sentinel(clock=lambda: t[0], thrash_ceiling=0.5, thrash_warmup=2,
+                           thrash_consecutive=3)
+        fired = []
+        snt.on(mod.TIER_THRASH, fired.append)
+        for _ in range(8):
+            t[0] += 1.0
+            snt.observe_tier_spills(2.0)
+        assert len(fired) == 1 and fired[0].detail["demotion_rate"] == 2.0
+        t[0] += 1.0
+        snt.observe_tier_spills(0.0)
+        assert (mod.TIER_THRASH, None) not in snt.firing()
+        for _ in range(4):
+            t[0] += 1.0
+            snt.observe_tier_spills(3.0)
+        assert len(fired) == 2
+        snt.observe_tier_spills(None)  # no tiered store: ignored
+        logs.append(snt.anomalies_bytes())
+    assert logs[0] == logs[1]

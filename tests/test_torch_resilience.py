@@ -682,6 +682,17 @@ def test_crash_mid_train_closes_async_writer_and_keeps_checkpoints(tmp_path):
 
 
 def test_slos_and_sentinel_wait_for_serving():
-    for knob in ("slos", "sentinel"):
-        with pytest.raises(NotImplementedError, match="serving"):
-            RunConfig(**{knob: object()})
+    """The serving stack's ops plane has landed, so ``RunConfig`` takes an
+    SLO evaluator and a sentinel: a run binds the evaluator to its registry
+    and ticks it on the step clock, and trains as a run without them."""
+    from gradaccum_tpu_torch.obs.sentinel import Sentinel
+    from gradaccum_tpu_torch.obs.slo import Objective, SLOEvaluator
+
+    slos = SLOEvaluator([Objective("loss", "loss", 1e9, target=0.5, kind="gauge")])
+    est = _estimator(None, save_every=None, slos=slos, sentinel=Sentinel())
+    assert est.config.slos is slos
+    state = est.train(_batches(8), max_steps=8)
+    assert slos._registry is est.registry
+    assert slos._tick_calls == 8  # one tick per host step
+    _assert_states_equal(state, _estimator(None, save_every=None).train(_batches(8),
+                                                                        max_steps=8))

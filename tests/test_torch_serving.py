@@ -19,13 +19,14 @@ port and, where the case has numbers, on JAX beside it:
 - every knob and method of a later ROADMAP.md item raises
   ``NotImplementedError`` naming it; those of items that have landed since
   (prefix sharing, 5b; speculation, 5c; admission, swap and overlap, 5d;
-  int8 KV, 5e) work instead; an engine without a card raises.
+  int8 KV, 5e; the ops plane, 5f; recover and the watchdog, 5h's first
+  half) work instead; an engine without a card raises;
+- the paged pool through a mid-tick fault: recover releases slots and
+  blocks, the requeued stream equals JAX's and ``generate_cached``.
 
-JAX's cases with no counterpart: the fault-recovery and requeue cases
-(``test_paged_engine_recovers_from_tick_fault``; ``Engine.recover`` waits
-for item 5h) and the slow-lane bench cases (``--fast`` runs here in
-``tests/test_torch_bench_serving.py``). JAX's compile counts map to the
-engine's count of input-shape signatures.
+JAX's cases with no counterpart: the slow-lane bench cases (``--fast`` runs
+here in ``tests/test_torch_bench_serving.py``). JAX's compile counts map to
+the engine's count of input-shape signatures.
 """
 
 import importlib
@@ -42,6 +43,9 @@ from gradaccum_tpu_torch.interop import params_from_jax, params_tree
 from gradaccum_tpu_torch.models import gpt as tgpt
 from gradaccum_tpu_torch.models import gpt_decode as tdec
 from gradaccum_tpu_torch.obs import trace as ttrace
+from gradaccum_tpu_torch.obs.sentinel import Sentinel
+from gradaccum_tpu_torch.obs.slo import SLOEvaluator, default_serving_objectives
+from gradaccum_tpu_torch.resilience import faults as tfaults
 from gradaccum_tpu_torch.serving import (
     CachePool,
     Engine,
@@ -557,13 +561,13 @@ def test_engine_knobs_of_later_items_raise(lm, knob):
 
 @pytest.mark.parametrize("call,item", [
     (lambda e, s: e.preempt(0), None), (lambda e, s: e.reconfigure(None), "5g"),
-    (lambda e, s: e.recover(), "5h"), (lambda e, s: s.request_recover("x"), "5h"),
+    (lambda e, s: e.recover(), None), (lambda e, s: s.request_recover("x"), None),
     (lambda e, s: s.request_reconfig(None), "5g"), (lambda e, s: s.reconfigure(None), "5g"),
-    (lambda e, s: ServingServer(e, watchdog_timeout=1.0), "5h"),
+    (lambda e, s: ServingServer(e, watchdog_timeout=1.0), None),
     (lambda e, s: ServingServer(e, healer=object()), "5h"),
-    (lambda e, s: ServingServer(e, sentinel=object()), "5f"),
-    (lambda e, s: ServingServer(e, slo=object()), "5f"),
-    (lambda e, s: ServingServer(e, telemetry_port=0), "5f"),
+    (lambda e, s: ServingServer(e, sentinel=Sentinel()), None),
+    (lambda e, s: ServingServer(e, slo=SLOEvaluator(default_serving_objectives())), None),
+    (lambda e, s: ServingServer(e, telemetry_port=0).start().stop(), None),
     (lambda e, s: ServingServer(e, free_running=True), "5g"),
     (lambda e, s: _prefix_pool_matches(e), None),
     (lambda e, s: _fork_cow_copies(e), None),
@@ -699,3 +703,21 @@ def test_server_fails_handles_on_an_engine_fault(lm):
         srv.submit(np.ones(3, np.int32), 3)
     with pytest.raises(RuntimeError, match="serving engine failed"):
         srv.stop()
+
+
+# -- resilience ------------------------------------------------------------------------
+
+
+def test_paged_engine_recovers_from_tick_fault(lm):
+    """A mid-tick crash on the paged pool releases slots AND blocks; the
+    replayed request decodes to JAX's stream and ``generate_cached``'s, with
+    JAX's fault counts, and the pool invariants hold after the recover."""
+    from test_torch_serving_resilience import both
+
+    prompt = np.arange(1, 6, dtype=np.int32)
+    run = both(lm[:3] + (lm[4],), [prompt], 6, [dict(point=tfaults.MID_DECODE_TICK, at=2)],
+               dict(num_slots=2, max_len=16, page_size=4))
+    assert run.streams == [(_solo(lm, prompt, 6), "length")]
+    assert run.counts["requeued"] == 1
+    assert run.engine.pool.allocated_blocks == 0
+    assert run.engine.pool.unreserved_blocks == run.engine.pool.num_blocks

@@ -1,13 +1,20 @@
 """Admission control, preemption and swap in the port's engine, against JAX's.
 
-The port's counterparts of JAX's ``tests/test_serving_admission.py`` (every
-case but the sentinel's, which waits for item 5f, and the fault cases, which
-wait for 5h), of ``test_serving_cow.py``'s deadline victim cases and of
+The port's counterparts of JAX's ``tests/test_serving_admission.py``, of
+``test_serving_cow.py``'s deadline victim cases and of
 ``test_serving_spec.py``'s overlap parity. Each scenario runs on JAX's
 engine and the port's from the same seeded inputs and must report the same
 streams, preemptions, swap and resume counts, victims and resumes tick by
 tick, pool states and policy state; the streams also equal the port's
 ``generate_cached`` for each prompt alone, as JAX's tests assert.
+
+The fault cases run on JAX's server and the port's with one schedule: a
+crash while requests are parked (the running ones requeue, the parked ones
+resume on their own) and a corrupted page-table row
+(``BlockTableCorruption`` at upload, healed by the requeue); streams,
+fault counts and the pool invariants after each recover are checked. The
+``preemption_storm`` anomaly fires once and routes through the stock
+remediation.
 
 The port alone: a rotted record falls back to re-prefill on the host store
 and on the tiered store's disk rung, a ``MID_SWAP_IO`` fault on either
@@ -813,3 +820,61 @@ def test_bench_admission_fast():
         assert leg["requests_per_1k_ticks"] > 0 and leg["parity_ok"]
     assert legs["optimistic"]["preemptions"] >= 1
     assert result["acceptance"]["passed"]
+
+
+# -- resilience and the sentinel ------------------------------------------------------------
+
+
+def test_preempted_requests_survive_engine_fault(lm):
+    """A tick crash while requests are parked: the running ones requeue, the
+    parked ones resume on their own, and every stream equals JAX's and
+    ``generate_cached``, with JAX's fault counts."""
+    from test_torch_serving_resilience import both
+
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 96, 6).astype(np.int32) for _ in range(4)]
+    run = both(lm, prompts, 12, [dict(point="mid_decode_tick", at=4)],
+               dict(num_slots=4, max_len=32, page_size=4, num_blocks=10,
+                    admission="optimistic"))
+    assert run.streams == [(_solo(lm, p, 12), "length") for p in prompts]
+    assert run.engine.pool.allocated_blocks == 0
+    assert run.engine.metrics.preemptions >= 1
+
+
+def test_block_table_corruption_is_structured_and_heals(lm):
+    """The ``pool_page_table`` corrupt kind: the poisoned row faults as
+    ``BlockTableCorruption`` at upload (no gather sees it), and the
+    recover/requeue replays to JAX's stream and ``generate_cached``."""
+    from test_torch_serving_resilience import both
+
+    prompt = np.arange(1, 6, dtype=np.int32)
+    run = both(lm, [prompt], 6, [dict(point="pool_page_table", at=2, kind="corrupt")],
+               dict(num_slots=2, max_len=16, page_size=4))
+    assert run.streams == [(_solo(lm, prompt, 6), "length")]
+    assert run.counts["errors"] == ["BlockTableCorruption"] and run.counts["requeued"] == 1
+
+
+def test_preemption_storm_sentinel_fires_and_remediates():
+    """A sustained preemption rate fires ``preemption_storm`` once, routes
+    through the stock remediation (recover + bounded requeue on the
+    server), and resolves when the rate subsides."""
+    from gradaccum_tpu_torch.obs import sentinel as obs_sentinel
+    from gradaccum_tpu_torch.resilience import remediation
+
+    recovers = []
+
+    class FakeServer:
+        def request_recover(self, reason, replica=None):
+            recovers.append((reason, replica))
+
+    snt = obs_sentinel.Sentinel(preempt_warmup=2, preempt_consecutive=2, preempt_ceiling=0.5)
+    remediation.bind_default_remediations(snt, server=FakeServer())
+    for _ in range(4):
+        snt.observe_preemptions(0.9, replica=1)
+    fires = [a for a in snt.anomalies
+             if a.kind == obs_sentinel.PREEMPTION_STORM and a.state == "fire"]
+    assert len(fires) == 1 and fires[0].replica == 1
+    assert recovers == [("sentinel:preemption_storm replica 1", 1)]
+    snt.observe_preemptions(0.0, replica=1)
+    assert [a.state for a in snt.anomalies] == ["fire", "resolve"]
+    assert snt.observe_preemptions(None) is None  # no admission plane: ignored

@@ -19,9 +19,12 @@ private to swap, and a rotted swap record degrading to a prefix-aware
 re-prefill without leaking a reference. JAX's deadline victim cases are in
 ``tests/test_torch_serving_admission.py``.
 
-Left out: ``test_bench_cow_fast`` (``tools/bench_cow.py`` is not ported;
-ROADMAP.md) and ``test_cow_reconfig_pool_shrink_parity`` (reconfiguration,
-5g).
+``test_bench_cow_fast``: the port's ``examples/bench_cow.py`` on JAX's
+weights reports JAX's legs number for number and meets JAX's acceptance.
+
+Left out: ``test_cow_reconfig_pool_shrink_parity`` (reconfiguration, 5g,
+first half). A COW fork that faults half done is in
+``tests/test_torch_serving_resilience.py``.
 """
 
 import importlib
@@ -519,3 +522,30 @@ def test_cow_requires_prefix_mode(lm):
     injected = Engine(tree, tcfg, num_slots=2, max_len=16, page_size=4,
                       prefix_cache=PrefixCache(4, cow=False), device="cpu")
     assert injected.cow_tails is False and injected.manifest()["cow_tails"] is False
+
+
+def test_bench_cow_fast(lm, tmp_path):
+    """``bench_cow --fast`` on JAX's weights: every capacity and resume leg
+    equal to JAX's ``tools/bench_cow.py``, and JAX's checks on it."""
+    import os
+    import sys
+
+    from gradaccum_tpu_torch.examples import bench_cow
+
+    _, _, tcfg, tree = lm
+    result = bench_cow.run(tree, tcfg, fast=True, device="cpu")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from tools.bench_cow import main as jax_main
+
+    want = jax_main(["--fast", "--out", str(tmp_path / "BENCH_cow.json")])
+    for key in ("cow_legs", "resume_legs", "fixed_parity_ok", "peak_concurrency_x",
+                "kv_bytes_per_stream_reduction", "resume_tokens_x"):
+        assert result[key] == want[key], key
+    assert result["acceptance"]["passed"] == want["acceptance"]["passed"]
+    legs = {leg["leg"]: leg for leg in result["cow_legs"]}
+    assert set(legs) == {"paged", "prefix", "cow"}
+    assert all(leg["parity_ok"] and leg["decode_programs"] == 1 for leg in legs.values())
+    assert legs["cow"]["prefill_tokens_skipped"] > legs["prefix"]["prefill_tokens_skipped"]
+    assert legs["cow"]["cow_forks"] >= 1 and legs["paged"]["prefill_tokens_skipped"] == 0
+    assert result["resume_tokens_x"] >= 2.0 and result["fixed_parity_ok"]
+    assert result["acceptance"]["passed"]

@@ -15,8 +15,12 @@ counts, stats. On top:
 - ``PrefixCache`` keys a prompt the same whatever it came as (an int64
   torch tensor, an int64 array, a list): the bytes hashed are ``np.int32``.
 
-Left out, with their items: ``test_prefix_engine_recovers_from_tick_fault``
-(the serving fault points and ``Engine.recover``, 5h); the slow-lane
+- a mid-tick crash on a prefix-sharing engine
+  (``test_prefix_engine_recovers_from_tick_fault``): the recover decrefs
+  through the normal release, the index ends empty, the requeued streams
+  equal JAX's and ``generate_cached``, with JAX's fault counts.
+
+Left out: the slow-lane
 ``test_serving_smoke_prefix`` (JAX's ``tools/serving_smoke.py``, never
 ported) and ``test_bench_prefix_fast`` (``bench_serving --prefix --fast`` runs
 in ``tests/test_torch_bench_serving.py``); ``test_bench_trend_*``
@@ -487,3 +491,24 @@ def test_server_cancel_midstream_threadsafe(lm):
         assert keep.result(timeout=60) == (_solo(lm, pa, 30), "length")
     assert engine.metrics.prefix_hits == 1
     assert _drained(engine.pool)
+
+
+# -- resilience ------------------------------------------------------------------------
+
+
+def test_prefix_engine_recovers_from_tick_fault(lm):
+    """A mid-tick crash on a prefix-sharing engine decrefs through the
+    normal release, no index entry outlives its blocks, and the replayed
+    requests' greedy streams equal JAX's and ``generate_cached``."""
+    from test_torch_serving_resilience import both, solo
+
+    rng = np.random.default_rng(8)
+    sys_p = rng.integers(0, 96, 8).astype(np.int32)
+    prompts = [np.concatenate([sys_p, rng.integers(0, 96, n).astype(np.int32)])
+               for n in (3, 4)]
+    run = both(lm, prompts, 6, [dict(point="mid_decode_tick", at=3)],
+               dict(num_slots=2, max_len=32, page_size=4, prefix_cache=True))
+    assert run.streams == [(solo(lm, p, 6), "length") for p in prompts]
+    pool = run.engine.pool
+    assert pool.allocated_blocks == 0 and pool.unreserved_blocks == pool.num_blocks
+    assert len(run.engine.prefix_cache) == 0

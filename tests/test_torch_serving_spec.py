@@ -14,12 +14,16 @@ blocks, cancel mid-speculation, eos inside an accepted run, the metrics
 and manifest, a bfloat16 cache with a draft, and the queue-wait accounting
 cases of JAX's file.
 
+Since the fault contract and the ops plane landed (5h's first half, 5f): a
+crash mid-cycle leaves the draft cache dirty and the requeued streams still
+equal JAX's and ``generate_cached``
+(``test_spec_recover_dirty_draft_cache_and_requeue_parity``, lockstep and
+overlapped), the overlapped crash point hands back freshly admitted
+requests, ``degenerate_draft`` fires and resolves, and ``bench_spec
+--fast`` meets JAX's checks.
+
 Left out, with their items: ``test_spec_parity_tp_mesh`` (the serving mesh,
-5g); ``test_spec_recover_dirty_draft_cache_and_requeue_parity``
-(``Engine.recover``, 5h); ``test_sentinel_degenerate_draft_fires_and_resolves``
-(``obs/sentinel.py``, 5f); ``test_overlap_prefill_fault_recovers_admitted_requests``
-(``Engine.recover``, 5h); the free-running server cases (5g);
-``test_bench_spec_fast`` (``tools/bench_spec.py`` is not ported).
+5g, second half); the free-running server cases (the same).
 ``test_overlap_prefill_parity_fixed_and_paged`` is in
 ``tests/test_torch_serving_admission.py`` with the rest of item 5d.
 """
@@ -375,3 +379,85 @@ def test_queue_wait_counts_timeout_expiry(lm):
         waits.append(engine.metrics.queue_wait.summary())
     assert waits[0] == waits[1]
     assert waits[1]["count"] == 2 and waits[1]["p99"] >= 2.0
+
+
+# -- resilience and the sentinel ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_spec_recover_dirty_draft_cache_and_requeue_parity(lm, overlap):
+    """A seeded crash in a speculative tick (overlapped: after the cycle
+    wrote both caches, nothing read back) leaves the draft cache dirty;
+    recover gates it with the pool's slots, the server requeues, and the
+    replayed greedy streams equal JAX's and ``generate_cached``."""
+    from test_torch_serving_resilience import both, solo
+
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, 96, n).astype(np.int32) for n in (5, 3, 6, 4)]
+    base = lm[:4]
+
+    def kw(side):
+        dparams, dcfg = side.draft(1)
+        return dict(num_slots=2, max_len=32, page_size=4, speculate_k=3,
+                    draft_params=dparams, draft_cfg=dcfg, overlap_prefill=overlap)
+
+    run = both(base, prompts, 6, [dict(point="mid_decode_tick", at=2)], kw)
+    assert run.fired == [("mid_decode_tick", 2, "crash")]
+    assert run.streams == [(solo(base, p, 6), "length") for p in prompts]
+    assert run.engine.idle and run.engine.pool.free_blocks == run.engine.pool.num_blocks
+
+
+def test_overlap_prefill_fault_recovers_admitted_requests(lm):
+    """The overlapped crash point sits after BOTH dispatches: freshly
+    admitted requests are in slots and recover() hands them back, as JAX's."""
+    from test_torch_serving_resilience import pool_invariants, sides
+
+    got = {}
+    for name, side in sides(lm[:4]).items():
+        engine = side.engine(num_slots=2, max_len=32, overlap_prefill=True)
+        f = side.faults
+        inj = f.FaultInjector(f.FaultSchedule([f.FaultSpec(f.MID_DECODE_TICK, at=0)]))
+        rid = engine.submit(np.ones(4, np.int32), 4)
+        with f.installed(inj):
+            with pytest.raises(f.InjectedCrash):
+                engine.step()
+        failed = engine.recover()
+        got[name] = ([r.request_id for r in failed], engine.status[rid],
+                     engine.pool.active_count)
+        if side.port:
+            assert pool_invariants(engine, failed) == []
+    assert got["torch"] == got["jax"] == ([0], "error", 0)
+
+
+def test_sentinel_degenerate_draft_fires_and_resolves():
+    from gradaccum_tpu_torch.obs.sentinel import DEGENERATE_DRAFT, Sentinel
+
+    s = Sentinel(clock=lambda: 0.0, accept_floor=0.2, accept_warmup=2, accept_consecutive=3)
+    fired = []
+    s.on(DEGENERATE_DRAFT, fired.append)
+    s.observe_accept(None)  # no speculation this tick: ignored
+    for _ in range(10):
+        s.observe_accept(0.05, replica=1)
+    assert len(fired) == 1 and fired[0].replica == 1  # level-held
+    assert (DEGENERATE_DRAFT, 1) in s.firing()
+    s.observe_accept(0.9, replica=1)
+    assert (DEGENERATE_DRAFT, 1) not in s.firing()
+
+
+def test_bench_spec_fast(tmp_path):
+    """``bench_spec --fast`` on the CPU: JAX's fast-mode checks (every leg's
+    greedy streams equal the plain engine's, the sweep and the accept rates
+    in range, the artifact written)."""
+    from gradaccum_tpu_torch.examples import bench_spec
+
+    out = tmp_path / "spec.json"
+    result = bench_spec.main(["--fast", "--device", "cpu", "--out", str(out)])
+    assert out.exists() and result["parity_ok"]
+    assert result["baseline"]["tokens_per_s"] > 0 and result["speculative"]["tokens_per_s"] > 0
+    assert result["speculative"]["accept_rate"] is not None
+    assert result["baseline"]["decode_programs"] == result["speculative"]["decode_programs"] == 1
+    assert len(result["accept_sweep"]) >= 2
+    for leg in result["accept_sweep"]:
+        assert 0.0 <= leg["accept_rate"] <= 1.0 and leg["tokens_per_s"] > 0
+    assert all(v > 0 for v in result["ttft_under_load"]["p99_s"].values())
+    assert result["acceptance"]["required"]
