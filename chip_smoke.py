@@ -327,6 +327,28 @@ Phases, each of which fails the run if it fails:
     tick at GPT-Small width and at JAX's tiny bench model, each at most
     1.02 (JAX's gate), with the card's name and power limit.
 
+28. live reconfiguration and the replica fleet, the same GPT-Small model
+    on a paged pool (4 slots, 64 blocks of 16, decode block 4; phase 27's
+    4 requests of 32-96 prompt tokens and 24 new), every stream against a
+    calm run under the near-tie rule. (a) A grow to 128 blocks after 2
+    ticks: no preemption, the prefix cache kept, the card's peak and kept
+    allocation across it against the old pool's bytes; shrinks to 32 blocks
+    through the host-swap and the re-prefill resume; a shrink to 2 refused
+    with JAX's demand and supply. (b) ``params_digest`` of GPT-Small timed;
+    a swap to identical weights through the port's checkpoint (swapped K/V
+    kept), to new weights in memory (each continuation ``generate_cached``
+    of prompt + generated under them), and from a rotted file (``ok=False``,
+    the old weights keep serving). (c) ``MID_RECONFIG`` kills at 2n and at
+    2n+1 of the retry, then a clean retry. (d) Two replicas on the card
+    sharing the weights (the bytes each adds printed): lockstep streams and
+    unique ids; ``replica_drain``/``replica_activate`` through the server
+    with rebound handles; a seeded ``replica_kill`` at ``FLEET_STEP`` taken
+    through DEAD (on the tick clock) to a proof-gated excise and a
+    ``replica_add``; the free-running server's two loop threads. No flash
+    kernel launches in (a)-(d). ``reconfigure()`` wall ms per kind. (e)
+    ``bench_reconfig`` and ``bench_fleet`` on the card, each at JAX's 1.5x
+    with parity.
+
 The last three lines of standard output are the card's name and power
 limit, a JSON line describing every kernel in each dtype (bfloat16: launches
 from the main path, and at phase 23's long-context shapes; float32: from
@@ -5265,6 +5287,389 @@ def phase_recovery():
     print(f"[recovery] phase 27 took {time.perf_counter() - t0:.1f} s ({', '.join(parts)})")
 
 
+# --------------------------------------------------------------------------
+# phase 28: live reconfiguration and the replica fleet on one card
+# --------------------------------------------------------------------------
+
+RECONFIG_DIR = os.path.join(ROOT, "build", "chip_smoke_reconfig")
+RECONFIG_ENGINE = dict(num_slots=4, max_len=256, page_size=16, decode_block=4)
+RECONFIG_BLOCKS = 64   # 16,384 B x 16 positions a block: 16 MiB of K/V
+RECONFIG_TICKS = 2     # ticks every stream runs before the reconfiguration
+
+
+def _reconfig_run(engine, prompts, n, spec=None, ticks=RECONFIG_TICKS, between=None):
+    """Submit ``prompts`` (``n`` new tokens, seed = index), step ``ticks``
+    ticks, apply ``spec`` (timed; ``between(engine)`` instead when given), run
+    to idle. Returns the streams, the result and the reconfigure() ms."""
+    import torch
+
+    rids = [engine.submit(p, n, rng_seed=i) for i, p in enumerate(prompts)]
+    for _ in range(ticks):
+        engine.step()
+    result, ms = None, None
+    if spec is not None or between is not None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = between(engine) if between is not None else engine.reconfigure(spec)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    engine.run_until_idle()
+    streams = []
+    for rid in rids:
+        tokens, status = engine.pop_result(rid)
+        check(status == "done", f"[reconfig] request {rid} ended {status}")
+        streams.append([int(t) for t in tokens])
+    return streams, result, ms
+
+
+def _against(tag, params, cfg, prompts, streams, wants, cases):
+    for i, (p, got, want) in enumerate(zip(prompts, streams, wants)):
+        _near_tie_check(f"{tag} request {i}", params, cfg, p, got, want, cases)
+
+
+def _resize_legs(params, cfg, prompts, calm, n, cases, wall):
+    """(a): grow under traffic (no preemption, the prefix cache kept), shrink
+    through the host-swap and the re-prefill resume, and a shrink below
+    demand refused with JAX's demand and supply."""
+    import torch
+
+    from gradaccum_tpu_torch.serving import Engine, ReconfigError, pool_resize
+
+    pool_bytes = (RECONFIG_BLOCKS + 1) * RECONFIG_ENGINE["page_size"] * 16384
+    engine = Engine(params, cfg, num_blocks=RECONFIG_BLOCKS, prefix_cache=True,
+                    **RECONFIG_ENGINE)
+    indexed, mem = [], []
+
+    def grow(e):
+        indexed.append(len(e.prefix_cache))
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        result = e.reconfigure(pool_resize(2 * RECONFIG_BLOCKS))
+        torch.cuda.synchronize()
+        mem.extend([torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()])
+        indexed.append(len(e.prefix_cache))
+        return result
+
+    streams, res, ms = _reconfig_run(engine, prompts, n, between=grow)
+    peak, kept = mem[1] - mem[0], mem[2] - mem[0]
+    check(res.ok and res.preempted == 0 and res.detail["incremental"]
+          and res.detail["segments"] == [RECONFIG_BLOCKS, RECONFIG_BLOCKS]
+          and engine.metrics.preemptions == 0 and indexed[0] == indexed[1] > 0,
+          f"[reconfig] (a) grow: {res.to_dict()}, {engine.metrics.preemptions} preemptions, "
+          f"prefix entries {indexed}")
+    _against("(a) grow", params, cfg, prompts, streams, calm, cases)
+    wall["pool grow"] = ms
+    print(f"[reconfig] (a) grow {RECONFIG_BLOCKS} -> {2 * RECONFIG_BLOCKS} blocks under "
+          f"traffic: 0 preemptions, segments {res.detail['segments']}, {indexed[1]} prefix "
+          f"entries kept, streams equal the calm run's; reconfigure() {ms:.3f} ms; across the "
+          f"grow the card's allocation peaked {peak / 2**20:.2f} MiB above its level before "
+          f"and kept {kept / 2**20:.2f} MiB, against the old pool's {pool_bytes / 2**20:.2f} MiB")
+    for swap in ("host", "recompute"):
+        engine = Engine(params, cfg, num_blocks=RECONFIG_BLOCKS, admission="optimistic",
+                        swap=swap, **RECONFIG_ENGINE)
+        streams, res, ms = _reconfig_run(engine, prompts, n,
+                                         pool_resize(RECONFIG_BLOCKS // 2))
+        m = engine.metrics
+        resumed = m.swap_ins if swap == "host" else m.reprefills
+        check(res.ok and res.preempted == len(prompts) and resumed == len(prompts),
+              f"[reconfig] (a) shrink {swap}: {res.to_dict()}, swap-ins {m.swap_ins}, "
+              f"re-prefills {m.reprefills}")
+        _against(f"(a) shrink {swap}", params, cfg, prompts, streams, calm, cases)
+        wall[f"shrink ({swap})"] = ms
+        print(f"[reconfig] (a) shrink {RECONFIG_BLOCKS} -> {RECONFIG_BLOCKS // 2} blocks, "
+              f"swap={swap}: {res.preempted} parked, {resumed} resumed by "
+              f"{'swap-in' if swap == 'host' else 're-prefill'}, streams equal the calm run's; "
+              f"reconfigure() {ms:.3f} ms")
+    engine = Engine(params, cfg, num_blocks=RECONFIG_BLOCKS, **RECONFIG_ENGINE)
+    for i, p in enumerate(prompts):
+        engine.submit(p, n, rng_seed=i)
+    engine.step()
+    # JAX's floor: the largest single worst-case reservation, not the sum
+    demand = max(-(-(p.size + n) // RECONFIG_ENGINE["page_size"]) for p in prompts)
+    try:
+        engine.reconfigure(pool_resize(2))
+        raise SmokeError("[reconfig] (a) a shrink below demand was not refused")
+    except ReconfigError as e:
+        check(e.demand == demand and e.supply == 2 and engine.num_blocks == RECONFIG_BLOCKS,
+              f"[reconfig] (a) refusal demand {e.demand} supply {e.supply}, want {demand}/2")
+    engine.run_until_idle()
+    print(f"[reconfig] (a) a shrink to 2 blocks refused: demand {demand}, supply 2, nothing "
+          f"changed")
+
+
+def _ckpt_legs(params, cfg, prompts, calm, n, cases, wall):
+    """(b): identical weights through the port's checkpoint (swapped K/V
+    kept), changed weights (the continuation is generate_cached under them),
+    a rotted checkpoint (ok=False, the old weights keep serving)."""
+    import numpy as np
+    import torch
+
+    from gradaccum_tpu_torch.estimator import checkpoint as ckpt
+    from gradaccum_tpu_torch.interop import params_tree
+    from gradaccum_tpu_torch.models.gpt import gpt_lm_bundle
+    from gradaccum_tpu_torch.models.gpt_decode import generate_cached
+    from gradaccum_tpu_torch.serving import Engine, checkpoint_swap
+    from gradaccum_tpu_torch.serving import reconfig
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    digest = reconfig.params_digest(params)
+    digest_ms = 1e3 * (time.perf_counter() - t0)
+    nbytes = sum(t.numel() * t.element_size() for t in reconfig._leaves(params))
+    d = os.path.join(RECONFIG_DIR, "ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = ckpt.save(d, {"params": params, "step": 1}, step=1)
+    save_s = time.perf_counter() - t0
+    engine = Engine(params, cfg, num_blocks=RECONFIG_BLOCKS, **RECONFIG_ENGINE)
+    streams, res, ms = _reconfig_run(engine, prompts, n, checkpoint_swap(checkpoint=d))
+    check(res.ok and res.detail["weights_unchanged"] and res.preempted == len(prompts)
+          and engine.metrics.swap_ins == len(prompts)
+          and reconfig.params_digest(engine.params) == digest,
+          f"[reconfig] (b) same weights: {res.to_dict()}, swap-ins {engine.metrics.swap_ins}")
+    _against("(b) same weights", params, cfg, prompts, streams, calm, cases)
+    wall["checkpoint swap (file, same weights)"] = ms
+    print(f"[reconfig] (b) params_digest of GPT-Small ({nbytes / 2**20:.1f} MiB, copied to the "
+          f"host) {digest_ms:.1f} ms; checkpoint saved in {save_s:.2f} s; the swap from it "
+          f"kept the swapped K/V ({engine.metrics.swap_ins} swap-ins), streams equal the calm "
+          f"run's; reconfigure() {ms:.1f} ms (restore, two digests, park, resume set-up)")
+    other = params_tree(gpt_lm_bundle(cfg).init(SERVE_SEED + 1, "cuda"))
+    engine = Engine(params, cfg, num_blocks=RECONFIG_BLOCKS, **RECONFIG_ENGINE)
+    gen = {}
+
+    def swap(e):
+        gen.update({i: len(e.results[rid]) for i, rid in enumerate(sorted(e.results))})
+        return e.reconfigure(checkpoint_swap(params=other))
+
+    streams, res, ms = _reconfig_run(engine, prompts, n, between=swap)
+    check(res.ok and not res.detail["weights_unchanged"] and engine.metrics.swap_ins == 0
+          and engine.metrics.reprefills == len(prompts),
+          f"[reconfig] (b) new weights: {res.to_dict()}")
+    for i, (p, got) in enumerate(zip(prompts, streams)):
+        g = gen[i]
+        _near_tie_check(f"(b) before the swap, request {i}", params, cfg, p, got[:g],
+                        calm[i][:g], cases)
+        ext = np.concatenate([p, np.asarray(got[:g], np.int32)])
+        want = generate_cached(other, cfg, ext, n - g)[0, ext.size:].tolist()
+        _near_tie_check(f"(b) new weights, request {i}", other, cfg, ext, got[g:], want, cases)
+    wall["checkpoint swap (in memory, new weights)"] = ms
+    print(f"[reconfig] (b) new weights in memory after {sorted(gen.values())} tokens: every "
+          f"continuation equals generate_cached of prompt + generated under them "
+          f"({engine.metrics.reprefills} re-prefills, no swap-in); reconfigure() {ms:.1f} ms")
+    del other
+    with open(path, "r+b") as f:
+        f.seek(10)
+        f.write(b"\xff\xff\xff\xff")
+    engine = Engine(params, cfg, num_blocks=RECONFIG_BLOCKS, **RECONFIG_ENGINE)
+    streams, res, ms = _reconfig_run(engine, prompts, n, checkpoint_swap(checkpoint=d))
+    check(not res.ok and res.detail["quarantined"] and res.preempted == 0
+          and "rejected" in res.reason and engine.metrics.reconfig_failures == 1,
+          f"[reconfig] (b) rotted checkpoint: {res.to_dict()}")
+    _against("(b) rotted checkpoint", params, cfg, prompts, streams, calm, cases)
+    print(f"[reconfig] (b) a rotted checkpoint: ok=False, quarantined "
+          f"({sorted(os.listdir(d))}), the old weights kept serving the calm streams")
+
+
+def _kill_legs(params, cfg, prompts, calm, n, cases, wall):
+    """(c): MID_RECONFIG kills at 2n and at 2n+1 of the retry, then a clean
+    retry; the streams are the calm ones."""
+    from gradaccum_tpu_torch.resilience import faults
+    from gradaccum_tpu_torch.serving import Engine, pool_resize
+
+    engine = Engine(params, cfg, num_blocks=RECONFIG_BLOCKS, admission="optimistic",
+                    swap="host", **RECONFIG_ENGINE)
+    inj = faults.FaultInjector(faults.FaultSchedule([
+        faults.FaultSpec(faults.MID_RECONFIG, at=0), faults.FaultSpec(faults.MID_RECONFIG, at=3)]))
+    states = []
+
+    def kills(e):
+        with faults.installed(inj):
+            for _ in range(3):
+                try:
+                    states.append(e.reconfigure(pool_resize(RECONFIG_BLOCKS // 2)).ok)
+                except faults.InjectedCrash:
+                    states.append((e.num_blocks, e.pool.active_count))
+                e.step()
+        return None
+
+    streams, _, _ = _reconfig_run(engine, prompts, n, between=kills)
+    check([tuple(f) for f in inj.fired] == [("mid_reconfig", 0, "crash"),
+                                           ("mid_reconfig", 3, "crash")]
+          and states[0] == (RECONFIG_BLOCKS, 0) and states[1][0] == RECONFIG_BLOCKS // 2
+          and states[2] is True and engine._reconfig_count == 3,
+          f"[reconfig] (c) fired {inj.fired}, states {states}")
+    _against("(c) MID_RECONFIG", params, cfg, prompts, streams, calm, cases)
+    print(f"[reconfig] (c) MID_RECONFIG kills at 0 (old pool, all parked) and 3 (new pool, "
+          f"all parked), then a clean retry: streams equal the calm run's")
+
+
+def _fleet_legs(params, cfg, prompts, calm, n, cases, wall):
+    """(d): two replicas sharing the card: the weights once, a pool each;
+    lockstep streams, drain/activate through the server with rebound
+    handles, a seeded replica_kill taken through DEAD to excise to add, and
+    the free-running server's two loop threads."""
+    import torch
+
+    from gradaccum_tpu_torch.resilience import faults
+    from gradaccum_tpu_torch.serving import (ReplicatedEngine, ServingServer, fleet as fl,
+                                             reconfig, replica_activate, replica_add,
+                                             replica_drain, replica_excise)
+
+    def make(**kw):
+        return ReplicatedEngine(params, cfg, replicas=2, tp=1, num_blocks=RECONFIG_BLOCKS,
+                                **dict(RECONFIG_ENGINE, **kw))
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    fleet = make()
+    torch.cuda.synchronize()
+    added = (torch.cuda.memory_allocated() - before) / 2
+    shared = all(a is b for a, b in zip(reconfig._leaves(fleet.replicas[0].params),
+                                        reconfig._leaves(params)))
+    check(shared, "[reconfig] (d) a replica copied the weights")
+    rids = [fleet.submit(p, n, rng_seed=i) for i, p in enumerate(prompts)]
+    fleet.run_until_idle()
+    streams = [[int(t) for t in fleet.pop_result(r)[0]] for r in rids]
+    check(len(set(rids)) == len(rids) and {r % 2 for r in rids} == {0, 1},
+          f"[reconfig] (d) ids {rids}")
+    _against("(d) lockstep fleet", params, cfg, prompts, streams, calm, cases)
+    print(f"[reconfig] (d) two replicas on the card share the weights (no copy); each adds "
+          f"{added / 2**20:.2f} MiB (its pool and slot state); lockstep streams equal one "
+          f"engine's, ids {rids} unique on the two lattices")
+    # drain and activate through the lockstep server: handles rebound
+    server = ServingServer(fleet).start()
+    try:
+        handles = [server.submit(p, n, rng_seed=i) for i, p in enumerate(prompts)]
+        for h in handles:
+            next(iter(h))
+        t0 = time.perf_counter()
+        res = server.reconfigure(replica_drain(1), timeout=300)
+        wall["replica drain (server)"] = 1e3 * (time.perf_counter() - t0)
+        out = [h.result(timeout=300) for h in handles]
+        t0 = time.perf_counter()
+        back = server.reconfigure(replica_activate(1), timeout=300)
+        wall["replica activate (server)"] = 1e3 * (time.perf_counter() - t0)
+    finally:
+        server.stop()
+    check(res.ok and res.detail["resubmitted"] and back.ok and fleet.active_replicas == [0, 1],
+          f"[reconfig] (d) drain {res.to_dict()}, activate {back.to_dict()}")
+    _against("(d) drain", params, cfg, prompts, [[int(t) for t in o[0]] for o in out], calm,
+             cases)
+    print(f"[reconfig] (d) replica_drain(1) under traffic moved {len(res.detail['resubmitted'])} "
+          f"streams with their handles rebound, streams equal the calm run's; activate ok")
+    # a seeded replica_kill at FLEET_STEP: DEAD on the tick clock, excise, add
+    fleet = make(fleet_lease_ttl=5.0, fleet_suspect_after=2.0)
+    rids = {fleet.submit(p, n, rng_seed=i): i for i, p in enumerate(prompts)}
+    plan = faults.FaultSchedule([faults.FaultSpec(faults.FLEET_STEP, at=3,
+                                                  kind=faults.KIND_REPLICA_KILL, target=1)])
+    with faults.installed(faults.FaultInjector(plan)):
+        for _ in range(60):
+            fleet.step()
+            if fleet.fleet.state(1) == fl.DEAD:
+                break
+    dead_tick = fleet.tick_count
+    t0 = time.perf_counter()
+    res = fleet.reconfigure(replica_excise(1))
+    wall["replica excise"] = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    add = fleet.reconfigure(replica_add())
+    torch.cuda.synchronize()
+    wall["replica add"] = 1e3 * (time.perf_counter() - t0)
+    add_bytes = torch.cuda.memory_allocated() - before
+    moved = res.detail["resubmitted"]
+    fleet.run_until_idle()
+    streams = [None] * len(prompts)
+    for rid, i in rids.items():
+        tokens, status = fleet.pop_result(moved.get(rid, rid))
+        check(status == "done", f"[reconfig] (d) request {rid} ended {status}")
+        streams[i] = [int(t) for t in tokens]
+    proof = res.detail["excise_proof"]
+    check(res.ok and proof["valid"] and proof["absent"] == [1] and add.ok
+          and fleet.fleet.state(1) == fl.EXCISED and fleet.active_replicas == [0, 2],
+          f"[reconfig] (d) excise {res.to_dict()}, add {add.to_dict()}")
+    _against("(d) kill/excise", params, cfg, prompts, streams, calm, cases)
+    print(f"[reconfig] (d) replica_kill at FLEET_STEP 3: DEAD at fleet tick {dead_tick} "
+          f"(lease 5 ticks), excise proof {proof}, {len(moved)} streams replayed on the "
+          f"survivor, replica_add +{add_bytes / 2**20:.2f} MiB on the card while serving; "
+          f"streams equal the calm run's")
+    # free running: one loop thread per replica
+    fleet = make()
+    server = ServingServer(fleet, free_running=True).start()
+    try:
+        out = [h.result(timeout=300) for h in
+               [server.submit(p, n, rng_seed=i) for i, p in enumerate(prompts)]]
+        st = server.stats()
+    finally:
+        server.stop()
+    check(st["free_running"] and all(p["tick"] > 0 for p in st["per_replica"]),
+          f"[reconfig] (d) free running: {[p['tick'] for p in st['per_replica']]}")
+    _against("(d) free running", params, cfg, prompts, [[int(t) for t in o[0]] for o in out],
+             calm, cases)
+    print(f"[reconfig] (d) free-running server, two loop threads (ticks "
+          f"{[p['tick'] for p in st['per_replica']]}): streams equal the calm run's")
+
+
+def phase_reconfig():
+    """Phase 28: live reconfiguration and the replica fleet at GPT-Small
+    width (phase 24's model) on the paged pool, then the two benches. No
+    flash kernel launches in (a)-(d)."""
+    import torch
+
+    from gradaccum_tpu_torch.examples import bench_fleet, bench_reconfig
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+    from gradaccum_tpu_torch.serving import Engine
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.makedirs(RECONFIG_DIR, exist_ok=True)
+    smi = _smi()
+    print(f"[reconfig] on {smi}")
+    cfg, params = _serve_model()
+    n = RECOVER_TRACE["new"]
+    prompts = _recover_prompts(cfg, 40)
+    fa.reset_launch_counts()
+    calm = _reconfig_run(Engine(params, cfg, num_blocks=RECONFIG_BLOCKS, **RECONFIG_ENGINE),
+                         prompts, n)[0]
+    marks = [("model and calm run", time.perf_counter())]
+    cases, wall = [], {}
+    _resize_legs(params, cfg, prompts, calm, n, cases, wall)
+    marks.append(("(a)", time.perf_counter()))
+    _ckpt_legs(params, cfg, prompts, calm, n, cases, wall)
+    marks.append(("(b)", time.perf_counter()))
+    _kill_legs(params, cfg, prompts, calm, n, cases, wall)
+    marks.append(("(c)", time.perf_counter()))
+    _fleet_legs(params, cfg, prompts, calm, n, cases, wall)
+    marks.append(("(d)", time.perf_counter()))
+    counts = fa.launch_counts()
+    check(not any(counts.values()), f"[reconfig] flash kernels launched in (a)-(d): {counts}")
+    print(f"[reconfig] reconfigure() wall ms on {smi}: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in wall.items())
+          + f"; {len(cases)} near ties; flash launches {dict(counts)}")
+    rec = bench_reconfig.main(["--device", "cuda", "--json",
+                               os.path.join(RECONFIG_DIR, "bench_reconfig.json")])
+    fleet = bench_fleet.main(["--device", "cuda", "--json",
+                              os.path.join(RECONFIG_DIR, "bench_fleet.json")])
+    acc = rec["acceptance"]
+    check(acc["passed"], f"[reconfig] (e) bench_reconfig: {acc}")
+    check(fleet["acceptance"]["passed"], f"[reconfig] (e) bench_fleet: {fleet['acceptance']} "
+                                         f"{fleet['supervised']} {fleet['no_excision']}")
+    print(f"[reconfig] (e) bench_reconfig on {smi}: live/stop-the-world availability "
+          f"{acc['availability_ratio_resize']} (resize), {acc['availability_ratio_ckpt_swap']} "
+          f"(checkpoint swap), gate {bench_reconfig.GATE}; bench_fleet: supervised "
+          f"{fleet['supervised']['availability']} against {fleet['no_excision']['availability']} "
+          f"= {fleet['availability_ratio']} (gate {bench_fleet.GATE}), MTTR "
+          f"{fleet['supervised']['mttr_ticks']} ticks; both with parity")
+    marks.append(("(e)", time.perf_counter()))
+    prev, parts = t0, []
+    for name, at in marks:
+        parts.append(f"{name} {at - prev:.1f} s")
+        prev = at
+    print(f"[reconfig] phase 28 took {time.perf_counter() - t0:.1f} s ({', '.join(parts)})")
+
+
 def _smi():
     try:
         out = subprocess.run(
@@ -5388,6 +5793,7 @@ def main() -> int:
         phase_prefix_spec(serving)
         phase_admission(serving)
         phase_recovery()
+        phase_reconfig()
     except SmokeError as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1

@@ -59,10 +59,11 @@ Determinism: like the tracer and the SLO evaluator, the clock is
 injectable and anomaly records carry only sample-derived fields, so a
 seeded simulation produces a byte-identical anomaly log.
 
-The healer (``resilience/healer.py``), replica fleets and live
-reconfiguration that some hooks here serve (``fire`` from outside,
-``on_resolve``, ``maintenance``, per-replica leases) are ROADMAP.md items
-5g and 5h's second half, not ported yet; the hooks work as JAX's.
+Replica fleets (``serving/replicated.py``) feed the per-replica leases and
+``fire`` a fleet-lease ``dead_replica`` from outside; live reconfiguration
+runs inside ``maintenance``. The healer (``resilience/healer.py``) that
+``on_resolve`` serves is ROADMAP.md item 5h's second half, not ported yet;
+the hook works as JAX's.
 """
 
 from __future__ import annotations

@@ -32,12 +32,13 @@ tick, or the request id for swap IO):
   poisons a page-table row, which the upload-time bounds check turns into
   ``BlockTableCorruption`` on the same tick;
 - ``MID_SWAP_IO`` — in the swap stores' ``put`` and ``get``; ``io_error``
-  falls back to re-prefill, ``crash`` fails the tick mid-preemption.
-
-``MID_RECONFIG`` and ``FLEET_STEP`` and the fleet kinds are kept as names,
-with JAX's validation, so schedules drawn from a seed stay equal to JAX's;
-nothing fires them until reconfiguration and replicas are ported
-(ROADMAP.md item 5g).
+  falls back to re-prefill, ``crash`` fails the tick mid-preemption;
+- ``MID_RECONFIG`` — twice per ``Engine.reconfigure``: index ``2n`` after
+  the preempt-all (old configuration) and ``2n+1`` after the rebuild (new
+  configuration), ``n`` the engine's reconfiguration count;
+- ``FLEET_STEP`` — in every ``FleetSupervisor.poll``, indexed by the poll
+  count; the fleet kinds ``replica_kill``, ``replica_wedge`` and
+  ``lease_partition`` land on the spec's ``target`` replica.
 
 Kinds: ``crash`` raises :class:`InjectedCrash` (simulated process death —
 deliberately NOT an OSError, so IO retry loops never swallow it);

@@ -12,16 +12,18 @@ already exists — never a new side channel:
 - :func:`request_drain` marks this host preempted on a
   :class:`~gradaccum_tpu_torch.resilience.preemption.DrainConsensus`, so the
   next ``decide()`` round agrees a cluster-wide drain to a common step —
-  the same path a SIGTERM takes.
+  the same path a SIGTERM takes;
+- :func:`request_reconfig` routes through
+  :meth:`~gradaccum_tpu_torch.serving.server.ServingServer.request_reconfig`,
+  a live reconfiguration (``serving/reconfig.py``) on the loop thread.
 
 :func:`bind_default_remediations` wires the stock matrix: latency cliffs,
 stalls, dead replicas, preemption storms and tier thrash recover and
 requeue; a loss-scale storm drains the training job.
 
-JAX's :func:`request_reconfig` binding waits for live reconfiguration and
-the escalation-ladder rungs (``Remediation`` and the ``*_rung`` factories)
-for the healer; :func:`request_reconfig` raises ``NotImplementedError``
-naming its item.
+The escalation-ladder rungs of JAX's module (``Remediation`` and the
+``*_rung`` factories) come with the healer (ROADMAP.md item 5h, second
+half).
 """
 
 from __future__ import annotations
@@ -58,11 +60,26 @@ def request_drain(consensus):
 
 
 def request_reconfig(server, spec_fn):
-    """JAX's binding of an anomaly to a live reconfiguration; not ported
-    yet."""
-    from gradaccum_tpu_torch.serving.engine import RECONFIG_ITEM
+    """Remediation callback: ask ``server`` (a :class:`ServingServer`) to
+    run a live reconfiguration at its next loop iteration. ``spec_fn(anomaly)``
+    builds the :class:`~gradaccum_tpu_torch.serving.reconfig.ReconfigSpec`
+    (None skips), e.g. a pool grow on a preemption storm::
 
-    raise NotImplementedError(f"remediation.request_reconfig waits for {RECONFIG_ITEM}")
+        sentinel.on(obs_sentinel.PREEMPTION_STORM,
+                    remediation.request_reconfig(
+                        server, lambda a: reconfig.pool_resize(BIGGER)))
+
+    It runs under the engine lock with the watchdog and the sentinel's
+    leases suspended: the quiesce -> park -> rebuild -> resume contract an
+    operator's reconfiguration takes."""
+
+    def remedy(anomaly):
+        spec = spec_fn(anomaly)
+        if spec is not None:
+            server.request_reconfig(spec)
+
+    remedy.__name__ = "request_reconfig"
+    return remedy
 
 
 def bind_default_remediations(sentinel, server=None, consensus=None):

@@ -20,10 +20,16 @@ The serving fault contract rides on the same engine: its tick fires the
 serving fault points, ``Engine.recover`` releases what a failed tick held,
 and the server requeues the recovered requests (bounded), breaks stalled
 ticks with a watchdog and feeds the live ops plane (``obs/sentinel.py``,
-``obs/slo.py``, ``obs/telemetry.py``). Reconfiguration (ROADMAP.md item 5g,
-first half), replica fleets and the serving mesh (5g, second half) and the
-self-healing ladder (5h, second half) are not ported yet: their knobs raise
-``NotImplementedError`` naming their item.
+``obs/slo.py``, ``obs/telemetry.py``). Live reconfiguration (``reconfig``:
+pool resize, checkpoint swap, replica scale) parks every in-flight stream
+through the preempt path and resumes it token for token at the new shape.
+``ReplicatedEngine`` (``replicated``) runs N engines on the one card behind
+the same server surface, supervised by ``fleet``'s leases (SUSPECT, DEAD,
+proof-gated excision, live ``replica_add``); ``ServingServer(free_running=
+True)`` runs one loop thread per replica. The serving mesh (TP decode,
+ROADMAP.md item 5g, second half) and the self-healing ladder (5h, second
+half) are not ported yet: their knobs raise ``NotImplementedError`` naming
+their item.
 """
 
 from gradaccum_tpu_torch.serving.admission import (
@@ -39,7 +45,20 @@ from gradaccum_tpu_torch.serving.cache_pool import (
     PrefixCache,
 )
 from gradaccum_tpu_torch.serving.engine import Engine, StepEvents
+from gradaccum_tpu_torch.serving.fleet import ExciseProof, FleetSupervisor
 from gradaccum_tpu_torch.serving.metrics import ServingMetrics
+from gradaccum_tpu_torch.serving.reconfig import (
+    ReconfigError,
+    ReconfigResult,
+    ReconfigSpec,
+    checkpoint_swap,
+    pool_resize,
+    replica_activate,
+    replica_add,
+    replica_drain,
+    replica_excise,
+)
+from gradaccum_tpu_torch.serving.replicated import ReplicatedEngine
 from gradaccum_tpu_torch.serving.scheduler import QueueFull, Request, Scheduler
 from gradaccum_tpu_torch.serving.swap import HostSwapStore, SwapCapacityError, SwapError
 from gradaccum_tpu_torch.serving.server import (
@@ -54,12 +73,18 @@ __all__ = [
     "BlockTableCorruption",
     "CachePool",
     "Engine",
+    "ExciseProof",
+    "FleetSupervisor",
     "HostSwapStore",
     "LengthQuantileEstimator",
     "PagedCachePool",
     "PoolPressure",
     "PrefixCache",
     "QueueFull",
+    "ReconfigError",
+    "ReconfigResult",
+    "ReconfigSpec",
+    "ReplicatedEngine",
     "Request",
     "Scheduler",
     "ServingMetrics",
@@ -70,4 +95,10 @@ __all__ = [
     "SwapCapacityError",
     "SwapError",
     "TraceItem",
+    "checkpoint_swap",
+    "pool_resize",
+    "replica_activate",
+    "replica_add",
+    "replica_drain",
+    "replica_excise",
 ]

@@ -57,9 +57,12 @@ check turns into ``BlockTableCorruption`` on the same tick), and the
 bookkeeping after a failed ``step()`` and hands back the requests that were
 in slots; ``ServingServer`` requeues them.
 
-**Not ported yet**, each raising ``NotImplementedError`` with its
-ROADMAP.md item: ``mesh`` (replicas and the serving mesh, 5g second half)
-and ``reconfigure`` (5g first half).
+**Live reconfiguration** (:meth:`Engine.reconfigure`,
+``serving/reconfig.py``): a pool resize or a checkpoint swap between ticks,
+through the same preempt -> park -> resume path; ``replica_id``,
+``id_start`` and ``id_stride`` let ``serving/replicated.py`` run several
+engines as one fleet. ``mesh`` (the serving mesh, TP decode) is not ported
+yet and raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -105,8 +108,7 @@ from gradaccum_tpu_torch.utils import prng
 from gradaccum_tpu_torch.utils.platform import resolve_device, upload
 from gradaccum_tpu_torch.utils.profiling import StepWindowProfiler
 
-RECONFIG_ITEM = "live reconfiguration (ROADMAP.md item 5g, first half)"
-FLEET_ITEM = "replicas and the serving mesh (ROADMAP.md item 5g, second half)"
+FLEET_ITEM = "the serving mesh and TP decode (ROADMAP.md item 5g, second half: the serving mesh)"
 HEALER_ITEM = "the self-healing ladder (ROADMAP.md item 5h, second half)"
 
 
@@ -309,8 +311,14 @@ class Engine:
         # the rid re-prefilling through _admit_dispatch as a resume
         self._resuming_rid: Optional[int] = None
         # an attached ServingServer pins its tick watchdog here, so planned
-        # long operations (a victim's swap-out) can pause the stall clock
+        # long operations (a victim's swap-out, a reconfiguration) can pause
+        # the stall clock
         self.watchdog = None
+        # live reconfiguration: True while reconfigure() quiesces and
+        # rebuilds; the count numbers the MID_RECONFIG fault indices
+        self.reconfiguring = False
+        self._reconfig_count = 0
+        self.last_reconfig = None
         self.speculate_k = int(speculate_k)
         self.draft_cfg = draft_cfg if self.speculate_k else None
         self.draft_params = (_tree_to(draft_params, self.device, moved) if self.speculate_k
@@ -1031,8 +1039,9 @@ class Engine:
 
     def _wd_suspend(self):
         """Suspend the attached server watchdog (a null context when none)
-        across a planned long operation: a victim's swap-out inside a
-        preemption burst is not a wedged dispatch."""
+        across a planned long operation: a reconfiguration's preempt-all and
+        rebuild, or a victim's swap-out inside a preemption burst, is not a
+        wedged dispatch."""
         wd = self.watchdog
         return wd.suspend() if wd is not None else contextlib.nullcontext()
 
@@ -1153,11 +1162,14 @@ class Engine:
             self.metrics.record_swap_fallback()
             return False, 0, 0
 
-    def _preempt(self, slot: int, preempted: List[int]) -> None:
+    def _preempt(self, slot: int, preempted: List[int], stage_swap: bool = True) -> None:
         """Evict the request in ``slot``: read its resume point back, stage
         its live private blocks in the swap store (shared prefix blocks are
         decref'd, never copied), release the slot, blocks and reservation,
-        and park the request ahead of all fresh admissions."""
+        and park the request ahead of all fresh admissions.
+        ``stage_swap=False`` parks without the card-to-host copy, for callers
+        that know the bytes can never be restored (a weight swap, a replica
+        drain that replays the request elsewhere)."""
         req = self._slot_req[slot]
         rid = req.request_id
         tr = self.tracer
@@ -1169,7 +1181,7 @@ class Engine:
         limit = (int(self._slot_limit[slot]) if self.paged
                  else req.prompt.size + req.max_new_tokens)
         swapped, page_start, bytes_out = False, 0, 0
-        if self._swap_store is not None:
+        if self._swap_store is not None and stage_swap:
             with self._wd_suspend():
                 swapped, page_start, bytes_out = self._stage_swap_out(slot, rid, length)
         self._parked_state[rid] = _ParkedState(
@@ -1438,7 +1450,14 @@ class Engine:
         self._slot_cow[slot] = 0
 
     def reconfigure(self, spec):
-        raise NotImplementedError(f"Engine.reconfigure waits for {RECONFIG_ITEM}")
+        """Apply a live reconfiguration between ticks (``serving/reconfig.py``
+        for the specs and the refuse/degrade contract): quiesce admissions,
+        park every running slot, rebuild, and let the parked requests resume
+        token for token on the next ticks. Not thread-safe: through a server,
+        ``ServingServer.request_reconfig``."""
+        from gradaccum_tpu_torch.serving import reconfig as reconfig_lib
+
+        return reconfig_lib.apply(self, spec)
 
     def recover(self) -> List[Request]:
         """Reset the host bookkeeping after a failed ``step()``.

@@ -83,7 +83,10 @@ NEW_MODULES = ("obs", "obs.trace", "obs.metrics", "obs.flight", "resilience",
                # the serving fault contract and the live ops plane
                "resilience.watchdog", "resilience.remediation", "obs.slo",
                "obs.sentinel", "obs.telemetry", "examples.bench_slo",
-               "examples.slo_check", "examples.bench_cow", "examples.bench_spec")
+               "examples.slo_check", "examples.bench_cow", "examples.bench_spec",
+               # live reconfiguration and the replica fleet
+               "serving.reconfig", "serving.fleet", "serving.replicated",
+               "examples.bench_reconfig", "examples.bench_fleet")
 
 
 # a bfloat16 pool's K/V through the host store and the disk rung, with

@@ -58,6 +58,7 @@ from gradaccum_tpu_torch.serving import (
     ServingServer,
     SimulationDriver,
 )
+from gradaccum_tpu_torch.serving import reconfig
 
 jgpt = importlib.import_module("gradaccum_tpu.models.gpt")
 jserving = importlib.import_module("gradaccum_tpu.serving")
@@ -560,15 +561,17 @@ def test_engine_knobs_of_later_items_raise(lm, knob):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda e, s: e.preempt(0), None), (lambda e, s: e.reconfigure(None), "5g"),
+    (lambda e, s: e.preempt(0), None),
+    (lambda e, s: e.reconfigure(reconfig.pool_resize(e.num_blocks + 1)), None),
     (lambda e, s: e.recover(), None), (lambda e, s: s.request_recover("x"), None),
-    (lambda e, s: s.request_reconfig(None), "5g"), (lambda e, s: s.reconfigure(None), "5g"),
+    (lambda e, s: s.request_reconfig(reconfig.pool_resize(e.num_blocks + 1)), None),
+    (lambda e, s: _reconfigure_served(e, s), None),
     (lambda e, s: ServingServer(e, watchdog_timeout=1.0), None),
     (lambda e, s: ServingServer(e, healer=object()), "5h"),
     (lambda e, s: ServingServer(e, sentinel=Sentinel()), None),
     (lambda e, s: ServingServer(e, slo=SLOEvaluator(default_serving_objectives())), None),
     (lambda e, s: ServingServer(e, telemetry_port=0).start().stop(), None),
-    (lambda e, s: ServingServer(e, free_running=True), "5g"),
+    (lambda e, s: ServingServer(e, free_running=True), None),
     (lambda e, s: _prefix_pool_matches(e), None),
     (lambda e, s: _fork_cow_copies(e), None),
 ], ids=["preempt", "reconfigure", "recover", "request_recover", "request_reconfig",
@@ -583,6 +586,16 @@ def test_methods_of_later_items_raise(lm, call, item):
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         call(engine, server)
+
+
+def _reconfigure_served(engine, server):
+    """The blocking reconfigure through a started server: the pool grows."""
+    server.start()
+    try:
+        result = server.reconfigure(reconfig.pool_resize(engine.num_blocks + 1), timeout=60)
+    finally:
+        server.stop()
+    assert result.ok and engine.num_blocks == engine.pool.num_blocks
 
 
 def _prefix_pool_matches(engine):

@@ -43,12 +43,14 @@ from gradaccum_tpu_torch.resilience import faults as tfaults
 from gradaccum_tpu_torch.serving import (
     Engine,
     QueueFull,
+    ReplicatedEngine,
     Request,
     Scheduler,
     ServingServer,
     StreamHandle,
 )
 from gradaccum_tpu_torch.serving import engine as tengine
+from gradaccum_tpu_torch.serving import reconfig
 from gradaccum_tpu_torch.utils import prng
 
 jgpt = importlib.import_module("gradaccum_tpu.models.gpt")
@@ -643,19 +645,57 @@ def test_cow_fork_faulting_half_done_heals(lm, monkeypatch):
 # -- refusals that remain ---------------------------------------------------------------
 
 
+def _served(engine, call):
+    """``call(server)`` on a started server around ``engine``; stopped after."""
+    server = ServingServer(engine).start()
+    try:
+        return call(server)
+    finally:
+        server.stop()
+
+
+def _grow(engine):
+    return reconfig.pool_resize(engine.num_blocks + 2)
+
+
+def _remediation_grows(engine):
+    remediation = importlib.import_module("gradaccum_tpu_torch.resilience.remediation")
+
+    def call(server):
+        remediation.request_reconfig(server, lambda a: _grow(engine))(
+            types.SimpleNamespace(kind="x", replica=None))
+        deadline = time.monotonic() + WAIT
+        while not engine.metrics.reconfigs and time.monotonic() < deadline:
+            time.sleep(0.01)
+        return engine.metrics.reconfigs == {"pool_resize": 1}
+
+    return _served(engine, call)
+
+
 @pytest.mark.parametrize("call,item", [
     (lambda e: ServingServer(e, healer=object()), "5h, second half"),
-    (lambda e: ServingServer(e, free_running=True), "5g, second half"),
-    (lambda e: ServingServer(types.SimpleNamespace(replicas=[e], metrics=e.metrics)),
+    (lambda e: ServingServer(e, free_running=True)._free_running is False, None),
+    (lambda e: ServingServer(ReplicatedEngine(e.params, e.cfg, replicas=2, device="cpu",
+                                              num_slots=1, max_len=8)).stats()["replicas"] == 2,
+     None),
+    (lambda e: _served(e, lambda s: s.request_reconfig(_grow(e)).result(timeout=WAIT).ok),
+     None),
+    (lambda e: _served(e, lambda s: s.reconfigure(_grow(e), timeout=WAIT).ok), None),
+    (lambda e: e.reconfigure(_grow(e)).ok, None),
+    (_remediation_grows, None),
+    (lambda e: ReplicatedEngine(e.params, e.cfg, replicas=2, tp=2, device="cpu"),
      "5g, second half"),
-    (lambda e: ServingServer(e).request_reconfig(None), "5g, first half"),
-    (lambda e: ServingServer(e).reconfigure(None), "5g, first half"),
-    (lambda e: e.reconfigure(None), "5g, first half"),
-    (lambda e: importlib.import_module("gradaccum_tpu_torch.resilience.remediation")
-     .request_reconfig(None, None), "5g, first half"),
+    (lambda e: Engine(e.params, e.cfg, device="cpu", mesh=object()), "5g, second half"),
 ], ids=["healer", "free_running", "replicas", "request_reconfig", "server_reconfigure",
-        "engine_reconfigure", "remediation_reconfig"])
+        "engine_reconfigure", "remediation_reconfig", "replicated_tp2", "engine_mesh"])
 def test_remaining_refusals_name_their_item(lm, call, item):
-    engine = _engine(lm, num_slots=1, max_len=8)
+    """The refusals that remain name their ROADMAP.md item; the calls whose
+    item has landed (item None) run: a single engine with ``free_running``
+    falls back to lockstep, a fleet serves, and live reconfiguration runs
+    through the engine, the server and a remediation."""
+    engine = _engine(lm, num_slots=1, max_len=8, page_size=4)
+    if item is None:
+        assert call(engine)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         call(engine)
