@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one NVIDIA H100.
 
-    python3 chip_smoke.py     # one card, about twelve minutes
+    python3 chip_smoke.py     # one card, about thirteen minutes
 
 Phases, each of which fails the run if it fails:
 
@@ -348,6 +348,24 @@ Phases, each of which fails the run if it fails:
     kernel launches in (a)-(d). ``reconfigure()`` wall ms per kind. (e)
     ``bench_reconfig`` and ``bench_fleet`` on the card, each at JAX's 1.5x
     with parity.
+29. the self-healing ladder, the same GPT-Small model and phase 28's
+    requests on its paged pool at one token a tick, the sentinel and the
+    healer on the tick clock, a degradation that arms on a tick and sleeps
+    25x the warm-up's median healthy tick until ``recover()`` clears it.
+    (a) A lockstep server with ``Healer(default_ladders(server=...))``:
+    the cliff fires and the ``recover_requeue`` rung heals it in its
+    window; ``stats()["healer"]`` and the manifest's ladders; fire->resolve
+    ticks and ms. (b) ``recover()`` does not clear it: the ladder grows the
+    pool (``initiator="healer"`` in the result and the metrics; the
+    reconfiguration's ms), then freezes ``exhausted`` with one
+    ``healer_frozen`` at severity page and no action after. (c) A
+    free-running fleet of two: replica 1 degrades and only its engine
+    recovers; then a killed replica walks the ``dead_replica`` ladder
+    (targeted recover, proof-gated excise, healer-tagged add) and its
+    displaced streams finish on the survivor. Every stream against a calm
+    run under the near-tie rule; no flash kernel launches in (a)-(c). (d)
+    ``bench_heal --fast`` (MTTR ratio against JAX's 1.5, the flap leg
+    terminal) and ``chaos_smoke`` for one seed, on the card.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON line describing every kernel in each dtype (bfloat16: launches
@@ -5670,6 +5688,301 @@ def phase_reconfig():
     print(f"[reconfig] phase 28 took {time.perf_counter() - t0:.1f} s ({', '.join(parts)})")
 
 
+# --------------------------------------------------------------------------
+# phase 29: the self-healing ladder on one card
+# --------------------------------------------------------------------------
+
+HEAL_DIR = os.path.join(ROOT, "build", "chip_smoke_heal")
+HEAL_ENGINE = dict(RECONFIG_ENGINE, decode_block=1)  # one token a tick: windows count ticks
+HEAL_ARM = 12        # healthy ticks the sentinel sees before the degradation arms: the
+                     # prefill tick's weight in the EWMA baseline decays to 3 %
+HEAL_VERIFY = 4.0    # ticks a rung gets before the ladder escalates ((b), (c))
+
+
+def _heal_sentinel(clock, **kw):
+    """A sentinel on ``clock``; a degraded tick scores tens of deviations, 12
+    keeps a lone host hiccup below the line."""
+    from gradaccum_tpu_torch.obs.sentinel import Sentinel
+
+    knobs = dict(cliff_warmup=4, cliff_consecutive=2, cliff_score=12.0, lease=1e9)
+    knobs.update(kw)
+    return Sentinel(clock=clock, **knobs)
+
+
+def _heal_marks(snt, kind):
+    """Wall times of ``kind``'s fire and resolve records: [(state, tick, s)]."""
+    marks = []
+    snt.on(kind, lambda a: marks.append(("fire", a.at, time.perf_counter())))
+    snt.on_resolve(kind, lambda a: marks.append(("resolve", a.at, time.perf_counter())))
+    return marks
+
+
+def _fire_to_resolve(marks, tag):
+    fire = next((m for m in marks if m[0] == "fire"), None)
+    resolve = next((m for m in marks if m[0] == "resolve" and fire and m[1] >= fire[1]), None)
+    check(fire is not None and resolve is not None, f"[heal] {tag}: no fire->resolve in {marks}")
+    return resolve[1] - fire[1], 1e3 * (resolve[2] - fire[2])
+
+
+def _served_streams(server, prompts, n):
+    """Submit every request before the loop starts (the arm tick then lands
+    on the same traffic), serve, stop; the streams and finish reasons."""
+    handles = [server.submit(p, n, rng_seed=i) for i, p in enumerate(prompts)]
+    server.start()
+    try:
+        out = [h.result(timeout=300) for h in handles]
+    finally:
+        server.stop()
+    return [[int(t) for t in toks] for toks, _ in out], [r for _, r in out]
+
+
+def _heal_lockstep(params, cfg, prompts, calm, n, cases):
+    """(a) and (b): the lockstep server with the stock ladders."""
+    import torch
+
+    from gradaccum_tpu_torch.examples.chaos_smoke import DEGRADE_FACTOR, degrade, tick_median
+    from gradaccum_tpu_torch.obs import sentinel as obs_sentinel
+    from gradaccum_tpu_torch.resilience.healer import Healer, default_ladders
+    from gradaccum_tpu_torch.serving import Engine, ServingServer
+
+    cliff = obs_sentinel.LATENCY_CLIFF
+    stock = {k: [r.name for r in v] for k, v in default_ladders(server=object()).items()}
+    out = {}
+    for leg, healable in (("(a)", True), ("(b)", False)):
+        engine = Engine(params, cfg, num_blocks=RECONFIG_BLOCKS, **HEAL_ENGINE)
+        median = tick_median(engine, prompts)
+        delay = DEGRADE_FACTOR * median
+        wedge = degrade(engine, engine.tick_count + HEAL_ARM, delay, healable=healable)
+        snt = _heal_sentinel(lambda e=engine: float(e.tick_count), lease=60.0)
+        marks = _heal_marks(snt, cliff)
+        server = ServingServer(engine, max_requeues=6, max_engine_faults=6, sentinel=snt)
+        healer = Healer(snt, default_ladders(server=server),
+                        verify_window=20.0 if healable else HEAL_VERIFY, cooldown=0.5)
+        server.attach_healer(healer)
+        grow_ms = []
+        plain_reconfigure = engine.reconfigure
+
+        def reconfigure(spec, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = plain_reconfigure(spec, **kw)
+            torch.cuda.synchronize()
+            grow_ms.append(1e3 * (time.perf_counter() - t0))
+            return result
+
+        engine.reconfigure = reconfigure
+        polls = []  # the healer's cost on the loop: seconds of each poll
+        plain_poll = healer.poll
+
+        def poll(now=None):
+            t0 = time.perf_counter()
+            taken = plain_poll(now)
+            polls.append(time.perf_counter() - t0)
+            return taken
+
+        healer.poll = poll
+        streams, reasons = _served_streams(server, prompts, n)
+        st = server.stats()
+        check(all(r in ("eos", "length") for r in reasons), f"[heal] {leg} reasons {reasons}")
+        _against(f"{leg} heal", params, cfg, prompts, streams, calm, cases)
+        manifest = engine.manifest()["healer"]
+        check(manifest["ladders"] == stock, f"[heal] {leg} manifest ladders {manifest}")
+        if healable:
+            heal = healer.heal_log[0] if healer.heal_log else {}
+            check(healer.healed_total >= 1 and heal.get("action") == "recover_requeue"
+                  and heal.get("kind") == cliff and st["healer"]["healed_total"] >= 1
+                  and wedge["armed"] and not wedge["on"] and not healer.frozen(),
+                  f"[heal] (a) healer {healer.status()}, wedge {wedge}")
+            ticks, ms = _fire_to_resolve(marks, "(a)")
+            poll_us = 1e6 * sorted(polls)[len(polls) // 2]
+            out["a"] = dict(ticks=ticks, ms=ms, median_ms=1e3 * median, delay_ms=1e3 * delay,
+                            mttr=heal["mttr"], poll_us=poll_us)
+            print(f"[heal] (a) lockstep, healthy tick {1e3 * median:.3f} ms (median of the "
+                  f"warm-up), degraded {1e3 * delay:.1f} ms from tick {HEAL_ARM} on: "
+                  f"latency_cliff fired and the recover_requeue rung healed it, fire->resolve "
+                  f"{ticks:.0f} ticks = {ms:.1f} ms; healed_total {st['healer']['healed_total']}; "
+                  f"manifest ladders {manifest['ladders'][cliff]}; healer.poll median "
+                  f"{poll_us:.1f} us over {len(polls)} calls on the loop "
+                  f"({poll_us / (1e4 * median):.3f} % of a healthy tick); streams equal the calm "
+                  f"run's")
+            continue
+        frozen = healer.frozen()
+        fires = [a for a in snt.anomalies
+                 if a.kind == obs_sentinel.HEALER_FROZEN and a.state == "fire"]
+        result = engine.last_reconfig
+        by_init = dict(engine.metrics.reconfigs_by_initiator)
+        check(frozen == [{"kind": cliff, "replica": None, "why": "exhausted"}]
+              and len(fires) == 1 and fires[0].severity == "page"
+              # the page carries the ladder's snapshot at the freeze: no action after it
+              and fires[0].detail["healer"]["actions_total"] == healer.actions_total
+              and st["healer"]["frozen_total"] == 1,
+              f"[heal] (b) frozen {frozen}, healer_frozen {[a.to_dict() for a in fires]}, "
+              f"{healer.actions_total} actions, anomalies "
+              f"{[(a.kind, a.state, a.at) for a in snt.anomalies]}, wedge {wedge}")
+        check(result is not None and result.ok and result.kind == "pool_resize"
+              and result.initiator == "healer" and by_init == {"healer": 1}
+              and engine.num_blocks > RECONFIG_BLOCKS and len(grow_ms) == 1,
+              f"[heal] (b) reconfig {result and result.to_dict()}, by initiator {by_init}, "
+              f"{engine.num_blocks} blocks")
+        out["b"] = dict(grow_ms=grow_ms[0], blocks=engine.num_blocks, actions=healer.actions_total)
+        print(f"[heal] (b) recover does not clear it: the ladder walked recover_requeue -> "
+              f"(replica_drain skipped) -> pool_grow {RECONFIG_BLOCKS}->{engine.num_blocks} "
+              f"blocks (initiator {result.initiator}, {grow_ms[0]:.1f} ms on the loop) -> "
+              f"frozen exhausted; healer_frozen once at severity {fires[0].severity}, "
+              f"{healer.actions_total} actions, none after the freeze; streams equal the calm "
+              f"run's")
+    return out
+
+
+def _heal_fleet(params, cfg, prompts, calm, n, cases):
+    """(c): a free-running fleet of two replicas on the card."""
+    from gradaccum_tpu_torch.examples.chaos_smoke import DEGRADE_FACTOR, degrade, tick_median
+    from gradaccum_tpu_torch.obs import sentinel as obs_sentinel
+    from gradaccum_tpu_torch.obs import trace as obs_trace
+    from gradaccum_tpu_torch.resilience import faults
+    from gradaccum_tpu_torch.resilience.healer import Healer, default_ladders
+    from gradaccum_tpu_torch.serving import ReplicatedEngine, ServingServer, fleet as fl
+
+    def make(**kw):
+        return ReplicatedEngine(params, cfg, replicas=2, tp=1, num_blocks=RECONFIG_BLOCKS,
+                                **dict(HEAL_ENGINE, **kw))
+
+    def clock_of(fleet):
+        return lambda: float(max(e.tick_count for e in fleet.replicas))
+
+    # replica 1 degrades; the recover is routed to its loop alone
+    fleet = make()
+    median = tick_median(fleet, prompts)
+    delay = DEGRADE_FACTOR * median
+    wedge = degrade(fleet.replicas[1], fleet.replicas[1].tick_count + HEAL_ARM, delay)
+    calm0 = degrade(fleet.replicas[0], 1 << 30, 0.0)  # counts replica 0's recovers only
+    snt = _heal_sentinel(clock_of(fleet))
+    server = ServingServer(fleet, max_requeues=6, max_engine_faults=6, sentinel=snt,
+                           free_running=True)
+    healer = Healer(snt, default_ladders(server=server), verify_window=1e4, cooldown=0.5)
+    server.attach_healer(healer)
+    streams, reasons = _served_streams(server, prompts, n)
+    heals = [h for h in healer.heal_log if h["replica"] == 1]
+    check(heals and heals[0]["action"] == "recover_requeue" and wedge["recovers"] >= 1
+          and not wedge["on"] and calm0["recovers"] == 0,
+          f"[heal] (c) heals {healer.heal_log}, replica 1 recovers {wedge['recovers']}, "
+          f"replica 0 recovers {calm0['recovers']}")
+    check(all(r in ("eos", "length") for r in reasons), f"[heal] (c) reasons {reasons}")
+    _against("(c) degraded replica", params, cfg, prompts, streams, calm, cases)
+    print(f"[heal] (c) free-running fleet of two: replica 1 degraded ({1e3 * delay:.1f} ms a "
+          f"tick), its latency_cliff healed by recover_requeue on its own loop (MTTR "
+          f"{heals[0]['mttr']:.0f} fleet ticks), replica 0 never recovered; streams equal the "
+          f"calm run's")
+
+    # a killed replica walks the dead_replica ladder (cliff detection off:
+    # the survivor's replays are planned load, not a cliff to drain it for)
+    fleet = make(fleet_lease_ttl=5.0, fleet_suspect_after=2.0)
+    snt = _heal_sentinel(clock_of(fleet), cliff_score=1e9)
+    server = ServingServer(fleet, max_requeues=6, max_engine_faults=6, sentinel=snt,
+                           free_running=True)
+    tracer = obs_trace.Tracer(capacity=None)
+    healer = Healer(snt, default_ladders(server=server), verify_window=HEAL_VERIFY,
+                    cooldown=0.5, tracer=tracer)
+    server.attach_healer(healer)
+    marks = _heal_marks(snt, obs_sentinel.DEAD_REPLICA)
+    with obs_trace.installed(tracer):
+        handles = [server.submit(p, n, rng_seed=i) for i, p in enumerate(prompts + prompts)]
+        server.start()
+        try:
+            deadline = time.monotonic() + 60
+            while fleet.replicas[1].tick_count < 3 and time.monotonic() < deadline:
+                time.sleep(0.001)
+            fleet.fleet.inject(faults.KIND_REPLICA_KILL, 1)  # its streams are running
+            killed_at = fleet.replicas[1].tick_count
+            out = [h.result(timeout=300) for h in handles]
+            deadline = time.monotonic() + 60
+            while len(fleet.replicas) < 3 and time.monotonic() < deadline:
+                time.sleep(0.01)  # the chained add settles after the heal
+        finally:
+            server.stop()
+    applied = [e["args"]["action"] for e in tracer.snapshot()
+               if e["name"] == "healer/transition" and e["args"]["reason"] == "apply"]
+    added = [e["args"] for e in tracer.snapshot()
+             if e["name"] == "serve/reconfig" and e["args"].get("action") == "add"]
+    heal = next((h for h in healer.heal_log if h["kind"] == obs_sentinel.DEAD_REPLICA), {})
+    check(applied[:2] == ["recover_requeue", "replica_excise"]
+          and heal.get("action") == "replica_excise" and heal.get("replica") == 1
+          and fleet.fleet.state(1) == fl.EXCISED and fleet.active_replicas == [0, 2]
+          and added and all(a.get("initiator") == "healer" for a in added),
+          f"[heal] (c) applied {applied}, heal {heal}, states {fleet.fleet.states()}, "
+          f"active {fleet.active_replicas}, adds {added}")
+    both = prompts + prompts
+    check(all(r in ("eos", "length") for _, r in out), f"[heal] (c) kill reasons")
+    _against("(c) killed replica", params, cfg, both, [[int(t) for t in o[0]] for o in out],
+             calm + calm, cases)
+    ticks, ms = _fire_to_resolve(marks, "(c) dead_replica")
+    print(f"[heal] (c) replica 1 killed at its tick {killed_at} while serving: dead_replica "
+          f"fired at DEAD, the ladder applied {applied} (recover on the dead loop, then a "
+          f"proof-gated excise; the heal credited to {heal['action']}), fire->resolve "
+          f"{ticks:.0f} fleet ticks = {ms:.1f} ms; the chained replica_add (initiator "
+          f"{added[0]['initiator']}) made the fleet {fleet.active_replicas}; {len(both)} "
+          f"streams, the displaced ones replayed on the survivor, equal the calm run's")
+    return {"c_kill_ticks": ticks, "c_kill_ms": ms}
+
+
+def phase_heal():
+    """Phase 29: the self-healing ladder at GPT-Small width (phase 24's
+    model, phase 28's requests), then bench_heal and chaos_smoke on the
+    card. No flash kernel launches in (a)-(c)."""
+    import torch
+
+    from gradaccum_tpu_torch.examples import bench_heal, chaos_smoke
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+    from gradaccum_tpu_torch.serving import Engine
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.makedirs(HEAL_DIR, exist_ok=True)
+    smi = _smi()
+    print(f"[heal] on {smi}")
+    cfg, params = _serve_model()
+    n = RECOVER_TRACE["new"]
+    prompts = _recover_prompts(cfg, 40)
+    fa.reset_launch_counts()
+    calm = _reconfig_run(Engine(params, cfg, num_blocks=RECONFIG_BLOCKS, **HEAL_ENGINE),
+                         prompts, n)[0]
+    marks = [("model and calm run", time.perf_counter())]
+    cases = []
+    lock = _heal_lockstep(params, cfg, prompts, calm, n, cases)
+    marks.append(("(a)+(b)", time.perf_counter()))
+    _heal_fleet(params, cfg, prompts, calm, n, cases)
+    marks.append(("(c)", time.perf_counter()))
+    counts = fa.launch_counts()
+    check(not any(counts.values()), f"[heal] flash kernels launched in (a)-(c): {counts}")
+    print(f"[heal] flash launches in (a)-(c): {dict(counts)}; {len(cases)} near ties")
+    heal = bench_heal.main(["--fast", "--device", "cuda", "--json",
+                            os.path.join(HEAL_DIR, "bench_heal.json")])
+    chaos = chaos_smoke.main(["--device", "cuda", "--json",
+                              os.path.join(HEAL_DIR, "chaos_smoke.json")])
+    check(heal["acceptance"]["passed"], f"[heal] (d) bench_heal: ratio {heal['mttr_ratio']}, "
+                                        f"flap {heal['flap']}")
+    check(chaos["acceptance"]["passed"], "[heal] (d) chaos_smoke failed: "
+          + str({k: v for k, v in chaos["detail"].items() if k == "failed"}))
+    print(f"[heal] (d) bench_heal --fast on {smi}: MTTR healer "
+          f"{heal['healer']['mean_mttr_ticks']} against operator stub "
+          f"{heal['operator_stub']['mean_mttr_ticks']} ticks = ratio {heal['mttr_ratio']} "
+          f"(JAX's gate {bench_heal.GATE}), flap leg terminal {heal['flap']['terminal']} "
+          f"({heal['flap']['frozen_reason']}); chaos_smoke seed {chaos['seed']} acceptance "
+          f"{chaos['acceptance']['passed']}, ops leg's slow ticks scored "
+          f"{chaos['detail']['ops']['serve']['cliff_score']['fired']} against "
+          f"{chaos['detail']['ops']['serve']['cliff_score']['threshold']} (phases "
+          + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in chaos["detail"].items()
+                      if isinstance(v, dict) and "seconds" in v) + ")")
+    marks.append(("(d)", time.perf_counter()))
+    prev, parts = t0, []
+    for name, at in marks:
+        parts.append(f"{name} {at - prev:.1f} s")
+        prev = at
+    print(f"[heal] phase 29 took {time.perf_counter() - t0:.1f} s ({', '.join(parts)}); "
+          f"(a) fire->resolve {lock['a']['ticks']:.0f} ticks = {lock['a']['ms']:.1f} ms, (b) "
+          f"pool grow {lock['b']['grow_ms']:.1f} ms")
+
+
 def _smi():
     try:
         out = subprocess.run(
@@ -5794,6 +6107,7 @@ def main() -> int:
         phase_admission(serving)
         phase_recovery()
         phase_reconfig()
+        phase_heal()
     except SmokeError as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1

@@ -61,9 +61,8 @@ seeded simulation produces a byte-identical anomaly log.
 
 Replica fleets (``serving/replicated.py``) feed the per-replica leases and
 ``fire`` a fleet-lease ``dead_replica`` from outside; live reconfiguration
-runs inside ``maintenance``. The healer (``resilience/healer.py``) that
-``on_resolve`` serves is ROADMAP.md item 5h's second half, not ported yet;
-the hook works as JAX's.
+runs inside ``maintenance``. The healer (``resilience/healer.py``) rides
+``on``/``on_resolve`` and borrows this sentinel's clock.
 """
 
 from __future__ import annotations

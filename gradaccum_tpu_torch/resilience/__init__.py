@@ -14,19 +14,35 @@ it (the port of ``gradaccum_tpu/resilience/``).
 
 - :mod:`watchdog` — stall detection for the serving tick loop.
 - :mod:`remediation` — sentinel anomalies bound to the recover/requeue and
-  drain contracts.
-
-JAX's ``healer`` and the escalation-ladder rungs of ``remediation`` wait
-for ROADMAP.md item 5h's second half.
+  drain contracts, and first-class
+  :class:`~gradaccum_tpu_torch.resilience.remediation.Remediation` rungs
+  that package each action with applicability and verify predicates.
+- :mod:`healer` — the autonomous escalation ladder over those rungs:
+  per-anomaly-class remediation chains with verification windows, cooldown
+  and a flap freeze (terminal ``healer_frozen``), and bounded remediation
+  budgets; the self-healing control plane a ServingServer polls on its loop.
 """
 
 from gradaccum_tpu_torch.resilience import (
     faults,
+    healer,
     manifest,
     preemption,
     remediation,
     retry,
     watchdog,
+)
+from gradaccum_tpu_torch.resilience.healer import Healer, default_ladders
+from gradaccum_tpu_torch.resilience.remediation import (
+    Remediation,
+    add_replica_rung,
+    drain_replica_rung,
+    drain_rung,
+    excise_replica_rung,
+    governor_pin_rung,
+    pool_grow_rung,
+    recover_rung,
+    rollback_rung,
 )
 from gradaccum_tpu_torch.resilience.faults import (
     FaultInjector,
@@ -45,11 +61,23 @@ from gradaccum_tpu_torch.resilience.watchdog import Watchdog
 
 __all__ = [
     "faults",
+    "healer",
     "manifest",
     "preemption",
     "remediation",
     "retry",
     "watchdog",
+    "Healer",
+    "Remediation",
+    "default_ladders",
+    "add_replica_rung",
+    "drain_replica_rung",
+    "drain_rung",
+    "excise_replica_rung",
+    "governor_pin_rung",
+    "pool_grow_rung",
+    "recover_rung",
+    "rollback_rung",
     "DrainConsensus",
     "FaultInjector",
     "FaultSchedule",

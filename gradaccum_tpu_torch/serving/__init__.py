@@ -26,10 +26,10 @@ through the preempt path and resumes it token for token at the new shape.
 ``ReplicatedEngine`` (``replicated``) runs N engines on the one card behind
 the same server surface, supervised by ``fleet``'s leases (SUSPECT, DEAD,
 proof-gated excision, live ``replica_add``); ``ServingServer(free_running=
-True)`` runs one loop thread per replica. The serving mesh (TP decode,
-ROADMAP.md item 5g, second half) and the self-healing ladder (5h, second
-half) are not ported yet: their knobs raise ``NotImplementedError`` naming
-their item.
+True)`` runs one loop thread per replica, and ``ServingServer(healer=)``
+polls the self-healing ladder (``resilience/healer.py``) on its loop. The
+serving mesh (TP decode, ROADMAP.md item 5g, second half) is not ported
+yet: its knobs raise ``NotImplementedError`` naming the item.
 """
 
 from gradaccum_tpu_torch.serving.admission import (

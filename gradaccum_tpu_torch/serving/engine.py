@@ -109,7 +109,6 @@ from gradaccum_tpu_torch.utils.platform import resolve_device, upload
 from gradaccum_tpu_torch.utils.profiling import StepWindowProfiler
 
 FLEET_ITEM = "the serving mesh and TP decode (ROADMAP.md item 5g, second half: the serving mesh)"
-HEALER_ITEM = "the self-healing ladder (ROADMAP.md item 5h, second half)"
 
 
 @dataclasses.dataclass

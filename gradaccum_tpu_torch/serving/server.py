@@ -34,9 +34,10 @@ Live reconfiguration (``request_reconfig``) runs on a loop thread under the
 engine lock, with the watchdog suspended and the sentinel in maintenance.
 Behind a ``ReplicatedEngine`` the server runs the fleet in lockstep, or with
 ``free_running`` one loop thread per replica, each with its own lock,
-watchdog window, heartbeat and fault budget. The self-healing ladder
-(``healer``) waits for ROADMAP.md item 5h's second half and raises
-``NotImplementedError`` naming it.
+watchdog window, heartbeat and fault budget. A ``healer``
+(``resilience/healer.py``) is polled on the loop thread(s) next to the
+sentinel's checks; its rungs act through ``request_recover`` and
+``request_reconfig``.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from gradaccum_tpu_torch.resilience.watchdog import Watchdog
-from gradaccum_tpu_torch.serving.engine import HEALER_ITEM, Engine
+from gradaccum_tpu_torch.serving.engine import Engine
 from gradaccum_tpu_torch.serving.scheduler import QueueFull
 
 _DONE = object()  # sentinel closing a handle's token stream
@@ -195,7 +196,14 @@ class ServingServer:
     (submits route to a replica under that replica's lock), watchdog
     window, sentinel heartbeat and fault budget. A single engine runs
     lockstep whatever the flag.
-    ``healer`` (the self-healing ladder) raises ``NotImplementedError``.
+    ``healer``: an optional ``resilience/healer.py :: Healer`` built over the
+    same ``sentinel``: the autonomous escalation ladder. The loop thread(s)
+    poll it after every sentinel check, idle passes included (verification
+    windows keep expiring while the engine has nothing to decode); its
+    actions route through :meth:`request_recover` and
+    :meth:`request_reconfig` (a free-running fleet runs them under the
+    owning replica's lock, as an operator's), its ladder policy lands in the
+    engine's or fleet's manifest and its live state in ``stats()["healer"]``.
 
     **Live reconfiguration**: :meth:`request_reconfig` queues a
     ``serving/reconfig.py`` spec (pool resize, checkpoint swap, replica
@@ -211,12 +219,13 @@ class ServingServer:
                  flight=None, sentinel=None, slo=None, healer=None,
                  telemetry_port: Optional[int] = None, telemetry_host: str = "127.0.0.1",
                  free_running: bool = False):
-        if healer is not None:
-            raise NotImplementedError(f"ServingServer(healer=...) waits for {HEALER_ITEM}")
         self._engine = engine
         self._flight = flight
         self._sentinel = sentinel
         self._slo = slo
+        self._healer = None
+        if healer is not None:
+            self._attach_healer_checked(healer, engine, sentinel)
         # a ReplicatedEngine owns one fleet registry (its metrics facade has
         # none); a single Engine reaches it through ServingMetrics
         self._registry = (getattr(engine, "registry", None)
@@ -271,6 +280,38 @@ class ServingServer:
             self._rfaults = None
             self._watchdogs = None
             self._watchdog = None if watchdog_timeout is None else self._new_watchdog()
+
+    def _attach_healer_checked(self, healer, engine, sentinel) -> None:
+        if sentinel is None:
+            raise ValueError("a healer needs the sentinel it was built over passed as "
+                             "sentinel=")
+        if healer.sentinel is not sentinel:
+            raise ValueError("healer was built over a different sentinel than this server's")
+        if self._healer is not None and self._healer is not healer:
+            # the replaced ladder must stop reacting: its hooks stay on the
+            # shared sentinel otherwise, and a ghost ladder's flap detector
+            # can fire a false page
+            self._healer.detach()
+        self._healer = healer
+        # the ladder policy is part of the serving shape: the manifest
+        # records it like every other knob
+        engine.healer_knobs = healer.manifest()
+
+    def attach_healer(self, healer) -> "ServingServer":
+        """Attach (or replace) the self-healing escalation ladder. The rung
+        factories (``resilience/remediation.py``) close over the server, so
+        the natural order is: the sentinel, the server around it, the
+        ``Healer`` over server-bound rungs, then attach. Equivalent to the
+        ``healer=`` knob once the ladder exists up front."""
+        self._attach_healer_checked(healer, self._engine, self._sentinel)
+        return self
+
+    def _poll_healer(self) -> None:
+        """One ladder pass on this loop thread: apply, escalate and freeze
+        decisions happen here; the actions are claimed at the top of a later
+        iteration (the healer locks internally)."""
+        if self._healer is not None:
+            self._healer.poll()
 
     def _new_watchdog(self) -> Watchdog:
         # pins only an explicitly injected engine tracer; None resolves the
@@ -687,19 +728,25 @@ class ServingServer:
         the fleet totals plus ``per_replica`` blocks (each marked with its
         membership state) and the supervisor's status. Free running, each
         replica's block is taken under its own lock, so replicas may show
-        different ticks; the lockstep fleet shows one tick."""
+        different ticks; the lockstep fleet shows one tick. With a healer,
+        ``healer`` holds its whole ladder state."""
         if self._free_running:
             per = []
             for i, e in enumerate(self._engine.replicas):
                 with self._rlocks[i]:
                     per.append(self._engine_stats(e))
-            return self._fleet_stats(per, max(p["tick"] for p in per), free_running=True)
-        with self._lock:
-            replicas = getattr(self._engine, "replicas", None)
-            if replicas is None:
-                return self._engine_stats(self._engine)
-            return self._fleet_stats([self._engine_stats(e) for e in replicas],
-                                     self._engine.tick_count)
+            out = self._fleet_stats(per, max(p["tick"] for p in per), free_running=True)
+        else:
+            with self._lock:
+                replicas = getattr(self._engine, "replicas", None)
+                if replicas is None:
+                    out = self._engine_stats(self._engine)
+                else:
+                    out = self._fleet_stats([self._engine_stats(e) for e in replicas],
+                                            self._engine.tick_count)
+        if self._healer is not None:
+            out["healer"] = self._healer.status()
+        return out
 
     def _fleet_stats(self, per: List[Dict], tick: int, free_running: bool = False) -> Dict:
         fleet = self._engine
@@ -1033,6 +1080,9 @@ class ServingServer:
                         # an idle engine is not stalled: park the lease
                         snt.heartbeat(tick=eng.tick_count, busy=False)
                         snt.check()
+                    # verification windows and cooldowns keep expiring while
+                    # the engine has nothing to decode
+                    self._poll_healer()
                     self._stop.wait(self._idle_sleep)
                     continue
                 self._faults = 0  # a clean tick resets the consecutive budget
@@ -1049,6 +1099,7 @@ class ServingServer:
                         self._observe(eng, None)
                         snt.observe_tick(time.monotonic() - t0)
                     snt.check()
+                self._poll_healer()
                 if self._slo is not None:
                     self._slo.tick()
                 self._deliver(events, self._lock)
@@ -1141,6 +1192,9 @@ class ServingServer:
                         snt.heartbeat(replica=i, tick=eng.tick_count, busy=False)
                         snt.check()
                     sup_n = self._steward_duties(i, sup_n)
+                    # every replica loop advances the ladder; a rung aimed at
+                    # replica j is claimed by j's loop
+                    self._poll_healer()
                     if self._slo is not None and i == self._fleet_steward():
                         self._slo.tick()
                     self._stop.wait(self._idle_sleep)
@@ -1151,6 +1205,7 @@ class ServingServer:
                     snt.heartbeat(replica=i, tick=eng.tick_count, busy=not eng.idle)
                     self._observe(eng, t0, replica=i)
                     snt.check()
+                self._poll_healer()
                 if self._slo is not None and i == self._fleet_steward():
                     self._slo.tick()
                 self._deliver(events, lock)

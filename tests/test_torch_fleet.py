@@ -15,9 +15,9 @@ transition log, excise proofs, backpressure messages and counters are
 equal, and greedy streams also equal the port's ``generate_cached``. The
 free-running cases run the port alone (their ticks are scheduled by
 threads on wall time), hold every stream to ``generate_cached``, and bound
-every wait. JAX's drain -> activate -> drain round trip attaches the
-healer, which is not ported (ROADMAP.md item 5h, second half); its
-counterpart here checks the sentinel's leases alone.
+every wait. The drain -> activate -> drain round trip attaches the healer
+with the stock ladders, as JAX's does: planned maintenance leaves no
+sentinel lease firing and charges no remediation budget.
 """
 
 import time
@@ -438,13 +438,19 @@ def _free_fleet(lm, **kw):
 
 def test_free_running_drain_activate_drain_no_leaks(lm):
     """A drain -> activate -> drain round trip on a free-running fleet under
-    a seeded tick fault is planned maintenance: the streams are exact and no
-    sentinel anomaly is left firing."""
+    a seeded tick fault is planned maintenance: the streams are exact, no
+    sentinel anomaly is left firing, and the healer attached with the stock
+    ladders spends no remediation budget on it."""
     from gradaccum_tpu_torch.obs.sentinel import Sentinel
+    from gradaccum_tpu_torch.resilience.healer import Healer, default_ladders
 
+    # cliff detection off: the seeded crash's recovery tick is a legitimate
+    # spike, and this case gates lease and budget hygiene
     snt = Sentinel(lease=60.0, cliff_score=1e9)
     fleet = _free_fleet(lm, replicas=2, tp=None, num_slots=3, max_len=32, fleet_lease_ttl=1e6)
     server = tserving.ServingServer(fleet, free_running=True, sentinel=snt, max_requeues=2)
+    healer = Healer(snt, default_ladders(server=server))
+    server.attach_healer(healer)
     server.start()
     prompts = prompts_of(4, seed=42)
     plan = tfaults.FaultSchedule([tfaults.FaultSpec(tfaults.MID_DECODE_TICK, at=4,
@@ -457,8 +463,11 @@ def test_free_running_drain_activate_drain_no_leaks(lm):
                 assert server.reconfigure(spec, timeout=WAIT).ok
             out = [h.result(timeout=WAIT) for h in handles]
         assert not snt.firing()
+        assert healer.status()["actions_total"] == 0  # planned ops cost no budget
         assert fleet.fleet.state(1) == tfleet.ACTIVE  # drained = renewed
         st = server.stats()
+        assert st["healer"]["actions_total"] == 0
+        assert fleet.manifest()["healer"] == healer.manifest()
         assert st["fleet"]["members"][1]["state"] == tfleet.ACTIVE
         assert st["excised_replicas"] == [] and st["free_running"] is True
     finally:

@@ -9,9 +9,9 @@
   bfloat16 pool's K/V goes through the swap store and the disk rung.
 - Without a card, the Estimator and the entry points (BERT, MNIST, housing)
   at their default device raise instead of running on the CPU (housing's
-  ``--export-dir`` writes an artifact that loads), and
-  ``chip_smoke.py`` exits non-zero without printing a result; each entry
-  point runs on the CPU when asked.
+  ``--export-dir`` writes an artifact that loads), as do ``bench_heal`` and
+  ``chaos_smoke``, and ``chip_smoke.py`` exits non-zero without printing a
+  result; each entry point runs on the CPU when asked.
 - The kernel wrappers refuse CPU tensors, and ``flash_attention`` on CPU
   tensors reaches the plain versions: the launch counts stay 0.
 """
@@ -86,7 +86,9 @@ NEW_MODULES = ("obs", "obs.trace", "obs.metrics", "obs.flight", "resilience",
                "examples.slo_check", "examples.bench_cow", "examples.bench_spec",
                # live reconfiguration and the replica fleet
                "serving.reconfig", "serving.fleet", "serving.replicated",
-               "examples.bench_reconfig", "examples.bench_fleet")
+               "examples.bench_reconfig", "examples.bench_fleet",
+               # the self-healing ladder
+               "resilience.healer", "examples.bench_heal", "examples.chaos_smoke")
 
 
 # a bfloat16 pool's K/V through the host store and the disk rung, with
@@ -253,6 +255,33 @@ def test_unported_entry_point_options_raise(name, argv, monkeypatch, tmp_path):
                         lambda *a, **kw: launched.append(a) or {"workers": 2})
     assert module.main(argv) == {"workers": 2}
     assert launched == [("gradaccum_tpu_torch.examples.mnist", argv, 2, "cpu")]
+
+
+@pytest.mark.parametrize("name", ["bench_heal", "chaos_smoke"])
+def test_healer_benches_default_to_the_card_and_raise_without_one(name):
+    _no_card()
+    import importlib
+
+    module = importlib.import_module(f"gradaccum_tpu_torch.examples.{name}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main(["--fast"] if name == "bench_heal" else [])
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("bench_heal", ["--fast", "--delay", "0.12"]),
+    ("chaos_smoke", ["--seed", "2"]),
+])
+def test_healer_bench_scripts_run_on_the_cpu_when_asked(name, argv, tmp_path):
+    """Each script runs tiny on the CPU, passes JAX's acceptance and writes
+    only the artifact it was given."""
+    out_file = tmp_path / f"{name}.json"
+    out = _run([os.path.join("gradaccum_tpu_torch", "examples", f"{name}.py"), *argv,
+                "--device", "cpu", "--json", str(out_file)], timeout=300)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    with open(out_file) as f:
+        artifact = json.load(f)
+    assert artifact["acceptance"]["passed"] is True and artifact["device"] == "cpu"
+    assert os.listdir(tmp_path) == [out_file.name]
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -567,7 +567,7 @@ def test_engine_knobs_of_later_items_raise(lm, knob):
     (lambda e, s: s.request_reconfig(reconfig.pool_resize(e.num_blocks + 1)), None),
     (lambda e, s: _reconfigure_served(e, s), None),
     (lambda e, s: ServingServer(e, watchdog_timeout=1.0), None),
-    (lambda e, s: ServingServer(e, healer=object()), "5h"),
+    (lambda e, s: _healer_served(e), None),
     (lambda e, s: ServingServer(e, sentinel=Sentinel()), None),
     (lambda e, s: ServingServer(e, slo=SLOEvaluator(default_serving_objectives())), None),
     (lambda e, s: ServingServer(e, telemetry_port=0).start().stop(), None),
@@ -586,6 +586,15 @@ def test_methods_of_later_items_raise(lm, call, item):
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         call(engine, server)
+
+
+def _healer_served(engine):
+    """A server built with ``healer=`` (a Healer over its own sentinel)
+    starts and stops; the ValueError cases are in test_torch_healer.py."""
+    from gradaccum_tpu_torch.resilience.healer import Healer
+
+    snt = Sentinel()
+    ServingServer(engine, sentinel=snt, healer=Healer(snt, {})).start().stop()
 
 
 def _reconfigure_served(engine, server):

@@ -672,8 +672,19 @@ def _remediation_grows(engine):
     return _served(engine, call)
 
 
+def _healer_served(engine):
+    """A server built with ``healer=`` (a Healer over its own sentinel)
+    starts and stops; the ValueError cases are in test_torch_healer.py."""
+    from gradaccum_tpu_torch.obs.sentinel import Sentinel
+    from gradaccum_tpu_torch.resilience.healer import Healer
+
+    snt = Sentinel()
+    ServingServer(engine, sentinel=snt, healer=Healer(snt, {})).start().stop()
+    return True
+
+
 @pytest.mark.parametrize("call,item", [
-    (lambda e: ServingServer(e, healer=object()), "5h, second half"),
+    (_healer_served, None),
     (lambda e: ServingServer(e, free_running=True)._free_running is False, None),
     (lambda e: ServingServer(ReplicatedEngine(e.params, e.cfg, replicas=2, device="cpu",
                                               num_slots=1, max_len=8)).stats()["replicas"] == 2,
@@ -690,9 +701,10 @@ def _remediation_grows(engine):
         "engine_reconfigure", "remediation_reconfig", "replicated_tp2", "engine_mesh"])
 def test_remaining_refusals_name_their_item(lm, call, item):
     """The refusals that remain name their ROADMAP.md item; the calls whose
-    item has landed (item None) run: a single engine with ``free_running``
-    falls back to lockstep, a fleet serves, and live reconfiguration runs
-    through the engine, the server and a remediation."""
+    item has landed (item None) run: a server with a healer starts and stops,
+    a single engine with ``free_running`` falls back to lockstep, a fleet
+    serves, and live reconfiguration runs through the engine, the server and
+    a remediation."""
     engine = _engine(lm, num_slots=1, max_len=8, page_size=4)
     if item is None:
         assert call(engine)
