@@ -366,6 +366,30 @@ Phases, each of which fails the run if it fails:
     run under the near-tie rule; no flash kernel launches in (a)-(c). (d)
     ``bench_heal --fast`` (MTTR ratio against JAX's 1.5, the flap leg
     terminal) and ``chaos_smoke`` for one seed, on the card.
+30. the serving mesh: GPT-Small f32 at nanoGPT's padded vocabulary 50304
+    (the model axis must divide it; prompts draw ids below 50257), two
+    gloo ranks sharing the card (``python3 chip_smoke.py
+    --serving-mesh-rank DIR``), each leg against the same engine in one
+    process under the near-tie rule (sampled streams: the sampler's top-2
+    perturbed scores), both ranks' streams and bookkeeping identical. (a)
+    ``Engine(mesh=serving_mesh(2))``, 8 slots, block 4, on a seeded trace
+    of 6 requests: paged greedy, fixed-pool T 0.8 top-k 50, speculative
+    k = 4 (a 1-layer draft, the first 3 requests); collectives per
+    micro-step (2L + 2) and per cycle as the design counts; pool bytes per
+    rank half of tp=1's; ms per tick wall and card-busy ms at tp=1 (rank 0
+    alone) and tp=2, gloo's host ms per tick and the card's copy ms
+    (profiler windows of the card alone on rank 0). (b) A seeded
+    ``MID_DECODE_TICK`` crash, ``recover`` and the requeue; a preemption
+    through the host swap store; a pool grow and a checkpoint swap to the
+    same weights (``weights_unchanged``: the whole tree's ``params_digest``
+    on each rank equals one process's). (c) ``ReplicatedEngine(replicas=2,
+    tp=2)`` stepped on the trace and drained. (d) ``serving_smoke --paged
+    --mesh dp,tp`` and ``bench_serving --mesh --fast``, in processes of
+    their own beside the ranks' start-up and legs (a)-(c) and the
+    one-process runs; the timing windows wait for all of them: tp parity
+    and one tick signature (the bench's 1.5x replica term reads host
+    threads on one card, printed, not gated). No flash kernel launches,
+    here or on the ranks.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON line describing every kernel in each dtype (bfloat16: launches
@@ -5983,6 +6007,524 @@ def phase_heal():
           f"pool grow {lock['b']['grow_ms']:.1f} ms")
 
 
+# --------------------------------------------------------------------------
+# phase 30: the serving mesh
+# --------------------------------------------------------------------------
+
+MESH_DIR = os.path.join(ROOT, "build", "chip_smoke_serving_mesh")
+MESH_TP = 2
+# nanoGPT's padded GPT-2 vocabulary: the model axis must divide it (JAX's
+# Engine(mesh=) refuses 50257, which is odd); prompts draw ids below 50257
+MESH_VOCAB, MESH_IDS = 50304, 50257
+MESH_ENGINE = dict(num_slots=8, max_len=256, decode_block=4)
+MESH_PAGE = dict(page_size=16)  # 128 blocks of 16: the fixed pool's bytes
+MESH_SEED = 30  # the SimulationDriver trace's seed
+MESH_TRACE = dict(n_requests=6, arrival_rate=1.0, prompt_len=(16, 96), max_new=(8, 16))
+MESH_SPEC_K = 4
+MESH_SPEC_N, MESH_SPEC_NEW = 3, 8  # the speculative leg: the trace's first 3
+                                   # requests, at most 8 new tokens each
+MESH_NEW = 12   # (b), (c): new tokens of each of 4 requests (prompts 32-96)
+MESH_AT = 1     # (b): the tick of the fault, the preemption and the grow
+MESH_GROW = 160  # (b): blocks after the grow
+MESH_TICKS = 4  # the timing windows: ticks with 8 slots decoding
+# what the parent writes for the ranks: (b)'s checkpoint is saved, so the
+# legs may start; serving_smoke, bench_serving and the one-process runs
+# (all beside the ranks' start-up and legs) are done, so the timing windows
+# have the card to themselves
+MESH_LEGS, MESH_TIMING = "legs_go", "timing_go"
+
+
+def _mesh_model():
+    """GPT-Small (L-4 H-512 A-8, FFN 2048, 512 positions) at the padded
+    vocabulary, float32, random weights from SERVE_SEED, as the decode tree."""
+    from gradaccum_tpu_torch.interop import params_tree
+    from gradaccum_tpu_torch.models.gpt import GPTConfig, gpt_lm_bundle
+
+    cfg = GPTConfig.small(vocab_size=MESH_VOCAB, dropout=0.0)
+    return cfg, params_tree(gpt_lm_bundle(cfg).init(SERVE_SEED, "cuda"))
+
+
+def _mesh_prompts():
+    import numpy as np
+
+    rng = np.random.default_rng(SERVE_SEED + 30)
+    return [rng.integers(0, MESH_IDS, int(rng.integers(32, 97))).astype(np.int32)
+            for _ in range(4)]
+
+
+def _mesh_records(engine, tag, n=None, cap=None):
+    """The seeded trace (its first ``n`` requests, at most ``cap`` new
+    tokens each) through SimulationDriver: ``(trace, streams, request ids)``,
+    every request done and one tick signature."""
+    import dataclasses
+
+    from gradaccum_tpu_torch.serving import SimulationDriver
+
+    driver = SimulationDriver(engine, seed=MESH_SEED)
+    trace = driver.make_trace(vocab_size=MESH_IDS, **dict(MESH_TRACE, n_requests=n or
+                                                          MESH_TRACE["n_requests"]))
+    if cap is not None:
+        trace = [dataclasses.replace(item, max_new_tokens=min(item.max_new_tokens, cap))
+                 for item in trace]
+    records = driver.run(trace)
+    for rec in records:
+        check(rec["status"] == "done", f"[mesh] {tag}: request {rec['request_id']} ended "
+                                       f"{rec['status']}")
+    for e in getattr(engine, "replicas", [engine]):
+        check(e.decode_compile_count() == 1,
+              f"[mesh] {tag}: {e.decode_compile_count()} tick signatures")
+    return (trace, [[int(t) for t in rec["tokens"]] for rec in records],
+            [int(rec["request_id"]) for rec in records])
+
+
+def _mesh_drive(engine, prompts, n, actions=None):
+    """``prompts`` submitted at once (``n`` new, seed = index), run to idle;
+    ``actions[tick](engine)`` runs (timed) before that tick, and a crash is
+    recovered and its requests resubmitted. Returns the streams, ``{tick:
+    (result, ms)}`` and the seeds recovered."""
+    import torch
+
+    from gradaccum_tpu_torch.resilience import faults
+
+    rids = {i: engine.submit(p, n, rng_seed=i) for i, p in enumerate(prompts)}
+    actions, done, failed = dict(actions or {}), {}, []
+    while not engine.idle:
+        act = actions.pop(engine.tick_count, None)
+        if act is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = act(engine)
+            torch.cuda.synchronize()
+            done[engine.tick_count] = (result, 1e3 * (time.perf_counter() - t0))
+        try:
+            engine.step()
+        except faults.InjectedCrash:
+            for req in engine.recover():
+                failed.append(req.rng_seed)
+                rids[req.rng_seed] = engine.submit(req.prompt, req.max_new_tokens,
+                                                   rng_seed=req.rng_seed)
+    check(not actions, f"[mesh] the actions at ticks {sorted(actions)} never ran")
+    streams = []
+    for i in range(len(prompts)):
+        tokens, status = engine.pop_result(rids[i])
+        check(status == "done", f"[mesh] request {i} ended {status}")
+        streams.append([int(t) for t in tokens])
+    return streams, done, failed
+
+
+class _GlooTimer:
+    """Host seconds inside gloo's all-reduce and all-gather while entered,
+    the card synchronized before each (gloo copies a CUDA tensor to the
+    host after the kernels queued before it, which are not its time)."""
+
+    def __init__(self):
+        self.seconds = 0.0
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+
+        self._saved = (dist.all_reduce, dist.all_gather)
+
+        def timed(fn):
+            def call(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    self.seconds += time.perf_counter() - t0
+            return call
+
+        dist.all_reduce, dist.all_gather = (timed(f) for f in self._saved)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.all_reduce, dist.all_gather = self._saved
+
+
+def _card_events(fn):
+    """Run ``fn`` under torch.profiler tracing the card alone (no host
+    ops: a tick makes thousands, and summing them takes seconds); the
+    device events as ``(key, device_us, count)``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _mesh_timing(engine, profile=True):
+    """8 slots decoding (prompts of 64, 180 new): MESH_TICKS ticks timed
+    (wall, and gloo's host time on a mesh), then MESH_TICKS more under the
+    profiler when ``profile`` (card-busy and copy ms), else just stepped
+    (the other rank keeps pace). Also the collectives per micro-step and
+    the pool's bytes on this rank."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SERVE_SEED + 31)
+    for i in range(8):
+        engine.submit(rng.integers(0, MESH_IDS, 64).astype(np.int32), 180, rng_seed=i)
+    engine.step()  # admits all 8
+    engine.step()  # one warm tick
+    if engine.mesh is not None:
+        engine.mesh.reset_calls()
+    with _GlooTimer() as gloo:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_TICKS):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    steps = MESH_TICKS * engine.decode_block
+    calls = dict(engine.mesh.calls) if engine.mesh is not None else {}
+    out = {"ms_per_tick": 1e3 * wall / MESH_TICKS,
+           "gloo_ms_per_tick": 1e3 * gloo.seconds / MESH_TICKS,
+           "collectives_per_micro_step": (calls.get("model/all_reduce", 0)
+                                          + calls.get("model/all_gather", 0)) / steps,
+           "pool_bytes": sum(t.numel() * t.element_size() for t in (engine.pool.k,
+                                                                   engine.pool.v))}
+    if profile:
+        events = _card_events(lambda: [engine.step() for _ in range(MESH_TICKS)])
+        busy = sum(t for _, t, _ in events) / 1e3 / MESH_TICKS
+        check(busy > 0, "[mesh] the profiler saw no device time")
+        out["busy_ms_per_tick"] = busy
+        out["copy_ms_per_tick"] = sum(t for k, t, _ in events
+                                      if "memcpy" in k.lower()) / 1e3 / MESH_TICKS
+    else:
+        for _ in range(MESH_TICKS):
+            engine.step()
+    return out
+
+
+def _wait_for(outdir, name, deadline_s=240):
+    """Block until the parent writes ``name`` (MESH_LEGS, MESH_TIMING);
+    fail if it wrote that its part failed, or never wrote it."""
+    path = os.path.join(outdir, name)
+    deadline = time.monotonic() + deadline_s
+    while not os.path.exists(path):
+        check(time.monotonic() < deadline, f"[mesh] the parent never wrote {name}")
+        time.sleep(0.05)
+    with open(path) as f:
+        check(f.read() == "go", f"[mesh] the parent's part before {name} failed")
+
+
+def _signal(name, ok):
+    with open(os.path.join(MESH_DIR, name), "w") as f:
+        f.write("go" if ok else "failed")
+
+
+def _serving_mesh_rank(outdir):
+    """One rank of phase 30 (``--serving-mesh-rank``): gloo on the shared
+    card. Once (b)'s checkpoint is saved (MESH_LEGS) both ranks run the
+    tp=2 legs (a)-(c); once serving_smoke, bench_serving and the parent's
+    one-process runs are done (MESH_TIMING) rank 0 times tp=1 alone (rank 1
+    waits) and both time tp=2. Each rank writes what it saw and how long
+    each part took."""
+    import torch
+    import torch.distributed as dist
+
+    from gradaccum_tpu_torch.models.gpt_decode import truncate_draft_params
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+    from gradaccum_tpu_torch.parallel import mesh as mesh_lib
+    from gradaccum_tpu_torch.resilience import faults
+    from gradaccum_tpu_torch.serving import Engine, ReplicatedEngine, reconfig
+
+    info = mesh_lib.initialize_multihost(device="cuda:0", backend="gloo", timeout_s=300)
+    rank = info["process_index"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"marks": []}
+
+    def mark(name, t=[time.perf_counter()]):  # noqa: B006 — the last mark's time
+        now = time.perf_counter()
+        out["marks"].append([name, now - t[0]])
+        t[0] = now
+
+    try:
+        with torch.no_grad():
+            cfg, params = _mesh_model()
+            fa.reset_launch_counts()
+            if rank == 0:  # the profiler's start-up, paid here rather than in a window
+                _card_events(lambda: torch.ones(1, device="cuda").add_(1))
+            _wait_for(outdir, MESH_LEGS)
+            mark("start-up and model")
+
+            def engine(**kw):
+                return Engine(params, cfg, mesh=mesh_lib.serving_mesh(MESH_TP), **kw)
+
+            # (a) greedy on the paged pool, sampled on the fixed one, k = 4
+            out["greedy"] = _mesh_records(engine(**MESH_ENGINE, **MESH_PAGE), "greedy")[1]
+            out["sampled"] = _mesh_records(engine(**MESH_ENGINE, **SERVE_SAMPLING),
+                                           "sampled")[1]
+            draft, dcfg = truncate_draft_params(params, cfg, 1)
+            spec = dict(num_slots=8, max_len=256, speculate_k=MESH_SPEC_K, draft_params=draft,
+                        draft_cfg=dcfg, **MESH_PAGE)
+            out["spec"] = _mesh_records(engine(**spec), "spec k=4", MESH_SPEC_N,
+                                        MESH_SPEC_NEW)[1]
+            e = engine(**spec)
+            for i, p in enumerate(_mesh_prompts()[:2]):
+                e.submit(p, MESH_NEW, rng_seed=i)
+            e.step()
+            e.mesh.reset_calls()
+            e.step()
+            out["cycle_calls"] = dict(e.mesh.calls)
+            mark("(a)")
+            # (b) a seeded crash, a host-swap preemption, a grow and a swap
+            prompts = _mesh_prompts()
+            e = engine(**MESH_ENGINE, **MESH_PAGE)
+            injector = faults.FaultInjector(faults.FaultSchedule([faults.FaultSpec(
+                faults.MID_DECODE_TICK, at=MESH_AT, kind=faults.KIND_CRASH)]))
+            with faults.installed(injector):
+                streams, _, failed = _mesh_drive(e, prompts, MESH_NEW)
+            out["recover"] = dict(streams=streams, failed=failed, fired=len(injector.fired),
+                                  allocated=e.pool.allocated_blocks)
+            e = engine(swap="host", **MESH_ENGINE, **MESH_PAGE)
+            streams, done, _ = _mesh_drive(e, prompts, MESH_NEW,
+                                           {MESH_AT: lambda x: x.preempt(0)})
+            m = e.metrics.summary()
+            out["swap"] = dict(streams=streams, preempted=done[MESH_AT][0],
+                               ms=done[MESH_AT][1], bytes_out=m["swap_bytes_out"],
+                               swap_ins=e.metrics.swap_ins)
+            e = engine(**MESH_ENGINE, **MESH_PAGE)
+            streams, done, _ = _mesh_drive(e, prompts, MESH_NEW, {
+                MESH_AT: lambda x: x.reconfigure(reconfig.pool_resize(MESH_GROW)).to_dict(),
+                MESH_AT + 1: lambda x: x.reconfigure(reconfig.checkpoint_swap(
+                    checkpoint=os.path.join(outdir, "ckpt"))).to_dict()})
+            out["reconfig"] = dict(streams=streams, grow=done[MESH_AT][0],
+                                   grow_ms=done[MESH_AT][1], swap=done[MESH_AT + 1][0],
+                                   swap_ms=done[MESH_AT + 1][1], swap_ins=e.metrics.swap_ins,
+                                   blocks=list(e.pool.k.shape)[1] - 1)
+            mark("(b)")
+            # (c) two replicas of tp=2, lockstep on the trace, then drained
+            fleet = ReplicatedEngine(params, cfg, replicas=2, tp=MESH_TP, **MESH_ENGINE,
+                                     **MESH_PAGE)
+            _, out["fleet"], out["fleet_ids"] = _mesh_records(fleet, "fleet")
+            out["fleet_mesh"] = [fleet.manifest()["mesh"], fleet.manifest()["tp"]]
+            fleet.close()
+            fleet = ReplicatedEngine(params, cfg, replicas=2, tp=MESH_TP, **MESH_ENGINE,
+                                     **MESH_PAGE)
+            rids = [fleet.submit(p, MESH_NEW, rng_seed=i) for i, p in enumerate(prompts)]
+            fleet.drain()
+            out["drain"] = [[int(t) for t in fleet.pop_result(r)[0]] for r in rids]
+            out["drain_spread"] = sorted({r % 2 for r in rids})
+            fleet.close()
+            mark("(c)")
+            _wait_for(outdir, MESH_TIMING)
+            mark("waiting for serving_smoke, bench_serving and the calm runs")
+            dist.barrier()
+            if rank == 0:
+                out["tp1"] = _mesh_timing(Engine(params, cfg, **MESH_ENGINE, **MESH_PAGE))
+            dist.barrier()
+            out["tp2"] = _mesh_timing(engine(**MESH_ENGINE, **MESH_PAGE), profile=rank == 0)
+            mark("tp=1 and tp=2 timing")
+            out["flash"] = fa.launch_counts()
+        with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        mesh_lib.shutdown()
+    if rank == 0:
+        print(json.dumps({"ok": True}))
+    return 0
+
+
+def _near_tie_sampled(tag, params, cfg, item, got, want, cases):
+    """A sampled stream against its reference: a first difference passes
+    only where the sampler's two best perturbed scores (the top-k masked
+    logits over T plus the request's Gumbel noise at that token) of the
+    reference are closer than NEAR_TIE."""
+    import torch
+
+    from gradaccum_tpu_torch.models.gpt_decode import _top_k_mask, prefill
+    from gradaccum_tpu_torch.utils import prng
+
+    if got == want:
+        return
+    pos = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    ids = torch.tensor([list(item.prompt) + list(want[:pos])], device="cuda")
+    _, logits = prefill(params, cfg, ids, ids.shape[1])
+    t = torch.full((), SERVE_SAMPLING["temperature"], device="cuda")
+    masked = torch.div(_top_k_mask(logits[0], SERVE_SAMPLING["top_k"]), t)
+    key = prng.fold_in(prng.PRNGKey(item.rng_seed).to("cuda"), pos)
+    top2 = torch.topk(prng.gumbel(key, masked.shape) + masked, 2).values
+    gap = float(top2[0] - top2[1])
+    if gap >= NEAR_TIE:
+        raise SmokeError(f"[mesh] {tag}: request {item.rng_seed} first differs at token {pos}: "
+                         f"{got[pos]} against {want[pos]}, the reference's top-2 perturbed "
+                         f"score gap {gap:.3e}")
+    cases.append((tag, pos, gap))
+    print(f"[mesh]   {tag}: near tie at token {pos} (perturbed gap {gap:.3e})")
+
+
+def phase_serving_mesh():
+    """Phase 30: the serving mesh at GPT-Small width on the padded vocabulary,
+    two gloo ranks on the card against one process, with serving_smoke
+    --mesh and bench_serving --mesh on the card beside them. No flash
+    kernel launches."""
+    import torch
+
+    from gradaccum_tpu_torch.estimator import checkpoint as ckpt
+    from gradaccum_tpu_torch.examples.common import spawn_ranks
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+    from gradaccum_tpu_torch.serving import Engine
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    smi = _smi()
+    print(f"[mesh] on {smi}")
+    # serving_smoke, bench_serving and the one-process runs go on beside the
+    # ranks' start-up and legs; the timing windows come last, alone
+    bench_out = os.path.join(MESH_DIR, "bench_serving_mp.json")
+    procs = {"serving_smoke": subprocess.Popen(
+        [sys.executable, "-m", "gradaccum_tpu_torch.examples.serving_smoke", "--device",
+         "cuda", "--paged", "--mesh", "dp,tp"], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True), "bench_serving": subprocess.Popen(
+        [sys.executable, "-m", "gradaccum_tpu_torch.examples.bench_serving", "--mesh",
+         "--fast", "--device", "cuda", "--out", bench_out], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)}
+    ranks_done = _in_background(lambda: spawn_ranks(
+        "chip_smoke", ["--serving-mesh-rank", MESH_DIR], MESH_TP, "cuda", deadline_s=300))
+    signalled, logs = [], {}
+    try:
+        cfg, params = _mesh_model()
+        fa.reset_launch_counts()
+        ckpt.save(os.path.join(MESH_DIR, "ckpt"), {"params": params, "step": 1}, step=1)
+        _signal(MESH_LEGS, True)
+        signalled.append(MESH_LEGS)
+        trace, greedy, _ = _mesh_records(Engine(params, cfg, **MESH_ENGINE, **MESH_PAGE),
+                                         "tp=1 greedy")
+        _, sampled, _ = _mesh_records(Engine(params, cfg, **MESH_ENGINE, **SERVE_SAMPLING),
+                                      "tp=1 sampled")
+        prompts = _mesh_prompts()
+        calm = _mesh_drive(Engine(params, cfg, **MESH_ENGINE, **MESH_PAGE), prompts,
+                           MESH_NEW)[0]
+        marks = [("checkpoint and calm runs", time.perf_counter())]
+        for name, proc in procs.items():
+            logs[name] = proc.communicate(timeout=300)[0]
+            check(proc.returncode == 0, f"[mesh] (d) {name} failed:\n{logs[name][-3000:]}")
+        with open(bench_out) as f:
+            bench = json.load(f)
+        _signal(MESH_TIMING, True)
+        signalled.append(MESH_TIMING)
+        marks.append(("serving_smoke and bench_serving", time.perf_counter()))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if len(signalled) < 2:
+            for name in (MESH_LEGS, MESH_TIMING):
+                if name not in signalled:
+                    _signal(name, False)
+            try:
+                ranks_done()
+            except Exception:  # noqa: BLE001 — the parent's own error is the one to report
+                pass
+    try:
+        ranks_done()
+    except RuntimeError as e:
+        raise SmokeError(f"[mesh] the two ranks: {e}") from None
+    marks.append(("the ranks' timing", time.perf_counter()))
+    ranks = []
+    for r in range(MESH_TP):
+        with open(os.path.join(MESH_DIR, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for key in ("greedy", "sampled", "spec", "cycle_calls", "recover", "fleet", "fleet_ids",
+                "fleet_mesh", "drain", "drain_spread", "flash"):
+        check(ranks[0][key] == ranks[1][key], f"[mesh] the ranks disagree on {key}")
+    for key in ("streams", "preempted", "bytes_out", "swap_ins"):
+        check(ranks[0]["swap"][key] == ranks[1]["swap"][key], f"[mesh] the ranks disagree on "
+                                                              f"swap {key}")
+    got = ranks[0]
+    cases = []
+    prompts_a = [item.prompt for item in trace]
+    _against("[mesh] (a) greedy tp=2", params, cfg, prompts_a, got["greedy"], greedy, cases)
+    for item, g, w in zip(trace, got["sampled"], sampled):
+        _near_tie_sampled("(a) sampled tp=2", params, cfg, item, g, w, cases)
+    _against("[mesh] (a) spec k=4 tp=2", params, cfg, prompts_a[:MESH_SPEC_N], got["spec"],
+             [g[:MESH_SPEC_NEW] for g in greedy[:MESH_SPEC_N]], cases)
+    layers = cfg.num_layers
+    want_cycle = (MESH_SPEC_K + 1) * (2 * 1 + 2) + (2 * layers + 2)
+    cycle = got["cycle_calls"]
+    check(cycle.get("model/all_reduce", 0) + cycle.get("model/all_gather", 0) == want_cycle,
+          f"[mesh] collectives of a k={MESH_SPEC_K} cycle {cycle}, want {want_cycle}")
+    one, two = got["tp1"], got["tp2"]
+    check(two["collectives_per_micro_step"] == 2 * layers + 2,
+          f"[mesh] {two['collectives_per_micro_step']} collectives per micro-step, want "
+          f"{2 * layers + 2}")
+    check(two["pool_bytes"] * MESH_TP == one["pool_bytes"],
+          f"[mesh] pool bytes per rank {two['pool_bytes']} against tp=1's {one['pool_bytes']}")
+    rec, swap, rc = got["recover"], got["swap"], got["reconfig"]
+    check(rec["fired"] == 1 and rec["failed"] and rec["allocated"] == 0,
+          f"[mesh] (b) recover: {rec['fired']} fired, {rec['failed']} recovered")
+    _against("[mesh] (b) recovered tp=2", params, cfg, prompts, rec["streams"], calm, cases)
+    check(swap["preempted"] is True and swap["swap_ins"] == 1 and swap["bytes_out"] > 0,
+          f"[mesh] (b) swap: {swap}")
+    _against("[mesh] (b) swapped tp=2", params, cfg, prompts, swap["streams"], calm, cases)
+    check(rc["grow"]["ok"] and rc["grow"]["preempted"] == 0 and rc["blocks"] == MESH_GROW
+          and rc["swap"]["ok"] and rc["swap"]["detail"]["weights_unchanged"],
+          f"[mesh] (b) reconfig: {rc['grow']} {rc['swap']}")
+    _against("[mesh] (b) grown and swapped tp=2", params, cfg, prompts, rc["streams"], calm,
+             cases)
+    _against("[mesh] (c) fleet tp=2", params, cfg, prompts_a, got["fleet"], greedy, cases)
+    check({r % 2 for r in got["fleet_ids"]} == {0, 1} and got["fleet_mesh"] == [
+        {"model": MESH_TP}, MESH_TP], f"[mesh] (c) fleet ids {got['fleet_ids']}, manifest "
+                                      f"{got['fleet_mesh']}")
+    _against("[mesh] (c) fleet drained", params, cfg, prompts, got["drain"], calm, cases)
+    check(got["drain_spread"] == [0, 1], f"[mesh] (c) drain used replicas {got['drain_spread']}")
+    print(f"[mesh] (a) GPT-Small f32 at vocab {MESH_VOCAB}, tp=2 on {smi}: greedy (paged), "
+          f"sampled T 0.8 top-k 50 (fixed) and spec k={MESH_SPEC_K} streams of "
+          f"{len(trace)}, {len(trace)} and {MESH_SPEC_N} requests equal the one process's, both "
+          f"ranks identical; "
+          f"{len(cases)} near ties")
+    print(f"[mesh] (a) 8 slots decoding, block {MESH_ENGINE['decode_block']}: tp=1 "
+          f"{one['ms_per_tick']:.2f} ms/tick wall, card busy {one['busy_ms_per_tick']:.2f} "
+          f"(copies {one['copy_ms_per_tick']:.3f}); tp=2 {two['ms_per_tick']:.2f} ms/tick "
+          f"wall (rank 0; rank 1 {ranks[1]['tp2']['ms_per_tick']:.2f}), card busy "
+          f"{two['busy_ms_per_tick']:.2f} (copies {two['copy_ms_per_tick']:.3f}) on rank 0, "
+          f"gloo host {two['gloo_ms_per_tick']:.2f} ms/tick = "
+          f"{two['gloo_ms_per_tick'] / two['ms_per_tick']:.3f} of the tick; "
+          f"{two['collectives_per_micro_step']:.0f} collectives per micro-step, "
+          f"{want_cycle} per spec cycle; pool {two['pool_bytes'] / 2 ** 20:.2f} MiB per rank "
+          f"against {one['pool_bytes'] / 2 ** 20:.2f} MiB at tp=1")
+    print(f"[mesh] (b) crash at tick {MESH_AT} recovered ({len(rec['failed'])} requeued); "
+          f"preempt + host swap {swap['ms']:.2f} ms ({swap['bytes_out'] / 2 ** 20:.2f} MiB out "
+          f"per rank); grow to {MESH_GROW} blocks {rc['grow_ms']:.2f} ms; checkpoint swap "
+          f"(the one process's weights: weights_unchanged, so the whole tree's params_digest "
+          f"on each rank is tp=1's; {rc['swap_ins']} swap-ins) {rc['swap_ms']:.1f} ms (all "
+          f"ms beside serving_smoke, bench_serving and the calm runs); every stream the calm "
+          f"run's")
+    print(f"[mesh] (c) ReplicatedEngine(replicas=2, tp=2): the trace lockstep (ids "
+          f"{sorted(got['fleet_ids'])}) and drain() streams equal the one process's")
+    print("[mesh] rank 0: " + ", ".join(f"{n} {t:.1f} s" for n, t in got["marks"]))
+    check(bench["tp"]["parity"] is True and bench["tp"]["decode_programs"] == 1
+          and all(all(c <= 1 for c in s["decode_programs_per_replica"])
+                  for s in bench["scaling"]),
+          f"[mesh] (d) bench_serving --mesh: {bench['tp']} {bench['scaling']}")
+    print(f"[mesh] (d) bench_serving --mesh --fast on {smi}: {bench['headline']}; dp 1->2 "
+          f"{bench['dp_speedup_at_2']:.3f}x (host threads on one card; JAX's 1.5x term "
+          f"reads passed={bench['acceptance']['passed']}), tp=2 {bench['tp']['tokens_per_s']:.1f}"
+          f" tokens/s (beside serving_smoke, the ranks and the calm runs); serving_smoke "
+          f"--paged --mesh dp,tp {logs['serving_smoke'].strip().splitlines()[-1]}")
+    counts = fa.launch_counts()
+    check(not any(counts.values()) and not any(got["flash"].values()),
+          f"[mesh] flash kernels launched: here {counts}, rank 0 {got['flash']}")
+    prev, parts = t0, []
+    for name, at in marks:
+        parts.append(f"{name} {at - prev:.1f} s")
+        prev = at
+    print(f"[mesh] flash launches {dict(counts)} here and on the ranks; phase 30 took "
+          f"{time.perf_counter() - t0:.1f} s ({', '.join(parts)})")
+
+
 def _smi():
     try:
         out = subprocess.run(
@@ -6108,6 +6650,7 @@ def main() -> int:
         phase_recovery()
         phase_reconfig()
         phase_heal()
+        phase_serving_mesh()
     except SmokeError as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -6152,6 +6695,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--overlap-profile"]:  # phase 26 (d)'s profile window
         sys.path.insert(0, ROOT)
         sys.exit(_overlap_profile_main())
+    if sys.argv[1:2] == ["--serving-mesh-rank"]:  # a rank of phase 30
+        sys.path.insert(0, ROOT)
+        sys.exit(_serving_mesh_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--drain-rank"]:  # a rank of phase 20 (d)
         sys.path.insert(0, ROOT)
         sys.exit(_drain_rank(sys.argv[2]))

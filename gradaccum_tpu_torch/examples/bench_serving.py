@@ -26,14 +26,27 @@ bytes per token in flight, tokens/s, TTFT. JAX's acceptance: prefill
 tokens cut by 2x or more, KV bytes per token at 0.7x or less, one decode
 program per leg, and at most two more admission programs with the cache on.
 
+``--mesh`` runs JAX's multi-chip comparison (``BENCH_serving_mp.json``'s
+keys): a data-parallel curve, ``ReplicatedEngine(tp=1)`` at 1 and 2
+replicas (and 4 without ``--fast``) draining one saturating closed workload
+with free-running replica threads (interleaved rounds, best of each, one
+core per replica), then a tensor-parallel leg in two ranks it spawns
+(``examples/common.py :: spawn_ranks``, gloo, both on this device):
+``Engine(mesh=serving_mesh(2))`` against ``generate_cached`` on four
+requests (``tp.parity``), its tick signatures (``tp.decode_programs``) and
+tokens/s at closed load. The acceptance is JAX's: ``dp_speedup_at_2 >= 1.5``,
+parity, one decode program per replica. Its 1.5x term measured chips in
+JAX; here every replica is a host thread on the ONE card (or CPU), so it
+reads how far one device's host threads overlap, not chips, and ``passed``
+reports what it reads.
+
 Every engine leg reports the pool's KV bytes per token in flight. The
 engine is warmed at the leg's shapes before each timed window. One JSON
 line per leg on standard output; ``--out FILE`` also writes the whole
-result (JAX's keys). ``--mesh`` waits for ROADMAP.md item 5i (after the
-serving mesh, 5g). Runs on the card unless ``--device cpu``.
+result (JAX's keys). Runs on the card unless ``--device cpu``.
 
     python -m gradaccum_tpu_torch.examples.bench_serving [--fast]
-        [--paged | --prefix] [--out FILE] [--device cpu]
+        [--paged | --prefix | --mesh] [--out FILE] [--device cpu]
 """
 
 from __future__ import annotations
@@ -48,7 +61,7 @@ from pathlib import Path
 if __package__ in (None, ""):  # run as a script: make the package importable
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
-LATER_ITEM = "ROADMAP.md item 5i (after the serving mesh, 5g's second half)"
+MESH_TP = 2  # the tensor-parallel leg's ranks
 
 
 def _build(fast, device):
@@ -347,6 +360,174 @@ def bench_prefix(cfg, params, fast, device):
     }
 
 
+def _mesh_workload(cfg, fast, rng):
+    """Saturating closed load (JAX's shapes): enough same-shape requests
+    that every replica's slots stay full until the tail."""
+    if fast:
+        shape = dict(max_len=48, prompt=8, new=12, n=24, num_slots=4, page_size=8,
+                     decode_block=4, rounds=2)
+    else:
+        shape = dict(max_len=96, prompt=16, new=32, n=48, num_slots=8, page_size=8,
+                     decode_block=32, rounds=3)
+    work = [(rng.integers(0, cfg.vocab_size, shape["prompt"]).astype("int32"), shape["new"])
+            for _ in range(shape["n"])]
+    return shape, work
+
+
+class _core_budget:
+    """Pin the process to ``n`` cores for one timed leg (Linux; elsewhere
+    nothing), one core per replica thread, as JAX's bench does."""
+
+    def __init__(self, n: int):
+        self.n = min(max(n, 1), os.cpu_count() or 1)
+
+    def __enter__(self):
+        if hasattr(os, "sched_setaffinity"):
+            self._prior = os.sched_getaffinity(0)
+            os.sched_setaffinity(0, set(sorted(self._prior)[:self.n]))
+        return self
+
+    def __exit__(self, *exc):
+        if hasattr(os, "sched_setaffinity"):
+            os.sched_setaffinity(0, self._prior)
+
+
+def _tp_leg(cfg, params, fast, device):
+    """One rank's TP leg (every rank runs it, under the engine's SPMD
+    contract): parity on four requests one at a time, then the whole
+    workload at closed load."""
+    import numpy as np
+
+    from gradaccum_tpu_torch.models.gpt_decode import generate_cached
+    from gradaccum_tpu_torch.parallel.mesh import serving_mesh
+    from gradaccum_tpu_torch.serving import Engine, QueueFull, Scheduler
+
+    shape, work = _mesh_workload(cfg, fast, np.random.default_rng(13))
+    eng = Engine(params, cfg, num_slots=shape["num_slots"], max_len=shape["max_len"],
+                 page_size=shape["page_size"], decode_block=shape["decode_block"],
+                 scheduler=Scheduler(max_queue=4 * len(work)), mesh=serving_mesh(MESH_TP),
+                 device=device)
+    parity = True
+    for i, (p, n) in enumerate(work[:4]):
+        rid = eng.submit(p, n, rng_seed=i)
+        eng.run_until_idle()
+        want = generate_cached(params, cfg, p, n, max_len=shape["max_len"])
+        got, _ = eng.pop_result(rid)
+        parity &= list(got) == want[0, p.size:].tolist()
+    pending = list(enumerate(work))
+    t0 = time.perf_counter()
+    while pending or not eng.idle:
+        still = []
+        for i, (p, n) in pending:
+            try:
+                eng.submit(p, n, rng_seed=i)
+            except QueueFull:
+                still.append((i, (p, n)))
+        pending = still
+        eng.step()
+    elapsed = time.perf_counter() - t0
+    return {"skipped": False, "tp": MESH_TP, "parity": bool(parity),
+            "tokens_per_s": sum(n for _, n in work) / elapsed,
+            "decode_programs": eng.decode_compile_count()}
+
+
+def _mesh_rank(fast, device):
+    """A rank of ``--mesh``'s TP leg (``--mesh-rank``, spawned by
+    :func:`bench_mesh`): gloo over the ranks, each on ``device`` (index 0
+    of the card). Rank 0 prints the leg as its last line."""
+    import torch
+
+    from gradaccum_tpu_torch.examples.common import DP_TIMEOUT_S
+    from gradaccum_tpu_torch.parallel import mesh as mesh_lib
+    from gradaccum_tpu_torch.utils.platform import resolve_device
+
+    dev = "cuda:0" if str(device).startswith("cuda") else "cpu"
+    info = mesh_lib.initialize_multihost(device=dev, backend="gloo", timeout_s=DP_TIMEOUT_S)
+    try:
+        with torch.no_grad():
+            cfg, params, _, _ = _build(fast, resolve_device(dev))
+            leg = _tp_leg(cfg, params, fast, dev)
+    finally:
+        mesh_lib.shutdown()
+    if info["process_index"] == 0:
+        _emit({"leg": "tp", **leg})
+    return leg
+
+
+def bench_mesh(cfg, params, fast, device):
+    """The data-parallel replica curve and the tensor-parallel leg, one
+    artifact (JAX's ``bench_mesh``; module docstring)."""
+    import numpy as np
+
+    from gradaccum_tpu_torch.examples.common import spawn_ranks
+    from gradaccum_tpu_torch.serving import ReplicatedEngine, Scheduler
+
+    shape, work = _mesh_workload(cfg, fast, np.random.default_rng(13))
+    total_tokens = sum(n for _, n in work)
+
+    def run_drain(fleet):
+        t0 = time.perf_counter()
+        for i, (p, n) in enumerate(work):
+            fleet.submit(p, n, rng_seed=i)  # queues sized for the full load
+        fleet.drain()
+        elapsed = time.perf_counter() - t0
+        for eng in fleet.replicas:
+            for rid in list(eng.results):
+                eng.pop_result(rid)
+        return elapsed
+
+    replica_counts = [1, 2] if fast else [1, 2, 4]
+    fleets = {}
+    for r in replica_counts:
+        fleets[r] = ReplicatedEngine(
+            params, cfg, replicas=r, tp=1, num_slots=shape["num_slots"],
+            max_len=shape["max_len"], page_size=shape["page_size"],
+            decode_block=shape["decode_block"],
+            scheduler_factory=lambda: Scheduler(max_queue=4 * len(work)), device=device)
+        run_drain(fleets[r])  # the warm pass
+    best = {r: float("inf") for r in replica_counts}
+    for _ in range(shape["rounds"]):
+        for r in replica_counts:
+            with _core_budget(r):
+                best[r] = min(best[r], run_drain(fleets[r]))
+    scaling = []
+    for r in replica_counts:
+        scaling.append({"replicas": r, "tokens_per_s": total_tokens / best[r],
+                        "decode_programs_per_replica":
+                            [e.decode_compile_count() for e in fleets[r].replicas]})
+        _emit({"leg": "dp", **scaling[-1]})
+        fleets[r].close()
+
+    argv = ["--mesh-rank", "--device", device.type] + (["--fast"] if fast else [])
+    tp_leg = spawn_ranks("gradaccum_tpu_torch.examples.bench_serving", argv, MESH_TP,
+                         device.type, deadline_s=600)
+    tp_leg.pop("leg")
+    by_r = {s["replicas"]: s["tokens_per_s"] for s in scaling}
+    dp2 = by_r[2] / by_r[1]
+    compile_once = (all(all(c <= 1 for c in s["decode_programs_per_replica"])
+                        for s in scaling) and tp_leg["decode_programs"] == 1)
+    passed = dp2 >= 1.5 and compile_once and tp_leg["parity"] is True
+    headline = "1→2 replicas: {:.2f}x tokens/s".format(dp2)
+    if by_r.get(4):
+        headline += ", 1→4: {:.2f}x".format(by_r[4] / by_r[1])
+    headline += ", tp=2 parity {}".format("ok" if tp_leg["parity"] else "FAIL")
+    return {
+        "bench": "serving on one device: dp engine replicas (host threads) + tp=2 decode "
+                 "tick (gloo ranks)",
+        "workload": {**shape, "n_requests": len(work), "total_new_tokens": total_tokens,
+                     "devices": 1, "tp_ranks": MESH_TP,
+                     "xla_flags": None},  # JAX's simulated-device flags: none here
+        "scaling": scaling,
+        "tp": tp_leg,
+        "dp_speedup_at_2": dp2,
+        "headline": headline,
+        "acceptance": {
+            "required": "tokens/s at 2 dp replicas >= 1.5x 1 replica, tp-sharded greedy "
+                        "parity exact, decode programs == 1 per replica",
+            "passed": passed},
+    }
+
+
 def _emit(record):
     print(json.dumps(record), flush=True)
 
@@ -377,13 +558,15 @@ def main(argv=None):
                     help="fixed-vs-paged pool comparison at equal memory")
     ap.add_argument("--prefix", action="store_true",
                     help="prefix cache off-vs-on comparison at equal pool memory")
-    ap.add_argument("--mesh", action="store_true", help=f"waits for {LATER_ITEM}")
+    ap.add_argument("--mesh", action="store_true",
+                    help="dp replica curve + tp=2 decode tick (BENCH_serving_mp.json)")
+    ap.add_argument("--mesh-rank", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if sum((args.paged, args.prefix, args.mesh)) > 1:
         ap.error("--paged / --prefix / --mesh are separate comparisons")
-    if args.mesh:
-        raise NotImplementedError(f"bench_serving --mesh waits for {LATER_ITEM}")
+    if args.mesh_rank:
+        return _mesh_rank(args.fast, args.device)
 
     import torch
 
@@ -392,6 +575,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     with torch.no_grad():
         cfg, params, prompts, knobs = _build(args.fast, device)
+        if args.mesh:
+            return _finalize(bench_mesh(cfg, params, args.fast, device), cfg, args.out, device)
         if args.paged:
             return _finalize(bench_paged(cfg, params, args.fast, device), cfg, args.out,
                              device)

@@ -62,6 +62,20 @@ on the decode path.
 float32 scale per (position, head) vector. A write quantizes and scatters
 codes and scales at the same indices; a read gathers the pages and
 dequantizes them to the compute dtype. Block moves map over both leaves.
+
+**Tensor parallelism** (``mesh=``, the model axis of a serving mesh, one
+process per rank): ``params`` is then this rank's block of the tree under
+``parallel/tp.py :: gpt_tp_rules`` and every cache holds this rank's
+``num_heads / tp`` heads (``init_cache``/``init_paged_pool`` with ``tp=``).
+QKV and the FFN's intermediate are column-parallel, so each rank runs its
+own heads; the attention output and the FFN output are row-parallel, each
+followed by ``tp.reduce_from`` and then its bias, added once; the lookup is
+``tp.vocab_parallel_embed``, and the tied head's logits are gathered whole
+with ``tp.gather_slices``, so every rank holds the same logits bit for bit
+and samples the same token from its request's stream. A micro-step issues
+``2 * num_layers + 2`` collectives. The head dimension always comes from
+the whole config (``hidden_size / num_heads``); the local head count from
+the tensors.
 """
 
 from __future__ import annotations
@@ -81,6 +95,7 @@ from gradaccum_tpu_torch.memory.quant import (
     kv_quantize,
 )
 from gradaccum_tpu_torch.models.gpt import GPTConfig
+from gradaccum_tpu_torch.parallel import tp as tp_lib
 from gradaccum_tpu_torch.utils import prng
 
 
@@ -111,14 +126,39 @@ def _dense(p, x):
     return y.view(*lead, y.shape[-1])
 
 
+def _row_dense(p, x, mesh):
+    """A row-parallel ``x @ kernel + bias``: this rank's part of the
+    product, summed over the model axis, then the (replicated) bias once."""
+    if mesh is None:
+        return _dense(p, x)
+    kernel = p["kernel"]
+    dt = torch.promote_types(x.dtype, kernel.dtype)
+    lead = x.shape[:-1]
+    y = torch.mm(x.reshape(-1, x.shape[-1]).to(dt), kernel.to(dt))
+    y = tp_lib.reduce_from(y, mesh) + p["bias"].to(dt)
+    return y.view(*lead, y.shape[-1])
+
+
+def _head_dim(cfg: GPTConfig) -> int:
+    """The head dimension of the WHOLE model: a rank holds fewer heads of
+    the same width."""
+    return cfg.hidden_size // cfg.num_heads
+
+
+def _local_heads(cfg: GPTConfig, tp: int) -> int:
+    if cfg.num_heads % tp:
+        raise ValueError(f"num_heads {cfg.num_heads} is not divisible by tp={tp}")
+    return cfg.num_heads // tp
+
+
 def _layer_norm(p, x, eps):
     dt = torch.promote_types(x.dtype, p["scale"].dtype)
     return F.layer_norm(x.to(dt), x.shape[-1:], p["scale"].to(dt), p["bias"].to(dt), eps)
 
 
-def _split_heads(t, num_heads):
+def _split_heads(t, head_dim):
     b, s, d = t.shape
-    return t.view(b, s, num_heads, d // num_heads).transpose(1, 2)
+    return t.view(b, s, d // head_dim, head_dim).transpose(1, 2)
 
 
 def _merge_heads(t):
@@ -137,32 +177,44 @@ def _attend(q, k, v, pos_mask):
     return torch.matmul(probs, v)
 
 
-def _block(cfg: GPTConfig, lp, x, attend_fn):
-    """One decoder block (pre-LN, ``models/gpt.py``), dropout off."""
+def _block(cfg: GPTConfig, lp, x, attend_fn, mesh=None):
+    """One decoder block (pre-LN, ``models/gpt.py``), dropout off; under a
+    ``mesh``, this rank's heads and FFN columns, the two row-parallel
+    outputs summed over it."""
+    hd = _head_dim(cfg)
     h = _layer_norm(lp["attention_LayerNorm"], x, cfg.layer_norm_eps)
     ap = lp["attention"]
-    q = _split_heads(_dense(ap["query"], h), cfg.num_heads)
-    k = _split_heads(_dense(ap["key"], h), cfg.num_heads)
-    v = _split_heads(_dense(ap["value"], h), cfg.num_heads)
+    q = _split_heads(_dense(ap["query"], h), hd)
+    k = _split_heads(_dense(ap["key"], h), hd)
+    v = _split_heads(_dense(ap["value"], h), hd)
     ctx, cache_kv = attend_fn(q, k, v)
-    x = x + _dense(ap["output"], _merge_heads(ctx))
+    x = x + _row_dense(ap["output"], _merge_heads(ctx), mesh)
     h = _layer_norm(lp["mlp_LayerNorm"], x, cfg.layer_norm_eps)
     h = F.gelu(_dense(lp["intermediate"], h), approximate="tanh")
-    return x + _dense(lp["ffn_output"], h), cache_kv
+    return x + _row_dense(lp["ffn_output"], h, mesh), cache_kv
 
 
-def _embed(params, cfg: GPTConfig, ids, positions):
+def _embed(params, cfg: GPTConfig, ids, positions, mesh=None):
     p = params["params"]
     positions = positions.clamp(0, cfg.max_position_embeddings - 1)  # JAX's gather clamps
-    tok = F.embedding(ids, p["word_embeddings"]["embedding"])
+    table = p["word_embeddings"]["embedding"]
+    if mesh is None:
+        tok = F.embedding(ids, table)
+    else:
+        tok = tp_lib.vocab_parallel_embed(ids, table, mesh)
     pos = F.embedding(positions, p["position_embeddings"]["embedding"])
     return (tok + pos).to(cfg.dtype)
 
 
-def _lm_head(params, cfg: GPTConfig, x):
+def _lm_head(params, cfg: GPTConfig, x, mesh=None):
+    """Float32 logits of the tied head; under a ``mesh``, this rank's vocab
+    slice gathered whole (once per call, however many rows)."""
     p = params["params"]
     x = _layer_norm(p["final_LayerNorm"], x, cfg.layer_norm_eps)
-    return torch.matmul(x.float(), p["word_embeddings"]["embedding"].float().t())
+    logits = torch.matmul(x.float(), p["word_embeddings"]["embedding"].float().t())
+    if mesh is None:
+        return logits
+    return tp_lib.gather_slices(logits, mesh, dim=-1)
 
 
 def _mask_value(visible, dtype):
@@ -195,10 +247,11 @@ def _compact_ragged(k_stack, v_stack, pad, lengths, out_len: int):
 
 
 def init_cache(cfg: GPTConfig, batch: int, max_len: int, cache_dtype=None,
-               device=None) -> DecodeCache:
+               device=None, tp: int = 1) -> DecodeCache:
     """A zeroed fixed cache. ``cache_dtype`` (``torch.bfloat16``) stores
     K/V narrower than the compute dtype: reads upcast at the attention,
-    writes downcast."""
+    writes downcast. ``tp``: one rank's cache of a model axis that wide,
+    ``num_heads / tp`` heads."""
     if max_len > cfg.max_position_embeddings:
         raise ValueError(f"max_len {max_len} exceeds max_position_embeddings "
                          f"{cfg.max_position_embeddings}")
@@ -207,8 +260,7 @@ def init_cache(cfg: GPTConfig, batch: int, max_len: int, cache_dtype=None,
             "cache_dtype=int8 needs per-vector quantization scales, which only "
             "the paged pool layout carries (init_paged_pool); the fixed-slot "
             "cache stores raw dtypes only")
-    hd = cfg.hidden_size // cfg.num_heads
-    shape = (cfg.num_layers, batch, cfg.num_heads, max_len, hd)
+    shape = (cfg.num_layers, batch, _local_heads(cfg, tp), max_len, _head_dim(cfg))
     dtype = cfg.dtype if cache_dtype is None else cache_dtype
     return DecodeCache(k=torch.zeros(shape, dtype=dtype, device=device),
                        v=torch.zeros(shape, dtype=dtype, device=device), length=0)
@@ -235,7 +287,7 @@ def _as_ids(ids, device):
     return ids.to(torch.int64)
 
 
-def prefill(params, cfg: GPTConfig, prompt_ids, max_len: int, lengths=None):
+def prefill(params, cfg: GPTConfig, prompt_ids, max_len: int, lengths=None, mesh=None):
     """Run the prompt once and fill a fresh cache of ``max_len``. Returns
     ``(cache, last_logits [B, vocab])``.
 
@@ -243,7 +295,8 @@ def prefill(params, cfg: GPTConfig, prompt_ids, max_len: int, lengths=None):
     is left-padded, its real tokens in the last ``lengths[b]`` columns; the
     pad is masked and positioned away, and row b's K/V are compacted to
     positions ``[0, lengths[b])``, so ``cache.length`` is ``[B]`` and
-    decoding goes on with :func:`decode_step_ragged`."""
+    decoding goes on with :func:`decode_step_ragged`. ``mesh``: the model
+    axis ``params`` is this rank's block of (module docstring)."""
     device = _param_device(params)
     ids = _as_ids(prompt_ids, device)
     b, s0 = ids.shape
@@ -265,7 +318,7 @@ def prefill(params, cfg: GPTConfig, prompt_ids, max_len: int, lengths=None):
     else:
         positions = ar[None, :].expand(b, s0)
         pos_mask = _mask_value(ar[None, :] <= ar[:, None], cfg.dtype)[None, None]
-    x = _embed(params, cfg, ids, positions)
+    x = _embed(params, cfg, ids, positions, mesh)
 
     ks, vs = [], []
 
@@ -274,7 +327,7 @@ def prefill(params, cfg: GPTConfig, prompt_ids, max_len: int, lengths=None):
 
     p = params["params"]
     for i in range(cfg.num_layers):
-        x, (k, v) = _block(cfg, p[f"layer_{i}"], x, attend_full)
+        x, (k, v) = _block(cfg, p[f"layer_{i}"], x, attend_full, mesh)
         ks.append(k)
         vs.append(v)
 
@@ -286,7 +339,7 @@ def prefill(params, cfg: GPTConfig, prompt_ids, max_len: int, lengths=None):
         k_stack = F.pad(k_stack, (0, 0, 0, max_len - s0))
         v_stack = F.pad(v_stack, (0, 0, 0, max_len - s0))
         length = s0
-    logits = _lm_head(params, cfg, x[:, -1:, :])[:, 0]
+    logits = _lm_head(params, cfg, x[:, -1:, :], mesh)[:, 0]
     return DecodeCache(k=k_stack, v=v_stack, length=length), logits
 
 
@@ -318,7 +371,8 @@ def decode_step(params, cfg: GPTConfig, cache: DecodeCache, token):
     return DecodeCache(k=new_k, v=new_v, length=pos + 1), logits
 
 
-def decode_step_ragged(params, cfg: GPTConfig, cache: DecodeCache, token, active=None):
+def decode_step_ragged(params, cfg: GPTConfig, cache: DecodeCache, token, active=None,
+                       mesh=None):
     """A cached step with per-row positions (``cache.length`` ``[B]``): row
     b's token is written at ``length[b]``. Rows where ``active`` is False,
     and rows whose position has reached ``max_len``, are computed but
@@ -331,7 +385,7 @@ def decode_step_ragged(params, cfg: GPTConfig, cache: DecodeCache, token, active
     if active is None:
         active = torch.ones(b, dtype=torch.bool, device=device)
     max_len, num_heads = cache.k.shape[3], cache.k.shape[2]
-    x = _embed(params, cfg, token[:, None], pos[:, None])
+    x = _embed(params, cfg, token[:, None], pos[:, None], mesh)
     visible = torch.arange(max_len, device=device)[None, :] <= pos[:, None]
     pos_mask = _mask_value(visible, cfg.dtype)[:, None, None, :]
     # a dropped write puts back the value the row already holds there
@@ -351,14 +405,15 @@ def decode_step_ragged(params, cfg: GPTConfig, cache: DecodeCache, token, active
                                                         old)
             return _attend(q, new_k[i].to(q.dtype), new_v[i].to(q.dtype), pos_mask), None
 
-        x, _ = _block(cfg, p[f"layer_{i}"], x, attend_cached)
+        x, _ = _block(cfg, p[f"layer_{i}"], x, attend_cached, mesh)
 
-    logits = _lm_head(params, cfg, x)[:, 0]
+    logits = _lm_head(params, cfg, x, mesh)[:, 0]
     new_len = torch.where(active, pos + 1, pos)
     return DecodeCache(k=new_k, v=new_v, length=new_len), logits
 
 
-def verify_step_ragged(params, cfg: GPTConfig, cache: DecodeCache, tokens, active=None):
+def verify_step_ragged(params, cfg: GPTConfig, cache: DecodeCache, tokens, active=None,
+                       mesh=None):
     """The multi-position cached step of speculative decoding: ``tokens``
     ``[B, n]`` are row b's next ``n`` tokens at positions ``length[b] + j``.
     All ``n`` K/V pairs are written (a masked row's, and positions at or
@@ -375,7 +430,7 @@ def verify_step_ragged(params, cfg: GPTConfig, cache: DecodeCache, tokens, activ
         active = torch.ones(b, dtype=torch.bool, device=device)
     max_len, num_heads = cache.k.shape[3], cache.k.shape[2]
     positions = pos[:, None] + torch.arange(n, device=device)[None, :]  # [B, n]
-    x = _embed(params, cfg, tokens, positions)
+    x = _embed(params, cfg, tokens, positions, mesh)
     visible = torch.arange(max_len, device=device)[None, None, :] <= positions[:, :, None]
     pos_mask = _mask_value(visible, cfg.dtype)[:, None]  # [B, 1, n, T]
     # a position past the end writes back, n places down, what is already
@@ -397,9 +452,9 @@ def verify_step_ragged(params, cfg: GPTConfig, cache: DecodeCache, tokens, activ
                 pool[i, bidx, hidx, widx] = torch.where(writable, val.to(pool.dtype), old)
             return _attend(q, new_k[i].to(q.dtype), new_v[i].to(q.dtype), pos_mask), None
 
-        x, _ = _block(cfg, p[f"layer_{i}"], x, attend_cached)
+        x, _ = _block(cfg, p[f"layer_{i}"], x, attend_cached, mesh)
 
-    logits = _lm_head(params, cfg, x)  # [B, n, V]
+    logits = _lm_head(params, cfg, x, mesh)  # [B, n, V]
     return DecodeCache(k=new_k, v=new_v, length=pos), logits
 
 
@@ -407,18 +462,18 @@ def verify_step_ragged(params, cfg: GPTConfig, cache: DecodeCache, tokens, activ
 
 
 def init_paged_pool(cfg: GPTConfig, num_blocks: int, page_size: int, cache_dtype=None,
-                    device=None):
+                    device=None, tp: int = 1):
     """The block pool, K and V ``[L, num_blocks + 1, H, page_size, hd]``:
     blocks ``0..num_blocks-1`` are real, block ``num_blocks`` is the trash
     block that page-table sentinels address (dropped writes land there,
     reads through it are masked). ``cache_dtype=torch.int8`` gives
-    :class:`QuantKV` pools."""
+    :class:`QuantKV` pools. ``tp``: one rank's pool of a model axis that
+    wide, ``H = num_heads / tp`` heads of every block."""
     if num_blocks < 1:
         raise ValueError(f"need at least one block, got {num_blocks}")
     if page_size < 1:
         raise ValueError(f"page_size must be >= 1, got {page_size}")
-    hd = cfg.hidden_size // cfg.num_heads
-    shape = (cfg.num_layers, num_blocks + 1, cfg.num_heads, page_size, hd)
+    shape = (cfg.num_layers, num_blocks + 1, _local_heads(cfg, tp), page_size, _head_dim(cfg))
     if _is_int8(cache_dtype):
         # codes [L, blocks + 1, H, page, hd] and scales one rank lower
         def zeros():
@@ -506,7 +561,7 @@ def scatter_blocks(pool_k, pool_v, block_ids, k_blocks, v_blocks):
 
 
 def decode_step_paged(params, cfg: GPTConfig, pool_k, pool_v, page_table, lengths, token,
-                      active=None, limit=None):
+                      active=None, limit=None, mesh=None):
     """One cached step against the paged pool through ``page_table`` ``[B,
     max_pages]``. ``limit`` (``[B]``) is each slot's write budget: positions
     at or past it are neither written nor advanced. Reads gather each slot's
@@ -522,14 +577,15 @@ def decode_step_paged(params, cfg: GPTConfig, pool_k, pool_v, page_table, length
     if active is None:
         active = torch.ones(b, dtype=torch.bool, device=device)
     writable = active if limit is None else active & (pos < limit)
-    x = _embed(params, cfg, token[:, None], pos[:, None])
+    x = _embed(params, cfg, token[:, None], pos[:, None], mesh)
     visible = torch.arange(t_virt, device=device)[None, :] <= pos[:, None]
     pos_mask = _mask_value(visible, cfg.dtype)[:, None, None, :]
     page = (pos // page_size).clamp(max=max_pages - 1)[:, None]
     blk = torch.gather(page_table, 1, page)
     blk = torch.where(writable[:, None], blk, torch.full_like(blk, num_blocks))
     off = (pos % page_size)[:, None]
-    hidx = torch.arange(cfg.num_heads, device=device)[None]
+    heads = pool_k.shape[2]
+    hidx = torch.arange(heads, device=device)[None]
     read = _read_table(page_table, num_blocks)
     p = params["params"]
 
@@ -538,20 +594,20 @@ def decode_step_paged(params, cfg: GPTConfig, pool_k, pool_v, page_table, length
         def attend_cached(q, k, v, i=i):
             _pool_write(pool_k, (i, blk, hidx, off), k[:, :, 0, :])
             _pool_write(pool_v, (i, blk, hidx, off), v[:, :, 0, :])
-            kv_shape = (b, cfg.num_heads, t_virt, k.shape[-1])
+            kv_shape = (b, heads, t_virt, k.shape[-1])
             k_virt = _virt_view(pool_k, i, read, kv_shape, q.dtype)
             v_virt = _virt_view(pool_v, i, read, kv_shape, q.dtype)
             return _attend(q, k_virt, v_virt, pos_mask), None
 
-        x, _ = _block(cfg, p[f"layer_{i}"], x, attend_cached)
+        x, _ = _block(cfg, p[f"layer_{i}"], x, attend_cached, mesh)
 
-    logits = _lm_head(params, cfg, x)[:, 0]
+    logits = _lm_head(params, cfg, x, mesh)[:, 0]
     new_len = torch.where(writable, pos + 1, pos)
     return pool_k, pool_v, new_len, logits
 
 
 def verify_step_paged(params, cfg: GPTConfig, pool_k, pool_v, page_table, lengths, tokens,
-                      active=None, limit=None):
+                      active=None, limit=None, mesh=None):
     """The paged twin of :func:`verify_step_ragged`: ``n`` positions per slot
     written through the page table and scored in one step. Positions at or
     past a slot's write ``limit``, and a masked slot's, go to the trash
@@ -570,13 +626,14 @@ def verify_step_paged(params, cfg: GPTConfig, pool_k, pool_v, page_table, length
     writable = active[:, None].expand(b, n)
     if limit is not None:
         writable = writable & (positions < limit[:, None])
-    x = _embed(params, cfg, tokens, positions)
+    x = _embed(params, cfg, tokens, positions, mesh)
     visible = torch.arange(t_virt, device=device)[None, None, :] <= positions[:, :, None]
     pos_mask = _mask_value(visible, cfg.dtype)[:, None]
     page = (positions // page_size).clamp(max=max_pages - 1)
     blk = torch.gather(page_table, 1, page)
     blk = torch.where(writable, blk, torch.full_like(blk, num_blocks))
-    idx = (blk[:, None, :], torch.arange(cfg.num_heads, device=device)[None, :, None],
+    heads = pool_k.shape[2]
+    idx = (blk[:, None, :], torch.arange(heads, device=device)[None, :, None],
            (positions % page_size)[:, None, :])  # each [B|1, H|1, n]
     read = _read_table(page_table, num_blocks)
     p = params["params"]
@@ -586,18 +643,18 @@ def verify_step_paged(params, cfg: GPTConfig, pool_k, pool_v, page_table, length
         def attend_cached(q, k, v, i=i):
             _pool_write(pool_k, (i,) + idx, k)  # k/v [B, H, n, hd]
             _pool_write(pool_v, (i,) + idx, v)
-            kv_shape = (b, cfg.num_heads, t_virt, k.shape[-1])
+            kv_shape = (b, heads, t_virt, k.shape[-1])
             k_virt = _virt_view(pool_k, i, read, kv_shape, q.dtype)
             v_virt = _virt_view(pool_v, i, read, kv_shape, q.dtype)
             return _attend(q, k_virt, v_virt, pos_mask), None
 
-        x, _ = _block(cfg, p[f"layer_{i}"], x, attend_cached)
+        x, _ = _block(cfg, p[f"layer_{i}"], x, attend_cached, mesh)
 
-    return pool_k, pool_v, _lm_head(params, cfg, x)
+    return pool_k, pool_v, _lm_head(params, cfg, x, mesh)
 
 
 def prefill_paged(params, cfg: GPTConfig, prompt_ids, prompt_lens, pool_k, pool_v,
-                  page_rows, start_lens=None, read_tables=None):
+                  page_rows, start_lens=None, read_tables=None, mesh=None):
     """Ragged batched prefill straight into pool blocks: ``prompt_ids``
     ``[B, S0]`` left-padded, ``prompt_lens`` ``[B]``, ``page_rows`` ``[B,
     ceil(S0 / page_size)]`` each row's block ids for its prompt pages (the
@@ -622,7 +679,8 @@ def prefill_paged(params, cfg: GPTConfig, prompt_ids, prompt_lens, pool_k, pool_
         raise ValueError(f"page_rows must be [batch={b}, ceil(S0/page)={s0_pages}], "
                          f"got {tuple(page_rows.shape)}")
     if start_lens is None:
-        cache, logits = prefill(params, cfg, ids, s0_pages * page_size, lengths=prompt_lens)
+        cache, logits = prefill(params, cfg, ids, s0_pages * page_size, lengths=prompt_lens,
+                                mesh=mesh)
         k_stack, v_stack = cache.k, cache.v
     else:
         if read_tables is None:
@@ -630,7 +688,7 @@ def prefill_paged(params, cfg: GPTConfig, prompt_ids, prompt_lens, pool_k, pool_
                              "for reading the shared prefix)")
         k_stack, v_stack, logits = _prefill_suffix(params, cfg, ids, prompt_lens, start_lens,
                                                    pool_k, pool_v, read_tables,
-                                                   s0_pages * page_size)
+                                                   s0_pages * page_size, mesh)
     num_layers, _, heads, _, hd = k_stack.shape
 
     def to_pages(t):  # [L, B, H, s0p*P, hd] -> [L, B, s0p, H, P, hd]
@@ -643,7 +701,7 @@ def prefill_paged(params, cfg: GPTConfig, prompt_ids, prompt_lens, pool_k, pool_
 
 
 def prefill_paged_cow(params, cfg: GPTConfig, suffix_ids, suffix_lens, start_lens,
-                      write_starts, pool_k, pool_v, read_tables, write_tables):
+                      write_starts, pool_k, pool_v, read_tables, write_tables, mesh=None):
     """The suffix prefill of copy-on-write sharing: :func:`prefill_paged`'s
     suffix mode for a shared region that need not be page-aligned, with
     per-POSITION writes. ``start_lens`` ``[B]`` is each row's first
@@ -663,7 +721,7 @@ def prefill_paged_cow(params, cfg: GPTConfig, suffix_ids, suffix_lens, start_len
     max_pages = write_tables.shape[1]
     out_len = -(-s0 // page_size) * page_size
     k_stack, v_stack, logits = _prefill_suffix(params, cfg, ids, suffix_lens, start_lens,
-                                               pool_k, pool_v, read_tables, out_len)
+                                               pool_k, pool_v, read_tables, out_len, mesh)
     start_lens = torch.as_tensor(start_lens, device=device).to(torch.int64)
     write_starts = torch.as_tensor(write_starts, device=device).to(torch.int64)
     suffix_lens = torch.as_tensor(suffix_lens, device=device).to(torch.int64)
@@ -673,7 +731,8 @@ def prefill_paged_cow(params, cfg: GPTConfig, suffix_ids, suffix_lens, start_len
     page = (positions // page_size).clamp(max=max_pages - 1)
     blk = torch.gather(write_tables, 1, page)
     blk = torch.where(valid, blk, torch.full_like(blk, num_blocks))
-    idx = (slice(None), blk[:, None, :], torch.arange(cfg.num_heads, device=device)[None, :, None],
+    idx = (slice(None), blk[:, None, :],
+           torch.arange(k_stack.shape[2], device=device)[None, :, None],
            (positions % page_size)[:, None, :])  # k_stack [L, B, H, T, hd]
     _pool_write(pool_k, idx, k_stack)
     _pool_write(pool_v, idx, v_stack)
@@ -681,7 +740,7 @@ def prefill_paged_cow(params, cfg: GPTConfig, suffix_ids, suffix_lens, start_len
 
 
 def _prefill_suffix(params, cfg: GPTConfig, suffix_ids, suffix_lens, start_lens, pool_k,
-                    pool_v, read_tables, out_len):
+                    pool_v, read_tables, out_len, mesh=None):
     """The body of the suffix modes: run only the unshared tail, attending
     to the shared prefix's pooled K/V (exactly ``[0, start_lens[b])`` of the
     gathered pages, a partial last page included) and to the tail itself
@@ -696,7 +755,7 @@ def _prefill_suffix(params, cfg: GPTConfig, suffix_ids, suffix_lens, start_lens,
     read_tables = _read_table(torch.as_tensor(read_tables, device=device).to(torch.int64),
                               pool_blocks(pool_k))
     b, s0 = ids.shape
-    num_heads = cfg.num_heads
+    num_heads = pool_k.shape[2]  # this rank's heads under a mesh
     page_size = pool_k.shape[3]
     t_virt = read_tables.shape[1] * page_size
     suffix_lens = torch.as_tensor(suffix_lens, device=device).to(torch.int64)
@@ -704,7 +763,7 @@ def _prefill_suffix(params, cfg: GPTConfig, suffix_ids, suffix_lens, start_lens,
     pad = s0 - suffix_lens
     ar = torch.arange(s0, device=device)
     positions = start_lens[:, None] + (ar[None, :] - pad[:, None]).clamp(min=0)
-    x = _embed(params, cfg, ids, positions)
+    x = _embed(params, cfg, ids, positions, mesh)
     self_mask = _ragged_self_mask(cfg, s0, pad)  # [B, 1, S0, S0]
     # every tail query sits past the prefix: no causal term on that side
     vis_pref = torch.arange(t_virt, device=device)[None, :] < start_lens[:, None]
@@ -721,13 +780,13 @@ def _prefill_suffix(params, cfg: GPTConfig, suffix_ids, suffix_lens, start_lens,
             v_all = torch.cat([_virt_view(pool_v, i, read_tables, kv_shape, v.dtype), v], dim=2)
             return _attend(q, k_all, v_all, mask), (k, v)
 
-        x, (k, v) = _block(cfg, p[f"layer_{i}"], x, attend_mixed)
+        x, (k, v) = _block(cfg, p[f"layer_{i}"], x, attend_mixed, mesh)
         ks.append(k)
         vs.append(v)
 
     k_stack, v_stack = _compact_ragged(torch.stack(ks), torch.stack(vs), pad, suffix_lens,
                                        out_len)
-    return k_stack, v_stack, _lm_head(params, cfg, x[:, -1:, :])[:, 0]
+    return k_stack, v_stack, _lm_head(params, cfg, x[:, -1:, :], mesh)[:, 0]
 
 
 # -- sampling and generation --------------------------------------------------

@@ -2,14 +2,15 @@
 attention cores beyond the flash kernels (the port of
 ``gradaccum_tpu/parallel``).
 
-Ported: the process-group meshes (``mesh``: the 1-D data mesh and the
-multi-axis ``make_mesh``, with the differentiable ``ppermute`` and
-``all_to_all``), batch and parameter placement with JAX's regex rules
-(``sharding``), the Megatron rules and collectives (``tp``), the
-data-parallel steps (``dp``), ZeRO-1 with or without rules (``zero``), the
-CrossShardOptimizer wrapper (``cross_shard``), the blockwise and ring
-attention cores (``ring_attention``), Ulysses attention (``ulysses``), the
-data × seq step (``sp``) and the GPipe schedule (``pp``).
+Ported: the process-group meshes (``mesh``: the 1-D data mesh, the
+multi-axis ``make_mesh`` with the differentiable ``ppermute`` and
+``all_to_all``, and one serving replica's ``serving_mesh``), batch and
+parameter placement with JAX's regex rules (``sharding``), the Megatron
+rules and collectives (``tp``), the data-parallel steps (``dp``), ZeRO-1
+with or without rules (``zero``), the CrossShardOptimizer wrapper
+(``cross_shard``), the blockwise and ring attention cores
+(``ring_attention``), Ulysses attention (``ulysses``), the data × seq step
+(``sp``) and the GPipe schedule (``pp``).
 """
 
 from gradaccum_tpu_torch.parallel.cross_shard import cross_shard_optimizer
@@ -27,6 +28,7 @@ from gradaccum_tpu_torch.parallel.mesh import (
     initialize_multihost,
     make_hybrid_mesh,
     make_mesh,
+    serving_mesh,
 )
 from gradaccum_tpu_torch.parallel.pp import (
     PipelineParams,

@@ -498,6 +498,40 @@ def make_mesh(axis_sizes: Optional[Sequence[Tuple[str, int]]] = None, **axes: in
     return bind_mesh(Mesh(names, sizes, rank, device, backend, groups))
 
 
+def serving_mesh(tp: int = 1, devices: Optional[Sequence[int]] = None) -> Mesh:
+    """The mesh of ONE serving engine replica: the single ``model`` axis
+    over ``tp`` ranks (JAX's ``serving_mesh``). Ranks play the part of
+    JAX's devices: ``devices`` is a list of global ranks (default every rank
+    of the process group, or this process alone without one), and the mesh
+    takes the first ``tp`` of them.
+
+    Every call with ``tp > 1`` creates a process group of its own (every
+    rank must call it, in the same order, as ``dist.new_group`` requires),
+    so two engines' collectives never share a group: a fleet of replicas
+    ticking on threads cannot interleave them. The mesh is not bound to the
+    axis name (``axis_mesh``): the engine hands it to the decode functions.
+    ``tp=1`` is a one-rank mesh of this process, with no group and no
+    collective, as JAX's one-device mesh pins an engine to one chip."""
+    initialized = dist.is_available() and dist.is_initialized()
+    if devices is None:
+        devices = list(range(dist.get_world_size() if initialized else 1))
+    devices = [int(d) for d in devices]
+    if not 1 <= tp <= len(devices):
+        raise ValueError(f"serving mesh needs 1 <= tp <= {len(devices)} devices, got {tp}")
+    device = _STATE.get("device", torch.device("cpu"))
+    backend = dist.get_backend() if initialized else "gloo"
+    if tp == 1:
+        return Mesh((MODEL_AXIS,), (1,), 0, device, backend, {})
+    members = devices[:tp]
+    group = dist.new_group(members)
+    rank = dist.get_rank()
+    if rank not in members:
+        raise ValueError(f"rank {rank} is not among the serving mesh's ranks {members}")
+    groups = {(MODEL_AXIS,): DataMesh(members.index(rank), tp, device, backend, MODEL_AXIS,
+                                      group=group, ranks=members)}
+    return Mesh((MODEL_AXIS,), (tp,), members.index(rank), device, backend, groups)
+
+
 def bind_mesh(mesh: Mesh) -> Mesh:
     """Make ``mesh`` this process's current mesh: each of its axis names
     binds to its one-axis mesh (:func:`axis_mesh`), as :func:`make_mesh`

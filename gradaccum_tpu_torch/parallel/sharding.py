@@ -87,9 +87,12 @@ def layout_perm(name: str, ndim: int) -> Tuple[int, ...]:
     return tuple(range(ndim))
 
 
-def torch_dims(name: str, spec: PartitionSpec, ndim: int) -> Tuple[Optional[str], ...]:
+def torch_dims(name: str, spec: PartitionSpec, ndim: int,
+               jax_layout: bool = False) -> Tuple[Optional[str], ...]:
     """``spec`` (JAX's layout) as one axis-or-None per dimension of the
-    port's ``ndim``-dimensional tensor ``name``; all None when replicated."""
+    port's ``ndim``-dimensional tensor ``name``; all None when replicated.
+    ``jax_layout``: the tensor keeps JAX's layout (a leaf of the decode
+    tree, ``interop.py :: params_tree``), so the spec applies as written."""
     if ndim == 0 or not any(spec):
         return (None,) * ndim
     if len(spec) > ndim:
@@ -100,6 +103,8 @@ def torch_dims(name: str, spec: PartitionSpec, ndim: int) -> Tuple[Optional[str]
         if axis is not None and not isinstance(axis, str):
             raise NotImplementedError(f"{name}: a dimension split over several axes "
                                       f"({axis!r}) is not supported")
+    if jax_layout:
+        return jax_dims
     return tuple(jax_dims[j] for j in layout_perm(name, ndim))
 
 
@@ -215,13 +220,15 @@ def state_dims(state, rules: Optional[Rules]) -> Dict[str, tuple]:
     return dims
 
 
-def shard_params(params, mesh, rules: Optional[Rules] = None):
+def shard_params(params, mesh, rules: Optional[Rules] = None, jax_layout: bool = False):
     """Place ``params`` on the mesh. Without rules: replicated, rank 0's
     values broadcast (a :class:`DataMesh`). With rules: every tensor leaf
     of ``params`` (a dict of parameters or a whole train state) cut to this
     rank's block. A ``Parameter`` keeps its identity (its ``data`` becomes
     the block and it records its :func:`placement`), so a module holding
-    it runs sharded; other leaves are replaced by copies of their blocks."""
+    it runs sharded; other leaves are replaced by copies of their blocks.
+    ``jax_layout``: the leaves keep JAX's layout (the decode tree), so each
+    spec splits the dimension it names."""
     if not rules:
         return replicate_(params, mesh)
     quantized = []
@@ -234,7 +241,7 @@ def shard_params(params, mesh, rules: Optional[Rules] = None):
             f"moment_dtype='q8' OR sharding rules, not both")
 
     def cut(path, leaf):
-        dims = torch_dims(path, spec_for(path, rules), leaf.dim())
+        dims = torch_dims(path, spec_for(path, rules), leaf.dim(), jax_layout)
         if not any(dims):
             return leaf
         part = block(leaf.detach(), path, dims, mesh).clone()
@@ -247,7 +254,7 @@ def shard_params(params, mesh, rules: Optional[Rules] = None):
     return map_state(cut, params)
 
 
-def gather_params(params, mesh, rules: Optional[Rules] = None):
+def gather_params(params, mesh, rules: Optional[Rules] = None, jax_layout: bool = False):
     """The inverse of :func:`shard_params` with rules: every sharded leaf
     all-gathered along its sharded dimensions into a new whole tensor (a
     collective: every rank calls it, in the same order)."""
@@ -255,7 +262,7 @@ def gather_params(params, mesh, rules: Optional[Rules] = None):
         return params
 
     def whole(path, leaf):
-        dims = torch_dims(path, spec_for(path, rules), leaf.dim())
+        dims = torch_dims(path, spec_for(path, rules), leaf.dim(), jax_layout)
         return gather_leaf(leaf.detach(), dims, mesh) if any(dims) else leaf
 
     return map_state(whole, params)

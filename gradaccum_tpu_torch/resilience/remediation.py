@@ -350,9 +350,8 @@ def pool_grow_rung(server, factor: float = 1.5, max_blocks: Optional[int] = None
     ``pool_resize``: the capacity rung for pressure-shaped anomalies.
     Inapplicable on a contiguous cache, and a no-op (skip) once
     ``max_blocks`` is reached: unbounded autonomous growth is how automation
-    eats a machine. (JAX rounds the count up to the serving mesh's TP
-    width; the port's engine refuses a mesh, so there is nothing to round
-    to.)"""
+    eats a machine. On a serving mesh the count rounds up to a multiple
+    of its TP width, which the resize requires."""
     if factor <= 1.0:
         raise ValueError(f"pool grow factor must be > 1, got {factor}")
 
@@ -366,6 +365,8 @@ def pool_grow_rung(server, factor: float = 1.5, max_blocks: Optional[int] = None
         if not eng.paged:
             return False
         nb = int(eng.num_blocks * factor + 0.999999)
+        if eng.mesh is not None:
+            nb += (-nb) % eng.tp
         if max_blocks is not None:
             nb = min(nb, int(max_blocks))
         if nb <= eng.num_blocks:

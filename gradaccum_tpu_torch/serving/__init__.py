@@ -28,8 +28,10 @@ the same server surface, supervised by ``fleet``'s leases (SUSPECT, DEAD,
 proof-gated excision, live ``replica_add``); ``ServingServer(free_running=
 True)`` runs one loop thread per replica, and ``ServingServer(healer=)``
 polls the self-healing ladder (``resilience/healer.py``) on its loop. The
-serving mesh (TP decode, ROADMAP.md item 5g, second half) is not ported
-yet: its knobs raise ``NotImplementedError`` naming the item.
+serving mesh runs an engine tensor-parallel, one process per rank
+(``Engine(mesh=parallel.mesh.serving_mesh(tp))``, ``ReplicatedEngine(tp>1)``)
+under the SPMD contract in ``engine``'s docstring; a ``ServingServer`` over a
+multi-rank mesh raises ``NotImplementedError`` naming ROADMAP.md item 5j.
 """
 
 from gradaccum_tpu_torch.serving.admission import (

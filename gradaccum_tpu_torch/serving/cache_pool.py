@@ -39,6 +39,11 @@ its matched length, and its first write into that page forks the block
 (:meth:`PagedCachePool.fork_cow`: a fresh private block, a one-block device
 copy by the engine, the page-table entry rewritten), or takes it over when
 it is the last reference.
+
+Under a serving mesh (``tp > 1``, one process per rank) each rank's pool
+holds its own ``num_heads / tp`` heads of every slot or block; the page
+tables, refcounts, reservations and the prefix index stay host
+bookkeeping, the same on every rank.
 """
 
 from __future__ import annotations
@@ -134,12 +139,14 @@ class _SlotLedger:
 
 class CachePool(_SlotLedger):
     """Slot bookkeeping (host) and the pooled cache tensors (device).
-    ``cache_dtype`` narrows K/V storage; compute stays at ``cfg.dtype``."""
+    ``cache_dtype`` narrows K/V storage; compute stays at ``cfg.dtype``.
+    ``tp``: this rank's heads of a model axis that wide."""
 
     def __init__(self, cfg: GPTConfig, num_slots: int, max_len: int, cache_dtype=None,
-                 device=None):
+                 device=None, tp: int = 1):
         self._init_slots(num_slots)
-        cache = init_cache(cfg, num_slots, max_len, cache_dtype=cache_dtype, device=device)
+        cache = init_cache(cfg, num_slots, max_len, cache_dtype=cache_dtype, device=device,
+                           tp=tp)
         self.k = cache.k
         self.v = cache.v
         self.cache_dtype = cache_dtype
@@ -338,11 +345,12 @@ class PagedCachePool(_SlotLedger):
     ``num_blocks`` sets the token capacity (``num_blocks * page_size``
     positions shared by all slots); ``max_len`` bounds one request
     (``max_pages = max_len / page_size`` page-table columns). Unassigned
-    page-table entries hold the sentinel ``num_blocks``."""
+    page-table entries hold the sentinel ``num_blocks``. ``tp``: this
+    rank's heads of a model axis that wide."""
 
     def __init__(self, cfg: GPTConfig, num_slots: int, max_len: int, page_size: int,
                  num_blocks: int, prefix_cache: Optional[PrefixCache] = None,
-                 cache_dtype=None, device=None):
+                 cache_dtype=None, device=None, tp: int = 1):
         self._init_slots(num_slots)
         if max_len % page_size:
             raise ValueError(f"max_len {max_len} must be a multiple of page_size {page_size}")
@@ -353,8 +361,9 @@ class PagedCachePool(_SlotLedger):
             raise ValueError(f"prefix cache page_size {prefix_cache.page_size} != pool "
                              f"page_size {page_size}")
         self.k, self.v = init_paged_pool(cfg, num_blocks, page_size, cache_dtype=cache_dtype,
-                                         device=device)
+                                         device=device, tp=tp)
         self._cfg = cfg
+        self._tp = tp
         self.cache_dtype = cache_dtype
         self.device = self.k.device
         self.segments: List[int] = [int(num_blocks)]  # grow order, as JAX's
@@ -565,7 +574,8 @@ class PagedCachePool(_SlotLedger):
             raise ValueError(f"grow needs at least one block, got {extra}")
         old = self.num_blocks
         extra_k, extra_v = init_paged_pool(self._cfg, extra, self.page_size,
-                                           cache_dtype=self.cache_dtype, device=self.device)
+                                           cache_dtype=self.cache_dtype, device=self.device,
+                                           tp=self._tp)
         # [real blocks, new blocks, trash]: the new trash is a fresh block
         def cat(a, b):
             return torch.cat([a[:, :old], b], dim=1)

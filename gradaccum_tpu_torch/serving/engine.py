@@ -61,8 +61,23 @@ in slots; ``ServingServer`` requeues them.
 ``serving/reconfig.py``): a pool resize or a checkpoint swap between ticks,
 through the same preempt -> park -> resume path; ``replica_id``,
 ``id_start`` and ``id_stride`` let ``serving/replicated.py`` run several
-engines as one fleet. ``mesh`` (the serving mesh, TP decode) is not ported
-yet and raises ``NotImplementedError`` naming its ROADMAP.md item.
+engines as one fleet.
+
+**The serving mesh** (``mesh=parallel.mesh.serving_mesh(tp)``): tensor-
+parallel decode over the ``model`` axis, one process per rank. Each rank
+holds its block of the weights under ``gpt_tp_rules`` and its
+``num_heads / tp`` heads of the pool (and of the draft cache); the
+decode functions issue the collectives (``models/gpt_decode.py``), and
+every rank samples the same tokens from the same gathered logits. JAX
+runs such an engine as one GSPMD program; here every rank runs the whole
+engine, so **the SPMD contract** holds it together: every rank makes the
+same public calls (``submit``, ``step``, ``cancel``, ``preempt``,
+``recover``, ``reconfigure``) in the same order, with the same arguments,
+and an injected fault is scheduled alike on every rank. Every decision
+of the engine reads its host bookkeeping and its tick clock, never wall
+time or thread timing, so identical calls give identical bookkeeping on
+every rank and the collectives pair up. A fault on one rank alone is out
+of scope: its peers wait in a collective until the group's timeout.
 """
 
 from __future__ import annotations
@@ -93,6 +108,9 @@ from gradaccum_tpu_torch.models.gpt_decode import (
     verify_step_ragged,
 )
 from gradaccum_tpu_torch.obs import trace as obs_trace
+from gradaccum_tpu_torch.parallel.mesh import MODEL_AXIS
+from gradaccum_tpu_torch.parallel.sharding import gather_params, shard_params
+from gradaccum_tpu_torch.parallel.tp import gpt_tp_rules
 from gradaccum_tpu_torch.resilience import faults
 from gradaccum_tpu_torch.serving import admission as admission_lib
 from gradaccum_tpu_torch.serving.cache_pool import (
@@ -107,8 +125,7 @@ from gradaccum_tpu_torch.serving.swap import HostSwapStore, SwapError, to_device
 from gradaccum_tpu_torch.utils import prng
 from gradaccum_tpu_torch.utils.platform import resolve_device, upload
 from gradaccum_tpu_torch.utils.profiling import StepWindowProfiler
-
-FLEET_ITEM = "the serving mesh and TP decode (ROADMAP.md item 5g, second half: the serving mesh)"
+from gradaccum_tpu_torch.utils.tree import map_state
 
 
 @dataclasses.dataclass
@@ -177,6 +194,16 @@ class Engine:
     ranks victims. ``cache_dtype=torch.int8`` (or ``"int8"``) quantizes the
     paged pool. ``overlap_prefill`` queues the admission's prefill and the
     decode before reading either back.
+
+    ``mesh`` (``parallel.mesh.serving_mesh(tp)``) runs this engine as one
+    rank of a tensor-parallel replica (module docstring: the SPMD
+    contract). ``params`` is then the whole tree, cut here to this rank's
+    block, or this rank's block already (a fleet places its weights once
+    for all its replicas). JAX's refusals hold word for word: a mesh
+    without a ``model`` axis, heads, intermediate or vocabulary (the
+    draft's too) that the axis does not divide, and a ``num_blocks`` it does
+    not divide (JAX splits the paged pool on blocks; the port splits every
+    pool on heads, which gives the same streams, and keeps the refusal).
 
     ``replica_id`` names this engine in backpressure messages, stall keys,
     spans and metric labels; ``id_start``/``id_stride`` give it a request-id
@@ -267,20 +294,45 @@ class Engine:
         if not (victim_score is None or victim_score == "deadline" or callable(victim_score)):
             raise ValueError(f"victim_score must be None, 'deadline', or a callable; "
                              f"got {victim_score!r}")
+        if page_size is not None and num_blocks is None:
+            num_blocks = num_slots * max_len // int(page_size)  # the fixed pool's bytes
+        tp = 1
         if mesh is not None:
-            raise NotImplementedError(f"Engine(mesh=...) waits for {FLEET_ITEM}")
+            if MODEL_AXIS not in mesh.axis_names:
+                raise ValueError(
+                    f"serving mesh needs a '{MODEL_AXIS}' axis, got {mesh.axis_names} "
+                    "(parallel.mesh.serving_mesh builds one)")
+            tp = int(mesh.shape[MODEL_AXIS])
+            for what, dim in (("num_heads", cfg.num_heads),
+                              ("intermediate_size", cfg.intermediate_size),
+                              ("vocab_size", cfg.vocab_size)):
+                if dim % tp:
+                    raise ValueError(f"cfg.{what}={dim} not divisible by the model axis "
+                                     f"({tp}) — gpt_tp_rules shards it")
+            if page_size is not None and num_blocks % tp:
+                raise ValueError(f"num_blocks {num_blocks} not divisible by the model axis "
+                                 f"({tp}) — the paged pool shards its BLOCK axis")
+            if speculate_k > 0:
+                for what, dim in (("num_heads", draft_cfg.num_heads),
+                                  ("intermediate_size", draft_cfg.intermediate_size),
+                                  ("vocab_size", draft_cfg.vocab_size)):
+                    if dim % tp:
+                        raise ValueError(f"draft_cfg.{what}={dim} not divisible by the model "
+                                         f"axis ({tp}) — the draft shards like the target")
+        self.mesh = mesh
+        self.tp = tp
+        # the model axis the decode functions sum and gather over; None runs
+        # the whole model in this process (no mesh, or a one-rank one)
+        self._model_axis = mesh.axis(MODEL_AXIS) if tp > 1 else None
         # an EMPTY PrefixCache is falsy (len 0) but still asks for sharing
         wants_prefix = bool(prefix_cache) or isinstance(prefix_cache, PrefixCache)
         if wants_prefix and page_size is None:
             raise ValueError("prefix_cache needs paged mode (page_size=...)")
         self.device = resolve_device(device)
-        if isinstance(params, torch.nn.Module):
-            params = params_tree(params)
-        if isinstance(draft_params, torch.nn.Module):
-            draft_params = params_tree(draft_params)
         moved: Dict[int, torch.Tensor] = {}  # a draft's leaves that are the target's stay so
-        self.params = _tree_to(params, self.device, moved)
+        placed: Dict[int, torch.Tensor] = {}
         self.cfg = cfg
+        self.params = _tree_to(rank_tree(params, cfg, mesh, placed), self.device, moved)
         self.max_len = max_len
         self.temperature = float(temperature)
         self.top_k = None if top_k is None else int(top_k)
@@ -320,8 +372,8 @@ class Engine:
         self.last_reconfig = None
         self.speculate_k = int(speculate_k)
         self.draft_cfg = draft_cfg if self.speculate_k else None
-        self.draft_params = (_tree_to(draft_params, self.device, moved) if self.speculate_k
-                             else None)
+        self.draft_params = (_tree_to(rank_tree(draft_params, draft_cfg or cfg, mesh, placed),
+                                      self.device, moved) if self.speculate_k else None)
         if self.paged:
             if isinstance(prefix_cache, PrefixCache):
                 # an injected cache's own cow flag wins
@@ -331,12 +383,10 @@ class Engine:
                 self.prefix_cache = (PrefixCache(self.page_size, cow=bool(cow_tails))
                                      if wants_prefix else None)
                 self.cow_tails = bool(cow_tails) and wants_prefix
-            if num_blocks is None:
-                num_blocks = num_slots * max_len // self.page_size  # the fixed pool's bytes
             self.num_blocks = int(num_blocks)
             self.pool = PagedCachePool(cfg, num_slots, max_len, self.page_size,
                                        self.num_blocks, prefix_cache=self.prefix_cache,
-                                       cache_dtype=cache_dtype, device=self.device)
+                                       cache_dtype=cache_dtype, device=self.device, tp=tp)
             if admission_policy is not None and admission_policy.mode != "reserve":
                 self.pool.allow_overcommit = True
         else:
@@ -344,11 +394,11 @@ class Engine:
             self.cow_tails = False
             self.num_blocks = None
             self.pool = CachePool(cfg, num_slots, max_len, cache_dtype=cache_dtype,
-                                  device=self.device)
+                                  device=self.device, tp=tp)
         # the draft's own cache: the fixed layout whatever the target's pool
         if self.speculate_k:
             dcache = init_cache(draft_cfg, num_slots, max_len, cache_dtype=cache_dtype,
-                                device=self.device)
+                                device=self.device, tp=tp)
             self._draft_k, self._draft_v = dcache.k, dcache.v
         else:
             self._draft_k = self._draft_v = None
@@ -356,6 +406,8 @@ class Engine:
         self._obs_args: Dict[str, object] = {}
         if self.replica_id is not None:
             self._obs_args["replica"] = self.replica_id
+        if mesh is not None:
+            self._obs_args["mesh"] = ",".join(f"{n}={mesh.shape[n]}" for n in mesh.axis_names)
         self.scheduler = scheduler or Scheduler()
         if self.replica_id is not None and self.scheduler.label is None:
             self.scheduler.label = f"replica {self.replica_id}"
@@ -407,6 +459,17 @@ class Engine:
         # per-request outputs; front-ends evict them with pop_result()
         self.results: Dict[int, List[int]] = {}
         self.status: Dict[int, str] = {}
+
+    # -- the serving mesh -------------------------------------------------
+
+    def whole_params(self):
+        """The whole serving decode tree from this rank's block: on a mesh,
+        one all-gather per split leaf, so every rank must call it, in the
+        same order (a checkpoint swap's template and ``params_digest`` read
+        the whole tree)."""
+        if self.tp == 1:
+            return self.params
+        return gather_params(self.params, self.mesh, gpt_tp_rules(), jax_layout=True)
 
     # -- introspection ----------------------------------------------------
 
@@ -461,7 +524,8 @@ class Engine:
             "temperature": self.temperature,
             "top_k": self.top_k,
             "min_prefill_bucket": self.min_prefill_bucket,
-            "mesh": None,
+            "mesh": (None if self.mesh is None
+                     else {n: int(self.mesh.shape[n]) for n in self.mesh.axis_names}),
             "replica_id": self.replica_id,
             "speculate_k": self.speculate_k,
             "draft_num_layers": self.draft_cfg.num_layers if self.speculate_k else None,
@@ -842,10 +906,11 @@ class Engine:
             if self.paged:
                 _, _, lengths, logits = decode_step_paged(
                     self.params, self.cfg, pool.k, pool.v, table, lengths, cur, active,
-                    self._limit)
+                    self._limit, mesh=self._model_axis)
             else:
                 cache, logits = decode_step_ragged(
-                    self.params, self.cfg, DecodeCache(pool.k, pool.v, lengths), cur, active)
+                    self.params, self.cfg, DecodeCache(pool.k, pool.v, lengths), cur, active,
+                    mesh=self._model_axis)
                 lengths = cache.length
             nxt = sample_token(logits, self._rngs, gen, self.temperature, self.top_k)
             cur = torch.where(active, nxt, cur)
@@ -898,7 +963,7 @@ class Engine:
         tok, drafts, p_draft = cur, [], []
         for j in range(k):
             dcache, logits = decode_step_ragged(self.draft_params, self.draft_cfg, dcache, tok,
-                                                active)
+                                                active, mesh=self._model_axis)
             if sampled:
                 nxt, p_d = self._draft_draw(logits, base + j)
                 p_draft.append(p_d)
@@ -906,15 +971,18 @@ class Engine:
                 nxt = torch.argmax(logits, dim=-1)
             tok = torch.where(active, nxt, tok)
             drafts.append(tok)
-        decode_step_ragged(self.draft_params, self.draft_cfg, dcache, tok, active)
+        decode_step_ragged(self.draft_params, self.draft_cfg, dcache, tok, active,
+                           mesh=self._model_axis)
         d_bt = torch.stack(drafts, dim=1)  # [S, k]
         tokens_in = torch.cat([cur[:, None], d_bt], dim=1)
         if self.paged:
             _, _, logits = verify_step_paged(self.params, self.cfg, pool.k, pool.v, table, pos,
-                                             tokens_in, active, self._limit)
+                                             tokens_in, active, self._limit,
+                                             mesh=self._model_axis)
         else:
             _, logits = verify_step_ragged(self.params, self.cfg,
-                                           DecodeCache(pool.k, pool.v, pos), tokens_in, active)
+                                           DecodeCache(pool.k, pool.v, pos), tokens_in, active,
+                                           mesh=self._model_axis)
         rows = torch.arange(pos.shape[0], device=self.device)
         if sampled:
             t = torch.full((), self.temperature, dtype=torch.float32, device=self.device)
@@ -1481,7 +1549,12 @@ class Engine:
         the slot's page table once the pool hands it out, so the release
         frees it with the rest. A CUDA error that poisons the context
         cannot be healed in process; the server's bounded
-        ``max_engine_faults`` give-up is what catches it."""
+        ``max_engine_faults`` give-up is what catches it.
+
+        On a serving mesh every rank recovers (the SPMD contract). JAX
+        re-places the rebuilt pool on the mesh (``_apply_mesh``); the port
+        never rebuilds it, so each rank keeps its own heads' pool as it
+        was, and nothing is placed again."""
         failed = []
         tr = self.tracer
         self._pending_match.clear()
@@ -1589,12 +1662,13 @@ class Engine:
             for slot, r in zip(slots, reqs):
                 self._slot_len[slot] = r.prompt.size
             self._admit_shapes.add((len(reqs), s0))
-            cache, logits = prefill(self.params, self.cfg, ids_t, self.max_len, lengths=lens)
+            cache, logits = prefill(self.params, self.cfg, ids_t, self.max_len, lengths=lens,
+                                    mesh=self._model_axis)
             pool.k[:, slots_t] = cache.k.to(pool.k.dtype)
             pool.v[:, slots_t] = cache.v.to(pool.v.dtype)
         if self.speculate_k:
             dcache, _ = prefill(self.draft_params, self.draft_cfg, full_ids, self.max_len,
-                                lengths=full_lens)
+                                lengths=full_lens, mesh=self._model_axis)
             self._draft_k[:, slots_t] = dcache.k.to(self._draft_k.dtype)
             self._draft_v[:, slots_t] = dcache.v.to(self._draft_v.dtype)
         tok0 = sample_token(logits, keys, torch.zeros_like(lens), self.temperature,
@@ -1692,16 +1766,17 @@ class Engine:
                 _, _, logits = prefill_paged_cow(
                     self.params, self.cfg, ids_t, lens, starts_t,
                     upload(np.asarray(shared, np.int64), dev), pool.k, pool.v,
-                    read_t, upload(write_tables, dev))
+                    read_t, upload(write_tables, dev), mesh=self._model_axis)
             else:
                 _, _, logits = prefill_paged(self.params, self.cfg, ids_t, lens, pool.k, pool.v,
                                              upload(page_rows, dev),
-                                             start_lens=starts_t, read_tables=read_t)
+                                             start_lens=starts_t, read_tables=read_t,
+                                             mesh=self._model_axis)
         else:
             # an all-miss batch (or prefix off): no prefix to gather
             signature = (len(reqs), s0, s0_pages)
             _, _, logits = prefill_paged(self.params, self.cfg, ids_t, lens, pool.k, pool.v,
-                                         upload(page_rows, dev))
+                                         upload(page_rows, dev), mesh=self._model_axis)
         self._limit[upload(np.asarray(slots, np.int64), dev)] = \
             upload(limits, dev)
         if self.prefix_cache is not None:
@@ -1756,6 +1831,37 @@ class Engine:
         if tr.enabled and ts0 is not None:
             tr.complete("req/decode", ts0, cat="request", rid=rid, outcome=reason,
                         tokens=len(out), **self._obs_args)
+
+
+def rank_tree(tree, cfg: GPTConfig, mesh, placed: Dict[int, torch.Tensor]):
+    """This rank's block of a decode tree (or ``GPTLM``) on a serving mesh
+    (JAX's ``shard_params(params, mesh, gpt_tp_rules())``): every leaf cut
+    by ``sharding.shard_params`` in JAX's layout. The embedding's rows say
+    which tree it is: ``vocab`` rows, the whole tree, is cut; ``vocab / tp``
+    rows, this rank's block already (a fleet's shared placement), is kept;
+    any other count is refused. A leaf shared by identity (a draft carved
+    from the target) is cut once (``placed``). Without a mesh, or on a
+    one-rank one, the tree as it is."""
+    if isinstance(tree, torch.nn.Module):
+        tree = params_tree(tree)
+    tp = 1 if mesh is None else int(mesh.shape[MODEL_AXIS])
+    if tp == 1:
+        return tree
+    rows = int(tree["params"]["word_embeddings"]["embedding"].shape[0])
+    if rows * tp == cfg.vocab_size:
+        return tree
+    if rows != cfg.vocab_size:
+        raise ValueError(f"the embedding holds {rows} rows: neither the vocab "
+                         f"({cfg.vocab_size}) nor its block on one of tp={tp} ranks "
+                         f"({cfg.vocab_size // tp})")
+    rules = gpt_tp_rules()
+
+    def cut(path, leaf):
+        if id(leaf) not in placed:
+            placed[id(leaf)] = shard_params({path: leaf}, mesh, rules, jax_layout=True)[path]
+        return placed[id(leaf)]
+
+    return map_state(cut, tree)
 
 
 def _tree_to(tree, device, moved: Dict[int, torch.Tensor]):

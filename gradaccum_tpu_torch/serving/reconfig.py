@@ -14,7 +14,10 @@ Three kinds behind one :class:`ReconfigSpec`:
   ``num_blocks``. A GROW appends a block segment (``PagedCachePool.grow``)
   with no preemption and the prefix cache kept; a shrink preempts, parks
   and rebuilds. Shrinking below the largest in-flight reservation refuses
-  with a :class:`ReconfigError` carrying ``demand`` and ``supply``.
+  with a :class:`ReconfigError` carrying ``demand`` and ``supply``; on a
+  serving mesh, so does a count the model axis does not divide (JAX's
+  words). The appended segment and the rebuilt pool hold each rank's own
+  heads, as the pool they replace did: there is nothing to place again.
 - **checkpoint swap** (:func:`checkpoint_swap`): new weights from a
   checkpoint written by ``estimator/checkpoint.py :: save`` as
   ``{"params": decode_tree, "step": n}`` (restored with quarantine through
@@ -23,7 +26,10 @@ Three kinds behind one :class:`ReconfigSpec`:
   weights keep the swapped K/V; changed weights discard the swap records
   and clear the prefix cache, so no stream decodes new weights against old
   K/V. Without ``draft_params`` a speculative engine keeps its old draft
-  (a stale draft costs accept rate, never correctness).
+  (a stale draft costs accept rate, never correctness). On a serving mesh
+  every rank restores the whole tree (its template the whole tree,
+  gathered) and keeps its block; the weights-unchanged verdict compares
+  whole trees, so it reads as at tp=1.
 - **replica scale** (:func:`replica_drain`, :func:`replica_activate`,
   :func:`replica_excise`, :func:`replica_add`): fleet operations, applied
   by ``serving/replicated.py :: ReplicatedEngine.reconfigure``.
@@ -50,7 +56,7 @@ import torch
 
 from gradaccum_tpu_torch.resilience import faults
 from gradaccum_tpu_torch.serving.cache_pool import PagedCachePool
-from gradaccum_tpu_torch.serving.engine import _tree_to
+from gradaccum_tpu_torch.serving.engine import _tree_to, rank_tree
 
 POOL_RESIZE = "pool_resize"
 CHECKPOINT_SWAP = "checkpoint_swap"
@@ -253,6 +259,9 @@ def validate_pool_resize(engine, spec: ReconfigSpec) -> None:
         raise ReconfigError("pool_resize needs paged mode (the fixed pool's shape is "
                             "num_slots x max_len — there is no block count to resize)")
     nb = int(spec.num_blocks)
+    if engine.mesh is not None and nb % engine.tp:
+        raise ReconfigError(f"num_blocks {nb} not divisible by the model axis ({engine.tp}) "
+                            "— the paged pool shards its BLOCK axis")
     demand = _demand_blocks(engine)
     if nb < demand:
         raise ReconfigError(
@@ -276,7 +285,7 @@ def _pool_resize(engine, spec: ReconfigSpec) -> ReconfigResult:
         engine.prefix_cache.clear()
     pool = PagedCachePool(engine.cfg, len(engine._slot_req), engine.max_len,
                           engine.page_size, nb, prefix_cache=engine.prefix_cache,
-                          cache_dtype=engine.cache_dtype, device=engine.device)
+                          cache_dtype=engine.cache_dtype, device=engine.device, tp=engine.tp)
     if engine.admission_policy is not None and engine.admission_policy.mode != "reserve":
         pool.allow_overcommit = True
     engine.pool = pool
@@ -348,11 +357,13 @@ def as_tree(params):
 
 
 def _checkpoint_swap(engine, spec: ReconfigSpec) -> ReconfigResult:
+    whole = None  # the serving weights whole (gathered once on a mesh)
     if spec.params is not None:
         new_params = as_tree(spec.params)
     else:
+        whole = engine.whole_params()
         try:
-            new_params = restore_tree(spec.checkpoint, engine.params)
+            new_params = restore_tree(spec.checkpoint, whole)
         except restore_errors() as e:
             # a poisoned checkpoint is quarantined and the OLD weights keep
             # serving: a bad artifact never takes the fleet down
@@ -362,17 +373,23 @@ def _checkpoint_swap(engine, spec: ReconfigSpec) -> ReconfigResult:
     if spec.unchanged_hint is not None:
         unchanged = bool(spec.unchanged_hint)
     else:
-        unchanged = params_digest(engine.params) == params_digest(new_params)
+        if whole is None:
+            whole = engine.whole_params()
+        unchanged = params_digest(whole) == params_digest(new_params)
     _quiesce(engine)
     # changed weights: no stream may decode them against the old K/V
     preempted = _preempt_all(engine, keep_swap=unchanged)
     faults.fire(faults.MID_RECONFIG, 2 * engine._reconfig_count)
-    # a draft carved from the new weights shares their copies on the card
+    # a draft carved from the new weights shares their copies on the card;
+    # on a mesh each rank keeps its block of both
     moved: Dict[int, torch.Tensor] = {}
-    engine.params = _tree_to(new_params, engine.device, moved)
+    placed: Dict[int, torch.Tensor] = {}
+    engine.params = _tree_to(rank_tree(new_params, engine.cfg, engine.mesh, placed),
+                             engine.device, moved)
     draft_refreshed = False
     if spec.draft_params is not None and engine.speculate_k:
-        engine.draft_params = _tree_to(as_tree(spec.draft_params), engine.device, moved)
+        engine.draft_params = _tree_to(rank_tree(spec.draft_params, engine.draft_cfg,
+                                                 engine.mesh, placed), engine.device, moved)
         draft_refreshed = True
     if not unchanged and engine.prefix_cache is not None:
         # shared-prefix entries index K/V the OLD weights computed

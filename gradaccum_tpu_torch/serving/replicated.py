@@ -23,8 +23,18 @@ own KV pool and scheduler, behind the interface ``ServingServer`` and
 
 All replicas share the one card (``tp=None`` or ``tp=1``): one copy of the
 weights, one pool per replica, every tick on the current CUDA stream.
-``tp > 1`` (a serving mesh per replica) is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP.md item.
+
+``tp > 1`` runs every replica as a tensor-parallel engine
+(``Engine(mesh=serving_mesh(tp))``) over the first ``tp`` ranks of the
+process group, one process per rank: each process holds rank r's block of
+every replica, with one copy of its block of the weights shared by all of
+them, and each replica has a process group of its own (created in replica
+order on every rank), so replicas ticking on the thread pool never
+interleave their collectives. Dispatch (affinity, least load, the id
+lattice), supervision and the lease clock are host bookkeeping on the tick
+clock, identical on every rank under the engine's SPMD contract: every rank
+makes the same fleet calls in the same order. ``drain()`` submits nothing
+once its loops start, so it stays rank-identical too.
 """
 
 from __future__ import annotations
@@ -34,13 +44,15 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Set
 
 import numpy as np
+import torch.distributed as dist
 
 from gradaccum_tpu_torch.models.gpt import GPTConfig
 from gradaccum_tpu_torch.obs import trace as obs_trace
 from gradaccum_tpu_torch.obs.metrics import MetricsRegistry
+from gradaccum_tpu_torch.parallel.mesh import serving_mesh
 from gradaccum_tpu_torch.serving import fleet as fleet_lib
 from gradaccum_tpu_torch.serving import reconfig as reconfig_lib
-from gradaccum_tpu_torch.serving.engine import FLEET_ITEM, Engine, StepEvents, _tree_to
+from gradaccum_tpu_torch.serving.engine import Engine, StepEvents, _tree_to, rank_tree
 from gradaccum_tpu_torch.serving.metrics import ServingMetrics
 from gradaccum_tpu_torch.serving.scheduler import QueueFull, Request, Scheduler
 from gradaccum_tpu_torch.utils.platform import resolve_device
@@ -179,10 +191,14 @@ class ReplicatedEngine:
     """N data-parallel :class:`Engine` replicas behind one Engine-shaped
     interface, all on one card.
 
-    ``tp``: ``None`` (no mesh) or ``1`` (each replica a one-device model
-    axis, tagged ``model=1`` as JAX tags it); both put every replica on
-    ``device``, sharing one copy of the weights. ``tp > 1`` raises
-    ``NotImplementedError``. ``engine_kwargs`` go to every replica verbatim
+    ``tp``: ``None`` (no mesh) or ``1`` (each replica on a one-rank serving
+    mesh, tagged ``model=1`` as JAX tags it); both put every replica on
+    ``device``, sharing one copy of the weights. ``tp > 1``: every replica
+    a tensor-parallel engine over the ranks ``0..tp-1`` (module
+    docstring). JAX carves ``replicas x tp`` devices; in the port the
+    replicas share the ranks, as tp=1 replicas share the card, so the
+    process group needs ``tp`` ranks, and fewer raise JAX's
+    ``ValueError``. ``engine_kwargs`` go to every replica verbatim
     (num_slots, max_len, page_size, prefix_cache, ...); each replica gets its
     OWN scheduler (``scheduler_factory`` to customize) and its own
     :class:`ServingMetrics` on one shared registry with a ``replica`` label.
@@ -210,19 +226,20 @@ class ReplicatedEngine:
             if k in engine_kwargs:
                 raise ValueError(f"{k!r} is managed per replica — pass "
                                  "ReplicatedEngine-level knobs instead")
-        if tp is not None and int(tp) > 1:
-            raise NotImplementedError(f"ReplicatedEngine(tp={tp}) waits for {FLEET_ITEM}")
         self.cfg = cfg
-        self.tp = tp
+        self.tp = None if tp is None else int(tp)
         self.device = resolve_device(device)
-        # one copy of the weights on the card for every replica (and a draft
-        # carved from them shares their copies): Engine leaves a tensor that
-        # is already on its device in place
+        meshes = [self._mesh_for(i, replicas) for i in range(replicas)]
+        # one copy of the weights (this rank's block of them on a mesh) on
+        # the card for every replica, and a draft carved from them shares
+        # their copies: Engine keeps a placed tree that is on its device
         moved: Dict[int, object] = {}
-        params = _tree_to(reconfig_lib.as_tree(params), self.device, moved)
+        placed: Dict[int, object] = {}
+        params = _tree_to(rank_tree(params, cfg, meshes[0], placed), self.device, moved)
         if engine_kwargs.get("draft_params") is not None:
             engine_kwargs["draft_params"] = _tree_to(
-                reconfig_lib.as_tree(engine_kwargs["draft_params"]), self.device, moved)
+                rank_tree(engine_kwargs["draft_params"], engine_kwargs.get("draft_cfg", cfg),
+                          meshes[0], placed), self.device, moved)
         self._tracer = tracer
         # an attached obs sentinel gets one heartbeat PER REPLICA per clean
         # replica tick (from step()): a replica whose ticks keep faulting
@@ -237,7 +254,7 @@ class ReplicatedEngine:
         self._scheduler_factory = scheduler_factory
         self._latency_window = latency_window
         for i in range(replicas):
-            self.replicas.append(self._build(params, i, i, replicas))
+            self.replicas.append(self._build(params, i, i, replicas, meshes[i]))
         self.results = _FleetDict(self, "results")
         self.status = _FleetDict(self, "status")
         self._tick = 0
@@ -283,17 +300,31 @@ class ReplicatedEngine:
             max_workers=replicas, thread_name_prefix="serving-replica")
             if replicas > 1 else None)
 
-    def _build(self, params, idx: int, id_start: int, id_stride: int) -> Engine:
+    def _mesh_for(self, i: int, total: int):
+        """Replica ``i``'s serving mesh (the same rule at construction and
+        at live ADD): none for ``tp=None``, a one-rank mesh for ``tp=1``,
+        else a mesh of its own over the ranks ``0..tp-1``. Every rank must
+        build the replicas in the same order (``dist.new_group``)."""
+        tp = self.tp
+        if tp is None:
+            return None
+        if tp == 1:
+            return serving_mesh(1)
+        world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        if tp > world:
+            raise ValueError(f"replicas={total} x tp={tp} needs {tp} devices, have {world} "
+                             f"(the port's replicas share the ranks 0..{tp - 1}, as tp=1 "
+                             "replicas share the card)")
+        return serving_mesh(tp, devices=range(tp))
+
+    def _build(self, params, idx: int, id_start: int, id_stride: int, mesh) -> Engine:
         """Replica ``idx`` as construction builds it (and live ADD too)."""
         sched = self._scheduler_factory() if self._scheduler_factory is not None else Scheduler()
-        eng = Engine(params, self.cfg, replica_id=idx, id_start=id_start,
-                     id_stride=id_stride, scheduler=sched,
-                     metrics=ServingMetrics(registry=self.registry, replica_id=idx,
-                                            latency_window=self._latency_window),
-                     tracer=self._tracer, device=self.device, **self._engine_kwargs)
-        if self.tp == 1:
-            eng._obs_args["mesh"] = "model=1"
-        return eng
+        return Engine(params, self.cfg, mesh=mesh, replica_id=idx, id_start=id_start,
+                      id_stride=id_stride, scheduler=sched,
+                      metrics=ServingMetrics(registry=self.registry, replica_id=idx,
+                                             latency_window=self._latency_window),
+                      tracer=self._tracer, device=self.device, **self._engine_kwargs)
 
     def _fleet_clock(self) -> float:
         """Lease clock = the fleet's furthest tick. Advances while any
@@ -371,17 +402,20 @@ class ReplicatedEngine:
 
     def obs_tags(self) -> dict:
         tags = {"replicas": len(self.replicas)}
-        if self.tp == 1:
-            tags["mesh"] = "model=1"
+        mesh = self.replicas[0].mesh
+        if mesh is not None:
+            tags["mesh"] = ",".join(f"{n}={mesh.shape[n]}" for n in mesh.axis_names)
         return tags
 
     def manifest(self) -> dict:
         """Fleet shape for the export manifest: replica count, mesh axes,
         and every replica's full knob set (per-replica paging included)."""
+        mesh = self.replicas[0].mesh
         return {
             "replicas": len(self.replicas),
             "tp": self.tp,
-            "mesh": {"model": 1} if self.tp == 1 else None,
+            "mesh": (None if mesh is None
+                     else {n: int(mesh.shape[n]) for n in mesh.axis_names}),
             # fleet-level healer policy (ServingServer sets it when a
             # Healer is attached) — one ladder governs every replica
             "healer": getattr(self, "healer_knobs", None),
@@ -790,13 +824,15 @@ class ReplicatedEngine:
         via ``request_reconfig(reconfig.replica_add())``."""
         idx = len(self.replicas)
         total = idx + 1
+        mesh = self._mesh_for(idx, total)
         base = max(e._next_id for e in self.replicas)
         # smallest rid >= base owned by each lattice position under the
         # widened modulus; rebase BEFORE the new engine exists so no old
         # engine can issue below the new generation's base
         for j, e in enumerate(self.replicas):
             e.rebase_ids(base + ((j - base) % total), total)
-        eng = self._build(self.replicas[0].params, idx, base + ((idx - base) % total), total)
+        eng = self._build(self.replicas[0].params, idx, base + ((idx - base) % total), total,
+                          mesh)
         self.replicas.append(eng)
         self._generations.append((base, total))
         self._warmup[idx] = 0
@@ -970,10 +1006,12 @@ class ReplicatedEngine:
                          **self.obs_tags())
             return result
         if spec.kind == reconfig_lib.CHECKPOINT_SWAP:
+            lead = self.replicas[0]
+            whole = None  # the serving weights whole (one gather on a mesh)
             if spec.checkpoint is not None:
+                whole = lead.whole_params()
                 try:
-                    new_params = reconfig_lib.restore_tree(spec.checkpoint,
-                                                           self.replicas[0].params)
+                    new_params = reconfig_lib.restore_tree(spec.checkpoint, whole)
                 except reconfig_lib.restore_errors() as exc:
                     # one quarantine decision for the whole fleet: every
                     # replica keeps serving the old weights
@@ -984,26 +1022,30 @@ class ReplicatedEngine:
                 spec = reconfig_lib.checkpoint_swap(params=new_params,
                                                     draft_params=spec.draft_params,
                                                     initiator=spec.initiator)
-            # onto the card once: every replica takes the same copy
+            if spec.unchanged_hint is None:
+                # hash the weights ONCE for the whole fleet (replicas carry
+                # identical params), whole trees on a mesh as at tp=1
+                if whole is None:
+                    whole = lead.whole_params()
+                spec = dataclasses.replace(spec, unchanged_hint=(
+                    reconfig_lib.params_digest(whole)
+                    == reconfig_lib.params_digest(reconfig_lib.as_tree(spec.params))))
+            # onto the card once (this rank's block on a mesh): every
+            # replica takes the same copy
             moved: Dict[int, object] = {}
+            placed: Dict[int, object] = {}
             spec = dataclasses.replace(
-                spec, params=_tree_to(reconfig_lib.as_tree(spec.params), self.device, moved),
+                spec, params=_tree_to(rank_tree(spec.params, self.cfg, lead.mesh, placed),
+                                      self.device, moved),
                 draft_params=(None if spec.draft_params is None else _tree_to(
-                    reconfig_lib.as_tree(spec.draft_params), self.device, moved)))
+                    rank_tree(spec.draft_params, lead.draft_cfg or self.cfg, lead.mesh,
+                              placed), self.device, moved)))
         if spec.kind == reconfig_lib.POOL_RESIZE:
             # refuse BEFORE any replica mutates: a mid-loop refusal
             # (one replica's demand above the new size) must never tear
             # the fleet into mixed block counts
             for i in self.active_replicas:
                 reconfig_lib.validate_pool_resize(self.replicas[i], spec)
-        elif (spec.kind == reconfig_lib.CHECKPOINT_SWAP
-                and spec.unchanged_hint is None):
-            # hash the weights ONCE for the whole fleet (replicas carry
-            # identical params) instead of 2 digests per replica under
-            # quiesced traffic
-            spec = dataclasses.replace(spec, unchanged_hint=(
-                reconfig_lib.params_digest(self.replicas[0].params)
-                == reconfig_lib.params_digest(spec.params)))
         per = [self.replicas[i].reconfigure(spec)
                for i in self.active_replicas]
         ok = all(r.ok for r in per)

@@ -38,6 +38,13 @@ watchdog window, heartbeat and fault budget. A ``healer``
 (``resilience/healer.py``) is polled on the loop thread(s) next to the
 sentinel's checks; its rungs act through ``request_recover`` and
 ``request_reconfig``.
+
+A server over a multi-rank serving mesh (an ``Engine`` whose ``mesh`` has
+``model`` wider than 1, or a ``ReplicatedEngine(tp > 1)``) is not ported:
+its client threads reach rank 0 alone, and the other ranks would need every
+tick's submits, cancels and reconfigurations from it (a leader/follower
+protocol that JAX's single process never needed). It raises
+``NotImplementedError`` naming :data:`MESH_SERVER_ITEM`.
 """
 
 from __future__ import annotations
@@ -58,6 +65,16 @@ from gradaccum_tpu_torch.serving.engine import Engine
 from gradaccum_tpu_torch.serving.scheduler import QueueFull
 
 _DONE = object()  # sentinel closing a handle's token stream
+
+MESH_SERVER_ITEM = ("ROADMAP.md item 5j: the server over a multi-rank serving mesh "
+                    "(rank 0 broadcasts each tick's commands, the other ranks apply them)")
+
+
+def _mesh_width(engine) -> int:
+    """The widest model axis among ``engine`` and its replicas (1 without a
+    mesh)."""
+    engines = getattr(engine, "replicas", None) or [engine]
+    return max(getattr(e, "tp", 1) for e in engines)
 
 
 class StreamHandle:
@@ -219,6 +236,10 @@ class ServingServer:
                  flight=None, sentinel=None, slo=None, healer=None,
                  telemetry_port: Optional[int] = None, telemetry_host: str = "127.0.0.1",
                  free_running: bool = False):
+        if _mesh_width(engine) > 1:
+            raise NotImplementedError(
+                f"ServingServer over a serving mesh of model={_mesh_width(engine)} (free_running="
+                f"{bool(free_running)}) waits for {MESH_SERVER_ITEM}")
         self._engine = engine
         self._flight = flight
         self._sentinel = sentinel
@@ -671,6 +692,8 @@ class ServingServer:
         }
         if engine.replica_id is not None:
             out["replica_id"] = engine.replica_id
+        if engine.mesh is not None:
+            out["mesh"] = {n: int(engine.mesh.shape[n]) for n in engine.mesh.axis_names}
         if engine.paged:
             out["free_kv_blocks"] = pool.free_blocks
             out["num_kv_blocks"] = pool.num_blocks

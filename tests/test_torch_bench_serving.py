@@ -6,8 +6,11 @@ every key of JAX's committed ``BENCH_serving.json`` and ``BENCH_paged.json``
 (the structure JAX's slow-lane ``test_bench_serving_fast_sweep`` and
 ``test_bench_paged_fast`` check), plus the port's TTFT on the tick clock
 and KV bytes per token in flight. ``--prefix`` runs (the keys of JAX's
-``BENCH_prefix.json``, and its acceptance passes); ``--mesh`` raises; without
-``--device cpu`` it raises here, where there is no card.
+``BENCH_prefix.json``, and its acceptance passes); ``--mesh`` runs (the keys
+of JAX's ``BENCH_serving_mp.json``, the replica curve [1, 2], the tp=2 leg in
+two spawned gloo ranks with exact parity and one tick signature; JAX's 1.5x
+replica term is read, not asserted, as JAX's ``test_bench_mesh_fast`` does);
+without ``--device cpu`` it raises here, where there is no card.
 """
 
 import json
@@ -71,8 +74,8 @@ def test_paged_legs_at_fast_shapes(capsys):
 
 
 @pytest.mark.parametrize("flag", ["--prefix", "--mesh"])
-def test_later_comparisons_raise(flag, capsys):
-    """``--mesh`` waits for item 5i; ``--prefix`` has landed and runs."""
+def test_later_comparisons_raise(flag, capsys, tmp_path):
+    """Both comparisons have landed and run: ``--prefix`` and ``--mesh``."""
     if flag == "--prefix":
         result = bench_serving.main([flag, "--fast", "--device", "cpu"])
         _keys_cover(result, json.loads((REPO / "BENCH_prefix.json").read_text()))
@@ -85,8 +88,18 @@ def test_later_comparisons_raise(flag, capsys):
         assert on["prefix_hit_rate"] > 0 and on["blocks_saved"] > 0 and off["blocks_saved"] == 0
         assert on["kv_pool_bytes"] == off["kv_pool_bytes"]
         return
-    with pytest.raises(NotImplementedError, match="item 5i"):
-        bench_serving.main([flag, "--fast", "--device", "cpu"])
+    out = tmp_path / "BENCH_serving_mp.json"
+    result = bench_serving.main([flag, "--fast", "--device", "cpu", "--out", str(out)])
+    assert json.loads(out.read_text()) == json.loads(json.dumps(result))
+    _keys_cover(result, json.loads((REPO / "BENCH_serving_mp.json").read_text()))
+    assert [s["replicas"] for s in result["scaling"]] == [1, 2]
+    for leg in result["scaling"]:
+        assert leg["tokens_per_s"] > 0
+        assert all(c <= 1 for c in leg["decode_programs_per_replica"])
+    assert result["tp"]["parity"] is True and result["tp"]["decode_programs"] == 1
+    assert result["tp"]["tp"] == 2 and result["tp"]["tokens_per_s"] > 0
+    assert result["dp_speedup_at_2"] > 0
+    assert [leg["leg"] for leg in _legs(capsys)] == ["dp", "dp", "tp"]
 
 
 def test_raises_without_a_card():

@@ -540,7 +540,10 @@ def test_free_running_add_replica_serves(lm):
 
 
 def test_tp_above_one_names_the_serving_mesh(lm):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 5g, second half"):
+    """tp=2 needs a process group of two ranks (JAX's words, adapted to
+    ranks); the multi-rank fleet itself runs in
+    ``tests/test_torch_serving_mesh.py``."""
+    with pytest.raises(ValueError, match=r"replicas=2 x tp=2 needs 2 devices, have 1"):
         _free_fleet(lm, replicas=2, tp=2, num_slots=2, max_len=32)
 
 

@@ -88,7 +88,9 @@ NEW_MODULES = ("obs", "obs.trace", "obs.metrics", "obs.flight", "resilience",
                "serving.reconfig", "serving.fleet", "serving.replicated",
                "examples.bench_reconfig", "examples.bench_fleet",
                # the self-healing ladder
-               "resilience.healer", "examples.bench_heal", "examples.chaos_smoke")
+               "resilience.healer", "examples.bench_heal", "examples.chaos_smoke",
+               # the serving mesh
+               "examples.serving_smoke")
 
 
 # a bfloat16 pool's K/V through the host store and the disk rung, with

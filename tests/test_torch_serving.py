@@ -45,6 +45,7 @@ from gradaccum_tpu_torch.models import gpt_decode as tdec
 from gradaccum_tpu_torch.obs import trace as ttrace
 from gradaccum_tpu_torch.obs.sentinel import Sentinel
 from gradaccum_tpu_torch.obs.slo import SLOEvaluator, default_serving_objectives
+from gradaccum_tpu_torch.parallel.mesh import serving_mesh
 from gradaccum_tpu_torch.resilience import faults as tfaults
 from gradaccum_tpu_torch.serving import (
     CachePool,
@@ -542,7 +543,7 @@ REFUSED = {
     "swap_max_bytes": (dict(swap_max_bytes=1 << 20), None),
     "victim_score": (dict(victim_score="deadline"), None),
     "int8": (dict(page_size=4, cache_dtype=torch.int8), None),
-    "mesh": (dict(mesh=object()), "5g"),
+    "mesh": (dict(mesh=serving_mesh(1)), None),
 }
 
 
@@ -553,6 +554,8 @@ def test_engine_knobs_of_later_items_raise(lm, knob):
         engine = _landed_engine(lm, kw)
         if knob == "int8":
             assert engine.manifest()["cache_dtype"] == "int8"
+        elif knob == "mesh":
+            assert engine.manifest()["mesh"] == {"model": 1}
         else:
             assert engine.manifest()[knob] == kw[knob]
         return

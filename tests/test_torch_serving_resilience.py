@@ -39,6 +39,7 @@ from gradaccum_tpu_torch.interop import params_from_jax, params_tree
 from gradaccum_tpu_torch.models import gpt as tgpt
 from gradaccum_tpu_torch.models import gpt_decode as tdec
 from gradaccum_tpu_torch.obs import trace as ttrace
+from gradaccum_tpu_torch.parallel.mesh import serving_mesh
 from gradaccum_tpu_torch.resilience import faults as tfaults
 from gradaccum_tpu_torch.serving import (
     Engine,
@@ -683,6 +684,12 @@ def _healer_served(engine):
     return True
 
 
+def _refused(error, words, call):
+    with pytest.raises(error, match=words):
+        call()
+    return True
+
+
 @pytest.mark.parametrize("call,item", [
     (_healer_served, None),
     (lambda e: ServingServer(e, free_running=True)._free_running is False, None),
@@ -694,17 +701,24 @@ def _healer_served(engine):
     (lambda e: _served(e, lambda s: s.reconfigure(_grow(e), timeout=WAIT).ok), None),
     (lambda e: e.reconfigure(_grow(e)).ok, None),
     (_remediation_grows, None),
-    (lambda e: ReplicatedEngine(e.params, e.cfg, replicas=2, tp=2, device="cpu"),
-     "5g, second half"),
-    (lambda e: Engine(e.params, e.cfg, device="cpu", mesh=object()), "5g, second half"),
+    (lambda e: _refused(ValueError, "replicas=2 x tp=2 needs 2 devices, have 1",
+                        lambda: ReplicatedEngine(e.params, e.cfg, replicas=2, tp=2,
+                                                 device="cpu")), None),
+    (lambda e: Engine(e.params, e.cfg, device="cpu", mesh=serving_mesh(1),
+                      num_slots=1, max_len=8).manifest()["mesh"] == {"model": 1}, None),
+    (lambda e: ServingServer(types.SimpleNamespace(tp=2)), "5j"),
 ], ids=["healer", "free_running", "replicas", "request_reconfig", "server_reconfigure",
-        "engine_reconfigure", "remediation_reconfig", "replicated_tp2", "engine_mesh"])
+        "engine_reconfigure", "remediation_reconfig", "replicated_tp2", "engine_mesh",
+        "server_over_mesh"])
 def test_remaining_refusals_name_their_item(lm, call, item):
     """The refusals that remain name their ROADMAP.md item; the calls whose
     item has landed (item None) run: a server with a healer starts and stops,
     a single engine with ``free_running`` falls back to lockstep, a fleet
     serves, and live reconfiguration runs through the engine, the server and
-    a remediation."""
+    a remediation. The serving mesh has landed: a tp=2 fleet in one process
+    is refused for want of ranks (JAX's words), an engine takes a one-rank
+    mesh, and a server over a multi-rank mesh (an engine of model=2 stands in
+    for it here) names its item."""
     engine = _engine(lm, num_slots=1, max_len=8, page_size=4)
     if item is None:
         assert call(engine)
