@@ -390,6 +390,25 @@ Phases, each of which fails the run if it fails:
     and one tick signature (the bench's 1.5x replica term reads host
     threads on one card, printed, not gated). No flash kernel launches,
     here or on the ranks.
+31. the server over the serving mesh and the operator tools: two gloo
+    ranks share the card (``python3 chip_smoke.py --mesh-server-rank
+    DIR``), GPT-Small f32 at vocab 50304 as in phase 30; rank 0 runs
+    ``ServingServer`` and rank 1 ``follow()``s it. (a) The lockstep server
+    over ``Engine(mesh=serving_mesh(2))``: 6 client threads submit phase
+    30's trace, greedy (paged) and sampled (fixed pool). (b) One server
+    with a seeded ``MID_DECODE_TICK`` crash recovered and requeued through
+    it and a pool grow through ``server.reconfigure``, traced, with a
+    flight recorder. (c) The free-running server over
+    ``ReplicatedEngine(replicas=2, tp=2)`` on the trace. Every stream
+    against phase 30's one-process streams under the near-tie rule, both
+    ranks stopped cleanly. Then, once the tools are done, the ms per tick
+    through the server with 8 slots decoding against phase 30's engine
+    alone, and the commands and host ms of each control exchange. (d)
+    ``bench_mixed`` and ``bench_obs`` on the card, in processes of their
+    own beside the ranks, into ``chiprun_out/chip_smoke_tools/``; both
+    acceptances printed; then ``obs_report`` over (b)'s trace and flight
+    dumps and ``bench_trend --dir`` over that directory, both exiting 0.
+    No flash kernel launches.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON line describing every kernel in each dtype (bfloat16: launches
@@ -6523,6 +6542,350 @@ def phase_serving_mesh():
         prev = at
     print(f"[mesh] flash launches {dict(counts)} here and on the ranks; phase 30 took "
           f"{time.perf_counter() - t0:.1f} s ({', '.join(parts)})")
+    return dict(params=params, cfg=cfg, trace=trace, greedy=greedy, sampled=sampled,
+                prompts=prompts, calm=calm, tp2_ms=two["ms_per_tick"])
+
+
+# --------------------------------------------------------------------------
+# phase 31: the server over the serving mesh, and the operator tools
+# --------------------------------------------------------------------------
+
+SERVER_DIR = os.path.join(ROOT, "build", "chip_smoke_mesh_server")
+TOOLS_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke_tools")  # the tools' artifacts
+SERVER_CLIENTS = 6
+SERVER_WAIT = 240  # seconds a handle may take
+SERVER_GO = "timing_go"  # the tools are done: the timing window has the card
+
+
+def _mesh_trace():
+    """Phase 30's seeded trace (SimulationDriver's draws need no engine)."""
+    import types
+
+    from gradaccum_tpu_torch.serving import SimulationDriver
+
+    return SimulationDriver.make_trace(types.SimpleNamespace(seed=MESH_SEED),
+                                       vocab_size=MESH_IDS, **MESH_TRACE)
+
+
+def _clients(server, jobs):
+    """``jobs`` of ``(prompt, max_new, rng_seed)`` submitted by
+    SERVER_CLIENTS threads; the streams in job order."""
+    import threading
+
+    out, errors = [None] * len(jobs), []
+
+    def work(k):
+        try:
+            hs = [(i, server.submit(jobs[i][0], jobs[i][1], rng_seed=jobs[i][2]))
+                  for i in range(k, len(jobs), SERVER_CLIENTS)]
+            for i, h in hs:
+                tokens, reason = h.result(timeout=SERVER_WAIT)
+                check(reason == "length", f"[server] request {i} ended {reason}")
+                out[i] = [int(t) for t in tokens]
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(SERVER_CLIENTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _served(server, rank, body):
+    """Rank 0 starts ``server`` and returns ``body(server)``; rank 1 follows
+    until rank 0 stops it."""
+    if rank != 0:
+        server.follow()
+        return None
+    server.start()
+    try:
+        return body(server)
+    finally:
+        server.stop()
+
+
+def _server_timing(server, engine):
+    """8 slots decoding (prompts of 64, 180 new) through the running
+    server: the wall ms per tick over MESH_TICKS ticks after the admission
+    and one warm tick, from the starts of the loop's ``step`` calls (each
+    tick's control exchange is inside the period)."""
+    import numpy as np
+
+    starts, step = [], engine.step
+
+    def timed():
+        starts.append(time.perf_counter())
+        return step()
+
+    engine.step = timed
+    rng = np.random.default_rng(SERVE_SEED + 31)
+    for i in range(8):
+        server.submit(rng.integers(0, MESH_IDS, 64).astype(np.int32), 180, rng_seed=i)
+    deadline = time.monotonic() + SERVER_WAIT
+    while len(starts) < MESH_TICKS + 3:
+        check(time.monotonic() < deadline, "[server] the timing window never filled")
+        time.sleep(0.01)
+    engine.step = step
+    return 1e3 * (starts[MESH_TICKS + 2] - starts[2]) / MESH_TICKS
+
+
+def _mesh_server_rank(outdir):
+    """One rank of phase 31 (``--mesh-server-rank``): rank 0 serves, rank 1
+    follows. Legs (a)-(c) run beside the tools; the timing window waits for
+    SERVER_GO. Each rank writes what it saw."""
+    import torch
+
+    from gradaccum_tpu_torch.obs import flight as obs_flight
+    from gradaccum_tpu_torch.obs import trace as obs_trace
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+    from gradaccum_tpu_torch.parallel import mesh as mesh_lib
+    from gradaccum_tpu_torch.resilience import faults
+    from gradaccum_tpu_torch.serving import Engine, ReplicatedEngine, ServingServer, reconfig
+
+    info = mesh_lib.initialize_multihost(device="cuda:0", backend="gloo", timeout_s=300)
+    rank = info["process_index"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out, t = {"marks": []}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        out["marks"].append([name, now - t[0]])
+        t[0] = now
+
+    try:
+        with torch.no_grad():
+            cfg, params = _mesh_model()
+            fa.reset_launch_counts()
+            mark("start-up and model")
+            trace = _mesh_trace()
+            jobs = [(item.prompt, item.max_new_tokens, item.rng_seed) for item in trace]
+            control = []
+
+            def engine(**kw):
+                return Engine(params, cfg, mesh=mesh_lib.serving_mesh(MESH_TP), **kw)
+
+            def lockstep(e, jobs=jobs, **kw):
+                server = ServingServer(e, **kw)
+                got = _served(server, rank, lambda s: _clients(s, jobs))
+                control.append(server.control_stats())
+                return got
+
+            # (a) greedy (paged) and sampled (fixed pool) through the lockstep server
+            out["greedy"] = lockstep(engine(**MESH_ENGINE, **MESH_PAGE))
+            out["sampled"] = lockstep(engine(**MESH_ENGINE, **SERVE_SAMPLING))
+            mark("(a)")
+            # (b) a seeded crash and a pool grow through one traced server
+            prompts = _mesh_prompts()
+            e = engine(**MESH_ENGINE, **MESH_PAGE)
+            tracer = obs_trace.Tracer(capacity=None)
+            server = ServingServer(e, max_requeues=1,
+                                   flight=obs_flight.FlightRecorder(TOOLS_DIR, tracer=tracer)
+                                   if rank == 0 else None)
+            injector = faults.FaultInjector(faults.FaultSchedule([faults.FaultSpec(
+                faults.MID_DECODE_TICK, at=MESH_AT, kind=faults.KIND_CRASH)]))
+
+            def faulted(s):
+                handles = [s.submit(p, MESH_NEW, rng_seed=i) for i, p in enumerate(prompts)]
+                grow = s.reconfigure(reconfig.pool_resize(MESH_GROW), timeout=SERVER_WAIT)
+                streams = []
+                for h in handles:
+                    tokens, reason = h.result(timeout=SERVER_WAIT)
+                    check(reason == "length", f"[server] (b) a request ended {reason}")
+                    streams.append([int(x) for x in tokens])
+                return dict(streams=streams, grow=grow.to_dict())
+
+            with faults.installed(injector), obs_trace.installed(tracer):
+                out["faulted"] = _served(server, rank, faulted)
+            control.append(server.control_stats())
+            out["fired"] = len(injector.fired)
+            out["blocks"] = e.num_blocks
+            if rank == 0:
+                tracer.export(os.path.join(TOOLS_DIR, "mesh_server_trace.json"))
+            mark("(b)")
+            # (c) the free-running fleet of two tp=2 replicas
+            fleet = ReplicatedEngine(params, cfg, replicas=2, tp=MESH_TP, **MESH_ENGINE,
+                                     **MESH_PAGE)
+            server = ServingServer(fleet, free_running=True)
+            out["free"] = _served(server, rank, lambda s: _clients(s, jobs))
+            control.append(server.control_stats())
+            out["free_left"] = sum(len(r.results) for r in fleet.replicas)
+            fleet.close()
+            mark("(c)")
+            _wait_for(outdir, SERVER_GO)
+            mark("waiting for the tools")
+            e = engine(**MESH_ENGINE, **MESH_PAGE)
+            server = ServingServer(e)
+            out["server_ms_per_tick"] = _served(server, rank,
+                                                lambda s: _server_timing(s, e))
+            mark("timing through the server")
+            if rank == 0:
+                out["control"] = {k: sum(c[k] for c in control)
+                                  for k in ("exchanges", "commands", "host_s")}
+            out["flash"] = fa.launch_counts()
+        with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        mesh_lib.shutdown()
+    if rank == 0:
+        print(json.dumps({"ok": True}))
+    return 0
+
+
+def _mesh_refs():
+    """Phase 30's one-process references, for phase 31 run alone."""
+    import torch
+
+    from gradaccum_tpu_torch.serving import Engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        cfg, params = _mesh_model()
+        trace, greedy, _ = _mesh_records(Engine(params, cfg, **MESH_ENGINE, **MESH_PAGE),
+                                         "tp=1 greedy")
+        _, sampled, _ = _mesh_records(Engine(params, cfg, **MESH_ENGINE, **SERVE_SAMPLING),
+                                      "tp=1 sampled")
+        prompts = _mesh_prompts()
+        calm = _mesh_drive(Engine(params, cfg, **MESH_ENGINE, **MESH_PAGE), prompts,
+                           MESH_NEW)[0]
+    return dict(params=params, cfg=cfg, trace=trace, greedy=greedy, sampled=sampled,
+                prompts=prompts, calm=calm, tp2_ms=None)
+
+
+def phase_mesh_server(refs=None):
+    """Phase 31: the server over a multi-rank serving mesh on the card,
+    against phase 30's one-process streams (``refs``, computed here when
+    the phase runs alone), and the operator tools beside it."""
+    from gradaccum_tpu_torch.examples import bench_trend, obs_report
+    from gradaccum_tpu_torch.examples.common import spawn_ranks
+    from gradaccum_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    shutil.rmtree(SERVER_DIR, ignore_errors=True)
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    os.makedirs(SERVER_DIR)
+    os.makedirs(TOOLS_DIR)
+    smi = _smi()
+    print(f"[server] on {smi}")
+    # the tools run beside the ranks' start-up and legs; the timing window
+    # waits for them
+    tools = {
+        "bench_mixed": [sys.executable, "-m", "gradaccum_tpu_torch.examples.bench_mixed",
+                        "--device", "cuda", "--steps", "8",
+                        "--out", os.path.join(TOOLS_DIR, "BENCH_mixed.json")],
+        "bench_obs": [sys.executable, "-m", "gradaccum_tpu_torch.examples.bench_obs",
+                      "--device", "cuda", "--repeats", "3", "--requests", "48",
+                      "--train-steps", "100", "--json", os.path.join(TOOLS_DIR, "BENCH_obs.json")],
+    }
+    procs = {name: subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name, cmd in tools.items()}
+    ranks_done = _in_background(lambda: spawn_ranks(
+        "chip_smoke", ["--mesh-server-rank", SERVER_DIR], MESH_TP, "cuda", deadline_s=300))
+    logs, signalled = {}, False
+    try:
+        if refs is None:
+            refs = _mesh_refs()
+        marks = [("references", time.perf_counter())]
+        for name, proc in procs.items():
+            logs[name] = proc.communicate(timeout=300)[0]
+        marks.append(("bench_mixed and bench_obs", time.perf_counter()))
+        _signal_in(SERVER_DIR, SERVER_GO, True)
+        signalled = True
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if not signalled:
+            _signal_in(SERVER_DIR, SERVER_GO, False)
+            try:
+                ranks_done()
+            except Exception:  # noqa: BLE001 — the parent's own error is the one to report
+                pass
+    try:
+        ranks_done()
+    except RuntimeError as e:
+        raise SmokeError(f"[server] the two ranks: {e}") from None
+    marks.append(("the ranks", time.perf_counter()))
+    ranks = []
+    for r in range(MESH_TP):
+        with open(os.path.join(SERVER_DIR, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    got, follower = ranks
+    params, cfg, trace = refs["params"], refs["cfg"], refs["trace"]
+    cases = []
+    prompts_a = [item.prompt for item in trace]
+    _against("[server] (a) greedy", params, cfg, prompts_a, got["greedy"], refs["greedy"], cases)
+    for item, g, w in zip(trace, got["sampled"], refs["sampled"]):
+        _near_tie_sampled("(a) sampled through the server", params, cfg, item, g, w, cases)
+    b = got["faulted"]
+    check(got["fired"] == follower["fired"] == 1, f"[server] (b) the crash fired "
+                                                  f"{got['fired']}/{follower['fired']} times")
+    check(b["grow"]["ok"] and b["grow"]["preempted"] == 0
+          and got["blocks"] == follower["blocks"] == MESH_GROW,
+          f"[server] (b) grow {b['grow']}, blocks {got['blocks']}/{follower['blocks']}")
+    _against("[server] (b) recovered and grown", params, cfg, refs["prompts"], b["streams"],
+             refs["calm"], cases)
+    _against("[server] (c) free-running fleet", params, cfg, prompts_a, got["free"],
+             refs["greedy"], cases)
+    check(got["free_left"] == follower["free_left"] == 0,
+          f"[server] (c) results left {got['free_left']}/{follower['free_left']}")
+    check(not any(got["flash"].values()) and not any(follower["flash"].values())
+          and not any(fa.launch_counts().values()), "[server] flash kernels launched")
+    ctl = got["control"]
+    per_exchange_ms = 1e3 * ctl["host_s"] / ctl["exchanges"]
+    print(f"[server] (a)-(c) GPT-Small f32 at vocab {MESH_VOCAB}, tp=2 over two gloo ranks on "
+          f"{smi}: {SERVER_CLIENTS} client threads, greedy {len(trace)} and sampled "
+          f"{len(trace)} through the lockstep server, {len(refs['prompts'])} through a crash "
+          f"at tick {MESH_AT} and a grow to {MESH_GROW} blocks, {len(trace)} through the "
+          f"free-running fleet of two: every stream the one process's, {len(cases)} near "
+          f"ties; both ranks stopped")
+    alone = refs["tp2_ms"]
+    print(f"[server] on {smi}: tp=2 through the server {got['server_ms_per_tick']:.2f} ms/tick "
+          f"wall (8 slots, block {MESH_ENGINE['decode_block']}) against "
+          + (f"{alone:.2f} for the engine alone (phase 30)" if alone is not None
+             else "the engine alone: phase 30 not run")
+          + f"; {ctl['commands'] / ctl['exchanges']:.2f} commands per exchange over "
+          f"{ctl['exchanges']} exchanges, {per_exchange_ms:.3f} host ms each")
+    for name, log in logs.items():
+        check(procs[name].returncode == 0, f"[server] (d) {name} failed:\n{log[-3000:]}")
+    with open(os.path.join(TOOLS_DIR, "BENCH_mixed.json")) as f:
+        mixed = json.load(f)
+    with open(os.path.join(TOOLS_DIR, "BENCH_obs.json")) as f:
+        obs = json.load(f)
+    steps = ", ".join(f"{r['config']} {r['opt_plus_accum_bytes_per_param']:g} B/param "
+                      f"{r['step_time_ms_median']} ms" for r in mixed["rows"])
+    print(f"[server] (d) bench_mixed on {smi}: {mixed['headline']}; {steps} (beside the "
+          f"ranks); acceptance passed={mixed['acceptance']['passed']}")
+    print(f"[server] (d) bench_obs on {smi}: {obs['headline']}; serve "
+          f"{1e3 * obs['serve']['baseline_s_per_tick']:.3f} ms/tick, train "
+          f"{1e3 * obs['train']['baseline_s_per_step']:.3f} ms/step (beside the ranks); "
+          f"acceptance passed={obs['acceptance']['passed']}")
+    rc = obs_report.main([TOOLS_DIR])
+    events, n_files = obs_report.collect(TOOLS_DIR)
+    rep = obs_report.report(events)
+    check(rc == 0 and rep["faults"], f"[server] (d) obs_report exit {rc}, faults {rep['faults']}")
+    effects = [(fx["effect"] or {}).get("name") for fx in rep["faults"]]
+    print(f"[server] (d) obs_report over {n_files} files: {rep['events']} events, "
+          f"{rep['serving']['ticks']} ticks, faults -> {effects}")
+    rc = bench_trend.main(["--dir", TOOLS_DIR])
+    check(rc == 0, f"[server] (d) bench_trend --dir exited {rc}")
+    prev, parts = t0, []
+    for name, at in marks:
+        parts.append(f"{name} {at - prev:.1f} s")
+        prev = at
+    print("[server] rank 0: " + ", ".join(f"{n} {t:.1f} s" for n, t in got["marks"]))
+    print(f"[server] phase 31 took {time.perf_counter() - t0:.1f} s on {smi} "
+          f"({', '.join(parts)})")
+
+
+def _signal_in(outdir, name, ok):
+    with open(os.path.join(outdir, name), "w") as f:
+        f.write("go" if ok else "failed")
 
 
 def _smi():
@@ -6650,7 +7013,7 @@ def main() -> int:
         phase_recovery()
         phase_reconfig()
         phase_heal()
-        phase_serving_mesh()
+        phase_mesh_server(phase_serving_mesh())
     except SmokeError as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -6698,6 +7061,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--serving-mesh-rank"]:  # a rank of phase 30
         sys.path.insert(0, ROOT)
         sys.exit(_serving_mesh_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-server-rank"]:  # a rank of phase 31
+        sys.path.insert(0, ROOT)
+        sys.exit(_mesh_server_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--drain-rank"]:  # a rank of phase 20 (d)
         sys.path.insert(0, ROOT)
         sys.exit(_drain_rank(sys.argv[2]))

@@ -160,8 +160,9 @@ def _run_resume_leg(params, cfg, items, name, *, num_slots, page_size,
     }
 
 
-def run(params, cfg, fast: bool = False, seed: int = 11, device="cpu") -> dict:
-    """Both experiments on the decode tree ``params``; returns the result."""
+def run(params, cfg, fast: bool = False, seed: int = 11, device="cuda") -> dict:
+    """Both experiments on the decode tree ``params``; returns the result.
+    Runs on the card unless ``device="cpu"``, as the other benches do."""
     import numpy as np
 
     n_requests = 8 if fast else 20

@@ -395,7 +395,11 @@ def governor_pin_rung(server, ticks: int = 256,
         for e in _target_engines(server, anomaly):
             policy = getattr(e, "admission_policy", None)
             if policy is not None:
-                policy.pin(e.tick_count, ticks)
+                if hasattr(server, "pin_governor"):
+                    # under the engine lock, and sent to a mesh's followers
+                    server.pin_governor(e, ticks)
+                else:
+                    policy.pin(e.tick_count, ticks)
                 pinned = True
         return pinned or False
 

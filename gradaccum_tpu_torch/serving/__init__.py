@@ -31,7 +31,8 @@ polls the self-healing ladder (``resilience/healer.py``) on its loop. The
 serving mesh runs an engine tensor-parallel, one process per rank
 (``Engine(mesh=parallel.mesh.serving_mesh(tp))``, ``ReplicatedEngine(tp>1)``)
 under the SPMD contract in ``engine``'s docstring; a ``ServingServer`` over a
-multi-rank mesh raises ``NotImplementedError`` naming ROADMAP.md item 5j.
+multi-rank mesh runs on rank 0 and the other ranks follow it
+(``ServingServer.follow``, ``follower``).
 """
 
 from gradaccum_tpu_torch.serving.admission import (
@@ -60,6 +61,7 @@ from gradaccum_tpu_torch.serving.reconfig import (
     replica_drain,
     replica_excise,
 )
+from gradaccum_tpu_torch.serving.follower import Diverged, FollowerLost
 from gradaccum_tpu_torch.serving.replicated import ReplicatedEngine
 from gradaccum_tpu_torch.serving.scheduler import QueueFull, Request, Scheduler
 from gradaccum_tpu_torch.serving.swap import HostSwapStore, SwapCapacityError, SwapError
@@ -74,9 +76,11 @@ __all__ = [
     "AdmissionPolicy",
     "BlockTableCorruption",
     "CachePool",
+    "Diverged",
     "Engine",
     "ExciseProof",
     "FleetSupervisor",
+    "FollowerLost",
     "HostSwapStore",
     "LengthQuantileEstimator",
     "PagedCachePool",

@@ -296,6 +296,7 @@ class ReplicatedEngine:
         # healthy replicas' events from a partially-faulted tick, delivered
         # with the next clean tick (see step())
         self._held: List[StepEvents] = []
+        self.last_hedges: List[tuple] = []
         self._pool = (ThreadPoolExecutor(
             max_workers=replicas, thread_name_prefix="serving-replica")
             if replicas > 1 else None)
@@ -598,14 +599,29 @@ class ReplicatedEngine:
 
     # -- fleet supervision --------------------------------------------------
 
-    def supervise(self) -> List["fleet_lib.Transition"]:
+    def supervise(self, loop_alive=None) -> List["fleet_lib.Transition"]:
         """One supervision interval: renew intentionally-idle (drained)
         members' leases, poll the membership registry, and hedge a
         newly-SUSPECT member's WAITING work to siblings. Lockstep
         ``step()`` calls this every tick; the free-running server calls
-        it from its maintenance cadence."""
+        it from its maintenance cadence, with ``loop_alive(i)`` telling
+        whether replica ``i``'s loop thread still runs.
+
+        Given ``loop_alive``, an idle member whose loop is alive and which
+        no fault halted is renewed here too: the fleet clock is the
+        furthest tick, so a neighbor's decode ages an idle member's lease
+        whether or not its own loop thread got scheduled in the meantime.
+        A killed, wedged or crashed member is never renewed here (JAX
+        renews only from the member's own loop; ``ROADMAP.md`` §3).
+        ``last_hedges`` holds this interval's moves, ``(replica, plan)``
+        with ``plan`` a list of ``(request_id, destination or None)``."""
+        self.last_hedges = []
         for i in self._inactive:
             self.fleet.heartbeat(i)
+        if loop_alive is not None:
+            for i, e in enumerate(self.replicas):
+                if e.idle and loop_alive(i) and not self.fleet.halted(i):
+                    self.fleet.heartbeat(i)
         for i in list(self._warmup):
             self._warmup_age[i] = self._warmup_age.get(i, 0) + 1
             if self._warmup_age[i] >= 16:
@@ -632,7 +648,7 @@ class ReplicatedEngine:
                                      "reason": t.reason})
         return moved
 
-    def _hedge_replica(self, replica: int) -> int:
+    def _hedge_replica(self, replica: int, plan=None) -> int:
         """Move a SUSPECT member's WAITING work — parked first, then the
         fresh queue — to siblings, keeping each request's rid (the
         ``_moved`` remap reroutes results/status/cancel to the adoptive
@@ -643,8 +659,12 @@ class ReplicatedEngine:
         cannot migrate, so it replays from scratch on its new home —
         the fault-requeue contract (greedy replay token-identical).
         Siblings with no queue room decline; the request then stays with
-        its suspect owner rather than being dropped."""
+        its suspect owner rather than being dropped. ``plan`` (a follower
+        rank of a serving mesh) replays rank 0's choices instead of
+        choosing: ``[(request_id, destination or None)]`` in order."""
         replica = self._check_replica(replica)
+        chosen = None if plan is None else dict(plan)
+        moves = []
         e = self.replicas[replica]
         hedged = 0
         waiting: List[Request] = []
@@ -659,10 +679,13 @@ class ReplicatedEngine:
         for req in waiting:
             rid = req.request_id
             dst = None
-            try:
-                order = self._candidates(req.prompt)
-            except RuntimeError:
-                order = []  # nothing routable anywhere: keep ownership
+            if chosen is not None:
+                order = [] if chosen[rid] is None else [chosen[rid]]
+            else:
+                try:
+                    order = self._candidates(req.prompt)
+                except RuntimeError:
+                    order = []  # nothing routable anywhere: keep ownership
             for j in order:
                 if j == replica:
                     continue
@@ -673,6 +696,7 @@ class ReplicatedEngine:
                     continue
                 dst = j
                 break
+            moves.append((rid, dst))
             if dst is None:
                 # no sibling capacity: the suspect member keeps it
                 e.scheduler.submit(req)
@@ -685,6 +709,8 @@ class ReplicatedEngine:
             self.replicas[dst].results[rid] = []
             self.replicas[dst].status[rid] = "queued"
             hedged += 1
+        if moves:
+            self.last_hedges.append((replica, moves))
         if hedged and self.tracer.enabled:
             self.tracer.event("fleet/hedge", cat="serving", replica=replica,
                               hedged=hedged, **self.obs_tags())
@@ -849,7 +875,7 @@ class ReplicatedEngine:
                               **self.obs_tags())
         return idx
 
-    def excise_replica(self, replica: int):
+    def excise_replica(self, replica: int, proof=None):
         """Remove a DEAD member: prove its departure with one
         partial-consensus round the member cannot vote in, then drain
         its displaced work to siblings and decommission its dispatch
@@ -857,17 +883,20 @@ class ReplicatedEngine:
         RuntimeError) unless the membership registry has the member at
         DEAD — a SUSPECT member may only be drained, and a partitioned
         member's live probe keeps it SUSPECT precisely so this refusal
-        protects it."""
+        protects it. ``proof``: rank 0's valid proof, adopted by a
+        follower rank of a serving mesh (whose registry sees no
+        heartbeats: rank 0 decides membership)."""
         replica = self._check_replica(replica)
         if replica in self._excised:
             raise RuntimeError(f"replica {replica} is already excised")
         state = self.fleet.state(replica)
-        if state != fleet_lib.DEAD:
+        if proof is None and state != fleet_lib.DEAD:
             raise RuntimeError(
                 f"excision refused: replica {replica} is {state!r}, not "
                 f"{fleet_lib.DEAD!r} — only a member whose lease expired "
                 "AND whose probe failed may be excised")
-        proof = self.fleet.excise_proof(replica, step=self._tick)
+        if proof is None:
+            proof = self.fleet.excise_proof(replica, step=self._tick)
         if not proof.valid:
             raise RuntimeError(
                 f"excision refused: consensus round resolved WITH replica "

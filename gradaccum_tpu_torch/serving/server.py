@@ -40,11 +40,12 @@ sentinel's checks; its rungs act through ``request_recover`` and
 ``request_reconfig``.
 
 A server over a multi-rank serving mesh (an ``Engine`` whose ``mesh`` has
-``model`` wider than 1, or a ``ReplicatedEngine(tp > 1)``) is not ported:
-its client threads reach rank 0 alone, and the other ranks would need every
-tick's submits, cancels and reconfigurations from it (a leader/follower
-protocol that JAX's single process never needed). It raises
-``NotImplementedError`` naming :data:`MESH_SERVER_ITEM`.
+``model`` wider than 1, or a ``ReplicatedEngine(tp > 1)``, lockstep or
+free running) is built on every rank with the same arguments: rank 0 runs
+it and its client threads reach rank 0 alone, the other ranks call
+:meth:`ServingServer.follow` and apply the engine calls rank 0 sends them
+before each tick (``serving/follower.py``). JAX's single GSPMD process
+never needed this.
 """
 
 from __future__ import annotations
@@ -62,19 +63,26 @@ import numpy as np
 
 from gradaccum_tpu_torch.resilience.watchdog import Watchdog
 from gradaccum_tpu_torch.serving.engine import Engine
+from gradaccum_tpu_torch.serving.follower import (
+    DEFAULT_FOLLOWER_TIMEOUT_S,
+    ControlChannel,
+    Follower,
+    FollowerLost,
+    command_submit,
+)
 from gradaccum_tpu_torch.serving.scheduler import QueueFull
 
 _DONE = object()  # sentinel closing a handle's token stream
 
-MESH_SERVER_ITEM = ("ROADMAP.md item 5j: the server over a multi-rank serving mesh "
-                    "(rank 0 broadcasts each tick's commands, the other ranks apply them)")
 
-
-def _mesh_width(engine) -> int:
-    """The widest model axis among ``engine`` and its replicas (1 without a
-    mesh)."""
+def _mesh_ranks(engine) -> Optional[List[int]]:
+    """The ranks of the serving mesh ``engine`` (or its replicas) runs on,
+    or None when it runs on one rank."""
     engines = getattr(engine, "replicas", None) or [engine]
-    return max(getattr(e, "tp", 1) for e in engines)
+    mesh = getattr(engines[0], "mesh", None)
+    if mesh is None or max(getattr(e, "tp", 1) for e in engines) <= 1:
+        return None
+    return list(mesh.axis("model").ranks)
 
 
 class StreamHandle:
@@ -229,17 +237,22 @@ class ServingServer:
     maintenance: in-flight streams park and resume token for token, fresh
     traffic waits behind a ``reconfiguring`` stall label, and a drained
     replica's requests re-dispatch across the fleet with their
-    :class:`StreamHandle` rebound."""
+    :class:`StreamHandle` rebound.
+
+    **A multi-rank serving mesh** (``serving/follower.py``): every rank
+    builds the server with the same arguments; rank 0 starts it and serves,
+    ranks > 0 call :meth:`follow`. ``follower_timeout`` bounds each control
+    exchange: a follower that died or hangs fails rank 0's handles with
+    ``FollowerLost`` within it (a death inside a tick surfaces through the
+    mesh's own collectives, or ``watchdog_timeout``). The sentinel, SLO
+    evaluator, healer and telemetry act on rank 0 only."""
 
     def __init__(self, engine, idle_sleep: float = 1e-3, max_requeues: int = 1,
                  max_engine_faults: int = 3, watchdog_timeout: Optional[float] = None,
                  flight=None, sentinel=None, slo=None, healer=None,
                  telemetry_port: Optional[int] = None, telemetry_host: str = "127.0.0.1",
-                 free_running: bool = False):
-        if _mesh_width(engine) > 1:
-            raise NotImplementedError(
-                f"ServingServer over a serving mesh of model={_mesh_width(engine)} (free_running="
-                f"{bool(free_running)}) waits for {MESH_SERVER_ITEM}")
+                 free_running: bool = False,
+                 follower_timeout: float = DEFAULT_FOLLOWER_TIMEOUT_S):
         self._engine = engine
         self._flight = flight
         self._sentinel = sentinel
@@ -301,6 +314,115 @@ class ServingServer:
             self._rfaults = None
             self._watchdogs = None
             self._watchdog = None if watchdog_timeout is None else self._new_watchdog()
+        # a multi-rank mesh: one control channel (free running: one per
+        # replica, in replica order), created on every rank in this order
+        self._mesh_ranks = _mesh_ranks(engine)
+        self._follower_timeout = float(follower_timeout)
+        self._channels: Optional[List[ControlChannel]] = None
+        if self._mesh_ranks is not None:
+            n = len(engine.replicas) if self._free_running else 1
+            self._channels = [self._new_channel() for _ in range(n)]
+        self._leader = self._channels is None or self._channels[0].leader
+
+    # -- the followers of a multi-rank mesh ---------------------------------
+
+    def _new_channel(self) -> ControlChannel:
+        return ControlChannel(self._mesh_ranks, self._follower_timeout)
+
+    def follow(self) -> None:
+        """A follower rank's whole part (ranks > 0 of a multi-rank mesh):
+        apply rank 0's commands until its server stops, then close the
+        engine. Raises ``FollowerLost`` when rank 0 goes away and
+        ``Diverged`` when this rank's engine parts from rank 0's."""
+        if self._leader:
+            raise RuntimeError("follow() is for ranks > 0 of a multi-rank serving mesh; "
+                               "rank 0 (or a one-rank engine) calls start()")
+        try:
+            Follower(self._engine, self._channels, self._free_running,
+                     new_channel=self._new_channel).run()
+        finally:
+            self._engine.close()
+
+    def _channel(self, replica: Optional[int]) -> Optional[ControlChannel]:
+        """The channel that carries commands for ``replica`` (the lockstep
+        server's one channel whatever the replica), or None off a mesh."""
+        if self._channels is None:
+            return None
+        return self._channels[replica if self._free_running and replica is not None else 0]
+
+    def _record(self, op: tuple, replica: Optional[int] = None) -> None:
+        """Queue a command for the next exchange (the caller holds the
+        engine lock that guards ``replica``)."""
+        chan = self._channel(replica)
+        if chan is not None:
+            chan.pending.append(op)
+
+    def _cursors(self) -> List[int]:
+        return [e._next_id for e in getattr(self._engine, "replicas", [self._engine])]
+
+    def _send_global(self, op: tuple) -> None:
+        """Send ``op`` now, behind every channel's pending commands (the
+        caller holds every engine lock): the lockstep channel applies it in
+        order, a free-running follower's threads meet to apply it."""
+        if self._channels is None:
+            return
+        if not self._free_running:
+            self._channels[0].flush(op)
+            return
+        for chan in self._channels:
+            if chan.open:
+                chan.flush(("global", op))
+
+    def _keepalive(self, replica: Optional[int] = None) -> None:
+        """An idle loop's exchange (under its engine lock): the pending
+        commands go out, and the followers' receive never times out."""
+        chan = self._channel(replica)
+        if chan is not None and chan.open and (
+                chan.pending or time.monotonic() - chan.last > chan.timeout_s / 4):
+            chan.flush()
+
+    def _close_channel(self, replica: Optional[int] = None) -> None:
+        """Send the followers' stop on a loop's channel (under its lock)."""
+        chan = self._channel(replica)
+        if chan is not None and chan.open:
+            chan.open = False
+            try:
+                chan.flush(("stop",))
+            except FollowerLost:
+                pass
+
+    def _submit_locked(self, prompt, max_new_tokens: int, **kwargs) -> int:
+        """The lockstep engine's submit under ``_lock``, sent to the
+        followers with the id rank 0 issued (and, behind a fleet, the
+        replica it chose)."""
+        rid = self._engine.submit(prompt, max_new_tokens, **kwargs)
+        if self._channels is not None:
+            target = self._engine._owner(rid) if hasattr(self._engine, "replicas") else None
+            self._record(command_submit(target, rid, prompt, max_new_tokens, **kwargs))
+        return rid
+
+    def pin_governor(self, engine, ticks: int) -> None:
+        """Pin ``engine``'s admission governor to worst-case budgets for
+        ``ticks`` (the ``governor_pin`` rung), under its engine lock and sent
+        to the followers of a multi-rank mesh."""
+        fleet = hasattr(self._engine, "replicas")
+        idx = self._engine.replicas.index(engine) if fleet else None
+        lock = self._rlocks[idx] if self._free_running else self._lock
+        with lock:
+            tick = engine.tick_count
+            engine.admission_policy.pin(tick, ticks)
+            self._record(("pin", idx, tick, ticks), idx)
+
+    def control_stats(self) -> Optional[Dict]:
+        """Rank 0's control exchanges with its followers (None off a
+        multi-rank mesh): exchanges, commands sent and their host seconds."""
+        if self._channels is None:
+            return None
+        per = [c.stats() for c in self._channels]
+        return {"channels": len(per),
+                "exchanges": sum(p["exchanges"] for p in per),
+                "commands": sum(p["commands"] for p in per),
+                "host_s": sum(p["host_s"] for p in per)}
 
     def _attach_healer_checked(self, healer, engine, sentinel) -> None:
         if sentinel is None:
@@ -340,6 +462,8 @@ class ServingServer:
         return Watchdog(self._watchdog_timeout, self._on_stall, tracer=self._engine._tracer)
 
     def start(self) -> "ServingServer":
+        if not self._leader:
+            raise RuntimeError("this rank follows rank 0's server: call follow()")
         if self._thread is not None or self._threads:
             raise RuntimeError("server already started")
         if self._stop.is_set():
@@ -510,7 +634,15 @@ class ServingServer:
                         replica = eng._check_replica(spec.replica)
                         with self._engine_locked():
                             src_tick = eng.replicas[replica].tick_count
+                            cursors = self._cursors()
+                            if spec.action == "drain":
+                                self._send_global(("reconfig", spec, cursors, None))
                             result = eng.reconfigure(spec, resubmit=False)
+                            if spec.action == "excise" and result.ok:
+                                # rank 0's membership decides: the followers
+                                # adopt its proof
+                                self._send_global(("reconfig", spec, cursors,
+                                                   eng.fleet.proofs[-1]))
                         displaced = result.detail.pop("displaced", [])
                         moved, failed = self._requeue_displaced(displaced, src_tick)
                         result.detail["resubmitted"] = moved
@@ -524,12 +656,16 @@ class ServingServer:
                         result = self._execute_replica_add(spec)
                     else:
                         with self._engine_locked():
+                            self._send_global(("reconfig", spec, self._cursors(), None))
                             result = eng.reconfigure(spec)
             except (reconfig_lib.ReconfigError, ValueError) as exc:
                 # a REFUSED spec changed nothing: no fault is charged
                 self._settle(fut, exc=exc)
                 return
             except BaseException as exc:  # noqa: BLE001 — the fault contract logs it
+                if isinstance(exc, FollowerLost):
+                    self._settle(fut, exc=exc)
+                    raise
                 if not self._free_running:
                     self._handle_engine_fault(exc)
                 else:
@@ -578,7 +714,7 @@ class ServingServer:
                                                  handle=handle, **kw)
                 else:
                     with self._lock:
-                        rid = self._engine.submit(req.prompt, req.max_new_tokens, **kw)
+                        rid = self._submit_locked(req.prompt, req.max_new_tokens, **kw)
                     with self._hlock:
                         handle.request_id = rid
                         self._handles[rid] = handle
@@ -601,6 +737,7 @@ class ServingServer:
         self._rfaults.append(0)
         try:
             with self._engine_locked():
+                self._send_global(("reconfig", spec, self._cursors(), None))
                 result = self._engine.reconfigure(spec)
         except BaseException:
             self._rlocks.pop()
@@ -611,6 +748,9 @@ class ServingServer:
             self._rfaults.pop()
             return result
         idx = result.detail["replica"]
+        if self._channels is not None:
+            # the newcomer's channel, created where each follower creates it
+            self._channels.append(self._new_channel())
         if self._watchdogs is not None:
             wd = self._new_watchdog()
             self._engine.replicas[idx].watchdog = wd
@@ -649,6 +789,11 @@ class ServingServer:
         for wd in ([self._watchdog] if self._watchdog is not None else []) \
                 + list(self._watchdogs or []):
             wd.stop()
+        if self._channels is not None and not wedged:
+            # the followers of a server that never started, or of loops that
+            # left a channel open
+            for i in range(len(self._channels)):
+                self._close_channel(i)
         self._abort_handles("aborted")
         with self._hlock:
             jobs = list(self._reconfigs)
@@ -801,10 +946,10 @@ class ServingServer:
         a running request's private blocks and reservation come back at
         once, and the prefix blocks it shares stay alive for their other
         users."""
-        lock = (self._rlocks[self._engine._owner(request_id)] if self._free_running
-                else self._lock)
-        with lock:
+        idx = self._engine._owner(request_id) if self._free_running else None
+        with (self._lock if idx is None else self._rlocks[idx]):
             ok = self._engine.cancel(request_id)
+            self._record(("cancel", request_id), idx)
             if ok:
                 self._engine.pop_result(request_id)  # the handle owns the output
         if not ok:
@@ -819,6 +964,8 @@ class ServingServer:
     def submit(self, prompt, max_new_tokens: int, **kwargs) -> StreamHandle:
         """Thread-safe; raises ``QueueFull`` under backpressure and
         RuntimeError once the engine has failed."""
+        if not self._leader:
+            raise RuntimeError("this rank follows rank 0's server: submit on rank 0")
         with self._hlock:
             if self._error is not None:
                 raise RuntimeError("serving engine thread died") from self._error
@@ -827,7 +974,7 @@ class ServingServer:
         # submission and registration are atomic with respect to the loop:
         # no tick can retire the request before its handle exists
         with self._lock:
-            rid = self._engine.submit(prompt, max_new_tokens, **kwargs)
+            rid = self._submit_locked(prompt, max_new_tokens, **kwargs)
             handle = StreamHandle(rid)
             with self._hlock:
                 if self._error is not None:
@@ -864,6 +1011,7 @@ class ServingServer:
                 # these submits bypass ReplicatedEngine.submit: advance the
                 # warm-up ramp here
                 fleet._note_warmup_admit(idx)
+                self._record(command_submit(idx, rid, prompt, max_new_tokens, **kwargs), idx)
                 h = handle if handle is not None else StreamHandle(rid)
                 h.request_id = rid
                 with self._hlock:
@@ -944,6 +1092,7 @@ class ServingServer:
                 if eng.status.get(rid) in ("done", "timeout", "cancelled"):
                     tokens, status = eng.pop_result(rid)
                     retired.append((rid, tokens, status))
+            self._record(("recover", replica, [rid for rid, _, _ in retired]), replica)
         for rid, tokens, status in retired:
             with self._hlock:
                 handle = self._handles.pop(rid, None)
@@ -990,7 +1139,7 @@ class ServingServer:
             try:
                 if replica is None:
                     with self._lock:
-                        rid = self._engine.submit(req.prompt, req.max_new_tokens, **kw)
+                        rid = self._submit_locked(req.prompt, req.max_new_tokens, **kw)
                 else:
                     # re-dispatched across the whole fleet; registered inside,
                     # under the new owner's lock
@@ -1066,9 +1215,16 @@ class ServingServer:
             with lock:
                 self._engine.pop_result(rid)  # the handle holds the tokens
 
+    def _lost(self, exc: FollowerLost) -> None:
+        """A follower rank died or hangs: the mesh cannot tick again, so
+        every handle fails (the loops exit on the error)."""
+        self._fail_handles(exc)
+        self._dump("follower-lost", {"error": repr(exc)})
+
     def _loop(self) -> None:
         snt, wd, eng = self._sentinel, self._watchdog, self._engine
         fleet = hasattr(eng, "replicas")
+        chan = self._channel(None)
         try:
             while not self._stop.is_set():
                 stop, nudge, job = self._claim()
@@ -1086,7 +1242,11 @@ class ServingServer:
                     with self._lock:
                         if eng.idle:
                             events = None
+                            self._keepalive()
                         else:
+                            if chan is not None:
+                                # the tick's commands, then the tick itself
+                                chan.flush(("step", None, eng.tick_count))
                             if wd is not None:
                                 wd.arm()
                             t0 = time.monotonic()
@@ -1095,6 +1255,8 @@ class ServingServer:
                             finally:
                                 if wd is not None:
                                     wd.disarm()
+                except FollowerLost:
+                    raise
                 except Exception as e:  # noqa: BLE001 — the fault contract
                     self._handle_engine_fault(e)
                     continue
@@ -1130,9 +1292,15 @@ class ServingServer:
                 # engine lock straight back starves submit/cancel/stats
                 # waiting on it. Yield the interpreter once per tick.
                 time.sleep(0)
+        except FollowerLost as e:
+            self._lost(e)
         except BaseException as e:  # a dead loop must not strand callers
             self._fail_handles(e)
             raise
+        finally:
+            if chan is not None:
+                with self._lock:
+                    self._close_channel()
 
     def _fleet_steward(self) -> int:
         """The replica whose loop runs the fleet's singleton duties (the
@@ -1155,8 +1323,14 @@ class ServingServer:
         if sup_n >= 4:
             sup_n = 0
             with self._engine_locked():
-                self._engine.supervise()
+                self._engine.supervise(self._loop_alive)
+                if self._engine.last_hedges:
+                    # rank 0's membership decides where waiting work goes
+                    self._send_global(("hedge", self._engine.last_hedges))
         return sup_n
+
+    def _loop_alive(self, i: int) -> bool:
+        return i < len(self._threads) and self._threads[i].is_alive()
 
     def _replica_loop(self, i: int) -> None:
         """One free-running replica's loop: tick MY engine under MY lock at
@@ -1170,6 +1344,7 @@ class ServingServer:
         snt = self._sentinel
         sup = fleet.fleet
         sup_n = 0
+        chan = self._channel(i)
         try:
             while not self._stop.is_set():
                 if i in fleet._excised:
@@ -1177,6 +1352,8 @@ class ServingServer:
                 if sup.halted(i):
                     # a killed or wedged member stops ticking: its silence is
                     # what the membership leases detect
+                    with lock:
+                        self._keepalive(i)
                     self._stop.wait(self._idle_sleep)
                     continue
                 stop, nudge, job = self._claim(i)
@@ -1194,7 +1371,10 @@ class ServingServer:
                     with lock:
                         if eng.idle:
                             events = None
+                            self._keepalive(i)
                         else:
+                            if chan is not None:
+                                chan.flush(("step", i, eng.tick_count))
                             if wd is not None:
                                 wd.arm()
                             t0 = time.monotonic()
@@ -1203,6 +1383,8 @@ class ServingServer:
                             finally:
                                 if wd is not None:
                                     wd.disarm()
+                except FollowerLost:
+                    raise
                 except Exception as e:  # noqa: BLE001 — the fault contract
                     self._handle_engine_fault(e, replica=i)
                     continue
@@ -1233,9 +1415,15 @@ class ServingServer:
                     self._slo.tick()
                 self._deliver(events, lock)
                 time.sleep(0)  # the replica lock is not fair either
+        except FollowerLost as e:
+            self._lost(e)
         except BaseException as e:  # a dead replica loop must not strand callers
             self._fail_handles(e)
             raise
+        finally:
+            if chan is not None:
+                with lock:
+                    self._close_channel(i)
 
 
 @dataclasses.dataclass

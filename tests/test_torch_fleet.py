@@ -494,6 +494,42 @@ def test_free_running_idle_member_keeps_lease_under_asymmetric_load(lm):
         server.stop()
 
 
+def test_free_running_idle_member_lease_holds_while_its_loop_is_held_off(lm):
+    """Replica 1's loop is held off (a hook on its claim, not a sleep) while
+    replica 0 decodes 36 tokens, more than ``lease_ttl`` fleet ticks: the
+    steward renews the idle member whose loop is alive and which no fault
+    halted, so it stays ACTIVE with no transition, whatever the scheduling
+    of its own thread."""
+    import threading
+
+    fleet = _free_fleet(lm, replicas=2, tp=None, num_slots=2, max_len=64,
+                        fleet_lease_ttl=12.0, fleet_suspect_after=6.0)
+    server = tserving.ServingServer(fleet, free_running=True)
+    held, release = threading.Event(), threading.Event()
+    claim = server._claim
+
+    def hold_replica_one(replica=None):
+        if replica == 1 and not release.is_set():
+            held.set()
+            release.wait(WAIT)
+        return claim(replica)
+
+    server._claim = hold_replica_one
+    server.start()
+    try:
+        assert held.wait(WAIT)
+        p = prompts_of(1, seed=61)[0]
+        got, reason = server.submit(p, 36).result(timeout=WAIT)
+        assert reason == "length" and toks(got) == solo(lm, p, 36)
+        assert fleet.replicas[0].tick_count > fleet.fleet.lease_ttl
+        assert fleet.replicas[1].tick_count == 0  # its loop never ran a pass
+        assert fleet.fleet.state(1) == tfleet.ACTIVE
+        assert not [t for t in fleet.fleet.log if t.replica == 1]
+    finally:
+        release.set()
+        server.stop()
+
+
 def test_free_running_kill_of_replica_zero_still_supervised(lm):
     """When replica 0 dies, stewardship fails over: replica 1's loop stages
     it SUSPECT (hedging its waiting work) then DEAD, and the excise goes
@@ -537,6 +573,41 @@ def test_free_running_add_replica_serves(lm):
         assert len(set(ids)) == len(ids) and len(server.stats()["per_replica"]) == 3
     finally:
         server.stop()
+
+
+def _queued(fleet):
+    """Each replica's waiting work, in order, and the hedge remap."""
+    return ([[r.request_id for r in e.scheduler.drain_queue()] for e in fleet.replicas],
+            dict(fleet._moved))
+
+
+def test_a_follower_replays_rank_zeros_hedge_plan_and_excise_proof(lm):
+    """What a follower rank of a serving mesh adopts instead of deciding:
+    a hedge plan replayed on an identical fleet leaves the same queues and
+    the same remap as the fleet that chose it; an adopted excise proof
+    excises a member that this fleet's own registry still reads ACTIVE,
+    which without the proof is refused."""
+    fleets = [_free_fleet(lm, replicas=2, tp=None, num_slots=2, max_len=32)
+              for _ in range(2)]
+    for f in fleets:
+        for i, p in enumerate(prompts_of(5, seed=64)):
+            f.replicas[1].submit(p, 4, rng_seed=i)
+    lead, follow = fleets
+    lead.last_hedges = []
+    assert lead._hedge_replica(1) > 0
+    (src, plan), = lead.last_hedges
+    follow.last_hedges = []
+    follow._hedge_replica(src, plan=plan)
+    assert follow.last_hedges == lead.last_hedges
+    assert _queued(follow) == _queued(lead)
+    assert follow.fleet.state(1) == tfleet.ACTIVE
+    with pytest.raises(RuntimeError, match="excision refused"):
+        follow.excise_replica(1)
+    proof = tfleet.ExciseProof(replica=1, step=0, decision=(True, 0), absent=(1,),
+                               voters=(0,), partial=True)
+    _, adopted = follow.excise_replica(1, proof=proof)
+    assert adopted is proof and follow._excised == {1}
+    assert follow.fleet.state(1) == tfleet.EXCISED and follow.active_replicas == [0]
 
 
 def test_tp_above_one_names_the_serving_mesh(lm):

@@ -90,7 +90,10 @@ NEW_MODULES = ("obs", "obs.trace", "obs.metrics", "obs.flight", "resilience",
                # the self-healing ladder
                "resilience.healer", "examples.bench_heal", "examples.chaos_smoke",
                # the serving mesh
-               "examples.serving_smoke")
+               "examples.serving_smoke",
+               # the server over a multi-rank mesh, and the operator tools
+               "serving.follower", "examples.obs_report", "examples.bench_obs",
+               "examples.bench_trend", "examples.bench_mixed")
 
 
 # a bfloat16 pool's K/V through the host store and the disk rung, with

@@ -527,12 +527,15 @@ def test_cow_requires_prefix_mode(lm):
 def test_bench_cow_fast(lm, tmp_path):
     """``bench_cow --fast`` on JAX's weights: every capacity and resume leg
     equal to JAX's ``tools/bench_cow.py``, and JAX's checks on it."""
+    import inspect
     import os
     import sys
 
     from gradaccum_tpu_torch.examples import bench_cow
 
     _, _, tcfg, tree = lm
+    # the card unless the caller asks for the CPU, as every example's run()
+    assert inspect.signature(bench_cow.run).parameters["device"].default == "cuda"
     result = bench_cow.run(tree, tcfg, fast=True, device="cpu")
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from tools.bench_cow import main as jax_main

@@ -22,9 +22,9 @@ tests hold both ranks to each other and the streams to JAX:
 - the collectives of a micro-step (``2 * num_layers + 2``) and of a
   speculative cycle, counted on the mesh.
 
-Without a spawn: ``serving_mesh``'s refusal in JAX's words, a one-rank mesh
-engine (manifest, tags and the server's ``stats()["mesh"]`` as JAX's), and
-the server's refusal of a multi-rank mesh engine and fleet.
+Without a spawn: ``serving_mesh``'s refusal in JAX's words and a one-rank
+mesh engine (manifest, tags and the server's ``stats()["mesh"]`` as JAX's).
+The server over a multi-rank mesh is ``tests/test_torch_serving_mesh_server.py``.
 
     python -m pytest -m torch tests/test_torch_serving_mesh.py
 """
@@ -276,9 +276,9 @@ def _port_cases(tree, cfg, outdir, mesh_of, out):
 
 def _fleet_cases(tree, cfg, out):
     """``ReplicatedEngine(replicas=2, tp=2)``: JAX's fleet trace stepped,
-    then drained; the server refuses the multi-rank fleet and engine."""
+    then drained."""
     from gradaccum_tpu_torch.obs import trace as ttrace
-    from gradaccum_tpu_torch.serving import ReplicatedEngine, ServingServer
+    from gradaccum_tpu_torch.serving import ReplicatedEngine
 
     kw = dict(FLEET["engine"])
     fleet = ReplicatedEngine(tree, cfg, tp=TP, device="cpu", **kw)
@@ -301,9 +301,6 @@ def _fleet_cases(tree, cfg, out):
             for e in fleet.replicas),
         table_rows=fleet.replicas[0].params["params"]["word_embeddings"]["embedding"].shape[0],
         tags=fleet.obs_tags())
-    out["refused_server"] = [
-        _error(NotImplementedError, lambda: ServingServer(fleet.replicas[0])),
-        _error(NotImplementedError, lambda: ServingServer(fleet, free_running=True))]
     fleet.close()
     fleet = ReplicatedEngine(tree, cfg, replicas=2, tp=TP, num_slots=2, max_len=32,
                              page_size=4, device="cpu")
@@ -639,11 +636,6 @@ def test_replicated_fleet_at_tp2_steps_and_drains_to_parity(lm, ranks):
         assert tokens == _port_solo(lm, p, n)
 
 
-def test_server_refuses_a_multi_rank_mesh_engine_and_fleet(ranks):
-    for message in _same(ranks, "refused_server"):
-        assert message is not None and "ROADMAP.md item 5j" in message
-
-
 # -- without a spawn ---------------------------------------------------------------------
 
 
@@ -684,21 +676,6 @@ def test_one_rank_mesh_engine_reads_as_jaxs(lm):
         stats = server.stats()
     assert stats["mesh"] == {"model": 1}
     assert list(tokens) == _port_solo(lm, p, 5) and reason == "length"
-
-
-@pytest.mark.parametrize("free_running", [False, True])
-def test_server_over_a_multi_rank_mesh_names_its_item(free_running):
-    """The refusal reads only the engines' model width: stand-ins of an
-    engine and of a fleet at model=2 (the real ones refuse in the spawn)."""
-    from gradaccum_tpu_torch.serving import ServingServer
-    from gradaccum_tpu_torch.serving.server import MESH_SERVER_ITEM
-
-    engine = types.SimpleNamespace(tp=2)
-    fleet = types.SimpleNamespace(replicas=[types.SimpleNamespace(tp=1), engine])
-    for target in (engine, fleet):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 5j") as e:
-            ServingServer(target, free_running=free_running)
-        assert MESH_SERVER_ITEM in str(e.value)
 
 
 def test_serving_smoke_paged_mesh():

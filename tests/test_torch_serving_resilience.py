@@ -706,7 +706,9 @@ def _refused(error, words, call):
                                                  device="cpu")), None),
     (lambda e: Engine(e.params, e.cfg, device="cpu", mesh=serving_mesh(1),
                       num_slots=1, max_len=8).manifest()["mesh"] == {"model": 1}, None),
-    (lambda e: ServingServer(types.SimpleNamespace(tp=2)), "5j"),
+    (lambda e: _refused(RuntimeError, "ranks > 0", ServingServer(
+        Engine(e.params, e.cfg, device="cpu", mesh=serving_mesh(1), num_slots=1,
+               max_len=8)).follow), None),
 ], ids=["healer", "free_running", "replicas", "request_reconfig", "server_reconfigure",
         "engine_reconfigure", "remediation_reconfig", "replicated_tp2", "engine_mesh",
         "server_over_mesh"])
@@ -717,8 +719,9 @@ def test_remaining_refusals_name_their_item(lm, call, item):
     serves, and live reconfiguration runs through the engine, the server and
     a remediation. The serving mesh has landed: a tp=2 fleet in one process
     is refused for want of ranks (JAX's words), an engine takes a one-rank
-    mesh, and a server over a multi-rank mesh (an engine of model=2 stands in
-    for it here) names its item."""
+    mesh. So has the server over a mesh: over a one-rank mesh it leads and
+    has no follower to be (``follow()`` refuses); the multi-rank server runs
+    in ``tests/test_torch_serving_mesh_server.py``."""
     engine = _engine(lm, num_slots=1, max_len=8, page_size=4)
     if item is None:
         assert call(engine)

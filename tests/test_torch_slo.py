@@ -22,9 +22,9 @@ The port's counterparts of JAX's ``tests/test_slo.py``:
 - ``examples/slo_check.py`` replays a trace to the same reports as JAX's
   ``tools/slo_check.py``, and ``examples/bench_slo.py`` measures its ratio.
 
-JAX's cases with no counterpart: the fleet ``stats()`` snapshot (replicas
-wait for ROADMAP.md item 5g) and the ``tools/obs_report.py`` and
-``bench_trend`` readers, which the port has no copy of.
+JAX's cases with no counterpart here: the fleet ``stats()`` snapshot
+(replicas wait for ROADMAP.md item 5g); the ``tools/obs_report.py`` and
+``bench_trend`` cases are in ``tests/test_torch_tools.py``.
 """
 
 import importlib
