@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one NVIDIA H100.
 
-    python3 chip_smoke.py     # one card, about thirteen minutes
+    python3 chip_smoke.py     # one card, about fifteen minutes
 
 Phases, each of which fails the run if it fails:
 
 1. build: compile every CUDA source of ``gradaccum_tpu_torch/csrc`` with
    nvcc (one process per source, all started together); print the time and
    each kernel's registers and spills as ptxas reports them, and fail if
-   any float32 kernel (forward, dq, dk/dv) spills at any head dim.
+   any float32 kernel (forward, dq, dk/dv) or the bfloat16 forward or dk/dv
+   kernel (the Hopper designs: TMA, mbarriers, wgmma) spills at any head
+   dim.
 2. kernels: hold each kernel against its plain PyTorch version on the card
    at the BERT-Small main-path shape q/k/v [8, 8, 128, 64], in float32
    (``flash_attention.cu``: forward, dq and dk/dv on the tensor cores in
    3xTF32) and bfloat16 (``flash_attention_tc.cu``), with a padded mask
    and without, causal, and with attention dropout 0.1 under a fixed seed;
-   in both dtypes also at ragged lengths S = 100 and 200 and at head dim
-   128, in float32 also at head dims 16 and 32; and at GPT's shapes,
+   in both dtypes also at ragged lengths S = 100 and 200 and at head dims
+   16, 32 and 128; and at GPT's shapes,
    causal, no mask, dropout 0.1: [8, 8, 512, 64] in bfloat16 and float32
    (GPT-Small) and [16, 4, 64, 32] in float32 (``gpt_lm``). The dq
    kernel's delta = rowsum(dO * O) is held against the plain one. Read the
@@ -467,13 +469,15 @@ REPLACES = {
 # the source of each kernel by dtype: bfloat16 (the main path) and float32
 SOURCES = {"torch.bfloat16": f"{PACKAGE}/csrc/flash_attention_tc.cu",
            "torch.float32": f"{PACKAGE}/csrc/flash_attention.cu"}
-# beside the main shape: the ragged lengths (one key tile with a ragged edge,
-# and more than one) and the widest head dim; float32 also the narrow head
-# dims, so that it runs every head dim the wrapper accepts
-EXTRA_SHAPES = [(B, H, 100, D), (B, H, 200, D), (B, H, S, 128)]
-F32_EXTRA_SHAPES = EXTRA_SHAPES + [(B, H, S, 16), (B, H, S, 32)]
-# the float32 kernels ptxas must report without spills, at every head dim
-NO_SPILL = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+# beside the main shape, in both dtypes: the ragged lengths (one key tile
+# with a ragged edge, and more than one) and every other head dim the
+# wrapper accepts
+EXTRA_SHAPES = [(B, H, 100, D), (B, H, 200, D), (B, H, S, 128), (B, H, S, 16),
+                (B, H, S, 32)]
+# the kernels ptxas must report without spills, at every head dim: every
+# float32 kernel, and the bfloat16 forward and dk/dv (Hopper designs)
+NO_SPILL = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+            "flash_fwd_tc_kernel", "flash_dkv_tc_kernel")
 # GPT-Small's attention (micro 8, 8 heads, seq 512, head dim 64: bf16 on the
 # tensor cores, and float32 in ladder leg (a)) and gpt_lm's (micro 16,
 # 4 heads, seq 64, head dim 32, float32): causal, no mask, dropout 0.1
@@ -606,7 +610,7 @@ def phase_kernels():
     gpt = [(False, True, RATE)]
     runs = [(torch.float32, (B, H, S, D), cases), (torch.bfloat16, (B, H, S, D), cases)]
     runs += [(torch.bfloat16, shape, cases) for shape in EXTRA_SHAPES]
-    runs += [(torch.float32, shape, cases) for shape in F32_EXTRA_SHAPES]
+    runs += [(torch.float32, shape, cases) for shape in EXTRA_SHAPES]
     runs += [(torch.bfloat16, GPT_SHAPE, gpt), (torch.float32, GPT_SHAPE, gpt),
              (torch.float32, GPT_LM_SHAPE, gpt)]
     for dtype, shape, shape_cases in runs:

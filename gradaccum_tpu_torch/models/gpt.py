@@ -22,8 +22,9 @@ optimizer). The head and the loss stay float32. A sequence longer than
 ``max_position_embeddings`` raises.
 
 :func:`greedy_generate` re-runs the whole prefix for each new token. The
-KV-cache decode of JAX's ``models/gpt_decode.py`` belongs to the serving
-stack and is not ported yet (ROADMAP.md).
+KV-cache decode (prefill, then one position per step over a cache) is
+``gradaccum_tpu_torch/models/gpt_decode.py``, the port of JAX's
+``models/gpt_decode.py``, which the serving stack runs.
 
 Under ``gpt_tp_rules`` (``parallel/tp.py``) the blocks run as BERT's do
 (``models/bert.py``), and the tied head reads the vocab-sharded table:

@@ -6,7 +6,10 @@ kernels of the TPU package (forward ``_fwd_kernel``, ``_dq_kernel`` and
 dtype and nothing else:
 
 - ``tc`` (``csrc/flash_attention_tc.cu``): every bfloat16 kernel on the
-  tensor cores (``mma.sync``, ``ldmatrix``, ``cp.async``).
+  tensor cores: the forward and dk/dv kernels as Hopper designs (a producer
+  warp's TMA copies into mbarrier stages, ``wgmma`` from shared memory in
+  consumer warpgroups), the dq kernel with ``mma.sync``, ``ldmatrix`` and
+  ``cp.async``.
 - ``tf32x3`` (``csrc/flash_attention.cu``): every float32 kernel on the
   tensor cores in 3xTF32 (each operand split into two TF32 parts, three
   products per product), which holds float32's tolerances where a single
@@ -274,7 +277,8 @@ def _check_inputs(q, k, v, mask, *rest):
     for t in (q, k, v, mask) + tuple(x for _, x in rest):
         if t is not None and not t.is_contiguous():
             raise ValueError("the flash kernels take contiguous tensors")
-    # every kernel copies rows in 16-byte chunks (cp.async)
+    # every kernel copies rows in 16-byte chunks (cp.async), or by TMA, whose
+    # tensor maps need a 16-byte aligned start
     if any(t.data_ptr() % 16 for t in (q, k, v) + tuple(x for _, x in rest)):
         raise ValueError("q, k, v, dO and o must start on a 16-byte boundary")
 
