@@ -8,9 +8,8 @@ Phases, each of which fails the run if it fails:
 1. build: compile every CUDA source of ``gradaccum_tpu_torch/csrc`` with
    nvcc (one process per source, all started together); print the time and
    each kernel's registers and spills as ptxas reports them, and fail if
-   any float32 kernel (forward, dq, dk/dv) or the bfloat16 forward or dk/dv
-   kernel (the Hopper designs: TMA, mbarriers, wgmma) spills at any head
-   dim.
+   any float32 or bfloat16 kernel (forward, dq, dk/dv; the bfloat16 ones
+   Hopper designs: TMA, mbarriers, wgmma) spills at any head dim.
 2. kernels: hold each kernel against its plain PyTorch version on the card
    at the BERT-Small main-path shape q/k/v [8, 8, 128, 64], in float32
    (``flash_attention.cu``: forward, dq and dk/dv on the tensor cores in
@@ -28,7 +27,9 @@ Phases, each of which fails the run if it fails:
    place (``head_offset=4, heads_total=8``): their keep mask exactly the
    slice of the 8-head plain mask, and o, lse, dq, dk, dv within TOL of
    the slice of the plain version's outputs on all 8 heads, in float32 and
-   bfloat16. Then time each kernel, its plain version
+   bfloat16; and the bfloat16 kernels launched first from a fresh thread
+   (as autograd's device thread launches them), their outputs equal to the
+   main thread's. Then time each kernel, its plain version
    and the PyTorch call that computes the same function
    (scaled_dot_product_attention's forward, and its backward, which
    computes dq, dk and dv together, for both backward kernels; never used
@@ -46,7 +47,8 @@ Phases, each of which fails the run if it fails:
    just after, and must match the path exactly, with every launch on the
    tensor-core route.
 5. profile: a torch.profiler window over three more updates of the same
-   run: wall and card-busy time per update, idle share, top kernels.
+   run: wall and card-busy time per update, idle share, top kernels; before
+   it, the bf16 kernels' tensor-map lookups and encodes in one update.
 6. streaming: the same entry point in streaming mode (the reference's
    tf.cond train op, first-step quirk on), 8 windows of K=4 = 32 micro-batch
    calls and its evaluations; launch counts exact and all on the tensor
@@ -475,9 +477,9 @@ SOURCES = {"torch.bfloat16": f"{PACKAGE}/csrc/flash_attention_tc.cu",
 EXTRA_SHAPES = [(B, H, 100, D), (B, H, 200, D), (B, H, S, 128), (B, H, S, 16),
                 (B, H, S, 32)]
 # the kernels ptxas must report without spills, at every head dim: every
-# float32 kernel, and the bfloat16 forward and dk/dv (Hopper designs)
+# float32 kernel, and the three bfloat16 ones (Hopper designs)
 NO_SPILL = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
-            "flash_fwd_tc_kernel", "flash_dkv_tc_kernel")
+            "flash_fwd_tc_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kernel")
 # GPT-Small's attention (micro 8, 8 heads, seq 512, head dim 64: bf16 on the
 # tensor cores, and float32 in ladder leg (a)) and gpt_lm's (micro 16,
 # 4 heads, seq 64, head dim 32, float32): causal, no mask, dropout 0.1
@@ -625,7 +627,49 @@ def phase_kernels():
         # one rank's heads under tensor parallelism: heads 4-7 of 8
         _check_keep_masks(fa, dtype, (B, H // 2, S, D), head_offset=H // 2, heads_total=H)
         _check_head_slice(fa, dtype)
+    _check_fresh_thread(fa)
     return worst
+
+
+def _check_fresh_thread(fa):
+    """The bf16 kernels launched from a new thread whose first CUDA calls
+    are theirs, as autograd's device thread makes them when the attention's
+    backward is the first node it runs: the library encodes its tensor maps
+    there (a driver call, which needs the device's context current in the
+    thread). Every output equals the main thread's bit for bit."""
+    import threading
+
+    import torch
+
+    q, k, v, mask, do = _inputs(torch.bfloat16, True, seed=5)
+    seed = torch.tensor([SEED], dtype=torch.int64, device="cuda")  # no copy in the thread
+
+    def run():
+        o, lse = fa.flash_fwd_cuda(q, k, v, mask, seed, False, RATE)
+        dq, delta = fa.flash_bwd_dq_cuda(q, k, v, mask, seed, do, o, lse, False, RATE)
+        dk, dv, dm = fa.flash_bwd_dkv_cuda(q, k, v, mask, seed, do, lse, delta, False, RATE)
+        return {"o": o, "lse": lse, "dq": dq, "delta": delta, "dk": dk, "dv": dv, "dmask": dm}
+
+    outs, errors = {}, []
+
+    def in_thread():
+        try:
+            outs.update(run())
+            torch.cuda.synchronize()
+        except Exception as e:  # reported below, in the main thread
+            errors.append(e)
+
+    worker = threading.Thread(target=in_thread)
+    worker.start()
+    worker.join()
+    check(not errors, f"the bf16 kernels failed in a fresh thread: {errors}")
+    want = run()
+    torch.cuda.synchronize()
+    differ = [name for name, t in want.items() if not torch.equal(t, outs[name])]
+    check(not differ, f"the bf16 kernels' {differ} in a fresh thread differ from the main "
+                      f"thread's")
+    print("[kernels] bfloat16 forward, dq and dk/dv launched first from a fresh thread: "
+          "outputs equal the main thread's bit for bit")
 
 
 def _check_kernels(fa, dtype, shape, masked, causal, rate, worst, tag="kernels"):
@@ -908,7 +952,8 @@ def phase_timing(shape=(B, H, S, D), masked=True, causal=False, label="bert", dt
         if dtype == torch.float32:
             fma = (f"; {max(nbytes / PEAK_BYTES, flops / F32_FMA_FLOPS) * 1e6:.2f} us at "
                    f"the {F32_FMA_FLOPS / 1e12:.0f} TFLOP/s of float32 FMA")
-        print(f"[timing] {name} ({fa.route(dtype)}): {ms[name]:.4f} ms on the card, "
+        print(f"[timing] {name} ({fa.route(dtype)}): {ms[name]:.4f} ms on the card "
+              f"({flops / ms[name] / 1e9:.0f} TFLOP/s), "
               f"{wall[name]:.4f} ms a call with dispatch (plain {plain[name]:.4f} ms, "
               f"sdpa {library[name]:.4f} ms; bound {bounds[name][0] * 1e3:.2f} us by "
               f"{bounds[name][1]}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP{fma}; "
@@ -1005,15 +1050,17 @@ def _check_launches(phase, counts, routes, train_calls, result, route):
 def phase_profile(updates: int = 3, mode: str = "scan", extra=()):
     """Where the time of the main path (or of its streaming or sparse
     embedding twin, ``extra`` flags) goes: a torch.profiler window over a
-    few updates of the same run (after two warm-up updates). Reports wall
-    time per update, the card's busy time per update (sum of kernel and copy
-    time, one stream), its idle share, and the top kernels."""
+    few updates of the same run (after two warm-up updates and one more
+    that counts the bf16 kernels' tensor-map lookups and encodes). Reports
+    wall time per update, the card's busy time per update (sum of kernel and
+    copy time, one stream), its idle share, and the top kernels."""
     import itertools
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from gradaccum_tpu_torch.examples import bert_finetune
+    from gradaccum_tpu_torch.ops import flash_attention as fa
 
     args = bert_finetune.parse_args(
         ["--device", "cuda", "--bf16", "--vocab-size", "30522", "--seq-len", str(S),
@@ -1022,6 +1069,13 @@ def phase_profile(updates: int = 3, mode: str = "scan", extra=()):
     host_steps = K if mode == "streaming" else 1  # per update
     it = iter(train_fn())
     est.train(itertools.islice(it, 2 * host_steps), final_save=False)
+    # the bf16 kernels' tensor maps over one more update: a lookup for each
+    # map a launch needs, an encode (host time) for each the cache missed
+    maps0 = fa.tc_map_counts()
+    est.train(itertools.islice(it, host_steps), final_save=False)
+    maps = {key: n - maps0[key] for key, n in fa.tc_map_counts().items()}
+    print(f"[profile] {' '.join([mode, *extra])}: tensor maps in one update: "
+          f"{maps['lookups']} lookups, {maps['encodes']} encodes (misses of the cache)")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

@@ -19,30 +19,32 @@
 //   K2 moves 6.4 MB (1.9 us) and does 0.40 GFLOP (0.4 us): bytes.
 //   K3 moves 6.4 MB (1.9 us) and does 0.54 GFLOP (0.5 us): bytes again.
 // At long sequences the products bound all three: at [2, 8, 8192, 64] K1
-// does 275 GFLOP (0.28 ms) and K3 550 GFLOP (0.56 ms).
+// does 275 GFLOP (0.28 ms), K2 412 GFLOP (0.42 ms) and K3 550 GFLOP
+// (0.56 ms).
 //
-// K1 and K3 are Hopper designs: warp-specialized blocks whose operands are
+// All three are Hopper designs: warp-specialized blocks whose operands are
 // copied by the Tensor Memory Accelerator (TMA) and multiplied by wgmma.
 // What that does about the limits of the mma.sync design they replaced
 // (4 warps of 16 rows each, every warp reading every streamed tile through
 // ldmatrix for its own 16 rows, all 128 threads issuing cp.async copies
 // between two stages and a __syncthreads per tile):
 // - Shared-memory reads. wgmma reads its B operand once per warpgroup of
-//   64 rows, not once per warp of 16: a streamed K/V (K1) or Q/dO (K3) tile
-//   is read a quarter as often, and its 64x16 A operands (Q in K1; K and V
-//   in K3) come straight from shared memory through a descriptor. Tiles
-//   lie as TMA writes them: [rows][min(D, 64)] panels with 16-byte chunks
-//   swizzled by the row (32, 64 or 128 bytes at D = 16, 32, >= 64), which
-//   is the layout the descriptors name, so no read conflicts on banks.
-//   The stored [rows, D] layout serves both as the K-major B of S = QK^T
-//   and, transposed in the instruction (MN-major), as the B of P V.
+//   64 rows, not once per warp of 16: a streamed K/V (K1, K2) or Q/dO (K3)
+//   tile is read a quarter as often, and the 64x16 A operands (Q in K1; Q
+//   and dO in K2; K and V in K3) come straight from shared memory through a
+//   descriptor. Tiles lie as TMA writes them: [rows][min(D, 64)] panels
+//   with 16-byte chunks swizzled by the row (32, 64 or 128 bytes at D = 16,
+//   32, >= 64), which is the layout the descriptors name, so no read
+//   conflicts on banks. The stored [rows, D] layout serves both as the
+//   K-major B of S = QK^T and, transposed in the instruction (MN-major), as
+//   the B of P V (K1) and of dS K (K2, the same K stage as its S = QK^T).
 // - Copies. One producer warp (the first of the block's last warpgroup)
 //   issues every TMA copy (3-D tensor maps over [B*H, S, D], so rows past
 //   S arrive as zeros and never read the next (batch, head) slice), fills
-//   the small per-row vectors (K1's mask row, K3's key mask, lse, delta
-//   and row seeds; masks and lse times log2 e), and runs 2-3 stages ahead
-//   of the consumers on full/empty mbarriers. The consumers issue no copy
-//   and no __syncthreads. setmaxnreg hands the producer warpgroup's
+//   the small per-row vectors (K1's and K2's mask row, K3's key mask, lse,
+//   delta and row seeds; masks and lse times log2 e), and runs 2-3 stages
+//   ahead of the consumers on full/empty mbarriers. The consumers issue no
+//   copy and no __syncthreads. setmaxnreg hands the producer warpgroup's
 //   registers to the consumers (56 and 224 a thread), on a warp-uniform
 //   role. ptxas still fits the whole kernel in the 168 a thread that
 //   __launch_bounds__(384) leaves (the consumers' SASS stops at R165), so
@@ -57,18 +59,18 @@
 //   accumulators.
 // - Turns. With two consumer warpgroups, named barriers make them issue
 //   their products in turns, so one's tensor-core work runs while the
-//   other's element-wise work does; K1 also leaves its P V in flight while
-//   it issues the next tile's Q K^T. The element-wise loops are unrolled
-//   and branch-free: the bounds and dropout tests are resolved per tile.
-// - Registers. The probabilities (K1), drop(P^T) and dS^T (K3) never touch
-//   shared memory: the f32 accumulator of one product is rounded to bf16
-//   and used as the register A operand of the next (the m64nN accumulator
-//   of two 8-column chunks is the m64k16 A fragment). The online softmax,
-//   lse, the keep bits, dS^T and the dmask sums run on the accumulator
-//   fragments; the keep bit of each element is keep(row seed, key) at the
-//   (query, key) position the fragment slot holds, as the TPU draws it.
-// K2 is still the mma.sync design: one block per (b, h, 64 query rows), 4
-// warps of 16 rows, 64-key tiles by cp.async into two padded stages.
+//   other's element-wise work does; K1 leaves its P V, and K2 its dS K, in
+//   flight while it issues the next tile's products. The element-wise loops
+//   are unrolled and branch-free: the bounds and dropout tests are resolved
+//   per tile.
+// - Registers. The probabilities (K1), dS (K2), drop(P^T) and dS^T (K3)
+//   never touch shared memory: the f32 accumulator of one product is
+//   rounded to bf16 and used as the register A operand of the next (the
+//   m64nN accumulator of two 8-column chunks is the m64k16 A fragment). The
+//   online softmax, lse, the keep bits, dS, dS^T and the dmask sums run on
+//   the accumulator fragments; the keep bit of each element is keep(row
+//   seed, key) at the (query, key) position the fragment slot holds, as the
+//   TPU draws it.
 //
 // Numerics: scores, the online softmax, lse, the normalizer l, delta, dS
 // and dmask are float32. P (K1), dS (K2, as _dq_kernel rounds it at :385),
@@ -76,11 +78,12 @@
 // as in every tensor-core flash kernel: about 2^-9 relative per term. l sums
 // the undropped, unrounded p, as the float32 forward does. delta sums the
 // products of bf16 pairs, each exact in f32. exp is 2^x on scores
-// pre-scaled by log2(e): exp2f in K2, ex2.approx.ftz in K1 and K3 (a term
-// below 2^-126 of its row's maximum is 0).
+// pre-scaled by log2(e), by ex2.approx.ftz in all three kernels (a term
+// below 2^-126 of its row's maximum, or of exp(lse) in K2 and K3, is 0).
 
 #include <cuda.h>  // CUtensorMap and its enums only: no libcuda call is linked
 
+#include <atomic>
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -96,69 +99,15 @@ using flash::row_seed_of;
 using flash::slice_seed;
 typedef __nv_bfloat16 bf16;
 
-// K2's mma.sync blocks
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBlockRows = 16 * kWarps;  // output rows per block, 16 per warp
-constexpr int kTile = 64;                // streamed rows per pipeline stage
-constexpr int kPad = 8;                  // bf16 padding per shared-memory row
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
-// PTX wrappers of K2 (mma.sync, ldmatrix, cp.async) and of every kernel
+// Hopper: mbarriers, TMA, setmaxnreg and wgmma
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid (the
-// source is then not read, but must still be a valid address)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8x8 bf16 matrices; lane l gives the row address of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 sums
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // two floats to a bf16x2 register, `lo` in the low half (the lower column)
@@ -177,305 +126,17 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// ---------------------------------------------------------------------------
-// K2's tiles. Shared-memory tiles are [rows][D + kPad] bf16.
-//
-// Fragment layout of mma.m16n8k16 (lane = 4 g + t): the C/D element e of a
-// 16x8 n-tile is row g + 8 (e / 2), column 2 t + (e % 2). The A operand's
-// registers a0..a3 hold rows g, g + 8, g, g + 8 at columns 2 t (+1), plus 8
-// for a2 and a3; so the C elements of n-tiles 2c and 2c + 1 packed pairwise
-// are the A operand of the 16 columns of chunk c.
-// ---------------------------------------------------------------------------
-
-// rows [r0, r0 + NR) of a [S, D] slice into a tile; rows past S are zero
-template <int D, int NR>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0,
-                                          int S) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < NR * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = idx - r * kChunks;
-    const bool valid = r0 + r < S;
-    cp_async16(dst + r * (D + kPad) + c * 8,
-               src + (size_t)(valid ? r0 + r : 0) * D + c * 8, valid);
-  }
-}
-
-// A operand (16 rows from row0, the 16 columns from col0) of a tile
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
-                                       int row0, int col0, int lane) {
-  const int r = row0 + (lane % 8) + ((lane / 8) % 2) * 8;
-  ldsm_x4(a, tile + r * (D + kPad) + col0 + (lane / 16) * 8);
-}
-
-// B operands of two n-tiles when the tile holds B^T as rows: n = rows
-// row0..row0+15, k = columns col0..col0+15. b[0], b[1] are n-tile rows
-// row0..+7; b[2], b[3] rows row0+8..+15.
-template <int D>
-__device__ __forceinline__ void load_b_rows(uint32_t (&b)[4], const bf16* tile,
-                                            int row0, int col0, int lane) {
-  const int r = row0 + (lane % 8) + (lane / 16) * 8;
-  ldsm_x4(b, tile + r * (D + kPad) + col0 + ((lane / 8) % 2) * 8);
-}
-
-// B operands of two n-tiles when the tile holds B itself: k = rows
-// row0..row0+15, n = columns col0..col0+15. b[0], b[1] are columns
-// col0..+7; b[2], b[3] columns col0+8..+15.
-template <int D>
-__device__ __forceinline__ void load_b_cols(uint32_t (&b)[4], const bf16* tile,
-                                            int row0, int col0, int lane) {
-  const int r = row0 + (lane % 8) + ((lane / 8) % 2) * 8;
-  ldsm_x4_t(b, tile + r * (D + kPad) + col0 + (lane / 16) * 8);
-}
-
-// Write a warp's 16 x D f32 accumulators (times `mul`) as bf16 into rows
-// row0.. of a tile, then copy the warp's rows to rows [out0, ...) of a
-// [S, D] slice with 16-byte stores. Only the calling warp's rows are used.
-template <int D>
-__device__ __forceinline__ void store_warp_rows(bf16* tile, int row0,
-                                                const float (&acc)[D / 8][4],
-                                                float mul_a, float mul_b,
-                                                bf16* out, int out0, int S,
-                                                int lane) {
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    bf16* r = tile + (row0 + g) * (D + kPad) + n * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(r) = pack_bf16(acc[n][0] * mul_a, acc[n][1] * mul_a);
-    *reinterpret_cast<uint32_t*>(r + 8 * (D + kPad)) =
-        pack_bf16(acc[n][2] * mul_b, acc[n][3] * mul_b);
-  }
-  __syncwarp();
-  constexpr int kChunks = D / 8;
-  for (int idx = lane; idx < 16 * kChunks; idx += 32) {
-    const int r = idx / kChunks;
-    const int c = idx - r * kChunks;
-    if (out0 + r < S)
-      *reinterpret_cast<uint4*>(out + (size_t)(out0 + r) * D + c * 8) =
-          *reinterpret_cast<const uint4*>(tile + (row0 + r) * (D + kPad) + c * 8);
-  }
-}
-
-// Key/value tile `tile` of a [S, D] slice into stage `st` of kv_s
-// ([2 stages][K, V][kTile][D + kPad]), with the tile's row of the batch's
-// key mask, times log2 e, into mask_s[st] (0 past S or without a mask)
-template <int D>
-__device__ __forceinline__ void load_kv_tile(bf16* kv_s, float* mask_s,
-                                             const bf16* k, const bf16* v,
-                                             const bf16* mask_b, int S,
-                                             int tile, int st) {
-  constexpr int kTileElems = kTile * (D + kPad);
-  const int k0 = tile * kTile;
-  bf16* ks = kv_s + st * 2 * kTileElems;
-  load_tile<D, kTile>(ks, k, k0, S);
-  load_tile<D, kTile>(ks + kTileElems, v, k0, S);
-  if (threadIdx.x < kTile) {
-    const int j = k0 + threadIdx.x;
-    mask_s[st * kTile + threadIdx.x] =
-        (mask_b != nullptr && j < S) ? __bfloat162float(mask_b[j]) * kLog2e : 0.f;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K2, dq (+ delta). One block per (b, h, 64 query rows); warp w owns rows
-// 16 w .. 16 w + 15, whose Q and dO rows sit in registers as A operands for
-// the whole key loop. The key/value tiles (and the mask row, times log2 e)
-// stream through two shared-memory stages by cp.async. Per 16 keys of a tile,
-// each warp computes S = Q K^T and dP = dO V^T (16 queries x 16 keys, f32),
-// then P = exp(S scale + mask_j - lse_i), the keep bits keep(rseed_i, j),
-// dS = P (drop(dP) - delta_i), and adds dq += bf16(dS) K, the B operand read
-// transposed (ldmatrix.trans) from the same K tile. dq is scaled by the
-// softmax scale once at the end. Causal: the key loop stops after the
-// block's last query row, and each element past its row's diagonal is
-// masked.
-// delta_i = sum_d dO_id O_id is computed here, not by a pass before: each
-// lane reads its rows' O elements straight from device memory in the
-// A-operand layout of its dO fragments (O is read once, so it is not
-// staged), multiplies the bf16 pairs in f32 and sums across the 4 lanes
-// that share a row. delta is used in place and written out for K3.
-// Live registers: the Q and dO fragments (D/4 each) and the dq accumulator
-// (D/2); 16 scores and 16 dP values per chunk beside them.
-// ---------------------------------------------------------------------------
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dq_tc_kernel(const Params p) {
-  constexpr int kStride = D + kPad;
-  constexpr int kTileElems = kTile * kStride;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kBlockRows][kStride]
-  bf16* do_s = q_s + kBlockRows * kStride;        // [kBlockRows][kStride]
-  bf16* kv_s = do_s + kBlockRows * kStride;       // [2 stages][K, V][kTile][kStride]
-  float* mask_s = reinterpret_cast<float*>(kv_s + 4 * kTileElems);  // [2][kTile]
-
-  const int S = p.S;
-  const int b = blockIdx.z, h = blockIdx.y, bh = b * p.H + h;
-  const int q0 = blockIdx.x * kBlockRows;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const size_t slice = (size_t)bh * S * D;
-  const bf16* k = static_cast<const bf16*>(p.k) + slice;
-  const bf16* v = static_cast<const bf16*>(p.v) + slice;
-  const bf16* mask =
-      p.mask != nullptr ? static_cast<const bf16*>(p.mask) + (size_t)b * S : nullptr;
-
-  const int k_end = p.causal ? min(S, q0 + kBlockRows) : S;
-  const int n_tiles = (k_end + kTile - 1) / kTile;
-
-  // two copy groups: Q and dO first, then the first key/value tile
-  load_tile<D, kBlockRows>(q_s, static_cast<const bf16*>(p.q) + slice, q0, S);
-  load_tile<D, kBlockRows>(do_s, static_cast<const bf16*>(p.dout) + slice, q0, S);
-  cp_async_commit();
-  load_kv_tile<D>(kv_s, mask_s, k, v, mask, S, 0, 0);
-  cp_async_commit();
-
-  // this lane's two query rows: a (g) and b (g + 8) of the warp's 16
-  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
-  const bool in_a = row_a < S, in_b = row_b < S;
-
-  // O of rows a and b in the A-operand layout (as dof below): of[kk][0..3]
-  // are rows a, b, a, b at columns 16 kk + 2 t (+1), plus 8 for [2] and [3];
-  // zero past S. Loaded now, so the loads fly while Q and dO land.
-  uint32_t of[D / 16][4];
-  {
-    const bf16* o = static_cast<const bf16*>(p.o) + slice;
-    const uint32_t* oa = reinterpret_cast<const uint32_t*>(o + (size_t)(in_a ? row_a : 0) * D);
-    const uint32_t* ob = reinterpret_cast<const uint32_t*>(o + (size_t)(in_b ? row_b : 0) * D);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = (kk * 16 + 2 * t) / 2;  // in bf16 pairs
-      of[kk][0] = in_a ? oa[c] : 0u;
-      of[kk][1] = in_b ? ob[c] : 0u;
-      of[kk][2] = in_a ? oa[c + 4] : 0u;
-      of[kk][3] = in_b ? ob[c + 4] : 0u;
-    }
-  }
-  const float lse_a = in_a ? p.lse[(size_t)bh * S + row_a] * kLog2e : 0.f;
-  const float lse_b = in_b ? p.lse[(size_t)bh * S + row_b] * kLog2e : 0.f;
-  uint32_t rseed_a = 0u, rseed_b = 0u;
-  if (p.dropout) {
-    const uint32_t seed = (uint32_t)(*p.seed);
-    rseed_a = row_seed(seed, drop_slice(p, b, h), (uint32_t)row_a);
-    rseed_b = row_seed(seed, drop_slice(p, b, h), (uint32_t)row_b);
-  }
-  const float scale_log2 = p.scale * kLog2e;
-
-  // Q and dO into registers, and delta, before the key loop, so that the O
-  // fragments are dead before it starts
-  cp_async_wait<1>();  // Q and dO landed; the first key/value tile may be in flight
-  __syncthreads();
-  uint32_t qf[D / 16][4], dof[D / 16][4];
-  float delta_a = 0.f, delta_b = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a<D>(qf[kk], q_s, warp * 16, kk * 16, lane);
-    load_a<D>(dof[kk], do_s, warp * 16, kk * 16, lane);
-    // the products of bf16 pairs are exact in f32
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dof[kk][r]));
-      const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&of[kk][r]));
-      if (r % 2 == 0) delta_a += x.x * y.x + x.y * y.y;
-      else delta_b += x.x * y.x + x.y * y.y;
-    }
-  }
-  delta_a = quad_sum(delta_a);
-  delta_b = quad_sum(delta_b);
-  if (t == 0) {
-    float* delta = p.out_f32 + (size_t)bh * S;
-    if (in_a) delta[row_a] = delta_a;
-    if (in_b) delta[row_b] = delta_b;
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int st = tile & 1;
-    if (tile + 1 < n_tiles) load_kv_tile<D>(kv_s, mask_s, k, v, mask, S, tile + 1, st ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile landed; the next may be in flight
-    __syncthreads();
-    const bf16* ks = kv_s + st * 2 * kTileElems;
-    const bf16* vs = ks + kTileElems;
-    const float* ms = mask_s + st * kTile;
-    const int k0 = tile * kTile;
-
-#pragma unroll
-    for (int c = 0; c < kTile / 16; ++c) {  // 16 keys at a time
-      // S = Q K^T and dP = dO V^T: 16 queries x 16 keys, 2 n-tiles each
-      float sc[2][4], dp[2][4];
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          sc[n][e] = 0.f;
-          dp[n][e] = 0.f;
-        }
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t bk[4], bv[4];
-        load_b_rows<D>(bk, ks, c * 16, kk * 16, lane);
-        load_b_rows<D>(bv, vs, c * 16, kk * 16, lane);
-        mma(sc[0], qf[kk], bk[0], bk[1]);
-        mma(sc[1], qf[kk], bk[2], bk[3]);
-        mma(dp[0], dof[kk], bv[0], bv[1]);
-        mma(dp[1], dof[kk], bv[2], bv[3]);
-      }
-
-      // element-wise, in f32; dS in bf16 is the A operand of dS K
-      uint32_t sa[4];
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int jl = c * 16 + n * 8 + 2 * t + (e & 1);
-          const int j = k0 + jl;
-          const int row = e < 2 ? row_a : row_b;
-          float pt = exp2f(sc[n][e] * scale_log2 + ms[jl] - (e < 2 ? lse_a : lse_b));
-          if (j >= S || (p.causal && j > row)) pt = 0.f;
-          float d = dp[n][e];
-          if (p.dropout)
-            d = keep(e < 2 ? rseed_a : rseed_b, (uint32_t)j, p.threshold) ? d * p.inv_keep
-                                                                          : 0.f;
-          ds[e] = pt * (d - (e < 2 ? delta_a : delta_b));
-        }
-        sa[n * 2] = pack_bf16(ds[0], ds[1]);
-        sa[n * 2 + 1] = pack_bf16(ds[2], ds[3]);
-      }
-
-      // dq += dS K: k = these 16 keys, n = D
-#pragma unroll
-      for (int dc = 0; dc < D / 16; ++dc) {
-        uint32_t bk[4];
-        load_b_cols<D>(bk, ks, c * 16, dc * 16, lane);
-        mma(acc[2 * dc], sa, bk[0], bk[1]);
-        mma(acc[2 * dc + 1], sa, bk[2], bk[3]);
-      }
-    }
-    __syncthreads();  // the stage is refilled by the next iteration's copy
-  }
-
-  // q_s is free (Q lives in registers since tile 0): stage dq there
-  store_warp_rows<D>(q_s, warp * 16, acc, p.scale, p.scale,
-                     static_cast<bf16*>(p.out0) + slice, q0 + warp * 16, S, lane);
-}
-
-// ---------------------------------------------------------------------------
-// Hopper: mbarriers, TMA, setmaxnreg and wgmma (K1 and K3)
-// ---------------------------------------------------------------------------
-
 constexpr int kWgRows = 64;        // output rows of one consumer warpgroup (wgmma M)
 constexpr int kMaxConsumers = 2;   // consumer warpgroups per block, at most
 constexpr int kFwdKeys = 128;      // keys per K1 stage
 constexpr int kProducerRegs = 56;  // setmaxnreg of a two-consumer block: the producer's
 constexpr int kConsumerRegs = 224; // and each consumer warpgroup's registers
 constexpr int kDkvStages = 3;      // query stages of K3
+constexpr int kDqKeys = 64;        // keys per K2 stage
+constexpr int kDqStages = 3;       // key/value stages of K2
 constexpr int kSmemLimit = 232448; // dynamic shared memory a block may opt into
+// K2's K and V boxes are K3's (kWgRows rows), so the two kernels share maps
+static_assert(kDqKeys == kWgRows, "K2 streams K and V in K3's boxes");
 
 // at D = 128 a block has one consumer warpgroup, so that its accumulators
 // (D/2 floats of each output a thread) get up to 255 registers
@@ -750,22 +411,23 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4], uint6
   }
 }
 
-// the arguments of K1 and K3 beside Params (__grid_constant__: they stay in
-// the parameter space, where TMA reads the maps): one tensor map of each
+// the arguments of each kernel beside Params (__grid_constant__: they stay
+// in the parameter space, where TMA reads the maps): one tensor map of each
 // operand a kernel copies with TMA, and the softmax scale times log2 e,
-// which an FFMA then reads from there and not from a register
+// which an FFMA then reads from there and not from a register. K2 and K3
+// copy the same four operands.
 struct FwdArgs {
   CUtensorMap q, k, v;
   float scale_log2;
 };
-struct DkvArgs {
+struct BwdArgs {
   CUtensorMap q, k, v, dout;
   float scale_log2;
 };
 
 // The block's batch, head and row block. Causal launches put the row
-// blocks in the slowest grid dimension, the heaviest first (K1's last, K3's
-// first), so that the longest blocks start in the first wave.
+// blocks in the slowest grid dimension, the heaviest first (K1's and K2's
+// last, K3's first), so that the longest blocks start in the first wave.
 struct BlockPos {
   int b, h, x;
 };
@@ -820,6 +482,24 @@ struct DkvLayout {
   static constexpr int kBars = kKeyMask + kKRows * 4;
   static constexpr int kSmem = kBars + 8 * (2 + 3 * kStages) + 1024;
   static_assert(kSmem <= kSmemLimit, "K3's shared memory exceeds a block's");
+};
+
+// K2's shared memory: the block's Q and dO rows (room for max_consumers
+// warpgroups), the K and V stages, each stage's mask row (f32, times
+// log2 e), then the barriers: q_full, kv_full[], m_full[], empty[].
+template <int D>
+struct DqLayout {
+  static constexpr int kStages = kDqStages;
+  static constexpr int kQRows = max_consumers<D>() * kWgRows;
+  static constexpr int kTileBytes = kDqKeys * D * 2;  // one K or V stage
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQ + kQRows * D * 2;
+  static constexpr int kK = kDo + kQRows * D * 2;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kMask = kV + kStages * kTileBytes;
+  static constexpr int kBars = kMask + kStages * kDqKeys * 4;
+  static constexpr int kSmem = kBars + 8 * (1 + 3 * kStages) + 1024;
+  static_assert(kSmem <= kSmemLimit, "K2's shared memory exceeds a block's");
 };
 
 // ---------------------------------------------------------------------------
@@ -1087,7 +767,7 @@ __global__ void __launch_bounds__(128 * (max_consumers<D>() + 1), 1)
 
 template <int D>
 __global__ void __launch_bounds__(128 * (max_consumers<D>() + 1), 1)
-    flash_dkv_tc_kernel(const Params p, const __grid_constant__ DkvArgs args) {
+    flash_dkv_tc_kernel(const Params p, const __grid_constant__ BwdArgs args) {
   using L = DkvLayout<D>;
   using T = Panels<D>;
   constexpr int kRows = L::kRows;
@@ -1337,13 +1017,261 @@ __global__ void __launch_bounds__(128 * (max_consumers<D>() + 1), 1)
 }
 
 // ---------------------------------------------------------------------------
-// Launch
+// K2, dq (+ delta). One block per (b, h, 64 or 128 query rows): each
+// consumer warpgroup c takes 64 rows (its warp w rows 64 c + 16 w .. + 15),
+// the last warpgroup produces. The producer warp copies the block's Q and
+// dO rows once and streams K and V tiles of 64 keys with their mask row
+// through the stages. Per tile, each consumer warpgroup computes S = Q K^T
+// and dP = dO V^T (64 rows x 64 keys, f32 in registers) with wgmma from
+// shared memory, then P = exp(S scale + mask_j - lse_i), the keep bits
+// keep(rseed_i, j), dS = P (drop(dP) - delta_i), and adds bf16(dS) K (dS
+// from registers, K from the stage S read, transposed by the instruction)
+// to its 64 x D accumulator. That product stays in flight while the next
+// tile's S and dP are issued: one wait covers all three, then the stage is
+// released. dq is scaled by the softmax scale once at the end. Causal: the
+// key loop stops after the block's last query row, and each element past
+// its row's diagonal is masked.
+// delta_i = sum_d dO_id O_id is computed by the consumers before the key
+// loop: each lane reads its two rows' O and dO pairs from device memory at
+// the columns its accumulator fragment holds, multiplies the bf16 pairs in
+// f32 and sums across the 4 lanes that share a row. delta is used in place
+// and written out for K3.
 // ---------------------------------------------------------------------------
 
-template <int D>
-constexpr size_t dq_smem() {
-  return sizeof(bf16) * (2 * kBlockRows + 4 * kTile) * (D + kPad) + sizeof(float) * 2 * kTile;
+// x . y of two bf16 pairs, in f32 (each product is exact)
+__device__ __forceinline__ float dot_bf16x2(uint32_t x, uint32_t y) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&y));
+  return a.x * b.x + a.y * b.y;
 }
+
+template <int D>
+__global__ void __launch_bounds__(128 * (max_consumers<D>() + 1), 1)
+    flash_dq_tc_kernel(const Params p, const __grid_constant__ BwdArgs args) {
+  using L = DqLayout<D>;
+  using T = Panels<D>;
+  constexpr int kDoBox = dkv_rows<D>();  // rows of a dO box: K3's, so the two share the map
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* kv_full = q_full + 1;
+  uint64_t* m_full = kv_full + L::kStages;
+  uint64_t* empty = m_full + L::kStages;
+  float* mask_s = reinterpret_cast<float*>(smem + L::kMask);  // [stage][kDqKeys]
+
+  const int consumers = blockDim.x / 128 - 1;
+  const int rows = consumers * kWgRows;
+  const int S = p.S;
+  const BlockPos pos = block_pos(p, true);
+  const int b = pos.b, h = pos.h, bh = b * p.H + h;
+  const int q0 = pos.x * rows;
+  const int k_end = p.causal ? min(S, q0 + rows) : S;
+  const int n_tiles = (k_end + kDqKeys - 1) / kDqKeys;
+
+  if (threadIdx.x == 0) {
+    prefetch_map(&args.q);
+    prefetch_map(&args.k);
+    prefetch_map(&args.v);
+    prefetch_map(&args.dout);
+    mbar_init(q_full, 1);
+    for (int st = 0; st < L::kStages; ++st) {
+      mbar_init(&kv_full[st], 1);
+      mbar_init(&m_full[st], 32);
+      mbar_init(&empty[st], consumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup, uniform across each warp (so that ptxas holds each role
+  // to its setmaxnreg count): consumers 0 .. consumers - 1, then the producer
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == consumers) {  // the producer warpgroup; its first warp works
+    if constexpr (max_consumers<D>() > 1) setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x % 128 >= 32) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * rows * D * 2);
+      for (int w = 0; w < consumers; ++w)
+        for (int c = 0; c < T::kCount; ++c) {
+          const int at = c * L::kQRows * T::R + w * kWgRows * T::R;
+          tma_load(smem + L::kQ + at, &args.q, q_full, c * T::P, q0 + w * kWgRows, bh);
+          for (int r = 0; r < kWgRows; r += kDoBox)
+            tma_load(smem + L::kDo + at + r * T::R, &args.dout, q_full, c * T::P,
+                     q0 + w * kWgRows + r, bh);
+        }
+    }
+    const bf16* mask =
+        p.mask != nullptr ? static_cast<const bf16*>(p.mask) + (size_t)b * S : nullptr;
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int st = tile % L::kStages;
+      mbar_wait(&empty[st], ((tile / L::kStages) & 1) ^ 1);
+      const int k0 = tile * kDqKeys;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&kv_full[st], 2 * L::kTileBytes);
+        for (int c = 0; c < T::kCount; ++c) {
+          const int at = st * L::kTileBytes + c * kDqKeys * T::R;
+          tma_load(smem + L::kK + at, &args.k, &kv_full[st], c * T::P, k0, bh);
+          tma_load(smem + L::kV + at, &args.v, &kv_full[st], c * T::P, k0, bh);
+        }
+      }
+      float* ms = mask_s + st * kDqKeys;
+      for (int j = lane; j < kDqKeys; j += 32)
+        ms[j] = (mask != nullptr && k0 + j < S) ? __bfloat162float(mask[k0 + j]) * kLog2e : 0.f;
+      mbar_arrive(&m_full[st]);
+    }
+    return;
+  }
+
+  if constexpr (max_consumers<D>() > 1) setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg;  // consumer warpgroup
+  // with two consumer warpgroups, each issues its products in its turn
+  // (warpgroup 0 first), so one's tensor-core work runs while the other
+  // does its element-wise work
+  const bool turns = consumers > 1;
+  if (turns && cw == 1) turn_pass(1);
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int warp_row0 = q0 + cw * kWgRows + warp * 16;
+  // this lane's two query rows: a (g) and b (g + 8) of the warp's 16
+  const int row_a = warp_row0 + g, row_b = row_a + 8;
+  const bool in_a = row_a < S, in_b = row_b < S;
+  const size_t slice = (size_t)bh * S;
+
+  // delta of rows a and b: the bf16 pairs at columns 8 i + 2 t, summed
+  // across the quad; 0 past S
+  float delta_a = 0.f, delta_b = 0.f;
+  {
+    const uint32_t* o = static_cast<const uint32_t*>(p.o) + slice * (D / 2);
+    const uint32_t* dout = static_cast<const uint32_t*>(p.dout) + slice * (D / 2);
+    const size_t at_a = (size_t)(in_a ? row_a : 0) * (D / 2) + t;
+    const size_t at_b = (size_t)(in_b ? row_b : 0) * (D / 2) + t;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      if (in_a) delta_a += dot_bf16x2(dout[at_a + 4 * i], o[at_a + 4 * i]);
+      if (in_b) delta_b += dot_bf16x2(dout[at_b + 4 * i], o[at_b + 4 * i]);
+    }
+  }
+  delta_a = quad_sum(delta_a);
+  delta_b = quad_sum(delta_b);
+  if (t == 0) {
+    if (in_a) p.out_f32[slice + row_a] = delta_a;
+    if (in_b) p.out_f32[slice + row_b] = delta_b;
+  }
+  const float lse_a = in_a ? p.lse[slice + row_a] * kLog2e : 0.f;
+  const float lse_b = in_b ? p.lse[slice + row_b] * kLog2e : 0.f;
+  uint32_t rseed_a = 0u, rseed_b = 0u;
+  if (p.dropout) {
+    const uint32_t seed = (uint32_t)(*p.seed);
+    rseed_a = row_seed(seed, drop_slice(p, b, h), (uint32_t)row_a);
+    rseed_b = row_seed(seed, drop_slice(p, b, h), (uint32_t)row_b);
+  }
+  const uint32_t base = smem_addr(smem);
+
+  float dq[D / 2], s[kDqKeys / 2], dp[kDqKeys / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kDqKeys / 2; ++i) {
+    s[i] = 0.f;
+    dp[i] = 0.f;
+  }
+
+  uint32_t sa[kDqKeys / 16][4];  // dS in bf16, the A operand of dS K
+  mbar_wait(q_full, 0);
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int st = tile % L::kStages;
+    const uint32_t phase = (tile / L::kStages) & 1;
+    const int k0 = tile * kDqKeys;
+    const uint32_t ks = base + L::kK + st * L::kTileBytes;
+
+    // S = Q K^T and dP = dO V^T: 64 rows x 64 keys. The previous tile's
+    // dS K may still run: one wait covers all three, then that tile's
+    // stage is released.
+    mbar_wait(&kv_full[st], phase);
+    if (turns) turn_wait(1 + cw);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<kDqKeys>(s, desc_k<D>(base + L::kQ, L::kQRows, cw * kWgRows, kk),
+                        desc_k<D>(ks, kDqKeys, 0, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<kDqKeys>(dp, desc_k<D>(base + L::kDo, L::kQRows, cw * kWgRows, kk),
+                        desc_k<D>(base + L::kV + st * L::kTileBytes, kDqKeys, 0, kk), kk);
+    wgmma_commit();
+    if (turns && !(cw == 1 && tile == n_tiles - 1)) turn_pass(2 - cw);
+    wgmma_wait_all();
+    fence_regs<kDqKeys / 2>(s);
+    fence_regs<kDqKeys / 2>(dp);
+    fence_regs<D / 2>(dq);
+    if (tile > 0) mbar_arrive(&empty[(tile - 1) % L::kStages]);
+
+    // P, the keep bits and dS in f32; bf16(dS) becomes the A operand of
+    // dS K, chunk c covering keys 16 c .. 16 c + 15. The bounds and dropout
+    // tests are resolved per tile, as in K1.
+    mbar_wait(&m_full[st], phase);
+    const float* ms = mask_s + st * kDqKeys;
+    const bool edge = k0 + kDqKeys > S || (p.causal && k0 + kDqKeys - 1 > warp_row0);
+    auto elementwise = [&](auto edge_c, auto dropout_c) {
+      constexpr bool kEdge = decltype(edge_c)::value, kDropout = decltype(dropout_c)::value;
+#pragma unroll
+      for (int n = 0; n < kDqKeys / 8; ++n) {
+        const float2 mk = *reinterpret_cast<const float2*>(ms + n * 8 + 2 * t);
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = k0 + n * 8 + 2 * t + (e & 1);
+          float pt = exp2_ftz(fmaf(s[4 * n + e], args.scale_log2, (e & 1) ? mk.y : mk.x) -
+                              (e < 2 ? lse_a : lse_b));
+          if constexpr (kEdge) {
+            if (j >= S || (p.causal && j > (e < 2 ? row_a : row_b))) pt = 0.f;
+          }
+          float d = dp[4 * n + e];
+          if constexpr (kDropout)
+            d = keep(e < 2 ? rseed_a : rseed_b, (uint32_t)j, p.threshold) ? d * p.inv_keep : 0.f;
+          ds[e] = pt * (d - (e < 2 ? delta_a : delta_b));
+        }
+        sa[n / 2][(n % 2) * 2] = pack_bf16(ds[0], ds[1]);
+        sa[n / 2][(n % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+    };
+    if (edge) {
+      if (p.dropout) elementwise(std::true_type(), std::true_type());
+      else elementwise(std::true_type(), std::false_type());
+    } else {
+      if (p.dropout) elementwise(std::false_type(), std::true_type());
+      else elementwise(std::false_type(), std::false_type());
+    }
+
+    // dq += dS K: k = the tile's 64 keys, n = D (one wgmma per panel)
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kDqKeys / 16; ++c)
+#pragma unroll
+      for (int pn = 0; pn < T::kCount; ++pn)
+        wgmma_rs<T::P>(dq + pn * (T::P / 2), sa[c], desc_mn<D>(ks, kDqKeys, pn, c), 1);
+    wgmma_commit();
+  }
+  wgmma_wait_all();
+  fence_regs<D / 2>(dq);
+
+  bf16* out = static_cast<bf16*>(p.out0) + slice * D;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int col = 8 * i + 2 * t;
+    if (in_a)
+      *reinterpret_cast<uint32_t*>(out + (size_t)row_a * D + col) =
+          pack_bf16(dq[4 * i] * p.scale, dq[4 * i + 1] * p.scale);
+    if (in_b)
+      *reinterpret_cast<uint32_t*>(out + (size_t)row_b * D + col) =
+          pack_bf16(dq[4 * i + 2] * p.scale, dq[4 * i + 3] * p.scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
 
 // libcuda's cuTensorMapEncodeTiled, reached through the runtime, so the
 // library needs no -lcuda; nullptr where libcuda lacks it
@@ -1385,8 +1313,15 @@ struct MapKey {
   }
 };
 
+// every lookup and every encode (a miss) of the caches of all threads, for
+// flash_tc_map_lookups and flash_tc_map_encodes
+std::atomic<long long> map_lookups{0}, map_encodes{0};
+
 struct MapCache {
-  static constexpr int kSize = 32;
+  // a layer's three kernels use 6 maps at D = 64; with 32 entries a
+  // scan-mode BERT-Small update (4 layers x K = 4 micro-batches, whose
+  // activations move between micro-batches) missed 43 of its 176 lookups
+  static constexpr int kSize = 128;
   MapKey keys[kSize];
   CUtensorMap maps[kSize];
   int used = 0, next = 0;
@@ -1395,6 +1330,7 @@ struct MapCache {
 bool tensor_map(CUtensorMap* out, const void* ptr, int slices, int S, int D, int box_rows) {
   thread_local MapCache cache;
   const MapKey key{ptr, slices, S, D, box_rows};
+  map_lookups.fetch_add(1, std::memory_order_relaxed);
   for (int i = 0; i < cache.used; ++i)
     if (cache.keys[i] == key) {
       *out = cache.maps[i];
@@ -1402,6 +1338,16 @@ bool tensor_map(CUtensorMap* out, const void* ptr, int slices, int S, int D, int
     }
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
+  // the encoder is a driver call and fails (CUDA_ERROR_INVALID_CONTEXT)
+  // unless the device's context is current in this thread. The runtime
+  // makes it current at a thread's first runtime call that needs it, which
+  // a fresh thread may not have made yet: autograd's device thread, when
+  // the attention's backward is the first node it runs.
+  thread_local const bool bound = [] {
+    int dev = 0;
+    return cudaGetDevice(&dev) == cudaSuccess && cudaSetDevice(dev) == cudaSuccess;
+  }();
+  if (!bound) return false;
   const int P = D < 64 ? D : 64;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)slices};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
@@ -1410,6 +1356,7 @@ bool tensor_map(CUtensorMap* out, const void* ptr, int slices, int S, int D, int
   const CUtensorMapSwizzle swizzle = P == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : P == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  map_encodes.fetch_add(1, std::memory_order_relaxed);
   int slot = cache.next;
   if (cache.used < MapCache::kSize) slot = cache.used++;
   else cache.next = (cache.next + 1) % MapCache::kSize;
@@ -1439,7 +1386,7 @@ int consumers_for(int most, int slices, int S) {
   return most >= kMaxConsumers && slices * ((S + rows - 1) / rows) >= sms ? kMaxConsumers : 1;
 }
 
-// K1 or K3: the shared-memory opt-in once per kernel instance, then the
+// Each kernel: the shared-memory opt-in once per kernel instance, then the
 // launch on (row blocks, H, B), or (H, B, row blocks) when causal, with
 // `consumers` warpgroups and the producer's
 template <typename Args, void (*Kernel)(Params, Args)>
@@ -1469,9 +1416,26 @@ int launch_fwd(const Params& p, int B, cudaStream_t stream) {
                                                         p, B, args, stream);
 }
 
+// K2's K and V maps are K3's (kDqKeys = kWgRows rows) and its dO map too
+// (dkv_rows rows, two boxes a warpgroup at D = 128): per layer it adds no
+// map to the cache that K1 and K3 have not already filled
+template <int D>
+int launch_dq(const Params& p, int B, cudaStream_t stream) {
+  BwdArgs args;
+  args.scale_log2 = p.scale * kLog2e;
+  const int slices = B * p.H;
+  if (!tensor_map(&args.q, p.q, slices, p.S, D, kWgRows) ||
+      !tensor_map(&args.k, p.k, slices, p.S, D, kDqKeys) ||
+      !tensor_map(&args.v, p.v, slices, p.S, D, kDqKeys) ||
+      !tensor_map(&args.dout, p.dout, slices, p.S, D, dkv_rows<D>()))
+    return (int)cudaErrorInvalidValue;
+  return launch_hopper<BwdArgs, flash_dq_tc_kernel<D>>(DqLayout<D>::kSmem, max_consumers<D>(),
+                                                       p, B, args, stream);
+}
+
 template <int D>
 int launch_dkv(const Params& p, int B, cudaStream_t stream) {
-  DkvArgs args;
+  BwdArgs args;
   args.scale_log2 = p.scale * kLog2e;
   const int slices = B * p.H;
   if (!tensor_map(&args.k, p.k, slices, p.S, D, kWgRows) ||
@@ -1479,7 +1443,7 @@ int launch_dkv(const Params& p, int B, cudaStream_t stream) {
       !tensor_map(&args.q, p.q, slices, p.S, D, dkv_rows<D>()) ||
       !tensor_map(&args.dout, p.dout, slices, p.S, D, dkv_rows<D>()))
     return (int)cudaErrorInvalidValue;
-  return launch_hopper<DkvArgs, flash_dkv_tc_kernel<D>>(DkvLayout<D>::kSmem, max_consumers<D>(),
+  return launch_hopper<BwdArgs, flash_dkv_tc_kernel<D>>(DkvLayout<D>::kSmem, max_consumers<D>(),
                                                         p, B, args, stream);
 }
 
@@ -1488,9 +1452,7 @@ enum Which { kFwd, kDq, kDkv };
 template <int D>
 int launch_d(Which which, const Params& p, int B, cudaStream_t stream) {
   if (which == kFwd) return launch_fwd<D>(p, B, stream);
-  if (which == kDq)
-    return flash::launch<flash_dq_tc_kernel<D>>(dq_smem<D>(), p, B, kBlockRows, kThreads,
-                                                stream);
+  if (which == kDq) return launch_dq<D>(p, B, stream);
   return launch_dkv<D>(p, B, stream);
 }
 
@@ -1565,3 +1527,10 @@ extern "C" int flash_bwd_dkv_tc(int dtype, int D, const void* q, const void* k,
   p.out_f32 = dmask;
   return dispatch(kDkv, dtype, D, p, B, stream);
 }
+
+// The tensor-map caches' counts since the library was loaded: lookups (one
+// for each map a launch needs) and encodes (the lookups that missed, each a
+// call into libcuda)
+extern "C" long long flash_tc_map_lookups() { return map_lookups.load(); }
+
+extern "C" long long flash_tc_map_encodes() { return map_encodes.load(); }

@@ -6,10 +6,8 @@ kernels of the TPU package (forward ``_fwd_kernel``, ``_dq_kernel`` and
 dtype and nothing else:
 
 - ``tc`` (``csrc/flash_attention_tc.cu``): every bfloat16 kernel on the
-  tensor cores: the forward and dk/dv kernels as Hopper designs (a producer
-  warp's TMA copies into mbarrier stages, ``wgmma`` from shared memory in
-  consumer warpgroups), the dq kernel with ``mma.sync``, ``ldmatrix`` and
-  ``cp.async``.
+  tensor cores, all three Hopper designs (a producer warp's TMA copies into
+  mbarrier stages, ``wgmma`` from shared memory in consumer warpgroups).
 - ``tf32x3`` (``csrc/flash_attention.cu``): every float32 kernel on the
   tensor cores in 3xTF32 (each operand split into two TF32 parts, three
   products per product), which holds float32's tolerances where a single
@@ -216,6 +214,10 @@ _SOURCES = {
 }
 
 
+# the bf16 library's counts of its tensor-map cache: {count: C function}
+_MAP_COUNTS = {"lookups": "flash_tc_map_lookups", "encodes": "flash_tc_map_encodes"}
+
+
 def build_kernels() -> dict:
     """Build (at first call) and load both CUDA sources; ``{route: CDLL}``."""
     if not _libs:
@@ -228,6 +230,8 @@ def build_kernels() -> dict:
                 fn.argtypes = _ARGTYPES[name]
                 fn.restype = _I
             _libs[r] = lib
+        for symbol in _MAP_COUNTS.values():
+            getattr(_libs["tc"], symbol).restype = ctypes.c_longlong
     return _libs
 
 
@@ -379,6 +383,14 @@ def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
         fn.route_launches = {r: 0 for r in _SOURCES}
+
+
+def tc_map_counts() -> dict:
+    """The bf16 kernels' tensor maps since the library was loaded:
+    ``lookups`` (one for each map a launch needs) and ``encodes`` (the
+    lookups the cache missed, each a host call into libcuda)."""
+    lib = build_kernels()["tc"]
+    return {name: getattr(lib, symbol)() for name, symbol in _MAP_COUNTS.items()}
 
 
 def launch_counts() -> dict:

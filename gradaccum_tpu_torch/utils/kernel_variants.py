@@ -21,7 +21,8 @@ Two kinds of variant:
   dropout 0.1), and the long-context shapes [32, 8, 512, 64],
   [8, 8, 2048, 64] and [2, 8, 8192, 64] with a padded mask (dropout 0).
   Beside each card time stands the wrapper's wall time per call with its
-  dispatch (CUDA events over back-to-back calls).
+  dispatch (CUDA events over back-to-back calls); a closing line per
+  kernel gives its card times at every shape in the order of the turns.
 
 Every source is built with the package's nvcc flags (a variant into
 ``build/variants/<name>/``). Card time per call is the device time of the
@@ -359,7 +360,21 @@ def run_tc(source) -> dict:
             torch.cuda.empty_cache()
     finally:
         fa._libs["tc"] = libs["checkout"]
+    _print_turns(result, order)
     return result
+
+
+def _print_turns(result, order):
+    """One line per kernel: its card ms at every shape in the order the
+    turns were taken, and the variant's time over the checkout's."""
+    for name in TC_KERNELS:
+        cells = []
+        for label, row in result.items():
+            taken = {key: iter(ts) for key, ts in row["ms"][name].items()}
+            turns = " ".join(f"{next(taken[key]):.4f}" for key in order)
+            ratio = (sum(row["ms"][name]["variant"]) / sum(row["ms"][name]["checkout"]))
+            cells.append(f"{label} {turns} (variant/checkout {ratio:.2f})")
+        print(f"[variants] {name} card ms in turns ({', '.join(order)}): " + "; ".join(cells))
 
 
 def run_f32(names) -> dict:

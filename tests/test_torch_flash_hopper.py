@@ -1,16 +1,21 @@
-"""The Hopper designs of the bf16 forward (K1) and dk/dv (K3) kernels, on the CPU.
+"""The Hopper designs of the bf16 forward (K1), dq (K2) and dk/dv (K3)
+kernels, on the CPU.
 
 No compiler and no card run here, so this file holds what the CPU can:
 
 - the launch geometry that ``csrc/flash_attention_tc.cu`` chooses in C,
   written out here as :func:`tc_geometry` (its constants read back out of
   the source): every supported head dim and sequence length fits a
-  block's shared memory, every tensor map's box fits its swizzle, and
-  BERT-Small's [8, 8, 128, 64] still launches a block per SM;
-- that the two kernels issue ``wgmma.mma_async`` and TMA copies
-  (``cp.async.bulk.tensor``) on mbarrier stages, and no ``mma.sync``,
-  ``ldmatrix`` or ``cp.async`` of the design they replaced, following the
-  source's calls from each kernel down to the PTX it reaches;
+  block's shared memory, every tensor map's box fits its swizzle, K2's
+  maps are maps K1 and K3 already use, and BERT-Small's [8, 8, 128, 64]
+  still launches a block per SM;
+- that the three kernels issue ``wgmma.mma_async`` and TMA copies
+  (``cp.async.bulk.tensor``) on mbarrier stages, following the source's
+  calls from each kernel down to the PTX it reaches, and that no
+  ``mma.sync``, ``ldmatrix`` or ``cp.async`` of the design they replaced
+  is left in the source;
+- that the library exports the counts of its tensor-map cache that the
+  wrapper reads;
 - the arguments of ``utils/kernel_variants.py`` that time a whole bf16
   source (an earlier commit's) against the checkout's on the card.
 """
@@ -24,15 +29,18 @@ from gradaccum_tpu_torch.utils import cuda_build, kernel_variants
 
 pytestmark = pytest.mark.torch
 
-# The launch geometry of the bf16 forward (K1) and dk/dv (K3) kernels as
-# csrc/flash_attention_tc.cu chooses it in C: its constants (kWgRows,
-# kMaxConsumers, kFwdKeys, kDkvStages, max_consumers, fwd_stages, dkv_rows,
-# kSmemLimit; read back out of the source below) and its rule
-# (consumers_for, FwdLayout, DkvLayout), written out here
+# The launch geometry of the bf16 forward (K1), dq (K2) and dk/dv (K3)
+# kernels as csrc/flash_attention_tc.cu chooses it in C: its constants
+# (kWgRows, kMaxConsumers, kFwdKeys, kDkvStages, kDqKeys, kDqStages,
+# max_consumers, fwd_stages, dkv_rows, kSmemLimit; read back out of the
+# source below) and its rule (consumers_for, FwdLayout, DqLayout,
+# DkvLayout), written out here
 TC_WG_ROWS = 64  # rows of one consumer warpgroup: wgmma's M
 TC_MAX_CONSUMERS = 2  # consumer warpgroups per block, at most
 TC_FWD_KEYS = 128  # keys per K1 stage
 TC_DKV_STAGES = 3  # query stages of K3
+TC_DQ_KEYS = 64  # keys per K2 stage
+TC_DQ_STAGES = 3  # key/value stages of K2
 TC_SMEM_LIMIT = 232448  # dynamic shared memory an H100 block may opt into
 
 
@@ -49,7 +57,7 @@ def tc_dkv_rows(d: int) -> int:
 
 
 def tc_geometry(kernel: str, shape, sm_count: int = 132, causal: bool = False) -> dict:
-    """How the bf16 ``flash_fwd`` or ``flash_bwd_dkv`` kernel launches on
+    """How the bf16 ``flash_fwd``, ``flash_bwd_dq`` or ``flash_bwd_dkv`` kernel launches on
     q of ``shape`` [B, H, S, D] on a card of ``sm_count`` SMs: consumer
     warpgroups per block (two, 128 rows, when the kernel has room for two,
     as it has below D = 128, and the grid of 128-row blocks fills every SM
@@ -72,6 +80,14 @@ def tc_geometry(kernel: str, shape, sm_count: int = 132, causal: bool = False) -
         per_stage = 2 * stream * d * 2 + stream * 4  # K, V, the mask row
         barriers = 1 + 4 * stages
         boxes = {"q": (panel, TC_WG_ROWS), "k": (panel, stream), "v": (panel, stream)}
+    elif kernel == "flash_bwd_dq":
+        stages, stream = TC_DQ_STAGES, TC_DQ_KEYS
+        fixed = 2 * room * d * 2  # Q, dO
+        per_stage = 2 * stream * d * 2 + stream * 4  # K, V, the mask row
+        barriers = 1 + 3 * stages
+        # dO in K3's boxes (two a warpgroup at D = 128), so that K2 shares its map
+        boxes = {"q": (panel, TC_WG_ROWS), "k": (panel, stream), "v": (panel, stream),
+                 "dout": (panel, tc_dkv_rows(d))}
     elif kernel == "flash_bwd_dkv":
         stages, stream = TC_DKV_STAGES, tc_dkv_rows(d)
         fixed = 2 * room * d * 2 + room * 4  # K, V, the key mask
@@ -80,7 +96,8 @@ def tc_geometry(kernel: str, shape, sm_count: int = 132, causal: bool = False) -
         boxes = {"k": (panel, TC_WG_ROWS), "v": (panel, TC_WG_ROWS),
                  "q": (panel, stream), "dout": (panel, stream)}
     else:
-        raise ValueError(f"{kernel}: only flash_fwd and flash_bwd_dkv are Hopper kernels")
+        raise ValueError(f"{kernel}: the bf16 kernels are flash_fwd, flash_bwd_dq and "
+                         f"flash_bwd_dkv")
     grid = (h, b, -(-s // rows)) if causal else (-(-s // rows), h, b)
     return {"consumers": consumers, "threads": 128 * (consumers + 1), "rows_per_block": rows,
             "grid": grid, "blocks": grid[0] * grid[1] * grid[2], "stages": stages,
@@ -89,7 +106,7 @@ def tc_geometry(kernel: str, shape, sm_count: int = 132, causal: bool = False) -
 
 
 SOURCE = cuda_build.CSRC_DIR / "flash_attention_tc.cu"
-HOPPER = ("flash_fwd", "flash_bwd_dkv")
+HOPPER = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SEQS = (1, 16, 64, 100, 128, 129, 200, 256, 512, 1000, 2048, 8192, 16384)
 
 
@@ -164,9 +181,10 @@ def _reached(text, kernel):
     return "".join(funcs[name][0] for name in seen), seen
 
 
-@pytest.mark.parametrize("kernel", ["flash_fwd_tc_kernel", "flash_dkv_tc_kernel"])
+@pytest.mark.parametrize("kernel", ["flash_fwd_tc_kernel", "flash_dq_tc_kernel",
+                                    "flash_dkv_tc_kernel"])
 def test_hopper_kernels_issue_wgmma_on_tma_stages(kernel):
-    """K1 and K3 reach wgmma from shared-memory descriptors, TMA copies
+    """K1, K2 and K3 reach wgmma from shared-memory descriptors, TMA copies
     completing on mbarriers, the named barriers of the consumers' turns
     and setmaxnreg; none of the mma.sync design's instructions; one __syncthreads
     (after the barriers' init), none in the loop."""
@@ -183,12 +201,31 @@ def test_hopper_kernels_issue_wgmma_on_tma_stages(kernel):
     assert body.count("__syncthreads()") == 1
 
 
-def test_dq_kernel_keeps_its_mma_sync_design():
-    """K2 is not redesigned here: it still reaches mma.sync and cp.async,
-    and no Hopper instruction."""
-    ptx, _ = _reached(SOURCE.read_text(), "flash_dq_tc_kernel")
-    assert "mma.sync" in ptx and "cp.async.cg" in ptx
-    assert "wgmma" not in ptx and "cp.async.bulk" not in ptx
+def _code(text):
+    """``text`` without its comments: the code and its string literals (the
+    asm templates among them)."""
+    return re.sub(r"//[^\n]*", "", re.sub(r"/\*.*?\*/", "", text, flags=re.S))
+
+
+@pytest.mark.parametrize("instruction", ["mma.sync", "ldmatrix", "cp.async.cg",
+                                         "cp.async.commit_group", "cp.async.wait_group"])
+def test_no_instruction_of_the_mma_sync_design_is_left(instruction):
+    """The mma.sync design is gone from the whole bf16 source, not only
+    from the kernels' reach: no code names its instructions (the header's
+    comment still tells of it), so no switch or fallback can reach it."""
+    assert instruction not in _code(SOURCE.read_text())
+
+
+def test_every_kernel_of_the_source_is_a_hopper_kernel():
+    """Each __global__ function of the bf16 source is one of the three
+    Hopper kernels, launched through launch_hopper with its tensor maps,
+    and nothing launches through the mma.sync kernels' flash::launch."""
+    code = _code(SOURCE.read_text())
+    kernels = set(re.findall(r"__global__\s[^;{]*?(\w+)\(const Params\b", code))
+    assert kernels == {"flash_fwd_tc_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kernel"}
+    for kernel in kernels:
+        assert re.search(rf"launch_hopper<\w+, {kernel}<D>>", code), kernel
+    assert "flash::launch" not in code
 
 
 def test_source_reader_finds_every_kernel():
@@ -210,6 +247,8 @@ def test_geometry_constants_are_the_sources():
     assert const("kMaxConsumers") == TC_MAX_CONSUMERS
     assert const("kFwdKeys") == TC_FWD_KEYS
     assert const("kDkvStages") == TC_DKV_STAGES
+    assert const("kDqKeys") == TC_DQ_KEYS
+    assert const("kDqStages") == TC_DQ_STAGES
     assert const("kSmemLimit") == TC_SMEM_LIMIT
     for name, rule in (("max_consumers", tc_max_consumers),
                        ("fwd_stages", tc_fwd_stages), ("dkv_rows", tc_dkv_rows)):
@@ -245,7 +284,7 @@ def test_every_head_dim_and_length_fits_a_block(kernel, d):
 
 def test_bert_shape_keeps_a_block_per_sm():
     """BERT-Small's [8, 8, 128, 64] launches 128 blocks of one consumer
-    warpgroup (64 rows) in both kernels, as the mma.sync kernels did;
+    warpgroup (64 rows) in all three kernels, as the mma.sync kernels did;
     the long-context shapes launch 128-row blocks of two."""
     for kernel in HOPPER:
         geo = tc_geometry(kernel, (8, 8, 128, 64))
@@ -254,9 +293,31 @@ def test_bert_shape_keeps_a_block_per_sm():
             assert tc_geometry(kernel, shape)["consumers"] == 2, shape
 
 
-def test_geometry_rejects_the_dq_kernel():
+@pytest.mark.parametrize("kernel", ["flash_bwd", "flash_dq_tc_kernel", ""])
+def test_geometry_rejects_an_unknown_kernel(kernel):
     with pytest.raises(ValueError):
-        tc_geometry("flash_bwd_dq", (8, 8, 128, 64))
+        tc_geometry(kernel, (8, 8, 128, 64))
+
+
+@pytest.mark.parametrize("d", fa._SUPPORTED_D)
+def test_dq_kernel_adds_no_tensor_map(d):
+    """The map cache keys a map on (tensor, box rows) at a given D: each
+    map K2 asks for is one K1 or K3 already asks for in the same layer, so
+    a layer's backward holds no more maps than before K2 used TMA."""
+    def maps(kernel):
+        return {(name, rows) for name, (_, rows) in
+                tc_geometry(kernel, (8, 8, 512, d))["boxes"].items()}
+
+    assert maps("flash_bwd_dq") <= maps("flash_fwd") | maps("flash_bwd_dkv")
+
+
+def test_map_counts_are_exported():
+    """The wrapper's tc_map_counts reads two functions of the bf16 library;
+    the source exports both, taking no argument and returning a count."""
+    text = SOURCE.read_text()
+    exported = set(re.findall(r'extern "C" long long (\w+)\(\)', text))
+    assert set(fa._MAP_COUNTS.values()) == exported
+    assert re.search(r"static constexpr int kSize = (\d+);", text)
 
 
 @pytest.mark.parametrize("argv, want", [
@@ -301,3 +362,30 @@ def test_tc_source_is_staged_beside_its_headers(tmp_path, own_header):
     assert header == ("// the parent's header\n" if own_header else checkout)
     with pytest.raises(FileNotFoundError):
         kernel_variants.stage_tc_source(parent / "missing.cu", tmp_path / "out2")
+
+
+def test_turns_are_printed_in_the_order_taken(capsys):
+    """The closing line of a bf16 comparison gives each kernel's card ms at
+    every shape in the order the turns ran, and the variant over the
+    checkout."""
+    order = ["checkout", "variant", "variant", "checkout"]
+    ms = {name: {"checkout": [1.0, 1.2], "variant": [2.0, 2.4]}
+          for name in kernel_variants.TC_KERNELS}
+    kernel_variants._print_turns({"long8192": {"ms": ms}}, order)
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == len(kernel_variants.TC_KERNELS)
+    assert "flash_bwd_dq" in lines[1]
+    assert "long8192 1.0000 2.0000 2.4000 1.2000 (variant/checkout 2.00)" in lines[1]
+
+
+def test_map_encoder_binds_the_context_first():
+    """cuTensorMapEncodeTiled is a driver call that fails with
+    CUDA_ERROR_INVALID_CONTEXT in a thread where the runtime has not yet
+    made the device's context current (autograd's device thread, when the
+    attention's backward is the first node it runs): the cache binds it,
+    once per thread, before its first encode."""
+    code = _code(SOURCE.read_text())
+    body = code[code.index("bool tensor_map("):]
+    body = body[:body.index("\n}\n")]
+    assert "thread_local const bool bound" in body
+    assert body.index("cudaSetDevice(dev)") < body.index("encode(&cache.maps[slot]")
