@@ -9,7 +9,10 @@ Phases, each of which fails the run if it fails:
    nvcc (one process per source, all started together); print the time and
    each kernel's registers and spills as ptxas reports them, and fail if
    any float32 or bfloat16 kernel (forward, dq, dk/dv; the bfloat16 ones
-   Hopper designs: TMA, mbarriers, wgmma) spills at any head dim.
+   and the float32 dq and dk/dv Hopper designs: TMA, mbarriers, wgmma)
+   spills at any head dim, or if ptxas serializes the wgmma of the float32
+   dq or dk/dv kernel (its C7515 report; every kernel it serializes is
+   printed).
 2. kernels: hold each kernel against its plain PyTorch version on the card
    at the BERT-Small main-path shape q/k/v [8, 8, 128, 64], in float32
    (``flash_attention.cu``: forward, dq and dk/dv on the tensor cores in
@@ -27,9 +30,9 @@ Phases, each of which fails the run if it fails:
    place (``head_offset=4, heads_total=8``): their keep mask exactly the
    slice of the 8-head plain mask, and o, lse, dq, dk, dv within TOL of
    the slice of the plain version's outputs on all 8 heads, in float32 and
-   bfloat16; and the bfloat16 kernels launched first from a fresh thread
-   (as autograd's device thread launches them), their outputs equal to the
-   main thread's. Then time each kernel, its plain version
+   bfloat16; and the kernels of each dtype launched first from a fresh
+   thread (as autograd's device thread launches them), their outputs equal
+   to the main thread's. Then time each kernel, its plain version
    and the PyTorch call that computes the same function
    (scaled_dot_product_attention's forward, and its backward, which
    computes dq, dk and dv together, for both backward kernels; never used
@@ -480,6 +483,10 @@ EXTRA_SHAPES = [(B, H, 100, D), (B, H, 200, D), (B, H, S, 128), (B, H, S, 16),
 # float32 kernel, and the three bfloat16 ones (Hopper designs)
 NO_SPILL = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
             "flash_fwd_tc_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kernel")
+# the kernels whose wgmma ptxas must not serialize (its C7515 report: every
+# product then waits for the one before), at every head dim: the float32
+# dq and dk/dv kernels. The build prints every kernel it reports.
+NO_SERIAL = ("flash_dq_kernel", "flash_dkv_kernel")
 # GPT-Small's attention (micro 8, 8 heads, seq 512, head dim 64: bf16 on the
 # tensor cores, and float32 in ladder leg (a)) and gpt_lm's (micro 16,
 # 4 heads, seq 64, head dim 32, float32): causal, no mask, dropout 0.1
@@ -542,6 +549,27 @@ def phase_build():
                if f"{k}<{d}>" not in seen]
     check(not missing, f"no ptxas report for {missing}")
     check(not spilled, f"ptxas reports spills in {spilled}")
+    serialized = sorted(name for s in sources for name in _ptxas_serialized(
+        cuda_build.library_path(s).with_suffix(".log").read_text()))
+    print(f"[build] ptxas serializes the wgmma of: {', '.join(serialized) or 'no kernel'}")
+    bad = [name for name in serialized if name.split("<")[0] in NO_SERIAL]
+    check(not bad, f"ptxas serializes every wgmma of {bad} (C7515)")
+
+
+def _kernel_name(mangled):
+    """e.g. ..18flash_dq_tc_kernelILi64EEEv.. -> flash_dq_tc_kernel<64>"""
+    import re
+
+    m = re.search(r"(flash_[a-z_]+?_kernel)ILi(\d+)EEEv", mangled)
+    return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+
+
+def _ptxas_serialized(text):
+    """The kernels whose wgmma ptxas serializes (its C7515 report)."""
+    import re
+
+    return [_kernel_name(m.group(1)) for m in re.finditer(
+        r"\(C7515\)[^\n]*in the function '(\w+)'", text)]
 
 
 def _ptxas_summary(text):
@@ -553,11 +581,7 @@ def _ptxas_summary(text):
     for line in text.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            # e.g. ..18flash_dq_tc_kernelILi64EEEv.. -> flash_dq_tc_kernel<64>
-            name, spills = entry.group(1), (0, 0)
-            m = re.search(r"(flash_[a-z_]+?_kernel)ILi(\d+)EEEv", name)
-            if m:
-                name = f"{m.group(1)}<{m.group(2)}>"
+            name, spills = _kernel_name(entry.group(1)), (0, 0)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill:
             spills = (int(spill.group(1)), int(spill.group(2)))
@@ -632,44 +656,50 @@ def phase_kernels():
 
 
 def _check_fresh_thread(fa):
-    """The bf16 kernels launched from a new thread whose first CUDA calls
-    are theirs, as autograd's device thread makes them when the attention's
-    backward is the first node it runs: the library encodes its tensor maps
-    there (a driver call, which needs the device's context current in the
-    thread). Every output equals the main thread's bit for bit."""
+    """The kernels of each dtype launched from a new thread whose first CUDA
+    calls are theirs, as autograd's device thread makes them when the
+    attention's backward is the first node it runs: each library encodes
+    its tensor maps there (a driver call, which needs the device's context
+    current in the thread): the bf16 kernels all three, the float32 dq and
+    dk/dv kernels theirs. Every output equals the main thread's bit for
+    bit."""
     import threading
 
     import torch
 
-    q, k, v, mask, do = _inputs(torch.bfloat16, True, seed=5)
     seed = torch.tensor([SEED], dtype=torch.int64, device="cuda")  # no copy in the thread
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, mask, do = _inputs(dtype, True, seed=5)
 
-    def run():
-        o, lse = fa.flash_fwd_cuda(q, k, v, mask, seed, False, RATE)
-        dq, delta = fa.flash_bwd_dq_cuda(q, k, v, mask, seed, do, o, lse, False, RATE)
-        dk, dv, dm = fa.flash_bwd_dkv_cuda(q, k, v, mask, seed, do, lse, delta, False, RATE)
-        return {"o": o, "lse": lse, "dq": dq, "delta": delta, "dk": dk, "dv": dv, "dmask": dm}
+        def run():
+            o, lse = fa.flash_fwd_cuda(q, k, v, mask, seed, False, RATE)
+            dq, delta = fa.flash_bwd_dq_cuda(q, k, v, mask, seed, do, o, lse, False, RATE)
+            dk, dv, dm = fa.flash_bwd_dkv_cuda(q, k, v, mask, seed, do, lse, delta, False,
+                                               RATE)
+            return {"o": o, "lse": lse, "dq": dq, "delta": delta, "dk": dk, "dv": dv,
+                    "dmask": dm}
 
-    outs, errors = {}, []
+        outs, errors = {}, []
 
-    def in_thread():
-        try:
-            outs.update(run())
-            torch.cuda.synchronize()
-        except Exception as e:  # reported below, in the main thread
-            errors.append(e)
+        def in_thread():
+            try:
+                outs.update(run())
+                torch.cuda.synchronize()
+            except Exception as e:  # reported below, in the main thread
+                errors.append(e)
 
-    worker = threading.Thread(target=in_thread)
-    worker.start()
-    worker.join()
-    check(not errors, f"the bf16 kernels failed in a fresh thread: {errors}")
-    want = run()
-    torch.cuda.synchronize()
-    differ = [name for name, t in want.items() if not torch.equal(t, outs[name])]
-    check(not differ, f"the bf16 kernels' {differ} in a fresh thread differ from the main "
-                      f"thread's")
-    print("[kernels] bfloat16 forward, dq and dk/dv launched first from a fresh thread: "
-          "outputs equal the main thread's bit for bit")
+        worker = threading.Thread(target=in_thread)
+        worker.start()
+        worker.join()
+        name = str(dtype)[6:]
+        check(not errors, f"the {name} kernels failed in a fresh thread: {errors}")
+        want = run()
+        torch.cuda.synchronize()
+        differ = [key for key, x in want.items() if not torch.equal(x, outs[key])]
+        check(not differ, f"the {name} kernels' {differ} in a fresh thread differ from the "
+                          f"main thread's")
+        print(f"[kernels] {name} forward, dq and dk/dv launched first from a fresh thread: "
+              "outputs equal the main thread's bit for bit")
 
 
 def _check_kernels(fa, dtype, shape, masked, causal, rate, worst, tag="kernels"):
@@ -1071,11 +1101,13 @@ def phase_profile(updates: int = 3, mode: str = "scan", extra=()):
     est.train(itertools.islice(it, 2 * host_steps), final_save=False)
     # the bf16 kernels' tensor maps over one more update: a lookup for each
     # map a launch needs, an encode (host time) for each the cache missed
-    maps0 = fa.tc_map_counts()
+    maps0, f32_maps0 = fa.tc_map_counts(), fa.f32_map_counts()
     est.train(itertools.islice(it, host_steps), final_save=False)
     maps = {key: n - maps0[key] for key, n in fa.tc_map_counts().items()}
+    f32_maps = {key: n - f32_maps0[key] for key, n in fa.f32_map_counts().items()}
     print(f"[profile] {' '.join([mode, *extra])}: tensor maps in one update: "
-          f"{maps['lookups']} lookups, {maps['encodes']} encodes (misses of the cache)")
+          f"{maps['lookups']} lookups, {maps['encodes']} encodes (misses of the cache); "
+          f"float32 library {f32_maps['lookups']} lookups, {f32_maps['encodes']} encodes")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1965,8 +1997,10 @@ def phase_bert_f32(updates: int = 2):
     argv = ["--device", "cuda", "--vocab-size", "30522", "--seq-len", str(S),
             "--accum-k", str(K), "--max-steps", str(updates * K)]
     fa.reset_launch_counts()
+    maps0 = fa.f32_map_counts()
     result = bert_finetune.main(argv)
     counts, routes = fa.launch_counts(), fa.route_counts()
+    maps = {key: n - maps0[key] for key, n in fa.f32_map_counts().items()}
     check(result["dtype"] == "float32", f"bert f32: ran in {result['dtype']}")
     check(math.isfinite(result["loss"]), f"bert f32: loss is not finite: {result['loss']}")
     check(result["updates"] == updates, f"bert f32: ran {result['updates']} updates, "
@@ -1975,7 +2009,9 @@ def phase_bert_f32(updates: int = 2):
     print(f"[bert-f32] BERT-Small float32 micro 8 x K={K}, seq {S}: {updates} updates, "
           f"loss {result['first_loss']:.4f} -> {result['loss']:.4f}, {result['seq/s']:.1f} "
           f"seq/s, eval accuracy {result['accuracy']:.4f} ({result['evaluations']} "
-          f"evaluations of {result['eval_batches']} batches); launches {counts}, all tf32x3")
+          f"evaluations of {result['eval_batches']} batches); launches {counts}, all tf32x3; "
+          f"the dq and dk/dv kernels' tensor maps: {maps['lookups']} lookups, "
+          f"{maps['encodes']} encodes")
     return counts
 
 

@@ -81,15 +81,14 @@
 // pre-scaled by log2(e), by ex2.approx.ftz in all three kernels (a term
 // below 2^-126 of its row's maximum, or of exp(lse) in K2 and K3, is 0).
 
-#include <cuda.h>  // CUtensorMap and its enums only: no libcuda call is linked
-
-#include <atomic>
 #include <type_traits>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
 using flash::kNegInf;
 using flash::keep;
 using flash::Params;
@@ -103,12 +102,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
-// Hopper: mbarriers, TMA, setmaxnreg and wgmma
+// Hopper: wgmma on bf16 (the mbarriers, TMA and descriptors are hopper.cuh's)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // two floats to a bf16x2 register, `lo` in the low half (the lower column)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -147,66 +142,6 @@ __host__ __device__ constexpr int fwd_stages() { return D == 128 ? 2 : 3; }  // 
 template <int D>
 __host__ __device__ constexpr int dkv_rows() { return D == 128 ? 32 : 64; }  // queries per K3 stage
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// arrive, and expect `bytes` more from TMA copies before the phase completes
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "{\n.reg .b64 state;\nmbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t ns;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(ns));
-  return ns;
-}
-
-// wait until the phase of parity `parity` has completed. A wait that has
-// not completed after about 10 s traps: a fault in the pipeline's
-// bookkeeping then ends the launch with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0, tries = 0;
-  uint64_t since = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if ((++tries & 0xFFFFu) == 0) {
-      const uint64_t now = global_ns();
-      if (since == 0) since = now;
-      else if (now - since > 10000000000ull) __trap();
-    }
-  }
-}
-
-// a box of a 3-D tensor map ({column, row, slice} of [B*H, S, D]) into
-// shared memory; completes `bytes` of the barrier's expected transaction
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int col, int row, int slice) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col), "r"(row), "r"(slice)
-      : "memory");
-}
-
 // 2^x, flushing results below 2^-126 to zero (a softmax term that small
 // is 0 in every sum it enters); one MUFU instruction
 __device__ __forceinline__ float exp2_ftz(float x) {
@@ -225,42 +160,6 @@ __device__ __forceinline__ void turn_pass(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
 }
 
-// warpgroup-wide changes of the registers each thread holds
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
-               : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving accesses of accumulator registers across
-// the asynchronous products that write them
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
 // A shared-memory tile of `rows` rows and D bf16 columns as TMA writes it:
 // D / P panels of [rows][P], P = min(D, 64), rows of R = 2P bytes whose
 // 16-byte chunks are swizzled by the row (the 32, 64 or 128-byte mode of
@@ -273,14 +172,6 @@ struct Panels {
   static constexpr int kSteps = P / 16;  // k16 steps along the columns of a panel
   static constexpr uint64_t kLayout = R == 128 ? 1 : R == 64 ? 2 : 3;  // wgmma swizzle code
 };
-
-// wgmma matrix descriptor: start address, leading and stride byte offsets,
-// swizzle mode
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
-}
 
 // K-major operand: rows row0 .. row0 + (64 or N) of a tile at `tile` (an
 // A of M = 64 rows, or a B of N rows), its k16 step kk along D. Groups of
@@ -435,12 +326,6 @@ __device__ __forceinline__ BlockPos block_pos(const Params& p, bool last_rows_he
   if (!p.causal) return {(int)blockIdx.z, (int)blockIdx.y, (int)blockIdx.x};
   const int x = last_rows_heaviest ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
   return {(int)blockIdx.y, (int)blockIdx.x, x};
-}
-
-// the 1024-byte aligned start of a block's dynamic shared memory (the
-// launch asks for 1024 bytes more than the layout needs)
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return raw + ((1024u - (smem_addr(raw) & 1023u)) & 1023u);
 }
 
 // K1's shared memory, in bytes from the aligned start: the block's Q rows
@@ -1273,104 +1158,7 @@ __global__ void __launch_bounds__(128 * (max_consumers<D>() + 1), 1)
 // Launch
 // ---------------------------------------------------------------------------
 
-// libcuda's cuTensorMapEncodeTiled, reached through the runtime, so the
-// library needs no -lcuda; nullptr where libcuda lacks it
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
-                                         &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The tensor map of a [slices, S, D] bf16 tensor at `ptr` whose box is
-// `box_rows` rows of one panel (Panels<D>): the three dimensions keep a box
-// inside its (batch, head) slice, so rows past S are zero-filled. A map is
-// a function of these five values alone, so the last maps each thread
-// encoded are kept and reused: the encoding costs host time on every call
-// that misses.
-struct MapKey {
-  const void* ptr;
-  int slices, S, D, box_rows;
-  bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && slices == o.slices && S == o.S && D == o.D && box_rows == o.box_rows;
-  }
-};
-
-// every lookup and every encode (a miss) of the caches of all threads, for
-// flash_tc_map_lookups and flash_tc_map_encodes
-std::atomic<long long> map_lookups{0}, map_encodes{0};
-
-struct MapCache {
-  // a layer's three kernels use 6 maps at D = 64; with 32 entries a
-  // scan-mode BERT-Small update (4 layers x K = 4 micro-batches, whose
-  // activations move between micro-batches) missed 43 of its 176 lookups
-  static constexpr int kSize = 128;
-  MapKey keys[kSize];
-  CUtensorMap maps[kSize];
-  int used = 0, next = 0;
-};
-
-bool tensor_map(CUtensorMap* out, const void* ptr, int slices, int S, int D, int box_rows) {
-  thread_local MapCache cache;
-  const MapKey key{ptr, slices, S, D, box_rows};
-  map_lookups.fetch_add(1, std::memory_order_relaxed);
-  for (int i = 0; i < cache.used; ++i)
-    if (cache.keys[i] == key) {
-      *out = cache.maps[i];
-      return true;
-    }
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  // the encoder is a driver call and fails (CUDA_ERROR_INVALID_CONTEXT)
-  // unless the device's context is current in this thread. The runtime
-  // makes it current at a thread's first runtime call that needs it, which
-  // a fresh thread may not have made yet: autograd's device thread, when
-  // the attention's backward is the first node it runs.
-  thread_local const bool bound = [] {
-    int dev = 0;
-    return cudaGetDevice(&dev) == cudaSuccess && cudaSetDevice(dev) == cudaSuccess;
-  }();
-  if (!bound) return false;
-  const int P = D < 64 ? D : 64;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)slices};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)P, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = P == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : P == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                               : CU_TENSOR_MAP_SWIZZLE_32B;
-  map_encodes.fetch_add(1, std::memory_order_relaxed);
-  int slot = cache.next;
-  if (cache.used < MapCache::kSize) slot = cache.used++;
-  else cache.next = (cache.next + 1) % MapCache::kSize;
-  if (encode(&cache.maps[slot], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
-    cache.keys[slot] = MapKey{nullptr, 0, 0, 0, 0};
-    return false;
-  }
-  cache.keys[slot] = key;
-  *out = cache.maps[slot];
-  return true;
-}
+constexpr CUtensorMapDataType kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
 // consumer warpgroups per block: two (128 rows) when the kernel instance
 // has room for two and the grid of 128-row blocks fills every SM at least
@@ -1408,9 +1196,9 @@ int launch_fwd(const Params& p, int B, cudaStream_t stream) {
   FwdArgs args;
   args.scale_log2 = p.scale * kLog2e;
   const int slices = B * p.H;
-  if (!tensor_map(&args.q, p.q, slices, p.S, D, kWgRows) ||
-      !tensor_map(&args.k, p.k, slices, p.S, D, kFwdKeys) ||
-      !tensor_map(&args.v, p.v, slices, p.S, D, kFwdKeys))
+  if (!tensor_map(&args.q, p.q, kBf16, slices, p.S, D, kWgRows) ||
+      !tensor_map(&args.k, p.k, kBf16, slices, p.S, D, kFwdKeys) ||
+      !tensor_map(&args.v, p.v, kBf16, slices, p.S, D, kFwdKeys))
     return (int)cudaErrorInvalidValue;
   return launch_hopper<FwdArgs, flash_fwd_tc_kernel<D>>(FwdLayout<D>::kSmem, max_consumers<D>(),
                                                         p, B, args, stream);
@@ -1424,10 +1212,10 @@ int launch_dq(const Params& p, int B, cudaStream_t stream) {
   BwdArgs args;
   args.scale_log2 = p.scale * kLog2e;
   const int slices = B * p.H;
-  if (!tensor_map(&args.q, p.q, slices, p.S, D, kWgRows) ||
-      !tensor_map(&args.k, p.k, slices, p.S, D, kDqKeys) ||
-      !tensor_map(&args.v, p.v, slices, p.S, D, kDqKeys) ||
-      !tensor_map(&args.dout, p.dout, slices, p.S, D, dkv_rows<D>()))
+  if (!tensor_map(&args.q, p.q, kBf16, slices, p.S, D, kWgRows) ||
+      !tensor_map(&args.k, p.k, kBf16, slices, p.S, D, kDqKeys) ||
+      !tensor_map(&args.v, p.v, kBf16, slices, p.S, D, kDqKeys) ||
+      !tensor_map(&args.dout, p.dout, kBf16, slices, p.S, D, dkv_rows<D>()))
     return (int)cudaErrorInvalidValue;
   return launch_hopper<BwdArgs, flash_dq_tc_kernel<D>>(DqLayout<D>::kSmem, max_consumers<D>(),
                                                        p, B, args, stream);
@@ -1438,10 +1226,10 @@ int launch_dkv(const Params& p, int B, cudaStream_t stream) {
   BwdArgs args;
   args.scale_log2 = p.scale * kLog2e;
   const int slices = B * p.H;
-  if (!tensor_map(&args.k, p.k, slices, p.S, D, kWgRows) ||
-      !tensor_map(&args.v, p.v, slices, p.S, D, kWgRows) ||
-      !tensor_map(&args.q, p.q, slices, p.S, D, dkv_rows<D>()) ||
-      !tensor_map(&args.dout, p.dout, slices, p.S, D, dkv_rows<D>()))
+  if (!tensor_map(&args.k, p.k, kBf16, slices, p.S, D, kWgRows) ||
+      !tensor_map(&args.v, p.v, kBf16, slices, p.S, D, kWgRows) ||
+      !tensor_map(&args.q, p.q, kBf16, slices, p.S, D, dkv_rows<D>()) ||
+      !tensor_map(&args.dout, p.dout, kBf16, slices, p.S, D, dkv_rows<D>()))
     return (int)cudaErrorInvalidValue;
   return launch_hopper<BwdArgs, flash_dkv_tc_kernel<D>>(DkvLayout<D>::kSmem, max_consumers<D>(),
                                                         p, B, args, stream);
@@ -1528,7 +1316,7 @@ extern "C" int flash_bwd_dkv_tc(int dtype, int D, const void* q, const void* k,
   return dispatch(kDkv, dtype, D, p, B, stream);
 }
 
-// The tensor-map caches' counts since the library was loaded: lookups (one
+// The tensor-map caches' counts (hopper.cuh) since the library was loaded: lookups (one
 // for each map a launch needs) and encodes (the lookups that missed, each a
 // call into libcuda)
 extern "C" long long flash_tc_map_lookups() { return map_lookups.load(); }

@@ -11,7 +11,9 @@ dtype and nothing else:
 - ``tf32x3`` (``csrc/flash_attention.cu``): every float32 kernel on the
   tensor cores in 3xTF32 (each operand split into two TF32 parts, three
   products per product), which holds float32's tolerances where a single
-  TF32 product would not.
+  TF32 product would not. Its dq and dk/dv kernels are Hopper designs
+  (TMA into mbarrier stages, ``wgmma`` on split and transposed tiles), its
+  forward an ``mma.sync`` one.
 
 The design and what bounds each kernel are noted in the sources.
 The forward saves only ``o`` and the per-row logsumexp; the backward
@@ -216,6 +218,8 @@ _SOURCES = {
 
 # the bf16 library's counts of its tensor-map cache: {count: C function}
 _MAP_COUNTS = {"lookups": "flash_tc_map_lookups", "encodes": "flash_tc_map_encodes"}
+# and the float32 library's (its dq and dk/dv kernels copy with TMA)
+_F32_MAP_COUNTS = {"lookups": "flash_f32_map_lookups", "encodes": "flash_f32_map_encodes"}
 
 
 def build_kernels() -> dict:
@@ -230,8 +234,9 @@ def build_kernels() -> dict:
                 fn.argtypes = _ARGTYPES[name]
                 fn.restype = _I
             _libs[r] = lib
-        for symbol in _MAP_COUNTS.values():
-            getattr(_libs["tc"], symbol).restype = ctypes.c_longlong
+        for r, counts in (("tc", _MAP_COUNTS), ("tf32x3", _F32_MAP_COUNTS)):
+            for symbol in counts.values():
+                getattr(_libs[r], symbol).restype = ctypes.c_longlong
     return _libs
 
 
@@ -391,6 +396,13 @@ def tc_map_counts() -> dict:
     lookups the cache missed, each a host call into libcuda)."""
     lib = build_kernels()["tc"]
     return {name: getattr(lib, symbol)() for name, symbol in _MAP_COUNTS.items()}
+
+
+def f32_map_counts() -> dict:
+    """The float32 dq and dk/dv kernels' tensor maps since the library was
+    loaded, counted as :func:`tc_map_counts` counts the bf16 ones."""
+    lib = build_kernels()["tf32x3"]
+    return {name: getattr(lib, symbol)() for name, symbol in _F32_MAP_COUNTS.items()}
 
 
 def launch_counts() -> dict:

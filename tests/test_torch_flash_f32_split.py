@@ -1,8 +1,10 @@
 """3xTF32, the arithmetic of the float32 flash kernels, on the CPU.
 
 ``csrc/flash_attention.cu`` runs every matrix product of its forward (K1),
-dq (K2) and dk/dv (K3) kernels on the tensor cores as ``mma.sync.m16n8k8``
-TF32. Each float32 operand x is split into big = tf32(x) and
+dq (K2) and dk/dv (K3) kernels on the tensor cores in TF32, K1 as
+``mma.sync.m16n8k8`` and K2 and K3 as ``wgmma.m64nNk8`` (their Hopper
+schedules: ``test_torch_flash_f32_hopper.py``), with one split for all
+three. Each float32 operand x is split into big = tf32(x) and
 small = tf32(x - big), where tf32 is ``cvt.rna.tf32.f32`` (round to
 nearest, ties away from zero, 10 mantissa bits), and each 8-wide k step adds
 three products into one float32 accumulator: small·big, then big·small,

@@ -106,7 +106,16 @@ def tc_geometry(kernel: str, shape, sm_count: int = 132, causal: bool = False) -
 
 
 SOURCE = cuda_build.CSRC_DIR / "flash_attention_tc.cu"
+# the Hopper primitives (mbarriers, TMA, wgmma's fences and descriptors, the
+# tensor-map cache) that the bf16 and float32 sources share
+HEADER = cuda_build.CSRC_DIR / "hopper.cuh"
 HOPPER = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _with_header(source=SOURCE):
+    """A source's text with the shared Hopper header's after it: the
+    functions a kernel reaches."""
+    return source.read_text() + HEADER.read_text()
 SEQS = (1, 16, 64, 100, 128, 129, 200, 256, 512, 1000, 2048, 8192, 16384)
 
 
@@ -187,8 +196,9 @@ def test_hopper_kernels_issue_wgmma_on_tma_stages(kernel):
     """K1, K2 and K3 reach wgmma from shared-memory descriptors, TMA copies
     completing on mbarriers, the named barriers of the consumers' turns
     and setmaxnreg; none of the mma.sync design's instructions; one __syncthreads
-    (after the barriers' init), none in the loop."""
-    text = SOURCE.read_text()
+    (after the barriers' init), none in the loop. The PTX helpers they reach
+    live in the shared header hopper.cuh."""
+    text = _with_header()
     ptx, reached = _reached(text, kernel)
     for instruction in ("wgmma.mma_async", "wgmma.fence", "wgmma.commit_group",
                         "wgmma.wait_group", "cp.async.bulk.tensor", "mbarrier.try_wait",
@@ -229,7 +239,7 @@ def test_every_kernel_of_the_source_is_a_hopper_kernel():
 
 
 def test_source_reader_finds_every_kernel():
-    funcs = _functions(SOURCE.read_text())
+    funcs = _functions(_with_header())
     assert {"flash_fwd_tc_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kernel"} <= set(funcs)
     assert "wgmma.mma_async" in funcs["wgmma_ss"][0]
     assert "cp.async.bulk.tensor" in funcs["tma_load"][0]
@@ -313,26 +323,31 @@ def test_dq_kernel_adds_no_tensor_map(d):
 
 def test_map_counts_are_exported():
     """The wrapper's tc_map_counts reads two functions of the bf16 library;
-    the source exports both, taking no argument and returning a count."""
-    text = SOURCE.read_text()
-    exported = set(re.findall(r'extern "C" long long (\w+)\(\)', text))
+    the source exports both, taking no argument and returning a count of
+    the shared header's cache."""
+    exported = set(re.findall(r'extern "C" long long (\w+)\(\)', SOURCE.read_text()))
     assert set(fa._MAP_COUNTS.values()) == exported
-    assert re.search(r"static constexpr int kSize = (\d+);", text)
+    assert re.search(r"static constexpr int kSize = (\d+);", HEADER.read_text())
 
 
 @pytest.mark.parametrize("argv, want", [
     (["--tc-source", "build/parent/flash_attention_tc.cu"],
-     ([], "build/parent/flash_attention_tc.cu")),
-    (["q_twin_tile"], (["q_twin_tile"], None)),
+     ([], "build/parent/flash_attention_tc.cu", None)),
+    (["q_twin_tile"], (["q_twin_tile"], None, None)),
     (["q_twin_tile", "--tc-source", "x/flash_attention_tc.cu"],
-     (["q_twin_tile"], "x/flash_attention_tc.cu")),
+     (["q_twin_tile"], "x/flash_attention_tc.cu", None)),
+    (["--f32-source", "build/parent/flash_attention.cu"],
+     ([], None, "build/parent/flash_attention.cu")),
+    (["--tc-source", "p/flash_attention_tc.cu", "--f32-source", "p/flash_attention.cu"],
+     ([], "p/flash_attention_tc.cu", "p/flash_attention.cu")),
 ])
 def test_kernel_variants_arguments(argv, want):
     assert kernel_variants.parse_args(argv) == want
 
 
 @pytest.mark.parametrize("argv", [[], ["no_such_variant"], ["--tc-source", "x.cuh"],
-                                  ["--tc-source"], ["--bogus"]])
+                                  ["--tc-source"], ["--bogus"], ["--f32-source", "x.cuh"],
+                                  ["--f32-source"]])
 def test_kernel_variants_refuses_bad_arguments(argv):
     with pytest.raises((ValueError, SystemExit)):
         kernel_variants.parse_args(argv)
@@ -354,14 +369,15 @@ def test_tc_source_is_staged_beside_its_headers(tmp_path, own_header):
     src.write_text('#include "flash_common.cuh"\n// the parent\n')
     if own_header:
         (parent / "flash_common.cuh").write_text("// the parent's header\n")
-    staged = kernel_variants.stage_tc_source(src, tmp_path / "out")
+    staged = kernel_variants.stage_source(src, tmp_path / "out", kernel_variants.TC_SOURCE)
     assert staged.name == "flash_attention_tc.cu"
     assert staged.read_text() == src.read_text()
     header = (tmp_path / "out" / "flash_common.cuh").read_text()
     checkout = (cuda_build.CSRC_DIR / "flash_common.cuh").read_text()
     assert header == ("// the parent's header\n" if own_header else checkout)
     with pytest.raises(FileNotFoundError):
-        kernel_variants.stage_tc_source(parent / "missing.cu", tmp_path / "out2")
+        kernel_variants.stage_source(parent / "missing.cu", tmp_path / "out2",
+                                     kernel_variants.TC_SOURCE)
 
 
 def test_turns_are_printed_in_the_order_taken(capsys):
@@ -383,8 +399,11 @@ def test_map_encoder_binds_the_context_first():
     CUDA_ERROR_INVALID_CONTEXT in a thread where the runtime has not yet
     made the device's context current (autograd's device thread, when the
     attention's backward is the first node it runs): the cache binds it,
-    once per thread, before its first encode."""
-    code = _code(SOURCE.read_text())
+    once per thread, before its first encode. The cache is the shared
+    header's, and the bf16 source encodes through it alone."""
+    assert "cuTensorMapEncodeTiled" not in _code(SOURCE.read_text())
+    assert "tensor_map(&args.q, p.q, kBf16," in _code(SOURCE.read_text())
+    code = _code(HEADER.read_text())
     body = code[code.index("bool tensor_map("):]
     body = body[:body.index("\n}\n")]
     assert "thread_local const bool bound" in body
