@@ -8,10 +8,10 @@ Phases, each of which fails the run if it fails:
 1. build: compile every CUDA source of ``gradaccum_tpu_torch/csrc`` with
    nvcc (one process per source, all started together); print the time and
    each kernel's registers and spills as ptxas reports them, and fail if
-   any float32 or bfloat16 kernel (forward, dq, dk/dv; the bfloat16 ones
-   and the float32 dq and dk/dv Hopper designs: TMA, mbarriers, wgmma)
-   spills at any head dim, or if ptxas serializes the wgmma of the float32
-   dq or dk/dv kernel (its C7515 report; every kernel it serializes is
+   any float32 or bfloat16 kernel (forward, dq, dk/dv; all six Hopper
+   designs: TMA, mbarriers, wgmma) spills at any head dim, or if ptxas
+   serializes the wgmma of the float32 forward, dq or dk/dv kernel or of
+   the bfloat16 dq kernel (its C7515 report; every kernel it serializes is
    printed).
 2. kernels: hold each kernel against its plain PyTorch version on the card
    at the BERT-Small main-path shape q/k/v [8, 8, 128, 64], in float32
@@ -485,8 +485,9 @@ NO_SPILL = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
             "flash_fwd_tc_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kernel")
 # the kernels whose wgmma ptxas must not serialize (its C7515 report: every
 # product then waits for the one before), at every head dim: the float32
-# dq and dk/dv kernels. The build prints every kernel it reports.
-NO_SERIAL = ("flash_dq_kernel", "flash_dkv_kernel")
+# forward, dq and dk/dv kernels and the bfloat16 dq kernel. The build
+# prints every kernel it reports.
+NO_SERIAL = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel", "flash_dq_tc_kernel")
 # GPT-Small's attention (micro 8, 8 heads, seq 512, head dim 64: bf16 on the
 # tensor cores, and float32 in ladder leg (a)) and gpt_lm's (micro 16,
 # 4 heads, seq 64, head dim 32, float32): causal, no mask, dropout 0.1
@@ -660,9 +661,8 @@ def _check_fresh_thread(fa):
     calls are theirs, as autograd's device thread makes them when the
     attention's backward is the first node it runs: each library encodes
     its tensor maps there (a driver call, which needs the device's context
-    current in the thread): the bf16 kernels all three, the float32 dq and
-    dk/dv kernels theirs. Every output equals the main thread's bit for
-    bit."""
+    current in the thread): every kernel of both, the forward first. Every
+    output equals the main thread's bit for bit."""
     import threading
 
     import torch
@@ -2010,7 +2010,7 @@ def phase_bert_f32(updates: int = 2):
           f"loss {result['first_loss']:.4f} -> {result['loss']:.4f}, {result['seq/s']:.1f} "
           f"seq/s, eval accuracy {result['accuracy']:.4f} ({result['evaluations']} "
           f"evaluations of {result['eval_batches']} batches); launches {counts}, all tf32x3; "
-          f"the dq and dk/dv kernels' tensor maps: {maps['lookups']} lookups, "
+          f"the float32 kernels' tensor maps: {maps['lookups']} lookups, "
           f"{maps['encodes']} encodes")
     return counts
 

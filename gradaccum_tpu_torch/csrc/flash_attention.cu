@@ -7,8 +7,8 @@
 //                delta = rowsum(dO * O) that _flash_backward computes
 //                before it (:476)
 //   _dkv_kernel  gradaccum_tpu/ops/flash_attention.py:399 (K3)
-// Every matrix product of the three runs on the tensor cores in 3xTF32:
-// K1 with mma.sync, K2 and K3 with wgmma (below).
+// Every matrix product of the three runs on the tensor cores in 3xTF32,
+// with wgmma (below).
 //
 // Built by gradaccum_tpu_torch/utils/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -39,7 +39,15 @@
 // K3 move 33.6 / 50.6 / 50.6 MB (10.0 / 15.1 / 15.1 us) and do 2.15 / 3.22
 // / 4.29 GFLOP (13.0 / 19.5 / 26.0 us at 165 TFLOP/s; 32 / 48 / 64 us at
 // 67): operations bound them. At gpt_lm's [16, 4, 64, 32], causal, K1
-// moves 2.1 MB (0.63 us) and does 0.017 GFLOP (0.10 us): bytes.
+// moves 2.1 MB (0.63 us) and does 0.017 GFLOP (0.10 us): bytes. At
+// [2, 8, 8192, 64] (padded mask) K1 does 275 GFLOP (1.67 ms): operations.
+// What holds K1 above those bounds: per stage of 32 keys a block of 64
+// rows has 0.4 us of 3xTF32 products at the tensor cores' peak for
+// S = Q K^T and as much for O += P V, beside an element-wise softmax over
+// 64 x 32 scores that its one consumer warpgroup cannot overlap with its
+// own products; and at BERT's and gpt_lm's short rows a block meets one to
+// four stages, so the copies' latency before its first product weighs as
+// much as its products.
 //
 // 3xTF32: each float32 operand x is split into big = cvt.rna.tf32(x) (the
 // low 13 bits cleared, so big is exactly a TF32 value) and small =
@@ -49,43 +57,25 @@
 // rounding of small are about 2^-22 of each product, near float32's own
 // rounding, where one TF32 product errs by about 2^-11.
 //
-// K1 (forward) is an mma.sync.m16n8k8 design:
-// - A block is 4 warps owning 64 query rows, 16 per warp. The keys and
-//   values stream through shared memory in 32-row stages fetched by 16-byte
-//   cp.async copies, zero-filled past S and double-buffered, one
-//   __syncthreads per stage. A warp works 16 streamed rows at a time.
-// - Each stage is split once, when it lands: every thread splits the
-//   16-byte chunks it copied itself, the big parts in place and the small
-//   parts into a twin tile. The four warps then read their B fragments
-//   already split. Q stays raw in shared memory and is split at use (the
-//   k loop of S is unrolled at most 8 steps, so its fragments stay in
-//   registers up to D = 64). A twin tile of Q, split once, measured 2-19 %
-//   slower (PERF.md; python3 -m gradaccum_tpu_torch.utils.kernel_variants
-//   q_twin_tile). __launch_bounds__(128, 1); 87 KB of shared memory at
-//   D = 64 (rows of D + 4 floats), 169 KB at D = 128.
-// - Fragment loads are 32-bit ld.shared from rows of D + 4 floats, free of
-//   bank conflicts at every D. P goes from the C fragment of S to the A
-//   fragment of P V in registers: the C registers (c0, c2, c1, c3) are the A
-//   fragment when the k index l of each 8-key step stands for key
-//   2 (l % 4) + l / 4 (a_from_c), and V's B fragment is read in that order.
-// - The online softmax runs on the C fragments of S, 16 keys a step; keys
-//   past S or past the diagonal score -inf before the max.
-//
-// K2 and K3 are Hopper designs, and what that does about the limits of
+// K1, K2 and K3 are Hopper designs, and what that does about the limits of
 // the mma.sync design they replaced (4 warps of 16 rows each, every warp
 // reading every streamed 32-row stage through 32-bit ld.shared fragment
-// loads, all 128 threads issuing cp.async copies into two stages with a
-// __syncthreads per stage, and no overlap of copies with products):
+// loads, all 128 threads issuing cp.async copies into two stages and
+// splitting them, a __syncthreads per stage, so that copies and splits
+// never overlapped products; K1 also split Q again at every 16-key step
+// and rescaled O every 16 keys):
 // - A block is two warpgroups: warpgroup 0 (128 threads) owns the block's
 //   64 output rows and only multiplies and does the element-wise work;
 //   warpgroup 1 produces. Its first thread issues every TMA copy (3-D tensor
 //   maps over [B*H, S, D], rows past S arrive as zeros and never read the
 //   next slice) into full/empty-mbarrier stages: the block's own rows once
-//   (K and V in K3; Q and dO in K2), then a ring of stages (Q and dO, 32
-//   queries, in K3; K and V, 32 keys, in K2). Its 128 threads fill each
-//   stage's small vectors (K3's lse, delta and row seeds, K2's mask row) and
-//   run the split pass, then arrive on the stage's "ready" mbarrier: the
-//   consumers issue no copy, no split and no __syncthreads.
+//   (Q in K1; Q and dO in K2; K and V in K3), then a ring of stages (K and
+//   V, 32 keys, in K1 and K2; Q and dO, 32 queries, in K3). Its 128 threads
+//   fill each stage's small vectors (K1's and K2's mask row, K3's lse,
+//   delta and row seeds) and run the split pass, then arrive on the stage's
+//   "ready" mbarrier: the consumers issue no copy, no split and no
+//   __syncthreads. K1's producer issues its first stages' copies together
+//   with Q's and splits Q while they land.
 // - Operands. wgmma reads float32 (.tf32) operands from shared memory
 //   K-major only: the transpose bits are for 16-bit types. Each tile lands
 //   raw as TMA writes it, in K-major panels of 32 floats (16 at D = 16)
@@ -93,57 +83,64 @@
 //   the layout the wgmma descriptor names, so reads are free of bank
 //   conflicts. The split pass writes big = tf32(x) in place and small =
 //   tf32(x - big) into a twin tile of the same layout. The products that
-//   contract over the rows TMA wrote (K3's dV += drop(P^T) dO and
-//   dK += dS^T Q, K2's dq += dS K) need the transposes: the split pass also
-//   writes big and small of dO^T and Q^T (K3) and K^T (K2), [D][rows]
+//   contract over the rows TMA wrote (K1's O += drop(P) V, K3's
+//   dV += drop(P^T) dO and dK += dS^T Q, K2's dq += dS K) need the
+//   transposes: the split pass also writes big and small of V^T (K1, which
+//   needs V in no other form), dO^T and Q^T (K3) and K^T (K2), [D][rows]
 //   tiles in the same swizzle, one thread per row so that each transposed
 //   store of a warp fills one 128-byte row. Their columns hold the stage's
-//   rows in a_from_c's k order, so the accumulator of S^T (dP^T, S) is the
+//   rows in a_split's k order, so the accumulator of S (S^T, dP^T) is the
 //   register A operand of the next product with no shuffle.
-// - Products. S^T = K Q^T and dP^T = V dO^T (K3), S = Q K^T and
-//   dP = dO V^T (K2) are wgmma.m64nNk8 with both operands from shared
+// - Products. S = Q K^T (K1, K2), dP = dO V^T (K2), S^T = K Q^T and
+//   dP^T = V dO^T (K3) are wgmma.m64nNk8 with both operands from shared
 //   memory, three per k step (small·big, big·small, big·big, each from its
-//   own tile). drop(P^T) and dS^T (K3) and dS (K2) are split into big and
-//   small in registers (a_split: the rounding of cvt.rna.tf32 in integer
-//   instructions) and are the A of the second products, three per k step,
-//   B the transposes. Their exp is exp_fast (ex2.approx). K2 leaves its
-//   dS K in flight while it issues the next stage's S and dP (three
-//   stages); one wait covers them all. K3 waits
-//   for its dV and dK within the stage and releases the stage there: with
-//   its two stages the producer then has a whole stage's time to copy and
-//   split the next but one (kernel_variants dkv_in_flight leaves the
-//   products in flight).
+//   own tile). drop(P) (K1), dS (K2), drop(P^T) and dS^T (K3) are split
+//   into big and small in registers (a_split: the rounding of cvt.rna.tf32
+//   in integer instructions) and are the A of the second products, three
+//   per k step, B the transposes. Their exp is exp_fast (ex2.approx). K1
+//   and K2 leave the second product in flight while they issue the next
+//   stage's first ones (three stages, two at D = 128); one wait covers them
+//   all, then the stage is released. K1 rescales O between that wait and
+//   its next P V, once a stage. K3 waits for its dV and dK within the stage
+//   and releases the stage there: with its two stages the producer then has
+//   a whole stage's time to copy and split the next but one
+//   (kernel_variants dkv_in_flight leaves the products in flight;
+//   fwd_pv_waited makes K1 wait as K3 does).
 // - ptxas keeps the products of a stage in flight together only if no
 //   non-wgmma instruction may define an accumulator while a product runs;
 //   else it serializes every wgmma of the kernel (its C7515 report, which
 //   chip_smoke.py's build phase fails on). Hence the element-wise results
-//   go straight into the split A registers, never over an accumulator, and
-//   the consumers' loops are do-while loops: a loop that may run no time
-//   joins the zeros of its skipped path to the final wait
-//   (kernel_variants loop_may_skip).
-// - The element-wise loops (P, the keep bits, dS, dmask) are unrolled and
-//   branch-free: the bounds and dropout tests are resolved per tile.
-// - Shared memory at D = 64: K3 64 KB of own tiles (K, V, big and small)
-//   and two stages of eight 8 KB tiles (Q, dO, Q^T, dO^T, big and small),
-//   194 KB; K2 64 KB of own tiles and three stages of six 8 KB tiles (K, V,
-//   K^T), 210 KB. One block per SM, one consumer warpgroup: two would not
-//   fit at D = 64, and the main path's float32 shapes (BERT's S = 128,
-//   gpt_lm's S = 64) fill the card with 64-row blocks. At D = 128 the own
-//   tiles alone take 128 KB: K3 streams 8 queries a stage (three stages),
-//   K2 16 keys (two stages). __launch_bounds__(256, 1): the consumers'
-//   accumulators (dk and dv, D/2 floats each a thread) get up to 255
-//   registers.
+//   go into registers of their own (the scores, the split A operands),
+//   never over an accumulator (K1 rescales O where no product is in
+//   flight), and the consumers' loops are do-while loops: every block has
+//   a stage, and a loop that may run no time joins the zeros of its
+//   skipped path to the final wait (kernel_variants loop_may_skip).
+// - The element-wise loops (scores and softmax, P, the keep bits, dS,
+//   dmask) are unrolled and branch-free: the bounds and dropout tests are
+//   resolved per tile.
+// - Shared memory at D = 64: K1 32 KB of own tiles (Q, big and small) and
+//   three stages of five 8 KB tiles (K, K small, V, V^T, V^T small),
+//   155 KB; K3 64 KB of own tiles (K, V, big and small) and two stages of
+//   eight 8 KB tiles (Q, dO, Q^T, dO^T, big and small), 194 KB; K2 64 KB of
+//   own tiles and three stages of six 8 KB tiles (K, V, K^T), 210 KB. One
+//   block per SM, one consumer warpgroup: the main path's float32 shapes
+//   (BERT's S = 128, gpt_lm's S = 64) fill the card with 64-row blocks.
+//   At D = 128 the stages are short: K1 and K2 stream 16 keys a stage (two
+//   stages), K3 8 queries (three stages). __launch_bounds__(256, 1): the
+//   consumers' accumulators (o, dq, or dk and dv: D/2 floats each a thread)
+//   get up to 255 registers.
 // - Blocks are taken row block by row block, each for every (b, h), the
 //   longest first (block_coords): under causal masking the last query rows
-//   (K2) and the first key rows (K3) meet the most pairs.
-// - Causal: K2 stops after the block's last query row, K3 starts at the
-//   block's first key. Elements past the diagonal are masked one by one.
+//   (K1, K2) and the first key rows (K3) meet the most pairs.
+// - Causal: K1 and K2 stop after the block's last query row, K3 starts at
+//   the block's first key. Elements past the diagonal are masked one by
+//   one.
 //
 // Attention dropout is the JAX package's counter-based hash
 // (flash_common.cuh): the decision for element (b, h, i, j) is a
 // murmur3-finalizer chain keyed by the seed, the (b, h) slice, the query
 // position and the key position, kept when the hash is below
-// round(keep * 2^32). All three kernels draw it for each C fragment slot
+// round(keep * 2^32). All three kernels draw it for each accumulator slot
 // at its (query, key) position. It reproduces the TPU kernels' bits.
 
 #include <type_traits>
@@ -162,41 +159,25 @@ using flash::row_seed_of;
 using flash::slice_seed;
 
 // ---------------------------------------------------------------------------
-// Tensor-core helpers, 3xTF32. Shared-memory tiles are [rows][D + kPad]
-// float32.
-//
-// Fragment layout of mma.m16n8k8 tf32 (lane = 4 g + t): A (16 x 8) a0..a3
-// are rows g, g + 8, g, g + 8 at columns t, t, t + 4, t + 4; B (8 x 8) b0,
-// b1 are rows t, t + 4 at column g; C (16 x 8) c0..c3 are rows g, g, g + 8,
-// g + 8 at columns 2 t, 2 t + 1, 2 t, 2 t + 1.
+// Geometry, and the 3xTF32 split
 // ---------------------------------------------------------------------------
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBlockRows = 16 * kWarps;  // output rows per block, 16 per warp
-constexpr int kStage = 32;               // streamed rows per pipeline stage
-constexpr int kStep = 16;                // streamed rows per step of a warp
-constexpr int kPad = 4;                  // float padding per shared-memory row
+constexpr int kWgRows = 64;         // rows of the consumer warpgroup: wgmma's M, a block's rows
+constexpr int kThreads = 256;       // the consumer warpgroup, then the producer warpgroup
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may opt into
+constexpr CUtensorMapDataType kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid (the
-// source is then not read, but must still be a valid address)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+// queries per K3 stage and its stages; keys per K1 and K2 stage and their
+// stages. D = 128 needs short stages: K2's and K3's own tiles alone take
+// 128 KB, K1's 64 KB.
+template <int D>
+__host__ __device__ constexpr int dkv_rows() { return D == 128 ? 8 : 32; }
+template <int D>
+__host__ __device__ constexpr int dkv_stages() { return D == 64 ? 2 : 3; }
+template <int D>
+__host__ __device__ constexpr int dq_keys() { return D == 128 ? 16 : 32; }
+template <int D>
+__host__ __device__ constexpr int dq_stages() { return D == 128 ? 2 : 3; }
 
 // x rounded to TF32 (10 mantissa bits, nearest, ties away from zero), with
 // the 13 bits below it cleared so the register also reads as that float
@@ -213,78 +194,13 @@ __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(x - __uint_as_float(big)));
 }
 
-// an operand's fragment registers, split
+// a register A operand, split: per warp the m16k8 A fragment of
+// mma.m16n8k8 (rows g, g + 8 at k = t, t, t + 4, t + 4; lane = 4 g + t)
 template <int N>
 struct Split {
   uint32_t big[N];
   uint32_t small[N];
 };
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b in 3xTF32: the two small terms first, then big x big
-__device__ __forceinline__ void mma3(float (&d)[4], const Split<4>& a,
-                                     const Split<2>& b) {
-  mma_tf32(d, a.small, b.big[0], b.big[1]);
-  mma_tf32(d, a.big, b.small[0], b.small[1]);
-  mma_tf32(d, a.big, b.big[0], b.big[1]);
-}
-
-// A fragment of rows row0.. (16) and columns col0.. (8) of a tile
-template <int D>
-__device__ __forceinline__ void load_a(Split<4>& a, const float* tile, int row0,
-                                       int col0, int g, int t) {
-  const float* r = tile + (row0 + g) * (D + kPad) + col0 + t;
-  split(r[0], a.big[0], a.small[0]);
-  split(r[8 * (D + kPad)], a.big[1], a.small[1]);
-  split(r[4], a.big[2], a.small[2]);
-  split(r[8 * (D + kPad) + 4], a.big[3], a.small[3]);
-}
-
-// The B operands come from streamed tiles that split_tile has split: the
-// big parts in the tile, the small parts `small` floats after it.
-
-// B fragment when the tile holds B^T as rows: n = rows row0..row0+7,
-// k = columns col0..col0+7
-template <int D>
-__device__ __forceinline__ void load_b_rows(Split<2>& b, const float* tile, int small,
-                                            int row0, int col0, int g, int t) {
-  const float* r = tile + (row0 + g) * (D + kPad) + col0 + t;
-  b.big[0] = __float_as_uint(r[0]);
-  b.small[0] = __float_as_uint(r[small]);
-  b.big[1] = __float_as_uint(r[4]);
-  b.small[1] = __float_as_uint(r[small + 4]);
-}
-
-// B fragment when the tile holds B itself: k = rows row0..row0+7 in the
-// order of a_from_c (k index l at row 2 (l % 4) + l / 4), n = columns
-// col0..col0+7
-template <int D>
-__device__ __forceinline__ void load_b_cols(Split<2>& b, const float* tile, int small,
-                                            int row0, int col0, int g, int t) {
-  const float* r = tile + (row0 + 2 * t) * (D + kPad) + col0 + g;
-  b.big[0] = __float_as_uint(r[0]);
-  b.small[0] = __float_as_uint(r[small]);
-  b.big[1] = __float_as_uint(r[D + kPad]);
-  b.small[1] = __float_as_uint(r[small + D + kPad]);
-}
-
-// the A fragment (16 x 8, k in load_b_cols's order) of a C fragment's
-// values: c0, c2, c1, c3 are A rows g, g + 8, g, g + 8 at k = t, t, t + 4,
-// t + 4, which are C columns 2 t, 2 t, 2 t + 1, 2 t + 1
-__device__ __forceinline__ void a_from_c(Split<4>& a, const float (&c)[4]) {
-  split(c[0], a.big[0], a.small[0]);
-  split(c[2], a.big[1], a.small[1]);
-  split(c[1], a.big[2], a.small[2]);
-  split(c[3], a.big[3], a.small[3]);
-}
 
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
@@ -296,52 +212,12 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-// rows [r0, r0 + NR) of a [S, D] slice into a tile; rows past S are zero
-template <int D, int NR>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0,
-                                          int S) {
-  constexpr int kChunks = D / 4;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < NR * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = idx - r * kChunks;
-    const bool valid = r0 + r < S;
-    cp_async16(dst + r * (D + kPad) + c * 4,
-               src + (size_t)(valid ? r0 + r : 0) * D + c * 4, valid);
-  }
-}
-
-// Split, in place, the 16-byte chunks of a tile that this thread copied
-// with load_tile<D, NR>: big parts stay, small parts go `small` floats on.
-// After cp.async.wait_group a thread sees its own copies, so this needs no
-// barrier before it, only the one after.
-template <int D, int NR>
-__device__ __forceinline__ void split_tile(float* tile, int small) {
-  constexpr int kChunks = D / 4;
-  for (int idx = threadIdx.x; idx < NR * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = idx - r * kChunks;
-    float4* x = reinterpret_cast<float4*>(tile + r * (D + kPad) + c * 4);
-    float4 big = *x, sm;
-    float* b = &big.x;
-    float* s = &sm.x;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      uint32_t hi, lo;
-      split(b[i], hi, lo);
-      b[i] = __uint_as_float(hi);
-      s[i] = __uint_as_float(lo);
-    }
-    *x = big;
-    *reinterpret_cast<float4*>(tile + small + r * (D + kPad) + c * 4) = sm;
-  }
-}
-
 // The block's (b, h) and first output row, with the blocks taken in
 // launch order slice by slice: every (b, h) of one row block before the
 // next. Causal attention gives the row blocks unequal work (the last query
 // rows meet the most keys, the first key rows the most queries), so the
-// longest go first (`last_first`: the dq kernel) and the short ones fill
-// the tail.
+// longest go first (`last_first`: the forward and dq kernels) and the
+// short ones fill the tail.
 __device__ __forceinline__ void block_coords(const Params& p, bool last_first, int& b,
                                              int& h, int& bh, int& row0) {
   const int slices = gridDim.y * gridDim.z;
@@ -350,12 +226,12 @@ __device__ __forceinline__ void block_coords(const Params& p, bool last_first, i
   bh = linear - rb * slices;
   b = bh / p.H;
   h = bh - b * p.H;
-  row0 = (last_first ? gridDim.x - 1 - rb : rb) * kBlockRows;
+  row0 = (last_first ? gridDim.x - 1 - rb : rb) * kWgRows;
 }
 
-// a warp's 16 x D accumulators to rows row_a (C rows g, times mul_a) and
-// row_a + 8 (times mul_b) of a [S, D] slice: each quad writes 32
-// contiguous bytes
+// a warp's 16 x D accumulators (the wgmma m64nD layout, 8 columns a chunk)
+// to rows row_a (rows g, times mul_a) and row_a + 8 (times mul_b) of a
+// [S, D] slice: each quad writes 32 contiguous bytes
 template <int D>
 __device__ __forceinline__ void store_rows_c(float* out, const float (&acc)[D / 8][4],
                                              float mul_a, float mul_b, int row_a, int S,
@@ -374,220 +250,8 @@ __device__ __forceinline__ void store_rows_c(float* out, const float (&acc)[D / 
 }
 
 // ---------------------------------------------------------------------------
-// K1, forward, float32. Replaces _fwd_kernel
-// (gradaccum_tpu/ops/flash_attention.py:127, launched by _flash_forward
-// :266) for float32; bfloat16 runs flash_attention_tc.cu. One block per
-// (b, h, 64 query rows); warp w owns rows 16 w .. 16 w + 15, whose Q rows
-// stay raw in shared memory and are split at use. The keys and values (and
-// the mask row) stream through two 32-row stages, each split into its TF32
-// parts once it lands.
-// Per 16 keys, each warp computes S = Q K^T (16 queries x 16 keys), then in
-// float32 s = S scale + mask_j (-inf past S and past the diagonal), the
-// online softmax (row max across the quad, rescale of o and of the lane's
-// partial l by exp(m_old - m_new)), p = exp(s - m_new), l += p (undropped),
-// the keep bits keep(rseed_i, j) that scale p by 1/keep or zero it, and
-// adds O += drop(P) V, the B operand read from the V stage by rows. At the
-// end l is summed across the quad; o = O / l and lse = m + log l.
-// Every row meets key 0 in its first step (key 0 is never past S or past a
-// diagonal), so m is finite from then on; a row whose step holds only -inf
-// scores rescales against 0 instead of -inf, so exp(-inf - -inf) is never
-// formed.
-// Bound: see the header (bytes at BERT-Small and gpt_lm, operations at
-// GPT-Small at 165 TFLOP/s).
+// Shared-memory tiles, 3xTF32 wgmma, the split pass
 // ---------------------------------------------------------------------------
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const Params p) {
-  constexpr int kStride = D + kPad;
-  constexpr int kStageElems = kStage * kStride;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* q_s = reinterpret_cast<float*>(smem_raw);  // [kBlockRows][kStride]
-  // [2 stages][K, K small, V, V small][kStage][kStride], split by split_tile
-  float* kv_s = q_s + kBlockRows * kStride;
-  float* mask_s = kv_s + 8 * kStageElems;  // [2][kStage]
-
-  const int S = p.S;
-  int b, h, bh, q0;
-  block_coords(p, true, b, h, bh, q0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const size_t slice = (size_t)bh * S * D;
-  const float* k = static_cast<const float*>(p.k) + slice;
-  const float* v = static_cast<const float*>(p.v) + slice;
-  const float* mask =
-      p.mask != nullptr ? static_cast<const float*>(p.mask) + (size_t)b * S : nullptr;
-
-  const int k_end = p.causal ? min(S, q0 + kBlockRows) : S;
-  const int n_stages = (k_end + kStage - 1) / kStage;
-
-  // key/value stage `stage` (and its mask row, 0 past S or without a mask)
-  // into buffer `st`
-  auto load_kv = [&](int stage, int st) {
-    const int j0 = stage * kStage;
-    float* ks = kv_s + st * 4 * kStageElems;
-    load_tile<D, kStage>(ks, k, j0, S);
-    load_tile<D, kStage>(ks + 2 * kStageElems, v, j0, S);
-    if (threadIdx.x < kStage) {
-      const int j = j0 + threadIdx.x;
-      mask_s[st * kStage + threadIdx.x] = (mask != nullptr && j < S) ? mask[j] : 0.f;
-    }
-  };
-
-  load_tile<D, kBlockRows>(q_s, static_cast<const float*>(p.q) + slice, q0, S);
-  load_kv(0, 0);
-  cp_async_commit();
-
-  // this lane's two query rows: a (g) and b (g + 8) of the warp's 16
-  const int row_w = q0 + warp * 16;  // the warp's first row
-  const int row_a = row_w + g, row_b = row_a + 8;
-  uint32_t rseed_a = 0u, rseed_b = 0u;
-  if (p.dropout) {
-    const uint32_t seed = (uint32_t)(*p.seed);
-    rseed_a = row_seed(seed, drop_slice(p, b, h), (uint32_t)row_a);
-    rseed_b = row_seed(seed, drop_slice(p, b, h), (uint32_t)row_b);
-  }
-  // keys past this bound meet none of the warp's rows
-  const int warp_end = p.causal ? min(k_end, row_w + 16) : k_end;
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  // the online softmax of rows a and b: running max, and this lane's
-  // partial sum of the undropped p over the keys it holds
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-
-  for (int stage = 0; stage < n_stages; ++stage) {
-    const int st = stage & 1;
-    if (stage + 1 < n_stages) load_kv(stage + 1, st ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this stage (and Q) landed; the next may be in flight
-    float* ks = kv_s + st * 4 * kStageElems;
-    float* vs = ks + 2 * kStageElems;
-    split_tile<D, kStage>(ks, kStageElems);
-    split_tile<D, kStage>(vs, kStageElems);
-    __syncthreads();
-    const float* ms = mask_s + st * kStage;
-    const int j0 = stage * kStage;
-
-    for (int c = 0; c < kStage / kStep && j0 + c * kStep < warp_end; ++c) {
-      // S = Q K^T: 16 queries x 16 keys, 2 n-tiles. At most 8 k steps are
-      // unrolled: the compiler then keeps Q's split fragments in registers
-      // across the stage's steps up to D = 64 (64 registers); all 16 of
-      // D = 128 held so spilled.
-      float sc[2][4];
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
-#pragma unroll 8
-      for (int kk = 0; kk < D / 8; ++kk) {
-        Split<4> qa;
-        load_a<D>(qa, q_s, warp * 16, kk * 8, g, t);
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          Split<2> kb;
-          load_b_rows<D>(kb, ks, kStageElems, c * kStep + n * 8, kk * 8, g, t);
-          mma3(sc[n], qa, kb);
-        }
-      }
-
-      // element-wise, in float32: scores, the step's row max, the rescale
-      float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int jl = c * kStep + n * 8 + 2 * t + (e & 1);
-          const int j = j0 + jl;
-          float x = sc[n][e] * p.scale + ms[jl];
-          if (j >= S || (p.causal && j > (e < 2 ? row_a : row_b))) x = -INFINITY;
-          sc[n][e] = x;
-          if (e < 2) mx_a = fmaxf(mx_a, x);
-          else mx_b = fmaxf(mx_b, x);
-        }
-      }
-      const float mn_a = fmaxf(m_a, quad_max(mx_a));
-      const float mn_b = fmaxf(m_b, quad_max(mx_b));
-      const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
-      const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
-      const float corr_a = expf(m_a - base_a), corr_b = expf(m_b - base_b);
-      m_a = mn_a;
-      m_b = mn_b;
-      l_a *= corr_a;
-      l_b *= corr_b;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        acc[dn][0] *= corr_a;
-        acc[dn][1] *= corr_a;
-        acc[dn][2] *= corr_b;
-        acc[dn][3] *= corr_b;
-      }
-      // sc becomes drop(P); l sums the undropped p
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float pt = expf(sc[n][e] - (e < 2 ? base_a : base_b));
-          if (e < 2) l_a += pt;
-          else l_b += pt;
-          if (p.dropout) {
-            const int j = j0 + c * kStep + n * 8 + 2 * t + (e & 1);
-            pt = keep(e < 2 ? rseed_a : rseed_b, (uint32_t)j, p.threshold) ? pt * p.inv_keep
-                                                                           : 0.f;
-          }
-          sc[n][e] = pt;
-        }
-      }
-
-      // O += drop(P) V: k = these 16 keys (two steps of 8), n = D
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        Split<4> pa;
-        a_from_c(pa, sc[n]);
-#pragma unroll
-        for (int dn = 0; dn < D / 8; ++dn) {
-          Split<2> vb;
-          load_b_cols<D>(vb, vs, kStageElems, c * kStep + n * 8, dn * 8, g, t);
-          mma3(acc[dn], pa, vb);
-        }
-      }
-    }
-    __syncthreads();  // the stage is refilled by the next iteration's copy
-  }
-
-  l_a = quad_sum(l_a);
-  l_b = quad_sum(l_b);
-  if (t == 0) {
-    float* lse = p.out_f32 + (size_t)bh * S;
-    if (row_a < S) lse[row_a] = m_a + logf(l_a);
-    if (row_b < S) lse[row_b] = m_b + logf(l_b);
-  }
-  store_rows_c<D>(static_cast<float*>(p.out0) + slice, acc, 1.f / l_a, 1.f / l_b, row_a, S,
-                  t);
-}
-
-// ---------------------------------------------------------------------------
-// K2 and K3: Hopper designs. Shared-memory tiles, 3xTF32 wgmma, the split
-// pass.
-// ---------------------------------------------------------------------------
-
-constexpr int kWgRows = kBlockRows;  // rows of the consumer warpgroup: wgmma's M
-constexpr int kBwdThreads = 256;     // the consumer warpgroup, then the producer warpgroup
-constexpr int kSmemLimit = 232448;   // dynamic shared memory a block may opt into
-constexpr CUtensorMapDataType kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-
-// queries per K3 stage and its stages; keys per K2 stage and its stages.
-// D = 128 needs short stages: its own tiles alone take 128 KB.
-template <int D>
-__host__ __device__ constexpr int dkv_rows() { return D == 128 ? 8 : 32; }
-template <int D>
-__host__ __device__ constexpr int dkv_stages() { return D == 64 ? 2 : 3; }
-template <int D>
-__host__ __device__ constexpr int dq_keys() { return D == 128 ? 16 : 32; }
-template <int D>
-__host__ __device__ constexpr int dq_stages() { return D == 128 ? 2 : 3; }
 
 // A float32 tile of `rows` rows and K columns as TMA writes it, and as the
 // split pass writes its twins and transposes: K / P panels of [rows][P],
@@ -615,7 +279,7 @@ __host__ __device__ constexpr uint32_t tile_off(int rows, int row, int col) {
   return off ^ (((off >> 7) & (T::R / 16 - 1)) << 4);
 }
 
-// a_from_c feeds the tensor core k index l of each 8-row step as stage row
+// a_split feeds the tensor core k index l of each 8-row step as stage row
 // 2 (l % 4) + l / 4; stage row r therefore sits at k index k_slot(r) of the
 // transposed tiles that are the B of those products
 __host__ __device__ constexpr int k_slot(int r) {
@@ -752,14 +416,15 @@ __device__ __forceinline__ void mma3_rs(float* d, const Split<4>& a, uint32_t t_
 
 // The split pass, run by the producer warpgroup's 128 threads (thread
 // `tid`) over a tile of Rows rows and D columns that TMA has landed raw
-// (Tile32<D>): big = tf32(x) in place, small = tf32(x - big) into the twin at
-// `small`; with kTranspose also big and small of the transpose ([D][Rows],
-// Tile32<Rows>, stage row r at column k_slot(r)) at t_big and t_small. A
+// (Tile32<D>): with kRows big = tf32(x) in place and small = tf32(x - big)
+// into the twin at `small`; with kTranspose big and small of the transpose
+// ([D][Rows], Tile32<Rows>, stage row r at column k_slot(r)) at t_big and
+// t_small (K1's V needs only its transpose, and keeps its raw tile). A
 // thread takes row r = tid % Rows and every (512 / Rows)-th 16-byte chunk of
 // it, all its loads first: the float4 accesses of 8 lanes meet 8 different
 // swizzled chunks, and at Rows = 32 each transposed store of a warp fills
 // one 128-byte row, so neither conflicts on banks.
-template <int D, int Rows, bool kTranspose>
+template <int D, int Rows, bool kRows, bool kTranspose>
 __device__ __forceinline__ void split_pass(unsigned char* tile, unsigned char* small,
                                            unsigned char* t_big, unsigned char* t_small,
                                            int tid) {
@@ -784,8 +449,10 @@ __device__ __forceinline__ void split_pass(unsigned char* tile, unsigned char* s
       xb[e] = __uint_as_float(hi);
       xs[e] = __uint_as_float(sm);
     }
-    *reinterpret_cast<float4*>(tile + off) = x[it];
-    *reinterpret_cast<float4*>(small + off) = lo;
+    if constexpr (kRows) {
+      *reinterpret_cast<float4*>(tile + off) = x[it];
+      *reinterpret_cast<float4*>(small + off) = lo;
+    }
     if constexpr (kTranspose) {
       const int col = k_slot(r);
 #pragma unroll
@@ -798,8 +465,8 @@ __device__ __forceinline__ void split_pass(unsigned char* tile, unsigned char* s
   }
 }
 
-// The element-wise results of K2 and K3 (drop(P^T), dS^T, dS) split for
-// the register A of the second products: big = x rounded to TF32 as
+// The element-wise results of the three kernels (drop(P), dS, drop(P^T),
+// dS^T) split for the register A of the second products: big = x rounded to TF32 as
 // cvt.rna.tf32 rounds every finite value (to nearest, ties away from zero:
 // half of the dropped range added to the magnitude bits, then cleared),
 // and small = the same of x - big, low bits cleared too. Two integer
@@ -811,8 +478,12 @@ __device__ __forceinline__ uint32_t rna_tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// a_from_c's fragment order (k index l is column 2 (l % 4) + l / 4 of the
-// chunk), split with rna_tf32
+// the A fragment (Split<4>, k in the order that k_slot inverts) of an
+// accumulator chunk c (8 columns, the C fragment of mma.m16n8k8 per warp:
+// c0..c3 are rows g, g, g + 8, g + 8 at columns 2 t, 2 t + 1, 2 t,
+// 2 t + 1): c0, c2, c1, c3 are A rows g, g + 8, g, g + 8 at k = t, t,
+// t + 4, t + 4, so k index l stands for column 2 (l % 4) + l / 4. Split
+// with rna_tf32
 __device__ __forceinline__ void a_split(Split<4>& a, const float (&c)[4]) {
   const float x[4] = {c[0], c[2], c[1], c[3]};
 #pragma unroll
@@ -832,10 +503,31 @@ __device__ __forceinline__ float exp_fast(float x) {
   return y;
 }
 
-// the tensor maps of K2 and K3 (__grid_constant__: they stay in the
-// parameter space, where TMA reads them)
+// the tensor maps of K1, and of K2 and K3 (__grid_constant__: they stay in
+// the parameter space, where TMA reads them)
+struct FwdMaps {
+  CUtensorMap q, k, v;
+};
+
 struct BwdMaps {
   CUtensorMap q, k, v, dout;
+};
+
+// K1's shared memory, in bytes from the aligned start: the block's own
+// tiles Q, Q small ([64][D] each); the stages, each K, K small, V as TMA
+// lands it ([kKeys][D]) and V^T, V^T small ([D][kKeys]); each stage's mask
+// row; then the barriers own_full, own_ready, full[], ready[], empty[].
+template <int D>
+struct FwdLayout {
+  static constexpr int kKeys = dq_keys<D>();
+  static constexpr int kStages = dq_stages<D>();
+  static constexpr int kOwn = kWgRows * D * 4;  // one own tile
+  static constexpr int kTile = kKeys * D * 4;   // one of a stage's five tiles
+  static constexpr int kStage0 = 2 * kOwn;
+  static constexpr int kMask = kStage0 + kStages * 5 * kTile;
+  static constexpr int kBars = kMask + kStages * kKeys * 4;
+  static constexpr int kSmem = kBars + 8 * (2 + 3 * kStages) + 1024;
+  static_assert(kSmem <= kSmemLimit, "K1's shared memory exceeds a block's");
 };
 
 // K3's shared memory, in bytes from the aligned start: the block's own
@@ -876,7 +568,7 @@ struct DqLayout {
   static_assert(kSmem <= kSmemLimit, "K2's shared memory exceeds a block's");
 };
 
-// the barriers of K2 and K3: own_full (TMA of the own tiles), own_ready
+// the barriers of K1, K2 and K3: own_full (TMA of the own tiles), own_ready
 // (split), and per stage full (TMA), ready (split) and empty (consumed)
 struct Bars {
   uint64_t *own_full, *own_ready, *full, *ready, *empty;
@@ -910,6 +602,235 @@ __device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* 
 }
 
 // ---------------------------------------------------------------------------
+// K1, forward, float32. Replaces _fwd_kernel
+// (gradaccum_tpu/ops/flash_attention.py:127, launched by _flash_forward
+// :266) for float32; bfloat16 runs flash_attention_tc.cu. One block per
+// (b, h, 64 query rows): warpgroup 0 consumes, warpgroup 1 produces. The
+// producer's first thread copies the block's Q rows once and streams key
+// stages (K and V, 32 rows, 16 at D = 128) with TMA, the first stages
+// together with Q; its 128 threads fill each stage's mask row and run the
+// split pass: Q into big and small once, each stage's K into big and small
+// and its V into the transposes V^T, big and small. The consumer
+// warpgroup computes S = Q K^T (64 queries x the stage's keys) with 3xTF32
+// wgmma from shared memory, then in float32 s = S scale + mask_j (-inf past
+// S and past the diagonal), the online softmax (the row max across the
+// quad, O and the lane's partial l rescaled by exp(m_old - m_new)),
+// p = exp(s - m_new), l += p (undropped), the keep bits keep(rseed_i, j)
+// that scale p by 1/keep or zero it, and adds O += drop(P) V (drop(P)
+// split in registers, B V^T). That product stays in flight while the next
+// stage's S is issued; one wait covers both, then the stage is released.
+// At the end l is summed across the quad; o = O / l and lse = m + log l.
+// Every row meets key 0 in its first stage (key 0 is never past S or past
+// a diagonal), so m is finite from then on; a row whose stage holds only
+// -inf scores rescales against 0 instead of -inf, so exp(-inf - -inf) is
+// never formed. Causal: the key stages stop after the block's last row;
+// elements past the diagonal are masked one by one.
+// Bound: see the header.
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const Params p, const __grid_constant__ FwdMaps maps) {
+  using L = FwdLayout<D>;
+  constexpr int kKeys = L::kKeys;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  float* mask_s = reinterpret_cast<float*>(smem + L::kMask);  // [stage][kKeys]
+
+  const int S = p.S;
+  int b, h, bh, q0;
+  block_coords(p, true, b, h, bh, q0);
+  const int k_end = p.causal ? min(S, q0 + kWgRows) : S;
+  const int n_tiles = (k_end + kKeys - 1) / kKeys;
+  if (threadIdx.x == 0) {
+    prefetch_map(&maps.q);
+    prefetch_map(&maps.k);
+    prefetch_map(&maps.v);
+  }
+  const Bars bars = init_bars(smem + L::kBars, L::kStages);
+
+  if (threadIdx.x >= 128) {  // the producer warpgroup
+    const int tid = threadIdx.x - 128;
+    // stage `tile`'s K and V, by the first thread
+    auto issue = [&](int tile) {
+      const int st = tile % L::kStages;
+      unsigned char* stage = smem + L::kStage0 + st * 5 * L::kTile;
+      mbar_arrive_expect_tx(&bars.full[st], 2 * L::kTile);
+      tma_tile<D>(stage, &maps.k, &bars.full[st], kKeys, tile * kKeys, bh);
+      tma_tile<D>(stage + 2 * L::kTile, &maps.v, &bars.full[st], kKeys, tile * kKeys, bh);
+    };
+    // Q and the first stages (free until the ring wraps) fly together
+    if (tid == 0) {
+      mbar_arrive_expect_tx(bars.own_full, L::kOwn);
+      tma_tile<D>(smem, &maps.q, bars.own_full, kWgRows, q0, bh);
+      for (int tile = 0; tile < L::kStages && tile < n_tiles; ++tile) issue(tile);
+    }
+    const float* mask =
+        p.mask != nullptr ? static_cast<const float*>(p.mask) + (size_t)b * S : nullptr;
+    int tile = 0;  // every block has a stage: a do loop, as in K2
+    do {
+      const int st = tile % L::kStages;
+      const uint32_t phase = (tile / L::kStages) & 1;
+      const int j0 = tile * kKeys;
+      unsigned char* stage = smem + L::kStage0 + st * 5 * L::kTile;
+      mbar_wait(&bars.empty[st], phase ^ 1);
+      if (tid == 0 && tile >= L::kStages) issue(tile);
+      for (int j = tid; j < kKeys; j += 128)
+        mask_s[st * kKeys + j] = (mask != nullptr && j0 + j < S) ? mask[j0 + j] : 0.f;
+      if (tile == 0) {  // Q, split once while the first stage lands
+        mbar_wait(bars.own_full, 0);
+        split_pass<D, kWgRows, true, false>(smem, smem + L::kOwn, nullptr, nullptr, tid);
+        fence_proxy_async();
+        mbar_arrive(bars.own_ready);
+      }
+      mbar_wait(&bars.full[st], phase);
+      split_pass<D, kKeys, true, false>(stage, stage + L::kTile, nullptr, nullptr, tid);
+      split_pass<D, kKeys, false, true>(stage + 2 * L::kTile, nullptr, stage + 3 * L::kTile,
+                                        stage + 4 * L::kTile, tid);
+      fence_proxy_async();
+      mbar_arrive(&bars.ready[st]);
+    } while (++tile < n_tiles);
+    return;
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // this lane's two query rows: a (g) and b (g + 8) of the warp's 16
+  const int row_w = q0 + warp * 16;
+  const int row_a = row_w + g, row_b = row_a + 8;
+  uint32_t rseed_a = 0u, rseed_b = 0u;
+  if (p.dropout) {
+    const uint32_t seed = (uint32_t)(*p.seed);
+    rseed_a = row_seed(seed, drop_slice(p, b, h), (uint32_t)row_a);
+    rseed_b = row_seed(seed, drop_slice(p, b, h), (uint32_t)row_b);
+  }
+  const uint32_t base = smem_addr(smem);
+  const uint32_t q_big = base, q_small = base + L::kOwn;
+
+  float acc[D / 2], s[kKeys / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kKeys / 2; ++i) s[i] = 0.f;
+  // the online softmax of rows a and b: running max, and this lane's
+  // partial sum of the undropped p over the keys it holds
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  Split<4> pa[kKeys / 8];  // drop(P) split, the A operand of P V, chunk n keys 8 n .. 8 n + 7
+
+  mbar_wait(bars.own_ready, 0);
+  int tile = 0;  // every block has a stage: a do loop, as in K2
+  do {
+    const int st = tile % L::kStages;
+    const uint32_t phase = (tile / L::kStages) & 1;
+    const int j0 = tile * kKeys;
+    const uint32_t stage = base + L::kStage0 + st * 5 * L::kTile;
+
+    // S = Q K^T: 64 queries x kKeys keys. The previous stage's P V may
+    // still run: one wait covers both, then that stage is released.
+    mbar_wait(&bars.ready[st], phase);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+      mma3_ss<kKeys>(s, desc32<D>(q_big, kWgRows, 0, kk), desc32<D>(q_small, kWgRows, 0, kk),
+                     desc32<D>(stage, kKeys, 0, kk), desc32<D>(stage + L::kTile, kKeys, 0, kk),
+                     kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<kKeys / 2>(s);
+    fence_regs<D / 2>(acc);
+    if (tile > 0) mbar_arrive(&bars.empty[(tile - 1) % L::kStages]);
+
+    // element-wise, in float32: the scores (into x, never over the
+    // accumulator of S), the stage's row max, the rescale of O and l, and
+    // drop(P), split into pa. The bounds and dropout tests are resolved per
+    // tile, as in K2.
+    const float* ms = mask_s + st * kKeys;
+    const bool edge = j0 + kKeys > S || (p.causal && j0 + kKeys - 1 > row_w);
+    auto softmax = [&](auto edge_c, auto dropout_c) {
+      constexpr bool kEdge = decltype(edge_c)::value, kDropout = decltype(dropout_c)::value;
+      float x[kKeys / 2];
+      float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n) {
+        const float2 mk = *reinterpret_cast<const float2*>(ms + n * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float sc = s[4 * n + e] * p.scale + ((e & 1) ? mk.y : mk.x);
+          if constexpr (kEdge) {
+            const int j = j0 + n * 8 + 2 * t + (e & 1);
+            if (j >= S || (p.causal && j > (e < 2 ? row_a : row_b))) sc = -INFINITY;
+          }
+          x[4 * n + e] = sc;
+          if (e < 2) mx_a = fmaxf(mx_a, sc);
+          else mx_b = fmaxf(mx_b, sc);
+        }
+      }
+      const float mn_a = fmaxf(m_a, quad_max(mx_a));
+      const float mn_b = fmaxf(m_b, quad_max(mx_b));
+      const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
+      const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+      const float corr_a = exp_fast(m_a - base_a), corr_b = exp_fast(m_b - base_b);
+      m_a = mn_a;
+      m_b = mn_b;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        acc[4 * i] *= corr_a;
+        acc[4 * i + 1] *= corr_a;
+        acc[4 * i + 2] *= corr_b;
+        acc[4 * i + 3] *= corr_b;
+      }
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n) {
+        float pd[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pt = exp_fast(x[4 * n + e] - (e < 2 ? base_a : base_b));
+          if (e < 2) sum_a += pt;
+          else sum_b += pt;
+          if constexpr (kDropout) {
+            const int j = j0 + n * 8 + 2 * t + (e & 1);
+            pt = keep(e < 2 ? rseed_a : rseed_b, (uint32_t)j, p.threshold) ? pt * p.inv_keep
+                                                                           : 0.f;
+          }
+          pd[e] = pt;
+        }
+        a_split(pa[n], pd);
+      }
+      l_a = l_a * corr_a + sum_a;
+      l_b = l_b * corr_b + sum_b;
+    };
+    if (edge) {
+      if (p.dropout) softmax(std::true_type(), std::true_type());
+      else softmax(std::true_type(), std::false_type());
+    } else {
+      if (p.dropout) softmax(std::false_type(), std::true_type());
+      else softmax(std::false_type(), std::false_type());
+    }
+
+    // O += drop(P) V: k = the stage's keys, n = D, B the transposes V^T
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kKeys / 8; ++c)
+      mma3_rs<D, kKeys>(acc, pa[c], stage + 3 * L::kTile, stage + 4 * L::kTile, c);
+    wgmma_commit();
+  } while (++tile < n_tiles);
+  wgmma_wait_all();
+  fence_regs<D / 2>(acc);
+
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  if (t == 0) {
+    float* lse = p.out_f32 + (size_t)bh * S;
+    if (row_a < S) lse[row_a] = m_a + logf(l_a);
+    if (row_b < S) lse[row_b] = m_b + logf(l_b);
+  }
+  store_rows_c<D>(static_cast<float*>(p.out0) + (size_t)bh * S * D,
+                  *reinterpret_cast<const float(*)[D / 8][4]>(acc), 1.f / l_a, 1.f / l_b, row_a,
+                  S, t);
+}
+
+// ---------------------------------------------------------------------------
 // K3, dk/dv (+ per-head dmask), float32. Replaces _dkv_kernel
 // (gradaccum_tpu/ops/flash_attention.py:399, from _flash_backward :466).
 // One block per (b, h, 64 key rows): warpgroup 0 consumes, warpgroup 1
@@ -929,7 +850,7 @@ __device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* 
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_dkv_kernel(const Params p, const __grid_constant__ BwdMaps maps) {
   using L = DkvLayout<D>;
   constexpr int kRows = L::kRows;
@@ -965,8 +886,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                         ? static_cast<const float*>(p.mask)[(size_t)b * S + k0 + j]
                         : 0.f;
     mbar_wait(bars.own_full, 0);
-    split_pass<D, kWgRows, false>(smem, smem + L::kOwn, nullptr, nullptr, tid);
-    split_pass<D, kWgRows, false>(smem + 2 * L::kOwn, smem + 3 * L::kOwn, nullptr, nullptr,
+    split_pass<D, kWgRows, true, false>(smem, smem + L::kOwn, nullptr, nullptr, tid);
+    split_pass<D, kWgRows, true, false>(smem + 2 * L::kOwn, smem + 3 * L::kOwn, nullptr, nullptr,
                                   tid);
     fence_proxy_async();
     mbar_arrive(bars.own_ready);
@@ -993,9 +914,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         rseed_s[st * kRows + j] = p.dropout ? row_seed_of(sseed, (uint32_t)i) : 0u;
       }
       mbar_wait(&bars.full[st], phase);
-      split_pass<D, kRows, true>(stage, stage + L::kTile, stage + 4 * L::kTile,
+      split_pass<D, kRows, true, true>(stage, stage + L::kTile, stage + 4 * L::kTile,
                                  stage + 5 * L::kTile, tid);
-      split_pass<D, kRows, true>(stage + 2 * L::kTile, stage + 3 * L::kTile,
+      split_pass<D, kRows, true, true>(stage + 2 * L::kTile, stage + 3 * L::kTile,
                                  stage + 6 * L::kTile, stage + 7 * L::kTile, tid);
       fence_proxy_async();
       mbar_arrive(&bars.ready[st]);
@@ -1164,7 +1085,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_dq_kernel(const Params p, const __grid_constant__ BwdMaps maps) {
   using L = DqLayout<D>;
   constexpr int kKeys = L::kKeys;
@@ -1193,8 +1114,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       tma_tile<D>(smem + 2 * L::kOwn, &maps.dout, bars.own_full, kWgRows, q0, bh);
     }
     mbar_wait(bars.own_full, 0);
-    split_pass<D, kWgRows, false>(smem, smem + L::kOwn, nullptr, nullptr, tid);
-    split_pass<D, kWgRows, false>(smem + 2 * L::kOwn, smem + 3 * L::kOwn, nullptr, nullptr,
+    split_pass<D, kWgRows, true, false>(smem, smem + L::kOwn, nullptr, nullptr, tid);
+    split_pass<D, kWgRows, true, false>(smem + 2 * L::kOwn, smem + 3 * L::kOwn, nullptr, nullptr,
                                   tid);
     fence_proxy_async();
     mbar_arrive(bars.own_ready);
@@ -1214,9 +1135,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       for (int j = tid; j < kKeys; j += 128)
         mask_s[st * kKeys + j] = (mask != nullptr && j0 + j < S) ? mask[j0 + j] : 0.f;
       mbar_wait(&bars.full[st], phase);
-      split_pass<D, kKeys, true>(stage, stage + L::kTile, stage + 4 * L::kTile,
+      split_pass<D, kKeys, true, true>(stage, stage + L::kTile, stage + 4 * L::kTile,
                                  stage + 5 * L::kTile, tid);
-      split_pass<D, kKeys, false>(stage + 2 * L::kTile, stage + 3 * L::kTile, nullptr,
+      split_pass<D, kKeys, true, false>(stage + 2 * L::kTile, stage + 3 * L::kTile, nullptr,
                                   nullptr, tid);
       fence_proxy_async();
       mbar_arrive(&bars.ready[st]);
@@ -1372,35 +1293,37 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 // Launch
 // ---------------------------------------------------------------------------
 
-// K1's shared memory: its Q rows, eight stage tiles and the mask rows
-template <int D>
-constexpr size_t fwd_smem() {
-  return sizeof(float) * ((kBlockRows + 8 * kStage) * (D + kPad) + 2 * kStage);
-}
-
-// K2 and K3: the shared-memory opt-in once per kernel instance, then the
-// launch on (row blocks, H, B), which block_coords reads
-template <void (*Kernel)(Params, BwdMaps)>
-int launch_bwd(size_t smem, const Params& p, int B, const BwdMaps& maps, cudaStream_t stream) {
+// K1, K2 and K3: the shared-memory opt-in once per kernel instance, then
+// the launch on (row blocks, H, B), which block_coords reads. The
+// attribute belongs to the device that is current at the first launch: one
+// card per process.
+template <typename Maps, void (*Kernel)(Params, Maps)>
+int launch_tma(size_t smem, const Params& p, int B, const Maps& maps, cudaStream_t stream) {
   static const cudaError_t opt_in =
       cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (opt_in != cudaSuccess) return (int)opt_in;
-  const dim3 grid((p.S + kBlockRows - 1) / kBlockRows, p.H, B);
-  Kernel<<<grid, kBwdThreads, smem, stream>>>(p, maps);
+  const dim3 grid((p.S + kWgRows - 1) / kWgRows, p.H, B);
+  Kernel<<<grid, kThreads, smem, stream>>>(p, maps);
   return (int)cudaGetLastError();
 }
 
 enum Which { kFwd, kDq, kDkv };
 
+// K1's own tile (Q) is a box of 64 rows and its stages (K, V) of dq_keys;
 // K2's own tiles (Q, dO) are boxes of 64 rows and its stages (K, V) of
 // dq_keys; K3's own (K, V) of 64 and its stages (Q, dO) of dkv_rows
 template <int D>
 int launch_d(Which which, const Params& p, int B, cudaStream_t stream) {
-  if (which == kFwd)
-    return flash::launch<flash_fwd_kernel<D>>(fwd_smem<D>(), p, B, kBlockRows, kThreads,
-                                              stream);
-  BwdMaps maps;
   const int slices = B * p.H;
+  if (which == kFwd) {
+    FwdMaps maps;
+    if (!tensor_map(&maps.q, p.q, kF32, slices, p.S, D, kWgRows) ||
+        !tensor_map(&maps.k, p.k, kF32, slices, p.S, D, dq_keys<D>()) ||
+        !tensor_map(&maps.v, p.v, kF32, slices, p.S, D, dq_keys<D>()))
+      return (int)cudaErrorInvalidValue;
+    return launch_tma<FwdMaps, flash_fwd_kernel<D>>(FwdLayout<D>::kSmem, p, B, maps, stream);
+  }
+  BwdMaps maps;
   const int own = kWgRows, streamed = which == kDq ? dq_keys<D>() : dkv_rows<D>();
   const int q_rows = which == kDq ? own : streamed, k_rows = which == kDq ? streamed : own;
   if (!tensor_map(&maps.q, p.q, kF32, slices, p.S, D, q_rows) ||
@@ -1409,8 +1332,8 @@ int launch_d(Which which, const Params& p, int B, cudaStream_t stream) {
       !tensor_map(&maps.v, p.v, kF32, slices, p.S, D, k_rows))
     return (int)cudaErrorInvalidValue;
   if (which == kDq)
-    return launch_bwd<flash_dq_kernel<D>>(DqLayout<D>::kSmem, p, B, maps, stream);
-  return launch_bwd<flash_dkv_kernel<D>>(DkvLayout<D>::kSmem, p, B, maps, stream);
+    return launch_tma<BwdMaps, flash_dq_kernel<D>>(DqLayout<D>::kSmem, p, B, maps, stream);
+  return launch_tma<BwdMaps, flash_dkv_kernel<D>>(DkvLayout<D>::kSmem, p, B, maps, stream);
 }
 
 int dispatch(Which which, int dtype, int D, const Params& p, int B,
@@ -1485,7 +1408,7 @@ extern "C" int flash_bwd_dkv(int dtype, int D, const void* q, const void* k,
 }
 
 // The tensor-map cache's counts (hopper.cuh) since the library was loaded:
-// lookups (one for each map a K2 or K3 launch needs) and encodes (the
+// lookups (one for each map a K1, K2 or K3 launch needs) and encodes (the
 // lookups that missed, each a call into libcuda)
 extern "C" long long flash_f32_map_lookups() { return map_lookups.load(); }
 

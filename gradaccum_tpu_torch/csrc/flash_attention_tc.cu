@@ -988,7 +988,8 @@ __global__ void __launch_bounds__(128 * (max_consumers<D>() + 1), 1)
     }
     const bf16* mask =
         p.mask != nullptr ? static_cast<const bf16*>(p.mask) + (size_t)b * S : nullptr;
-    for (int tile = 0; tile < n_tiles; ++tile) {
+    int tile = 0;  // every block has a tile (key 0): a do loop, as the consumers'
+    do {
       const int st = tile % L::kStages;
       mbar_wait(&empty[st], ((tile / L::kStages) & 1) ^ 1);
       const int k0 = tile * kDqKeys;
@@ -1004,7 +1005,7 @@ __global__ void __launch_bounds__(128 * (max_consumers<D>() + 1), 1)
       for (int j = lane; j < kDqKeys; j += 32)
         ms[j] = (mask != nullptr && k0 + j < S) ? __bfloat162float(mask[k0 + j]) * kLog2e : 0.f;
       mbar_arrive(&m_full[st]);
-    }
+    } while (++tile < n_tiles);
     return;
   }
 
@@ -1064,7 +1065,11 @@ __global__ void __launch_bounds__(128 * (max_consumers<D>() + 1), 1)
 
   uint32_t sa[kDqKeys / 16][4];  // dS in bf16, the A operand of dS K
   mbar_wait(q_full, 0);
-  for (int tile = 0; tile < n_tiles; ++tile) {
+  // every block has a tile (key 0): a loop that may run no time would join
+  // a path that never issued a product to the wait below, and ptxas would
+  // serialize every wgmma of the kernel (C7515), as in the float32 dq kernel
+  int tile = 0;
+  do {
     const int st = tile % L::kStages;
     const uint32_t phase = (tile / L::kStages) & 1;
     const int k0 = tile * kDqKeys;
@@ -1137,7 +1142,7 @@ __global__ void __launch_bounds__(128 * (max_consumers<D>() + 1), 1)
       for (int pn = 0; pn < T::kCount; ++pn)
         wgmma_rs<T::P>(dq + pn * (T::P / 2), sa[c], desc_mn<D>(ks, kDqKeys, pn, c), 1);
     wgmma_commit();
-  }
+  } while (++tile < n_tiles);
   wgmma_wait_all();
   fence_regs<D / 2>(dq);
 
@@ -1162,7 +1167,7 @@ constexpr CUtensorMapDataType kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
 // consumer warpgroups per block: two (128 rows) when the kernel instance
 // has room for two and the grid of 128-row blocks fills every SM at least
-// once, else one (64 rows). One card per process, as flash::launch assumes.
+// once, else one (64 rows). One card per process, as the launch's opt-in assumes.
 int consumers_for(int most, int slices, int S) {
   static const int sms = [] {
     int dev = 0, n = 132;

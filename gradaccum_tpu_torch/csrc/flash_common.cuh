@@ -1,5 +1,5 @@
-// What the two flash-attention sources share: the hash dropout, the
-// argument block of every kernel and the launch. Included by
+// What the two flash-attention sources share: the hash dropout and the
+// argument block of every kernel. Included by
 // flash_attention.cu (float32 kernels) and flash_attention_tc.cu (bfloat16
 // kernels); each is compiled on its own into a library of its own, so
 // nothing here needs external linkage.
@@ -106,23 +106,6 @@ inline Params make_params(const void* q, const void* k, const void* v,
   p.head_offset = 0;
   p.heads_total = (uint16_t)H;
   return p;
-}
-
-// One block per (rows output rows, head, batch). Returns cudaGetLastError().
-// The kernel is a template argument so that each kernel instance has its
-// own opt-in: above 48 KB a block's dynamic shared memory needs
-// cudaFuncSetAttribute, which is set once per instance (a function-local
-// static), not on every launch. The attribute belongs to the device that is
-// current at the first launch: one card per process.
-template <void (*Kernel)(Params)>
-int launch(size_t smem, const Params& p, int B, int rows, int threads,
-           cudaStream_t stream) {
-  static const cudaError_t opt_in = cudaFuncSetAttribute(
-      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (opt_in != cudaSuccess) return (int)opt_in;
-  const dim3 grid((p.S + rows - 1) / rows, p.H, B);
-  Kernel<<<grid, threads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace flash

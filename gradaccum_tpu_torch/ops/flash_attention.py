@@ -11,9 +11,9 @@ dtype and nothing else:
 - ``tf32x3`` (``csrc/flash_attention.cu``): every float32 kernel on the
   tensor cores in 3xTF32 (each operand split into two TF32 parts, three
   products per product), which holds float32's tolerances where a single
-  TF32 product would not. Its dq and dk/dv kernels are Hopper designs
-  (TMA into mbarrier stages, ``wgmma`` on split and transposed tiles), its
-  forward an ``mma.sync`` one.
+  TF32 product would not. All three are Hopper designs too (TMA into
+  mbarrier stages, a producer warpgroup that splits each tile into its TF32
+  parts and transposes, ``wgmma`` on them in a consumer warpgroup).
 
 The design and what bounds each kernel are noted in the sources.
 The forward saves only ``o`` and the per-row logsumexp; the backward
@@ -218,7 +218,7 @@ _SOURCES = {
 
 # the bf16 library's counts of its tensor-map cache: {count: C function}
 _MAP_COUNTS = {"lookups": "flash_tc_map_lookups", "encodes": "flash_tc_map_encodes"}
-# and the float32 library's (its dq and dk/dv kernels copy with TMA)
+# and the float32 library's (its three kernels copy with TMA too)
 _F32_MAP_COUNTS = {"lookups": "flash_f32_map_lookups", "encodes": "flash_f32_map_encodes"}
 
 
@@ -399,8 +399,8 @@ def tc_map_counts() -> dict:
 
 
 def f32_map_counts() -> dict:
-    """The float32 dq and dk/dv kernels' tensor maps since the library was
-    loaded, counted as :func:`tc_map_counts` counts the bf16 ones."""
+    """The float32 kernels' tensor maps since the library was loaded,
+    counted as :func:`tc_map_counts` counts the bf16 ones."""
     lib = build_kernels()["tf32x3"]
     return {name: getattr(lib, symbol)() for name, symbol in _F32_MAP_COUNTS.items()}
 

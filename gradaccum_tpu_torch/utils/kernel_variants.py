@@ -34,7 +34,7 @@ kernel in torch.profiler's events over 50 back-to-back calls, taken in
 turns: the checkout, each variant, each variant again in reverse order,
 the checkout.
 
-    python3 -m gradaccum_tpu_torch.utils.kernel_variants q_twin_tile
+    python3 -m gradaccum_tpu_torch.utils.kernel_variants fwd_pv_waited
     git show REV:gradaccum_tpu_torch/csrc/flash_attention_tc.cu \
         > build/parent/flash_attention_tc.cu
     git show REV:gradaccum_tpu_torch/csrc/flash_attention.cu \
@@ -55,52 +55,19 @@ import sys
 
 from gradaccum_tpu_torch.utils import cuda_build
 
-_LOAD_A_SPLIT = """// The same A fragment from a tile that split_tile has split: the big parts
-// in the tile, the small parts `small` floats after it
-template <int D>
-__device__ __forceinline__ void load_a_split(Split<4>& a, const float* tile, int small,
-                                             int row0, int col0, int g, int t) {
-  const float* r = tile + (row0 + g) * (D + kPad) + col0 + t;
-  constexpr int kB = 8 * (D + kPad);
-  a.big[0] = __float_as_uint(r[0]);
-  a.small[0] = __float_as_uint(r[small]);
-  a.big[1] = __float_as_uint(r[kB]);
-  a.small[1] = __float_as_uint(r[small + kB]);
-  a.big[2] = __float_as_uint(r[4]);
-  a.small[2] = __float_as_uint(r[small + 4]);
-  a.big[3] = __float_as_uint(r[kB + 4]);
-  a.small[3] = __float_as_uint(r[small + kB + 4]);
-}
-
-"""
-_B_ANCHOR = "// The B operands come from streamed tiles that split_tile has split: the"
-_WAIT = "    cp_async_wait<1>();  // this stage (and Q) landed; the next may be in flight\n"
-_Q_AT_USE = ("        Split<4> qa;\n"
-             "        load_a<D>(qa, q_s, warp * 16, kk * 8, g, t);\n")
-VARIANTS = {
-    # K1 splits its Q rows once, when they land with the first stage, into a
-    # twin tile of small parts (twice the shared memory for Q), and reads its
-    # A fragments already split, instead of splitting each where it is used
-    "q_twin_tile": [
-        (_B_ANCHOR, _LOAD_A_SPLIT + _B_ANCHOR),
-        ("  float* kv_s = q_s + kBlockRows * kStride;",
-         "  float* kv_s = q_s + 2 * kBlockRows * kStride;"),
-        (_WAIT, _WAIT + "    if (stage == 0) split_tile<D, kBlockRows>(q_s, kBlockRows * "
-                        "(D + kPad));\n"),
-        (_Q_AT_USE, _Q_AT_USE.replace(
-            "load_a<D>(qa, q_s,", "load_a_split<D>(qa, q_s, kBlockRows * (D + kPad),")),
-        ("((kBlockRows + 8 * kStage) * (D + kPad) + 2 * kStage)",
-         "((2 * kBlockRows + 8 * kStage) * (D + kPad) + 2 * kStage)"),
-    ],
-}
-# The float32 dq and dk/dv kernels' design choices, each undone: the exact
-# exp and cvt.rna.tf32 splits in the element-wise work (expf_cvt); K3's dV
-# and dK products left in flight while the next stage's S^T and dP^T are
+# The float32 kernels' design choices, each undone: the exact exp and
+# cvt.rna.tf32 roundings in the element-wise work of all three (expf_cvt);
+# K1's P V waited for within its stage, which is released there, so that
+# the next stage's S no longer runs beside it (fwd_pv_waited); K3's dV and
+# dK products left in flight while the next stage's S^T and dP^T are
 # issued, the stage released only after them (dkv_in_flight); K2's loop
 # written so that it may run no time, which makes ptxas serialize every
 # wgmma of the kernel (loop_may_skip, C7515 in the build log).
 _ELEMENTWISE_EXP = ("          float pt = exp_fast(sT[4 * n + e] * p.scale",
-                    "          float pt = exp_fast(s[4 * n + e] * p.scale")
+                    "          float pt = exp_fast(s[4 * n + e] * p.scale",
+                    "          float pt = exp_fast(x[4 * n + e] - (e < 2 ? base_a : base_b));",
+                    "      const float corr_a = exp_fast(m_a - base_a), "
+                    "corr_b = exp_fast(m_b - base_b);")
 _DKV_SS_WAIT = ("    wgmma_commit();\n    wgmma_wait_all();\n    fence_regs<kRows / 2>(sT);\n"
                 "    fence_regs<kRows / 2>(dpT);\n")
 _DKV_RS_WAIT = ("    wgmma_commit();\n"
@@ -109,12 +76,19 @@ _DKV_RS_WAIT = ("    wgmma_commit();\n"
                 "    // whole next stage's time to copy and split into it\n"
                 "    wgmma_wait_all();\n    fence_regs<D / 2>(dv);\n    fence_regs<D / 2>(dk);\n"
                 "    mbar_arrive(&bars.empty[st]);\n  } while (++tile < n_tiles);\n")
+_FWD_RELEASE = ("    fence_regs<D / 2>(acc);\n"
+                "    if (tile > 0) mbar_arrive(&bars.empty[(tile - 1) % L::kStages]);\n")
+_FWD_PV = ("      mma3_rs<D, kKeys>(acc, pa[c], stage + 3 * L::kTile, stage + 4 * L::kTile, c);\n"
+           "    wgmma_commit();\n")
+VARIANTS = {}
 VARIANTS["expf_cvt"] = [
     *((old, old.replace("exp_fast(", "expf(")) for old in _ELEMENTWISE_EXP),
-    ("        a_split(pa[n], pd);\n        a_split(sa[n], ds);\n",
-     "        a_from_c(pa[n], pd);\n        a_from_c(sa[n], ds);\n"),
-    ("        a_split(sa[n], ds);\n      }\n    };\n",
-     "        a_from_c(sa[n], ds);\n      }\n    };\n"),
+    ("  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n", "  return to_tf32(x);\n"),
+]
+VARIANTS["fwd_pv_waited"] = [
+    (_FWD_RELEASE, "    fence_regs<D / 2>(acc);\n"),
+    (_FWD_PV, _FWD_PV + "    wgmma_wait_all();\n    fence_regs<D / 2>(acc);\n"
+                        "    mbar_arrive(&bars.empty[st]);\n"),
 ]
 VARIANTS["dkv_in_flight"] = [
     (_DKV_SS_WAIT, _DKV_SS_WAIT + "    fence_regs<D / 2>(dv);\n    fence_regs<D / 2>(dk);\n"

@@ -1,31 +1,36 @@
-"""The Hopper designs of the float32 dq (K2) and dk/dv (K3) kernels, on the CPU.
+"""The Hopper designs of the float32 forward (K1), dq (K2) and dk/dv (K3)
+kernels, on the CPU.
 
-``flash_dq_kernel`` and ``flash_dkv_kernel`` in ``csrc/flash_attention.cu``
-run only on the card: a producer warpgroup copies stages with TMA, splits
-each float32 tile into TF32 big and small parts and writes the transposes
-that TF32 ``wgmma`` needs (it reads float32 operands K-major only), and a
-consumer warpgroup multiplies in 3xTF32. No compiler and no card run here,
-so this file holds what the CPU can:
+``flash_fwd_kernel``, ``flash_dq_kernel`` and ``flash_dkv_kernel`` in
+``csrc/flash_attention.cu`` run only on the card: a producer warpgroup
+copies stages with TMA, splits each float32 tile into TF32 big and small
+parts and writes the transposes that TF32 ``wgmma`` needs (it reads float32
+operands K-major only), and a consumer warpgroup multiplies in 3xTF32. No
+compiler and no card run here, so this file holds what the CPU can:
 
 - the launch geometry the source chooses (its constants read back out of
   it): every supported head dim fits a block's shared memory, whole k8
   steps per stage, and BERT-Small's [8, 8, 128, 64] keeps 128 blocks;
 - the addresses: the split pass's writes of a 128-byte-swizzled K-major
   float32 panel (64- and 32-byte at narrow tiles), read back through the
-  wgmma descriptor's layout, give the raw tiles and their transposes Qᵀ,
-  dOᵀ and Kᵀ element for element, in the k order in which the accumulator
-  of S becomes the register A of the next product; and the transposed
-  stores meet no bank conflict;
-- a numpy walk of both kernels' schedules (blocks of 64 rows, stages with
-  rows past S zero, edge stages masked per warp, the keep bits at each
-  (query, key), Δ and dmask, every product in 3xTF32 in wgmma's k-by-8
-  order) held against JAX's ``_flash_backward`` in float32 (its Pallas
-  kernels in interpret mode) at ``chip_smoke.py``'s tolerance, 1e-4 +
-  1e-4·|ref|; the same walk with one TF32 product per product misses it;
-- the source: both kernels issue ``cp.async.bulk.tensor`` and TF32
-  ``wgmma`` and nothing of the ``mma.sync`` design, the forward still is
-  that design, and the float32 library encodes its tensor maps through the
-  shared cache, which binds the device's context first.
+  wgmma descriptor's layout, give the raw tiles and their transposes Vᵀ,
+  Qᵀ, dOᵀ and Kᵀ element for element, in the k order in which the
+  accumulator of S becomes the register A of the next product; K1's V pass
+  writes only the transposes and leaves V raw; and the transposed stores
+  meet no bank conflict;
+- a numpy walk of the three kernels' schedules (blocks of 64 rows, stages
+  with rows past S zero, edge stages masked per warp, K1's online softmax
+  rescaled once a stage, the keep bits at each (query, key), Δ and dmask,
+  every product in 3xTF32 in wgmma's k-by-8 order) held against JAX's
+  ``_flash_forward`` and ``_flash_backward`` in float32 (their Pallas
+  kernels in interpret mode) at ``chip_smoke.py``'s tolerances, 1e-5 +
+  1e-5·|ref| for o and lse, 1e-4 + 1e-4·|ref| for the gradients; the same
+  walks with one TF32 product per product, or with a wrong edge rule, miss
+  them;
+- the source: the three kernels issue ``cp.async.bulk.tensor`` and TF32
+  ``wgmma``, nothing of the ``mma.sync`` design is left in the file, and
+  the float32 library encodes its tensor maps through the shared cache,
+  which binds the device's context first.
 """
 
 import importlib
@@ -48,10 +53,11 @@ jfa = importlib.import_module("gradaccum_tpu.ops.flash_attention")
 
 SOURCE = cuda_build.CSRC_DIR / "flash_attention.cu"
 TEXT = SOURCE.read_text()
-WG_ROWS = 64  # rows a consumer warpgroup owns: wgmma's M, K1's kBlockRows
+WG_ROWS = 64  # rows a consumer warpgroup owns: wgmma's M, a block's rows
 THREADS = 256  # the consumer warpgroup and the producer warpgroup
 SMEM_LIMIT = 232448  # dynamic shared memory an H100 block may opt into
 TOL = dict(atol=1e-4, rtol=1e-4)  # chip_smoke.py's float32 TOL for dq, dk, dv, dmask
+FWD_TOL = dict(atol=1e-5, rtol=1e-5)  # and for o and lse
 BLOCK = 50  # JAX's tiles: a divisor of every S below
 RATE = 0.1
 SEED = 0x3C1A5EED
@@ -67,18 +73,25 @@ def _rule(name):
 
 dkv_rows, dkv_stages = _rule("dkv_rows"), _rule("dkv_stages")
 dq_keys, dq_stages = _rule("dq_keys"), _rule("dq_stages")
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def f32_geometry(kernel, d):
     """Rows per stage, stages and dynamic shared memory (1024 bytes of
-    alignment slack included) of K3 (``flash_bwd_dkv``) or K2
-    (``flash_bwd_dq``) at head dim ``d``, as DkvLayout and DqLayout lay it
-    out: four own tiles of 64 rows (K, V or Q, dO, each big and small),
-    then per stage eight tiles (Q, dO and their transposes, big and small)
-    and lse, delta and row seeds (K3), or six (K, V, Kᵀ) and the mask row
-    (K2); then the key mask (K3) and 2 + 3 per stage barriers."""
+    alignment slack included) of K1 (``flash_fwd``), K3 (``flash_bwd_dkv``)
+    or K2 (``flash_bwd_dq``) at head dim ``d``, as FwdLayout, DkvLayout and
+    DqLayout lay it out: two own tiles of 64 rows (Q, big and small) and per
+    stage five tiles (K big and small, V raw, Vᵀ big and small) and the mask
+    row (K1); or four own tiles (K, V or Q, dO, each big and small), then
+    per stage eight tiles (Q, dO and their transposes, big and small) and
+    lse, delta and row seeds (K3), or six (K, V, Kᵀ) and the mask row (K2);
+    then the key mask (K3) and 2 + 3 per stage barriers."""
     own = 4 * WG_ROWS * d * 4
-    if kernel == "flash_bwd_dkv":
+    if kernel == "flash_fwd":  # K2's key stages
+        rows, stages = dq_keys(d), dq_stages(d)
+        per_stage = 5 * rows * d * 4 + rows * 4
+        fixed = own // 2
+    elif kernel == "flash_bwd_dkv":
         rows, stages = dkv_rows(d), dkv_stages(d)
         per_stage = 8 * rows * d * 4 + 3 * rows * 4
         fixed = own + WG_ROWS * 4
@@ -93,16 +106,21 @@ def f32_geometry(kernel, d):
 
 
 def test_geometry_constants_are_the_sources():
-    assert re.search(r"constexpr int kWarps = (\d+);", TEXT).group(1) == "4"
-    assert "constexpr int kBlockRows = 16 * kWarps;" in TEXT
-    assert "constexpr int kWgRows = kBlockRows;" in TEXT
-    assert int(re.search(r"constexpr int kBwdThreads = (\d+);", TEXT).group(1)) == THREADS
+    assert int(re.search(r"constexpr int kWgRows = (\d+);", TEXT).group(1)) == WG_ROWS
+    assert int(re.search(r"constexpr int kThreads = (\d+);", TEXT).group(1)) == THREADS
     assert int(re.search(r"constexpr int kSmemLimit = (\d+);", TEXT).group(1)) == SMEM_LIMIT
     assert [dkv_rows(d) for d in fa._SUPPORTED_D] == [32, 32, 32, 8]
     assert [dq_keys(d) for d in fa._SUPPORTED_D] == [32, 32, 32, 16]
+    assert [dq_stages(d) for d in fa._SUPPORTED_D] == [3, 3, 3, 2]
+    # K1 streams K2's key stages
+    assert "kKeys = dq_keys<D>();\n  static constexpr int kStages = dq_stages<D>();" in TEXT
+    code = _code(TEXT)
+    for layout, kernel in (("FwdLayout", "K1"), ("DkvLayout", "K3"), ("DqLayout", "K2")):
+        assert f'static_assert(kSmem <= kSmemLimit, "{kernel}\'s shared memory' in code
+        assert f"struct {layout} {{" in code
 
 
-@pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
+@pytest.mark.parametrize("kernel", KERNELS)
 @pytest.mark.parametrize("d", fa._SUPPORTED_D)
 def test_every_head_dim_fits_a_block(kernel, d):
     """At every supported D the block's shared memory is within the 227 KiB
@@ -119,7 +137,7 @@ def test_bert_shape_keeps_a_block_per_sm():
     on 132 SMs, one block an SM (shared memory above half the SM's)."""
     b, h, s, d = 8, 8, 128, 64
     assert -(-s // WG_ROWS) * h * b == 128
-    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for kernel in KERNELS:
         assert f32_geometry(kernel, d)["smem"] > SMEM_LIMIT // 2
 
 
@@ -163,12 +181,13 @@ def descriptor_read(mem, k, rows, row0, kk, n):
     return out
 
 
-def split_pass(raw, d, rows, transpose):
+def split_pass(raw, d, rows, transpose, keep_rows=True):
     """The source's split_pass over a raw tile (``raw``: float32 words as
     TMA landed them), thread by thread: returns the big tile, the small twin
-    and, with ``transpose``, the big and small transposes, each as float32
-    words, and the transposed stores' word addresses per (warp, iteration,
-    element) for the bank test."""
+    (with ``keep_rows``; without, the tile stays raw and the twin unwritten,
+    as K1's pass over V), with ``transpose`` the big and small transposes,
+    each as float32 words, and the transposed stores' word addresses per
+    (warp, iteration, element) for the bank test."""
     n_words = rows * d
     big, small = raw.copy(), np.full(n_words, np.nan, np.float32)
     t_big, t_small = np.full(n_words, np.nan, np.float32), np.full(n_words, np.nan, np.float32)
@@ -181,8 +200,9 @@ def split_pass(raw, d, rows, transpose):
             off = tile_off(d, rows, r, c) // 4
             x = raw[off:off + 4]
             hi, lo = _split(x)
-            assert np.isnan(small[off:off + 4]).all(), "a chunk written twice"
-            big[off:off + 4], small[off:off + 4] = hi, lo
+            if keep_rows:
+                assert np.isnan(small[off:off + 4]).all(), "a chunk written twice"
+                big[off:off + 4], small[off:off + 4] = hi, lo
             if transpose:
                 for e in range(4):
                     t = tile_off(rows, d, c + e, k_slot(r)) // 4
@@ -203,8 +223,8 @@ def _land(x):
     return mem
 
 
-# (head dim, stage rows): K3's query stages, K2's key stages and the own
-# tiles of both, at every supported D
+# (head dim, stage rows): K3's query stages, K1's and K2's key stages and
+# the own tiles of all three, at every supported D
 SPLIT_CASES = sorted({(d, dkv_rows(d)) for d in fa._SUPPORTED_D}
                      | {(d, dq_keys(d)) for d in fa._SUPPORTED_D}
                      | {(d, WG_ROWS) for d in fa._SUPPORTED_D})
@@ -217,9 +237,9 @@ def test_split_pass_gives_the_operands_the_descriptors_name(d, rows):
     same layout, and (for the stages) the big and small transposes. Read
     through the descriptors the kernels build, the big and small tiles are
     the B (or A) of S = Q Kᵀ, k step by k step, and the transposes are the
-    B of dS K, dV += drop(Pᵀ) dO and dK += dSᵀ Q: n = d, k = the stage's
-    rows, k index l of step c standing for stage row 8c + 2(l % 4) + l / 4,
-    the row whose value a_from_c puts at l."""
+    B of O += drop(P) V, dS K, dV += drop(Pᵀ) dO and dK += dSᵀ Q: n = d,
+    k = the stage's rows, k index l of step c standing for stage row
+    8c + 2(l % 4) + l / 4, the row whose value a_split puts at l."""
     x = np.random.default_rng(d * 1000 + rows).normal(size=(rows, d)).astype(np.float32)
     transpose = rows != WG_ROWS
     big, small, t_big, t_small, _ = split_pass(_land(x), d, rows, transpose)
@@ -242,6 +262,30 @@ def test_split_pass_gives_the_operands_the_descriptors_name(d, rows):
 
 
 @pytest.mark.parametrize("d", fa._SUPPORTED_D)
+def test_v_pass_writes_only_the_transposes(d):
+    """K1's pass over a V stage (split_pass<D, kKeys, false, true>) leaves
+    the raw tile as TMA landed it, writes no twin, and writes Vᵀ big and
+    small whole: every element of both transposes, read through the
+    descriptor of O += drop(P) V, is the split of V in a_split's k order."""
+    rows = dq_keys(d)
+    x = np.random.default_rng(d).normal(size=(rows, d)).astype(np.float32)
+    raw = _land(x)
+    big, small, t_big, t_small, _ = split_pass(raw, d, rows, True, keep_rows=False)
+    np.testing.assert_array_equal(big, raw)
+    assert np.isnan(small).all()
+    assert not np.isnan(t_big).any() and not np.isnan(t_small).any()
+    hi, lo = _split(x)
+    order = [2 * (l % 4) + l // 4 for l in range(8)]
+    n = min(d, 64)
+    for c in range(rows // 8):
+        stage_rows = [8 * c + o for o in order]
+        for half in range(d // n):
+            for mem, want in ((t_big, hi), (t_small, lo)):
+                got = descriptor_read(mem, rows, d, half * n, c, n)
+                np.testing.assert_array_equal(got, want[stage_rows, half * n:half * n + n].T)
+
+
+@pytest.mark.parametrize("d", fa._SUPPORTED_D)
 def test_transposed_stores_are_free_of_bank_conflicts(d):
     """At 32-row stages each warp's transposed store (one element of the
     chunk each lane holds) fills one 128-byte row: 32 different banks."""
@@ -254,7 +298,7 @@ def test_transposed_stores_are_free_of_bank_conflicts(d):
 
 
 def test_k_slot_inverts_the_a_fragment_order():
-    """a_from_c feeds k index l as stage row 2(l % 4) + l / 4 of its step;
+    """a_split feeds k index l as stage row 2(l % 4) + l / 4 of its step;
     k_slot sends that row back to l, for every row of a stage."""
     for r in range(64):
         l = k_slot(r) % 8
@@ -334,6 +378,62 @@ def dq_edge(j0, keys, row_w, s, causal):
     """K2's per-warp test of a key stage: keys past S, or (causal) a key
     past the warp's first row."""
     return j0 + keys > s or (causal and j0 + keys - 1 > row_w)
+
+
+def fwd_edge(j0, keys, row_w, s, causal):
+    """K1's per-warp test of a key stage, K2's: keys past S, or (causal) a
+    key past the warp's first row."""
+    return j0 + keys > s or (causal and j0 + keys - 1 > row_w)
+
+
+def emulate_fwd(q, k, v, mask, causal, rate, mm=mm3, edge_of=fwd_edge):
+    """o and lse [B, H, S, 1] as K1 computes them: blocks of 64 queries, key
+    stages of dq_keys(D) up to the block's last row when causal,
+    S = Q Kᵀ, then per stage s = S·scale + mask_j, −inf past S and past the
+    diagonal where a warp of 16 rows finds the stage on its edge, the online
+    softmax once a stage (m_new = max(m, the stage's row max), O and l
+    rescaled by exp(m − m_new), against 0 while m_new is −inf), p =
+    exp(s − m_new), l += p undropped, the keep bits, O += drop(P) V (k = the
+    stage's keys); at the end o = O·(1/l) and lse = m + log l."""
+    b, h, s, d = q.shape
+    keys_a_stage = dq_keys(d)
+    scale = np.float32(1.0 / np.sqrt(d))
+    inv_keep = np.float32(1.0 / (1.0 - rate)) if rate else np.float32(1.0)
+    o = np.zeros_like(q)
+    lse = np.zeros((b, h, s, 1), np.float32)
+    for q0 in range(0, s, WG_ROWS):
+        ri = np.arange(q0, q0 + WG_ROWS)
+        qt = _rows(q, ri, s)
+        acc = np.zeros((b, h, WG_ROWS, d), np.float32)
+        m = np.full((b, h, WG_ROWS, 1), -np.inf, np.float32)
+        l = np.zeros((b, h, WG_ROWS, 1), np.float32)  # noqa: E741
+        k_end = min(s, q0 + WG_ROWS) if causal else s
+        for j0 in range(0, k_end, keys_a_stage):
+            kj = np.arange(j0, j0 + keys_a_stage)
+            kt, vt = _rows(k, kj, s), _rows(v, kj, s)
+            mk = np.zeros((b, 1, keys_a_stage), np.float32)
+            if mask is not None:
+                mk = _rows(mask[:, :, 0, :, None], kj, s)[..., 0]
+            sc = (mm(qt, np.swapaxes(kt, -1, -2)) * scale + mk[..., None, :]).astype(np.float32)
+            for w in range(4):
+                if edge_of(j0, keys_a_stage, q0 + 16 * w, s, causal):
+                    wr = ri[16 * w:16 * w + 16]
+                    cut = (kj[None, :] >= s) | (causal & (kj[None, :] > wr[:, None]))
+                    sc[:, :, 16 * w:16 * w + 16] = np.where(cut, -np.inf,
+                                                            sc[:, :, 16 * w:16 * w + 16])
+            m_new = np.maximum(m, sc.max(-1, keepdims=True))
+            base = np.where(m_new == -np.inf, np.float32(0), m_new)
+            corr = np.exp(m - base, dtype=np.float32)
+            p = np.exp(sc - base, dtype=np.float32)
+            l = (l * corr + p.sum(-1, keepdims=True, dtype=np.float32))  # noqa: E741
+            if rate:
+                p = np.where(_keep(h, ri, kj, rate), p * inv_keep, 0).astype(np.float32)
+            acc = mm(p, vt, acc * corr)
+            m = m_new
+        inside = ri < s
+        o[:, :, ri[inside]] = (acc * (np.float32(1) / l))[:, :, inside]
+        lse[:, :, ri[inside]] = (m + np.log(l))[:, :, inside]
+    return o, lse
 
 
 def emulate_dkv(q, k, v, mask, do, lse, delta, causal, rate, mm=mm3, edge_of=dkv_edge):
@@ -466,8 +566,20 @@ def _case(name):
     return (q, k, v, mask, do), (causal, rate), want
 
 
-def _worst(got, want):
-    return float((np.abs(got - want) / (TOL["atol"] + TOL["rtol"] * np.abs(want))).max())
+def _worst(got, want, tol=TOL):
+    return float((np.abs(got - want) / (tol["atol"] + tol["rtol"] * np.abs(want))).max())
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_fwd_schedule_matches_jax(name):
+    """K1's schedule in 3xTF32 gives JAX's o and lse within the forward's
+    float32 tolerance."""
+    (q, k, v, mask, _), (causal, rate), want = _case(name)
+    o, lse = emulate_fwd(q, k, v, mask, causal, rate)
+    assert np.isfinite(o).all() and np.isfinite(lse).all()
+    np.testing.assert_allclose(o, want["o"], err_msg="o", **FWD_TOL)
+    np.testing.assert_allclose(lse.reshape(want["lse"].shape), want["lse"], err_msg="lse",
+                               **FWD_TOL)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -500,8 +612,13 @@ def test_dq_schedule_matches_jax(name):
 @pytest.mark.parametrize("name", ["s100_d32_mask", "s200_d32_mask_causal_drop"])
 def test_one_tf32_product_misses_the_tolerance(name):
     """The comparison is sharp enough to see TF32: the same schedules with
-    one TF32 product per product leave the float32 tolerance."""
+    one TF32 product per product leave the float32 tolerances (the
+    forward's for o and lse, and the gradients')."""
     (q, k, v, mask, do), (causal, rate), want = _case(name)
+    o, lse = emulate_fwd(q, k, v, mask, causal, rate, mm=mm1)
+    worst = max(_worst(o, want["o"], FWD_TOL),
+                _worst(lse.reshape(want["lse"].shape), want["lse"], FWD_TOL))
+    assert worst > 1.0, f"one TF32 product stayed within the forward's TOL ({worst:.3f})"
     delta = (do * want["o"]).sum(-1, dtype=np.float32)
     dk, dv, _ = emulate_dkv(q, k, v, mask, do, want["lse"], delta, causal, rate, mm=mm1)
     dq, _ = emulate_dq(q, k, v, mask, do, want["o"], want["lse"], causal, rate, mm=mm1)
@@ -509,12 +626,17 @@ def test_one_tf32_product_misses_the_tolerance(name):
     assert worst > 1.0, f"one TF32 product stayed within TOL ({worst:.3f})"
 
 
-@pytest.mark.parametrize("kernel", ["dkv", "dq"])
+@pytest.mark.parametrize("kernel", ["dkv", "dq", "fwd"])
 def test_a_wrong_edge_rule_shows(kernel):
     """The comparison rests on the edge rules: with the causal half of a
     rule forgotten (a stage taken as interior where the kernel masks it)
     the emulation no longer agrees with JAX."""
     (q, k, v, mask, do), (causal, rate), want = _case("s200_d32_mask_causal_drop")
+    if kernel == "fwd":
+        got = emulate_fwd(q, k, v, mask, causal, rate,
+                          edge_of=lambda j0, keys, rw, s, c: j0 + keys > s)[0]
+        assert not np.allclose(got, want["o"], **FWD_TOL)
+        return
     if kernel == "dkv":
         delta = (do * want["o"]).sum(-1, dtype=np.float32)
         got = emulate_dkv(q, k, v, mask, do, want["lse"], delta, causal, rate,
@@ -548,13 +670,13 @@ def test_tf32_split_is_exact_to_2_to_the_minus_22():
 WITH_HEADER = TEXT + HEADER.read_text()
 
 
-@pytest.mark.parametrize("kernel", ["flash_dq_kernel", "flash_dkv_kernel"])
+@pytest.mark.parametrize("kernel", ["flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"])
 def test_backward_kernels_issue_tf32_wgmma_on_tma_stages(kernel):
-    """K2 and K3 reach TMA copies completing on mbarriers, the proxy fence
-    that publishes the split pass's writes to wgmma, and wgmma with .tf32
-    operands, three per product; nothing of the mma.sync design: no
-    mma.sync, cp.async.cg or ldmatrix. One __syncthreads (after the
-    barriers' init)."""
+    """K2 and K3, and since its redesign K1 too, reach TMA copies completing
+    on mbarriers, the proxy fence that publishes the split pass's writes to
+    wgmma, and wgmma with .tf32 operands, three per product; nothing of the
+    mma.sync design: no mma.sync, cp.async.cg or ldmatrix. One __syncthreads
+    (after the barriers' init)."""
     ptx, reached = _reached(WITH_HEADER, kernel)
     for instruction in ("cp.async.bulk.tensor", "mbarrier.try_wait",
                         "mbarrier.arrive.expect_tx", "fence.proxy.async",
@@ -563,35 +685,62 @@ def test_backward_kernels_issue_tf32_wgmma_on_tma_stages(kernel):
     assert re.search(r"wgmma\.mma_async\.sync\.aligned\.m64n\d+k8\.f32\.tf32\.tf32", ptx)
     for instruction in ("mma.sync", "cp.async.cg", "ldmatrix", "cp.async.commit_group"):
         assert instruction not in ptx, (kernel, instruction, sorted(reached))
-    assert {"mma3_ss", "mma3_rs", "split_pass", "tma_load"} <= reached
+    assert {"mma3_ss", "mma3_rs", "split_pass", "tma_load", "a_split", "exp_fast"} <= reached
     funcs = _functions(WITH_HEADER)
     assert funcs["mma3_ss"][1].count("wgmma_tf32_ss<N>(") == 3
     assert funcs["mma3_rs"][1].count("wgmma_tf32_rs<kN>(") == 3
     assert "__syncthreads()" in funcs["init_bars"][1]
+    assert "__syncthreads()" not in funcs[kernel][1]
 
 
-def test_forward_kernel_is_still_the_mma_sync_design():
-    """K1 float32 keeps its mma.sync design and the helpers it runs on."""
-    ptx, reached = _reached(WITH_HEADER, "flash_fwd_kernel")
-    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in ptx
-    assert "cp.async.cg" in ptx and "wgmma" not in ptx
-    assert {"load_a", "load_b_rows", "load_b_cols", "split_tile", "a_from_c"} <= reached
+@pytest.mark.parametrize("instruction", ["mma.sync", "ldmatrix", "cp.async.cg",
+                                         "cp.async.commit_group", "cp.async.wait_group"])
+def test_no_instruction_of_the_mma_sync_design_is_left_in_float32(instruction):
+    """The mma.sync design is gone from the whole float32 source and its
+    headers, not only from the kernels' reach: no code names its
+    instructions (the header's comment still tells of it)."""
+    for text in (TEXT, HEADER.read_text(), (cuda_build.CSRC_DIR / "flash_common.cuh").read_text()):
+        assert instruction not in _code(text)
+
+
+def test_forward_consumer_loop_is_a_do_loop_with_s_in_flight_beside_p_v():
+    """K1's consumers leave O += drop(P) V in flight while the next stage's
+    S is issued, wait once for both, release the stage after that wait, and
+    write the scores into registers of their own: the element-wise work
+    writes no accumulator but O's rescale, which comes after the wait. The
+    consumer and producer loops are do-while loops (every block has a
+    stage)."""
+    body = _functions(TEXT)["flash_fwd_kernel"][1]
+    consumer = body[body.index("mbar_wait(bars.own_ready, 0);"):]
+    assert consumer.count("wgmma_wait_all();") == 2  # one a stage, one after the loop
+    stage = consumer[consumer.index("do {"):consumer.index("} while (++tile < n_tiles);")]
+    s_issue, wait = stage.index("mma3_ss<kKeys>(s,"), stage.index("wgmma_wait_all();")
+    release = stage.index("mbar_arrive(&bars.empty[(tile - 1) % L::kStages]);")
+    rescale, pv = stage.index("acc[4 * i] *= corr_a;"), stage.index("mma3_rs<D, kKeys>(acc,")
+    assert s_issue < wait < release < rescale < pv
+    assert "x[4 * n + e] = sc;" in stage and "s[4 * n + e] =" not in stage
+    assert body.count("do {") == 2 and body.count("} while (++tile < n_tiles);") == 2
+    assert "for (int tile = 0; tile < n_tiles" not in body
 
 
 def test_every_kernel_of_the_source_is_launched_as_designed():
-    """The float32 source holds three kernels: the forward, launched through
-    flash::launch, and K2 and K3, launched with their tensor maps; no other
-    kernel (no old K2 or K3 body) is left, and every helper is reached."""
+    """The float32 source holds three kernels, each launched through
+    launch_tma with its tensor maps (K1 q, k and v; K2 and K3 also dO); no
+    other kernel (no old body) is left, and every helper is reached."""
     code = _code(TEXT)
     kernels = set(re.findall(r"__global__\s[^;{]*?(\w+)\(const Params\b", code))
     assert kernels == {"flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"}
-    assert "flash::launch<flash_fwd_kernel<D>>" in code
-    assert "launch_bwd<flash_dq_kernel<D>>" in code and "launch_bwd<flash_dkv_kernel<D>>" in code
+    assert "launch_tma<FwdMaps, flash_fwd_kernel<D>>(FwdLayout<D>::kSmem," in code
+    assert "launch_tma<BwdMaps, flash_dq_kernel<D>>(DqLayout<D>::kSmem," in code
+    assert "launch_tma<BwdMaps, flash_dkv_kernel<D>>(DkvLayout<D>::kSmem," in code
+    assert "flash::launch" not in code and "flash::launch" not in _code(
+        (cuda_build.CSRC_DIR / "flash_common.cuh").read_text())
     reached = set()
     for kernel in kernels:
         reached |= _reached(WITH_HEADER, kernel)[1]
     own = set(_functions(TEXT))
-    rules = {"dkv_rows", "dkv_stages", "dq_keys", "dq_stages"}  # read by the layouts
+    # read by the layouts and the launch
+    rules = {"dkv_rows", "dkv_stages", "dq_keys", "dq_stages"}
     assert own - reached <= rules | kernels, sorted(own - reached)
 
 
@@ -604,7 +753,8 @@ def test_float32_maps_go_through_the_shared_cache():
     code = _code(TEXT)
     assert "cuTensorMapEncodeTiled" not in code
     assert "kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32" in code
-    assert len(re.findall(r"tensor_map\(&maps\.\w+, p\.\w+, kF32,", code)) == 4
+    # K1's q, k and v; K2's and K3's q, dO, k and v
+    assert len(re.findall(r"tensor_map\(&maps\.\w+, p\.\w+, kF32,", code)) == 7
     header = _code(HEADER.read_text())
     for name in ("static EncodeTiled encoder()", "static std::atomic<long long> map_lookups",
                  "static bool tensor_map("):  # internal linkage: a cache a library

@@ -1,10 +1,9 @@
 """3xTF32, the arithmetic of the float32 flash kernels, on the CPU.
 
 ``csrc/flash_attention.cu`` runs every matrix product of its forward (K1),
-dq (K2) and dk/dv (K3) kernels on the tensor cores in TF32, K1 as
-``mma.sync.m16n8k8`` and K2 and K3 as ``wgmma.m64nNk8`` (their Hopper
-schedules: ``test_torch_flash_f32_hopper.py``), with one split for all
-three. Each float32 operand x is split into big = tf32(x) and
+dq (K2) and dk/dv (K3) kernels on the tensor cores in TF32, as
+``wgmma.m64nNk8`` (their Hopper schedules, stage by stage:
+``test_torch_flash_f32_hopper.py``), with one split for all three. Each float32 operand x is split into big = tf32(x) and
 small = tf32(x - big), where tf32 is ``cvt.rna.tf32.f32`` (round to
 nearest, ties away from zero, 10 mantissa bits), and each 8-wide k step adds
 three products into one float32 accumulator: small·big, then big·small,
@@ -19,11 +18,11 @@ and dPᵀ, then dv = drop(P)ᵀ·dO and dk = dSᵀ·Q in K3), held against
 The same kernels with one TF32 product per product miss those tolerances,
 which is why the kernels split.
 
-It also models the fragment layouts of ``mma.m16n8k8`` as the PTX ISA
-defines them, lane by lane, and checks the kernels' index choices against
-them: the C fragment of S (or P, or dS) read as the A fragment of the next
-product with the k order the kernels use, and the bank of every 32-bit
-shared-memory load.
+It also models the fragment layout of ``mma.m16n8k8`` as the PTX ISA
+defines it, lane by lane (each warp's share of a ``wgmma`` m64 accumulator
+and register A operand has that layout): the C fragment of S (or P, or dS)
+read as the A fragment of the next product in the k order the kernels'
+``a_split`` uses.
 """
 
 import numpy as np
@@ -75,8 +74,9 @@ def mm1(a, b):
 
 
 def kernel_forward(q, k, v, mask, seed, causal, rate, mm):
-    """(o, lse) as K1 computes them, with the products done by ``mm``. The
-    keys stream in 16-key steps (two to a 32-row stage); per step S = Q·Kᵀ,
+    """(o, lse) in K1's arithmetic, with the products done by ``mm``. The
+    keys stream in 16-key steps (finer than K1's stages of 32, so that the
+    rescale runs more often); per step S = Q·Kᵀ,
     s = S·scale + mask_j, −inf past the diagonal, then the online softmax:
     m_new = max(m, the step's row max), O and l rescaled by
     exp(m − m_new) (against 0 while a row's max is still −inf), p =
@@ -257,22 +257,12 @@ def _c_matrix(c_regs):
     return c
 
 
-def test_load_a_and_load_b_rows_give_q_k_transposed():
-    """S = Q Kᵀ for one k step: load_a reads own rows g, g+8 at columns t,
-    t+4; load_b_rows reads streamed rows g at columns t, t+4."""
-    rng = np.random.default_rng(4)
-    q, k = rng.normal(size=(16, 8)), rng.normal(size=(8, 8))
-    a_regs = [(q[g, t], q[g + 8, t], q[g, t + 4], q[g + 8, t + 4])
-              for g, t in (divmod(lane, 4) for lane in range(32))]
-    b_regs = [(k[g, t], k[g, t + 4]) for g, t in (divmod(lane, 4) for lane in range(32))]
-    np.testing.assert_allclose(_c_matrix(_mma(a_regs, b_regs)), q @ k.T, rtol=1e-12)
-
-
 def test_c_fragment_is_the_a_fragment_in_the_kernels_k_order():
-    """dq += dS K for one k step of 8 keys: the C registers of dS taken as
-    (c0, c2, c1, c3) are the A fragment when the k index l stands for key
-    2 (l % 4) + l / 4, and load_b_cols reads K rows 2t and 2t+1 at column
-    g; the product is dS·K."""
+    """dq += dS K (or O += drop(P) V) for one k step of 8 keys: the C
+    registers of dS taken as (c0, c2, c1, c3), as a_split takes them, are
+    the A fragment when the k index l stands for key 2 (l % 4) + l / 4, so
+    the B operand holds K's rows 2t and 2t+1 at column g (the transposed
+    tile puts key r at k_slot(r)); the product is dS·K."""
     rng = np.random.default_rng(5)
     ds, k = rng.normal(size=(16, 8)), rng.normal(size=(8, 8))
     c_regs = [(ds[g, 2 * t], ds[g, 2 * t + 1], ds[g + 8, 2 * t], ds[g + 8, 2 * t + 1])
@@ -280,48 +270,6 @@ def test_c_fragment_is_the_a_fragment_in_the_kernels_k_order():
     a_regs = [(c0, c2, c1, c3) for c0, c1, c2, c3 in c_regs]
     b_regs = [(k[2 * t, g], k[2 * t + 1, g]) for g, t in (divmod(lane, 4) for lane in range(32))]
     np.testing.assert_allclose(_c_matrix(_mma(a_regs, b_regs)), ds @ k, rtol=1e-12)
-
-
-def test_p_fragment_times_v_in_load_b_cols_order():
-    """O += drop(P) V for one 16-key step of K1: P's C fragment of n-tile n
-    (keys 8n .. 8n + 7) taken as (c0, c2, c1, c3) by a_from_c, and V's rows
-    8n + 2t and 8n + 2t + 1 at column g read by load_b_cols; the two mma of
-    the step add up to P·V."""
-    rng = np.random.default_rng(6)
-    p, v = rng.random(size=(16, 16)), rng.normal(size=(16, 8))
-    lanes = [divmod(lane, 4) for lane in range(32)]
-    out = np.zeros((16, 8))
-    for n in range(2):
-        c_regs = [(p[g, 8 * n + 2 * t], p[g, 8 * n + 2 * t + 1], p[g + 8, 8 * n + 2 * t],
-                   p[g + 8, 8 * n + 2 * t + 1]) for g, t in lanes]
-        a_regs = [(c0, c2, c1, c3) for c0, c1, c2, c3 in c_regs]
-        b_regs = [(v[8 * n + 2 * t, g], v[8 * n + 2 * t + 1, g]) for g, t in lanes]
-        out += _c_matrix(_mma(a_regs, b_regs))
-    np.testing.assert_allclose(out, p @ v, rtol=1e-12)
-
-
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
-def test_fragment_loads_are_free_of_bank_conflicts(d):
-    """Rows of D + 4 floats: every 32-bit load of load_a, load_b_rows (rows
-    g, columns t and t+4) and load_b_cols (rows 2t and 2t+1, column g)
-    touches 32 different banks across the warp, and so do the loads of a
-    stage's twin tile of small parts, 32 rows on."""
-    stride = d + 4
-    lanes = [divmod(lane, 4) for lane in range(32)]
-    twin = 32 * stride
-    patterns = {
-        "rows g, column t": [g * stride + t for g, t in lanes],
-        "rows g, column t + 4": [g * stride + t + 4 for g, t in lanes],
-        "rows g + 8, column t": [(g + 8) * stride + t for g, t in lanes],
-        "rows 2t, column g": [2 * t * stride + g for g, t in lanes],
-        "rows 2t + 1, column g": [(2 * t + 1) * stride + g for g, t in lanes],
-        "twin, rows g, column t + 4": [twin + g * stride + t + 4 for g, t in lanes],
-        "twin, rows 2t + 1, column g": [twin + (2 * t + 1) * stride + g for g, t in lanes],
-    }
-    for col0 in range(0, d, 8):  # every k step / n-tile column offset
-        for name, words in patterns.items():
-            banks = {(w + col0) % 32 for w in words}
-            assert len(banks) == 32, (name, col0)
 
 
 @pytest.mark.parametrize("variant", sorted(kernel_variants.VARIANTS))

@@ -229,7 +229,8 @@ def test_no_instruction_of_the_mma_sync_design_is_left(instruction):
 def test_every_kernel_of_the_source_is_a_hopper_kernel():
     """Each __global__ function of the bf16 source is one of the three
     Hopper kernels, launched through launch_hopper with its tensor maps,
-    and nothing launches through the mma.sync kernels' flash::launch."""
+    and nothing launches through flash::launch (the mma.sync kernels'
+    launch, gone with them)."""
     code = _code(SOURCE.read_text())
     kernels = set(re.findall(r"__global__\s[^;{]*?(\w+)\(const Params\b", code))
     assert kernels == {"flash_fwd_tc_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kernel"}
@@ -333,9 +334,9 @@ def test_map_counts_are_exported():
 @pytest.mark.parametrize("argv, want", [
     (["--tc-source", "build/parent/flash_attention_tc.cu"],
      ([], "build/parent/flash_attention_tc.cu", None)),
-    (["q_twin_tile"], (["q_twin_tile"], None, None)),
-    (["q_twin_tile", "--tc-source", "x/flash_attention_tc.cu"],
-     (["q_twin_tile"], "x/flash_attention_tc.cu", None)),
+    (["fwd_pv_waited"], (["fwd_pv_waited"], None, None)),
+    (["fwd_pv_waited", "--tc-source", "x/flash_attention_tc.cu"],
+     (["fwd_pv_waited"], "x/flash_attention_tc.cu", None)),
     (["--f32-source", "build/parent/flash_attention.cu"],
      ([], None, "build/parent/flash_attention.cu")),
     (["--tc-source", "p/flash_attention_tc.cu", "--f32-source", "p/flash_attention.cu"],

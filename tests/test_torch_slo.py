@@ -587,9 +587,16 @@ def test_readiness_flips_on_fault_giveup(lm):
 
 
 class _TickTime:
-    """The server module's clock for the cliff case: every read advances 1 ms
-    and a slowed tick adds 1 s, so the tick durations the sentinel sees do
-    not depend on the host's load. ``sleep`` is the real one."""
+    """The server module's clock for the cliff case: each read by the
+    server's loop thread advances it 1 ms and a slowed tick adds 1 s, so the
+    tick durations the sentinel sees do not depend on the host's load. A
+    read from any other thread sees the clock without moving it:
+    ``ServingHandle.result``'s wait loop reads the same module's clock from
+    the test's thread once per token, and under load such a read lands
+    inside a tick, which then reads 2 ms against a baseline of 1 ms with no
+    spread (a cliff). ``sleep`` is the real one."""
+
+    LOOP = "serving-engine"  # ServingServer's loop thread
 
     def __init__(self):
         self.now = 0.0
@@ -598,16 +605,19 @@ class _TickTime:
 
     def monotonic(self):
         with self.lock:
-            self.now += 1e-3
+            if threading.current_thread().name == self.LOOP:
+                self.now += 1e-3
             return self.now
 
 
-def test_latency_cliff_remediation_recovers_and_resolves(lm, monkeypatch):
-    """A latency cliff (two slowed ticks past a warmed baseline) fires
-    ``latency_cliff`` once; ``bind_default_remediations`` recovers and
-    requeues through the fault contract with token parity, and the anomaly
-    resolves once ticks return to baseline. The sentinel runs on the tick
-    clock and reads tick durations from a clock the test drives."""
+def _cliff_case(lm, monkeypatch, foreign_reads_at=()):
+    """The cliff scenario: two slowed ticks (8 and 9) past a warmed
+    baseline. On each tick in ``foreign_reads_at`` another thread reads the
+    server module's clock while the tick runs, as the test's own thread
+    does when the host is loaded; the test's thread then waits for the
+    requests to finish before it reads anything, so that no read of its own
+    lands in a tick and the warmed baseline has no spread (the case where
+    one foreign read in each of two ticks fired a second cliff)."""
     from gradaccum_tpu_torch.serving import server as server_mod
 
     clock = _TickTime()
@@ -623,6 +633,10 @@ def test_latency_cliff_remediation_recovers_and_resolves(lm, monkeypatch):
         if engine.tick_count in (8, 9):  # the cliff: two slow ticks
             with clock.lock:
                 clock.now += 1.0
+        if engine.tick_count in foreign_reads_at:
+            reader = threading.Thread(target=server_mod.time.monotonic)
+            reader.start()
+            reader.join()
         return plain()
 
     engine.step = step
@@ -631,6 +645,10 @@ def test_latency_cliff_remediation_recovers_and_resolves(lm, monkeypatch):
         tremediation.bind_default_remediations(snt, server=server)
         handles = [server.submit(p, 24) for p in prompts]
         server.start()
+        if foreign_reads_at:
+            deadline = time.monotonic() + WAIT  # the real clock: this module's
+            while not all(h.done for h in handles) and time.monotonic() < deadline:
+                time.sleep(0.01)
         results = [h.result(timeout=WAIT) for h in handles]
         server.stop()
     for p, (toks, reason) in zip(prompts, results):
@@ -642,6 +660,35 @@ def test_latency_cliff_remediation_recovers_and_resolves(lm, monkeypatch):
     assert names.count("serve/recover") == 1 and names.count("req/requeue") == 2
     remedies = [e["args"] for e in tracer.snapshot() if e["name"] == "sentinel/remediation"]
     assert [r["action"] for r in remedies] == ["recover_and_requeue"]
+
+
+def test_latency_cliff_remediation_recovers_and_resolves(lm, monkeypatch):
+    """A latency cliff (two slowed ticks past a warmed baseline) fires
+    ``latency_cliff`` once; ``bind_default_remediations`` recovers and
+    requeues through the fault contract with token parity, and the anomaly
+    resolves once ticks return to baseline. The sentinel runs on the tick
+    clock and reads tick durations from a clock the test drives."""
+    _cliff_case(lm, monkeypatch)
+
+
+def test_latency_cliff_case_ignores_clock_reads_from_other_threads(lm, monkeypatch):
+    """The same case with another thread reading the server module's clock
+    inside two consecutive warmed ticks before the cliff and two after it,
+    as the waiting test thread does under ``-n 6``: the anomaly log, the
+    recover and the streams are unchanged, because only the loop's own
+    reads move the clock."""
+    _cliff_case(lm, monkeypatch, foreign_reads_at=(5, 6, 14, 15))
+
+
+def test_tick_clock_moves_only_on_the_loop_threads_reads():
+    clock = _TickTime()
+    seen = []
+    for name in ("serving-engine", "other", "serving-engine"):
+        th = threading.Thread(target=lambda: seen.append(clock.monotonic()), name=name)
+        th.start()
+        th.join()
+    assert seen == [1e-3, 1e-3, 2e-3]
+    assert clock.monotonic() == 2e-3  # the test's own thread
 
 
 def test_remediation_matrix_and_preemption_storm_routes_to_recover():
