@@ -2555,10 +2555,10 @@ def _mp_rank(outdir, world):
     launch = fa._launch
     shapes = set()
 
-    def spy(name, dtype, *args):
+    def spy(name, dtype, t0, *args):
         # (B, H, S, D, head_offset, heads_total) of every kernel launch
         shapes.add((name, args[-11], args[-10], args[-9], args[0], args[-3], args[-2]))
-        return launch(name, dtype, *args)
+        return launch(name, dtype, t0, *args)
 
     fa._launch = spy
     out = {}

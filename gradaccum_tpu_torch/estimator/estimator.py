@@ -108,8 +108,11 @@ its asynchronous writer; a SIGTERM (``resilience/preemption.py``) stops
 the loop at the next step boundary, with an agreed target step across
 ranks under ``RunConfig.drain_consensus``, and lands a final checkpoint;
 a ``train/step`` span per host step labelled ``scan-cycle``, ``apply`` or
-``accumulate`` (``obs/trace.py``), the run's scalars in a metrics
-registry streamed to TensorBoard event files when the backend imports
+``accumulate`` (``obs/trace.py``), inside it a ``train/upload`` span
+around ``_prep_batch`` and the train step's own spans
+(``ops/accumulation.py``), after it a ``flash`` counter event (the flash
+wrapper's launches and host ns so far, ``ops/flash_attention.py``), the
+run's scalars in a metrics registry streamed to TensorBoard event files when the backend imports
 (``registry``, ``events``), a flight-recorder dump under
 ``model_dir/flightrec`` on a crash or a drain, and a profiler window
 (``RunConfig.profile_dir``). ``export_model`` writes a ``torch.export``
@@ -132,6 +135,7 @@ import torch
 from gradaccum_tpu_torch.estimator import checkpoint as ckpt_lib
 from gradaccum_tpu_torch.estimator.config import EvalSpec, RunConfig, TrainSpec
 from gradaccum_tpu_torch.estimator.metrics import Metric
+from gradaccum_tpu_torch.obs import trace as obs_trace
 from gradaccum_tpu_torch.ops import accumulation as acc
 from gradaccum_tpu_torch.ops.adamw import Optimizer
 from gradaccum_tpu_torch.ops.sparse_embed import accumulate_scan_sparse_embed
@@ -497,8 +501,17 @@ class Estimator:
     def _to_device(self, batch):
         return {key: torch.as_tensor(np.asarray(x)).to(self.device) for key, x in batch.items()}
 
-    def _prep_batch(self, batch, step_no: int):
-        """The positional arguments after ``state`` for the train step."""
+    def _prep_batch(self, batch, step_no: int, spans=obs_trace.NO_SPANS):
+        """The positional arguments after ``state`` for the train step,
+        under a ``train/upload`` span that carries the bytes copied."""
+        if not spans.timed:
+            return self._prep(batch, step_no)
+        with spans("train/upload") as span:
+            args = self._prep(batch, step_no)
+            span.set(bytes=sum(t.nbytes for t in args[0].values()))
+        return args
+
+    def _prep(self, batch, step_no: int):
         batch = self._to_device(batch)
         if self.mode == "scan":
             batch = acc.stack_micro_batches(batch, self.accum.num_micro_batches)
@@ -599,7 +612,7 @@ class Estimator:
         """Train until ``max_steps`` micro-batches (or the input runs out,
         or a preemption drain); in scan mode, stop at the last whole
         K-cycle that fits."""
-        from gradaccum_tpu_torch.obs import trace as obs_trace
+        from gradaccum_tpu_torch.ops import flash_attention
         from gradaccum_tpu_torch.utils.profiling import StepWindowProfiler
 
         cfg = self.config
@@ -747,7 +760,13 @@ class Estimator:
                 else:
                     step_span = obs_trace.NULL.span("")
                 with step_span:
-                    state, aux = step_fn(state, *self._prep_batch(batch, step_no))
+                    state, aux = step_fn(state, *self._prep_batch(
+                        batch, step_no, obs_trace.UpdateSpans(tracer, step_no)))
+                if tracer.timed:
+                    # the flash wrapper's launches and host time so far
+                    tracer.counter("flash", cat="train",
+                                   launches=sum(flash_attention.launch_counts().values()),
+                                   host_ns=sum(flash_attention.launch_host_ns().values()))
                 step_no = state.step
                 self._state = state
                 faults.fire(faults.POST_TRAIN_STEP, step_no)

@@ -1,7 +1,7 @@
 """Structured span tracer: one timeline for training and resilience.
 
-The port of ``gradaccum_tpu/obs/trace.py``, line for line: host-side spans
-and instant events rendered as Chrome/Perfetto trace-event JSON (load
+The port of ``gradaccum_tpu/obs/trace.py``: host-side spans, instant and
+counter events rendered as Chrome/Perfetto trace-event JSON (load
 ``trace.json`` in ``chrome://tracing`` or https://ui.perfetto.dev), with
 the same events, fields and serialization, so a trace of the port and one of
 the JAX package compare byte for byte under a logical clock.
@@ -9,18 +9,23 @@ the JAX package compare byte for byte under a logical clock.
 Design constraints (the hot-path contract):
 
 - **Host-side, no device syncs.** Call sites only record ints/floats they
-  already hold; nothing here may force a readback. On the card a
-  ``train/step`` span therefore covers the host's dispatch of the step,
-  not the card's work (as JAX's span covers its asynchronous dispatch).
+  already hold; nothing here may force a readback. A span times the host.
+  On the card a ``train/step`` span spans the whole update all the same:
+  the host blocks on a full launch queue and on the pageable upload, so
+  the card's back-pressure lands inside it.
 - **Strict no-op when disabled.** ``GRADACCUM_OBS=0`` (or an installed
   :class:`NullTracer`) makes every hook one attribute load + branch; call
   sites guard argument-dict construction behind ``tracer.enabled``.
 - **Two clocks on every event.** ``ts`` comes from the tracer's injectable
-  ``clock`` (wall monotonic by default; tests inject a logical clock), and
+  ``clock`` (by default CLOCK_REALTIME in seconds, ``time.time_ns()``: the
+  base ``torch.profiler`` gives its host and device events, so a wall trace
+  lies on a profiler trace's time axis; tests inject a logical clock), and
   ``args.seq`` is a monotonically increasing logical sequence number.
 - **Deterministic mode.** ``Tracer(deterministic=True)`` removes every
   wall-clock-derived field (thread ids collapse to 0, no wall timestamps),
-  so two seeded runs export byte-identical JSON.
+  so two seeded runs export byte-identical JSON. It also leaves out the
+  spans inside an update (``timed`` is False: :class:`UpdateSpans`), which
+  time the host and nothing else, so its events are JAX's.
 - **Bounded by default.** Events land in a ring (``capacity``), so an
   always-on tracer costs bounded memory; the flight recorder dumps that
   ring on crash or drain. ``capacity=None`` keeps everything.
@@ -63,11 +68,15 @@ class NullTracer:
 
     enabled = False
     deterministic = False
+    timed = False
 
     def span(self, name, cat="", **args):
         return _NULL_SPAN
 
     def event(self, name, cat="", **args):
+        return None
+
+    def counter(self, name, cat="", **values):
         return None
 
     def complete(self, name, start, cat="", **args):
@@ -136,6 +145,9 @@ class Tracer:
     paths are thread-safe (the train loop and the checkpoint writer's
     thread share one tracer).
 
+    ``timed`` is True unless ``deterministic``: only then are the spans
+    inside an update recorded (:class:`UpdateSpans`).
+
     Hot-path layout: the ring holds compact tuples
     ``(seq, ph, name, cat, ts, dur, thread_ident, args)`` — one clock
     read, one lock, one append per emit. The Chrome trace-event dicts
@@ -152,12 +164,10 @@ class Tracer:
         capacity: Optional[int] = 8192,
     ):
         self.deterministic = deterministic
+        self.timed = not deterministic
         if clock is None:
-            if deterministic:
-                clock = lambda: 0.0  # the caller injects its logical clock
-            else:
-                t0 = time.monotonic()
-                clock = lambda: time.monotonic() - t0
+            # the caller injects its logical clock
+            clock = (lambda: 0.0) if deterministic else _wall_clock
         self.clock = clock
         self._ring: deque = deque(maxlen=capacity)
         self._seq = 0
@@ -190,6 +200,10 @@ class Tracer:
     def event(self, name: str, cat: str = "", **args) -> None:
         """Instant event at ``now()``."""
         self._append("i", name, cat, self.clock(), 0.0, args)
+
+    def counter(self, name: str, cat: str = "", **values) -> None:
+        """Counter ('C') event at ``now()``: one series per keyword."""
+        self._append("C", name, cat, self.clock(), 0.0, values)
 
     def complete(self, name: str, start: float, cat: str = "", **args) -> None:
         """Complete span with an explicit ``start`` (clock units) — for
@@ -224,6 +238,11 @@ class Tracer:
                         "dur": us(max(0.0, dur)), "pid": 0, "tid": tid,
                         "args": args,
                     })
+                elif ph == "C":
+                    out.append({
+                        "name": name, "cat": cat, "ph": "C", "ts": us(ts), "pid": 0,
+                        "tid": tid, "args": args,
+                    })
                 else:
                     out.append({
                         "name": name, "cat": cat, "ph": ph, "s": "g",
@@ -234,6 +253,15 @@ class Tracer:
     def clear(self) -> None:
         with self._lock:
             self._ring.clear()
+
+    def thread_tid(self, ident: int) -> Optional[int]:
+        """The ``tid`` that :meth:`snapshot` gives thread ``ident``
+        (``threading.get_ident()``): 0 in deterministic mode, None for a
+        thread no snapshot has held yet."""
+        if not self._wall_tids:
+            return 0
+        with self._lock:
+            return self._tids.get(ident)
 
     def to_chrome(self, events: Optional[List[dict]] = None) -> dict:
         if events is None:
@@ -258,6 +286,32 @@ class Tracer:
         with open(path, "wb") as f:
             f.write(self.to_bytes())
         return path
+
+
+def _wall_clock() -> float:
+    """CLOCK_REALTIME in seconds, the base of ``torch.profiler``'s events."""
+    return time.time_ns() / 1e9
+
+
+class UpdateSpans:
+    """The spans inside one update: ``spans(name, **args)`` opens span
+    ``name`` (category ``train``) carrying the update's ``step`` when the
+    tracer is ``timed``, else the shared no-op. Built once per update, so a
+    disabled site costs one attribute test."""
+
+    __slots__ = ("_tracer", "_step", "timed")
+
+    def __init__(self, tracer, step: int):
+        self._tracer, self._step = tracer, step
+        self.timed = tracer.timed
+
+    def __call__(self, name: str, **args):
+        if not self.timed:
+            return _NULL_SPAN
+        return self._tracer.span(name, cat="train", step=self._step, **args)
+
+
+NO_SPANS = UpdateSpans(NULL, 0)
 
 
 # -- global tracer ------------------------------------------------------------

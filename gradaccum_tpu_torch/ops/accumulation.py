@@ -94,6 +94,16 @@ guard each micro-batch's verdict is pmin'd over the example axes: a
 micro-batch bad on one shard of its examples is skipped on all of them
 (finite parts sum to a finite gradient, so the verdict on the parts is
 the verdict on the sum, overflow of the sum aside).
+
+**Spans** (``obs/trace.py :: UpdateSpans``, resolved once per call of a
+train step; each carries the update's ``step`` at entry, the
+per-micro-batch ones ``micro`` too): ``train/forward`` and
+``train/backward`` around ``loss_fn`` and ``torch.autograd.grad``,
+``train/accumulate`` around each micro-batch's guard and fold into the
+accumulators (or the moments) and once around the window's zeroed
+buffers, ``train/clip`` around the normalization and the clip, and
+``train/optimizer`` around the optimizer's update. They time the host
+only: no sync, no read, no tensor.
 """
 
 from __future__ import annotations
@@ -103,6 +113,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from gradaccum_tpu_torch.obs import trace as obs_trace
 from gradaccum_tpu_torch.ops.adamw import Optimizer
 from gradaccum_tpu_torch.parallel import tp as tp_lib
 from gradaccum_tpu_torch.parallel.sharding import invariant_axes
@@ -217,16 +228,20 @@ def _accum_add_(slots, grads) -> None:
         acc.add_(g.to(acc.dtype))
 
 
-def _grad_call(loss_fn: LossFn, params, micro_batch, scale, wrt=None):
+def _grad_call(loss_fn: LossFn, params, micro_batch, scale, wrt=None,
+               spans=obs_trace.NO_SPANS, micro: int = 0):
     """One micro-batch's ``(loss, check_loss, grads)``, the gradients with
     respect to ``wrt`` (default: every parameter). ``check_loss`` is what
     the guard inspects: the SCALED loss when scaling is on, so an overflow
     at the current scale is caught even when the raw loss is representable;
     ``grads`` are then scaled too (the unscale folds into the apply-time
-    denominator)."""
-    loss = loss_fn(params, micro_batch)
-    check_loss = loss if scale is None else loss * scale
-    grads = torch.autograd.grad(check_loss, list(params.values()) if wrt is None else wrt)
+    denominator). ``micro`` labels its spans."""
+    with spans("train/forward", micro=micro):
+        loss = loss_fn(params, micro_batch)
+        check_loss = loss if scale is None else loss * scale
+    with spans("train/backward", micro=micro):
+        grads = torch.autograd.grad(check_loss,
+                                    list(params.values()) if wrt is None else wrt)
     return loss.detach(), check_loss.detach(), grads
 
 
@@ -266,13 +281,14 @@ def _require_fused_hooks(optimizer: Optimizer) -> None:
         )
 
 
-def _finalize(accum, config: GradAccumConfig, denom):
+def _finalize(accum, config: GradAccumConfig, denom, spans=obs_trace.NO_SPANS):
     """Normalize the accumulated sum by ``denom`` (an int, or a 0-d tensor
     when it holds the good count or the loss scale), then clip (if set)."""
-    grads = {name: g / denom for name, g in accum.items()}
-    if config.clip_norm is not None:
-        return clip_by_global_norm(grads, config.clip_norm)
-    return grads, grad_norm(grads)
+    with spans("train/clip"):
+        grads = {name: g / denom for name, g in accum.items()}
+        if config.clip_norm is not None:
+            return clip_by_global_norm(grads, config.clip_norm)
+        return grads, grad_norm(grads)
 
 
 def _scale_of(state, config: GradAccumConfig, init_fn: str):
@@ -433,6 +449,7 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
         if needs_rng and generator is None:
             raise ValueError("needs_rng=True: pass train_step(state, batch, generator)")
         scale = _scale_of(state, config, "scan_init")
+        spans = obs_trace.UpdateSpans(obs_trace.get_tracer(), state.step)
         red = _reduction(config)
         mesh = None if red is None else red.mesh
         params = state.params
@@ -456,9 +473,10 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
             # it sums at its own dtype (one scatter-add, below)
             in_window = sparse is not None and \
                 torch.promote_types(table.dtype, torch.float32) == table.dtype
-            accum, buffers, stats = _window_accum(
-                params if in_window else dense,
-                0 if mesh is None else 2 if skip else 1)
+            with spans("train/accumulate"):
+                accum, buffers, stats = _window_accum(
+                    params if in_window else dense,
+                    0 if mesh is None else 2 if skip else 1)
             dense_slots = [accum[name] for name in dense]
         # fused mode counts the window position even unguarded: `first`
         n_good = torch.zeros((), dtype=torch.int32, device=device) \
@@ -469,7 +487,8 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
             if needs_rng:
                 micro["rng"] = generator
             if sparse is None:
-                loss, check_loss, grads = _grad_call(loss_fn, params, micro, scale)
+                loss, check_loss, grads = _grad_call(loss_fn, params, micro, scale,
+                                                     spans=spans, micro=i)
             else:
                 # the gather stays outside autograd: the table takes no
                 # cotangent, the rows do
@@ -481,8 +500,8 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
                 rows = rows.requires_grad_()
                 loss, check_loss, grads = _grad_call(
                     lambda p, b, r=rows: loss_fn(p, r, b), params, micro, scale,
-                    wrt=list(dense.values()) + [rows])
-            with torch.no_grad():
+                    wrt=list(dense.values()) + [rows], spans=spans, micro=i)
+            with torch.no_grad(), spans("train/accumulate", micro=i):
                 if micro_mean is not None and sparse is not None:
                     # this rank's rows: their share of the global mean
                     loss, check_loss, dense_g = _global_mean(micro_mean, loss, check_loss,
@@ -572,11 +591,12 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
                 new_params = params
                 new_opt_state = optimizer.fused.carry_into(state.opt_state, mv)
             else:
-                new_params, new_opt_state = optimizer.fused.apply(state.opt_state, mv, params,
-                                                                  apply_step)
+                with spans("train/optimizer"):
+                    new_params, new_opt_state = optimizer.fused.apply(
+                        state.opt_state, mv, params, apply_step)
         else:
             new_params, new_opt_state, norm = _scan_apply(
-                optimizer, config, state, accum, n_good, scale, apply_step, total)
+                optimizer, config, state, accum, n_good, scale, apply_step, total, spans)
         new_ls = state.loss_scale
         if config.loss_scale is not None:
             new_ls = update_loss_scale(state.loss_scale, config.loss_scale, n_good >= total)
@@ -601,7 +621,8 @@ def _scan_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig,
     return train_step
 
 
-def _scan_apply(optimizer, config, state, accum, n_good, scale, apply_step, total):
+def _scan_apply(optimizer, config, state, accum, n_good, scale, apply_step, total,
+                spans=obs_trace.NO_SPANS):
     """The two-pass apply: normalize (by ``total`` = K·N, or the good
     count), unscale, clip, update (none for an all-bad window). Returns
     ``(params, opt_state, grad_norm)``."""
@@ -613,11 +634,12 @@ def _scan_apply(optimizer, config, state, accum, n_good, scale, apply_step, tota
             denom = total  # a skipped micro-batch adds zero: the update shrinks
         if scale is not None:
             denom = denom * scale  # unscale BEFORE clip and apply
-        grads, norm = _finalize(accum, config, denom)
+        grads, norm = _finalize(accum, config, denom, spans)
     if config.skip_nonfinite and int(n_good) == 0:  # the window's one host read
         return state.params, state.opt_state, norm
-    new_params, new_opt_state = optimizer.update(grads, state.opt_state, state.params,
-                                                 apply_step)
+    with spans("train/optimizer"):
+        new_params, new_opt_state = optimizer.update(grads, state.opt_state, state.params,
+                                                     apply_step)
     return new_params, new_opt_state, norm
 
 
@@ -697,62 +719,68 @@ def _streaming_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig
                 raise ValueError("needs_rng=True: pass train_step(state, batch, generator)")
             micro_batch = dict(micro_batch, rng=generator)
         scale = _scale_of(state, config, "streaming_init")
+        spans = obs_trace.UpdateSpans(obs_trace.get_tracer(), state.step)
+        micro = state.step % k  # the micro-batch's place in its window
         red = _reduction(config)
         data = _axis_mesh(config)
         n_replicas = 1 if red is None else red.replicas
         params = state.params
-        loss, check_loss, grads = _grad_call(loss_fn, params, micro_batch, scale)
+        loss, check_loss, grads = _grad_call(loss_fn, params, micro_batch, scale,
+                                             spans=spans, micro=micro)
         applied = state.step % k == phase
         new_params, new_opt_state = params, state.opt_state
         new_good, new_ls = state.good_count, state.loss_scale
         accum = state.accum_grads
         with torch.no_grad():
-            if micro_mean is not None:
-                loss, check_loss, grads = _global_mean(micro_mean, loss, check_loss, grads)
-            if red is not None:
-                # the reference's SUM-aggregated mirrored accumulators: one
-                # all-reduce of this micro-batch's gradients (and of the
-                # example shards' parts; a whole one counts once)
-                grads = _sum_parts(grads, params, config, red)
-            good = None
-            if skip:
-                if data is None:
-                    good = _all_finite(check_loss, grads)
-                else:
-                    # the loss is this rank's: any rank's non-finite loss
-                    # skips the micro-batch on every rank, or the zeroed
-                    # accumulators would diverge
-                    finite_loss = data.pmin_flag(torch.isfinite(check_loss), tag="guard")
-                    good = finite_loss & _all_finite(check_loss, grads)
-                if red is not None and red.examples is not None:
-                    good = red.examples.pmin_flag(good, tag="guard")
-                grads = _zero_if_bad(grads, good)
-                good_inc = good.to(torch.int32)
-            else:
-                good_inc = 1  # fused mode's window position
-            window_good = state.good_count + good_inc if skip or fused else None
-            if fused:
-                # fold this micro-batch before the branch: the apply branch
-                # re-accumulates the current gradient first, as the reference
-                inv_m, inv_v = _fused_inv_factors(k, scale, _device(params))
-                first = state.good_count == 0
+            with spans("train/accumulate", micro=micro):
+                if micro_mean is not None:
+                    loss, check_loss, grads = _global_mean(micro_mean, loss, check_loss,
+                                                           grads)
+                if red is not None:
+                    # the reference's SUM-aggregated mirrored accumulators: one
+                    # all-reduce of this micro-batch's gradients (and of the
+                    # example shards' parts; a whole one counts once)
+                    grads = _sum_parts(grads, params, config, red)
+                good = None
                 if skip:
-                    first = first & good
-                mv = optimizer.fused.moments(state.opt_state)
-                optimizer.fused.accumulate(mv, dict(zip(params, grads)), good, first,
-                                           inv_m, inv_v)
-            else:
-                # both branches accumulate: the apply branch re-accumulates the
-                # current gradient first (optimization.py:81)
-                _accum_add_(accum.values(), grads)
+                    if data is None:
+                        good = _all_finite(check_loss, grads)
+                    else:
+                        # the loss is this rank's: any rank's non-finite loss
+                        # skips the micro-batch on every rank, or the zeroed
+                        # accumulators would diverge
+                        finite_loss = data.pmin_flag(torch.isfinite(check_loss), tag="guard")
+                        good = finite_loss & _all_finite(check_loss, grads)
+                    if red is not None and red.examples is not None:
+                        good = red.examples.pmin_flag(good, tag="guard")
+                    grads = _zero_if_bad(grads, good)
+                    good_inc = good.to(torch.int32)
+                else:
+                    good_inc = 1  # fused mode's window position
+                window_good = state.good_count + good_inc if skip or fused else None
+                if fused:
+                    # fold this micro-batch before the branch: the apply branch
+                    # re-accumulates the current gradient first, as the reference
+                    inv_m, inv_v = _fused_inv_factors(k, scale, _device(params))
+                    first = state.good_count == 0
+                    if skip:
+                        first = first & good
+                    mv = optimizer.fused.moments(state.opt_state)
+                    optimizer.fused.accumulate(mv, dict(zip(params, grads)), good, first,
+                                               inv_m, inv_v)
+                else:
+                    # both branches accumulate: the apply branch re-accumulates
+                    # the current gradient first (optimization.py:81)
+                    _accum_add_(accum.values(), grads)
             if applied:
                 sched_step = state.step + step_offset
                 # an all-bad window must not apply: the window's one host read
                 run = not skip or int(window_good) > 0
                 if fused:
                     if run:
-                        new_params, new_opt_state = optimizer.fused.apply(
-                            state.opt_state, mv, params, sched_step)
+                        with spans("train/optimizer"):
+                            new_params, new_opt_state = optimizer.fused.apply(
+                                state.opt_state, mv, params, sched_step)
                     else:
                         new_opt_state = optimizer.fused.carry_into(state.opt_state, mv)
                 else:
@@ -763,12 +791,14 @@ def _streaming_train_step(loss_fn, optimizer: Optimizer, config: GradAccumConfig
                         denom = k * n_replicas
                     if scale is not None:
                         denom = denom * scale  # unscale BEFORE clip and apply
-                    avg, _ = _finalize(accum, config, denom)
+                    avg, _ = _finalize(accum, config, denom, spans)
                     if run:
-                        new_params, new_opt_state = optimizer.update(
-                            avg, state.opt_state, params, sched_step)
-                    for acc in accum.values():
-                        acc.zero_()
+                        with spans("train/optimizer"):
+                            new_params, new_opt_state = optimizer.update(
+                                avg, state.opt_state, params, sched_step)
+                    with spans("train/accumulate"):
+                        for acc in accum.values():
+                            acc.zero_()
                 if config.loss_scale is not None:
                     # window boundary: the scale adjusts, applied or not
                     new_ls = update_loss_scale(state.loss_scale, config.loss_scale,

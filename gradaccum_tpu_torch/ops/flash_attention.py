@@ -43,6 +43,7 @@ mask outside the kernels.
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import Optional
 
 import torch
@@ -246,8 +247,10 @@ def route(dtype: torch.dtype) -> str:
     return "tc" if dtype == torch.bfloat16 else "tf32x3"
 
 
-def _launch(name: str, dtype: torch.dtype, *args):
-    """Call kernel ``name`` on its route, raise on a launch error, count it."""
+def _launch(name: str, dtype: torch.dtype, t0: int, *args):
+    """Call kernel ``name`` on its route, raise on a launch error, count it
+    and add the wrapper's host time since ``t0`` (``perf_counter_ns`` at the
+    wrapper's entry)."""
     r = route(dtype)
     fn = getattr(build_kernels()[r], _SOURCES[r][1][name])
     err = fn(_DTYPE_CODES[dtype], *args)
@@ -256,6 +259,7 @@ def _launch(name: str, dtype: torch.dtype, *args):
     wrapper = KERNELS[name]
     wrapper.launches += 1
     wrapper.route_launches[r] += 1
+    wrapper.host_ns += time.perf_counter_ns() - t0
 
 
 def _check_inputs(q, k, v, mask, *rest):
@@ -329,11 +333,12 @@ def flash_fwd_cuda(q, k, v, mask, seed, causal: bool, rate: float, head_offset: 
                    heads_total: int = 0):
     """K1 on the card: ``(o, lse)`` as :func:`flash_forward_reference`
     (``heads_total`` 0: the launch's own head count)."""
+    t0 = time.perf_counter_ns()
     _check_inputs(q, k, v, mask)
     seed_t = _seed_tensor(seed, rate, q.device)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:-1] + (1,), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", q.dtype, q.shape[-1], _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
+    _launch("flash_fwd", q.dtype, t0, q.shape[-1], _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
             _ptr(seed_t), _ptr(o), _ptr(lse),
             *_scalar_args(q, causal, rate, head_offset, heads_total))
     return o, lse
@@ -344,12 +349,13 @@ def flash_bwd_dq_cuda(q, k, v, mask, seed, g, o, lse, causal: bool,
     """K2 on the card: ``(dq, delta)``, dq as :func:`flash_backward_reference`
     and delta [B, H, S, 1] float32 as :func:`_delta` (the dk/dv kernel's
     input), both computed by the one kernel from the forward's ``o``."""
+    t0 = time.perf_counter_ns()
     _check_inputs(q, k, v, mask, ("dO", g), ("o", o))
     _check_rows(q, lse)
     seed_t = _seed_tensor(seed, rate, q.device)
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
-    _launch("flash_bwd_dq", q.dtype, q.shape[-1], _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
+    _launch("flash_bwd_dq", q.dtype, t0, q.shape[-1], _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
             _ptr(seed_t), _ptr(g), _ptr(o), _ptr(lse), _ptr(dq), _ptr(delta),
             *_scalar_args(q, causal, rate, head_offset, heads_total))
     return dq, delta
@@ -361,6 +367,7 @@ def flash_bwd_dkv_cuda(q, k, v, mask, seed, g, lse, delta, causal: bool,
     """K3 on the card: ``(dk, dv, dmask_per_head)`` as
     :func:`flash_backward_reference`, given Δ. dmask is None without a mask
     or with ``with_dmask=False``; the kernel then skips writing it."""
+    t0 = time.perf_counter_ns()
     _check_inputs(q, k, v, mask, ("dO", g))
     _check_rows(q, lse, delta)
     seed_t = _seed_tensor(seed, rate, q.device)
@@ -370,7 +377,7 @@ def flash_bwd_dkv_cuda(q, k, v, mask, seed, g, lse, delta, causal: bool,
     if mask is not None and with_dmask:
         b, h, s, _ = q.shape
         dmask = torch.empty((b, h, 1, s), dtype=torch.float32, device=q.device)
-    _launch("flash_bwd_dkv", q.dtype, q.shape[-1], _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
+    _launch("flash_bwd_dkv", q.dtype, t0, q.shape[-1], _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
             _ptr(seed_t), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv),
             _ptr(dmask), *_scalar_args(q, causal, rate, head_offset, heads_total))
     return dk, dv, dmask
@@ -384,10 +391,12 @@ KERNELS = {
 
 
 def reset_launch_counts() -> None:
-    """Zero every wrapper's count of launches, in total and per route."""
+    """Zero every wrapper's count of launches, in total and per route, and
+    its host time."""
     for fn in KERNELS.values():
         fn.launches = 0
         fn.route_launches = {r: 0 for r in _SOURCES}
+        fn.host_ns = 0
 
 
 def tc_map_counts() -> dict:
@@ -407,6 +416,13 @@ def f32_map_counts() -> dict:
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def launch_host_ns() -> dict:
+    """``{kernel: ns}`` since the last reset: the wrapper's host time over
+    its launches, from its entry (input checks, outputs, the seed) to the
+    launch's return (``time.perf_counter_ns``)."""
+    return {name: fn.host_ns for name, fn in KERNELS.items()}
 
 
 def route_counts() -> dict:
