@@ -12,7 +12,8 @@ Phases, each of which fails the run if it fails:
    designs: TMA, mbarriers, wgmma) spills at any head dim, or if ptxas
    serializes the wgmma of the float32 forward, dq or dk/dv kernel or of
    the bfloat16 dq kernel (its C7515 report; every kernel it serializes is
-   printed).
+   printed); the same two checks hold the float32 products' kernel
+   (``gemm_f32.cu``) at each of its 12 instances.
 2. kernels: hold each kernel against its plain PyTorch version on the card
    at the BERT-Small main-path shape q/k/v [8, 8, 128, 64], in float32
    (``flash_attention.cu``: forward, dq and dk/dv on the tensor cores in
@@ -40,6 +41,15 @@ Phases, each of which fails the run if it fails:
    (``bert_finetune``'s default dtype), and at GPT-Small's (bf16 and
    float32 [8, 8, 512, 64], causal: SDPA with is_causal=True) and
    ``gpt_lm``'s (float32 [16, 4, 64, 32], causal).
+2b. gemm: the float32 products' kernel (``ops/matmul.py :: mm_cuda``, the
+   bf16 tensor cores over exact bf16 terms) at every float32 product of
+   the training phases below: BERT-Small's float32 Dense (512->512,
+   512->2048, 2048->512 over 1024 rows) and the 2-class classifier over 8
+   rows, each in its forward, dx and dW layouts, and GPT-Small's tied head
+   over 4096 rows (bf16 and float32 x and table), without and with a bias:
+   one launch a call, no launch or kernel error, and the error against a
+   float64 product at most twice cuBLAS's float32 product's (TF32 off) on
+   the same inputs plus one float32 rounding, in norm and largest.
 3. agree: the tiny BERT classifier's loss and gradients on the card (through
    the kernels) against the same model on the CPU (plain versions).
 4. main: the entry point ``gradaccum_tpu_torch/examples/bert_finetune.py``
@@ -48,7 +58,8 @@ Phases, each of which fails the run if it fails:
    few optimizer updates and its evaluations (after the first chunk and at
    the end). The kernels' launch counts are zeroed just before and read
    just after, and must match the path exactly, with every launch on the
-   tensor-core route.
+   tensor-core route; so must the float32 products' (the classifier: 3 a
+   micro-batch, 1 an eval batch, all float32 x float32).
 5. profile: a torch.profiler window over three more updates of the same
    run: wall and card-busy time per update, idle share, top kernels; before
    it, the bf16 kernels' tensor-map lookups and encodes in one update.
@@ -123,7 +134,8 @@ Phases, each of which fails the run if it fails:
     (float32, no ``--bf16``), BERT-Small width, seq 128, micro-batch 8 x
     K=4, scan, 2 updates and its evaluations: the only entry-point run of
     the float32 forward with a padded mask. Launch counts exact, every
-    launch on the float32 route ``tf32x3``.
+    launch on the float32 route ``tf32x3``; the float32 products' launches
+    exact too (26 Dense, 3 each a micro-batch, 1 an eval batch).
 
 19. dp: data parallelism and ZeRO-1 (``gradaccum_tpu_torch/parallel``) on
     the one card. (a) World size 1 over NCCL: BERT-Small bf16 scan, micro 8
@@ -488,6 +500,14 @@ NO_SPILL = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
 # forward, dq and dk/dv kernels and the bfloat16 dq kernel. The build
 # prints every kernel it reports.
 NO_SERIAL = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel", "flash_dq_tc_kernel")
+# the float32 products' kernel (csrc/gemm_f32.cu) at each of its 12
+# instances (<A float32, B float32, A MN-major, B MN-major>; a bf16 A takes
+# a bf16 B): no spills, no serialized wgmma
+GEMM_KERNEL = "gemm_bf16x3_kernel"
+# the kernels of a float32 product, by name: the port's, and cuBLAS's FMA ones
+F32_GEMM_KERNELS = (GEMM_KERNEL, "gemm_splitk_sum", "sgemm", "gemm_f32f32")
+GEMM_INSTANCES = [f"{GEMM_KERNEL}<{af},{bf},{am},{bm}>" for af in (1, 0) for bf in (1, 0)
+                  for am in (1, 0) for bm in (1, 0) if af or not bf]
 # GPT-Small's attention (micro 8, 8 heads, seq 512, head dim 64: bf16 on the
 # tensor cores, and float32 in ladder leg (a)) and gpt_lm's (micro 16,
 # 4 heads, seq 64, head dim 32, float32): causal, no mask, dropout 0.1
@@ -532,9 +552,10 @@ def phase_build():
     with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
         for future in [pool.submit(cuda_build.build, s) for s in sources]:
             future.result()
-    from gradaccum_tpu_torch.ops import flash_attention as fa
+    from gradaccum_tpu_torch.ops import flash_attention as fa, matmul
 
     fa.build_kernels()
+    matmul.build_kernels()
     print(f"[build] {len(sources)} source(s) in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{s} {cuda_build.build_seconds.get(s, 0.0):.1f} s" for s in sources))
     spilled, seen = [], set()
@@ -546,23 +567,32 @@ def phase_build():
             seen.add(name)
             if name.split("<")[0] in NO_SPILL and (stores or loads):
                 spilled.append(name)
+            if name.startswith(GEMM_KERNEL) and (stores or loads):
+                spilled.append(name)
     missing = [f"{k}<{d}>" for k in NO_SPILL for d in (16, 32, 64, 128)
-               if f"{k}<{d}>" not in seen]
+               if f"{k}<{d}>" not in seen] + [g for g in GEMM_INSTANCES if g not in seen]
     check(not missing, f"no ptxas report for {missing}")
     check(not spilled, f"ptxas reports spills in {spilled}")
     serialized = sorted(name for s in sources for name in _ptxas_serialized(
         cuda_build.library_path(s).with_suffix(".log").read_text()))
     print(f"[build] ptxas serializes the wgmma of: {', '.join(serialized) or 'no kernel'}")
-    bad = [name for name in serialized if name.split("<")[0] in NO_SERIAL]
+    bad = [name for name in serialized
+           if name.split("<")[0] in NO_SERIAL or name.startswith(GEMM_KERNEL)]
     check(not bad, f"ptxas serializes every wgmma of {bad} (C7515)")
 
 
 def _kernel_name(mangled):
-    """e.g. ..18flash_dq_tc_kernelILi64EEEv.. -> flash_dq_tc_kernel<64>"""
+    """e.g. ..18flash_dq_tc_kernelILi64EEEv.. -> flash_dq_tc_kernel<64>,
+    ..18gemm_bf16x3_kernelILb1ELb0ELb0ELb1EEEv.. -> gemm_bf16x3_kernel<1,0,0,1>"""
     import re
 
     m = re.search(r"(flash_[a-z_]+?_kernel)ILi(\d+)EEEv", mangled)
-    return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+    if m:
+        return f"{m.group(1)}<{m.group(2)}>"
+    m = re.search(r"(gemm_bf16x3_kernel)I((?:Lb[01]E)+)E", mangled)
+    if m:
+        return f"{m.group(1)}<{','.join(re.findall(r'Lb([01])E', m.group(2)))}>"
+    return mangled
 
 
 def _ptxas_serialized(text):
@@ -992,6 +1022,101 @@ def phase_timing(shape=(B, H, S, D), masked=True, causal=False, label="bert", dt
 
 
 # --------------------------------------------------------------------------
+# phase 2b: the float32 products' kernel at the main path's shapes
+# --------------------------------------------------------------------------
+
+# float32's unit roundoff: the floor of phase 2b's limit, one rounding of
+# the result, for products cuBLAS happens to form almost exactly
+F32_U = 2.0 ** -24
+
+
+def _gemm_shapes():
+    """The float32 products the smoke's training phases run, as
+    ``(name, m, n, k, a dtype, b dtype, a_t, b_t, out dtype)``: BERT-Small's
+    float32 Dense (phase 18) over micro 8 x seq 128 rows and the classifier
+    (every BERT phase), each in its forward (NT), dx (NN) and dW (TN)
+    layouts; GPT-Small's tied head over micro 8 x seq 512 rows, bf16 x and
+    table (the bf16 + master legs) and float32 (ladder leg (a))."""
+    rows, hidden, ffn, classes = B * S, 512, 2048, 2
+    out = []
+    for tag, d_in, d_out in (("512->512", hidden, hidden), ("512->2048", hidden, ffn),
+                             ("2048->512", ffn, hidden), ("classifier", hidden, classes)):
+        r = B if tag == "classifier" else rows
+        out += [(f"bert {tag} forward", r, d_out, d_in, "f32", "f32", False, True, "f32"),
+                (f"bert {tag} dx", r, d_in, d_out, "f32", "f32", False, False, "f32"),
+                (f"bert {tag} dw", d_out, d_in, r, "f32", "f32", True, False, "f32")]
+    tokens, d = GPT_MICRO * GPT_SEQ, 512
+    for x in ("bf16", "f32"):
+        out += [(f"gpt head {x} forward", tokens, GPT_VOCAB, d, x, x, False, True, "f32"),
+                (f"gpt head {x} dx", tokens, d, GPT_VOCAB, "f32", x, False, False, x),
+                (f"gpt head {x} dtable", GPT_VOCAB, d, tokens, "f32", x, True, False, x)]
+    return out
+
+
+def phase_gemm():
+    """``ops/matmul.py :: mm_cuda`` on the card at every shape of
+    :func:`_gemm_shapes`, without and with a bias: one launch per call (an
+    error of the launch raises in the wrapper, an error in the kernel at the
+    synchronize after it), the result's shape and dtype, and its error
+    against a float64 product no worse than twice cuBLAS's float32 product
+    (TF32 off) on the same inputs, plus one float32 rounding: relative in
+    norm, and largest against the largest value."""
+    import torch
+
+    from gradaccum_tpu_torch.ops import matmul
+
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    worst = 0.0  # the largest share of its limit any check used
+    try:
+        for name, m, n, k, a_dt, b_dt, a_t, b_t, out_dt in _gemm_shapes():
+            a = torch.randn(*((k, m) if a_t else (m, k)), generator=g, device="cuda").to(dt[a_dt])
+            b = torch.randn(*((n, k) if b_t else (k, n)), generator=g, device="cuda").to(dt[b_dt])
+            a64 = a.double().t() if a_t else a.double()
+            b64 = b.double().t() if b_t else b.double()
+            exact0 = a64 @ b64
+            del a64, b64
+            for bias in (None, torch.randn(n, generator=g, device="cuda")):
+                out = dt[out_dt] if bias is None else torch.float32
+                exact = exact0 if bias is None else exact0 + bias.double()
+                matmul.reset_launch_counts()
+                got = matmul.mm_cuda(a, b, bias, a_t, b_t, out)
+                torch.cuda.synchronize()
+                check(matmul.launch_counts() == {"gemm_f32": 1},
+                      f"gemm {name}: {matmul.launch_counts()} launches, wanted 1")
+                check(got.shape == (m, n) and got.dtype == out,
+                      f"gemm {name}: {tuple(got.shape)} {got.dtype}, wanted ({m}, {n}) {out}")
+                ref = matmul.mm_plain(a, b, bias, a_t, b_t, out)
+                norm, top = float(torch.linalg.norm(exact)), float(exact.abs().max())
+                errs = {}
+                for label, c in (("kernel", got), ("cublas", ref)):
+                    diff = c.double() - exact
+                    errs[label] = (float(torch.linalg.norm(diff)) / norm,
+                                   float(diff.abs().max()))
+                    del diff
+                (rel, big), (rel_lib, big_lib) = errs["kernel"], errs["cublas"]
+                lim_rel, lim_big = 2 * rel_lib + F32_U, 2 * big_lib + F32_U * top
+                worst = max(worst, rel / lim_rel, big / lim_big)
+                tag = "no bias" if bias is None else "bias"
+                check(rel <= lim_rel and big <= lim_big,
+                      f"gemm {name} ({tag}): relative error {rel:.3e} (limit {lim_rel:.3e}), "
+                      f"largest {big:.3e} (limit {lim_big:.3e}); cuBLAS {rel_lib:.3e}, "
+                      f"{big_lib:.3e}")
+                print(f"[gemm] {name} [{m}, {n}] over {k}, {a_dt} x {b_dt} -> "
+                      f"{str(out).replace('torch.', '')}, {tag}: relative error {rel:.3e} "
+                      f"(cuBLAS {rel_lib:.3e}), largest {big:.3e} (cuBLAS {big_lib:.3e})")
+                del got, ref, exact
+            del a, b, exact0
+            _release()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"[gemm] {len(_gemm_shapes()) * 2} products within twice cuBLAS's float32 error "
+          f"(+ one float32 rounding); the closest used {worst:.3f} of its limit")
+
+
+# --------------------------------------------------------------------------
 # phase 3: the card against the CPU on a small model
 # --------------------------------------------------------------------------
 
@@ -1039,7 +1164,7 @@ def phase_agree():
 
 def phase_main(updates: int):
     from gradaccum_tpu_torch.examples import bert_finetune
-    from gradaccum_tpu_torch.ops import flash_attention as fa
+    from gradaccum_tpu_torch.ops import flash_attention as fa, matmul
 
     k, layers = K, LAYERS
     model_dir = os.path.join(ROOT, "build", "chip_smoke_run")
@@ -1048,16 +1173,19 @@ def phase_main(updates: int):
             "--accum-k", str(k), "--max-steps", str(updates * k),
             "--model-dir", model_dir]
     fa.reset_launch_counts()
+    matmul.reset_launch_counts()
     result = bert_finetune.main(argv)
     counts = fa.launch_counts()
     routes = fa.route_counts()
     check(math.isfinite(result["loss"]), f"main path loss is not finite: {result['loss']}")
     check(result["updates"] == updates, f"ran {result['updates']} updates, wanted {updates}")
     _check_launches("main", counts, routes, layers * k * updates, result, "tc")
+    gemm = _check_gemm_launches("main", 1, k * updates, result)
     print(f"[main] BERT-Small bf16 micro 8 x K={k}, seq {S}: {updates} updates, "
           f"loss {result['loss']:.4f}, {result['seq/s']:.1f} seq/s, "
           f"mfu {result['mfu']:.4f}, eval accuracy {result['accuracy']:.4f} "
-          f"({result['evaluations']} evaluations); launches {counts}, routes {routes}")
+          f"({result['evaluations']} evaluations); launches {counts}, routes {routes}; "
+          f"float32 products (the classifier) {gemm}")
     return counts, result
 
 
@@ -1075,6 +1203,23 @@ def _check_launches(phase, counts, routes, train_calls, result, route):
     want_routes = {name: {r: n if r == route else 0 for r in ("tc", "tf32x3")}
                    for name, n in want.items()}
     check(routes == want_routes, f"{phase}: route counts {routes} != {want_routes}")
+
+
+def _check_gemm_launches(phase, dense, micro_steps, result):
+    """The float32 products' kernel (``ops/matmul.py``): each of the
+    model's ``dense`` float32 Dense layers (float32 weights and inputs, 6
+    term-pair products) launches it once in each training forward and twice
+    in its backward (dx, dW), and once per eval batch. Returns the counts."""
+    from gradaccum_tpu_torch.ops import matmul
+
+    evals = result["eval_batches"] * result["evaluations"]
+    want = dense * (3 * micro_steps + evals)
+    got = (matmul.launch_counts(), matmul.product_counts())
+    check(got == ({"gemm_f32": want}, {1: 0, 3: 0, 6: want}),
+          f"{phase}: float32 product launches {got[0]}, by term-pair products {got[1]}, "
+          f"wanted {want}, all of 6 ({dense} Dense x (3 x {micro_steps} micro-batches + "
+          f"{evals} eval batches))")
+    return got[0]["gemm_f32"]
 
 
 def phase_profile(updates: int = 3, mode: str = "scan", extra=()):
@@ -1874,9 +2019,11 @@ def phase_gpt_profile(updates=2, f32=False):
         return
     flash = sum(t for key, t, _ in kernels if "flash_" in key) / 1e6
     bwd = sum(t for key, t, _ in kernels if "flash_dq" in key or "flash_dkv" in key) / 1e6
-    # the only float32 matrix products of a bf16 update are the tied head's
-    head = sum(t for key, t, _ in kernels if "gemm" in key.lower()
-               and "bf16" not in key.lower() and "16816" not in key) / 1e6
+    # the only float32 matrix products of a bf16 update are the tied head's:
+    # the port's kernel (ops/matmul.py) and its split-K sum, or cuBLAS's
+    # float32 GEMMs where one runs
+    head = sum(t for key, t, _ in kernels if any(
+        name in key for name in F32_GEMM_KERNELS)) / 1e6
     gemms = "float32 GEMMs" if f32 else "float32 GEMMs (the tied head)"
     print(f"[gpt-profile] GPT-Small {name}, micro 8 x K=4, seq 512, {updates} updates: "
           f"{wall / updates * 1e3:.2f} ms/update wall, card busy {busy / updates * 1e3:.2f} "
@@ -1992,11 +2139,12 @@ def phase_bert_f32(updates: int = 2):
     The only entry-point run of the float32 forward with a padded mask;
     every launch on the float32 route ``tf32x3``."""
     from gradaccum_tpu_torch.examples import bert_finetune
-    from gradaccum_tpu_torch.ops import flash_attention as fa
+    from gradaccum_tpu_torch.ops import flash_attention as fa, matmul
 
     argv = ["--device", "cuda", "--vocab-size", "30522", "--seq-len", str(S),
             "--accum-k", str(K), "--max-steps", str(updates * K)]
     fa.reset_launch_counts()
+    matmul.reset_launch_counts()
     maps0 = fa.f32_map_counts()
     result = bert_finetune.main(argv)
     counts, routes = fa.launch_counts(), fa.route_counts()
@@ -2006,12 +2154,15 @@ def phase_bert_f32(updates: int = 2):
     check(result["updates"] == updates, f"bert f32: ran {result['updates']} updates, "
                                         f"wanted {updates}")
     _check_launches("bert f32", counts, routes, LAYERS * K * updates, result, "tf32x3")
+    # six Dense a layer (query, key, value, output, intermediate, ffn_output),
+    # the pooler and the classifier
+    gemm = _check_gemm_launches("bert f32", 6 * LAYERS + 2, K * updates, result)
     print(f"[bert-f32] BERT-Small float32 micro 8 x K={K}, seq {S}: {updates} updates, "
           f"loss {result['first_loss']:.4f} -> {result['loss']:.4f}, {result['seq/s']:.1f} "
           f"seq/s, eval accuracy {result['accuracy']:.4f} ({result['evaluations']} "
           f"evaluations of {result['eval_batches']} batches); launches {counts}, all tf32x3; "
           f"the float32 kernels' tensor maps: {maps['lookups']} lookups, "
-          f"{maps['encodes']} encodes")
+          f"{maps['encodes']} encodes; float32 products {gemm}")
     return counts
 
 
@@ -7072,6 +7223,7 @@ def main() -> int:
                                       dtype=torch.float32)
         timing_gpt_lm = phase_timing(GPT_LM_SHAPE, masked=False, causal=True,
                                      label="gpt_lm", dtype=torch.float32)
+        phase_gemm()
         phase_agree()
         counts, scan_result = phase_main(UPDATES)
         phase_profile()

@@ -111,7 +111,8 @@ a ``train/step`` span per host step labelled ``scan-cycle``, ``apply`` or
 ``accumulate`` (``obs/trace.py``), inside it a ``train/upload`` span
 around ``_prep_batch`` and the train step's own spans
 (``ops/accumulation.py``), after it a ``flash`` counter event (the flash
-wrapper's launches and host ns so far, ``ops/flash_attention.py``), the
+wrapper's launches and host ns so far, ``ops/flash_attention.py``) and a
+``gemm_f32`` one (the float32 products' kernel, ``ops/matmul.py``), the
 run's scalars in a metrics registry streamed to TensorBoard event files when the backend imports
 (``registry``, ``events``), a flight-recorder dump under
 ``model_dir/flightrec`` on a crash or a drain, and a profiler window
@@ -612,7 +613,7 @@ class Estimator:
         """Train until ``max_steps`` micro-batches (or the input runs out,
         or a preemption drain); in scan mode, stop at the last whole
         K-cycle that fits."""
-        from gradaccum_tpu_torch.ops import flash_attention
+        from gradaccum_tpu_torch.ops import flash_attention, matmul
         from gradaccum_tpu_torch.utils.profiling import StepWindowProfiler
 
         cfg = self.config
@@ -767,6 +768,12 @@ class Estimator:
                     tracer.counter("flash", cat="train",
                                    launches=sum(flash_attention.launch_counts().values()),
                                    host_ns=sum(flash_attention.launch_host_ns().values()))
+                    # and the float32 matrix products' kernel, by term-pair products
+                    by_products = matmul.product_counts()
+                    tracer.counter("gemm_f32", cat="train",
+                                   launches=matmul.launch_counts()["gemm_f32"],
+                                   products_1=by_products[1], products_3=by_products[3],
+                                   products_6=by_products[6])
                 step_no = state.step
                 self._state = state
                 faults.fire(faults.POST_TRAIN_STEP, step_no)

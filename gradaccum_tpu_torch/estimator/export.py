@@ -8,8 +8,10 @@ the caller's sample, ``batch_polymorphic``, and under ``"extra"`` any
 JSON-serializable metadata the caller passes: the serving tier records its
 engine's knobs there, ``serving/engine.py :: Engine.manifest``). Any later
 process loads it with :func:`load_exported`, which imports the port's
-operator library (``ops/flash_attention.py``, where the flash forward is the
-operator ``gradaccum::flash_fwd``) and nothing of the model code.
+operator libraries (``ops/flash_attention.py``, where the flash forward is
+the operator ``gradaccum::flash_fwd``, and ``ops/matmul.py``, whose
+``gradaccum::mm_f32`` is a float32 product on the card) and nothing of the
+model code.
 
 The batch dimension is exported as a dynamic ``Dim`` by default, so one
 artifact serves any batch size. torch specializes a dimension of size 1,
@@ -116,6 +118,7 @@ def load_exported(export_dir: str) -> Callable[[Dict[str, Any]], Dict[str, torch
     and the operator library. ``batch`` takes arrays or tensors; each input
     is cast to the manifest's dtype and moved to the artifact's device."""
     import gradaccum_tpu_torch.ops.flash_attention  # noqa: F401 (gradaccum::flash_fwd)
+    import gradaccum_tpu_torch.ops.matmul  # noqa: F401 (gradaccum::mm_f32)
 
     program = torch.export.load(os.path.join(export_dir, _BLOB))
     inputs = load_manifest(export_dir)["inputs"]

@@ -70,6 +70,7 @@ from gradaccum_tpu_torch.estimator.estimator import ModelBundle
 from gradaccum_tpu_torch.estimator.metrics import accuracy
 from gradaccum_tpu_torch.models.init import init_weights, store_in
 from gradaccum_tpu_torch.models.moe import ExpertShards, moe_apply, moe_init
+from gradaccum_tpu_torch.ops import matmul
 from gradaccum_tpu_torch.ops.sparse_embed import SparseEmbedHooks
 from gradaccum_tpu_torch.parallel import tp
 from gradaccum_tpu_torch.parallel.mesh import axis_mesh, current_mesh
@@ -145,8 +146,12 @@ def head_dropout(p, rate: float, generator: torch.Generator, first: int, total: 
 
 class Dense(nn.Linear):
     """flax ``nn.Dense(dtype=...)``: float32 parameters, the product in the
-    compute dtype. A column-parallel Dense (its output features split, the
-    input already through ``copy_to``) runs as is on its block."""
+    compute dtype. A float32 product goes through ``ops/matmul.py ::
+    linear`` (on the card, the bf16 tensor cores with each float32 operand
+    split into three bf16 terms; on the CPU, the plain float32 product),
+    which takes the input and weight in their own dtypes. A column-parallel
+    Dense (its output features split, the input already through
+    ``copy_to``) runs as is on its block."""
 
     def __init__(self, in_features: int, out_features: int, dtype):
         super().__init__(in_features, out_features)
@@ -154,6 +159,8 @@ class Dense(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
+        if dt == torch.float32:
+            return matmul.linear(x, self.weight, self.bias)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
     def row_parallel(self, x):
@@ -165,7 +172,9 @@ class Dense(nn.Linear):
         if axis is None:
             return self(x)
         dt = self.compute_dtype
-        y = tp.reduce_from(F.linear(x.to(dt), self.weight.to(dt)), axis_mesh(axis))
+        part = (matmul.linear(x, self.weight) if dt == torch.float32 else
+                F.linear(x.to(dt), self.weight.to(dt)))
+        y = tp.reduce_from(part, axis_mesh(axis))
         return y + self.bias.to(dt)
 
 

@@ -55,6 +55,7 @@ from gradaccum_tpu_torch.models.bert import (
     dropout,
 )
 from gradaccum_tpu_torch.models.init import init_weights, store_in
+from gradaccum_tpu_torch.ops import matmul
 from gradaccum_tpu_torch.parallel import tp
 from gradaccum_tpu_torch.parallel.mesh import axis_mesh
 
@@ -156,15 +157,17 @@ class GPTLM(nn.Module):
             else:
                 x = layer(x, mask, deterministic, generator)
         x = self.final_LayerNorm(x)
-        # the weight-tied head, in float32; a vocab-sharded table gives this
-        # rank's vocab slice of the logits, gathered whole (the loss after
-        # it is replicated, so the gather's backward keeps the slice)
+        # the weight-tied head, float32 logits from x and the table in their
+        # own dtypes (ops/matmul.py: exact bf16 products on the card); a
+        # vocab-sharded table gives this rank's vocab slice of the logits,
+        # gathered whole (the loss after it is replicated, so the gather's
+        # backward keeps the slice)
         table = self.word_embeddings.weight
         axis = tp.axis_of(table, 0)
         if axis is None:
-            return torch.einsum("bsd,vd->bsv", x.float(), table.float())
+            return matmul.linear(x, table)
         mesh = axis_mesh(axis)
-        part = torch.einsum("bsd,vd->bsv", tp.copy_to(x, mesh).float(), table.float())
+        part = matmul.linear(tp.copy_to(x, mesh), table)
         return tp.gather_slices(part, mesh, dim=-1)
 
 

@@ -137,13 +137,14 @@ def test_the_artifact_holds_the_flash_operator_and_no_model_code(tmp_path):
     program = torch.export.load(str(tmp_path / "model.pt2"))
     targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
     assert targets.count("gradaccum.flash_fwd.default") == 2  # one per layer
-    # load_exported needs the operator library, and no model module
+    # load_exported needs the operator libraries (the flash forward, and the
+    # float32 product an export on the card holds), and no model module
     tree = ast.parse(open(texport.__file__).read())
     imported = {a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
                 for a in node.names}
     imported |= {node.module for node in ast.walk(tree) if isinstance(node, ast.ImportFrom)}
     ours = {m for m in imported if m and m.startswith("gradaccum_tpu_torch")}
-    assert ours == {"gradaccum_tpu_torch.ops.flash_attention"}
+    assert ours == {"gradaccum_tpu_torch.ops.flash_attention", "gradaccum_tpu_torch.ops.matmul"}
 
 
 def test_flash_operator_fake_and_devices():
